@@ -5,15 +5,25 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from the checkout's sources, holds each kernel
-against its plain PyTorch version on the card, times both, then serves the
-flagship EasyDGL configuration (``PRESETS["EasyDGL"]``, 64 event marks, bf16
-matmuls, random weights from a seed loaded through the flax weight bridge)
-through the port's entry points: the eval step over a synthetic split and
-batched top-k ``Recommender.recommend`` requests. The launch counters show
-that the served path went through the kernels. Last, the same full-width
-model in fp32 runs one batch on the card and on the CPU and the logits are
-compared.
+It builds every CUDA kernel from the checkout's sources (one nvcc per
+source, all started together), holds each kernel against its plain PyTorch
+version on the card — the MAU/BiMAU forward and backward (dropout included,
+the same seed on both sides) and the catalog NLL forward and backward — and
+times each against its bound. Then it drives the port's two main paths on
+the flagship EasyDGL configuration (``PRESETS["EasyDGL"]``, 64 event marks,
+bf16 matmuls, random weights from a seed loaded through the flax weight
+bridge), each with the launch counters set to 0 just before it and read just
+after:
+
+* serving: the eval step over a synthetic split and batched top-k
+  ``Recommender.recommend`` requests;
+* training: 20 faithful train steps (dropout 0.1 / 0.1, TPP and L2 terms,
+  TF-Adam) through ``build_train_step`` with marks looked up on the device,
+  then 10 steps on one repeated batch whose loss must fall.
+
+Last, the same full-width model in fp32 runs one eval batch and one train
+step (8 rows, dropout 0) on the card and on the CPU, and the logits, the
+loss, every gradient and the updated parameters are compared.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -38,11 +48,18 @@ from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
 from easydgl_tpu_torch.eval.recommender import Recommender
 from easydgl_tpu_torch.kernels import build
-from easydgl_tpu_torch.kernels.mau_attention import (mau_attention,
-                                                     mau_attention_reference)
+from easydgl_tpu_torch.kernels.mau_attention import (
+    _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
+    mau_attention_bwd_reference, mau_attention_reference)
+from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
+                                               catalog_nll_bwd_reference,
+                                               catalog_nll_fwd,
+                                               catalog_nll_reference)
 from easydgl_tpu_torch.models.registry import build_model
 from easydgl_tpu_torch.parity import random_flax_params
-from easydgl_tpu_torch.train.steps import build_eval_step, to_device
+from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
+                                           device_marks, init_state,
+                                           loss_and_grads, to_device)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate,
 # and the operation rate for each input type.
@@ -58,9 +75,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # which bounds what such flips can move even where the sum cancels; `lam`
 # (fp32 out of the fp32 sums) to |plain|.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# Gradients and the catalog NLL's outputs, |kernel - plain| <= tol * the
+# output's largest |plain| entry: fp32 sums of up to B*H*Tq (126,976) terms
+# taken in another order and by atomics; in bf16 a reordered sum can also
+# flip the bf16 rounding of an intermediate (dz, sig, g) by one ulp.
+SCALE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # whole-model logits, fp32 on the card vs fp32 on the CPU
 SLICE_TOL = (1e-4, 1e-4)
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
+CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
+TRAIN_STEPS, REPEAT_STEPS = 20, 10
+MAU_GRADS = ("dq", "dk", "dv", "dt", "dWd", "dbd", "dw", "dscaling")
 
 
 def log(msg: str):
@@ -227,15 +252,241 @@ def phase_kernel_timing():
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         nbytes, flops = mau_work(**FLAGSHIP, dtype=dtype)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
         log(f"  {str(dtype):15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
             f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
             f" {flops / 1e9:.1f} GFLOP)  kernel/bound {ms / bound_ms:.1f}x")
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
+    return rows
+
+
+def compare_by_scale(name, labels, got, want, dtype):
+    """|kernel - plain| against SCALE_TOL of each output's largest entry;
+    returns the largest absolute error."""
+    tol, max_abs = SCALE_TOL[dtype], 0.0
+    for label, a, b in zip(labels, got, want):
+        a, b = a.float(), b.float()
+        check(tuple(a.shape) == tuple(b.shape), f"{name}: {label} shape")
+        check(bool(torch.isfinite(a).all()), f"{name}: {label} not finite")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        ratio = err / (tol * scale + 1e-6)
+        log(f"  {name:24s} {label:9s}: max_abs={err:.3e}"
+            f" max|plain|={scale:.3e} tol={tol:g}*max|plain|"
+            f" worst/tol={ratio:.3f}")
+        check(ratio <= 1.0, f"{name}: {label} outside tolerance")
+        max_abs = max(max_abs, err)
+    return max_abs
+
+
+def mau_bwd_args(args, dtype, seed):
+    """g_out and g_lam at the magnitudes training gives them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, w = args[0], args[9]
+    b, tq, c = q.shape
+    e, dh = w.shape
+    go = (torch.randn(b, tq, c, generator=g, device="cuda") * 1e-2).to(dtype)
+    gl = torch.randn(b, c // dh, tq, e, generator=g, device="cuda") * 1e-3
+    return go, gl
+
+
+def run_mau_bwd(args, *, causal, diag, h, rate, seed, plain):
+    """The forward kernel (training: dropout and the raw residual), then
+    the backward kernel or its plain version, the same seed on both."""
+    (q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos) = args
+    go, gl = mau_bwd_args(args, q.dtype, 7)
+    sd = torch.tensor(seed, dtype=torch.int64, device="cuda")
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=rate,
+              dropout_seed=sd, num_heads=h, qpos=qpos)
+    if plain:
+        return mau_attention_bwd_reference(q, k, v, t, km, iv, oh, wd, bd, w,
+                                           sc, go, gl, **kw)
+    _, _, raw = _launch_fwd(q, k, v, t, km, iv, oh, wd, bd, w, sc, causal,
+                            diag, h, qpos, _seed_tensor(sd, rate, q.device),
+                            rate, want_raw=True)
+    return mau_attention_bwd(q, k, v, t, km, iv, oh, wd, bd, w, sc, raw, go,
+                             gl, **kw)
+
+
+def phase_bwd_checks():
+    log("phase 3b: mau_attention backward (and the training forward) kernel"
+        " vs plain PyTorch on the card")
+    fl = FLAGSHIP
+    cases = [  # name, shape, dtype, causal, diag, gathered, dropout
+        ("bimau_bf16_flagship", fl, torch.bfloat16, False, True, False, 0.0),
+        ("bimau_bf16_drop", fl, torch.bfloat16, False, True, False, 0.1),
+        ("bimau_fp32_flagship", fl, torch.float32, False, True, False, 0.0),
+        ("bimau_fp32_drop", fl, torch.float32, False, True, False, 0.1),
+        ("mau_causal_bf16", fl, torch.bfloat16, True, False, False, 0.1),
+        ("mau_causal_fp32", fl, torch.float32, True, False, False, 0.0),
+        ("bimau_qpos_tq6_bf16", dict(fl, tq=6), torch.bfloat16, False, True,
+         True, 0.1),
+        ("bimau_qpos_tq6_fp32", dict(fl, tq=6), torch.float32, False, True,
+         True, 0.0),
+        ("tk128_fp32_drop", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
+         torch.float32, False, True, False, 0.1),
+        ("tk128_bf16", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
+         torch.bfloat16, True, False, False, 0.0),
+    ]
+    errs = {}
+    for i, (name, shape, dtype, causal, diag, gathered, rate) in \
+            enumerate(cases):
+        args = mau_inputs(**shape, dtype=dtype, gathered=gathered,
+                          seed=50 + i)
+        kw = dict(causal=causal, diag=diag, h=shape["h"], rate=rate,
+                  seed=1000 + i)
+        got = run_mau_bwd(args, plain=False, **kw)
+        torch.cuda.synchronize()
+        want = run_mau_bwd(args, plain=True, **kw)
+        if rate > 0:  # the training forward: the same mask on both sides
+            sd = torch.tensor(1000 + i, dtype=torch.int64, device="cuda")
+            fwd = [mau_attention(*args[:11], causal, diag, rate,
+                                 num_heads=shape["h"], qpos=args[11],
+                                 dropout_seed=sd)]
+            fwd.append(mau_attention_reference(
+                *args[:11], causal=causal, diag_reset=diag,
+                dropout_rate=rate, dropout_seed=sd, num_heads=shape["h"],
+                qpos=args[11]))
+            compare_by_scale(name + "_fwd", ("out", "lam"), fwd[0], fwd[1],
+                             dtype)
+        errs[name] = compare_by_scale(name, MAU_GRADS, got, want, dtype)
+        del want
+    # a fully masked row (row 0 of every case above) gets zero dq
+    check(float(got[0][0].float().abs().max()) == 0.0,
+          "fully masked row: dq not zero")
+    return errs
+
+
+def catalog_inputs(*, n, v, c, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(n, c, generator=g, device="cuda").to(dtype)
+    table = (torch.rand(v, c, generator=g, device="cuda") - 0.5) * (
+        2 * math.sqrt(6.0 / (v + c)))               # glorot, as the model
+    b = torch.randn(v, generator=g, device="cuda") * 0.1
+    b[0] = -1000.0
+    lab = torch.randint(0, v, (n,), generator=g, device="cuda")
+    lab[0], lab[-1] = 0, v - 1
+    dlse = torch.randn(n, generator=g, device="cuda") / n
+    dll = torch.randn(n, generator=g, device="cuda") / n
+    return h, table.to(dtype), b, lab, dlse, dll
+
+
+def phase_catalog_checks():
+    log("phase 3c: catalog_nll kernels vs plain PyTorch on the card")
+    cases = [("flagship_bf16", CATALOG, torch.bfloat16),
+             ("flagship_fp32", CATALOG, torch.float32),
+             ("unaligned_bf16", dict(n=77, v=1001, c=64), torch.bfloat16),
+             ("unaligned_fp32", dict(n=77, v=1001, c=64), torch.float32),
+             ("n15360_bf16", dict(CATALOG, n=15360), torch.bfloat16)]
+    errs = {}
+    for i, (name, shape, dtype) in enumerate(cases):
+        h, t, b, lab, dlse, dll = catalog_inputs(**shape, dtype=dtype,
+                                                 seed=70 + i)
+        got = catalog_nll_fwd(h, t, b, lab)
+        torch.cuda.synchronize()
+        want = catalog_nll_reference(h, t, b, lab)
+        e_f = compare_by_scale(name + "_fwd", ("lse", "ll"), got, want,
+                               dtype)
+        got = catalog_nll_bwd(h, t, b, lab, want[0], dlse, dll)
+        torch.cuda.synchronize()
+        check(got[0].dtype == got[1].dtype == dtype, f"{name}: grad dtype")
+        want = catalog_nll_bwd_reference(h, t, b, lab, want[0], dlse, dll)
+        e_b = compare_by_scale(name + "_bwd", ("d_hidden", "d_table",
+                                               "d_bias"), got, want, dtype)
+        errs[name] = (e_f, e_b)
+    return errs
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def mau_bwd_work(*, b, tq, tk, h, dh, e, dtype):
+    """(bytes, flops) of the backward: q, k, v, t, g_out in and dq..dt out
+    in the compute dtype; the small inputs, raw, g_lam and the weight
+    gradients in fp32; z recomputed once, dx and dWd, and the attention
+    products (probs recomputed, dmod, dv, dint @ onehot, su, dprobs, dt,
+    dq, dk)."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    c, rows = h * dh, b * h * tq
+    nbytes = (it * 2 * (2 * b * tq * c + 3 * b * tk * c)      # in + out
+              + 4 * (b * tk + 2 * b * tq + b * tk * e)      # mask iv qpos oh
+              + 4 * 2 * rows * e                            # raw, g_lam
+              + 4 * 2 * ((dh + 1) * e * dh + 2 * e * dh + e))  # weights, grads
+    flops = 2 * rows * (3 * (dh + 1) * e * dh + e * dh
+                        + 8 * tk * dh + 2 * tk * e)
+    return nbytes, flops
+
+
+def catalog_work(*, n, v, c, dtype, backward):
+    it = torch.tensor([], dtype=dtype).element_size()
+    if backward:   # h, T, b, labels, lse, dlse, dll in; dh, dT, db out
+        return (2 * it * (n * c + v * c) + 8 * v + 16 * n,
+                3 * 2 * n * v * c)
+    return it * (n * c + v * c) + 4 * v + 12 * n, 2 * n * v * c
+
+
+def phase_train_kernel_timing():
+    log("phase 4b: timing of the training kernels at the flagship train "
+        "shape (MAU: B=512, T=31, H=8, dh=64, E=64, dropout 0.1; catalog: "
+        "N=3072, V=17,772, C=512)")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = mau_inputs(**FLAGSHIP, dtype=dtype, gathered=False, seed=200)
+        kw = dict(causal=False, diag=True, h=8, rate=0.1, seed=5)
+        sd = _seed_tensor(5, 0.1, torch.device("cuda"))
+        (q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos) = args
+        ms_fwd_train = time_ms(lambda: _launch_fwd(
+            q, k, v, t, km, iv, oh, wd, bd, w, sc, False, True, 8, qpos, sd,
+            0.1, want_raw=True))
+        _, _, raw = _launch_fwd(q, k, v, t, km, iv, oh, wd, bd, w, sc, False,
+                                True, 8, qpos, sd, 0.1, want_raw=True)
+        go, gl = mau_bwd_args(args, dtype, 7)
+        ms = time_ms(lambda: mau_attention_bwd(
+            q, k, v, t, km, iv, oh, wd, bd, w, sc, raw, go, gl, causal=False,
+            diag_reset=True, dropout_rate=0.1, dropout_seed=sd, num_heads=8,
+            qpos=qpos), iters=5)
+        plain_ms = time_ms(lambda: run_mau_bwd(args, plain=True, **kw),
+                           warmup=1, iters=1)
+        nbytes, flops = mau_bwd_work(**FLAGSHIP, dtype=dtype)
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        log(f"  mau_attention_bwd {str(dtype):15s} kernel {ms:.4f} ms"
+            f" (forward with dropout + residual {ms_fwd_train:.4f} ms)"
+            f"  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+            f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)"
+            f"  kernel/bound {ms / bound_ms:.1f}x")
+        rows[("mau_attention_bwd", dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, fwd_train_ms=ms_fwd_train)
+        h, tb, b, lab, dlse, dll = catalog_inputs(**CATALOG, dtype=dtype,
+                                                  seed=300)
+        lse, _ = catalog_nll_fwd(h, tb, b, lab)
+        gemm_ms = time_ms(lambda: h @ tb.t())
+        for name, kern, plain, backward in (
+                ("catalog_nll_fwd",
+                 lambda: catalog_nll_fwd(h, tb, b, lab),
+                 lambda: catalog_nll_reference(h, tb, b, lab), False),
+                ("catalog_nll_bwd",
+                 lambda: catalog_nll_bwd(h, tb, b, lab, lse, dlse, dll),
+                 lambda: catalog_nll_bwd_reference(h, tb, b, lab, lse, dlse,
+                                                   dll), True)):
+            ms = time_ms(kern, iters=10)
+            plain_ms = time_ms(plain, warmup=1, iters=3)
+            nbytes, flops = catalog_work(**CATALOG, dtype=dtype,
+                                         backward=backward)
+            bound_ms, bound_by = bound(nbytes, flops, dtype)
+            log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
+                f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+                f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)"
+                f"  kernel/bound {ms / bound_ms:.1f}x; for scale, one"
+                f" cuBLAS h @ T^T: {gemm_ms:.4f} ms")
+            rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=None, gemm_ms=gemm_ms)
     return rows
 
 
@@ -339,6 +590,139 @@ def phase_slice_cpu_vs_card(batch, table):
     check(ratio <= 1.0, "card vs CPU logits outside tolerance")
 
 
+def phase_train():
+    log("phase 7: EasyDGL faithful train steps at full width on the card "
+        "(dropout 0.1 / 0.1, TPP + L2, TF-Adam, marks looked up on device)")
+    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    bs = cfg.batch_size
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    split = synthetic_split_vectorized(num_rows=4 * bs,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=2)
+    loader = BatchLoader(split, data_mode=model.data_mode, batch_size=bs,
+                         masklen=cfg.masklen, is_training=True)
+    # on the device before the timed loop, as bench.py puts its batches: a
+    # copy from pageable host memory would wait for the card every step
+    batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
+               for f, lab, _ in loader.epoch(0)]
+    step = build_train_step(model, mark_table=table)
+    state = init_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for features, labels in batches[:2]:  # warm-up, not counted
+        state, _ = step(state, features, labels, gen)
+    torch.cuda.synchronize()
+
+    counters = (mau_attention, mau_attention_bwd, catalog_nll_fwd,
+                catalog_nll_bwd)
+    for fn in counters:
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        features, labels = batches[i % len(batches)]
+        state, loss = step(state, features, labels, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    repeated = []
+    for _ in range(REPEAT_STEPS):
+        state, loss = step(state, *batches[0], gen)
+        repeated.append(loss)
+    losses = [float(x) for x in losses]
+    repeated = [float(x) for x in repeated]
+    check(all(math.isfinite(x) for x in losses + repeated),
+          "train: a loss is not finite")
+    check(repeated[-1] < repeated[0],
+          f"train: loss on a repeated batch did not fall ({repeated})")
+    per_step = {"mau_attention": cfg.num_blocks,
+                "mau_attention_bwd": cfg.num_blocks,
+                "catalog_nll_fwd": 1, "catalog_nll_bwd": 1}
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"train: {name} launched {launches[name]} times in "
+              f"{TRAIN_STEPS} steps, expected {n} per step")
+    ms_step = elapsed / TRAIN_STEPS * 1e3
+    ex_s = TRAIN_STEPS * bs / elapsed
+    log(f"  losses: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+        f"repeated batch {repeated[0]:.5f} -> {repeated[-1]:.5f}")
+    log(f"  train: {TRAIN_STEPS} steps x {bs} rows in {elapsed:.4f} s ="
+        f" {ms_step:.4f} ms/step, {ex_s:.1f} train ex/s (host clock,"
+        f" synchronised, batches on the device, after 2 warm-up steps)")
+    log(f"  launches in the {TRAIN_STEPS} steps: " + json.dumps(launches))
+    return launches, ms_step, ex_s
+
+
+def phase_train_cpu_vs_card():
+    log("phase 8: full-width fp32 train step, card (kernels) vs CPU "
+        "(plain), 8 rows, dropout 0")
+    cfg = preset("EasyDGL", num_events=64, batch_size=8,
+                 hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0)
+    params = random_flax_params(cfg, seed=0)
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    split = synthetic_split_vectorized(num_rows=8, num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=3)
+    features, labels, _ = next(BatchLoader(
+        split, data_mode="mau", batch_size=8, masklen=cfg.masklen,
+        is_training=True).epoch(0))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, params=params)
+        lab = torch.as_tensor(labels, device=dev)
+        feats = device_marks(to_device(features, dev), lab,
+                             torch.as_tensor(table, dtype=torch.float32,
+                                             device=dev), is_training=True)
+        _, grads = loss_and_grads(model, feats, lab)
+        state, loss = build_train_step(model, mark_table=table)(
+            init_state(model), features, labels, torch.Generator(device=dev))
+        res[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                    {k: p.detach().cpu() for k, p in state.params.items()})
+    (loss_c, grads_c, params_c), (loss_p, grads_p, params_p) = \
+        res["cuda"], res["cpu"]
+    log(f"  loss card {loss_c:.7f} CPU {loss_p:.7f}")
+    check(abs(loss_c - loss_p) <= 1e-5 * abs(loss_p), "train loss card vs CPU")
+    # gradients: 1e-4 of each leaf's largest entry (fp32 sums reassociated,
+    # atomics on the card). Parameters: TF-Adam's first step is
+    # u(g) = -lr g / (|g| + e'), e' = eps / sqrt(1 - b2), so a gradient
+    # known to within d moves it by up to lr e' d / (|g| - d)^2 where
+    # |g| > 2d, and by up to 2 lr where |g| <= 2d.
+    lr, eps_t1 = cfg.optim.learning_rate, cfg.optim.eps / math.sqrt(
+        1 - cfg.optim.beta2)
+    worst_g = worst_p = 0.0
+    for name, want in grads_p.items():
+        d = 1e-4 * float(want.abs().max()) + 1e-12
+        err = float((grads_c[name] - want).abs().max())
+        worst_g = max(worst_g, err / d)
+        g = want.abs()
+        bnd = torch.where(g > 2 * d, 1e-6 + 1e-5 * params_p[name].abs()
+                          + lr * eps_t1 * d / (g - d).clamp_min(d) ** 2,
+                          torch.tensor(2 * lr))
+        perr = (params_c[name] - params_p[name]).abs()
+        worst_p = max(worst_p, float((perr / bnd).max()))
+    log(f"  {len(grads_p)} gradient leaves: worst |card - CPU| / (1e-4 *"
+        f" max|CPU|) = {worst_g:.3f}; parameters after the update: worst"
+        f" error / bound = {worst_p:.3f}")
+    check(worst_g <= 1.0, "train gradients card vs CPU outside tolerance")
+    check(worst_p <= 1.0, "updated parameters card vs CPU outside tolerance")
+
+
+def kernel_names(log_text: str):
+    """kernel<dtype, template ints...> of an entry function in a ptxas
+    report line."""
+    m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
+                  r"mau_bwd_weights|catalog_kernel|catalog_merge)(I?\w*)",
+                  log_text)
+    if not m:
+        return None
+    rest = m.group(2)
+    args = (["bf16"] if "bfloat16" in rest else
+            ["fp32"] if rest.startswith("If") else [])
+    args += re.findall(r"L[ib](\d+)E", rest)
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -358,34 +742,61 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     log("phase 2: build")
-    seconds = build.build(["mau_attention_fwd"])
+    sources = ["mau_attention_fwd", "mau_attention_bwd", "catalog_nll"]
+    seconds = build.build(sources)
     for name, s in seconds.items():
         log(f"  {name}: nvcc {s:.1f} s")
         report = (build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         for line in report:
-            entry = re.search(
-                r"Compiling entry function '_Z\w*?I(\w+?)Li(\d+)E", line)
-            if entry:
-                log(f"    {name}<{entry.group(1)}, {entry.group(2)}>:")
+            if "Compiling entry function" in line:
+                log(f"    {kernel_names(line) or line.strip()}:")
             if "registers" in line or "spill" in line:
                 log("      " + line.split(":", 1)[-1].strip())
 
     errs = phase_kernel_checks()
+    bwd_errs = phase_bwd_checks()
+    cat_errs = phase_catalog_checks()
     timing = phase_kernel_timing()
-    launches, batch, table = phase_slice()
+    train_timing = phase_train_kernel_timing()
+    serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
+    train_launches, ms_step, ex_s = phase_train()
+    phase_train_cpu_vs_card()
 
-    main_row = timing[torch.bfloat16]
-    kernels = [{
-        "name": "mau_attention_fwd", "route": "cuda",
-        "source": "easydgl_tpu_torch/kernels/csrc/mau_attention_fwd.cu",
-        "replaces": "easydgl_tpu/kernels/mau_attention.py:690",
-        "launches": launches,
-        "max_abs_err": errs["bimau_bf16_flagship"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]
+    csrc = "easydgl_tpu_torch/kernels/csrc/"
+    bf16 = torch.bfloat16
+    main_row = timing[bf16]
+    kernels = [dict(
+        name="mau_attention_fwd", route="cuda",
+        source=csrc + "mau_attention_fwd.cu",
+        replaces="easydgl_tpu/kernels/mau_attention.py:690",
+        launches=serve_launches + train_launches["mau_attention"],
+        launches_per_path={"serving": serve_launches,
+                           "training": train_launches["mau_attention"]},
+        max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
+        plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+        bound_by=main_row["bound_by"], library_ms=None)]
+    for name, source, replaces, err in (
+            ("mau_attention_bwd", "mau_attention_bwd.cu",
+             "easydgl_tpu/kernels/mau_attention.py:757",
+             bwd_errs["bimau_bf16_drop"]),
+            ("catalog_nll_fwd", "catalog_nll.cu",
+             "easydgl_tpu/kernels/scoring.py:84",
+             cat_errs["flagship_bf16"][0]),
+            ("catalog_nll_bwd", "catalog_nll.cu",
+             "easydgl_tpu/kernels/scoring.py:292",
+             cat_errs["flagship_bf16"][1])):
+        row = train_timing[(name, bf16)]
+        entry = dict(name=name, route="cuda", source=csrc + source,
+                     replaces=replaces, launches=train_launches[name],
+                     max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                     library_ms=None)
+        if name == "catalog_nll_bwd":
+            entry["also_replaces"] = ["easydgl_tpu/kernels/scoring.py:323",
+                                      "easydgl_tpu/kernels/scoring.py:343"]
+        kernels.append(entry)
+    log(f"train: {ms_step:.4f} ms/step, {ex_s:.1f} ex/s at B=512 on {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout, compiled
-for ``sm_90a`` at first use. The digest is of the source text, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs at
-import time: this module imports on machines without ``nvcc`` or a card.
+for ``sm_90a`` at first use. The digest is of the source text and the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale library
+is never loaded. Nothing here runs at import time: this module imports on
+machines without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
@@ -36,8 +37,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, keyed by a digest of the source and of every
+    shared header in ``csrc/``."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, float]:

@@ -11,9 +11,15 @@
 //   raw[e] = sum_j sigmoid(z)[e*dh+j] * w[e, j]
 //   lam    = s_e * softplus(raw / s_e),  s_e = exp(scaling[e])
 //   iqk    = lam @ onehot^T; BiMAU: iqk[i, qpos[i]] := 1
-//   out    = (iqk * probs) @ v
+//   out    = dropout(iqk * probs) @ v
 //
-// Outputs: out (B, Tq, C) in the input dtype, lam (B, H, Tq, E) in fp32.
+// Outputs: out (B, Tq, C) in the input dtype, lam (B, H, Tq, E) in fp32, and
+// for training the residual raw (B, H, Tq, E) fp32 that the backward
+// (mau_attention_bwd.cu) reads for sigmoid(raw/s) and d scaling; probs are
+// cheap to recompute there and are not stored. Dropout (training) keeps an
+// entry by a Philox draw that is a pure function of (seed, b, h, i, j)
+// (common.cuh), so the backward regenerates the mask bit for bit. With no
+// seed and no raw pointer (eval) both cost one uniform branch each.
 //
 // What bounds it: the intensity head. z is a (Tq x (dh+1)) @ ((dh+1) x E*dh)
 // product per (b, h) — 67.6 GFLOP at the flagship eval shape against ~2 GFLOP
@@ -41,12 +47,11 @@
 // Limits: 1 <= Tq <= Tk <= 128, dh in {16, 32, 64, 128}, and the block's
 // shared memory (mau_attention_fwd_smem_bytes) within 227 KB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace port;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -69,15 +74,13 @@ struct Params {
   const float* scaling;    // (E,)
   void* out;               // (B, Tq, H*dh), input dtype
   float* lam;              // (B, H, Tq, E)
+  float* raw;              // (B, H, Tq, E) or null (eval)
+  const long long* seed;   // dropout seed (device scalar) or null (no dropout)
+  unsigned drop_thresh;
+  float drop_scale;
   float scale;
   int B, Tq, Tk, H, E, causal, diag_reset;
 };
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // K of the bf16 z product, padded to the mma's depth of 16.
 __host__ __device__ inline int kpad(int dh) { return round_up(dh + 1, 16); }
@@ -112,30 +115,6 @@ __host__ __device__ inline size_t smem_bytes(int Tq, int Tk, int dh, int E) {
   return sizeof(float) * (size_t)(l.x + l.a + l.v + l.p + l.small);
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Round an fp32 value to T's precision (round to nearest even), kept fp32.
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float sigmoid(float z) {
-  return __fdividef(1.f, 1.f + __expf(-z));
-}
-
 __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
@@ -157,15 +136,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 __device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
   y.x = fmaf(a, x.x, y.x); y.y = fmaf(a, x.y, y.y);
   y.z = fmaf(a, x.z, y.z); y.w = fmaf(a, x.w, y.w);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
 // raw[r][e] for r < Tq into lam_s (row stride lde): bf16 on the tensor cores.
@@ -219,7 +189,7 @@ __device__ void intensity_head_mma(const Params& p, const __nv_bfloat16* xb,
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt][ks], bf[nt]);
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt][ks], bf[nt].x, bf[nt].y);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
@@ -432,17 +402,19 @@ __global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 
   }
   __syncthreads();
 
-  // lam = s * softplus(raw / s), softplus(x) = max(x, 0) + log1p(exp(-|x|));
-  // the padding columns of the lam and one-hot rows are zero
+  // lam = s * softplus(raw / s); the padding columns of the lam and one-hot
+  // rows are zero
   float* lam_out = p.lam + ((size_t)b * p.H + h) * Tq * E;
+  float* raw_out = p.raw ? p.raw + ((size_t)b * p.H + h) * Tq * E : nullptr;
   for (int idx = tid; idx < Tq * E4 * 4; idx += kThreads) {
     const int i = idx / (E4 * 4), e = idx - i * E4 * 4;
     float v = 0.f;
     if (e < E) {
       const float s = expf(p.scaling[e]);
-      const float x = lam_s[i * lde + e] / s;
-      v = s * (fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))));
+      const float r = lam_s[i * lde + e];
+      v = s * softplus(r / s);
       lam_out[i * E + e] = v;
+      if (raw_out) raw_out[i * E + e] = r;
     }
     lam_s[i * lde + e] = v;
   }
@@ -452,7 +424,8 @@ __global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 
   }
   __syncthreads();
 
-  // ---- phase 3: modulation (diagonal reset at qpos) and @v
+  // ---- phase 3: modulation (diagonal reset at qpos), dropout and @v
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
   for (int idx = tid; idx < Tq * Tk; idx += kThreads) {
     const int i = idx / Tk, j = idx - i * Tk;
     float iqk = 1.f;
@@ -462,7 +435,9 @@ __global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 
       iqk = 0.f;
       for (int e = 0; e < E4; ++e) iqk = dot4(la[e], oa[e], iqk);
     }
-    ps[idx] = rnd<T>(iqk * ps[idx]);
+    float m = iqk * ps[idx];
+    if (drop.on) m *= drop.factor(b, h, i, j);
+    ps[idx] = rnd<T>(m);
   }
   __syncthreads();
 
@@ -512,7 +487,9 @@ size_t mau_attention_fwd_smem_bytes(int Tq, int Tk, int dh, int E) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, t, wd, w and out). In bf16 mode
-// `wd` is Wd packed as mma B fragments (intensity_head_mma).
+// `wd` is Wd packed as mma B fragments (intensity_head_mma). `raw` (may be
+// null) receives the training residual; `seed` (an int64 on the device, or
+// null for no dropout) keys the dropout mask.
 int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
                       const void* k, long long k_bs, long long k_rs,
                       const void* v, long long v_bs, long long v_rs,
@@ -520,9 +497,10 @@ int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
                       const void* key_mask, const void* intervals,
                       const void* qpos, const void* onehot, const void* wd,
                       const void* bd, const void* w, const void* scaling,
-                      void* out, void* lam, int B, int Tq, int Tk, int H,
-                      int dh, int E, int causal, int diag_reset, float scale,
-                      int dtype, void* stream) {
+                      void* out, void* lam, void* raw, const void* seed,
+                      unsigned drop_thresh, float drop_scale, int B, int Tq,
+                      int Tk, int H, int dh, int E, int causal, int diag_reset,
+                      float scale, int dtype, void* stream) {
   if (Tq < 1 || Tk < Tq || Tk > 128 || E < 1 || B < 1 || H < 1 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -542,6 +520,10 @@ int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
   p.scaling = static_cast<const float*>(scaling);
   p.out = out;
   p.lam = static_cast<float*>(lam);
+  p.raw = static_cast<float*>(raw);
+  p.seed = static_cast<const long long*>(seed);
+  p.drop_thresh = drop_thresh;
+  p.drop_scale = drop_scale;
   p.scale = scale;
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.E = E;
   p.causal = causal; p.diag_reset = diag_reset;

@@ -1,4 +1,4 @@
-"""Fused MAU/BiMAU self-modulating attention, forward (port of
+"""Fused MAU/BiMAU self-modulating attention, forward and backward (port of
 ``easydgl_tpu.kernels.mau_attention``).
 
 The whole chain after the Q/K/V/T projections, on the natural (B, T, C)
@@ -10,15 +10,23 @@ layout (head h in channels [h*dh, (h+1)*dh), reference sequential.py:39-41):
     raw[e] = sum_d sig[e*dh+d] * w[e, d]
     lam = s * softplus(raw / s), s = exp(scaling)
     intensity_qk = lam @ onehot^T  (BiMAU: := 1 at col == qpos)
-    out = (intensity_qk * probs) @ V
+    out = dropout(intensity_qk * probs) @ V
 
-``mau_attention`` dispatches on where its tensors lie: CUDA tensors go to the
-hand-written kernel ``csrc/mau_attention_fwd.cu`` (or raise), CPU tensors to
-``mau_attention_reference``, the plain PyTorch version of the same function.
-Each kernel launch adds one to ``mau_attention.launches``.
+``mau_attention`` dispatches on where its tensors lie. CPU tensors take
+``mau_attention_reference``, the plain PyTorch version, and autograd
+differentiates it. CUDA tensors launch the hand-written kernels (or raise):
+``csrc/mau_attention_fwd.cu`` forward and, under autograd,
+``csrc/mau_attention_bwd.cu`` backward, through ``_MauAttention``.
+``mau_attention_bwd`` is the backward's wrapper and
+``mau_attention_bwd_reference`` its plain version. Each kernel launch adds
+one to ``mau_attention.launches`` (forward) or ``mau_attention_bwd.launches``.
 
-Dropout inside the chain (training only) is not part of this module yet:
-``dropout_rate > 0`` raises on both paths.
+Dropout draws its bits from Philox4x32-10 (``philox4x32_10``, and the same
+generator in ``csrc/common.cuh``): entry (b, h, i, j) of the modulated probs
+is kept where the first output word of counter (j, i, h, b) under key
+(seed mod 2^32, seed >> 32) is below min(floor((1-p) 2^32), 2^32 - 1), and
+scaled by 1/(1-p). The mask is a pure function of the seed and the index, so
+the forward, the backward and the plain version draw the same one.
 """
 from __future__ import annotations
 
@@ -30,11 +38,66 @@ import torch
 from easydgl_tpu_torch.kernels import build
 
 NEG = -(2.0 ** 32) + 1.0   # the reference's mask value
-KERNEL_TK_MAX = 128        # longest key sequence the kernel takes
+KERNEL_TK_MAX = 128        # longest key sequence the kernels take
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_SMEM_MAX = 232448   # bytes of shared memory one block may use
+BWD_ROWS_PER_CHUNK = 2048  # rows of each dWd block (mau_bwd_weights)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIB = "mau_attention_fwd"
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+# ---------------------------------------------------------------- dropout
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of a * b for a < 2^32 and int64 b < 2^32,
+    without overflowing int64: b is split into 16-bit halves."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 (Salmon et al., SC'11; the Random123 constants) on
+    int64 tensors holding 32-bit values; returns the four output words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep threshold on a uint32 draw; clamped so rate 0 keeps all."""
+    return min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def dropout_factor(seed, shape, rate: float, device) -> torch.Tensor:
+    """(B, H, Tq, Tk) fp32 keep factors, 1/(1-rate) or 0, of the attention
+    dropout. ``seed``: int or int64 scalar tensor. Row i of the mask is
+    query row i of the call (not its original position)."""
+    b, h, tq, tk = shape
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=device)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    c3 = ar(b)[:, None, None, None]
+    c2 = ar(h)[None, :, None, None]
+    c1 = ar(tq)[None, None, :, None]
+    c0 = ar(tk)[None, None, None, :]
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    bits = philox4x32_10(c0, c1, c2, c3, k0, k1)[0]
+    keep = bits < dropout_threshold(rate)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
+                         device=device)
+    return torch.where(keep, scale, torch.zeros((), device=device))
+
+
+# ---------------------------------------------------------------- plain
 
 
 def _round_to(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -42,10 +105,69 @@ def _round_to(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return x.to(dt).float() if dt != torch.float32 else x
 
 
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, t, c = x.shape
+    return x.float().reshape(b, t, h, c // h).permute(0, 2, 1, 3)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * d)
+
+
+def _chain(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling, *,
+           causal, diag_reset, dropout_rate, dropout_seed, num_heads, qpos):
+    """The plain chain, every intermediate the backward needs."""
+    cdt = q.dtype
+    r = lambda x: _round_to(x, cdt)  # noqa: E731
+    b, tq, _ = q.shape
+    tk = k.shape[1]
+    e, dh = w.shape
+    h = num_heads
+    dev = q.device
+    qh, kh, vh, th = (_heads(x, h) for x in (q, k, v, t))
+    if qpos is None:
+        qpos = torch.arange(tq, device=dev)[None].expand(b, tq)
+    qpos = qpos.long()
+    kpos = torch.arange(tk, device=dev)
+    s = (qh @ kh.transpose(-1, -2)) * (1.0 / dh ** 0.5)
+    valid = (key_mask[:, None, None, :] != 0).expand(b, h, tq, tk)
+    if causal:
+        valid = valid & (kpos[None, None, None, :] <= qpos[:, None, :, None])
+    s = torch.where(valid, s, NEG)
+    probs = torch.softmax(s, dim=-1)
+    seq_units = r(probs) @ th                                # (B, H, Tq, dh)
+    iv = intervals.float()[:, None, :, None].expand(b, h, tq, 1)
+    x = r(torch.cat([seq_units, iv], dim=-1))
+    wdr = r(wd.float())
+    sig = r(torch.sigmoid(x @ wdr + bd.float()))             # (B, H, Tq, E*dh)
+    wr = r(w.float())
+    raw = (sig.reshape(b, h, tq, e, dh) * wr).sum(-1)        # (B, H, Tq, E)
+    sc = torch.exp(scaling.float())
+    lam = sc * torch.logaddexp(raw / sc, torch.zeros((), device=dev))
+    iqk = lam @ onehot.float().transpose(1, 2)[:, None]
+    is_diag = None
+    if diag_reset:
+        is_diag = kpos[None, None, None, :] == qpos[:, None, :, None]
+        iqk = torch.where(is_diag, 1.0, iqk)
+    modulated = iqk * probs
+    drop = None
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("mau_attention: dropout_rate > 0 needs a seed")
+        drop = dropout_factor(dropout_seed, (b, h, tq, tk), dropout_rate, dev)
+        modulated = modulated * drop
+    out = r(modulated) @ vh                                  # (B, H, Tq, dh)
+    return dict(qh=qh, kh=kh, vh=vh, th=th, probs=probs, valid=valid, x=x,
+                wdr=wdr, sig=sig, wr=wr, raw=raw, sc=sc, lam=lam, iqk=iqk,
+                is_diag=is_diag, drop=drop, out=out)
+
+
 def mau_attention_reference(q, k, v, t, key_mask, intervals, onehot,
                             wd, bd, w, scaling, *, causal: bool = False,
                             diag_reset: bool = False,
-                            dropout_rate: float = 0.0, num_heads: int,
+                            dropout_rate: float = 0.0, dropout_seed=None,
+                            num_heads: int,
                             qpos: Optional[torch.Tensor] = None):
     """Plain PyTorch version, materialized (the chain of the JAX package's
     nn/temporal.py:687-712), with the kernel's argument contract.
@@ -54,81 +176,185 @@ def mau_attention_reference(q, k, v, t, key_mask, intervals, onehot,
     rounded to bf16 exactly where the kernel rounds them (probs before @T,
     [seq_units | interval], Wd and w, the sigmoid, the modulated probs
     before @V) and every sum is fp32 — the precision contract of the TPU
-    kernel (mau_attention.py:247-270)."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "mau_attention: dropout inside the chain comes with the training "
-            "path; call with dropout_rate=0.0")
+    kernel (mau_attention.py:247-270). Differentiable by autograd."""
+    c = _chain(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
+               causal=causal, diag_reset=diag_reset,
+               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+               num_heads=num_heads, qpos=qpos)
+    return _merge(c["out"]).to(q.dtype), c["lam"]
+
+
+@torch.no_grad()
+def mau_attention_bwd_reference(q, k, v, t, key_mask, intervals, onehot,
+                                wd, bd, w, scaling, g_out, g_lam, *,
+                                causal: bool = False,
+                                diag_reset: bool = False,
+                                dropout_rate: float = 0.0, dropout_seed=None,
+                                num_heads: int,
+                                qpos: Optional[torch.Tensor] = None):
+    """Plain version of the backward, written out (the TPU kernel's
+    ``_bwd_kernel``, mau_attention.py:406-521) with its bf16 rounding points:
+    the (rows, E*dh) intermediates dsw, dsig, dz are in the compute dtype,
+    the product operands (g_out, the modulated probs, x, Wd, dseq, dlogit)
+    are rounded to it, sums are fp32. Returns (dq, dk, dv, dt) in q's dtype
+    and (dWd, dbd, dw, dscaling) in fp32."""
     cdt = q.dtype
-    b, tq, c = q.shape
-    tk = k.shape[1]
+    r = lambda x: _round_to(x, cdt)  # noqa: E731
+    c = _chain(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
+               causal=causal, diag_reset=diag_reset,
+               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+               num_heads=num_heads, qpos=qpos)
+    b, tq, _ = q.shape
     e, dh = w.shape
     h = num_heads
-    dev = q.device
+    probs, iqk, drop, sig, x = c["probs"], c["iqk"], c["drop"], c["sig"], c["x"]
+    go = r(_heads(g_out, h))
+    modulated = iqk * probs
+    if drop is not None:
+        modulated = modulated * drop
+    dv = r(modulated).transpose(-1, -2) @ go
+    dmod = go @ c["vh"].transpose(-1, -2)
+    if drop is not None:
+        dmod = dmod * drop
+    dprobs = dmod * iqk
+    dint = dmod * probs
+    if c["is_diag"] is not None:
+        dint = torch.where(c["is_diag"], 0.0, dint)
+    dlam = dint @ onehot.float()[:, None] + g_lam.float()
+    xr = c["raw"] / c["sc"]
+    sr = torch.sigmoid(xr)
+    draw = dlam * sr
+    softplus = torch.logaddexp(xr, torch.zeros((), device=q.device))
+    dsc = (dlam * (softplus - sr * xr) * c["sc"]).sum((0, 1, 2))
+    dsw = r(draw)[..., :, None].expand(b, h, tq, e, dh).reshape(
+        b, h, tq, e * dh)
+    dw = r(dsw * sig).sum((0, 1, 2)).reshape(e, dh)
+    dsig = r(dsw * c["wr"].reshape(e * dh))
+    dz = r(r(dsig * sig) * r(1.0 - sig))
+    dx = dz @ c["wdr"].t()
+    dwd = torch.einsum("bhqc,bhqn->cn", x, dz)
+    dbd = dz.sum((0, 1, 2))
+    dseq = r(dx[..., :dh])
+    dprobs = dprobs + dseq @ c["th"].transpose(-1, -2)
+    dt = r(probs).transpose(-1, -2) @ dseq
+    dlogit = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True))
+    dlogit = r(torch.where(c["valid"], dlogit, 0.0) * (1.0 / dh ** 0.5))
+    dq = dlogit @ c["kh"]
+    dk = dlogit.transpose(-1, -2) @ c["qh"]
+    return (_merge(dq).to(cdt), _merge(dk).to(cdt), _merge(dv).to(cdt),
+            _merge(dt).to(cdt), dwd, dbd, dw, dsc)
 
-    def heads(x):
-        return x.float().reshape(b, x.shape[1], h, dh).permute(0, 2, 1, 3)
 
-    qh, kh, vh, th = heads(q), heads(k), heads(v), heads(t)
-    if qpos is None:
-        qpos = torch.arange(tq, device=dev)[None].expand(b, tq)
-    qpos = qpos.long()
-    kpos = torch.arange(tk, device=dev)
-    s = (qh @ kh.transpose(-1, -2)) * (1.0 / dh ** 0.5)
-    s = torch.where(key_mask[:, None, None, :] != 0, s, NEG)
-    if causal:
-        s = torch.where(kpos[None, None, None, :] <= qpos[:, None, :, None],
-                        s, NEG)
-    probs = torch.softmax(s, dim=-1)
-    seq_units = _round_to(probs, cdt) @ th                   # (B, H, Tq, dh)
-    iv = intervals.float()[:, None, :, None].expand(b, h, tq, 1)
-    x = _round_to(torch.cat([seq_units, iv], dim=-1), cdt)
-    z = x @ _round_to(wd.float(), cdt)                       # (B, H, Tq, E*dh)
-    sig = _round_to(torch.sigmoid(z + bd.float()), cdt)
-    raw = (sig.reshape(b, h, tq, e, dh)
-           * _round_to(w.float(), cdt)).sum(-1)              # (B, H, Tq, E)
-    sc = torch.exp(scaling.float())
-    lam = sc * torch.logaddexp(raw / sc, torch.zeros((), device=dev))
-    intensity_qk = lam @ onehot.float().transpose(1, 2)[:, None]
-    if diag_reset:
-        is_diag = kpos[None, None, None, :] == qpos[:, None, :, None]
-        intensity_qk = torch.where(is_diag, 1.0, intensity_qk)
-    out = _round_to(intensity_qk * probs, cdt) @ vh          # (B, H, Tq, dh)
-    out = out.permute(0, 2, 1, 3).reshape(b, tq, c)
-    return out.to(cdt), lam
+# ---------------------------------------------------------------- dispatch
 
 
 def mau_attention(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
                   scaling, causal: bool = False, diag_reset: bool = False,
                   dropout_rate: float = 0.0, *, num_heads: int,
-                  qpos: Optional[torch.Tensor] = None):
+                  qpos: Optional[torch.Tensor] = None, dropout_seed=None):
     """Fused self-modulating attention (natural-layout wire format).
 
     q: (B, Tq, C); k/v/t: (B, Tk, C), C = num_heads*dh; key_mask: (B, Tk),
     nonzero where the key is real; intervals: (B, Tq); onehot: (B, Tk, E);
     wd: (dh+1, E*dh); bd: (E*dh,); w: (E, dh); scaling: (E,); qpos: (B, Tq)
     original positions of the query rows (default iota; the gathered case
-    passes the prediction positions with Tq < Tk).
+    passes the prediction positions with Tq < Tk); dropout_seed: int or
+    int64 scalar tensor, needed when dropout_rate > 0.
     Returns (out (B, Tq, C) in q.dtype, mark_intensity (B, H, Tq, E) fp32).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "mau_attention: dropout inside the chain comes with the training "
-            "path; call with dropout_rate=0.0")
+    CPU tensors take the plain version (differentiable by autograd); CUDA
+    tensors launch the kernels or raise — the forward, and the backward
+    when autograd asks for it."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("mau_attention: dropout_rate > 0 needs dropout_seed")
     if q.device.type == "cpu":
         return mau_attention_reference(
             q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
-            causal=causal, diag_reset=diag_reset, num_heads=num_heads,
-            qpos=qpos)
+            causal=causal, diag_reset=diag_reset, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, num_heads=num_heads, qpos=qpos)
     if q.device.type != "cuda":
         raise ValueError(f"mau_attention: unsupported device {q.device}")
-    return _launch(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
-                   scaling, causal, diag_reset, num_heads, qpos)
+    seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
+    diff = (q, k, v, t, wd, bd, w, scaling)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in diff):
+        return _MauAttention.apply(q, k, v, t, key_mask, intervals, onehot,
+                                   wd, bd, w, scaling, qpos, seed, causal,
+                                   diag_reset, dropout_rate, num_heads)
+    out, lam, _ = _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd,
+                              bd, w, scaling, causal, diag_reset, num_heads,
+                              qpos, seed, dropout_rate, want_raw=False)
+    return out, lam
 
 
 mau_attention.launches = 0
+
+
+def mau_attention_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
+                      scaling, raw, g_out, g_lam, *, causal: bool,
+                      diag_reset: bool, dropout_rate: float, dropout_seed,
+                      num_heads: int, qpos: Optional[torch.Tensor] = None):
+    """The backward: (dq, dk, dv, dt) in q's dtype and (dWd, dbd, dw,
+    dscaling) in fp32. ``raw``: the forward's residual (B, H, Tq, E) fp32
+    (the CUDA kernel reads it; the plain version recomputes it). CPU
+    tensors take ``mau_attention_bwd_reference``; CUDA tensors launch the
+    kernel or raise."""
+    if q.device.type == "cpu":
+        return mau_attention_bwd_reference(
+            q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
+            g_out, g_lam, causal=causal, diag_reset=diag_reset,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            num_heads=num_heads, qpos=qpos)
+    if q.device.type != "cuda":
+        raise ValueError(f"mau_attention_bwd: unsupported device {q.device}")
+    seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
+    return _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
+                       scaling, raw, g_out, g_lam, causal, diag_reset,
+                       num_heads, qpos, seed, dropout_rate)
+
+
+mau_attention_bwd.launches = 0
+
+
+class _MauAttention(torch.autograd.Function):
+    """Forward kernel (with the raw residual) and backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
+                scaling, qpos, seed, causal, diag_reset, rate, num_heads):
+        out, lam, raw = _launch_fwd(q, k, v, t, key_mask, intervals, onehot,
+                                    wd, bd, w, scaling, causal, diag_reset,
+                                    num_heads, qpos, seed, rate,
+                                    want_raw=True)
+        ctx.save_for_backward(q, k, v, t, key_mask, intervals, onehot, wd,
+                              bd, w, scaling, raw)
+        ctx.qpos, ctx.seed = qpos, seed
+        ctx.cfg = (causal, diag_reset, rate, num_heads)
+        return out, lam
+
+    @staticmethod
+    def backward(ctx, g_out, g_lam):
+        (q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
+         raw) = ctx.saved_tensors
+        causal, diag_reset, rate, num_heads = ctx.cfg
+        dq, dk, dv, dt, dwd, dbd, dw, dsc = _launch_bwd(
+            q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling, raw,
+            g_out, g_lam, causal, diag_reset, num_heads, ctx.qpos, ctx.seed,
+            rate)
+        return (dq, dk, dv, dt, None, None, None, dwd.to(wd.dtype),
+                dbd.to(bd.dtype), dw.to(w.dtype), dsc.to(scaling.dtype),
+                None, None, None, None, None, None)
+
+
+# ---------------------------------------------------------------- launch
+
+
+def _seed_tensor(seed, rate: float, dev) -> Optional[torch.Tensor]:
+    """The dropout seed as an int64 device scalar (the kernels read it from
+    device memory, so a seed drawn on the device costs no host sync), or
+    None when there is no dropout."""
+    if rate <= 0.0:
+        return None
+    return torch.as_tensor(seed, dtype=torch.int64).to(dev).reshape(())
 
 
 def _pack_wd_fragments(wd: torch.Tensor) -> torch.Tensor:
@@ -140,7 +366,7 @@ def _pack_wd_fragments(wd: torch.Tensor) -> torch.Tensor:
     k, n = wd.shape
     kp = -(-k // 16) * 16
     wpad = torch.zeros(kp, n, dtype=torch.bfloat16, device=wd.device)
-    wpad[:k] = wd.to(torch.bfloat16)
+    wpad[:k] = wd.detach().to(torch.bfloat16)
     return (wpad.reshape(kp // 16, 2, 4, 2, n // 8, 8)
             .permute(4, 0, 5, 2, 1, 3).contiguous())
 
@@ -150,23 +376,44 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"mau_attention kernel: {msg}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
-    fn = lib.mau_attention_fwd
+def _bind(lib, name, argtypes):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([ptr, ll, ll] * 4 + [ptr] * 10 + [i32] * 8
-                       + [ctypes.c_float, i32, ptr])
-        fn.restype = i32
-        lib.mau_attention_fwd_smem_bytes.argtypes = [i32] * 4
-        lib.mau_attention_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.mau_cuda_error_string.argtypes = [i32]
-        lib.mau_cuda_error_string.restype = ctypes.c_char_p
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_uint, ctypes.c_float)
+
+
+def _fwd_lib() -> ctypes.CDLL:
+    lib = build.load("mau_attention_fwd")
+    _bind(lib, "mau_attention_fwd",
+          [_P, _LL, _LL] * 4 + [_P] * 12 + [_U32, _F32] + [_I32] * 8
+          + [_F32, _I32, _P])
+    lib.mau_attention_fwd_smem_bytes.argtypes = [_I32] * 4
+    lib.mau_attention_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.mau_cuda_error_string.argtypes = [_I32]
+    lib.mau_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
-            causal, diag_reset, num_heads, qpos):
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mau_attention_bwd")
+    _bind(lib, "mau_attention_bwd",
+          [_P, _LL, _LL] * 5 + [_P] * 14 + [_U32, _F32] + [_P] * 13
+          + [_I32] * 8 + [_F32, _I32, _I32, _I32, _P])
+    lib.mau_attention_bwd_smem_bytes.argtypes = [_I32] * 4
+    lib.mau_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _checked_inputs(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
+                    scaling, num_heads, qpos):
+    """Validates the kernels' contract; returns the fp32/int32 contiguous
+    small tensors (key mask, intervals, one-hot, qpos) on q's device."""
     dev, cdt = q.device, q.dtype
     _check(cdt in _DTYPE_CODE, f"q dtype {cdt} not float32/bfloat16")
     b, tq, c = q.shape
@@ -191,27 +438,55 @@ def _launch(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
         qpos = torch.arange(tq, device=dev, dtype=torch.int32)[None]
         qpos = qpos.expand(b, tq)
     _check(tuple(qpos.shape) == (b, tq), "qpos shape")
-    small = [x.to(device=dev, dtype=torch.float32).contiguous()
-             for x in (key_mask, intervals, onehot, bd, scaling)]
-    km, iv, oh, bdf, scf = small
+    km, iv, oh = (x.detach().to(device=dev, dtype=torch.float32).contiguous()
+                  for x in (key_mask, intervals, onehot))
     qp = qpos.to(device=dev, dtype=torch.int32).contiguous()
-    wdc = (_pack_wd_fragments(wd.to(dev)) if cdt == torch.bfloat16
-           else wd.to(device=dev, dtype=cdt).contiguous())
-    wc = w.to(device=dev, dtype=cdt).contiguous()
-    for name, x in (("wd", wdc), ("w", wc), ("bd", bdf)):
-        _check(x.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
     for name, x in (("q", q), ("k", k), ("v", v), ("t", t), ("key_mask", km),
                     ("intervals", iv), ("onehot", oh), ("qpos", qp)):
         _check(x.device == dev, f"{name} on {x.device}, q on {dev}")
-    lib = _lib()
+    return km, iv, oh, qp
+
+
+def _f32(x, dev):
+    return x.detach().to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _drop_args(seed, rate):
+    if seed is None:
+        return None, 0, 0.0
+    return seed.data_ptr(), dropout_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
+                causal, diag_reset, num_heads, qpos, seed, rate, *,
+                want_raw: bool):
+    km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
+                                     wd, bd, w, scaling, num_heads, qpos)
+    dev, cdt = q.device, q.dtype
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    e, dh = w.shape
+    bdf, scf = _f32(bd, dev), _f32(scaling, dev)
+    wdc = (_pack_wd_fragments(wd.to(dev)) if cdt == torch.bfloat16
+           else wd.detach().to(device=dev, dtype=cdt).contiguous())
+    wc = w.detach().to(device=dev, dtype=cdt).contiguous()
+    for name, x in (("wd", wdc), ("w", wc), ("bd", bdf)):
+        _check(x.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
+    lib = _fwd_lib()
     smem = lib.mau_attention_fwd_smem_bytes(tq, tk, dh, e)
     _check(smem <= KERNEL_SMEM_MAX,
            f"needs {smem} bytes of shared memory (Tq={tq}, Tk={tk}, dh={dh},"
            f" E={e}); the limit is {KERNEL_SMEM_MAX}")
     out = torch.empty((b, tq, c), dtype=cdt, device=dev)
     lam = torch.empty((b, num_heads, tq, e), dtype=torch.float32, device=dev)
+    raw = (torch.empty((b, num_heads, tq, e), dtype=torch.float32, device=dev)
+           if want_raw else None)
+    seed_ptr, thresh, dscale = _drop_args(seed, rate)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mau_attention_fwd(
             q.data_ptr(), q.stride(0), q.stride(1),
             k.data_ptr(), k.stride(0), k.stride(1),
@@ -220,10 +495,91 @@ def _launch(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             km.data_ptr(), iv.data_ptr(), qp.data_ptr(), oh.data_ptr(),
             wdc.data_ptr(), bdf.data_ptr(), wc.data_ptr(), scf.data_ptr(),
             out.data_ptr(), lam.data_ptr(),
-            b, tq, tk, num_heads, dh, e, int(causal), int(diag_reset),
-            1.0 / dh ** 0.5, _DTYPE_CODE[cdt], stream)
+            None if raw is None else raw.data_ptr(), seed_ptr, thresh,
+            dscale, b, tq, tk, num_heads, dh, e, int(causal),
+            int(diag_reset), 1.0 / dh ** 0.5, _DTYPE_CODE[cdt], _stream(dev))
     if rc != 0:
         raise RuntimeError("mau_attention kernel launch failed: "
                            + lib.mau_cuda_error_string(rc).decode())
     mau_attention.launches += 1
-    return out, lam
+    return out, lam, raw
+
+
+def _bwd_query_chunk(lib, tq, tk, dh, e) -> int:
+    """Query rows per block of the backward's row kernel: all of them when
+    Tq <= 32, else the largest of 32/16/8 that fits shared memory."""
+    for qc in ((tq,) if tq <= 32 else (32, 16, 8)):
+        if lib.mau_attention_bwd_smem_bytes(qc, tk, dh, e) <= KERNEL_SMEM_MAX:
+            return qc
+    raise ValueError(f"mau_attention_bwd kernel: Tq={tq}, Tk={tk}, dh={dh},"
+                     f" E={e} does not fit {KERNEL_SMEM_MAX} bytes of shared"
+                     " memory")
+
+
+def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
+                raw, g_out, g_lam, causal, diag_reset, num_heads, qpos, seed,
+                rate):
+    km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
+                                     wd, bd, w, scaling, num_heads, qpos)
+    dev, cdt = q.device, q.dtype
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    e, dh = w.shape
+    go = g_out.to(cdt).contiguous()
+    gl = _f32(g_lam, dev)
+    _check(tuple(go.shape) == (b, tq, c), "g_out shape")
+    _check(tuple(gl.shape) == (b, num_heads, tq, e), "g_lam shape")
+    _check(raw is not None and tuple(raw.shape) == (b, num_heads, tq, e)
+           and raw.dtype == torch.float32 and raw.is_contiguous(),
+           "raw residual (B, H, Tq, E) fp32")
+    wdf, bdf, wf, scf = (_f32(x, dev) for x in (wd, bd, w, scaling))
+    wd_frag = wd_bf16 = wd_t = None
+    if cdt == torch.bfloat16 and dh <= 64:
+        # the tensor-core paths' copies of Wd (0.5 MB each at dh=64, E=64)
+        wd_frag = _pack_wd_fragments(wdf)
+        wd_bf16 = wdf.to(torch.bfloat16).contiguous()
+        kp = -(-(dh + 1) // 16) * 16
+        wd_t = torch.zeros((e * dh, kp), dtype=torch.bfloat16, device=dev)
+        wd_t[:, :dh + 1] = wd_bf16.t()
+    lib = _bwd_lib()
+    qc = _bwd_query_chunk(lib, tq, tk, dh, e)
+    rows = b * num_heads * tq
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq = torch.empty((b, tq, c), dtype=cdt, device=dev)
+    dk, dv, dt = (torch.empty((b, tk, c), dtype=cdt, device=dev)
+                  for _ in range(3))
+    accs = ([torch.zeros((b, tk, c), **f32) for _ in range(3)]
+            if qc < tq else [None] * 3)
+    x_out = (torch.empty((rows, kp), dtype=torch.bfloat16, device=dev)
+             if wd_t is not None else torch.empty((rows, dh + 1), **f32))
+    draw_out = torch.empty((rows, e), **f32)
+    dsc = torch.zeros((e,), **f32)
+    dwd = torch.zeros((dh + 1, e * dh), **f32)
+    dbd = torch.zeros((e * dh,), **f32)
+    dw = torch.zeros((e * dh,), **f32)
+    seed_ptr, thresh, dscale = _drop_args(seed, rate)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        rc = lib.mau_attention_bwd(
+            q.data_ptr(), q.stride(0), q.stride(1),
+            k.data_ptr(), k.stride(0), k.stride(1),
+            v.data_ptr(), v.stride(0), v.stride(1),
+            t.data_ptr(), t.stride(0), t.stride(1),
+            go.data_ptr(), go.stride(0), go.stride(1),
+            km.data_ptr(), iv.data_ptr(), qp.data_ptr(), oh.data_ptr(),
+            wdf.data_ptr(), bdf.data_ptr(), wf.data_ptr(), scf.data_ptr(),
+            ptr(wd_frag), ptr(wd_bf16), ptr(wd_t),
+            raw.data_ptr(), gl.data_ptr(), seed_ptr, thresh, dscale,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dt.data_ptr(),
+            *(ptr(a) for a in accs), x_out.data_ptr(), draw_out.data_ptr(),
+            dsc.data_ptr(), dwd.data_ptr(), dbd.data_ptr(), dw.data_ptr(),
+            b, tq, tk, num_heads, dh, e, int(causal), int(diag_reset),
+            1.0 / dh ** 0.5, qc, BWD_ROWS_PER_CHUNK, _DTYPE_CODE[cdt],
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError("mau_attention_bwd kernel launch failed: "
+                           + _fwd_lib().mau_cuda_error_string(rc).decode())
+    if accs[0] is not None:
+        dk, dv, dt = (a.to(cdt) for a in accs)
+    mau_attention_bwd.launches += 1
+    return dq, dk, dv, dt, dwd, dbd, dw.reshape(e, dh), dsc

@@ -1,0 +1,208 @@
+"""Streamed full-catalog NLL (port of ``easydgl_tpu.kernels.scoring``).
+
+Every train step scores the B*masklen hidden rows against the whole
+catalog through the tied embedding table, (N, C) @ (V, C)^T + bias, and
+feeds a softmax loss. ``catalog_nll(hidden, table, bias, labels)`` returns
+per row ``(lse, label_logit)`` without materialising the (N, V) logits on
+the card: the CUDA kernels of ``csrc/catalog_nll.cu`` stream vocab tiles
+(forward: online logsumexp and the label logit; backward: two recompute
+passes for d_hidden and for d_table / d_bias, with
+``g = dlse * softmax + dll * onehot``).
+
+CPU tensors take ``catalog_nll_reference``, the plain version, which
+materialises the logits; autograd differentiates it.
+``catalog_nll_bwd_reference`` is the plain version of the backward. CUDA
+tensors launch the kernels or raise; ``catalog_nll_fwd.launches`` and
+``catalog_nll_bwd.launches`` count the launches.
+
+The compute dtype is the table's (hidden and table alike): in bf16 the
+products take bf16 operands and accumulate in fp32, g is rounded to bf16
+before both backward products, and d_hidden and d_table are returned in
+bf16 (as the TPU kernel returns them in its inputs' dtype); lse, the label
+logit and d_bias are fp32. Vocab columns and rows outside (N, V) take no
+part: the kernels mask their ragged edge rather than pad.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from easydgl_tpu_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_MAX_C = 512
+_ROWS_PER_BLOCK = 32       # resident rows of one block (catalog_kernel)
+_TARGET_BLOCKS = 264       # two blocks' worth per SM of an H100 (132 SMs)
+
+
+def catalog_nll_reference(hidden, table, bias, labels
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: materialises the (N, V) fp32 logits."""
+    logits = hidden.float() @ table.float().t() + bias.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[:, None], dim=1)[:, 0]
+    return lse, ll
+
+
+@torch.no_grad()
+def catalog_nll_bwd_reference(hidden, table, bias, labels, lse, dlse, dll):
+    """Plain version of the backward, written out: g = dlse * exp(s - lse)
+    + dll * onehot(label), rounded to the compute dtype before both
+    products. Returns (d_hidden in hidden's dtype, d_table in table's
+    dtype, d_bias fp32)."""
+    cdt = table.dtype
+    logits = hidden.float() @ table.float().t() + bias.float()
+    g = dlse.float()[:, None] * torch.exp(logits - lse.float()[:, None])
+    g[torch.arange(g.shape[0], device=g.device), labels.long()] += dll.float()
+    gr = g.to(cdt).float()
+    dh = gr @ table.float()
+    dt = gr.t() @ hidden.float()
+    return dh.to(hidden.dtype), dt.to(cdt), g.sum(0)
+
+
+def catalog_nll(hidden, table, bias, labels):
+    """(lse, label_logit) per row, fp32. hidden (N, C) and table (V, C) in
+    the compute dtype; bias (V,) fp32; labels (N,) integer ids in [0, V).
+    Differentiable in hidden, table and bias."""
+    if hidden.device.type == "cpu":
+        return catalog_nll_reference(hidden, table, bias, labels)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"catalog_nll: unsupported device {hidden.device}")
+    return _CatalogNLL.apply(hidden, table, bias, labels)
+
+
+def catalog_nll_fwd(hidden, table, bias, labels):
+    """The forward alone (no autograd): CPU tensors take the plain version,
+    CUDA tensors launch the kernel or raise."""
+    if hidden.device.type == "cpu":
+        return catalog_nll_reference(hidden, table, bias, labels)
+    return _launch_fwd(hidden, table, bias, labels)
+
+
+catalog_nll_fwd.launches = 0
+
+
+def catalog_nll_bwd(hidden, table, bias, labels, lse, dlse, dll):
+    """The backward alone: (d_hidden, d_table, d_bias). CPU tensors take
+    the plain version, CUDA tensors launch the kernel or raise."""
+    if hidden.device.type == "cpu":
+        return catalog_nll_bwd_reference(hidden, table, bias, labels, lse,
+                                         dlse, dll)
+    return _launch_bwd(hidden, table, bias, labels, lse, dlse, dll)
+
+
+catalog_nll_bwd.launches = 0
+
+
+class _CatalogNLL(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, hidden, table, bias, labels):
+        lse, ll = _launch_fwd(hidden, table, bias, labels)
+        ctx.save_for_backward(hidden, table, bias, labels, lse)
+        return lse, ll
+
+    @staticmethod
+    def backward(ctx, dlse, dll):
+        hidden, table, bias, labels, lse = ctx.saved_tensors
+        dh, dt, db = _launch_bwd(hidden, table, bias, labels, lse, dlse, dll)
+        return dh, dt, db.to(bias.dtype), None
+
+
+# ---------------------------------------------------------------- launch
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("catalog_nll")
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    if lib.catalog_nll_fwd.argtypes is None:
+        lib.catalog_nll_fwd.argtypes = [p] * 7 + [i32] * 5 + [p]
+        lib.catalog_nll_fwd.restype = i32
+        lib.catalog_nll_bwd.argtypes = [p] * 10 + [i32] * 5 + [p]
+        lib.catalog_nll_bwd.restype = i32
+        lib.catalog_cuda_error_string.argtypes = [i32]
+        lib.catalog_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"catalog_nll kernel: {msg}")
+
+
+def _prep(hidden, table, bias, labels):
+    dev, cdt = table.device, table.dtype
+    _check(cdt in _DTYPE_CODE, f"table dtype {cdt} not float32/bfloat16")
+    _check(hidden.dtype == cdt, f"hidden dtype {hidden.dtype} != table {cdt}")
+    _check(hidden.dim() == 2 and table.dim() == 2, "hidden/table not 2-D")
+    n, c = hidden.shape
+    v = table.shape[0]
+    _check(table.shape[1] == c, f"hidden C={c} != table C={table.shape[1]}")
+    _check(c % 4 == 0 and 4 <= c <= KERNEL_MAX_C,
+           f"C={c} must be a multiple of 4 in [4, {KERNEL_MAX_C}]")
+    _check(tuple(bias.shape) == (v,) and tuple(labels.shape) == (n,),
+           "bias (V,) / labels (N,) shape")
+    for name, x in (("hidden", hidden), ("bias", bias), ("labels", labels)):
+        _check(x.device == dev, f"{name} on {x.device}, table on {dev}")
+    h = hidden.detach().contiguous()
+    t = table.detach().contiguous()
+    b = bias.detach().float().contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    return h, t, b, lab, n, v, c
+
+
+def _splits(n: int, v: int) -> int:
+    """Vocab splits of the row-tiled passes, so that N = 3072 rows (96 row
+    tiles) still fill the card."""
+    row_tiles = -(-n // _ROWS_PER_BLOCK)
+    return max(1, min(-(-v // 64), -(-_TARGET_BLOCKS // row_tiles)))
+
+
+def _raise(lib, rc):
+    if rc != 0:
+        raise RuntimeError("catalog_nll kernel launch failed: "
+                           + lib.catalog_cuda_error_string(rc).decode())
+
+
+def _launch_fwd(hidden, table, bias, labels):
+    h, t, b, lab, n, v, c = _prep(hidden, table, bias, labels)
+    dev = t.device
+    splits = _splits(n, v)
+    lse = torch.empty(n, dtype=torch.float32, device=dev)
+    ll = torch.empty(n, dtype=torch.float32, device=dev)
+    part = torch.empty(3 * splits * n, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.catalog_nll_fwd(
+            h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            lse.data_ptr(), ll.data_ptr(), part.data_ptr(), n, v, c, splits,
+            _DTYPE_CODE[t.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _raise(lib, rc)
+    catalog_nll_fwd.launches += 1
+    return lse, ll
+
+
+def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
+    h, t, b, lab, n, v, c = _prep(hidden, table, bias, labels)
+    dev, cdt = t.device, t.dtype
+    f32 = lambda x: x.detach().to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
+    lse_, dlse_, dll_ = f32(lse), f32(dlse), f32(dll)
+    for name, x in (("lse", lse_), ("dlse", dlse_), ("dll", dll_)):
+        _check(tuple(x.shape) == (n,), f"{name} shape {tuple(x.shape)}")
+    splits = _splits(n, v)
+    dh_acc = (torch.zeros if splits > 1 else torch.empty)(
+        (n, c), dtype=torch.float32, device=dev)
+    dt = torch.empty((v, c), dtype=cdt, device=dev)
+    db = torch.empty(v, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.catalog_nll_bwd(
+            h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            lse_.data_ptr(), dlse_.data_ptr(), dll_.data_ptr(),
+            dh_acc.data_ptr(), dt.data_ptr(), db.data_ptr(), n, v, c, splits,
+            _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
+    _raise(lib, rc)
+    catalog_nll_bwd.launches += 1
+    return dh_acc.to(hidden.dtype), dt, db

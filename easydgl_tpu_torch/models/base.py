@@ -61,6 +61,7 @@ class SequentialModel(nn.Module):
     """Base class: subclasses implement
     ``forward(features, is_training) -> (logits, aux)``."""
     data_mode: str = "regressive"
+    loss_mode: str = "softmax_eps"
     uses_tpp: bool = False
 
     def __init__(self, cfg: Config):

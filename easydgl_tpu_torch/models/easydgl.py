@@ -11,13 +11,19 @@ src/model/EasyDGL.py:
   indicator VALUES as indices, so the mark code is
   (#active marks) * mark_embs[1] — reproduced faithfully;
 * BiMAU blocks; the attention residual takes x[:, :, :C];
-* GELU transform head, tied scoring with a -1000 bias on id 0.
+* GELU transform head, tied scoring with a -1000 bias on id 0;
+* training: hidden dropout after the input codes and after each sublayer's
+  output projection, attention dropout inside BiMAU, all drawn from the
+  step's ``torch.Generator``; ``tpp_regularizer`` adds the biased TPP
+  likelihood over the masked positions (EasyDGL.py:158-175).
 
 ``gather_queries`` (opt-in, not reference-exact: the blocks' LayerNorm
 moments then see only the gathered rows) runs the final block for the
 prediction rows only — the last position at eval.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,9 +33,9 @@ from easydgl_tpu_torch.models.base import (INTENSITIES, SCORING, OutputBias,
                                            tied_logits)
 from easydgl_tpu_torch.nn.coding import (Embedding, PositionCoding,
                                          TimeSinusoidCoding)
-from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, Dense, gelu_exact,
-                                         to_compute)
-from easydgl_tpu_torch.nn.temporal import BiMAU
+from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, Dense, dropout,
+                                         gelu_exact, to_compute)
+from easydgl_tpu_torch.nn.temporal import MAU, BiMAU
 
 
 def _clip_spans(ts: torch.Tensor) -> torch.Tensor:
@@ -59,7 +65,8 @@ class EasyDGL(SequentialModel):
         for i in range(cfg.num_blocks):
             self.add_module(f"block{i}_bimau", BiMAU(
                 3 * c if i == 0 else c, c, cfg.num_heads, cfg.num_events,
-                compute_dtype=cdt, device=device))
+                cfg.attention_probs_dropout_rate, compute_dtype=cdt,
+                device=device))
             self.add_module(f"block{i}_attn_out",
                             Dense(c, c, compute_dtype=cdt, device=device))
             self.add_module(f"block{i}_ln0",
@@ -85,17 +92,23 @@ class EasyDGL(SequentialModel):
     def model_seqslen(self) -> int:
         return self.cfg.seqslen + 1
 
-    def forward(self, features, *, is_training: bool = False):
+    def forward(self, features, *, is_training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                logits: bool = True):
         """features: seqs_i (B, L+1) ids, seqs_t (B, L+1) raw timestamps,
         seqs_marks (B, L+1, E) [, masked_positions (B, M) at train].
-        Returns (logits (N, V) fp32, aux). Dropout is not ported yet, so the
-        training forward runs only with every dropout rate at 0."""
+        Returns (logits (N, V) fp32, aux). ``generator`` draws every
+        dropout mask of a training forward; it is required when a dropout
+        rate is non-zero. ``logits=False`` returns (None, aux): the training
+        loss scores through ``aux[SCORING]`` with the streamed catalog NLL,
+        and PyTorch, unlike XLA, would not drop an unused (N, V) product."""
         cfg = self.cfg
-        if is_training and (cfg.hidden_dropout_rate
-                            or cfg.attention_probs_dropout_rate):
-            raise NotImplementedError(
-                "EasyDGL: dropout is not ported yet; the training forward "
-                "needs hidden_dropout_rate = attention_probs_dropout_rate = 0")
+        rate = cfg.hidden_dropout_rate
+        if is_training and generator is None and (
+                rate or cfg.attention_probs_dropout_rate):
+            raise ValueError("EasyDGL: a training forward with dropout needs "
+                             "a torch.Generator")
+        gen = generator if is_training else None
         c = cfg.num_units
         ids = features["seqs_i"].long()
         ts = features["seqs_t"] / cfg.time_scale
@@ -106,8 +119,8 @@ class EasyDGL(SequentialModel):
         pos = self.pcoding.code(units)
         counts = marks.float().sum(-1, keepdim=True)
         mcodes = counts * self.mark_embs.table()[1][None, None, :]
-        x = to_compute(torch.cat([units, pos, mcodes], dim=-1),
-                       self.compute_dtype)                    # (B, L+1, 3C)
+        x = dropout(to_compute(torch.cat([units, pos, mcodes], dim=-1),
+                               self.compute_dtype), rate, gen)  # (B, L+1, 3C)
         key_mask = (ids != 0).float()
 
         mpos = features.get("masked_positions")
@@ -127,14 +140,15 @@ class EasyDGL(SequentialModel):
             blk = lambda name: getattr(self, f"block{i}_{name}")  # noqa: E731
             qpos = qpos_last if i == cfg.num_blocks - 1 else None
             a, intny = blk("bimau")(x, key_mask, spans, marks,
-                                    query_positions=qpos)
+                                    query_positions=qpos, generator=gen)
             if qpos is not None:
                 x_res = torch.take_along_dim(x, qpos[:, :, None], dim=1)
                 gathered = True
             else:
                 x_res = x
-            a = blk("ln0")(blk("attn_out")(a) + x_res[:, :, :c])
-            o = blk("out")(gelu_exact(blk("inter")(a)))
+            a = dropout(blk("attn_out")(a), rate, gen)
+            a = blk("ln0")(a + x_res[:, :, :c])
+            o = dropout(blk("out")(gelu_exact(blk("inter")(a))), rate, gen)
             x = blk("ln1")(o + a)
             intensities.append(intny)
 
@@ -146,4 +160,31 @@ class EasyDGL(SequentialModel):
         bias = self.out_bias()
         table = self.item_embs.table()
         aux = {INTENSITIES: tuple(intensities), SCORING: (hidden, table, bias)}
+        if not logits:
+            return None, aux
         return tied_logits(hidden, table, bias, self.compute_dtype), aux
+
+    def tpp_regularizer(self, aux, features, labels, next_marks):
+        """ct_reg/num_heads * per-block biased likelihood over the MASKED
+        positions (reference EasyDGL.py:158-175); spans from RAW (unscaled)
+        timestamps, clipped to [0, 100]. A block whose intensities arrive
+        gathered at the masked positions (gather_queries) is used as is."""
+        cfg = self.cfg
+        pos = features["masked_positions"].long()              # (B, M)
+        spans = torch.take_along_dim(_clip_spans(features["seqs_t"].float()),
+                                     pos, dim=1)               # (B, M)
+        b, m = pos.shape
+        h = cfg.num_heads
+        spans = spans[:, None].expand(b, h, m)
+        onehot = next_marks.float()[:, None]                   # (B, 1, M, E)
+        onehot = onehot.expand(b, h, m, onehot.shape[-1])
+        reg = 0.0
+        for intny in aux[INTENSITIES]:
+            if intny.shape[2] == m:
+                gathered = intny
+            else:
+                gathered = torch.take_along_dim(
+                    intny, pos[:, None, :, None], dim=2)       # (B, H, M, E)
+            reg = reg + cfg.ct_reg * MAU.biased_likelihood(
+                gathered, onehot, spans) / h
+        return reg

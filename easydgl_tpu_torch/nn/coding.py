@@ -37,7 +37,12 @@ class Embedding(nn.Module):
         return t
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        out = self.table()[ids.long().clamp(0, self.vocab_size - 1)]
+        # index_select, not advanced indexing: its backward is an index_add
+        # (3.7 ms less per flagship train step on an H100 than the sorting
+        # backward of indexing; scripts/torch_train_profile.py)
+        safe = ids.long().clamp(0, self.vocab_size - 1)
+        out = torch.index_select(self.table(), 0, safe.reshape(-1)).reshape(
+            *ids.shape, self.num_units)
         if self.scale:
             out = out * (self.num_units ** 0.5)
         return out

@@ -7,6 +7,11 @@
   ``nn.Linear`` does; the bridge (parity.py) transposes flax's ``(in, out)``
   kernels. Parameters are allocated empty: weights come from the bridge.
 
+* ``dropout``: flax ``nn.Dropout`` — keep with probability 1-p, scale kept
+  entries by 1/(1-p) in the input's dtype; the mask is drawn from an
+  explicit ``torch.Generator`` with ``torch.rand`` (``F.dropout`` takes no
+  generator).
+
 Mixed precision follows the JAX package: parameters stay fp32; with a
 compute dtype (``Config.matmul_dtype``, ``torch.bfloat16``) a Dense casts
 its input, weight AND bias to that dtype and returns it (flax
@@ -40,6 +45,18 @@ def mm_fp32acc(a: torch.Tensor, b: torch.Tensor,
         a = a.to(cdt).float()
         b = b.to(cdt).float()
     return a @ b
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``; the identity when ``rate`` is 0 or there is no
+    generator (the deterministic, eval case)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (
+        1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

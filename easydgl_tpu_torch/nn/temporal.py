@@ -6,7 +6,10 @@ probabilities are modulated elementwise by the per-(q, k) mark intensity.
 ``BiMAU`` is bidirectional with the intensity diagonal reset to 1.
 
 The forward runs through ``kernels.mau_attention.mau_attention`` (the fused
-kernel on the card, its plain version on the CPU). The context-parallel,
+kernels on the card, forward and backward; its plain version on the CPU).
+Attention dropout (training) takes one seed per call, drawn from the step's
+``torch.Generator`` (JAX: one int32 from the ``dropout`` rng,
+temporal.py:652-685); the kernel draws its mask from it. The context-parallel,
 streamed and blocked long-context engines of the JAX module are not ported
 yet.
 """
@@ -31,13 +34,15 @@ class MAU(nn.Module):
     """
 
     def __init__(self, in_units: int, num_units: int, num_heads: int,
-                 num_events: int, *, causal_default: bool = True,
+                 num_events: int, dropout_rate: float = 0.0, *,
+                 causal_default: bool = True,
                  diag_reset: bool = False,
                  compute_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.num_units = num_units
         self.num_heads = num_heads
         self.num_events = num_events
+        self.dropout_rate = dropout_rate
         self.causal_default = causal_default
         self.diag_reset = diag_reset
         dh = num_units // num_heads
@@ -91,14 +96,16 @@ class MAU(nn.Module):
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
                 intervals: torch.Tensor, mark_onehot: torch.Tensor, *,
-                query_positions: Optional[torch.Tensor] = None
+                query_positions: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Self-attention over x (B, T, Cin); key_mask (B, T) nonzero where
         the key is real; intervals (B, T); mark_onehot (B, T, E).
 
         query_positions: optional (B, M) positions — attention for ONLY
         those query rows (rows are independent, so the result equals the
-        full computation's rows there)."""
+        full computation's rows there). generator: the training step's
+        generator; None is the deterministic case (no dropout)."""
         qq, kk, vv, tt = self.qkvt(x).chunk(4, dim=-1)
         if query_positions is not None:
             qpos = query_positions.long()
@@ -109,19 +116,25 @@ class MAU(nn.Module):
         else:
             qpos = None
             q_res = x[:, :, :self.num_units]
+        rate = self.dropout_rate if generator is not None else 0.0
+        seed = None
+        if rate > 0.0:
+            seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                 device=generator.device)
         out, mark_intensity = mau_attention(
             qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),
             self.intensity_dense_kernel, self.intensity_dense_bias,
             self.intensity_weight, self.intensity_scaling,
-            self.causal_default, self.diag_reset, 0.0,
-            num_heads=self.num_heads, qpos=qpos)
+            self.causal_default, self.diag_reset, rate,
+            num_heads=self.num_heads, qpos=qpos, dropout_seed=seed)
         return out + q_res, mark_intensity
 
 
-def BiMAU(in_units: int, num_units: int, num_heads: int, num_events: int, *,
+def BiMAU(in_units: int, num_units: int, num_heads: int, num_events: int,
+          dropout_rate: float = 0.0, *,
           compute_dtype: Optional[torch.dtype] = None, device=None) -> MAU:
     """Bidirectional MAU (reference temporal.py:396-452): fused QKVT
     projection, no causal mask, intensity diagonal reset to 1."""
-    return MAU(in_units, num_units, num_heads, num_events,
+    return MAU(in_units, num_units, num_heads, num_events, dropout_rate,
                causal_default=False, diag_reset=True,
                compute_dtype=compute_dtype, device=device)

@@ -9,7 +9,9 @@ The port's modules carry the flax names, so the mapping is one rule:
   ``intensity_*``, ``gamma``/``beta``, ``output_bias``, ``bias``).
 
 ``load_state_dict`` (strict) then checks that the tree holds exactly the
-model's parameters. ``random_flax_params`` draws a tree with the flax
+model's parameters. ``tf_adam_state_to_torch`` / ``tf_adam_state_to_flax``
+carry the TF-Adam optimizer state (count, mu, nu) the same way, so a JAX
+``TrainState`` after k steps can be continued in the port and back. ``random_flax_params`` draws a tree with the flax
 initializers of ``easydgl_tpu.models.easydgl.EasyDGL.init`` from a numpy
 seed, so a full-width model can be built without JAX.
 """
@@ -61,6 +63,24 @@ def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+def tf_adam_state_to_torch(count, mu: Dict, nu: Dict, device="cpu"):
+    """The JAX TF-Adam state (``count`` and the ``mu`` / ``nu`` trees, as
+    numpy) -> the port's ``TFAdamState`` on ``device``."""
+    from easydgl_tpu_torch.train.optim import TFAdamState
+
+    def tensors(tree):
+        return {k: v.to(device) for k, v in flax_to_torch(tree).items()}
+
+    return TFAdamState(int(np.asarray(count)), tensors(mu), tensors(nu))
+
+
+def tf_adam_state_to_flax(state) -> tuple:
+    """The port's ``TFAdamState`` -> (count as int32, mu tree, nu tree) in
+    the flax layout of ``torch_to_flax``."""
+    return (np.int32(state.count), torch_to_flax(state.mu),
+            torch_to_flax(state.nu))
 
 
 def random_flax_params(cfg: Config, seed: int) -> Dict:

@@ -1,20 +1,95 @@
-"""Step builders (port of ``easydgl_tpu.train.steps``), eval half.
+"""Step builders (port of ``easydgl_tpu.train.steps``).
 
-``build_eval_step`` mirrors Sequential.eval (reference Base.py:150-207):
-last-position logits, optional mask_seen, top-100 HR/NDCG sums. PyTorch runs
-eagerly, so the step is a plain callable. The train step, the losses and
-the optimizer are not ported yet.
+``build_train_step`` is the faithful train step: the training forward with
+dropout, the ``softmax_eps`` loss (``compute_loss``) and one optimizer
+update. ``build_eval_step`` mirrors Sequential.eval (reference
+Base.py:150-207): last-position logits, optional mask_seen, top-100 HR/NDCG
+sums. PyTorch runs eagerly, so each step is a plain callable.
+
+Loss (softmax_eps, the mode of EasyDGL; Base.py:119-131): the full-catalog
+``-log(softmax(logits) + 1e-5)`` at the label, computed exactly as
+``-log(exp(-ce) + 1e-5)`` from ``ce = lse - logit_label``; the label-weight
+mask on padding id 0; ``l2_reg * 0.5 * sum(w^2)`` over every
+``lookup_table``; the TPP regularizer. The catalog scoring goes through
+``kernels.scoring.catalog_nll`` with hidden and table in the compute dtype,
+so no (N, V) logits are built on the card. The other loss modes
+(``sparse_ce``, ``grec``), ``build_multi_step`` and ``stack_batches`` come
+with the models and the training loop that use them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from easydgl_tpu_torch.eval.metrics import mask_seen_logits, metric_sums
-from easydgl_tpu_torch.models.base import SequentialModel
+from easydgl_tpu_torch.kernels.scoring import catalog_nll
+from easydgl_tpu_torch.models.base import SCORING, SequentialModel
+from easydgl_tpu_torch.train.optim import apply_updates, build_optimizer
+
+
+class TrainState(NamedTuple):
+    """``params`` are the model's own parameters (name -> tensor), updated
+    in place by the step; ``step`` counts the updates taken."""
+    params: Dict[str, torch.Tensor]
+    opt_state: Any
+    step: int
+
+
+def l2_lookup_tables(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """0.5 * sum(w^2) over every ``lookup_table`` parameter."""
+    return sum(0.5 * p.square().sum() for name, p in params.items()
+               if name.split(".")[-1] == "lookup_table")
+
+
+def _label_nll(logits: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lse - logit_at_label, logit_at_label) from materialised logits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.take_along_dim(logits, labels.long()[:, None],
+                                       dim=1)[:, 0]
+    return lse - label_logit, label_logit
+
+
+def compute_loss(model: SequentialModel, features: Dict[str, torch.Tensor],
+                 labels: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The training loss of one batch (softmax_eps). ``features`` carry
+    ``masked_positions`` and, for the TPP term, ``next_marks``."""
+    cfg = model.cfg
+    if model.loss_mode != "softmax_eps":
+        raise NotImplementedError(f"loss mode {model.loss_mode}")
+    _, aux = model(features, is_training=True, generator=generator,
+                   logits=False)
+    hidden, table, bias = aux[SCORING]
+    dt = cfg.matmul_dtype
+    if dt is not None:
+        hidden, table = hidden.to(dt), table.to(dt)
+    flat = labels.reshape(-1)
+    lse, ll = catalog_nll(hidden, table, bias, flat)
+    ce = lse - ll
+    per_example = -torch.log(torch.exp(-ce) + 1e-5)
+    w = (flat != 0).float()
+    loss = (w * per_example).sum() / (w.sum() + 1e-5)
+    if cfg.l2_reg:
+        loss = loss + cfg.l2_reg * l2_lookup_tables(
+            dict(model.named_parameters()))
+    if model.uses_tpp and cfg.ct_reg:
+        loss = loss + model.tpp_regularizer(aux, features, labels,
+                                            features["next_marks"])
+    return loss
+
+
+def loss_and_grads(model: SequentialModel, features, labels,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, name -> gradient) of one batch; leaves ``.grad`` untouched."""
+    names, params = zip(*model.named_parameters())
+    loss = compute_loss(model, features, labels, generator)
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), dict(zip(names, grads))
 
 
 def device_marks(features: Dict[str, torch.Tensor], labels,
@@ -40,6 +115,40 @@ def to_device(arrays: Dict[str, np.ndarray], device
               ) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``."""
     return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def init_state(model: SequentialModel) -> TrainState:
+    """Step 0 for the model's current weights (from ``build_model``)."""
+    params = dict(model.named_parameters())
+    tx = build_optimizer(model.cfg.optim)
+    return TrainState(params, tx.init(params), 0)
+
+
+def build_train_step(model: SequentialModel, mark_table=None):
+    """Returns ``step(state, features, labels, generator) -> (state,
+    loss)``: one training forward and backward and one optimizer update,
+    applied to the model's parameters in place. features/labels may be
+    numpy arrays (moved to the model's device). ``generator``: a
+    ``torch.Generator`` on the model's device; every dropout mask and seed
+    of the step is drawn from it (the JAX step folds the step number into
+    its key instead). ``mark_table``: optional (num_items, E) incidence
+    kept on the device for ``device_marks``. The loss comes back as a
+    device scalar, so the step does not wait for the device."""
+    dev = next(model.parameters()).device
+    tx = build_optimizer(model.cfg.optim)
+    mt = (None if mark_table is None else
+          torch.as_tensor(np.asarray(mark_table, np.float32), device=dev))
+
+    def step(state: TrainState, features, labels, generator):
+        feats = to_device(features, dev)
+        labels = torch.as_tensor(labels, device=dev)
+        feats = device_marks(feats, labels, mt, is_training=True)
+        loss, grads = loss_and_grads(model, feats, labels, generator)
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        return TrainState(state.params, opt_state, state.step + 1), loss
+
+    return step
 
 
 def build_eval_step(model: SequentialModel, mark_table=None):

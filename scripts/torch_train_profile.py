@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Where the time of the port's faithful EasyDGL train step goes, on one GPU.
+
+Runs ``build_train_step`` of easydgl_tpu_torch (PRESETS["EasyDGL"], 64
+marks, bf16 matmuls, dropout 0.1 / 0.1, TPP and L2 terms, TF-Adam, random
+weights from seed 0, batch 512, marks looked up on the device) over
+synthetic batches already on the device under ``torch.profiler``, and
+prints the device time by kernel, the share of the window the device was
+busy, and the host wall time per step. Imports neither JAX nor the JAX
+package.
+
+    python3 scripts/torch_train_profile.py [--steps 8]
+"""
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from easydgl_tpu_torch.config import preset  # noqa: E402
+from easydgl_tpu_torch.data.loader import BatchLoader  # noqa: E402
+from easydgl_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_mark_table, synthetic_split_vectorized)
+from easydgl_tpu_torch.models.registry import build_model  # noqa: E402
+from easydgl_tpu_torch.parity import random_flax_params  # noqa: E402
+from easydgl_tpu_torch.train.steps import (build_train_step,  # noqa: E402
+                                           init_state, to_device)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    bs = cfg.batch_size
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    split = synthetic_split_vectorized(num_rows=4 * bs,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=0)
+    batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
+               for f, lab, _ in BatchLoader(
+                   split, data_mode="mau", batch_size=bs, masklen=cfg.masklen,
+                   is_training=True).epoch(0)]
+    step = build_train_step(model, mark_table=table)
+    state = init_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for features, labels in batches[:2]:  # warm-up
+        state, _ = step(state, features, labels, gen)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.steps):
+            features, labels = batches[i % len(batches)]
+            state, loss = step(state, features, labels, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = args.steps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    print(f"{torch.cuda.get_device_name(0)}; {n} train steps x {bs} rows:"
+          f" wall {wall * 1e3 / n:.3f} ms/step (profiled), device busy"
+          f" {total_us / 1e3 / n:.3f} ms/step ="
+          f" {100 * total_us / 1e6 / wall:.1f}% of the window;"
+          f" loss {float(loss):.5f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        per_step = e.self_device_time_total / 1e3 / n
+        print(f"  {per_step:8.3f} ms/step"
+              f" {100 * e.self_device_time_total / max(total_us, 1):5.1f}%"
+              f"  x{e.count // n:<3d} {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,14 +10,22 @@ Tolerances (|kernel - plain| <= atol + rtol * scale): fp32 1e-4 with scale
 sum_j |m_ij v_jd| (the plain version on |v|): both round the same operands
 to bf16, and a sum taken in another order can flip one such rounding by a
 bf16 ulp (2^-8 of a summand), which that scale bounds even where the sum
-cancels.
+cancels. Gradients and the catalog NLL's outputs are held to a fraction of
+each output's largest entry: fp32 1e-4 (sums of up to B*H*Tq terms, added
+in another order and by atomics), bf16 1e-2 (a reordered sum can flip the
+bf16 rounding of an intermediate such as dz or g by one ulp).
 """
 import numpy as np
 import pytest
 import torch
 
-from easydgl_tpu_torch.kernels.mau_attention import (mau_attention,
-                                                     mau_attention_reference)
+from easydgl_tpu_torch.kernels.mau_attention import (
+    mau_attention, mau_attention_bwd, mau_attention_bwd_reference,
+    mau_attention_reference)
+from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
+                                               catalog_nll_bwd_reference,
+                                               catalog_nll_fwd,
+                                               catalog_nll_reference)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -104,7 +112,7 @@ def test_kernel_matches_plain_version(cuda_device, dtype, causal, diag, tq,
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     ts, _ = _inputs(cuda_device, torch.float32, b=2, t=11, h=2, dh=16, e=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         mau_attention(*ts, False, True, 0.1, num_heads=2)
     half = [x.half() if i < 4 else x for i, x in enumerate(ts)]
     with pytest.raises(ValueError, match="dtype"):
@@ -143,3 +151,122 @@ def test_model_on_card_matches_cpu(cuda_device):
             logits[dev.type] = model(to_device(features, dev))[0].cpu()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _check_by_scale(dtype, got, want, what):
+    tol = GRAD_TOL[dtype]
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.detach().float(), b.detach().float()
+        assert a.shape == b.shape, (what, i)
+        assert bool(torch.isfinite(a).all()), (what, i)
+        err = float((a - b).abs().max())
+        assert err <= tol * float(b.abs().max()) + 1e-6, (what, i, err)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("shape", ["small", "flagship_width", "tk128"])
+@pytest.mark.parametrize("causal,diag,tq", CASES[:3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain_version(cuda_device, dtype, causal,
+                                               diag, tq, shape, rate):
+    """The forward (with dropout and the raw residual) and the backward
+    kernel, the same seed on both sides, against the plain versions."""
+    ts, qpos = _inputs(cuda_device, dtype, tq=tq, **SHAPES[shape])
+    h = SHAPES[shape]["h"]
+    diff = [x.clone().requires_grad_(i < 4 or i > 6)
+            for i, x in enumerate(ts)]
+    seed = torch.tensor(20240611, device=cuda_device)
+    before = (mau_attention.launches, mau_attention_bwd.launches)
+    out, lam = mau_attention(*diff, causal, diag, rate, num_heads=h,
+                             qpos=qpos, dropout_seed=seed)
+    want_o, want_l = mau_attention_reference(
+        *ts, causal=causal, diag_reset=diag, dropout_rate=rate,
+        dropout_seed=seed, num_heads=h, qpos=qpos)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    go = torch.randn(out.shape, generator=g, device=cuda_device).to(dtype)
+    gl = torch.randn(lam.shape, generator=g, device=cuda_device)
+    grads = torch.autograd.grad((out.float() * go.float()).sum()
+                                + (lam * gl).sum(),
+                                [diff[i] for i in (0, 1, 2, 3, 7, 8, 9, 10)])
+    assert (mau_attention.launches, mau_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _check_by_scale(dtype, (out, lam), (want_o, want_l), "forward")
+    want = mau_attention_bwd_reference(
+        *ts, go, gl, causal=causal, diag_reset=diag, dropout_rate=rate,
+        dropout_seed=seed, num_heads=h, qpos=qpos)
+    _check_by_scale(dtype, grads, want, "backward")
+    for a, x in zip(grads[:4], ts[:4]):
+        assert a.dtype == x.dtype
+
+
+@pytest.mark.parametrize("n,v,c", [(77, 1001, 64), (300, 2000, 512),
+                                   (15, 33, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_catalog_kernels_match_plain_version(cuda_device, dtype, n, v, c):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    h = torch.randn(n, c, generator=g, device=cuda_device).to(dtype)
+    t = torch.randn(v, c, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(v, generator=g, device=cuda_device)
+    lab = torch.randint(0, v, (n,), generator=g, device=cuda_device)
+    lab[0], lab[-1] = 0, v - 1
+    dlse, dll = (torch.randn(n, generator=g, device=cuda_device)
+                 for _ in range(2))
+    lse, ll = catalog_nll_fwd(h, t, b, lab)
+    want = catalog_nll_reference(h, t, b, lab)
+    _check_by_scale(dtype, (lse, ll), want, "forward")
+    got = catalog_nll_bwd(h, t, b, lab, want[0], dlse, dll)
+    want = catalog_nll_bwd_reference(h, t, b, lab, want[0], dlse, dll)
+    assert got[0].dtype == got[1].dtype == dtype
+    _check_by_scale(dtype, got, want, "backward")
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One fp32 EasyDGL train step at dropout 0, kernels on the card vs
+    the plain versions on the CPU: loss 1e-5 relative; parameters after
+    the TF-Adam update within 2 lr where the gradient is within 1e-4 of
+    its leaf's scale of zero (the first Adam step is ~lr * sign(g)), else
+    1e-5 + 1e-4 |p|."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+                                                  synthetic_split)
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import (build_train_step, init_state,
+                                               loss_and_grads, to_device)
+    cfg = preset("EasyDGL", num_items=60, seqslen=10, num_units=32,
+                 num_heads=2, num_events=4, batch_size=4, masklen=3,
+                 hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0,
+                 ct_reg=0.1)
+    params = random_flax_params(cfg, 0)
+    table = synthetic_mark_table(60, 4, seed=1)
+    ds = synthetic_split(num_rows=4, num_items=60, seqslen=10, seed=2)
+    loader = BatchLoader(ds, data_mode="mau", batch_size=4, masklen=3,
+                         is_training=True)
+    features, labels, _ = next(loader.epoch(0))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params=params)
+        step = build_train_step(model, mark_table=table)
+        from easydgl_tpu_torch.train.steps import device_marks
+        feats = device_marks(to_device(features, dev),
+                             torch.as_tensor(labels, device=dev),
+                             torch.as_tensor(table, dtype=torch.float32,
+                                             device=dev), is_training=True)
+        _, grads = loss_and_grads(model, feats, torch.as_tensor(
+            labels, device=dev))
+        state, loss = step(init_state(model), features, labels,
+                           torch.Generator(device=dev))
+        out[dev.type] = (float(loss), {k: v.detach().cpu() for k, v in
+                                       state.params.items()},
+                         {k: v.cpu() for k, v in grads.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, want in out["cpu"][1].items():
+        g = out["cpu"][2][name].abs()
+        near = g <= 1e-4 * float(g.max()) + 1e-12
+        err = (out["cuda"][1][name] - want).abs()
+        ok = (err <= 1e-5 + 1e-4 * want.abs()) | (near & (err <= 1e-3))
+        assert bool(ok.all()), name

@@ -1,4 +1,5 @@
-"""PyTorch port: the EasyDGL serving slice vs the JAX package, on the CPU.
+"""PyTorch port: the EasyDGL model and serving slice vs the JAX package, on
+the CPU.
 
 Whole-model logits (eval, gathered eval, and the training forward at
 dropout 0) with weights carried by the bridge, held to atol = rtol = 1e-4;
@@ -92,9 +93,16 @@ def test_training_forward_at_dropout_zero_matches_jax(world, gather_queries):
     with torch.no_grad():
         got, _ = model(_torch_feats(features), is_training=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError):  # dropout is not ported yet
-        build_model(preset("EasyDGL", **KW), device="cpu")(
-            _torch_feats(features), is_training=True)
+    # with the preset's dropout: a generator is required, and its draws
+    # move the logits
+    drop = build_model(preset("EasyDGL", **KW), device="cpu",
+                       params=world["params"])
+    with pytest.raises(ValueError, match="Generator"):
+        drop(_torch_feats(features), is_training=True)
+    with torch.no_grad():
+        dropped, _ = drop(_torch_feats(features), is_training=True,
+                          generator=torch.Generator().manual_seed(0))
+    assert dropped.shape == got.shape and not torch.equal(dropped, got)
 
 
 def test_metric_functions_on_the_same_logits():

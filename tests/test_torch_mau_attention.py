@@ -1,15 +1,22 @@
-"""PyTorch port: the MAU/BiMAU chain.
+"""PyTorch port: the MAU/BiMAU chain, forward and backward.
 
 * the plain ``mau_attention_reference`` vs the JAX ``mau_attention``
-  (Pallas, interpret mode) and the JAX reference;
+  (Pallas, interpret mode) and the JAX reference, values and all eight
+  gradients (cotangents on both ``out`` and ``lam``);
+* the explicit plain backward ``mau_attention_bwd_reference`` vs autograd
+  of the plain forward;
 * the port's ``MAU``/``BiMAU`` module vs the JAX ``MAU`` (``xla`` engine),
   with weights carried by the bridge;
-* the wrapper's dispatch and refusals.
+* Philox4x32-10 against the Random123 known answers, and the attention
+  dropout's statistics and determinism;
+* the wrapper's CPU dispatch.
 
-The CUDA kernel itself is held against the plain version in
+The CUDA kernels themselves are held against the plain versions in
 ``test_torch_cuda.py`` (card only).
 
-Inputs come from numpy with a seed. fp32 tolerance atol = rtol = 1e-5."""
+Inputs come from numpy with a seed. fp32 tolerance atol = rtol = 1e-5 for
+values; gradients are held to 1e-5 of each gradient's largest entry (sums
+of a few dozen fp32 terms in another order)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +26,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from easydgl_tpu.kernels import mau_attention as jmau
 from easydgl_tpu.nn import temporal as jtemporal
-from easydgl_tpu_torch.kernels.mau_attention import (mau_attention,
-                                                     mau_attention_reference)
+from easydgl_tpu_torch.kernels.mau_attention import (
+    dropout_factor, mau_attention, mau_attention_bwd,
+    mau_attention_bwd_reference, mau_attention_reference, philox4x32_10)
 from easydgl_tpu_torch.nn.temporal import MAU, BiMAU
 from easydgl_tpu_torch.parity import flax_to_torch
 
@@ -91,18 +99,28 @@ def test_plain_version_matches_jax_kernel_and_reference(causal, diag, tq,
 
 
 def test_cpu_tensors_take_the_plain_version_and_dropout_raises():
+    """CPU tensors launch nothing and equal the plain version, with and
+    without dropout; dropout without a seed raises; the same seed gives the
+    same out, another seed another."""
     args = [torch.tensor(a) for a in _inputs(3)[:11]]
-    before = mau_attention.launches
+    before = (mau_attention.launches, mau_attention_bwd.launches)
     got = mau_attention(*args, False, True, num_heads=H)
     want = mau_attention_reference(*args, diag_reset=True, num_heads=H)
-    assert mau_attention.launches == before  # no kernel launched on the CPU
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    for fn in (lambda: mau_attention(*args, False, True, 0.1, num_heads=H),
-               lambda: mau_attention_reference(*args, dropout_rate=0.1,
-                                               num_heads=H)):
-        with pytest.raises(NotImplementedError):
-            fn()
+    d1 = mau_attention(*args, False, True, 0.3, num_heads=H, dropout_seed=5)
+    d2 = mau_attention_reference(*args, diag_reset=True, dropout_rate=0.3,
+                                 dropout_seed=torch.tensor(5), num_heads=H)
+    d3 = mau_attention(*args, False, True, 0.3, num_heads=H, dropout_seed=6)
+    assert torch.equal(d1[0], d2[0]) and torch.equal(d1[1], want[1])
+    assert not torch.equal(d1[0], got[0]) and not torch.equal(d1[0], d3[0])
+    go, gl = torch.ones_like(got[0]), torch.ones_like(got[1])
+    mau_attention_bwd(*args, None, go, gl, causal=False, diag_reset=True,
+                      dropout_rate=0.0, dropout_seed=None, num_heads=H)
+    assert (mau_attention.launches,
+            mau_attention_bwd.launches) == before  # nothing launched
+    with pytest.raises(ValueError, match="seed"):
+        mau_attention(*args, False, True, 0.1, num_heads=H)
 
 
 @pytest.mark.parametrize("bidirectional,gathered",
@@ -160,3 +178,126 @@ def test_mau_module_matches_jax_xla_engine(bidirectional, gathered):
                                            jnp.asarray(spans))
     got = MAU.biased_likelihood(tmi, torch.tensor(nxt), torch.tensor(spans))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _grad_inputs(seed, tq, gathered):
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos = _inputs(seed, tq, gathered)
+    rng = np.random.default_rng(seed + 100)
+    go = rng.normal(size=q.shape).astype(np.float32)
+    gl = rng.normal(size=(B, H, tq, E)).astype(np.float32)
+    return (q, k, v, t, wd, bd, w, sc), (km, iv, oh), qpos, go, gl
+
+
+def _assert_grads(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = np.asarray(a), np.asarray(b)
+        scale = float(np.abs(b).max())
+        np.testing.assert_allclose(a, b, atol=1e-5 * scale + 1e-7, rtol=0,
+                                   err_msg=f"{what}: grad {i}")
+
+
+@pytest.mark.parametrize("causal,diag,tq,gathered", CASES)
+def test_plain_grads_match_jax_kernel_and_reference(causal, diag, tq,
+                                                    gathered):
+    """All eight gradients (q, k, v, t, Wd, bd, w, scaling) of
+    sum(out * g_out) + sum(lam * g_lam): autograd of the port's plain
+    forward and its explicit backward, against jax.grad of the JAX Pallas
+    kernel (its custom_vjp backward, interpret mode) and of the JAX
+    reference."""
+    diff, (km, iv, oh), qpos, go, gl = _grad_inputs(9, tq, gathered)
+    jq = None if qpos is None else jnp.asarray(qpos)
+
+    def jloss_kernel(a):
+        o, lam = jmau.mau_attention(*a[:4], km, iv, oh, *a[4:], 0, causal,
+                                    diag, 0.0, num_heads=H, qpos=jq)
+        return jnp.sum(o * go) + jnp.sum(lam * gl)
+
+    def jloss_ref(a):
+        o, lam = jmau.mau_attention_reference(
+            *(_heads(x) for x in a[:4]), km, iv, oh, *a[4:], causal=causal,
+            diag_reset=diag, qpos=jq)
+        o = o.transpose(0, 2, 1, 3).reshape(go.shape)
+        return jnp.sum(o * go) + jnp.sum(lam * gl)
+
+    ja = tuple(jnp.asarray(x) for x in diff)
+    with pltpu.force_tpu_interpret_mode():
+        want_k = jax.grad(jloss_kernel)(ja)
+    want_r = jax.grad(jloss_ref)(ja)
+
+    tdiff = [torch.tensor(x, requires_grad=True) for x in diff]
+    tsmall = [torch.tensor(x) for x in (km, iv, oh)]
+    tq_ = None if qpos is None else torch.tensor(qpos)
+    out, lam = mau_attention(*tdiff[:4], *tsmall, *tdiff[4:], causal, diag,
+                             num_heads=H, qpos=tq_)
+    loss = (out * torch.tensor(go)).sum() + (lam * torch.tensor(gl)).sum()
+    got_auto = [g.numpy() for g in torch.autograd.grad(loss, tdiff)]
+    got_expl = mau_attention_bwd_reference(
+        *(torch.tensor(x) for x in diff[:4]), *tsmall,
+        *(torch.tensor(x) for x in diff[4:]), torch.tensor(go),
+        torch.tensor(gl), causal=causal, diag_reset=diag, num_heads=H,
+        qpos=tq_)
+    got_expl = [g.numpy() for g in got_expl]
+    for got, name in ((got_auto, "autograd"), (got_expl, "explicit")):
+        _assert_grads(got, want_k, f"{name} vs JAX kernel")
+        _assert_grads(got, want_r, f"{name} vs JAX reference")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("causal,diag,tq,gathered", CASES[:3])
+def test_explicit_backward_matches_autograd(causal, diag, tq, gathered,
+                                           rate):
+    """The written-out backward against autograd of the plain forward, in
+    fp32, with and without dropout (the same seed on both sides, so the
+    regenerated mask is the forward's)."""
+    diff, (km, iv, oh), qpos, go, gl = _grad_inputs(4, tq, gathered)
+    tdiff = [torch.tensor(x, requires_grad=True) for x in diff]
+    tsmall = [torch.tensor(x) for x in (km, iv, oh)]
+    tq_ = None if qpos is None else torch.tensor(qpos)
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=rate,
+              dropout_seed=1234567, num_heads=H, qpos=tq_)
+    out, lam = mau_attention_reference(*tdiff[:4], *tsmall, *tdiff[4:], **kw)
+    loss = (out * torch.tensor(go)).sum() + (lam * torch.tensor(gl)).sum()
+    want = torch.autograd.grad(loss, tdiff)
+    got = mau_attention_bwd_reference(
+        *(x.detach() for x in tdiff[:4]), *tsmall,
+        *(x.detach() for x in tdiff[4:]), torch.tensor(go), torch.tensor(gl),
+        **kw)
+    _assert_grads([g.numpy() for g in got], [g.numpy() for g in want],
+                  "explicit vs autograd")
+
+
+def test_philox_known_answers():
+    """Philox4x32-10, the Random123 known-answer vectors (counter, key ->
+    four output words)."""
+    cases = [
+        ((0, 0, 0, 0), (0, 0),
+         (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+        ((0xffffffff,) * 4, (0xffffffff,) * 2,
+         (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+        ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+         (0xa4093822, 0x299f31d0),
+         (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+    ]
+    for ctr, key, want in cases:
+        got = philox4x32_10(*(torch.tensor(c, dtype=torch.int64)
+                              for c in ctr + key))
+        assert tuple(int(x) for x in got) == want
+
+
+def test_attention_dropout_statistics():
+    """Keep fraction within 5 sigma of 1-p over ~123k entries; kept
+    entries are exactly float32(1/(1-p)); the mask is a function of the seed
+    (same seed same mask, a seed differing only in its high word differs);
+    rate 0 keeps everything."""
+    shape, p = (4, 8, 31, 124), 0.1
+    n = int(np.prod(shape))
+    f = dropout_factor(123, shape, p, "cpu")
+    kept = f != 0
+    frac = float(kept.float().mean())
+    assert abs(frac - (1 - p)) < 5 * np.sqrt(p * (1 - p) / n)
+    assert torch.equal(f[kept], torch.full_like(f[kept],
+                                                np.float32(1 / (1 - p))))
+    assert torch.equal(f, dropout_factor(torch.tensor(123), shape, p, "cpu"))
+    assert not torch.equal(f, dropout_factor(123 + (1 << 32), shape, p,
+                                             "cpu"))
+    assert bool((dropout_factor(7, shape, 0.0, "cpu") == 1.0).all())

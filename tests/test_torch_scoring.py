@@ -1,0 +1,138 @@
+"""PyTorch port: the streamed catalog NLL (``kernels/scoring.py``).
+
+The plain ``catalog_nll`` (the CPU path: ``catalog_nll_reference`` under
+autograd) and the written-out backward ``catalog_nll_bwd_reference``
+against the JAX ``catalog_nll`` (Pallas, interpret mode: the fused
+backward, and the two-pass backward of the large-N branch) and the JAX
+``catalog_nll_reference``: lse and the label logit, and d_hidden, d_table,
+d_bias with cotangents on both outputs. N and V are not multiples of the
+JAX tile sizes, and the labels include 0 and V-1.
+
+The CUDA kernels are held against the plain versions in
+``test_torch_cuda.py`` (card only). fp32 tolerance: values atol = rtol =
+1e-5; gradients 1e-5 of each gradient's largest entry (sums over V or N
+terms in another order)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import easydgl_tpu.kernels.scoring as jscoring
+from easydgl_tpu_torch.kernels.scoring import (catalog_nll,
+                                               catalog_nll_bwd,
+                                               catalog_nll_bwd_reference,
+                                               catalog_nll_fwd,
+                                               catalog_nll_reference)
+
+torch.set_num_threads(2)
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _data(seed, n=13, c=8, v=37):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    hidden = rng.normal(size=(n, c)).astype(f32)
+    table = rng.normal(size=(v, c)).astype(f32)
+    bias = rng.normal(size=v).astype(f32)
+    bias[0] = -1000.0          # the padding id, as OutputBias makes it
+    labels = rng.integers(0, v, n).astype(np.int32)
+    labels[0], labels[1] = 0, v - 1
+    dlse = rng.normal(size=n).astype(f32)
+    dll = rng.normal(size=n).astype(f32)
+    return hidden, table, bias, labels, dlse, dll
+
+
+def _assert_grads(got, want, what):
+    for name, a, b in zip(("d_hidden", "d_table", "d_bias"), got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        np.testing.assert_allclose(a, b, atol=1e-5 * float(np.abs(b).max()),
+                                   rtol=0, err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("n,v", [(13, 37), (16, 64), (5, 300)])
+def test_forward_matches_jax_kernel_and_reference(n, v):
+    h, t, b, lab, _, _ = _data(1, n=n, v=v)
+    with pltpu.force_tpu_interpret_mode():
+        klse, kll = jscoring.catalog_nll(*(jnp.asarray(x)
+                                           for x in (h, t, b, lab)), 8, 16)
+    rlse, rll = jscoring.catalog_nll_reference(*(jnp.asarray(x)
+                                                 for x in (h, t, b, lab)))
+    targs = [torch.tensor(x) for x in (h, t, b, lab)]
+    before = catalog_nll_fwd.launches
+    for lse, ll in (catalog_nll(*targs), catalog_nll_fwd(*targs),
+                    catalog_nll_reference(*targs)):
+        for want_lse, want_ll in ((klse, kll), (rlse, rll)):
+            np.testing.assert_allclose(lse.detach().numpy(),
+                                       np.asarray(want_lse), **TOL)
+            np.testing.assert_allclose(ll.detach().numpy(),
+                                       np.asarray(want_ll), **TOL)
+    assert catalog_nll_fwd.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize("n,v,two_pass", [(7, 37, False), (8, 32, False),
+                                           (13, 37, True), (8, 32, True)])
+def test_grads_match_jax_kernel_and_reference(n, v, two_pass, monkeypatch):
+    """Gradients of sum(lse * dlse) + sum(ll * dll): JAX catalog_nll's
+    fused backward (and, with ``two_pass``, its large-N two-pass backward,
+    forced by a zero VMEM budget) and the JAX reference, against autograd
+    of the port's plain catalog_nll and its written-out backward. The fused
+    kernel rewrites its d_hidden block on every vocab step, which the
+    interpreter accepts only with one row block (N <= 8 here)."""
+    h, t, b, lab, dlse, dll = _data(2, n=n, v=v)
+    if two_pass:
+        monkeypatch.setattr(jscoring, "_FUSED_BWD_VMEM_BYTES", 0)
+
+    def jloss(fn, *blocks):
+        def loss(hh, tt, bb):
+            lse, ll = fn(hh, tt, bb, jnp.asarray(lab), *blocks)
+            return jnp.sum(lse * dlse) + jnp.sum(ll * dll)
+        return loss
+
+    ja = tuple(jnp.asarray(x) for x in (h, t, b))
+    with pltpu.force_tpu_interpret_mode():
+        want_k = jax.grad(jloss(jscoring.catalog_nll, 8, 16),
+                          argnums=(0, 1, 2))(*ja)
+    want_r = jax.grad(jloss(jscoring.catalog_nll_reference),
+                      argnums=(0, 1, 2))(*ja)
+
+    th, tt, tb = (torch.tensor(x, requires_grad=True) for x in (h, t, b))
+    lse, ll = catalog_nll(th, tt, tb, torch.tensor(lab))
+    loss = (lse * torch.tensor(dlse)).sum() + (ll * torch.tensor(dll)).sum()
+    got_auto = [g.numpy() for g in torch.autograd.grad(loss, (th, tt, tb))]
+    before = catalog_nll_bwd.launches
+    got_expl = catalog_nll_bwd(*(torch.tensor(x) for x in (h, t, b, lab)),
+                               lse.detach(), torch.tensor(dlse),
+                               torch.tensor(dll))
+    assert catalog_nll_bwd.launches == before  # CPU: no kernel
+    got_expl = [g.numpy() for g in got_expl]
+    for got, name in ((got_auto, "autograd"), (got_expl, "explicit")):
+        _assert_grads(got, want_k, f"{name} vs JAX kernel")
+        _assert_grads(got, want_r, f"{name} vs JAX reference")
+
+
+def test_bf16_backward_rounds_g_and_returns_the_compute_dtype():
+    """In bf16, d_hidden and d_table come back in bf16 (the TPU kernel
+    returns them in its inputs' dtype) and g is rounded to bf16 before both
+    products; d_bias stays fp32 and sums the unrounded g. Held against the
+    same arithmetic written with explicit casts to one bf16 ulp (rtol 1e-2):
+    softmax here and exp(s - lse) there differ in the last fp32 bits, which
+    can flip a bf16 rounding."""
+    h, t, b, lab, dlse, dll = _data(3, n=11, c=16, v=50)
+    hb = torch.tensor(h).to(torch.bfloat16)
+    tb = torch.tensor(t).to(torch.bfloat16)
+    lse, _ = catalog_nll_reference(hb, tb, torch.tensor(b), torch.tensor(lab))
+    dh, dt, db = catalog_nll_bwd_reference(
+        hb, tb, torch.tensor(b), torch.tensor(lab), lse, torch.tensor(dlse),
+        torch.tensor(dll))
+    assert dh.dtype == dt.dtype == torch.bfloat16 and db.dtype == torch.float32
+    logits = hb.float() @ tb.float().t() + torch.tensor(b)
+    g = torch.tensor(dlse)[:, None] * torch.softmax(logits, -1)
+    g[torch.arange(11), torch.tensor(lab).long()] += torch.tensor(dll)
+    gr = g.to(torch.bfloat16).float()
+    torch.testing.assert_close(dh.float(), (gr @ tb.float()).to(
+        torch.bfloat16).float(), atol=0, rtol=1e-2)
+    torch.testing.assert_close(dt.float(), (gr.t() @ hb.float()).to(
+        torch.bfloat16).float(), atol=0, rtol=1e-2)
+    torch.testing.assert_close(db, g.sum(0), atol=1e-6, rtol=1e-5)
