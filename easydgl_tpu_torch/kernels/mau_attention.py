@@ -321,25 +321,27 @@ class _MauAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
                 scaling, qpos, seed, causal, diag_reset, rate, num_heads):
+        packed = _pack_wd(wd) if q.dtype == torch.bfloat16 else ()
         out, lam, raw = _launch_fwd(q, k, v, t, key_mask, intervals, onehot,
                                     wd, bd, w, scaling, causal, diag_reset,
                                     num_heads, qpos, seed, rate,
-                                    want_raw=True)
+                                    want_raw=True, wd_packed=packed)
         ctx.save_for_backward(q, k, v, t, key_mask, intervals, onehot, wd,
-                              bd, w, scaling, raw)
+                              bd, w, scaling, raw, *packed)
         ctx.qpos, ctx.seed = qpos, seed
         ctx.cfg = (causal, diag_reset, rate, num_heads)
         return out, lam
 
     @staticmethod
     def backward(ctx, g_out, g_lam):
+        saved = ctx.saved_tensors
         (q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
-         raw) = ctx.saved_tensors
+         raw) = saved[:12]
         causal, diag_reset, rate, num_heads = ctx.cfg
         dq, dk, dv, dt, dwd, dbd, dw, dsc = _launch_bwd(
             q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling, raw,
             g_out, g_lam, causal, diag_reset, num_heads, ctx.qpos, ctx.seed,
-            rate)
+            rate, wd_packed=saved[12:])
         return (dq, dk, dv, dt, None, None, None, dwd.to(wd.dtype),
                 dbd.to(bd.dtype), dw.to(w.dtype), dsc.to(scaling.dtype),
                 None, None, None, None, None, None)
@@ -357,18 +359,26 @@ def _seed_tensor(seed, rate: float, dev) -> Optional[torch.Tensor]:
     return torch.as_tensor(seed, dtype=torch.int64).to(dev).reshape(())
 
 
-def _pack_wd_fragments(wd: torch.Tensor) -> torch.Tensor:
-    """Wd (dh+1, E*dh) -> bf16 in the order the kernel's tensor-core z
-    product reads it: K zero-padded to a multiple of 16, then for each
-    8-column tile j and 16-deep step s, 32 lanes x 4 values, lane 4g+t
-    holding Wd[16s + 8b + 2t + p, 8j + g] for b, p in {0, 1} (the mma
-    m16n8k16 B fragment), so each lane's load is 8 contiguous bytes."""
+def _pack_wd(wd: torch.Tensor):
+    """The bf16 layouts of Wd (dh+1, E*dh) that the tensor-core paths read,
+    all from one copy with K zero-padded to kp, a multiple of 16:
+
+    * fragments — for each 8-column tile j and 16-deep step s, 32 lanes x 4
+      values, lane 4g+t holding Wd[16s + 8b + 2t + p, 8j + g] for b, p in
+      {0, 1} (the mma m16n8k16 B fragment), so each lane's load is 8
+      contiguous bytes: the forward's z product and the backward's row
+      kernel;
+    * rows — (kp, E*dh) row-major: the row kernel's dx = dz Wd^T;
+    * cols — Wd^T, (E*dh, kp) row-major: the dWd kernel.
+
+    A training forward packs once and keeps the result for its backward."""
     k, n = wd.shape
     kp = -(-k // 16) * 16
-    wpad = torch.zeros(kp, n, dtype=torch.bfloat16, device=wd.device)
-    wpad[:k] = wd.detach().to(torch.bfloat16)
-    return (wpad.reshape(kp // 16, 2, 4, 2, n // 8, 8)
-            .permute(4, 0, 5, 2, 1, 3).contiguous())
+    rows = torch.zeros(kp, n, dtype=torch.bfloat16, device=wd.device)
+    rows[:k] = wd.detach().to(torch.bfloat16)
+    frags = (rows.reshape(kp // 16, 2, 4, 2, n // 8, 8)
+             .permute(4, 0, 5, 2, 1, 3).contiguous())
+    return frags, rows, rows.t().contiguous()
 
 
 def _check(cond: bool, msg: str):
@@ -463,7 +473,8 @@ def _drop_args(seed, rate):
 
 def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                 causal, diag_reset, num_heads, qpos, seed, rate, *,
-                want_raw: bool):
+                want_raw: bool, wd_packed=()):
+    """``wd_packed``: ``_pack_wd(wd)`` where the caller has it (bf16)."""
     km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
                                      wd, bd, w, scaling, num_heads, qpos)
     dev, cdt = q.device, q.dtype
@@ -471,8 +482,10 @@ def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
     tk = k.shape[1]
     e, dh = w.shape
     bdf, scf = _f32(bd, dev), _f32(scaling, dev)
-    wdc = (_pack_wd_fragments(wd.to(dev)) if cdt == torch.bfloat16
-           else wd.detach().to(device=dev, dtype=cdt).contiguous())
+    if cdt == torch.bfloat16:
+        wdc = (wd_packed or _pack_wd(wd.to(dev)))[0]
+    else:
+        wdc = wd.detach().to(device=dev, dtype=cdt).contiguous()
     wc = w.detach().to(device=dev, dtype=cdt).contiguous()
     for name, x in (("wd", wdc), ("w", wc), ("bd", bdf)):
         _check(x.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
@@ -518,7 +531,8 @@ def _bwd_query_chunk(lib, tq, tk, dh, e) -> int:
 
 def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                 raw, g_out, g_lam, causal, diag_reset, num_heads, qpos, seed,
-                rate):
+                rate, wd_packed=()):
+    """``wd_packed``: the forward's ``_pack_wd(wd)`` where there is one."""
     km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
                                      wd, bd, w, scaling, num_heads, qpos)
     dev, cdt = q.device, q.dtype
@@ -533,14 +547,9 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
            and raw.dtype == torch.float32 and raw.is_contiguous(),
            "raw residual (B, H, Tq, E) fp32")
     wdf, bdf, wf, scf = (_f32(x, dev) for x in (wd, bd, w, scaling))
-    wd_frag = wd_bf16 = wd_t = None
-    if cdt == torch.bfloat16 and dh <= 64:
-        # the tensor-core paths' copies of Wd (0.5 MB each at dh=64, E=64)
-        wd_frag = _pack_wd_fragments(wdf)
-        wd_bf16 = wdf.to(torch.bfloat16).contiguous()
-        kp = -(-(dh + 1) // 16) * 16
-        wd_t = torch.zeros((e * dh, kp), dtype=torch.bfloat16, device=dev)
-        wd_t[:, :dh + 1] = wd_bf16.t()
+    wd_frag = wd_rows = wd_t = None
+    if cdt == torch.bfloat16 and dh <= 64:   # the tensor-core paths
+        wd_frag, wd_rows, wd_t = wd_packed or _pack_wd(wdf)
     lib = _bwd_lib()
     qc = _bwd_query_chunk(lib, tq, tk, dh, e)
     rows = b * num_heads * tq
@@ -550,7 +559,8 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                   for _ in range(3))
     accs = ([torch.zeros((b, tk, c), **f32) for _ in range(3)]
             if qc < tq else [None] * 3)
-    x_out = (torch.empty((rows, kp), dtype=torch.bfloat16, device=dev)
+    x_out = (torch.empty((rows, wd_t.shape[1]), dtype=torch.bfloat16,
+                         device=dev)
              if wd_t is not None else torch.empty((rows, dh + 1), **f32))
     draw_out = torch.empty((rows, e), **f32)
     dsc = torch.zeros((e,), **f32)
@@ -568,7 +578,7 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             go.data_ptr(), go.stride(0), go.stride(1),
             km.data_ptr(), iv.data_ptr(), qp.data_ptr(), oh.data_ptr(),
             wdf.data_ptr(), bdf.data_ptr(), wf.data_ptr(), scf.data_ptr(),
-            ptr(wd_frag), ptr(wd_bf16), ptr(wd_t),
+            ptr(wd_frag), ptr(wd_rows), ptr(wd_t),
             raw.data_ptr(), gl.data_ptr(), seed_ptr, thresh, dscale,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dt.data_ptr(),
             *(ptr(a) for a in accs), x_out.data_ptr(), draw_out.data_ptr(),

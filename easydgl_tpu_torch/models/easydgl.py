@@ -93,15 +93,14 @@ class EasyDGL(SequentialModel):
         return self.cfg.seqslen + 1
 
     def forward(self, features, *, is_training: bool = False,
-                generator: Optional[torch.Generator] = None,
-                logits: bool = True):
+                generator: Optional[torch.Generator] = None):
         """features: seqs_i (B, L+1) ids, seqs_t (B, L+1) raw timestamps,
         seqs_marks (B, L+1, E) [, masked_positions (B, M) at train].
-        Returns (logits (N, V) fp32, aux). ``generator`` draws every
-        dropout mask of a training forward; it is required when a dropout
-        rate is non-zero. ``logits=False`` returns (None, aux): the training
-        loss scores through ``aux[SCORING]`` with the streamed catalog NLL,
-        and PyTorch, unlike XLA, would not drop an unused (N, V) product."""
+        Returns (logits (N, V) fp32, aux) at eval and (None, aux) when
+        training: the training loss scores ``aux[SCORING]`` through the
+        streamed catalog NLL, and PyTorch, unlike XLA, would not drop an
+        unused (N, V) product. ``generator`` draws every dropout mask of a
+        training forward; it is required when a dropout rate is non-zero."""
         cfg = self.cfg
         rate = cfg.hidden_dropout_rate
         if is_training and generator is None and (
@@ -160,7 +159,7 @@ class EasyDGL(SequentialModel):
         bias = self.out_bias()
         table = self.item_embs.table()
         aux = {INTENSITIES: tuple(intensities), SCORING: (hidden, table, bias)}
-        if not logits:
+        if is_training:
             return None, aux
         return tied_logits(hidden, table, bias, self.compute_dtype), aux
 

@@ -61,8 +61,7 @@ def compute_loss(model: SequentialModel, features: Dict[str, torch.Tensor],
     cfg = model.cfg
     if model.loss_mode != "softmax_eps":
         raise NotImplementedError(f"loss mode {model.loss_mode}")
-    _, aux = model(features, is_training=True, generator=generator,
-                   logits=False)
+    _, aux = model(features, is_training=True, generator=generator)
     hidden, table, bias = aux[SCORING]
     dt = cfg.matmul_dtype
     if dt is not None:

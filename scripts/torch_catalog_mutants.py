@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Shows that the catalog checks of ``chip_smoke.py`` fail a catalog
+backward kernel whose softmax term is missing, on one GPU.
+
+The backward's g is ``dlse * exp(s - lse) + dll * onehot(label)``. Each
+mutant takes the softmax term out of one pass of ``csrc/catalog_nll.cu``:
+the d_table / d_bias pass, or the d_hidden pass. For each mutant, and for
+the unchanged source as a control, the package and ``chip_smoke.py`` are
+copied into a temporary directory, the copy's source is edited, and
+``chip_smoke.CATALOG_CASES`` run there through ``chip_smoke.catalog_case``
+(one process per copy, all started together; each builds its own library
+with nvcc). Prints, per copy, the checks that failed with their worst
+|kernel - plain| / tolerance, and exits 0 when the control passes every
+check and every mutant fails at least one. Imports neither JAX nor the JAX
+package.
+
+    python3 scripts/torch_catalog_mutants.py
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SOURCE = "easydgl_tpu_torch/kernels/csrc/catalog_nll.cu"
+MUTANTS = {
+    "control": None,
+    "no softmax term in d_table/d_bias": (
+        "g = p.dlse[n] * expf(grow[c] - p.lse[n]) + "
+        "(p.labels[n] == arow ? p.dll[n] : 0.f);",
+        "g = (p.labels[n] == arow ? p.dll[n] : 0.f);"),
+    "no softmax term in d_hidden": (
+        "g = a_dlse * expf(grow[c] - a_lse) + "
+        "(b0 + c == a_label ? a_dll : 0.f);",
+        "g = (b0 + c == a_label ? a_dll : 0.f);"),
+}
+RESULT = "RESULT "
+
+
+def child() -> int:
+    """Runs the catalog cases against the package in the working
+    directory; prints {case: {output: worst/tol}} as JSON."""
+    here = pathlib.Path.cwd().resolve()
+    sys.path.insert(0, str(here))
+    import torch
+
+    import chip_smoke
+    import easydgl_tpu_torch
+    assert pathlib.Path(easydgl_tpu_torch.__file__).resolve().is_relative_to(
+        here), "the package was not imported from the copy"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, shape, dtype, label_term, seed in chip_smoke.CATALOG_CASES:
+        res = chip_smoke.catalog_case(name, shape, dtype, label_term, seed)
+        out[name] = {label: ratio for label, (_, ratio) in res.items()}
+    print(RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def make_copy(dst: pathlib.Path, edit):
+    shutil.copytree(ROOT / "easydgl_tpu_torch", dst / "easydgl_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    if edit is not None:
+        path = dst / SOURCE
+        text = path.read_text()
+        old, new = edit
+        if text.count(old) != 1:
+            raise RuntimeError(f"mutation target not found once in {SOURCE}:"
+                               f" {old}")
+        path.write_text(text.replace(old, new))
+
+
+def main() -> int:
+    if "--child" in sys.argv:
+        return child()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_catalog_mutants: no CUDA device", file=sys.stderr)
+        return 1
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for i, (name, edit) in enumerate(MUTANTS.items()):
+            dst = pathlib.Path(tmp) / f"copy{i}"
+            make_copy(dst, edit)
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 "--child"], cwd=dst, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=900)
+            lines = [x for x in text.splitlines() if x.startswith(RESULT)]
+            if proc.returncode != 0 or not lines:
+                print(f"{name}: the run failed (rc {proc.returncode}):\n"
+                      + text[-4000:])
+                ok = False
+                continue
+            res = json.loads(lines[-1][len(RESULT):])
+            failed = [(case, label, r) for case, checks in res.items()
+                      for label, r in checks.items() if r > 1.0]
+            worst = max(r for checks in res.values() for r in checks.values())
+            caught = bool(failed)
+            verdict = ("passes every check" if not caught else
+                       f"fails {len(failed)} checks")
+            print(f"{name}: {verdict} (worst/tol {worst:.3f})")
+            for case, label, r in failed:
+                print(f"    {case:28s} {label:16s} worst/tol {r:.3f}")
+            ok = ok and caught == (name != "control")
+    print("mutants caught, control clean" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

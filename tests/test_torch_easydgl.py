@@ -23,6 +23,7 @@ from easydgl_tpu_torch.config import preset
 from easydgl_tpu_torch.data.loader import BatchLoader
 from easydgl_tpu_torch.eval import metrics
 from easydgl_tpu_torch.eval.recommender import Recommender
+from easydgl_tpu_torch.models.base import SCORING, tied_logits
 from easydgl_tpu_torch.models.registry import MODELS, build_model
 from easydgl_tpu_torch.parity import (flax_to_torch, random_flax_params,
                                       torch_to_flax)
@@ -59,6 +60,14 @@ def _torch_feats(features):
     return {k: torch.as_tensor(v) for k, v in features.items()}
 
 
+def _training_logits(model, features, **kw):
+    """The training forward returns no logits (the loss streams the
+    catalog); they are scored here from its ``aux[SCORING]``."""
+    none, aux = model(_torch_feats(features), is_training=True, **kw)
+    assert none is None
+    return tied_logits(*aux[SCORING], model.compute_dtype)
+
+
 @pytest.mark.parametrize("gather_queries", [False, True])
 def test_eval_logits_match_jax(world, gather_queries):
     cfg_kw = dict(KW, gather_queries=gather_queries)
@@ -91,7 +100,7 @@ def test_training_forward_at_dropout_zero_matches_jax(world, gather_queries):
     model = build_model(preset("EasyDGL", **cfg_kw), device="cpu",
                         params=world["params"])
     with torch.no_grad():
-        got, _ = model(_torch_feats(features), is_training=True)
+        got = _training_logits(model, features)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # with the preset's dropout: a generator is required, and its draws
     # move the logits
@@ -100,8 +109,8 @@ def test_training_forward_at_dropout_zero_matches_jax(world, gather_queries):
     with pytest.raises(ValueError, match="Generator"):
         drop(_torch_feats(features), is_training=True)
     with torch.no_grad():
-        dropped, _ = drop(_torch_feats(features), is_training=True,
-                          generator=torch.Generator().manual_seed(0))
+        dropped = _training_logits(drop, features,
+                                   generator=torch.Generator().manual_seed(0))
     assert dropped.shape == got.shape and not torch.equal(dropped, got)
 
 

@@ -1,5 +1,6 @@
-"""PyTorch port: import hygiene. The package and ``chip_smoke.py`` import
-torch and never JAX, flax, optax, triton or the JAX package."""
+"""PyTorch port: import hygiene. The package, ``chip_smoke.py`` and
+``scripts/torch_*.py`` import torch and never JAX, flax, optax, triton or
+the JAX package."""
 import ast
 import pathlib
 import shutil
@@ -38,7 +39,8 @@ def test_every_module_imports_with_jax_flax_optax_triton_blocked():
 
 
 def test_no_source_imports_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
