@@ -11,21 +11,25 @@ version on the card — the MAU/BiMAU forward and backward (dropout included,
 the same seed on both sides) and the catalog NLL forward and backward (its
 table and bias gradients also on the vocab ids that are no row's label, and
 one case without the label term, so that the softmax term is held on its
-own) — and times each against its bound. Then it drives the port's two main paths on
-the flagship EasyDGL configuration (``PRESETS["EasyDGL"]``, 64 event marks,
-bf16 matmuls, random weights from a seed loaded through the flax weight
-bridge), each with the launch counters set to 0 just before it and read just
-after:
+own) and the three streamed long-context MAU kernels (stats, intensity head,
+modulated output), each on the blocked plain version's inputs — and times
+each against its bound. Then it drives the port's main paths, each with the
+launch counters set to 0 just before it and read just after:
 
-* serving: the eval step over a synthetic split and batched top-k
-  ``Recommender.recommend`` requests;
-* training: 20 faithful train steps (dropout 0.1 / 0.1, TPP and L2 terms,
-  TF-Adam) through ``build_train_step`` with marks looked up on the device,
-  then 10 steps on one repeated batch whose loss must fall.
+* serving on the flagship EasyDGL configuration (``PRESETS["EasyDGL"]``, 64
+  event marks, bf16 matmuls, random weights from a seed loaded through the
+  flax weight bridge): the eval step over a synthetic split and batched
+  top-k ``Recommender.recommend`` requests;
+* serving on the long-context flagship (``PRESETS["EasyDGL-LC"]``, L+1 =
+  2048, B = 8, the same widths): eval batches and ``recommend`` requests
+  through the streamed kernels;
+* training on the flagship: 20 faithful train steps (dropout 0.1 / 0.1, TPP
+  and L2 terms, TF-Adam) through ``build_train_step`` with marks looked up
+  on the device, then 10 steps on one repeated batch whose loss must fall.
 
-Last, the same full-width model in fp32 runs one eval batch and one train
-step (8 rows, dropout 0) on the card and on the CPU, and the logits, the
-loss, every gradient and the updated parameters are compared.
+Besides, each full-width model runs in fp32 on the card and on the CPU and
+is compared: the flagship's eval logits and one train step (loss, every
+gradient, the updated parameters), and EasyDGL-LC's logits for two rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -42,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from easydgl_tpu_torch.config import preset
 from easydgl_tpu_torch.data.loader import BatchLoader
@@ -53,6 +58,13 @@ from easydgl_tpu_torch.kernels import build
 from easydgl_tpu_torch.kernels.mau_attention import (
     _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
     mau_attention_bwd_reference, mau_attention_reference)
+from easydgl_tpu_torch.kernels.mau_blocked import (intensity_reference,
+                                                   mau_blocked_forward,
+                                                   output_reference,
+                                                   stats_reference)
+from easydgl_tpu_torch.kernels.mau_streamed import (mau_intensity,
+                                                    mau_modulated_out,
+                                                    mau_stats, mau_streamed)
 from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
@@ -89,6 +101,12 @@ SLICE_TOL = (1e-4, 1e-4)
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
+LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)   # EasyDGL-LC eval shape
+STREAMED = (mau_stats, mau_intensity, mau_modulated_out)
+STREAMED_REPLACES = {"mau_stats": "easydgl_tpu/kernels/mau_streamed.py:607",
+                     "mau_intensity": "easydgl_tpu/kernels/mau_streamed.py:239",
+                     "mau_modulated_out":
+                         "easydgl_tpu/kernels/mau_streamed.py:634"}
 MAU_GRADS = ("dq", "dk", "dv", "dt", "dWd", "dbd", "dw", "dscaling")
 
 
@@ -443,6 +461,161 @@ def phase_catalog_checks():
     return errs
 
 
+def stats_errs(name, got, want, dtype):
+    """The stats kernel's (m, l, seq_units) against the plain version's. A
+    row that sees no key has m = -(2^32)+1 exactly and would set the scale
+    of m and l: m there must be equal, elsewhere within SCALE_TOL of the
+    largest |m| of the rows that see a key; l (>= 1) within SCALE_TOL of
+    itself, elementwise; seq_units by scale. Returns the largest absolute
+    error of m (rows that see a key) and seq_units."""
+    m, l, su = got
+    tol = SCALE_TOL[dtype]
+    dead = want.m < -1e9
+    check(torch.equal(m[dead], want.m[dead]), f"{name}: m of a dead row")
+    m_err, m_ratio = scale_err(name, "m (live rows)", m[~dead],
+                               want.m[~dead], dtype)
+    l_ratio = float(((l - want.l).abs() / (tol * want.l)).max())
+    log(f"  {name:24s} {'l':16s}: max_abs={float((l - want.l).abs().max()):.3e}"
+        f" tol={tol:g}*|plain| elementwise worst/tol={l_ratio:.3f}")
+    su_err, su_ratio = scale_err(name, "seq_units", su, want.su, dtype)
+    for label, ratio in (("m", m_ratio), ("l", l_ratio),
+                         ("seq_units", su_ratio)):
+        check(ratio <= 1.0, f"{name}: {label} outside tolerance")
+    return max(m_err, su_err)
+
+
+# name, shape, dtype, causal, diag_reset, dropout rate
+STREAMED_CASES = (
+    ("lc_bimau_bf16", LC, torch.bfloat16, False, True, 0.0),
+    ("lc_bimau_fp32", LC, torch.float32, False, True, 0.0),
+    ("lc_bimau_bf16_drop", LC, torch.bfloat16, False, True, 0.1),
+    ("lc_causal_fp32_drop", LC, torch.float32, True, False, 0.1),
+    ("t1000_causal_bf16", dict(LC, b=3, tq=1000, tk=1000), torch.bfloat16,
+     True, False, 0.0),
+    ("t300_bimau_fp32_drop", dict(LC, b=3, tq=300, tk=300), torch.float32,
+     False, True, 0.1),
+    ("t77_dh16_e4_bf16_drop", dict(b=3, tq=77, tk=77, h=2, dh=16, e=4),
+     torch.bfloat16, True, False, 0.1))
+
+
+def phase_streamed_checks():
+    log("phase 3d: streamed MAU kernels (stats, intensity head, modulated "
+        "output) vs the blocked plain version on the card, each kernel on "
+        "the plain version's inputs")
+    errs = {}
+    for i, (name, shape, dtype, causal, diag, rate) in \
+            enumerate(STREAMED_CASES):
+        args = mau_inputs(**shape, dtype=dtype, gathered=False, seed=300 + i)
+        q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
+        h = shape["h"]
+        sd = torch.tensor(5000 + i, dtype=torch.int64, device="cuda")
+        kw = dict(causal=causal, num_heads=h)
+        want = mau_blocked_forward(*args[:11], diag_reset=diag,
+                                   dropout_rate=rate, dropout_seed=sd, **kw)
+        stats = mau_stats(q, k, t, km, **kw)
+        lam = mau_intensity(want.su, iv, wd, bd, w, sc)
+        out = mau_modulated_out(q, k, v, km, oh, want.lam, want.m, want.l,
+                                diag_reset=diag, dropout_rate=rate,
+                                dropout_seed=sd, **kw)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and lam.dtype == torch.float32,
+              f"{name}: dtypes")
+        case = {"mau_stats": stats_errs(name, stats, want, dtype),
+                "mau_intensity": compare_by_scale(name, ("lam",), (lam,),
+                                                  (want.lam,), torch.float32),
+                "mau_modulated_out": compare_by_scale(name, ("out",), (out,),
+                                                      (want.out,), dtype)}
+        check(bool((stats[1][0] == shape["tk"]).all()),
+              f"{name}: the fully masked row is not uniform over its keys")
+        # the interval term must count, or a kernel that drops it would
+        # pass (the TPU kernel drops it at dh % 128 == 0)
+        lam0 = intensity_reference(want.su, torch.zeros_like(iv), wd, bd, w,
+                                   sc)
+        moved = float((want.lam - lam0).abs().max())
+        need = 10 * SCALE_TOL[torch.float32] * float(want.lam.abs().max())
+        log(f"  {name:24s} interval term: max|lam - lam(iv=0)| = "
+            f"{moved:.3e} (must exceed {need:.3e})")
+        check(moved > need, f"{name}: the interval term does not count")
+        if i == 0:  # the three kernels chained, as the model calls them
+            chain = mau_streamed(*args[:11], causal, diag, rate, num_heads=h,
+                                 dropout_seed=sd)
+            compare_by_scale(name + "_chain", ("out", "lam"), chain,
+                             (want.out, want.lam), dtype)
+        errs[name] = case
+        del want, stats, lam, out
+    log("  streamed vs fused kernels, T=31, fp32, dropout 0.1, one seed:")
+    args = mau_inputs(**FLAGSHIP, dtype=torch.float32, gathered=False,
+                      seed=399)
+    sd = torch.tensor(4242, dtype=torch.int64, device="cuda")
+    got = mau_streamed(*args[:11], False, True, 0.1, num_heads=8,
+                       dropout_seed=sd)
+    want = mau_attention(*args[:11], False, True, 0.1, num_heads=8,
+                         dropout_seed=sd)
+    compare_by_scale("streamed_vs_fused", ("out", "lam"), got, want,
+                     torch.float32)
+    return errs
+
+
+def streamed_work(name, *, b, tq, tk, h, dh, e, dtype):
+    """(bytes, flops, dtype of the operations) of one streamed kernel: each
+    input read once, each output written once; the intensity head's
+    operations are fp32 whatever the compute dtype."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    c, rows = h * dh, b * h * tq
+    if name == "mau_stats":   # q, k, t, mask in; m, l, seq_units out
+        return (it * (b * tq * c + 2 * b * tk * c) + 4 * b * tk
+                + 4 * rows * (2 + dh), 2 * rows * tk * 2 * dh, dtype)
+    if name == "mau_intensity":   # seq_units, iv, Wd, bd, w, scaling; lam
+        return (4 * (rows * dh + b * tq + (dh + 1) * e * dh + 2 * e * dh + e
+                     + rows * e),
+                2 * rows * ((dh + 1) * e * dh + e * dh), torch.float32)
+    # q, k, v, mask, one-hot, lam, m, l in; out
+    return (it * (2 * b * tq * c + 2 * b * tk * c)
+            + 4 * (b * tk + b * tk * e + rows * e + 2 * rows),
+            2 * rows * tk * (2 * dh + e), dtype)
+
+
+def phase_streamed_timing():
+    log("phase 4c: streamed MAU kernels at the EasyDGL-LC eval shape "
+        "(B=8, T=2048, H=8, dh=64, E=64, BiMAU)")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = mau_inputs(**LC, dtype=dtype, gathered=False, seed=400)
+        q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
+        kw = dict(causal=False, num_heads=LC["h"])
+        m, l, su = mau_stats(q, k, t, km, **kw)
+        lam = mau_intensity(su, iv, wd, bd, w, sc)
+        runs = {
+            "mau_stats": (lambda: mau_stats(q, k, t, km, **kw),
+                          lambda: stats_reference(q, k, t, km, **kw)),
+            "mau_intensity": (
+                lambda: mau_intensity(su, iv, wd, bd, w, sc),
+                lambda: intensity_reference(su, iv, wd, bd, w, sc)),
+            "mau_modulated_out": (
+                lambda: mau_modulated_out(q, k, v, km, oh, lam, m, l,
+                                          diag_reset=True, **kw),
+                lambda: output_reference(q, k, v, km, oh, lam, m, l,
+                                         diag_reset=True, **kw))}
+        heads = [x.view(LC["b"], LC["tk"], LC["h"], LC["dh"]).transpose(1, 2)
+                 for x in (q, k, v)]
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(*heads))
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(kern, warmup=2, iters=10)
+            plain_ms = time_ms(plain, warmup=1, iters=3)
+            nbytes, flops, op_dtype = streamed_work(name, **LC, dtype=dtype)
+            bound_ms, bound_by = bound(nbytes, flops, op_dtype)
+            log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
+                f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+                f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
+                f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x")
+            rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=None, sdpa_ms=sdpa_ms)
+        log(f"  for scale, F.scaled_dot_product_attention on the same q/k/v"
+            f" ({str(dtype)[6:]}): {sdpa_ms:.4f} ms")
+    return rows
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -635,6 +808,104 @@ def phase_slice_cpu_vs_card(batch, table):
     check(ratio <= 1.0, "card vs CPU logits outside tolerance")
 
 
+def phase_lc_slice():
+    log("phase 5b: EasyDGL-LC eval + serving at full width on the card "
+        "(B=8, L+1=2048, C=512, H=8, E=64, bf16, streamed kernels)")
+    cfg = preset("EasyDGL-LC", num_events=64)
+    bs = cfg.batch_size
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    split = synthetic_split_vectorized(num_rows=4 * bs,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=4)
+    batches = list(BatchLoader(split, data_mode=model.data_mode,
+                               batch_size=bs, masklen=cfg.masklen,
+                               is_training=False).epoch(0))
+    requests = synthetic_split_vectorized(num_rows=3 * bs,
+                                          num_items=cfg.num_items,
+                                          seqslen=cfg.seqslen, seed=5)
+    req_batches = [{k: v[i * bs:(i + 1) * bs]
+                    for k, v in requests.arrays.items()} for i in range(3)]
+    step = build_eval_step(model, mark_table=table)
+    rec = Recommender(cfg, model, table)
+    MetricAccumulator().update(step(model, *batches[0]))  # warm-up
+    rec.recommend(req_batches[0], k=50)
+    torch.cuda.synchronize()
+
+    counters = STREAMED + (mau_attention,)
+    for fn in counters:
+        fn.launches = 0
+    acc = MetricAccumulator()
+    t0 = time.perf_counter()
+    for features, labels, valid in batches:
+        acc.update(step(model, features, labels, valid))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    latencies, answers = [], []
+    for arrays in req_batches:
+        t0 = time.perf_counter()
+        ids, scores = rec.recommend(arrays, k=50)
+        latencies.append(time.perf_counter() - t0)
+        answers.append((arrays, ids, scores))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    forwards = (len(batches) + len(req_batches)) * cfg.num_blocks
+    for fn in STREAMED:
+        check(launches[fn.__name__] == forwards,
+              f"LC serving: {fn.__name__} launched {launches[fn.__name__]}"
+              f" times for {forwards} forwards")
+    check(launches["mau_attention"] == 0,
+          "LC serving: the fused kernel was launched")
+    metrics = acc.result()
+    log(f"  eval over {int(acc.count)} rows: " + json.dumps(metrics))
+    for key, val in metrics.items():
+        check(math.isfinite(val) and 0.0 <= val <= 1.0, f"metric {key}={val}")
+    for arrays, ids, scores in answers:
+        check(ids.shape == (bs, 50) and scores.shape == (bs, 50),
+              "LC recommend shapes")
+        check(bool(np.isfinite(scores).all()), "LC recommend: not finite")
+        check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+              "LC recommend: scores not sorted descending")
+        check(bool((ids != 0).all()), "LC recommend: padding id 0 returned")
+        seen = rec.protocol(arrays, False, None)[0]["seqs_i"]
+        check(not any(set(ids[r].tolist()) & set(seen[r].tolist())
+                      for r in range(bs)), "LC recommend: a seen id returned")
+    seqs_per_s = len(batches) * bs / eval_s
+    log(f"  eval: {len(batches)} batches x {bs} rows in {eval_s:.4f} s ="
+        f" {seqs_per_s:.1f} seqs/s (synchronised, mark lookup on device)")
+    log(f"  recommend k=50, B={bs}: latency per batch "
+        + ", ".join(f"{x * 1e3:.3f} ms" for x in latencies))
+    log(f"  launches on the LC served path ({len(batches)} eval +"
+        f" {len(req_batches)} recommend forwards): " + json.dumps(launches))
+    return launches, batches[0], table, seqs_per_s, latencies
+
+
+def phase_lc_cpu_vs_card(batch, table):
+    log("phase 6b: full-width fp32 EasyDGL-LC, card (streamed kernels) vs "
+        "CPU (blocked plain version), 2 rows")
+    cfg = preset("EasyDGL-LC", num_events=64, compute_dtype="float32")
+    params = random_flax_params(cfg, seed=0)
+    features, _, _ = batch
+    features = {k: v[:2] for k, v in features.items()}
+    ids = features["seqs_i"]
+    features["seqs_marks"] = table[np.where(ids >= table.shape[0], 0, ids)
+                                   ].astype(np.float32)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, params=params)
+        with torch.no_grad():
+            out, _ = model(to_device(features, dev), is_training=False)
+        logits[dev] = out.cpu()
+        del model
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    atol, rtol = SLICE_TOL
+    ratio = float((err / (atol + rtol * logits["cpu"].abs())).max())
+    log(f"  logits (2, {logits['cpu'].shape[1]}):"
+        f" max_abs={float(err.max()):.3e}"
+        f" tol(atol={atol:g}, rtol={rtol:g}) worst/tol={ratio:.3f}")
+    check(ratio <= 1.0, "LC card vs CPU logits outside tolerance")
+
+
 def phase_train():
     log("phase 7: EasyDGL faithful train steps at full width on the card "
         "(dropout 0.1 / 0.1, TPP + L2, TF-Adam, marks looked up on device)")
@@ -757,7 +1028,9 @@ def kernel_names(log_text: str):
     """kernel<dtype, template ints...> of an entry function in a ptxas
     report line."""
     m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
-                  r"mau_bwd_weights|catalog_kernel|catalog_merge)(I?\w*)",
+                  r"mau_bwd_weights|catalog_kernel|catalog_merge|"
+                  r"mau_stats_kernel|mau_out_kernel|mau_intensity_kernel)"
+                  r"(I?\w*)",
                   log_text)
     if not m:
         return None
@@ -787,7 +1060,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     log("phase 2: build")
-    sources = ["mau_attention_fwd", "mau_attention_bwd", "catalog_nll"]
+    sources = ["mau_attention_fwd", "mau_attention_bwd", "catalog_nll",
+               "mau_streamed_fwd"]
     seconds = build.build(sources)
     for name, s in seconds.items():
         log(f"  {name}: nvcc {s:.1f} s")
@@ -801,10 +1075,14 @@ def main() -> int:
     errs = phase_kernel_checks()
     bwd_errs = phase_bwd_checks()
     cat_errs = phase_catalog_checks()
+    streamed_errs = phase_streamed_checks()
     timing = phase_kernel_timing()
     train_timing = phase_train_kernel_timing()
+    streamed_timing = phase_streamed_timing()
     serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
+    lc_launches, lc_batch, lc_table, lc_seqs_s, lc_lat = phase_lc_slice()
+    phase_lc_cpu_vs_card(lc_batch, lc_table)
     train_launches, ms_step, ex_s = phase_train()
     phase_train_cpu_vs_card()
 
@@ -841,6 +1119,20 @@ def main() -> int:
             entry["also_replaces"] = ["easydgl_tpu/kernels/scoring.py:323",
                                       "easydgl_tpu/kernels/scoring.py:343"]
         kernels.append(entry)
+    for fn in STREAMED:
+        name = fn.__name__
+        row = streamed_timing[(name, bf16)]
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "mau_streamed_fwd.cu",
+            replaces=STREAMED_REPLACES[name], launches=lc_launches[name],
+            launches_per_path={"serving_lc": lc_launches[name]},
+            max_abs_err=streamed_errs["lc_bimau_bf16"][name], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            sdpa_ms_for_scale=row["sdpa_ms"]))
+    log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
+        + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
+        + f" ms per B=8 batch on {card}")
     log(f"train: {ms_step:.4f} ms/step, {ex_s:.1f} ex/s at B=512 on {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))

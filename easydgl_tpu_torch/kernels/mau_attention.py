@@ -78,17 +78,20 @@ def dropout_threshold(rate: float) -> int:
     return min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
 
 
-def dropout_factor(seed, shape, rate: float, device) -> torch.Tensor:
+def dropout_factor(seed, shape, rate: float, device,
+                   key_offset: int = 0) -> torch.Tensor:
     """(B, H, Tq, Tk) fp32 keep factors, 1/(1-rate) or 0, of the attention
     dropout. ``seed``: int or int64 scalar tensor. Row i of the mask is
-    query row i of the call (not its original position)."""
+    query row i of the call (not its original position); column j is key
+    ``key_offset + j``, so a block of keys draws the bits of its global key
+    indices and a blocked schedule draws the mask of the whole call."""
     b, h, tq, tk = shape
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     c3 = ar(b)[:, None, None, None]
     c2 = ar(h)[None, :, None, None]
     c1 = ar(tq)[None, None, :, None]
-    c0 = ar(tk)[None, None, None, :]
+    c0 = ar(tk)[None, None, None, :] + key_offset
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
     bits = philox4x32_10(c0, c1, c2, c3, k0, k1)[0]
     keep = bits < dropout_threshold(rate)

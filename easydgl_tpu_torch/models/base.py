@@ -19,6 +19,15 @@ INTENSITIES = "intensities"   # tuple of (B, H, T, E) per block (LLE_PP)
 SCORING = "scoring"           # (hidden, table, bias)
 
 
+def mau_impl(cfg: Config) -> str:
+    """MAU/BiMAU engine of the self-modulating models (JAX
+    ``models/base.py:40-51``): ``attention_impl == "flash"``, the
+    long-context switch, gives the streamed two-sweep schedule (its kernels
+    on the card, the blocked plain version on the CPU); anything else the
+    fused chain (``mau_attention``)."""
+    return "streamed" if cfg.attention_impl == "flash" else "fused"
+
+
 class OutputBias(nn.Module):
     """Learned per-item bias with a -1000 pad on item 0
     (reference Base.py:106-113); ``output_bias`` holds the learned part."""

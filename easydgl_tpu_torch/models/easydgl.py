@@ -10,7 +10,9 @@ src/model/EasyDGL.py:
   codes], -1), 3C wide. The reference looks ``mark_embs`` up with the 0/1
   indicator VALUES as indices, so the mark code is
   (#active marks) * mark_embs[1] — reproduced faithfully;
-* BiMAU blocks; the attention residual takes x[:, :, :C];
+* BiMAU blocks, on the engine ``models.base.mau_impl`` picks (the fused
+  chain, or the streamed long-context schedule under
+  ``attention_impl="flash"``); the attention residual takes x[:, :, :C];
 * GELU transform head, tied scoring with a -1000 bias on id 0;
 * training: hidden dropout after the input codes and after each sublayer's
   output projection, attention dropout inside BiMAU, all drawn from the
@@ -29,8 +31,8 @@ import torch
 
 from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.models.base import (INTENSITIES, SCORING, OutputBias,
-                                           SequentialModel, prediction_rows,
-                                           tied_logits)
+                                           SequentialModel, mau_impl,
+                                           prediction_rows, tied_logits)
 from easydgl_tpu_torch.nn.coding import (Embedding, PositionCoding,
                                          TimeSinusoidCoding)
 from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, Dense, dropout,
@@ -65,8 +67,9 @@ class EasyDGL(SequentialModel):
         for i in range(cfg.num_blocks):
             self.add_module(f"block{i}_bimau", BiMAU(
                 3 * c if i == 0 else c, c, cfg.num_heads, cfg.num_events,
-                cfg.attention_probs_dropout_rate, compute_dtype=cdt,
-                device=device))
+                cfg.attention_probs_dropout_rate,
+                intensity_impl=mau_impl(cfg), block_k=cfg.mau_block_k,
+                compute_dtype=cdt, device=device))
             self.add_module(f"block{i}_attn_out",
                             Dense(c, c, compute_dtype=cdt, device=device))
             self.add_module(f"block{i}_ln0",

@@ -5,12 +5,23 @@ A fourth projection T feeds a Hawkes-style intensity head; the attention
 probabilities are modulated elementwise by the per-(q, k) mark intensity.
 ``BiMAU`` is bidirectional with the intensity diagonal reset to 1.
 
-The forward runs through ``kernels.mau_attention.mau_attention`` (the fused
-kernels on the card, forward and backward; its plain version on the CPU).
+Two engines, chosen by ``intensity_impl`` (the models pick it with
+``models.base.mau_impl``):
+
+* ``"fused"``: ``kernels.mau_attention.mau_attention``, the whole chain in
+  one kernel on the card, forward and backward (its plain version on the
+  CPU); keys up to 128;
+* ``"streamed"``: ``kernels.mau_streamed.mau_streamed``, the long-context
+  two-sweep schedule, O(T * block) memory (JAX temporal.py:601-650): three
+  forward kernels on the card, the blocked plain version
+  (``kernels.mau_blocked``, blocks of ``block_k`` keys) on the CPU.
+  Gathered-query calls (``query_positions``) keep the fused engine, as in
+  JAX.
+
 Attention dropout (training) takes one seed per call, drawn from the step's
 ``torch.Generator`` (JAX: one int32 from the ``dropout`` rng,
-temporal.py:652-685); the kernel draws its mask from it. The context-parallel,
-streamed and blocked long-context engines of the JAX module are not ported
+temporal.py:652-685); both engines draw their mask from it with the same
+Philox rule. The context-parallel engine of the JAX module is not ported
 yet.
 """
 from __future__ import annotations
@@ -21,6 +32,7 @@ import torch
 from torch import nn
 
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention
+from easydgl_tpu_torch.kernels.mau_streamed import mau_streamed
 from easydgl_tpu_torch.nn.layers import Dense
 
 
@@ -31,14 +43,21 @@ class MAU(nn.Module):
     Q|K|V|T projection (``fused_qkvt``, as BiMAU uses); the intensity head's
     ``intensity_dense_kernel`` (dh+1, E*dh), ``intensity_dense_bias``,
     ``intensity_weight`` (E, dh) and ``intensity_scaling`` (E,).
+    ``intensity_impl``: ``"fused"`` or ``"streamed"`` (module docstring);
+    ``block_k``: the streamed engine's key block on the CPU.
     """
 
     def __init__(self, in_units: int, num_units: int, num_heads: int,
                  num_events: int, dropout_rate: float = 0.0, *,
                  causal_default: bool = True,
-                 diag_reset: bool = False,
+                 diag_reset: bool = False, intensity_impl: str = "fused",
+                 block_k: int = 512,
                  compute_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
+        if intensity_impl not in ("fused", "streamed"):
+            raise ValueError(f"MAU: unknown intensity_impl {intensity_impl}")
+        self.intensity_impl = intensity_impl
+        self.block_k = block_k
         self.num_units = num_units
         self.num_heads = num_heads
         self.num_events = num_events
@@ -121,20 +140,29 @@ class MAU(nn.Module):
         if rate > 0.0:
             seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                                  device=generator.device)
-        out, mark_intensity = mau_attention(
-            qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),
-            self.intensity_dense_kernel, self.intensity_dense_bias,
-            self.intensity_weight, self.intensity_scaling,
-            self.causal_default, self.diag_reset, rate,
-            num_heads=self.num_heads, qpos=qpos, dropout_seed=seed)
+        params = (self.intensity_dense_kernel, self.intensity_dense_bias,
+                  self.intensity_weight, self.intensity_scaling)
+        if self.intensity_impl == "streamed" and qpos is None:
+            out, mark_intensity = mau_streamed(
+                qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),
+                *params, self.causal_default, self.diag_reset, rate,
+                num_heads=self.num_heads, dropout_seed=seed,
+                block_k=self.block_k)
+        else:
+            out, mark_intensity = mau_attention(
+                qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),
+                *params, self.causal_default, self.diag_reset, rate,
+                num_heads=self.num_heads, qpos=qpos, dropout_seed=seed)
         return out + q_res, mark_intensity
 
 
 def BiMAU(in_units: int, num_units: int, num_heads: int, num_events: int,
-          dropout_rate: float = 0.0, *,
+          dropout_rate: float = 0.0, *, intensity_impl: str = "fused",
+          block_k: int = 512,
           compute_dtype: Optional[torch.dtype] = None, device=None) -> MAU:
     """Bidirectional MAU (reference temporal.py:396-452): fused QKVT
     projection, no causal mask, intensity diagonal reset to 1."""
     return MAU(in_units, num_units, num_heads, num_events, dropout_rate,
                causal_default=False, diag_reset=True,
+               intensity_impl=intensity_impl, block_k=block_k,
                compute_dtype=compute_dtype, device=device)

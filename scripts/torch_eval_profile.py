@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship eval step goes, on one GPU.
+"""Where the time of the port's eval step goes, on one GPU.
 
-Runs ``build_eval_step`` of easydgl_tpu_torch (PRESETS["EasyDGL"], 64 marks,
-bf16 matmuls, random weights from seed 0, batch 512) over a synthetic split
-under ``torch.profiler``, and prints the device time by kernel, the share of
-the window the device was busy, and the host wall time per batch. Imports
-neither JAX nor the JAX package.
+Runs ``build_eval_step`` of easydgl_tpu_torch for a preset (default
+``EasyDGL``; ``EasyDGL-LC`` is the long-context flagship, L+1 = 2048, B = 8)
+with 64 marks, bf16 matmuls, random weights from seed 0 and the preset's
+batch size, over a synthetic split under ``torch.profiler``, and prints the
+device time by kernel, the share of the window the device was busy, and
+the host wall time per batch. Imports neither JAX nor the JAX package.
 
-    python3 scripts/torch_eval_profile.py [--batches 8]
+    python3 scripts/torch_eval_profile.py [PRESET] [--batches 8]
 """
 from __future__ import annotations
 
@@ -32,13 +33,14 @@ from easydgl_tpu_torch.train.steps import build_eval_step  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("preset", nargs="?", default="EasyDGL")
     ap.add_argument("--batches", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_eval_profile: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    cfg = preset(args.preset, num_events=64, compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
     table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
@@ -46,7 +48,7 @@ def main() -> int:
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=0)
     batches = list(BatchLoader(split, data_mode="mau",
-                               batch_size=cfg.batch_size,
+                               batch_size=cfg.batch_size, masklen=cfg.masklen,
                                is_training=False).epoch(0))
     step = build_eval_step(model, mark_table=table)
     MetricAccumulator().update(step(model, *batches[0]))  # warm-up
@@ -63,7 +65,8 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
-    print(f"{torch.cuda.get_device_name(0)}; {len(batches)} batches x "
+    print(f"{torch.cuda.get_device_name(0)}; {args.preset}:"
+          f" {len(batches)} batches x "
           f"{cfg.batch_size} rows: wall {wall * 1e3 / len(batches):.3f} ms"
           f"/batch (profiled), device busy {total_us / 1e3 / len(batches):.3f}"
           f" ms/batch = {100 * total_us / 1e6 / wall:.1f}% of the window")

@@ -10,10 +10,15 @@ Tolerances (|kernel - plain| <= atol + rtol * scale): fp32 1e-4 with scale
 sum_j |m_ij v_jd| (the plain version on |v|): both round the same operands
 to bf16, and a sum taken in another order can flip one such rounding by a
 bf16 ulp (2^-8 of a summand), which that scale bounds even where the sum
-cancels. Gradients and the catalog NLL's outputs are held to a fraction of
-each output's largest entry: fp32 1e-4 (sums of up to B*H*Tq terms, added
-in another order and by atomics), bf16 1e-2 (a reordered sum can flip the
-bf16 rounding of an intermediate such as dz or g by one ulp).
+cancels. Gradients, the catalog NLL's outputs and the streamed MAU
+kernels' outputs are held to a fraction of each output's largest entry,
+with no absolute floor (at the flagship's scales a floor of 1e-6 exceeds
+1e-2 x max|d_hidden| and would pass a wrong kernel): fp32 1e-4 (sums of up
+to B*H*Tq terms, added in another order and by atomics), bf16 1e-2 (a
+reordered sum can flip the bf16 rounding of an intermediate such as dz, g
+or the probs by one ulp). An output that is exactly zero by construction
+is compared for equality. The streamed intensity head is fp32 in both
+compute dtypes and is held to 1e-4.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,13 @@ import torch
 from easydgl_tpu_torch.kernels.mau_attention import (
     mau_attention, mau_attention_bwd, mau_attention_bwd_reference,
     mau_attention_reference)
+from easydgl_tpu_torch.kernels.mau_blocked import (intensity_reference,
+                                                   mau_blocked_forward,
+                                                   output_reference,
+                                                   stats_reference)
+from easydgl_tpu_torch.kernels.mau_streamed import (mau_intensity,
+                                                    mau_modulated_out,
+                                                    mau_stats, mau_streamed)
 from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
@@ -163,7 +175,7 @@ def _check_by_scale(dtype, got, want, what):
         assert a.shape == b.shape, (what, i)
         assert bool(torch.isfinite(a).all()), (what, i)
         err = float((a - b).abs().max())
-        assert err <= tol * float(b.abs().max()) + 1e-6, (what, i, err)
+        assert err <= tol * float(b.abs().max()), (what, i, err)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -270,3 +282,116 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         err = (out["cuda"][1][name] - want).abs()
         ok = (err <= 1e-5 + 1e-4 * want.abs()) | (near & (err <= 1e-3))
         assert bool(ok.all()), name
+
+
+def _check_stats(dtype, got, want):
+    """m, l, seq_units of the stats kernel. A row that sees no key has m =
+    -(2^32)+1 exactly and would set the scale of m and l, so: m on those
+    rows equal, elsewhere within tol of the largest |m| of the rows that see
+    a key; l (>= 1) within tol of itself, elementwise; seq_units by scale."""
+    m, l, su = got
+    tol = GRAD_TOL[dtype]
+    dead = want.m < -1e9
+    assert torch.equal(m[dead], want.m[dead])
+    live = want.m[~dead]
+    assert float((m[~dead] - live).abs().max()) <= tol * float(
+        live.abs().max())
+    assert bool(((l - want.l).abs() <= tol * want.l).all())
+    _check_by_scale(dtype, (su,), (want.su,), "seq_units")
+
+
+STREAMED_SHAPES = {"small": dict(b=3, t=77, h=2, dh=16, e=4),
+                   "unaligned": dict(b=2, t=300, h=8, dh=64, e=64),
+                   "dh128": dict(b=2, t=130, h=2, dh=128, e=8),
+                   "dh32": dict(b=2, t=65, h=4, dh=32, e=12)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", list(STREAMED_SHAPES))
+@pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_kernels_match_plain_version(cuda_device, dtype, causal,
+                                              diag, shape, rate):
+    """Each of the three streamed kernels on the plain version's inputs
+    (so each is held on its own), then the chain: m, l, seq_units, lam and
+    out against the blocked plain version; row 0 is fully masked."""
+    ts, _ = _inputs(cuda_device, dtype, **STREAMED_SHAPES[shape])
+    q, k, v, t, km, iv, oh, wd, bd, w, sc = ts
+    h = STREAMED_SHAPES[shape]["h"]
+    seed = torch.tensor(777, device=cuda_device)
+    kw = dict(causal=causal, num_heads=h)
+    want = mau_blocked_forward(*ts, diag_reset=diag, dropout_rate=rate,
+                               dropout_seed=seed, **kw)
+    before = [f.launches for f in (mau_stats, mau_intensity,
+                                   mau_modulated_out)]
+    m, l, su = mau_stats(q, k, t, km, **kw)
+    lam = mau_intensity(want.su, iv, wd, bd, w, sc)
+    out = mau_modulated_out(q, k, v, km, oh, want.lam, want.m, want.l,
+                            diag_reset=diag, dropout_rate=rate,
+                            dropout_seed=seed, **kw)
+    chain = mau_streamed(*ts, causal, diag, rate, num_heads=h,
+                         dropout_seed=seed)
+    assert [f.launches for f in (mau_stats, mau_intensity,
+                                 mau_modulated_out)] == [x + 2 for x in
+                                                         before]
+    assert out.dtype == dtype and lam.dtype == torch.float32
+    _check_stats(dtype, (m, l, su), want)
+    _check_by_scale(torch.float32, (lam,), (want.lam,), "intensity")
+    _check_by_scale(dtype, (out,), (want.out,), "out")
+    _check_by_scale(dtype, chain, (want.out, want.lam), "chain")
+    # the fully masked row: uniform over its t real keys
+    assert bool((l[0] == STREAMED_SHAPES[shape]["t"]).all())
+
+
+def test_streamed_kernels_refuse_what_they_do_not_take(cuda_device):
+    ts, _ = _inputs(cuda_device, torch.float32, b=2, t=40, h=2, dh=16, e=4)
+    q = ts[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="train step"):
+        mau_streamed(q, *ts[1:], num_heads=2)
+    with pytest.raises(ValueError, match="seed"):
+        mau_streamed(*ts, False, True, 0.1, num_heads=2)
+    odd, _ = _inputs(cuda_device, torch.float32, b=1, t=40, h=2, dh=24, e=4)
+    with pytest.raises(ValueError, match="head dim"):
+        mau_streamed(*odd, num_heads=2)
+
+
+def test_streamed_and_fused_kernels_agree(cuda_device):
+    """At T = 31, fp32, rate 0.1 and one seed, the streamed kernels and the
+    fused mau_attention kernel compute one function and draw one mask."""
+    ts, _ = _inputs(cuda_device, torch.float32, b=8, t=31, h=8, dh=64, e=64)
+    seed = torch.tensor(4242, device=cuda_device)
+    got = mau_streamed(*ts, False, True, 0.1, num_heads=8, dropout_seed=seed)
+    want = mau_attention(*ts, False, True, 0.1, num_heads=8,
+                         dropout_seed=seed)
+    _check_by_scale(torch.float32, got, want, "streamed vs fused")
+
+
+def test_lc_model_on_card_matches_cpu(cuda_device):
+    """fp32 EasyDGL-LC logits at a small width, streamed kernels on the
+    card vs the blocked plain version on the CPU: 1e-4."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+                                                  synthetic_split)
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import to_device
+    cfg = preset("EasyDGL-LC", num_items=60, seqslen=255, num_units=64,
+                 num_heads=2, num_events=4, batch_size=4, masklen=16,
+                 compute_dtype="float32")
+    params = random_flax_params(cfg, 0)
+    ds = synthetic_split(num_rows=4, num_items=60, seqslen=255, seed=2)
+    loader = BatchLoader(ds, data_mode="mau", batch_size=4,
+                         is_training=False,
+                         mark_table=synthetic_mark_table(60, 4, seed=1),
+                         needs_marks=True)
+    features, _, _ = next(loader.epoch(0))
+    logits = {}
+    before = mau_stats.launches
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params=params)
+        with torch.no_grad():
+            logits[dev.type] = model(to_device(features, dev))[0].cpu()
+    assert mau_stats.launches == before + 1
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)

@@ -5,7 +5,10 @@ Whole-model logits (eval, gathered eval, and the training forward at
 dropout 0) with weights carried by the bridge, held to atol = rtol = 1e-4;
 the metric functions fed the SAME logits (exact ties, duplicate seen ids);
 the eval-step sums and ``Recommender.recommend`` end to end; the bridge's
-round trip and its random tree."""
+round trip and its random tree. The same for a small EasyDGL-LC
+configuration (L+1 = 256, ``attention_impl="flash"``): the port's blocked
+engine against the JAX blocked engine, run op by op (its jitted CPU program
+moves the logits by up to ~1e-3 against its own op-by-op run)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,7 @@ from easydgl_tpu_torch.config import preset
 from easydgl_tpu_torch.data.loader import BatchLoader
 from easydgl_tpu_torch.eval import metrics
 from easydgl_tpu_torch.eval.recommender import Recommender
-from easydgl_tpu_torch.models.base import SCORING, tied_logits
+from easydgl_tpu_torch.models.base import SCORING, mau_impl, tied_logits
 from easydgl_tpu_torch.models.registry import MODELS, build_model
 from easydgl_tpu_torch.parity import (flax_to_torch, random_flax_params,
                                       torch_to_flax)
@@ -224,3 +227,110 @@ def test_other_models_raise_not_implemented():
     for name in set(JMODELS) - set(MODELS):
         with pytest.raises(NotImplementedError, match=name):
             build_model(preset(name), device="cpu")
+
+
+LC_KW = dict(num_items=60, seqslen=255, masklen=16, num_units=16, num_heads=2,
+             num_events=E, batch_size=B, mau_block_k=64,
+             compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def lc_world():
+    """A small EasyDGL-LC world: random weights with non-zero biases and
+    scalings, and one eval batch with marks."""
+    ds = synthetic_split(num_rows=2 * B, num_items=60, seqslen=255, seed=3)
+    table = synthetic_mark_table(60, E, seed=2)
+    params = random_flax_params(preset("EasyDGL-LC", **LC_KW), 1)
+    rng = np.random.default_rng(6)
+    p = params["params"]
+    p["out_bias"]["output_bias"] = rng.normal(0, 0.5, 60).astype(np.float32)
+    blk = p["block0_bimau"]
+    blk["intensity_dense_bias"] = rng.normal(
+        0, 0.1, blk["intensity_dense_bias"].shape).astype(np.float32)
+    blk["intensity_scaling"] = rng.normal(0, 0.3, E).astype(np.float32)
+    blk["qkvt"]["bias"] = rng.normal(0, 0.1, 64).astype(np.float32)
+    loader = JBatchLoader(ds, data_mode="mau", batch_size=B,
+                          is_training=False, mark_table=table,
+                          needs_marks=True, use_native=False)
+    features, labels, valid = next(loader.epoch(0))
+    return dict(ds=ds, table=table, params=params, features=features)
+
+
+def test_lc_eval_logits_match_jax_blocked_engine(lc_world):
+    jcfg = jpreset("EasyDGL-LC").replace(**LC_KW)
+    from easydgl_tpu.models.base import mau_impl as jmau_impl
+    assert jmau_impl(jcfg) == "blocked"
+    jm = jbuild(jcfg)
+    with jax.disable_jit():
+        want, _ = jm.apply(lc_world["params"],
+                           {k: jnp.asarray(v) for k, v in
+                            lc_world["features"].items()}, is_training=False)
+    cfg = preset("EasyDGL-LC", **LC_KW)
+    assert mau_impl(cfg) == "streamed"
+    model = build_model(cfg, device="cpu", params=lc_world["params"])
+    with torch.no_grad():
+        got, aux = model(_torch_feats(lc_world["features"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert aux["intensities"][0].shape == (B, 2, 256, E)
+
+
+def test_lc_eval_step_and_recommend_match_jax(lc_world):
+    jcfg = jpreset("EasyDGL-LC").replace(**LC_KW)
+    cfg = preset("EasyDGL-LC", **LC_KW)
+    model = build_model(cfg, device="cpu", params=lc_world["params"])
+    jl = JBatchLoader(lc_world["ds"], data_mode="mau", batch_size=B,
+                      is_training=False, use_native=False)
+    tl = BatchLoader(lc_world["ds"], data_mode="mau", batch_size=B,
+                     is_training=False)
+    jstep = jbuild_eval_step(jbuild(jcfg), mark_table=lc_world["table"])
+    step = build_eval_step(model, mark_table=lc_world["table"])
+    jacc, tacc = jmetrics.MetricAccumulator(), metrics.MetricAccumulator()
+    with jax.disable_jit():
+        for (jf, jlab, jv), (tf, tlab, tv) in zip(jl.epoch(0), tl.epoch(0)):
+            jacc.update(jstep(lc_world["params"],
+                              {k: jnp.asarray(v) for k, v in jf.items()},
+                              jnp.asarray(jlab), jnp.asarray(jv)))
+            tacc.update(step(model, tf, tlab, tv))
+    assert jacc.count == tacc.count == 2 * B
+    want, got = jacc.result(), tacc.result()
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
+
+    arrays = {k: v[:B] for k, v in lc_world["ds"].arrays.items()}
+    jrec = JRecommender(jcfg, lc_world["params"], lc_world["table"])
+    with jax.disable_jit():
+        want_ids, want_scores = jrec.recommend(arrays, k=7)
+    rec = Recommender(cfg, model, lc_world["table"])
+    ids, scores = rec.recommend(arrays, k=7)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_allclose(scores, want_scores, **TOL)
+
+
+def test_lc_engine_choice_on_the_cpu(lc_world, monkeypatch):
+    """On the CPU, attention_impl="flash" runs the blocked plain version and
+    the default the fused plain version; the two give the same logits."""
+    from easydgl_tpu_torch.kernels import mau_streamed as streamed_mod
+    from easydgl_tpu_torch.nn import temporal as temporal_mod
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(streamed_mod, "mau_blocked",
+                        spy("blocked", streamed_mod.mau_blocked))
+    monkeypatch.setattr(temporal_mod, "mau_attention",
+                        spy("fused", temporal_mod.mau_attention))
+    logits = {}
+    for impl, engine in (("flash", "blocked"), ("xla", "fused")):
+        calls.clear()
+        cfg = preset("EasyDGL-LC", **dict(LC_KW, attention_impl=impl))
+        model = build_model(cfg, device="cpu", params=lc_world["params"])
+        with torch.no_grad():
+            logits[impl] = model(_torch_feats(lc_world["features"]))[0]
+        assert calls == [engine]
+    np.testing.assert_allclose(logits["flash"].numpy(),
+                               logits["xla"].numpy(), **TOL)

@@ -35,7 +35,10 @@ def test_every_module_imports_with_jax_flax_optax_triton_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert len(mods) >= 20
+    assert len(mods) >= 22
+    for new in ("easydgl_tpu_torch.kernels.mau_blocked",
+                "easydgl_tpu_torch.kernels.mau_streamed"):
+        assert new in mods
 
 
 def test_no_source_imports_the_jax_package():
