@@ -34,30 +34,37 @@
 // Design. The stats and out kernels give one block to 64 queries of one
 // (b, h) and loop over 64-key tiles: the TPU's sequential grid axis becomes
 // the loop, its VMEM scratch the block's registers. Per tile the (64 x 64)
-// logits, probs and modulation live in shared memory and registers only;
-// the online (m, l) and the output accumulators stay in registers. A thread
-// owns a 4 x 4 tile of each (64 x 64) product and 4 rows x dh/16 columns of
-// the outputs; operands sit in shared memory as fp32 (q, k, lam and the
-// one-hot transposed, so each step is two 16-byte loads and 16 FMA). Under
-// causal, key tiles wholly after a query tile's last query are skipped,
-// unless no real key lies at or before its first query: then a row of the
-// tile may see no key at all, and such a row must be uniform over every real
-// key, as in the plain version (the TPU kernel skips there too and differs
-// from its own blocked path on such rows). The intensity kernel gives one
-// block to 64 rows of x = [su | iv], kept transposed in shared memory, and
-// streams Wd from L2 in 256-column passes; each thread holds a 16 x 4 tile
-// of z, puts it through the sigmoid, weights it by w and sums an event's dh
-// columns with a register sum and shuffles. Its (rows, E*dh) activation
-// never leaves registers.
+// logits, probs and modulation never leave the SM; the online (m, l) and the
+// output accumulators stay in registers. Under causal, key tiles wholly
+// after a query tile's last query are skipped, unless no real key lies at
+// or before its first query: then a row of the tile may see no key at all,
+// and such a row must be uniform over every real key, as in the plain
+// version (the TPU kernel skips there too and so differs from its own
+// blocked path on such rows).
+//
+// * bf16 (the main path): four warps of 16 queries each, the flash-attention
+//   schedule on the tensor cores (mma.sync m16n8k16, fp32 accumulate). q's A
+//   fragments stay in registers; the logits and iqk come out as C
+//   fragments, the probs are formed in place and re-used, rounded to bf16,
+//   as the A fragments of the @T / @V product. Tiles are bf16 rows in
+//   shared memory, fragments loaded with ldmatrix.
+// * fp32: 256 threads on the CUDA cores; a thread owns a 4 x 4 tile of each
+//   (64 x 64) product and 4 rows x dh/16 columns of the outputs; operands
+//   sit in shared memory as fp32 (q, k, lam and the one-hot transposed, so
+//   each step is two 16-byte loads and 16 FMA).
+//
+// The intensity kernel gives one block to 64 rows of x = [su | iv], kept
+// transposed in shared memory, and streams Wd from L2 in 256-column passes;
+// each thread holds a 16 x 4 tile of z, puts it through the sigmoid, weights
+// it by w and sums an event's dh columns with a register sum and shuffles.
+// Its (rows, E*dh) activation never leaves registers.
 //
 // What bounds it, at the EasyDGL-LC eval shape (B=8, H=8, T=2048, dh=64,
 // E=64): operations. stats 68.7 GFLOP, out 103.1 GFLOP (bf16 tensor-core
 // bounds 0.069 and 0.104 ms), intensity 70.9 GFLOP of fp32 FMA (bound
-// 1.06 ms at 67 TFLOP/s) plus 537 M sigmoids. This first version computes
-// every product as fp32 FMA on the CUDA cores in both dtypes (a product of
-// two bf16 values is exact in fp32, so the bf16 path sums the same terms the
-// tensor cores would, in another order): stats and out run far off their
-// bf16 bound; mma.sync / wgmma tiles are the next step.
+// 1.06 ms at 67 TFLOP/s) plus 537 M sigmoids. The first two also evaluate
+// one exp per (query, key) entry (268 M each). Tile loads are not
+// overlapped with the products yet (cp.async / TMA are the next step).
 //
 // Limits: dh in {16, 32, 64, 128}; the out kernel's shared memory
 // (mau_out_smem_bytes) within 227 KB, i.e. E up to ~180 at dh = 64.
@@ -223,7 +230,7 @@ __device__ __forceinline__ int key_tiles(const float* km_row, int Tq, int Tk, in
   const int all = (Tk + BK - 1) / BK;
   if (!causal) return all;
   int seen = 0;
-  for (int j = threadIdx.x; j <= imin(q0, Tk - 1); j += kThreads) seen |= km_row[j] > 0.f;
+  for (int j = threadIdx.x; j <= imin(q0, Tk - 1); j += blockDim.x) seen |= km_row[j] > 0.f;
   if (!__syncthreads_or(seen)) return all;
   const int q_last = imin(q0 + BQ, Tq) - 1;
   return imin(all, q_last / BK + 1);
@@ -503,38 +510,341 @@ __global__ void __launch_bounds__(kThreads) mau_intensity_kernel(const IntParams
   }
 }
 
-template <typename P, typename K>
-cudaError_t go(K kernel, const P& p, int blocks, size_t bytes, cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16 on
+// the tensor cores: the stats and output kernels for a bf16 compute dtype.
+// Four warps, each 16 of the block's 64 queries (the flash-attention
+// schedule): q's A fragments stay in registers for the whole key loop; per
+// 64-key tile the logits and the intensity iqk come out of mma.sync m16n8k16
+// (fp32 accumulate) as C fragments, the probs are formed in place, rounded
+// to bf16 and re-used as the A fragments of the @T / @V product, whose
+// accumulators also stay in registers. Tiles sit in shared memory as bf16
+// rows (16-byte loads in, ldmatrix out); lam and the one-hot arrive from
+// the wrapper already rounded to bf16 and zero-padded to a multiple of 16
+// events.
+
+constexpr int kThreadsMma = 128;
+
+using bf16 = __nv_bfloat16;
+
+// rows [r0, r0 + 64) x n bf16 columns (n % 8 == 0; 16-byte aligned rows)
+// into dst (row stride ld); rows >= nrows are zero.
+__device__ __forceinline__ void load_bf16(bf16* dst, int ld, const bf16* src, long long rs,
+                                          int n, int r0, int nrows) {
+  const int n8 = n / 8;
+  for (int idx = threadIdx.x; idx < 64 * n8; idx += blockDim.x) {
+    const int r = idx / n8, c = (idx - r * n8) * 8;
+    const int row = r0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < nrows) v = *reinterpret_cast<const uint4*>(src + (long long)row * rs + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[2 np + x] += A (16 x 16k-step) @ B^T for the 8 n-tiles of a 64-row
+// tile B stored [n][k] (row stride ld): B fragments by ldmatrix (non-trans).
+__device__ __forceinline__ void mma_rows64(float (&acc)[8][4], const uint32_t (&a)[4],
+                                           const bf16* bt, int ld, int k0, int lane) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4(b, bt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// o (16 x DH) += P (16 x 64) @ X (64 x DH), P given as the C fragments of the
+// 8 key n-tiles (already rounded), X row-major [key][d] (row stride ld):
+// B fragments by ldmatrix.trans.
+template <int DH>
+__device__ __forceinline__ void mma_pv(float (&o)[DH / 8][4], const float (&pr)[8][4],
+                                       const bf16* xs, int ld, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t a[4] = {pack_bf16(pr[2 * j][0], pr[2 * j][1]),
+                           pack_bf16(pr[2 * j][2], pr[2 * j][3]),
+                           pack_bf16(pr[2 * j + 1][0], pr[2 * j + 1][1]),
+                           pack_bf16(pr[2 * j + 1][2], pr[2 * j + 1][3])};
+#pragma unroll
+    for (int n2 = 0; n2 < DH / 16; ++n2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, xs + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + 16 * n2 +
+                               (lane >> 4) * 8);
+      mma_bf16(o[2 * n2], a, b[0], b[1]);
+      mma_bf16(o[2 * n2 + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// q's A fragments for the warp's 16 rows, all DH/16 k-steps.
+template <int DH>
+__device__ __forceinline__ void q_frags(uint32_t (&qf)[DH / 16][4], const bf16* qs, int ld,
+                                        int warp, int lane) {
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd)
+    ldmatrix_x4(qf[kd], qs + (warp * 16 + (lane & 15)) * ld + kd * 16 + (lane >> 4) * 8);
+}
+
+__host__ __device__ inline size_t stats_mma_smem_bytes(int dh) {
+  return sizeof(bf16) * (size_t)(3 * 64 * (dh + 8)) + sizeof(float) * BK;
+}
+__host__ __device__ inline size_t out_mma_smem_bytes(int dh, int ep) {
+  return sizeof(bf16) * (size_t)(3 * 64 * (dh + 8) + 2 * 64 * (ep + 8)) + sizeof(float) * BK;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsParams p) {
+  constexpr int SD = DH + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD]
+  bf16* ks = qs + 64 * SD;                       // [BK][SD]
+  bf16* ts = ks + BK * SD;                       // [BK][SD]
+  float* kms = reinterpret_cast<float*>(ts + BK * SD);  // [BK] key flags
+
+  const int nqt = (p.Tq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const float* km_row = p.key_mask + (size_t)b * p.Tk;
+  const bf16* kg = static_cast<const bf16*>(p.k.p) + b * p.k.bs + h * DH;
+  const bf16* tg = static_cast<const bf16*>(p.t.p) + b * p.t.bs + h * DH;
+
+  load_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
+            p.Tq);
+  const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
+  __syncthreads();
+  uint32_t qf[DH / 16][4];
+  q_frags<DH>(qf, qs, SD, warp, lane);
+
+  float m[2] = {kPadNeg, kPadNeg}, l[2] = {0.f, 0.f};
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int j0 = kt * BK;
+    __syncthreads();
+    load_bf16(ks, SD, kg, p.k.rs, DH, j0, p.Tk);
+    load_bf16(ts, SD, tg, p.t.rs, DH, j0, p.Tk);
+    for (int j = tid; j < BK; j += blockDim.x) kms[j] = key_flag(km_row, j0 + j, p.Tk);
+    __syncthreads();
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) mma_rows64(s, qf[kd], ks, SD, kd * 16, lane);
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = q0 + warp * 16 + g + 8 * hr;
+      float mx = kPadNeg;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jj = n * 8 + 2 * t4 + c;
+          float& x = s[n][2 * hr + c];
+          x = logit(x, kms[jj], i, j0 + jj, p.scale, p.causal, kPadNeg);
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float corr = expf(m[hr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[n][2 * hr + c];
+          x = expf(x - m_new);
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[hr] = l[hr] * corr + sum;
+      m[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        o[n][2 * hr] *= corr;
+        o[n][2 * hr + 1] *= corr;
+      }
+    }
+    mma_pv<DH>(o, s, ts, SD, lane);  // the probs rounded to bf16 as packed
+  }
+
+  const size_t row0 = (size_t)bh * p.Tq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = q0 + warp * 16 + g + 8 * hr;
+    if (i >= p.Tq) continue;
+    if (t4 == 0) {
+      p.m[row0 + i] = m[hr];
+      p.l[row0 + i] = l[hr];
+    }
+    float* su = p.su + (row0 + i) * DH;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(su + n * 8 + 2 * t4) =
+          make_float2(o[n][2 * hr] / l[hr], o[n][2 * hr + 1] / l[hr]);
+  }
+}
+
+// OutParams.lam / .onehot here: bf16, (B, H, Tq, EP) / (B, Tk, EP), rounded
+// and zero-padded to EP = a multiple of 16 events by the wrapper.
+template <int DH>
+__global__ void __launch_bounds__(kThreadsMma) mau_out_mma_kernel(const OutParams p, int EP) {
+  constexpr int SD = DH + 8;
+  const int SE = EP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD]
+  bf16* ks = qs + 64 * SD;                       // [BK][SD]
+  bf16* vs = ks + BK * SD;                       // [BK][SD]
+  bf16* ls = vs + BK * SD;                       // [64][SE] lam of the block's rows
+  bf16* os = ls + 64 * SE;                       // [BK][SE] one-hot tile
+  float* kms = reinterpret_cast<float*>(os + BK * SE);  // [BK] key flags
+
+  const int nqt = (p.Tq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const float* km_row = p.key_mask + (size_t)b * p.Tk;
+  const bf16* kg = static_cast<const bf16*>(p.k.p) + b * p.k.bs + h * DH;
+  const bf16* vg = static_cast<const bf16*>(p.v.p) + b * p.v.bs + h * DH;
+  const bf16* ohg = static_cast<const bf16*>(static_cast<const void*>(p.onehot)) +
+                    (size_t)b * p.Tk * EP;
+  const size_t row0 = (size_t)bh * p.Tq;
+
+  load_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
+            p.Tq);
+  load_bf16(ls, SE, static_cast<const bf16*>(static_cast<const void*>(p.lam)) + row0 * EP, EP,
+            EP, q0, p.Tq);
+  float mi[2], li[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = q0 + warp * 16 + g + 8 * hr;
+    mi[hr] = i < p.Tq ? p.m[row0 + i] : 0.f;
+    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;
+  }
+  const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  __syncthreads();
+  uint32_t qf[DH / 16][4];
+  q_frags<DH>(qf, qs, SD, warp, lane);
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int j0 = kt * BK;
+    __syncthreads();
+    load_bf16(ks, SD, kg, p.k.rs, DH, j0, p.Tk);
+    load_bf16(vs, SD, vg, p.v.rs, DH, j0, p.Tk);
+    load_bf16(os, SE, ohg, EP, EP, j0, p.Tk);
+    for (int j = tid; j < BK; j += blockDim.x) kms[j] = key_flag(km_row, j0 + j, p.Tk);
+    __syncthreads();
+
+    float s[8][4], iq[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = iq[n][c] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) mma_rows64(s, qf[kd], ks, SD, kd * 16, lane);
+    for (int ke = 0; ke < EP; ke += 16) {
+      uint32_t la[4];
+      ldmatrix_x4(la, ls + (warp * 16 + (lane & 15)) * SE + ke + (lane >> 4) * 8);
+      mma_rows64(iq, la, os, SE, ke, lane);
+    }
+
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hr = c >> 1, jj = n * 8 + 2 * t4 + (c & 1);
+        const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
+        const float km = kms[jj];
+        float x = 0.f;
+        if (km >= 0.f) {  // padding keys stay 0
+          const float pr = expf(logit(s[n][c], km, i, j, p.scale, p.causal, 0.f) - mi[hr]) / li[hr];
+          x = ((p.diag_reset && j == i) ? 1.f : iq[n][c]) * pr;
+          if (drop.on) x *= drop.factor(b, h, i, j);
+        }
+        s[n][c] = x;
+      }
+    mma_pv<DH>(o, s, vs, SD, lane);  // the modulated probs rounded to bf16
+  }
+
+  const int C = p.H * DH;
+  bf16* out = static_cast<bf16*>(p.out) + (size_t)b * p.Tq * C + h * DH;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = q0 + warp * 16 + g + 8 * hr;
+    if (i >= p.Tq) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)i * C + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(o[n][2 * hr], o[n][2 * hr + 1]);
+  }
+}
+
+template <typename K, typename... Args>
+cudaError_t go(K kernel, int blocks, int threads, size_t bytes, cudaStream_t stream,
+               const Args&... args) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<blocks, kThreads, bytes, stream>>>(p);
+  kernel<<<blocks, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t stats_dh(const StatsParams& p, int dh, int blocks, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * (size_t)stats_smem_floats(dh);
-  switch (dh) {
-    case 16: return go(mau_stats_kernel<T, 16>, p, blocks, bytes, s);
-    case 32: return go(mau_stats_kernel<T, 32>, p, blocks, bytes, s);
-    case 64: return go(mau_stats_kernel<T, 64>, p, blocks, bytes, s);
-    case 128: return go(mau_stats_kernel<T, 128>, p, blocks, bytes, s);
+// fp32 on the CUDA cores, bf16 on the tensor cores.
+cudaError_t stats_launch(const StatsParams& p, int dh, int dtype, int blocks, cudaStream_t s) {
+  const size_t fb = sizeof(float) * (size_t)stats_smem_floats(dh), mb = stats_mma_smem_bytes(dh);
+  const int ft = kThreads, mt = kThreadsMma;
+  switch (dh * 2 + dtype) {
+    case 32: return go(mau_stats_kernel<float, 16>, blocks, ft, fb, s, p);
+    case 64: return go(mau_stats_kernel<float, 32>, blocks, ft, fb, s, p);
+    case 128: return go(mau_stats_kernel<float, 64>, blocks, ft, fb, s, p);
+    case 256: return go(mau_stats_kernel<float, 128>, blocks, ft, fb, s, p);
+    case 33: return go(mau_stats_mma_kernel<16>, blocks, mt, mb, s, p);
+    case 65: return go(mau_stats_mma_kernel<32>, blocks, mt, mb, s, p);
+    case 129: return go(mau_stats_mma_kernel<64>, blocks, mt, mb, s, p);
+    case 257: return go(mau_stats_mma_kernel<128>, blocks, mt, mb, s, p);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t out_dh(const OutParams& p, int dh, int blocks, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * (size_t)out_smem_floats(dh, p.E);
-  switch (dh) {
-    case 16: return go(mau_out_kernel<T, 16>, p, blocks, bytes, s);
-    case 32: return go(mau_out_kernel<T, 32>, p, blocks, bytes, s);
-    case 64: return go(mau_out_kernel<T, 64>, p, blocks, bytes, s);
-    case 128: return go(mau_out_kernel<T, 128>, p, blocks, bytes, s);
+cudaError_t out_launch(const OutParams& p, int dh, int dtype, int blocks, cudaStream_t s) {
+  const int ep = round_up(p.E, 16);
+  const size_t fb = sizeof(float) * (size_t)out_smem_floats(dh, p.E);
+  const size_t mb = out_mma_smem_bytes(dh, ep);
+  const int ft = kThreads, mt = kThreadsMma;
+  switch (dh * 2 + dtype) {
+    case 32: return go(mau_out_kernel<float, 16>, blocks, ft, fb, s, p);
+    case 64: return go(mau_out_kernel<float, 32>, blocks, ft, fb, s, p);
+    case 128: return go(mau_out_kernel<float, 64>, blocks, ft, fb, s, p);
+    case 256: return go(mau_out_kernel<float, 128>, blocks, ft, fb, s, p);
+    case 33: return go(mau_out_mma_kernel<16>, blocks, mt, mb, s, p, ep);
+    case 65: return go(mau_out_mma_kernel<32>, blocks, mt, mb, s, p, ep);
+    case 129: return go(mau_out_mma_kernel<64>, blocks, mt, mb, s, p, ep);
+    case 257: return go(mau_out_mma_kernel<128>, blocks, mt, mb, s, p, ep);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -545,17 +855,23 @@ extern "C" {
 
 // Dynamic shared memory of one block, in bytes; above 232448 a kernel
 // cannot run.
-size_t mau_stats_smem_bytes(int dh) { return sizeof(float) * (size_t)stats_smem_floats(dh); }
-size_t mau_out_smem_bytes(int dh, int E) {
-  return sizeof(float) * (size_t)out_smem_floats(dh, E);
+size_t mau_stats_smem_bytes(int dh, int dtype) {
+  return dtype ? stats_mma_smem_bytes(dh) : sizeof(float) * (size_t)stats_smem_floats(dh);
+}
+size_t mau_out_smem_bytes(int dh, int E, int dtype) {
+  return dtype ? out_mma_smem_bytes(dh, round_up(E, 16))
+               : sizeof(float) * (size_t)out_smem_floats(dh, E);
 }
 size_t mau_intensity_smem_bytes(int dh, int E) {
   return sizeof(float) * (size_t)int_smem_floats(dh, E);
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, t and out; everything else is
-// fp32). Strides are in elements; channels are contiguous.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, t and out). Strides are in
+// elements; channels are contiguous; in bf16, q/k/v/t rows start on 16-byte
+// boundaries. Everything else is fp32, except that in bf16 mau_out_fwd takes
+// lam (B, H, Tq, EP) and onehot (B, Tk, EP) as bf16, rounded and zero-padded
+// to EP = E rounded up to 16.
 int mau_stats_fwd(const void* q, long long q_bs, long long q_rs, const void* k,
                   long long k_bs, long long k_rs, const void* t, long long t_bs,
                   long long t_rs, const void* key_mask, void* m, void* l, void* su,
@@ -575,8 +891,7 @@ int mau_stats_fwd(const void* q, long long q_bs, long long q_rs, const void* k,
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.causal = causal;
   const int blocks = B * H * ((Tq + BQ - 1) / BQ);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? stats_dh<float>(p, dh, blocks, s)
-                          : stats_dh<__nv_bfloat16>(p, dh, blocks, s));
+  return (int)stats_launch(p, dh, dtype, blocks, s);
 }
 
 int mau_intensity_fwd(const void* su, const void* intervals, const void* wd, const void* bd,
@@ -596,10 +911,10 @@ int mau_intensity_fwd(const void* su, const void* intervals, const void* wd, con
   const size_t bytes = sizeof(float) * (size_t)int_smem_floats(dh, E);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return (int)go(mau_intensity_kernel<16>, p, blocks, bytes, s);
-    case 32: return (int)go(mau_intensity_kernel<32>, p, blocks, bytes, s);
-    case 64: return (int)go(mau_intensity_kernel<64>, p, blocks, bytes, s);
-    case 128: return (int)go(mau_intensity_kernel<128>, p, blocks, bytes, s);
+    case 16: return (int)go(mau_intensity_kernel<16>, blocks, kThreads, bytes, s, p);
+    case 32: return (int)go(mau_intensity_kernel<32>, blocks, kThreads, bytes, s, p);
+    case 64: return (int)go(mau_intensity_kernel<64>, blocks, kThreads, bytes, s, p);
+    case 128: return (int)go(mau_intensity_kernel<128>, blocks, kThreads, bytes, s, p);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -633,8 +948,7 @@ int mau_out_fwd(const void* q, long long q_bs, long long q_rs, const void* k, lo
   p.causal = causal; p.diag_reset = diag_reset;
   const int blocks = B * H * ((Tq + BQ - 1) / BQ);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? out_dh<float>(p, dh, blocks, s)
-                          : out_dh<__nv_bfloat16>(p, dh, blocks, s));
+  return (int)out_launch(p, dh, dtype, blocks, s);
 }
 
 const char* mau_streamed_error_string(int code) {

@@ -21,13 +21,17 @@ to the plain version.
 
 lam comes back in fp32 (the JAX streamed path rounds it to q's dtype; its
 blocked path, like this one, does not). ``block_k`` is the plain version's
-key block; the kernels tile by 64 queries and 64 keys.
+key block; the kernels tile by 64 queries and 64 keys. In bf16 the stats
+and output kernels run their products on the tensor cores, and the output
+kernel takes lam and the one-hot rounded to bf16 (as the plain version
+rounds them) and zero-padded to a multiple of 16 events.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from easydgl_tpu_torch.kernels import build
 from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
@@ -56,8 +60,8 @@ def _lib() -> ctypes.CDLL:
     _bind(lib, "mau_out_fwd",
           [_P, _LL, _LL] * 3 + [_P] * 6 + [_U32, _F32, _P] + [_I32] * 8
           + [_F32, _I32, _P])
-    lib.mau_stats_smem_bytes.argtypes = [_I32]
-    lib.mau_out_smem_bytes.argtypes = [_I32, _I32]
+    lib.mau_stats_smem_bytes.argtypes = [_I32, _I32]
+    lib.mau_out_smem_bytes.argtypes = [_I32, _I32, _I32]
     lib.mau_intensity_smem_bytes.argtypes = [_I32, _I32]
     for name in ("mau_stats_smem_bytes", "mau_out_smem_bytes",
                  "mau_intensity_smem_bytes"):
@@ -95,6 +99,23 @@ def _seq(x: torch.Tensor):
     return x.data_ptr(), x.stride(0), x.stride(1)
 
 
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """x where its rows start on 16-byte boundaries, as the bf16 kernels'
+    vector loads need, else a contiguous copy (C is a multiple of 8)."""
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8
+                                      or x.stride(1) % 8):
+        return x.contiguous()
+    return x
+
+
+def _bf16_events(x: torch.Tensor) -> torch.Tensor:
+    """(..., E) -> bf16 (..., EP), rounded and zero-padded to EP = E rounded
+    up to 16: the bf16 output kernel's lam and one-hot operands."""
+    e = x.shape[-1]
+    return F.pad(x.detach().to(torch.bfloat16), (0, -(-e // 16) * 16 - e)
+                 ).contiguous()
+
+
 def _checked_seqs(q, others, num_heads):
     """Validates q (B, Tq, C) and k/v/t (B, Tk, C); returns (b, tq, tk, dh)."""
     cdt = q.dtype
@@ -129,9 +150,10 @@ def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
     b, tq, tk, dh = _checked_seqs(q, (("k", k), ("t", t)), num_heads)
     _check(tuple(key_mask.shape) == (b, tk), "key_mask shape")
     km = _f32(key_mask)
+    q, k, t = (_rows16(x) for x in (q, k, t))
     lib = _lib()
-    _check(lib.mau_stats_smem_bytes(dh) <= KERNEL_SMEM_MAX,
-           "shared memory over the limit")
+    _check(lib.mau_stats_smem_bytes(dh, _DTYPE_CODE[q.dtype])
+           <= KERNEL_SMEM_MAX, "shared memory over the limit")
     f32 = dict(dtype=torch.float32, device=q.device)
     h = num_heads
     m, l = torch.empty((b, h, tq), **f32), torch.empty((b, h, tq), **f32)
@@ -210,9 +232,15 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
     _check(tuple(lam.shape) == (b, h, tq, e), "lam shape")
     _check(tuple(m.shape) == (b, h, tq) and tuple(l.shape) == (b, h, tq),
            "m / l shape")
-    km, oh, lamf, mf, lf = (_f32(x) for x in (key_mask, onehot, lam, m, l))
+    km, mf, lf = (_f32(x) for x in (key_mask, m, l))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_rows16(x) for x in (q, k, v))
+        oh, lamf = _bf16_events(onehot), _bf16_events(lam)
+    else:
+        oh, lamf = _f32(onehot), _f32(lam)
     lib = _lib()
-    _check(lib.mau_out_smem_bytes(dh, e) <= KERNEL_SMEM_MAX,
+    _check(lib.mau_out_smem_bytes(dh, e, _DTYPE_CODE[q.dtype])
+           <= KERNEL_SMEM_MAX,
            f"dh={dh}, E={e} need more shared memory than the limit")
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Times the streamed MAU kernels and the EasyDGL-LC eval step on one GPU.
+
+At the EasyDGL-LC eval shape (B=8, T=2048, H=8, dh=64, E=64, BiMAU), with
+inputs drawn from a seed: each of ``mau_stats``, ``mau_intensity`` and
+``mau_modulated_out`` over 20 launches (CUDA events, after warm-up), in bf16
+and fp32; then ``build_eval_step`` of ``PRESETS["EasyDGL-LC"]`` (64 marks,
+bf16, random weights from seed 0) over 8 batches of 8 rows, host clock,
+synchronised, after one warm-up batch. Prints one JSON line with the card's
+name and power limit. Imports neither JAX nor the JAX package; run from the
+root of a checkout (or of an older one, to compare two versions in one
+call):
+
+    python3 scripts/torch_streamed_bench.py [--label NAME]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+from easydgl_tpu_torch.config import preset  # noqa: E402
+from easydgl_tpu_torch.data.loader import BatchLoader  # noqa: E402
+from easydgl_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_mark_table, synthetic_split_vectorized)
+from easydgl_tpu_torch.eval.metrics import MetricAccumulator  # noqa: E402
+from easydgl_tpu_torch.kernels.mau_streamed import (  # noqa: E402
+    mau_intensity, mau_modulated_out, mau_stats)
+from easydgl_tpu_torch.models.registry import build_model  # noqa: E402
+from easydgl_tpu_torch.parity import random_flax_params  # noqa: E402
+from easydgl_tpu_torch.train.steps import build_eval_step  # noqa: E402
+
+B, T, H, DH, E = 8, 2048, 8, 64, 64
+
+
+def inputs(dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = H * DH
+    q, k, v, t = (torch.randn(B, T, c, generator=g, device="cuda").to(dtype)
+                  for _ in range(4))
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    km = (torch.arange(T, device="cuda")[None] >= T - lengths[:, None]).float()
+    iv = -torch.log(torch.rand(B, T, generator=g, device="cuda"))
+    oh = (torch.rand(B, T, E, generator=g, device="cuda") < 0.15).float()
+    wd = torch.randn(DH + 1, E * DH, generator=g, device="cuda") * 0.2
+    bd = torch.randn(E * DH, generator=g, device="cuda") * 0.1
+    w = torch.randn(E, DH, generator=g, device="cuda") * 0.2
+    sc = torch.randn(E, generator=g, device="cuda") * 0.3
+    return q, k, v, t, km, iv, oh, wd, bd, w, sc
+
+
+def time_ms(fn, warmup=3, iters=20):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_times(dtype):
+    q, k, v, t, km, iv, oh, wd, bd, w, sc = inputs(dtype)
+    kw = dict(causal=False, num_heads=H)
+    m, l, su = mau_stats(q, k, t, km, **kw)
+    lam = mau_intensity(su, iv, wd, bd, w, sc)
+    return {
+        "mau_stats": time_ms(lambda: mau_stats(q, k, t, km, **kw)),
+        "mau_intensity": time_ms(lambda: mau_intensity(su, iv, wd, bd, w,
+                                                       sc)),
+        "mau_modulated_out": time_ms(lambda: mau_modulated_out(
+            q, k, v, km, oh, lam, m, l, diag_reset=True, **kw))}
+
+
+def eval_seqs_per_s(batches=8):
+    cfg = preset("EasyDGL-LC", num_events=64)
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    split = synthetic_split_vectorized(num_rows=(batches + 1) * B,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=4)
+    data = list(BatchLoader(split, data_mode="mau", batch_size=B,
+                            masklen=cfg.masklen, is_training=False).epoch(0))
+    step = build_eval_step(model, mark_table=table)
+    MetricAccumulator().update(step(model, *data[0]))
+    torch.cuda.synchronize()
+    acc = MetricAccumulator()
+    t0 = time.perf_counter()
+    for features, labels, valid in data[1:]:
+        acc.update(step(model, features, labels, valid))
+    torch.cuda.synchronize()
+    return batches * B / (time.perf_counter() - t0)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_streamed_bench: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    res = {"label": args.label, "card": card,
+           "ms_bf16": kernel_times(torch.bfloat16),
+           "ms_fp32": kernel_times(torch.float32),
+           "lc_eval_seqs_per_s": eval_seqs_per_s()}
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
