@@ -43,11 +43,8 @@
 // blocked path on such rows).
 //
 // * bf16 (the main path): four warps of 16 queries each, the flash-attention
-//   schedule on the tensor cores (mma.sync m16n8k16, fp32 accumulate). q's A
-//   fragments stay in registers; the logits and iqk come out as C
-//   fragments, the probs are formed in place and re-used, rounded to bf16,
-//   as the A fragments of the @T / @V product. Tiles are bf16 rows in
-//   shared memory, fragments loaded with ldmatrix.
+//   schedule on the tensor cores (mma.sync m16n8k16, fp32 accumulate), each
+//   key tile in two 32-key halves (see the section below).
 // * fp32: 256 threads on the CUDA cores; a thread owns a 4 x 4 tile of each
 //   (64 x 64) product and 4 rows x dh/16 columns of the outputs; operands
 //   sit in shared memory as fp32 (q, k, lam and the one-hot transposed, so
@@ -63,8 +60,8 @@
 // E=64): operations. stats 68.7 GFLOP, out 103.1 GFLOP (bf16 tensor-core
 // bounds 0.069 and 0.104 ms), intensity 70.9 GFLOP of fp32 FMA (bound
 // 1.06 ms at 67 TFLOP/s) plus 537 M sigmoids. The first two also evaluate
-// one exp per (query, key) entry (268 M each). Tile loads are not
-// overlapped with the products yet (cp.async / TMA are the next step).
+// one exp per (query, key) entry (268 M each). In bf16 the next key tile is
+// fetched with cp.async while this one is computed; in fp32 the loads wait.
 //
 // Limits: dh in {16, 32, 64, 128}; the out kernel's shared memory
 // (mau_out_smem_bytes) within 227 KB, i.e. E up to ~180 at dh = 64.
@@ -513,31 +510,63 @@ __global__ void __launch_bounds__(kThreads) mau_intensity_kernel(const IntParams
 // ---------------------------------------------------------------- bf16 on
 // the tensor cores: the stats and output kernels for a bf16 compute dtype.
 // Four warps, each 16 of the block's 64 queries (the flash-attention
-// schedule): q's A fragments stay in registers for the whole key loop; per
-// 64-key tile the logits and the intensity iqk come out of mma.sync m16n8k16
-// (fp32 accumulate) as C fragments, the probs are formed in place, rounded
-// to bf16 and re-used as the A fragments of the @T / @V product, whose
-// accumulators also stay in registers. Tiles sit in shared memory as bf16
-// rows (16-byte loads in, ldmatrix out); lam and the one-hot arrive from
-// the wrapper already rounded to bf16 and zero-padded to a multiple of 16
-// events.
+// schedule): q's A fragments stay in registers for the whole key loop. Each
+// 64-key tile is taken in two 32-key halves, so that only a half's logits
+// (and intensities) are live: they come out of mma.sync m16n8k16 (fp32
+// accumulate) as C fragments, the probs are formed in place, rounded to bf16
+// and re-used as the A fragments of the @T / @V product, whose accumulators
+// stay in registers. Tiles sit in shared memory as bf16 rows, fetched with
+// cp.async one tile ahead (double-buffered) and read with ldmatrix; lam and
+// the one-hot arrive from the wrapper already rounded to bf16 and
+// zero-padded to a multiple of 16 events.
 
 constexpr int kThreadsMma = 128;
+constexpr int KH = 32;  // keys a half tile
 
 using bf16 = __nv_bfloat16;
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);  // all groups but the newest
+}
+
 // rows [r0, r0 + 64) x n bf16 columns (n % 8 == 0; 16-byte aligned rows)
-// into dst (row stride ld); rows >= nrows are zero.
-__device__ __forceinline__ void load_bf16(bf16* dst, int ld, const bf16* src, long long rs,
-                                          int n, int r0, int nrows) {
+// into dst (row stride ld) with cp.async; rows >= nrows are zero-filled.
+__device__ __forceinline__ void async_bf16(bf16* dst, int ld, const bf16* src, long long rs,
+                                           int n, int r0, int nrows) {
   const int n8 = n / 8;
   for (int idx = threadIdx.x; idx < 64 * n8; idx += blockDim.x) {
     const int r = idx / n8, c = (idx - r * n8) * 8;
-    const int row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows) v = *reinterpret_cast<const uint4*>(src + (long long)row * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+    const bool ok = r0 + r < nrows;
+    cp_async16(dst + r * ld + c, src + (long long)(ok ? r0 + r : 0) * rs + c, ok);
   }
+}
+
+// the key mask of keys [j0, j0 + 64) with cp.async (zero past Tk; the key
+// index tells padding apart, see flag_of)
+__device__ __forceinline__ void async_mask(float* dst, const float* km_row, int j0, int Tk) {
+  for (int j = threadIdx.x; j < BK; j += blockDim.x) {
+    const bool ok = j0 + j < Tk;
+    cp_async4(dst + j, km_row + (ok ? j0 + j : 0), ok);
+  }
+}
+
+// key_flag of key j from its raw mask entry
+__device__ __forceinline__ float flag_of(float km, int j, int Tk) {
+  return j < Tk ? (km > 0.f ? 1.f : 0.f) : -1.f;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -545,12 +574,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// acc[2 np + x] += A (16 x 16k-step) @ B^T for the 8 n-tiles of a 64-row
-// tile B stored [n][k] (row stride ld): B fragments by ldmatrix (non-trans).
-__device__ __forceinline__ void mma_rows64(float (&acc)[8][4], const uint32_t (&a)[4],
+// acc[n] += A (16 x 16) @ B^T for the 4 n-tiles (32 rows) of B stored [n][k]
+// (row stride ld) from row 0 of bt: B fragments by ldmatrix (non-trans).
+__device__ __forceinline__ void mma_rows32(float (&acc)[4][4], const uint32_t (&a)[4],
                                            const bf16* bt, int ld, int k0, int lane) {
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
+  for (int np = 0; np < 2; ++np) {
     uint32_t b[4];
     ldmatrix_x4(b, bt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
     mma_bf16(acc[2 * np], a, b[0], b[1]);
@@ -558,14 +587,14 @@ __device__ __forceinline__ void mma_rows64(float (&acc)[8][4], const uint32_t (&
   }
 }
 
-// o (16 x DH) += P (16 x 64) @ X (64 x DH), P given as the C fragments of the
-// 8 key n-tiles (already rounded), X row-major [key][d] (row stride ld):
-// B fragments by ldmatrix.trans.
+// o (16 x DH) += P (16 x 32) @ X (32 x DH), P given as the C fragments of
+// the half's 4 key n-tiles (rounded to bf16 here), X row-major [key][d]
+// from row 0 of xs (row stride ld): B fragments by ldmatrix.trans.
 template <int DH>
-__device__ __forceinline__ void mma_pv(float (&o)[DH / 8][4], const float (&pr)[8][4],
+__device__ __forceinline__ void mma_pv(float (&o)[DH / 8][4], const float (&pr)[4][4],
                                        const bf16* xs, int ld, int lane) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < 2; ++j) {
     const uint32_t a[4] = {pack_bf16(pr[2 * j][0], pr[2 * j][1]),
                            pack_bf16(pr[2 * j][2], pr[2 * j][3]),
                            pack_bf16(pr[2 * j + 1][0], pr[2 * j + 1][1]),
@@ -581,20 +610,18 @@ __device__ __forceinline__ void mma_pv(float (&o)[DH / 8][4], const float (&pr)[
   }
 }
 
-// q's A fragments for the warp's 16 rows, all DH/16 k-steps.
-template <int DH>
-__device__ __forceinline__ void q_frags(uint32_t (&qf)[DH / 16][4], const bf16* qs, int ld,
-                                        int warp, int lane) {
-#pragma unroll
-  for (int kd = 0; kd < DH / 16; ++kd)
-    ldmatrix_x4(qf[kd], qs + (warp * 16 + (lane & 15)) * ld + kd * 16 + (lane >> 4) * 8);
+// A fragments of a (16 x 16) block at row r0, column k0 of a row-major
+// bf16 tile (row stride ld).
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* x, int ld, int r0, int k0,
+                                       int lane) {
+  ldmatrix_x4(a, x + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
 }
 
 __host__ __device__ inline size_t stats_mma_smem_bytes(int dh) {
-  return sizeof(bf16) * (size_t)(3 * 64 * (dh + 8)) + sizeof(float) * BK;
+  return sizeof(bf16) * (size_t)(5 * 64 * (dh + 8)) + sizeof(float) * 2 * BK;
 }
 __host__ __device__ inline size_t out_mma_smem_bytes(int dh, int ep) {
-  return sizeof(bf16) * (size_t)(3 * 64 * (dh + 8) + 2 * 64 * (ep + 8)) + sizeof(float) * BK;
+  return sizeof(bf16) * (size_t)(5 * 64 * (dh + 8) + 3 * 64 * (ep + 8)) + sizeof(float) * 2 * BK;
 }
 
 template <int DH>
@@ -602,9 +629,9 @@ __global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsP
   constexpr int SD = DH + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD]
-  bf16* ks = qs + 64 * SD;                       // [BK][SD]
-  bf16* ts = ks + BK * SD;                       // [BK][SD]
-  float* kms = reinterpret_cast<float*>(ts + BK * SD);  // [BK] key flags
+  bf16* ks = qs + 64 * SD;                       // [2][BK][SD]
+  bf16* ts = ks + 2 * BK * SD;                   // [2][BK][SD]
+  float* kms = reinterpret_cast<float*>(ts + 2 * BK * SD);  // [2][BK] key mask
 
   const int nqt = (p.Tq + BQ - 1) / BQ;
   const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
@@ -613,14 +640,20 @@ __global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsP
   const float* km_row = p.key_mask + (size_t)b * p.Tk;
   const bf16* kg = static_cast<const bf16*>(p.k.p) + b * p.k.bs + h * DH;
   const bf16* tg = static_cast<const bf16*>(p.t.p) + b * p.t.bs + h * DH;
+  auto fetch = [&](int kt) {
+    const int buf = kt & 1;
+    async_bf16(ks + buf * BK * SD, SD, kg, p.k.rs, DH, kt * BK, p.Tk);
+    async_bf16(ts + buf * BK * SD, SD, tg, p.t.rs, DH, kt * BK, p.Tk);
+    async_mask(kms + buf * BK, km_row, kt * BK, p.Tk);
+  };
 
-  load_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
-            p.Tq);
+  async_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
+             p.Tq);
   const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
-  __syncthreads();
-  uint32_t qf[DH / 16][4];
-  q_frags<DH>(qf, qs, SD, warp, lane);
+  fetch(0);
+  cp_async_commit();
 
+  uint32_t qf[DH / 16][4];
   float m[2] = {kPadNeg, kPadNeg}, l[2] = {0.f, 0.f};
   float o[DH / 8][4];
 #pragma unroll
@@ -629,58 +662,68 @@ __global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsP
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
   for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * BK;
-    __syncthreads();
-    load_bf16(ks, SD, kg, p.k.rs, DH, j0, p.Tk);
-    load_bf16(ts, SD, tg, p.t.rs, DH, j0, p.Tk);
-    for (int j = tid; j < BK; j += blockDim.x) kms[j] = key_flag(km_row, j0 + j, p.Tk);
-    __syncthreads();
-
-    float s[8][4];
+    if (kt + 1 < nkt) fetch(kt + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile kt (and, at kt = 0, q) is in shared memory
+    if (kt == 0) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < DH / 16; ++kd) mma_rows64(s, qf[kd], ks, SD, kd * 16, lane);
-
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int i = q0 + warp * 16 + g + 8 * hr;
-      float mx = kPadNeg;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int jj = n * 8 + 2 * t4 + c;
-          float& x = s[n][2 * hr + c];
-          x = logit(x, kms[jj], i, j0 + jj, p.scale, p.causal, kPadNeg);
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float corr = expf(m[hr] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float& x = s[n][2 * hr + c];
-          x = expf(x - m_new);
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hr] = l[hr] * corr + sum;
-      m[hr] = m_new;
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        o[n][2 * hr] *= corr;
-        o[n][2 * hr + 1] *= corr;
-      }
+      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs, SD, warp * 16, kd * 16, lane);
     }
-    mma_pv<DH>(o, s, ts, SD, lane);  // the probs rounded to bf16 as packed
+    const int j0 = kt * BK;
+    const bf16* kb = ks + (kt & 1) * BK * SD;
+    const bf16* tb = ts + (kt & 1) * BK * SD;
+    const float* kmb = kms + (kt & 1) * BK;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < DH / 16; ++kd)
+        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd * 16, lane);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = q0 + warp * 16 + g + 8 * hr;
+        float mx = kPadNeg;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int jj = half * KH + n * 8 + 2 * t4 + c;
+            float& x = s[n][2 * hr + c];
+            x = logit(x, flag_of(kmb[jj], j0 + jj, p.Tk), i, j0 + jj, p.scale, p.causal,
+                      kPadNeg);
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        const float corr = expf(m[hr] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[n][2 * hr + c];
+            x = expf(x - m_new);
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[hr] = l[hr] * corr + sum;
+        m[hr] = m_new;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          o[n][2 * hr] *= corr;
+          o[n][2 * hr + 1] *= corr;
+        }
+      }
+      mma_pv<DH>(o, s, tb + half * KH * SD, SD, lane);  // probs rounded to bf16
+    }
+    __syncthreads();  // the buffer is free for tile kt + 2
   }
 
   const size_t row0 = (size_t)bh * p.Tq;
@@ -708,11 +751,11 @@ __global__ void __launch_bounds__(kThreadsMma) mau_out_mma_kernel(const OutParam
   const int SE = EP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD]
-  bf16* ks = qs + 64 * SD;                       // [BK][SD]
-  bf16* vs = ks + BK * SD;                       // [BK][SD]
-  bf16* ls = vs + BK * SD;                       // [64][SE] lam of the block's rows
-  bf16* os = ls + 64 * SE;                       // [BK][SE] one-hot tile
-  float* kms = reinterpret_cast<float*>(os + BK * SE);  // [BK] key flags
+  bf16* ks = qs + 64 * SD;                       // [2][BK][SD]
+  bf16* vs = ks + 2 * BK * SD;                   // [2][BK][SD]
+  bf16* ls = vs + 2 * BK * SD;                   // [64][SE] lam of the block's rows
+  bf16* os = ls + 64 * SE;                       // [2][BK][SE] one-hot
+  float* kms = reinterpret_cast<float*>(os + 2 * BK * SE);  // [2][BK] key mask
 
   const int nqt = (p.Tq + BQ - 1) / BQ;
   const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
@@ -724,11 +767,18 @@ __global__ void __launch_bounds__(kThreadsMma) mau_out_mma_kernel(const OutParam
   const bf16* ohg = static_cast<const bf16*>(static_cast<const void*>(p.onehot)) +
                     (size_t)b * p.Tk * EP;
   const size_t row0 = (size_t)bh * p.Tq;
+  auto fetch = [&](int kt) {
+    const int buf = kt & 1;
+    async_bf16(ks + buf * BK * SD, SD, kg, p.k.rs, DH, kt * BK, p.Tk);
+    async_bf16(vs + buf * BK * SD, SD, vg, p.v.rs, DH, kt * BK, p.Tk);
+    async_bf16(os + buf * BK * SE, SE, ohg, EP, EP, kt * BK, p.Tk);
+    async_mask(kms + buf * BK, km_row, kt * BK, p.Tk);
+  };
 
-  load_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
-            p.Tq);
-  load_bf16(ls, SE, static_cast<const bf16*>(static_cast<const void*>(p.lam)) + row0 * EP, EP,
-            EP, q0, p.Tq);
+  async_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
+             p.Tq);
+  async_bf16(ls, SE, static_cast<const bf16*>(static_cast<const void*>(p.lam)) + row0 * EP, EP,
+             EP, q0, p.Tq);
   float mi[2], li[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -738,10 +788,10 @@ __global__ void __launch_bounds__(kThreadsMma) mau_out_mma_kernel(const OutParam
   }
   const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  __syncthreads();
-  uint32_t qf[DH / 16][4];
-  q_frags<DH>(qf, qs, SD, warp, lane);
+  fetch(0);
+  cp_async_commit();
 
+  uint32_t qf[DH / 16][4];
   float o[DH / 8][4];
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n)
@@ -749,43 +799,53 @@ __global__ void __launch_bounds__(kThreadsMma) mau_out_mma_kernel(const OutParam
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
   for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * BK;
-    __syncthreads();
-    load_bf16(ks, SD, kg, p.k.rs, DH, j0, p.Tk);
-    load_bf16(vs, SD, vg, p.v.rs, DH, j0, p.Tk);
-    load_bf16(os, SE, ohg, EP, EP, j0, p.Tk);
-    for (int j = tid; j < BK; j += blockDim.x) kms[j] = key_flag(km_row, j0 + j, p.Tk);
-    __syncthreads();
-
-    float s[8][4], iq[8][4];
+    if (kt + 1 < nkt) fetch(kt + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile kt (and, at kt = 0, q and lam) is in shared memory
+    if (kt == 0) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = iq[n][c] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < DH / 16; ++kd) mma_rows64(s, qf[kd], ks, SD, kd * 16, lane);
-    for (int ke = 0; ke < EP; ke += 16) {
-      uint32_t la[4];
-      ldmatrix_x4(la, ls + (warp * 16 + (lane & 15)) * SE + ke + (lane >> 4) * 8);
-      mma_rows64(iq, la, os, SE, ke, lane);
+      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs, SD, warp * 16, kd * 16, lane);
     }
-
+    const int j0 = kt * BK;
+    const bf16* kb = ks + (kt & 1) * BK * SD;
+    const bf16* vb = vs + (kt & 1) * BK * SD;
+    const bf16* ob = os + (kt & 1) * BK * SE;
+    const float* kmb = kms + (kt & 1) * BK;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int half = 0; half < 2; ++half) {
+      float s[4][4], iq[4][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int hr = c >> 1, jj = n * 8 + 2 * t4 + (c & 1);
-        const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
-        const float km = kms[jj];
-        float x = 0.f;
-        if (km >= 0.f) {  // padding keys stay 0
-          const float pr = expf(logit(s[n][c], km, i, j, p.scale, p.causal, 0.f) - mi[hr]) / li[hr];
-          x = ((p.diag_reset && j == i) ? 1.f : iq[n][c]) * pr;
-          if (drop.on) x *= drop.factor(b, h, i, j);
-        }
-        s[n][c] = x;
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = iq[n][c] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < DH / 16; ++kd)
+        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd * 16, lane);
+      for (int ke = 0; ke < EP; ke += 16) {
+        uint32_t la[4];
+        a_frag(la, ls, SE, warp * 16, ke, lane);
+        mma_rows32(iq, la, ob + half * KH * SE, SE, ke, lane);
       }
-    mma_pv<DH>(o, s, vs, SD, lane);  // the modulated probs rounded to bf16
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int hr = c >> 1, jj = half * KH + n * 8 + 2 * t4 + (c & 1);
+          const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
+          const float km = flag_of(kmb[jj], j, p.Tk);
+          float x = 0.f;
+          if (km >= 0.f) {  // padding keys stay 0
+            const float pr =
+                expf(logit(s[n][c], km, i, j, p.scale, p.causal, 0.f) - mi[hr]) / li[hr];
+            x = ((p.diag_reset && j == i) ? 1.f : iq[n][c]) * pr;
+            if (drop.on) x *= drop.factor(b, h, i, j);
+          }
+          s[n][c] = x;
+        }
+      mma_pv<DH>(o, s, vb + half * KH * SD, SD, lane);  // modulated probs rounded
+    }
+    __syncthreads();  // the buffer is free for tile kt + 2
   }
 
   const int C = p.H * DH;
