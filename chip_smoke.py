@@ -553,7 +553,53 @@ def phase_streamed_checks():
                          dropout_seed=sd)
     compare_by_scale("streamed_vs_fused", ("out", "lam"), got, want,
                      torch.float32)
+    log("  modulation probe, v_j = e_j (out_ij is the dropped, modulated prob"
+        " of entry (i, j)), T=100, dh=128, dropout 0.1, held entry by entry:")
+    for i, (name, dtype, causal, diag) in enumerate(PROBE_CASES):
+        modulation_probe(name, dtype, causal, diag, seed=460 + i)
     return errs
+
+
+# name, dtype, causal, diag_reset
+PROBE_CASES = (("probe_bimau_bf16_drop", torch.bfloat16, False, True),
+               ("probe_causal_bf16_drop", torch.bfloat16, True, False),
+               ("probe_bimau_fp32_drop", torch.float32, False, True))
+
+
+def modulation_probe(name, dtype, causal, diag, seed):
+    """The output kernel with each key's value the unit vector of its index
+    (v[j, h*dh + d] = 1 where d == j), so out[i, h*dh + j] is entry (h, i, j)
+    of the dropped, modulated probs, rounded once. That holds the probs, iqk,
+    the diagonal reset and the dropout mask entry by entry, where a check by
+    scale averages them over the keys: entries the plain version drops or
+    hides are 0 on both sides, the others within SCALE_TOL of themselves (a
+    rounding may flip by an ulp). T=100 spans a full and a partial key tile;
+    about a tenth of the nonzero entries must be dropped."""
+    shape = dict(b=3, tq=100, tk=100, h=2, dh=128, e=4)
+    b, tk, h, dh = shape["b"], shape["tk"], shape["h"], shape["dh"]
+    args = list(mau_inputs(**shape, dtype=dtype, gathered=False, seed=seed))
+    args[2] = torch.eye(tk, dh, device="cuda")[None, :, None, :].expand(
+        b, tk, h, dh).reshape(b, tk, h * dh).to(dtype).contiguous()
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
+    sd = torch.tensor(seed, dtype=torch.int64, device="cuda")
+    kw = dict(causal=causal, diag_reset=diag, num_heads=h)
+    want = mau_blocked_forward(*args[:11], dropout_rate=0.1, dropout_seed=sd,
+                               **kw)
+    kept = output_reference(q, k, v, km, oh, want.lam, want.m, want.l,
+                            **kw).float()
+    got = mau_modulated_out(q, k, v, km, oh, want.lam, want.m, want.l,
+                            dropout_rate=0.1, dropout_seed=sd, **kw).float()
+    ref = want.out.float()
+    zero = ref == 0
+    check(torch.equal(got[zero], ref[zero]),
+          f"{name}: an entry the plain version drops or hides is not 0")
+    rel = float(((got - ref).abs()[~zero] / ref.abs()[~zero]).max())
+    dropped = float((zero & (kept != 0)).sum() / (kept != 0).sum())
+    log(f"  {name:24s} nonzero entries: max |kernel - plain| / |plain| ="
+        f" {rel:.3e} (tol {SCALE_TOL[dtype]:g}); dropped share {dropped:.4f}"
+        f" of {int((kept != 0).sum())}")
+    check(rel <= SCALE_TOL[dtype], f"{name}: an entry outside tolerance")
+    check(0.07 < dropped < 0.13, f"{name}: dropped share {dropped:.4f}")
 
 
 def streamed_work(name, *, b, tq, tk, h, dh, e, dtype):
@@ -1029,7 +1075,8 @@ def kernel_names(log_text: str):
     report line."""
     m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
-                  r"mau_stats_kernel|mau_out_kernel|mau_intensity_kernel)"
+                  r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_mma_kernel|"
+                  r"mau_out_kernel|mau_intensity_kernel)"
                   r"(I?\w*)",
                   log_text)
     if not m:

@@ -233,10 +233,15 @@ __device__ __forceinline__ int key_tiles(const float* km_row, int Tq, int Tk, in
   return imin(all, q_last / BK + 1);
 }
 
-// Key j of a tile: 1 where it is real and not masked (mask > 0, as the plain
-// version), 0 where it is real and masked, -1 past Tk (alignment padding).
+// Key j of a tile, from its raw mask entry km: 1 where it is real and not
+// masked (mask > 0, as the plain version), 0 where it is real and masked, -1
+// past Tk (alignment padding).
+__device__ __forceinline__ float flag_of(float km, int j, int Tk) {
+  return j < Tk ? (km > 0.f ? 1.f : 0.f) : -1.f;
+}
+
 __device__ __forceinline__ float key_flag(const float* km_row, int j, int Tk) {
-  return j < Tk ? (km_row[j] > 0.f ? 1.f : 0.f) : -1.f;
+  return flag_of(j < Tk ? km_row[j] : 0.f, j, Tk);
 }
 
 // The logit of entry (i, j) from the raw dot product, as _masked_logits:
@@ -562,11 +567,6 @@ __device__ __forceinline__ void async_mask(float* dst, const float* km_row, int 
     const bool ok = j0 + j < Tk;
     cp_async4(dst + j, km_row + (ok ? j0 + j : 0), ok);
   }
-}
-
-// key_flag of key j from its raw mask entry
-__device__ __forceinline__ float flag_of(float km, int j, int Tk) {
-  return j < Tk ? (km > 0.f ? 1.f : 0.f) : -1.f;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -366,6 +366,35 @@ def test_streamed_and_fused_kernels_agree(cuda_device):
     _check_by_scale(torch.float32, got, want, "streamed vs fused")
 
 
+@pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_output_kernel_entry_by_entry(cuda_device, dtype, causal,
+                                               diag):
+    """With v[j, h*dh + d] = 1 where d == j, out[i, h*dh + j] is entry
+    (h, i, j) of the dropped, modulated probs, rounded once: entries the
+    plain version drops or hides are 0 on both sides, the others within
+    GRAD_TOL of themselves, and about a tenth of the nonzero ones dropped."""
+    b, t, h, dh = 3, 100, 2, 128
+    ts, _ = _inputs(cuda_device, dtype, b=b, t=t, h=h, dh=dh, e=4, seed=5)
+    ts[2] = torch.eye(t, dh, device=cuda_device)[None, :, None, :].expand(
+        b, t, h, dh).reshape(b, t, h * dh).to(dtype).contiguous()
+    q, k, v, _, km, _, oh, *_ = ts
+    seed = torch.tensor(99, device=cuda_device)
+    kw = dict(causal=causal, diag_reset=diag, num_heads=h)
+    want = mau_blocked_forward(*ts, dropout_rate=0.1, dropout_seed=seed, **kw)
+    kept = output_reference(q, k, v, km, oh, want.lam, want.m, want.l,
+                            **kw).float()
+    got = mau_modulated_out(q, k, v, km, oh, want.lam, want.m, want.l,
+                            dropout_rate=0.1, dropout_seed=seed, **kw).float()
+    ref = want.out.float()
+    zero = ref == 0
+    assert torch.equal(got[zero], ref[zero])
+    assert float(((got - ref).abs()[~zero] / ref.abs()[~zero]).max()) <= \
+        GRAD_TOL[dtype]
+    dropped = float((zero & (kept != 0)).sum() / (kept != 0).sum())
+    assert 0.07 < dropped < 0.13, dropped
+
+
 def test_lc_model_on_card_matches_cpu(cuda_device):
     """fp32 EasyDGL-LC logits at a small width, streamed kernels on the
     card vs the blocked plain version on the CPU: 1e-4."""
