@@ -8,13 +8,16 @@ Run from the root of a checkout, with no arguments:
 It builds every CUDA kernel from the checkout's sources (one nvcc per
 source, all started together), holds each kernel against its plain PyTorch
 version on the card — the MAU/BiMAU forward and backward (dropout included,
-the same seed on both sides) and the catalog NLL forward and backward (its
+the same seed on both sides), the catalog NLL forward and backward (its
 table and bias gradients also on the vocab ids that are no row's label, and
 one case without the label term, so that the softmax term is held on its
-own) and the three streamed long-context MAU kernels (stats, intensity head,
-modulated output), each on the blocked plain version's inputs — and times
-each against its bound. Then it drives the port's main paths, each with the
-launch counters set to 0 just before it and read just after:
+own), the three streamed long-context MAU forward kernels (stats, intensity
+head, modulated output) and the four streamed backward kernels (d-lambda,
+the intensity head's VJP, dq, dk/dv/dt), each on the blocked plain
+version's inputs, and the chained streamed backward against the blocked
+one — and times each against its bound. Then it drives the port's main
+paths, each with the launch counters set to 0 just before it and read just
+after:
 
 * serving on the flagship EasyDGL configuration (``PRESETS["EasyDGL"]``, 64
   event marks, bf16 matmuls, random weights from a seed loaded through the
@@ -25,11 +28,14 @@ launch counters set to 0 just before it and read just after:
   through the streamed kernels;
 * training on the flagship: 20 faithful train steps (dropout 0.1 / 0.1, TPP
   and L2 terms, TF-Adam) through ``build_train_step`` with marks looked up
-  on the device, then 10 steps on one repeated batch whose loss must fall.
+  on the device, then 10 steps on one repeated batch whose loss must fall;
+* training on EasyDGL-LC: 10 faithful train steps through the seven
+  streamed kernels and the catalog kernels, then 5 on one repeated batch.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
-gradient, the updated parameters), and EasyDGL-LC's logits for two rows.
+gradient, the updated parameters), EasyDGL-LC's logits for two rows and
+one EasyDGL-LC train step on two rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -37,6 +43,7 @@ line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -58,18 +65,19 @@ from easydgl_tpu_torch.kernels import build
 from easydgl_tpu_torch.kernels.mau_attention import (
     _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
     mau_attention_bwd_reference, mau_attention_reference)
-from easydgl_tpu_torch.kernels.mau_blocked import (intensity_reference,
-                                                   mau_blocked_forward,
-                                                   output_reference,
-                                                   stats_reference)
-from easydgl_tpu_torch.kernels.mau_streamed import (mau_intensity,
-                                                    mau_modulated_out,
-                                                    mau_stats, mau_streamed)
+from easydgl_tpu_torch.kernels.mau_blocked import (
+    dkvt_reference, dq_reference, glam_reference, intensity_reference,
+    intensity_vjp_reference, mau_blocked, mau_blocked_forward,
+    output_reference, row_correction, stats_reference)
+from easydgl_tpu_torch.kernels.mau_streamed import (
+    STREAMED_KERNELS, mau_dkvt, mau_dq, mau_glam, mau_intensity,
+    mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed)
 from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
                                                catalog_nll_reference)
 from easydgl_tpu_torch.models.registry import build_model
+from easydgl_tpu_torch.nn import temporal
 from easydgl_tpu_torch.parity import random_flax_params
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
                                            device_marks, init_state,
@@ -101,12 +109,15 @@ SLICE_TOL = (1e-4, 1e-4)
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
+LC_TRAIN_STEPS, LC_REPEAT_STEPS = 10, 5
 LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)   # EasyDGL-LC eval shape
 STREAMED = (mau_stats, mau_intensity, mau_modulated_out)
-STREAMED_REPLACES = {"mau_stats": "easydgl_tpu/kernels/mau_streamed.py:607",
-                     "mau_intensity": "easydgl_tpu/kernels/mau_streamed.py:239",
-                     "mau_modulated_out":
-                         "easydgl_tpu/kernels/mau_streamed.py:634"}
+STREAMED_BWD = (mau_glam, mau_intensity_bwd, mau_dq, mau_dkvt)
+STREAMED_REPLACES = {
+    name: f"easydgl_tpu/kernels/mau_streamed.py:{line}" for name, line in (
+        ("mau_stats", 607), ("mau_intensity", 239), ("mau_modulated_out", 634),
+        ("mau_intensity_bwd", 274), ("mau_glam", 692), ("mau_dq", 739),
+        ("mau_dkvt", 768))}
 MAU_GRADS = ("dq", "dk", "dv", "dt", "dWd", "dbd", "dw", "dscaling")
 
 
@@ -602,6 +613,107 @@ def modulation_probe(name, dtype, causal, diag, seed):
     check(0.07 < dropped < 0.13, f"{name}: dropped share {dropped:.4f}")
 
 
+# name, shape, dtype, causal, diag_reset, dropout rate
+STREAMED_BWD_CASES = (
+    ("lc_bimau_bf16_drop", dict(LC, b=2), torch.bfloat16, False, True, 0.1),
+    ("lc_bimau_fp32", dict(LC, b=2), torch.float32, False, True, 0.0),
+    ("lc_causal_bf16", dict(LC, b=2), torch.bfloat16, True, False, 0.0),
+    ("lc_causal_fp32_drop", dict(LC, b=2), torch.float32, True, False, 0.1),
+    ("t300_bimau_bf16", dict(LC, b=3, tq=300, tk=300), torch.bfloat16, False,
+     True, 0.0),
+    ("t300_causal_fp32_drop", dict(LC, b=3, tq=300, tk=300), torch.float32,
+     True, False, 0.1),
+    ("t77_dh16_e4_bf16_drop", dict(b=3, tq=77, tk=77, h=2, dh=16, e=4),
+     torch.bfloat16, True, False, 0.1),
+    ("t65_dh32_e12_fp32_drop", dict(b=2, tq=65, tk=65, h=4, dh=32, e=12),
+     torch.float32, False, True, 0.1))
+INTENSITY_GRADS = ("g_su", "dWd", "dbd", "dw", "dscaling")
+
+
+def streamed_bwd_pieces(args, h, *, causal, diag, rate, seed, plain_fwd,
+                        cotangent_seed=7):
+    """The backward pieces of each kernel on the plain version's inputs:
+    the plain forward's residuals, g_out / g_lam at training magnitudes,
+    then for each kernel (its name, the kernel call, the plain call)."""
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
+    sd = torch.tensor(seed, dtype=torch.int64, device="cuda")
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=rate,
+              dropout_seed=sd, num_heads=h)
+    fwd = (mau_blocked_forward(*args[:11], **kw) if plain_fwd is None
+           else plain_fwd)
+    go, gl_up = mau_bwd_args(args, q.dtype, cotangent_seed)
+    g_lam = glam_reference(q, k, v, km, oh, fwd.m, fwd.l, go, **kw) + gl_up
+    g_su = intensity_vjp_reference(fwd.su, iv, wd, bd, w, sc, g_lam)[0]
+    rho = row_correction(fwd.out, go, fwd.su, g_su, h)
+    p2 = (q, k, v, t, km, oh, fwd.lam, fwd.m, fwd.l, go, g_su, rho)
+    runs = {
+        "mau_glam": (lambda: mau_glam(q, k, v, km, oh, fwd.m, fwd.l, go, **kw),
+                     lambda: glam_reference(q, k, v, km, oh, fwd.m, fwd.l, go,
+                                            **kw)),
+        "mau_intensity_bwd": (
+            lambda: mau_intensity_bwd(fwd.su, iv, wd, bd, w, sc, g_lam),
+            lambda: intensity_vjp_reference(fwd.su, iv, wd, bd, w, sc,
+                                            g_lam)),
+        "mau_dq": (lambda: mau_dq(*p2, **kw), lambda: dq_reference(*p2, **kw)),
+        "mau_dkvt": (lambda: mau_dkvt(*p2, **kw),
+                     lambda: dkvt_reference(*p2, **kw))}
+    return fwd, (go, gl_up), runs
+
+
+def chained_grads(fn, args, h, go, gl, *, causal, diag, rate, seed):
+    """The eight gradients of ``fn`` (mau_streamed or mau_blocked) by
+    autograd at cotangents (go, gl)."""
+    diff = [x.detach().clone().requires_grad_(i in (0, 1, 2, 3, 7, 8, 9, 10))
+            for i, x in enumerate(args[:11])]
+    sd = torch.tensor(seed, dtype=torch.int64, device="cuda")
+    out, lam = fn(*diff, causal, diag, rate, num_heads=h, dropout_seed=sd)
+    return torch.autograd.grad(
+        (out.float() * go.float()).sum() + (lam * gl).sum(),
+        [diff[i] for i in (0, 1, 2, 3, 7, 8, 9, 10)])
+
+
+def phase_streamed_bwd_checks():
+    log("phase 3e: streamed MAU backward kernels (d-lambda, intensity VJP, "
+        "dq, dk/dv/dt) vs the blocked plain pieces on the card, each kernel"
+        " on the plain version's inputs; then the chained backward")
+    errs = {}
+    for i, (name, shape, dtype, causal, diag, rate) in \
+            enumerate(STREAMED_BWD_CASES):
+        args = mau_inputs(**shape, dtype=dtype, gathered=False, seed=600 + i)
+        h = shape["h"]
+        flags = dict(causal=causal, diag=diag, rate=rate, seed=6000 + i)
+        fwd, (go, gl), runs = streamed_bwd_pieces(args, h, plain_fwd=None,
+                                                  **flags)
+        case = {}
+        for kname, (kern, plain) in runs.items():
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            if kname == "mau_intensity_bwd":   # fp32 in both dtypes
+                case[kname] = compare_by_scale(name, INTENSITY_GRADS, got,
+                                               want, torch.float32)
+            elif kname == "mau_glam":
+                case[kname] = compare_by_scale(name, ("g_lam",), (got,),
+                                               (want,), dtype)
+            else:
+                got = got if kname == "mau_dkvt" else (got,)
+                want = want if kname == "mau_dkvt" else (want,)
+                labels = ("dk", "dv", "dt") if kname == "mau_dkvt" else ("dq",)
+                check(all(x.dtype == dtype for x in got), f"{name}: dtype")
+                case[kname] = compare_by_scale(name, labels, got, want, dtype)
+            del got, want
+        if i < 2:  # the chained backward, as the model calls it
+            got = chained_grads(mau_streamed, args, h, go, gl, **flags)
+            torch.cuda.synchronize()
+            want = chained_grads(mau_blocked, args, h, go, gl, **flags)
+            compare_by_scale(name + "_chain", MAU_GRADS, got, want, dtype)
+            check(float(got[0][0].float().abs().max()) == 0.0,
+                  f"{name}: the fully masked row has a nonzero dq")
+        errs[name] = case
+        del fwd, runs
+    return errs
+
+
 def streamed_work(name, *, b, tq, tk, h, dh, e, dtype):
     """(bytes, flops, dtype of the operations) of one streamed kernel: each
     input read once, each output written once; the intensity head's
@@ -659,6 +771,55 @@ def phase_streamed_timing():
                                        library_ms=None, sdpa_ms=sdpa_ms)
         log(f"  for scale, F.scaled_dot_product_attention on the same q/k/v"
             f" ({str(dtype)[6:]}): {sdpa_ms:.4f} ms")
+    return rows
+
+
+def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype):
+    """(bytes, flops, dtype of the operations) of one streamed backward
+    kernel: each input read once, each output written once; the products
+    its function needs (the intensity VJP's three of rows x (dh+1) x E*dh
+    in fp32 whatever the compute dtype)."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    c, rows = h * dh, b * h * tq
+    small = 4 * (b * tk + b * tk * e)              # key mask, one-hot
+    if name == "mau_glam":   # q, dO, k, v, stats in; g_lam out
+        return (it * (2 * b * tq * c + 2 * b * tk * c) + small
+                + 4 * rows * (2 + e), 2 * rows * tk * (2 * dh + e), dtype)
+    if name == "mau_intensity_bwd":   # seq_units, iv, weights, g_lam in
+        return (4 * (2 * rows * dh + b * tq + 2 * (dh + 1) * e * dh
+                     + 4 * e * dh + 2 * e + rows * e),
+                2 * rows * (3 * (dh + 1) * e * dh + 2 * e * dh),
+                torch.float32)
+    # q, dO, g_su, k, v, t, lam, stats, rho in; dq or dk, dv, dt out
+    nout = b * tq * c if name == "mau_dq" else 3 * b * tk * c
+    nprod = 4 if name == "mau_dq" else 6
+    return (it * (3 * b * tq * c + 3 * b * tk * c + nout) + small
+            + 4 * rows * (e + 3), 2 * rows * tk * (nprod * dh + e), dtype)
+
+
+def phase_streamed_bwd_timing():
+    log("phase 4d: streamed MAU backward kernels at the EasyDGL-LC train "
+        "shape (B=8, T=2048, H=8, dh=64, E=64, BiMAU, dropout 0.1)")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = mau_inputs(**LC, dtype=dtype, gathered=False, seed=700)
+        _, _, runs = streamed_bwd_pieces(args, LC["h"], causal=False,
+                                         diag=True, rate=0.1, seed=7000,
+                                         plain_fwd=None)
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(kern, warmup=1, iters=5)
+            plain_ms = time_ms(plain, warmup=1, iters=2)
+            nbytes, flops, op_dtype = streamed_bwd_work(name, **LC,
+                                                        dtype=dtype)
+            bound_ms, bound_by = bound(nbytes, flops, op_dtype)
+            log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
+                f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+                f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
+                f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x")
+            rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=None)
+        del runs
     return rows
 
 
@@ -1017,30 +1178,129 @@ def phase_train():
     return launches, ms_step, ex_s
 
 
-def phase_train_cpu_vs_card():
-    log("phase 8: full-width fp32 train step, card (kernels) vs CPU "
-        "(plain), 8 rows, dropout 0")
-    cfg = preset("EasyDGL", num_events=64, batch_size=8,
-                 hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0)
+def phase_lc_train():
+    log("phase 7b: EasyDGL-LC faithful train steps at full width on the card "
+        "(B=8, L+1=2048, masklen 256, C=512, H=8, E=64, bf16, dropout "
+        "0.1 / 0.1, TPP + L2, TF-Adam, streamed kernels)")
+    cfg = preset("EasyDGL-LC", num_events=64)
+    bs = cfg.batch_size
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    split = synthetic_split_vectorized(num_rows=4 * bs,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=6)
+    loader = BatchLoader(split, data_mode=model.data_mode, batch_size=bs,
+                         masklen=cfg.masklen, is_training=True)
+    batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
+               for f, lab, _ in loader.epoch(0)]
+    step = build_train_step(model, mark_table=table)
+    state = init_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for features, labels in batches[:2]:  # warm-up, not counted
+        state, _ = step(state, features, labels, gen)
+    torch.cuda.synchronize()
+
+    counters = STREAMED_KERNELS + (mau_attention, mau_attention_bwd,
+                                   catalog_nll_fwd, catalog_nll_bwd)
+    for fn in counters:
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(LC_TRAIN_STEPS):
+        features, labels = batches[i % len(batches)]
+        state, loss = step(state, features, labels, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    repeated = []
+    for _ in range(LC_REPEAT_STEPS):
+        state, loss = step(state, *batches[0], gen)
+        repeated.append(loss)
+    losses = [float(x) for x in losses]
+    repeated = [float(x) for x in repeated]
+    check(all(math.isfinite(x) for x in losses + repeated),
+          "LC train: a loss is not finite")
+    check(repeated[-1] < repeated[0],
+          f"LC train: loss on a repeated batch did not fall ({repeated})")
+    per_step = {fn.__name__: cfg.num_blocks for fn in STREAMED_KERNELS}
+    per_step.update(mau_attention=0, mau_attention_bwd=0, catalog_nll_fwd=1,
+                    catalog_nll_bwd=1)
+    for name, n in per_step.items():
+        check(launches[name] == n * LC_TRAIN_STEPS,
+              f"LC train: {name} launched {launches[name]} times in "
+              f"{LC_TRAIN_STEPS} steps, expected {n} per step")
+    ms_step = elapsed / LC_TRAIN_STEPS * 1e3
+    ex_s = LC_TRAIN_STEPS * bs / elapsed
+    log(f"  losses: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+        f"repeated batch {repeated[0]:.5f} -> {repeated[-1]:.5f}")
+    log(f"  LC train: {LC_TRAIN_STEPS} steps x {bs} rows in {elapsed:.4f} s"
+        f" = {ms_step:.4f} ms/step, {ex_s:.1f} train ex/s (host clock,"
+        f" synchronised, batches on the device, after 2 warm-up steps)")
+    log(f"  launches in the {LC_TRAIN_STEPS} steps: " + json.dumps(launches))
+    return launches, ms_step, ex_s
+
+
+@contextlib.contextmanager
+def blocked_engine():
+    """The streamed engine's plain version (``mau_blocked`` and its custom
+    backward, plain PyTorch) in place of its kernels, on any device."""
+    saved = temporal.mau_streamed
+    temporal.mau_streamed = mau_blocked
+    try:
+        yield
+    finally:
+        temporal.mau_streamed = saved
+
+
+def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
+                            **overrides):
+    """One full-width fp32 train step of a preset at dropout 0, card
+    (kernels) vs CPU (plain versions): loss, every gradient and the
+    parameters after the TF-Adam update.
+
+    With ``device_floor`` the step's gradients are also taken on the card
+    with the streamed engine's plain version (``blocked_engine``). Every
+    leaf is then held to 1e-4 of its scale against those (the kernels
+    against their plain version on one device), and against the CPU unless
+    the plain version on the card misses the CPU by more than that itself:
+    such a leaf's card-vs-CPU gap is the two devices' fp32 floor for this
+    step (other reductions, other exp and sigmoid roundings), not the
+    kernels'."""
+    cfg = preset(name, num_events=64, batch_size=rows,
+                 hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0,
+                 **overrides)
     params = random_flax_params(cfg, seed=0)
     table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
-    split = synthetic_split_vectorized(num_rows=8, num_items=cfg.num_items,
+    split = synthetic_split_vectorized(num_rows=rows,
+                                       num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=3)
     features, labels, _ = next(BatchLoader(
-        split, data_mode="mau", batch_size=8, masklen=cfg.masklen,
+        split, data_mode="mau", batch_size=rows, masklen=cfg.masklen,
         is_training=True).epoch(0))
-    res = {}
-    for dev in ("cuda", "cpu"):
+
+    def grads_on(dev):
         model = build_model(cfg, device=dev, params=params)
         lab = torch.as_tensor(labels, device=dev)
         feats = device_marks(to_device(features, dev), lab,
                              torch.as_tensor(table, dtype=torch.float32,
                                              device=dev), is_training=True)
-        _, grads = loss_and_grads(model, feats, lab)
+        grads = loss_and_grads(model, feats, lab)[1]
+        return model, {k: g.cpu() for k, g in grads.items()}
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model, grads = grads_on(dev)
         state, loss = build_train_step(model, mark_table=table)(
             init_state(model), features, labels, torch.Generator(device=dev))
-        res[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+        res[dev] = (float(loss), grads,
                     {k: p.detach().cpu() for k, p in state.params.items()})
+        del model, state, grads
+    grads_plain = None
+    if device_floor:
+        with blocked_engine():
+            grads_plain = grads_on("cuda")[1]
     (loss_c, grads_c, params_c), (loss_p, grads_p, params_p) = \
         res["cuda"], res["cpu"]
     log(f"  loss card {loss_c:.7f} CPU {loss_p:.7f}")
@@ -1052,11 +1312,21 @@ def phase_train_cpu_vs_card():
     # |g| > 2d, and by up to 2 lr where |g| <= 2d.
     lr, eps_t1 = cfg.optim.learning_rate, cfg.optim.eps / math.sqrt(
         1 - cfg.optim.beta2)
-    worst_g = worst_p = 0.0
+    worst_g = worst_p = worst_k = 0.0
+    ratios, floored = {}, []
     for name, want in grads_p.items():
         d = 1e-4 * float(want.abs().max()) + 1e-12
-        err = float((grads_c[name] - want).abs().max())
-        worst_g = max(worst_g, err / d)
+        ratios[name] = float((grads_c[name] - want).abs().max()) / d
+        held = ratios[name]
+        if grads_plain is not None:
+            kern = float((grads_c[name] - grads_plain[name]).abs().max()) / d
+            worst_k = max(worst_k, kern)
+            plain = float((grads_plain[name] - want).abs().max()) / d
+            if plain > 1.0:
+                floored.append(f"{name} (card vs CPU {ratios[name]:.3f}, "
+                               f"plain on the card vs CPU {plain:.3f})")
+                held = kern
+        worst_g = max(worst_g, held)
         g = want.abs()
         bnd = torch.where(g > 2 * d, 1e-6 + 1e-5 * params_p[name].abs()
                           + lr * eps_t1 * d / (g - d).clamp_min(d) ** 2,
@@ -1064,8 +1334,18 @@ def phase_train_cpu_vs_card():
         perr = (params_c[name] - params_p[name]).abs()
         worst_p = max(worst_p, float((perr / bnd).max()))
     log(f"  {len(grads_p)} gradient leaves: worst |card - CPU| / (1e-4 *"
-        f" max|CPU|) = {worst_g:.3f}; parameters after the update: worst"
-        f" error / bound = {worst_p:.3f}")
+        f" max|CPU|) = {max(ratios.values()):.3f}; parameters after the"
+        f" update: worst error / bound = {worst_p:.3f}")
+    log("  largest gradient ratios: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(ratios.items(),
+                                         key=lambda kv: -kv[1])[:4]))
+    if grads_plain is not None:
+        log(f"  kernels vs the plain version on the card: worst |kernels -"
+            f" plain| / (1e-4 * max|CPU|) = {worst_k:.3f}")
+        log("  held against the plain version on the card (its own gap to"
+            " the CPU is above 1e-4): " + (", ".join(floored) or "none"))
+        check(worst_k <= 1.0,
+              "train gradients kernels vs plain on the card outside tolerance")
     check(worst_g <= 1.0, "train gradients card vs CPU outside tolerance")
     check(worst_p <= 1.0, "updated parameters card vs CPU outside tolerance")
 
@@ -1076,7 +1356,10 @@ def kernel_names(log_text: str):
     m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
                   r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_mma_kernel|"
-                  r"mau_out_kernel|mau_intensity_kernel)"
+                  r"mau_out_kernel|mau_intensity_kernel|mau_glam_mma_kernel|"
+                  r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
+                  r"mau_dkvt_mma_kernel|mau_dkvt_kernel|"
+                  r"mau_int_bwd_rows_kernel|mau_int_bwd_cols_kernel)"
                   r"(I?\w*)",
                   log_text)
     if not m:
@@ -1108,7 +1391,7 @@ def main() -> int:
 
     log("phase 2: build")
     sources = ["mau_attention_fwd", "mau_attention_bwd", "catalog_nll",
-               "mau_streamed_fwd"]
+               "mau_streamed_fwd", "mau_streamed_bwd"]
     seconds = build.build(sources)
     for name, s in seconds.items():
         log(f"  {name}: nvcc {s:.1f} s")
@@ -1123,15 +1406,25 @@ def main() -> int:
     bwd_errs = phase_bwd_checks()
     cat_errs = phase_catalog_checks()
     streamed_errs = phase_streamed_checks()
+    streamed_bwd_errs = phase_streamed_bwd_checks()
     timing = phase_kernel_timing()
     train_timing = phase_train_kernel_timing()
     streamed_timing = phase_streamed_timing()
+    streamed_timing.update(phase_streamed_bwd_timing())
     serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
     lc_launches, lc_batch, lc_table, lc_seqs_s, lc_lat = phase_lc_slice()
     phase_lc_cpu_vs_card(lc_batch, lc_table)
     train_launches, ms_step, ex_s = phase_train()
+    log("phase 8: full-width fp32 train step, card (kernels) vs CPU "
+        "(plain), 8 rows, dropout 0")
     phase_train_cpu_vs_card()
+    lc_train_launches, lc_ms_step, lc_ex_s = phase_lc_train()
+    log("phase 8b: full-width fp32 EasyDGL-LC train step, card (streamed "
+        "kernels) vs CPU (blocked plain version, _MauBlocked), 2 rows, "
+        "dropout 0")
+    phase_train_cpu_vs_card("EasyDGL-LC", rows=2, device_floor=True,
+                            compute_dtype="float32")
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
@@ -1157,30 +1450,45 @@ def main() -> int:
              "easydgl_tpu/kernels/scoring.py:292",
              cat_errs["flagship_bf16"][1])):
         row = train_timing[(name, bf16)]
+        per_path = {"training": train_launches[name]}
+        if name != "mau_attention_bwd":
+            per_path["training_lc"] = lc_train_launches[name]
         entry = dict(name=name, route="cuda", source=csrc + source,
-                     replaces=replaces, launches=train_launches[name],
-                     max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+                     replaces=replaces, launches=sum(per_path.values()),
+                     launches_per_path=per_path, max_abs_err=err,
+                     ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=None)
         if name == "catalog_nll_bwd":
             entry["also_replaces"] = ["easydgl_tpu/kernels/scoring.py:323",
                                       "easydgl_tpu/kernels/scoring.py:343"]
         kernels.append(entry)
-    for fn in STREAMED:
+    for fn in STREAMED_KERNELS:
         name = fn.__name__
         row = streamed_timing[(name, bf16)]
-        kernels.append(dict(
-            name=name, route="cuda", source=csrc + "mau_streamed_fwd.cu",
-            replaces=STREAMED_REPLACES[name], launches=lc_launches[name],
-            launches_per_path={"serving_lc": lc_launches[name]},
-            max_abs_err=streamed_errs["lc_bimau_bf16"][name], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None,
-            sdpa_ms_for_scale=row["sdpa_ms"]))
+        forward = fn in STREAMED
+        per_path = {"training_lc": lc_train_launches[name]}
+        if forward:
+            per_path["serving_lc"] = lc_launches[name]
+        entry = dict(
+            name=name, route="cuda",
+            source=csrc + ("mau_streamed_fwd.cu" if forward
+                           else "mau_streamed_bwd.cu"),
+            replaces=STREAMED_REPLACES[name],
+            launches=sum(per_path.values()), launches_per_path=per_path,
+            max_abs_err=(streamed_errs["lc_bimau_bf16"][name] if forward
+                         else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None)
+        if forward:
+            entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
+        kernels.append(entry)
     log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
         + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
         + f" ms per B=8 batch on {card}")
     log(f"train: {ms_step:.4f} ms/step, {ex_s:.1f} ex/s at B=512 on {card}")
+    log(f"EasyDGL-LC train: {lc_ms_step:.4f} ms/step, {lc_ex_s:.1f} ex/s at"
+        f" B=8, L+1=2048 on {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

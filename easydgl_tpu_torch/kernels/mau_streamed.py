@@ -1,30 +1,43 @@
-"""Streamed MAU/BiMAU forward on the card (port of
-``easydgl_tpu.kernels.mau_streamed``, forward).
+"""Streamed MAU/BiMAU on the card, forward and backward (port of
+``easydgl_tpu.kernels.mau_streamed``).
 
-The two-sweep long-context schedule of ``kernels.mau_blocked`` as three
-hand-written CUDA kernels (``csrc/mau_streamed_fwd.cu``), on the natural
-(B, T, C) layout:
+The two-sweep long-context schedule of ``kernels.mau_blocked`` and its
+two-pass backward as hand-written CUDA kernels on the natural (B, T, C)
+layout. Forward (``csrc/mau_streamed_fwd.cu``):
 
 * ``mau_stats`` (TPU ``_stats_kernel``): m, l and seq_units;
 * ``mau_intensity`` (TPU ``_int_fwd_kernel``): lam from seq_units, fp32;
 * ``mau_modulated_out`` (TPU ``_out_kernel``): the modulated output.
 
-``mau_streamed`` runs the three, with the argument contract of
-``mau_attention`` (no gathered queries: queries are at positions
-0..Tq-1). Every wrapper dispatches on where its tensors lie: CPU tensors
-take the plain version (``mau_blocked`` and its sweeps); CUDA tensors launch
-the kernel, adding one to the wrapper's ``launches``, or raise. Forward
-only: on the card a call that needs a gradient raises
-``NotImplementedError`` (the backward kernels come with the EasyDGL-LC
-train step, queue B of ROADMAP.md); it never detaches and never falls back
-to the plain version.
+Backward (``csrc/mau_streamed_bwd.cu``), run by ``_MauStreamed`` in JAX's
+order (``_mau_streamed_bwd``):
+
+* ``mau_glam`` (TPU ``_glam_kernel``): d(lambda) from the modulation;
+* ``mau_intensity_bwd`` (TPU ``_int_bwd_kernel``): the intensity head's
+  fp32 VJP, d(seq_units) and the head's parameter gradients;
+* rho = <out, g_out> + <g_su, su> in PyTorch;
+* ``mau_dq`` (TPU ``_dq_kernel``): dQ;
+* ``mau_dkvt`` (TPU ``_dkvt_kernel``): dK, dV, dT, key-major.
+
+``mau_streamed`` runs them with the argument contract of ``mau_attention``
+(no gathered queries: queries are at positions 0..Tq-1). Every wrapper
+dispatches on where its tensors lie: CPU tensors take the plain version
+(``mau_blocked`` and its pieces, whose autograd Function ``_MauBlocked`` is
+the CPU engine); CUDA tensors launch the kernel, adding one to the wrapper's
+``launches``, or raise. ``mau_streamed`` on CUDA tensors that need a
+gradient runs ``_MauStreamed``; a single wrapper is not differentiable on
+its own and raises under autograd rather than detach. No path falls back
+to the plain version on the card.
 
 lam comes back in fp32 (the JAX streamed path rounds it to q's dtype; its
 blocked path, like this one, does not). ``block_k`` is the plain version's
-key block; the kernels tile by 64 queries and 64 keys. In bf16 the stats
-and output kernels run their products on the tensor cores, and the output
-kernel takes lam and the one-hot rounded to bf16 (as the plain version
-rounds them) and zero-padded to a multiple of 16 events.
+key block; the kernels tile by 64 queries and 64 keys. In bf16 the forward
+stats and output kernels run their products on the tensor cores, and the
+output kernel takes lam and the one-hot rounded to bf16 (as the plain
+version rounds them) and zero-padded to a multiple of 16 events. The
+backward kernels take dh in (16, 32, 64) and E up to 128; in bf16 they run
+their products on the tensor cores with the same layouts, in fp32 on the
+CUDA cores.
 """
 from __future__ import annotations
 
@@ -39,17 +52,17 @@ from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
                                                      KERNEL_SMEM_MAX, _bind,
                                                      _drop_args, _seed_tensor,
                                                      _stream)
-from easydgl_tpu_torch.kernels.mau_blocked import (intensity_reference,
-                                                   mau_blocked,
-                                                   output_reference,
-                                                   stats_reference)
+from easydgl_tpu_torch.kernels.mau_blocked import (
+    BackwardOps, BlockedForward, autograd_function, differentiable,
+    dkvt_reference, dq_reference, glam_reference, intensity_reference,
+    intensity_vjp_reference, mau_blocked, output_reference, stats_reference)
 
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_uint, ctypes.c_float)
-_TRAINING_SLICE = ("the streamed MAU backward is not ported yet (the "
-                   "EasyDGL-LC train step, ROADMAP.md queue B rows 11 and "
-                   "14-16); run the forward under torch.no_grad() or on the "
-                   "CPU")
+KERNEL_BWD_HEAD_DIMS = (16, 32, 64)
+KERNEL_BWD_EVENTS_MAX = 128
+# kernels of mau_streamed_bwd.cu, as mau_streamed_bwd_smem_bytes numbers them
+_GLAM, _DQ, _DKVT, _INT_ROWS, _INT_COLS = range(5)
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,21 +84,38 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mau_streamed_bwd")
+    _bind(lib, "mau_glam_bwd", [_P, _LL, _LL] * 4 + [_P] * 5
+          + [_U32, _F32, _P] + [_I32] * 8 + [_F32, _I32, _P])
+    _bind(lib, "mau_dq_bwd", [_P, _LL, _LL] * 5 + [_P] * 8
+          + [_U32, _F32, _P] + [_I32] * 8 + [_F32, _I32, _P])
+    _bind(lib, "mau_dkvt_bwd", [_P, _LL, _LL] * 5 + [_P] * 8 + [_U32, _F32]
+          + [_P] * 3 + [_I32] * 8 + [_F32, _I32, _P])
+    _bind(lib, "mau_intensity_bwd", [_P] * 13 + [_I32] * 5 + [_P])
+    lib.mau_streamed_bwd_smem_bytes.argtypes = [_I32] * 4
+    lib.mau_streamed_bwd_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"mau_streamed kernel: {msg}")
 
 
-def _on_card(name: str, *tensors) -> bool:
+def _on_card(name: str, *tensors, differentiable_ok: bool = False) -> bool:
     """True for CUDA tensors, False for CPU ones; raises on other devices
-    and where autograd would need a gradient of the kernel."""
+    and, unless ``differentiable_ok``, where autograd would need a gradient
+    of the kernel (a single kernel has none: differentiate
+    ``mau_streamed``)."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError(f"{name}: {_TRAINING_SLICE}")
+    if not differentiable_ok and differentiable(*tensors):
+        raise RuntimeError(f"{name}: one kernel of the streamed MAU has no "
+                           "gradient of its own; differentiate mau_streamed")
     for x in tensors:
         _check(x.device == dev, f"{name}: a tensor on {x.device}, q on {dev}")
     return True
@@ -133,10 +163,10 @@ def _checked_seqs(q, others, num_heads):
     return b, tq, tk, dh
 
 
-def _raise_on(lib, rc: int, what: str):
+def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.mau_streamed_error_string(rc).decode())
+                           + _lib().mau_streamed_error_string(rc).decode())
 
 
 def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
@@ -163,7 +193,7 @@ def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
                                m.data_ptr(), l.data_ptr(), su.data_ptr(), b,
                                tq, tk, h, dh, int(causal), 1.0 / dh ** 0.5,
                                _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(lib, rc, "mau_stats")
+    _raise_on(rc, "mau_stats")
     mau_stats.launches += 1
     return m, l, su
 
@@ -200,7 +230,7 @@ def mau_intensity(su, intervals, wd, bd, w, scaling):
                                    wf.data_ptr(), scf.data_ptr(),
                                    lam.data_ptr(), b, h, tq, dh, e,
                                    _stream(su.device))
-    _raise_on(lib, rc, "mau_intensity")
+    _raise_on(rc, "mau_intensity")
     mau_intensity.launches += 1
     return lam
 
@@ -252,12 +282,256 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
                              out.data_ptr(), b, tq, tk, h, dh, e, int(causal),
                              int(diag_reset), 1.0 / dh ** 0.5,
                              _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(lib, rc, "mau_modulated_out")
+    _raise_on(rc, "mau_modulated_out")
     mau_modulated_out.launches += 1
     return out
 
 
 mau_modulated_out.launches = 0
+
+
+def _streamed_forward(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
+                      scaling, *, causal: bool, diag_reset: bool,
+                      dropout_rate: float, dropout_seed, num_heads: int,
+                      block_k: int = 512) -> BlockedForward:
+    """The three forward kernels, with the intermediates the backward
+    keeps (``mau_blocked_forward``'s contract)."""
+    m, l, su = mau_stats(q, k, t, key_mask, causal=causal,
+                         num_heads=num_heads)
+    lam = mau_intensity(su, intervals, wd, bd, w, scaling)
+    out = mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l,
+                            causal=causal, diag_reset=diag_reset,
+                            dropout_rate=dropout_rate,
+                            dropout_seed=dropout_seed, num_heads=num_heads)
+    return BlockedForward(out, lam, m, l, su)
+
+
+# ---------------------------------------------------------------- backward
+
+
+def _bwd_fits(lib, which: int, name: str, dh: int, e: int, dtype):
+    _check(dh in KERNEL_BWD_HEAD_DIMS,
+           f"{name}: head dim {dh} not in {KERNEL_BWD_HEAD_DIMS}")
+    _check(e <= KERNEL_BWD_EVENTS_MAX,
+           f"{name}: E={e} above {KERNEL_BWD_EVENTS_MAX}")
+    _check(lib.mau_streamed_bwd_smem_bytes(which, dh, e, _DTYPE_CODE[dtype])
+           <= KERNEL_SMEM_MAX,
+           f"{name}: dh={dh}, E={e} need more shared memory than the limit")
+
+
+def _attention_bwd_args(name, q, kv, key_mask, onehot, stats, g_out,
+                        num_heads):
+    """Checks the attention-side backward kernels' inputs; returns (b, tq,
+    tk, dh, e, the sequences (q, k, v[, t], g_out in q's dtype; in bf16
+    with rows on 16-byte boundaries), the key mask in fp32, the one-hot,
+    the stats). In bf16 the one-hot and lam (the first of ``stats``, where
+    given) are bf16 rounded and zero-padded to a multiple of 16 events, as
+    the tensor-core kernels read them; else everything is fp32."""
+    b, tq, tk, dh = _checked_seqs(q, kv, num_heads)
+    h, e = num_heads, onehot.shape[-1]
+    _check(tuple(key_mask.shape) == (b, tk), f"{name}: key_mask shape")
+    _check(tuple(onehot.shape) == (b, tk, e), f"{name}: onehot shape")
+    for label, x in stats:
+        _check(tuple(x.shape[:3]) == (b, h, tq), f"{name}: {label} shape")
+    _check(tuple(g_out.shape) == tuple(q.shape), f"{name}: g_out shape")
+    go = g_out.detach().to(q.dtype)
+    if go.stride(2) != 1:
+        go = go.contiguous()
+    seqs = [q] + [x for _, x in kv] + [go]
+    stats = [x for _, x in stats]
+    if q.dtype == torch.bfloat16:
+        seqs = [_rows16(x) for x in seqs]
+        oh = _bf16_events(onehot)
+        if stats and stats[0].dim() == 4:   # lam
+            stats[0] = _bf16_events(stats[0])
+    else:
+        oh = _f32(onehot)
+    return (b, tq, tk, dh, e, seqs, _f32(key_mask), oh,
+            [x if x.dtype == torch.bfloat16 else _f32(x) for x in stats])
+
+
+def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
+             diag_reset: bool = False, dropout_rate: float = 0.0,
+             dropout_seed=None, num_heads: int, block_k: int = 512):
+    """Backward pass 1: d(lambda) of the modulation, (B, H, Tq, E) fp32,
+    from g_out (B, Tq, C). CPU tensors: ``mau_blocked.glam_reference``;
+    CUDA tensors: ``mau_glam_kernel``."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
+    if not _on_card("mau_glam", q, k, v, key_mask, onehot, m, l, g_out):
+        return glam_reference(q, k, v, key_mask, onehot, m, l, g_out,
+                              causal=causal, diag_reset=diag_reset,
+                              dropout_rate=dropout_rate,
+                              dropout_seed=dropout_seed, num_heads=num_heads,
+                              block_k=block_k)
+    b, tq, tk, dh, e, seqs, km, oh, (mf, lf) = _attention_bwd_args(
+        "mau_glam", q, (("k", k), ("v", v)), key_mask, onehot,
+        (("m", m), ("l", l)), g_out, num_heads)
+    lib = _bwd_lib()
+    _bwd_fits(lib, _GLAM, "mau_glam", dh, e, q.dtype)
+    seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
+    seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
+    glam = torch.empty((b, num_heads, tq, e), dtype=torch.float32,
+                       device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.mau_glam_bwd(*(a for x in seqs for a in _seq(x)),
+                              km.data_ptr(), oh.data_ptr(), mf.data_ptr(),
+                              lf.data_ptr(), seed_ptr, thresh, dscale,
+                              glam.data_ptr(), b, tq, tk, num_heads, dh, e,
+                              int(causal), int(diag_reset), 1.0 / dh ** 0.5,
+                              _DTYPE_CODE[q.dtype], _stream(q.device))
+    _raise_on(rc, "mau_glam")
+    mau_glam.launches += 1
+    return glam
+
+
+mau_glam.launches = 0
+
+
+def mau_intensity_bwd(su, intervals, wd, bd, w, scaling, g_lam):
+    """The intensity head's fp32 VJP at g_lam (B, H, Tq, E): (g_su
+    (B, H, Tq, dh), gWd (dh+1, E*dh), gbd (E*dh,), gw (E, dh), gscaling
+    (E,)), all fp32. CPU tensors: ``mau_blocked.intensity_vjp_reference``;
+    CUDA tensors: ``mau_int_bwd_rows_kernel`` then
+    ``mau_int_bwd_cols_kernel`` (one launch of the wrapper)."""
+    if not _on_card("mau_intensity_bwd", su, intervals, wd, bd, w, scaling,
+                    g_lam):
+        return intensity_vjp_reference(su, intervals, wd, bd, w, scaling,
+                                       g_lam)
+    b, h, tq, dh = su.shape
+    e = w.shape[0]
+    _check(tuple(intervals.shape) == (b, tq), "intervals shape")
+    _check(tuple(wd.shape) == (dh + 1, e * dh), "wd shape")
+    _check(tuple(bd.shape) == (e * dh,), "bd shape")
+    _check(tuple(w.shape) == (e, dh), "w shape")
+    _check(tuple(scaling.shape) == (e,), "scaling shape")
+    _check(tuple(g_lam.shape) == (b, h, tq, e), "g_lam shape")
+    lib = _bwd_lib()
+    for which in (_INT_ROWS, _INT_COLS):
+        _bwd_fits(lib, which, "mau_intensity_bwd", dh, e, torch.float32)
+    suf, iv, wdf, bdf, wf, scf, gl = (_f32(x) for x in (
+        su, intervals, wd, bd, w, scaling, g_lam))
+    f32 = dict(dtype=torch.float32, device=su.device)
+    g_su = torch.empty((b, h, tq, dh), **f32)
+    g_raw = torch.empty((b * h * tq, e), **f32)
+    g_wd = torch.zeros((dh + 1, e * dh), **f32)
+    g_bd, g_w = torch.zeros((e * dh,), **f32), torch.zeros((e * dh,), **f32)
+    g_sc = torch.zeros((e,), **f32)
+    with torch.cuda.device(su.device):
+        rc = lib.mau_intensity_bwd(
+            suf.data_ptr(), iv.data_ptr(), wdf.data_ptr(), bdf.data_ptr(),
+            wf.data_ptr(), scf.data_ptr(), gl.data_ptr(), g_raw.data_ptr(),
+            g_su.data_ptr(), g_wd.data_ptr(), g_bd.data_ptr(),
+            g_w.data_ptr(), g_sc.data_ptr(), b, h, tq, dh, e,
+            _stream(su.device))
+    _raise_on(rc, "mau_intensity_bwd")
+    mau_intensity_bwd.launches += 1
+    return g_su, g_wd, g_bd, g_w.reshape(e, dh), g_sc
+
+
+mau_intensity_bwd.launches = 0
+
+
+def _pass2_args(name, q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su,
+                rho, num_heads):
+    """The dq / dkvt kernels' arguments after their checks: (b, tq, tk, dh,
+    e, the pointer and stride arguments, the tensors behind the pointers,
+    which the caller keeps alive until the launch)."""
+    _check(tuple(lam.shape) == (q.shape[0], num_heads, q.shape[1],
+                                onehot.shape[-1]), f"{name}: lam shape")
+    b, tq, tk, dh, e, seqs, km, oh, stats = _attention_bwd_args(
+        name, q, (("k", k), ("v", v), ("t", t)), key_mask, onehot,
+        (("lam", lam), ("m", m), ("l", l), ("rho", rho)), g_out, num_heads)
+    _check(tuple(g_su.shape) == (b, num_heads, tq, dh),
+           f"{name}: g_su shape")
+    gsu = g_su.detach().to(q.dtype).contiguous()
+    return (b, tq, tk, dh, e,
+            [a for x in seqs for a in _seq(x)]
+            + [x.data_ptr() for x in [gsu, km, oh] + stats],
+            (seqs, gsu, km, oh, stats))
+
+
+def mau_dq(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
+           causal: bool = False, diag_reset: bool = False,
+           dropout_rate: float = 0.0, dropout_seed=None, num_heads: int,
+           block_k: int = 512):
+    """Backward pass 2 (query-major): dQ (B, Tq, C) in q's dtype, from
+    g_out (B, Tq, C), g_su (B, H, Tq, dh) fp32 (rounded to q's dtype for
+    the products) and rho (B, H, Tq) fp32. CPU tensors:
+    ``mau_blocked.dq_reference``; CUDA tensors: ``mau_dq_kernel``."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
+    if not _on_card("mau_dq", q, k, v, t, key_mask, onehot, lam, m, l, g_out,
+                    g_su, rho):
+        return dq_reference(q, k, v, t, key_mask, onehot, lam, m, l, g_out,
+                            g_su, rho, causal=causal, diag_reset=diag_reset,
+                            dropout_rate=dropout_rate,
+                            dropout_seed=dropout_seed, num_heads=num_heads,
+                            block_k=block_k)
+    b, tq, tk, dh, e, args, alive = _pass2_args(
+        "mau_dq", q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho,
+        num_heads)
+    lib = _bwd_lib()
+    _bwd_fits(lib, _DQ, "mau_dq", dh, e, q.dtype)
+    seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
+    seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
+    dq = torch.empty((b, tq, num_heads * dh), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.mau_dq_bwd(*args, seed_ptr, thresh, dscale, dq.data_ptr(), b,
+                            tq, tk, num_heads, dh, e, int(causal),
+                            int(diag_reset), 1.0 / dh ** 0.5,
+                            _DTYPE_CODE[q.dtype], _stream(q.device))
+    _raise_on(rc, "mau_dq")
+    mau_dq.launches += 1
+    return dq
+
+
+mau_dq.launches = 0
+
+
+def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
+             causal: bool = False, diag_reset: bool = False,
+             dropout_rate: float = 0.0, dropout_seed=None, num_heads: int,
+             block_k: int = 512):
+    """Backward pass 3 (key-major): (dK, dV, dT), each (B, Tk, C) in q's
+    dtype; the arguments of ``mau_dq``. CPU tensors:
+    ``mau_blocked.dkvt_reference``; CUDA tensors: ``mau_dkvt_kernel``."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
+    if not _on_card("mau_dkvt", q, k, v, t, key_mask, onehot, lam, m, l,
+                    g_out, g_su, rho):
+        return dkvt_reference(q, k, v, t, key_mask, onehot, lam, m, l, g_out,
+                              g_su, rho, causal=causal, diag_reset=diag_reset,
+                              dropout_rate=dropout_rate,
+                              dropout_seed=dropout_seed, num_heads=num_heads,
+                              block_k=block_k)
+    b, tq, tk, dh, e, args, alive = _pass2_args(
+        "mau_dkvt", q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho,
+        num_heads)
+    lib = _bwd_lib()
+    _bwd_fits(lib, _DKVT, "mau_dkvt", dh, e, q.dtype)
+    seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
+    seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
+    dk, dv, dt = (torch.empty((b, tk, num_heads * dh), dtype=q.dtype,
+                              device=q.device) for _ in range(3))
+    with torch.cuda.device(q.device):
+        rc = lib.mau_dkvt_bwd(*args, seed_ptr, thresh, dscale, dk.data_ptr(),
+                              dv.data_ptr(), dt.data_ptr(), b, tq, tk,
+                              num_heads, dh, e, int(causal), int(diag_reset),
+                              1.0 / dh ** 0.5, _DTYPE_CODE[q.dtype],
+                              _stream(q.device))
+    _raise_on(rc, "mau_dkvt")
+    mau_dkvt.launches += 1
+    return dk, dv, dt
+
+
+mau_dkvt.launches = 0
+
+KERNEL_OPS = BackwardOps(mau_glam, mau_intensity_bwd, mau_dq, mau_dkvt)
+_MauStreamed = autograd_function("_MauStreamed", _streamed_forward,
+                                 KERNEL_OPS)
+STREAMED_KERNELS = (mau_stats, mau_intensity, mau_modulated_out, mau_glam,
+                    mau_intensity_bwd, mau_dq, mau_dkvt)
 
 
 def mau_streamed(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
@@ -268,21 +542,30 @@ def mau_streamed(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
     format of ``mau_attention``: q (B, Tq, C); k/v/t (B, Tk, C); key_mask
     (B, Tk); intervals (B, Tq); onehot (B, Tk, E); the intensity-head
     parameters. Returns (out (B, Tq, C) in q's dtype, mark_intensity
-    (B, H, Tq, E) fp32). CPU tensors take ``mau_blocked`` (differentiable
-    by autograd); CUDA tensors launch the three kernels or raise."""
+    (B, H, Tq, E) fp32). CPU tensors take ``mau_blocked`` (its autograd
+    Function ``_MauBlocked`` under autograd); CUDA tensors launch the three
+    forward kernels and, under autograd, ``_MauStreamed``'s backward
+    kernels, or raise."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
+    diff = (q, k, v, t, wd, bd, w, scaling)
     if not _on_card("mau_streamed", q, k, v, t, key_mask, intervals, onehot,
-                    wd, bd, w, scaling):
+                    wd, bd, w, scaling, differentiable_ok=True):
         return mau_blocked(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
                            scaling, causal, diag_reset, dropout_rate,
                            num_heads=num_heads, dropout_seed=dropout_seed,
                            block_k=block_k)
-    m, l, su = mau_stats(q, k, t, key_mask, causal=causal,
-                         num_heads=num_heads)
-    lam = mau_intensity(su, intervals, wd, bd, w, scaling)
-    out = mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l,
-                            causal=causal, diag_reset=diag_reset,
+    cfg = (causal, diag_reset, dropout_rate, num_heads, block_k)
+    if differentiable(*diff):
+        dh = q.shape[-1] // num_heads
+        _check(dh in KERNEL_BWD_HEAD_DIMS,
+               f"mau_streamed: training needs a head dim in "
+               f"{KERNEL_BWD_HEAD_DIMS}, not {dh}")
+        return _MauStreamed.apply(q, k, v, t, key_mask, intervals, onehot,
+                                  wd, bd, w, scaling, dropout_seed, cfg)
+    res = _streamed_forward(q, k, v, t, key_mask, intervals, onehot, wd, bd,
+                            w, scaling, causal=causal, diag_reset=diag_reset,
                             dropout_rate=dropout_rate,
-                            dropout_seed=dropout_seed, num_heads=num_heads)
-    return out, lam
+                            dropout_seed=dropout_seed, num_heads=num_heads,
+                            block_k=block_k)
+    return res.out, res.lam

@@ -12,8 +12,9 @@ Two engines, chosen by ``intensity_impl`` (the models pick it with
   one kernel on the card, forward and backward (its plain version on the
   CPU); keys up to 128;
 * ``"streamed"``: ``kernels.mau_streamed.mau_streamed``, the long-context
-  two-sweep schedule, O(T * block) memory (JAX temporal.py:601-650): three
-  forward kernels on the card, the blocked plain version
+  two-sweep schedule and its two-pass backward, O(T * block) memory (JAX
+  temporal.py:601-650): three forward and four backward kernels on the
+  card, the blocked plain version with its custom backward
   (``kernels.mau_blocked``, blocks of ``block_k`` keys) on the CPU.
   Gathered-query calls (``query_positions``) keep the fused engine, as in
   JAX.
@@ -21,8 +22,8 @@ Two engines, chosen by ``intensity_impl`` (the models pick it with
 Attention dropout (training) takes one seed per call, drawn from the step's
 ``torch.Generator`` (JAX: one int32 from the ``dropout`` rng,
 temporal.py:652-685); both engines draw their mask from it with the same
-Philox rule. The context-parallel engine of the JAX module is not ported
-yet.
+Philox rule, and the backward redraws it from the same seed. The
+context-parallel engine of the JAX module is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's faithful EasyDGL train step goes, on one GPU.
+"""Where the time of the port's faithful train step goes, on one GPU.
 
-Runs ``build_train_step`` of easydgl_tpu_torch (PRESETS["EasyDGL"], 64
-marks, bf16 matmuls, dropout 0.1 / 0.1, TPP and L2 terms, TF-Adam, random
-weights from seed 0, batch 512, marks looked up on the device) over
-synthetic batches already on the device under ``torch.profiler``, and
-prints the device time by kernel, the share of the window the device was
-busy, and the host wall time per step. Imports neither JAX nor the JAX
-package.
+Runs ``build_train_step`` of easydgl_tpu_torch for a preset (default
+``EasyDGL``, batch 512; ``EasyDGL-LC`` is the long-context flagship, L+1 =
+2048, B = 8, masklen 256) with 64 marks, bf16 matmuls, the preset's dropout
+(0.1 / 0.1), TPP and L2 terms, TF-Adam, random weights from seed 0 and
+marks looked up on the device, over synthetic batches already on the device
+under ``torch.profiler``, and prints the device time by kernel, the share of
+the window the device was busy, and the host wall time per step. Imports
+neither JAX nor the JAX package.
 
-    python3 scripts/torch_train_profile.py [--steps 8]
+    python3 scripts/torch_train_profile.py [PRESET] [--steps 8]
 """
 from __future__ import annotations
 
@@ -34,13 +35,14 @@ from easydgl_tpu_torch.train.steps import (build_train_step,  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("preset", nargs="?", default="EasyDGL")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    cfg = preset(args.preset, num_events=64, compute_dtype="bfloat16")
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
@@ -71,7 +73,8 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
-    print(f"{torch.cuda.get_device_name(0)}; {n} train steps x {bs} rows:"
+    print(f"{torch.cuda.get_device_name(0)}; {args.preset}: {n} train steps"
+          f" x {bs} rows:"
           f" wall {wall * 1e3 / n:.3f} ms/step (profiled), device busy"
           f" {total_us / 1e3 / n:.3f} ms/step ="
           f" {100 * total_us / 1e6 / wall:.1f}% of the window;"

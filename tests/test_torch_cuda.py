@@ -27,13 +27,12 @@ import torch
 from easydgl_tpu_torch.kernels.mau_attention import (
     mau_attention, mau_attention_bwd, mau_attention_bwd_reference,
     mau_attention_reference)
-from easydgl_tpu_torch.kernels.mau_blocked import (intensity_reference,
-                                                   mau_blocked_forward,
-                                                   output_reference,
-                                                   stats_reference)
-from easydgl_tpu_torch.kernels.mau_streamed import (mau_intensity,
-                                                    mau_modulated_out,
-                                                    mau_stats, mau_streamed)
+from easydgl_tpu_torch.kernels.mau_blocked import (
+    dkvt_reference, dq_reference, glam_reference, intensity_vjp_reference,
+    mau_blocked, mau_blocked_forward, output_reference, row_correction)
+from easydgl_tpu_torch.kernels.mau_streamed import (
+    STREAMED_KERNELS, mau_dkvt, mau_dq, mau_glam, mau_intensity,
+    mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed)
 from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
@@ -344,15 +343,31 @@ def test_streamed_kernels_match_plain_version(cuda_device, dtype, causal,
 
 
 def test_streamed_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A single kernel has no gradient of its own (mau_streamed has);
+    training takes dh in (16, 32, 64); a dropout rate needs a seed; the
+    head dim must be one the kernels take."""
     ts, _ = _inputs(cuda_device, torch.float32, b=2, t=40, h=2, dh=16, e=4)
     q = ts[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="train step"):
-        mau_streamed(q, *ts[1:], num_heads=2)
+    with pytest.raises(RuntimeError, match="differentiate mau_streamed"):
+        mau_stats(q, ts[1], ts[3], ts[4], num_heads=2)
+    out, _ = mau_streamed(q, *ts[1:], num_heads=2)
+    assert out.requires_grad
     with pytest.raises(ValueError, match="seed"):
         mau_streamed(*ts, False, True, 0.1, num_heads=2)
     odd, _ = _inputs(cuda_device, torch.float32, b=1, t=40, h=2, dh=24, e=4)
     with pytest.raises(ValueError, match="head dim"):
         mau_streamed(*odd, num_heads=2)
+    wide, _ = _inputs(cuda_device, torch.float32, b=1, t=40, h=2, dh=128,
+                      e=4)
+    wide[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="head dim"):
+        mau_streamed(*wide, num_heads=2)
+    many, _ = _inputs(cuda_device, torch.float32, b=1, t=40, h=2, dh=16,
+                      e=129)
+    fwd = mau_blocked_forward(*many, num_heads=2)
+    go = torch.zeros_like(many[0])
+    with pytest.raises(ValueError, match="E=129"):
+        mau_glam(*many[:3], many[4], many[6], fwd.m, fwd.l, go, num_heads=2)
 
 
 def test_streamed_and_fused_kernels_agree(cuda_device):
@@ -424,3 +439,118 @@ def test_lc_model_on_card_matches_cpu(cuda_device):
     assert mau_stats.launches == before + 1
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+STREAMED_BWD_SHAPES = {"small": dict(b=3, t=77, h=2, dh=16, e=4),
+                       "unaligned": dict(b=2, t=300, h=8, dh=64, e=64),
+                       "dh32": dict(b=2, t=65, h=4, dh=32, e=12)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", list(STREAMED_BWD_SHAPES))
+@pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_backward_kernels_match_plain_version(cuda_device, dtype,
+                                                       causal, diag, shape,
+                                                       rate):
+    """Each of the four backward kernels on the plain pieces' inputs (so
+    each is held on its own), then ``_MauStreamed``'s gradients against
+    ``_MauBlocked``'s; the intensity VJP is fp32 in both compute dtypes.
+    A non-zero cotangent of mark_intensity, so the TPP path counts."""
+    ts, _ = _inputs(cuda_device, dtype, **STREAMED_BWD_SHAPES[shape])
+    q, k, v, t, km, iv, oh, wd, bd, w, sc = ts
+    h = STREAMED_BWD_SHAPES[shape]["h"]
+    seed = torch.tensor(31337, device=cuda_device)
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=rate,
+              dropout_seed=seed, num_heads=h)
+    fwd = mau_blocked_forward(*ts, **kw)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    go = (torch.randn(q.shape, generator=g, device=cuda_device)
+          * 1e-2).to(dtype)
+    gl = torch.randn(fwd.lam.shape, generator=g, device=cuda_device) * 1e-3
+    before = [f.launches for f in STREAMED_KERNELS]
+
+    glam = mau_glam(q, k, v, km, oh, fwd.m, fwd.l, go, **kw)
+    want = glam_reference(q, k, v, km, oh, fwd.m, fwd.l, go, **kw)
+    _check_by_scale(dtype, (glam,), (want,), "glam")
+    g_lam = want + gl
+    got = mau_intensity_bwd(fwd.su, iv, wd, bd, w, sc, g_lam)
+    want = intensity_vjp_reference(fwd.su, iv, wd, bd, w, sc, g_lam)
+    _check_by_scale(torch.float32, got, want, "intensity vjp")
+    rho = row_correction(fwd.out, go, fwd.su, want[0], h)
+    p2 = (q, k, v, t, km, oh, fwd.lam, fwd.m, fwd.l, go, want[0], rho)
+    dq = mau_dq(*p2, **kw)
+    _check_by_scale(dtype, (dq,), (dq_reference(*p2, **kw),), "dq")
+    dkvt = mau_dkvt(*p2, **kw)
+    _check_by_scale(dtype, dkvt, dkvt_reference(*p2, **kw), "dkvt")
+    assert all(x.dtype == dtype for x in (dq,) + dkvt)
+
+    grads = {}
+    for name, fn in (("card", mau_streamed), ("plain", mau_blocked)):
+        diff = [x.clone().requires_grad_(i in (0, 1, 2, 3, 7, 8, 9, 10))
+                for i, x in enumerate(ts)]
+        out, lam = fn(*diff, causal, diag, rate, num_heads=h,
+                      dropout_seed=seed)
+        grads[name] = torch.autograd.grad(
+            (out.float() * go.float()).sum() + (lam * gl).sum(),
+            [diff[i] for i in (0, 1, 2, 3, 7, 8, 9, 10)])
+    _check_by_scale(dtype, grads["card"], grads["plain"], "chained")
+    # the pieces once each, then _MauStreamed: three forward launches,
+    # each backward kernel a second time
+    assert [f.launches - x for f, x in zip(STREAMED_KERNELS, before)] == [
+        1, 1, 1, 2, 2, 2, 2]
+    # a fully masked row: no gradient into its queries
+    assert float(grads["card"][0][0].float().abs().max()) == 0.0
+
+
+def test_lc_train_step_on_card_matches_cpu(cuda_device):
+    """One fp32 EasyDGL-LC train step at a small width (L+1 = 256,
+    dh = 32) and dropout 0, streamed kernels on the card vs ``_MauBlocked``
+    on the CPU: loss 1e-5 relative; every gradient within 1e-4 of its
+    leaf's largest entry; parameters after the TF-Adam update within 2 lr
+    where the gradient is within 1e-4 of its leaf's scale of zero, else
+    1e-5 + 1e-4 |p|."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+                                                  synthetic_split)
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import (build_train_step, device_marks,
+                                               init_state, loss_and_grads,
+                                               to_device)
+    cfg = preset("EasyDGL-LC", num_items=60, seqslen=255, num_units=64,
+                 num_heads=2, num_events=4, batch_size=2, masklen=16,
+                 compute_dtype="float32", hidden_dropout_rate=0.0,
+                 attention_probs_dropout_rate=0.0, ct_reg=0.1)
+    params = random_flax_params(cfg, 0)
+    table = synthetic_mark_table(60, 4, seed=1)
+    ds = synthetic_split(num_rows=2, num_items=60, seqslen=255, seed=2)
+    features, labels, _ = next(BatchLoader(
+        ds, data_mode="mau", batch_size=2, masklen=16,
+        is_training=True).epoch(0))
+    out = {}
+    before = mau_dkvt.launches
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params=params)
+        lab = torch.as_tensor(labels, device=dev)
+        feats = device_marks(to_device(features, dev), lab,
+                             torch.as_tensor(table, dtype=torch.float32,
+                                             device=dev), is_training=True)
+        _, grads = loss_and_grads(model, feats, lab)
+        state, loss = build_train_step(model, mark_table=table)(
+            init_state(model), features, labels, torch.Generator(device=dev))
+        out[dev.type] = (float(loss), {k: v.detach().cpu() for k, v in
+                                       state.params.items()},
+                         {k: v.cpu() for k, v in grads.items()})
+    assert mau_dkvt.launches == before + 2
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, want in out["cpu"][2].items():
+        err = float((out["cuda"][2][name] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-12, name
+    for name, want in out["cpu"][1].items():
+        g = out["cpu"][2][name].abs()
+        near = g <= 1e-4 * float(g.max()) + 1e-12
+        err = (out["cuda"][1][name] - want).abs()
+        ok = (err <= 1e-5 + 1e-4 * want.abs()) | (near & (err <= 1e-3))
+        assert bool(ok.all()), name
