@@ -15,7 +15,10 @@ own), the three streamed long-context MAU forward kernels (stats, intensity
 head, modulated output) and the four streamed backward kernels (d-lambda,
 the intensity head's VJP, dq, dk/dv/dt), each on the blocked plain
 version's inputs, and the chained streamed backward against the blocked
-one — and times each against its bound. Then it drives the port's main
+one, the three flash attention kernels (forward, dq, dk/dv) and their
+chained backward — and times each against its bound (the flash kernels
+also against ``F.scaled_dot_product_attention`` on the same inputs). Then
+it drives the port's main
 paths, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -30,12 +33,18 @@ after:
   and L2 terms, TF-Adam) through ``build_train_step`` with marks looked up
   on the device, then 10 steps on one repeated batch whose loss must fall;
 * training on EasyDGL-LC: 10 faithful train steps through the seven
-  streamed kernels and the catalog kernels, then 5 on one repeated batch.
+  streamed kernels and the catalog kernels, then 5 on one repeated batch;
+* serving on SASREC-LC (``PRESETS["SASREC-LC"]``, L = 2048, B = 32, 2
+  blocks, bf16): eval batches and ``recommend`` requests through the flash
+  forward kernel;
+* training on SASREC-LC: 10 faithful train steps (dropout 0.1 / 0.1, the
+  softmax-eps loss over every position, TF-Adam) through the three flash
+  kernels and the catalog kernels, then 5 on one repeated batch.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
-gradient, the updated parameters), EasyDGL-LC's logits for two rows and
-one EasyDGL-LC train step on two rows.
+gradient, the updated parameters), and for EasyDGL-LC and SASREC-LC the
+logits of two rows and one train step on two rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -62,6 +71,11 @@ from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
 from easydgl_tpu_torch.eval.recommender import Recommender
 from easydgl_tpu_torch.kernels import build
+from easydgl_tpu_torch.kernels.flash_attention import (
+    FLASH_KERNELS, KERNEL_BWD_HEAD_DIMS, flash_attention,
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+    flash_attention_reference, flash_delta, flash_dkv_reference,
+    flash_dq_reference, flash_fwd_reference)
 from easydgl_tpu_torch.kernels.mau_attention import (
     _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
     mau_attention_bwd_reference, mau_attention_reference)
@@ -76,8 +90,8 @@ from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
                                                catalog_nll_reference)
-from easydgl_tpu_torch.models.registry import build_model
-from easydgl_tpu_torch.nn import temporal
+from easydgl_tpu_torch.models.registry import MODELS, build_model
+from easydgl_tpu_torch.nn import attention, temporal
 from easydgl_tpu_torch.parity import random_flax_params
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
                                            device_marks, init_state,
@@ -106,10 +120,17 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 SCALE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # whole-model logits, fp32 on the card vs fp32 on the CPU
 SLICE_TOL = (1e-4, 1e-4)
+# Gradient leaves that are zero in exact arithmetic: a key projection's bias
+# b adds q_i . b to every logit of row i, which the softmax cancels, so its
+# computed gradient is rounding noise on either device (~1e-9 where the key
+# weight's is ~1e-3). The train-step checks hold it to 1e-4 of the key
+# weight's gradient scale instead of its own.
+ZERO_GRAD_LEAF = re.compile(r"_attn\.k\.bias$")
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
 LC_TRAIN_STEPS, LC_REPEAT_STEPS = 10, 5
+SASREC_TRAIN_STEPS, SASREC_REPEAT_STEPS = 10, 5
 LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)   # EasyDGL-LC eval shape
 STREAMED = (mau_stats, mau_intensity, mau_modulated_out)
 STREAMED_BWD = (mau_glam, mau_intensity_bwd, mau_dq, mau_dkvt)
@@ -173,11 +194,14 @@ def run_pair(fn, args, *, causal, diag, h):
               diag_reset=diag, num_heads=h, qpos=qpos)
 
 
-def compare(name, got, want, dtype, out_scale):
-    atol, rtol = TOL[dtype]
+def compare(name, got, want, dtype, out_scale, labels=("out", "lam"),
+            second_tol=None):
+    """Holds (out, second) elementwise: out to TOL[dtype] of out_scale,
+    the second output to ``second_tol`` (default TOL[dtype]) of itself."""
     worst, max_abs = 0.0, 0.0
-    for label, a, b, scale in zip(("out", "lam"), got, want,
-                                  (out_scale, want[1])):
+    for label, a, b, scale, (atol, rtol) in zip(
+            labels, got, want, (out_scale, want[1]),
+            (TOL[dtype], second_tol or TOL[dtype])):
         a, b = a.float(), b.float()
         check(bool(torch.isfinite(a).all()), f"{name}: {label} not finite")
         err = (a - b).abs()
@@ -425,7 +449,10 @@ CATALOG_CASES = (
     ("unaligned_bf16", dict(n=77, v=1001, c=64), torch.bfloat16, True, 72),
     ("unaligned_fp32", dict(n=77, v=1001, c=64), torch.float32, True, 73),
     ("n15360_bf16", dict(CATALOG, n=15360), torch.bfloat16, True, 74),
-    ("flagship_bf16_no_label_term", CATALOG, torch.bfloat16, False, 75))
+    ("flagship_bf16_no_label_term", CATALOG, torch.bfloat16, False, 75),
+    # SASREC-LC's training rows: B*T = 65,536 against its 17,771 items
+    ("sasrec_lc_bf16", dict(n=65536, v=17771, c=512), torch.bfloat16, True,
+     76))
 CATALOG_FWD, CATALOG_BWD = ("lse", "ll"), ("d_hidden", "d_table", "d_bias")
 
 
@@ -712,6 +739,229 @@ def phase_streamed_bwd_checks():
         errs[name] = case
         del fwd, runs
     return errs
+
+
+# ---------------------------------------------------------------- flash
+
+# (name, B, H, Tq, Tk, dh, dtype, causal, rate); every case has a fully
+# masked row 0, and left-padded rows where Tq == Tk
+FLASH_CASES = (
+    ("lc_causal_bf16_drop", 2, 8, 2048, 2048, 64, torch.bfloat16, True, 0.1),
+    ("lc_causal_fp32", 2, 8, 2048, 2048, 64, torch.float32, True, 0.0),
+    ("lc_full_bf16", 2, 8, 2048, 2048, 64, torch.bfloat16, False, 0.0),
+    ("lc_full_fp32_drop", 2, 8, 2048, 2048, 64, torch.float32, False, 0.1),
+    ("t77_causal_fp32_drop", 3, 2, 77, 77, 64, torch.float32, True, 0.1),
+    ("t300_full_bf16_drop", 2, 4, 300, 300, 32, torch.bfloat16, False, 0.1),
+    ("t1000_causal_bf16_dh16", 2, 2, 1000, 1000, 16, torch.bfloat16, True,
+     0.0),
+    ("t1000_full_fp32_dh16", 2, 2, 1000, 1000, 16, torch.float32, False,
+     0.0),
+    ("tq100_tk300_causal_fp32_drop", 2, 4, 100, 300, 64, torch.float32, True,
+     0.1),
+    ("tq300_tk77_full_bf16", 2, 4, 300, 77, 32, torch.bfloat16, False, 0.0),
+    ("tq300_tk77_causal_bf16_drop", 2, 4, 300, 77, 64, torch.bfloat16, True,
+     0.1))
+# the forward also takes dh = 128 (the backward kernels do not)
+FLASH_FWD_ONLY_CASES = (
+    ("t300_causal_bf16_dh128", 2, 2, 300, 300, 128, torch.bfloat16, True,
+     0.1),
+    ("t300_full_fp32_dh128", 2, 2, 300, 300, 128, torch.float32, False,
+     0.0))
+FLASH_GRADS = ("dq", "dk", "dv")
+
+
+def flash_inputs(b, h, tq, tk, dh, dtype, seed):
+    """q, k, v, dO ~ N(0, 1) in (B, H, T, dh) views of the (B, T, C)
+    layout the model gives them; a key mask with 10% holes, left-padded (a
+    random length a row) where Tq == Tk, with row 0 fully masked."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(t):
+        x = torch.randn(b, t, h * dh, generator=g, device=dev).to(dtype)
+        return x.view(b, t, h, dh).transpose(1, 2)
+
+    q, k, v, dout = heads(tq), heads(tk), heads(tk), heads(tq)
+    km = (torch.rand(b, tk, generator=g, device=dev) > 0.1).float()
+    if tq == tk:
+        lengths = torch.randint(1, tk + 1, (b,), generator=g, device=dev)
+        km = km * (torch.arange(tk, device=dev)[None]
+                   >= tk - lengths[:, None]).float()
+    km[0] = 0.0
+    return q, k, v, km, dout
+
+
+def flash_plain_chain(q, k, v, km, dout, kw):
+    """The plain pieces chained as ``_FlashAttention`` chains the kernels:
+    (out, lse, delta, dq, dk, dv)."""
+    out, lse = flash_fwd_reference(q, k, v, km, **kw)
+    delta = flash_delta(dout, out)
+    dq = flash_dq_reference(q, k, v, km, dout, lse, delta, **kw)
+    dk, dv = flash_dkv_reference(q, k, v, km, dout, lse, delta, **kw)
+    return out, lse, delta, dq, dk, dv
+
+
+def flash_chain(fn, q, k, v, km, dout, kw):
+    """(dq, dk, dv) by autograd of ``fn`` (flash_attention, or the plain
+    forward) at the cotangent dO."""
+    diff = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*diff, km, **kw)
+    return torch.autograd.grad((out.float() * dout.float()).sum(), diff)
+
+
+def check_zero_row(name, tensors):
+    for label, x in tensors:
+        check(float(x[0].float().abs().max()) == 0.0,
+              f"{name}: {label} is not exactly 0 on the fully masked row")
+
+
+def phase_flash_checks():
+    log("phase 3f: flash attention kernels (forward, dq, dk/dv) vs the plain"
+        " versions on the card, each kernel on the plain version's inputs;"
+        " then the chained _FlashAttention backward")
+    errs = {}
+    for i, (name, b, h, tq, tk, dh, dtype, causal, rate) in enumerate(
+            FLASH_CASES + FLASH_FWD_ONLY_CASES):
+        q, k, v, km, dout = flash_inputs(b, h, tq, tk, dh, dtype, 900 + i)
+        sd = torch.tensor(9000 + i, dtype=torch.int64, device="cuda")
+        kw = dict(causal=causal, dropout_rate=rate, seed=sd)
+        got = flash_attention_fwd(q, k, v, km, **kw)
+        torch.cuda.synchronize()
+        want = flash_fwd_reference(q, k, v, km, **kw)
+        check(got[0].dtype == dtype and got[1].dtype == torch.float32,
+              f"{name}: out / lse dtype")
+        # out: held to its summands, scale = the plain version run on |v|
+        # (sum_j p_ij keep_ij |v_j| / l_i): in bf16 the kernel rounds each
+        # p to bf16 relative to the running max, the plain version relative
+        # to the row's max, so a summand can differ by one bf16 ulp (2^-8),
+        # and out itself is rounded once; in fp32 both sum in another order.
+        # lse is fp32 in both dtypes (1e-4 relative).
+        scale = (flash_fwd_reference(q, k, v.abs(), km, **kw)[0]
+                 if dtype == torch.bfloat16 else want[0])
+        case = {"flash_attention_fwd": compare(
+            name, got, want, dtype, scale, labels=("out", "lse"),
+            second_tol=TOL[torch.float32])}
+        check_zero_row(name, [("out", got[0])])
+        if dh not in KERNEL_BWD_HEAD_DIMS:
+            errs[name] = case
+            continue
+        out_p, lse_p, delta_p, dq_p, dk_p, dv_p = flash_plain_chain(
+            q, k, v, km, dout, kw)
+        bwd = (q, k, v, km, dout, lse_p, delta_p)
+        dq = flash_attention_dq(*bwd, **kw)
+        dk, dv = flash_attention_dkv(*bwd, **kw)
+        torch.cuda.synchronize()
+        case["flash_attention_dq"] = compare_by_scale(name, ("dq",), (dq,),
+                                                      (dq_p,), dtype)
+        case["flash_attention_dkv"] = compare_by_scale(
+            name, ("dk", "dv"), (dk, dv), (dk_p, dv_p), dtype)
+        check_zero_row(name, [("dq", dq), ("dk", dk), ("dv", dv)])
+        # the chained backward: fp32 against autograd of the plain forward,
+        # bf16 against the chained plain pieces (the same rounding points)
+        chain = flash_chain(flash_attention, q, k, v, km, dout, kw)
+        torch.cuda.synchronize()
+        ref = (flash_chain(flash_attention_reference, q, k, v, km, dout, kw)
+               if dtype == torch.float32 else (dq_p, dk_p, dv_p))
+        compare_by_scale(name + "_chain", FLASH_GRADS, chain, ref, dtype)
+        check_zero_row(name + "_chain", zip(FLASH_GRADS, chain))
+        errs[name] = case
+        del got, want, scale, out_p, dq_p, dk_p, dv_p, chain, ref
+    return errs
+
+
+SASREC_LC_ATTN = dict(b=32, h=8, t=2048, dh=64)   # one SASREC-LC block
+FLASH_REPLACES = {
+    "flash_attention_fwd": "easydgl_tpu/kernels/flash_attention.py:318",
+    "flash_attention_dq": "easydgl_tpu/kernels/flash_attention.py:366",
+    "flash_attention_dkv": "easydgl_tpu/kernels/flash_attention.py:390"}
+
+
+def flash_work(name, *, b, h, t, dh, dtype):
+    """(bytes, flops) of one causal flash kernel: q, k, v (dO) read once,
+    out (dq; dk, dv) written once, the key mask and the fp32 row stats; the
+    products over the T (T + 1) / 2 visible (query, key) pairs of each
+    (b, h) — the kernels skip only whole tiles after the diagonal, not the
+    masked keys, so the count is the causal one whatever the key mask."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    seq, rows = it * b * h * t * dh, b * h * t
+    product = 2 * b * h * (t * (t + 1) // 2) * dh
+    if name == "flash_attention_fwd":   # q, k, v in; out, lse out
+        return 4 * seq + 4 * b * t + 4 * rows, 2 * product
+    if name == "flash_attention_dq":    # q, k, v, dO, lse, delta in; dq out
+        return 5 * seq + 4 * b * t + 8 * rows, 3 * product
+    return 6 * seq + 4 * b * t + 8 * rows, 4 * product   # dk, dv out
+
+
+def sdpa_times(q, k, v, dout, mask):
+    """(forward ms, backward ms) of F.scaled_dot_product_attention on the
+    same inputs; the backward as forward + backward minus the forward,
+    both with inputs that need a gradient."""
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    kw = dict(attn_mask=mask) if mask is not None else dict(is_causal=True)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qg, kg, vg), dout)
+
+    f_ms = time_ms(fwd, warmup=2, iters=10)
+    return f_ms, time_ms(fwd_bwd, warmup=2, iters=10) - f_ms
+
+
+def phase_flash_timing():
+    log("phase 4e: flash kernels at the SASREC-LC shape (B=32, H=8, T=2048,"
+        " dh=64, causal, left-padded key mask)")
+    rows = {}
+    sh = SASREC_LC_ATTN
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, km, dout = flash_inputs(sh["b"], sh["h"], sh["t"], sh["t"],
+                                         sh["dh"], dtype, 950)
+        sd = torch.tensor(9500, dtype=torch.int64, device="cuda")
+        kw0 = dict(causal=True)
+        kwd = dict(causal=True, dropout_rate=0.1, seed=sd)
+        out, lse = flash_attention_fwd(q, k, v, km, **kw0)
+        bwd = (q, k, v, km, dout, lse, flash_delta(dout, out))
+        runs = {
+            "flash_attention_fwd": (
+                lambda kw: flash_attention_fwd(q, k, v, km, **kw),
+                lambda: flash_fwd_reference(q, k, v, km, **kw0)),
+            "flash_attention_dq": (
+                lambda kw: flash_attention_dq(*bwd, **kw),
+                lambda: flash_dq_reference(*bwd, **kw0)),
+            "flash_attention_dkv": (
+                lambda kw: flash_attention_dkv(*bwd, **kw),
+                lambda: flash_dkv_reference(*bwd, **kw0))}
+        t = sh["t"]
+        tril = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+        mask = (km > 0)[:, None, None, :] & tril
+        sdpa_f, sdpa_b = sdpa_times(q, k, v, dout, mask)
+        causal_f, causal_b = sdpa_times(q, k, v, dout, None)
+        del mask
+        fast = dtype == torch.bfloat16
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(lambda: kern(kw0), warmup=2, iters=10 if fast else 3)
+            ms_drop = time_ms(lambda: kern(kwd), warmup=1,
+                              iters=10 if fast else 3)
+            plain_ms = time_ms(plain, warmup=1, iters=2)
+            nbytes, flops = flash_work(name, **sh, dtype=dtype)
+            bound_ms, bound_by = bound(nbytes, flops, dtype)
+            lib_ms = sdpa_f if name == "flash_attention_fwd" else sdpa_b
+            log(f"  {name:19s} {str(dtype):15s} kernel {ms:.4f} ms (dropout"
+                f" 0.1: {ms_drop:.4f})  plain {plain_ms:.4f} ms  SDPA"
+                f" {lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+                f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)"
+                f"  kernel/bound {ms / bound_ms:.1f}x")
+            rows[(name, dtype)] = dict(ms=ms, ms_dropout=ms_drop,
+                                       plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, library_ms=lib_ms)
+        log(f"  SDPA ({str(dtype)[6:]}) with the key_mask & causal boolean"
+            f" mask: forward {sdpa_f:.4f} ms, backward (dq, dk, dv together)"
+            f" {sdpa_b:.4f} ms; with is_causal=True and no key mask (another"
+            f" function on padded rows): forward {causal_f:.4f} ms, backward"
+            f" {causal_b:.4f} ms")
+        del q, k, v, dout, bwd, runs, out, lse
+    return rows
 
 
 def streamed_work(name, *, b, tq, tk, h, dh, e, dtype):
@@ -1242,16 +1492,183 @@ def phase_lc_train():
     return launches, ms_step, ex_s
 
 
+def phase_sasrec_slice():
+    log("phase 5c: SASREC-LC eval + serving at full width on the card "
+        "(B=32, L=2048, C=512, H=8, 2 blocks, bf16, flash kernels)")
+    cfg = preset("SASREC-LC")
+    bs = cfg.batch_size
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    split = synthetic_split_vectorized(num_rows=4 * bs,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=14)
+    batches = list(BatchLoader(split, data_mode=model.data_mode,
+                               batch_size=bs, is_training=False).epoch(0))
+    requests = synthetic_split_vectorized(num_rows=3 * bs,
+                                          num_items=cfg.num_items,
+                                          seqslen=cfg.seqslen, seed=15)
+    req_batches = [{k: v[i * bs:(i + 1) * bs]
+                    for k, v in requests.arrays.items()} for i in range(3)]
+    step = build_eval_step(model)
+    rec = Recommender(cfg, model)
+    MetricAccumulator().update(step(model, *batches[0]))  # warm-up
+    rec.recommend(req_batches[0], k=50)
+    torch.cuda.synchronize()
+
+    counters = FLASH_KERNELS + STREAMED_KERNELS + (mau_attention,)
+    for fn in counters:
+        fn.launches = 0
+    acc = MetricAccumulator()
+    t0 = time.perf_counter()
+    for features, labels, valid in batches:
+        acc.update(step(model, features, labels, valid))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    latencies, answers = [], []
+    for arrays in req_batches:
+        t0 = time.perf_counter()
+        ids, scores = rec.recommend(arrays, k=50)
+        latencies.append(time.perf_counter() - t0)
+        answers.append((arrays, ids, scores))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    forwards = (len(batches) + len(req_batches)) * cfg.num_blocks
+    for name, n in launches.items():
+        want = forwards if name == "flash_attention_fwd" else 0
+        check(n == want, f"SASREC-LC serving: {name} launched {n} times,"
+              f" expected {want} ({forwards} attention forwards)")
+    metrics = acc.result()
+    log(f"  eval over {int(acc.count)} rows: " + json.dumps(metrics))
+    for key, val in metrics.items():
+        check(math.isfinite(val) and 0.0 <= val <= 1.0, f"metric {key}={val}")
+    for arrays, ids, scores in answers:
+        check(ids.shape == (bs, 50) and scores.shape == (bs, 50),
+              "SASREC-LC recommend shapes")
+        check(bool(np.isfinite(scores).all()),
+              "SASREC-LC recommend: not finite")
+        check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+              "SASREC-LC recommend: scores not sorted descending")
+        check(bool((ids != 0).all()), "SASREC-LC recommend: padding id 0")
+        seen = rec.protocol(arrays, False, None)[0]["seqs_i"]
+        check(not any(set(ids[r].tolist()) & set(seen[r].tolist())
+                      for r in range(bs)),
+              "SASREC-LC recommend: a seen id returned")
+    seqs_per_s = len(batches) * bs / eval_s
+    log(f"  eval: {len(batches)} batches x {bs} rows in {eval_s:.4f} s ="
+        f" {seqs_per_s:.1f} seqs/s (synchronised)")
+    log(f"  recommend k=50, B={bs}: latency per batch "
+        + ", ".join(f"{x * 1e3:.3f} ms" for x in latencies))
+    log(f"  launches on the SASREC-LC served path ({len(batches)} eval +"
+        f" {len(req_batches)} recommend forwards, {cfg.num_blocks} blocks): "
+        + json.dumps(launches))
+    return launches, batches[0], seqs_per_s, latencies
+
+
+def phase_sasrec_cpu_vs_card(batch):
+    log("phase 6c: full-width fp32 SASREC-LC, card (flash kernels) vs CPU "
+        "(plain flash version), 2 rows")
+    cfg = preset("SASREC-LC", compute_dtype="float32")
+    params = random_flax_params(cfg, seed=0)
+    features = {k: v[:2] for k, v in batch[0].items()}
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, params=params)
+        with torch.no_grad():
+            out, _ = model(to_device(features, dev), is_training=False)
+        logits[dev] = out.cpu()
+        del model
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    atol, rtol = SLICE_TOL
+    ratio = float((err / (atol + rtol * logits["cpu"].abs())).max())
+    log(f"  logits (2, {logits['cpu'].shape[1]}):"
+        f" max_abs={float(err.max()):.3e}"
+        f" tol(atol={atol:g}, rtol={rtol:g}) worst/tol={ratio:.3f}")
+    check(ratio <= 1.0, "SASREC-LC card vs CPU logits outside tolerance")
+
+
+def phase_sasrec_train():
+    log("phase 7c: SASREC-LC faithful train steps at full width on the card "
+        "(B=32, L=2048, C=512, H=8, 2 blocks, bf16, dropout 0.1 / 0.1, "
+        "softmax-eps over every position, TF-Adam, flash and catalog "
+        "kernels)")
+    cfg = preset("SASREC-LC")
+    bs = cfg.batch_size
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    split = synthetic_split_vectorized(num_rows=4 * bs,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=16)
+    loader = BatchLoader(split, data_mode=model.data_mode, batch_size=bs,
+                         is_training=True)
+    batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
+               for f, lab, _ in loader.epoch(0)]
+    step = build_train_step(model)
+    state = init_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for features, labels in batches[:2]:  # warm-up, not counted
+        state, _ = step(state, features, labels, gen)
+    torch.cuda.synchronize()
+
+    counters = FLASH_KERNELS + (catalog_nll_fwd, catalog_nll_bwd) \
+        + STREAMED_KERNELS + (mau_attention, mau_attention_bwd)
+    for fn in counters:
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(SASREC_TRAIN_STEPS):
+        features, labels = batches[i % len(batches)]
+        state, loss = step(state, features, labels, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    repeated = []
+    for _ in range(SASREC_REPEAT_STEPS):
+        state, loss = step(state, *batches[0], gen)
+        repeated.append(loss)
+    losses = [float(x) for x in losses]
+    repeated = [float(x) for x in repeated]
+    check(all(math.isfinite(x) for x in losses + repeated),
+          "SASREC-LC train: a loss is not finite")
+    check(repeated[-1] < repeated[0],
+          f"SASREC-LC train: loss on a repeated batch did not fall "
+          f"({repeated})")
+    per_step = {fn.__name__: 0 for fn in counters}
+    per_step.update({fn.__name__: cfg.num_blocks for fn in FLASH_KERNELS})
+    per_step.update(catalog_nll_fwd=1, catalog_nll_bwd=1)
+    for name, n in per_step.items():
+        check(launches[name] == n * SASREC_TRAIN_STEPS,
+              f"SASREC-LC train: {name} launched {launches[name]} times in"
+              f" {SASREC_TRAIN_STEPS} steps, expected {n} per step")
+    ms_step = elapsed / SASREC_TRAIN_STEPS * 1e3
+    ex_s = SASREC_TRAIN_STEPS * bs / elapsed
+    log(f"  losses: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+        f"repeated batch {repeated[0]:.5f} -> {repeated[-1]:.5f}")
+    log(f"  SASREC-LC train: {SASREC_TRAIN_STEPS} steps x {bs} rows in"
+        f" {elapsed:.4f} s = {ms_step:.4f} ms/step, {ex_s:.1f} train ex/s"
+        f" (host clock, synchronised, batches on the device, after 2"
+        f" warm-up steps)")
+    log(f"  launches in the {SASREC_TRAIN_STEPS} steps: "
+        + json.dumps(launches))
+    return launches, ms_step, ex_s
+
+
 @contextlib.contextmanager
-def blocked_engine():
-    """The streamed engine's plain version (``mau_blocked`` and its custom
-    backward, plain PyTorch) in place of its kernels, on any device."""
-    saved = temporal.mau_streamed
-    temporal.mau_streamed = mau_blocked
+def plain_engine(model_name):
+    """The long-context attention engine's plain version in place of its
+    kernels, on any device: for EasyDGL the streamed MAU's (``mau_blocked``
+    and its custom backward), for SASREC flash attention's
+    (``flash_attention_reference``, differentiated by autograd)."""
+    if model_name == "SASREC":
+        module, name, plain = attention, "flash_attention", \
+            flash_attention_reference
+    else:
+        module, name, plain = temporal, "mau_streamed", mau_blocked
+    saved = getattr(module, name)
+    setattr(module, name, plain)
     try:
         yield
     finally:
-        temporal.mau_streamed = saved
+        setattr(module, name, saved)
 
 
 def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
@@ -1261,7 +1678,7 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
     parameters after the TF-Adam update.
 
     With ``device_floor`` the step's gradients are also taken on the card
-    with the streamed engine's plain version (``blocked_engine``). Every
+    with the long-context engine's plain version (``plain_engine``). Every
     leaf is then held to 1e-4 of its scale against those (the kernels
     against their plain version on one device), and against the CPU unless
     the plain version on the card misses the CPU by more than that itself:
@@ -1272,20 +1689,23 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
                  hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0,
                  **overrides)
     params = random_flax_params(cfg, seed=0)
-    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    model_cls = MODELS[cfg.model]
+    table = (synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+             if model_cls.uses_tpp else None)
     split = synthetic_split_vectorized(num_rows=rows,
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=3)
     features, labels, _ = next(BatchLoader(
-        split, data_mode="mau", batch_size=rows, masklen=cfg.masklen,
-        is_training=True).epoch(0))
+        split, data_mode=model_cls.data_mode, batch_size=rows,
+        masklen=cfg.masklen, is_training=True).epoch(0))
 
     def grads_on(dev):
         model = build_model(cfg, device=dev, params=params)
         lab = torch.as_tensor(labels, device=dev)
-        feats = device_marks(to_device(features, dev), lab,
-                             torch.as_tensor(table, dtype=torch.float32,
-                                             device=dev), is_training=True)
+        feats = to_device(features, dev)
+        if table is not None:
+            feats = device_marks(feats, lab, torch.as_tensor(
+                table, dtype=torch.float32, device=dev), is_training=True)
         grads = loss_and_grads(model, feats, lab)[1]
         return model, {k: g.cpu() for k, g in grads.items()}
 
@@ -1299,14 +1719,15 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
         del model, state, grads
     grads_plain = None
     if device_floor:
-        with blocked_engine():
+        with plain_engine(cfg.model):
             grads_plain = grads_on("cuda")[1]
     (loss_c, grads_c, params_c), (loss_p, grads_p, params_p) = \
         res["cuda"], res["cpu"]
     log(f"  loss card {loss_c:.7f} CPU {loss_p:.7f}")
     check(abs(loss_c - loss_p) <= 1e-5 * abs(loss_p), "train loss card vs CPU")
     # gradients: 1e-4 of each leaf's largest entry (fp32 sums reassociated,
-    # atomics on the card). Parameters: TF-Adam's first step is
+    # atomics on the card); a key bias (ZERO_GRAD_LEAF) to 1e-4 of its key
+    # weight's. Parameters: TF-Adam's first step is
     # u(g) = -lr g / (|g| + e'), e' = eps / sqrt(1 - b2), so a gradient
     # known to within d moves it by up to lr e' d / (|g| - d)^2 where
     # |g| > 2d, and by up to 2 lr where |g| <= 2d.
@@ -1315,7 +1736,9 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
     worst_g = worst_p = worst_k = 0.0
     ratios, floored = {}, []
     for name, want in grads_p.items():
-        d = 1e-4 * float(want.abs().max()) + 1e-12
+        scale = (grads_p[name[:-len("bias")] + "weight"]
+                 if ZERO_GRAD_LEAF.search(name) else want)
+        d = 1e-4 * float(scale.abs().max()) + 1e-12
         ratios[name] = float((grads_c[name] - want).abs().max()) / d
         held = ratios[name]
         if grads_plain is not None:
@@ -1359,7 +1782,8 @@ def kernel_names(log_text: str):
                   r"mau_out_kernel|mau_intensity_kernel|mau_glam_mma_kernel|"
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
                   r"mau_dkvt_mma_kernel|mau_dkvt_kernel|"
-                  r"mau_int_bwd_rows_kernel|mau_int_bwd_cols_kernel)"
+                  r"mau_int_bwd_rows_kernel|mau_int_bwd_cols_kernel|"
+                  r"flash_fwd_kernel|flash_dq_kernel|flash_dkv_kernel)"
                   r"(I?\w*)",
                   log_text)
     if not m:
@@ -1391,7 +1815,7 @@ def main() -> int:
 
     log("phase 2: build")
     sources = ["mau_attention_fwd", "mau_attention_bwd", "catalog_nll",
-               "mau_streamed_fwd", "mau_streamed_bwd"]
+               "mau_streamed_fwd", "mau_streamed_bwd", "flash_attention"]
     seconds = build.build(sources)
     for name, s in seconds.items():
         log(f"  {name}: nvcc {s:.1f} s")
@@ -1407,10 +1831,12 @@ def main() -> int:
     cat_errs = phase_catalog_checks()
     streamed_errs = phase_streamed_checks()
     streamed_bwd_errs = phase_streamed_bwd_checks()
+    flash_errs = phase_flash_checks()
     timing = phase_kernel_timing()
     train_timing = phase_train_kernel_timing()
     streamed_timing = phase_streamed_timing()
     streamed_timing.update(phase_streamed_bwd_timing())
+    flash_timing = phase_flash_timing()
     serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
     lc_launches, lc_batch, lc_table, lc_seqs_s, lc_lat = phase_lc_slice()
@@ -1424,6 +1850,14 @@ def main() -> int:
         "kernels) vs CPU (blocked plain version, _MauBlocked), 2 rows, "
         "dropout 0")
     phase_train_cpu_vs_card("EasyDGL-LC", rows=2, device_floor=True,
+                            compute_dtype="float32")
+    sas_launches, sas_batch, sas_seqs_s, sas_lat = phase_sasrec_slice()
+    phase_sasrec_cpu_vs_card(sas_batch)
+    sas_train_launches, sas_ms_step, sas_ex_s = phase_sasrec_train()
+    log("phase 8c: full-width fp32 SASREC-LC train step, card (flash "
+        "kernels) vs CPU (plain flash version, _FlashAttention), 2 rows, "
+        "dropout 0")
+    phase_train_cpu_vs_card("SASREC-LC", rows=2, device_floor=True,
                             compute_dtype="float32")
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
@@ -1453,6 +1887,7 @@ def main() -> int:
         per_path = {"training": train_launches[name]}
         if name != "mau_attention_bwd":
             per_path["training_lc"] = lc_train_launches[name]
+            per_path["training_sasrec_lc"] = sas_train_launches[name]
         entry = dict(name=name, route="cuda", source=csrc + source,
                      replaces=replaces, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=err,
@@ -1483,12 +1918,31 @@ def main() -> int:
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)
+    for fn in FLASH_KERNELS:
+        name = fn.__name__
+        row = flash_timing[(name, bf16)]
+        per_path = {"training_sasrec_lc": sas_train_launches[name]}
+        if fn is flash_attention_fwd:
+            per_path["serving_sasrec_lc"] = sas_launches[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "flash_attention.cu",
+            replaces=FLASH_REPLACES[name], launches=sum(per_path.values()),
+            launches_per_path=per_path,
+            max_abs_err=flash_errs["lc_causal_bf16_drop"][name],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            ms_dropout_0_1=row["ms_dropout"]))
     log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
         + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
         + f" ms per B=8 batch on {card}")
     log(f"train: {ms_step:.4f} ms/step, {ex_s:.1f} ex/s at B=512 on {card}")
     log(f"EasyDGL-LC train: {lc_ms_step:.4f} ms/step, {lc_ex_s:.1f} ex/s at"
         f" B=8, L+1=2048 on {card}")
+    log(f"SASREC-LC serving: {sas_seqs_s:.1f} eval seqs/s, recommend "
+        + ", ".join(f"{x * 1e3:.3f}" for x in sas_lat)
+        + f" ms per B=32 batch on {card}")
+    log(f"SASREC-LC train: {sas_ms_step:.4f} ms/step, {sas_ex_s:.1f} ex/s at"
+        f" B=32, L=2048 on {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

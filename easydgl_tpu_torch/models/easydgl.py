@@ -51,10 +51,9 @@ class EasyDGL(SequentialModel):
     data_mode = "mau"
     uses_tpp = True
 
-    def __init__(self, cfg: Config, *, gather_queries: bool = False,
-                 device=None):
+    def __init__(self, cfg: Config, *, device=None):
         super().__init__(cfg)
-        self.gather_queries = gather_queries
+        self.gather_queries = cfg.gather_queries
         c = cfg.num_units
         cdt = cfg.matmul_dtype
         self.compute_dtype = cdt

@@ -1,7 +1,7 @@
 """Model factory (port of ``easydgl_tpu.models.registry``).
 
-Only EasyDGL is ported so far; the other ten models of the JAX zoo raise
-the JAX factory's ``NotImplementedError``.
+EasyDGL and SASREC are ported so far; the other nine models of the JAX zoo
+raise the JAX factory's ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -11,8 +11,9 @@ from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.device import resolve_device
 from easydgl_tpu_torch.models.base import SequentialModel
 from easydgl_tpu_torch.models.easydgl import EasyDGL
+from easydgl_tpu_torch.models.sasrec import SASREC
 
-MODELS = {"EasyDGL": EasyDGL}
+MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC}
 
 
 def build_model(cfg: Config, *, device=None,
@@ -26,8 +27,7 @@ def build_model(cfg: Config, *, device=None,
         raise NotImplementedError(
             f"The ranking model: {cfg.model} not implemented")
     dev = resolve_device(device)
-    model = MODELS[cfg.model](cfg, gather_queries=cfg.gather_queries,
-                              device=dev)
+    model = MODELS[cfg.model](cfg, device=dev)
     if params is None:
         params = parity.random_flax_params(cfg, cfg.seed)
     model.load_state_dict(parity.flax_to_torch(params))

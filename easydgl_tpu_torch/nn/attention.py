@@ -1,0 +1,119 @@
+"""Sequence attention of the time-independent family (port of
+``easydgl_tpu.nn.attention``), reference src/module/sequential.py:16-83.
+
+``MultiHeadAttention``: Q from the queries, K and V from the keys; the key
+mask ``sign(|sum_c keys|)`` over the RAW key tensor (sequential.py:50);
+optional causal mask; softmax, dropout, PV; the residual adds
+``queries[..., :C]`` (the queries may be wider than C when position codes
+were concatenated upstream). ``impl`` picks the attention core:
+
+* ``"xla"``: materialised (T, T) probs, the reference semantics verbatim
+  (``attention_probs``: mask value -2^32+1, so a row that sees no key is
+  uniform over every key), dropout as flax ``nn.Dropout`` on the probs;
+* ``"flash"``: ``kernels.flash_attention`` (the kernels on the card, the
+  plain version on the CPU), O(T) memory. It writes 0 on a row that sees no
+  key; such rows are patched to the xla path's uniform value, the mean of V
+  over all keys, so the module equals ``"xla"`` on every row at dropout 0.
+  One dropout seed per call, drawn from the step's generator.
+
+The context-parallel and SPMD branches of the JAX module come with the
+distributed layers; ``BERTAttention`` with BERT4REC.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from easydgl_tpu_torch.kernels.flash_attention import flash_attention
+from easydgl_tpu_torch.nn.layers import (Dense, dropout, merge_heads,
+                                         mm_fp32acc, split_heads)
+
+NEG_INF_LOGIT = -(2.0 ** 32) + 1.0   # the reference's mask value
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, *,
+                    bias: Optional[torch.Tensor] = None,
+                    key_mask: Optional[torch.Tensor] = None,
+                    causal: bool = False, scale: Optional[float] = None,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
+    """Masked, scaled softmax probabilities, fp32 (B, H, Tq, Tk).
+
+    q (B, H, Tq, D), k (B, H, Tk, D); key_mask (B, Tk); ``bias``: additive
+    logits (B, H, Tq, Tk), added before the scale. The logits are a
+    compute-dtype contraction with an fp32 result (``mxu_einsum``)."""
+    logits = mm_fp32acc(q, k.transpose(-1, -2), compute_dtype)
+    if bias is not None:
+        logits = logits + bias
+    logits = logits * (scale if scale is not None else
+                       1.0 / q.shape[-1] ** 0.5)
+    if key_mask is not None:
+        km = (key_mask != 0)[:, None, None, :]
+        logits = torch.where(km, logits, NEG_INF_LOGIT)
+    if causal:
+        tq, tk = logits.shape[-2], logits.shape[-1]
+        tril = torch.ones((tq, tk), dtype=torch.bool,
+                          device=logits.device).tril()
+        logits = torch.where(tril, logits, NEG_INF_LOGIT)
+    return torch.softmax(logits, dim=-1)
+
+
+class MultiHeadAttention(nn.Module):
+    """Vanilla multi-head attention with the residual (reference
+    sequential.py:16-83). Parameters ``q``, ``k``, ``v`` (Dense, C
+    outputs); queries and keys may be wider than C."""
+
+    def __init__(self, in_queries: int, in_keys: int, num_units: int,
+                 num_heads: int, dropout_rate: float = 0.0, *,
+                 impl: str = "xla",
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        if impl not in ("xla", "flash"):
+            raise ValueError(f"MultiHeadAttention: unknown impl {impl}")
+        self.num_units = num_units
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.impl = impl
+        self.compute_dtype = compute_dtype
+        kw = dict(compute_dtype=compute_dtype, device=device)
+        self.q = Dense(in_queries, num_units, **kw)
+        self.k = Dense(in_keys, num_units, **kw)
+        self.v = Dense(in_keys, num_units, **kw)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor, *,
+                causality: bool,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """queries (B, Tq, Cq), keys (B, Tk, Ck) -> (B, Tq, C).
+        ``generator``: the training step's (dropout); None at eval."""
+        h = self.num_heads
+        q = split_heads(self.q(queries), h)
+        k = split_heads(self.k(keys), h)
+        v = split_heads(self.v(keys), h)
+        key_mask = torch.sign(torch.abs(keys.detach().sum(-1)))
+        residual = queries[:, :, :self.num_units]
+        rate = self.dropout_rate if generator is not None else 0.0
+
+        if self.impl == "flash":
+            seed = None
+            if rate > 0.0:
+                seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                     device=generator.device)
+            ctx = flash_attention(q, k, v, key_mask, causal=causality,
+                                  dropout_rate=rate, seed=seed)
+            # rows that see no key: the xla path's uniform value
+            if causality:
+                vis = torch.cumsum(key_mask, dim=1) > 0
+            else:
+                vis = (key_mask > 0).any(dim=1, keepdim=True).expand_as(
+                    key_mask)
+            mean_v = v.mean(dim=2, keepdim=True)
+            ctx = torch.where(vis[:, None, :, None], ctx, mean_v)
+            return merge_heads(ctx) + residual
+
+        probs = attention_probs(q, k, key_mask=key_mask, causal=causality,
+                                compute_dtype=self.compute_dtype)
+        probs = dropout(probs, rate, generator)
+        ctx = mm_fp32acc(probs, v, self.compute_dtype)
+        return merge_heads(ctx) + residual

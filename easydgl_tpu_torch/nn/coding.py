@@ -5,7 +5,9 @@
   coding.py:56-57), and the same zeroed table feeds the tied logits;
   optional sqrt(d) scale; out-of-range ids clamp to the edge rows (JAX's
   ``take(mode="clip")``).
-* ``PositionCoding.code``: learned absolute positions, ``iota(T)`` rows.
+* ``PositionCoding.code``: learned absolute positions, ``iota(T)`` rows;
+  calling the module concatenates them to its input (SASREC's 2C-wide
+  first block, reference coding.py:67-79).
 * ``TimeSinusoidCoding.code``: fixed interleaved sin/cos with
   ``10000^(2i/d)`` scaling. Its arguments reach ~1e4 rad at real
   timestamps, so it stays plain fp32 ``torch.sin``/``torch.cos`` (a
@@ -61,6 +63,10 @@ class PositionCoding(nn.Module):
         """inputs: (B, T, ...) — only B and T are used."""
         b, t = inputs.shape[0], inputs.shape[1]
         return self.pembs.table()[None, :t].expand(b, t, self.num_units)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """[inputs | codes] on the last axis."""
+        return torch.cat([inputs, self.code(inputs)], dim=-1)
 
 
 class TimeSinusoidCoding(nn.Module):

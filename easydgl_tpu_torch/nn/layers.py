@@ -7,6 +7,8 @@
   ``nn.Linear`` does; the bridge (parity.py) transposes flax's ``(in, out)``
   kernels. Parameters are allocated empty: weights come from the bridge.
 
+* ``FeedForward``: the reference's two width-1 convs (== Dense) with
+  ReLU, dropout after each, and the residual (reference Base.py:70-87).
 * ``dropout``: flax ``nn.Dropout`` — keep with probability 1-p, scale kept
   entries by 1/(1-p) in the input's dtype; the mask is drawn from an
   explicit ``torch.Generator`` with ``torch.rand`` (``F.dropout`` takes no
@@ -81,6 +83,27 @@ class Dense(nn.Module):
         if cdt is None:
             return F.linear(x, self.weight, self.bias)
         return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
+
+
+class FeedForward(nn.Module):
+    """Dense ``inner``, ReLU, dropout, Dense ``readout``, dropout, plus the
+    input (JAX ``nn/layers.py::FeedForward``)."""
+
+    def __init__(self, in_features: int, num_units, dropout_rate: float = 0.2,
+                 *, compute_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.inner = Dense(in_features, num_units[0],
+                           compute_dtype=compute_dtype, device=device)
+        self.readout = Dense(num_units[0], num_units[1],
+                             compute_dtype=compute_dtype, device=device)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the training step's (dropout); None at eval."""
+        rate = self.dropout_rate
+        h = dropout(torch.relu(self.inner(x)), rate, generator)
+        return dropout(self.readout(h), rate, generator) + x
 
 
 class ContribLayerNorm(nn.Module):

@@ -12,7 +12,7 @@ The port's modules carry the flax names, so the mapping is one rule:
 model's parameters. ``tf_adam_state_to_torch`` / ``tf_adam_state_to_flax``
 carry the TF-Adam optimizer state (count, mu, nu) the same way, so a JAX
 ``TrainState`` after k steps can be continued in the port and back. ``random_flax_params`` draws a tree with the flax
-initializers of ``easydgl_tpu.models.easydgl.EasyDGL.init`` from a numpy
+initializers of the JAX model's ``init`` (EasyDGL, SASREC) from a numpy
 seed, so a full-width model can be built without JAX.
 """
 from __future__ import annotations
@@ -84,13 +84,13 @@ def tf_adam_state_to_flax(state) -> tuple:
 
 
 def random_flax_params(cfg: Config, seed: int) -> Dict:
-    """An EasyDGL flax param tree drawn with flax's initializers: glorot-
-    uniform Dense kernels and embedding tables, normal(0.02) for the fused
-    QKVT kernel, zero biases / scalings / output bias, unit LN gammas."""
+    """A flax param tree of ``cfg.model``'s layout (EasyDGL or SASREC) drawn
+    with flax's initializers: glorot-uniform Dense kernels and embedding
+    tables, normal(0.02) for EasyDGL's fused QKVT kernel, zero biases /
+    scalings / output bias, unit LN gammas."""
     rng = np.random.default_rng(seed)
     c, h, e = cfg.num_units, cfg.num_heads, cfg.num_events
     dh = c // h
-    v = cfg.num_items + 1
 
     def glorot(n_in, n_out):
         lim = np.sqrt(6.0 / (n_in + n_out))
@@ -102,10 +102,28 @@ def random_flax_params(cfg: Config, seed: int) -> Dict:
     def dense(n_in, n_out):
         return {"kernel": glorot(n_in, n_out), "bias": zeros(n_out)}
 
-    def ln():
-        return {"gamma": np.ones((c,), np.float32), "beta": zeros(c)}
+    def ln(width=c):
+        return {"gamma": np.ones((width,), np.float32), "beta": zeros(width)}
 
     p: Dict = {}
+    if cfg.model == "SASREC":
+        v = cfg.num_items
+        for i in range(cfg.num_blocks):
+            c_in = 2 * c if i == 0 else c
+            p[f"block{i}_attn"] = {name: dense(c_in, c)
+                                   for name in ("q", "k", "v")}
+            p[f"block{i}_ffn"] = {"inner": dense(c, c),
+                                  "readout": dense(c, c)}
+            p[f"block{i}_ln0"] = ln(c_in)
+            p[f"block{i}_ln1"] = ln()
+        p["item_embs"] = {"lookup_table": glorot(v, c)}
+        p["out_bias"] = {"output_bias": zeros(v - 1)}
+        p["out_ln"] = ln()
+        p["pcoding"] = {"pembs": {"lookup_table": glorot(cfg.seqslen, c)}}
+        return {"params": p}
+    if cfg.model != "EasyDGL":
+        raise NotImplementedError(f"random_flax_params: {cfg.model}")
+    v = cfg.num_items + 1
     for i in range(cfg.num_blocks):
         c_in = 3 * c if i == 0 else c
         p[f"block{i}_bimau"] = {

@@ -6,11 +6,13 @@ update. ``build_eval_step`` mirrors Sequential.eval (reference
 Base.py:150-207): last-position logits, optional mask_seen, top-100 HR/NDCG
 sums. PyTorch runs eagerly, so each step is a plain callable.
 
-Loss (softmax_eps, the mode of EasyDGL; Base.py:119-131): the full-catalog
-``-log(softmax(logits) + 1e-5)`` at the label, computed exactly as
-``-log(exp(-ce) + 1e-5)`` from ``ce = lse - logit_label``; the label-weight
+Loss (softmax_eps, the mode of EasyDGL and SASREC; Base.py:119-131): the
+full-catalog ``-log(softmax(logits) + 1e-5)`` at the label, computed exactly
+as ``-log(exp(-ce) + 1e-5)`` from ``ce = lse - logit_label``, over every
+label of the batch (the masked positions of EasyDGL's protocol, every
+position of the regressive one, labels (B, T) flattened); the label-weight
 mask on padding id 0; ``l2_reg * 0.5 * sum(w^2)`` over every
-``lookup_table``; the TPP regularizer. The catalog scoring goes through
+``lookup_table``; the TPP regularizer (EasyDGL). The catalog scoring goes through
 ``kernels.scoring.catalog_nll`` with hidden and table in the compute dtype,
 so no (N, V) logits are built on the card. The other loss modes
 (``sparse_ce``, ``grec``), ``build_multi_step`` and ``stack_batches`` come

@@ -2,9 +2,10 @@
 """Where the time of the port's eval step goes, on one GPU.
 
 Runs ``build_eval_step`` of easydgl_tpu_torch for a preset (default
-``EasyDGL``; ``EasyDGL-LC`` is the long-context flagship, L+1 = 2048, B = 8)
-with 64 marks, bf16 matmuls, random weights from seed 0 and the preset's
-batch size, over a synthetic split under ``torch.profiler``, and prints the
+``EasyDGL``; ``EasyDGL-LC`` is the long-context flagship, L+1 = 2048, B = 8;
+``SASREC-LC`` the long-context SASRec, L = 2048, B = 32) with bf16 matmuls
+(EasyDGL: 64 marks), random weights from seed 0 and the preset's batch
+size, over a synthetic split under ``torch.profiler``, and prints the
 device time by kernel, the share of the window the device was busy, and
 the host wall time per batch. Imports neither JAX nor the JAX package.
 
@@ -43,11 +44,12 @@ def main() -> int:
     cfg = preset(args.preset, num_events=64, compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
-    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    table = (synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+             if model.uses_tpp else None)
     split = synthetic_split_vectorized(num_rows=args.batches * cfg.batch_size,
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=0)
-    batches = list(BatchLoader(split, data_mode="mau",
+    batches = list(BatchLoader(split, data_mode=model.data_mode,
                                batch_size=cfg.batch_size, masklen=cfg.masklen,
                                is_training=False).epoch(0))
     step = build_eval_step(model, mark_table=table)

@@ -3,9 +3,11 @@
 
 Runs ``build_train_step`` of easydgl_tpu_torch for a preset (default
 ``EasyDGL``, batch 512; ``EasyDGL-LC`` is the long-context flagship, L+1 =
-2048, B = 8, masklen 256) with 64 marks, bf16 matmuls, the preset's dropout
-(0.1 / 0.1), TPP and L2 terms, TF-Adam, random weights from seed 0 and
-marks looked up on the device, over synthetic batches already on the device
+2048, B = 8, masklen 256; ``SASREC-LC`` the long-context SASRec, L = 2048,
+B = 32, every position scored) with bf16 matmuls, the preset's dropout
+(0.1 / 0.1) and loss terms (EasyDGL: TPP and L2, 64 marks looked up on the
+device), TF-Adam, random weights from seed 0, over synthetic batches of the
+model's protocol already on the device
 under ``torch.profiler``, and prints the device time by kernel, the share of
 the window the device was busy, and the host wall time per step. Imports
 neither JAX nor the JAX package.
@@ -46,14 +48,15 @@ def main() -> int:
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
-    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    table = (synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+             if model.uses_tpp else None)
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=0)
     batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
                for f, lab, _ in BatchLoader(
-                   split, data_mode="mau", batch_size=bs, masklen=cfg.masklen,
-                   is_training=True).epoch(0)]
+                   split, data_mode=model.data_mode, batch_size=bs,
+                   masklen=cfg.masklen, is_training=True).epoch(0)]
     step = build_train_step(model, mark_table=table)
     state = init_state(model)
     gen = torch.Generator(device="cuda").manual_seed(0)

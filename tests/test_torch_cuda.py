@@ -554,3 +554,162 @@ def test_lc_train_step_on_card_matches_cpu(cuda_device):
         err = (out["cuda"][1][name] - want).abs()
         ok = (err <= 1e-5 + 1e-4 * want.abs()) | (near & (err <= 1e-3))
         assert bool(ok.all()), name
+
+
+# ---------------------------------------------------------------- flash
+
+FLASH_SHAPES = {"t77_dh16": dict(b=3, h=2, tq=77, tk=77, dh=16),
+                "t300_dh64": dict(b=2, h=4, tq=300, tk=300, dh=64),
+                "tq100_tk300_dh32": dict(b=2, h=2, tq=100, tk=300, dh=32)}
+
+
+def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, seed=0):
+    """numpy-drawn q, k, v, dO (B, H, T, dh); a key mask with holes,
+    left-padded where Tq == Tk, with row 0 fully masked."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    q, dout = (rng.normal(size=(b, h, tq, dh)).astype(f32) for _ in range(2))
+    k, v = (rng.normal(size=(b, h, tk, dh)).astype(f32) for _ in range(2))
+    km = (rng.random((b, tk)) > 0.1).astype(f32)
+    if tq == tk:
+        lengths = rng.integers(1, tk + 1, b)
+        km *= np.arange(tk)[None] >= tk - lengths[:, None]
+    km[0] = 0.0
+    ts = [torch.tensor(x, device=dev) for x in (q, k, v, km, dout)]
+    return [x.to(dtype) if i != 3 else x for i, x in enumerate(ts)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", list(FLASH_SHAPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_version(cuda_device, dtype, causal, shape,
+                                           rate):
+    """Forward (out, lse), dq and dk/dv, each on the plain version's
+    inputs; then ``flash_attention``'s chained backward against the
+    chained plain pieces. out as ``_check_close``; lse fp32 to 1e-4; the
+    gradients as ``_check_by_scale``; the fully masked row exactly 0."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    q, k, v, km, dout = _flash_inputs(cuda_device, dtype,
+                                      **FLASH_SHAPES[shape])
+    kw = dict(causal=causal, dropout_rate=rate,
+              seed=torch.tensor(77, device=cuda_device))
+    before = [fn.launches for fn in fl.FLASH_KERNELS]
+    out, lse = fl.flash_attention_fwd(q, k, v, km, **kw)
+    want_o, want_l = fl.flash_fwd_reference(q, k, v, km, **kw)
+    scale = want_o if dtype == torch.float32 else fl.flash_fwd_reference(
+        q, k, v.abs(), km, **kw)[0]
+    _check_close(dtype, (out, lse), (want_o, want_l), scale)
+    torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=1e-4)
+    delta = fl.flash_delta(dout, want_o)
+    args = (q, k, v, km, dout, want_l, delta)
+    dq = fl.flash_attention_dq(*args, **kw)
+    dk, dv = fl.flash_attention_dkv(*args, **kw)
+    _check_by_scale(dtype, (dq, dk, dv),
+                    (fl.flash_dq_reference(*args, **kw),)
+                    + fl.flash_dkv_reference(*args, **kw), "pieces")
+    assert [fn.launches for fn in fl.FLASH_KERNELS] == [b + 1 for b in before]
+    for x in (out, dq, dk, dv):
+        assert float(x[0].float().abs().max()) == 0.0
+    diff = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(fl.flash_attention(*diff, km, **kw), diff,
+                              dout)
+    p_out, p_lse = fl.flash_fwd_reference(q, k, v, km, **kw)
+    p_args = (q, k, v, km, dout, p_lse, fl.flash_delta(dout, p_out))
+    want = ((fl.flash_dq_reference(*p_args, **kw),)
+            + fl.flash_dkv_reference(*p_args, **kw))
+    _check_by_scale(dtype, got, want, "chain")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_draw_one_dropout_mask(cuda_device, dtype):
+    """q = 0 and k = v = I: out, dq (dO = 1) and dv (dO = I) show the keep
+    factor of every (i, j) as the kernels drew it; each equals
+    ``dropout_factor`` exactly."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    from easydgl_tpu_torch.kernels.mau_attention import dropout_factor
+    b, h, t, rate = 2, 2, 64, 0.25
+    dev = cuda_device
+    eye = torch.eye(t, device=dev).expand(b, h, t, t).to(dtype).contiguous()
+    q = torch.zeros(b, h, t, t, device=dev, dtype=dtype)
+    ones = torch.ones(b, h, t, t, device=dev, dtype=dtype)
+    km = torch.ones(b, t, device=dev)
+    kw = dict(causal=False, dropout_rate=rate, scale=1.0,
+              seed=torch.tensor(123, device=dev))
+    out, lse = fl.flash_attention_fwd(q, eye, eye, km, **kw)
+    delta = fl.flash_delta(ones, out)
+    dq = fl.flash_attention_dq(q, eye, eye, km, ones, lse, delta, **kw)
+    _, dv = fl.flash_attention_dkv(q, eye, eye, km, eye, lse,
+                                   fl.flash_delta(eye, out), **kw)
+    keep = dropout_factor(123, (b, h, t, t), rate, dev)
+    # out: p = exp(0) = 1 exactly, so out * t is keep rounded to the
+    # compute dtype; dv and dq carry p = exp(-log t), within an ulp of 1/t,
+    # rounded to bf16 once (dv) or twice (dq: ds, then dq) in bf16
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(out.float() * t, keep.to(dtype).float(),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(dv.transpose(-1, -2).float() * t, keep,
+                               atol=0, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(dq.float() * t + delta[..., None], keep,
+                               atol=2e-2 if bf16 else 1e-5, rtol=0)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    q, k, v, km, dout = _flash_inputs(cuda_device, torch.float32, b=1, h=1,
+                                      tq=8, tk=8, dh=24)
+    with pytest.raises(ValueError, match="head dim"):
+        fl.flash_attention_fwd(q, k, v, km)
+    q, k, v, km, dout = _flash_inputs(cuda_device, torch.float32, b=1, h=1,
+                                      tq=8, tk=8, dh=128)
+    out, lse = fl.flash_attention_fwd(q, k, v, km)   # the forward takes 128
+    with pytest.raises(ValueError, match="head dim"):
+        fl.flash_attention_dq(q, k, v, km, dout, lse, lse)
+    with pytest.raises(ValueError, match="dtype"):
+        fl.flash_attention_fwd(q.half(), k.half(), v.half(), km)
+    with pytest.raises(ValueError, match="seed"):
+        fl.flash_attention(q, k, v, km, dropout_rate=0.1)
+    with pytest.raises(RuntimeError, match="differentiate"):
+        fl.flash_attention_fwd(q.requires_grad_(), k, v, km)
+
+
+def test_sasrec_lc_model_on_card_matches_cpu(cuda_device):
+    """A small fp32 SASREC-LC (L=256, the flash kernels on the card, the
+    plain version on the CPU): logits to 1e-4, and the train-step loss and
+    every gradient leaf to 1e-4 of its scale (the key bias, zero in exact
+    arithmetic, to 1e-4 of the key weight's)."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import synthetic_split
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import loss_and_grads, to_device
+    cfg = preset("SASREC-LC", num_items=60, seqslen=256, num_units=64,
+                 num_heads=2, batch_size=3, compute_dtype="float32",
+                 hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0)
+    params = random_flax_params(cfg, 0)
+    ds = synthetic_split(num_rows=3, num_items=60, seqslen=256, seed=2)
+    feats = {}
+    for train in (False, True):
+        f, lab, _ = next(BatchLoader(ds, data_mode="regressive", batch_size=3,
+                                     is_training=train).epoch(0))
+        feats[train] = (f, lab)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params=params)
+        with torch.no_grad():
+            logits = model(to_device(feats[False][0], dev))[0].cpu()
+        loss, grads = loss_and_grads(model, to_device(feats[True][0], dev),
+                                     torch.as_tensor(feats[True][1],
+                                                     device=dev))
+        res[dev.type] = (logits, float(loss),
+                         {n: g.cpu() for n, g in grads.items()})
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    assert abs(res["cuda"][1] - res["cpu"][1]) <= 1e-5 * abs(res["cpu"][1])
+    gc, gp = res["cuda"][2], res["cpu"][2]
+    for name, want in gp.items():
+        ref = gp[name[:-4] + "weight"] if name.endswith("_attn.k.bias") \
+            else want
+        err = float((gc[name] - want).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (name, err)

@@ -223,7 +223,7 @@ def test_bridge_round_trip_and_random_tree(world):
 
 def test_other_models_raise_not_implemented():
     from easydgl_tpu.models.registry import MODELS as JMODELS
-    assert set(MODELS) == {"EasyDGL"}
+    assert set(MODELS) == {"EasyDGL", "SASREC"}
     for name in set(JMODELS) - set(MODELS):
         with pytest.raises(NotImplementedError, match=name):
             build_model(preset(name), device="cpu")

@@ -37,7 +37,10 @@ def test_every_module_imports_with_jax_flax_optax_triton_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     assert len(mods) >= 22
     for new in ("easydgl_tpu_torch.kernels.mau_blocked",
-                "easydgl_tpu_torch.kernels.mau_streamed"):
+                "easydgl_tpu_torch.kernels.mau_streamed",
+                "easydgl_tpu_torch.kernels.flash_attention",
+                "easydgl_tpu_torch.nn.attention",
+                "easydgl_tpu_torch.models.sasrec"):
         assert new in mods
 
 
