@@ -91,7 +91,6 @@ from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_fwd,
                                                catalog_nll_reference)
 from easydgl_tpu_torch.models.registry import MODELS, build_model
-from easydgl_tpu_torch.nn import attention, temporal
 from easydgl_tpu_torch.parity import random_flax_params
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
                                            device_marks, init_state,
@@ -260,9 +259,19 @@ def phase_kernel_checks():
     return errs
 
 
-def mau_work(*, b, tq, tk, h, dh, e, dtype):
+def mau_keys(km) -> float:
+    """The keys a query row of the bidirectional MAU needs, averaged over
+    the batch rows: the visible ones, or every key where the row's key mask
+    is all 0 (its probs are uniform over the masked keys). A masked key of
+    any other row gets a prob of exactly 0 and costs the function nothing."""
+    vis = (km > 0).sum(-1).double()
+    return float(torch.where(vis > 0, vis, float(km.shape[-1])).mean())
+
+
+def mau_work(*, b, tq, tk, h, dh, e, dtype, keys):
     """(bytes, flops) the function needs: each input read once, each output
-    written once; the products of the chain."""
+    written once; the products of the chain over the ``keys`` (``mau_keys``)
+    each query row needs."""
     it = torch.tensor([], dtype=dtype).element_size()
     c = h * dh
     nbytes = (it * (b * tq * c + 3 * b * tk * c)           # q, k, v, t
@@ -273,8 +282,8 @@ def mau_work(*, b, tq, tk, h, dh, e, dtype):
     flops = 2 * rows * (
         (dh + 1) * e * dh      # z = [su | iv] @ Wd
         + e * dh               # per-event reduce with w
-        + 3 * tk * dh          # QK^T, probs @ T, modulated @ V
-        + tk * e)              # lam @ onehot^T
+        + 3 * keys * dh        # QK^T, probs @ T, modulated @ V
+        + keys * e)            # lam @ onehot^T
     return nbytes, flops
 
 
@@ -308,7 +317,8 @@ def phase_kernel_timing():
 
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
-        nbytes, flops = mau_work(**FLAGSHIP, dtype=dtype)
+        nbytes, flops = mau_work(**FLAGSHIP, dtype=dtype,
+                                 keys=mau_keys(args[4]))
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         log(f"  {str(dtype):15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
             f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
@@ -870,21 +880,33 @@ def phase_flash_checks():
 
 
 SASREC_LC_ATTN = dict(b=32, h=8, t=2048, dh=64)   # one SASREC-LC block
+FLASH_BWD_NAMES = ("flash_attention_dq", "flash_attention_dkv")
 FLASH_REPLACES = {
     "flash_attention_fwd": "easydgl_tpu/kernels/flash_attention.py:318",
     "flash_attention_dq": "easydgl_tpu/kernels/flash_attention.py:366",
     "flash_attention_dkv": "easydgl_tpu/kernels/flash_attention.py:390"}
 
 
-def flash_work(name, *, b, h, t, dh, dtype):
-    """(bytes, flops) of one causal flash kernel: q, k, v (dO) read once,
-    out (dq; dk, dv) written once, the key mask and the fp32 row stats; the
-    products over the T (T + 1) / 2 visible (query, key) pairs of each
-    (b, h) — the kernels skip only whole tiles after the diagonal, not the
-    masked keys, so the count is the causal one whatever the key mask."""
+def visible_pairs(km, t, causal=True) -> float:
+    """The (query, key) pairs the key mask and causality leave visible,
+    summed over the batch rows, T = Tq = Tk: key j is seen by the T - j
+    queries at or after it under causality, by all T otherwise."""
+    seen_by = torch.arange(t, 0, -1, device=km.device, dtype=torch.float64)
+    if not causal:
+        seen_by.fill_(t)
+    return float(((km > 0).double() * seen_by).sum())
+
+
+def flash_work(name, km, *, h, t, dh, dtype, causal=True):
+    """(bytes, flops) of one flash kernel on these inputs: q, k, v (dO) read
+    once, out (dq; dk, dv) written once, the key mask and the fp32 row
+    stats; the products over the visible pairs (``visible_pairs``), which
+    the function needs. The kernels do more: they skip whole tiles after
+    the diagonal, not masked keys."""
+    b = km.shape[0]
     it = torch.tensor([], dtype=dtype).element_size()
     seq, rows = it * b * h * t * dh, b * h * t
-    product = 2 * b * h * (t * (t + 1) // 2) * dh
+    product = 2 * h * visible_pairs(km, t, causal) * dh
     if name == "flash_attention_fwd":   # q, k, v in; out, lse out
         return 4 * seq + 4 * b * t + 4 * rows, 2 * product
     if name == "flash_attention_dq":    # q, k, v, dO, lse, delta in; dq out
@@ -944,7 +966,8 @@ def phase_flash_timing():
             ms_drop = time_ms(lambda: kern(kwd), warmup=1,
                               iters=10 if fast else 3)
             plain_ms = time_ms(plain, warmup=1, iters=2)
-            nbytes, flops = flash_work(name, **sh, dtype=dtype)
+            nbytes, flops = flash_work(name, km, h=sh["h"], t=sh["t"],
+                                       dh=sh["dh"], dtype=dtype)
             bound_ms, bound_by = bound(nbytes, flops, dtype)
             lib_ms = sdpa_f if name == "flash_attention_fwd" else sdpa_b
             log(f"  {name:19s} {str(dtype):15s} kernel {ms:.4f} ms (dropout"
@@ -955,6 +978,18 @@ def phase_flash_timing():
             rows[(name, dtype)] = dict(ms=ms, ms_dropout=ms_drop,
                                        plain_ms=plain_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, library_ms=lib_ms)
+        # no library call computes dq alone or dk, dv alone: both rows hold
+        # SDPA's whole backward, and beside it the two kernels' sum
+        bwd_ms = sum(rows[(n, dtype)]["ms"] for n in FLASH_BWD_NAMES)
+        for n in FLASH_BWD_NAMES:
+            rows[(n, dtype)].update(
+                library_covers="dq, dk and dv: SDPA's whole backward",
+                backward_ms=bwd_ms)
+        pairs, causal_pairs = visible_pairs(km, t), sh["b"] * t * (t + 1) / 2
+        log(f"  visible (query, key) pairs: {pairs:.0f} of the"
+            f" {causal_pairs:.0f} causal ones ({pairs / causal_pairs:.4f});"
+            f" dq + dk/dv {bwd_ms:.4f} ms against SDPA's backward"
+            f" {sdpa_b:.4f} ms")
         log(f"  SDPA ({str(dtype)[6:]}) with the key_mask & causal boolean"
             f" mask: forward {sdpa_f:.4f} ms, backward (dq, dk, dv together)"
             f" {sdpa_b:.4f} ms; with is_causal=True and no key mask (another"
@@ -964,15 +999,16 @@ def phase_flash_timing():
     return rows
 
 
-def streamed_work(name, *, b, tq, tk, h, dh, e, dtype):
+def streamed_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
     """(bytes, flops, dtype of the operations) of one streamed kernel: each
-    input read once, each output written once; the intensity head's
+    input read once, each output written once; the products over the
+    ``keys`` (``mau_keys``) each query row needs; the intensity head's
     operations are fp32 whatever the compute dtype."""
     it = torch.tensor([], dtype=dtype).element_size()
     c, rows = h * dh, b * h * tq
     if name == "mau_stats":   # q, k, t, mask in; m, l, seq_units out
         return (it * (b * tq * c + 2 * b * tk * c) + 4 * b * tk
-                + 4 * rows * (2 + dh), 2 * rows * tk * 2 * dh, dtype)
+                + 4 * rows * (2 + dh), 2 * rows * keys * 2 * dh, dtype)
     if name == "mau_intensity":   # seq_units, iv, Wd, bd, w, scaling; lam
         return (4 * (rows * dh + b * tq + (dh + 1) * e * dh + 2 * e * dh + e
                      + rows * e),
@@ -980,7 +1016,7 @@ def streamed_work(name, *, b, tq, tk, h, dh, e, dtype):
     # q, k, v, mask, one-hot, lam, m, l in; out
     return (it * (2 * b * tq * c + 2 * b * tk * c)
             + 4 * (b * tk + b * tk * e + rows * e + 2 * rows),
-            2 * rows * tk * (2 * dh + e), dtype)
+            2 * rows * keys * (2 * dh + e), dtype)
 
 
 def phase_streamed_timing():
@@ -1010,7 +1046,8 @@ def phase_streamed_timing():
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=2, iters=10)
             plain_ms = time_ms(plain, warmup=1, iters=3)
-            nbytes, flops, op_dtype = streamed_work(name, **LC, dtype=dtype)
+            nbytes, flops, op_dtype = streamed_work(name, **LC, dtype=dtype,
+                                                    keys=mau_keys(km))
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
@@ -1024,17 +1061,18 @@ def phase_streamed_timing():
     return rows
 
 
-def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype):
+def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
     """(bytes, flops, dtype of the operations) of one streamed backward
     kernel: each input read once, each output written once; the products
-    its function needs (the intensity VJP's three of rows x (dh+1) x E*dh
-    in fp32 whatever the compute dtype)."""
+    its function needs, over the ``keys`` (``mau_keys``) each query row
+    needs (the intensity VJP's three of rows x (dh+1) x E*dh in fp32
+    whatever the compute dtype)."""
     it = torch.tensor([], dtype=dtype).element_size()
     c, rows = h * dh, b * h * tq
     small = 4 * (b * tk + b * tk * e)              # key mask, one-hot
     if name == "mau_glam":   # q, dO, k, v, stats in; g_lam out
         return (it * (2 * b * tq * c + 2 * b * tk * c) + small
-                + 4 * rows * (2 + e), 2 * rows * tk * (2 * dh + e), dtype)
+                + 4 * rows * (2 + e), 2 * rows * keys * (2 * dh + e), dtype)
     if name == "mau_intensity_bwd":   # seq_units, iv, weights, g_lam in
         return (4 * (2 * rows * dh + b * tq + 2 * (dh + 1) * e * dh
                      + 4 * e * dh + 2 * e + rows * e),
@@ -1044,7 +1082,7 @@ def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype):
     nout = b * tq * c if name == "mau_dq" else 3 * b * tk * c
     nprod = 4 if name == "mau_dq" else 6
     return (it * (3 * b * tq * c + 3 * b * tk * c + nout) + small
-            + 4 * rows * (e + 3), 2 * rows * tk * (nprod * dh + e), dtype)
+            + 4 * rows * (e + 3), 2 * rows * keys * (nprod * dh + e), dtype)
 
 
 def phase_streamed_bwd_timing():
@@ -1059,8 +1097,8 @@ def phase_streamed_bwd_timing():
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=1, iters=5)
             plain_ms = time_ms(plain, warmup=1, iters=2)
-            nbytes, flops, op_dtype = streamed_bwd_work(name, **LC,
-                                                        dtype=dtype)
+            nbytes, flops, op_dtype = streamed_bwd_work(
+                name, **LC, dtype=dtype, keys=mau_keys(args[4]))
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
@@ -1080,12 +1118,12 @@ def bound(nbytes, flops, dtype):
                                  "operations")
 
 
-def mau_bwd_work(*, b, tq, tk, h, dh, e, dtype):
+def mau_bwd_work(*, b, tq, tk, h, dh, e, dtype, keys):
     """(bytes, flops) of the backward: q, k, v, t, g_out in and dq..dt out
     in the compute dtype; the small inputs, raw, g_lam and the weight
     gradients in fp32; z recomputed once, dx and dWd, and the attention
     products (probs recomputed, dmod, dv, dint @ onehot, su, dprobs, dt,
-    dq, dk)."""
+    dq, dk) over the ``keys`` (``mau_keys``) each query row needs."""
     it = torch.tensor([], dtype=dtype).element_size()
     c, rows = h * dh, b * h * tq
     nbytes = (it * 2 * (2 * b * tq * c + 3 * b * tk * c)      # in + out
@@ -1093,7 +1131,7 @@ def mau_bwd_work(*, b, tq, tk, h, dh, e, dtype):
               + 4 * 2 * rows * e                            # raw, g_lam
               + 4 * 2 * ((dh + 1) * e * dh + 2 * e * dh + e))  # weights, grads
     flops = 2 * rows * (3 * (dh + 1) * e * dh + e * dh
-                        + 8 * tk * dh + 2 * tk * e)
+                        + 8 * keys * dh + 2 * keys * e)
     return nbytes, flops
 
 
@@ -1127,7 +1165,8 @@ def phase_train_kernel_timing():
             qpos=qpos), iters=5)
         plain_ms = time_ms(lambda: run_mau_bwd(args, plain=True, **kw),
                            warmup=1, iters=1)
-        nbytes, flops = mau_bwd_work(**FLAGSHIP, dtype=dtype)
+        nbytes, flops = mau_bwd_work(**FLAGSHIP, dtype=dtype,
+                                     keys=mau_keys(km))
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         log(f"  mau_attention_bwd {str(dtype):15s} kernel {ms:.4f} ms"
             f" (forward with dropout + residual {ms_fwd_train:.4f} ms)"
@@ -1653,16 +1692,13 @@ def phase_sasrec_train():
 
 
 @contextlib.contextmanager
-def plain_engine(model_name):
-    """The long-context attention engine's plain version in place of its
-    kernels, on any device: for EasyDGL the streamed MAU's (``mau_blocked``
-    and its custom backward), for SASREC flash attention's
-    (``flash_attention_reference``, differentiated by autograd)."""
-    if model_name == "SASREC":
-        module, name, plain = attention, "flash_attention", \
-            flash_attention_reference
-    else:
-        module, name, plain = temporal, "mau_streamed", mau_blocked
+def plain_engine(model_cls):
+    """The model's long-context attention engine (``long_context_engine``)
+    with its plain version in place of its kernels, on any device: for
+    EasyDGL the streamed MAU's (``mau_blocked`` and its custom backward),
+    for SASREC flash attention's (the plain forward, differentiated by
+    autograd)."""
+    module, name, plain = model_cls.long_context_engine
     saved = getattr(module, name)
     setattr(module, name, plain)
     try:
@@ -1719,7 +1755,7 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
         del model, state, grads
     grads_plain = None
     if device_floor:
-        with plain_engine(cfg.model):
+        with plain_engine(model_cls):
             grads_plain = grads_on("cuda")[1]
     (loss_c, grads_c, params_c), (loss_p, grads_p, params_p) = \
         res["cuda"], res["cpu"]
@@ -1931,7 +1967,9 @@ def main() -> int:
             max_abs_err=flash_errs["lc_causal_bf16_drop"][name],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            ms_dropout_0_1=row["ms_dropout"]))
+            ms_dropout_0_1=row["ms_dropout"],
+            **{key: row[key] for key in ("library_covers", "backward_ms")
+               if key in row}))
     log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
         + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
         + f" ms per B=8 batch on {card}")

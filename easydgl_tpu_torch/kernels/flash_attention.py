@@ -48,10 +48,11 @@ from torch.autograd.function import once_differentiable
 from easydgl_tpu_torch.kernels import build
 from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
                                                      KERNEL_SMEM_MAX, _bind,
-                                                     _drop_args, _round_to,
+                                                     _drop_args, _on_card,
+                                                     _raise_on, _round_to,
                                                      _seed_tensor, _stream,
+                                                     differentiable,
                                                      dropout_factor)
-from easydgl_tpu_torch.kernels.mau_blocked import differentiable
 
 NEG = -1.0e38   # the masked logit and the running max before a visible key
 KERNEL_FWD_HEAD_DIMS = (16, 32, 64, 128)
@@ -197,23 +198,6 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"flash_attention kernel: {msg}")
 
 
-def _on_card(name: str, *tensors) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on other devices,
-    on mixed devices, and where autograd would need a gradient of a single
-    kernel (differentiate ``flash_attention``)."""
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if differentiable(*tensors):
-        raise RuntimeError(f"{name}: one flash kernel has no gradient of its "
-                           "own; differentiate flash_attention")
-    for x in tensors:
-        _check(x.device == dev, f"{name}: a tensor on {x.device}, q on {dev}")
-    return True
-
-
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """x where the kernels can read it in place (channels contiguous, rows
     on 16-byte boundaries), else a contiguous copy."""
@@ -268,19 +252,14 @@ def _inputs(name, which, q, k, v, key_mask, dout=None):
              + ((dout,) if dout is not None else ())], km, lib)
 
 
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.flash_error_string(rc).decode())
-
-
 def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                         scale=None, dropout_rate: float = 0.0, seed=None):
     """(out (B, H, Tq, dh) in q's dtype, lse (B, H, Tq) fp32). CPU tensors:
     ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_kernel``."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
-    if not _on_card("flash_attention_fwd", *tensors):
+    if not _on_card("flash_attention_fwd", *tensors,
+                    entry="flash_attention"):
         return flash_fwd_reference(q, k, v, key_mask, causal=causal,
                                    scale=scale, dropout_rate=dropout_rate,
                                    seed=seed)
@@ -296,7 +275,7 @@ def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                            lse.data_ptr(), b, h, tq, tk, dh, int(causal),
                            _scale(q, scale), _DTYPE_CODE[q.dtype],
                            _stream(q.device))
-    _raise_on(lib, rc, "flash_attention_fwd")
+    _raise_on(rc, "flash_attention_fwd", lib.flash_error_string)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -319,7 +298,8 @@ def flash_attention_dq(q, k, v, key_mask, dout, lse, delta, *,
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v, dout, lse, delta) + (() if key_mask is None
                                              else (key_mask,))
-    if not _on_card("flash_attention_dq", *tensors):
+    if not _on_card("flash_attention_dq", *tensors,
+                    entry="flash_attention"):
         return flash_dq_reference(q, k, v, key_mask, dout, lse, delta,
                                   causal=causal, scale=scale,
                                   dropout_rate=dropout_rate, seed=seed)
@@ -335,7 +315,7 @@ def flash_attention_dq(q, k, v, key_mask, dout, lse, delta, *,
                           seed_ptr, thresh, dscale, *_seq4(dq), b, h, tq, tk,
                           dh, int(causal), _scale(q, scale),
                           _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(lib, rc, "flash_attention_dq")
+    _raise_on(rc, "flash_attention_dq", lib.flash_error_string)
     flash_attention_dq.launches += 1
     return dq
 
@@ -351,7 +331,8 @@ def flash_attention_dkv(q, k, v, key_mask, dout, lse, delta, *,
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v, dout, lse, delta) + (() if key_mask is None
                                              else (key_mask,))
-    if not _on_card("flash_attention_dkv", *tensors):
+    if not _on_card("flash_attention_dkv", *tensors,
+                    entry="flash_attention"):
         return flash_dkv_reference(q, k, v, key_mask, dout, lse, delta,
                                    causal=causal, scale=scale,
                                    dropout_rate=dropout_rate, seed=seed)
@@ -369,7 +350,7 @@ def flash_attention_dkv(q, k, v, key_mask, dout, lse, delta, *,
                            seed_ptr, thresh, dscale, *_seq4(dk), *_seq4(dv),
                            b, h, tq, tk, dh, int(causal), _scale(q, scale),
                            _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(lib, rc, "flash_attention_dkv")
+    _raise_on(rc, "flash_attention_dkv", lib.flash_error_string)
     flash_attention_dkv.launches += 1
     return dk, dv
 

@@ -270,16 +270,13 @@ def mau_attention(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
     when autograd asks for it."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_attention: dropout_rate > 0 needs dropout_seed")
-    if q.device.type == "cpu":
+    if not _on_card("mau_attention", q, k, v, t):
         return mau_attention_reference(
             q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             causal=causal, diag_reset=diag_reset, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, num_heads=num_heads, qpos=qpos)
-    if q.device.type != "cuda":
-        raise ValueError(f"mau_attention: unsupported device {q.device}")
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
-    diff = (q, k, v, t, wd, bd, w, scaling)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in diff):
+    if differentiable(q, k, v, t, wd, bd, w, scaling):
         return _MauAttention.apply(q, k, v, t, key_mask, intervals, onehot,
                                    wd, bd, w, scaling, qpos, seed, causal,
                                    diag_reset, dropout_rate, num_heads)
@@ -301,14 +298,12 @@ def mau_attention_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
     (the CUDA kernel reads it; the plain version recomputes it). CPU
     tensors take ``mau_attention_bwd_reference``; CUDA tensors launch the
     kernel or raise."""
-    if q.device.type == "cpu":
+    if not _on_card("mau_attention_bwd", q, k, v, t):
         return mau_attention_bwd_reference(
             q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             g_out, g_lam, causal=causal, diag_reset=diag_reset,
             dropout_rate=dropout_rate, dropout_seed=dropout_seed,
             num_heads=num_heads, qpos=qpos)
-    if q.device.type != "cuda":
-        raise ValueError(f"mau_attention_bwd: unsupported device {q.device}")
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     return _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
                        scaling, raw, g_out, g_lam, causal, diag_reset,
@@ -474,6 +469,40 @@ def _drop_args(seed, rate):
     return seed.data_ptr(), dropout_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def differentiable(*tensors) -> bool:
+    """True where autograd will ask for a gradient of these tensors."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+def _on_card(name: str, *tensors, entry: Optional[str] = None) -> bool:
+    """The device rule of the one-kernel wrappers: False for CPU tensors
+    (the caller takes the plain version), True for CUDA tensors (the caller
+    launches its kernel). Raises on any other device, on mixed devices and,
+    where ``entry`` names the differentiable entry point, where autograd
+    would need a gradient of this one kernel, which has none of its own."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if entry is not None and differentiable(*tensors):
+        raise RuntimeError(f"{name}: one kernel has no gradient of its own; "
+                           f"differentiate {entry}")
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"{name}: a tensor on {x.device}, the first "
+                             f"on {dev}")
+    return True
+
+
+def _raise_on(rc: int, what: str, error_string) -> None:
+    """Raises on a kernel's nonzero return code, with its library's text
+    (``error_string``: the library's ``*_error_string`` function)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + error_string(rc).decode())
+
+
 def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                 causal, diag_reset, num_heads, qpos, seed, rate, *,
                 want_raw: bool, wd_packed=()):
@@ -514,9 +543,7 @@ def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             None if raw is None else raw.data_ptr(), seed_ptr, thresh,
             dscale, b, tq, tk, num_heads, dh, e, int(causal),
             int(diag_reset), 1.0 / dh ** 0.5, _DTYPE_CODE[cdt], _stream(dev))
-    if rc != 0:
-        raise RuntimeError("mau_attention kernel launch failed: "
-                           + lib.mau_cuda_error_string(rc).decode())
+    _raise_on(rc, "mau_attention", lib.mau_cuda_error_string)
     mau_attention.launches += 1
     return out, lam, raw
 
@@ -589,9 +616,7 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             b, tq, tk, num_heads, dh, e, int(causal), int(diag_reset),
             1.0 / dh ** 0.5, qc, BWD_ROWS_PER_CHUNK, _DTYPE_CODE[cdt],
             _stream(dev))
-    if rc != 0:
-        raise RuntimeError("mau_attention_bwd kernel launch failed: "
-                           + _fwd_lib().mau_cuda_error_string(rc).decode())
+    _raise_on(rc, "mau_attention_bwd", _fwd_lib().mau_cuda_error_string)
     if accs[0] is not None:
         dk, dv, dt = (a.to(cdt) for a in accs)
     mau_attention_bwd.launches += 1

@@ -65,6 +65,7 @@ from torch.autograd.function import once_differentiable
 
 from easydgl_tpu_torch.kernels.mau_attention import (NEG, _heads, _merge,
                                                      _round_to,
+                                                     differentiable,
                                                      dropout_factor)
 
 PAD_NEG = -1.0e38   # alignment padding: below NEG, so it never counts
@@ -461,11 +462,6 @@ def backward_chain(res: Residuals, g_out, g_lam_up, *, ops: BackwardOps,
     dq = ops.dq(*args, **kw)
     dk, dv, dt = ops.dkvt(*args, **kw)
     return dq, dk, dv, dt, g_wd, g_bd, g_w, g_sc
-
-
-def differentiable(*tensors) -> bool:
-    """True where autograd will ask for a gradient of these tensors."""
-    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def autograd_function(name: str, forward: Callable, ops: BackwardOps):

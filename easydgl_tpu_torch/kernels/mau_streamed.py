@@ -51,9 +51,10 @@ from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
                                                      KERNEL_HEAD_DIMS,
                                                      KERNEL_SMEM_MAX, _bind,
                                                      _drop_args, _seed_tensor,
-                                                     _stream)
+                                                     _on_card, _raise_on,
+                                                     _stream, differentiable)
 from easydgl_tpu_torch.kernels.mau_blocked import (
-    BackwardOps, BlockedForward, autograd_function, differentiable,
+    BackwardOps, BlockedForward, autograd_function,
     dkvt_reference, dq_reference, glam_reference, intensity_reference,
     intensity_vjp_reference, mau_blocked, output_reference, stats_reference)
 
@@ -103,24 +104,6 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"mau_streamed kernel: {msg}")
 
 
-def _on_card(name: str, *tensors, differentiable_ok: bool = False) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on other devices
-    and, unless ``differentiable_ok``, where autograd would need a gradient
-    of the kernel (a single kernel has none: differentiate
-    ``mau_streamed``)."""
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if not differentiable_ok and differentiable(*tensors):
-        raise RuntimeError(f"{name}: one kernel of the streamed MAU has no "
-                           "gradient of its own; differentiate mau_streamed")
-    for x in tensors:
-        _check(x.device == dev, f"{name}: a tensor on {x.device}, q on {dev}")
-    return True
-
-
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.detach().to(torch.float32).contiguous()
 
@@ -163,18 +146,13 @@ def _checked_seqs(q, others, num_heads):
     return b, tq, tk, dh
 
 
-def _raise_on(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + _lib().mau_streamed_error_string(rc).decode())
-
-
 def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
               block_k: int = 512):
     """Sweep 1: (m (B, H, Tq), l (B, H, Tq), seq_units (B, H, Tq, dh)),
     fp32. CPU tensors: ``mau_blocked.stats_reference``; CUDA tensors:
     ``mau_stats_kernel``."""
-    if not _on_card("mau_stats", q, k, t, key_mask):
+    if not _on_card("mau_stats", q, k, t, key_mask,
+                    entry="mau_streamed"):
         return stats_reference(q, k, t, key_mask, causal=causal,
                                num_heads=num_heads, block_k=block_k)
     b, tq, tk, dh = _checked_seqs(q, (("k", k), ("t", t)), num_heads)
@@ -193,7 +171,7 @@ def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
                                m.data_ptr(), l.data_ptr(), su.data_ptr(), b,
                                tq, tk, h, dh, int(causal), 1.0 / dh ** 0.5,
                                _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(rc, "mau_stats")
+    _raise_on(rc, "mau_stats", _lib().mau_streamed_error_string)
     mau_stats.launches += 1
     return m, l, su
 
@@ -206,7 +184,8 @@ def mau_intensity(su, intervals, wd, bd, w, scaling):
     (B, H, Tq, dh) and intervals (B, Tq). CPU tensors:
     ``mau_blocked.intensity_reference``; CUDA tensors:
     ``mau_intensity_kernel`` (fp32 throughout)."""
-    if not _on_card("mau_intensity", su, intervals, wd, bd, w, scaling):
+    if not _on_card("mau_intensity", su, intervals, wd, bd, w, scaling,
+                    entry="mau_streamed"):
         return intensity_reference(su, intervals, wd, bd, w, scaling)
     b, h, tq, dh = su.shape
     e = w.shape[0]
@@ -230,7 +209,7 @@ def mau_intensity(su, intervals, wd, bd, w, scaling):
                                    wf.data_ptr(), scf.data_ptr(),
                                    lam.data_ptr(), b, h, tq, dh, e,
                                    _stream(su.device))
-    _raise_on(rc, "mau_intensity")
+    _raise_on(rc, "mau_intensity", _lib().mau_streamed_error_string)
     mau_intensity.launches += 1
     return lam
 
@@ -248,7 +227,7 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_modulated_out", q, k, v, key_mask, onehot, lam, m,
-                    l):
+                    l, entry="mau_streamed"):
         return output_reference(q, k, v, key_mask, onehot, lam, m, l,
                                 causal=causal, diag_reset=diag_reset,
                                 dropout_rate=dropout_rate,
@@ -282,7 +261,7 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
                              out.data_ptr(), b, tq, tk, h, dh, e, int(causal),
                              int(diag_reset), 1.0 / dh ** 0.5,
                              _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(rc, "mau_modulated_out")
+    _raise_on(rc, "mau_modulated_out", _lib().mau_streamed_error_string)
     mau_modulated_out.launches += 1
     return out
 
@@ -358,7 +337,8 @@ def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
     CUDA tensors: ``mau_glam_kernel``."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
-    if not _on_card("mau_glam", q, k, v, key_mask, onehot, m, l, g_out):
+    if not _on_card("mau_glam", q, k, v, key_mask, onehot, m, l, g_out,
+                    entry="mau_streamed"):
         return glam_reference(q, k, v, key_mask, onehot, m, l, g_out,
                               causal=causal, diag_reset=diag_reset,
                               dropout_rate=dropout_rate,
@@ -380,7 +360,7 @@ def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
                               glam.data_ptr(), b, tq, tk, num_heads, dh, e,
                               int(causal), int(diag_reset), 1.0 / dh ** 0.5,
                               _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(rc, "mau_glam")
+    _raise_on(rc, "mau_glam", _lib().mau_streamed_error_string)
     mau_glam.launches += 1
     return glam
 
@@ -395,7 +375,7 @@ def mau_intensity_bwd(su, intervals, wd, bd, w, scaling, g_lam):
     CUDA tensors: ``mau_int_bwd_rows_kernel`` then
     ``mau_int_bwd_cols_kernel`` (one launch of the wrapper)."""
     if not _on_card("mau_intensity_bwd", su, intervals, wd, bd, w, scaling,
-                    g_lam):
+                    g_lam, entry="mau_streamed"):
         return intensity_vjp_reference(su, intervals, wd, bd, w, scaling,
                                        g_lam)
     b, h, tq, dh = su.shape
@@ -424,7 +404,7 @@ def mau_intensity_bwd(su, intervals, wd, bd, w, scaling, g_lam):
             g_su.data_ptr(), g_wd.data_ptr(), g_bd.data_ptr(),
             g_w.data_ptr(), g_sc.data_ptr(), b, h, tq, dh, e,
             _stream(su.device))
-    _raise_on(rc, "mau_intensity_bwd")
+    _raise_on(rc, "mau_intensity_bwd", _lib().mau_streamed_error_string)
     mau_intensity_bwd.launches += 1
     return g_su, g_wd, g_bd, g_w.reshape(e, dh), g_sc
 
@@ -462,7 +442,7 @@ def mau_dq(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_dq", q, k, v, t, key_mask, onehot, lam, m, l, g_out,
-                    g_su, rho):
+                    g_su, rho, entry="mau_streamed"):
         return dq_reference(q, k, v, t, key_mask, onehot, lam, m, l, g_out,
                             g_su, rho, causal=causal, diag_reset=diag_reset,
                             dropout_rate=dropout_rate,
@@ -481,7 +461,7 @@ def mau_dq(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
                             tq, tk, num_heads, dh, e, int(causal),
                             int(diag_reset), 1.0 / dh ** 0.5,
                             _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(rc, "mau_dq")
+    _raise_on(rc, "mau_dq", _lib().mau_streamed_error_string)
     mau_dq.launches += 1
     return dq
 
@@ -499,7 +479,7 @@ def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_dkvt", q, k, v, t, key_mask, onehot, lam, m, l,
-                    g_out, g_su, rho):
+                    g_out, g_su, rho, entry="mau_streamed"):
         return dkvt_reference(q, k, v, t, key_mask, onehot, lam, m, l, g_out,
                               g_su, rho, causal=causal, diag_reset=diag_reset,
                               dropout_rate=dropout_rate,
@@ -520,7 +500,7 @@ def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
                               num_heads, dh, e, int(causal), int(diag_reset),
                               1.0 / dh ** 0.5, _DTYPE_CODE[q.dtype],
                               _stream(q.device))
-    _raise_on(rc, "mau_dkvt")
+    _raise_on(rc, "mau_dkvt", _lib().mau_streamed_error_string)
     mau_dkvt.launches += 1
     return dk, dv, dt
 
@@ -550,7 +530,7 @@ def mau_streamed(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     diff = (q, k, v, t, wd, bd, w, scaling)
     if not _on_card("mau_streamed", q, k, v, t, key_mask, intervals, onehot,
-                    wd, bd, w, scaling, differentiable_ok=True):
+                    wd, bd, w, scaling):
         return mau_blocked(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
                            scaling, causal, diag_reset, dropout_rate,
                            num_heads=num_heads, dropout_seed=dropout_seed,

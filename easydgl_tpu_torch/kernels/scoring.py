@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from easydgl_tpu_torch.kernels import build
+from easydgl_tpu_torch.kernels.mau_attention import _on_card, _raise_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_MAX_C = 512
@@ -66,17 +67,15 @@ def catalog_nll(hidden, table, bias, labels):
     """(lse, label_logit) per row, fp32. hidden (N, C) and table (V, C) in
     the compute dtype; bias (V,) fp32; labels (N,) integer ids in [0, V).
     Differentiable in hidden, table and bias."""
-    if hidden.device.type == "cpu":
+    if not _on_card("catalog_nll", hidden, table):
         return catalog_nll_reference(hidden, table, bias, labels)
-    if hidden.device.type != "cuda":
-        raise ValueError(f"catalog_nll: unsupported device {hidden.device}")
     return _CatalogNLL.apply(hidden, table, bias, labels)
 
 
 def catalog_nll_fwd(hidden, table, bias, labels):
     """The forward alone (no autograd): CPU tensors take the plain version,
     CUDA tensors launch the kernel or raise."""
-    if hidden.device.type == "cpu":
+    if not _on_card("catalog_nll_fwd", hidden, table):
         return catalog_nll_reference(hidden, table, bias, labels)
     return _launch_fwd(hidden, table, bias, labels)
 
@@ -87,7 +86,7 @@ catalog_nll_fwd.launches = 0
 def catalog_nll_bwd(hidden, table, bias, labels, lse, dlse, dll):
     """The backward alone: (d_hidden, d_table, d_bias). CPU tensors take
     the plain version, CUDA tensors launch the kernel or raise."""
-    if hidden.device.type == "cpu":
+    if not _on_card("catalog_nll_bwd", hidden, table):
         return catalog_nll_bwd_reference(hidden, table, bias, labels, lse,
                                          dlse, dll)
     return _launch_bwd(hidden, table, bias, labels, lse, dlse, dll)
@@ -160,12 +159,6 @@ def _splits(n: int, v: int) -> int:
     return max(1, min(-(-v // 64), -(-_TARGET_BLOCKS // row_tiles)))
 
 
-def _raise(lib, rc):
-    if rc != 0:
-        raise RuntimeError("catalog_nll kernel launch failed: "
-                           + lib.catalog_cuda_error_string(rc).decode())
-
-
 def _launch_fwd(hidden, table, bias, labels):
     h, t, b, lab, n, v, c = _prep(hidden, table, bias, labels)
     dev = t.device
@@ -179,7 +172,7 @@ def _launch_fwd(hidden, table, bias, labels):
             h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
             lse.data_ptr(), ll.data_ptr(), part.data_ptr(), n, v, c, splits,
             _DTYPE_CODE[t.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    _raise(lib, rc)
+    _raise_on(rc, "catalog_nll", lib.catalog_cuda_error_string)
     catalog_nll_fwd.launches += 1
     return lse, ll
 
@@ -203,6 +196,6 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
             lse_.data_ptr(), dlse_.data_ptr(), dll_.data_ptr(),
             dh_acc.data_ptr(), dt.data_ptr(), db.data_ptr(), n, v, c, splits,
             _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
-    _raise(lib, rc)
+    _raise_on(rc, "catalog_nll", lib.catalog_cuda_error_string)
     catalog_nll_bwd.launches += 1
     return dh_acc.to(hidden.dtype), dt, db

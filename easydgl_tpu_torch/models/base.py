@@ -72,6 +72,16 @@ class SequentialModel(nn.Module):
     data_mode: str = "regressive"
     loss_mode: str = "softmax_eps"
     uses_tpp: bool = False
+    # the long-context attention engine: (module, name of the function its
+    # blocks call there, that function's plain version); a test can swap
+    # the plain version in to hold the kernels against it on one device
+    long_context_engine: Optional[tuple] = None
+
+    @classmethod
+    def flax_layout(cls, cfg: Config, init) -> dict:
+        """The JAX model's ``init`` param tree for ``cfg``, leaves drawn
+        with ``init`` (``parity.FlaxInit``)."""
+        raise NotImplementedError(f"{cls.__name__}.flax_layout")
 
     def __init__(self, cfg: Config):
         super().__init__()

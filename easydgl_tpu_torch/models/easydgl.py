@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from easydgl_tpu_torch.config import Config
+from easydgl_tpu_torch.kernels.mau_blocked import mau_blocked
 from easydgl_tpu_torch.models.base import (INTENSITIES, SCORING, OutputBias,
                                            SequentialModel, mau_impl,
                                            prediction_rows, tied_logits)
@@ -37,6 +38,7 @@ from easydgl_tpu_torch.nn.coding import (Embedding, PositionCoding,
                                          TimeSinusoidCoding)
 from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, Dense, dropout,
                                          gelu_exact, to_compute)
+from easydgl_tpu_torch.nn import temporal
 from easydgl_tpu_torch.nn.temporal import MAU, BiMAU
 
 
@@ -50,6 +52,40 @@ def _clip_spans(ts: torch.Tensor) -> torch.Tensor:
 class EasyDGL(SequentialModel):
     data_mode = "mau"
     uses_tpp = True
+    long_context_engine = (temporal, "mau_streamed", mau_blocked)
+
+    @classmethod
+    def flax_layout(cls, cfg: Config, init) -> dict:
+        """The JAX model's param tree: block 0's fused QKVT kernel takes the
+        3C-wide inputs and is drawn from normal(0.02); vocab and position
+        tables have one more row than the catalog and L (the MASK id)."""
+        c, e = cfg.num_units, cfg.num_events
+        dh = c // cfg.num_heads
+        v = cfg.num_items + 1
+        p = {}
+        for i in range(cfg.num_blocks):
+            c_in = 3 * c if i == 0 else c
+            p[f"block{i}_bimau"] = {
+                "qkvt": {"kernel": init.normal(0.02, c_in, 4 * c),
+                         "bias": init.zeros(4 * c)},
+                "intensity_dense_kernel": init.glorot(dh + 1, e * dh),
+                "intensity_dense_bias": init.zeros(e * dh),
+                "intensity_weight": init.glorot(e, dh),
+                "intensity_scaling": init.zeros(e),
+            }
+            p[f"block{i}_attn_out"] = init.dense(c, c)
+            p[f"block{i}_ln0"] = init.ln(c)
+            p[f"block{i}_inter"] = init.dense(c, 2 * c)
+            p[f"block{i}_out"] = init.dense(2 * c, c)
+            p[f"block{i}_ln1"] = init.ln(c)
+        p["item_embs"] = {"lookup_table": init.glorot(v, c)}
+        p["mark_embs"] = {"lookup_table": init.glorot(e, c)}
+        p["pcoding"] = {"pembs": {"lookup_table": init.glorot(cfg.seqslen + 1,
+                                                              c)}}
+        p["out_bias"] = {"output_bias": init.zeros(v - 1)}
+        p["transform"] = init.dense(c, c)
+        p["transform_ln"] = init.ln(c)
+        return p
 
     def __init__(self, cfg: Config, *, device=None):
         super().__init__(cfg)

@@ -16,6 +16,15 @@ from easydgl_tpu_torch.models.sasrec import SASREC
 MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC}
 
 
+def model_class(cfg: Config) -> type:
+    """The port's class of ``cfg.model``; the JAX factory's
+    ``NotImplementedError`` for a model not ported yet."""
+    if cfg.model not in MODELS:
+        raise NotImplementedError(
+            f"The ranking model: {cfg.model} not implemented")
+    return MODELS[cfg.model]
+
+
 def build_model(cfg: Config, *, device=None,
                 params: Optional[dict] = None) -> SequentialModel:
     """The model for ``cfg`` on ``device`` (default ``cuda``; raises if
@@ -23,11 +32,9 @@ def build_model(cfg: Config, *, device=None,
     layout param tree of numpy arrays — or, without it, drawn from
     ``cfg.seed`` with the flax initializers (parity.random_flax_params)."""
     from easydgl_tpu_torch import parity
-    if cfg.model not in MODELS:
-        raise NotImplementedError(
-            f"The ranking model: {cfg.model} not implemented")
+    cls = model_class(cfg)
     dev = resolve_device(device)
-    model = MODELS[cfg.model](cfg, device=dev)
+    model = cls(cfg, device=dev)
     if params is None:
         params = parity.random_flax_params(cfg, cfg.seed)
     model.load_state_dict(parity.flax_to_torch(params))

@@ -25,9 +25,12 @@ from typing import Optional
 import torch
 
 from easydgl_tpu_torch.config import Config
+from easydgl_tpu_torch.kernels.flash_attention import \
+    flash_attention_reference
 from easydgl_tpu_torch.models.base import (SCORING, OutputBias,
                                            SequentialModel, prediction_rows,
                                            tied_logits)
+from easydgl_tpu_torch.nn import attention
 from easydgl_tpu_torch.nn.attention import MultiHeadAttention
 from easydgl_tpu_torch.nn.coding import Embedding, PositionCoding
 from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, FeedForward,
@@ -36,6 +39,28 @@ from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, FeedForward,
 
 class SASREC(SequentialModel):
     data_mode = "regressive"
+    long_context_engine = (attention, "flash_attention",
+                           flash_attention_reference)
+
+    @classmethod
+    def flax_layout(cls, cfg: Config, init) -> dict:
+        """The JAX model's param tree: block 0's attention and its LN take
+        the 2C-wide concatenated inputs; the position table has L rows."""
+        c, v = cfg.num_units, cfg.num_items
+        p = {}
+        for i in range(cfg.num_blocks):
+            c_in = 2 * c if i == 0 else c
+            p[f"block{i}_attn"] = {name: init.dense(c_in, c)
+                                   for name in ("q", "k", "v")}
+            p[f"block{i}_ffn"] = {"inner": init.dense(c, c),
+                                  "readout": init.dense(c, c)}
+            p[f"block{i}_ln0"] = init.ln(c_in)
+            p[f"block{i}_ln1"] = init.ln(c)
+        p["item_embs"] = {"lookup_table": init.glorot(v, c)}
+        p["out_bias"] = {"output_bias": init.zeros(v - 1)}
+        p["out_ln"] = init.ln(c)
+        p["pcoding"] = {"pembs": {"lookup_table": init.glorot(cfg.seqslen, c)}}
+        return p
 
     def __init__(self, cfg: Config, *, device=None):
         super().__init__(cfg)

@@ -11,9 +11,10 @@ The port's modules carry the flax names, so the mapping is one rule:
 ``load_state_dict`` (strict) then checks that the tree holds exactly the
 model's parameters. ``tf_adam_state_to_torch`` / ``tf_adam_state_to_flax``
 carry the TF-Adam optimizer state (count, mu, nu) the same way, so a JAX
-``TrainState`` after k steps can be continued in the port and back. ``random_flax_params`` draws a tree with the flax
-initializers of the JAX model's ``init`` (EasyDGL, SASREC) from a numpy
-seed, so a full-width model can be built without JAX.
+``TrainState`` after k steps can be continued in the port and back.
+``random_flax_params`` draws a tree of the JAX model's ``init`` layout, which
+each model class gives (``flax_layout``), with flax's initializers from a
+numpy seed, so a full-width model can be built without JAX.
 """
 from __future__ import annotations
 
@@ -83,66 +84,37 @@ def tf_adam_state_to_flax(state) -> tuple:
             torch_to_flax(state.nu))
 
 
-def random_flax_params(cfg: Config, seed: int) -> Dict:
-    """A flax param tree of ``cfg.model``'s layout (EasyDGL or SASREC) drawn
-    with flax's initializers: glorot-uniform Dense kernels and embedding
-    tables, normal(0.02) for EasyDGL's fused QKVT kernel, zero biases /
-    scalings / output bias, unit LN gammas."""
-    rng = np.random.default_rng(seed)
-    c, h, e = cfg.num_units, cfg.num_heads, cfg.num_events
-    dh = c // h
+class FlaxInit:
+    """flax's initializers, drawn in call order from one numpy generator:
+    glorot-uniform Dense kernels and embedding tables, zero biases, unit
+    LayerNorm gammas. A model's ``flax_layout`` builds its tree with it."""
 
-    def glorot(n_in, n_out):
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def glorot(self, n_in: int, n_out: int) -> np.ndarray:
         lim = np.sqrt(6.0 / (n_in + n_out))
-        return rng.uniform(-lim, lim, (n_in, n_out)).astype(np.float32)
+        return self.rng.uniform(-lim, lim, (n_in, n_out)).astype(np.float32)
 
-    def zeros(*shape):
+    def normal(self, std: float, *shape) -> np.ndarray:
+        return (std * self.rng.standard_normal(shape)).astype(np.float32)
+
+    @staticmethod
+    def zeros(*shape) -> np.ndarray:
         return np.zeros(shape, np.float32)
 
-    def dense(n_in, n_out):
-        return {"kernel": glorot(n_in, n_out), "bias": zeros(n_out)}
+    def dense(self, n_in: int, n_out: int) -> Dict:
+        return {"kernel": self.glorot(n_in, n_out), "bias": self.zeros(n_out)}
 
-    def ln(width=c):
-        return {"gamma": np.ones((width,), np.float32), "beta": zeros(width)}
+    @staticmethod
+    def ln(width: int) -> Dict:
+        return {"gamma": np.ones((width,), np.float32),
+                "beta": np.zeros((width,), np.float32)}
 
-    p: Dict = {}
-    if cfg.model == "SASREC":
-        v = cfg.num_items
-        for i in range(cfg.num_blocks):
-            c_in = 2 * c if i == 0 else c
-            p[f"block{i}_attn"] = {name: dense(c_in, c)
-                                   for name in ("q", "k", "v")}
-            p[f"block{i}_ffn"] = {"inner": dense(c, c),
-                                  "readout": dense(c, c)}
-            p[f"block{i}_ln0"] = ln(c_in)
-            p[f"block{i}_ln1"] = ln()
-        p["item_embs"] = {"lookup_table": glorot(v, c)}
-        p["out_bias"] = {"output_bias": zeros(v - 1)}
-        p["out_ln"] = ln()
-        p["pcoding"] = {"pembs": {"lookup_table": glorot(cfg.seqslen, c)}}
-        return {"params": p}
-    if cfg.model != "EasyDGL":
-        raise NotImplementedError(f"random_flax_params: {cfg.model}")
-    v = cfg.num_items + 1
-    for i in range(cfg.num_blocks):
-        c_in = 3 * c if i == 0 else c
-        p[f"block{i}_bimau"] = {
-            "qkvt": {"kernel": (0.02 * rng.standard_normal(
-                (c_in, 4 * c))).astype(np.float32), "bias": zeros(4 * c)},
-            "intensity_dense_kernel": glorot(dh + 1, e * dh),
-            "intensity_dense_bias": zeros(e * dh),
-            "intensity_weight": glorot(e, dh),
-            "intensity_scaling": zeros(e),
-        }
-        p[f"block{i}_attn_out"] = dense(c, c)
-        p[f"block{i}_ln0"] = ln()
-        p[f"block{i}_inter"] = dense(c, 2 * c)
-        p[f"block{i}_out"] = dense(2 * c, c)
-        p[f"block{i}_ln1"] = ln()
-    p["item_embs"] = {"lookup_table": glorot(v, c)}
-    p["mark_embs"] = {"lookup_table": glorot(e, c)}
-    p["pcoding"] = {"pembs": {"lookup_table": glorot(cfg.seqslen + 1, c)}}
-    p["out_bias"] = {"output_bias": zeros(v - 1)}
-    p["transform"] = dense(c, c)
-    p["transform_ln"] = ln()
-    return {"params": p}
+
+def random_flax_params(cfg: Config, seed: int) -> Dict:
+    """A flax param tree of ``cfg.model``'s layout (its class's
+    ``flax_layout``, the tree of the JAX model's ``init``) drawn from
+    ``seed`` with flax's initializers (``FlaxInit``)."""
+    from easydgl_tpu_torch.models.registry import model_class
+    return {"params": model_class(cfg).flax_layout(cfg, FlaxInit(seed))}

@@ -274,6 +274,31 @@ def test_lc_eval_logits_match_jax_blocked_engine(lc_world):
     assert aux["intensities"][0].shape == (B, 2, 256, E)
 
 
+def test_long_context_engine_is_the_function_the_model_calls(lc_world):
+    """``EasyDGL.long_context_engine`` names the streamed MAU call of its
+    BiMAU blocks: a stand-in put there sees the block's call, and the plain
+    version it names (``mau_blocked``) gives the model's logits."""
+    cfg = preset("EasyDGL-LC", **LC_KW)
+    model = build_model(cfg, device="cpu", params=lc_world["params"])
+    module, name, plain = type(model).long_context_engine
+    saved, calls = getattr(module, name), []
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+
+    feats = _torch_feats(lc_world["features"])
+    with torch.no_grad():
+        want, _ = model(feats)
+        setattr(module, name, spy)
+        try:
+            got, _ = model(feats)
+        finally:
+            setattr(module, name, saved)
+    assert len(calls) == cfg.num_blocks
+    assert torch.equal(got, want)
+
+
 def test_lc_eval_step_and_recommend_match_jax(lc_world):
     jcfg = jpreset("EasyDGL-LC").replace(**LC_KW)
     cfg = preset("EasyDGL-LC", **LC_KW)

@@ -154,4 +154,20 @@ def test_cpu_tensors_take_the_plain_version():
     assert all(fn.launches == 0 for fn in FLASH_KERNELS)
     with pytest.raises(ValueError, match="seed"):
         flash_attention(q, k, v, km, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention_fwd", "mau_stats"])
+def test_other_devices_raise(wrapper):
+    """The one device rule the kernel wrappers share: a tensor on a device
+    that is neither the CPU nor a card raises before any kernel is built."""
+    from easydgl_tpu_torch.kernels.mau_streamed import mau_stats
+    q, k, v, km, _ = (x.to("meta") for x in _t(*_data(6, tq=20, tk=20,
+                                                       dh=8)))
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        if wrapper == "mau_stats":
+            b, h, t, dh = q.shape
+            seq = q.transpose(1, 2).reshape(b, t, h * dh)
+            mau_stats(seq, seq, seq, km, num_heads=h)
+        else:
+            flash_attention_fwd(q, k, v, km, causal=True)
     assert flash.NEG == jflash.NEG

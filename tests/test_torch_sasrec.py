@@ -252,6 +252,29 @@ def test_lc_train_step_matches_jax(lc):
     assert calls == [(2, 2, 256, 8)] * 4
 
 
+def test_long_context_engine_is_the_function_the_model_calls(lc):
+    """``SASREC.long_context_engine`` names the flash attention call of its
+    blocks: a stand-in put there sees both blocks' calls, and the plain
+    version it names gives the model's logits."""
+    module, name, plain = type(_port(lc, "flash")).long_context_engine
+    saved, calls = getattr(module, name), []
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+
+    ef = {k: torch.as_tensor(v) for k, v in lc["eval"][0].items()}
+    model = _port(lc, "flash")
+    with torch.no_grad():
+        want, _ = model(ef)
+        setattr(module, name, spy)
+        try:
+            got, _ = model(ef)
+        finally:
+            setattr(module, name, saved)
+    assert len(calls) == 2 and torch.equal(got, want)
+
+
 def test_random_tree_matches_jax_init(small, lc):
     for world in (small, lc):
         cfg = preset(world["name"], **world["kw"])
