@@ -90,6 +90,7 @@ struct FlashParams {
   const float* key_mask;  // (B, Tk)
   const float* lse;       // (B, H, Tq): the forward writes it, the backward reads it
   const float* delta;     // (B, H, Tq)
+  const int* live;        // (B, ceil(Tk / 64)): 0 where a key tile is all masked
   float* lse_out;
   Out4 out, dq, dk, dv;
   const long long* seed;  // dropout seed on the device, or null
@@ -410,8 +411,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dq_kernel(const FlashParams
   const float* km_row = p.key_mask + (size_t)b * p.Tk;
   const T* kg = head<T>(p.k, b, h);
   const T* vg = head<T>(p.v, b, h);
-  auto fetch = [&](int kt) {
-    const int buf = kt & 1;
+  auto fetch = [&](int kt, int buf) {
     async_rows<T, DH>(ks + buf * BK * SD, SD, kg, p.k.rs, kt * BK, p.Tk);
     async_rows<T, DH>(vs + buf * BK * SD, SD, vg, p.v.rs, kt * BK, p.Tk);
     async_vec(kms + buf * BK, km_row, kt * BK, p.Tk);
@@ -428,8 +428,14 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dq_kernel(const FlashParams
     dlt[hr] = i < p.Tq ? p.delta[row0 + i] : 0.f;
   }
   const int nkt = live_key_tiles(p, q0);
+  const int* live = p.live + (size_t)b * ((p.Tk + BK - 1) / BK);
+  auto next_live = [&](int kt) {
+    while (kt < nkt && !live[kt]) ++kt;
+    return kt;
+  };
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  fetch(0);
+  int kt = next_live(0);
+  if (kt < nkt) fetch(kt, 0);
   cp_async_commit();
 
   ARows<T, DH> qa, da;
@@ -439,19 +445,20 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dq_kernel(const FlashParams
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) fetch(kt + 1);
+  for (int buf = 0, first = 1; kt < nkt; buf ^= 1, first = 0) {
+    const int next = next_live(kt + 1);
+    if (next < nkt) fetch(next, buf ^ 1);
     cp_async_commit();
     cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, at kt = 0, q and dO) is in shared memory
-    if (kt == 0) {
+    __syncthreads();  // tile kt (and, the first time, q and dO) is in shared memory
+    if (first) {
       qa.load(qs, SD, warp * 16, lane);
       da.load(dos, SD, warp * 16, lane);
     }
     const int j0 = kt * BK;
-    const T* kb = ks + (kt & 1) * BK * SD;
-    const T* vb = vs + (kt & 1) * BK * SD;
-    const float* kmb = kms + (kt & 1) * BK;
+    const T* kb = ks + buf * BK * SD;
+    const T* vb = vs + buf * BK * SD;
+    const float* kmb = kms + buf * BK;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float s[4][4], dp[4][4];
@@ -478,7 +485,8 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dq_kernel(const FlashParams
         }
       pv<DH>(o, s, kb + half * KH * SD, SD, lane);  // dS @ K
     }
-    __syncthreads();  // the buffer is free for tile kt + 2
+    __syncthreads();  // the buffer is free for the tile after next
+    kt = next;
   }
   asm volatile("cp.async.wait_all;\n" ::);
 
@@ -517,11 +525,15 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParam
     async_vec(st + buf * 2 * BQ + BQ, p.delta + row0, q0, p.Tq);
   };
 
-  async_rows<T, DH>(ks, SD, head<T>(p.k, b, h), p.k.rs, k0, p.Tk);
-  async_rows<T, DH>(vs, SD, head<T>(p.v, b, h), p.v.rs, k0, p.Tk);
-  async_vec(kms, p.key_mask + (size_t)b * p.Tk, k0, p.Tk);
-  // under causal the first query tile that reaches key k0 (BQ == BK)
-  const int qt0 = p.causal ? k0 / BQ : 0;
+  // under causal the first query tile that reaches key k0 (BQ == BK); none
+  // for a key tile that is all masked, which writes dk = dv = 0
+  const bool live = p.live[(size_t)b * nkt + k0 / BK] != 0;
+  const int qt0 = !live ? nqt : p.causal ? k0 / BQ : 0;
+  if (live) {
+    async_rows<T, DH>(ks, SD, head<T>(p.k, b, h), p.k.rs, k0, p.Tk);
+    async_rows<T, DH>(vs, SD, head<T>(p.v, b, h), p.v.rs, k0, p.Tk);
+    async_vec(kms, p.key_mask + (size_t)b * p.Tk, k0, p.Tk);
+  }
   if (qt0 < nqt) fetch(qt0, 0);
   cp_async_commit();
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
@@ -688,14 +700,15 @@ int flash_fwd(const void* q, long long q_bs, long long q_hs, long long q_rs, con
 int flash_dq(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
              long long k_bs, long long k_hs, long long k_rs, const void* v, long long v_bs,
              long long v_hs, long long v_rs, const void* dout, long long d_bs, long long d_hs,
-             long long d_rs, const void* key_mask, const void* lse, const void* delta,
-             const void* seed, unsigned drop_thresh, float drop_scale, void* dq,
+             long long d_rs, const void* key_mask, const void* live, const void* lse,
+             const void* delta, const void* seed, unsigned drop_thresh, float drop_scale, void* dq,
              long long dq_bs, long long dq_hs, long long dq_rs, int B, int H, int Tq, int Tk,
              int dh, int causal, float scale, int dtype, void* stream) {
   FlashParams p = base_params(q, q_bs, q_hs, q_rs, k, k_bs, k_hs, k_rs, v, v_bs, v_hs, v_rs,
                               key_mask, seed, drop_thresh, drop_scale, B, H, Tq, Tk, causal,
                               scale);
   p.dout = {dout, d_bs, d_hs, d_rs};
+  p.live = static_cast<const int*>(live);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = {dq, dq_bs, dq_hs, dq_rs};
@@ -705,8 +718,8 @@ int flash_dq(const void* q, long long q_bs, long long q_hs, long long q_rs, cons
 int flash_dkv(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
               long long k_bs, long long k_hs, long long k_rs, const void* v, long long v_bs,
               long long v_hs, long long v_rs, const void* dout, long long d_bs, long long d_hs,
-              long long d_rs, const void* key_mask, const void* lse, const void* delta,
-              const void* seed, unsigned drop_thresh, float drop_scale, void* dk,
+              long long d_rs, const void* key_mask, const void* live, const void* lse,
+              const void* delta, const void* seed, unsigned drop_thresh, float drop_scale, void* dk,
               long long dk_bs, long long dk_hs, long long dk_rs, void* dv, long long dv_bs,
               long long dv_hs, long long dv_rs, int B, int H, int Tq, int Tk, int dh,
               int causal, float scale, int dtype, void* stream) {
@@ -714,6 +727,7 @@ int flash_dkv(const void* q, long long q_bs, long long q_hs, long long q_rs, con
                               key_mask, seed, drop_thresh, drop_scale, B, H, Tq, Tk, causal,
                               scale);
   p.dout = {dout, d_bs, d_hs, d_rs};
+  p.live = static_cast<const int*>(live);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dk = {dk, dk_bs, dk_hs, dk_rs};

@@ -58,6 +58,7 @@ NEG = -1.0e38   # the masked logit and the running max before a visible key
 KERNEL_FWD_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BWD_HEAD_DIMS = (16, 32, 64)
 _FWD, _DQ, _DKV = range(3)   # as flash_smem_bytes numbers the kernels
+TILE = 64                      # the kernels' query and key tiles
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_uint, ctypes.c_float)
 
@@ -68,9 +69,9 @@ def _lib() -> ctypes.CDLL:
     tail = [_I32] * 6 + [_F32, _I32, _P]
     _bind(lib, "flash_fwd", seq * 3 + [_P, _P, _U32, _F32] + seq + [_P] + tail)
     _bind(lib, "flash_dq",
-          seq * 4 + [_P] * 4 + [_U32, _F32] + seq + tail)
+          seq * 4 + [_P] * 5 + [_U32, _F32] + seq + tail)
     _bind(lib, "flash_dkv",
-          seq * 4 + [_P] * 4 + [_U32, _F32] + seq * 2 + tail)
+          seq * 4 + [_P] * 5 + [_U32, _F32] + seq * 2 + tail)
     lib.flash_smem_bytes.argtypes = [_I32] * 3
     lib.flash_smem_bytes.restype = ctypes.c_size_t
     lib.flash_error_string.argtypes = [_I32]
@@ -160,6 +161,35 @@ def _probs_ds(q, k, v, key_mask, dout, lse, delta, causal, scale, rate, seed):
         pd, dp = p * keep, dp * keep
     ds = torch.where(vis, p * (dp - delta[..., None]), 0.0)
     return pd, ds
+
+
+def flash_live_tiles(key_mask, b: int, tk: int, device=None) -> torch.Tensor:
+    """(B, ceil(Tk / 64)) int32, one code a 64-key tile: 0 where every key
+    of the tile is masked or past Tk (a dead tile, which no query sees), 2
+    where all 64 keys are real and visible (a full tile), 1 otherwise."""
+    nkt = -(-tk // TILE)
+    if key_mask is None:
+        vis = torch.ones((b, tk), dtype=torch.bool, device=device)
+    else:
+        vis = key_mask > 0
+    vis = torch.nn.functional.pad(vis, (0, nkt * TILE - tk)).view(b, nkt, TILE)
+    return (vis.any(-1).int() + vis.all(-1).int()).contiguous()
+
+
+def flash_visited_tiles(live: torch.Tensor, tq: int,
+                        causal: bool) -> torch.Tensor:
+    """(B, ceil(Tq / 64), ceil(Tk / 64)) bool: the (query tile, key tile)
+    pairs the backward computes, from ``flash_live_tiles``. A dead key tile
+    is visited by no query tile; under causal a live one by the query tiles
+    from its diagonal on (query tile qt holds a query at or after key tile
+    kt's first key where qt >= kt)."""
+    b, nkt = live.shape
+    nqt = -(-tq // TILE)
+    vis = (live > 0)[:, None, :].expand(b, nqt, nkt)
+    if causal:
+        qt = torch.arange(nqt, device=live.device)[:, None]
+        vis = vis & (qt >= torch.arange(nkt, device=live.device)[None])
+    return vis
 
 
 @torch.no_grad()
@@ -306,12 +336,13 @@ def flash_attention_dq(q, k, v, key_mask, dout, lse, delta, *,
     b, h, tq, tk, dh, (qa, ka, va, da), km, lib = _inputs(
         "flash_attention_dq", _DQ, q, k, v, key_mask, dout=dout.to(q.dtype))
     lse, delta = _bwd_stats(lse, delta, b, h, tq)
+    live = flash_live_tiles(km, b, tk)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
     dq = _like_heads(b, h, tq, dh, q.dtype, q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_dq(*_seq4(qa), *_seq4(ka), *_seq4(va), *_seq4(da),
-                          km.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          km.data_ptr(), live.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           seed_ptr, thresh, dscale, *_seq4(dq), b, h, tq, tk,
                           dh, int(causal), _scale(q, scale),
                           _DTYPE_CODE[q.dtype], _stream(q.device))
@@ -340,13 +371,14 @@ def flash_attention_dkv(q, k, v, key_mask, dout, lse, delta, *,
         "flash_attention_dkv", _DKV, q, k, v, key_mask,
         dout=dout.to(q.dtype))
     lse, delta = _bwd_stats(lse, delta, b, h, tq)
+    live = flash_live_tiles(km, b, tk)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
     dk = _like_heads(b, h, tk, dh, q.dtype, q.device)
     dv = _like_heads(b, h, tk, dh, q.dtype, q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_dkv(*_seq4(qa), *_seq4(ka), *_seq4(va), *_seq4(da),
-                           km.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           km.data_ptr(), live.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            seed_ptr, thresh, dscale, *_seq4(dk), *_seq4(dv),
                            b, h, tq, tk, dh, int(causal), _scale(q, scale),
                            _DTYPE_CODE[q.dtype], _stream(q.device))
