@@ -15,9 +15,11 @@ own), the three streamed long-context MAU forward kernels (stats, intensity
 head, modulated output) and the four streamed backward kernels (d-lambda,
 the intensity head's VJP, dq, dk/dv/dt), each on the blocked plain
 version's inputs, and the chained streamed backward against the blocked
-one, the three flash attention kernels (forward, dq, dk/dv) and their
-chained backward — and times each against its bound (the flash kernels
-also against ``F.scaled_dot_product_attention`` on the same inputs). Then
+one, the two flash attention kernels (the forward, and the backward that
+forms dq, dk and dv in one key-major pass over the live key tiles) and
+their chained backward — and times each against its bound (the flash
+kernels also against ``F.scaled_dot_product_attention`` on the same
+inputs). Then
 it drives the port's main
 paths, each with the launch counters set to 0 just before it and read just
 after:
@@ -38,7 +40,7 @@ after:
   blocks, bf16): eval batches and ``recommend`` requests through the flash
   forward kernel;
 * training on SASREC-LC: 10 faithful train steps (dropout 0.1 / 0.1, the
-  softmax-eps loss over every position, TF-Adam) through the three flash
+  softmax-eps loss over every position, TF-Adam) through the two flash
   kernels and the catalog kernels, then 5 on one repeated batch.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
@@ -73,9 +75,10 @@ from easydgl_tpu_torch.eval.recommender import Recommender
 from easydgl_tpu_torch.kernels import build
 from easydgl_tpu_torch.kernels.flash_attention import (
     FLASH_KERNELS, KERNEL_BWD_HEAD_DIMS, flash_attention,
-    flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
-    flash_attention_reference, flash_delta, flash_dkv_reference,
-    flash_dq_reference, flash_fwd_reference)
+    flash_attention_bwd, flash_attention_fwd, flash_attention_reference,
+    flash_bwd_reference, flash_delta, flash_fwd_reference, flash_live_tiles,
+    flash_visited_tiles)
+from easydgl_tpu_torch.kernels.mau_attention import dropout_factor
 from easydgl_tpu_torch.kernels.mau_attention import (
     _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
     mau_attention_bwd_reference, mau_attention_reference)
@@ -770,7 +773,20 @@ FLASH_CASES = (
      0.1),
     ("tq300_tk77_full_bf16", 2, 4, 300, 77, 32, torch.bfloat16, False, 0.0),
     ("tq300_tk77_causal_bf16_drop", 2, 4, 300, 77, 64, torch.bfloat16, True,
-     0.1))
+     0.1),
+    # whole batch rows of padding (rows 0 and 2) beside a row with none
+    ("t1000_dead_rows_causal_bf16_drop", 4, 2, 1000, 1000, 64,
+     torch.bfloat16, True, 0.1),
+    # Tk not a multiple of 64, padding that ends mid-tile (100 keys)
+    ("t333_midtile_causal_bf16_drop", 2, 4, 333, 333, 64, torch.bfloat16,
+     True, 0.1),
+    ("t333_midtile_full_fp32", 2, 4, 333, 333, 64, torch.float32, False,
+     0.0))
+# left padding a batch row for the cases that set it (Tk or more: a row of
+# padding), in place of random lengths
+FLASH_PAD = {"t1000_dead_rows_causal_bf16_drop": (1000, 300, 1000, 0),
+             "t333_midtile_causal_bf16_drop": (0, 100),
+             "t333_midtile_full_fp32": (0, 100)}
 # the forward also takes dh = 128 (the backward kernels do not)
 FLASH_FWD_ONLY_CASES = (
     ("t300_causal_bf16_dh128", 2, 2, 300, 300, 128, torch.bfloat16, True,
@@ -780,10 +796,11 @@ FLASH_FWD_ONLY_CASES = (
 FLASH_GRADS = ("dq", "dk", "dv")
 
 
-def flash_inputs(b, h, tq, tk, dh, dtype, seed):
+def flash_inputs(b, h, tq, tk, dh, dtype, seed, pad=None):
     """q, k, v, dO ~ N(0, 1) in (B, H, T, dh) views of the (B, T, C)
-    layout the model gives them; a key mask with 10% holes, left-padded (a
-    random length a row) where Tq == Tk, with row 0 fully masked."""
+    layout the model gives them; a key mask with 10% holes, left-padded where
+    Tq == Tk (``pad`` keys a row, else a random length a row), with row 0
+    fully masked."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -794,7 +811,9 @@ def flash_inputs(b, h, tq, tk, dh, dtype, seed):
     q, k, v, dout = heads(tq), heads(tk), heads(tk), heads(tq)
     km = (torch.rand(b, tk, generator=g, device=dev) > 0.1).float()
     if tq == tk:
-        lengths = torch.randint(1, tk + 1, (b,), generator=g, device=dev)
+        lengths = (torch.randint(1, tk + 1, (b,), generator=g, device=dev)
+                   if pad is None else
+                   tk - torch.tensor(pad, device=dev).clamp(max=tk))
         km = km * (torch.arange(tk, device=dev)[None]
                    >= tk - lengths[:, None]).float()
     km[0] = 0.0
@@ -806,9 +825,8 @@ def flash_plain_chain(q, k, v, km, dout, kw):
     (out, lse, delta, dq, dk, dv)."""
     out, lse = flash_fwd_reference(q, k, v, km, **kw)
     delta = flash_delta(dout, out)
-    dq = flash_dq_reference(q, k, v, km, dout, lse, delta, **kw)
-    dk, dv = flash_dkv_reference(q, k, v, km, dout, lse, delta, **kw)
-    return out, lse, delta, dq, dk, dv
+    return (out, lse, delta) + flash_bwd_reference(q, k, v, km, dout, lse,
+                                                   delta, **kw)
 
 
 def flash_chain(fn, q, k, v, km, dout, kw):
@@ -819,20 +837,56 @@ def flash_chain(fn, q, k, v, km, dout, kw):
     return torch.autograd.grad((out.float() * dout.float()).sum(), diff)
 
 
-def check_zero_row(name, tensors):
+def check_zero_row(name, tensors, rows=(0,)):
     for label, x in tensors:
-        check(float(x[0].float().abs().max()) == 0.0,
-              f"{name}: {label} is not exactly 0 on the fully masked row")
+        for r in rows:
+            check(float(x[r].float().abs().max()) == 0.0,
+                  f"{name}: {label} is not exactly 0 on the fully masked"
+                  f" row {r}")
+
+
+def flash_dropout_probe(dtype):
+    """q = 0 and k = v = I (uniform probs 1/t over the t keys): out, dq (at
+    dO = 1) and dv (at dO = I) of the kernels show the keep factor of every
+    (i, j) as they drew it; each is held to ``dropout_factor``. out * t is
+    keep rounded to the compute dtype (p = exp(0) = 1 exactly); dv and dq
+    carry p = exp(-log t), within an ulp of 1/t, rounded to bf16 once (dv)
+    or twice (dq: ds, then dq) in bf16."""
+    b, h, t, rate = 2, 2, 64, 0.25
+    eye = torch.eye(t, device="cuda").expand(b, h, t, t).to(dtype)
+    eye = eye.contiguous()
+    q = torch.zeros(b, h, t, t, device="cuda", dtype=dtype)
+    ones = torch.ones(b, h, t, t, device="cuda", dtype=dtype)
+    km = torch.ones(b, t, device="cuda")
+    kw = dict(causal=False, dropout_rate=rate, scale=1.0,
+              seed=torch.tensor(123, device="cuda"))
+    out, lse = flash_attention_fwd(q, eye, eye, km, **kw)
+    delta = flash_delta(ones, out)
+    dq = flash_attention_bwd(q, eye, eye, km, ones, lse, delta, **kw)[0]
+    dv = flash_attention_bwd(q, eye, eye, km, eye, lse,
+                             flash_delta(eye, out), **kw)[2]
+    keep = dropout_factor(123, (b, h, t, t), rate, "cuda")
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(out.float() * t, keep.to(dtype).float(),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(dv.transpose(-1, -2).float() * t, keep,
+                               atol=0, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(dq.float() * t + delta[..., None], keep,
+                               atol=2e-2 if bf16 else 1e-5, rtol=0)
+    log(f"  dropout probe ({str(dtype)[6:]}): out, dq and dv of the kernels"
+        f" draw dropout_factor's mask (keep {float((keep > 0).float().mean()):.4f})")
 
 
 def phase_flash_checks():
-    log("phase 3f: flash attention kernels (forward, dq, dk/dv) vs the plain"
-        " versions on the card, each kernel on the plain version's inputs;"
-        " then the chained _FlashAttention backward")
+    log("phase 3f: flash attention kernels (forward; dq, dk, dv in one"
+        " backward) vs the plain versions on the card, each kernel on the"
+        " plain version's inputs, the backward launched twice; then the"
+        " chained _FlashAttention backward and the dropout probe")
     errs = {}
     for i, (name, b, h, tq, tk, dh, dtype, causal, rate) in enumerate(
             FLASH_CASES + FLASH_FWD_ONLY_CASES):
-        q, k, v, km, dout = flash_inputs(b, h, tq, tk, dh, dtype, 900 + i)
+        q, k, v, km, dout = flash_inputs(b, h, tq, tk, dh, dtype, 900 + i,
+                                         FLASH_PAD.get(name))
         sd = torch.tensor(9000 + i, dtype=torch.int64, device="cuda")
         kw = dict(causal=causal, dropout_rate=rate, seed=sd)
         got = flash_attention_fwd(q, k, v, km, **kw)
@@ -858,14 +912,22 @@ def phase_flash_checks():
         out_p, lse_p, delta_p, dq_p, dk_p, dv_p = flash_plain_chain(
             q, k, v, km, dout, kw)
         bwd = (q, k, v, km, dout, lse_p, delta_p)
-        dq = flash_attention_dq(*bwd, **kw)
-        dk, dv = flash_attention_dkv(*bwd, **kw)
+        grads = flash_attention_bwd(*bwd, **kw)
         torch.cuda.synchronize()
-        case["flash_attention_dq"] = compare_by_scale(name, ("dq",), (dq,),
-                                                      (dq_p,), dtype)
-        case["flash_attention_dkv"] = compare_by_scale(
-            name, ("dk", "dv"), (dk, dv), (dk_p, dv_p), dtype)
-        check_zero_row(name, [("dq", dq), ("dk", dk), ("dv", dv)])
+        case["flash_attention_bwd"] = compare_by_scale(
+            name, FLASH_GRADS, grads, (dq_p, dk_p, dv_p), dtype)
+        dead = [r for r in range(b) if not bool((km[r] > 0).any())]
+        check_zero_row(name, zip(FLASH_GRADS, grads), dead)
+        # run to run: dk and dv are each one block's sums, so two launches
+        # agree exactly; dq sums a row's key tiles by atomics in the order
+        # the blocks run, so it is held to the kernel-vs-plain tolerance
+        again = flash_attention_bwd(*bwd, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(again[1], grads[1]) and torch.equal(again[2],
+                                                              grads[2]),
+              f"{name}: dk / dv differ between two launches")
+        compare_by_scale(name + "_rerun", ("dq",), again[:1], grads[:1],
+                         dtype)
         # the chained backward: fp32 against autograd of the plain forward,
         # bf16 against the chained plain pieces (the same rounding points)
         chain = flash_chain(flash_attention, q, k, v, km, dout, kw)
@@ -873,18 +935,21 @@ def phase_flash_checks():
         ref = (flash_chain(flash_attention_reference, q, k, v, km, dout, kw)
                if dtype == torch.float32 else (dq_p, dk_p, dv_p))
         compare_by_scale(name + "_chain", FLASH_GRADS, chain, ref, dtype)
-        check_zero_row(name + "_chain", zip(FLASH_GRADS, chain))
+        check_zero_row(name + "_chain", zip(FLASH_GRADS, chain), dead)
         errs[name] = case
-        del got, want, scale, out_p, dq_p, dk_p, dv_p, chain, ref
+        del got, want, scale, out_p, dq_p, dk_p, dv_p, chain, ref, grads
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_dropout_probe(dtype)
     return errs
 
 
 SASREC_LC_ATTN = dict(b=32, h=8, t=2048, dh=64)   # one SASREC-LC block
-FLASH_BWD_NAMES = ("flash_attention_dq", "flash_attention_dkv")
-FLASH_REPLACES = {
-    "flash_attention_fwd": "easydgl_tpu/kernels/flash_attention.py:318",
-    "flash_attention_dq": "easydgl_tpu/kernels/flash_attention.py:366",
-    "flash_attention_dkv": "easydgl_tpu/kernels/flash_attention.py:390"}
+# one backward kernel replaces the TPU's dq and dk/dv kernels: the kernels
+# line has an entry for each TPU row, both naming it
+FLASH_REPLACES = (
+    ("flash_attention_fwd", "easydgl_tpu/kernels/flash_attention.py:318"),
+    ("flash_attention_bwd", "easydgl_tpu/kernels/flash_attention.py:366"),
+    ("flash_attention_bwd", "easydgl_tpu/kernels/flash_attention.py:390"))
 
 
 def visible_pairs(km, t, causal=True) -> float:
@@ -899,19 +964,28 @@ def visible_pairs(km, t, causal=True) -> float:
 
 def flash_work(name, km, *, h, t, dh, dtype, causal=True):
     """(bytes, flops) of one flash kernel on these inputs: q, k, v (dO) read
-    once, out (dq; dk, dv) written once, the key mask and the fp32 row
+    once, out (dq, dk, dv) written once, the key mask and the fp32 row
     stats; the products over the visible pairs (``visible_pairs``), which
-    the function needs. The kernels do more: they skip whole tiles after
-    the diagonal, not masked keys."""
+    the function needs: two in the forward (QK^T, PV), five in the backward
+    (QK^T, dO V^T, P^T dO, dS^T Q, dS K). The kernels do more: they compute
+    whole 64 x 64 tiles, those on the diagonal and those with masked keys."""
     b = km.shape[0]
     it = torch.tensor([], dtype=dtype).element_size()
     seq, rows = it * b * h * t * dh, b * h * t
     product = 2 * h * visible_pairs(km, t, causal) * dh
     if name == "flash_attention_fwd":   # q, k, v in; out, lse out
         return 4 * seq + 4 * b * t + 4 * rows, 2 * product
-    if name == "flash_attention_dq":    # q, k, v, dO, lse, delta in; dq out
-        return 5 * seq + 4 * b * t + 8 * rows, 3 * product
-    return 6 * seq + 4 * b * t + 8 * rows, 4 * product   # dk, dv out
+    # q, k, v, dO, lse, delta in; dq, dk, dv out
+    return 7 * seq + 4 * b * t + 8 * rows, 5 * product
+
+
+def visited_tile_share(km, t, causal=True) -> float:
+    """The share of the causal (query tile, key tile) pairs that the
+    backward visits on this key mask (``flash_visited_tiles``)."""
+    b, n = km.shape[0], -(-t // 64)
+    visited = flash_visited_tiles(flash_live_tiles(km, b, t), t, causal)
+    return float(visited.sum()) / (b * (n * (n + 1) // 2 if causal
+                                        else n * n))
 
 
 def sdpa_times(q, k, v, dout, mask):
@@ -948,12 +1022,9 @@ def phase_flash_timing():
             "flash_attention_fwd": (
                 lambda kw: flash_attention_fwd(q, k, v, km, **kw),
                 lambda: flash_fwd_reference(q, k, v, km, **kw0)),
-            "flash_attention_dq": (
-                lambda kw: flash_attention_dq(*bwd, **kw),
-                lambda: flash_dq_reference(*bwd, **kw0)),
-            "flash_attention_dkv": (
-                lambda kw: flash_attention_dkv(*bwd, **kw),
-                lambda: flash_dkv_reference(*bwd, **kw0))}
+            "flash_attention_bwd": (
+                lambda kw: flash_attention_bwd(*bwd, **kw),
+                lambda: flash_bwd_reference(*bwd, **kw0))}
         t = sh["t"]
         tril = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
         mask = (km > 0)[:, None, None, :] & tril
@@ -978,18 +1049,15 @@ def phase_flash_timing():
             rows[(name, dtype)] = dict(ms=ms, ms_dropout=ms_drop,
                                        plain_ms=plain_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, library_ms=lib_ms)
-        # no library call computes dq alone or dk, dv alone: both rows hold
-        # SDPA's whole backward, and beside it the two kernels' sum
-        bwd_ms = sum(rows[(n, dtype)]["ms"] for n in FLASH_BWD_NAMES)
-        for n in FLASH_BWD_NAMES:
-            rows[(n, dtype)].update(
-                library_covers="dq, dk and dv: SDPA's whole backward",
-                backward_ms=bwd_ms)
+        rows[("flash_attention_bwd", dtype)]["library_covers"] = (
+            "dq, dk and dv: SDPA's whole backward")
         pairs, causal_pairs = visible_pairs(km, t), sh["b"] * t * (t + 1) / 2
+        bwd_ms = rows[("flash_attention_bwd", dtype)]["ms"]
         log(f"  visible (query, key) pairs: {pairs:.0f} of the"
             f" {causal_pairs:.0f} causal ones ({pairs / causal_pairs:.4f});"
-            f" dq + dk/dv {bwd_ms:.4f} ms against SDPA's backward"
-            f" {sdpa_b:.4f} ms")
+            f" key tiles the backward visits: {visited_tile_share(km, t):.4f}"
+            f" of the causal tile pairs; backward {bwd_ms:.4f} ms against"
+            f" SDPA's backward {sdpa_b:.4f} ms ({sdpa_b / bwd_ms:.2f}x)")
         log(f"  SDPA ({str(dtype)[6:]}) with the key_mask & causal boolean"
             f" mask: forward {sdpa_f:.4f} ms, backward (dq, dk, dv together)"
             f" {sdpa_b:.4f} ms; with is_causal=True and no key mask (another"
@@ -1819,7 +1887,7 @@ def kernel_names(log_text: str):
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
                   r"mau_dkvt_mma_kernel|mau_dkvt_kernel|"
                   r"mau_int_bwd_rows_kernel|mau_int_bwd_cols_kernel|"
-                  r"flash_fwd_kernel|flash_dq_kernel|flash_dkv_kernel)"
+                  r"flash_fwd_kernel|flash_bwd_kernel)"
                   r"(I?\w*)",
                   log_text)
     if not m:
@@ -1954,22 +2022,20 @@ def main() -> int:
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)
-    for fn in FLASH_KERNELS:
-        name = fn.__name__
+    for name, replaces in FLASH_REPLACES:
         row = flash_timing[(name, bf16)]
         per_path = {"training_sasrec_lc": sas_train_launches[name]}
-        if fn is flash_attention_fwd:
+        if name == "flash_attention_fwd":
             per_path["serving_sasrec_lc"] = sas_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "flash_attention.cu",
-            replaces=FLASH_REPLACES[name], launches=sum(per_path.values()),
+            replaces=replaces, launches=sum(per_path.values()),
             launches_per_path=per_path,
             max_abs_err=flash_errs["lc_causal_bf16_drop"][name],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             ms_dropout_0_1=row["ms_dropout"],
-            **{key: row[key] for key in ("library_covers", "backward_ms")
-               if key in row}))
+            **{key: row[key] for key in ("library_covers",) if key in row}))
     log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
         + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
         + f" ms per B=8 batch on {card}")

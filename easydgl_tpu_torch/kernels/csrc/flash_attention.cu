@@ -92,7 +92,8 @@ struct FlashParams {
   const float* delta;     // (B, H, Tq)
   const int* live;        // (B, ceil(Tk / 64)): 0 where a key tile is all masked
   float* lse_out;
-  Out4 out, dq, dk, dv;
+  Out4 out, dk, dv;
+  float* dq_ws;  // (B, Tq, H, dh) fp32, zeroed: the backward adds scale * dS @ K
   const long long* seed;  // dropout seed on the device, or null
   unsigned drop_thresh;
   float drop_scale;
@@ -100,7 +101,7 @@ struct FlashParams {
   int B, H, Tq, Tk, causal;
 };
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kFwd = 0, kBwd = 1 };
 
 template <typename T>
 __device__ __forceinline__ const T* head(const Seq4& s, int b, int h) {
@@ -122,11 +123,12 @@ __host__ __device__ constexpr int row_stride() {
 
 template <typename T, int DH>
 __host__ __device__ constexpr size_t smem_bytes_of(int which) {
-  // forward: q + 2 k + 2 v tiles, 2 x 64 key-mask floats; dq: q, dO + 2 k +
-  // 2 v; dkv: k, v + 2 q + 2 dO, 64 key-mask floats + 2 x (lse, delta)
-  return which == kFwd  ? sizeof(T) * 5 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK
-         : which == kDq ? sizeof(T) * 6 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK
-                        : sizeof(T) * 6 * 64 * row_stride<T, DH>() + sizeof(float) * 5 * BK;
+  // forward: q + 2 k + 2 v tiles, 2 x 64 key-mask floats; backward: k, v +
+  // 2 q + 2 dO tiles, the (64 x 64) dS^T tile, 64 key-mask floats + 2 x
+  // (lse, delta)
+  return which == kFwd ? sizeof(T) * 5 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK
+                       : sizeof(T) * (6 * 64 * row_stride<T, DH>() + 64 * row_stride<T, BQ>()) +
+                             sizeof(float) * 5 * BK;
 }
 
 // rows [r0, r0 + 64) x DH columns of a row-major source (row stride rs) into
@@ -392,126 +394,122 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
   store_rows<T, DH>(head<T>(p.out, b, h), p.out.rs, o, inv, r0, p.Tq, lane);
 }
 
-// ---------------------------------------------------------------- dq
+// ---------------------------------------------------------------- backward
+// One key-major pass: a block owns 64 keys of one (b, h), with K and V
+// resident in shared memory, and streams the query tiles that can see them
+// (none for a dead key tile; under causal those from the diagonal on). For
+// each query tile it forms S^T = K Q^T and dP^T = V dO^T once; each warp
+// owns 16 keys, and its transposed (16 keys x 32 queries) tiles are the A
+// operands of dv += rnd(p keep)^T @ dO and dk += rnd(ds)^T @ Q, kept in
+// registers. rnd(ds)^T goes to shared memory once; the block then forms the
+// tile's dQ = rnd(ds) @ K (times scale) and adds it to the fp32 workspace
+// with atomics: row i of dq sums over the key tiles of its row in whatever
+// order the blocks run.
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreadsMma) flash_dq_kernel(const FlashParams p) {
-  constexpr int SD = row_stride<T, DH>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // [64][SD]
-  T* dos = qs + 64 * SD;                   // [64][SD] dO
-  T* ks = dos + 64 * SD;                   // [2][BK][SD]
-  T* vs = ks + 2 * BK * SD;                // [2][BK][SD]
-  float* kms = reinterpret_cast<float*>(vs + 2 * BK * SD);  // [2][BK] key mask
+// The 16-byte-aligned pair (a, b) added to dst[0], dst[1] in device memory.
+__device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
+#if defined(__CUDACC_VER_MAJOR__) && \
+    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 2))
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
+#else
+  atomicAdd(dst, a);
+  atomicAdd(dst + 1, b);
+#endif
+}
 
-  const int nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  const T* kg = head<T>(p.k, b, h);
-  const T* vg = head<T>(p.v, b, h);
-  auto fetch = [&](int kt, int buf) {
-    async_rows<T, DH>(ks + buf * BK * SD, SD, kg, p.k.rs, kt * BK, p.Tk);
-    async_rows<T, DH>(vs + buf * BK * SD, SD, vg, p.v.rs, kt * BK, p.Tk);
-    async_vec(kms + buf * BK, km_row, kt * BK, p.Tk);
-  };
+// Whether entries of the tile (query tile q0, key tile k0, key-tile code)
+// must be tested one by one: a tile with masked or missing keys, the
+// causal diagonal, and the ragged query edge.
+__device__ __forceinline__ bool test_entries(const FlashParams& p, int code, int q0, int k0) {
+  return code != 2 || (p.causal && k0 + BK - 1 > q0) || q0 + BQ > p.Tq;
+}
 
-  async_rows<T, DH>(qs, SD, head<T>(p.q, b, h), p.q.rs, q0, p.Tq);
-  async_rows<T, DH>(dos, SD, head<T>(p.dout, b, h), p.dout.rs, q0, p.Tq);
-  const size_t row0 = (size_t)bh * p.Tq;
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    lse[hr] = i < p.Tq ? p.lse[row0 + i] : 0.f;
-    dlt[hr] = i < p.Tq ? p.delta[row0 + i] : 0.f;
-  }
-  const int nkt = live_key_tiles(p, q0);
-  const int* live = p.live + (size_t)b * ((p.Tk + BK - 1) / BK);
-  auto next_live = [&](int kt) {
-    while (kt < nkt && !live[kt]) ++kt;
-    return kt;
-  };
-  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  int kt = next_live(0);
-  if (kt < nkt) fetch(kt, 0);
-  cp_async_commit();
-
-  ARows<T, DH> qa, da;
+// dq_tile (64 queries x DH) = rnd(ds) @ K from dS^T in shared memory ([key]
+// [query], row stride ld) and the key tile ks; scaled and added to the
+// workspace rows [q0, q0 + 64) of this (b, h) (row stride wrs). bf16: each warp 16 query
+// rows, A fragments by ldmatrix.trans, mma.sync.
+template <int DH>
+__device__ __forceinline__ void dq_tile(float* ws, int wrs, const bf16* dss, int ld, const bf16* ks,
+                                        int SD, int q0, int Tq, float scale, int warp,
+                                        int lane) {
   float o[DH / 8][4];
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-
-  for (int buf = 0, first = 1; kt < nkt; buf ^= 1, first = 0) {
-    const int next = next_live(kt + 1);
-    if (next < nkt) fetch(next, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, the first time, q and dO) is in shared memory
-    if (first) {
-      qa.load(qs, SD, warp * 16, lane);
-      da.load(dos, SD, warp * 16, lane);
+  const int mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4_trans(a, dss + (kk * 16 + r + 8 * (mat >> 1)) * ld + warp * 16 + 8 * (mat & 1));
+#pragma unroll
+    for (int n2 = 0; n2 < DH / 16; ++n2) {
+      uint32_t bb[4];
+      ldmatrix_x4_trans(bb, ks + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * SD + 16 * n2 +
+                                (lane >> 4) * 8);
+      mma_bf16(o[2 * n2], a, bb[0], bb[1]);
+      mma_bf16(o[2 * n2 + 1], a, bb[2], bb[3]);
     }
-    const int j0 = kt * BK;
-    const T* kb = ks + buf * BK * SD;
-    const T* vb = vs + buf * BK * SD;
-    const float* kmb = kms + buf * BK;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-      qa.mul(s, kb + half * KH * SD, SD, lane);
-      da.mul(dp, vb + half * KH * SD, SD, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hr = c >> 1, jj = half * KH + n * 8 + 2 * t4 + (c & 1);
-          const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
-          float ds = 0.f;
-          if (visible(kmb[jj], i, j, p.Tq, p.Tk, p.causal)) {
-            const float pr = expf(s[n][c] * p.scale - lse[hr]);
-            float d = dp[n][c];
-            if (drop.on && pr != 0.f) d *= drop.factor(b, h, i, j);
-            ds = pr * (d - dlt[hr]);
-          }
-          s[n][c] = ds;
-        }
-      pv<DH>(o, s, kb + half * KH * SD, SD, lane);  // dS @ K
-    }
-    __syncthreads();  // the buffer is free for the tile after next
-    kt = next;
   }
-  asm volatile("cp.async.wait_all;\n" ::);
-
-  const float mul[2] = {p.scale, p.scale};
-  store_rows<T, DH>(head<T>(p.dq, b, h), p.dq.rs, o, mul, q0 + warp * 16, p.Tq, lane);
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = q0 + warp * 16 + g + 8 * hr;
+    if (i >= Tq) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      atomic_add2(ws + (size_t)i * wrs + n * 8 + 2 * t4, o[n][2 * hr] * scale,
+                  o[n][2 * hr + 1] * scale);
+  }
 }
 
-// ---------------------------------------------------------------- dkv
-// Key-major: a warp owns 16 of the block's 64 keys; the query tiles stream
-// through shared memory, and each half's transposed (16 keys x 32 queries)
-// tiles are the A operands of dv += P^T @ dO and dk += dS^T @ Q.
+// fp32: each thread 4 query rows x DH / 8 columns on the CUDA cores.
+template <int DH>
+__device__ __forceinline__ void dq_tile(float* ws, int wrs, const float* dss, int ld, const float* ks,
+                                        int SD, int q0, int Tq, float scale, int warp,
+                                        int lane) {
+  constexpr int NC = DH / 8;
+  const int tid = warp * 32 + lane, r0 = (tid >> 3) * 4, c0 = (tid & 7) * NC;
+  float o[4][NC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[r][c] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < BK; ++j) {
+    float d[4], kv[NC];
+    lds<4>(dss + j * ld + r0, d);
+    lds<NC>(ks + j * SD + c0, kv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[r][c] = fmaf(d[r], kv[c], o[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + r0 + r;
+    if (i >= Tq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; c += 2)
+      atomic_add2(ws + (size_t)i * wrs + c0 + c, o[r][c] * scale, o[r][c + 1] * scale);
+  }
+}
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParams p) {
-  constexpr int SD = row_stride<T, DH>();
+__global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParams p) {
+  constexpr int SD = row_stride<T, DH>(), SS = row_stride<T, BQ>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [BK][SD] the block's keys
   T* vs = ks + BK * SD;                    // [BK][SD]
   T* qs = vs + BK * SD;                    // [2][BQ][SD] q of a query tile
   T* dos = qs + 2 * BQ * SD;               // [2][BQ][SD] dO
-  float* kms = reinterpret_cast<float*>(dos + 2 * BQ * SD);  // [BK] key mask
-  float* st = kms + BK;                    // [2][2][BQ] lse, delta
+  T* dss = dos + 2 * BQ * SD;              // [BK][SS] rnd(ds)^T of the tile
+  float* kms = reinterpret_cast<float*>(dss + BK * SS);  // [BK] key mask
+  float* st = kms + BK;                                  // [2][2][BQ] lse, delta
 
-  const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nkt, k0 = (blockIdx.x - bh * nkt) * BK;
+  // heaviest first: under causal key tile 0 sees every query tile
+  const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ, BH = p.B * p.H;
+  const int kt = blockIdx.x / BH, bh = blockIdx.x - kt * BH, k0 = kt * BK;
   const int b = bh / p.H, h = bh - b * p.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const size_t row0 = (size_t)bh * p.Tq;
@@ -525,18 +523,18 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParam
     async_vec(st + buf * 2 * BQ + BQ, p.delta + row0, q0, p.Tq);
   };
 
-  // under causal the first query tile that reaches key k0 (BQ == BK); none
-  // for a key tile that is all masked, which writes dk = dv = 0
-  const bool live = p.live[(size_t)b * nkt + k0 / BK] != 0;
-  const int qt0 = !live ? nqt : p.causal ? k0 / BQ : 0;
-  if (live) {
+  // a dead key tile visits no query tile and writes dk = dv = 0
+  const int code = p.live[(size_t)b * nkt + kt];
+  const int qt0 = code == 0 ? nqt : p.causal ? k0 / BQ : 0;
+  if (qt0 < nqt) {
     async_rows<T, DH>(ks, SD, head<T>(p.k, b, h), p.k.rs, k0, p.Tk);
     async_rows<T, DH>(vs, SD, head<T>(p.v, b, h), p.v.rs, k0, p.Tk);
     async_vec(kms, p.key_mask + (size_t)b * p.Tk, k0, p.Tk);
+    fetch(qt0, 0);
   }
-  if (qt0 < nqt) fetch(qt0, 0);
   cp_async_commit();
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  float* ws = p.dq_ws + ((size_t)b * p.Tq * p.H + h) * DH;
 
   ARows<T, DH> ka, va;
   float dk[DH / 8][4], dv[DH / 8][4];
@@ -556,6 +554,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParam
       va.load(vs, SD, warp * 16, lane);
     }
     const int q0 = qt * BQ;
+    const bool test = test_entries(p, code, q0, k0);
     const T* qb = qs + buf * BQ * SD;
     const T* db = dos + buf * BQ * SD;
     const float* lq = st + buf * 2 * BQ;
@@ -578,7 +577,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParam
           const int il = half * KH + n * 8 + 2 * t4 + (c & 1);
           const int j = k0 + jl, i = q0 + il;
           float pd = 0.f, ds = 0.f;
-          if (visible(kms[jl], i, j, p.Tq, p.Tk, p.causal)) {
+          if (!test || visible(kms[jl], i, j, p.Tq, p.Tk, p.causal)) {
             const float pr = expf(s[n][c] * p.scale - lq[il]);
             float d = dp[n][c];
             pd = pr;
@@ -592,13 +591,21 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParam
           s[n][c] = pd;
           dp[n][c] = ds;
         }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          store2(dss + (warp * 16 + g + 8 * hr) * SS + half * KH + n * 8 + 2 * t4,
+                 dp[n][2 * hr], dp[n][2 * hr + 1]);
       pv<DH>(dv, s, db + half * KH * SD, SD, lane);   // dropped P^T @ dO
       pv<DH>(dk, dp, qb + half * KH * SD, SD, lane);  // dS^T @ Q
     }
-    __syncthreads();  // the buffer is free for the tile after next
+    __syncthreads();  // rnd(ds)^T of the tile is in shared memory
+    dq_tile<DH>(ws, p.H * DH, dss, SS, ks, SD, q0, p.Tq, p.scale, warp, lane);
+    __syncthreads();  // dss and the buffer are free for the tile after next
     buf ^= 1;
   }
-  asm volatile("cp.async.wait_all;\n" ::);  // the key tile, where no query tile came
+  asm volatile("cp.async.wait_all;\n" ::);
 
   const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
   const int r0 = k0 + warp * 16;
@@ -611,12 +618,12 @@ __global__ void __launch_bounds__(kThreadsMma) flash_dkv_kernel(const FlashParam
 template <typename T, int DH>
 cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
   const size_t bytes = smem_bytes_of<T, DH>(which);
-  const int nq = p.B * p.H * ((p.Tq + BQ - 1) / BQ), nk = p.B * p.H * ((p.Tk + BK - 1) / BK);
-  if (which == kFwd) return go(flash_fwd_kernel<T, DH>, nq, kThreadsMma, bytes, s, p);
-  if constexpr (DH <= 64) {
-    if (which == kDq) return go(flash_dq_kernel<T, DH>, nq, kThreadsMma, bytes, s, p);
-    return go(flash_dkv_kernel<T, DH>, nk, kThreadsMma, bytes, s, p);
-  }
+  if (which == kFwd)
+    return go(flash_fwd_kernel<T, DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma, bytes,
+              s, p);
+  if constexpr (DH <= 64)
+    return go(flash_bwd_kernel<T, DH>, p.B * p.H * ((p.Tk + BK - 1) / BK), kThreadsMma, bytes,
+              s, p);
   return cudaErrorInvalidValue;
 }
 
@@ -661,8 +668,8 @@ FlashParams base_params(const void* q, long long q_bs, long long q_hs, long long
 
 extern "C" {
 
-// Dynamic shared memory of one block of kernel `which` (0 forward, 1 dq,
-// 2 dkv), in bytes; above 232448 a kernel cannot run.
+// Dynamic shared memory of one block of kernel `which` (0 forward, 1
+// backward), in bytes; above 232448 a kernel cannot run.
 size_t flash_smem_bytes(int which, int dh, int dtype) {
   switch (dh * 2 + (dtype ? 1 : 0)) {
     case 32: return smem_bytes_of<float, 16>(which);
@@ -697,32 +704,14 @@ int flash_fwd(const void* q, long long q_bs, long long q_hs, long long q_rs, con
   return launch(kFwd, p, dh, dtype, stream);
 }
 
-int flash_dq(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
-             long long k_bs, long long k_hs, long long k_rs, const void* v, long long v_bs,
-             long long v_hs, long long v_rs, const void* dout, long long d_bs, long long d_hs,
-             long long d_rs, const void* key_mask, const void* live, const void* lse,
-             const void* delta, const void* seed, unsigned drop_thresh, float drop_scale, void* dq,
-             long long dq_bs, long long dq_hs, long long dq_rs, int B, int H, int Tq, int Tk,
-             int dh, int causal, float scale, int dtype, void* stream) {
-  FlashParams p = base_params(q, q_bs, q_hs, q_rs, k, k_bs, k_hs, k_rs, v, v_bs, v_hs, v_rs,
-                              key_mask, seed, drop_thresh, drop_scale, B, H, Tq, Tk, causal,
-                              scale);
-  p.dout = {dout, d_bs, d_hs, d_rs};
-  p.live = static_cast<const int*>(live);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = {dq, dq_bs, dq_hs, dq_rs};
-  return launch(kDq, p, dh, dtype, stream);
-}
-
-int flash_dkv(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
+int flash_bwd(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
               long long k_bs, long long k_hs, long long k_rs, const void* v, long long v_bs,
               long long v_hs, long long v_rs, const void* dout, long long d_bs, long long d_hs,
               long long d_rs, const void* key_mask, const void* live, const void* lse,
-              const void* delta, const void* seed, unsigned drop_thresh, float drop_scale, void* dk,
-              long long dk_bs, long long dk_hs, long long dk_rs, void* dv, long long dv_bs,
-              long long dv_hs, long long dv_rs, int B, int H, int Tq, int Tk, int dh,
-              int causal, float scale, int dtype, void* stream) {
+              const void* delta, const void* seed, unsigned drop_thresh, float drop_scale,
+              void* dq_ws, void* dk, long long dk_bs, long long dk_hs, long long dk_rs, void* dv,
+              long long dv_bs, long long dv_hs, long long dv_rs, int B, int H, int Tq, int Tk,
+              int dh, int causal, float scale, int dtype, void* stream) {
   FlashParams p = base_params(q, q_bs, q_hs, q_rs, k, k_bs, k_hs, k_rs, v, v_bs, v_hs, v_rs,
                               key_mask, seed, drop_thresh, drop_scale, B, H, Tq, Tk, causal,
                               scale);
@@ -730,9 +719,10 @@ int flash_dkv(const void* q, long long q_bs, long long q_hs, long long q_rs, con
   p.live = static_cast<const int*>(live);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
+  p.dq_ws = static_cast<float*>(dq_ws);
   p.dk = {dk, dk_bs, dk_hs, dk_rs};
   p.dv = {dv, dv_bs, dv_hs, dv_rs};
-  return launch(kDkv, p, dh, dtype, stream);
+  return launch(kBwd, p, dh, dtype, stream);
 }
 
 const char* flash_error_string(int code) {

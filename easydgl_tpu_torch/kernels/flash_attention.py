@@ -10,20 +10,21 @@ outputs 0 (``nn.attention.MultiHeadAttention`` patches such rows), dropout
 normalises first and then drops and rescales, and ``lse`` (B, H, Tq) fp32 is
 what the backward recomputes the probs from.
 
-Three kernels on the card (``csrc/flash_attention.cu``):
+Two kernels on the card (``csrc/flash_attention.cu``):
 
 * ``flash_attention_fwd`` (TPU ``_fwd_kernel``): out and lse;
-* ``flash_attention_dq`` (TPU ``_dq_kernel``): dQ, query-major;
-* ``flash_attention_dkv`` (TPU ``_dkv_kernel``): dK and dV, key-major.
+* ``flash_attention_bwd`` (TPU ``_dq_kernel`` and ``_dkv_kernel``): dQ, dK
+  and dV in one key-major pass that visits only the key tiles the key mask
+  leaves live (``flash_live_tiles``).
 
 Each wrapper dispatches on where its tensors lie: CPU tensors take the plain
-version (``flash_fwd_reference``, ``flash_dq_reference``,
-``flash_dkv_reference``); CUDA tensors launch the kernel, adding one to the
-wrapper's ``launches``, or raise. ``flash_attention`` is the differentiable
-entry point: under autograd it runs ``_FlashAttention``, which keeps ``out``
-and ``lse`` and whose backward is delta = rowsum(dO * out) in PyTorch, then
-the dq and dkv wrappers — the kernels on the card, the plain pieces on the
-CPU.
+version (``flash_fwd_reference``, ``flash_bwd_reference``, which is
+``flash_dq_reference`` and ``flash_dkv_reference``); CUDA tensors launch the
+kernel, adding one to the wrapper's ``launches``, or raise.
+``flash_attention`` is the differentiable entry point: under autograd it
+runs ``_FlashAttention``, which keeps ``out`` and ``lse`` and whose backward
+is delta = rowsum(dO * out) in PyTorch, then the backward wrapper — the
+kernel on the card, the plain pieces on the CPU.
 
 Rounding points (bf16 compute dtype; the identity in fp32), as the TPU
 kernel: s = (q . k) * scale in fp32; p cast to v's dtype before P @ V, its
@@ -33,7 +34,7 @@ out, dq, dk and dv leave in the input dtype.
 
 Dropout draws one Philox word at counter (j, i, h, b) per entry
 (``mau_attention.dropout_factor``), i the query row of the call and j the
-key, so the forward, both backward kernels and the plain version draw one
+key, so the forward, the key-major backward and the plain version draw one
 mask whatever their tiles. The TPU kernel seeds its PRNG per block instead,
 so its mask cannot be matched (ROADMAP C3).
 """
@@ -57,7 +58,7 @@ from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
 NEG = -1.0e38   # the masked logit and the running max before a visible key
 KERNEL_FWD_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BWD_HEAD_DIMS = (16, 32, 64)
-_FWD, _DQ, _DKV = range(3)   # as flash_smem_bytes numbers the kernels
+_FWD, _BWD = range(2)   # as flash_smem_bytes numbers the kernels
 TILE = 64                      # the kernels' query and key tiles
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_uint, ctypes.c_float)
@@ -68,10 +69,8 @@ def _lib() -> ctypes.CDLL:
     seq = [_P, _LL, _LL, _LL]
     tail = [_I32] * 6 + [_F32, _I32, _P]
     _bind(lib, "flash_fwd", seq * 3 + [_P, _P, _U32, _F32] + seq + [_P] + tail)
-    _bind(lib, "flash_dq",
-          seq * 4 + [_P] * 5 + [_U32, _F32] + seq + tail)
-    _bind(lib, "flash_dkv",
-          seq * 4 + [_P] * 5 + [_U32, _F32] + seq * 2 + tail)
+    _bind(lib, "flash_bwd",
+          seq * 4 + [_P] * 5 + [_U32, _F32, _P] + seq * 2 + tail)
     lib.flash_smem_bytes.argtypes = [_I32] * 3
     lib.flash_smem_bytes.restype = ctypes.c_size_t
     lib.flash_error_string.argtypes = [_I32]
@@ -190,6 +189,18 @@ def flash_visited_tiles(live: torch.Tensor, tq: int,
         qt = torch.arange(nqt, device=live.device)[:, None]
         vis = vis & (qt >= torch.arange(nkt, device=live.device)[None])
     return vis
+
+
+@torch.no_grad()
+def flash_bwd_reference(q, k, v, key_mask, dout, lse, delta, *,
+                        causal: bool = False, scale=None,
+                        dropout_rate: float = 0.0, seed=None):
+    """(dQ, dK, dV): ``flash_dq_reference`` and ``flash_dkv_reference``,
+    the backward kernel's function."""
+    kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate,
+              seed=seed)
+    return ((flash_dq_reference(q, k, v, key_mask, dout, lse, delta, **kw),)
+            + flash_dkv_reference(q, k, v, key_mask, dout, lse, delta, **kw))
 
 
 @torch.no_grad()
@@ -320,81 +331,53 @@ def _bwd_stats(lse, delta, b, h, tq):
             delta.detach().to(torch.float32).contiguous())
 
 
-def flash_attention_dq(q, k, v, key_mask, dout, lse, delta, *,
-                       causal: bool = False, scale=None,
-                       dropout_rate: float = 0.0, seed=None):
-    """dQ (B, H, Tq, dh) in q's dtype. CPU tensors: ``flash_dq_reference``;
-    CUDA tensors: ``flash_dq_kernel``."""
-    _need_seed(dropout_rate, seed)
-    tensors = (q, k, v, dout, lse, delta) + (() if key_mask is None
-                                             else (key_mask,))
-    if not _on_card("flash_attention_dq", *tensors,
-                    entry="flash_attention"):
-        return flash_dq_reference(q, k, v, key_mask, dout, lse, delta,
-                                  causal=causal, scale=scale,
-                                  dropout_rate=dropout_rate, seed=seed)
-    b, h, tq, tk, dh, (qa, ka, va, da), km, lib = _inputs(
-        "flash_attention_dq", _DQ, q, k, v, key_mask, dout=dout.to(q.dtype))
-    lse, delta = _bwd_stats(lse, delta, b, h, tq)
-    live = flash_live_tiles(km, b, tk)
-    seed_t = _seed_tensor(seed, dropout_rate, q.device)
-    seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
-    dq = _like_heads(b, h, tq, dh, q.dtype, q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.flash_dq(*_seq4(qa), *_seq4(ka), *_seq4(va), *_seq4(da),
-                          km.data_ptr(), live.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          seed_ptr, thresh, dscale, *_seq4(dq), b, h, tq, tk,
-                          dh, int(causal), _scale(q, scale),
-                          _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(rc, "flash_attention_dq", lib.flash_error_string)
-    flash_attention_dq.launches += 1
-    return dq
-
-
-flash_attention_dq.launches = 0
-
-
-def flash_attention_dkv(q, k, v, key_mask, dout, lse, delta, *,
+def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
                         causal: bool = False, scale=None,
                         dropout_rate: float = 0.0, seed=None):
-    """(dK, dV), each (B, H, Tk, dh) in k's dtype. CPU tensors:
-    ``flash_dkv_reference``; CUDA tensors: ``flash_dkv_kernel``."""
+    """(dQ (B, H, Tq, dh), dK, dV (B, H, Tk, dh)) in q's dtype from dO
+    (B, H, Tq, dh), lse and delta (B, H, Tq). CPU tensors:
+    ``flash_bwd_reference``; CUDA tensors: ``flash_bwd_kernel``, one
+    key-major pass over the live key tiles (``flash_live_tiles``) that adds
+    dQ into a zeroed fp32 workspace (B, Tq, H, dh) with atomics; the
+    workspace is then cast into dQ's (B, T, H, dh) storage."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v, dout, lse, delta) + (() if key_mask is None
                                              else (key_mask,))
-    if not _on_card("flash_attention_dkv", *tensors,
+    if not _on_card("flash_attention_bwd", *tensors,
                     entry="flash_attention"):
-        return flash_dkv_reference(q, k, v, key_mask, dout, lse, delta,
+        return flash_bwd_reference(q, k, v, key_mask, dout, lse, delta,
                                    causal=causal, scale=scale,
                                    dropout_rate=dropout_rate, seed=seed)
     b, h, tq, tk, dh, (qa, ka, va, da), km, lib = _inputs(
-        "flash_attention_dkv", _DKV, q, k, v, key_mask,
+        "flash_attention_bwd", _BWD, q, k, v, key_mask,
         dout=dout.to(q.dtype))
     lse, delta = _bwd_stats(lse, delta, b, h, tq)
     live = flash_live_tiles(km, b, tk)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
+    ws = torch.zeros((b, tq, h, dh), dtype=torch.float32, device=q.device)
     dk = _like_heads(b, h, tk, dh, q.dtype, q.device)
     dv = _like_heads(b, h, tk, dh, q.dtype, q.device)
     with torch.cuda.device(q.device):
-        rc = lib.flash_dkv(*_seq4(qa), *_seq4(ka), *_seq4(va), *_seq4(da),
-                           km.data_ptr(), live.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           seed_ptr, thresh, dscale, *_seq4(dk), *_seq4(dv),
-                           b, h, tq, tk, dh, int(causal), _scale(q, scale),
+        rc = lib.flash_bwd(*_seq4(qa), *_seq4(ka), *_seq4(va), *_seq4(da),
+                           km.data_ptr(), live.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(), seed_ptr, thresh, dscale,
+                           ws.data_ptr(), *_seq4(dk), *_seq4(dv), b, h, tq,
+                           tk, dh, int(causal), _scale(q, scale),
                            _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(rc, "flash_attention_dkv", lib.flash_error_string)
-    flash_attention_dkv.launches += 1
-    return dk, dv
+    _raise_on(rc, "flash_attention_bwd", lib.flash_error_string)
+    flash_attention_bwd.launches += 1
+    return ws.to(q.dtype).permute(0, 2, 1, 3), dk, dv
 
 
-flash_attention_dkv.launches = 0
-FLASH_KERNELS = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
+flash_attention_bwd.launches = 0
+FLASH_KERNELS = (flash_attention_fwd, flash_attention_bwd)
 
 
 class _FlashAttention(torch.autograd.Function):
     """out of ``flash_attention_fwd``; the backward is delta = rowsum(dO *
-    out), then ``flash_attention_dq`` and ``flash_attention_dkv`` with the
-    same seed (the kernels on the card, the plain pieces on the CPU)."""
+    out), then ``flash_attention_bwd`` with the same seed (the kernel on the
+    card, the plain pieces on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, seed, cfg):
@@ -415,8 +398,8 @@ class _FlashAttention(torch.autograd.Function):
                   seed=ctx.seed)
         g = g.to(q.dtype)
         delta = flash_delta(g, out)
-        dq = flash_attention_dq(q, k, v, key_mask, g, lse, delta, **kw)
-        dk, dv = flash_attention_dkv(q, k, v, key_mask, g, lse, delta, **kw)
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, g, lse, delta,
+                                         **kw)
         return dq, dk, dv, None, None, None
 
 

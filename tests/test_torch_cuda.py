@@ -560,19 +560,27 @@ def test_lc_train_step_on_card_matches_cpu(cuda_device):
 
 FLASH_SHAPES = {"t77_dh16": dict(b=3, h=2, tq=77, tk=77, dh=16),
                 "t300_dh64": dict(b=2, h=4, tq=300, tk=300, dh=64),
-                "tq100_tk300_dh32": dict(b=2, h=2, tq=100, tk=300, dh=32)}
+                "tq100_tk300_dh32": dict(b=2, h=2, tq=100, tk=300, dh=32),
+                # whole batch rows of padding (0 and 2) beside full rows
+                "t200_dead_rows_dh64": dict(b=4, h=2, tq=200, tk=200, dh=64,
+                                            pad=(200, 70, 200, 0)),
+                # Tk not a multiple of 64, padding ending mid-tile
+                "t333_midtile_dh64": dict(b=2, h=2, tq=333, tk=333, dh=64,
+                                          pad=(0, 100))}
 
 
-def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, seed=0):
+def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, seed=0, pad=None):
     """numpy-drawn q, k, v, dO (B, H, T, dh); a key mask with holes,
-    left-padded where Tq == Tk, with row 0 fully masked."""
+    left-padded where Tq == Tk (``pad`` keys a row, else random lengths),
+    with row 0 fully masked."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     q, dout = (rng.normal(size=(b, h, tq, dh)).astype(f32) for _ in range(2))
     k, v = (rng.normal(size=(b, h, tk, dh)).astype(f32) for _ in range(2))
     km = (rng.random((b, tk)) > 0.1).astype(f32)
     if tq == tk:
-        lengths = rng.integers(1, tk + 1, b)
+        lengths = (rng.integers(1, tk + 1, b) if pad is None
+                   else tk - np.minimum(pad, tk))
         km *= np.arange(tk)[None] >= tk - lengths[:, None]
     km[0] = 0.0
     ts = [torch.tensor(x, device=dev) for x in (q, k, v, km, dout)]
@@ -585,10 +593,11 @@ def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain_version(cuda_device, dtype, causal, shape,
                                            rate):
-    """Forward (out, lse), dq and dk/dv, each on the plain version's
-    inputs; then ``flash_attention``'s chained backward against the
-    chained plain pieces. out as ``_check_close``; lse fp32 to 1e-4; the
-    gradients as ``_check_by_scale``; the fully masked row exactly 0."""
+    """Forward (out, lse) and the backward (dq, dk, dv), each on the plain
+    version's inputs; then ``flash_attention``'s chained backward against
+    the chained plain pieces. out as ``_check_close``; lse fp32 to 1e-4;
+    the gradients as ``_check_by_scale``; every batch row with no visible
+    key exactly 0."""
     from easydgl_tpu_torch.kernels import flash_attention as fl
     q, k, v, km, dout = _flash_inputs(cuda_device, dtype,
                                       **FLASH_SHAPES[shape])
@@ -603,22 +612,43 @@ def test_flash_kernels_match_plain_version(cuda_device, dtype, causal, shape,
     torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=1e-4)
     delta = fl.flash_delta(dout, want_o)
     args = (q, k, v, km, dout, want_l, delta)
-    dq = fl.flash_attention_dq(*args, **kw)
-    dk, dv = fl.flash_attention_dkv(*args, **kw)
-    _check_by_scale(dtype, (dq, dk, dv),
-                    (fl.flash_dq_reference(*args, **kw),)
-                    + fl.flash_dkv_reference(*args, **kw), "pieces")
+    grads = fl.flash_attention_bwd(*args, **kw)
+    _check_by_scale(dtype, grads, fl.flash_bwd_reference(*args, **kw),
+                    "pieces")
     assert [fn.launches for fn in fl.FLASH_KERNELS] == [b + 1 for b in before]
-    for x in (out, dq, dk, dv):
-        assert float(x[0].float().abs().max()) == 0.0
+    dead = [r for r in range(km.shape[0]) if not bool((km[r] > 0).any())]
+    assert 0 in dead
+    for x in (out,) + grads:
+        for r in dead:
+            assert float(x[r].float().abs().max()) == 0.0
     diff = [x.clone().requires_grad_() for x in (q, k, v)]
     got = torch.autograd.grad(fl.flash_attention(*diff, km, **kw), diff,
                               dout)
     p_out, p_lse = fl.flash_fwd_reference(q, k, v, km, **kw)
     p_args = (q, k, v, km, dout, p_lse, fl.flash_delta(dout, p_out))
-    want = ((fl.flash_dq_reference(*p_args, **kw),)
-            + fl.flash_dkv_reference(*p_args, **kw))
-    _check_by_scale(dtype, got, want, "chain")
+    _check_by_scale(dtype, got, fl.flash_bwd_reference(*p_args, **kw),
+                    "chain")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_run_to_run(cuda_device, dtype, rate):
+    """Two launches of the backward on the same inputs: dk and dv are each
+    one block's sums and agree exactly; dq sums a row's key tiles by fp32
+    atomics in the order the blocks run, so it is held to the
+    kernel-vs-plain tolerance of ``_check_by_scale``."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    q, k, v, km, dout = _flash_inputs(cuda_device, dtype,
+                                      **FLASH_SHAPES["t333_midtile_dh64"])
+    kw = dict(causal=True, dropout_rate=rate,
+              seed=torch.tensor(5, device=cuda_device))
+    out, lse = fl.flash_attention_fwd(q, k, v, km, **kw)
+    args = (q, k, v, km, dout, lse, fl.flash_delta(dout, out))
+    first = fl.flash_attention_bwd(*args, **kw)
+    second = fl.flash_attention_bwd(*args, **kw)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    _check_by_scale(dtype, second[:1], first[:1], "rerun")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -638,9 +668,9 @@ def test_flash_kernels_draw_one_dropout_mask(cuda_device, dtype):
               seed=torch.tensor(123, device=dev))
     out, lse = fl.flash_attention_fwd(q, eye, eye, km, **kw)
     delta = fl.flash_delta(ones, out)
-    dq = fl.flash_attention_dq(q, eye, eye, km, ones, lse, delta, **kw)
-    _, dv = fl.flash_attention_dkv(q, eye, eye, km, eye, lse,
-                                   fl.flash_delta(eye, out), **kw)
+    dq = fl.flash_attention_bwd(q, eye, eye, km, ones, lse, delta, **kw)[0]
+    dv = fl.flash_attention_bwd(q, eye, eye, km, eye, lse,
+                                fl.flash_delta(eye, out), **kw)[2]
     keep = dropout_factor(123, (b, h, t, t), rate, dev)
     # out: p = exp(0) = 1 exactly, so out * t is keep rounded to the
     # compute dtype; dv and dq carry p = exp(-log t), within an ulp of 1/t,
@@ -664,7 +694,7 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
                                       tq=8, tk=8, dh=128)
     out, lse = fl.flash_attention_fwd(q, k, v, km)   # the forward takes 128
     with pytest.raises(ValueError, match="head dim"):
-        fl.flash_attention_dq(q, k, v, km, dout, lse, lse)
+        fl.flash_attention_bwd(q, k, v, km, dout, lse, lse)
     with pytest.raises(ValueError, match="dtype"):
         fl.flash_attention_fwd(q.half(), k.half(), v.half(), km)
     with pytest.raises(ValueError, match="seed"):

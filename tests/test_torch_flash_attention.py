@@ -8,21 +8,27 @@ tests run it) and ``jax.vjp`` of it: causal and not, lengths that are not
 multiples of a tile, Tq != Tk, left-padded rows and a fully masked row, dh 8
 and 64, fp32 to 1e-5. Then ``_FlashAttention``'s backward with dropout
 against autograd of the plain forward; the dropout mask read back from the
-forward, dq and dk/dv (keep fraction, rescale, one mask); and the CPU
-dispatch (plain versions, counters untouched). Inputs come from numpy seeds.
+forward, dq and dk/dv (keep fraction, rescale, one mask); the backward
+wrapper ``flash_attention_bwd`` on CPU tensors against ``jax.vjp``; a
+property test of the backward's tile schedule (``flash_live_tiles``,
+``flash_visited_tiles``); and the CPU dispatch (plain versions, counters
+untouched). Inputs come from numpy seeds.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from easydgl_tpu.kernels import flash_attention as jflash
 from easydgl_tpu_torch.kernels import flash_attention as flash
 from easydgl_tpu_torch.kernels.flash_attention import (
-    FLASH_KERNELS, flash_attention, flash_attention_dkv, flash_attention_dq,
-    flash_attention_fwd, flash_attention_reference, flash_delta,
-    flash_dkv_reference, flash_dq_reference, flash_fwd_reference)
+    FLASH_KERNELS, TILE, flash_attention, flash_attention_bwd,
+    flash_attention_fwd, flash_attention_reference, flash_bwd_reference,
+    flash_delta, flash_dkv_reference, flash_dq_reference, flash_fwd_reference,
+    flash_live_tiles, flash_visited_tiles)
 from easydgl_tpu_torch.kernels.mau_attention import dropout_factor
 
 torch.set_num_threads(2)
@@ -88,6 +94,73 @@ def test_backward_pieces_match_jax_vjp(seed, tq, tk, dh, causal):
         assert float(g[0].abs().max()) == 0.0
 
 
+def _jax_vjp(q, k, v, km, dout, causal):
+    _, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
+        a, b, c, km, causal=causal, block_q=16, block_k=128,
+        interpret=True), q, k, v)
+    return vjp(jnp.asarray(dout))
+
+
+@pytest.mark.parametrize("seed,tq,tk,dh,causal", CASES)
+def test_backward_wrapper_on_cpu_matches_jax_vjp(seed, tq, tk, dh, causal):
+    """``flash_attention_bwd`` on CPU tensors (``flash_bwd_reference``)
+    from the plain forward's lse and delta against jax.vjp of the
+    interpret-mode kernel: dq, dk and dv at 1e-5, exact zeros on the dead
+    row."""
+    q, k, v, km, dout = _data(seed, tq=tq, tk=tk, dh=dh)
+    tq_, tk_, tv_, tkm, tdo = _t(q, k, v, km, dout)
+    out, lse = flash_fwd_reference(tq_, tk_, tv_, tkm, causal=causal)
+    grads = flash_attention_bwd(tq_, tk_, tv_, tkm, tdo, lse,
+                                flash_delta(tdo, out), causal=causal)
+    for got, want in zip(grads, _jax_vjp(q, k, v, km, dout, causal)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for g in grads:
+        assert float(g[0].abs().max()) == 0.0
+
+
+@st.composite
+def _tile_masks(draw):
+    """(key mask (B, Tk) with left padding, holes and all-masked rows, Tq,
+    causal)."""
+    b = draw(st.integers(1, 3))
+    tk = draw(st.integers(1, 3 * TILE + 5))
+    tq = draw(st.one_of(st.just(tk), st.integers(1, 3 * TILE + 5)))
+    rows = []
+    for _ in range(b):
+        pad = draw(st.integers(0, tk))     # tk: a row of padding
+        holes = draw(st.lists(st.integers(0, tk - 1), max_size=8))
+        row = np.arange(tk) >= pad
+        row[holes] = False
+        rows.append(row)
+    return np.stack(rows).astype(np.float32), tq, draw(st.booleans())
+
+
+@settings(max_examples=60, deadline=None)
+@given(_tile_masks())
+def test_visited_tiles_cover_every_visible_pair(case):
+    """The backward's schedule: every visible (query, key) pair lies in a
+    visited (query tile, key tile), and no dead key tile holds one; a full
+    tile has every key visible."""
+    km, tq, causal = case
+    b, tk = km.shape
+    live = flash_live_tiles(torch.tensor(km), b, tk)
+    visited = flash_visited_tiles(live, tq, causal).numpy()
+    live = live.numpy()
+    vis = np.broadcast_to(km[:, None, :] > 0, (b, tq, tk))
+    if causal:
+        vis = vis & np.tril(np.ones((tq, tk), bool))
+    bi, qi, kj = np.nonzero(vis)
+    assert visited[bi, qi // TILE, kj // TILE].all()
+    assert (live[bi, kj // TILE] > 0).all()     # no dead tile holds one
+    nkt = -(-tk // TILE)
+    tiles = np.zeros((b, nkt * TILE), bool)
+    tiles[:, :tk] = km > 0
+    tiles = tiles.reshape(b, nkt, TILE)
+    assert ((live == 0) == ~tiles.any(-1)).all()
+    assert ((live == 2) == tiles.all(-1)).all()
+    assert not visited.transpose(0, 2, 1)[live == 0].any()
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_function_backward_with_dropout(causal):
     """``_FlashAttention`` (the plain pieces on the CPU) against autograd of
@@ -145,11 +218,12 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
     delta = flash_delta(dout, out)
     args = (q, k, v, km, dout, lse, delta)
-    assert torch.equal(flash_attention_dq(*args, causal=True),
-                       flash_dq_reference(*args, causal=True))
-    for a, b in zip(flash_attention_dkv(*args, causal=True),
-                    flash_dkv_reference(*args, causal=True)):
-        assert torch.equal(a, b)
+    want = (flash_dq_reference(*args, causal=True),) + flash_dkv_reference(
+        *args, causal=True)
+    for got, ref in ((flash_attention_bwd(*args, causal=True), want),
+                     (flash_bwd_reference(*args, causal=True), want)):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
     assert torch.equal(flash_attention(q, k, v, km, causal=True), want_out)
     assert all(fn.launches == 0 for fn in FLASH_KERNELS)
     with pytest.raises(ValueError, match="seed"):
