@@ -65,6 +65,8 @@
 // q/k/v/dO/outputs start on 16-byte boundaries (the wrapper copies where
 // they do not).
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
+
 #include <type_traits>
 
 #include "mau_streamed.cuh"
@@ -121,14 +123,24 @@ __host__ __device__ constexpr int row_stride() {
   return sizeof(T) == 2 ? DH + 8 : DH + 4;
 }
 
+// The bf16 backward (flash_bwd_tc_kernel): a (64 x 64) K, V and dS^T tile,
+// a Q and a dO tile a stage, the stages' lse and delta, the mbarriers, and
+// slack to align the tiles to 1024 bytes.
+constexpr int kTcStages = 2;
+constexpr int kTcThreads = 160;   // one consumer warpgroup, one producer warp
+constexpr int kTcTile = 64 * 64;  // bf16 values of a (64 x 64) tile, 8 KB
+constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 + 2 * kTcStages) * kTcTile +
+                           sizeof(float) * kTcStages * 2 * BQ + 8 * (1 + 2 * kTcStages);
+
 template <typename T, int DH>
 __host__ __device__ constexpr size_t smem_bytes_of(int which) {
   // forward: q + 2 k + 2 v tiles, 2 x 64 key-mask floats; backward: k, v +
   // 2 q + 2 dO tiles, the (64 x 64) dS^T tile, 64 key-mask floats + 2 x
   // (lse, delta)
   return which == kFwd ? sizeof(T) * 5 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK
-                       : sizeof(T) * (6 * 64 * row_stride<T, DH>() + 64 * row_stride<T, BQ>()) +
-                             sizeof(float) * 5 * BK;
+         : sizeof(T) == 2 ? kTcSmem
+                          : sizeof(T) * (6 * 64 * row_stride<T, DH>() + 64 * row_stride<T, BQ>()) +
+                                sizeof(float) * 5 * BK;
 }
 
 // rows [r0, r0 + 64) x DH columns of a row-major source (row stride rs) into
@@ -425,45 +437,9 @@ __device__ __forceinline__ bool test_entries(const FlashParams& p, int code, int
 }
 
 // dq_tile (64 queries x DH) = rnd(ds) @ K from dS^T in shared memory ([key]
-// [query], row stride ld) and the key tile ks; scaled and added to the
-// workspace rows [q0, q0 + 64) of this (b, h) (row stride wrs). bf16: each warp 16 query
-// rows, A fragments by ldmatrix.trans, mma.sync.
-template <int DH>
-__device__ __forceinline__ void dq_tile(float* ws, int wrs, const bf16* dss, int ld, const bf16* ks,
-                                        int SD, int q0, int Tq, float scale, int warp,
-                                        int lane) {
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-  const int mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4_trans(a, dss + (kk * 16 + r + 8 * (mat >> 1)) * ld + warp * 16 + 8 * (mat & 1));
-#pragma unroll
-    for (int n2 = 0; n2 < DH / 16; ++n2) {
-      uint32_t bb[4];
-      ldmatrix_x4_trans(bb, ks + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * SD + 16 * n2 +
-                                (lane >> 4) * 8);
-      mma_bf16(o[2 * n2], a, bb[0], bb[1]);
-      mma_bf16(o[2 * n2 + 1], a, bb[2], bb[3]);
-    }
-  }
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    if (i >= Tq) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      atomic_add2(ws + (size_t)i * wrs + n * 8 + 2 * t4, o[n][2 * hr] * scale,
-                  o[n][2 * hr + 1] * scale);
-  }
-}
-
-// fp32: each thread 4 query rows x DH / 8 columns on the CUDA cores.
+// [query], row stride ld) and the key tile ks, scaled and added to the
+// workspace rows [q0, q0 + 64) of this (b, h) (row stride wrs): each thread
+// 4 query rows x DH / 8 columns on the CUDA cores.
 template <int DH>
 __device__ __forceinline__ void dq_tile(float* ws, int wrs, const float* dss, int ld, const float* ks,
                                         int SD, int q0, int Tq, float scale, int warp,
@@ -495,8 +471,9 @@ __device__ __forceinline__ void dq_tile(float* ws, int wrs, const float* dss, in
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParams p) {
+  using T = float;
   constexpr int SD = row_stride<T, DH>(), SS = row_stride<T, BQ>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [BK][SD] the block's keys
@@ -613,7 +590,359 @@ __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParam
   store_rows<T, DH>(head<T>(p.dv, b, h), p.dv.rs, dv, one, r0, p.Tk, lane);
 }
 
+// ---------------------------------------------------------------- backward, bf16
+// The same key-major schedule on Hopper's tensor cores and copy engine. A
+// block of one consumer warpgroup (warps 0-3) and one producer warp (warp
+// 4) owns 64 keys; the producer copies K and V once and then each query
+// tile's Q and dO by TMA into a two-stage ring (128-byte swizzle) and its
+// lse and delta by plain loads, and signals an mbarrier; the consumers
+// run S^T = K Q^T and dP^T = V dO^T as wgmma with both operands in shared
+// memory, form p and ds in the accumulator registers, and feed them back as
+// register A operands of dV += rnd(p keep)^T dO and dK += rnd(ds)^T Q.
+// rnd(ds)^T is stored once, swizzled, as the shared-memory A operand of the
+// tile's dQ = rnd(ds) K, which goes to the workspace by atomics. Every
+// operand is bf16 with fp32 accumulation; dh = 64 (the wrapper pads narrower
+// heads with zeros).
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct TcMaps {
+  CUtensorMap q, k, v, dout;  // (64, T, H, B) bf16 boxes of 64 x 64
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// The (64 rows x 64) box at row t0 of head (b, h) of a map into dst.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int t0,
+                                         int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(t0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma descriptor of a 1024-byte-aligned (64 x 64) bf16 tile in the
+// 128-byte swizzle: 8-row groups 1024 bytes apart. As a K-major operand a
+// 16-wide k step adds 32 bytes (2 in the descriptor's units); as an
+// MN-major one it adds 16 rows, 2048 bytes (128).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of d across a wgmma wait.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_ACC(d)                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64) (+)= A (64 x 16) B (16 x 64), both from shared memory; TA / TB
+// 1 where the operand is MN-major. Accumulates where acc != 0.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WG_ACC(d)
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64) += A (64 x 16) B (16 x 64), A from registers (the mma A
+// fragment layout of the warp's 16 rows), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Rows of a warpgroup accumulator (64 x 64: the thread's rows r0 + g and
+// r0 + g + 8, columns 8 n + 2 t4 + c at d[4 n + 2 hr + c]) times mul into
+// bf16 rows [.., r < nrows) of dst.
+__device__ __forceinline__ void store_acc(bf16* dst, long long rs, const float (&d)[32], float mul,
+                                          int r0, int nrows, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + g + 8 * hr;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      store2(dst + (long long)r * rs + 8 * n + 2 * t4, d[4 * n + 2 * hr] * mul,
+             d[4 * n + 2 * hr + 1] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_tc_kernel(const FlashParams p, const __grid_constant__ TcMaps maps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ks = reinterpret_cast<bf16*>(base);  // [64 keys][64], swizzled
+  bf16* vs = ks + kTcTile;
+  bf16* qs = vs + kTcTile;                    // [stage][64 queries][64]
+  bf16* dos = qs + kTcStages * kTcTile;       // [stage][64 queries][64]
+  bf16* dss = dos + kTcStages * kTcTile;      // [64 keys][64 queries] rnd(ds)^T
+  float* stats = reinterpret_cast<float*>(dss + kTcTile);  // [stage][lse, delta][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kTcStages * 2 * BQ);
+  uint64_t* full = kv_full + 1;                             // [stage]
+  uint64_t* empty = full + kTcStages;                       // [stage]
+
+  // heaviest first: under causal key tile 0 sees every query tile
+  const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ, BH = p.B * p.H;
+  const int kt = blockIdx.x / BH, bh = blockIdx.x - kt * BH, k0 = kt * BK;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int code = p.live[(size_t)b * nkt + kt];
+  const int qt0 = code == 0 ? nqt : p.causal ? k0 / BQ : 0;
+  const int ntiles = nqt - qt0;
+  if (ntiles <= 0) {  // a dead key tile, or one no query reaches: dk = dv = 0
+    const float zero[32] = {};
+    if (warp < 4) {
+      store_acc(head<bf16>(p.dk, b, h), p.dk.rs, zero, 0.f, k0 + 16 * warp, p.Tk, lane);
+      store_acc(head<bf16>(p.dv, b, h), p.dv.rs, zero, 0.f, k0 + 16 * warp, p.Tk, lane);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- producer
+    if (lane == 0) {
+      mbar_arrive_tx(kv_full, 2 * kTcTile * sizeof(bf16));
+      tma_rows(ks, &maps.k, kv_full, k0, h, b);
+      tma_rows(vs, &maps.v, kv_full, k0, h, b);
+    }
+    const size_t row0 = (size_t)bh * p.Tq;
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % kTcStages, q0 = (qt0 + it) * BQ;
+      mbar_wait(empty + s, ((it / kTcStages) & 1) ^ 1);
+      float* st = stats + s * 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool ok = q0 + r < p.Tq;
+        st[r] = ok ? p.lse[row0 + q0 + r] : 0.f;
+        st[BQ + r] = ok ? p.delta[row0 + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(full + s, 2 * kTcTile * sizeof(bf16));
+        tma_rows(qs + s * kTcTile, &maps.q, full + s, q0, h, b);
+        tma_rows(dos + s * kTcTile, &maps.dout, full + s, q0, h, b);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: thread (warp, g, t4) holds keys k0 + 16 warp + g (+8)
+  const int g = lane >> 2, t4 = lane & 3;
+  float kmr[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int j = k0 + 16 * warp + g + 8 * hr;
+    kmr[hr] = j < p.Tk ? p.key_mask[(size_t)b * p.Tk + j] : 0.f;
+  }
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const float sl2 = p.scale * kLog2e;
+  float* ws = p.dq_ws + ((size_t)b * p.Tq * p.H + h) * 64;
+  const int wrs = p.H * 64;
+  const uint64_t kd = sw128_desc(ks), vd = sw128_desc(vs), sd = sw128_desc(dss);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kTcStages, q0 = (qt0 + it) * BQ;
+    mbar_wait(full + s, (it / kTcStages) & 1);
+    const uint64_t qd = sw128_desc(qs + s * kTcTile), dd = sw128_desc(dos + s * kTcTile);
+    float sa[32], pa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sa[i] = pa[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, kd + 2 * kk, qd + 2 * kk, 1);  // K Q^T
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(pa, vd + 2 * kk, dd + 2 * kk, 1);  // V dO^T
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+    reg_fence(pa);
+
+    // p and ds of entry (key 16 warp + g + 8 hr, query 8 n + 2 t4 + c)
+    const bool test = test_entries(p, code, q0, k0);
+    const float* lq = stats + s * 2 * BQ;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int il = 8 * n + 2 * t4 + c, i = q0 + il;
+        const float lse2 = lq[il] * kLog2e, dlt = lq[BQ + il];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int x = 4 * n + 2 * hr + c, j = k0 + 16 * warp + g + 8 * hr;
+          float pd = 0.f, ds = 0.f;
+          if (!test || visible(kmr[hr], i, j, p.Tq, p.Tk, p.causal)) {
+            const float pr = exp2f(fmaf(sa[x], sl2, -lse2));
+            float d = pa[x];
+            pd = pr;
+            if (drop.on && pr != 0.f) {
+              const float keep = drop.factor(b, h, i, j);
+              pd *= keep;
+              d *= keep;
+            }
+            ds = pr * (d - dlt);
+          }
+          sa[x] = pd;
+          pa[x] = ds;
+        }
+      }
+    // rounded to bf16: the A fragments of P^T and dS^T (k step kk: queries
+    // 16 kk ..), and dS^T into shared memory in the 128-byte swizzle
+    uint32_t pf[16], df[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
+        df[4 * kk + e] = pack_bf16(pa[8 * kk + 2 * e], pa[8 * kk + 2 * e + 1]);
+      }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the last tile's dQ has read dss
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * warp + g + 8 * hr;
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dss) + r * 128 +
+                                     ((n ^ g) << 4) + 4 * t4) =
+            df[4 * (n >> 1) + 2 * (n & 1) + hr];
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // dS^T is in shared memory
+
+    float qa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) qa[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, pf + 4 * kk, dd + 128 * kk);  // P^T dO
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, df + 4 * kk, qd + 128 * kk);  // dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<1, 1>(qa, sd + 128 * kk, kd + 128 * kk, 1);  // dS K
+    wg_commit();
+    wg_wait();
+    reg_fence(dv);
+    reg_fence(dk);
+    reg_fence(qa);
+    mbar_arrive(empty + s);  // the stage's Q, dO, lse and delta are free
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = q0 + 16 * warp + g + 8 * hr;
+      if (i >= p.Tq) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        atomic_add2(ws + (size_t)i * wrs + 8 * n + 2 * t4, qa[4 * n + 2 * hr] * p.scale,
+                    qa[4 * n + 2 * hr + 1] * p.scale);
+    }
+  }
+  store_acc(head<bf16>(p.dk, b, h), p.dk.rs, dk, p.scale, k0 + 16 * warp, p.Tk, lane);
+  store_acc(head<bf16>(p.dv, b, h), p.dv.rs, dv, 1.f, k0 + 16 * warp, p.Tk, lane);
+}
+
 // ---------------------------------------------------------------- launch
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links only the runtime).
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
+                       cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a (B, H, T, 64) bf16 operand read in place with its
+// strides: boxes of 64 rows, 128-byte swizzle, zeros past row T.
+bool rows_map(CUtensorMap* map, const Seq4& x, int T, int H, int B) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.rs * sizeof(bf16), (cuuint64_t)x.hs * sizeof(bf16),
+                                 (cuuint64_t)x.bs * sizeof(bf16)};
+  const cuuint32_t box[4] = {64, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.p), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <typename T, int DH>
 cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
@@ -621,10 +950,17 @@ cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
   if (which == kFwd)
     return go(flash_fwd_kernel<T, DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma, bytes,
               s, p);
-  if constexpr (DH <= 64)
-    return go(flash_bwd_kernel<T, DH>, p.B * p.H * ((p.Tk + BK - 1) / BK), kThreadsMma, bytes,
-              s, p);
-  return cudaErrorInvalidValue;
+  const int blocks = p.B * p.H * ((p.Tk + BK - 1) / BK);
+  if constexpr (std::is_same<T, bf16>::value && DH == 64) {
+    TcMaps maps;
+    if (!rows_map(&maps.q, p.q, p.Tq, p.H, p.B) || !rows_map(&maps.k, p.k, p.Tk, p.H, p.B) ||
+        !rows_map(&maps.v, p.v, p.Tk, p.H, p.B) || !rows_map(&maps.dout, p.dout, p.Tq, p.H, p.B))
+      return cudaErrorInvalidValue;
+    return go(flash_bwd_tc_kernel, blocks, kTcThreads, bytes, s, p, maps);
+  } else if constexpr (std::is_same<T, float>::value && DH <= 64) {
+    return go(flash_bwd_kernel<DH>, blocks, kThreadsMma, bytes, s, p);
+  }
+  return cudaErrorInvalidValue;  // bf16 heads narrower than 64 come padded
 }
 
 template <typename T>

@@ -58,6 +58,7 @@ from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
 NEG = -1.0e38   # the masked logit and the running max before a visible key
 KERNEL_FWD_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BWD_HEAD_DIMS = (16, 32, 64)
+BF16_BWD_HEAD_DIM = 64   # the bf16 backward's tile width (narrower heads pad)
 _FWD, _BWD = range(2)   # as flash_smem_bytes numbers the kernels
 TILE = 64                      # the kernels' query and key tiles
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -355,19 +356,27 @@ def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
     live = flash_live_tiles(km, b, tk)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
-    ws = torch.zeros((b, tq, h, dh), dtype=torch.float32, device=q.device)
-    dk = _like_heads(b, h, tk, dh, q.dtype, q.device)
-    dv = _like_heads(b, h, tk, dh, q.dtype, q.device)
+    kdh = dh
+    if q.dtype == torch.bfloat16 and dh < BF16_BWD_HEAD_DIM:
+        # the bf16 kernel's tiles are 64 wide: zero columns add nothing to
+        # q . k or dO . v, and their gradients are dropped
+        kdh = BF16_BWD_HEAD_DIM
+        qa, ka, va, da = (torch.nn.functional.pad(x, (0, kdh - dh))
+                          for x in (qa, ka, va, da))
+    ws = torch.zeros((b, tq, h, kdh), dtype=torch.float32, device=q.device)
+    dk = _like_heads(b, h, tk, kdh, q.dtype, q.device)
+    dv = _like_heads(b, h, tk, kdh, q.dtype, q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd(*_seq4(qa), *_seq4(ka), *_seq4(va), *_seq4(da),
                            km.data_ptr(), live.data_ptr(), lse.data_ptr(),
                            delta.data_ptr(), seed_ptr, thresh, dscale,
                            ws.data_ptr(), *_seq4(dk), *_seq4(dv), b, h, tq,
-                           tk, dh, int(causal), _scale(q, scale),
+                           tk, kdh, int(causal), _scale(q, scale),
                            _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_on(rc, "flash_attention_bwd", lib.flash_error_string)
     flash_attention_bwd.launches += 1
-    return ws.to(q.dtype).permute(0, 2, 1, 3), dk, dv
+    dq = ws[..., :dh].to(q.dtype).permute(0, 2, 1, 3)
+    return dq, dk[..., :dh], dv[..., :dh]
 
 
 flash_attention_bwd.launches = 0
