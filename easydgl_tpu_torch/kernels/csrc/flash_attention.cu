@@ -289,7 +289,7 @@ __device__ __forceinline__ int live_key_tiles(const FlashParams& p, int q0) {
 }
 
 __device__ __forceinline__ bool visible(float km, int i, int j, int Tq, int Tk, int causal) {
-  return i < Tq && j < Tk && km > 0.f && !(causal && j > i);
+  return (i < Tq) & (j < Tk) & (km > 0.f) & !(causal & (j > i));
 }
 
 // ---------------------------------------------------------------- forward
@@ -546,28 +546,31 @@ __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParam
         for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
       ka.mul(s, qb + half * KH * SD, SD, lane);
       va.mul(dp, db + half * KH * SD, SD, lane);
+      // without a branch: a hidden entry's exponent is -inf, so p = ds = 0
+      auto form = [&](auto dropped) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int jl = warp * 16 + g + 8 * (c >> 1);
-          const int il = half * KH + n * 8 + 2 * t4 + (c & 1);
-          const int j = k0 + jl, i = q0 + il;
-          float pd = 0.f, ds = 0.f;
-          if (!test || visible(kms[jl], i, j, p.Tq, p.Tk, p.causal)) {
-            const float pr = expf(s[n][c] * p.scale - lq[il]);
-            float d = dp[n][c];
-            pd = pr;
-            if (drop.on && pr != 0.f) {
+          for (int c = 0; c < 4; ++c) {
+            const int jl = warp * 16 + g + 8 * (c >> 1);
+            const int il = half * KH + n * 8 + 2 * t4 + (c & 1);
+            const int j = k0 + jl, i = q0 + il;
+            const bool vis = !test || visible(kms[jl], i, j, p.Tq, p.Tk, p.causal);
+            const float pr = expf(vis ? s[n][c] * p.scale - lq[il] : -INFINITY);
+            float d = dp[n][c], pd = pr;
+            if constexpr (decltype(dropped)::value) {
               const float keep = drop.factor(b, h, i, j);
               pd *= keep;
               d *= keep;
             }
-            ds = pr * (d - dl[il]);
+            s[n][c] = pd;
+            dp[n][c] = pr * (d - dl[il]);
           }
-          s[n][c] = pd;
-          dp[n][c] = ds;
-        }
+      };
+      if (drop.on)
+        form(std::true_type());
+      else
+        form(std::false_type());
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -605,6 +608,13 @@ __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParam
 // heads with zeros).
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (2^-inf = 0 exactly).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 struct TcMaps {
   CUtensorMap q, k, v, dout;  // (64, T, H, B) bf16 boxes of 64 x 64
@@ -826,34 +836,37 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     reg_fence(sa);
     reg_fence(pa);
 
-    // p and ds of entry (key 16 warp + g + 8 hr, query 8 n + 2 t4 + c)
+    // p and ds of entry (key 16 warp + g + 8 hr, query 8 n + 2 t4 + c),
+    // without a branch: a hidden entry's exponent is -inf, so p = ds = 0
     const bool test = test_entries(p, code, q0, k0);
     const float* lq = stats + s * 2 * BQ;
+    auto form = [&](auto dropped) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int il = 8 * n + 2 * t4 + c, i = q0 + il;
-        const float lse2 = lq[il] * kLog2e, dlt = lq[BQ + il];
+        for (int c = 0; c < 2; ++c) {
+          const int il = 8 * n + 2 * t4 + c, i = q0 + il;
+          const float lse2 = lq[il] * kLog2e, dlt = lq[BQ + il];
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int x = 4 * n + 2 * hr + c, j = k0 + 16 * warp + g + 8 * hr;
-          float pd = 0.f, ds = 0.f;
-          if (!test || visible(kmr[hr], i, j, p.Tq, p.Tk, p.causal)) {
-            const float pr = exp2f(fmaf(sa[x], sl2, -lse2));
-            float d = pa[x];
-            pd = pr;
-            if (drop.on && pr != 0.f) {
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * n + 2 * hr + c, j = k0 + 16 * warp + g + 8 * hr;
+            const bool vis = !test || visible(kmr[hr], i, j, p.Tq, p.Tk, p.causal);
+            const float pr = fast_exp2(vis ? fmaf(sa[x], sl2, -lse2) : -INFINITY);
+            float d = pa[x], pd = pr;
+            if constexpr (decltype(dropped)::value) {
               const float keep = drop.factor(b, h, i, j);
               pd *= keep;
               d *= keep;
             }
-            ds = pr * (d - dlt);
+            sa[x] = pd;
+            pa[x] = pr * (d - dlt);
           }
-          sa[x] = pd;
-          pa[x] = ds;
         }
-      }
+    };
+    if (drop.on)
+      form(std::true_type());
+    else
+      form(std::false_type());
     // rounded to bf16: the A fragments of P^T and dS^T (k step kk: queries
     // 16 kk ..), and dS^T into shared memory in the 128-byte swizzle
     uint32_t pf[16], df[16];
