@@ -127,9 +127,11 @@ __host__ __device__ constexpr int row_stride() {
 // a Q and a dO tile a stage, the stages' lse and delta, the mbarriers, and
 // slack to align the tiles to 1024 bytes.
 constexpr int kTcStages = 2;
-constexpr int kTcThreads = 160;   // one consumer warpgroup, one producer warp
-constexpr int kTcTile = 64 * 64;  // bf16 values of a (64 x 64) tile, 8 KB
-constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 + 2 * kTcStages) * kTcTile +
+constexpr int kTcGroups = 1;                      // consumer warpgroups, 64 keys each
+constexpr int kTcKeys = 64 * kTcGroups;           // keys a block
+constexpr int kTcThreads = 128 * kTcGroups + 32;  // and one producer warp
+constexpr int kTcTile = 64 * 64;                  // bf16 values of a (64 x 64) tile, 8 KB
+constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 * kTcGroups + 2 * kTcStages) * kTcTile +
                            sizeof(float) * kTcStages * 2 * BQ + 8 * (1 + 2 * kTcStages);
 
 template <typename T, int DH>
@@ -738,29 +740,33 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_tc_kernel(const FlashParams p, const __grid_constant__ TcMaps maps) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* ks = reinterpret_cast<bf16*>(base);  // [64 keys][64], swizzled
-  bf16* vs = ks + kTcTile;
-  bf16* qs = vs + kTcTile;                    // [stage][64 queries][64]
+  bf16* ks = reinterpret_cast<bf16*>(base);  // [group][64 keys][64], swizzled
+  bf16* vs = ks + kTcGroups * kTcTile;
+  bf16* qs = vs + kTcGroups * kTcTile;        // [stage][64 queries][64]
   bf16* dos = qs + kTcStages * kTcTile;       // [stage][64 queries][64]
-  bf16* dss = dos + kTcStages * kTcTile;      // [64 keys][64 queries] rnd(ds)^T
-  float* stats = reinterpret_cast<float*>(dss + kTcTile);  // [stage][lse, delta][64]
+  bf16* dss = dos + kTcStages * kTcTile;      // [group][64 keys][64 queries] rnd(ds)^T
+  float* stats = reinterpret_cast<float*>(dss + kTcGroups * kTcTile);  // [stage][lse, delta][64]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kTcStages * 2 * BQ);
   uint64_t* full = kv_full + 1;                             // [stage]
   uint64_t* empty = full + kTcStages;                       // [stage]
 
-  // heaviest first: under causal key tile 0 sees every query tile
+  // heaviest first: under causal key block 0 sees every query tile
   const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ, BH = p.B * p.H;
-  const int kt = blockIdx.x / BH, bh = blockIdx.x - kt * BH, k0 = kt * BK;
+  const int kb = blockIdx.x / BH, bh = blockIdx.x - kb * BH, k0 = kb * kTcKeys;
   const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int code = p.live[(size_t)b * nkt + kt];
-  const int qt0 = code == 0 ? nqt : p.causal ? k0 / BQ : 0;
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;  // within its warpgroup, for the consumers
+  bool any_live = false;
+  for (int w = 0; w < kTcGroups; ++w)
+    any_live |= kb * kTcGroups + w < nkt && p.live[(size_t)b * nkt + kb * kTcGroups + w] != 0;
+  const int qt0 = !any_live ? nqt : p.causal ? k0 / BQ : 0;
   const int ntiles = nqt - qt0;
-  if (ntiles <= 0) {  // a dead key tile, or one no query reaches: dk = dv = 0
+  if (ntiles <= 0) {  // dead key tiles, or ones no query reaches: dk = dv = 0
     const float zero[32] = {};
-    if (warp < 4) {
-      store_acc(head<bf16>(p.dk, b, h), p.dk.rs, zero, 0.f, k0 + 16 * warp, p.Tk, lane);
-      store_acc(head<bf16>(p.dv, b, h), p.dv.rs, zero, 0.f, k0 + 16 * warp, p.Tk, lane);
+    if (warp < 4 * kTcGroups) {
+      const int r0 = k0 + 64 * (warp >> 2) + 16 * (warp & 3);
+      store_acc(head<bf16>(p.dk, b, h), p.dk.rs, zero, 0.f, r0, p.Tk, lane);
+      store_acc(head<bf16>(p.dv, b, h), p.dv.rs, zero, 0.f, r0, p.Tk, lane);
     }
     return;
   }
@@ -768,17 +774,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     mbar_init(kv_full, 1);
     for (int s = 0; s < kTcStages; ++s) {
       mbar_init(full + s, 32);
-      mbar_init(empty + s, 128);
+      mbar_init(empty + s, 128 * kTcGroups);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 4) {  // ---- producer
+  if (warp == 4 * kTcGroups) {  // ---- producer
     if (lane == 0) {
-      mbar_arrive_tx(kv_full, 2 * kTcTile * sizeof(bf16));
-      tma_rows(ks, &maps.k, kv_full, k0, h, b);
-      tma_rows(vs, &maps.v, kv_full, k0, h, b);
+      mbar_arrive_tx(kv_full, 2 * kTcGroups * kTcTile * sizeof(bf16));
+      for (int w = 0; w < kTcGroups; ++w) {
+        tma_rows(ks + w * kTcTile, &maps.k, kv_full, k0 + 64 * w, h, b);
+        tma_rows(vs + w * kTcTile, &maps.v, kv_full, k0 + 64 * w, h, b);
+      }
     }
     const size_t row0 = (size_t)bh * p.Tq;
     for (int it = 0; it < ntiles; ++it) {
@@ -801,19 +809,26 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     return;
   }
 
-  // ---- consumers: thread (warp, g, t4) holds keys k0 + 16 warp + g (+8)
+  // ---- consumers: warpgroup wg owns key tile kt = kb * groups + wg, keys
+  // kw = k0 + 64 wg ..; thread (warp, g, t4) holds keys kw + 16 warp + g (+8)
+  const int wg = warp >> 2, kt = kb * kTcGroups + wg, kw = k0 + 64 * wg;
+  const int code = kt < nkt ? p.live[(size_t)b * nkt + kt] : 0;
+  const int bar_id = 1 + wg;  // the warpgroup's named barrier
+  warp &= 3;
   const int g = lane >> 2, t4 = lane & 3;
   float kmr[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int j = k0 + 16 * warp + g + 8 * hr;
+    const int j = kw + 16 * warp + g + 8 * hr;
     kmr[hr] = j < p.Tk ? p.key_mask[(size_t)b * p.Tk + j] : 0.f;
   }
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
   const float sl2 = p.scale * kLog2e;
   float* ws = p.dq_ws + ((size_t)b * p.Tq * p.H + h) * 64;
   const int wrs = p.H * 64;
-  const uint64_t kd = sw128_desc(ks), vd = sw128_desc(vs), sd = sw128_desc(dss);
+  bf16* dsw = dss + wg * kTcTile;
+  const uint64_t kd = sw128_desc(ks + wg * kTcTile), vd = sw128_desc(vs + wg * kTcTile),
+                 sd = sw128_desc(dsw);
   float dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
@@ -822,6 +837,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % kTcStages, q0 = (qt0 + it) * BQ;
     mbar_wait(full + s, (it / kTcStages) & 1);
+    if (code == 0 || (p.causal && q0 + BQ <= kw)) {  // no visible entry for these keys
+      mbar_arrive(empty + s);
+      continue;
+    }
     const uint64_t qd = sw128_desc(qs + s * kTcTile), dd = sw128_desc(dos + s * kTcTile);
     float sa[32], pa[32];
 #pragma unroll
@@ -838,7 +857,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
     // p and ds of entry (key 16 warp + g + 8 hr, query 8 n + 2 t4 + c),
     // without a branch: a hidden entry's exponent is -inf, so p = ds = 0
-    const bool test = test_entries(p, code, q0, k0);
+    const bool test = test_entries(p, code, q0, kw);
     const float* lq = stats + s * 2 * BQ;
     auto form = [&](auto dropped) {
 #pragma unroll
@@ -849,7 +868,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           const float lse2 = lq[il] * kLog2e, dlt = lq[BQ + il];
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            const int x = 4 * n + 2 * hr + c, j = k0 + 16 * warp + g + 8 * hr;
+            const int x = 4 * n + 2 * hr + c, j = kw + 16 * warp + g + 8 * hr;
             const bool vis = !test || visible(kmr[hr], i, j, p.Tq, p.Tk, p.causal);
             const float pr = fast_exp2(vis ? fmaf(sa[x], sl2, -lse2) : -INFINITY);
             float d = pa[x], pd = pr;
@@ -877,18 +896,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
         df[4 * kk + e] = pack_bf16(pa[8 * kk + 2 * e], pa[8 * kk + 2 * e + 1]);
       }
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the last tile's dQ has read dss
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");  // the last dQ has read dsw
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = 16 * warp + g + 8 * hr;
-        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dss) + r * 128 +
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dsw) + r * 128 +
                                      ((n ^ g) << 4) + 4 * t4) =
             df[4 * (n >> 1) + 2 * (n & 1) + hr];
       }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // dS^T is in shared memory
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");  // dS^T is in shared memory
 
     float qa[32];
 #pragma unroll
@@ -916,8 +935,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                     qa[4 * n + 2 * hr + 1] * p.scale);
     }
   }
-  store_acc(head<bf16>(p.dk, b, h), p.dk.rs, dk, p.scale, k0 + 16 * warp, p.Tk, lane);
-  store_acc(head<bf16>(p.dv, b, h), p.dv.rs, dv, 1.f, k0 + 16 * warp, p.Tk, lane);
+  store_acc(head<bf16>(p.dk, b, h), p.dk.rs, dk, p.scale, kw + 16 * warp, p.Tk, lane);
+  store_acc(head<bf16>(p.dv, b, h), p.dv.rs, dv, 1.f, kw + 16 * warp, p.Tk, lane);
 }
 
 // ---------------------------------------------------------------- launch
@@ -963,15 +982,16 @@ cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
   if (which == kFwd)
     return go(flash_fwd_kernel<T, DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma, bytes,
               s, p);
-  const int blocks = p.B * p.H * ((p.Tk + BK - 1) / BK);
   if constexpr (std::is_same<T, bf16>::value && DH == 64) {
     TcMaps maps;
     if (!rows_map(&maps.q, p.q, p.Tq, p.H, p.B) || !rows_map(&maps.k, p.k, p.Tk, p.H, p.B) ||
         !rows_map(&maps.v, p.v, p.Tk, p.H, p.B) || !rows_map(&maps.dout, p.dout, p.Tq, p.H, p.B))
       return cudaErrorInvalidValue;
-    return go(flash_bwd_tc_kernel, blocks, kTcThreads, bytes, s, p, maps);
+    return go(flash_bwd_tc_kernel, p.B * p.H * ((p.Tk + kTcKeys - 1) / kTcKeys), kTcThreads,
+              bytes, s, p, maps);
   } else if constexpr (std::is_same<T, float>::value && DH <= 64) {
-    return go(flash_bwd_kernel<DH>, blocks, kThreadsMma, bytes, s, p);
+    return go(flash_bwd_kernel<DH>, p.B * p.H * ((p.Tk + BK - 1) / BK), kThreadsMma, bytes, s,
+              p);
   }
   return cudaErrorInvalidValue;  // bf16 heads narrower than 64 come padded
 }

@@ -50,6 +50,11 @@ VARIANTS = {
         "    const float* lq = stats + s * 2 * BQ;")],
     "3 stages": [("constexpr int kTcStages = 2;",
                   "constexpr int kTcStages = 3;")],
+    "2 warpgroups": [("constexpr int kTcGroups = 1;",
+                      "constexpr int kTcGroups = 2;")],
+    "2 warpgroups, 3 stages": [
+        ("constexpr int kTcGroups = 1;", "constexpr int kTcGroups = 2;"),
+        ("constexpr int kTcStages = 2;", "constexpr int kTcStages = 3;")],
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts/torch_flash_bench.py")
 
