@@ -1887,7 +1887,7 @@ def kernel_names(log_text: str):
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
                   r"mau_dkvt_mma_kernel|mau_dkvt_kernel|"
                   r"mau_int_bwd_rows_kernel|mau_int_bwd_cols_kernel|"
-                  r"flash_fwd_kernel|flash_bwd_kernel)"
+                  r"flash_fwd_kernel|flash_bwd_tc_kernel|flash_bwd_kernel)"
                   r"(I?\w*)",
                   log_text)
     if not m:

@@ -123,15 +123,16 @@ __host__ __device__ constexpr int row_stride() {
   return sizeof(T) == 2 ? DH + 8 : DH + 4;
 }
 
-// The bf16 backward (flash_bwd_tc_kernel): a (64 x 64) K, V and dS^T tile,
-// a Q and a dO tile a stage, the stages' lse and delta, the mbarriers, and
-// slack to align the tiles to 1024 bytes.
+// The bf16 backward (flash_bwd_tc_kernel): a warpgroup's (64 x 64) K, V and
+// dS^T tiles and fp32 dQ tile, a Q and a dO tile a stage, the stages' lse and
+// delta, the mbarriers, and slack to align the tiles to 1024 bytes.
 constexpr int kTcStages = 2;
-constexpr int kTcGroups = 1;                      // consumer warpgroups, 64 keys each
+constexpr int kTcGroups = 2;                      // consumer warpgroups, 64 keys each
 constexpr int kTcKeys = 64 * kTcGroups;           // keys a block
 constexpr int kTcThreads = 128 * kTcGroups + 32;  // and one producer warp
 constexpr int kTcTile = 64 * 64;                  // bf16 values of a (64 x 64) tile, 8 KB
 constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 * kTcGroups + 2 * kTcStages) * kTcTile +
+                           sizeof(float) * kTcGroups * kTcTile +
                            sizeof(float) * kTcStages * 2 * BQ + 8 * (1 + 2 * kTcStages);
 
 template <typename T, int DH>
@@ -619,7 +620,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 struct TcMaps {
-  CUtensorMap q, k, v, dout;  // (64, T, H, B) bf16 boxes of 64 x 64
+  CUtensorMap q, k, v, dout;  // (64, T, H, B) bf16, boxes of 64 rows x 64
+  CUtensorMap dq;             // (64, Tq, H, B) fp32 workspace, boxes of 64 rows x 32
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -660,6 +662,18 @@ __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(t0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// Adds the (64 rows x 32) fp32 box src to the rows [t0, t0 + 64), columns
+// [c0, c0 + 32) of head (b, h) of a map, in the L2 (rows past the map's end
+// are dropped); completes as a bulk group of the issuing thread.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int c0,
+                                               int t0, int h, int b) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(t0), "r"(h), "r"(b)
       : "memory");
 }
 
@@ -745,7 +759,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   bf16* qs = vs + kTcGroups * kTcTile;        // [stage][64 queries][64]
   bf16* dos = qs + kTcStages * kTcTile;       // [stage][64 queries][64]
   bf16* dss = dos + kTcStages * kTcTile;      // [group][64 keys][64 queries] rnd(ds)^T
-  float* stats = reinterpret_cast<float*>(dss + kTcGroups * kTcTile);  // [stage][lse, delta][64]
+  float* dqs = reinterpret_cast<float*>(dss + kTcGroups * kTcTile);  // [group][2][64][32]
+  float* stats = dqs + kTcGroups * kTcTile;   // [stage][lse, delta][64]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kTcStages * 2 * BQ);
   uint64_t* full = kv_full + 1;                             // [stage]
   uint64_t* empty = full + kTcStages;                       // [stage]
@@ -824,8 +839,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
   const float sl2 = p.scale * kLog2e;
-  float* ws = p.dq_ws + ((size_t)b * p.Tq * p.H + h) * 64;
-  const int wrs = p.H * 64;
+  const bool issuer = (threadIdx.x & 127) == 0;  // of the warpgroup's dQ reductions
+  float* dqw = dqs + wg * kTcTile;               // two (64 x 32) swizzled halves
   bf16* dsw = dss + wg * kTcTile;
   const uint64_t kd = sw128_desc(ks + wg * kTcTile), vd = sw128_desc(vs + wg * kTcTile),
                  sd = sw128_desc(dsw);
@@ -896,7 +911,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
         df[4 * kk + e] = pack_bf16(pa[8 * kk + 2 * e], pa[8 * kk + 2 * e + 1]);
       }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");  // the last dQ has read dsw
+    if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    // the last tile's dQ product has read dsw, its reduction dqw
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -925,16 +942,27 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     reg_fence(dk);
     reg_fence(qa);
     mbar_arrive(empty + s);  // the stage's Q, dO, lse and delta are free
+    // scale * dQ into two (64 x 32) fp32 halves in the 128-byte swizzle
+    // (column 8 m + 2 t4 of a half is 16-byte chunk 2 m + t4 / 2), then
+    // added to the workspace by TMA
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int i = q0 + 16 * warp + g + 8 * hr;
-      if (i >= p.Tq) continue;
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-        atomic_add2(ws + (size_t)i * wrs + 8 * n + 2 * t4, qa[4 * n + 2 * hr] * p.scale,
-                    qa[4 * n + 2 * hr + 1] * p.scale);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * warp + g + 8 * hr, chunk = (2 * (n & 3) + (t4 >> 1)) ^ g;
+        *reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(dqw) + (n >> 2) * 8192 +
+                                   r * 128 + (chunk << 4) + 8 * (t4 & 1)) =
+            make_float2(qa[4 * n + 2 * hr] * p.scale, qa[4 * n + 2 * hr + 1] * p.scale);
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    if (issuer) {
+      tma_reduce_add(&maps.dq, dqw, 0, q0, h, b);
+      tma_reduce_add(&maps.dq, dqw + 2048, 32, q0, h, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
+  if (issuer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   store_acc(head<bf16>(p.dk, b, h), p.dk.rs, dk, p.scale, kw + 16 * warp, p.Tk, lane);
   store_acc(head<bf16>(p.dv, b, h), p.dv.rs, dv, 1.f, kw + 16 * warp, p.Tk, lane);
 }
@@ -961,19 +989,26 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The TMA map of a (B, H, T, 64) bf16 operand read in place with its
-// strides: boxes of 64 rows, 128-byte swizzle, zeros past row T.
-bool rows_map(CUtensorMap* map, const Seq4& x, int T, int H, int B) {
+// The TMA map of a (B, H, T, 64) operand with element strides (bs, hs, rs):
+// boxes of 64 rows x `cols` columns, 128-byte swizzle, zeros read (and
+// nothing written) past row T.
+bool rows_map(CUtensorMap* map, CUtensorMapDataType type, size_t item, const void* ptr,
+              long long bs, long long hs, long long rs, int T, int H, int B, int cols) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)x.rs * sizeof(bf16), (cuuint64_t)x.hs * sizeof(bf16),
-                                 (cuuint64_t)x.bs * sizeof(bf16)};
-  const cuuint32_t box[4] = {64, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.p), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t strides[3] = {(cuuint64_t)rs * item, (cuuint64_t)hs * item,
+                                 (cuuint64_t)bs * item};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool seq_map(CUtensorMap* map, const Seq4& x, int T, int H, int B) {
+  return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), x.p, x.bs, x.hs, x.rs, T,
+                  H, B, 64);
 }
 
 template <typename T, int DH>
@@ -984,8 +1019,11 @@ cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
               s, p);
   if constexpr (std::is_same<T, bf16>::value && DH == 64) {
     TcMaps maps;
-    if (!rows_map(&maps.q, p.q, p.Tq, p.H, p.B) || !rows_map(&maps.k, p.k, p.Tk, p.H, p.B) ||
-        !rows_map(&maps.v, p.v, p.Tk, p.H, p.B) || !rows_map(&maps.dout, p.dout, p.Tq, p.H, p.B))
+    // the workspace is (B, Tq, H, 64) fp32
+    if (!seq_map(&maps.q, p.q, p.Tq, p.H, p.B) || !seq_map(&maps.k, p.k, p.Tk, p.H, p.B) ||
+        !seq_map(&maps.v, p.v, p.Tk, p.H, p.B) || !seq_map(&maps.dout, p.dout, p.Tq, p.H, p.B) ||
+        !rows_map(&maps.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), p.dq_ws,
+                  (long long)p.Tq * p.H * 64, 64, (long long)p.H * 64, p.Tq, p.H, p.B, 32))
       return cudaErrorInvalidValue;
     return go(flash_bwd_tc_kernel, p.B * p.H * ((p.Tk + kTcKeys - 1) / kTcKeys), kTcThreads,
               bytes, s, p, maps);

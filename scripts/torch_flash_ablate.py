@@ -4,8 +4,8 @@ out, on one GPU, to show where its time goes.
 
 Each variant edits ``csrc/flash_attention.cu`` in a copy of the package
 (with ``chip_smoke.py`` and ``scripts/torch_flash_bench.py``) in a temporary
-directory: the dQ atomics removed, the exp removed, the per-entry mask test
-removed, and so on. The variants compute wrong gradients; only their times
+directory: the dQ reduction removed, the exp removed, the per-entry mask
+test removed, one consumer warpgroup instead of two, and so on. The variants compute wrong gradients; only their times
 mean something. All copies are built first (one nvcc each, all started
 together), then ``torch_flash_bench.py`` runs in each copy in turn, the
 unchanged source first and last. Prints one JSON line a copy, and the card's
@@ -26,35 +26,21 @@ SOURCE = "easydgl_tpu_torch/kernels/csrc/flash_attention.cu"
 # name -> [(old text, new text), ...] applied to the copy's SOURCE
 VARIANTS = {
     "control": [],
-    "no dQ atomics": [(
-        "        atomic_add2(ws + (size_t)i * wrs + 8 * n + 2 * t4,"
-        " qa[4 * n + 2 * hr] * p.scale,\n"
-        "                    qa[4 * n + 2 * hr + 1] * p.scale);",
-        "        if (qa[4 * n + 2 * hr] == 1234.5f) ws[i] = 0.f;")],
-    "no dQ product or atomics": [(
-        "    for (int kk = 0; kk < 4; ++kk) wgmma_ss<1, 1>(qa, sd + 128 * kk,"
-        " kd + 128 * kk, 1);  // dS K",
-        "    for (int kk = 0; kk < 0; ++kk) wgmma_ss<1, 1>(qa, sd + 128 * kk,"
-        " kd + 128 * kk, 1);  // dS K"), (
-        "        atomic_add2(ws + (size_t)i * wrs + 8 * n + 2 * t4,"
-        " qa[4 * n + 2 * hr] * p.scale,\n"
-        "                    qa[4 * n + 2 * hr + 1] * p.scale);",
-        "        if (qa[4 * n + 2 * hr] == 1234.5f) ws[i] = 0.f;")],
+    "no dQ reduction": [(
+        "      tma_reduce_add(&maps.dq, dqw, 0, q0, h, b);\n"
+        "      tma_reduce_add(&maps.dq, dqw + 2048, 32, q0, h, b);\n", "")],
     "no exp": [(
         "const float pr = fast_exp2(vis ? fmaf(sa[x], sl2, -lse2) : -INFINITY);",
         "const float pr = vis ? fmaf(sa[x], sl2, -lse2) : 0.f;")],
     "no entry test": [(
-        "    const bool test = test_entries(p, code, q0, k0);\n"
+        "    const bool test = test_entries(p, code, q0, kw);\n"
         "    const float* lq = stats + s * 2 * BQ;",
         "    const bool test = false;\n"
         "    const float* lq = stats + s * 2 * BQ;")],
+    "1 warpgroup": [("constexpr int kTcGroups = 2;",
+                     "constexpr int kTcGroups = 1;")],
     "3 stages": [("constexpr int kTcStages = 2;",
                   "constexpr int kTcStages = 3;")],
-    "2 warpgroups": [("constexpr int kTcGroups = 1;",
-                      "constexpr int kTcGroups = 2;")],
-    "2 warpgroups, 3 stages": [
-        ("constexpr int kTcGroups = 1;", "constexpr int kTcGroups = 2;"),
-        ("constexpr int kTcStages = 2;", "constexpr int kTcStages = 3;")],
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts/torch_flash_bench.py")
 
