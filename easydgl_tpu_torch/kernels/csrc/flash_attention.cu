@@ -1,67 +1,87 @@
-// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV as three
-// kernels.
+// Flash attention for Hopper (sm_90a): the forward, and the backward (dQ,
+// dK and dV) as one kernel.
 //
 // Replaces the TPU kernels of easydgl_tpu/kernels/flash_attention.py:
 //
-//   flash_fwd_kernel  _fwd_kernel (pallas_call in _flash_fwd, :318)
-//   flash_dq_kernel   _dq_kernel  (pallas_call in _flash_bwd, :366)
-//   flash_dkv_kernel  _dkv_kernel (pallas_call in _flash_bwd, :390)
+//   flash_fwd_kernel      _fwd_kernel (:121; pallas_call in _flash_fwd, :318)
+//   flash_bwd_tc_kernel   _dq_kernel  (:166; pallas_call in _flash_bwd, :366)
+//   (bf16), and           _dkv_kernel (:199; pallas_call in _flash_bwd, :390)
+//   flash_bwd_kernel
+//   (fp32)
 //
 // and computes what the plain versions of easydgl_tpu_torch/kernels/
-// flash_attention.py compute (flash_fwd_reference, flash_dq_reference,
-// flash_dkv_reference), with their rounding points. With s_ij = (q_i . k_j)
-// * scale in fp32, visible_ij = key_mask_j > 0 (and j <= i when causal),
-// keep_ij the dropout factor:
+// flash_attention.py compute (flash_fwd_reference, flash_bwd_reference =
+// flash_dq_reference + flash_dkv_reference), with their rounding points.
+// With s_ij = (q_i . k_j) * scale in fp32, visible_ij = key_mask_j > 0 (and
+// j <= i when causal), keep_ij the dropout factor:
 //
 //   forward  m_i = max_visible s_ij, p_ij = visible ? exp(s_ij - m_i) : 0,
 //            l_i = sum_j p_ij (undropped), out_i = l_i > 0 ?
 //            sum_j rnd(p_ij keep_ij) v_j / l_i : 0, lse_i = m_i + log(max(l_i,
 //            1e-37)); a row that sees no key has m_i = -1e38, out 0.
-//   dq       p_ij = visible ? exp(s_ij - lse_i) : 0, dp_ij = (dO_i . v_j)
-//            keep_ij, ds_ij = p_ij (dp_ij - delta_i), dq_i = scale sum_j
-//            rnd(ds_ij) k_j, delta_i = dO_i . out_i (the wrapper's).
-//   dkv      dv_j = sum_i rnd(p_ij keep_ij) dO_i, dk_j = scale sum_i
-//            rnd(ds_ij) q_i.
+//   backward p_ij = visible ? exp(s_ij - lse_i) : 0, dp_ij = (dO_i . v_j)
+//            keep_ij, ds_ij = p_ij (dp_ij - delta_i), delta_i = dO_i . out_i
+//            (the wrapper's); dq_i = scale sum_j rnd(ds_ij) k_j, dv_j =
+//            sum_i rnd(p_ij keep_ij) dO_i, dk_j = scale sum_i rnd(ds_ij) q_i.
 //
 // rnd() rounds to the compute dtype (bf16) and is the identity in fp32; every
 // sum is fp32; the online max of the forward rounds p relative to the running
 // max, the plain version relative to the row's. Dropout keeps entry (b, h, i,
 // j) by the Philox draw of counter (j, i, h, b) (common.cuh), i the query row
-// of the call and j the key: the forward, the query-major dq, the key-major
-// dkv and the plain version draw one mask whatever their tiles (the TPU kernel
+// of the call and j the key: the query-major forward, the key-major backward
+// and the plain version draw one mask whatever their tiles (the TPU kernel
 // seeds its PRNG per block, so its mask depends on the blocking).
 //
-// Design. One block of four warps takes 64 rows of one (b, h): 64 queries in
-// the forward and dq, looping over 64-key tiles; 64 keys in dkv, looping
-// over 64-query tiles. The TPU's sequential grid axis becomes the loop, its
-// VMEM scratch the registers: each warp owns 16 rows, and its running max,
-// sum and (16 x dh) accumulators stay in registers. A 64-wide tile is taken
-// in two 32-wide halves: their products come out as mma C fragments, are
-// formed in place, and are the A operand of the next product (P @ V,
-// dS @ K, P^T @ dO, dS^T @ Q). Tiles stream through shared memory with
-// cp.async one tile ahead (double-buffered), q/k/v/dO read in place with
-// strides (no head transpose, dh = 64 not padded).
+// Forward. One block of four warps takes 64 queries of one (b, h) and loops
+// over 64-key tiles up to the causal diagonal; each warp owns 16 rows, and
+// its running max, sum and (16 x dh) output stay in registers. A key tile is
+// taken in two 32-wide halves whose mma.sync C fragments become the A operand
+// of P @ V; tiles stream through shared memory by cp.async one tile ahead.
+// bf16 on the tensor cores, fp32 on the CUDA cores.
 //
-// * bf16 (the main path): mma.sync m16n8k16 with fp32 accumulation on the
-//   tensor cores, operands by ldmatrix; the resident operand's A fragments
-//   stay in registers.
-// * fp32: the same schedule on the CUDA cores: the warp's rows read from
-//   shared memory with 16-byte loads, the C-fragment operand of the second
-//   product passed between the lanes of a quad by shuffles.
+// Backward: one key-major pass (the FlashAttention-2/3 schedule). A block
+// owns a run of 64-key tiles of one (b, h) with K and V resident in shared
+// memory, and streams the query tiles that can see them together with their
+// lse and delta. For each (query tile, key tile) it forms S^T = K Q^T and
+// dP^T = V dO^T once, then p and ds once: one exp and, under dropout, one
+// Philox draw an entry. dV += rnd(p keep)^T dO and dK += rnd(ds)^T Q stay in
+// registers; rnd(ds)^T goes to shared memory once, as the operand of the
+// tile's dQ = rnd(ds) K, which is added (times scale) to a zeroed fp32
+// (B, Tq, H, dh) workspace: row i of dq sums over its key tiles in whatever
+// order the blocks run. The wrapper casts the workspace into dq.
 //
-// Under causal the key tiles strictly after a query tile's last query are
-// skipped (dkv: the query tiles strictly before its first key). This is
-// exact here: a masked entry contributes exactly 0, and a row that sees no
-// key writes 0, whatever is skipped.
+// * Padding is skipped: the wrapper codes each (batch row, 64-key tile) as
+//   dead (every key masked), full or partial (flash_live_tiles). A dead tile
+//   computes nothing and writes dk = dv = 0; under causal a tile visits the
+//   query tiles from its diagonal on. This is exact: a masked entry adds
+//   exactly 0, and a row that sees no key gets 0.
+// * Entries are formed without a branch: a hidden entry's exponent is -inf,
+//   so p = ds = 0. Only tiles that are partial, on the causal diagonal or on
+//   the ragged query edge test entries one by one; under dropout every entry
+//   of a visited tile draws.
+// * bf16 (flash_bwd_tc_kernel): two consumer warpgroups, 64 keys each, and
+//   one producer warp a block. The producer copies K and V once, then each
+//   query tile's Q and dO by TMA (128-byte swizzle) into a two-stage ring,
+//   and its lse and delta by plain loads, each stage under a full and an
+//   empty mbarrier. The five products are wgmma m64n64k16 with fp32
+//   accumulators: S^T and dP^T with both operands in shared memory; dV and
+//   dK with p and ds fed back from the accumulator registers as the A
+//   operand; dQ from the swizzled dS^T tile. Each warpgroup stages its
+//   scaled fp32 dQ tile in shared memory and adds it to the workspace with
+//   one TMA reduction (cp.reduce.async.bulk.tensor). dh = 64; the wrapper
+//   zero-pads narrower heads.
+// * fp32 (flash_bwd_kernel): the same schedule on the CUDA cores, 64 keys
+//   and four warps a block, tiles by cp.async, dQ by float2 atomics; no TF32.
 //
-// What bounds it, at the SASREC-LC shape (B=32, H=8, T=2048, dh=64, causal):
-// operations. Each causal T x T x dh product over the 256 (b, h) pairs is
-// 68.7 GFLOP: the forward does 2 (0.139 ms at 989 TFLOP/s), dq 3 (0.208),
-// dkv 4 (0.278); q, k, v and out are 67 MB each in bf16 (0.02 ms at
-// 3.35 TB/s). Besides the products, each visible entry costs an exp (and a
-// Philox draw of ten rounds under dropout) on the CUDA cores.
+// What bounds the backward, at the SASREC-LC shape (B=32, H=8, T=2048,
+// dh=64, causal, left-padded keys): bytes. q, k, v, dO in and dq, dk, dv out
+// are 67 MB each in bf16, 0.14 ms at 3.35 TB/s; the five products over the
+// ~30% of the causal pairs that the mask leaves visible are ~105 GFLOP,
+// 0.106 ms at 989 TFLOP/s. The kernel computes whole tiles (~36% of the
+// causal tile pairs there), and each entry costs an exp and, under dropout,
+// a ten-round Philox draw on the CUDA cores, which no tensor core takes.
 //
-// Limits: dh in {16, 32, 64, 128} (forward), {16, 32, 64} (dq, dkv); rows of
+// Limits: dh in {16, 32, 64, 128} (forward), {16, 32, 64} (backward); rows of
 // q/k/v/dO/outputs start on 16-byte boundaries (the wrapper copies where
 // they do not).
 
@@ -410,16 +430,10 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
 }
 
 // ---------------------------------------------------------------- backward
-// One key-major pass: a block owns 64 keys of one (b, h), with K and V
-// resident in shared memory, and streams the query tiles that can see them
-// (none for a dead key tile; under causal those from the diagonal on). For
-// each query tile it forms S^T = K Q^T and dP^T = V dO^T once; each warp
-// owns 16 keys, and its transposed (16 keys x 32 queries) tiles are the A
-// operands of dv += rnd(p keep)^T @ dO and dk += rnd(ds)^T @ Q, kept in
-// registers. rnd(ds)^T goes to shared memory once; the block then forms the
-// tile's dQ = rnd(ds) @ K (times scale) and adds it to the fp32 workspace
-// with atomics: row i of dq sums over the key tiles of its row in whatever
-// order the blocks run.
+// fp32 (flash_bwd_kernel) on the CUDA cores; the schedule of the header: a
+// block owns 64 keys, each warp 16 of them, and its transposed (16 keys x 32
+// queries) tiles of a query tile's half are the A operands of dv += rnd(p
+// keep)^T @ dO and dk += rnd(ds)^T @ Q.
 
 // The 16-byte-aligned pair (a, b) added to dst[0], dst[1] in device memory.
 __device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
@@ -597,18 +611,8 @@ __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParam
 }
 
 // ---------------------------------------------------------------- backward, bf16
-// The same key-major schedule on Hopper's tensor cores and copy engine. A
-// block of one consumer warpgroup (warps 0-3) and one producer warp (warp
-// 4) owns 64 keys; the producer copies K and V once and then each query
-// tile's Q and dO by TMA into a two-stage ring (128-byte swizzle) and its
-// lse and delta by plain loads, and signals an mbarrier; the consumers
-// run S^T = K Q^T and dP^T = V dO^T as wgmma with both operands in shared
-// memory, form p and ds in the accumulator registers, and feed them back as
-// register A operands of dV += rnd(p keep)^T dO and dK += rnd(ds)^T Q.
-// rnd(ds)^T is stored once, swizzled, as the shared-memory A operand of the
-// tile's dQ = rnd(ds) K, which goes to the workspace by atomics. Every
-// operand is bf16 with fp32 accumulation; dh = 64 (the wrapper pads narrower
-// heads with zeros).
+// wgmma and TMA (see the header): warpgroups 0 and 1 consume, warp 8
+// produces.
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -777,11 +781,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int qt0 = !any_live ? nqt : p.causal ? k0 / BQ : 0;
   const int ntiles = nqt - qt0;
   if (ntiles <= 0) {  // dead key tiles, or ones no query reaches: dk = dv = 0
-    const float zero[32] = {};
-    if (warp < 4 * kTcGroups) {
-      const int r0 = k0 + 64 * (warp >> 2) + 16 * (warp & 3);
-      store_acc(head<bf16>(p.dk, b, h), p.dk.rs, zero, 0.f, r0, p.Tk, lane);
-      store_acc(head<bf16>(p.dv, b, h), p.dv.rs, zero, 0.f, r0, p.Tk, lane);
+    bf16* dkg = head<bf16>(p.dk, b, h);
+    bf16* dvg = head<bf16>(p.dv, b, h);
+    for (int e = threadIdx.x; e < kTcKeys * 32; e += blockDim.x) {
+      const int r = k0 + e / 32, c = 2 * (e % 32);
+      if (r >= p.Tk) break;
+      store2(dkg + (long long)r * p.dk.rs + c, 0.f, 0.f);
+      store2(dvg + (long long)r * p.dv.rs + c, 0.f, 0.f);
     }
     return;
   }
