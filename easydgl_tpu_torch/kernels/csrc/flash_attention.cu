@@ -60,7 +60,8 @@
 //   the ragged query edge test entries one by one; under dropout every entry
 //   of a visited tile draws.
 // * bf16 (flash_bwd_tc_kernel): two consumer warpgroups, 64 keys each, and
-//   one producer warp a block. The producer copies K and V once, then each
+//   a producer warp a block (its warpgroup hands its registers to the
+//   consumers by setmaxnreg). The producer copies K and V once, then each
 //   query tile's Q and dO by TMA (128-byte swizzle) into a two-stage ring,
 //   and its lse and delta by plain loads, each stage under a full and an
 //   empty mbarrier. The five products are wgmma m64n64k16 with fp32
@@ -149,7 +150,12 @@ __host__ __device__ constexpr int row_stride() {
 constexpr int kTcStages = 2;
 constexpr int kTcGroups = 2;                      // consumer warpgroups, 64 keys each
 constexpr int kTcKeys = 64 * kTcGroups;           // keys a block
-constexpr int kTcThreads = 128 * kTcGroups + 32;  // and one producer warp
+constexpr int kTcThreads = 128 * (kTcGroups + 1);  // and a producer warpgroup
+// Registers a thread after setmaxnreg: the producer warpgroup gives up most
+// of its share so that each consumer thread holds its five (64 x 64) fp32
+// accumulators' worth (dk, dv, S^T or dQ, dP^T, and the bf16 fragments)
+// without spilling; 128 (24 + 2 x 240) fits the 65,536 of an SM.
+constexpr int kTcProducerRegs = 24, kTcConsumerRegs = 240;
 constexpr int kTcTile = 64 * 64;                  // bf16 values of a (64 x 64) tile, 8 KB
 constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 * kTcGroups + 2 * kTcStages) * kTcTile +
                            sizeof(float) * kTcGroups * kTcTile +
@@ -611,8 +617,8 @@ __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParam
 }
 
 // ---------------------------------------------------------------- backward, bf16
-// wgmma and TMA (see the header): warpgroups 0 and 1 consume, warp 8
-// produces.
+// wgmma and TMA (see the header): warpgroups 0 and 1 consume, the first
+// warp of warpgroup 2 produces.
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -801,7 +807,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   __syncthreads();
 
-  if (warp == 4 * kTcGroups) {  // ---- producer
+  if (warp >= 4 * kTcGroups) {  // ---- producer: its first warp works
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTcProducerRegs));
+    if (warp > 4 * kTcGroups) return;
     if (lane == 0) {
       mbar_arrive_tx(kv_full, 2 * kTcGroups * kTcTile * sizeof(bf16));
       for (int w = 0; w < kTcGroups; ++w) {
@@ -832,6 +840,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
   // ---- consumers: warpgroup wg owns key tile kt = kb * groups + wg, keys
   // kw = k0 + 64 wg ..; thread (warp, g, t4) holds keys kw + 16 warp + g (+8)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTcConsumerRegs));
   const int wg = warp >> 2, kt = kb * kTcGroups + wg, kw = k0 + 64 * wg;
   const int code = kt < nkt ? p.live[(size_t)b * nkt + kt] : 0;
   const int bar_id = 1 + wg;  // the warpgroup's named barrier
