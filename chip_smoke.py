@@ -983,7 +983,7 @@ def visited_tile_share(km, t, causal=True) -> float:
     """The share of the causal (query tile, key tile) pairs that the
     backward visits on this key mask (``flash_visited_tiles``)."""
     b, n = km.shape[0], -(-t // 64)
-    visited = flash_visited_tiles(flash_live_tiles(km, b, t), t, causal)
+    visited = flash_visited_tiles(flash_live_tiles(km), t, causal)
     return float(visited.sum()) / (b * (n * (n + 1) // 2 if causal
                                         else n * n))
 

@@ -441,15 +441,9 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
 // queries) tiles of a query tile's half are the A operands of dv += rnd(p
 // keep)^T @ dO and dk += rnd(ds)^T @ Q.
 
-// The 16-byte-aligned pair (a, b) added to dst[0], dst[1] in device memory.
+// The 8-byte-aligned pair (a, b) added to dst[0], dst[1] in device memory.
 __device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
-#if defined(__CUDACC_VER_MAJOR__) && \
-    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 2))
   atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
-#else
-  atomicAdd(dst, a);
-  atomicAdd(dst + 1, b);
-#endif
 }
 
 // Whether entries of the tile (query tile q0, key tile k0, key-tile code)

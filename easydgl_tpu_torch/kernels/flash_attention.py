@@ -60,7 +60,7 @@ KERNEL_FWD_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BWD_HEAD_DIMS = (16, 32, 64)
 BF16_BWD_HEAD_DIM = 64   # the bf16 backward's tile width (narrower heads pad)
 _FWD, _BWD = range(2)   # as flash_smem_bytes numbers the kernels
-TILE = 64                      # the kernels' query and key tiles
+TILE = 64                # the kernels' query and key tiles
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_uint, ctypes.c_float)
 
@@ -163,16 +163,15 @@ def _probs_ds(q, k, v, key_mask, dout, lse, delta, causal, scale, rate, seed):
     return pd, ds
 
 
-def flash_live_tiles(key_mask, b: int, tk: int, device=None) -> torch.Tensor:
-    """(B, ceil(Tk / 64)) int32, one code a 64-key tile: 0 where every key
-    of the tile is masked or past Tk (a dead tile, which no query sees), 2
-    where all 64 keys are real and visible (a full tile), 1 otherwise."""
+def flash_live_tiles(key_mask: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(Tk / 64)) int32 from the key mask (B, Tk), one code a 64-key
+    tile: 0 where every key of the tile is masked or past Tk (a dead tile,
+    which no query sees), 2 where all 64 keys are real and visible (a full
+    tile), 1 otherwise."""
+    b, tk = key_mask.shape
     nkt = -(-tk // TILE)
-    if key_mask is None:
-        vis = torch.ones((b, tk), dtype=torch.bool, device=device)
-    else:
-        vis = key_mask > 0
-    vis = torch.nn.functional.pad(vis, (0, nkt * TILE - tk)).view(b, nkt, TILE)
+    vis = torch.nn.functional.pad(key_mask > 0, (0, nkt * TILE - tk))
+    vis = vis.view(b, nkt, TILE)
     return (vis.any(-1).int() + vis.all(-1).int()).contiguous()
 
 
@@ -337,10 +336,10 @@ def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
                         dropout_rate: float = 0.0, seed=None):
     """(dQ (B, H, Tq, dh), dK, dV (B, H, Tk, dh)) in q's dtype from dO
     (B, H, Tq, dh), lse and delta (B, H, Tq). CPU tensors:
-    ``flash_bwd_reference``; CUDA tensors: ``flash_bwd_kernel``, one
-    key-major pass over the live key tiles (``flash_live_tiles``) that adds
-    dQ into a zeroed fp32 workspace (B, Tq, H, dh) with atomics; the
-    workspace is then cast into dQ's (B, T, H, dh) storage."""
+    ``flash_bwd_reference``; CUDA tensors: ``flash_bwd_tc_kernel`` (bf16)
+    or ``flash_bwd_kernel`` (fp32), one key-major pass over the live key
+    tiles (``flash_live_tiles``) that adds dQ into a zeroed fp32 workspace
+    (B, Tq, H, dh), which is then cast into dQ's (B, T, H, dh) storage."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v, dout, lse, delta) + (() if key_mask is None
                                              else (key_mask,))
@@ -353,7 +352,7 @@ def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
         "flash_attention_bwd", _BWD, q, k, v, key_mask,
         dout=dout.to(q.dtype))
     lse, delta = _bwd_stats(lse, delta, b, h, tq)
-    live = flash_live_tiles(km, b, tk)
+    live = flash_live_tiles(km)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
     kdh = dh

@@ -143,7 +143,7 @@ def test_visited_tiles_cover_every_visible_pair(case):
     tile has every key visible."""
     km, tq, causal = case
     b, tk = km.shape
-    live = flash_live_tiles(torch.tensor(km), b, tk)
+    live = flash_live_tiles(torch.tensor(km))
     visited = flash_visited_tiles(live, tq, causal).numpy()
     live = live.numpy()
     vis = np.broadcast_to(km[:, None, :] > 0, (b, tq, tk))
