@@ -86,7 +86,7 @@
 // q/k/v/dO/outputs start on 16-byte boundaries (the wrapper copies where
 // they do not).
 
-#include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
+#include <cuda.h>  // CUtensorMap; the encoder is looked up in libcuda at run time
 
 #include <type_traits>
 
@@ -983,8 +983,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, found at run time (the library
-// links only the runtime).
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (the library
+// links only the CUDA runtime).
 EncodeTiled tensor_map_encoder() {
   static const EncodeTiled fn = [] {
     void* f = nullptr;
