@@ -61,6 +61,8 @@ struct Params {
   const float* lse;     // (N,)  backward
   const float* dlse;    // (N,)  backward
   const float* dll;     // (N,)  backward
+  const int* live;      // (ceil(N / 64),) backward: 0 where a 64-row tile's g is all zero
+  const int* order;     // backward: the number of live row tiles, then their indices
   float* part_m;        // (S, N) forward
   float* part_l;
   float* part_ll;
@@ -132,7 +134,10 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   const T* b_src = static_cast<const T*>(resident_vocab ? p.hidden : p.table);
   const int a_total = resident_vocab ? p.V : p.N;
   const int b_total = resident_vocab ? p.N : p.V;
-  int tile_begin = 0, tile_end = (b_total + kB - 1) / kB;
+  // d_hidden: a dead row tile computes nothing (the caller zeroed dh_acc);
+  // d_table: the streamed tiles are the live row tiles, in order
+  if (MODE == kDHidden && p.live[a0 / kB] == 0) return;
+  int tile_begin = 0, tile_end = MODE == kDTable ? p.order[0] : (b_total + kB - 1) / kB;
   if (MODE != kDTable) {
     tile_begin = blockIdx.y * p.tiles_per_split;
     tile_end = imin(tile_end, tile_begin + p.tiles_per_split);
@@ -185,7 +190,8 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     }
   }
 
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
+  for (int it = tile_begin; it < tile_end; ++it) {
+    const int tile = MODE == kDTable ? p.order[1 + it] : it;
     const int b0 = tile * kB, nb = imin(kB, b_total - b0);
     __syncthreads();  // previous tile consumed
     if constexpr (MMA) {
@@ -332,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
           const size_t off = (size_t)row * C + c;
           if (MODE == kDHidden) {
             if (p.splits > 1) atomicAdd(p.dh_acc + off, acc[nt][mt][i]);
-            else p.dh_acc[off] = acc[nt][mt][i];
+          else p.dh_acc[off] = acc[nt][mt][i];
           } else {
             static_cast<T*>(p.dtable)[off] = from_f<T>(acc[nt][mt][i]);
           }
@@ -442,17 +448,22 @@ int catalog_nll_fwd(const void* hidden, const void* table, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// Backward: dh_acc (N, C) fp32 (zeroed by the caller when splits > 1),
-// dtable (V, C) in the compute dtype, dbias (V,) fp32.
+// Backward: dh_acc (N, C) fp32, zeroed by the caller; dtable (V, C) in the
+// compute dtype, dbias (V,) fp32. live (ceil(N / 64),) codes each 64-row
+// tile (0: every row has dlse = dll = 0); order is the number of live tiles,
+// then their indices.
 int catalog_nll_bwd(const void* hidden, const void* table, const void* bias,
                     const void* labels, const void* lse, const void* dlse,
-                    const void* dll, void* dh_acc, void* dtable, void* dbias,
-                    int N, int V, int C, int splits, int dtype, void* stream) {
+                    const void* dll, const void* live, const void* order, void* dh_acc,
+                    void* dtable, void* dbias, int N, int V, int C, int splits, int dtype,
+                    void* stream) {
   if (!valid_shape(N, V, C, dtype) || splits < 1) return (int)cudaErrorInvalidValue;
   Params p = base(hidden, table, bias, labels, N, V, C);
   p.lse = static_cast<const float*>(lse);
   p.dlse = static_cast<const float*>(dlse);
   p.dll = static_cast<const float*>(dll);
+  p.live = static_cast<const int*>(live);
+  p.order = static_cast<const int*>(order);
   p.dh_acc = static_cast<float*>(dh_acc);
   p.dtable = dtable;
   p.dbias = static_cast<float*>(dbias);

@@ -15,6 +15,12 @@ materialises the logits; autograd differentiates it.
 tensors launch the kernels or raise; ``catalog_nll_fwd.launches`` and
 ``catalog_nll_bwd.launches`` count the launches.
 
+The backward skips rows whose gradient is exactly zero: a row with dlse = 0
+and dll = 0 (a padded position, whose loss weight is 0) has g = 0 on every
+vocab id. ``catalog_live_rows`` codes each 64-row tile from dlse and dll
+with one reduction; a dead tile's d_hidden rows are 0 and it adds nothing
+to d_table or d_bias, so the kernels compute nothing there.
+
 The compute dtype is the table's (hidden and table alike): in bf16 the
 products take bf16 operands and accumulate in fp32, g is rounded to bf16
 before both backward products, and d_hidden and d_table are returned in
@@ -35,6 +41,7 @@ from easydgl_tpu_torch.kernels.mau_attention import _on_card, _raise_on
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_MAX_C = 512
 _ROWS_PER_BLOCK = 32       # resident rows of one block (catalog_kernel)
+ROW_TILE = 64              # the rows a code of catalog_live_rows covers
 _TARGET_BLOCKS = 264       # two blocks' worth per SM of an H100 (132 SMs)
 
 
@@ -61,6 +68,25 @@ def catalog_nll_bwd_reference(hidden, table, bias, labels, lse, dlse, dll):
     dh = gr @ table.float()
     dt = gr.t() @ hidden.float()
     return dh.to(hidden.dtype), dt.to(cdt), g.sum(0)
+
+
+def catalog_live_rows(dlse: torch.Tensor, dll: torch.Tensor) -> torch.Tensor:
+    """(ceil(N / 64),) int32 from the backward's cotangents (N,), one code a
+    64-row tile: 0 where every row has dlse == 0 and dll == 0 (a dead tile:
+    g is exactly 0 on each of its rows), 1 otherwise. Rows past N count as
+    dead."""
+    n = dlse.shape[0]
+    nt = -(-n // ROW_TILE)
+    live = torch.nn.functional.pad((dlse != 0) | (dll != 0),
+                                   (0, nt * ROW_TILE - n))
+    return live.view(nt, ROW_TILE).any(-1).int()
+
+
+def _live_order(live: torch.Tensor) -> torch.Tensor:
+    """(1 + T,) int32 on live's device, with no host sync: the number of
+    live tiles, then their indices in order, then the dead ones."""
+    idx = torch.argsort((live == 0).int(), stable=True)
+    return torch.cat([live.sum().view(1), idx]).int().contiguous()
 
 
 def catalog_nll(hidden, table, bias, labels):
@@ -119,7 +145,7 @@ def _lib() -> ctypes.CDLL:
     if lib.catalog_nll_fwd.argtypes is None:
         lib.catalog_nll_fwd.argtypes = [p] * 7 + [i32] * 5 + [p]
         lib.catalog_nll_fwd.restype = i32
-        lib.catalog_nll_bwd.argtypes = [p] * 10 + [i32] * 5 + [p]
+        lib.catalog_nll_bwd.argtypes = [p] * 12 + [i32] * 5 + [p]
         lib.catalog_nll_bwd.restype = i32
         lib.catalog_cuda_error_string.argtypes = [i32]
         lib.catalog_cuda_error_string.restype = ctypes.c_char_p
@@ -184,9 +210,11 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
     lse_, dlse_, dll_ = f32(lse), f32(dlse), f32(dll)
     for name, x in (("lse", lse_), ("dlse", dlse_), ("dll", dll_)):
         _check(tuple(x.shape) == (n,), f"{name} shape {tuple(x.shape)}")
+    live = catalog_live_rows(dlse_, dll_)
+    order = _live_order(live)
     splits = _splits(n, v)
-    dh_acc = (torch.zeros if splits > 1 else torch.empty)(
-        (n, c), dtype=torch.float32, device=dev)
+    # dead row tiles leave their d_hidden rows as zeroed here
+    dh_acc = torch.zeros((n, c), dtype=torch.float32, device=dev)
     dt = torch.empty((v, c), dtype=cdt, device=dev)
     db = torch.empty(v, dtype=torch.float32, device=dev)
     lib = _lib()
@@ -194,7 +222,8 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
         rc = lib.catalog_nll_bwd(
             h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
             lse_.data_ptr(), dlse_.data_ptr(), dll_.data_ptr(),
-            dh_acc.data_ptr(), dt.data_ptr(), db.data_ptr(), n, v, c, splits,
+            live.data_ptr(), order.data_ptr(), dh_acc.data_ptr(),
+            dt.data_ptr(), db.data_ptr(), n, v, c, splits,
             _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "catalog_nll", lib.catalog_cuda_error_string)
     catalog_nll_bwd.launches += 1

@@ -6,7 +6,10 @@ against the JAX ``catalog_nll`` (Pallas, interpret mode: the fused
 backward, and the two-pass backward of the large-N branch) and the JAX
 ``catalog_nll_reference``: lse and the label logit, and d_hidden, d_table,
 d_bias with cotangents on both outputs. N and V are not multiples of the
-JAX tile sizes, and the labels include 0 and V-1.
+JAX tile sizes, and the labels include 0 and V-1. Then the backward's row
+codes (``catalog_live_rows``) against a direct count, and the backward on a
+batch whose padded rows carry dlse = dll = 0 (exact zeros there, and the
+same d_table and d_bias as the batch without them).
 
 The CUDA kernels are held against the plain versions in
 ``test_torch_cuda.py`` (card only). fp32 tolerance: values atol = rtol =
@@ -20,7 +23,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import easydgl_tpu.kernels.scoring as jscoring
-from easydgl_tpu_torch.kernels.scoring import (catalog_nll,
+from easydgl_tpu_torch.kernels.scoring import (ROW_TILE, catalog_live_rows,
+                                               catalog_nll,
                                                catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
@@ -136,3 +140,74 @@ def test_bf16_backward_rounds_g_and_returns_the_compute_dtype():
     torch.testing.assert_close(dt.float(), (gr.t() @ hb.float()).to(
         torch.bfloat16).float(), atol=0, rtol=1e-2)
     torch.testing.assert_close(db, g.sum(0), atol=1e-6, rtol=1e-5)
+
+
+def _padded_rows(n, rng):
+    """Labels of left-padded histories, flattened as the train step's
+    labels are (0 at a padded position), and the dead rows."""
+    rows, width = -(-n // 50), 50
+    lengths = rng.integers(1, width + 1, rows)
+    lengths[0], lengths[-1] = 0, width   # padding alone; no padding
+    pad = np.arange(width)[None] < (width - lengths[:, None])
+    return pad.reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("n,kind", [(333, "padded"), (130, "all_dead"),
+                                    (128, "all_live"), (65, "padded"),
+                                    (200, "alternating")])
+def test_live_rows_count_each_tile(n, kind):
+    """One code a 64-row tile (the last one ragged): 0 exactly where every
+    row of the tile has dlse == 0 and dll == 0, against a direct count."""
+    rng = np.random.default_rng(n)
+    dead = {"padded": _padded_rows(n, rng), "all_dead": np.ones(n, bool),
+            "all_live": np.zeros(n, bool),
+            "alternating": (np.arange(n) // 3) % 2 == 0}[kind]
+    if kind == "alternating":
+        dead[64:128] = True            # a whole dead tile among mixed ones
+    dlse = np.where(dead, 0.0, rng.normal(size=n)).astype(np.float32)
+    dll = np.where(dead, 0.0, rng.normal(size=n)).astype(np.float32)
+    dll[~dead & (np.arange(n) % 5 == 0)] = 0.0   # one of the two may be 0
+    got = catalog_live_rows(torch.tensor(dlse), torch.tensor(dll)).numpy()
+    want = [int(np.any((dlse[i:i + ROW_TILE] != 0)
+                       | (dll[i:i + ROW_TILE] != 0)))
+            for i in range(0, n, ROW_TILE)]
+    assert got.dtype == np.int32 and got.tolist() == want
+    assert got.shape == (-(-n // ROW_TILE),)
+    if kind == "all_dead":
+        assert not got.any()
+    if kind == "all_live":
+        assert got.all()
+
+
+@pytest.mark.parametrize("n,v", [(150, 37), (77, 130)])
+def test_backward_of_padded_rows_is_exactly_zero(n, v):
+    """A batch of left-padded histories: the padded rows (label 0) carry
+    dlse = dll = 0, as the train step's weighted loss gives them. The plain
+    backward equals jax.vjp of the JAX catalog_nll_reference at 1e-5, its
+    d_hidden is exactly 0 on the padded rows, and d_table and d_bias equal
+    those of the batch with the padded rows removed."""
+    h, t, b, lab, dlse, dll = _data(4, n=n, v=v)
+    dead = _padded_rows(n, np.random.default_rng(v))
+    assert dead.any() and not dead.all()
+    lab = np.where(dead, 0, np.maximum(lab, 1)).astype(np.int32)
+    dlse = np.where(dead, 0.0, dlse).astype(np.float32)
+    dll = np.where(dead, 0.0, dll).astype(np.float32)
+
+    def jloss(hh, tt, bb):
+        lse, ll = jscoring.catalog_nll_reference(hh, tt, bb, jnp.asarray(lab))
+        return jnp.sum(lse * dlse) + jnp.sum(ll * dll)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (h, t, b)))
+    th, tt, tb, tlab = (torch.tensor(x) for x in (h, t, b, lab))
+    lse, _ = catalog_nll_reference(th, tt, tb, tlab)
+    got = catalog_nll_bwd(th, tt, tb, tlab, lse, torch.tensor(dlse),
+                          torch.tensor(dll))
+    _assert_grads([g.numpy() for g in got], want, "padded batch vs JAX")
+    assert float(got[0][torch.tensor(dead)].abs().max()) == 0.0
+    keep = torch.tensor(~dead)
+    kept = catalog_nll_bwd(th[keep], tt, tb, tlab[keep], lse[keep],
+                           torch.tensor(dlse)[keep], torch.tensor(dll)[keep])
+    torch.testing.assert_close(got[0][keep], kept[0], **TOL)
+    for a, w in zip(got[1:], kept[1:]):
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-5)
