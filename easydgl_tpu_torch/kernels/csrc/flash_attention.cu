@@ -113,7 +113,7 @@ struct FlashParams {
   const float* key_mask;  // (B, Tk)
   const float* lse;       // (B, H, Tq): the forward writes it, the backward reads it
   const float* delta;     // (B, H, Tq)
-  const int* live;        // (B, ceil(Tk / 64)): 0 where a key tile is all masked
+  const int* live;        // (B, ceil(Tk / 64)) flash_live_tiles: 0 dead, 1 partial, 2 full
   float* lse_out;
   Out4 out, dk, dv;
   float* dq_ws;  // (B, Tq, H, dh) fp32, zeroed: the backward adds scale * dS @ K
@@ -337,19 +337,25 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
   const int b = bh / p.H, h = bh - b * p.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const float* km_row = p.key_mask + (size_t)b * p.Tk;
+  const int* live_row = p.live + (size_t)b * ((p.Tk + BK - 1) / BK);
   const T* kg = head<T>(p.k, b, h);
   const T* vg = head<T>(p.v, b, h);
-  auto fetch = [&](int kt) {
-    const int buf = kt & 1;
+  auto fetch = [&](int kt, int buf) {
     async_rows<T, DH>(ks + buf * BK * SD, SD, kg, p.k.rs, kt * BK, p.Tk);
     async_rows<T, DH>(vs + buf * BK * SD, SD, vg, p.v.rs, kt * BK, p.Tk);
     async_vec(kms + buf * BK, km_row, kt * BK, p.Tk);
   };
 
-  async_rows<T, DH>(qs, SD, head<T>(p.q, b, h), p.q.rs, q0, p.Tq);
+  // the key tiles visited: live ones (flash_live_tiles) within the causal range
   const int nkt = live_key_tiles(p, q0);
+  auto next_live = [&](int t) {
+    while (t < nkt && live_row[t] == 0) ++t;
+    return t;
+  };
+  async_rows<T, DH>(qs, SD, head<T>(p.q, b, h), p.q.rs, q0, p.Tq);
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  fetch(0);
+  int kt = next_live(0);
+  if (kt < nkt) fetch(kt, 0);
   cp_async_commit();
 
   ARows<T, DH> qa;
@@ -360,16 +366,17 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) fetch(kt + 1);
+  for (int buf = 0, first = 1; kt < nkt; buf ^= 1, first = 0) {
+    const int kn = next_live(kt + 1);
+    if (kn < nkt) fetch(kn, buf ^ 1);
     cp_async_commit();
     cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, at kt = 0, q) is in shared memory
-    if (kt == 0) qa.load(qs, SD, warp * 16, lane);
+    __syncthreads();  // tile kt (and, the first time, q) is in shared memory
+    if (first) qa.load(qs, SD, warp * 16, lane);
     const int j0 = kt * BK;
-    const T* kb = ks + (kt & 1) * BK * SD;
-    const T* vb = vs + (kt & 1) * BK * SD;
-    const float* kmb = kms + (kt & 1) * BK;
+    const T* kb = ks + buf * BK * SD;
+    const T* vb = vs + buf * BK * SD;
+    const float* kmb = kms + buf * BK;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float s[4][4];
@@ -419,7 +426,8 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
       }
       pv<DH>(o, s, vb + half * KH * SD, SD, lane);  // dropped probs @ V
     }
-    __syncthreads();  // the buffer is free for tile kt + 2
+    __syncthreads();  // the buffer is free for the tile after next
+    kt = kn;
   }
   asm volatile("cp.async.wait_all;\n" ::);  // q, where no key tile came
 
@@ -1108,13 +1116,14 @@ size_t flash_smem_bytes(int which, int dh, int dtype) {
 // drop_thresh, scaled by drop_scale.
 int flash_fwd(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
               long long k_bs, long long k_hs, long long k_rs, const void* v, long long v_bs,
-              long long v_hs, long long v_rs, const void* key_mask, const void* seed,
-              unsigned drop_thresh, float drop_scale, void* out, long long o_bs, long long o_hs,
-              long long o_rs, void* lse, int B, int H, int Tq, int Tk, int dh, int causal,
-              float scale, int dtype, void* stream) {
+              long long v_hs, long long v_rs, const void* key_mask, const void* live,
+              const void* seed, unsigned drop_thresh, float drop_scale, void* out,
+              long long o_bs, long long o_hs, long long o_rs, void* lse, int B, int H, int Tq,
+              int Tk, int dh, int causal, float scale, int dtype, void* stream) {
   FlashParams p = base_params(q, q_bs, q_hs, q_rs, k, k_bs, k_hs, k_rs, v, v_bs, v_hs, v_rs,
                               key_mask, seed, drop_thresh, drop_scale, B, H, Tq, Tk, causal,
                               scale);
+  p.live = static_cast<const int*>(live);
   p.out = {out, o_bs, o_hs, o_rs};
   p.lse_out = static_cast<float*>(lse);
   return launch(kFwd, p, dh, dtype, stream);

@@ -69,7 +69,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     seq = [_P, _LL, _LL, _LL]
     tail = [_I32] * 6 + [_F32, _I32, _P]
-    _bind(lib, "flash_fwd", seq * 3 + [_P, _P, _U32, _F32] + seq + [_P] + tail)
+    _bind(lib, "flash_fwd",
+          seq * 3 + [_P, _P, _P, _U32, _F32] + seq + [_P] + tail)
     _bind(lib, "flash_bwd",
           seq * 4 + [_P] * 5 + [_U32, _F32, _P] + seq * 2 + tail)
     lib.flash_smem_bytes.argtypes = [_I32] * 3
@@ -296,7 +297,9 @@ def _inputs(name, which, q, k, v, key_mask, dout=None):
 def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                         scale=None, dropout_rate: float = 0.0, seed=None):
     """(out (B, H, Tq, dh) in q's dtype, lse (B, H, Tq) fp32). CPU tensors:
-    ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_kernel``."""
+    ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_kernel``, which
+    visits only the key tiles the key mask leaves live
+    (``flash_live_tiles``) within a query tile's causal range."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
     if not _on_card("flash_attention_fwd", *tensors,
@@ -306,13 +309,15 @@ def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                                    seed=seed)
     b, h, tq, tk, dh, (qa, ka, va), km, lib = _inputs(
         "flash_attention_fwd", _FWD, q, k, v, key_mask)
+    live = flash_live_tiles(km)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
     out = _like_heads(b, h, tq, dh, q.dtype, q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(*_seq4(qa), *_seq4(ka), *_seq4(va), km.data_ptr(),
-                           seed_ptr, thresh, dscale, *_seq4(out),
+                           live.data_ptr(), seed_ptr, thresh, dscale,
+                           *_seq4(out),
                            lse.data_ptr(), b, h, tq, tk, dh, int(causal),
                            _scale(q, scale), _DTYPE_CODE[q.dtype],
                            _stream(q.device))
