@@ -321,6 +321,23 @@ __device__ __forceinline__ bool visible(float km, int i, int j, int Tq, int Tk, 
   return (i < Tq) & (j < Tk) & (km > 0.f) & !(causal & (j > i));
 }
 
+// Whether entries of the tile (query tile q0, key tile k0, key-tile code)
+// must be tested one by one: a tile with masked or missing keys, the
+// causal diagonal, and the ragged query edge.
+__device__ __forceinline__ bool test_entries(const FlashParams& p, int code, int q0, int k0) {
+  return code != 2 || (p.causal && k0 + BK - 1 > q0) || q0 + BQ > p.Tq;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (2^-inf = 0 exactly).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------- forward
 
 template <typename T, int DH>
@@ -354,6 +371,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
   };
   async_rows<T, DH>(qs, SD, head<T>(p.q, b, h), p.q.rs, q0, p.Tq);
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const float sl2 = p.scale * kLog2e;
   int kt = next_live(0);
   if (kt < nkt) fetch(kt, 0);
   cp_async_commit();
@@ -377,6 +395,7 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
     const T* kb = ks + buf * BK * SD;
     const T* vb = vs + buf * BK * SD;
     const float* kmb = kms + buf * BK;
+    const bool test = test_entries(p, live_row[kt], q0, j0);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float s[4][4];
@@ -385,45 +404,53 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
       qa.mul(s, kb + half * KH * SD, SD, lane);
+      // without a branch: a hidden entry's exponent is -inf, so p = 0; the
+      // max runs in log2 units, m = max_j s_ij scale log2(e)
+      auto form = [&](auto dropped) {
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int i = q0 + warp * 16 + g + 8 * hr;
-        float mx = kDead;
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = q0 + warp * 16 + g + 8 * hr;
+          float mx = kDead;
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+          for (int n = 0; n < 4; ++n)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int jj = half * KH + n * 8 + 2 * t4 + c;
-            float& x = s[n][2 * hr + c];
-            x = visible(kmb[jj], i, j0 + jj, p.Tq, p.Tk, p.causal) ? x * p.scale : kDead;
-            mx = fmaxf(mx, x);
+            for (int c = 0; c < 2; ++c) {
+              const int jj = half * KH + n * 8 + 2 * t4 + c;
+              const bool vis = !test || visible(kmb[jj], i, j0 + jj, p.Tq, p.Tk, p.causal);
+              float& x = s[n][2 * hr + c];
+              x = vis ? x * sl2 : -INFINITY;
+              mx = fmaxf(mx, x);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[hr], mx);
+          const float corr = fast_exp2(m[hr] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float& x = s[n][2 * hr + c];
+              x = fast_exp2(x - m_new);
+              sum += x;  // l sums the undropped probs
+              if constexpr (decltype(dropped)::value)
+                x *= drop.factor(b, h, i, j0 + half * KH + n * 8 + 2 * t4 + c);
+            }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          l[hr] = l[hr] * corr + sum;
+          m[hr] = m_new;
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n) {
+            o[n][2 * hr] *= corr;
+            o[n][2 * hr + 1] *= corr;
           }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hr], mx);
-        const float corr = expf(m[hr] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int jj = half * KH + n * 8 + 2 * t4 + c, j = j0 + jj;
-            float& x = s[n][2 * hr + c];
-            // exact-zero masked probs: a row with no visible key keeps p = 0
-            x = visible(kmb[jj], i, j, p.Tq, p.Tk, p.causal) ? expf(x - m_new) : 0.f;
-            sum += x;  // l sums the undropped probs
-            if (drop.on && x != 0.f) x *= drop.factor(b, h, i, j);
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l[hr] = l[hr] * corr + sum;
-        m[hr] = m_new;
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          o[n][2 * hr] *= corr;
-          o[n][2 * hr + 1] *= corr;
         }
-      }
+      };
+      if (drop.on)
+        form(std::true_type());
+      else
+        form(std::false_type());
       pv<DH>(o, s, vb + half * KH * SD, SD, lane);  // dropped probs @ V
     }
     __syncthreads();  // the buffer is free for the tile after next
@@ -437,8 +464,9 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
   for (int hr = 0; hr < 2; ++hr) {
     inv[hr] = l[hr] > 0.f ? 1.f / fmaxf(l[hr], 1e-37f) : 0.f;
     const int i = r0 + g + 8 * hr;
-    if (t4 == 0 && i < p.Tq)
-      p.lse_out[(size_t)bh * p.Tq + i] = m[hr] + logf(fmaxf(l[hr], 1e-37f));
+    // a row that saw no key keeps m = -1e38 in natural units
+    const float mn = l[hr] > 0.f ? m[hr] * kLn2 : kDead;
+    if (t4 == 0 && i < p.Tq) p.lse_out[(size_t)bh * p.Tq + i] = mn + logf(fmaxf(l[hr], 1e-37f));
   }
   store_rows<T, DH>(head<T>(p.out, b, h), p.out.rs, o, inv, r0, p.Tq, lane);
 }
@@ -452,13 +480,6 @@ __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParam
 // The 8-byte-aligned pair (a, b) added to dst[0], dst[1] in device memory.
 __device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
   atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
-}
-
-// Whether entries of the tile (query tile q0, key tile k0, key-tile code)
-// must be tested one by one: a tile with masked or missing keys, the
-// causal diagonal, and the ragged query edge.
-__device__ __forceinline__ bool test_entries(const FlashParams& p, int code, int q0, int k0) {
-  return code != 2 || (p.causal && k0 + BK - 1 > q0) || q0 + BQ > p.Tq;
 }
 
 // dq_tile (64 queries x DH) = rnd(ds) @ K from dS^T in shared memory ([key]
@@ -621,15 +642,6 @@ __global__ void __launch_bounds__(kThreadsMma) flash_bwd_kernel(const FlashParam
 // ---------------------------------------------------------------- backward, bf16
 // wgmma and TMA (see the header): warpgroups 0 and 1 consume, the first
 // warp of warpgroup 2 produces.
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (2^-inf = 0 exactly).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 struct TcMaps {
   CUtensorMap q, k, v, dout;  // (64, T, H, B) bf16, boxes of 64 rows x 64
