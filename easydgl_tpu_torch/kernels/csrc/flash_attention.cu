@@ -86,10 +86,9 @@
 // q/k/v/dO/outputs start on 16-byte boundaries (the wrapper copies where
 // they do not).
 
-#include <cuda.h>  // CUtensorMap; the encoder is looked up in libcuda at run time
-
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "mau_streamed.cuh"
 
 namespace {
@@ -161,12 +160,21 @@ constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 * kTcGroups + 2 * kTcStages)
                            sizeof(float) * kTcGroups * kTcTile +
                            sizeof(float) * kTcStages * 2 * BQ + 8 * (1 + 2 * kTcStages);
 
+// The bf16 forward (flash_fwd_tc_kernel): a warpgroup's (64 x 64) Q tile,
+// a K and a V tile and 64 key-mask floats a stage, the mbarriers, and slack.
+constexpr int kFwdStages = 3;                        // K/V stages
+constexpr int kFwdQueries = 64 * kTcGroups;          // queries a block
+constexpr size_t kFwdSmem = 1024 + sizeof(bf16) * (kTcGroups + 2 * kFwdStages) * kTcTile +
+                            sizeof(float) * kFwdStages * BK + 8 * (1 + 2 * kFwdStages);
+
 template <typename T, int DH>
 __host__ __device__ constexpr size_t smem_bytes_of(int which) {
   // forward: q + 2 k + 2 v tiles, 2 x 64 key-mask floats; backward: k, v +
   // 2 q + 2 dO tiles, the (64 x 64) dS^T tile, 64 key-mask floats + 2 x
   // (lse, delta)
-  return which == kFwd ? sizeof(T) * 5 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK
+  return which == kFwd ? (sizeof(T) == 2 && DH <= 64
+                              ? kFwdSmem
+                              : sizeof(T) * 5 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK)
          : sizeof(T) == 2 ? kTcSmem
                           : sizeof(T) * (6 * 64 * row_stride<T, DH>() + 64 * row_stride<T, BQ>()) +
                                 sizeof(float) * 5 * BK;
@@ -326,16 +334,6 @@ __device__ __forceinline__ bool visible(float km, int i, int j, int Tq, int Tk, 
 // causal diagonal, and the ragged query edge.
 __device__ __forceinline__ bool test_entries(const FlashParams& p, int code, int q0, int k0) {
   return code != 2 || (p.causal && k0 + BK - 1 > q0) || q0 + BQ > p.Tq;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// 2^x on the special-function unit (2^-inf = 0 exactly).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // ---------------------------------------------------------------- forward
@@ -648,120 +646,11 @@ struct TcMaps {
   CUtensorMap dq;             // (64, Tq, H, B) fp32 workspace, boxes of 64 rows x 32
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// The (64 rows x 64) box at row t0 of head (b, h) of a map into dst.
-__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int t0,
-                                         int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(t0), "r"(h), "r"(b)
-      : "memory");
-}
-
-// Adds the (64 rows x 32) fp32 box src to the rows [t0, t0 + 64), columns
-// [c0, c0 + 32) of head (b, h) of a map, in the L2 (rows past the map's end
-// are dropped); completes as a bulk group of the issuing thread.
-__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int c0,
-                                               int t0, int h, int b) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(t0), "r"(h), "r"(b)
-      : "memory");
-}
-
-// wgmma descriptor of a 1024-byte-aligned (64 x 64) bf16 tile in the
-// 128-byte swizzle: 8-row groups 1024 bytes apart. As a K-major operand a
-// 16-wide k step adds 32 bytes (2 in the descriptor's units); as an
-// MN-major one it adds 16 rows, 2048 bytes (128).
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses of d across a wgmma wait.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_ACC(d)                                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-// d (64 x 64) (+)= A (64 x 16) B (16 x 64), both from shared memory; TA / TB
-// 1 where the operand is MN-major. Accumulates where acc != 0.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : WG_ACC(d)
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// d (64 x 64) += A (64 x 16) B (16 x 64), A from registers (the mma A
-// fragment layout of the warp's 16 rows), B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_ACC(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // Rows of a warpgroup accumulator (64 x 64: the thread's rows r0 + g and
-// r0 + g + 8, columns 8 n + 2 t4 + c at d[4 n + 2 hr + c]) times mul into
-// bf16 rows [.., r < nrows) of dst.
-__device__ __forceinline__ void store_acc(bf16* dst, long long rs, const float (&d)[32], float mul,
-                                          int r0, int nrows, int lane) {
+// r0 + g + 8, columns 8 n + 2 t4 + c at d[4 n + 2 hr + c]) times mul[hr]
+// into bf16 rows [.., r < nrows) of dst.
+__device__ __forceinline__ void store_acc(bf16* dst, long long rs, const float (&d)[32],
+                                          const float (&mul)[2], int r0, int nrows, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -769,8 +658,8 @@ __device__ __forceinline__ void store_acc(bf16* dst, long long rs, const float (
     if (r >= nrows) continue;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      store2(dst + (long long)r * rs + 8 * n + 2 * t4, d[4 * n + 2 * hr] * mul,
-             d[4 * n + 2 * hr + 1] * mul);
+      store2(dst + (long long)r * rs + 8 * n + 2 * t4, d[4 * n + 2 * hr] * mul[hr],
+             d[4 * n + 2 * hr + 1] * mul[hr]);
   }
 }
 
@@ -992,47 +881,200 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
   }
   if (issuer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  store_acc(head<bf16>(p.dk, b, h), p.dk.rs, dk, p.scale, kw + 16 * warp, p.Tk, lane);
-  store_acc(head<bf16>(p.dv, b, h), p.dv.rs, dv, 1.f, kw + 16 * warp, p.Tk, lane);
+  const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
+  store_acc(head<bf16>(p.dk, b, h), p.dk.rs, dk, scale, kw + 16 * warp, p.Tk, lane);
+  store_acc(head<bf16>(p.dv, b, h), p.dv.rs, dv, one, kw + 16 * warp, p.Tk, lane);
+}
+
+// ---------------------------------------------------------------- forward, bf16
+// wgmma and TMA (see the header): warpgroups 0 and 1 consume, 64 queries
+// each, the first warp of warpgroup 2 produces.
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc_kernel(const FlashParams p, const __grid_constant__ TcMaps maps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [group][64 queries][64], swizzled
+  bf16* ks = qs + kTcGroups * kTcTile;        // [stage][64 keys][64]
+  bf16* vs = ks + kFwdStages * kTcTile;       // [stage][64 keys][64]
+  float* kms = reinterpret_cast<float*>(vs + kFwdStages * kTcTile);  // [stage][64] key mask
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kms + kFwdStages * BK);
+  uint64_t* full = q_full + 1;                // [stage]
+  uint64_t* empty = full + kFwdStages;        // [stage]
+
+  // heaviest first: under causal the last query block sees every key tile
+  const int BH = p.B * p.H, nqb = (p.Tq + kFwdQueries - 1) / kFwdQueries;
+  const int qb = nqb - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH, q0 = qb * kFwdQueries;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  // the key tiles visited: live ones (flash_live_tiles) within the causal range
+  const int nkt_all = (p.Tk + BK - 1) / BK;
+  const int nkt = p.causal ? imin(nkt_all, (imin(q0 + kFwdQueries, p.Tq) - 1) / BK + 1) : nkt_all;
+  const int* live_row = p.live + (size_t)b * nkt_all;
+  auto next_live = [&](int t) {
+    while (t < nkt && live_row[t] == 0) ++t;
+    return t;
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * kTcGroups);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kTcGroups) {  // ---- producer: its first warp works
+    regs_dec<kTcProducerRegs>();
+    if (warp > 4 * kTcGroups) return;
+    if (lane == 0) {
+      mbar_arrive_tx(q_full, kTcGroups * kTcTile * sizeof(bf16));
+      for (int w = 0; w < kTcGroups; ++w)
+        tma_rows(qs + w * kTcTile, &maps.q, q_full, q0 + 64 * w, h, b);
+    }
+    const float* km_row = p.key_mask + (size_t)b * p.Tk;
+    int it = 0;
+    for (int kt = next_live(0); kt < nkt; kt = next_live(kt + 1), ++it) {
+      const int s = it % kFwdStages, j0 = kt * BK;
+      mbar_wait(empty + s, ((it / kFwdStages) & 1) ^ 1);
+      for (int r = lane; r < BK; r += 32) kms[s * BK + r] = j0 + r < p.Tk ? km_row[j0 + r] : 0.f;
+      if (lane == 0) {
+        mbar_arrive_tx(full + s, 2 * kTcTile * sizeof(bf16));
+        tma_rows(ks + s * kTcTile, &maps.k, full + s, j0, h, b);
+        tma_rows(vs + s * kTcTile, &maps.v, full + s, j0, h, b);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns queries qw = q0 + 64 wg ..; thread
+  // (warp, g, t4) holds queries qw + 16 warp + g (+8) and, of a key tile,
+  // keys 8 n + 2 t4 (+1)
+  regs_inc<kTcConsumerRegs>();
+  const int wg = warp >> 2, qw = q0 + 64 * wg;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const float sl2 = p.scale * kLog2e;
+  const uint64_t qd = sw128_desc(qs + wg * kTcTile);
+  float o[32], m[2] = {kDead, kDead}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  int it = 0;
+  for (int kt = next_live(0); kt < nkt; kt = next_live(kt + 1), ++it) {
+    const int s = it % kFwdStages, j0 = kt * BK;
+    mbar_wait(full + s, (it / kFwdStages) & 1);
+    if (qw >= p.Tq || (p.causal && j0 > qw + 63)) {  // no query of the warpgroup sees these keys
+      mbar_arrive(empty + s);
+      continue;
+    }
+    float sa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sa[i] = 0.f;
+    const uint64_t kd = sw128_desc(ks + s * kTcTile), vd = sw128_desc(vs + s * kTcTile);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, qd + 2 * kk, kd + 2 * kk, 1);  // Q K^T
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+
+    // p of entry (query 16 warp + g + 8 hr, key 8 n + 2 t4 + c) at sa[4 n + 2 hr + c],
+    // without a branch: a hidden entry's exponent is -inf, so p = 0; the
+    // max runs in log2 units, m = max_j s_ij scale log2(e)
+    const bool test = test_entries(p, live_row[kt], qw, j0);
+    const float* kmb = kms + s * BK;
+    auto form = [&](auto dropped) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = qw + 16 * warp + g + 8 * hr;
+        float mx = kDead;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int jl = 8 * n + 2 * t4 + c;
+            const bool vis = !test || visible(kmb[jl], i, j0 + jl, p.Tq, p.Tk, p.causal);
+            float& x = sa[4 * n + 2 * hr + c];
+            x = vis ? x * sl2 : -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        const float corr = fast_exp2(m[hr] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sa[4 * n + 2 * hr + c];
+            x = fast_exp2(x - m_new);
+            sum += x;  // l sums the undropped probs
+            if constexpr (decltype(dropped)::value)
+              x *= drop.factor(b, h, i, j0 + 8 * n + 2 * t4 + c);
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[hr] = l[hr] * corr + sum;
+        m[hr] = m_new;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[4 * n + 2 * hr] *= corr;
+          o[4 * n + 2 * hr + 1] *= corr;
+        }
+      }
+    };
+    if (drop.on)
+      form(std::true_type());
+    else
+      form(std::false_type());
+    // the dropped probs rounded to bf16: the A fragments of P (k step kk:
+    // keys 16 kk ..), then O += P V with V MN-major
+    uint32_t pf[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, pf + 4 * kk, vd + 128 * kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(o);
+    mbar_arrive(empty + s);  // the stage's K, V and mask are free
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    inv[hr] = l[hr] > 0.f ? 1.f / fmaxf(l[hr], 1e-37f) : 0.f;
+    const int i = qw + 16 * warp + g + 8 * hr;
+    // a row that saw no key keeps m = -1e38 in natural units
+    const float mn = l[hr] > 0.f ? m[hr] * kLn2 : kDead;
+    if (t4 == 0 && i < p.Tq) p.lse_out[(size_t)bh * p.Tq + i] = mn + logf(fmaxf(l[hr], 1e-37f));
+  }
+  store_acc(head<bf16>(p.out, b, h), p.out.rs, o, inv, qw + 16 * warp, p.Tq, lane);
 }
 
 // ---------------------------------------------------------------- launch
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (the library
-// links only the CUDA runtime).
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
-                       cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // The TMA map of a (B, H, T, 64) operand with element strides (bs, hs, rs):
 // boxes of 64 rows x `cols` columns, 128-byte swizzle, zeros read (and
 // nothing written) past row T.
 bool rows_map(CUtensorMap* map, CUtensorMapDataType type, size_t item, const void* ptr,
               long long bs, long long hs, long long rs, int T, int H, int B, int cols) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (!encode) return false;
   const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)rs * item, (cuuint64_t)hs * item,
                                  (cuuint64_t)bs * item};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
-  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 64, 1, 1};
+  return encode_map(map, type, 4, ptr, dims, strides, box);
 }
 
 bool seq_map(CUtensorMap* map, const Seq4& x, int T, int H, int B) {
@@ -1043,9 +1085,23 @@ bool seq_map(CUtensorMap* map, const Seq4& x, int T, int H, int B) {
 template <typename T, int DH>
 cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
   const size_t bytes = smem_bytes_of<T, DH>(which);
-  if (which == kFwd)
-    return go(flash_fwd_kernel<T, DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma, bytes,
-              s, p);
+  if constexpr (std::is_same<T, bf16>::value && DH == 64) {
+    if (which == kFwd) {
+      TcMaps maps;
+      if (!seq_map(&maps.q, p.q, p.Tq, p.H, p.B) || !seq_map(&maps.k, p.k, p.Tk, p.H, p.B) ||
+          !seq_map(&maps.v, p.v, p.Tk, p.H, p.B))
+        return cudaErrorInvalidValue;
+      return go(flash_fwd_tc_kernel, p.B * p.H * ((p.Tq + kFwdQueries - 1) / kFwdQueries),
+                kTcThreads, bytes, s, p, maps);
+    }
+  }
+  if (which == kFwd) {
+    if constexpr (std::is_same<T, bf16>::value && DH < 64)
+      return cudaErrorInvalidValue;  // bf16 heads narrower than 64 come padded
+    else
+      return go(flash_fwd_kernel<T, DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma,
+                bytes, s, p);
+  }
   if constexpr (std::is_same<T, bf16>::value && DH == 64) {
     TcMaps maps;
     // the workspace is (B, Tq, H, 64) fp32

@@ -58,7 +58,7 @@ from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
 NEG = -1.0e38   # the masked logit and the running max before a visible key
 KERNEL_FWD_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BWD_HEAD_DIMS = (16, 32, 64)
-BF16_BWD_HEAD_DIM = 64   # the bf16 backward's tile width (narrower heads pad)
+BF16_TC_HEAD_DIM = 64    # the bf16 kernels' tile width (narrower heads pad)
 _FWD, _BWD = range(2)   # as flash_smem_bytes numbers the kernels
 TILE = 64                # the kernels' query and key tiles
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -294,12 +294,25 @@ def _inputs(name, which, q, k, v, key_mask, dout=None):
              + ((dout,) if dout is not None else ())], km, lib)
 
 
+def _pad_heads(dh, *xs):
+    """(dh the kernel takes, xs): the bf16 kernels' tiles are 64 wide, so
+    narrower bf16 heads are zero-padded to 64; zero columns add nothing to
+    q . k or dO . v, and the outputs' extra columns are dropped."""
+    if xs[0].dtype != torch.bfloat16 or dh >= BF16_TC_HEAD_DIM:
+        return dh, xs
+    pad = BF16_TC_HEAD_DIM - dh
+    return BF16_TC_HEAD_DIM, tuple(torch.nn.functional.pad(x, (0, pad))
+                                   for x in xs)
+
+
 def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                         scale=None, dropout_rate: float = 0.0, seed=None):
     """(out (B, H, Tq, dh) in q's dtype, lse (B, H, Tq) fp32). CPU tensors:
-    ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_kernel``, which
-    visits only the key tiles the key mask leaves live
-    (``flash_live_tiles``) within a query tile's causal range."""
+    ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_tc_kernel`` (bf16,
+    dh <= 64, narrower heads zero-padded) or ``flash_fwd_kernel`` (fp32,
+    and bf16 at dh = 128), which visit only the key tiles the key mask
+    leaves live (``flash_live_tiles``) within a query tile's causal
+    range."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
     if not _on_card("flash_attention_fwd", *tensors,
@@ -312,18 +325,18 @@ def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
     live = flash_live_tiles(km)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
-    out = _like_heads(b, h, tq, dh, q.dtype, q.device)
+    kdh, (qa, ka, va) = _pad_heads(dh, qa, ka, va)
+    out = _like_heads(b, h, tq, kdh, q.dtype, q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(*_seq4(qa), *_seq4(ka), *_seq4(va), km.data_ptr(),
                            live.data_ptr(), seed_ptr, thresh, dscale,
-                           *_seq4(out),
-                           lse.data_ptr(), b, h, tq, tk, dh, int(causal),
-                           _scale(q, scale), _DTYPE_CODE[q.dtype],
-                           _stream(q.device))
+                           *_seq4(out), lse.data_ptr(), b, h, tq, tk, kdh,
+                           int(causal), _scale(q, scale),
+                           _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_on(rc, "flash_attention_fwd", lib.flash_error_string)
     flash_attention_fwd.launches += 1
-    return out, lse
+    return out[..., :dh], lse
 
 
 flash_attention_fwd.launches = 0
@@ -360,13 +373,7 @@ def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
     live = flash_live_tiles(km)
     seed_t = _seed_tensor(seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed_t, dropout_rate)
-    kdh = dh
-    if q.dtype == torch.bfloat16 and dh < BF16_BWD_HEAD_DIM:
-        # the bf16 kernel's tiles are 64 wide: zero columns add nothing to
-        # q . k or dO . v, and their gradients are dropped
-        kdh = BF16_BWD_HEAD_DIM
-        qa, ka, va, da = (torch.nn.functional.pad(x, (0, kdh - dh))
-                          for x in (qa, ka, va, da))
+    kdh, (qa, ka, va, da) = _pad_heads(dh, qa, ka, va, da)
     ws = torch.zeros((b, tq, h, kdh), dtype=torch.float32, device=q.device)
     dk = _like_heads(b, h, tk, kdh, q.dtype, q.device)
     dv = _like_heads(b, h, tk, kdh, q.dtype, q.device)
