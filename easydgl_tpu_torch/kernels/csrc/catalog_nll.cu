@@ -39,11 +39,12 @@
 //
 // Limits: C % 4 == 0 and C <= 512 (the two operand tiles share 227 KB).
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace port;
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kA = 32;   // resident rows per block
@@ -67,6 +68,7 @@ struct Params {
   float* part_l;
   float* part_ll;
   float* dh_acc;        // (N, C) fp32
+  float* dt_acc;        // (V, C) fp32, d_table split over the rows (bf16 wgmma kernel)
   void* dtable;         // (V, C), compute dtype
   float* dbias;         // (V,)
   int N, V, C, splits, tiles_per_split;
@@ -367,6 +369,251 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------- backward, bf16, C = 512
+// wgmma and TMA (see the header): warpgroups 0 and 1 consume, the first warp
+// of warpgroup 2 produces. The block's resident tile R (64 rows x C) and the
+// streamed tiles S (64 rows x C) are stored as eight (64 x 64) sub-tiles in
+// the 128-byte swizzle.
+
+constexpr int kTcC = 512;
+constexpr int kTcSub = kTcC / 64;               // 64-column sub-tiles of a tile
+constexpr int kTcStages = 2;
+constexpr int kTcThreads = 384;
+constexpr int kTcSubElems = 64 * 64;            // a (64 x 64) sub-tile, 8 KB
+constexpr int kTcTileElems = kTcSub * kTcSubElems;  // a (64 x 512) tile, 64 KB
+// Registers a thread after setmaxnreg: a consumer holds a (64 x 256) fp32
+// accumulator (128 registers) and a (64 x 32) score tile; 24 + 2 x 240 a
+// warpgroup thread fits the 65,536 of an SM.
+constexpr int kTcProducerRegs = 24, kTcConsumerRegs = 240;
+// R, the stages' S tiles, two g tiles, the stages' column stats (4 x 64
+// words), the mbarriers, and slack to align the tiles to 1024 bytes.
+constexpr size_t kTcSmem = 1024 + sizeof(bf16) * ((1 + kTcStages) * kTcTileElems + 2 * kTcSubElems) +
+                           sizeof(float) * kTcStages * 4 * 64 + 8 * (1 + 2 * kTcStages);
+
+struct TcMaps {
+  CUtensorMap hidden, table;  // (C, N) and (C, V) bf16, boxes of 64 x 64
+};
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d_hidden (MODE 1): R = 64 live hidden rows (order[1 + blockIdx.x]), S the
+// vocab tiles of split blockIdx.y; dh[R] (+)= g T_S into dh_acc.
+// d_table (MODE 2): R = vocab tile blockIdx.x, S its share (split
+// blockIdx.y) of the live hidden row tiles; dT[R] (+)= g^T h_S and db.
+// Warpgroup w forms the score tile's columns [32 w, 32 w + 32) over all of C
+// (m64n32k16, both operands K-major from shared memory) and that half of g,
+// rounded to bf16 into a shared (64 x 64) tile; then its half of the
+// channels, [256 w, 256 w + 256), of g S (m64n64k16 four times a k step, g
+// K-major and S MN-major).
+template <int MODE>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    catalog_bwd_tc_kernel(const Params p, const __grid_constant__ TcMaps maps) {
+  constexpr bool kTable = MODE == kDTable;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* rs = reinterpret_cast<bf16*>(base);        // [sub][64 rows][64]
+  bf16* ss = rs + kTcTileElems;                     // [stage][sub][64 rows][64]
+  bf16* gs = ss + kTcStages * kTcTileElems;         // [2][64 rows][64 columns] g
+  float* cols = reinterpret_cast<float*>(gs + 2 * kTcSubElems);  // [stage][4][64]
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(cols + kTcStages * 4 * 64);
+  uint64_t* full = r_full + 1;                      // [stage]
+  uint64_t* empty = full + kTcStages;               // [stage]
+
+  const int count = p.order[0];  // live row tiles
+  int rt, it0, it1;              // the resident tile; the run of streamed ones
+  if (!kTable) {
+    if ((int)blockIdx.x >= count) return;
+    rt = p.order[1 + blockIdx.x];
+    it0 = blockIdx.y * p.tiles_per_split;
+    it1 = imin((p.V + 63) / 64, it0 + p.tiles_per_split);
+  } else {
+    rt = blockIdx.x;
+    it0 = (int)((long long)count * blockIdx.y / p.splits);
+    it1 = (int)((long long)count * (blockIdx.y + 1) / p.splits);
+  }
+  const int ntiles = it1 - it0;
+  if (ntiles <= 0) return;  // nothing to add (the outputs come zeroed)
+  auto stile = [&](int it) { return kTable ? p.order[1 + it0 + it] : it0 + it; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(r_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+
+  if (warp >= 8) {  // ---- producer: its first warp works
+    regs_dec<kTcProducerRegs>();
+    if (warp > 8) return;
+    const CUtensorMap* rmap = kTable ? &maps.table : &maps.hidden;
+    const CUtensorMap* smap = kTable ? &maps.hidden : &maps.table;
+    if (lane == 0) {
+      mbar_arrive_tx(r_full, kTcTileElems * sizeof(bf16));
+      for (int kc = 0; kc < kTcSub; ++kc) tma_2d(rs + kc * kTcSubElems, rmap, r_full, 64 * kc, 64 * rt);
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % kTcStages, r0 = 64 * stile(it);
+      mbar_wait(empty + s, ((it / kTcStages) & 1) ^ 1);
+      // the streamed rows' stats: d_hidden the bias (-inf past V); d_table
+      // lse log2(e), dlse, dll and the label (a past-N row has g = 0)
+      float* cs = cols + s * 4 * 64;
+      for (int r = lane; r < 64; r += 32) {
+        const int n = r0 + r;
+        if (kTable) {
+          const bool ok = n < p.N;
+          cs[r] = ok ? p.lse[n] * kLog2e : 0.f;
+          cs[64 + r] = ok ? p.dlse[n] : 0.f;
+          cs[128 + r] = ok ? p.dll[n] : 0.f;
+          reinterpret_cast<int*>(cs)[192 + r] = ok ? p.labels[n] : -1;
+        } else {
+          cs[r] = n < p.V ? p.bias[n] : -INFINITY;
+        }
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(full + s, kTcTileElems * sizeof(bf16));
+        for (int kc = 0; kc < kTcSub; ++kc)
+          tma_2d(ss + s * kTcTileElems + kc * kTcSubElems, smap, full + s, 64 * kc, r0);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg; thread (warp, g, t4) holds resident rows
+  // 16 warp + g (+8), score columns 32 wg + 8 n + 2 t4 (+1), channels
+  // 256 wg + 64 j + 8 n + 2 t4 (+1)
+  regs_inc<kTcConsumerRegs>();
+  const int wg = warp >> 2;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  // the resident rows' stats: d_hidden lse log2(e), dlse, dll, label (g = 0
+  // past N); d_table the bias (-inf past V) and the vocab id
+  float r_l2[2], r_dl[2], r_dll[2], r_b[2];
+  int r_id[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = 64 * rt + 16 * warp + g + 8 * hr;
+    r_id[hr] = row;
+    if (kTable) {
+      r_b[hr] = row < p.V ? p.bias[row] : -INFINITY;
+    } else {
+      const bool ok = row < p.N;
+      r_l2[hr] = ok ? p.lse[row] * kLog2e : 0.f;
+      r_dl[hr] = ok ? p.dlse[row] : 0.f;
+      r_dll[hr] = ok ? p.dll[row] : 0.f;
+      r_id[hr] = ok ? p.labels[row] : -1;
+    }
+  }
+  float acc[4][32];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  float db[2] = {0.f, 0.f};
+  const uint64_t rd = sw128_desc(rs);
+  mbar_wait(r_full, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kTcStages, c0 = 64 * stile(it);
+    mbar_wait(full + s, (it / kTcStages) & 1);
+    const bf16* st = ss + s * kTcTileElems;
+    // scores: rows of R against the warpgroup's 32 rows of S, over C
+    float sc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+    const uint64_t sd = sw128_desc(st + 32 * wg * 64);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kTcSub; ++kk)
+      wgmma_ss_n32(sc, rd + 512 * (kk >> 2) + 2 * (kk & 3), sd + 512 * (kk >> 2) + 2 * (kk & 3), 1);
+    wg_commit();
+    wg_wait();
+    reg_fence(sc);
+
+    // g = dlse exp(s - lse) + dll [label == v], rounded to bf16 into the g
+    // tile of this step (row r, column chunk (4 wg + n) ^ g in the swizzle)
+    const float* cs = cols + s * 4 * 64;
+    unsigned char* gt = reinterpret_cast<unsigned char*>(gs + (it & 1) * kTcSubElems);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float gv[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int cl = 32 * wg + 8 * n + 2 * t4 + c;  // the streamed row of the tile
+          const float x = sc[4 * n + 2 * hr + c];
+          if (kTable) {
+            const int lab = reinterpret_cast<const int*>(cs)[192 + cl];
+            gv[c] = cs[64 + cl] * fast_exp2(fmaf(x + r_b[hr], kLog2e, -cs[cl])) +
+                    (lab == r_id[hr] ? cs[128 + cl] : 0.f);
+            db[hr] += gv[c];
+          } else {
+            gv[c] = r_dl[hr] * fast_exp2(fmaf(x + cs[cl], kLog2e, -r_l2[hr])) +
+                    (r_id[hr] == c0 + cl ? r_dll[hr] : 0.f);
+          }
+        }
+        const int r = 16 * warp + g + 8 * hr;
+        *reinterpret_cast<uint32_t*>(gt + r * 128 + (((4 * wg + n) ^ g) << 4) + 4 * t4) =
+            pack2(gv[0], gv[1]);
+      }
+    fence_async_smem();
+    named_sync(1, 256);  // both halves of g are in shared memory
+
+    // acc (64 x 256) += g (64 x 64) S[:, 256 wg ..]
+    const uint64_t gd = sw128_desc(gt);
+    const uint64_t od = sw128_desc(st + 4 * wg * kTcSubElems);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_ss<0, 1>(acc[j], gd + 2 * kk, od + 512 * j + 128 * kk, 1);
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) reg_fence(acc[j]);
+    mbar_arrive(empty + s);  // the stage's S tile and stats are free
+  }
+
+  const int rows = kTable ? p.V : p.N;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = 64 * rt + 16 * warp + g + 8 * hr;
+    if (kTable) {
+      float x = db[hr];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (t4 == 0 && row < rows) atomicAdd(p.dbias + row, x);
+    }
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const size_t off = (size_t)row * kTcC + 256 * wg + 64 * j + 8 * n + 2 * t4;
+        const float a = acc[j][4 * n + 2 * hr], b = acc[j][4 * n + 2 * hr + 1];
+        float* acc32 = kTable ? p.dt_acc : p.dh_acc;
+        if (p.splits > 1) {
+          atomicAdd(reinterpret_cast<float2*>(acc32 + off), make_float2(a, b));
+        } else if (kTable) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dtable) + off) =
+              __floats2bfloat162_rn(a, b);
+        } else {
+          *reinterpret_cast<float2*>(acc32 + off) = make_float2(a, b);
+        }
+      }
+  }
+}
+
 // lse = M + log(sum_s l_s exp(m_s - M)), M = max_s m_s; ll = sum_s ll_s.
 __global__ void catalog_merge(const float* part_m, const float* part_l, const float* part_ll,
                               float* lse, float* ll, int N, int splits) {
@@ -401,6 +648,23 @@ cudaError_t launch_mode(const Params& p, int dtype, dim3 grid, cudaStream_t stre
   if (dtype == 0) return launch_variant<float, MODE, false>(p, grid, stream);
   if (p.C % 64 == 0) return launch_variant<__nv_bfloat16, MODE, true>(p, grid, stream);
   return launch_variant<__nv_bfloat16, MODE, false>(p, grid, stream);
+}
+
+// The (rows, C) bf16 matrix at ptr as a TMA map: boxes of 64 rows x 64.
+bool matrix_map(CUtensorMap* map, const void* ptr, int rows, int C) {
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 64};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims, strides, box);
+}
+
+template <int MODE>
+cudaError_t launch_tc(const Params& p, const TcMaps& maps, dim3 grid, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      catalog_bwd_tc_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
+  if (e != cudaSuccess) return e;
+  catalog_bwd_tc_kernel<MODE><<<grid, kTcThreads, kTcSmem, stream>>>(p, maps);
+  return cudaGetLastError();
 }
 
 bool valid_shape(int N, int V, int C, int dtype) {
@@ -448,15 +712,22 @@ int catalog_nll_fwd(const void* hidden, const void* table, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// Whether the backward runs on the wgmma kernel (bf16, C = 512).
+int catalog_bwd_tensor_core(int C, int dtype) { return dtype == 1 && C == kTcC; }
+
 // Backward: dh_acc (N, C) fp32, zeroed by the caller; dtable (V, C) in the
 // compute dtype, dbias (V,) fp32. live (ceil(N / 64),) codes each 64-row
 // tile (0: every row has dlse = dll = 0); order is the number of live tiles,
-// then their indices.
+// then their indices. d_hidden splits the vocab in splits_h, d_table the
+// live row tiles in splits_t (the wgmma kernel only; then dt_acc (V, C) fp32
+// and dbias come zeroed and the caller casts dt_acc into dtable; with
+// splits_t = 1 dtable and dbias come zeroed).
 int catalog_nll_bwd(const void* hidden, const void* table, const void* bias,
                     const void* labels, const void* lse, const void* dlse,
                     const void* dll, const void* live, const void* order, void* dh_acc,
-                    void* dtable, void* dbias, int N, int V, int C, int splits, int dtype,
-                    void* stream) {
+                    void* dt_acc, void* dtable, void* dbias, int N, int V, int C, int splits_h,
+                    int splits_t, int dtype, void* stream) {
+  const int splits = splits_h;
   if (!valid_shape(N, V, C, dtype) || splits < 1) return (int)cudaErrorInvalidValue;
   Params p = base(hidden, table, bias, labels, N, V, C);
   p.lse = static_cast<const float*>(lse);
@@ -465,12 +736,24 @@ int catalog_nll_bwd(const void* hidden, const void* table, const void* bias,
   p.live = static_cast<const int*>(live);
   p.order = static_cast<const int*>(order);
   p.dh_acc = static_cast<float*>(dh_acc);
+  p.dt_acc = static_cast<float*>(dt_acc);
   p.dtable = dtable;
   p.dbias = static_cast<float*>(dbias);
   const int tiles = (V + kB - 1) / kB;
   p.splits = splits;
   p.tiles_per_split = (tiles + splits - 1) / splits;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (catalog_bwd_tensor_core(C, dtype)) {
+    TcMaps maps;
+    if (splits_t < 1 || !matrix_map(&maps.hidden, hidden, N, C) ||
+        !matrix_map(&maps.table, table, V, C))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = launch_tc<kDHidden>(p, maps, dim3((N + 63) / 64, splits), s);
+    if (e != cudaSuccess) return (int)e;
+    Params pt = p;
+    pt.splits = splits_t;
+    return (int)launch_tc<kDTable>(pt, maps, dim3((V + 63) / 64, splits_t), s);
+  }
   const dim3 grid_h((N + kA - 1) / kA, splits), grid_t((V + kA - 1) / kA, 1);
   cudaError_t e = launch_mode<kDHidden>(p, dtype, grid_h, s);
   if (e != cudaSuccess) return (int)e;

@@ -31,6 +31,7 @@ part: the kernels mask their ragged edge rather than pad.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -145,8 +146,10 @@ def _lib() -> ctypes.CDLL:
     if lib.catalog_nll_fwd.argtypes is None:
         lib.catalog_nll_fwd.argtypes = [p] * 7 + [i32] * 5 + [p]
         lib.catalog_nll_fwd.restype = i32
-        lib.catalog_nll_bwd.argtypes = [p] * 12 + [i32] * 5 + [p]
+        lib.catalog_nll_bwd.argtypes = [p] * 13 + [i32] * 6 + [p]
         lib.catalog_nll_bwd.restype = i32
+        lib.catalog_bwd_tensor_core.argtypes = [i32, i32]
+        lib.catalog_bwd_tensor_core.restype = i32
         lib.catalog_cuda_error_string.argtypes = [i32]
         lib.catalog_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -171,8 +174,10 @@ def _prep(hidden, table, bias, labels):
            "bias (V,) / labels (N,) shape")
     for name, x in (("hidden", hidden), ("bias", bias), ("labels", labels)):
         _check(x.device == dev, f"{name} on {x.device}, table on {dev}")
-    h = hidden.detach().contiguous()
-    t = table.detach().contiguous()
+    # contiguous, and at 16-byte boundaries for the tensor maps
+    h, t = (x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (hidden.detach().contiguous(),
+                      table.detach().contiguous()))
     b = bias.detach().float().contiguous()
     lab = labels.to(torch.int32).contiguous()
     return h, t, b, lab, n, v, c
@@ -183,6 +188,23 @@ def _splits(n: int, v: int) -> int:
     tiles) still fill the card."""
     row_tiles = -(-n // _ROWS_PER_BLOCK)
     return max(1, min(-(-v // 64), -(-_TARGET_BLOCKS // row_tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_splits(n: int, v: int, sms: int) -> Tuple[int, int]:
+    """(vocab splits of d_hidden, row-tile splits of d_table) for the wgmma
+    kernel, which runs one block an SM: each minimises waves x (tiles a
+    block streams + 1, + 1 more for the atomic epilogue of a split),
+    counting every row tile as live."""
+    row_tiles, vocab_tiles = -(-n // ROW_TILE), -(-v // ROW_TILE)
+
+    def cost(blocks, streamed, s):
+        return -(-blocks * s // sms) * (-(-streamed // s) + 1 + (s > 1))
+
+    def best(blocks, streamed):
+        return min(range(1, streamed + 1),
+                   key=lambda s: cost(blocks, streamed, s))
+    return best(row_tiles, vocab_tiles), best(vocab_tiles, row_tiles)
 
 
 def _launch_fwd(hidden, table, bias, labels):
@@ -212,19 +234,30 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
         _check(tuple(x.shape) == (n,), f"{name} shape {tuple(x.shape)}")
     live = catalog_live_rows(dlse_, dll_)
     order = _live_order(live)
-    splits = _splits(n, v)
-    # dead row tiles leave their d_hidden rows as zeroed here
-    dh_acc = torch.zeros((n, c), dtype=torch.float32, device=dev)
-    dt = torch.empty((v, c), dtype=cdt, device=dev)
-    db = torch.empty(v, dtype=torch.float32, device=dev)
     lib = _lib()
+    tc = bool(lib.catalog_bwd_tensor_core(c, _DTYPE_CODE[cdt]))
+    if tc:
+        splits_h, splits_t = _tc_splits(
+            n, v, torch.cuda.get_device_properties(dev).multi_processor_count)
+    else:
+        splits_h, splits_t = _splits(n, v), 1
+    # the outputs the kernels add into, and those dead row tiles leave
+    # untouched, come zeroed
+    zeros = functools.partial(torch.zeros, device=dev)
+    dh_acc = zeros((n, c), dtype=torch.float32)
+    dt_acc = zeros((v, c), dtype=torch.float32) if splits_t > 1 else None
+    dt = (zeros if tc else torch.empty)((v, c), dtype=cdt, device=dev)
+    db = (zeros if tc else torch.empty)(v, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.catalog_nll_bwd(
             h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
             lse_.data_ptr(), dlse_.data_ptr(), dll_.data_ptr(),
             live.data_ptr(), order.data_ptr(), dh_acc.data_ptr(),
-            dt.data_ptr(), db.data_ptr(), n, v, c, splits,
-            _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
+            None if dt_acc is None else dt_acc.data_ptr(), dt.data_ptr(),
+            db.data_ptr(), n, v, c, splits_h, splits_t, _DTYPE_CODE[cdt],
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "catalog_nll", lib.catalog_cuda_error_string)
     catalog_nll_bwd.launches += 1
+    if dt_acc is not None:
+        dt = dt_acc.to(cdt)
     return dh_acc.to(hidden.dtype), dt, db
