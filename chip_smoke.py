@@ -89,11 +89,13 @@ from easydgl_tpu_torch.kernels.mau_blocked import (
 from easydgl_tpu_torch.kernels.mau_streamed import (
     STREAMED_KERNELS, mau_dkvt, mau_dq, mau_glam, mau_intensity,
     mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed)
-from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
+from easydgl_tpu_torch.kernels.scoring import (catalog_live_rows,
+                                               catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
                                                catalog_nll_reference)
-from easydgl_tpu_torch.models.registry import MODELS, build_model
+from easydgl_tpu_torch.models.registry import (MODELS, build_model,
+                                               model_class)
 from easydgl_tpu_torch.parity import random_flax_params
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
                                            device_marks, init_state,
@@ -130,6 +132,7 @@ SLICE_TOL = (1e-4, 1e-4)
 ZERO_GRAD_LEAF = re.compile(r"_attn\.k\.bias$")
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
+SASREC_LC_CATALOG = dict(n=65536, v=17771, c=512)   # B*L rows
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
 LC_TRAIN_STEPS, LC_REPEAT_STEPS = 10, 5
 SASREC_TRAIN_STEPS, SASREC_REPEAT_STEPS = 10, 5
@@ -437,9 +440,44 @@ def phase_bwd_checks():
     return errs
 
 
-def catalog_inputs(*, n, v, c, dtype, seed, label_term=True):
+def sasrec_lc_padded_rows(n=SASREC_LC_CATALOG["n"]) -> torch.Tensor:
+    """(B * L,) bool: the padded positions of one SASREC-LC train batch
+    (label 0 in the flattened labels the train step scores), left-padded
+    histories of the lengths synthetic data draws."""
+    cfg = preset("SASREC-LC")
+    check(n == cfg.batch_size * cfg.seqslen, f"{n} rows: not a SASREC-LC batch")
+    split = synthetic_split_vectorized(num_rows=cfg.batch_size,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=16)
+    loader = BatchLoader(split, data_mode=model_class(cfg).data_mode,
+                         batch_size=cfg.batch_size, is_training=True)
+    _, labels, _ = next(iter(loader.epoch(0)))
+    return torch.as_tensor(labels.reshape(-1) == 0, device="cuda")
+
+
+def alternating_rows(n) -> torch.Tensor:
+    """(n,) bool, dead rows mixed within and across 64-row tiles: runs of
+    three dead and three live rows, a whole dead tile (rows 64-127) and a
+    whole live one (192-255)."""
+    r = torch.arange(n, device="cuda")
+    dead = (r // 3) % 2 == 0
+    dead[64:128] = True
+    dead[192:256] = False
+    return dead
+
+
+# rows whose gradient the case makes exactly zero (label 0, dlse = dll = 0)
+CATALOG_DEAD = {"sasrec_lc_bf16_padded": sasrec_lc_padded_rows,
+                "alternating_bf16": alternating_rows,
+                "alternating_bf16_c64": alternating_rows,
+                "alternating_fp32": alternating_rows}
+
+
+def catalog_inputs(*, n, v, c, dtype, seed, label_term=True, dead=None):
     """The loss's cotangents: dlse and dll ~ N(0, 1) / N, or dll = 0 when
-    ``label_term`` is off, so that g is the softmax term alone."""
+    ``label_term`` is off, so that g is the softmax term alone. ``dead``
+    (n,) bool marks rows as the train step's padded positions: label 0
+    and dlse = dll = 0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     h = torch.randn(n, c, generator=g, device="cuda").to(dtype)
     table = (torch.rand(v, c, generator=g, device="cuda") - 0.5) * (
@@ -452,6 +490,10 @@ def catalog_inputs(*, n, v, c, dtype, seed, label_term=True):
     dll = torch.randn(n, generator=g, device="cuda") / n
     if not label_term:
         dll.zero_()
+    if dead is not None:
+        lab[dead] = 0
+        dlse[dead] = 0.0
+        dll[dead] = 0.0
     return h, table.to(dtype), b, lab, dlse, dll
 
 
@@ -464,8 +506,16 @@ CATALOG_CASES = (
     ("n15360_bf16", dict(CATALOG, n=15360), torch.bfloat16, True, 74),
     ("flagship_bf16_no_label_term", CATALOG, torch.bfloat16, False, 75),
     # SASREC-LC's training rows: B*T = 65,536 against its 17,771 items
-    ("sasrec_lc_bf16", dict(n=65536, v=17771, c=512), torch.bfloat16, True,
-     76))
+    ("sasrec_lc_bf16", SASREC_LC_CATALOG, torch.bfloat16, True, 76),
+    # the same with a SASREC-LC batch's padded rows (CATALOG_DEAD)
+    ("sasrec_lc_bf16_padded", SASREC_LC_CATALOG, torch.bfloat16, True, 77),
+    # dead and live rows mixed within and across 64-row tiles, on the
+    # wgmma kernel (bf16, C = 512), mma.sync (bf16, C = 64) and CUDA cores
+    ("alternating_bf16", dict(n=333, v=1001, c=512), torch.bfloat16, True,
+     78),
+    ("alternating_bf16_c64", dict(n=333, v=1001, c=64), torch.bfloat16,
+     True, 79),
+    ("alternating_fp32", dict(n=333, v=1001, c=64), torch.float32, True, 80))
 CATALOG_FWD, CATALOG_BWD = ("lse", "ll"), ("d_hidden", "d_table", "d_bias")
 
 
@@ -476,9 +526,13 @@ def catalog_case(name, shape, dtype, label_term, seed):
     the softmax term dlse * exp(s - lse) alone: at these inputs the label
     term's entries (dll * h, ~1/N) are ~1000x the softmax term's (~1/(N V)
     summed over N rows), so a whole-output scale alone would pass a wrong
-    softmax term. The case without the label term holds d_hidden to it."""
+    softmax term. The case without the label term holds d_hidden to it.
+    Where the case has dead rows (``CATALOG_DEAD``), d_hidden must be
+    exactly 0 on them."""
+    dead = CATALOG_DEAD[name](shape["n"]) if name in CATALOG_DEAD else None
     h, t, b, lab, dlse, dll = catalog_inputs(**shape, dtype=dtype, seed=seed,
-                                             label_term=label_term)
+                                             label_term=label_term,
+                                             dead=dead)
     got = catalog_nll_fwd(h, t, b, lab)
     torch.cuda.synchronize()
     want = catalog_nll_reference(h, t, b, lab)
@@ -488,6 +542,11 @@ def catalog_case(name, shape, dtype, label_term, seed):
     got = catalog_nll_bwd(h, t, b, lab, lse, dlse, dll)
     torch.cuda.synchronize()
     check(got[0].dtype == got[1].dtype == dtype, f"{name}: grad dtype")
+    if dead is not None:
+        check(bool(dead.any()) and not bool(dead.all()),
+              f"{name}: no dead or no live row")
+        check(float(got[0][dead].float().abs().max()) == 0.0,
+              f"{name}: d_hidden is not exactly 0 on the dead rows")
     want = catalog_nll_bwd_reference(h, t, b, lab, lse, dlse, dll)
     free = torch.ones(t.shape[0], dtype=torch.bool, device="cuda")
     free[lab.long()] = False
@@ -981,7 +1040,8 @@ def flash_work(name, km, *, h, t, dh, dtype, causal=True):
 
 def visited_tile_share(km, t, causal=True) -> float:
     """The share of the causal (query tile, key tile) pairs that the
-    backward visits on this key mask (``flash_visited_tiles``)."""
+    forward and the backward visit on this key mask
+    (``flash_visited_tiles``)."""
     b, n = km.shape[0], -(-t // 64)
     visited = flash_visited_tiles(flash_live_tiles(km), t, causal)
     return float(visited.sum()) / (b * (n * (n + 1) // 2 if causal
@@ -1053,10 +1113,13 @@ def phase_flash_timing():
             "dq, dk and dv: SDPA's whole backward")
         pairs, causal_pairs = visible_pairs(km, t), sh["b"] * t * (t + 1) / 2
         bwd_ms = rows[("flash_attention_bwd", dtype)]["ms"]
+        fwd_ms = rows[("flash_attention_fwd", dtype)]["ms"]
         log(f"  visible (query, key) pairs: {pairs:.0f} of the"
             f" {causal_pairs:.0f} causal ones ({pairs / causal_pairs:.4f});"
-            f" key tiles the backward visits: {visited_tile_share(km, t):.4f}"
-            f" of the causal tile pairs; backward {bwd_ms:.4f} ms against"
+            f" key tiles the forward and the backward visit:"
+            f" {visited_tile_share(km, t):.4f} of the causal tile pairs;"
+            f" forward {fwd_ms:.4f} ms against SDPA's forward {sdpa_f:.4f} ms"
+            f" ({sdpa_f / fwd_ms:.2f}x), backward {bwd_ms:.4f} ms against"
             f" SDPA's backward {sdpa_b:.4f} ms ({sdpa_b / bwd_ms:.2f}x)")
         log(f"  SDPA ({str(dtype)[6:]}) with the key_mask & causal boolean"
             f" mask: forward {sdpa_f:.4f} ms, backward (dq, dk, dv together)"
@@ -1269,6 +1332,38 @@ def phase_train_kernel_timing():
             rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        library_ms=None, gemm_ms=gemm_ms)
+    return rows
+
+
+def phase_catalog_lc_timing():
+    log("phase 4f: catalog_nll backward at the SASREC-LC train shape (N=B*L"
+        "=65,536, V=17,771, C=512, bf16): every row live, and the padded"
+        " rows of a SASREC-LC batch (dlse = dll = 0) skipped")
+    rows = {}
+    padded = sasrec_lc_padded_rows()
+    for label, dead in (("all_live", None), ("sasrec_lc_padded", padded)):
+        h, tb, b, lab, dlse, dll = catalog_inputs(
+            **SASREC_LC_CATALOG, dtype=torch.bfloat16, seed=310, dead=dead)
+        lse, _ = catalog_nll_fwd(h, tb, b, lab)
+        live = catalog_live_rows(dlse, dll)
+        live_rows = int((live > 0).sum()) * 64
+        share = live_rows / SASREC_LC_CATALOG["n"]
+        ms = time_ms(lambda: catalog_nll_bwd(h, tb, b, lab, lse, dlse, dll),
+                     warmup=2, iters=10)
+        plain_ms = time_ms(lambda: catalog_nll_bwd_reference(
+            h, tb, b, lab, lse, dlse, dll), warmup=1, iters=1)
+        nbytes, flops = catalog_work(**dict(SASREC_LC_CATALOG, n=live_rows),
+                                     dtype=torch.bfloat16, backward=True)
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        log(f"  catalog_nll_bwd {label:16s} kernel {ms:.4f} ms  plain"
+            f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+            f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over the"
+            f" {live_rows} rows of the live 64-row tiles, {share:.4f} of N)"
+            f"  kernel/bound {ms / bound_ms:.1f}x,"
+            f" {flops * 4 / 3 / ms / 1e9:.1f} TFLOP/s of four products")
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, live_share=share)
+        del h, tb, b, lab, dlse, dll, lse
     return rows
 
 
@@ -1882,6 +1977,7 @@ def kernel_names(log_text: str):
     report line."""
     m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
+                  r"catalog_bwd_tc_kernel|flash_fwd_tc_kernel|"
                   r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_mma_kernel|"
                   r"mau_out_kernel|mau_intensity_kernel|mau_glam_mma_kernel|"
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
@@ -1941,6 +2037,7 @@ def main() -> int:
     streamed_timing = phase_streamed_timing()
     streamed_timing.update(phase_streamed_bwd_timing())
     flash_timing = phase_flash_timing()
+    catalog_lc_timing = phase_catalog_lc_timing()
     serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
     lc_launches, lc_batch, lc_table, lc_seqs_s, lc_lat = phase_lc_slice()
@@ -2001,6 +2098,7 @@ def main() -> int:
         if name == "catalog_nll_bwd":
             entry["also_replaces"] = ["easydgl_tpu/kernels/scoring.py:323",
                                       "easydgl_tpu/kernels/scoring.py:343"]
+            entry["sasrec_lc_shape"] = catalog_lc_timing
         kernels.append(entry)
     for fn in STREAMED_KERNELS:
         name = fn.__name__

@@ -1,41 +1,60 @@
 // Streamed full-catalog NLL, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of easydgl_tpu/kernels/scoring.py: _fwd_kernel
-// (pallas_call in _fwd_call) and the backward's _bwd_fused_kernel,
-// _bwd_hidden_kernel and _bwd_table_kernel (pallas_calls in _catalog_bwd).
-// For N hidden rows h against the tied (V, C) table T and bias b, with
-// s = h T^T + b never stored (218 MB fp32 at N = 3072, V = 17,772):
+// (:41; pallas_call in _fwd_call, :84) and the backward's _bwd_fused_kernel
+// (:108), _bwd_hidden_kernel (:170) and _bwd_table_kernel (:200)
+// (pallas_calls in _catalog_bwd, :292, :323, :343). For N hidden rows h
+// against the tied (V, C) table T and bias b, with s = h T^T + b never
+// stored (4.7 GB fp32 at N = 65,536, V = 17,771):
 //
 //   forward:  lse[n] = logsumexp_v s[n, v],  ll[n] = s[n, label[n]]
 //   backward: g = dlse * exp(s - lse) + dll * onehot(label)
 //             dh = g T, dT = g^T h (g rounded to the compute dtype first,
 //             both returned in it), db = sum_n g (fp32)
 //
-// One templated kernel serves the three passes. A block keeps 32 rows of its
-// "resident" operand in shared memory and streams 64-row tiles of the other
-// operand past them, recomputing each 32 x 64 score tile:
+// The backward is two recompute passes, d_hidden (mode 1) and d_table with
+// d_bias (mode 2); the score tile is formed in both. The TPU's fused
+// backward exists because its whole (N, C) d_hidden accumulator fits VMEM;
+// here a fused pass would add a (64 x C) fp32 d_hidden tile per 64 vocab
+// ids, ~37 GB of reduction traffic at N = 65,536. Rows whose gradient is
+// exactly zero are skipped: the wrapper codes each 64-row tile from dlse and
+// dll (catalog_live_rows; a padded position has dlse = dll = 0, so g = 0 on
+// its row) and lists the live tiles in order on the device. d_hidden
+// computes nothing on a dead tile (its rows stay as zeroed by the caller),
+// d_table streams only the live tiles.
 //
-// * forward (mode 0): resident hidden rows, streamed vocab tiles of one
-//   split of V; an online max and sum per row, merged over the splits by
-//   catalog_merge (flash-decoding style, so N = 3072 fills the card).
-// * d_hidden (mode 1): the same tiling; g is formed in shared memory and
-//   dh += g T_tile accumulates in registers; the splits add into an fp32
-//   buffer.
-// * d_table (mode 2): resident vocab rows, streamed hidden tiles over all of
-//   N; dT += g^T h_tile and db in registers, stored once.
+// bf16 at C = 512 (catalog_bwd_tc_kernel; every configuration of the repo):
+// a block keeps a 64-row resident tile R (hidden rows in mode 1, vocab rows
+// in mode 2) and streams 64-row tiles S of the other operand (vocab tiles of
+// a split, or the live hidden tiles of a split) through a two-stage ring
+// that a producer warp fills by TMA (eight 64 x 64 boxes a tile, 128-byte
+// swizzle) under full and empty mbarriers, with the stats of S's rows
+// (bias, or lse, dlse, dll, label) by plain loads. Two consumer warpgroups
+// split the work of a step: warpgroup w scores R against S's rows [32 w,
+// 32 w + 32) over all of C (wgmma m64n32k16, both operands K-major in
+// shared memory), forms that half of g in registers and stores it, rounded
+// to bf16, into a shared (64 x 64) g tile (two, alternating by step); after
+// a named barrier it adds g S[:, 256 w, 256 w + 256) to its (64 x 256) fp32
+// accumulator (wgmma m64n64k16, g K-major, S MN-major), 128 registers a
+// thread: a (64 x 512) accumulator does not fit one warpgroup. The producer
+// warpgroup hands its registers to the consumers (setmaxnreg). One block an
+// SM (216,104 bytes of shared memory); the vocab (mode 1) or the live row tiles
+// (mode 2) split across blocks so that the grid fills the card in whole
+// waves, the splits adding into zeroed fp32 buffers by atomics.
 //
-// The TPU's fused backward exists because its whole (N, C) d_hidden
-// accumulator fits VMEM; a block here has 227 KB of shared memory, so the
-// two recompute passes of its large-N branch are the design for every N.
+// Other dtypes and widths (catalog_kernel, modes 1 and 2, and the forward,
+// mode 0): a block keeps 32 resident rows in shared memory and streams
+// 64-row tiles past them, recomputing each 32 x 64 score tile; in bf16 with
+// C % 64 == 0 on mma.sync (m16n8k16, fp32 accumulate) from ldmatrix
+// fragments, otherwise on the CUDA cores (fp32 FMA, no TF32). The forward's
+// online max and sum per row are merged over vocab splits by catalog_merge.
 //
-// What bounds it: the products, 2 N V C FLOP per pass (55.9 GFLOP at the
-// flagship shape) — the forward one, the backward four (the score tile is
-// recomputed in both backward passes). In bf16 with C % 64 == 0 they run
-// on the tensor cores (mma.sync m16n8k16, fp32 accumulate) from bf16 tiles
-// in shared memory, fragments loaded with ldmatrix; otherwise on CUDA cores
-// (fp32 FMA). Two blocks share an SM, so one loads its next tile while the
-// other computes; double-buffering the tile with cp.async (one block per
-// SM) measured no faster on an H100.
+// What bounds the backward: the products, 2 N V C FLOP each, three that the
+// function needs (the score tile, dh, dT; the kernels compute the score tile
+// twice), over the rows of live tiles: 3.58 TFLOP at N = 65,536, 3.6 ms at
+// 989 TFLOP/s in bf16. The wgmma kernel's scores use m64n32 products whose
+// operands both come from shared memory, and each step forms g on the CUDA
+// cores between its two products.
 //
 // Limits: C % 4 == 0 and C <= 512 (the two operand tiles share 227 KB).
 
@@ -192,8 +211,11 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     }
   }
 
+  // d_table reads the index of its next tile one tile ahead
+  int next = MODE == kDTable && tile_begin < tile_end ? p.order[1 + tile_begin] : tile_begin;
   for (int it = tile_begin; it < tile_end; ++it) {
-    const int tile = MODE == kDTable ? p.order[1 + it] : it;
+    const int tile = next;
+    next = MODE != kDTable ? it + 1 : it + 1 < tile_end ? p.order[2 + it] : 0;
     const int b0 = tile * kB, nb = imin(kB, b_total - b0);
     __syncthreads();  // previous tile consumed
     if constexpr (MMA) {
@@ -340,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
           const size_t off = (size_t)row * C + c;
           if (MODE == kDHidden) {
             if (p.splits > 1) atomicAdd(p.dh_acc + off, acc[nt][mt][i]);
-          else p.dh_acc[off] = acc[nt][mt][i];
+            else p.dh_acc[off] = acc[nt][mt][i];
           } else {
             static_cast<T*>(p.dtable)[off] = from_f<T>(acc[nt][mt][i]);
           }

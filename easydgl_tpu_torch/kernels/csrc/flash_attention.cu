@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernels of easydgl_tpu/kernels/flash_attention.py:
 //
-//   flash_fwd_kernel      _fwd_kernel (:121; pallas_call in _flash_fwd, :318)
+//   flash_fwd_tc_kernel   _fwd_kernel (:121; pallas_call in _flash_fwd, :318)
+//   (bf16) and
+//   flash_fwd_kernel
+//   (fp32)
 //   flash_bwd_tc_kernel   _dq_kernel  (:166; pallas_call in _flash_bwd, :366)
 //   (bf16), and           _dkv_kernel (:199; pallas_call in _flash_bwd, :390)
 //   flash_bwd_kernel
@@ -32,12 +35,49 @@
 // and the plain version draw one mask whatever their tiles (the TPU kernel
 // seeds its PRNG per block, so its mask depends on the blocking).
 //
-// Forward. One block of four warps takes 64 queries of one (b, h) and loops
-// over 64-key tiles up to the causal diagonal; each warp owns 16 rows, and
-// its running max, sum and (16 x dh) output stay in registers. A key tile is
-// taken in two 32-wide halves whose mma.sync C fragments become the A operand
-// of P @ V; tiles stream through shared memory by cp.async one tile ahead.
-// bf16 on the tensor cores, fp32 on the CUDA cores.
+// What both passes share:
+//
+// * Padding is skipped: the wrapper codes each (batch row, 64-key tile) as
+//   dead (every key masked), full or partial (flash_live_tiles). No dead
+//   tile is visited; under causal a query tile takes the key tiles up to
+//   its last query and a key tile the query tiles from its diagonal on, so
+//   the two passes visit the same (query tile, key tile) pairs. This is
+//   exact: a masked entry adds exactly 0, and a row that sees no key gets 0
+//   (out, dq) and lse = -1e38.
+// * Entries are formed without a branch: a hidden entry's exponent is -inf,
+//   so p = ds = 0. Only tiles that are partial, on the causal diagonal or on
+//   the ragged query edge test entries one by one; under dropout every entry
+//   of a visited tile draws. Exponentials are ex2 with the scale folded by
+//   log2(e); the forward keeps its running max in log2 units.
+//
+// Forward, bf16 (flash_fwd_tc_kernel, the FlashAttention-3 forward): a
+// block takes 128 queries of one (b, h), heaviest first under causal, with
+// two consumer warpgroups of 64 queries and a producer warp (its warpgroup
+// hands its registers to the consumers by setmaxnreg). The producer copies
+// the two Q tiles once, then the live key tiles' K and V by TMA (128-byte
+// swizzle) into a three-stage ring and their key mask by plain loads, each
+// stage under a full and an empty mbarrier; both warpgroups consume every
+// stage. S = Q K^T is wgmma m64n64k16 with both operands in shared memory;
+// the running max, sum and the (64 x 64) output accumulate in registers;
+// the dropped probs, rounded to bf16, are fed back from the accumulator
+// registers as the A operand of O += P V (V MN-major). dh = 64 or 128 (a
+// tile is one or two 64-column sub-tiles); the wrapper zero-pads narrower
+// heads.
+//
+// Forward, fp32 (flash_fwd_kernel): one block of four warps takes 64
+// queries and walks the same key tiles on the CUDA cores (no TF32); each
+// warp owns 16 rows, a key tile is taken in two 32-wide halves, and tiles
+// stream through shared memory by cp.async one tile ahead. Its bf16 form
+// (mma.sync from ldmatrix fragments) is compiled but not launched.
+//
+// What bounds the forward, at the SASREC-LC shape (B=32, H=8, T=2048, dh=64,
+// causal, left-padded keys): bytes. q, k, v in and out are 67 MB each in
+// bf16, 0.081 ms at 3.35 TB/s; its two products over the ~30% of the causal
+// pairs the mask leaves visible are ~42 GFLOP, 0.042 ms at 989 TFLOP/s. The
+// kernel computes whole tiles (~36% of the causal tile pairs there), each
+// entry an exp (and under dropout a ten-round Philox draw) on the CUDA
+// cores, and within a warpgroup a tile's two products and its entries run in
+// order.
 //
 // Backward: one key-major pass (the FlashAttention-2/3 schedule). A block
 // owns a run of 64-key tiles of one (b, h) with K and V resident in shared
@@ -50,15 +90,8 @@
 // (B, Tq, H, dh) workspace: row i of dq sums over its key tiles in whatever
 // order the blocks run. The wrapper casts the workspace into dq.
 //
-// * Padding is skipped: the wrapper codes each (batch row, 64-key tile) as
-//   dead (every key masked), full or partial (flash_live_tiles). A dead tile
-//   computes nothing and writes dk = dv = 0; under causal a tile visits the
-//   query tiles from its diagonal on. This is exact: a masked entry adds
-//   exactly 0, and a row that sees no key gets 0.
-// * Entries are formed without a branch: a hidden entry's exponent is -inf,
-//   so p = ds = 0. Only tiles that are partial, on the causal diagonal or on
-//   the ragged query edge test entries one by one; under dropout every entry
-//   of a visited tile draws.
+// A dead key tile computes nothing and writes dk = dv = 0.
+//
 // * bf16 (flash_bwd_tc_kernel): two consumer warpgroups, 64 keys each, and
 //   a producer warp a block (its warpgroup hands its registers to the
 //   consumers by setmaxnreg). The producer copies K and V once, then each
@@ -160,20 +193,24 @@ constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 * kTcGroups + 2 * kTcStages)
                            sizeof(float) * kTcGroups * kTcTile +
                            sizeof(float) * kTcStages * 2 * BQ + 8 * (1 + 2 * kTcStages);
 
-// The bf16 forward (flash_fwd_tc_kernel): a warpgroup's (64 x 64) Q tile,
-// a K and a V tile and 64 key-mask floats a stage, the mbarriers, and slack.
+// The bf16 forward (flash_fwd_tc_kernel<DH>): a warpgroup's (64 x DH) Q
+// tile, a K and a V tile and 64 key-mask floats a stage, the mbarriers, and
+// slack; each (64 x DH) tile is DH / 64 swizzled (64 x 64) sub-tiles.
 constexpr int kFwdStages = 3;                        // K/V stages
 constexpr int kFwdQueries = 64 * kTcGroups;          // queries a block
-constexpr size_t kFwdSmem = 1024 + sizeof(bf16) * (kTcGroups + 2 * kFwdStages) * kTcTile +
-                            sizeof(float) * kFwdStages * BK + 8 * (1 + 2 * kFwdStages);
+__host__ __device__ constexpr size_t fwd_tc_smem(int dh) {
+  return 1024 + sizeof(bf16) * (kTcGroups + 2 * kFwdStages) * (dh / 64) * kTcTile +
+         sizeof(float) * kFwdStages * BK + 8 * (1 + 2 * kFwdStages);
+}
 
 template <typename T, int DH>
 __host__ __device__ constexpr size_t smem_bytes_of(int which) {
-  // forward: q + 2 k + 2 v tiles, 2 x 64 key-mask floats; backward: k, v +
-  // 2 q + 2 dO tiles, the (64 x 64) dS^T tile, 64 key-mask floats + 2 x
-  // (lse, delta)
-  return which == kFwd ? (sizeof(T) == 2 && DH <= 64
-                              ? kFwdSmem
+  // forward: fwd_tc_smem in bf16, else q + 2 k + 2 v tiles and 2 x 64
+  // key-mask floats; backward: kTcSmem in bf16, else k, v + 2 q + 2
+  // dO tiles, the (64 x 64) dS^T tile, 64 key-mask floats + 2 x (lse,
+  // delta)
+  return which == kFwd ? (sizeof(T) == 2
+                              ? fwd_tc_smem(DH < 64 ? 64 : DH)
                               : sizeof(T) * 5 * 64 * row_stride<T, DH>() + sizeof(float) * 2 * BK)
          : sizeof(T) == 2 ? kTcSmem
                           : sizeof(T) * (6 * 64 * row_stride<T, DH>() + 64 * row_stride<T, BQ>()) +
@@ -888,16 +925,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 // ---------------------------------------------------------------- forward, bf16
 // wgmma and TMA (see the header): warpgroups 0 and 1 consume, 64 queries
-// each, the first warp of warpgroup 2 produces.
+// each, the first warp of warpgroup 2 produces. DH = 64 or 128.
 
+template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_tc_kernel(const FlashParams p, const __grid_constant__ TcMaps maps) {
+  constexpr int NS = DH / 64;  // 64-column sub-tiles of a (64 x DH) tile
+  constexpr int kTile = NS * kTcTile;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* qs = reinterpret_cast<bf16*>(base);  // [group][64 queries][64], swizzled
-  bf16* ks = qs + kTcGroups * kTcTile;        // [stage][64 keys][64]
-  bf16* vs = ks + kFwdStages * kTcTile;       // [stage][64 keys][64]
-  float* kms = reinterpret_cast<float*>(vs + kFwdStages * kTcTile);  // [stage][64] key mask
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [group][sub][64 queries][64], swizzled
+  bf16* ks = qs + kTcGroups * kTile;          // [stage][sub][64 keys][64]
+  bf16* vs = ks + kFwdStages * kTile;         // [stage][sub][64 keys][64]
+  float* kms = reinterpret_cast<float*>(vs + kFwdStages * kTile);  // [stage][64] key mask
   uint64_t* q_full = reinterpret_cast<uint64_t*>(kms + kFwdStages * BK);
   uint64_t* full = q_full + 1;                // [stage]
   uint64_t* empty = full + kFwdStages;        // [stage]
@@ -930,9 +970,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     regs_dec<kTcProducerRegs>();
     if (warp > 4 * kTcGroups) return;
     if (lane == 0) {
-      mbar_arrive_tx(q_full, kTcGroups * kTcTile * sizeof(bf16));
+      mbar_arrive_tx(q_full, kTcGroups * kTile * sizeof(bf16));
       for (int w = 0; w < kTcGroups; ++w)
-        tma_rows(qs + w * kTcTile, &maps.q, q_full, q0 + 64 * w, h, b);
+        for (int c = 0; c < NS; ++c)
+          tma_rows(qs + w * kTile + c * kTcTile, &maps.q, q_full, q0 + 64 * w, h, b, 64 * c);
     }
     const float* km_row = p.key_mask + (size_t)b * p.Tk;
     int it = 0;
@@ -941,9 +982,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       mbar_wait(empty + s, ((it / kFwdStages) & 1) ^ 1);
       for (int r = lane; r < BK; r += 32) kms[s * BK + r] = j0 + r < p.Tk ? km_row[j0 + r] : 0.f;
       if (lane == 0) {
-        mbar_arrive_tx(full + s, 2 * kTcTile * sizeof(bf16));
-        tma_rows(ks + s * kTcTile, &maps.k, full + s, j0, h, b);
-        tma_rows(vs + s * kTcTile, &maps.v, full + s, j0, h, b);
+        mbar_arrive_tx(full + s, 2 * kTile * sizeof(bf16));
+        for (int c = 0; c < NS; ++c) {
+          tma_rows(ks + s * kTile + c * kTcTile, &maps.k, full + s, j0, h, b, 64 * c);
+          tma_rows(vs + s * kTile + c * kTcTile, &maps.v, full + s, j0, h, b, 64 * c);
+        }
       } else {
         mbar_arrive(full + s);
       }
@@ -960,12 +1003,33 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
   const float sl2 = p.scale * kLog2e;
-  const uint64_t qd = sw128_desc(qs + wg * kTcTile);
-  float o[32], m[2] = {kDead, kDead}, l[2] = {0.f, 0.f};
+  const uint64_t qd = sw128_desc(qs + wg * kTile);
+  float o[NS][32], m[2] = {kDead, kDead}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int c = 0; c < NS; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   mbar_wait(q_full, 0);
 
+  // A computed tile's O += P V is left in flight while the next tile's
+  // S = Q K^T runs and its entries are formed; O is rescaled once it lands
+  // (the FlashAttention-3 overlap within a warpgroup).
+  uint32_t pf[16];      // the bf16 A fragments of the P in flight
+  uint64_t vd_prev = 0;  // its V tile
+  int s_prev = -1;       // its stage, or -1 when none is in flight
+  auto issue_pv = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NS; ++c) wgmma_rs(o[c], pf + 4 * kk, vd_prev + 512 * c + 128 * kk);
+    wg_commit();
+  };
+  auto land_pv = [&]() {  // waits for O += P V, then frees its stage
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NS; ++c) reg_fence(o[c]);
+    mbar_arrive(empty + s_prev);  // the stage's K, V and mask are free
+  };
   int it = 0;
   for (int kt = next_live(0); kt < nkt; kt = next_live(kt + 1), ++it) {
     const int s = it % kFwdStages, j0 = kt * BK;
@@ -977,12 +1041,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     float sa[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sa[i] = 0.f;
-    const uint64_t kd = sw128_desc(ks + s * kTcTile), vd = sw128_desc(vs + s * kTcTile);
+    // a sub-tile is 8 KB, 512 in the descriptors' units
+    const uint64_t kd = sw128_desc(ks + s * kTile);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, qd + 2 * kk, kd + 2 * kk, 1);  // Q K^T
+    for (int kk = 0; kk < 4 * NS; ++kk) {  // Q K^T
+      const int step = 512 * (kk >> 2) + 2 * (kk & 3);
+      wgmma_ss<0, 0>(sa, qd + step, kd + step, 1);
+    }
     wg_commit();
-    wg_wait();
+    if (s_prev >= 0) {
+      issue_pv();  // the previous tile's P V, behind Q K^T
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
     reg_fence(sa);
 
     // p of entry (query 16 warp + g + 8 hr, key 8 n + 2 t4 + c) at sa[4 n + 2 hr + c],
@@ -990,6 +1063,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     // max runs in log2 units, m = max_j s_ij scale log2(e)
     const bool test = test_entries(p, live_row[kt], qw, j0);
     const float* kmb = kms + s * BK;
+    float corr[2];
     auto form = [&](auto dropped) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -1008,7 +1082,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float m_new = fmaxf(m[hr], mx);
-        const float corr = fast_exp2(m[hr] - m_new);
+        corr[hr] = fast_exp2(m[hr] - m_new);
         float sum = 0.f;
 #pragma unroll
         for (int n = 0; n < 8; ++n)
@@ -1022,33 +1096,34 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l[hr] = l[hr] * corr + sum;
+        l[hr] = l[hr] * corr[hr] + sum;
         m[hr] = m_new;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          o[4 * n + 2 * hr] *= corr;
-          o[4 * n + 2 * hr + 1] *= corr;
-        }
       }
     };
     if (drop.on)
       form(std::true_type());
     else
       form(std::false_type());
+    if (s_prev >= 0) land_pv();
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) o[c][4 * n + x] *= corr[x >> 1];
     // the dropped probs rounded to bf16: the A fragments of P (k step kk:
-    // keys 16 kk ..), then O += P V with V MN-major
-    uint32_t pf[16];
+    // keys 16 kk ..) for O += P V with V MN-major
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
+    s_prev = s;
+    vd_prev = sw128_desc(vs + s * kTile);
+  }
+  if (s_prev >= 0) {
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, pf + 4 * kk, vd + 128 * kk);
-    wg_commit();
-    wg_wait();
-    reg_fence(o);
-    mbar_arrive(empty + s);  // the stage's K, V and mask are free
+    issue_pv();
+    land_pv();
   }
 
   float inv[2];
@@ -1060,38 +1135,41 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const float mn = l[hr] > 0.f ? m[hr] * kLn2 : kDead;
     if (t4 == 0 && i < p.Tq) p.lse_out[(size_t)bh * p.Tq + i] = mn + logf(fmaxf(l[hr], 1e-37f));
   }
-  store_acc(head<bf16>(p.out, b, h), p.out.rs, o, inv, qw + 16 * warp, p.Tq, lane);
+#pragma unroll
+  for (int c = 0; c < NS; ++c)
+    store_acc(head<bf16>(p.out, b, h) + 64 * c, p.out.rs, o[c], inv, qw + 16 * warp, p.Tq, lane);
 }
 
 // ---------------------------------------------------------------- launch
 
-// The TMA map of a (B, H, T, 64) operand with element strides (bs, hs, rs):
-// boxes of 64 rows x `cols` columns, 128-byte swizzle, zeros read (and
+// The TMA map of a (B, H, T, width) operand with element strides (bs, hs,
+// rs): boxes of 64 rows x `cols` columns, 128-byte swizzle, zeros read (and
 // nothing written) past row T.
 bool rows_map(CUtensorMap* map, CUtensorMapDataType type, size_t item, const void* ptr,
-              long long bs, long long hs, long long rs, int T, int H, int B, int cols) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+              long long bs, long long hs, long long rs, int T, int H, int B, int cols,
+              int width = 64) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)rs * item, (cuuint64_t)hs * item,
                                  (cuuint64_t)bs * item};
   const cuuint32_t box[4] = {(cuuint32_t)cols, 64, 1, 1};
   return encode_map(map, type, 4, ptr, dims, strides, box);
 }
 
-bool seq_map(CUtensorMap* map, const Seq4& x, int T, int H, int B) {
+bool seq_map(CUtensorMap* map, const Seq4& x, int T, int H, int B, int width = 64) {
   return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), x.p, x.bs, x.hs, x.rs, T,
-                  H, B, 64);
+                  H, B, 64, width);
 }
 
 template <typename T, int DH>
 cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
   const size_t bytes = smem_bytes_of<T, DH>(which);
-  if constexpr (std::is_same<T, bf16>::value && DH == 64) {
+  if constexpr (std::is_same<T, bf16>::value && DH >= 64) {
     if (which == kFwd) {
       TcMaps maps;
-      if (!seq_map(&maps.q, p.q, p.Tq, p.H, p.B) || !seq_map(&maps.k, p.k, p.Tk, p.H, p.B) ||
-          !seq_map(&maps.v, p.v, p.Tk, p.H, p.B))
+      if (!seq_map(&maps.q, p.q, p.Tq, p.H, p.B, DH) ||
+          !seq_map(&maps.k, p.k, p.Tk, p.H, p.B, DH) || !seq_map(&maps.v, p.v, p.Tk, p.H, p.B, DH))
         return cudaErrorInvalidValue;
-      return go(flash_fwd_tc_kernel, p.B * p.H * ((p.Tq + kFwdQueries - 1) / kFwdQueries),
+      return go(flash_fwd_tc_kernel<DH>, p.B * p.H * ((p.Tq + kFwdQueries - 1) / kFwdQueries),
                 kTcThreads, bytes, s, p, maps);
     }
   }

@@ -85,13 +85,14 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64
       : "memory");
 }
 
-// The box at row t0 of head (b, h) of a 4-D (cols, T, H, B) map into dst.
+// The box at row t0, column c0 of head (b, h) of a 4-D (cols, T, H, B) map
+// into dst.
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int t0,
-                                         int h, int b) {
+                                         int h, int b, int c0 = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(t0), "r"(h), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(t0), "r"(h), "r"(b)
       : "memory");
 }
 
@@ -110,10 +111,10 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const voi
 // wgmma descriptor of a 1024-byte-aligned (64 x 64) bf16 tile in the
 // 128-byte swizzle: 8-row groups 1024 bytes apart. As a K-major operand a
 // 16-wide k step adds 32 bytes (2 in the descriptor's units); as an
-// MN-major one it adds 16 rows, 2048 bytes (128). `lbo` is the distance
-// between 64-column tiles of a wider MN-major operand, in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo = 16) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+// MN-major one it adds 16 rows, 2048 bytes (128); the next (64 x 64) tile
+// of a wider operand stored tile after tile is 8 KB (512) further.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -121,8 +122,11 @@ __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.alig
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// Waits until at most N of the warpgroup's committed wgmma groups are
+// pending (they complete in order).
+template <int N = 0>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accesses of d across a wgmma wait.

@@ -309,10 +309,9 @@ def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                         scale=None, dropout_rate: float = 0.0, seed=None):
     """(out (B, H, Tq, dh) in q's dtype, lse (B, H, Tq) fp32). CPU tensors:
     ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_tc_kernel`` (bf16,
-    dh <= 64, narrower heads zero-padded) or ``flash_fwd_kernel`` (fp32,
-    and bf16 at dh = 128), which visit only the key tiles the key mask
-    leaves live (``flash_live_tiles``) within a query tile's causal
-    range."""
+    heads narrower than 64 zero-padded) or ``flash_fwd_kernel`` (fp32),
+    which visit only the key tiles the key mask leaves live
+    (``flash_live_tiles``) within a query tile's causal range."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
     if not _on_card("flash_attention_fwd", *tensors,

@@ -7,7 +7,8 @@ per row ``(lse, label_logit)`` without materialising the (N, V) logits on
 the card: the CUDA kernels of ``csrc/catalog_nll.cu`` stream vocab tiles
 (forward: online logsumexp and the label logit; backward: two recompute
 passes for d_hidden and for d_table / d_bias, with
-``g = dlse * softmax + dll * onehot``).
+``g = dlse * softmax + dll * onehot``; in bf16 at C = 512 on ``wgmma``
+with TMA-fed tiles, ``catalog_bwd_tc_kernel``).
 
 CPU tensors take ``catalog_nll_reference``, the plain version, which
 materialises the logits; autograd differentiates it.

@@ -234,6 +234,45 @@ def test_catalog_kernels_match_plain_version(cuda_device, dtype, n, v, c):
     _check_by_scale(dtype, got, want, "backward")
 
 
+@pytest.mark.parametrize("n,v,c,rows", [(333, 1001, 512, "alternating"),
+                                        (333, 1001, 64, "alternating"),
+                                        (4096, 2000, 512, "padded")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_catalog_backward_of_dead_rows_matches_plain_version(cuda_device,
+                                                             dtype, n, v, c,
+                                                             rows):
+    """Rows with label 0 and dlse = dll = 0 (the train step's padded
+    positions): dead and live rows mixed within and across 64-row tiles,
+    or left-padded histories of 2048 positions. The backward matches the
+    plain version (as ``_check_by_scale``) and its d_hidden is exactly 0
+    on the dead rows; on the wgmma kernel (bf16, C = 512), mma.sync (bf16,
+    C = 64) and the CUDA cores (fp32)."""
+    from easydgl_tpu_torch.kernels.scoring import catalog_live_rows
+    rng = np.random.default_rng(n + c)
+    if rows == "alternating":
+        dead = (np.arange(n) // 3) % 2 == 0
+        dead[64:128], dead[192:256] = True, False
+    else:
+        lengths = rng.integers(1, 2049, n // 2048)
+        dead = (np.arange(2048)[None] < 2048 - lengths[:, None]).reshape(-1)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    h = torch.randn(n, c, generator=g, device=cuda_device).to(dtype)
+    t = (torch.randn(v, c, generator=g, device=cuda_device) / 8).to(dtype)
+    b = torch.randn(v, generator=g, device=cuda_device)
+    lab = torch.randint(1, v, (n,), generator=g, device=cuda_device)
+    dlse, dll = (torch.randn(n, generator=g, device=cuda_device)
+                 for _ in range(2))
+    dead_t = torch.tensor(dead, device=cuda_device)
+    lab[dead_t], dlse[dead_t], dll[dead_t] = 0, 0.0, 0.0
+    live = catalog_live_rows(dlse, dll)
+    assert 0 < int(live.sum()) < live.numel()
+    lse, _ = catalog_nll_reference(h, t, b, lab)
+    got = catalog_nll_bwd(h, t, b, lab, lse, dlse, dll)
+    want = catalog_nll_bwd_reference(h, t, b, lab, lse, dlse, dll)
+    _check_by_scale(dtype, got, want, "dead rows")
+    assert float(got[0][dead_t].float().abs().max()) == 0.0
+
+
 def test_train_step_on_card_matches_cpu(cuda_device):
     """One fp32 EasyDGL train step at dropout 0, kernels on the card vs
     the plain versions on the CPU: loss 1e-5 relative; parameters after
@@ -628,6 +667,33 @@ def test_flash_kernels_match_plain_version(cuda_device, dtype, causal, shape,
     p_args = (q, k, v, km, dout, p_lse, fl.flash_delta(dout, p_out))
     _check_by_scale(dtype, got, fl.flash_bwd_reference(*p_args, **kw),
                     "chain")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", ["t200_dead_rows_dh64",
+                                   "t333_midtile_dh64"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_dh128_matches_plain_version(cuda_device, dtype,
+                                                   causal, shape, rate):
+    """The forward at dh = 128 (the wgmma kernel in bf16, the CUDA cores in
+    fp32; the backward does not take it) on whole rows of padding and on
+    padding that ends mid-tile: out as ``_check_close``, lse fp32 to 1e-4,
+    out exactly 0 on every batch row with no visible key."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    q, k, v, km, _ = _flash_inputs(cuda_device, dtype,
+                                   **dict(FLASH_SHAPES[shape], dh=128))
+    kw = dict(causal=causal, dropout_rate=rate,
+              seed=torch.tensor(78, device=cuda_device))
+    out, lse = fl.flash_attention_fwd(q, k, v, km, **kw)
+    want_o, want_l = fl.flash_fwd_reference(q, k, v, km, **kw)
+    scale = want_o if dtype == torch.float32 else fl.flash_fwd_reference(
+        q, k, v.abs(), km, **kw)[0]
+    _check_close(dtype, (out, lse), (want_o, want_l), scale)
+    torch.testing.assert_close(lse, want_l, atol=1e-4, rtol=1e-4)
+    dead = [r for r in range(km.shape[0]) if not bool((km[r] > 0).any())]
+    for r in dead:
+        assert float(out[r].float().abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -1,17 +1,17 @@
 """PyTorch port: flash attention (``easydgl_tpu_torch.kernels.flash_attention``)
 vs the JAX package, on the CPU.
 
-The plain forward (out and lse) and the plain backward pieces (dq, dk/dv)
-against JAX ``flash_attention_reference`` and against JAX ``flash_attention``
+The plain forward (out and lse), the forward wrapper's CPU branch and the
+plain backward pieces (dq, dk/dv) against JAX ``flash_attention_reference`` and against JAX ``flash_attention``
 in interpret mode (``block_q=16, block_k=128``, as the JAX package's own
 tests run it) and ``jax.vjp`` of it: causal and not, lengths that are not
 multiples of a tile, Tq != Tk, left-padded rows and a fully masked row, dh 8
 and 64, fp32 to 1e-5. Then ``_FlashAttention``'s backward with dropout
 against autograd of the plain forward; the dropout mask read back from the
 forward, dq and dk/dv (keep fraction, rescale, one mask); the backward
-wrapper ``flash_attention_bwd`` on CPU tensors against ``jax.vjp``; a
-property test of the backward's tile schedule (``flash_live_tiles``,
-``flash_visited_tiles``); and the CPU dispatch (plain versions, counters
+wrapper ``flash_attention_bwd`` on CPU tensors against ``jax.vjp``;
+property tests of the backward's and the forward's tile schedules
+(``flash_live_tiles``, ``flash_visited_tiles``); and the CPU dispatch (plain versions, counters
 untouched). Inputs come from numpy seeds.
 """
 import jax
@@ -61,17 +61,21 @@ CASES = [  # (seed, tq, tk, dh, causal)
 
 @pytest.mark.parametrize("seed,tq,tk,dh,causal", CASES)
 def test_forward_matches_jax(seed, tq, tk, dh, causal):
+    """The plain forward and the forward wrapper's CPU branch against the
+    JAX reference and the JAX kernel in interpret mode: out and lse at
+    1e-5, out exactly 0 on the dead row."""
     q, k, v, km, _ = _data(seed, tq=tq, tk=tk, dh=dh)
-    out, lse = flash_fwd_reference(*_t(q, k, v, km), causal=causal)
     want = jflash.flash_attention_reference(q, k, v, km, causal=causal)
-    np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
     kern, (*_, lse_j) = jflash._flash_fwd(
         q, k, v, km, 0, 1.0 / dh ** 0.5, causal, 0.0, (16, 128), True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(kern), **TOL)
-    lse_j = np.asarray(lse_j)[:, :tq, 0].reshape(lse.shape)
-    np.testing.assert_allclose(lse.numpy(), lse_j, **TOL)
-    assert float(out[0].abs().max()) == 0.0          # the dead row
-    assert float(lse[0].max()) < -1e37
+    for out, lse in (flash_fwd_reference(*_t(q, k, v, km), causal=causal),
+                     flash_attention_fwd(*_t(q, k, v, km), causal=causal)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(out.numpy(), np.asarray(kern), **TOL)
+        lse_want = np.asarray(lse_j)[:, :tq, 0].reshape(lse.shape)
+        np.testing.assert_allclose(lse.numpy(), lse_want, **TOL)
+        assert float(out[0].abs().max()) == 0.0          # the dead row
+        assert float(lse[0].max()) < -1e37
 
 
 @pytest.mark.parametrize("seed,tq,tk,dh,causal", CASES)
@@ -159,6 +163,42 @@ def test_visited_tiles_cover_every_visible_pair(case):
     assert ((live == 0) == ~tiles.any(-1)).all()
     assert ((live == 2) == tiles.all(-1)).all()
     assert not visited.transpose(0, 2, 1)[live == 0].any()
+
+
+def _forward_schedule(live, tq, causal):
+    """(B, nqt, nkt) bool: the (query tile, key tile) pairs the forward
+    kernels compute, as their loops walk them: query tile qt (queries
+    [64 qt, 64 qt + 64) within Tq) takes the key tiles kt with a live code
+    (``flash_live_tiles``) and, under causal, a first key at or before the
+    tile's last query."""
+    b, nkt = live.shape
+    nqt = -(-tq // TILE)
+    seen = np.zeros((b, nqt, nkt), bool)
+    for qt in range(nqt):
+        last = min(TILE * qt + TILE, tq) - 1
+        top = min(nkt, last // TILE + 1) if causal else nkt
+        seen[:, qt, :top] = live[:, :top] > 0
+    return seen
+
+
+@settings(max_examples=60, deadline=None)
+@given(_tile_masks())
+def test_forward_visits_every_visible_pair(case):
+    """The forward's schedule: every visible (query, key) pair lies in a
+    visited (query tile, key tile), no dead key tile is visited, and the
+    forward visits what the backward does (``flash_visited_tiles``)."""
+    km, tq, causal = case
+    b, tk = km.shape
+    live = flash_live_tiles(torch.tensor(km)).numpy()
+    seen = _forward_schedule(live, tq, causal)
+    vis = np.broadcast_to(km[:, None, :] > 0, (b, tq, tk))
+    if causal:
+        vis = vis & np.tril(np.ones((tq, tk), bool))
+    bi, qi, kj = np.nonzero(vis)
+    assert seen[bi, qi // TILE, kj // TILE].all()
+    assert not seen.transpose(0, 2, 1)[live == 0].any()
+    backward = flash_visited_tiles(torch.tensor(live), tq, causal).numpy()
+    assert (seen == backward).all()
 
 
 @pytest.mark.parametrize("causal", [False, True])
