@@ -211,11 +211,8 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     }
   }
 
-  // d_table reads the index of its next tile one tile ahead
-  int next = MODE == kDTable && tile_begin < tile_end ? p.order[1 + tile_begin] : tile_begin;
   for (int it = tile_begin; it < tile_end; ++it) {
-    const int tile = next;
-    next = MODE != kDTable ? it + 1 : it + 1 < tile_end ? p.order[2 + it] : 0;
+    const int tile = MODE == kDTable ? p.order[1 + it] : it;
     const int b0 = tile * kB, nb = imin(kB, b_total - b0);
     __syncthreads();  // previous tile consumed
     if constexpr (MMA) {

@@ -67,8 +67,9 @@
 // Forward, fp32 (flash_fwd_kernel): one block of four warps takes 64
 // queries and walks the same key tiles on the CUDA cores (no TF32); each
 // warp owns 16 rows, a key tile is taken in two 32-wide halves, and tiles
-// stream through shared memory by cp.async one tile ahead. Its bf16 form
-// (mma.sync from ldmatrix fragments) is compiled but not launched.
+// stream through shared memory by cp.async one tile ahead. (Its bf16 form
+// on mma.sync measured within 2% of the wgmma kernel at dh = 64 and ~20%
+// slower at dh = 128, and is gone.)
 //
 // What bounds the forward, at the SASREC-LC shape (B=32, H=8, T=2048, dh=64,
 // causal, left-padded keys): bytes. q, k, v in and out are 67 MB each in
@@ -248,24 +249,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
 // The warp's 16 rows of a resident operand A, and acc (16 x 32) += A B^T for
 // the 32 rows of B from bt (row stride ldb), B stored [row][d]: entry
 // acc[n][c] is row g + 8 (c >> 1), column n * 8 + 2 t4 + (c & 1) (the mma C
-// fragment layout). bf16: A fragments in registers, mma.sync; fp32: A read
-// from shared memory.
+// fragment layout); fp32, A read from shared memory.
 template <typename T, int DH>
 struct ARows;
-
-template <int DH>
-struct ARows<bf16, DH> {
-  uint32_t f[DH / 16][4];
-  __device__ __forceinline__ void load(const bf16* s, int ld, int r0, int lane) {
-#pragma unroll
-    for (int kd = 0; kd < DH / 16; ++kd) a_frag(f[kd], s, ld, r0, kd * 16, lane);
-  }
-  __device__ __forceinline__ void mul(float (&acc)[4][4], const bf16* bt, int ldb,
-                                      int lane) const {
-#pragma unroll
-    for (int kd = 0; kd < DH / 16; ++kd) mma_rows32(acc, f[kd], bt, ldb, kd * 16, lane);
-  }
-};
 
 template <int DH>
 struct ARows<float, DH> {
@@ -297,14 +283,8 @@ struct ARows<float, DH> {
 };
 
 // o (16 x DH) += P (16 x 32) @ X (32 x DH): P as the C fragments of the
-// half's 4 n-tiles (rounded to bf16 on the tensor cores), X row-major
-// [row][d] from xs (row stride ld); o in the C fragment layout.
-template <int DH>
-__device__ __forceinline__ void pv(float (&o)[DH / 8][4], const float (&pr)[4][4],
-                                   const bf16* xs, int ld, int lane) {
-  mma_pv<DH>(o, pr, xs, ld, lane);
-}
-
+// half's 4 n-tiles, X row-major [row][d] from xs (row stride ld); o in the
+// C fragment layout.
 template <int DH>
 __device__ __forceinline__ void pv(float (&o)[DH / 8][4], const float (&pr)[4][4],
                                    const float* xs, int ld, int lane) {
@@ -375,8 +355,9 @@ __device__ __forceinline__ bool test_entries(const FlashParams& p, int code, int
 
 // ---------------------------------------------------------------- forward
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreadsMma) flash_fwd_kernel(const FlashParams p) {
+  using T = float;
   constexpr int SD = row_stride<T, DH>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [64][SD]
@@ -1011,25 +992,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   mbar_wait(q_full, 0);
 
-  // A computed tile's O += P V is left in flight while the next tile's
-  // S = Q K^T runs and its entries are formed; O is rescaled once it lands
-  // (the FlashAttention-3 overlap within a warpgroup).
-  uint32_t pf[16];      // the bf16 A fragments of the P in flight
-  uint64_t vd_prev = 0;  // its V tile
-  int s_prev = -1;       // its stage, or -1 when none is in flight
-  auto issue_pv = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int c = 0; c < NS; ++c) wgmma_rs(o[c], pf + 4 * kk, vd_prev + 512 * c + 128 * kk);
-    wg_commit();
-  };
-  auto land_pv = [&]() {  // waits for O += P V, then frees its stage
-    wg_wait<0>();
-#pragma unroll
-    for (int c = 0; c < NS; ++c) reg_fence(o[c]);
-    mbar_arrive(empty + s_prev);  // the stage's K, V and mask are free
-  };
   int it = 0;
   for (int kt = next_live(0); kt < nkt; kt = next_live(kt + 1), ++it) {
     const int s = it % kFwdStages, j0 = kt * BK;
@@ -1042,7 +1004,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) sa[i] = 0.f;
     // a sub-tile is 8 KB, 512 in the descriptors' units
-    const uint64_t kd = sw128_desc(ks + s * kTile);
+    const uint64_t kd = sw128_desc(ks + s * kTile), vd = sw128_desc(vs + s * kTile);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NS; ++kk) {  // Q K^T
@@ -1050,12 +1012,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       wgmma_ss<0, 0>(sa, qd + step, kd + step, 1);
     }
     wg_commit();
-    if (s_prev >= 0) {
-      issue_pv();  // the previous tile's P V, behind Q K^T
-      wg_wait<1>();
-    } else {
-      wg_wait<0>();
-    }
+    wg_wait();
     reg_fence(sa);
 
     // p of entry (query 16 warp + g + 8 hr, key 8 n + 2 t4 + c) at sa[4 n + 2 hr + c],
@@ -1063,7 +1020,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     // max runs in log2 units, m = max_j s_ij scale log2(e)
     const bool test = test_entries(p, live_row[kt], qw, j0);
     const float* kmb = kms + s * BK;
-    float corr[2];
     auto form = [&](auto dropped) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -1082,7 +1038,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float m_new = fmaxf(m[hr], mx);
-        corr[hr] = fast_exp2(m[hr] - m_new);
+        const float corr = fast_exp2(m[hr] - m_new);
         float sum = 0.f;
 #pragma unroll
         for (int n = 0; n < 8; ++n)
@@ -1096,34 +1052,38 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           }
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l[hr] = l[hr] * corr[hr] + sum;
+        l[hr] = l[hr] * corr + sum;
         m[hr] = m_new;
+#pragma unroll
+        for (int c = 0; c < NS; ++c)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            o[c][4 * n + 2 * hr] *= corr;
+            o[c][4 * n + 2 * hr + 1] *= corr;
+          }
       }
     };
     if (drop.on)
       form(std::true_type());
     else
       form(std::false_type());
-    if (s_prev >= 0) land_pv();
-#pragma unroll
-    for (int c = 0; c < NS; ++c)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) o[c][4 * n + x] *= corr[x >> 1];
     // the dropped probs rounded to bf16: the A fragments of P (k step kk:
-    // keys 16 kk ..) for O += P V with V MN-major
+    // keys 16 kk ..), then O += P V with V MN-major
+    uint32_t pf[16];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
-    s_prev = s;
-    vd_prev = sw128_desc(vs + s * kTile);
-  }
-  if (s_prev >= 0) {
     wg_fence();
-    issue_pv();
-    land_pv();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NS; ++c) wgmma_rs(o[c], pf + 4 * kk, vd + 512 * c + 128 * kk);
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < NS; ++c) reg_fence(o[c]);
+    mbar_arrive(empty + s);  // the stage's K, V and mask are free
   }
 
   float inv[2];
@@ -1174,11 +1134,11 @@ cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
     }
   }
   if (which == kFwd) {
-    if constexpr (std::is_same<T, bf16>::value && DH < 64)
-      return cudaErrorInvalidValue;  // bf16 heads narrower than 64 come padded
+    if constexpr (std::is_same<T, float>::value)
+      return go(flash_fwd_kernel<DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma, bytes, s,
+                p);
     else
-      return go(flash_fwd_kernel<T, DH>, p.B * p.H * ((p.Tq + BQ - 1) / BQ), kThreadsMma,
-                bytes, s, p);
+      return cudaErrorInvalidValue;  // bf16 heads narrower than 64 come padded
   }
   if constexpr (std::is_same<T, bf16>::value && DH == 64) {
     TcMaps maps;

@@ -122,11 +122,8 @@ __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.alig
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-// Waits until at most N of the warpgroup's committed wgmma groups are
-// pending (they complete in order).
-template <int N = 0>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving accesses of d across a wgmma wait.
