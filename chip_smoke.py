@@ -445,7 +445,8 @@ def sasrec_lc_padded_rows(n=SASREC_LC_CATALOG["n"]) -> torch.Tensor:
     (label 0 in the flattened labels the train step scores), left-padded
     histories of the lengths synthetic data draws."""
     cfg = preset("SASREC-LC")
-    check(n == cfg.batch_size * cfg.seqslen, f"{n} rows: not a SASREC-LC batch")
+    check(n == cfg.batch_size * cfg.seqslen,
+          f"{n} rows: not a SASREC-LC batch")
     split = synthetic_split_vectorized(num_rows=cfg.batch_size,
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=16)

@@ -406,7 +406,8 @@ constexpr int kTcTileElems = kTcSub * kTcSubElems;  // a (64 x 512) tile, 64 KB
 constexpr int kTcProducerRegs = 24, kTcConsumerRegs = 240;
 // R, the stages' S tiles, two g tiles, the stages' column stats (4 x 64
 // words), the mbarriers, and slack to align the tiles to 1024 bytes.
-constexpr size_t kTcSmem = 1024 + sizeof(bf16) * ((1 + kTcStages) * kTcTileElems + 2 * kTcSubElems) +
+constexpr size_t kTcSmem = 1024 +
+                           sizeof(bf16) * ((1 + kTcStages) * kTcTileElems + 2 * kTcSubElems) +
                            sizeof(float) * kTcStages * 4 * 64 + 8 * (1 + 2 * kTcStages);
 
 struct TcMaps {
@@ -476,7 +477,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const CUtensorMap* smap = kTable ? &maps.hidden : &maps.table;
     if (lane == 0) {
       mbar_arrive_tx(r_full, kTcTileElems * sizeof(bf16));
-      for (int kc = 0; kc < kTcSub; ++kc) tma_2d(rs + kc * kTcSubElems, rmap, r_full, 64 * kc, 64 * rt);
+      for (int kc = 0; kc < kTcSub; ++kc)
+        tma_2d(rs + kc * kTcSubElems, rmap, r_full, 64 * kc, 64 * rt);
     }
     for (int it = 0; it < ntiles; ++it) {
       const int s = it % kTcStages, r0 = 64 * stile(it);

@@ -1073,7 +1073,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
+      for (int e = 0; e < 4; ++e)
+        pf[4 * kk + e] = pack_bf16(sa[8 * kk + 2 * e], sa[8 * kk + 2 * e + 1]);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)

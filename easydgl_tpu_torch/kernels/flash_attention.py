@@ -14,8 +14,11 @@ Two kernels on the card (``csrc/flash_attention.cu``):
 
 * ``flash_attention_fwd`` (TPU ``_fwd_kernel``): out and lse;
 * ``flash_attention_bwd`` (TPU ``_dq_kernel`` and ``_dkv_kernel``): dQ, dK
-  and dV in one key-major pass that visits only the key tiles the key mask
-  leaves live (``flash_live_tiles``).
+  and dV in one key-major pass.
+
+Both visit only the key tiles the key mask leaves live
+(``flash_live_tiles``), the same (query tile, key tile) pairs
+(``flash_visited_tiles``).
 
 Each wrapper dispatches on where its tensors lie: CPU tensors take the plain
 version (``flash_fwd_reference``, ``flash_bwd_reference``, which is

@@ -242,13 +242,14 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
             n, v, torch.cuda.get_device_properties(dev).multi_processor_count)
     else:
         splits_h, splits_t = _splits(n, v), 1
-    # the outputs the kernels add into, and those dead row tiles leave
-    # untouched, come zeroed
-    zeros = functools.partial(torch.zeros, device=dev)
-    dh_acc = zeros((n, c), dtype=torch.float32)
-    dt_acc = zeros((v, c), dtype=torch.float32) if splits_t > 1 else None
-    dt = (zeros if tc else torch.empty)((v, c), dtype=cdt, device=dev)
-    db = (zeros if tc else torch.empty)(v, dtype=torch.float32, device=dev)
+    # dead row tiles leave d_hidden as zeroed here; the wgmma kernel adds
+    # into all its outputs (dt_acc when d_table's rows are split)
+    new = torch.zeros if tc else torch.empty
+    dh_acc = torch.zeros((n, c), dtype=torch.float32, device=dev)
+    dt_acc = (torch.zeros((v, c), dtype=torch.float32, device=dev)
+              if splits_t > 1 else None)
+    dt = new((v, c), dtype=cdt, device=dev)
+    db = new(v, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.catalog_nll_bwd(
             h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),

@@ -2,17 +2,17 @@
 vs the JAX package, on the CPU.
 
 The plain forward (out and lse), the forward wrapper's CPU branch and the
-plain backward pieces (dq, dk/dv) against JAX ``flash_attention_reference`` and against JAX ``flash_attention``
-in interpret mode (``block_q=16, block_k=128``, as the JAX package's own
-tests run it) and ``jax.vjp`` of it: causal and not, lengths that are not
+plain backward pieces (dq, dk/dv) against JAX ``flash_attention_reference``
+and against JAX ``flash_attention`` in interpret mode (``block_q=16,
+block_k=128``, as the JAX package's own tests run it) and ``jax.vjp`` of it: causal and not, lengths that are not
 multiples of a tile, Tq != Tk, left-padded rows and a fully masked row, dh 8
 and 64, fp32 to 1e-5. Then ``_FlashAttention``'s backward with dropout
 against autograd of the plain forward; the dropout mask read back from the
 forward, dq and dk/dv (keep fraction, rescale, one mask); the backward
 wrapper ``flash_attention_bwd`` on CPU tensors against ``jax.vjp``;
 property tests of the backward's and the forward's tile schedules
-(``flash_live_tiles``, ``flash_visited_tiles``); and the CPU dispatch (plain versions, counters
-untouched). Inputs come from numpy seeds.
+(``flash_live_tiles``, ``flash_visited_tiles``); and the CPU dispatch
+(plain versions, counters untouched). Inputs come from numpy seeds.
 """
 import jax
 import jax.numpy as jnp
