@@ -51,25 +51,25 @@
 //   log2(e); the forward keeps its running max in log2 units.
 //
 // Forward, bf16 (flash_fwd_tc_kernel, the FlashAttention-3 forward): a
-// block takes 128 queries of one (b, h), heaviest first under causal, with
-// two consumer warpgroups of 64 queries and a producer warp (its warpgroup
-// hands its registers to the consumers by setmaxnreg). The producer copies
-// the two Q tiles once, then the live key tiles' K and V by TMA (128-byte
-// swizzle) into a three-stage ring and their key mask by plain loads, each
-// stage under a full and an empty mbarrier; both warpgroups consume every
-// stage. S = Q K^T is wgmma m64n64k16 with both operands in shared memory;
-// the running max, sum and the (64 x 64) output accumulate in registers;
-// the dropped probs, rounded to bf16, are fed back from the accumulator
-// registers as the A operand of O += P V (V MN-major). dh = 64 or 128 (a
-// tile is one or two 64-column sub-tiles); the wrapper zero-pads narrower
-// heads.
+// block takes 192 queries of one (b, h) at dh = 64 (128 at dh = 128),
+// heaviest first under causal, with three (two) consumer warpgroups of 64
+// queries and a producer warp (its warpgroup hands its registers to the
+// consumers by setmaxnreg). The producer copies the Q tiles once, then the
+// live key tiles' K and V by TMA (128-byte swizzle) into a three-stage ring
+// and their key mask by plain loads, each stage under a full and an empty
+// mbarrier; every warpgroup consumes every stage. S = Q K^T is wgmma
+// m64n64k16 with both operands in shared memory; the running max, sum and
+// the (64 x dh) output accumulate in registers; the dropped probs, rounded
+// to bf16, are fed back from the accumulator registers as the A operand of
+// O += P V (V MN-major). A (64 x dh) tile is one or two 64-column
+// sub-tiles; the wrapper zero-pads narrower heads.
 //
 // Forward, fp32 (flash_fwd_kernel): one block of four warps takes 64
 // queries and walks the same key tiles on the CUDA cores (no TF32); each
 // warp owns 16 rows, a key tile is taken in two 32-wide halves, and tiles
 // stream through shared memory by cp.async one tile ahead. (Its bf16 form
-// on mma.sync measured within 2% of the wgmma kernel at dh = 64 and ~20%
-// slower at dh = 128, and is gone.)
+// on mma.sync measured slower than the wgmma kernel at dh = 64 and 128,
+// and is gone.)
 //
 // What bounds the forward, at the SASREC-LC shape (B=32, H=8, T=2048, dh=64,
 // causal, left-padded keys): bytes. q, k, v in and out are 67 MB each in
@@ -197,10 +197,15 @@ constexpr size_t kTcSmem = 1024 + sizeof(bf16) * (3 * kTcGroups + 2 * kTcStages)
 // The bf16 forward (flash_fwd_tc_kernel<DH>): a warpgroup's (64 x DH) Q
 // tile, a K and a V tile and 64 key-mask floats a stage, the mbarriers, and
 // slack; each (64 x DH) tile is DH / 64 swizzled (64 x 64) sub-tiles.
-constexpr int kFwdStages = 3;                        // K/V stages
-constexpr int kFwdQueries = 64 * kTcGroups;          // queries a block
+// Consumer warpgroups of 64 queries a block: three at dh = 64 (more warps
+// to interleave, 160 registers a consumer thread: 24 + 3 x 160 of a
+// warpgroup thread fit the 65,536 of an SM), two at dh = 128, whose (64 x
+// 128) output accumulator would spill at 160.
+constexpr int kFwdStages = 3;  // K/V stages
+__host__ __device__ constexpr int fwd_groups(int dh) { return dh == 64 ? 3 : 2; }
+__host__ __device__ constexpr int fwd_threads(int dh) { return 128 * (fwd_groups(dh) + 1); }
 __host__ __device__ constexpr size_t fwd_tc_smem(int dh) {
-  return 1024 + sizeof(bf16) * (kTcGroups + 2 * kFwdStages) * (dh / 64) * kTcTile +
+  return 1024 + sizeof(bf16) * (fwd_groups(dh) + 2 * kFwdStages) * (dh / 64) * kTcTile +
          sizeof(float) * kFwdStages * BK + 8 * (1 + 2 * kFwdStages);
 }
 
@@ -909,14 +914,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // each, the first warp of warpgroup 2 produces. DH = 64 or 128.
 
 template <int DH>
-__global__ void __launch_bounds__(kTcThreads, 1)
+__global__ void __launch_bounds__(fwd_threads(DH), 1)
     flash_fwd_tc_kernel(const FlashParams p, const __grid_constant__ TcMaps maps) {
   constexpr int NS = DH / 64;  // 64-column sub-tiles of a (64 x DH) tile
   constexpr int kTile = NS * kTcTile;
+  constexpr int kFwdGroups = fwd_groups(DH), kFwdQueries = 64 * kFwdGroups;
+  constexpr int kConsumerRegs = kFwdGroups == 3 ? 160 : kTcConsumerRegs;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* qs = reinterpret_cast<bf16*>(base);  // [group][sub][64 queries][64], swizzled
-  bf16* ks = qs + kTcGroups * kTile;          // [stage][sub][64 keys][64]
+  bf16* ks = qs + kFwdGroups * kTile;         // [stage][sub][64 keys][64]
   bf16* vs = ks + kFwdStages * kTile;         // [stage][sub][64 keys][64]
   float* kms = reinterpret_cast<float*>(vs + kFwdStages * kTile);  // [stage][64] key mask
   uint64_t* q_full = reinterpret_cast<uint64_t*>(kms + kFwdStages * BK);
@@ -941,18 +948,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     mbar_init(q_full, 1);
     for (int s = 0; s < kFwdStages; ++s) {
       mbar_init(full + s, 32);
-      mbar_init(empty + s, 128 * kTcGroups);
+      mbar_init(empty + s, 128 * kFwdGroups);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp >= 4 * kTcGroups) {  // ---- producer: its first warp works
+  if (warp >= 4 * kFwdGroups) {  // ---- producer: its first warp works
     regs_dec<kTcProducerRegs>();
-    if (warp > 4 * kTcGroups) return;
+    if (warp > 4 * kFwdGroups) return;
     if (lane == 0) {
-      mbar_arrive_tx(q_full, kTcGroups * kTile * sizeof(bf16));
-      for (int w = 0; w < kTcGroups; ++w)
+      mbar_arrive_tx(q_full, kFwdGroups * kTile * sizeof(bf16));
+      for (int w = 0; w < kFwdGroups; ++w)
         for (int c = 0; c < NS; ++c)
           tma_rows(qs + w * kTile + c * kTcTile, &maps.q, q_full, q0 + 64 * w, h, b, 64 * c);
     }
@@ -978,7 +985,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // ---- consumers: warpgroup wg owns queries qw = q0 + 64 wg ..; thread
   // (warp, g, t4) holds queries qw + 16 warp + g (+8) and, of a key tile,
   // keys 8 n + 2 t4 (+1)
-  regs_inc<kTcConsumerRegs>();
+  regs_inc<kConsumerRegs>();
   const int wg = warp >> 2, qw = q0 + 64 * wg;
   warp &= 3;
   const int g = lane >> 2, t4 = lane & 3;
@@ -1130,8 +1137,9 @@ cudaError_t launch_one(int which, const FlashParams& p, cudaStream_t s) {
       if (!seq_map(&maps.q, p.q, p.Tq, p.H, p.B, DH) ||
           !seq_map(&maps.k, p.k, p.Tk, p.H, p.B, DH) || !seq_map(&maps.v, p.v, p.Tk, p.H, p.B, DH))
         return cudaErrorInvalidValue;
-      return go(flash_fwd_tc_kernel<DH>, p.B * p.H * ((p.Tq + kFwdQueries - 1) / kFwdQueries),
-                kTcThreads, bytes, s, p, maps);
+      constexpr int queries = 64 * fwd_groups(DH);
+      return go(flash_fwd_tc_kernel<DH>, p.B * p.H * ((p.Tq + queries - 1) / queries),
+                fwd_threads(DH), bytes, s, p, maps);
     }
   }
   if (which == kFwd) {
