@@ -511,7 +511,7 @@ CATALOG_CASES = (
     # the same with a SASREC-LC batch's padded rows (CATALOG_DEAD)
     ("sasrec_lc_bf16_padded", SASREC_LC_CATALOG, torch.bfloat16, True, 77),
     # dead and live rows mixed within and across 64-row tiles, on the
-    # wgmma kernel (bf16, C = 512), mma.sync (bf16, C = 64) and CUDA cores
+    # wgmma kernel (bf16, C = 512) and the CUDA cores (bf16 at C = 64, fp32)
     ("alternating_bf16", dict(n=333, v=1001, c=512), torch.bfloat16, True,
      78),
     ("alternating_bf16_c64", dict(n=333, v=1001, c=64), torch.bfloat16,
@@ -1267,11 +1267,16 @@ def mau_bwd_work(*, b, tq, tk, h, dh, e, dtype, keys):
     return nbytes, flops
 
 
-def catalog_work(*, n, v, c, dtype, backward):
+def catalog_work(*, n, v, c, dtype, backward, live=None):
+    """(bytes, flops). The backward's work is over the ``live`` rows (dlse
+    or dll nonzero; all n by default): it reads their hidden rows and forms
+    their score, dh and dT products; g is exactly 0 on the other rows, whose
+    dh it writes as zeros."""
     it = torch.tensor([], dtype=dtype).element_size()
     if backward:   # h, T, b, labels, lse, dlse, dll in; dh, dT, db out
-        return (2 * it * (n * c + v * c) + 8 * v + 16 * n,
-                3 * 2 * n * v * c)
+        live = n if live is None else live
+        return (it * (live * c + n * c + 2 * v * c) + 8 * v + 16 * n,
+                3 * 2 * live * v * c)
     return it * (n * c + v * c) + 4 * v + 12 * n, 2 * n * v * c
 
 
@@ -1346,24 +1351,27 @@ def phase_catalog_lc_timing():
         h, tb, b, lab, dlse, dll = catalog_inputs(
             **SASREC_LC_CATALOG, dtype=torch.bfloat16, seed=310, dead=dead)
         lse, _ = catalog_nll_fwd(h, tb, b, lab)
-        live = catalog_live_rows(dlse, dll)
-        live_rows = int((live > 0).sum()) * 64
-        share = live_rows / SASREC_LC_CATALOG["n"]
+        n, v, c = (SASREC_LC_CATALOG[k] for k in "nvc")
+        live_rows = int(((dlse != 0) | (dll != 0)).sum())
+        tile_rows = int(catalog_live_rows(dlse, dll).sum()) * 64
         ms = time_ms(lambda: catalog_nll_bwd(h, tb, b, lab, lse, dlse, dll),
                      warmup=2, iters=10)
         plain_ms = time_ms(lambda: catalog_nll_bwd_reference(
             h, tb, b, lab, lse, dlse, dll), warmup=1, iters=1)
-        nbytes, flops = catalog_work(**dict(SASREC_LC_CATALOG, n=live_rows),
+        nbytes, flops = catalog_work(**SASREC_LC_CATALOG, live=live_rows,
                                      dtype=torch.bfloat16, backward=True)
         bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
         log(f"  catalog_nll_bwd {label:16s} kernel {ms:.4f} ms  plain"
             f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
             f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP over the"
-            f" {live_rows} rows of the live 64-row tiles, {share:.4f} of N)"
+            f" {live_rows} live rows, {live_rows / n:.4f} of N; the live"
+            f" 64-row tiles the kernels visit hold {tile_rows / n:.4f} of N)"
             f"  kernel/bound {ms / bound_ms:.1f}x,"
-            f" {flops * 4 / 3 / ms / 1e9:.1f} TFLOP/s of four products")
+            f" {4 * 2 * tile_rows * v * c / ms / 1e9:.1f} TFLOP/s of"
+            f" the four products over the live tiles")
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, live_share=share)
+                           bound_by=bound_by, live_share=live_rows / n,
+                           live_tile_share=tile_rows / n)
         del h, tb, b, lab, dlse, dll, lse
     return rows
 

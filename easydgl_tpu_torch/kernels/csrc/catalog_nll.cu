@@ -42,21 +42,30 @@
 // (mode 2) split across blocks so that the grid fills the card in whole
 // waves, the splits adding into zeroed fp32 buffers by atomics.
 //
-// Other dtypes and widths (catalog_kernel, modes 1 and 2, and the forward,
-// mode 0): a block keeps 32 resident rows in shared memory and streams
-// 64-row tiles past them, recomputing each 32 x 64 score tile; in bf16 with
-// C % 64 == 0 on mma.sync (m16n8k16, fp32 accumulate) from ldmatrix
-// fragments, otherwise on the CUDA cores (fp32 FMA, no TF32). The forward's
-// online max and sum per row are merged over vocab splits by catalog_merge.
+// Other dtypes and widths (catalog_kernel): a block keeps 32 resident rows
+// in shared memory and streams 64-row tiles past them, recomputing each
+// 32 x 64 score tile. The forward (mode 0) in bf16 with C % 64 == 0 forms it
+// on mma.sync (m16n8k16, fp32 accumulate) from ldmatrix fragments; the
+// backward's passes (modes 1 and 2) in fp32, and in bf16 at C != 512 (no
+// configuration of the repo), and the forward otherwise run on the CUDA
+// cores (fp32 FMA, no TF32). The forward's online max and sum per row are
+// merged over vocab splits by catalog_merge.
+//
+// The entry owns the choice of kernel and of the splits: the caller passes
+// zeroed fp32 accumulators for d_hidden, d_table and d_bias whatever runs.
 //
 // What bounds the backward: the products, 2 N V C FLOP each, three that the
 // function needs (the score tile, dh, dT; the kernels compute the score tile
-// twice), over the rows of live tiles: 3.58 TFLOP at N = 65,536, 3.6 ms at
-// 989 TFLOP/s in bf16. The wgmma kernel's scores use m64n32 products whose
+// twice), over the live rows (dlse or dll nonzero): 3.58 TFLOP with all
+// 65,536 rows of a SASREC-LC batch live, 3.6 ms at 989 TFLOP/s in bf16. The
+// kernels work on whole 64-row tiles, so they also compute the dead rows of
+// a tile that holds a live one. The wgmma kernel's scores use m64n32 products whose
 // operands both come from shared memory, and each step forms g on the CUDA
 // cores between its two products.
 //
 // Limits: C % 4 == 0 and C <= 512 (the two operand tiles share 227 KB).
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -86,23 +95,20 @@ struct Params {
   float* part_m;        // (S, N) forward
   float* part_l;
   float* part_ll;
-  float* dh_acc;        // (N, C) fp32
-  float* dt_acc;        // (V, C) fp32, d_table split over the rows (bf16 wgmma kernel)
-  void* dtable;         // (V, C), compute dtype
-  float* dbias;         // (V,)
+  float* dh_acc;        // (N, C) fp32 d_hidden, zeroed by the caller
+  float* dt_acc;        // (V, C) fp32 d_table, zeroed by the caller
+  float* dbias;         // (V,) fp32, zeroed by the caller
   int N, V, C, splits, tiles_per_split;
 };
 
 __host__ __device__ inline int cstride(int C) { return C + 4; }
-// bf16 tiles (tensor-core path): rows of C + 8 halves keep 16-byte row
-// alignment and put the 8 rows an mma fragment reads in distinct banks
+// bf16 tiles (the forward's mma.sync path): rows of C + 8 halves keep
+// 16-byte row alignment and put the 8 rows an mma fragment reads in
+// distinct banks
 __host__ __device__ inline int bstride(int C) { return C + 8; }
-constexpr int kGB = kB + 8;  // row stride of the bf16 copy of g
 
 __host__ __device__ inline size_t smem_bytes(int C, bool mma) {
-  if (mma)
-    return 2 * ((size_t)(kA + kB) * bstride(C) + (size_t)kA * kGB) +
-           sizeof(float) * (size_t)kA * (kB + 1);
+  if (mma) return 2 * (size_t)(kA + kB) * bstride(C) + sizeof(float) * (size_t)kA * (kB + 1);
   return sizeof(float) * ((size_t)(kA + kB) * cstride(C) + (size_t)kA * (kB + 1));
 }
 
@@ -131,13 +137,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
   }
 }
 
-// MMA (bf16, C % 64 == 0): both products on the tensor cores, operands as
-// bf16 tiles in shared memory. The score tile: warp w computes rows
-// 16 (w & 1) .. +15 by columns 16 (w >> 1) .. +15 over K = C. The
-// accumulation: warp w owns channels [w C/8, (w+1) C/8) of all 32 rows, A
-// from the bf16 copy of g, B from pairs of streamed rows.
+// MMA (the forward in bf16, C % 64 == 0): the score tile on the tensor
+// cores from bf16 tiles in shared memory, warp w computing rows
+// 16 (w & 1) .. +15 by columns 16 (w >> 1) .. +15 over K = C.
 template <typename T, int MODE, bool MMA>
 __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
+  static_assert(!MMA || MODE == kFwd, "mma.sync serves the forward only");
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) float smem[];
   const int C = p.C, ld = MMA ? bstride(C) : cstride(C);
@@ -145,8 +150,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   float* bs = as + kA * ld;        // kB x ld
   bf16* ah = reinterpret_cast<bf16*>(smem);  // kA x ld halves (tensor cores)
   bf16* bh = ah + kA * ld;                   // kB x ld
-  bf16* gh = bh + kB * ld;                   // kA x kGB: g in bf16
-  float* gs = MMA ? reinterpret_cast<float*>(gh + kA * kGB) : bs + kB * ld;  // kA x (kB+1)
+  float* gs = MMA ? reinterpret_cast<float*>(bh + kB * ld) : bs + kB * ld;  // kA x (kB+1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   const int a0 = blockIdx.x * kA;
@@ -178,7 +182,6 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   const bool arow_ok = arow < a_total;
   // accumulate pass: rows acc_a0 .. +7, channel quads cq + 256 j
   const int acc_a0 = (tid / 64) * 8, cq = (tid % 64) * 4;
-  // CUDA cores: acc[row i][quad j][x]; tensor cores: acc[nt][mt][frag]
   float acc[8][2][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -186,19 +189,14 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
-  const int cw = C / 8;             // channels per warp (tensor cores)
   const int mt_s = warp & 1, ng_s = warp >> 1;
-  // ldmatrix row addresses of this lane. A operands (rows x K, row-major):
-  // lanes 0-15 give rows 0-15 at k, lanes 16-31 the same rows at k + 8.
-  // The score tile's B (streamed rows x K): matrix m = lane / 8 holds rows
-  // 8 (m / 2) .. +7 at k + 8 (m % 2). The accumulation's B (streamed rows x
-  // channels, read transposed): matrix m holds rows k + 8 (m % 2) .. +7 at
-  // channels 8 (m / 2) .. +7 of the warp's pair of channel tiles.
+  // ldmatrix row addresses of this lane. A (rows x K, row-major): lanes
+  // 0-15 give rows 0-15 at k, lanes 16-31 the same rows at k + 8. B
+  // (streamed rows x K): matrix m = lane / 8 holds rows 8 (m / 2) .. +7 at
+  // k + 8 (m % 2).
   const int lm = lane >> 3, lj = lane & 7;
   const bf16* a_ldm = ah + (16 * mt_s + (lane & 15)) * ld + (lane >> 4) * 8;
   const bf16* b_ldm = bh + (16 * ng_s + (lm >> 1) * 8 + lj) * ld + (lm & 1) * 8;
-  const bf16* g_ldm = gh + (lane & 15) * kGB + (lane >> 4) * 8;
-  const bf16* bt_ldm = bh + ((lm & 1) * 8 + lj) * ld + warp * cw + (lm >> 1) * 8;
   float run_m = -INFINITY, run_l = 0.f, run_ll = 0.f, run_db = 0.f;
   int a_label = -1;
   float a_lse = 0.f, a_dlse = 0.f, a_dll = 0.f;
@@ -235,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = 16 * mt_s + g8 + 8 * (i >> 1), cc = 16 * ng_s + 8 * nt + 2 * t4 + (i & 1);
-          const int v = resident_vocab ? a0 + r : b0 + cc;
+          const int v = b0 + cc;
           gs[r * (kB + 1) + cc] = c[nt][i] + (v < p.V ? p.bias[v] : 0.f);
         }
     } else {
@@ -285,31 +283,8 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
           }
         }
         grow[c] = rnd<T>(g);
-        if constexpr (MMA) gh[ra * kGB + c] = __float2bfloat16(g);
       }
       __syncthreads();
-      if constexpr (MMA) {
-        // acc[nt][mt] (rows 16 mt + g8 (+8), channels warp*cw + 8 nt + 2 t4 (+1))
-        // += g (32 x 64) @ B tile (64 x C)
-        for (int k0 = 0; k0 < kB; k0 += 16) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(a[mt], g_ldm + 16 * mt * kGB + k0);
-#pragma unroll
-          for (int nt = 0; nt < 8; nt += 2) {
-            if (nt * 8 < cw) {  // a pair of channel tiles (the second may be unused)
-              uint32_t b[4];
-              ldmatrix_x4_trans(b, bt_ldm + k0 * ld + nt * 8);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16(acc[nt][mt], a[mt], b[0], b[1]);
-                mma_bf16(acc[nt + 1][mt], a[mt], b[2], b[3]);
-              }
-            }
-          }
-        }
-        continue;
-      }
       for (int bb = 0; bb < nb; ++bb) {
         float gv[8];
 #pragma unroll
@@ -346,26 +321,6 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     for (int o = 4; o > 0; o >>= 1) run_db += __shfl_xor_sync(0xffffffffu, run_db, o);
     if (rpart == 0 && arow_ok) p.dbias[arow] = run_db;
   }
-  if constexpr (MMA) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = a0 + 16 * mt + g8 + 8 * (i >> 1);
-          const int c = warp * cw + 8 * nt + 2 * t4 + (i & 1);
-          if (nt * 8 >= cw || row >= a_total) continue;
-          const size_t off = (size_t)row * C + c;
-          if (MODE == kDHidden) {
-            if (p.splits > 1) atomicAdd(p.dh_acc + off, acc[nt][mt][i]);
-            else p.dh_acc[off] = acc[nt][mt][i];
-          } else {
-            static_cast<T*>(p.dtable)[off] = from_f<T>(acc[nt][mt][i]);
-          }
-        }
-    return;
-  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = a0 + acc_a0 + i;
@@ -377,12 +332,8 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const size_t off = (size_t)row * C + c + x;
-        if (MODE == kDHidden) {
-          if (p.splits > 1) atomicAdd(p.dh_acc + off, acc[i][j][x]);
-          else p.dh_acc[off] = acc[i][j][x];
-        } else {
-          static_cast<T*>(p.dtable)[off] = from_f<T>(acc[i][j][x]);
-        }
+        if (MODE == kDHidden && p.splits > 1) atomicAdd(p.dh_acc + off, acc[i][j][x]);
+        else (MODE == kDHidden ? p.dh_acc : p.dt_acc)[off] = acc[i][j][x];
       }
     }
   }
@@ -622,15 +573,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int n = 0; n < 8; ++n) {
         const size_t off = (size_t)row * kTcC + 256 * wg + 64 * j + 8 * n + 2 * t4;
         const float a = acc[j][4 * n + 2 * hr], b = acc[j][4 * n + 2 * hr + 1];
-        float* acc32 = kTable ? p.dt_acc : p.dh_acc;
-        if (p.splits > 1) {
-          atomicAdd(reinterpret_cast<float2*>(acc32 + off), make_float2(a, b));
-        } else if (kTable) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dtable) + off) =
-              __floats2bfloat162_rn(a, b);
-        } else {
-          *reinterpret_cast<float2*>(acc32 + off) = make_float2(a, b);
-        }
+        float2* acc32 = reinterpret_cast<float2*>((kTable ? p.dt_acc : p.dh_acc) + off);
+        if (p.splits > 1) atomicAdd(acc32, make_float2(a, b));
+        else *acc32 = make_float2(a, b);
       }
   }
 }
@@ -663,12 +608,15 @@ cudaError_t launch_variant(const Params& p, dim3 grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 with C % 64 == 0 takes the tensor cores, everything else CUDA cores.
+// The forward in bf16 with C % 64 == 0 takes the tensor cores, everything
+// else the CUDA cores.
 template <int MODE>
 cudaError_t launch_mode(const Params& p, int dtype, dim3 grid, cudaStream_t stream) {
   if (dtype == 0) return launch_variant<float, MODE, false>(p, grid, stream);
-  if (p.C % 64 == 0) return launch_variant<__nv_bfloat16, MODE, true>(p, grid, stream);
-  return launch_variant<__nv_bfloat16, MODE, false>(p, grid, stream);
+  if constexpr (MODE == kFwd) {
+    if (p.C % 64 == 0) return launch_variant<bf16, MODE, true>(p, grid, stream);
+  }
+  return launch_variant<bf16, MODE, false>(p, grid, stream);
 }
 
 // The (rows, C) bf16 matrix at ptr as a TMA map: boxes of 64 rows x 64.
@@ -704,6 +652,33 @@ Params base(const void* hidden, const void* table, const void* bias, const void*
   return p;
 }
 
+// Vocab splits of catalog_kernel's row-tiled passes (the forward, and the
+// backward's d_hidden off the wgmma kernel): about 264 blocks, two an SM of
+// an H100, so that N = 3,072 rows (96 tiles of 32) still fill the card.
+int row_splits(int N, int V) {
+  const int row_tiles = (N + kA - 1) / kA;
+  return std::max(1, std::min((V + kB - 1) / kB, (264 + row_tiles - 1) / row_tiles));
+}
+
+// Splits for the wgmma kernel, one block an SM: the number of parts s that
+// the `streamed` tiles of each of `blocks` resident tiles are cut into,
+// minimising waves x (tiles a block streams + 1, + 1 more for the atomic
+// epilogue of a split). Dead row tiles are counted as live: d_table divides
+// the live tiles of a call evenly among its splits on the device.
+int tc_splits(int blocks, int streamed, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= streamed; ++s) {
+    const long long cost =
+        ((long long)blocks * s + sms - 1) / sms * ((streamed + s - 1) / s + 1 + (s > 1));
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
 }  // namespace
 
 extern "C" {
@@ -733,23 +708,23 @@ int catalog_nll_fwd(const void* hidden, const void* table, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// Whether the backward runs on the wgmma kernel (bf16, C = 512).
-int catalog_bwd_tensor_core(int C, int dtype) { return dtype == 1 && C == kTcC; }
+// Vocab splits of the forward: part holds 3 * splits * N floats.
+int catalog_splits(int N, int V) { return row_splits(N, V); }
 
-// Backward: dh_acc (N, C) fp32, zeroed by the caller; dtable (V, C) in the
-// compute dtype, dbias (V,) fp32. live (ceil(N / 64),) codes each 64-row
+// Backward into fp32 accumulators that the caller zeroes and casts: dh_acc
+// (N, C), dt_acc (V, C), dbias (V,). live (ceil(N / 64),) codes each 64-row
 // tile (0: every row has dlse = dll = 0); order is the number of live tiles,
-// then their indices. d_hidden splits the vocab in splits_h, d_table the
-// live row tiles in splits_t (the wgmma kernel only; then dt_acc (V, C) fp32
-// and dbias come zeroed and the caller casts dt_acc into dtable; with
-// splits_t = 1 dtable and dbias come zeroed).
+// then their indices. bf16 at C = 512 runs the wgmma kernel, everything
+// else catalog_kernel. splits_h and splits_t (the vocab splits of d_hidden,
+// the row-tile splits of d_table; 0: chosen here for the card) set how the
+// passes divide their work; only the wgmma kernel splits d_table.
 int catalog_nll_bwd(const void* hidden, const void* table, const void* bias,
                     const void* labels, const void* lse, const void* dlse,
                     const void* dll, const void* live, const void* order, void* dh_acc,
-                    void* dt_acc, void* dtable, void* dbias, int N, int V, int C, int splits_h,
+                    void* dt_acc, void* dbias, int N, int V, int C, int splits_h,
                     int splits_t, int dtype, void* stream) {
-  const int splits = splits_h;
-  if (!valid_shape(N, V, C, dtype) || splits < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(N, V, C, dtype) || splits_h < 0 || splits_t < 0)
+    return (int)cudaErrorInvalidValue;
   Params p = base(hidden, table, bias, labels, N, V, C);
   p.lse = static_cast<const float*>(lse);
   p.dlse = static_cast<const float*>(dlse);
@@ -758,28 +733,32 @@ int catalog_nll_bwd(const void* hidden, const void* table, const void* bias,
   p.order = static_cast<const int*>(order);
   p.dh_acc = static_cast<float*>(dh_acc);
   p.dt_acc = static_cast<float*>(dt_acc);
-  p.dtable = dtable;
   p.dbias = static_cast<float*>(dbias);
-  const int tiles = (V + kB - 1) / kB;
-  p.splits = splits;
-  p.tiles_per_split = (tiles + splits - 1) / splits;
+  const int vocab_tiles = (V + kB - 1) / kB;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (catalog_bwd_tensor_core(C, dtype)) {
+  if (dtype == 1 && C == kTcC) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int row_tiles = (N + 63) / 64;
+    p.splits = splits_h ? splits_h : tc_splits(row_tiles, vocab_tiles, sms);
+    p.tiles_per_split = (vocab_tiles + p.splits - 1) / p.splits;
     TcMaps maps;
-    if (splits_t < 1 || !matrix_map(&maps.hidden, hidden, N, C) ||
-        !matrix_map(&maps.table, table, V, C))
+    if (!matrix_map(&maps.hidden, hidden, N, C) || !matrix_map(&maps.table, table, V, C))
       return (int)cudaErrorInvalidValue;
-    cudaError_t e = launch_tc<kDHidden>(p, maps, dim3((N + 63) / 64, splits), s);
+    e = launch_tc<kDHidden>(p, maps, dim3(row_tiles, p.splits), s);
     if (e != cudaSuccess) return (int)e;
     Params pt = p;
-    pt.splits = splits_t;
-    return (int)launch_tc<kDTable>(pt, maps, dim3((V + 63) / 64, splits_t), s);
+    pt.splits = splits_t ? splits_t : tc_splits(vocab_tiles, row_tiles, sms);
+    return (int)launch_tc<kDTable>(pt, maps, dim3(vocab_tiles, pt.splits), s);
   }
-  const dim3 grid_h((N + kA - 1) / kA, splits), grid_t((V + kA - 1) / kA, 1);
-  cudaError_t e = launch_mode<kDHidden>(p, dtype, grid_h, s);
+  if (splits_t > 1) return (int)cudaErrorInvalidValue;
+  p.splits = splits_h ? splits_h : row_splits(N, V);
+  p.tiles_per_split = (vocab_tiles + p.splits - 1) / p.splits;
+  cudaError_t e = launch_mode<kDHidden>(p, dtype, dim3((N + kA - 1) / kA, p.splits), s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_mode<kDTable>(p, dtype, grid_t, s);
-  return (int)e;
+  return (int)launch_mode<kDTable>(p, dtype, dim3((V + kA - 1) / kA, 1), s);
 }
 
 const char* catalog_cuda_error_string(int code) {

@@ -32,7 +32,6 @@ part: the kernels mask their ragged edge rather than pad.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -42,9 +41,7 @@ from easydgl_tpu_torch.kernels.mau_attention import _on_card, _raise_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_MAX_C = 512
-_ROWS_PER_BLOCK = 32       # resident rows of one block (catalog_kernel)
 ROW_TILE = 64              # the rows a code of catalog_live_rows covers
-_TARGET_BLOCKS = 264       # two blocks' worth per SM of an H100 (132 SMs)
 
 
 def catalog_nll_reference(hidden, table, bias, labels
@@ -147,10 +144,10 @@ def _lib() -> ctypes.CDLL:
     if lib.catalog_nll_fwd.argtypes is None:
         lib.catalog_nll_fwd.argtypes = [p] * 7 + [i32] * 5 + [p]
         lib.catalog_nll_fwd.restype = i32
-        lib.catalog_nll_bwd.argtypes = [p] * 13 + [i32] * 6 + [p]
+        lib.catalog_nll_bwd.argtypes = [p] * 12 + [i32] * 6 + [p]
         lib.catalog_nll_bwd.restype = i32
-        lib.catalog_bwd_tensor_core.argtypes = [i32, i32]
-        lib.catalog_bwd_tensor_core.restype = i32
+        lib.catalog_splits.argtypes = [i32, i32]
+        lib.catalog_splits.restype = i32
         lib.catalog_cuda_error_string.argtypes = [i32]
         lib.catalog_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -184,38 +181,14 @@ def _prep(hidden, table, bias, labels):
     return h, t, b, lab, n, v, c
 
 
-def _splits(n: int, v: int) -> int:
-    """Vocab splits of the row-tiled passes, so that N = 3072 rows (96 row
-    tiles) still fill the card."""
-    row_tiles = -(-n // _ROWS_PER_BLOCK)
-    return max(1, min(-(-v // 64), -(-_TARGET_BLOCKS // row_tiles)))
-
-
-@functools.lru_cache(maxsize=None)
-def _tc_splits(n: int, v: int, sms: int) -> Tuple[int, int]:
-    """(vocab splits of d_hidden, row-tile splits of d_table) for the wgmma
-    kernel, which runs one block an SM: each minimises waves x (tiles a
-    block streams + 1, + 1 more for the atomic epilogue of a split),
-    counting every row tile as live."""
-    row_tiles, vocab_tiles = -(-n // ROW_TILE), -(-v // ROW_TILE)
-
-    def cost(blocks, streamed, s):
-        return -(-blocks * s // sms) * (-(-streamed // s) + 1 + (s > 1))
-
-    def best(blocks, streamed):
-        return min(range(1, streamed + 1),
-                   key=lambda s: cost(blocks, streamed, s))
-    return best(row_tiles, vocab_tiles), best(vocab_tiles, row_tiles)
-
-
 def _launch_fwd(hidden, table, bias, labels):
     h, t, b, lab, n, v, c = _prep(hidden, table, bias, labels)
     dev = t.device
-    splits = _splits(n, v)
+    lib = _lib()
+    splits = lib.catalog_splits(n, v)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     ll = torch.empty(n, dtype=torch.float32, device=dev)
     part = torch.empty(3 * splits * n, dtype=torch.float32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.catalog_nll_fwd(
             h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
@@ -226,7 +199,11 @@ def _launch_fwd(hidden, table, bias, labels):
     return lse, ll
 
 
-def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
+def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll, splits=(0, 0)):
+    """The backward kernels into zeroed fp32 accumulators, cast on the way
+    out. The library picks the kernel and, where ``splits`` is (0, 0), how
+    its two passes divide the work (d_hidden's vocab splits, d_table's
+    row-tile splits)."""
     h, t, b, lab, n, v, c = _prep(hidden, table, bias, labels)
     dev, cdt = t.device, t.dtype
     f32 = lambda x: x.detach().to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
@@ -235,31 +212,17 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll):
         _check(tuple(x.shape) == (n,), f"{name} shape {tuple(x.shape)}")
     live = catalog_live_rows(dlse_, dll_)
     order = _live_order(live)
-    lib = _lib()
-    tc = bool(lib.catalog_bwd_tensor_core(c, _DTYPE_CODE[cdt]))
-    if tc:
-        splits_h, splits_t = _tc_splits(
-            n, v, torch.cuda.get_device_properties(dev).multi_processor_count)
-    else:
-        splits_h, splits_t = _splits(n, v), 1
-    # dead row tiles leave d_hidden as zeroed here; the wgmma kernel adds
-    # into all its outputs (dt_acc when d_table's rows are split)
-    new = torch.zeros if tc else torch.empty
     dh_acc = torch.zeros((n, c), dtype=torch.float32, device=dev)
-    dt_acc = (torch.zeros((v, c), dtype=torch.float32, device=dev)
-              if splits_t > 1 else None)
-    dt = new((v, c), dtype=cdt, device=dev)
-    db = new(v, dtype=torch.float32, device=dev)
+    dt_acc = torch.zeros((v, c), dtype=torch.float32, device=dev)
+    db = torch.zeros(v, dtype=torch.float32, device=dev)
+    lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.catalog_nll_bwd(
             h.data_ptr(), t.data_ptr(), b.data_ptr(), lab.data_ptr(),
             lse_.data_ptr(), dlse_.data_ptr(), dll_.data_ptr(),
             live.data_ptr(), order.data_ptr(), dh_acc.data_ptr(),
-            None if dt_acc is None else dt_acc.data_ptr(), dt.data_ptr(),
-            db.data_ptr(), n, v, c, splits_h, splits_t, _DTYPE_CODE[cdt],
-            torch.cuda.current_stream(dev).cuda_stream)
+            dt_acc.data_ptr(), db.data_ptr(), n, v, c, *splits,
+            _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "catalog_nll", lib.catalog_cuda_error_string)
     catalog_nll_bwd.launches += 1
-    if dt_acc is not None:
-        dt = dt_acc.to(cdt)
-    return dh_acc.to(hidden.dtype), dt, db
+    return dh_acc.to(hidden.dtype), dt_acc.to(cdt), db

@@ -245,8 +245,8 @@ def test_catalog_backward_of_dead_rows_matches_plain_version(cuda_device,
     positions): dead and live rows mixed within and across 64-row tiles,
     or left-padded histories of 2048 positions. The backward matches the
     plain version (as ``_check_by_scale``) and its d_hidden is exactly 0
-    on the dead rows; on the wgmma kernel (bf16, C = 512), mma.sync (bf16,
-    C = 64) and the CUDA cores (fp32)."""
+    on the dead rows; on the wgmma kernel (bf16, C = 512) and the CUDA
+    cores (bf16 at C = 64, fp32)."""
     from easydgl_tpu_torch.kernels.scoring import catalog_live_rows
     rng = np.random.default_rng(n + c)
     if rows == "alternating":
@@ -271,6 +271,36 @@ def test_catalog_backward_of_dead_rows_matches_plain_version(cuda_device,
     want = catalog_nll_bwd_reference(h, t, b, lab, lse, dlse, dll)
     _check_by_scale(dtype, got, want, "dead rows")
     assert float(got[0][dead_t].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,splits", [
+    (torch.bfloat16, (1, 1)), (torch.bfloat16, (3, 7)),
+    (torch.bfloat16, (16, 2)), (torch.float32, (1, 1)),
+    (torch.float32, (5, 1))])
+def test_catalog_backward_splits_match_plain_version(cuda_device, dtype,
+                                                     splits):
+    """However the backward's passes divide their work (d_hidden's vocab
+    splits, d_table's row-tile splits, as the library would choose them on
+    another card), it matches the plain version, with left-padded rows;
+    the CUDA-core kernel refuses to split d_table."""
+    from easydgl_tpu_torch.kernels.scoring import _launch_bwd
+    n, v, c = 2048 + 333, 3000, 512
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    h = torch.randn(n, c, generator=g, device=cuda_device).to(dtype)
+    t = (torch.randn(v, c, generator=g, device=cuda_device) / 8).to(dtype)
+    b = torch.randn(v, generator=g, device=cuda_device)
+    lab = torch.randint(1, v, (n,), generator=g, device=cuda_device)
+    dlse, dll = (torch.randn(n, generator=g, device=cuda_device)
+                 for _ in range(2))
+    lab[:700], dlse[:700], dll[:700] = 0, 0.0, 0.0
+    lse, _ = catalog_nll_reference(h, t, b, lab)
+    got = _launch_bwd(h, t, b, lab, lse, dlse, dll, splits=splits)
+    want = catalog_nll_bwd_reference(h, t, b, lab, lse, dlse, dll)
+    _check_by_scale(dtype, got, want, f"splits {splits}")
+    assert float(got[0][:700].float().abs().max()) == 0.0
+    if dtype == torch.float32:
+        with pytest.raises(RuntimeError):
+            _launch_bwd(h, t, b, lab, lse, dlse, dll, splits=(1, 2))
 
 
 def test_train_step_on_card_matches_cpu(cuda_device):
