@@ -160,9 +160,12 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   const int a_total = resident_vocab ? p.V : p.N;
   const int b_total = resident_vocab ? p.N : p.V;
   // d_hidden: a dead row tile computes nothing (the caller zeroed dh_acc);
-  // d_table: the streamed tiles are the live row tiles, in order
+  // d_table: the streamed tiles are the live row tiles, in order (read
+  // through order only where some tile is dead)
   if (MODE == kDHidden && p.live[a0 / kB] == 0) return;
-  int tile_begin = 0, tile_end = MODE == kDTable ? p.order[0] : (b_total + kB - 1) / kB;
+  const int b_tiles = (b_total + kB - 1) / kB;
+  int tile_begin = 0, tile_end = MODE == kDTable ? p.order[0] : b_tiles;
+  const bool indirect = MODE == kDTable && tile_end < b_tiles;
   if (MODE != kDTable) {
     tile_begin = blockIdx.y * p.tiles_per_split;
     tile_end = imin(tile_end, tile_begin + p.tiles_per_split);
@@ -210,7 +213,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   }
 
   for (int it = tile_begin; it < tile_end; ++it) {
-    const int tile = MODE == kDTable ? p.order[1 + it] : it;
+    const int tile = indirect ? p.order[1 + it] : it;
     const int b0 = tile * kB, nb = imin(kB, b_total - b0);
     __syncthreads();  // previous tile consumed
     if constexpr (MMA) {
