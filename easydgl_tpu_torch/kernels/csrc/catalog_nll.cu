@@ -162,7 +162,6 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   // d_hidden: a dead row tile computes nothing (the caller zeroed dh_acc);
   // d_table: the streamed tiles are the live row tiles, in order (read
   // through order only where some tile is dead)
-  if (MODE == kDHidden && p.live[a0 / kB] == 0) return;
   const int b_tiles = (b_total + kB - 1) / kB;
   int tile_begin = 0, tile_end = MODE == kDTable ? p.order[0] : b_tiles;
   const bool indirect = MODE == kDTable && tile_end < b_tiles;
@@ -170,6 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     tile_begin = blockIdx.y * p.tiles_per_split;
     tile_end = imin(tile_end, tile_begin + p.tiles_per_split);
   }
+  if (MODE == kDHidden && p.live[a0 / kB] == 0) tile_end = tile_begin;
 
   if constexpr (MMA) {
     load_tile_bf16(ah, reinterpret_cast<const bf16*>(a_src), a0, kA, a_total, C);
