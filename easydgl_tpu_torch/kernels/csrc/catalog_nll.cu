@@ -159,9 +159,11 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   const T* b_src = static_cast<const T*>(resident_vocab ? p.hidden : p.table);
   const int a_total = resident_vocab ? p.V : p.N;
   const int b_total = resident_vocab ? p.N : p.V;
-  // d_hidden: a dead row tile computes nothing (the caller zeroed dh_acc);
-  // d_table: the streamed tiles are the live row tiles, in order (read
-  // through order only where some tile is dead)
+  // d_hidden: a dead row tile streams nothing and adds its zeros (an empty
+  // loop; an early return measured 3.6% slower in fp32). d_table: the
+  // streamed tiles are the live row tiles, in order, read through the list
+  // only where some tile is dead (the list costs fp32 2.7% with every row
+  // live).
   const int b_tiles = (b_total + kB - 1) / kB;
   int tile_begin = 0, tile_end = MODE == kDTable ? p.order[0] : b_tiles;
   const bool indirect = MODE == kDTable && tile_end < b_tiles;
