@@ -4,12 +4,14 @@ backward kernel whose softmax term is missing, on one GPU.
 
 The backward's g is ``dlse * exp(s - lse) + dll * onehot(label)``. Each
 mutant takes the softmax term out of one pass of ``csrc/catalog_nll.cu``:
-the d_table / d_bias pass, or the d_hidden pass. For each mutant, and for
-the unchanged source as a control, the package and ``chip_smoke.py`` are
-copied into a temporary directory, the copy's source is edited, and
-``chip_smoke.CATALOG_CASES`` run there through ``chip_smoke.catalog_case``
-(one process per copy, all started together; each builds its own library
-with nvcc). Prints, per copy, the checks that failed with their worst
+the d_table / d_bias pass, or the d_hidden pass, of the wgmma kernel (bf16
+at C = 512) or of the CUDA-core kernel (the other cases). For each mutant,
+and for the unchanged source as a control, the package and
+``chip_smoke.py`` are copied into a temporary directory, the copy's source
+is edited, and ``chip_smoke.CATALOG_CASES`` run there through
+``chip_smoke.catalog_case`` (each copy's library built first, one nvcc
+each, all together; then one process per copy, three at a time, as the
+plain versions at N = 65,536 take ~20 GB of the card each). Prints, per copy, the checks that failed with their worst
 |kernel - plain| / tolerance, and exits 0 when the control passes every
 check and every mutant fails at least one. Imports neither JAX nor the JAX
 package.
@@ -37,8 +39,17 @@ MUTANTS = {
         "g = a_dlse * expf(grow[c] - a_lse) + "
         "(b0 + c == a_label ? a_dll : 0.f);",
         "g = (b0 + c == a_label ? a_dll : 0.f);"),
+    "no softmax term in the wgmma d_table/d_bias": (
+        "gv[c] = cs[64 + cl] * fast_exp2(fmaf(x + r_b[hr], kLog2e, -cs[cl]))"
+        " +\n                    (lab == r_id[hr] ? cs[128 + cl] : 0.f);",
+        "gv[c] = (lab == r_id[hr] ? cs[128 + cl] : 0.f);"),
+    "no softmax term in the wgmma d_hidden": (
+        "gv[c] = r_dl[hr] * fast_exp2(fmaf(x + cs[cl], kLog2e, -r_l2[hr]))"
+        " +\n                    (r_id[hr] == c0 + cl ? r_dll[hr] : 0.f);",
+        "gv[c] = (r_id[hr] == c0 + cl ? r_dll[hr] : 0.f);"),
 }
 RESULT = "RESULT "
+AT_ONCE = 3   # copies run together
 
 
 def child() -> int:
@@ -83,17 +94,27 @@ def main() -> int:
         print("torch_catalog_mutants: no CUDA device", file=sys.stderr)
         return 1
     ok = True
+    items = list(MUTANTS.items())
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for i, (name, edit) in enumerate(MUTANTS.items()):
-            dst = pathlib.Path(tmp) / f"copy{i}"
-            make_copy(dst, edit)
-            procs[name] = subprocess.Popen(
+        for i, (name, edit) in enumerate(items):
+            make_copy(pathlib.Path(tmp) / f"copy{i}", edit)
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", "from easydgl_tpu_torch.kernels import"
+             " build; build.build(['catalog_nll'])"],
+            cwd=pathlib.Path(tmp) / f"copy{i}") for i in range(len(items))]
+        if any(b.wait() for b in builds):
+            print("FAILED: a copy did not build")
+            return 1
+        results = []
+        for w in range(0, len(items), AT_ONCE):
+            procs = {name: subprocess.Popen(
                 [sys.executable, str(pathlib.Path(__file__).resolve()),
-                 "--child"], cwd=dst, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
-        for name, proc in procs.items():
-            text, _ = proc.communicate(timeout=900)
+                 "--child"], cwd=pathlib.Path(tmp) / f"copy{i}",
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for i, (name, _) in enumerate(items) if w <= i < w + AT_ONCE}
+            results += [(name, proc, proc.communicate(timeout=900)[0])
+                        for name, proc in procs.items()]
+        for name, proc, text in results:
             lines = [x for x in text.splitlines() if x.startswith(RESULT)]
             if proc.returncode != 0 or not lines:
                 print(f"{name}: the run failed (rc {proc.returncode}):\n"
