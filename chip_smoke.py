@@ -105,6 +105,7 @@ from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
 # and the operation rate for each input type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12   # the tensor cores in TF32 (3xTF32 takes three passes)
 # |kernel - plain| <= atol + rtol * scale, elementwise. fp32: scale = |plain|;
 # the two sum in different orders (fp32 reassociation, ~1e-6 relative).
 # bf16: both round the same operands to bf16 at the same points, but a sum
@@ -145,6 +146,22 @@ STREAMED_REPLACES = {
         ("mau_intensity_bwd", 274), ("mau_glam", 692), ("mau_dq", 739),
         ("mau_dkvt", 768))}
 MAU_GRADS = ("dq", "dk", "dv", "dt", "dWd", "dbd", "dw", "dscaling")
+# The CUDA kernels each wrapper launches on the bf16 main paths.
+CUDA_KERNELS = {
+    "mau_attention_fwd": ["mau_fwd_kernel"],
+    "mau_attention_bwd": ["mau_bwd_rows", "mau_bwd_weights_mma"],
+    "catalog_nll_fwd": ["catalog_fwd_tc_kernel", "catalog_merge"],
+    "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>", "catalog_bwd_tc_kernel<2>"],
+    "mau_stats": ["mau_stats_mma_kernel"],
+    "mau_intensity": ["mau_intensity_kernel"],
+    "mau_modulated_out": ["mau_out_mma_kernel"],
+    "mau_glam": ["mau_glam_mma_kernel"],
+    "mau_intensity_bwd": ["mau_int_bwd_rows_tc_kernel",
+                          "mau_int_bwd_cols_tc_kernel"],
+    "mau_dq": ["mau_dq_mma_kernel"],
+    "mau_dkvt": ["mau_dkvt_mma_kernel"],
+    "flash_attention_fwd": ["flash_fwd_tc_kernel"],
+    "flash_attention_bwd": ["flash_bwd_tc_kernel"]}
 
 
 def log(msg: str):
@@ -518,11 +535,18 @@ CATALOG_CASES = (
      True, 79),
     ("alternating_fp32", dict(n=333, v=1001, c=64), torch.float32, True, 80))
 CATALOG_FWD, CATALOG_BWD = ("lse", "ll"), ("d_hidden", "d_table", "d_bias")
+CATALOG_FWD_CHECKS = CATALOG_FWD + ("ll label != 0",)
 
 
 def catalog_case(name, shape, dtype, label_term, seed):
     """The catalog kernels vs their plain versions on one input:
-    {output: (max_abs, worst/tol)}. Besides each whole output, d_table and
+    {output: (max_abs, worst/tol)}. The forward's lse and ll are held to
+    the fp32 scale tolerance in both dtypes: each score sums products of
+    the compute dtype's values, exact in fp32, in fp32 on both sides (the
+    tensor cores, cuBLAS in fp32), so only fp32 reassociation and the
+    exponentials separate them; ll also on the rows whose label is not id
+    0 (``catalog_inputs`` gives id 0 a bias of -1000, which sets ll's
+    largest entry). Besides each whole output, d_table and
     d_bias are held on the vocab ids that are no row's label, where g is
     the softmax term dlse * exp(s - lse) alone: at these inputs the label
     term's entries (dll * h, ~1/N) are ~1000x the softmax term's (~1/(N V)
@@ -537,8 +561,14 @@ def catalog_case(name, shape, dtype, label_term, seed):
     got = catalog_nll_fwd(h, t, b, lab)
     torch.cuda.synchronize()
     want = catalog_nll_reference(h, t, b, lab)
-    res = {label: scale_err(name + "_fwd", label, a, w, dtype)
-           for label, a, w in zip(CATALOG_FWD, got, want)}
+    # ll also on the rows whose label is not id 0, whose bias of -1000 sets
+    # ll's largest entry: a logit taken from a neighbouring id moves ll by
+    # ~0.3, within 1e-4 of 1000
+    other = lab != 0
+    check(bool(other.any()), f"{name}: every label is id 0")
+    res = {label: scale_err(name + "_fwd", label, a, w, torch.float32)
+           for label, a, w in list(zip(CATALOG_FWD, got, want)) + [
+               ("ll label != 0", got[1][other], want[1][other])]}
     lse = want[0]
     got = catalog_nll_bwd(h, t, b, lab, lse, dlse, dll)
     torch.cuda.synchronize()
@@ -568,7 +598,7 @@ def phase_catalog_checks():
         for label, (_, ratio) in res.items():
             check(ratio <= 1.0, f"{name}: {label} outside tolerance")
         errs[name] = tuple(max(res[k][0] for k in keys)
-                           for keys in (CATALOG_FWD, CATALOG_BWD))
+                           for keys in (CATALOG_FWD_CHECKS, CATALOG_BWD))
     return errs
 
 
@@ -1217,6 +1247,21 @@ def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
             + 4 * rows * (e + 3), 2 * rows * keys * (nprod * dh + e), dtype)
 
 
+def intensity_vjp_bounds(*, b, tq, h, dh, e, **_):
+    """(fp32 CUDA-core bound, 3xTF32 tensor-core bound) of the intensity
+    VJP in ms: its ``streamed_bwd_work`` on the CUDA cores at 67 TFLOP/s;
+    and its three products of rows x (dh+1) x E*dh, three TF32 passes each,
+    at the tensor cores' 495 TFLOP/s (each the larger of that and its
+    bytes)."""
+    nbytes, flops, _ = streamed_bwd_work("mau_intensity_bwd", b=b, tq=tq,
+                                         tk=tq, h=h, dh=dh, e=e,
+                                         dtype=torch.float32, keys=0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    products = 3 * 2 * b * h * tq * (dh + 1) * e * dh
+    return (bound(nbytes, flops, torch.float32)[0],
+            max(t_bytes, 3 * products / TF32_FLOPS * 1e3))
+
+
 def phase_streamed_bwd_timing():
     log("phase 4d: streamed MAU backward kernels at the EasyDGL-LC train "
         "shape (B=8, T=2048, H=8, dh=64, E=64, BiMAU, dropout 0.1)")
@@ -1232,13 +1277,25 @@ def phase_streamed_bwd_timing():
             nbytes, flops, op_dtype = streamed_bwd_work(
                 name, **LC, dtype=dtype, keys=mau_keys(args[4]))
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
+            extra = {}
+            if name == "mau_intensity_bwd":
+                # the products run on the tensor cores in 3xTF32: the bound
+                # is the lower of the two ways to compute the function
+                fp32_ms, tc_ms = intensity_vjp_bounds(**LC)
+                bound_ms, bound_by = min(fp32_ms, tc_ms), "operations"
+                extra = dict(bound_fp32_ms=fp32_ms, bound_3xtf32_ms=tc_ms)
+                log(f"  {name:17s} {str(dtype):15s} bound in 3xTF32 on the"
+                    f" tensor cores {tc_ms:.4f} ms (3 products x 3 passes at"
+                    f" 495 TFLOP/s); in fp32 on the CUDA cores (67 TFLOP/s)"
+                    f" the same work takes at least {fp32_ms:.4f} ms; the"
+                    f" bound is the lower, {min(fp32_ms, tc_ms):.4f} ms")
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
                 f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
                 f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x")
             rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=None)
+                                       library_ms=None, **extra)
         del runs
     return rows
 
@@ -1342,10 +1399,28 @@ def phase_train_kernel_timing():
 
 
 def phase_catalog_lc_timing():
-    log("phase 4f: catalog_nll backward at the SASREC-LC train shape (N=B*L"
-        "=65,536, V=17,771, C=512, bf16): every row live, and the padded"
-        " rows of a SASREC-LC batch (dlse = dll = 0) skipped")
+    log("phase 4f: catalog_nll forward and backward at the SASREC-LC train"
+        " shape (N=B*L=65,536, V=17,771, C=512, bf16): the forward on every"
+        " row; the backward with every row live, and with the padded rows of"
+        " a SASREC-LC batch (dlse = dll = 0) skipped")
     rows = {}
+    h, tb, b, lab, _, _ = catalog_inputs(**SASREC_LC_CATALOG,
+                                         dtype=torch.bfloat16, seed=310)
+    ms = time_ms(lambda: catalog_nll_fwd(h, tb, b, lab), warmup=2, iters=10)
+    plain_ms = time_ms(lambda: catalog_nll_reference(h, tb, b, lab),
+                       warmup=1, iters=1)
+    gemm_ms = time_ms(lambda: h @ tb.t(), warmup=1, iters=5)
+    nbytes, flops = catalog_work(**SASREC_LC_CATALOG, dtype=torch.bfloat16,
+                                 backward=False)
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    log(f"  catalog_nll_fwd every row      kernel {ms:.4f} ms  plain"
+        f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+        f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)  kernel/bound"
+        f" {ms / bound_ms:.1f}x, {flops / ms / 1e9:.1f} TFLOP/s; for scale,"
+        f" one cuBLAS h @ T^T: {gemm_ms:.4f} ms")
+    rows["forward"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, gemm_ms=gemm_ms)
+    del h, tb, b, lab
     padded = sasrec_lc_padded_rows()
     for label, dead in (("all_live", None), ("sasrec_lc_padded", padded)):
         h, tb, b, lab, dlse, dll = catalog_inputs(
@@ -1986,12 +2061,13 @@ def kernel_names(log_text: str):
     report line."""
     m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
-                  r"catalog_bwd_tc_kernel|flash_fwd_tc_kernel|"
+                  r"catalog_fwd_tc_kernel|catalog_bwd_tc_kernel|"
+                  r"flash_fwd_tc_kernel|"
                   r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_mma_kernel|"
                   r"mau_out_kernel|mau_intensity_kernel|mau_glam_mma_kernel|"
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
                   r"mau_dkvt_mma_kernel|mau_dkvt_kernel|"
-                  r"mau_int_bwd_rows_kernel|mau_int_bwd_cols_kernel|"
+                  r"mau_int_bwd_rows_tc_kernel|mau_int_bwd_cols_tc_kernel|"
                   r"flash_fwd_kernel|flash_bwd_tc_kernel|flash_bwd_kernel)"
                   r"(I?\w*)",
                   log_text)
@@ -2083,16 +2159,17 @@ def main() -> int:
         max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=None)]
+    # rows 4-6 (the catalog backward's three TPU kernels) are one wrapper
     for name, source, replaces, err in (
             ("mau_attention_bwd", "mau_attention_bwd.cu",
              "easydgl_tpu/kernels/mau_attention.py:757",
              bwd_errs["bimau_bf16_drop"]),
             ("catalog_nll_fwd", "catalog_nll.cu",
              "easydgl_tpu/kernels/scoring.py:84",
-             cat_errs["flagship_bf16"][0]),
+             cat_errs["flagship_bf16"][0])) + tuple(
             ("catalog_nll_bwd", "catalog_nll.cu",
-             "easydgl_tpu/kernels/scoring.py:292",
-             cat_errs["flagship_bf16"][1])):
+             f"easydgl_tpu/kernels/scoring.py:{line}",
+             cat_errs["flagship_bf16"][1]) for line in (292, 323, 343)):
         row = train_timing[(name, bf16)]
         per_path = {"training": train_launches[name]}
         if name != "mau_attention_bwd":
@@ -2105,9 +2182,12 @@ def main() -> int:
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=None)
         if name == "catalog_nll_bwd":
-            entry["also_replaces"] = ["easydgl_tpu/kernels/scoring.py:323",
-                                      "easydgl_tpu/kernels/scoring.py:343"]
-            entry["sasrec_lc_shape"] = catalog_lc_timing
+            entry["sasrec_lc_shape"] = {
+                k: catalog_lc_timing[k] for k in ("all_live",
+                                                  "sasrec_lc_padded")}
+        if name == "catalog_nll_fwd":
+            entry["gemm_ms_for_scale"] = row["gemm_ms"]
+            entry["sasrec_lc_shape"] = catalog_lc_timing["forward"]
         kernels.append(entry)
     for fn in STREAMED_KERNELS:
         name = fn.__name__
@@ -2125,7 +2205,9 @@ def main() -> int:
             max_abs_err=(streamed_errs["lc_bimau_bf16"][name] if forward
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None)
+            bound_by=row["bound_by"], library_ms=None,
+            **{key: row[key] for key in ("bound_fp32_ms", "bound_3xtf32_ms")
+               if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)
@@ -2154,6 +2236,8 @@ def main() -> int:
         + f" ms per B=32 batch on {card}")
     log(f"SASREC-LC train: {sas_ms_step:.4f} ms/step, {sas_ex_s:.1f} ex/s at"
         f" B=32, L=2048 on {card}")
+    for entry in kernels:
+        entry["cuda_kernels"] = CUDA_KERNELS[entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

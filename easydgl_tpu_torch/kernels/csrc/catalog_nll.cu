@@ -12,7 +12,34 @@
 //             dh = g T, dT = g^T h (g rounded to the compute dtype first,
 //             both returned in it), db = sum_n g (fp32)
 //
-// The backward is two recompute passes, d_hidden (mode 1) and d_table with
+// Forward, bf16 at C = 512 (catalog_fwd_tc_kernel; every configuration of
+// the repo). What bounds it: the one product, 2 N V C FLOP: 1.193 TFLOP at
+// N = 65,536, V = 17,771, 1.206 ms at 989 TFLOP/s (its bytes, the two
+// operands read once, 0.085 GB, 0.025 ms); 0.0565 ms at N = 3,072. What
+// the design does about it: a block keeps 128 hidden rows resident, 64 for
+// each of two consumer warpgroups (128 KB), and streams the vocab tiles of
+// its split, 128 ids x 512 channels, as eight (128 ids x 64 channels)
+// chunks through a six-stage ring (16 KB a chunk) that a producer warp
+// fills by TMA (128-byte swizzle) under full and empty mbarriers; the
+// table crosses from L2 once per 128 rows (9.3 GB at N = 65,536, a quarter
+// of the 32-row CUDA-core kernel's 37 GB). A warpgroup forms its 64 x 128
+// score tile on wgmma m64n128k16, both operands K-major in shared memory,
+// and keeps it in registers: each thread folds its 2 rows x 32 columns
+// into a running max and exp-sum of its own in log2 units (ex2; the bias
+// enters scaled by log2(e), -inf past V), with no shared score tile and no
+// row pass; the quad of a row merges its four (m, l) once, at the end. The
+// label logit is picked from the fragment of the thread that holds the
+// label's column, on the rare tile that holds it (ll = s + b, in fp32 as
+// the plain version). A wait on all but the newest wgmma group releases a
+// chunk while the next is in flight. Shared memory 230,504 bytes (the
+// resident rows 131,072, the ring 98,304, the mbarriers and 1,024 bytes of
+// alignment slack): one block an SM; the producer hands its registers to
+// the consumers (setmaxnreg 24 / 240). N = 3,072 rows are only 24 blocks,
+// so the vocab splits (tc_splits, chosen here; forced by the caller for
+// tests) fill the card in whole waves, and catalog_merge folds the splits'
+// (m, l, ll). Rows are not skipped: lse and ll are returned on every row.
+//
+// Backward. Two recompute passes, d_hidden (mode 1) and d_table with
 // d_bias (mode 2); the score tile is formed in both. The TPU's fused
 // backward exists because its whole (N, C) d_hidden accumulator fits VMEM;
 // here a fused pass would add a (64 x C) fp32 d_hidden tile per 64 vocab
@@ -42,14 +69,11 @@
 // (mode 2) split across blocks so that the grid fills the card in whole
 // waves, the splits adding into zeroed fp32 buffers by atomics.
 //
-// Other dtypes and widths (catalog_kernel): a block keeps 32 resident rows
-// in shared memory and streams 64-row tiles past them, recomputing each
-// 32 x 64 score tile. The forward (mode 0) in bf16 with C % 64 == 0 forms it
-// on mma.sync (m16n8k16, fp32 accumulate) from ldmatrix fragments; the
-// backward's passes (modes 1 and 2) in fp32, and in bf16 at C != 512 (no
-// configuration of the repo), and the forward otherwise run on the CUDA
-// cores (fp32 FMA, no TF32). The forward's online max and sum per row are
-// merged over vocab splits by catalog_merge.
+// Other dtypes and widths (catalog_kernel; fp32, and bf16 at C != 512, no
+// configuration of the repo): a block keeps 32 resident rows in shared
+// memory and streams 64-row tiles past them, recomputing each 32 x 64 score
+// tile on the CUDA cores (fp32 FMA, no TF32). The forward's online max and
+// sum per row are merged over vocab splits by catalog_merge.
 //
 // The entry owns the choice of kernel and of the splits: the caller passes
 // zeroed fp32 accumulators for d_hidden, d_table and d_bias whatever runs.
@@ -102,29 +126,9 @@ struct Params {
 };
 
 __host__ __device__ inline int cstride(int C) { return C + 4; }
-// bf16 tiles (the forward's mma.sync path): rows of C + 8 halves keep
-// 16-byte row alignment and put the 8 rows an mma fragment reads in
-// distinct banks
-__host__ __device__ inline int bstride(int C) { return C + 8; }
 
-__host__ __device__ inline size_t smem_bytes(int C, bool mma) {
-  if (mma) return 2 * (size_t)(kA + kB) * bstride(C) + sizeof(float) * (size_t)kA * (kB + 1);
+__host__ __device__ inline size_t smem_bytes(int C) {
   return sizeof(float) * ((size_t)(kA + kB) * cstride(C) + (size_t)kA * (kB + 1));
-}
-
-// Rows [row0, row0 + nrows) of a (rows_total, C) bf16 matrix into shared
-// memory at row stride bstride(C), 16 bytes a thread; rows past the end are
-// zero. C % 8 == 0.
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int nrows, int rows_total, int C) {
-  const int ld = bstride(C), c8 = C / 8;
-  for (int idx = threadIdx.x; idx < nrows * c8; idx += kThreads) {
-    const int r = idx / c8, c = (idx - r * c8) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows_total)
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * C + c));
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
 }
 
 template <typename T>
@@ -137,22 +141,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
   }
 }
 
-// MMA (the forward in bf16, C % 64 == 0): the score tile on the tensor
-// cores from bf16 tiles in shared memory, warp w computing rows
-// 16 (w & 1) .. +15 by columns 16 (w >> 1) .. +15 over K = C.
-template <typename T, int MODE, bool MMA>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
-  static_assert(!MMA || MODE == kFwd, "mma.sync serves the forward only");
-  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) float smem[];
-  const int C = p.C, ld = MMA ? bstride(C) : cstride(C);
-  float* as = smem;                // kA x ld floats (CUDA cores)
+  const int C = p.C, ld = cstride(C);
+  float* as = smem;                // kA x ld
   float* bs = as + kA * ld;        // kB x ld
-  bf16* ah = reinterpret_cast<bf16*>(smem);  // kA x ld halves (tensor cores)
-  bf16* bh = ah + kA * ld;                   // kB x ld
-  float* gs = MMA ? reinterpret_cast<float*>(bh + kB * ld) : bs + kB * ld;  // kA x (kB+1)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
+  float* gs = bs + kB * ld;        // kA x (kB+1)
+  const int tid = threadIdx.x;
   const int a0 = blockIdx.x * kA;
   const bool resident_vocab = MODE == kDTable;
   const T* a_src = static_cast<const T*>(resident_vocab ? p.table : p.hidden);
@@ -173,11 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
   }
   if (MODE == kDHidden && p.live[a0 / kB] == 0) tile_end = tile_begin;
 
-  if constexpr (MMA) {
-    load_tile_bf16(ah, reinterpret_cast<const bf16*>(a_src), a0, kA, a_total, C);
-  } else {
-    load_tile<T>(as, a_src, a0, kA, a_total, C);
-  }
+  load_tile<T>(as, a_src, a0, kA, a_total, C);
 
   // score tile: thread = column sb, rows sa0 .. sa0+7
   const int sb = tid % kB, sa0 = (tid / kB) * 8;
@@ -194,14 +186,6 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
-  const int mt_s = warp & 1, ng_s = warp >> 1;
-  // ldmatrix row addresses of this lane. A (rows x K, row-major): lanes
-  // 0-15 give rows 0-15 at k, lanes 16-31 the same rows at k + 8. B
-  // (streamed rows x K): matrix m = lane / 8 holds rows 8 (m / 2) .. +7 at
-  // k + 8 (m % 2).
-  const int lm = lane >> 3, lj = lane & 7;
-  const bf16* a_ldm = ah + (16 * mt_s + (lane & 15)) * ld + (lane >> 4) * 8;
-  const bf16* b_ldm = bh + (16 * ng_s + (lm >> 1) * 8 + lj) * ld + (lm & 1) * 8;
   float run_m = -INFINITY, run_l = 0.f, run_ll = 0.f, run_db = 0.f;
   int a_label = -1;
   float a_lse = 0.f, a_dlse = 0.f, a_dll = 0.f;
@@ -218,47 +202,24 @@ __global__ void __launch_bounds__(kThreads, 1) catalog_kernel(const Params p) {
     const int tile = indirect ? p.order[1 + it] : it;
     const int b0 = tile * kB, nb = imin(kB, b_total - b0);
     __syncthreads();  // previous tile consumed
-    if constexpr (MMA) {
-      load_tile_bf16(bh, reinterpret_cast<const bf16*>(b_src), b0, kB, b_total, C);
-    } else {
-      load_tile<T>(bs, b_src, b0, kB, b_total, C);
-    }
+    load_tile<T>(bs, b_src, b0, kB, b_total, C);
     __syncthreads();
-    if constexpr (MMA) {
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, a_ldm + k0);
-        ldmatrix_x4(b, b_ldm + k0);
-        mma_bf16(c[0], a, b[0], b[1]);
-        mma_bf16(c[1], a, b[2], b[3]);
-      }
+    float s[8];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * mt_s + g8 + 8 * (i >> 1), cc = 16 * ng_s + 8 * nt + 2 * t4 + (i & 1);
-          const int v = b0 + cc;
-          gs[r * (kB + 1) + cc] = c[nt][i] + (v < p.V ? p.bias[v] : 0.f);
-        }
-    } else {
-      float s[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s[i] = 0.f;
-      const float4* brow = reinterpret_cast<const float4*>(bs + sb * ld);
-      for (int c4 = 0; c4 < C / 4; ++c4) {
-        const float4 bv = brow[c4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 av = reinterpret_cast<const float4*>(as + (sa0 + i) * ld)[c4];
-          s[i] = fmaf(av.w, bv.w, fmaf(av.z, bv.z, fmaf(av.y, bv.y, fmaf(av.x, bv.x, s[i]))));
-        }
-      }
+    for (int i = 0; i < 8; ++i) s[i] = 0.f;
+    const float4* brow = reinterpret_cast<const float4*>(bs + sb * ld);
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      const float4 bv = brow[c4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int v = resident_vocab ? a0 + sa0 + i : b0 + sb;
-        gs[(sa0 + i) * (kB + 1) + sb] = s[i] + (v < p.V ? p.bias[v] : 0.f);
+        const float4 av = reinterpret_cast<const float4*>(as + (sa0 + i) * ld)[c4];
+        s[i] = fmaf(av.w, bv.w, fmaf(av.z, bv.z, fmaf(av.y, bv.y, fmaf(av.x, bv.x, s[i]))));
       }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int v = resident_vocab ? a0 + sa0 + i : b0 + sb;
+      gs[(sa0 + i) * (kB + 1) + sb] = s[i] + (v < p.V ? p.bias[v] : 0.f);
     }
     __syncthreads();
     float* grow = gs + ra * (kB + 1);
@@ -585,6 +546,179 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------- forward, bf16, C = 512
+// wgmma and TMA (see the header): warpgroups 0 and 1 consume, each with 64
+// resident hidden rows stored as eight (64 x 64) sub-tiles in the 128-byte
+// swizzle; the first warp of warpgroup 2 produces. A vocab tile is 128 ids;
+// the ring holds (128 ids x 64 channels) chunks, eight a tile.
+
+constexpr int kFwdGroups = 2;                         // consumer warpgroups
+constexpr int kFwdRows = 64 * kFwdGroups;             // resident rows a block
+constexpr int kFwdVocab = 128;                        // vocab ids a tile
+constexpr int kFwdStages = 6;
+constexpr int kFwdThreads = 128 * (kFwdGroups + 1);
+constexpr int kFwdChunkElems = kFwdVocab * 64;        // a (128 x 64) chunk, 16 KB
+constexpr float kFwdDead = -1.0e30f;                  // the running max before any id
+// the resident rows, the ring, the mbarriers, and slack to align to 1024 bytes
+constexpr size_t kFwdSmem =
+    1024 + sizeof(bf16) * ((size_t)kFwdGroups * kTcTileElems + (size_t)kFwdStages * kFwdChunkElems) +
+    8 * (1 + 2 * kFwdStages);
+static_assert(kFwdSmem <= kMaxSmem, "the forward's shared memory exceeds 227 KB");
+
+// Rows [128 blockIdx.x, +128) against the vocab tiles of split blockIdx.y:
+// the split's (m, l, ll) of each row into part_m / part_l / part_ll (m in
+// natural-log units, l = sum_v exp(s - m), ll the label logit where the
+// label lies in the split, else 0). Thread (warpgroup wg, warp, g, t4)
+// holds rows 64 wg + 16 warp + g (+8) and, of a tile, ids 8 n + 2 t4 (+1),
+// n < 16, at sc[4 n + 2 hr + c].
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    catalog_fwd_tc_kernel(const Params p, const __grid_constant__ TcMaps maps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* rs = reinterpret_cast<bf16*>(base);                // [group][sub][64 rows][64]
+  bf16* vs = rs + kFwdGroups * kTcTileElems;               // [stage][128 ids][64]
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(vs + kFwdStages * kFwdChunkElems);
+  uint64_t* full = r_full + 1;                             // [stage]
+  uint64_t* empty = full + kFwdStages;                     // [stage]
+
+  const int row0 = blockIdx.x * kFwdRows;
+  const int tiles = (p.V + kFwdVocab - 1) / kFwdVocab;
+  const int t0 = blockIdx.y * p.tiles_per_split;
+  const int t1 = imin(tiles, t0 + p.tiles_per_split);
+  const int nchunks = imax(t1 - t0, 0) * kTcSub;
+
+  if (threadIdx.x == 0) {
+    mbar_init(r_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * kFwdGroups);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+
+  if (warp >= 4 * kFwdGroups) {  // ---- producer: lane 0 of its first warp works
+    regs_dec<kTcProducerRegs>();
+    if (warp > 4 * kFwdGroups || lane != 0) return;
+    mbar_arrive_tx(r_full, kFwdGroups * kTcTileElems * sizeof(bf16));
+    for (int w = 0; w < kFwdGroups; ++w)
+      for (int kc = 0; kc < kTcSub; ++kc)
+        tma_2d(rs + w * kTcTileElems + kc * kTcSubElems, &maps.hidden, r_full, 64 * kc,
+               row0 + 64 * w);
+    for (int it = 0; it < nchunks; ++it) {
+      const int s = it % kFwdStages;
+      mbar_wait(empty + s, ((it / kFwdStages) & 1) ^ 1);
+      mbar_arrive_tx(full + s, kFwdChunkElems * sizeof(bf16));
+      tma_2d(vs + s * kFwdChunkElems, &maps.table, full + s, 64 * (it % kTcSub),
+             kFwdVocab * (t0 + it / kTcSub));
+    }
+    return;
+  }
+
+  // ---- consumers
+  regs_inc<kTcConsumerRegs>();
+  const int wg = warp >> 2;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint64_t rd = sw128_desc(rs + wg * kTcTileElems);
+  int lab[2];
+  float lab_b[2], m2[2] = {kFwdDead, kFwdDead}, l[2] = {0.f, 0.f}, ll[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 64 * wg + 16 * warp + g + 8 * hr;
+    lab[hr] = row < p.N ? p.labels[row] : -1;
+    lab_b[hr] = lab[hr] >= 0 ? p.bias[lab[hr]] : 0.f;
+  }
+  mbar_wait(r_full, 0);
+
+  int it = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int v0 = t * kFwdVocab;
+    // the tile's bias in log2 units at the thread's ids (-inf past V)
+    float b2[32];
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int v = v0 + 8 * n + 2 * t4 + c;
+        b2[2 * n + c] = v < p.V ? __ldg(p.bias + v) * kLog2e : -INFINITY;
+      }
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    wg_fence();
+#pragma unroll 1
+    for (int kc = 0; kc < kTcSub; ++kc, ++it) {
+      const int s = it % kFwdStages;
+      mbar_wait(full + s, (it / kFwdStages) & 1);
+      const uint64_t vd = sw128_desc(vs + s * kFwdChunkElems);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(sc, rd + 512 * kc + 2 * kk, vd + 2 * kk, 1);
+      wg_commit();
+      if (kc > 0) {  // the previous chunk's products are done: free its stage
+        wg_wait_n<1>();
+        mbar_arrive(empty + (it - 1) % kFwdStages);
+      }
+    }
+    wg_wait();
+    reg_fence(sc);
+    mbar_arrive(empty + (it - 1) % kFwdStages);
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      // the label logit, from the thread that holds the label's id
+      const int lc = lab[hr] - v0;
+      if ((unsigned)lc < (unsigned)kFwdVocab && ((lc >> 1) & 3) == t4) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (8 * n + 2 * t4 + c == lc) ll[hr] = sc[4 * n + 2 * hr + c] + lab_b[hr];
+      }
+      float mx = m2[hr];
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = sc[4 * n + 2 * hr + c];
+          x = fmaf(x, kLog2e, b2[2 * n + c]);
+          mx = fmaxf(mx, x);
+        }
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) sum += fast_exp2(sc[4 * n + 2 * hr + c] - mx);
+      l[hr] = l[hr] * fast_exp2(m2[hr] - mx) + sum;
+      m2[hr] = mx;
+    }
+  }
+
+  // merge the quad's four (m, l) of each row; write the split's part
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float m = m2[hr], s = l[hr], x = ll[hr];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m, o);
+      const float so = __shfl_xor_sync(0xffffffffu, s, o);
+      x += __shfl_xor_sync(0xffffffffu, x, o);
+      const float mm = fmaxf(m, mo);
+      s = s * fast_exp2(m - mm) + so * fast_exp2(mo - mm);
+      m = mm;
+    }
+    const int row = row0 + 64 * wg + 16 * warp + g + 8 * hr;
+    if (t4 == 0 && row < p.N) {
+      const size_t off = (size_t)blockIdx.y * p.N + row;
+      p.part_m[off] = m * kLn2;
+      p.part_l[off] = s;
+      p.part_ll[off] = x;
+    }
+  }
+}
+
 // lse = M + log(sum_s l_s exp(m_s - M)), M = max_s m_s; ll = sum_s ll_s.
 __global__ void catalog_merge(const float* part_m, const float* part_l, const float* part_ll,
                               float* lse, float* ll, int N, int splits) {
@@ -601,34 +735,29 @@ __global__ void catalog_merge(const float* part_m, const float* part_l, const fl
   ll[n] = x;
 }
 
-template <typename T, int MODE, bool MMA>
+template <typename T, int MODE>
 cudaError_t launch_variant(const Params& p, dim3 grid, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(p.C, MMA);
+  const size_t bytes = smem_bytes(p.C);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        catalog_kernel<T, MODE, MMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        catalog_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  catalog_kernel<T, MODE, MMA><<<grid, kThreads, bytes, stream>>>(p);
+  catalog_kernel<T, MODE><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The forward in bf16 with C % 64 == 0 takes the tensor cores, everything
-// else the CUDA cores.
 template <int MODE>
 cudaError_t launch_mode(const Params& p, int dtype, dim3 grid, cudaStream_t stream) {
-  if (dtype == 0) return launch_variant<float, MODE, false>(p, grid, stream);
-  if constexpr (MODE == kFwd) {
-    if (p.C % 64 == 0) return launch_variant<bf16, MODE, true>(p, grid, stream);
-  }
-  return launch_variant<bf16, MODE, false>(p, grid, stream);
+  if (dtype == 0) return launch_variant<float, MODE>(p, grid, stream);
+  return launch_variant<bf16, MODE>(p, grid, stream);
 }
 
-// The (rows, C) bf16 matrix at ptr as a TMA map: boxes of 64 rows x 64.
-bool matrix_map(CUtensorMap* map, const void* ptr, int rows, int C) {
+// The (rows, C) bf16 matrix at ptr as a TMA map: boxes of box_rows rows x 64.
+bool matrix_map(CUtensorMap* map, const void* ptr, int rows, int C, int box_rows = 64) {
   const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims, strides, box);
 }
 
@@ -643,7 +772,7 @@ cudaError_t launch_tc(const Params& p, const TcMaps& maps, dim3 grid, cudaStream
 
 bool valid_shape(int N, int V, int C, int dtype) {
   return N >= 1 && V >= 1 && C >= 4 && C % 4 == 0 && C <= kMaxC &&
-         smem_bytes(C, false) <= kMaxSmem && (dtype == 0 || dtype == 1);
+         smem_bytes(C) <= kMaxSmem && (dtype == 0 || dtype == 1);
 }
 
 Params base(const void* hidden, const void* table, const void* bias, const void* labels,
@@ -657,13 +786,22 @@ Params base(const void* hidden, const void* table, const void* bias, const void*
   return p;
 }
 
-// Vocab splits of catalog_kernel's row-tiled passes (the forward, and the
-// backward's d_hidden off the wgmma kernel): about 264 blocks, two an SM of
+// Vocab splits of catalog_kernel's row-tiled passes (the forward and the
+// backward's d_hidden off the wgmma kernels): about 264 blocks, two an SM of
 // an H100, so that N = 3,072 rows (96 tiles of 32) still fill the card.
 int row_splits(int N, int V) {
   const int row_tiles = (N + kA - 1) / kA;
   return std::max(1, std::min((V + kB - 1) / kB, (264 + row_tiles - 1) / row_tiles));
 }
+
+int multiprocessors(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
+bool fwd_on_tc(int C, int dtype) { return dtype == 1 && C == kTcC; }
 
 // Splits for the wgmma kernel, one block an SM: the number of parts s that
 // the `streamed` tiles of each of `blocks` resident tiles are cut into,
@@ -688,33 +826,58 @@ int tc_splits(int blocks, int streamed, int sms) {
 
 extern "C" {
 
-// Forward: lse, ll (N,) fp32. part is scratch of 3 * splits * N floats.
-// dtype: 0 = float32, 1 = bfloat16 (hidden and table). Returns
-// cudaGetLastError() (0 on success).
+// Vocab splits of the forward (the entry's own choice for the card): part
+// holds 3 * splits * N floats. 0 when the shape is refused or the device
+// cannot be queried.
+int catalog_splits(int N, int V, int C, int dtype) {
+  if (!valid_shape(N, V, C, dtype)) return 0;
+  if (!fwd_on_tc(C, dtype)) return row_splits(N, V);
+  int sms = 0;
+  if (multiprocessors(&sms) != 0) return 0;
+  return tc_splits((N + kFwdRows - 1) / kFwdRows, (V + kFwdVocab - 1) / kFwdVocab, sms);
+}
+
+// Forward: lse, ll (N,) fp32. part is scratch of 3 * splits * N floats;
+// splits is the number of vocab splits (catalog_splits' choice, or forced
+// by the caller). bf16 at C = 512 runs the wgmma kernel, everything else
+// catalog_kernel. dtype: 0 = float32, 1 = bfloat16 (hidden and table).
+// Returns cudaGetLastError() (0 on success).
 int catalog_nll_fwd(const void* hidden, const void* table, const void* bias,
                     const void* labels, void* lse, void* ll, void* part, int N,
                     int V, int C, int splits, int dtype, void* stream) {
   if (!valid_shape(N, V, C, dtype) || splits < 1) return (int)cudaErrorInvalidValue;
   Params p = base(hidden, table, bias, labels, N, V, C);
-  const int tiles = (V + kB - 1) / kB;
   p.splits = splits;
-  p.tiles_per_split = (tiles + splits - 1) / splits;
   float* pf = static_cast<float*>(part);
   p.part_m = pf;
   p.part_l = pf + (size_t)splits * N;
   p.part_ll = pf + 2 * (size_t)splits * N;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kA - 1) / kA, splits);
-  cudaError_t e = launch_mode<kFwd>(p, dtype, grid, s);
+  cudaError_t e;
+  if (fwd_on_tc(C, dtype)) {
+    const int tiles = (V + kFwdVocab - 1) / kFwdVocab;
+    p.tiles_per_split = (tiles + splits - 1) / splits;
+    TcMaps maps;
+    if (!matrix_map(&maps.hidden, hidden, N, C) ||
+        !matrix_map(&maps.table, table, V, C, kFwdVocab))
+      return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(catalog_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kFwdSmem);
+    if (e != cudaSuccess) return (int)e;
+    catalog_fwd_tc_kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, splits), kFwdThreads, kFwdSmem,
+                            s>>>(p, maps);
+    e = cudaGetLastError();
+  } else {
+    const int tiles = (V + kB - 1) / kB;
+    p.tiles_per_split = (tiles + splits - 1) / splits;
+    e = launch_mode<kFwd>(p, dtype, dim3((N + kA - 1) / kA, splits), s);
+  }
   if (e != cudaSuccess) return (int)e;
   catalog_merge<<<(N + 255) / 256, 256, 0, s>>>(p.part_m, p.part_l, p.part_ll,
                                                  static_cast<float*>(lse),
                                                  static_cast<float*>(ll), N, splits);
   return (int)cudaGetLastError();
 }
-
-// Vocab splits of the forward: part holds 3 * splits * N floats.
-int catalog_splits(int N, int V) { return row_splits(N, V); }
 
 // Backward into fp32 accumulators that the caller zeroes and casts: dh_acc
 // (N, C), dt_acc (V, C), dbias (V,). live (ceil(N / 64),) codes each 64-row
@@ -742,9 +905,8 @@ int catalog_nll_bwd(const void* hidden, const void* table, const void* bias,
   const int vocab_tiles = (V + kB - 1) / kB;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && C == kTcC) {
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0;
+    cudaError_t e = static_cast<cudaError_t>(multiprocessors(&sms));
     if (e != cudaSuccess) return (int)e;
     const int row_tiles = (N + 63) / 64;
     p.splits = splits_h ? splits_h : tc_splits(row_tiles, vocab_tiles, sms);

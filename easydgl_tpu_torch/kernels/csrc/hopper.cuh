@@ -127,6 +127,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N committed groups of the warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving accesses of d across a wgmma wait.
 template <int N>
@@ -172,6 +177,32 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
       ", %16, %17, p, 1, 1, 0, 0;\n}\n"
       : WG_ACC16(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#define WG_D64                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_ACC64(d)                                                                          \
+  WG_ACC(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),   \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),          \
+      "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128) (+)= A (64 x 16) B (16 x 128), both K-major from shared
+// memory (B: 128 rows of 128 bytes in the 128-byte swizzle, 8-row groups
+// 1024 bytes apart). Accumulator layout as wgmma_ss, n < 16.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC64(d)
       : "l"(da), "l"(db), "r"(acc));
 }
 

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of easydgl_tpu/kernels/mau_streamed.py:
 //
-//   mau_int_bwd_rows_kernel, mau_int_bwd_cols_kernel
+//   mau_int_bwd_rows_tc_kernel, mau_int_bwd_cols_tc_kernel
 //                   _int_bwd_kernel (pallas_call in _int_streamed_bwd, :274)
 //   mau_glam_kernel _glam_kernel    (pallas_call in _mau_streamed_bwd, :692)
 //   mau_dq_kernel   _dq_kernel      (pallas_call in _mau_streamed_bwd, :739)
@@ -61,23 +61,37 @@
 // * dkvt: one block per 64 keys of one (b, h), looping over query tiles;
 //   dk, dv and dt accumulate in registers.
 // * intensity: the parameter gradients are sums over B*H*Tq rows, the
-//   d(seq_units) a sum over E*dh columns, so two kernels. The row kernel
-//   (64 rows a block, looping over 64-column tiles, each one to four whole
-//   events) recomputes z, raw and g_raw and accumulates g_x = g_z Wd^T in
-//   registers; it stores g_raw (rows, E) and adds gscaling by one atomic
-//   per event and block. The column kernel (64 columns x 2048 rows a
-//   block) reads g_raw, recomputes z and accumulates gWd (dh+1 x 64), gbd
-//   and gw in registers over its rows, then adds them with one atomic per
-//   entry: ~17 M atomics at the EasyDGL-LC train shape, not one per row.
-//   z is computed twice (JAX's kernel: once), for 4 products of rows x
-//   (dh+1) x E*dh instead of 3; g_x skips the interval lane, whose gradient
-//   is dropped.
+//   d(seq_units) a sum over E*dh columns, so two kernels, four warps each,
+//   every product on the tensor cores in 3xTF32 (mma.sync m16n8k8 tf32;
+//   each operand split into a TF32 pair, big = cvt.rna(x), small =
+//   cvt.rna(x - big), and big*big + big*small + small*big summed in fp32,
+//   to about fp32 accuracy: the TPU kernel is fp32). x = [su | iv] is
+//   padded to dh + 8 lanes. The row kernel (64 rows a block, 16 a warp,
+//   looping over 64-column tiles, each one to four whole events) keeps its
+//   rows' x as A fragments in registers, forms z = x Wd_tile with the tile
+//   split in shared memory, then sig, raw, g_raw and g_z in the C fragments,
+//   and accumulates g_x = g_z Wd_tile^T with g_z's C fragments reused as A
+//   fragments (their columns 2 t4, 2 t4 + 1 read as the k lanes t4, t4 + 4,
+//   and B read to match); it stores g_raw (rows, E) and adds gscaling by one
+//   atomic per event and block. The column kernel (64 columns x 2048 rows a
+//   block, 16 columns a warp) keeps its columns of Wd as A fragments, forms
+//   z^T = Wd_tile^T x^T over 64-row sub-tiles split in shared memory, g_z^T
+//   from g_raw, gw and gbd in registers, and gWd^T += g_z^T x (all dh + 1
+//   lanes, the interval's included) the same way; one atomic per entry and
+//   block: ~17 M at the EasyDGL-LC train shape, not one per row. z is
+//   formed twice (JAX's kernel: once), for 4 products of rows x (dh+1) x
+//   E*dh instead of 3; g_x skips the interval lane, whose gradient is
+//   dropped. Shared memory at dh = 64, E = 64: rows 42,240 bytes, columns
+//   39,936.
 //
 // What bounds it, at the EasyDGL-LC train shape (B=8, H=8, T=2048, dh=64,
 // E=64, BiMAU): operations. glam 3 products of 34.36 GFLOP each, dq 5, dkvt
-// 7 (bf16 tensor-core bounds 0.104, 0.174 and 0.243 ms), the intensity VJP
-// ~209 GFLOP of fp32 (3.1 ms at 67 TFLOP/s), which stays on the CUDA cores
-// in both dtypes, as the TPU kernel is fp32.
+// 7 (bf16 tensor-core bounds 0.104, 0.174 and 0.243 ms). The intensity
+// VJP's three products of 131,072 x 65 x 4,096 (~209 GFLOP with the
+// elementwise terms) would take 3.1 ms in fp32 on the CUDA cores (67
+// TFLOP/s); in 3xTF32 they are three passes each at 495 TFLOP/s, 1.27 ms,
+// its bound here. The two kernels form z twice: 4 products x 3 passes, on
+// mma.sync, which runs below wgmma's rate.
 //
 // Limits: dh in {16, 32, 64}; E up to 128 within the shared memory of
 // mau_streamed_bwd_smem_bytes (227 KB).
@@ -138,11 +152,14 @@ __host__ __device__ inline int dq_smem_floats(int dh, int ep) {
 __host__ __device__ inline int dkvt_smem_floats(int dh, int ep) {
   return 6 * 64 * (dh + 4) + 2 * 64 * (ep + 4) + 3 * 64 * LD + 4 * 64;
 }
+// The intensity kernels: the Wd column tile (dh + 8 lanes x 72) as TF32
+// pairs, bd and w of the tile, gscaling; the x sub-tile (64 rows x dh + 12)
+// as TF32 pairs and g_raw of the tile's events.
 __host__ __device__ inline int int_rows_smem_floats(int dh, int E) {
-  return 2 * 64 * (dh + 4) + dh * LD + 64 * LD + E;
+  return 2 * (dh + 8) * 72 + 128 + E;
 }
 __host__ __device__ inline int int_cols_smem_floats(int dh) {
-  return 2 * 64 * (dh + 4) + dh * LD + 64 * LD + 64 * 4 + 3 * 16 * 64;
+  return 2 * 64 * (dh + 12) + 64 * 4;
 }
 
 // rows [r0, r0 + 64) of a row-major source (row stride rs) into dst[r][c]
@@ -995,218 +1012,319 @@ __global__ void __launch_bounds__(kThreadsMma) mau_dkvt_mma_kernel(const BwdPara
 }
 
 // ---------------------------------------------------------------- intensity
+// Both kernels: four warps (kIntThreads); every product on the tensor cores
+// in 3xTF32 (mma.sync m16n8k8, mma_3xtf32), the operands split into TF32
+// pairs once, where they are loaded. x = [su | iv] is padded to KP = dh + 8
+// lanes with zeros (the interval at lane dh).
 
-// x = [su | iv] of rows [r0, r0 + 64) into xs[r][c] (stride DH + 4; lanes
-// past DH zero); rows >= nrows zero. With xt, seq_units also transposed
-// into xt[c][r] (stride LD, DH rows).
+constexpr int kIntThreads = 128;
+constexpr int kWdLd = 72;  // row stride of a Wd column tile [lane][64 columns]
+
+// x[row][c] of x = [su | iv | 0]; zero at rows >= nrows.
 template <int DH>
-__device__ __forceinline__ void load_x(float* xs, float* xt, const IntBwdParams& p, int r0,
-                                       int nrows) {
-  constexpr int SX = DH + 4;
-  for (int idx = threadIdx.x; idx < 64 * SX; idx += kThreads) {
-    const int r = idx / SX, c = idx - r * SX;
-    const int row = r0 + r;
-    float x = 0.f;
-    if (row < nrows) {
-      if (c < DH) {
-        x = p.su[(size_t)row * DH + c];
-      } else if (c == DH) {
-        const int i = row % p.Tq, b = row / (p.Tq * p.H);
-        x = p.intervals[(size_t)b * p.Tq + i];
-      }
-    }
-    xs[r * SX + c] = x;
-    if (xt && c < DH) xt[c * LD + r] = x;
-  }
+__device__ __forceinline__ float x_at(const IntBwdParams& p, int row, int c, int nrows) {
+  if (row >= nrows || c > DH) return 0.f;
+  if (c < DH) return p.su[(size_t)row * DH + c];
+  const int i = row % p.Tq, b = row / (p.Tq * p.H);
+  return p.intervals[(size_t)b * p.Tq + i];
 }
 
-// Columns [n0, n0 + 64) of Wd: wt[n][c] = Wd[c][n0 + n] (stride DH + 4, lanes
-// past DH zero) and, with wc, the seq_units rows wc[c][n], c < DH (stride
-// LD); columns past E*dh zero.
+// The row kernel: 64 rows a block, 16 a warp, looping over 64-column tiles
+// of Wd (one to four whole events). Per tile: z = x Wd_tile (A: the warp's
+// x, in registers for the whole loop; B: the tile, split into TF32 pairs in
+// shared memory), sig, raw and g_raw in the C fragments (raw: the thread's
+// columns of an event, then the quad), g_z in place; then g_x += g_z
+// Wd_tile^T, g_z's C fragments reused as A fragments (their columns 2 t4,
+// 2 t4 + 1 taken as the k lanes t4, t4 + 4, and B read to match). Stores
+// g_raw (rows, E) and g_su, adds gscaling by one atomic per event and block.
 template <int DH>
-__device__ __forceinline__ void load_wd(float* wt, float* wc, const float* wd, int edh, int n0) {
-  constexpr int SX = DH + 4;
-  for (int idx = threadIdx.x; idx < SX * 64; idx += kThreads) {
-    const int c = idx / 64, n = idx - c * 64;
-    const float x = (c <= DH && n0 + n < edh) ? wd[(size_t)c * edh + n0 + n] : 0.f;
-    wt[n * SX + c] = x;
-    if (wc && c < DH) wc[c * LD + n] = x;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) mau_int_bwd_rows_kernel(const IntBwdParams p) {
-  constexpr int SX = DH + 4, NC = DH / 16;
+__global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const IntBwdParams p) {
+  constexpr int KP = DH + 8, KS = KP / 8, NJ = DH / 8, EPT = 64 / DH;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                  // [64][SX] x = [su | iv]
-  float* wt = xs + 64 * SX;          // [64][SX] Wd column tile, transposed
-  float* wc = wt + 64 * SX;          // [DH][LD] its seq_units rows, row-major
-  float* gz = wc + DH * LD;          // [64][LD] g_z tile
-  float* gsc = gz + 64 * LD;         // [E] gscaling of the block
+  float* wb = smem;                  // [KP][kWdLd] Wd column tile, TF32 big parts
+  float* wsm = wb + KP * kWdLd;      // [KP][kWdLd] small parts
+  float* bdw = wsm + KP * kWdLd;     // [2][64] bd and w of the tile's columns
+  float* gsc = bdw + 128;            // [E] gscaling of the block
   const int E = p.E, edh = E * DH;
-  const int r0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = blockIdx.x * 64 + 16 * warp;  // the warp's first row
+  for (int e = tid; e < E; e += kIntThreads) gsc[e] = 0.f;
 
-  load_x<DH>(xs, nullptr, p, r0, p.rows);
-  for (int e = tid; e < E; e += kThreads) gsc[e] = 0.f;
+  // x of the warp's rows as A fragments: k step kk, entry i at row
+  // r0 + g + 8 (i & 1), lane 8 kk + t4 + 4 (i >> 1)
+  uint32_t xb[KS][4], xsm[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_tf32(x_at<DH>(p, r0 + g + 8 * (i & 1), 8 * kk + t4 + 4 * (i >> 1), p.rows),
+                 xb[kk][i], xsm[kk][i]);
 
-  float gx[4][NC];  // g_x of the seq_units lanes (the interval's is dropped)
+  float gx[NJ][4];  // g_x of the seq_units lanes (the interval's is dropped)
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) gx[a][c] = 0.f;
+    for (int i = 0; i < 4; ++i) gx[j][i] = 0.f;
 
   for (int n0 = 0; n0 < edh; n0 += 64) {
-    __syncthreads();
-    load_wd<DH>(wt, wc, p.wd, edh, n0);
-    __syncthreads();
-    float z[4][4] = {};
-    tile_nt<4, 4>(z, xs, SX, wt, SX, SX, ty, tx);
-    float sg[4][4], part[4][4], wn[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx + 16 * c;
-      const float bn = n < edh ? p.bd[n] : 0.f;
-      wn[c] = n < edh ? p.w[n] : 0.f;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        sg[a][c] = sigmoid(z[a][c] + bn);
-        part[a][c] = sg[a][c] * wn[c];
-      }
+    __syncthreads();  // the previous tile is consumed
+    for (int idx = tid; idx < KP * 64; idx += kIntThreads) {
+      const int c = idx >> 6, n = idx & 63;
+      const float x = (c <= DH && n0 + n < edh) ? p.wd[(size_t)c * edh + n0 + n] : 0.f;
+      uint32_t big, small;
+      split_tf32(x, big, small);
+      wb[c * kWdLd + n] = __uint_as_float(big);
+      wsm[c * kWdLd + n] = __uint_as_float(small);
     }
-    // raw of (row, event): the event of column tx + 16c is 16c / DH, so
-    // sum the thread's column groups of an event, then the 16 lanes of the
-    // row group
-    constexpr int G = DH / 16;  // column groups an event
+    for (int n = tid; n < 64; n += kIntThreads) {
+      const bool ok = n0 + n < edh;
+      bdw[n] = ok ? p.bd[n0 + n] : 0.f;
+      bdw[64 + n] = ok ? p.w[n0 + n] : 0.f;
+    }
+    __syncthreads();
+
+    // z at (row r0 + g + 8 hr, column n0 + 8 j + 2 t4 + c): z[j][2 hr + c]
+    float z[8][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c0 = 0; c0 < 4; c0 += G) {
+      for (int i = 0; i < 4; ++i) z[j][i] = 0.f;
 #pragma unroll
-        for (int cc = 1; cc < G; ++cc) part[a][c0] += part[a][c0 + cc];
+    for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-        for (int o = 8; o > 0; o >>= 1) part[a][c0] += __shfl_xor_sync(0xffffffffu, part[a][c0], o);
+      for (int j = 0; j < 8; ++j) {
+        const int o0 = (8 * kk + t4) * kWdLd + 8 * j + g, o1 = o0 + 4 * kWdLd;
+        mma_3xtf32(z[j], xb[kk], xsm[kk], __float_as_uint(wb[o0]), __float_as_uint(wb[o1]),
+                   __float_as_uint(wsm[o0]), __float_as_uint(wsm[o1]));
       }
+
+    // sig in place; raw of (row, event): column 8 j + .. is in event 8 j / DH
+    float raw[2][EPT];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = r0 + ty + 16 * a;
+    for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int c0 = (c / G) * G;
-        const float raw = part[a][c0];
-        const int e = (n0 + 16 * c) / DH;
-        float graw = 0.f;
+      for (int el = 0; el < EPT; ++el) raw[hr][el] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t4 + c;
+          const float sg = sigmoid(z[j][2 * hr + c] + bdw[col]);
+          z[j][2 * hr + c] = sg;
+          raw[hr][8 * j / DH] = fmaf(sg, bdw[64 + col], raw[hr][8 * j / DH]);
+        }
+    float graw[2][EPT], gsc_part[EPT];
+#pragma unroll
+    for (int el = 0; el < EPT; ++el) {
+      gsc_part[el] = 0.f;
+      const int e = n0 / DH + el;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float x = raw[hr][el];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const int row = r0 + g + 8 * hr;
+        graw[hr][el] = 0.f;
         if (e < E && row < p.rows) {
           const float gl = p.g_lam[(size_t)row * E + e];
           const float s = expf(p.scaling[e]);
-          const float rr = raw / s, sr = sigmoid(rr);
-          graw = gl * sr;
-          if (tx == 0 && c == c0) {
-            atomicAdd(&gsc[e], gl * (s * softplus(rr) - sr * raw));
-            p.g_raw[(size_t)row * E + e] = graw;
+          const float rr = x / s, sr = sigmoid(rr);
+          graw[hr][el] = gl * sr;
+          if (t4 == 0) {
+            p.g_raw[(size_t)row * E + e] = gl * sr;
+            gsc_part[el] += gl * (s * softplus(rr) - sr * x);
           }
         }
-        gz[(ty + 16 * a) * LD + tx + 16 * c] = graw * wn[c] * sg[a][c] * (1.f - sg[a][c]);
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        gsc_part[el] += __shfl_xor_sync(0xffffffffu, gsc_part[el], o);
+      if (lane == 0 && e < E) atomicAdd(&gsc[e], gsc_part[el]);
+    }
+    // g_z = g_raw w sig (1 - sig), in place
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float sg = z[j][2 * hr + c];
+          z[j][2 * hr + c] = graw[hr][8 * j / DH] * bdw[64 + 8 * j + 2 * t4 + c] * sg * (1.f - sg);
+        }
+
+    // g_x += g_z Wd_tile^T over the tile's columns, k step kk = columns
+    // 8 kk ..: A (g, t4) = g_z at column 2 t4, (g, t4 + 4) at 2 t4 + 1; B
+    // (t4, lane 8 jn + g) = Wd[8 jn + g][n0 + 8 kk + 2 t4], (t4 + 4, ..) at
+    // + 1, one 8-byte load
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ab[4], as[4];
+      split_tf32(z[kk][0], ab[0], as[0]);
+      split_tf32(z[kk][2], ab[1], as[1]);
+      split_tf32(z[kk][1], ab[2], as[2]);
+      split_tf32(z[kk][3], ab[3], as[3]);
+#pragma unroll
+      for (int jn = 0; jn < NJ; ++jn) {
+        const int o = (8 * jn + g) * kWdLd + 8 * kk + 2 * t4;
+        const float2 bb = *reinterpret_cast<const float2*>(wb + o);
+        const float2 bs = *reinterpret_cast<const float2*>(wsm + o);
+        mma_3xtf32(gx[jn], ab, as, __float_as_uint(bb.x), __float_as_uint(bb.y),
+                   __float_as_uint(bs.x), __float_as_uint(bs.y));
       }
     }
-    __syncthreads();
-    tile_nt<4, NC>(gx, gz, LD, wc, LD, 64, ty, tx);
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = r0 + ty + 16 * a;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
     if (row >= p.rows) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) p.g_su[(size_t)row * DH + tx + 16 * c] = gx[a][c];
+    for (int jn = 0; jn < NJ; ++jn)
+      *reinterpret_cast<float2*>(p.g_su + (size_t)row * DH + 8 * jn + 2 * t4) =
+          make_float2(gx[jn][2 * hr], gx[jn][2 * hr + 1]);
   }
   __syncthreads();
-  for (int e = tid; e < E; e += kThreads) atomicAdd(&p.g_sc[e], gsc[e]);
+  for (int e = tid; e < E; e += kIntThreads) atomicAdd(&p.g_sc[e], gsc[e]);
 }
 
+// The column kernel: 64 columns of Wd (blockIdx.x) over kRowChunk rows
+// (blockIdx.y), 16 columns a warp, looping over 64-row sub-tiles. Per
+// sub-tile: z^T = Wd_tile^T x^T (A: the warp's columns of Wd, in registers
+// for the whole loop; B: the sub-tile's x, split into TF32 pairs in shared
+// memory), g_z^T in place from the row kernel's g_raw, gw and gbd in
+// registers; then gWd^T += g_z^T x, g_z^T's C fragments reused as A
+// fragments as in the row kernel (K = the rows). gWd (all dh + 1 lanes),
+// gbd and gw are added by one atomic per entry and block.
 template <int DH>
-__global__ void __launch_bounds__(kThreads) mau_int_bwd_cols_kernel(const IntBwdParams p) {
-  constexpr int SX = DH + 4, NC = DH / 16, EPT = 64 / DH;  // events a tile
+__global__ void __launch_bounds__(kIntThreads) mau_int_bwd_cols_tc_kernel(const IntBwdParams p) {
+  constexpr int KP = DH + 8, KS = KP / 8, XS = KP + 4;  // XS: conflict-free fragment reads
   extern __shared__ __align__(16) float smem[];
-  float* wt = smem;                  // [64][SX] Wd column tile, transposed
-  float* xs = wt + 64 * SX;          // [64][SX] x of a row sub-tile
-  float* xt = xs + 64 * SX;          // [DH][LD] its seq_units, transposed
-  float* gzt = xt + DH * LD;         // [64 columns][LD] g_z transposed
-  float* grs = gzt + 64 * LD;        // [64][4] g_raw of the tile's events
-  float* red = grs + 64 * 4;         // [3][16][64] column sums to reduce
+  float* xb = smem;                  // [64 rows][XS] x sub-tile, TF32 big parts
+  float* xsm = xb + 64 * XS;         // [64 rows][XS] small parts
+  float* grs = xsm + 64 * XS;        // [64 rows][4] g_raw of the tile's events
   const int E = p.E, edh = E * DH;
   const int n0 = blockIdx.x * 64, e0 = n0 / DH;
   const int rbeg = blockIdx.y * kRowChunk, rend = imin(rbeg + kRowChunk, p.rows);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = 16 * warp;  // the warp's first column of the tile
 
-  load_wd<DH>(wt, nullptr, p.wd, edh, n0);
-  float bn[4], wn[4];
+  // Wd^T of the warp's columns as A fragments: k step kk, entry i at column
+  // n0 + m0 + g + 8 (i & 1), lane 8 kk + t4 + 4 (i >> 1)
+  uint32_t ab[KS][4], as[KS][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int n = n0 + tx + 16 * c;
-    bn[c] = n < edh ? p.bd[n] : 0.f;
-    wn[c] = n < edh ? p.w[n] : 0.f;
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + m0 + g + 8 * (i & 1), c = 8 * kk + t4 + 4 * (i >> 1);
+      split_tf32(c <= DH && n < edh ? p.wd[(size_t)c * edh + n] : 0.f, ab[kk][i], as[kk][i]);
+    }
+  // the thread's columns n0 + m0 + g + 8 hm
+  float bn[2], wn[2], gw[2] = {0.f, 0.f}, gbd[2] = {0.f, 0.f};
+  int el[2];
+#pragma unroll
+  for (int hm = 0; hm < 2; ++hm) {
+    const int n = n0 + m0 + g + 8 * hm;
+    bn[hm] = n < edh ? p.bd[n] : 0.f;
+    wn[hm] = n < edh ? p.w[n] : 0.f;
+    el[hm] = (m0 + g + 8 * hm) / DH;
   }
-  // gwd: Wd's seq_units rows ty + 16a; giv: its interval row
-  float gwd[NC][4], giv[4], gbd[4], gw[4];
+  // gWd^T at (column g + 8 hm, lane 8 jn + 2 t4 + c): gwd[jn][2 hm + c]
+  float gwd[KS][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    giv[c] = gbd[c] = gw[c] = 0.f;
+  for (int jn = 0; jn < KS; ++jn)
 #pragma unroll
-    for (int a = 0; a < NC; ++a) gwd[a][c] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) gwd[jn][i] = 0.f;
 
   for (int r0 = rbeg; r0 < rend; r0 += 64) {
-    __syncthreads();
-    load_x<DH>(xs, xt, p, r0, rend);
-    for (int idx = tid; idx < 64 * 4; idx += kThreads) {
-      const int r = idx / 4, el = idx - r * 4;
+    __syncthreads();  // the previous sub-tile is consumed
+    for (int idx = tid; idx < 64 * KP; idx += kIntThreads) {
+      const int r = idx / KP, c = idx - r * KP;
+      uint32_t big, small;
+      split_tf32(x_at<DH>(p, r0 + r, c, rend), big, small);
+      xb[r * XS + c] = __uint_as_float(big);
+      xsm[r * XS + c] = __uint_as_float(small);
+    }
+    for (int idx = tid; idx < 64 * 4; idx += kIntThreads) {
+      const int r = idx >> 2, e = idx & 3;
       const int row = r0 + r;
-      grs[idx] = (row < rend && el < EPT && e0 + el < E) ? p.g_raw[(size_t)row * E + e0 + el] : 0.f;
+      grs[idx] = (row < rend && e < 64 / DH && e0 + e < E) ? p.g_raw[(size_t)row * E + e0 + e]
+                                                           : 0.f;
     }
     __syncthreads();
-    float z[4][4] = {};
-    tile_nt<4, 4>(z, xs, SX, wt, SX, SX, ty, tx);
+
+    // z^T at (column g + 8 hm, row r0 + 8 j + 2 t4 + c): z[j][2 hm + c]; B
+    // (lane t4, row 8 j + g) = x[8 j + g][8 kk + t4], (t4 + 4, ..) at + 4
+    float z[8][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = ty + 16 * a;
-        const float sg = sigmoid(z[a][c] + bn[c]);
-        const float gr = grs[r * 4 + (16 * c) / DH];
-        const float g = gr * wn[c] * sg * (1.f - sg);
-        gw[c] = fmaf(gr, sg, gw[c]);
-        gbd[c] += g;
-        giv[c] = fmaf(xs[r * SX + DH], g, giv[c]);
-        gzt[(tx + 16 * c) * LD + r] = g;
+      for (int i = 0; i < 4; ++i) z[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = (8 * j + g) * XS + 8 * kk + t4;
+        mma_3xtf32(z[j], ab[kk], as[kk], __float_as_uint(xb[o]), __float_as_uint(xb[o + 4]),
+                   __float_as_uint(xsm[o]), __float_as_uint(xsm[o + 4]));
       }
-    __syncthreads();
-    tile_nt<NC, 4>(gwd, xt, LD, gzt, LD, 64, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hm = 0; hm < 2; ++hm)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 8 * j + 2 * t4 + c;
+          const float sg = sigmoid(z[j][2 * hm + c] + bn[hm]);
+          const float gr = grs[r * 4 + el[hm]];
+          const float gz = gr * wn[hm] * sg * (1.f - sg);
+          gw[hm] = fmaf(gr, sg, gw[hm]);
+          gbd[hm] += gz;
+          z[j][2 * hm + c] = gz;
+        }
+
+    // gWd^T += g_z^T x over the sub-tile's rows, k step kk = rows 8 kk ..:
+    // A (g, t4) = g_z^T at row 2 t4, (g, t4 + 4) at 2 t4 + 1; B (t4, lane
+    // 8 jn + g) = x[8 kk + 2 t4][8 jn + g], (t4 + 4, ..) the next row
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t gb[4], gs[4];
+      split_tf32(z[kk][0], gb[0], gs[0]);
+      split_tf32(z[kk][2], gb[1], gs[1]);
+      split_tf32(z[kk][1], gb[2], gs[2]);
+      split_tf32(z[kk][3], gb[3], gs[3]);
+#pragma unroll
+      for (int jn = 0; jn < KS; ++jn) {
+        const int o = (8 * kk + 2 * t4) * XS + 8 * jn + g;
+        mma_3xtf32(gwd[jn], gb, gs, __float_as_uint(xb[o]), __float_as_uint(xb[o + XS]),
+                   __float_as_uint(xsm[o]), __float_as_uint(xsm[o + XS]));
+      }
+    }
   }
 
 #pragma unroll
-  for (int a = 0; a < NC; ++a) {
-    const int c = ty + 16 * a;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int n = n0 + tx + 16 * cc;
-      if (n < edh) atomicAdd(&p.g_wd[(size_t)c * edh + n], gwd[a][cc]);
+  for (int hm = 0; hm < 2; ++hm) {
+    const int n = n0 + m0 + g + 8 * hm;
+    float a = gw[hm], b = gbd[hm];
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+    b += __shfl_xor_sync(0xffffffffu, b, 2);
+    if (n >= edh) continue;
+    if (t4 == 0) {
+      atomicAdd(p.g_w + n, a);
+      atomicAdd(p.g_bd + n, b);
     }
-  }
-  // gbd, gw and the interval row of gWd: sums over the 16 row groups
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    red[ty * 64 + tx + 16 * c] = gbd[c];
-    red[16 * 64 + ty * 64 + tx + 16 * c] = gw[c];
-    red[32 * 64 + ty * 64 + tx + 16 * c] = giv[c];
-  }
-  __syncthreads();
-  if (tid < 192) {
-    const int col = tid & 63, which = tid >> 6;
-    float sum = 0.f;
-    for (int y = 0; y < 16; ++y) sum += red[which * 16 * 64 + y * 64 + col];
-    float* dst = which == 0 ? p.g_bd : which == 1 ? p.g_w : p.g_wd + (size_t)DH * edh;
-    if (n0 + col < edh) atomicAdd(dst + n0 + col, sum);
+    for (int jn = 0; jn < KS; ++jn)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int lane_c = 8 * jn + 2 * t4 + c;
+        if (lane_c <= DH) atomicAdd(p.g_wd + (size_t)lane_c * edh + n, gwd[jn][2 * hm + c]);
+      }
   }
 }
 
@@ -1348,8 +1466,9 @@ int mau_dkvt_bwd(const void* q, long long q_bs, long long q_rs, const void* k, l
   return (int)launch(kDkvtKernels, kDkvt, p, dh, dtype, blocks, static_cast<cudaStream_t>(stream));
 }
 
-// The intensity head's VJP, fp32 throughout: the row kernel, then the
-// column kernel (it reads the row kernel's g_raw). g_wd, g_bd, g_w and g_sc
+// The intensity head's VJP to fp32 accuracy (3xTF32 products on the tensor
+// cores, fp32 elsewhere): the row kernel, then the column kernel (it reads
+// the row kernel's g_raw). g_wd, g_bd, g_w and g_sc
 // must be zero on entry; g_raw is scratch (rows, E).
 int mau_intensity_bwd(const void* su, const void* intervals, const void* wd, const void* bd,
                       const void* w, const void* scaling, const void* g_lam, void* g_raw,
@@ -1375,19 +1494,15 @@ int mau_intensity_bwd(const void* su, const void* intervals, const void* wd, con
   const dim3 rows_grid((p.rows + 63) / 64);
   const dim3 cols_grid((E * dh + 63) / 64, (p.rows + kRowChunk - 1) / kRowChunk);
   const size_t rb = smem_bytes(kIntRows, dh, E, 0), cb = smem_bytes(kIntCols, dh, E, 0);
-  cudaError_t e;
+  auto both = [&](auto rows_kernel, auto cols_kernel) {
+    const cudaError_t e = go(rows_kernel, rows_grid, kIntThreads, rb, s, p);
+    return (int)(e != cudaSuccess ? e : go(cols_kernel, cols_grid, kIntThreads, cb, s, p));
+  };
   switch (dh) {
-    case 16:
-      e = go(mau_int_bwd_rows_kernel<16>, rows_grid, kThreads, rb, s, p);
-      return (int)(e != cudaSuccess ? e : go(mau_int_bwd_cols_kernel<16>, cols_grid, kThreads, cb, s, p));
-    case 32:
-      e = go(mau_int_bwd_rows_kernel<32>, rows_grid, kThreads, rb, s, p);
-      return (int)(e != cudaSuccess ? e : go(mau_int_bwd_cols_kernel<32>, cols_grid, kThreads, cb, s, p));
-    case 64:
-      e = go(mau_int_bwd_rows_kernel<64>, rows_grid, kThreads, rb, s, p);
-      return (int)(e != cudaSuccess ? e : go(mau_int_bwd_cols_kernel<64>, cols_grid, kThreads, cb, s, p));
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return both(mau_int_bwd_rows_tc_kernel<16>, mau_int_bwd_cols_tc_kernel<16>);
+    case 32: return both(mau_int_bwd_rows_tc_kernel<32>, mau_int_bwd_cols_tc_kernel<32>);
+    case 64: return both(mau_int_bwd_rows_tc_kernel<64>, mau_int_bwd_cols_tc_kernel<64>);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

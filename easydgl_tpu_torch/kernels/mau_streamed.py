@@ -14,7 +14,8 @@ order (``_mau_streamed_bwd``):
 
 * ``mau_glam`` (TPU ``_glam_kernel``): d(lambda) from the modulation;
 * ``mau_intensity_bwd`` (TPU ``_int_bwd_kernel``): the intensity head's
-  fp32 VJP, d(seq_units) and the head's parameter gradients;
+  fp32 VJP, d(seq_units) and the head's parameter gradients (its products
+  in 3xTF32 on the tensor cores);
 * rho = <out, g_out> + <g_su, su> in PyTorch;
 * ``mau_dq`` (TPU ``_dq_kernel``): dQ;
 * ``mau_dkvt`` (TPU ``_dkvt_kernel``): dK, dV, dT, key-major.
@@ -372,8 +373,9 @@ def mau_intensity_bwd(su, intervals, wd, bd, w, scaling, g_lam):
     """The intensity head's fp32 VJP at g_lam (B, H, Tq, E): (g_su
     (B, H, Tq, dh), gWd (dh+1, E*dh), gbd (E*dh,), gw (E, dh), gscaling
     (E,)), all fp32. CPU tensors: ``mau_blocked.intensity_vjp_reference``;
-    CUDA tensors: ``mau_int_bwd_rows_kernel`` then
-    ``mau_int_bwd_cols_kernel`` (one launch of the wrapper)."""
+    CUDA tensors: ``mau_int_bwd_rows_tc_kernel`` then
+    ``mau_int_bwd_cols_tc_kernel`` (one launch of the wrapper), whose
+    products run on the tensor cores in 3xTF32, to fp32 accuracy."""
     if not _on_card("mau_intensity_bwd", su, intervals, wd, bd, w, scaling,
                     g_lam, entry="mau_streamed"):
         return intensity_vjp_reference(su, intervals, wd, bd, w, scaling,

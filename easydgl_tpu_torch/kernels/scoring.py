@@ -8,7 +8,8 @@ the card: the CUDA kernels of ``csrc/catalog_nll.cu`` stream vocab tiles
 (forward: online logsumexp and the label logit; backward: two recompute
 passes for d_hidden and for d_table / d_bias, with
 ``g = dlse * softmax + dll * onehot``; in bf16 at C = 512 on ``wgmma``
-with TMA-fed tiles, ``catalog_bwd_tc_kernel``).
+with TMA-fed tiles, ``catalog_fwd_tc_kernel`` and
+``catalog_bwd_tc_kernel``).
 
 CPU tensors take ``catalog_nll_reference``, the plain version, which
 materialises the logits; autograd differentiates it.
@@ -146,7 +147,7 @@ def _lib() -> ctypes.CDLL:
         lib.catalog_nll_fwd.restype = i32
         lib.catalog_nll_bwd.argtypes = [p] * 12 + [i32] * 6 + [p]
         lib.catalog_nll_bwd.restype = i32
-        lib.catalog_splits.argtypes = [i32, i32]
+        lib.catalog_splits.argtypes = [i32] * 4
         lib.catalog_splits.restype = i32
         lib.catalog_cuda_error_string.argtypes = [i32]
         lib.catalog_cuda_error_string.restype = ctypes.c_char_p
@@ -181,11 +182,15 @@ def _prep(hidden, table, bias, labels):
     return h, t, b, lab, n, v, c
 
 
-def _launch_fwd(hidden, table, bias, labels):
+def _launch_fwd(hidden, table, bias, labels, splits=0):
+    """The forward kernel and the merge of its vocab splits. The library
+    picks the kernel and, where ``splits`` is 0, the number of splits."""
     h, t, b, lab, n, v, c = _prep(hidden, table, bias, labels)
     dev = t.device
     lib = _lib()
-    splits = lib.catalog_splits(n, v)
+    with torch.cuda.device(dev):
+        splits = splits or lib.catalog_splits(n, v, c, _DTYPE_CODE[t.dtype])
+    _check(splits >= 1, "the library found no split count for this shape")
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     ll = torch.empty(n, dtype=torch.float32, device=dev)
     part = torch.empty(3 * splits * n, dtype=torch.float32, device=dev)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the catalog NLL backward kernel on one GPU.
+"""Times the catalog NLL backward, or forward, kernels on one GPU.
 
 At SASREC-LC's training shape (N = B*L = 65,536 rows, V = 17,771, C = 512,
 bf16; the inputs of ``chip_smoke.catalog_inputs``, seed 310 as phase 4f):
@@ -11,14 +11,18 @@ the fp32 kernel (the CUDA cores) at N = 3,072 alone. ``--kernels`` adds each
 case's device time by kernel (``torch.profiler``, 10 launches).
 ``--splits SH,ST ...`` times the SASREC-LC cases again with d_hidden's vocab
 splits and d_table's row-tile splits forced to each pair (the library's own
-choice is the first timing). Prints one JSON line with the card's name and
-power limit. Imports neither JAX nor the JAX package. Run from the root of a
-checkout; it takes the package and ``chip_smoke.py`` of the working
-directory, so running it from an older checkout in the same call compares
-two versions:
+choice is the first timing). ``--forward`` times ``catalog_nll_fwd`` (the
+forward and the merge of its splits) at N = 65,536 and 3,072 instead, and
+``--splits S ...`` then forces its vocab splits (only where the
+checkout's forward takes forced splits; older ones do not). Prints
+one JSON line with the card's name and power limit. Imports neither JAX
+nor the JAX package. Run from the root of a checkout; it takes the package
+and ``chip_smoke.py`` of the working directory, so running it from an older
+checkout in the same call compares two versions:
 
     python3 scripts/torch_catalog_bench.py [--label NAME] [--rounds N]
-        [--dtype bfloat16|float32] [--kernels] [--splits SH,ST ...]
+        [--dtype bfloat16|float32] [--kernels] [--forward]
+        [--splits SH,ST ... | --forward --splits S ...]
 """
 from __future__ import annotations
 
@@ -57,6 +61,15 @@ def padded_rows() -> torch.Tensor:
     return torch.as_tensor(labels.reshape(-1) == 0, device="cuda")
 
 
+def forward_case(shape, seed, dtype, splits=None):
+    h, t, b, lab, _, _ = chip_smoke.catalog_inputs(**shape, dtype=dtype,
+                                                   seed=seed)
+    if splits is not None:
+        from easydgl_tpu_torch.kernels.scoring import _launch_fwd
+        return lambda: _launch_fwd(h, t, b, lab, splits=splits)
+    return lambda: catalog_nll_fwd(h, t, b, lab)
+
+
 def case(shape, seed, dtype, dead=None, splits=None):
     h, t, b, lab, dlse, dll = chip_smoke.catalog_inputs(
         **shape, dtype=dtype, seed=seed)
@@ -90,6 +103,7 @@ def main() -> int:
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--forward", action="store_true")
     ap.add_argument("--splits", nargs="*", default=[])
     args = ap.parse_args()
     dtype = getattr(torch, args.dtype)
@@ -101,6 +115,20 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     res = dict(label=args.label, card=card, dtype=args.dtype)
+    if args.forward:
+        cases = [(f"fwd_ms_n{shape['n']}{'' if s is None else f'_splits_{s}'}",
+                  shape, seed, s)
+                 for s in [None] + [int(x) for x in args.splits]
+                 for shape, seed in ((SASREC_LC, 310), (FLAGSHIP, 300))]
+        for name, shape, seed, splits in cases:
+            run = forward_case(shape, seed, dtype, splits)
+            res[name] = [chip_smoke.time_ms(run, warmup=2, iters=10)
+                         for _ in range(args.rounds)]
+            if args.kernels:
+                res[name + "_by_kernel"] = kernel_ms(run)
+            del run
+        print(json.dumps(res), flush=True)
+        return 0
     cases = [("bwd_ms_n3072", FLAGSHIP, 300, None, None)]
     if dtype == torch.bfloat16:
         lc = [("bwd_ms_n65536_all_live", None), ("bwd_ms_n65536_padded",

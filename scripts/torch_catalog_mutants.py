@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Shows that the catalog checks of ``chip_smoke.py`` fail a catalog
-backward kernel whose softmax term is missing, on one GPU.
+backward kernel whose softmax term is missing, and a catalog forward kernel
+that takes a wrong label logit or drops a vocab tile, on one GPU.
 
-The backward's g is ``dlse * exp(s - lse) + dll * onehot(label)``. Each
-mutant takes the softmax term out of one pass of ``csrc/catalog_nll.cu``:
+The backward's g is ``dlse * exp(s - lse) + dll * onehot(label)``. Four
+mutants take the softmax term out of one pass of ``csrc/catalog_nll.cu``:
 the d_table / d_bias pass, or the d_hidden pass, of the wgmma kernel (bf16
-at C = 512) or of the CUDA-core kernel (the other cases). For each mutant,
+at C = 512) or of the CUDA-core kernel (the other cases). Two change the
+wgmma forward (bf16 at C = 512): one takes each row's label logit from the
+neighbouring id (the other id of the thread's pair), one drops the last
+(ragged) vocab tile of every row. For each mutant,
 and for the unchanged source as a control, the package and
 ``chip_smoke.py`` are copied into a temporary directory, the copy's source
 is edited, and ``chip_smoke.CATALOG_CASES`` run there through
@@ -47,6 +51,12 @@ MUTANTS = {
         "gv[c] = r_dl[hr] * fast_exp2(fmaf(x + cs[cl], kLog2e, -r_l2[hr]))"
         " +\n                    (r_id[hr] == c0 + cl ? r_dll[hr] : 0.f);",
         "gv[c] = (r_id[hr] == c0 + cl ? r_dll[hr] : 0.f);"),
+    "label logit from the neighbouring id in the wgmma forward": (
+        "if (8 * n + 2 * t4 + c == lc) ll[hr]",
+        "if (8 * n + 2 * t4 + c == (lc ^ 1)) ll[hr]"),
+    "last vocab tile dropped in the wgmma forward": (
+        "const int t1 = imin(tiles, t0 + p.tiles_per_split);",
+        "const int t1 = imin(tiles - 1, t0 + p.tiles_per_split);"),
 }
 RESULT = "RESULT "
 AT_ONCE = 3   # copies run together

@@ -6,12 +6,17 @@ inputs drawn from a seed: each of ``mau_stats``, ``mau_intensity`` and
 ``mau_modulated_out`` over 20 launches (CUDA events, after warm-up), in bf16
 and fp32; then ``build_eval_step`` of ``PRESETS["EasyDGL-LC"]`` (64 marks,
 bf16, random weights from seed 0) over 8 batches of 8 rows, host clock,
-synchronised, after one warm-up batch. Prints one JSON line with the card's
-name and power limit. Imports neither JAX nor the JAX package; run from the
-root of a checkout (or of an older one, to compare two versions in one
-call):
+synchronised, after one warm-up batch. ``--vjp`` times instead the
+intensity head's VJP alone (``mau_intensity_bwd``, fp32 whatever the
+compute dtype) at the EasyDGL-LC train shape (B=8, T=2048, H=8, dh=64,
+E=64): seq_units from ``mau_stats`` on the bf16 inputs, g_lam ~ N(0,
+1e-3), over 10 launches in each of ``--rounds`` rounds. Prints one JSON
+line with the card's name and power limit. Imports neither JAX nor the JAX
+package; run from the root of a checkout (or of an older one, to compare
+two versions in one call):
 
-    python3 scripts/torch_streamed_bench.py [--label NAME]
+    python3 scripts/torch_streamed_bench.py [--label NAME] [--vjp]
+        [--rounds N]
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from easydgl_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_mark_table, synthetic_split_vectorized)
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator  # noqa: E402
 from easydgl_tpu_torch.kernels.mau_streamed import (  # noqa: E402
-    mau_intensity, mau_modulated_out, mau_stats)
+    mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats)
 from easydgl_tpu_torch.models.registry import build_model  # noqa: E402
 from easydgl_tpu_torch.parity import random_flax_params  # noqa: E402
 from easydgl_tpu_torch.train.steps import build_eval_step  # noqa: E402
@@ -82,6 +87,15 @@ def kernel_times(dtype):
             q, k, v, km, oh, lam, m, l, diag_reset=True, **kw))}
 
 
+def vjp_times(rounds):
+    q, k, v, t, km, iv, oh, wd, bd, w, sc = inputs(torch.bfloat16)
+    _, _, su = mau_stats(q, k, t, km, causal=False, num_heads=H)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    g_lam = torch.randn(B, H, T, E, generator=g, device="cuda") * 1e-3
+    return [time_ms(lambda: mau_intensity_bwd(su, iv, wd, bd, w, sc, g_lam),
+                    warmup=2, iters=10) for _ in range(rounds)]
+
+
 def eval_seqs_per_s(batches=8):
     cfg = preset("EasyDGL-LC", num_events=64)
     model = build_model(cfg, device="cuda",
@@ -106,6 +120,8 @@ def eval_seqs_per_s(batches=8):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
+    ap.add_argument("--vjp", action="store_true")
+    ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_streamed_bench: no CUDA device", file=sys.stderr)
@@ -115,6 +131,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.vjp:
+        print(json.dumps({"label": args.label, "card": card,
+                          "vjp_ms": vjp_times(args.rounds)}), flush=True)
+        return 0
     res = {"label": args.label, "card": card,
            "ms_bf16": kernel_times(torch.bfloat16),
            "ms_fp32": kernel_times(torch.float32),

@@ -234,6 +234,34 @@ def test_catalog_kernels_match_plain_version(cuda_device, dtype, n, v, c):
     _check_by_scale(dtype, got, want, "backward")
 
 
+@pytest.mark.parametrize("splits", ["library", 1, 3, "one_per_tile"])
+@pytest.mark.parametrize("n,v", [(77, 1001), (4097, 17771), (65536, 17771)])
+def test_catalog_forward_kernel_matches_plain_version(cuda_device, n, v,
+                                                      splits):
+    """The bf16 forward at C = 512 (the wgmma kernel) against the plain
+    version, however the vocab is split (the library's choice, forced
+    counts, one split per 128-id tile), with labels at 0, at 63 and 64
+    (either side of a 64-id boundary inside a tile) and at V - 1 (the
+    ragged last tile). lse and ll are held to the fp32 scale tolerance:
+    both sides sum exact bf16 products in fp32."""
+    from easydgl_tpu_torch.kernels.scoring import _launch_fwd
+    rng = np.random.default_rng(n + v)
+    h = torch.tensor(rng.normal(size=(n, 512)), dtype=torch.float32,
+                     device=cuda_device).to(torch.bfloat16)
+    t = torch.tensor(rng.normal(size=(v, 512)) / 8, dtype=torch.float32,
+                     device=cuda_device).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(size=v) * 0.1, dtype=torch.float32,
+                     device=cuda_device)
+    lab = torch.tensor(rng.integers(0, v, n), device=cuda_device)
+    lab[:4] = torch.tensor([0, 63, 64, v - 1])
+    count = {"library": 0, "one_per_tile": -(-v // 128)}.get(splits, splits)
+    before = catalog_nll_fwd.launches
+    got = _launch_fwd(h, t, b, lab, splits=count)
+    assert catalog_nll_fwd.launches == before + 1
+    want = catalog_nll_reference(h, t, b, lab)
+    _check_by_scale(torch.float32, got, want, f"forward, splits {splits}")
+
+
 @pytest.mark.parametrize("n,v,c,rows", [(333, 1001, 512, "alternating"),
                                         (333, 1001, 64, "alternating"),
                                         (4096, 2000, 512, "padded")])
@@ -570,6 +598,32 @@ def test_streamed_backward_kernels_match_plain_version(cuda_device, dtype,
         1, 1, 1, 2, 2, 2, 2]
     # a fully masked row: no gradient into its queries
     assert float(grads["card"][0][0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dh,e,b,t", [(16, 64, 2, 1000), (32, 64, 1, 999),
+                                      (64, 64, 3, 701), (16, 128, 1, 333),
+                                      (32, 128, 2, 77), (64, 128, 1, 1023)])
+def test_intensity_vjp_kernel_matches_plain_version(cuda_device, dh, e, b,
+                                                    t):
+    """The intensity VJP (3xTF32 products on the tensor cores) against
+    ``intensity_vjp_reference``: dh 16, 32, 64, E 64 and 128, H = 2 and row
+    counts B * H * T that are no multiple of the 64-row tile or the
+    2048-row chunk; every output held to the fp32 tolerance."""
+    rng = np.random.default_rng(dh * 1000 + e + t)
+    h = 2
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    su = torch.tensor(rng.normal(0, 0.5, (b, h, t, dh)), **f32)
+    iv = torch.tensor(rng.exponential(1.0, (b, t)), **f32)
+    wd = torch.tensor(rng.normal(0, 0.2, (dh + 1, e * dh)), **f32)
+    bd = torch.tensor(rng.normal(0, 0.1, e * dh), **f32)
+    w = torch.tensor(rng.normal(0, 0.2, (e, dh)), **f32)
+    sc = torch.tensor(rng.normal(0, 0.3, e), **f32)
+    g_lam = torch.tensor(rng.normal(0, 1e-3, (b, h, t, e)), **f32)
+    before = mau_intensity_bwd.launches
+    got = mau_intensity_bwd(su, iv, wd, bd, w, sc, g_lam)
+    assert mau_intensity_bwd.launches == before + 1
+    want = intensity_vjp_reference(su, iv, wd, bd, w, sc, g_lam)
+    _check_by_scale(torch.float32, got, want, f"intensity vjp dh={dh} E={e}")
 
 
 def test_lc_train_step_on_card_matches_cpu(cuda_device):

@@ -12,7 +12,13 @@
   the plain forward's ops, and each of the four plain backward pieces
   against its slice of that result (1e-5 of each output's largest entry);
 * the CPU dispatch under autograd: no kernel counter moves, and each new
-  wrapper equals its plain version bit for bit.
+  wrapper equals its plain version bit for bit;
+* the card's intensity VJP runs its products in 3xTF32 (three TF32
+  products of a big/small split, ``split_tf32`` and ``mma_3xtf32`` in
+  ``csrc/common.cuh``): emulated here by bit masking at the EasyDGL-LC
+  widths (K = 65 and 4,096), its error against fp64 sits well under the
+  fp32 tolerance of 1e-4 of the largest entry, and a one-pass TF32 product
+  misses it.
 
 The CUDA kernels are held against these plain versions in
 ``test_torch_cuda.py`` (card only) and ``chip_smoke.py`` (phase 3e).
@@ -251,3 +257,56 @@ def test_cpu_dispatch_under_autograd_moves_no_counter():
         a = pairs[0][2] if n == 8 else p2
         with pytest.raises(ValueError, match="seed"):
             wrapper(*a[:n], dropout_rate=0.1, num_heads=H)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: the 13 dropped bits of the magnitude
+    rounded by adding half their range, then masked."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product_3xtf32(a, b):
+    """a @ b as the kernels form it: each operand split into a TF32 pair
+    (big = rna(x), small = rna(x - big)), the cross terms first, then big
+    by big, each product exact in fp32 and summed in fp32."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return (asm @ bb + ab @ bsm) + ab @ bb
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = torch.tensor([1.0, -1.0])
+    for mag, want in ((2.0 ** -11, 2.0 ** -10), (2.0 ** -12, 0.0),
+                      (3 * 2.0 ** -12, 2.0 ** -10)):
+        got = _tf32(one * (1.0 + mag))
+        assert got.tolist() == [1.0 + want, -(1.0 + want)], mag
+
+
+@pytest.mark.parametrize("k", [65, 4096])
+def test_3xtf32_products_reach_the_fp32_tolerance(k):
+    """The intensity VJP's products at the EasyDGL-LC widths: z = x Wd
+    (K = dh + 1 = 65: x = [su | iv], su ~ N(0, 0.5), iv ~ Exp(1), Wd ~
+    N(0, 0.2)) and g_x = g_z Wd^T (K = E * dh = 4,096, g_z ~ 1e-4), 512
+    rows. Against fp64, 3xTF32 stays within 1e-5 of the largest entry (a
+    tenth of the card checks' fp32 tolerance; fp32 itself reaches ~3e-7),
+    one TF32 pass does not reach 1e-4."""
+    rng = np.random.default_rng(k)
+    rows = 512
+    if k == 65:
+        a = np.concatenate([rng.normal(0, 0.5, (rows, 64)),
+                            rng.exponential(1.0, (rows, 1))], axis=1)
+        b = rng.normal(0, 0.2, (65, 4096))
+    else:
+        a = rng.normal(0, 1e-4, (rows, k))
+        b = rng.normal(0, 0.2, (k, 64))
+    a = torch.tensor(a, dtype=torch.float32)
+    b = torch.tensor(b, dtype=torch.float32)
+    want = a.double() @ b.double()
+    scale = float(want.abs().max())
+
+    def err(x):
+        return float((x.double() - want).abs().max()) / scale
+
+    assert err(_product_3xtf32(a, b)) <= 1e-5
+    assert err(_tf32(a) @ _tf32(b)) > 1e-4
