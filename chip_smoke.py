@@ -105,7 +105,6 @@ from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
 # and the operation rate for each input type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TF32_FLOPS = 495e12   # the tensor cores in TF32 (3xTF32 takes three passes)
 # |kernel - plain| <= atol + rtol * scale, elementwise. fp32: scale = |plain|;
 # the two sum in different orders (fp32 reassociation, ~1e-6 relative).
 # bf16: both round the same operands to bf16 at the same points, but a sum
@@ -1248,18 +1247,18 @@ def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
 
 
 def intensity_vjp_bounds(*, b, tq, h, dh, e, **_):
-    """(fp32 CUDA-core bound, 3xTF32 tensor-core bound) of the intensity
-    VJP in ms: its ``streamed_bwd_work`` on the CUDA cores at 67 TFLOP/s;
-    and its three products of rows x (dh+1) x E*dh, three TF32 passes each,
-    at the tensor cores' 495 TFLOP/s (each the larger of that and its
-    bytes)."""
+    """(fp32 CUDA-core bound, split-bf16 tensor-core bound) of the
+    intensity VJP in ms: its ``streamed_bwd_work`` on the CUDA cores at 67
+    TFLOP/s; and its three products of rows x (dh+1) x E*dh, three bf16
+    passes each (the hi/lo split the kernels run), at the tensor cores' 989
+    TFLOP/s (each the larger of that and its bytes)."""
     nbytes, flops, _ = streamed_bwd_work("mau_intensity_bwd", b=b, tq=tq,
                                          tk=tq, h=h, dh=dh, e=e,
                                          dtype=torch.float32, keys=0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     products = 3 * 2 * b * h * tq * (dh + 1) * e * dh
     return (bound(nbytes, flops, torch.float32)[0],
-            max(t_bytes, 3 * products / TF32_FLOPS * 1e3))
+            max(t_bytes, 3 * products / PEAK_FLOPS[torch.bfloat16] * 1e3))
 
 
 def phase_streamed_bwd_timing():
@@ -1279,14 +1278,14 @@ def phase_streamed_bwd_timing():
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
             extra = {}
             if name == "mau_intensity_bwd":
-                # the products run on the tensor cores in 3xTF32: the bound
-                # is the lower of the two ways to compute the function
+                # the products run on the tensor cores in three bf16 passes:
+                # the bound is the lower of the two ways to compute them
                 fp32_ms, tc_ms = intensity_vjp_bounds(**LC)
                 bound_ms, bound_by = min(fp32_ms, tc_ms), "operations"
-                extra = dict(bound_fp32_ms=fp32_ms, bound_3xtf32_ms=tc_ms)
-                log(f"  {name:17s} {str(dtype):15s} bound in 3xTF32 on the"
+                extra = dict(bound_fp32_ms=fp32_ms, bound_split_bf16_ms=tc_ms)
+                log(f"  {name:17s} {str(dtype):15s} bound in split bf16 on the"
                     f" tensor cores {tc_ms:.4f} ms (3 products x 3 passes at"
-                    f" 495 TFLOP/s); in fp32 on the CUDA cores (67 TFLOP/s)"
+                    f" 989 TFLOP/s); in fp32 on the CUDA cores (67 TFLOP/s)"
                     f" the same work takes at least {fp32_ms:.4f} ms; the"
                     f" bound is the lower, {min(fp32_ms, tc_ms):.4f} ms")
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
@@ -2206,7 +2205,7 @@ def main() -> int:
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            **{key: row[key] for key in ("bound_fp32_ms", "bound_3xtf32_ms")
+            **{key: row[key] for key in ("bound_fp32_ms", "bound_split_bf16_ms")
                if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]

@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels: dtype conversion and rounding,
-// the sigmoid, mma.sync (bf16, and TF32 with the 3xTF32 split), and the
+// the sigmoid, mma.sync, the bf16 hi/lo split of fp32 values, and the
 // counter-based Philox4x32-10 generator that dropout draws its bits from.
 #pragma once
 
@@ -50,37 +50,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x as a pair of TF32 values: big = x rounded to TF32 (to nearest, ties
-// away from zero: cvt.rna), small = x - big (exact in fp32) rounded the same
-// way. big + small carries x to within about 2^-22 of |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c (16 x 8) += A (16 x 8) B (8 x 8) to about fp32 accuracy in three TF32
-// products (3xTF32): the two cross terms first, then big by big; small by
-// small (~2^-22 of |a||b|) is dropped. Fragments as mma.sync m16n8k8: A
-// (row g, k t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4); B (k t4, n g),
-// (t4 + 4, g); c (g, 2 t4), (g, 2 t4 + 1), (g + 8, 2 t4), (g + 8, 2 t4 + 1),
-// with g = lane / 4, t4 = lane % 4.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4], uint32_t b0_big,
-                                           uint32_t b1_big, uint32_t b0_small,
-                                           uint32_t b1_small) {
-  mma_tf32(c, a_small, b0_big, b1_big);
-  mma_tf32(c, a_big, b0_small, b1_small);
-  mma_tf32(c, a_big, b0_big, b1_big);
+// (x0, x1) as two bf16 pairs packed a word each: hi = x rounded to bf16,
+// lo = x - hi (exact in fp32) rounded to bf16. hi + lo carries x to within
+// about 2^-17 of |x|; a product of two such pairs in three bf16 products
+// (lo hi + hi lo + hi hi, lo lo dropped) to about 2^-16 of |a||b|.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // Four 8x8 bf16 matrices from shared memory into mma fragments: lane i

@@ -207,14 +207,16 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
 }
 
 // d (64 x 64) += A (64 x 16) B (16 x 64), A from registers (the mma A
-// fragment layout of the warp's 16 rows), B from shared memory, MN-major.
+// fragment layout of the warp's 16 rows), B from shared memory, MN-major
+// (TB = 1) or K-major (TB = 0).
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : WG_ACC(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 // ---------------------------------------------------------------- host

@@ -61,41 +61,42 @@
 // * dkvt: one block per 64 keys of one (b, h), looping over query tiles;
 //   dk, dv and dt accumulate in registers.
 // * intensity: the parameter gradients are sums over B*H*Tq rows, the
-//   d(seq_units) a sum over E*dh columns, so two kernels, four warps each,
-//   every product on the tensor cores in 3xTF32 (mma.sync m16n8k8 tf32;
-//   each operand split into a TF32 pair, big = cvt.rna(x), small =
-//   cvt.rna(x - big), and big*big + big*small + small*big summed in fp32,
-//   to about fp32 accuracy: the TPU kernel is fp32). x = [su | iv] is
-//   padded to dh + 8 lanes. The row kernel (64 rows a block, 16 a warp,
-//   looping over 64-column tiles, each one to four whole events) keeps its
-//   rows' x as A fragments in registers, forms z = x Wd_tile with the tile
-//   split in shared memory, then sig, raw, g_raw and g_z in the C fragments,
-//   and accumulates g_x = g_z Wd_tile^T with g_z's C fragments reused as A
-//   fragments (their columns 2 t4, 2 t4 + 1 read as the k lanes t4, t4 + 4,
-//   and B read to match); it stores g_raw (rows, E) and adds gscaling by one
-//   atomic per event and block. The column kernel (64 columns x 2048 rows a
-//   block, 16 columns a warp) keeps its columns of Wd as A fragments, forms
-//   z^T = Wd_tile^T x^T over 64-row sub-tiles split in shared memory, g_z^T
-//   from g_raw, gw and gbd in registers, and gWd^T += g_z^T x (all dh + 1
-//   lanes, the interval's included) the same way; one atomic per entry and
-//   block: ~17 M at the EasyDGL-LC train shape, not one per row. z is
-//   formed twice (JAX's kernel: once), for 4 products of rows x (dh+1) x
-//   E*dh instead of 3; g_x skips the interval lane, whose gradient is
-//   dropped. Shared memory at dh = 64, E = 64: rows 42,240 bytes, columns
-//   39,936.
+//   d(seq_units) a sum over E*dh columns, so two kernels, one warpgroup
+//   each. Every product runs on wgmma m64n64k16 in three bf16 products of
+//   a hi/lo split of its fp32 operands (hi = bf16(x), lo = bf16(x - hi);
+//   lo hi + hi lo + hi hi, summed in fp32: about 2^-16 of |a||b| a term,
+//   where one TF32 pass keeps 2^-11; the TPU kernel is fp32), over the dh
+//   seq_units lanes; the interval lane's terms are fp32 FMAs on the CUDA
+//   cores. The row kernel (64 rows a block, looping over 64-column tiles,
+//   each one to four whole events) keeps its rows' seq_units as hi/lo A
+//   fragments in registers, splits each Wd tile into two swizzled bf16
+//   tiles, forms z = x Wd_tile (B MN-major), then sig, raw, g_raw and g_z
+//   in the accumulators, and accumulates g_x = g_z Wd_tile^T (A: g_z's
+//   accumulators split; B: the same tiles, K-major); it stores g_raw
+//   (rows, E) and adds gscaling by one atomic per event and block. The
+//   column kernel (64 columns x 2048 rows a block) keeps its columns of Wd
+//   as A fragments, splits each 64-row sub-tile of x into two swizzled
+//   tiles, forms z^T = Wd_tile^T x^T (B K-major), g_z^T from g_raw, gw,
+//   gbd and the interval lane's gWd in registers, and gWd^T += g_z^T x (B
+//   MN-major); one atomic per entry and block: ~17 M at the EasyDGL-LC
+//   train shape, not one per row. z is formed twice (JAX's kernel: once),
+//   for 4 products of rows x dh x E*dh instead of 3; g_x skips the
+//   interval lane, whose gradient is dropped. Shared memory: 16 KB of
+//   tiles and 1 KB of alignment slack, about 17.8 KB a block.
 //
 // What bounds it, at the EasyDGL-LC train shape (B=8, H=8, T=2048, dh=64,
 // E=64, BiMAU): operations. glam 3 products of 34.36 GFLOP each, dq 5, dkvt
 // 7 (bf16 tensor-core bounds 0.104, 0.174 and 0.243 ms). The intensity
 // VJP's three products of 131,072 x 65 x 4,096 (~209 GFLOP with the
 // elementwise terms) would take 3.1 ms in fp32 on the CUDA cores (67
-// TFLOP/s); in 3xTF32 they are three passes each at 495 TFLOP/s, 1.27 ms,
-// its bound here. The two kernels form z twice: 4 products x 3 passes, on
-// mma.sync, which runs below wgmma's rate.
+// TFLOP/s); in three bf16 passes each at 989 TFLOP/s they take 0.64 ms,
+// its bound here. The two kernels form z twice (4 products x 3 passes) and
+// run the sigmoids of 537 M entries twice.
 //
 // Limits: dh in {16, 32, 64}; E up to 128 within the shared memory of
 // mau_streamed_bwd_smem_bytes (227 KB).
 
+#include "hopper.cuh"
 #include "mau_streamed.cuh"
 
 namespace {
@@ -152,15 +153,13 @@ __host__ __device__ inline int dq_smem_floats(int dh, int ep) {
 __host__ __device__ inline int dkvt_smem_floats(int dh, int ep) {
   return 6 * 64 * (dh + 4) + 2 * 64 * (ep + 4) + 3 * 64 * LD + 4 * 64;
 }
-// The intensity kernels: the Wd column tile (dh + 8 lanes x 72) as TF32
-// pairs, bd and w of the tile, gscaling; the x sub-tile (64 rows x dh + 12)
-// as TF32 pairs and g_raw of the tile's events.
-__host__ __device__ inline int int_rows_smem_floats(int dh, int E) {
-  return 2 * (dh + 8) * 72 + 128 + E;
+// The intensity kernels: two (64 x 64) bf16 tiles (hi, lo) and 1,024 bytes
+// of alignment slack; the row kernel's interval lane, bd, w and gscaling,
+// the column kernel's intervals and g_raw.
+__host__ __device__ inline int int_rows_smem_floats(int E) {
+  return 2 * 64 * 64 / 2 + 256 + 64 + 128 + E;
 }
-__host__ __device__ inline int int_cols_smem_floats(int dh) {
-  return 2 * 64 * (dh + 12) + 64 * 4;
-}
+__host__ __device__ inline int int_cols_smem_floats() { return 2 * 64 * 64 / 2 + 256 + 64 + 256; }
 
 // rows [r0, r0 + 64) of a row-major source (row stride rs) into dst[r][c]
 // (row stride ld): columns < ns from the source, columns in [ns, nd) zero;
@@ -1012,114 +1011,147 @@ __global__ void __launch_bounds__(kThreadsMma) mau_dkvt_mma_kernel(const BwdPara
 }
 
 // ---------------------------------------------------------------- intensity
-// Both kernels: four warps (kIntThreads); every product on the tensor cores
-// in 3xTF32 (mma.sync m16n8k8, mma_3xtf32), the operands split into TF32
-// pairs once, where they are loaded. x = [su | iv] is padded to KP = dh + 8
-// lanes with zeros (the interval at lane dh).
+// Both kernels: one warpgroup a block; every product on wgmma m64n64k16
+// (A from registers, B from shared memory in the 128-byte swizzle) in
+// three bf16 products of a hi/lo split (split_bf16x2): lo hi + hi lo +
+// hi hi. The products run over the dh seq_units lanes (padded to 64 with
+// zeros); the interval lane's terms are fp32 FMAs on the CUDA cores.
 
 constexpr int kIntThreads = 128;
-constexpr int kWdLd = 72;  // row stride of a Wd column tile [lane][64 columns]
+constexpr int kIntTile = 64 * 64;  // a (64 x 64) bf16 tile, 8 KB
 
-// x[row][c] of x = [su | iv | 0]; zero at rows >= nrows.
-template <int DH>
-__device__ __forceinline__ float x_at(const IntBwdParams& p, int row, int c, int nrows) {
-  if (row >= nrows || c > DH) return 0.f;
-  if (c < DH) return p.su[(size_t)row * DH + c];
+// Element offset of (row r, column col) in a (64 x 64) bf16 tile stored in
+// the 128-byte swizzle: rows of 128 bytes, 16-byte chunk (col / 8) ^ (r % 8).
+__device__ __forceinline__ int sw128_at(int r, int col) {
+  return r * 64 + ((((col >> 3) ^ (r & 7)) << 3) | (col & 7));
+}
+
+// v (four fp32 values at row r, columns col .. col + 3; col % 4 == 0) into
+// the hi and lo tiles.
+__device__ __forceinline__ void store_split4(bf16* hi, bf16* lo, int r, int col, float4 v) {
+  uint32_t h0, l0, h1, l1;
+  split_bf16x2(v.x, v.y, h0, l0);
+  split_bf16x2(v.z, v.w, h1, l1);
+  const int o = sw128_at(r, col);
+  *reinterpret_cast<uint2*>(hi + o) = make_uint2(h0, h1);
+  *reinterpret_cast<uint2*>(lo + o) = make_uint2(l0, l1);
+}
+
+__device__ __forceinline__ float interval_of(const IntBwdParams& p, int row) {
   const int i = row % p.Tq, b = row / (p.Tq * p.H);
   return p.intervals[(size_t)b * p.Tq + i];
 }
 
-// The row kernel: 64 rows a block, 16 a warp, looping over 64-column tiles
-// of Wd (one to four whole events). Per tile: z = x Wd_tile (A: the warp's
-// x, in registers for the whole loop; B: the tile, split into TF32 pairs in
-// shared memory), sig, raw and g_raw in the C fragments (raw: the thread's
-// columns of an event, then the quad), g_z in place; then g_x += g_z
-// Wd_tile^T, g_z's C fragments reused as A fragments (their columns 2 t4,
-// 2 t4 + 1 taken as the k lanes t4, t4 + 4, and B read to match). Stores
-// g_raw (rows, E) and g_su, adds gscaling by one atomic per event and block.
+// d += A B in three bf16 products, A's hi/lo fragments from registers, B's
+// hi/lo tiles by descriptor; TB as wgmma_rs.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_x3(float (&d)[32], const uint32_t* a_hi,
+                                            const uint32_t* a_lo, uint64_t b_hi,
+                                            uint64_t b_lo) {
+  wgmma_rs<TB>(d, a_lo, b_hi);
+  wgmma_rs<TB>(d, a_hi, b_lo);
+  wgmma_rs<TB>(d, a_hi, b_hi);
+}
+
+// The row kernel: 64 rows a block (16 a warp), looping over 64-column tiles
+// of Wd (one to four whole events). Per tile: z = x Wd_tile (A: the rows'
+// seq_units lanes, hi/lo fragments in registers for the whole loop; B: the
+// tile's lanes split into hi/lo tiles, MN-major) plus iv Wd[dh] and bd in
+// fp32, then sig, raw, g_raw and g_z in the accumulators (raw: the thread's
+// columns of an event, then the quad); then g_x += g_z Wd_tile^T (A: g_z's
+// accumulators split into hi/lo fragments; B: the same tiles, K-major).
+// Stores g_raw (rows, E) and g_su, adds gscaling by one atomic per event
+// and block. Thread (warp, g, t4) holds rows 16 warp + g (+8) and, of a
+// tile, columns 8 n + 2 t4 (+1) at z[4 n + 2 hr + c].
 template <int DH>
 __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const IntBwdParams p) {
-  constexpr int KP = DH + 8, KS = KP / 8, NJ = DH / 8, EPT = 64 / DH;
-  extern __shared__ __align__(16) float smem[];
-  float* wb = smem;                  // [KP][kWdLd] Wd column tile, TF32 big parts
-  float* wsm = wb + KP * kWdLd;      // [KP][kWdLd] small parts
-  float* bdw = wsm + KP * kWdLd;     // [2][64] bd and w of the tile's columns
-  float* gsc = bdw + 128;            // [E] gscaling of the block
+  constexpr int KK = DH / 16, EPT = 64 / DH;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* whi = reinterpret_cast<bf16*>(base);  // [64 lanes][64 columns] Wd tile, hi
+  bf16* wlo = whi + kIntTile;                 // lo
+  float* wiv = reinterpret_cast<float*>(wlo + kIntTile);  // [64] the interval lane
+  float* bdw = wiv + 64;                      // [2][64] bd, w
+  float* gsc = bdw + 128;                     // [E] gscaling of the block
   const int E = p.E, edh = E * DH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = blockIdx.x * 64 + 16 * warp;  // the warp's first row
   for (int e = tid; e < E; e += kIntThreads) gsc[e] = 0.f;
 
-  // x of the warp's rows as A fragments: k step kk, entry i at row
-  // r0 + g + 8 (i & 1), lane 8 kk + t4 + 4 (i >> 1)
-  uint32_t xb[KS][4], xsm[KS][4];
+  // the rows' seq_units as A fragments: k step kk, entry i at row
+  // r0 + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1) + 2 t4 (+1)
+  uint32_t xh[KK][4], xl[KK][4];
+  float iv[2];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    iv[hr] = row < p.rows ? interval_of(p, row) : 0.f;
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split_tf32(x_at<DH>(p, r0 + g + 8 * (i & 1), 8 * kk + t4 + 4 * (i >> 1), p.rows),
-                 xb[kk][i], xsm[kk][i]);
-
-  float gx[NJ][4];  // g_x of the seq_units lanes (the interval's is dropped)
+  for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t4;
+      const float2 v = row < p.rows ? *reinterpret_cast<const float2*>(p.su + (size_t)row * DH + c)
+                                    : make_float2(0.f, 0.f);
+      split_bf16x2(v.x, v.y, xh[kk][i], xl[kk][i]);
+    }
+  const uint64_t dwh = sw128_desc(whi), dwl = sw128_desc(wlo);
+  float gx[32];  // g_x at (row, lane 8 n + 2 t4 + c), n < DH / 8
 #pragma unroll
-    for (int i = 0; i < 4; ++i) gx[j][i] = 0.f;
+  for (int i = 0; i < 32; ++i) gx[i] = 0.f;
 
   for (int n0 = 0; n0 < edh; n0 += 64) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < KP * 64; idx += kIntThreads) {
-      const int c = idx >> 6, n = idx & 63;
-      const float x = (c <= DH && n0 + n < edh) ? p.wd[(size_t)c * edh + n0 + n] : 0.f;
-      uint32_t big, small;
-      split_tf32(x, big, small);
-      wb[c * kWdLd + n] = __uint_as_float(big);
-      wsm[c * kWdLd + n] = __uint_as_float(small);
+    for (int idx = tid; idx < 64 * 16; idx += kIntThreads) {
+      const int c = idx >> 4, q = (idx & 15) * 4;
+      const float4 v = c < DH && n0 + q < edh
+                           ? *reinterpret_cast<const float4*>(p.wd + (size_t)c * edh + n0 + q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      store_split4(whi, wlo, c, q, v);
     }
     for (int n = tid; n < 64; n += kIntThreads) {
       const bool ok = n0 + n < edh;
+      wiv[n] = ok ? p.wd[(size_t)DH * edh + n0 + n] : 0.f;
       bdw[n] = ok ? p.bd[n0 + n] : 0.f;
       bdw[64 + n] = ok ? p.w[n0 + n] : 0.f;
     }
+    fence_async_smem();
     __syncthreads();
 
-    // z at (row r0 + g + 8 hr, column n0 + 8 j + 2 t4 + c): z[j][2 hr + c]
-    float z[8][4];
+    float z[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 32; ++i) z[i] = 0.f;
+    wg_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) z[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int o0 = (8 * kk + t4) * kWdLd + 8 * j + g, o1 = o0 + 4 * kWdLd;
-        mma_3xtf32(z[j], xb[kk], xsm[kk], __float_as_uint(wb[o0]), __float_as_uint(wb[o1]),
-                   __float_as_uint(wsm[o0]), __float_as_uint(wsm[o1]));
-      }
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_rs_x3<1>(z, xh[kk], xl[kk], dwh + 128 * kk, dwl + 128 * kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(z);
 
-    // sig in place; raw of (row, event): column 8 j + .. is in event 8 j / DH
+    // sig in place; raw of (row, event): column 8 n + .. is in event 8 n / DH
     float raw[2][EPT];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
       for (int el = 0; el < EPT; ++el) raw[hr][el] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int col = 8 * j + 2 * t4 + c;
-          const float sg = sigmoid(z[j][2 * hr + c] + bdw[col]);
-          z[j][2 * hr + c] = sg;
-          raw[hr][8 * j / DH] = fmaf(sg, bdw[64 + col], raw[hr][8 * j / DH]);
+          const int col = 8 * n + 2 * t4 + c;
+          float& x = z[4 * n + 2 * hr + c];
+          x = sigmoid(fmaf(iv[hr], wiv[col], x + bdw[col]));
+          raw[hr][8 * n / DH] = fmaf(x, bdw[64 + col], raw[hr][8 * n / DH]);
         }
-    float graw[2][EPT], gsc_part[EPT];
+    float graw[2][EPT];
 #pragma unroll
     for (int el = 0; el < EPT; ++el) {
-      gsc_part[el] = 0.f;
+      float part = 0.f;
       const int e = n0 / DH + el;
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -1135,46 +1167,36 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const 
           graw[hr][el] = gl * sr;
           if (t4 == 0) {
             p.g_raw[(size_t)row * E + e] = gl * sr;
-            gsc_part[el] += gl * (s * softplus(rr) - sr * x);
+            part += gl * (s * softplus(rr) - sr * x);
           }
         }
       }
 #pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-        gsc_part[el] += __shfl_xor_sync(0xffffffffu, gsc_part[el], o);
-      if (lane == 0 && e < E) atomicAdd(&gsc[e], gsc_part[el]);
+      for (int o = 4; o < 32; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0 && e < E) atomicAdd(&gsc[e], part);
     }
-    // g_z = g_raw w sig (1 - sig), in place
+    // g_z = g_raw w sig (1 - sig), split into the A fragments of g_x's
+    // product (k step kk: columns 16 kk ..; entry i the pair z[8 kk + 2 i], +1)
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
+      for (int i = 0; i < 4; ++i) {
+        float gz[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float sg = z[j][2 * hr + c];
-          z[j][2 * hr + c] = graw[hr][8 * j / DH] * bdw[64 + 8 * j + 2 * t4 + c] * sg * (1.f - sg);
+          const int j = 8 * kk + 2 * i + c, n = j >> 2, hr = (j >> 1) & 1;
+          const float sg = z[j];
+          gz[c] = graw[hr][8 * n / DH] * bdw[64 + 8 * n + 2 * t4 + c] * sg * (1.f - sg);
         }
-
-    // g_x += g_z Wd_tile^T over the tile's columns, k step kk = columns
-    // 8 kk ..: A (g, t4) = g_z at column 2 t4, (g, t4 + 4) at 2 t4 + 1; B
-    // (t4, lane 8 jn + g) = Wd[8 jn + g][n0 + 8 kk + 2 t4], (t4 + 4, ..) at
-    // + 1, one 8-byte load
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t ab[4], as[4];
-      split_tf32(z[kk][0], ab[0], as[0]);
-      split_tf32(z[kk][2], ab[1], as[1]);
-      split_tf32(z[kk][1], ab[2], as[2]);
-      split_tf32(z[kk][3], ab[3], as[3]);
-#pragma unroll
-      for (int jn = 0; jn < NJ; ++jn) {
-        const int o = (8 * jn + g) * kWdLd + 8 * kk + 2 * t4;
-        const float2 bb = *reinterpret_cast<const float2*>(wb + o);
-        const float2 bs = *reinterpret_cast<const float2*>(wsm + o);
-        mma_3xtf32(gx[jn], ab, as, __float_as_uint(bb.x), __float_as_uint(bb.y),
-                   __float_as_uint(bs.x), __float_as_uint(bs.y));
+        split_bf16x2(gz[0], gz[1], ah[kk][i], al[kk][i]);
       }
-    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_x3<0>(gx, ah[kk], al[kk], dwh + 2 * kk, dwl + 2 * kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(gx);
   }
 
 #pragma unroll
@@ -1182,9 +1204,9 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const 
     const int row = r0 + g + 8 * hr;
     if (row >= p.rows) continue;
 #pragma unroll
-    for (int jn = 0; jn < NJ; ++jn)
-      *reinterpret_cast<float2*>(p.g_su + (size_t)row * DH + 8 * jn + 2 * t4) =
-          make_float2(gx[jn][2 * hr], gx[jn][2 * hr + 1]);
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(p.g_su + (size_t)row * DH + 8 * n + 2 * t4) =
+          make_float2(gx[4 * n + 2 * hr], gx[4 * n + 2 * hr + 1]);
   }
   __syncthreads();
   for (int e = tid; e < E; e += kIntThreads) atomicAdd(&p.g_sc[e], gsc[e]);
@@ -1192,19 +1214,23 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const 
 
 // The column kernel: 64 columns of Wd (blockIdx.x) over kRowChunk rows
 // (blockIdx.y), 16 columns a warp, looping over 64-row sub-tiles. Per
-// sub-tile: z^T = Wd_tile^T x^T (A: the warp's columns of Wd, in registers
-// for the whole loop; B: the sub-tile's x, split into TF32 pairs in shared
-// memory), g_z^T in place from the row kernel's g_raw, gw and gbd in
-// registers; then gWd^T += g_z^T x, g_z^T's C fragments reused as A
-// fragments as in the row kernel (K = the rows). gWd (all dh + 1 lanes),
-// gbd and gw are added by one atomic per entry and block.
+// sub-tile: z^T = Wd_tile^T x^T (A: the columns' seq_units lanes of Wd,
+// hi/lo fragments in registers for the whole loop; B: the sub-tile's x
+// split into hi/lo tiles, K-major) plus Wd[dh] iv and bd in fp32; g_z^T in
+// place from the row kernel's g_raw, gw, gbd and the interval lane's gWd in
+// registers; then gWd^T += g_z^T x (A: g_z^T split; B: the same tiles,
+// MN-major). gWd, gbd and gw are added by one atomic per entry and block.
+// Thread (warp, g, t4) holds columns 16 warp + g (+8) and, of a sub-tile,
+// rows 8 n + 2 t4 (+1) at zt[4 n + 2 hm + c].
 template <int DH>
 __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_cols_tc_kernel(const IntBwdParams p) {
-  constexpr int KP = DH + 8, KS = KP / 8, XS = KP + 4;  // XS: conflict-free fragment reads
-  extern __shared__ __align__(16) float smem[];
-  float* xb = smem;                  // [64 rows][XS] x sub-tile, TF32 big parts
-  float* xsm = xb + 64 * XS;         // [64 rows][XS] small parts
-  float* grs = xsm + 64 * XS;        // [64 rows][4] g_raw of the tile's events
+  constexpr int KK = DH / 16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* xhi = reinterpret_cast<bf16*>(base);  // [64 rows][64 lanes] x sub-tile, hi
+  bf16* xlo = xhi + kIntTile;                 // lo
+  float* ivs = reinterpret_cast<float*>(xlo + kIntTile);  // [64] the sub-tile's intervals
+  float* grs = ivs + 64;                      // [64 rows][4] g_raw of the tile's events
   const int E = p.E, edh = E * DH;
   const int n0 = blockIdx.x * 64, e0 = n0 / DH;
   const int rbeg = blockIdx.y * kRowChunk, rend = imin(rbeg + kRowChunk, p.rows);
@@ -1212,119 +1238,117 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_cols_tc_kernel(const 
   const int g = lane >> 2, t4 = lane & 3;
   const int m0 = 16 * warp;  // the warp's first column of the tile
 
-  // Wd^T of the warp's columns as A fragments: k step kk, entry i at column
-  // n0 + m0 + g + 8 (i & 1), lane 8 kk + t4 + 4 (i >> 1)
-  uint32_t ab[KS][4], as[KS][4];
+  // Wd^T of the warp's columns as A fragments: k step kk, entry i at
+  // column n0 + m0 + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1) + 2 t4 (+1)
+  uint32_t ah[KK][4], al[KK][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
+  for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int n = n0 + m0 + g + 8 * (i & 1), c = 8 * kk + t4 + 4 * (i >> 1);
-      split_tf32(c <= DH && n < edh ? p.wd[(size_t)c * edh + n] : 0.f, ab[kk][i], as[kk][i]);
+      const int n = n0 + m0 + g + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t4;
+      const bool ok = n < edh;
+      split_bf16x2(ok ? p.wd[(size_t)c * edh + n] : 0.f, ok ? p.wd[(size_t)(c + 1) * edh + n] : 0.f,
+                   ah[kk][i], al[kk][i]);
     }
   // the thread's columns n0 + m0 + g + 8 hm
-  float bn[2], wn[2], gw[2] = {0.f, 0.f}, gbd[2] = {0.f, 0.f};
+  float bn[2], wn[2], wi[2], gw[2] = {0.f, 0.f}, gbd[2] = {0.f, 0.f}, giv[2] = {0.f, 0.f};
   int el[2];
 #pragma unroll
   for (int hm = 0; hm < 2; ++hm) {
     const int n = n0 + m0 + g + 8 * hm;
-    bn[hm] = n < edh ? p.bd[n] : 0.f;
-    wn[hm] = n < edh ? p.w[n] : 0.f;
+    const bool ok = n < edh;
+    bn[hm] = ok ? p.bd[n] : 0.f;
+    wn[hm] = ok ? p.w[n] : 0.f;
+    wi[hm] = ok ? p.wd[(size_t)DH * edh + n] : 0.f;
     el[hm] = (m0 + g + 8 * hm) / DH;
   }
-  // gWd^T at (column g + 8 hm, lane 8 jn + 2 t4 + c): gwd[jn][2 hm + c]
-  float gwd[KS][4];
+  const uint64_t dxh = sw128_desc(xhi), dxl = sw128_desc(xlo);
+  float gwd[32];  // gWd^T at (column, lane 8 n + 2 t4 + c), n < DH / 8
 #pragma unroll
-  for (int jn = 0; jn < KS; ++jn)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) gwd[jn][i] = 0.f;
+  for (int i = 0; i < 32; ++i) gwd[i] = 0.f;
 
   for (int r0 = rbeg; r0 < rend; r0 += 64) {
     __syncthreads();  // the previous sub-tile is consumed
-    for (int idx = tid; idx < 64 * KP; idx += kIntThreads) {
-      const int r = idx / KP, c = idx - r * KP;
-      uint32_t big, small;
-      split_tf32(x_at<DH>(p, r0 + r, c, rend), big, small);
-      xb[r * XS + c] = __uint_as_float(big);
-      xsm[r * XS + c] = __uint_as_float(small);
+    for (int idx = tid; idx < 64 * 16; idx += kIntThreads) {
+      const int r = idx >> 4, q = (idx & 15) * 4, row = r0 + r;
+      const float4 v = row < rend && q < DH
+                           ? *reinterpret_cast<const float4*>(p.su + (size_t)row * DH + q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      store_split4(xhi, xlo, r, q, v);
     }
     for (int idx = tid; idx < 64 * 4; idx += kIntThreads) {
-      const int r = idx >> 2, e = idx & 3;
-      const int row = r0 + r;
+      const int r = idx >> 2, e = idx & 3, row = r0 + r;
       grs[idx] = (row < rend && e < 64 / DH && e0 + e < E) ? p.g_raw[(size_t)row * E + e0 + e]
                                                            : 0.f;
+      if (e == 0) ivs[r] = row < rend ? interval_of(p, row) : 0.f;
     }
+    fence_async_smem();
     __syncthreads();
 
-    // z^T at (column g + 8 hm, row r0 + 8 j + 2 t4 + c): z[j][2 hm + c]; B
-    // (lane t4, row 8 j + g) = x[8 j + g][8 kk + t4], (t4 + 4, ..) at + 4
-    float z[8][4];
+    float zt[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 32; ++i) zt[i] = 0.f;
+    wg_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) z[j][i] = 0.f;
+    for (int kk = 0; kk < KK; ++kk) wgmma_rs_x3<0>(zt, ah[kk], al[kk], dxh + 2 * kk, dxl + 2 * kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(zt);
+
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int o = (8 * j + g) * XS + 8 * kk + t4;
-        mma_3xtf32(z[j], ab[kk], as[kk], __float_as_uint(xb[o]), __float_as_uint(xb[o + 4]),
-                   __float_as_uint(xsm[o]), __float_as_uint(xsm[o + 4]));
-      }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int hm = 0; hm < 2; ++hm)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int r = 8 * j + 2 * t4 + c;
-          const float sg = sigmoid(z[j][2 * hm + c] + bn[hm]);
+          const int r = 8 * n + 2 * t4 + c;
+          float& x = zt[4 * n + 2 * hm + c];
+          const float sg = sigmoid(fmaf(wi[hm], ivs[r], x + bn[hm]));
           const float gr = grs[r * 4 + el[hm]];
           const float gz = gr * wn[hm] * sg * (1.f - sg);
           gw[hm] = fmaf(gr, sg, gw[hm]);
           gbd[hm] += gz;
-          z[j][2 * hm + c] = gz;
+          giv[hm] = fmaf(ivs[r], gz, giv[hm]);
+          x = gz;
         }
-
-    // gWd^T += g_z^T x over the sub-tile's rows, k step kk = rows 8 kk ..:
-    // A (g, t4) = g_z^T at row 2 t4, (g, t4 + 4) at 2 t4 + 1; B (t4, lane
-    // 8 jn + g) = x[8 kk + 2 t4][8 jn + g], (t4 + 4, ..) the next row
+    // g_z^T as A fragments: k step kk = rows 16 kk ..; entry i the pair
+    // zt[8 kk + 2 i], +1
+    uint32_t gh[4][4], gl[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t gb[4], gs[4];
-      split_tf32(z[kk][0], gb[0], gs[0]);
-      split_tf32(z[kk][2], gb[1], gs[1]);
-      split_tf32(z[kk][1], gb[2], gs[2]);
-      split_tf32(z[kk][3], gb[3], gs[3]);
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int jn = 0; jn < KS; ++jn) {
-        const int o = (8 * kk + 2 * t4) * XS + 8 * jn + g;
-        mma_3xtf32(gwd[jn], gb, gs, __float_as_uint(xb[o]), __float_as_uint(xb[o + XS]),
-                   __float_as_uint(xsm[o]), __float_as_uint(xsm[o + XS]));
-      }
-    }
+      for (int i = 0; i < 4; ++i)
+        split_bf16x2(zt[8 * kk + 2 * i], zt[8 * kk + 2 * i + 1], gh[kk][i], gl[kk][i]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_x3<1>(gwd, gh[kk], gl[kk], dxh + 128 * kk, dxl + 128 * kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(gwd);
   }
 
 #pragma unroll
   for (int hm = 0; hm < 2; ++hm) {
     const int n = n0 + m0 + g + 8 * hm;
-    float a = gw[hm], b = gbd[hm];
-    a += __shfl_xor_sync(0xffffffffu, a, 1);
-    a += __shfl_xor_sync(0xffffffffu, a, 2);
-    b += __shfl_xor_sync(0xffffffffu, b, 1);
-    b += __shfl_xor_sync(0xffffffffu, b, 2);
+    float a = gw[hm], b = gbd[hm], v = giv[hm];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+      v += __shfl_xor_sync(0xffffffffu, v, o);
+    }
     if (n >= edh) continue;
     if (t4 == 0) {
       atomicAdd(p.g_w + n, a);
       atomicAdd(p.g_bd + n, b);
+      atomicAdd(p.g_wd + (size_t)DH * edh + n, v);
     }
 #pragma unroll
-    for (int jn = 0; jn < KS; ++jn)
+    for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int lane_c = 8 * jn + 2 * t4 + c;
-        if (lane_c <= DH) atomicAdd(p.g_wd + (size_t)lane_c * edh + n, gwd[jn][2 * hm + c]);
-      }
+      for (int c = 0; c < 2; ++c)
+        atomicAdd(p.g_wd + (size_t)(8 * j + 2 * t4 + c) * edh + n, gwd[4 * j + 2 * hm + c]);
   }
 }
 
@@ -1364,8 +1388,8 @@ size_t smem_bytes(int which, int dh, int E, int dtype) {
       return dtype ? dq_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dq_smem_floats(dh, ep);
     case kDkvt:
       return dtype ? dkvt_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dkvt_smem_floats(dh, ep);
-    case kIntRows: return sizeof(float) * (size_t)int_rows_smem_floats(dh, E);
-    default: return sizeof(float) * (size_t)int_cols_smem_floats(dh);
+    case kIntRows: return sizeof(float) * (size_t)int_rows_smem_floats(E);
+    default: return sizeof(float) * (size_t)int_cols_smem_floats();
   }
 }
 

@@ -15,7 +15,7 @@ order (``_mau_streamed_bwd``):
 * ``mau_glam`` (TPU ``_glam_kernel``): d(lambda) from the modulation;
 * ``mau_intensity_bwd`` (TPU ``_int_bwd_kernel``): the intensity head's
   fp32 VJP, d(seq_units) and the head's parameter gradients (its products
-  in 3xTF32 on the tensor cores);
+  on the tensor cores in three bf16 products of a hi/lo split);
 * rho = <out, g_out> + <g_su, su> in PyTorch;
 * ``mau_dq`` (TPU ``_dq_kernel``): dQ;
 * ``mau_dkvt`` (TPU ``_dkvt_kernel``): dK, dV, dT, key-major.
@@ -375,7 +375,8 @@ def mau_intensity_bwd(su, intervals, wd, bd, w, scaling, g_lam):
     (E,)), all fp32. CPU tensors: ``mau_blocked.intensity_vjp_reference``;
     CUDA tensors: ``mau_int_bwd_rows_tc_kernel`` then
     ``mau_int_bwd_cols_tc_kernel`` (one launch of the wrapper), whose
-    products run on the tensor cores in 3xTF32, to fp32 accuracy."""
+    products run on the tensor cores in three bf16 products of a hi/lo
+    split of each fp32 operand (about 2^-16 of |a||b| a term)."""
     if not _on_card("mau_intensity_bwd", su, intervals, wd, bd, w, scaling,
                     g_lam, entry="mau_streamed"):
         return intensity_vjp_reference(su, intervals, wd, bd, w, scaling,
@@ -391,8 +392,10 @@ def mau_intensity_bwd(su, intervals, wd, bd, w, scaling, g_lam):
     lib = _bwd_lib()
     for which in (_INT_ROWS, _INT_COLS):
         _bwd_fits(lib, which, "mau_intensity_bwd", dh, e, torch.float32)
-    suf, iv, wdf, bdf, wf, scf, gl = (_f32(x) for x in (
-        su, intervals, wd, bd, w, scaling, g_lam))
+    # contiguous fp32, at 16-byte boundaries for the kernels' vector loads
+    suf, iv, wdf, bdf, wf, scf, gl = (
+        x if x.data_ptr() % 16 == 0 else x.clone() for x in (
+            _f32(y) for y in (su, intervals, wd, bd, w, scaling, g_lam)))
     f32 = dict(dtype=torch.float32, device=su.device)
     g_su = torch.empty((b, h, tq, dh), **f32)
     g_raw = torch.empty((b * h * tq, e), **f32)
