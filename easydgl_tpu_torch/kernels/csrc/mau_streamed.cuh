@@ -105,6 +105,8 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);  // all groups but the newest
 }
 
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
 // rows [r0, r0 + 64) x n bf16 columns (n % 8 == 0; 16-byte aligned rows)
 // into dst (row stride ld) with cp.async; rows >= nrows are zero-filled.
 __device__ __forceinline__ void async_bf16(bf16* dst, int ld, const bf16* src, long long rs,

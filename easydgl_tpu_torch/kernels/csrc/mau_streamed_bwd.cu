@@ -81,8 +81,11 @@
 //   MN-major); one atomic per entry and block: ~17 M at the EasyDGL-LC
 //   train shape, not one per row. z is formed twice (JAX's kernel: once),
 //   for 4 products of rows x dh x E*dh instead of 3; g_x skips the
-//   interval lane, whose gradient is dropped. Shared memory: 16 KB of
-//   tiles and 1 KB of alignment slack, about 17.8 KB a block.
+//   interval lane, whose gradient is dropped. Each kernel copies its next
+//   tile into one of two fp32 buffers by cp.async while it works on the
+//   current one. Shared memory at dh = 64, E = 64: 51,968 bytes (rows) and
+//   52,736 (columns): the hi/lo tiles, the two buffers, 1 KB of alignment
+//   slack.
 //
 // What bounds it, at the EasyDGL-LC train shape (B=8, H=8, T=2048, dh=64,
 // E=64, BiMAU): operations. glam 3 products of 34.36 GFLOP each, dq 5, dkvt
@@ -153,13 +156,16 @@ __host__ __device__ inline int dq_smem_floats(int dh, int ep) {
 __host__ __device__ inline int dkvt_smem_floats(int dh, int ep) {
   return 6 * 64 * (dh + 4) + 2 * 64 * (ep + 4) + 3 * 64 * LD + 4 * 64;
 }
-// The intensity kernels: two (64 x 64) bf16 tiles (hi, lo) and 1,024 bytes
-// of alignment slack; the row kernel's interval lane, bd, w and gscaling,
-// the column kernel's intervals and g_raw.
-__host__ __device__ inline int int_rows_smem_floats(int E) {
-  return 2 * 64 * 64 / 2 + 256 + 64 + 128 + E;
+// The intensity kernels: two (64 x 64) bf16 tiles (hi, lo), 1,024 bytes of
+// alignment slack and two fp32 buffers of their next tile: the row kernel's
+// Wd tile with its interval lane, bd and w, and gscaling; the column
+// kernel's x sub-tile with its intervals and g_raw.
+__host__ __device__ inline int int_rows_smem_floats(int dh, int E) {
+  return 2 * 64 * 64 / 2 + 256 + 2 * (dh * 64 + 192) + E;
 }
-__host__ __device__ inline int int_cols_smem_floats() { return 2 * 64 * 64 / 2 + 256 + 64 + 256; }
+__host__ __device__ inline int int_cols_smem_floats(int dh) {
+  return 2 * 64 * 64 / 2 + 256 + 2 * (64 * dh + 64 + 256);
+}
 
 // rows [r0, r0 + 64) of a row-major source (row stride rs) into dst[r][c]
 // (row stride ld): columns < ns from the source, columns in [ns, nd) zero;
@@ -1070,14 +1076,35 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const 
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* whi = reinterpret_cast<bf16*>(base);  // [64 lanes][64 columns] Wd tile, hi
   bf16* wlo = whi + kIntTile;                 // lo
-  float* wiv = reinterpret_cast<float*>(wlo + kIntTile);  // [64] the interval lane
-  float* bdw = wiv + 64;                      // [2][64] bd, w
-  float* gsc = bdw + 128;                     // [E] gscaling of the block
+  // [2][DH lanes][64 columns] the raw tiles and [2][3][64] their interval
+  // lane, bd and w, filled a tile ahead by cp.async
+  float* wraw = reinterpret_cast<float*>(wlo + kIntTile);
+  float* side = wraw + 2 * DH * 64;
+  float* gsc = side + 2 * 192;                // [E] gscaling of the block
   const int E = p.E, edh = E * DH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = blockIdx.x * 64 + 16 * warp;  // the warp's first row
   for (int e = tid; e < E; e += kIntThreads) gsc[e] = 0.f;
+  // lanes dh .. 63 of the hi/lo tiles stay zero
+  for (int idx = DH * 16 + tid; idx < 64 * 16; idx += kIntThreads)
+    store_split4(whi, wlo, idx >> 4, (idx & 15) * 4, make_float4(0.f, 0.f, 0.f, 0.f));
+  auto fetch = [&](int n0, int b) {  // tile n0 into buffer b
+    float* dst = wraw + b * DH * 64;
+    for (int idx = tid; idx < DH * 16; idx += kIntThreads) {
+      const int c = idx >> 4, q = (idx & 15) * 4;
+      const bool ok = n0 + q < edh;
+      cp_async16(dst + c * 64 + q, p.wd + (size_t)c * edh + (ok ? n0 + q : 0), ok);
+    }
+    for (int idx = tid; idx < 48; idx += kIntThreads) {
+      const int which = idx >> 4, q = (idx & 15) * 4;
+      const bool ok = n0 + q < edh;
+      const float* src = which == 0 ? p.wd + (size_t)DH * edh : which == 1 ? p.bd : p.w;
+      cp_async16(side + b * 192 + which * 64 + q, src + (ok ? n0 + q : 0), ok);
+    }
+    cp_async_commit();
+  };
+  fetch(0, 0);
 
   // the rows' seq_units as A fragments: k step kk, entry i at row
   // r0 + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1) + 2 t4 (+1)
@@ -1102,21 +1129,17 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const 
 #pragma unroll
   for (int i = 0; i < 32; ++i) gx[i] = 0.f;
 
-  for (int n0 = 0; n0 < edh; n0 += 64) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < 64 * 16; idx += kIntThreads) {
+  for (int n0 = 0, t = 0; n0 < edh; n0 += 64, ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed, tile t - 1 is consumed
+    if (n0 + 64 < edh) fetch(n0 + 64, (t + 1) & 1);
+    const float* rt = wraw + (t & 1) * DH * 64;
+    for (int idx = tid; idx < DH * 16; idx += kIntThreads) {
       const int c = idx >> 4, q = (idx & 15) * 4;
-      const float4 v = c < DH && n0 + q < edh
-                           ? *reinterpret_cast<const float4*>(p.wd + (size_t)c * edh + n0 + q)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      store_split4(whi, wlo, c, q, v);
+      store_split4(whi, wlo, c, q, *reinterpret_cast<const float4*>(rt + c * 64 + q));
     }
-    for (int n = tid; n < 64; n += kIntThreads) {
-      const bool ok = n0 + n < edh;
-      wiv[n] = ok ? p.wd[(size_t)DH * edh + n0 + n] : 0.f;
-      bdw[n] = ok ? p.bd[n0 + n] : 0.f;
-      bdw[64 + n] = ok ? p.w[n0 + n] : 0.f;
-    }
+    const float* wiv = side + (t & 1) * 192;  // the interval lane, then bd, w
+    const float* bdw = wiv + 64;
     fence_async_smem();
     __syncthreads();
 
@@ -1229,14 +1252,41 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_cols_tc_kernel(const 
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* xhi = reinterpret_cast<bf16*>(base);  // [64 rows][64 lanes] x sub-tile, hi
   bf16* xlo = xhi + kIntTile;                 // lo
-  float* ivs = reinterpret_cast<float*>(xlo + kIntTile);  // [64] the sub-tile's intervals
-  float* grs = ivs + 64;                      // [64 rows][4] g_raw of the tile's events
+  // [2][64 rows][DH] the raw sub-tiles, [2][64] their intervals and
+  // [2][64 rows][4] g_raw of the tile's events, filled a sub-tile ahead by
+  // cp.async
+  float* xraw = reinterpret_cast<float*>(xlo + kIntTile);
+  float* ivr = xraw + 2 * 64 * DH;
+  float* grr = ivr + 2 * 64;
   const int E = p.E, edh = E * DH;
   const int n0 = blockIdx.x * 64, e0 = n0 / DH;
   const int rbeg = blockIdx.y * kRowChunk, rend = imin(rbeg + kRowChunk, p.rows);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int m0 = 16 * warp;  // the warp's first column of the tile
+  // lanes dh .. 63 of the hi/lo tiles stay zero
+  for (int idx = tid; idx < 64 * 16; idx += kIntThreads)
+    if ((idx & 15) * 4 >= DH)
+      store_split4(xhi, xlo, idx >> 4, (idx & 15) * 4, make_float4(0.f, 0.f, 0.f, 0.f));
+  auto fetch = [&](int r0, int b) {  // the sub-tile at row r0 into buffer b
+    for (int idx = tid; idx < 64 * DH / 4; idx += kIntThreads) {
+      const int r = idx / (DH / 4), q = (idx - r * (DH / 4)) * 4, row = r0 + r;
+      const bool ok = row < rend;
+      cp_async16(xraw + (b * 64 + r) * DH + q, p.su + (size_t)(ok ? row : 0) * DH + q, ok);
+    }
+    for (int idx = tid; idx < 64 * 4; idx += kIntThreads) {
+      const int r = idx >> 2, e = idx & 3, row = r0 + r;
+      const bool ok = row < rend && e < 64 / DH && e0 + e < E;
+      cp_async4(grr + b * 256 + idx, p.g_raw + (ok ? (size_t)row * E + e0 + e : 0), ok);
+      if (e == 0) {
+        const int i = row % p.Tq, bb = row / (p.Tq * p.H);
+        cp_async4(ivr + b * 64 + r, p.intervals + (row < rend ? (size_t)bb * p.Tq + i : 0),
+                  row < rend);
+      }
+    }
+    cp_async_commit();
+  };
+  fetch(rbeg, 0);
 
   // Wd^T of the warp's columns as A fragments: k step kk, entry i at
   // column n0 + m0 + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1) + 2 t4 (+1)
@@ -1267,21 +1317,17 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_cols_tc_kernel(const 
 #pragma unroll
   for (int i = 0; i < 32; ++i) gwd[i] = 0.f;
 
-  for (int r0 = rbeg; r0 < rend; r0 += 64) {
-    __syncthreads();  // the previous sub-tile is consumed
-    for (int idx = tid; idx < 64 * 16; idx += kIntThreads) {
-      const int r = idx >> 4, q = (idx & 15) * 4, row = r0 + r;
-      const float4 v = row < rend && q < DH
-                           ? *reinterpret_cast<const float4*>(p.su + (size_t)row * DH + q)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      store_split4(xhi, xlo, r, q, v);
+  for (int r0 = rbeg, t = 0; r0 < rend; r0 += 64, ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // sub-tile t has landed, sub-tile t - 1 is consumed
+    if (r0 + 64 < rend) fetch(r0 + 64, (t + 1) & 1);
+    const float* rt = xraw + (t & 1) * 64 * DH;
+    for (int idx = tid; idx < 64 * DH / 4; idx += kIntThreads) {
+      const int r = idx / (DH / 4), q = (idx - r * (DH / 4)) * 4;
+      store_split4(xhi, xlo, r, q, *reinterpret_cast<const float4*>(rt + r * DH + q));
     }
-    for (int idx = tid; idx < 64 * 4; idx += kIntThreads) {
-      const int r = idx >> 2, e = idx & 3, row = r0 + r;
-      grs[idx] = (row < rend && e < 64 / DH && e0 + e < E) ? p.g_raw[(size_t)row * E + e0 + e]
-                                                           : 0.f;
-      if (e == 0) ivs[r] = row < rend ? interval_of(p, row) : 0.f;
-    }
+    const float* ivs = ivr + (t & 1) * 64;
+    const float* grs = grr + (t & 1) * 256;
     fence_async_smem();
     __syncthreads();
 
@@ -1388,8 +1434,8 @@ size_t smem_bytes(int which, int dh, int E, int dtype) {
       return dtype ? dq_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dq_smem_floats(dh, ep);
     case kDkvt:
       return dtype ? dkvt_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dkvt_smem_floats(dh, ep);
-    case kIntRows: return sizeof(float) * (size_t)int_rows_smem_floats(E);
-    default: return sizeof(float) * (size_t)int_cols_smem_floats();
+    case kIntRows: return sizeof(float) * (size_t)int_rows_smem_floats(dh, E);
+    default: return sizeof(float) * (size_t)int_cols_smem_floats(dh);
   }
 }
 
