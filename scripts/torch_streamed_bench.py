@@ -10,13 +10,14 @@ synchronised, after one warm-up batch. ``--vjp`` times instead the
 intensity head's VJP alone (``mau_intensity_bwd``, fp32 whatever the
 compute dtype) at the EasyDGL-LC train shape (B=8, T=2048, H=8, dh=64,
 E=64): seq_units from ``mau_stats`` on the bf16 inputs, g_lam ~ N(0,
-1e-3), over 10 launches in each of ``--rounds`` rounds. Prints one JSON
-line with the card's name and power limit. Imports neither JAX nor the JAX
-package; run from the root of a checkout (or of an older one, to compare
-two versions in one call):
+1e-3), over 10 launches in each of ``--rounds`` rounds; with
+``--kernels`` also its device time by kernel (``torch.profiler``, 10
+launches). Prints one JSON line with the card's name and power limit.
+Imports neither JAX nor the JAX package; run from the root of a checkout
+(or of an older one, to compare two versions in one call):
 
     python3 scripts/torch_streamed_bench.py [--label NAME] [--vjp]
-        [--rounds N]
+        [--rounds N] [--kernels]
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import sys
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.getcwd())
 from easydgl_tpu_torch.config import preset  # noqa: E402
@@ -87,13 +89,33 @@ def kernel_times(dtype):
             q, k, v, km, oh, lam, m, l, diag_reset=True, **kw))}
 
 
-def vjp_times(rounds):
+def kernel_ms(run, iters=10):
+    """{kernel: device ms a launch of ``run``} over ``iters`` launches."""
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def vjp_times(rounds, by_kernel):
     q, k, v, t, km, iv, oh, wd, bd, w, sc = inputs(torch.bfloat16)
     _, _, su = mau_stats(q, k, t, km, causal=False, num_heads=H)
     g = torch.Generator(device="cuda").manual_seed(1)
     g_lam = torch.randn(B, H, T, E, generator=g, device="cuda") * 1e-3
-    return [time_ms(lambda: mau_intensity_bwd(su, iv, wd, bd, w, sc, g_lam),
-                    warmup=2, iters=10) for _ in range(rounds)]
+
+    def run():
+        mau_intensity_bwd(su, iv, wd, bd, w, sc, g_lam)
+
+    res = {"vjp_ms": [time_ms(run, warmup=2, iters=10)
+                      for _ in range(rounds)]}
+    if by_kernel:
+        res["vjp_by_kernel"] = kernel_ms(run)
+    return res
 
 
 def eval_seqs_per_s(batches=8):
@@ -122,6 +144,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--vjp", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_streamed_bench: no CUDA device", file=sys.stderr)
@@ -133,7 +156,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.vjp:
         print(json.dumps({"label": args.label, "card": card,
-                          "vjp_ms": vjp_times(args.rounds)}), flush=True)
+                          **vjp_times(args.rounds, args.kernels)}),
+              flush=True)
         return 0
     res = {"label": args.label, "card": card,
            "ms_bf16": kernel_times(torch.bfloat16),
