@@ -1068,9 +1068,12 @@ __device__ __forceinline__ void wgmma_rs_x3(float (&d)[32], const uint32_t* a_hi
 // accumulators split into hi/lo fragments; B: the same tiles, K-major).
 // Stores g_raw (rows, E) and g_su, adds gscaling by one atomic per event
 // and block. Thread (warp, g, t4) holds rows 16 warp + g (+8) and, of a
-// tile, columns 8 n + 2 t4 (+1) at z[4 n + 2 hr + c].
+// tile, columns 8 n + 2 t4 (+1) at z[4 n + 2 hr + c]. Four blocks an SM
+// (at most 128 registers a thread) measured faster than three; the column
+// kernel measured slower so.
 template <int DH>
-__global__ void __launch_bounds__(kIntThreads) mau_int_bwd_rows_tc_kernel(const IntBwdParams p) {
+__global__ void __launch_bounds__(kIntThreads, 4)
+    mau_int_bwd_rows_tc_kernel(const IntBwdParams p) {
   constexpr int KK = DH / 16, EPT = 64 / DH;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);

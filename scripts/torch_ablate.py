@@ -6,7 +6,8 @@ Three kernels: the bf16 flash backward (``flash``: the dQ reduction, the
 exp, the per-entry mask test removed, one consumer warpgroup instead of
 two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
 the exponentials, or the products, removed) and the intensity VJP
-(``vjp``: the products removed, or four blocks an SM). Each variant edits
+(``vjp``: the products removed, or the column kernel at four blocks an
+SM, as the row kernel runs). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -67,11 +68,7 @@ KERNELS = {
                     "  wgmma_rs<TB>(d, a_lo, b_hi);\n"
                     "  wgmma_rs<TB>(d, a_hi, b_lo);\n"
                     "  wgmma_rs<TB>(d, a_hi, b_hi);\n", "")],
-                "4 blocks an SM": [(
-                    "__global__ void __launch_bounds__(kIntThreads) "
-                    "mau_int_bwd_rows_tc_kernel",
-                    "__global__ void __launch_bounds__(kIntThreads, 4) "
-                    "mau_int_bwd_rows_tc_kernel"), (
+                "columns at 4 blocks an SM": [(
                     "__global__ void __launch_bounds__(kIntThreads) "
                     "mau_int_bwd_cols_tc_kernel",
                     "__global__ void __launch_bounds__(kIntThreads, 4) "
