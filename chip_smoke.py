@@ -8,10 +8,11 @@ Run from the root of a checkout, with no arguments:
 It builds every CUDA kernel from the checkout's sources (one nvcc per
 source, all started together), holds each kernel against its plain PyTorch
 version on the card — the MAU/BiMAU forward and backward (dropout included,
-the same seed on both sides), the catalog NLL forward and backward (its
-table and bias gradients also on the vocab ids that are no row's label, and
-one case without the label term, so that the softmax term is held on its
-own), the three streamed long-context MAU forward kernels (stats, intensity
+the same seed on both sides), the catalog NLL forward and backward (the
+forward's lse and label logit to the fp32 tolerance in both dtypes, the
+label logit also on the rows whose label is not id 0; the table and bias
+gradients also on the vocab ids that are no row's label, and one case
+without the label term, so that the softmax term is held on its own), the three streamed long-context MAU forward kernels (stats, intensity
 head, modulated output) and the four streamed backward kernels (d-lambda,
 the intensity head's VJP, dq, dk/dv/dt), each on the blocked plain
 version's inputs, and the chained streamed backward against the blocked

@@ -1043,9 +1043,9 @@ __device__ __forceinline__ void store_split4(bf16* hi, bf16* lo, int r, int col,
   *reinterpret_cast<uint2*>(lo + o) = make_uint2(l0, l1);
 }
 
-__device__ __forceinline__ float interval_of(const IntBwdParams& p, int row) {
-  const int i = row % p.Tq, b = row / (p.Tq * p.H);
-  return p.intervals[(size_t)b * p.Tq + i];
+// The index in intervals (B, Tq) of row (b, h, i) of the (B*H*Tq) rows.
+__device__ __forceinline__ size_t interval_index(const IntBwdParams& p, int row) {
+  return (size_t)(row / (p.Tq * p.H)) * p.Tq + row % p.Tq;
 }
 
 // d += A B in three bf16 products, A's hi/lo fragments from registers, B's
@@ -1116,7 +1116,7 @@ __global__ void __launch_bounds__(kIntThreads, 4)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + g + 8 * hr;
-    iv[hr] = row < p.rows ? interval_of(p, row) : 0.f;
+    iv[hr] = row < p.rows ? p.intervals[interval_index(p, row)] : 0.f;
   }
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk)
@@ -1281,11 +1281,9 @@ __global__ void __launch_bounds__(kIntThreads) mau_int_bwd_cols_tc_kernel(const 
       const int r = idx >> 2, e = idx & 3, row = r0 + r;
       const bool ok = row < rend && e < 64 / DH && e0 + e < E;
       cp_async4(grr + b * 256 + idx, p.g_raw + (ok ? (size_t)row * E + e0 + e : 0), ok);
-      if (e == 0) {
-        const int i = row % p.Tq, bb = row / (p.Tq * p.H);
-        cp_async4(ivr + b * 64 + r, p.intervals + (row < rend ? (size_t)bb * p.Tq + i : 0),
+      if (e == 0)
+        cp_async4(ivr + b * 64 + r, p.intervals + (row < rend ? interval_index(p, row) : 0),
                   row < rend);
-      }
     }
     cp_async_commit();
   };
