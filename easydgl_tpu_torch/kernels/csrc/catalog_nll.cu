@@ -552,14 +552,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // swizzle; the first warp of warpgroup 2 produces. A vocab tile is 128 ids;
 // the ring holds (128 ids x 64 channels) chunks, eight a tile.
 
-constexpr int kFwdCluster = 2;                        // blocks a cluster, sharing vocab chunks
 constexpr int kFwdGroups = 2;                         // consumer warpgroups
 constexpr int kFwdRows = 64 * kFwdGroups;             // resident rows a block
 constexpr int kFwdVocab = 128;                        // vocab ids a tile
 constexpr int kFwdStages = 6;
 constexpr int kFwdThreads = 128 * (kFwdGroups + 1);
 constexpr int kFwdChunkElems = kFwdVocab * 64;        // a (128 x 64) chunk, 16 KB
-constexpr int kFwdPart = kFwdVocab / kFwdCluster;     // ids of a chunk a block fetches
 constexpr float kFwdDead = -1.0e30f;                  // the running max before any id
 // the resident rows, the ring, the mbarriers, and slack to align to 1024 bytes
 constexpr size_t kFwdSmem =
@@ -572,11 +570,8 @@ static_assert(kFwdSmem <= kMaxSmem, "the forward's shared memory exceeds 227 KB"
 // natural-log units, l = sum_v exp(s - m), ll the label logit where the
 // label lies in the split, else 0). Thread (warpgroup wg, warp, g, t4)
 // holds rows 64 wg + 16 warp + g (+8) and, of a tile, ids 8 n + 2 t4 (+1),
-// n < 16, at sc[4 n + 2 hr + c]. The two blocks of a cluster (neighbouring
-// row blocks, one split) share the vocab chunks: each fetches half of a
-// chunk's ids by TMA multicast into both, and a stage is refilled once the
-// consumers of both have released it.
-__global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdThreads, 1)
+// n < 16, at sc[4 n + 2 hr + c].
+__global__ void __launch_bounds__(kFwdThreads, 1)
     catalog_fwd_tc_kernel(const Params p, const __grid_constant__ TcMaps maps) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -596,41 +591,34 @@ __global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdThread
     mbar_init(r_full, 1);
     for (int s = 0; s < kFwdStages; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, 4 * kFwdGroups * kFwdCluster);  // a consumer warp's lane 0
+      mbar_init(empty + s, 128 * kFwdGroups);
     }
     mbar_fence_init();
   }
-  cluster_sync();  // the barriers of both blocks are set up
+  __syncthreads();
   const int lane = threadIdx.x & 31;
   int warp = threadIdx.x >> 5;
-  const uint32_t rank = cluster_rank();
 
   if (warp >= 4 * kFwdGroups) {  // ---- producer: lane 0 of its first warp works
     regs_dec<kTcProducerRegs>();
-    if (warp == 4 * kFwdGroups && lane == 0) {
-      mbar_arrive_tx(r_full, kFwdGroups * kTcTileElems * sizeof(bf16));
-      for (int w = 0; w < kFwdGroups; ++w)
-        for (int kc = 0; kc < kTcSub; ++kc)
-          tma_2d(rs + w * kTcTileElems + kc * kTcSubElems, &maps.hidden, r_full, 64 * kc,
-                 row0 + 64 * w);
-      for (int it = 0; it < nchunks; ++it) {
-        const int s = it % kFwdStages;
-        mbar_wait(empty + s, ((it / kFwdStages) & 1) ^ 1);
-        // the whole chunk lands here: this block's half and the other's
-        mbar_arrive_tx(full + s, kFwdChunkElems * sizeof(bf16));
-        tma_2d_multicast(vs + s * kFwdChunkElems + rank * kFwdPart * 64, &maps.table, full + s,
-                         64 * (it % kTcSub), kFwdVocab * (t0 + it / kTcSub) + kFwdPart * rank,
-                         (1 << kFwdCluster) - 1);
-      }
+    if (warp > 4 * kFwdGroups || lane != 0) return;
+    mbar_arrive_tx(r_full, kFwdGroups * kTcTileElems * sizeof(bf16));
+    for (int w = 0; w < kFwdGroups; ++w)
+      for (int kc = 0; kc < kTcSub; ++kc)
+        tma_2d(rs + w * kTcTileElems + kc * kTcSubElems, &maps.hidden, r_full, 64 * kc,
+               row0 + 64 * w);
+    for (int it = 0; it < nchunks; ++it) {
+      const int s = it % kFwdStages;
+      mbar_wait(empty + s, ((it / kFwdStages) & 1) ^ 1);
+      mbar_arrive_tx(full + s, kFwdChunkElems * sizeof(bf16));
+      tma_2d(vs + s * kFwdChunkElems, &maps.table, full + s, 64 * (it % kTcSub),
+             kFwdVocab * (t0 + it / kTcSub));
     }
-    __syncwarp();
-    cluster_sync();  // no block leaves while the other may still signal it
     return;
   }
 
   // ---- consumers
   regs_inc<kTcConsumerRegs>();
-  const uint32_t peer_empty = cluster_addr(empty, rank ^ 1);
   const int wg = warp >> 2;
   warp &= 3;
   const int g = lane >> 2, t4 = lane & 3;
@@ -644,13 +632,6 @@ __global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdThread
     lab_b[hr] = lab[hr] >= 0 ? p.bias[lab[hr]] : 0.f;
   }
   mbar_wait(r_full, 0);
-  auto release = [&](int s) {  // for the warp, in this block and in the other
-    __syncwarp();
-    if (lane == 0) {
-      mbar_arrive(empty + s);
-      mbar_arrive_remote(peer_empty + 8 * s);
-    }
-  };
 
   int it = 0;
   for (int t = t0; t < t1; ++t) {
@@ -678,12 +659,12 @@ __global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdThread
       wg_commit();
       if (kc > 0) {  // the previous chunk's products are done: free its stage
         wg_wait_n<1>();
-        release((it - 1) % kFwdStages);
+        mbar_arrive(empty + (it - 1) % kFwdStages);
       }
     }
     wg_wait();
     reg_fence(sc);
-    release((it - 1) % kFwdStages);
+    mbar_arrive(empty + (it - 1) % kFwdStages);
 
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -736,7 +717,6 @@ __global__ void __cluster_dims__(kFwdCluster, 1, 1) __launch_bounds__(kFwdThread
       p.part_ll[off] = x;
     }
   }
-  cluster_sync();
 }
 
 // lse = M + log(sum_s l_s exp(m_s - M)), M = max_s m_s; ll = sum_s ll_s.
@@ -879,13 +859,13 @@ int catalog_nll_fwd(const void* hidden, const void* table, const void* bias,
     p.tiles_per_split = (tiles + splits - 1) / splits;
     TcMaps maps;
     if (!matrix_map(&maps.hidden, hidden, N, C) ||
-        !matrix_map(&maps.table, table, V, C, kFwdPart))
+        !matrix_map(&maps.table, table, V, C, kFwdVocab))
       return (int)cudaErrorInvalidValue;
     e = cudaFuncSetAttribute(catalog_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kFwdSmem);
     if (e != cudaSuccess) return (int)e;
-    const int blocks = (N + kFwdRows * kFwdCluster - 1) / (kFwdRows * kFwdCluster) * kFwdCluster;
-    catalog_fwd_tc_kernel<<<dim3(blocks, splits), kFwdThreads, kFwdSmem, s>>>(p, maps);
+    catalog_fwd_tc_kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, splits), kFwdThreads, kFwdSmem,
+                            s>>>(p, maps);
     e = cudaGetLastError();
   } else {
     const int tiles = (V + kB - 1) / kB;

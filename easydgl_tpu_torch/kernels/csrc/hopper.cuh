@@ -85,45 +85,6 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64
       : "memory");
 }
 
-// ---- thread block clusters
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster, with release / acquire.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-
-// The shared::cluster address of p's counterpart in block `rank` of the
-// cluster.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
-  return a;
-}
-
-// Arrives on the mbarrier at a shared::cluster address (another block's).
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// The box at (c0, r0) of a 2-D map into dst of every block in `mask`, each
-// completing on its own mbarrier at bar's offset.
-__device__ __forceinline__ void tma_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                                 int c0, int r0, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(r0), "h"(mask)
-      : "memory");
-}
-
 // The box at row t0, column c0 of head (b, h) of a 4-D (cols, T, H, B) map
 // into dst.
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int t0,
