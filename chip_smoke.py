@@ -12,7 +12,8 @@ the same seed on both sides), the catalog NLL forward and backward (the
 forward's lse and label logit to the fp32 tolerance in both dtypes, the
 label logit also on the rows whose label is not id 0; the table and bias
 gradients also on the vocab ids that are no row's label, and one case
-without the label term, so that the softmax term is held on its own), the three streamed long-context MAU forward kernels (stats, intensity
+without the label term, so that the softmax term is held on its own), the
+three streamed long-context MAU forward kernels (stats, intensity
 head, modulated output) and the four streamed backward kernels (d-lambda,
 the intensity head's VJP, dq, dk/dv/dt), each on the blocked plain
 version's inputs, and the chained streamed backward against the blocked
@@ -151,7 +152,8 @@ CUDA_KERNELS = {
     "mau_attention_fwd": ["mau_fwd_kernel"],
     "mau_attention_bwd": ["mau_bwd_rows", "mau_bwd_weights_mma"],
     "catalog_nll_fwd": ["catalog_fwd_tc_kernel", "catalog_merge"],
-    "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>", "catalog_bwd_tc_kernel<2>"],
+    "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>",
+                        "catalog_bwd_tc_kernel<2>"],
     "mau_stats": ["mau_stats_mma_kernel"],
     "mau_intensity": ["mau_intensity_kernel"],
     "mau_modulated_out": ["mau_out_mma_kernel"],
@@ -2206,8 +2208,8 @@ def main() -> int:
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            **{key: row[key] for key in ("bound_fp32_ms", "bound_split_bf16_ms")
-               if key in row})
+            **{key: row[key] for key in ("bound_fp32_ms",
+                                         "bound_split_bf16_ms") if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)

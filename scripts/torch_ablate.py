@@ -40,7 +40,8 @@ KERNELS = {
                   "no exp": [(
                       "const float pr = fast_exp2(vis ? fmaf(sa[x], sl2, "
                       "-lse2) : -INFINITY);",
-                      "const float pr = vis ? fmaf(sa[x], sl2, -lse2) : 0.f;")],
+                      "const float pr = vis ? fmaf(sa[x], sl2, -lse2) : "
+                      "0.f;")],
                   "no entry test": [(
                       "    const bool test = test_entries(p, code, q0, kw);\n"
                       "    const float* lq = stats + s * 2 * BQ;",
@@ -58,8 +59,9 @@ KERNELS = {
                             "sum += fast_exp2(sc[4 * n + 2 * hr + c] - mx);",
                             "sum += sc[4 * n + 2 * hr + c] - mx;")],
                         "no products": [(
-                            "      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128"
-                            "(sc, rd + 512 * kc + 2 * kk, vd + 2 * kk, 1);\n",
+                            "      for (int kk = 0; kk < 4; ++kk) "
+                            "wgmma_ss_n128(sc, rd + 512 * kc + 2 * kk, "
+                            "vd + 2 * kk, 1);\n",
                             "")]}),
     "vjp": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
             ["scripts/torch_streamed_bench.py", "--vjp", "--kernels"], {
