@@ -34,10 +34,14 @@
 // chunk while the next is in flight. Shared memory 230,504 bytes (the
 // resident rows 131,072, the ring 98,304, the mbarriers and 1,024 bytes of
 // alignment slack): one block an SM; the producer hands its registers to
-// the consumers (setmaxnreg 24 / 240). N = 3,072 rows are only 24 blocks,
-// so the vocab splits (tc_splits, chosen here; forced by the caller for
-// tests) fill the card in whole waves, and catalog_merge folds the splits'
-// (m, l, ll). Rows are not skipped: lse and ll are returned on every row.
+// the consumers (setmaxnreg 24 / 240; ptxas: 168 registers at entry, no
+// spill). N = 3,072 rows are only 24 blocks, so the vocab splits
+// (tc_splits, chosen here; forced by the caller for tests) fill the card in
+// whole waves, and catalog_merge folds the splits' (m, l, ll). Rows are not
+// skipped: lse and ll are returned on every row. Measured on an H100, the
+// kernel runs at 1.9x its bound, and without its products it still takes
+// two thirds of its time: the chunks' stream from L2 (~6 TB/s) costs as
+// much as the products.
 //
 // Backward. Two recompute passes, d_hidden (mode 1) and d_table with
 // d_bias (mode 2); the score tile is formed in both. The TPU's fused

@@ -85,7 +85,8 @@
 //   tile into one of two fp32 buffers by cp.async while it works on the
 //   current one. Shared memory at dh = 64, E = 64: 51,968 bytes (rows) and
 //   52,736 (columns): the hi/lo tiles, the two buffers, 1 KB of alignment
-//   slack.
+//   slack. ptxas at dh = 64: rows 128 registers (its bound of four blocks
+//   an SM; 12 bytes spilled), columns 168, no spill.
 //
 // What bounds it, at the EasyDGL-LC train shape (B=8, H=8, T=2048, dh=64,
 // E=64, BiMAU): operations. glam 3 products of 34.36 GFLOP each, dq 5, dkvt
