@@ -75,6 +75,45 @@ KERNELS = {
                     "mau_int_bwd_cols_tc_kernel",
                     "__global__ void __launch_bounds__(kIntThreads, 4) "
                     "mau_int_bwd_cols_tc_kernel")]}),
+    "mau_bwd": ("mau_attention_bwd.cu", "mau_attention_bwd",
+                ["scripts/torch_mau_bench.py", "--kernels"], {
+                    "control": [],
+                    "rows kernel alone": [(
+                        "    mau_bwd_weights_mma<DH><<<grid, kThreads, w_bytes,"
+                        " stream>>>(p);\n", "")],
+                    "weights kernel alone": [(
+                        "  mau_bwd_rows<T, DH><<<p.B * p.H * nchunks, kThreads,"
+                        " rows_bytes, stream>>>(p);\n", "")],
+                    "rows without intensity products": [(
+                        "    intensity_bwd_mma<DH>(p, xb, S, rd_s, lde, nq, dseq,"
+                        " ldh);\n", "")],
+                    "sigmoid as identity": [(
+                        "__floats2bfloat162_rn(sigmoid(z0 + bd0), sigmoid(z1 +"
+                        " bd1));",
+                        "__floats2bfloat162_rn(z0 + bd0, z1 + bd1);")]}),
+    "dkvt": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
+             ["scripts/torch_streamed_bench.py", "--dkvt", "--kernels"], {
+                 "control": [],
+                 "no Philox draw": [(
+                     "              const float keep = drop.factor(b, h, i,"
+                     " j);\n              md *= keep;",
+                     "              const float keep = 1.f;\n"
+                     "              md *= keep;")],
+                 "no products": [
+                     ("        mma_rows32(s, a, qb + half * KH * SD, SD, kd * 16,"
+                      " lane);\n", ""),
+                     ("        mma_rows32(gm, a, db + half * KH * SD, SD, kd *"
+                      " 16, lane);\n", ""),
+                     ("        mma_rows32(gt, a, gb + half * KH * SD, SD, kd *"
+                      " 16, lane);\n", ""),
+                     ("        mma_rows32(iq, a, lb + half * KH * SE, SE, ke,"
+                      " lane);\n", ""),
+                     ("      mma_pv<DH>(dv, gm, db + half * KH * SD, SD,"
+                      " lane);", ""),
+                     ("      mma_pv<DH>(dk, gt, qb + half * KH * SD, SD,"
+                      " lane);", ""),
+                     ("      mma_pv<DH>(dt, s, gb + half * KH * SD, SD,"
+                      " lane);", "")]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 

@@ -12,11 +12,14 @@ compute dtype) at the EasyDGL-LC train shape (B=8, T=2048, H=8, dh=64,
 E=64): seq_units from ``mau_stats`` on the bf16 inputs, g_lam ~ N(0,
 1e-3), over 10 launches in each of ``--rounds`` rounds; with
 ``--kernels`` also its device time by kernel (``torch.profiler``, 10
-launches). Prints one JSON line with the card's name and power limit.
+launches). ``--dkvt`` times instead the key-major dK/dV/dT kernel
+(``mau_dkvt``) at the EasyDGL-LC train shape (bf16, BiMAU, dropout 0.1),
+its stats from ``mau_stats`` and ``mau_intensity``, g_su ~ N(0, 1e-2),
+rho ~ N(0, 1e-3), in rounds as ``--vjp``. Prints one JSON line with the card's name and power limit.
 Imports neither JAX nor the JAX package; run from the root of a checkout
 (or of an older one, to compare two versions in one call):
 
-    python3 scripts/torch_streamed_bench.py [--label NAME] [--vjp]
+    python3 scripts/torch_streamed_bench.py [--label NAME] [--vjp | --dkvt]
         [--rounds N] [--kernels]
 """
 from __future__ import annotations
@@ -38,7 +41,7 @@ from easydgl_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_mark_table, synthetic_split_vectorized)
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator  # noqa: E402
 from easydgl_tpu_torch.kernels.mau_streamed import (  # noqa: E402
-    mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats)
+    mau_dkvt, mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats)
 from easydgl_tpu_torch.models.registry import build_model  # noqa: E402
 from easydgl_tpu_torch.parity import random_flax_params  # noqa: E402
 from easydgl_tpu_torch.train.steps import build_eval_step  # noqa: E402
@@ -118,6 +121,29 @@ def vjp_times(rounds, by_kernel):
     return res
 
 
+def dkvt_times(rounds, by_kernel):
+    q, k, v, t, km, iv, oh, wd, bd, w, sc = inputs(torch.bfloat16)
+    m, l, su = mau_stats(q, k, t, km, causal=False, num_heads=H)
+    lam = mau_intensity(su, iv, wd, bd, w, sc)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    go = (torch.randn(B, T, H * DH, generator=g, device="cuda") * 1e-2
+          ).to(torch.bfloat16)
+    g_su = torch.randn(B, H, T, DH, generator=g, device="cuda") * 1e-2
+    rho = torch.randn(B, H, T, generator=g, device="cuda") * 1e-3
+    sd = torch.tensor(7000, dtype=torch.int64, device="cuda")
+
+    def run():
+        mau_dkvt(q, k, v, t, km, oh, lam, m, l, go, g_su, rho,
+                 diag_reset=True, dropout_rate=0.1, dropout_seed=sd,
+                 num_heads=H)
+
+    res = {"dkvt_ms": [time_ms(run, warmup=2, iters=10)
+                       for _ in range(rounds)]}
+    if by_kernel:
+        res["dkvt_by_kernel"] = kernel_ms(run)
+    return res
+
+
 def eval_seqs_per_s(batches=8):
     cfg = preset("EasyDGL-LC", num_events=64)
     model = build_model(cfg, device="cuda",
@@ -143,6 +169,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
     ap.add_argument("--vjp", action="store_true")
+    ap.add_argument("--dkvt", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
@@ -154,9 +181,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    if args.vjp:
-        print(json.dumps({"label": args.label, "card": card,
-                          **vjp_times(args.rounds, args.kernels)}),
+    if args.vjp or args.dkvt:
+        times = (vjp_times if args.vjp else dkvt_times)(args.rounds,
+                                                        args.kernels)
+        print(json.dumps({"label": args.label, "card": card, **times}),
               flush=True)
         return 0
     res = {"label": args.label, "card": card,
