@@ -133,6 +133,8 @@ SLICE_TOL = (1e-4, 1e-4)
 # weight's gradient scale instead of its own.
 ZERO_GRAD_LEAF = re.compile(r"_attn\.k\.bias$")
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
+# PRESETS["CTSMA"]'s heads (C=512, H=4: dh=128) at the flagship's T and E
+DH128 = dict(b=32, tq=31, tk=31, h=4, dh=128, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
 SASREC_LC_CATALOG = dict(n=65536, v=17771, c=512)   # B*L rows
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
@@ -150,7 +152,8 @@ MAU_GRADS = ("dq", "dk", "dv", "dt", "dWd", "dbd", "dw", "dscaling")
 # The CUDA kernels each wrapper launches on the bf16 main paths.
 CUDA_KERNELS = {
     "mau_attention_fwd": ["mau_fwd_kernel"],
-    "mau_attention_bwd": ["mau_bwd_rows", "mau_bwd_weights_mma"],
+    "mau_attention_bwd": ["mau_bwd_attn<bf16, 64, 1>", "mau_bwd_int_tc<64>",
+                          "mau_bwd_attn<bf16, 64, 2>"],
     "catalog_nll_fwd": ["catalog_fwd_tc_kernel", "catalog_merge"],
     "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>",
                         "catalog_bwd_tc_kernel<2>"],
@@ -161,7 +164,7 @@ CUDA_KERNELS = {
     "mau_intensity_bwd": ["mau_int_bwd_rows_tc_kernel",
                           "mau_int_bwd_cols_tc_kernel"],
     "mau_dq": ["mau_dq_mma_kernel"],
-    "mau_dkvt": ["mau_dkvt_mma_kernel"],
+    "mau_dkvt": ["mau_dkvt_tc_kernel"],
     "flash_attention_fwd": ["flash_fwd_tc_kernel"],
     "flash_attention_bwd": ["flash_bwd_tc_kernel"]}
 
@@ -262,6 +265,8 @@ def phase_kernel_checks():
          torch.float32, False, True, False),
         ("tk128_dh32_bf16", dict(b=16, tq=128, tk=128, h=16, dh=32, e=64),
          torch.bfloat16, True, False, False),
+        ("dh128_bimau_bf16", DH128, torch.bfloat16, False, True, False),
+        ("dh128_causal_fp32", DH128, torch.float32, True, False, False),
     ]
     errs = {}
     for i, (name, shape, dtype, causal, diag, gathered) in enumerate(cases):
@@ -410,52 +415,73 @@ def run_mau_bwd(args, *, causal, diag, h, rate, seed, plain):
                              gl, **kw)
 
 
+# name, shape, dtype, causal, diag, gathered, dropout rate
+MAU_BWD_CASES = (
+    ("bimau_bf16_flagship", FLAGSHIP, torch.bfloat16, False, True, False,
+     0.0),
+    ("bimau_bf16_drop", FLAGSHIP, torch.bfloat16, False, True, False, 0.1),
+    ("bimau_fp32_flagship", FLAGSHIP, torch.float32, False, True, False, 0.0),
+    ("bimau_fp32_drop", FLAGSHIP, torch.float32, False, True, False, 0.1),
+    ("mau_causal_bf16", FLAGSHIP, torch.bfloat16, True, False, False, 0.1),
+    ("mau_causal_fp32", FLAGSHIP, torch.float32, True, False, False, 0.0),
+    ("bimau_qpos_tq6_bf16", dict(FLAGSHIP, tq=6), torch.bfloat16, False,
+     True, True, 0.1),
+    ("bimau_qpos_tq6_fp32", dict(FLAGSHIP, tq=6), torch.float32, False, True,
+     True, 0.0),
+    ("tk128_fp32_drop", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
+     torch.float32, False, True, False, 0.1),
+    ("tk128_bf16", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
+     torch.bfloat16, True, False, False, 0.0),
+    ("dh128_bimau_bf16", DH128, torch.bfloat16, False, True, False, 0.0),
+    ("dh128_bimau_bf16_drop", DH128, torch.bfloat16, False, True, False,
+     0.1),
+    ("dh128_causal_bf16_drop", DH128, torch.bfloat16, True, False, False,
+     0.1),
+    ("dh128_causal_fp32", DH128, torch.float32, True, False, False, 0.0),
+    ("dh128_bimau_fp32_drop", DH128, torch.float32, False, True, False, 0.1),
+)
+
+
+def mau_bwd_case(i, name, shape, dtype, causal, diag, gathered, rate):
+    """Case i of ``MAU_BWD_CASES``: the backward kernels against the plain
+    version on the same inputs and seed; {output: (max abs err,
+    worst/tol)} of the eight gradients, and of the training forward's out
+    and lam under dropout; the kernels' dq."""
+    args = mau_inputs(**shape, dtype=dtype, gathered=gathered, seed=50 + i)
+    kw = dict(causal=causal, diag=diag, h=shape["h"], rate=rate,
+              seed=1000 + i)
+    got = run_mau_bwd(args, plain=False, **kw)
+    torch.cuda.synchronize()
+    want = run_mau_bwd(args, plain=True, **kw)
+    res = {label: scale_err(name, label, a, b, dtype)
+           for label, a, b in zip(MAU_GRADS, got, want)}
+    if rate > 0:  # the training forward: the same mask on both sides
+        sd = torch.tensor(1000 + i, dtype=torch.int64, device="cuda")
+        fwd = mau_attention(*args[:11], causal, diag, rate,
+                            num_heads=shape["h"], qpos=args[11],
+                            dropout_seed=sd)
+        ref = mau_attention_reference(
+            *args[:11], causal=causal, diag_reset=diag, dropout_rate=rate,
+            dropout_seed=sd, num_heads=shape["h"], qpos=args[11])
+        for label, a, b in zip(("out", "lam"), fwd, ref):
+            res["forward " + label] = scale_err(name + "_fwd", label, a, b,
+                                                dtype)
+    return res, got[0]
+
+
 def phase_bwd_checks():
     log("phase 3b: mau_attention backward (and the training forward) kernel"
         " vs plain PyTorch on the card")
-    fl = FLAGSHIP
-    cases = [  # name, shape, dtype, causal, diag, gathered, dropout
-        ("bimau_bf16_flagship", fl, torch.bfloat16, False, True, False, 0.0),
-        ("bimau_bf16_drop", fl, torch.bfloat16, False, True, False, 0.1),
-        ("bimau_fp32_flagship", fl, torch.float32, False, True, False, 0.0),
-        ("bimau_fp32_drop", fl, torch.float32, False, True, False, 0.1),
-        ("mau_causal_bf16", fl, torch.bfloat16, True, False, False, 0.1),
-        ("mau_causal_fp32", fl, torch.float32, True, False, False, 0.0),
-        ("bimau_qpos_tq6_bf16", dict(fl, tq=6), torch.bfloat16, False, True,
-         True, 0.1),
-        ("bimau_qpos_tq6_fp32", dict(fl, tq=6), torch.float32, False, True,
-         True, 0.0),
-        ("tk128_fp32_drop", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
-         torch.float32, False, True, False, 0.1),
-        ("tk128_bf16", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
-         torch.bfloat16, True, False, False, 0.0),
-    ]
     errs = {}
-    for i, (name, shape, dtype, causal, diag, gathered, rate) in \
-            enumerate(cases):
-        args = mau_inputs(**shape, dtype=dtype, gathered=gathered,
-                          seed=50 + i)
-        kw = dict(causal=causal, diag=diag, h=shape["h"], rate=rate,
-                  seed=1000 + i)
-        got = run_mau_bwd(args, plain=False, **kw)
-        torch.cuda.synchronize()
-        want = run_mau_bwd(args, plain=True, **kw)
-        if rate > 0:  # the training forward: the same mask on both sides
-            sd = torch.tensor(1000 + i, dtype=torch.int64, device="cuda")
-            fwd = [mau_attention(*args[:11], causal, diag, rate,
-                                 num_heads=shape["h"], qpos=args[11],
-                                 dropout_seed=sd)]
-            fwd.append(mau_attention_reference(
-                *args[:11], causal=causal, diag_reset=diag,
-                dropout_rate=rate, dropout_seed=sd, num_heads=shape["h"],
-                qpos=args[11]))
-            compare_by_scale(name + "_fwd", ("out", "lam"), fwd[0], fwd[1],
-                             dtype)
-        errs[name] = compare_by_scale(name, MAU_GRADS, got, want, dtype)
-        del want
-    # a fully masked row (row 0 of every case above) gets zero dq
-    check(float(got[0][0].float().abs().max()) == 0.0,
-          "fully masked row: dq not zero")
+    for i, case in enumerate(MAU_BWD_CASES):
+        res, dq = mau_bwd_case(i, *case)
+        for label, (_, ratio) in res.items():
+            check(ratio <= 1.0, f"{case[0]}: {label} outside tolerance")
+        errs[case[0]] = max(err for label, (err, _) in res.items()
+                            if not label.startswith("forward"))
+        # a fully masked row (row 0 of every case) gets zero dq
+        check(float(dq[0].float().abs().max()) == 0.0,
+              f"{case[0]}: fully masked row: dq not zero")
     return errs
 
 
@@ -804,6 +830,40 @@ def chained_grads(fn, args, h, go, gl, *, causal, diag, rate, seed):
         [diff[i] for i in (0, 1, 2, 3, 7, 8, 9, 10)])
 
 
+def streamed_bwd_case(i, name, shape, dtype, causal, diag, rate,
+                      only=None):
+    """Case i of ``STREAMED_BWD_CASES``: each backward kernel (those named
+    in ``only``, else all four) against its plain piece on the plain
+    version's inputs; {kernel: {output: (max abs err, worst/tol)}} (the
+    intensity VJP held at the fp32 tolerance in both dtypes), and the
+    inputs and cotangents for the chained check."""
+    args = mau_inputs(**shape, dtype=dtype, gathered=False, seed=600 + i)
+    flags = dict(causal=causal, diag=diag, rate=rate, seed=6000 + i)
+    fwd, (go, gl), runs = streamed_bwd_pieces(args, shape["h"],
+                                              plain_fwd=None, **flags)
+    labels = {"mau_intensity_bwd": INTENSITY_GRADS, "mau_glam": ("g_lam",),
+              "mau_dq": ("dq",), "mau_dkvt": ("dk", "dv", "dt")}
+    case = {}
+    for kname, (kern, plain) in runs.items():
+        if only is not None and kname not in only:
+            continue
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        if kname != "mau_intensity_bwd":
+            check(all(x.dtype == (torch.float32 if kname == "mau_glam"
+                                  else dtype) for x in got),
+                  f"{name}: {kname} dtype")
+        tol_dtype = torch.float32 if kname == "mau_intensity_bwd" else dtype
+        case[kname] = {label: scale_err(name, label, a, b, tol_dtype)
+                       for label, a, b in zip(labels[kname], got, want)}
+        del got, want
+    del fwd, runs
+    return case, args, (go, gl), flags
+
+
 def phase_streamed_bwd_checks():
     log("phase 3e: streamed MAU backward kernels (d-lambda, intensity VJP, "
         "dq, dk/dv/dt) vs the blocked plain pieces on the card, each kernel"
@@ -811,38 +871,21 @@ def phase_streamed_bwd_checks():
     errs = {}
     for i, (name, shape, dtype, causal, diag, rate) in \
             enumerate(STREAMED_BWD_CASES):
-        args = mau_inputs(**shape, dtype=dtype, gathered=False, seed=600 + i)
-        h = shape["h"]
-        flags = dict(causal=causal, diag=diag, rate=rate, seed=6000 + i)
-        fwd, (go, gl), runs = streamed_bwd_pieces(args, h, plain_fwd=None,
-                                                  **flags)
-        case = {}
-        for kname, (kern, plain) in runs.items():
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
-            if kname == "mau_intensity_bwd":   # fp32 in both dtypes
-                case[kname] = compare_by_scale(name, INTENSITY_GRADS, got,
-                                               want, torch.float32)
-            elif kname == "mau_glam":
-                case[kname] = compare_by_scale(name, ("g_lam",), (got,),
-                                               (want,), dtype)
-            else:
-                got = got if kname == "mau_dkvt" else (got,)
-                want = want if kname == "mau_dkvt" else (want,)
-                labels = ("dk", "dv", "dt") if kname == "mau_dkvt" else ("dq",)
-                check(all(x.dtype == dtype for x in got), f"{name}: dtype")
-                case[kname] = compare_by_scale(name, labels, got, want, dtype)
-            del got, want
+        case, args, (go, gl), flags = streamed_bwd_case(
+            i, name, shape, dtype, causal, diag, rate)
+        for kname, res in case.items():
+            for label, (_, ratio) in res.items():
+                check(ratio <= 1.0, f"{name}: {label} outside tolerance")
+        errs[name] = {kname: max(err for err, _ in res.values())
+                      for kname, res in case.items()}
         if i < 2:  # the chained backward, as the model calls it
+            h = shape["h"]
             got = chained_grads(mau_streamed, args, h, go, gl, **flags)
             torch.cuda.synchronize()
             want = chained_grads(mau_blocked, args, h, go, gl, **flags)
             compare_by_scale(name + "_chain", MAU_GRADS, got, want, dtype)
             check(float(got[0][0].float().abs().max()) == 0.0,
                   f"{name}: the fully masked row has a nonzero dq")
-        errs[name] = case
-        del fwd, runs
     return errs
 
 
@@ -1291,15 +1334,61 @@ def phase_streamed_bwd_timing():
                     f" 989 TFLOP/s); in fp32 on the CUDA cores (67 TFLOP/s)"
                     f" the same work takes at least {fp32_ms:.4f} ms; the"
                     f" bound is the lower, {min(fp32_ms, tc_ms):.4f} ms")
+            # one special-function op a sigmoid (the intensity head) or an
+            # exp (each visible pair of the attention side)
+            lc_rows = LC["b"] * LC["h"] * LC["tq"]
+            special = (lc_rows * LC["e"] * LC["dh"]
+                       if name == "mau_intensity_bwd"
+                       else lc_rows * mau_keys(args[4]))
+            floor_ms = special_floor_ms(special)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
                 f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
-                f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x")
+                f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x;"
+                f" special-function floor {floor_ms:.4f} ms"
+                f" ({special / 1e6:.1f} M ops)")
             rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=None, **extra)
+                                       library_ms=None,
+                                       special_floor_ms=floor_ms, **extra)
         del runs
     return rows
+
+
+def special_ops_per_s() -> float:
+    """The card's special-function rate (exp2, tanh, reciprocal...): 16
+    results a clock per SM (the CUDA programming guide's throughput table,
+    compute capability 9.0) x SMs x the maximum SM clock nvidia-smi reads."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    return 16 * torch.cuda.get_device_properties(0).multi_processor_count \
+        * mhz * 1e6
+
+
+def special_floor_ms(ops: float) -> float:
+    """The least time ``ops`` special-function results take on the card,
+    one op each; beside a bound, which counts only bytes and products."""
+    return ops / special_ops_per_s() * 1e3
+
+
+def kernel_split(run, iters=5):
+    """{CUDA kernel: device ms a call of ``run``} by ``torch.profiler`` over
+    ``iters`` calls; PyTorch's own kernels are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"namespace\)::(\w+(<[^()]*>)?)\(", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            out[m.group(1)] = e.self_device_time_total / iters / 1e3
+    return out
 
 
 def bound(nbytes, flops, dtype):
@@ -1364,14 +1453,25 @@ def phase_train_kernel_timing():
         nbytes, flops = mau_bwd_work(**FLAGSHIP, dtype=dtype,
                                      keys=mau_keys(km))
         bound_ms, bound_by = bound(nbytes, flops, dtype)
+        sig = FLAGSHIP["b"] * FLAGSHIP["h"] * FLAGSHIP["tq"] * \
+            FLAGSHIP["e"] * FLAGSHIP["dh"]
+        floor_ms = special_floor_ms(sig)
+        split = kernel_split(lambda: mau_attention_bwd(
+            q, k, v, t, km, iv, oh, wd, bd, w, sc, raw, go, gl, causal=False,
+            diag_reset=True, dropout_rate=0.1, dropout_seed=sd, num_heads=8,
+            qpos=qpos))
         log(f"  mau_attention_bwd {str(dtype):15s} kernel {ms:.4f} ms"
             f" (forward with dropout + residual {ms_fwd_train:.4f} ms)"
             f"  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
             f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)"
-            f"  kernel/bound {ms / bound_ms:.1f}x")
+            f"  kernel/bound {ms / bound_ms:.1f}x; special-function floor"
+            f" {floor_ms:.4f} ms ({sig / 1e6:.1f} M sigmoids, one op each)")
+        log("    by kernel: " + ", ".join(f"{n} {t:.4f} ms"
+                                          for n, t in split.items()))
         rows[("mau_attention_bwd", dtype)] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, fwd_train_ms=ms_fwd_train)
+            library_ms=None, fwd_train_ms=ms_fwd_train,
+            special_floor_ms=floor_ms, by_kernel=split)
         h, tb, b, lab, dlse, dll = catalog_inputs(**CATALOG, dtype=dtype,
                                                   seed=300)
         lse, _ = catalog_nll_fwd(h, tb, b, lab)
@@ -2061,14 +2161,14 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
 def kernel_names(log_text: str):
     """kernel<dtype, template ints...> of an entry function in a ptxas
     report line."""
-    m = re.search(r"(mau_fwd_kernel|mau_bwd_rows|mau_bwd_weights_mma|"
+    m = re.search(r"(mau_fwd_kernel|mau_bwd_attn|mau_bwd_int_tc|"
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
                   r"catalog_fwd_tc_kernel|catalog_bwd_tc_kernel|"
                   r"flash_fwd_tc_kernel|"
                   r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_mma_kernel|"
                   r"mau_out_kernel|mau_intensity_kernel|mau_glam_mma_kernel|"
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
-                  r"mau_dkvt_mma_kernel|mau_dkvt_kernel|"
+                  r"mau_dkvt_tc_kernel|mau_dkvt_kernel|"
                   r"mau_int_bwd_rows_tc_kernel|mau_int_bwd_cols_tc_kernel|"
                   r"flash_fwd_kernel|flash_bwd_tc_kernel|flash_bwd_kernel)"
                   r"(I?\w*)",
@@ -2182,7 +2282,10 @@ def main() -> int:
                      launches_per_path=per_path, max_abs_err=err,
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                     library_ms=None)
+                     library_ms=None,
+                     **{key: row[key] for key in ("by_kernel",
+                                                  "special_floor_ms")
+                        if key in row})
         if name == "catalog_nll_bwd":
             entry["sasrec_lc_shape"] = {
                 k: catalog_lc_timing[k] for k in ("all_live",
@@ -2208,8 +2311,8 @@ def main() -> int:
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            **{key: row[key] for key in ("bound_fp32_ms",
-                                         "bound_split_bf16_ms") if key in row})
+            **{key: row[key] for key in ("bound_fp32_ms", "bound_split_bf16_ms",
+                                         "special_floor_ms") if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the flash attention and catalog
-// NLL kernels: mbarriers, TMA copies and reductions, wgmma with its shared
+// Hopper (sm_90a) building blocks shared by the flash attention, catalog
+// NLL and MAU backward kernels: mbarriers, TMA copies and reductions, wgmma with its shared
 // memory descriptors, and the lookup of the tensor-map encoder in libcuda.
 #pragma once
 
@@ -105,6 +105,18 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const voi
       "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(t0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// Adds the fp32 box src to the box at (c0, r0) of a 2-D map, in the L2
+// (entries past the map's dims are dropped); completes as a bulk group of
+// the issuing thread.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0,
+                                                  int r0) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(r0)
       : "memory");
 }
 

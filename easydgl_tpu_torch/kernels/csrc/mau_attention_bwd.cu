@@ -18,44 +18,70 @@
 //            (a fully masked row included), times 1/sqrt(dh)
 //   dq = dlogit k;  dk = dlogit^T q
 //
-// Two kernels, because the weight gradients are reductions over all
-// B*H*Tq rows (126,976 at the flagship train shape) and dWd alone is
-// 65 x 4096 fp32, more than a block's shared memory:
+// What bounds it at the flagship train shape (B=512, H=8, Tq=Tk=31, dh=64,
+// E=64; 126,976 rows of x = [su | interval]): the intensity head, three
+// products of (rows x 65) by (65 x 4096) (z once, dx and dWd), ~203 GFLOP
+// (0.21 ms at 989 TFLOP/s), and the sigmoids of 520 M entries: at one
+// special-function op each, ~0.14 ms of the SM's 16 such ops a clock.
 //
-// * mau_bwd_rows: one block per (b, h, chunk of <= 32 query rows), like the
-//   forward. It recomputes probs from q and k (cheaper here than storing
-//   them), everything of the attention side, dlam, draw and d scaling, and
-//   dx, for which z = x Wd is recomputed and never stored. It writes
-//   x = [su | interval] and draw for the second kernel (at the flagship
-//   shape 20 MB of bf16 x rows padded to 80 and 32.5 MB of fp32 draw).
-//   With one chunk per (b, h) it stores dk, dv and dt; with several it adds
-//   them into fp32 buffers.
-// * mau_bwd_weights(_mma): a 2-D grid of Wd-column tiles x row chunks. It
-//   recomputes z, sig and dz for its columns and rows from x and draw, and
-//   sums dWd, dbd and dw in registers; one atomic add per entry and row
-//   chunk at the end (~17 M at the flagship shape).
+// bf16, dh <= 64 (the main path): three kernels.
 //
-// What bounds it: the intensity head, 4 products of (rows x 65) by
-// (65 x 4096) — z twice, dx and dWd, 270 GFLOP at the flagship train shape
-// with the padded K — plus 1 G sigmoids. In bf16 (dh <= 64) all four run on
-// the tensor cores (mma.sync m16n8k16, fp32 accumulate; mau_bwd_rows'
-// intensity_bwd_mma and mau_bwd_weights_mma), chaining each C fragment of
-// dz into the A fragment of the next product without leaving registers,
-// and the per-entry dz chain runs in packed bf16x2 arithmetic (dz2_bf16);
-// what is left is that chain and the sigmoids, twice over 520 M entries.
-// In fp32 (and bf16 at dh = 128) the products run on CUDA cores.
+// * mau_bwd_attn<kPre>: one block per (b, h, chunk of <= 32 query rows) on
+//   the CUDA cores: probs from q and k, dmod, dv, dint, dlam, draw, d
+//   scaling and x. It writes x (bf16, 64 lanes), rnd(draw) transposed
+//   (bf16 (E, rows)), and probs and dprobs = dmod iqk (fp32 (rows, Tk), 31
+//   MB at the flagship shape) for kPost, which reads them rather than
+//   recomputing the attention side.
+// * mau_bwd_int_tc: the intensity head's three products on wgmma m64n64k16
+//   with TMA-fed operands, z and dz formed once per (64-row tile, 64-column
+//   tile). A block owns 128 columns of Wd (two consumer warpgroups, 64
+//   each, and a producer warp) and a chunk of row tiles (mau_bwd_int_plan:
+//   about eight waves of blocks). Its two Wd tiles stay resident; each row
+//   tile's x, draw rows and intervals stream through a three-stage ring.
+//   Per row tile a warpgroup forms z^T = Wd^T x^T (A: Wd^T in registers),
+//   sig with one special-function op (0.5 + 0.5 tanh.approx(z / 2): sig is
+//   rounded to bf16 at once, whose ulp is far above the op's error) and dz
+//   in packed bf16x2 at the plain version's rounding points, sums dbd, dw
+//   and the interval lane of dWd in registers, adds dWd^T += dz^T x (A: dz^T
+//   from the accumulators; dWd^T stays in registers over the chunk) and
+//   stores dz in shared memory; then each warpgroup forms dx^T of 32 of the
+//   tile's rows over the block's 128 columns (A: the Wd tiles, B: both
+//   warpgroups' dz) and adds it to an fp32 (64, rows) workspace by TMA
+//   reduce-add (cp.reduce.async.bulk). (Alternating whole tiles between the
+//   warpgroups put that product in a branch, on which ptxas of CUDA 12.9
+//   crashed.) Only one of the two sums can stay in registers.
+//   Reduce traffic at the flagship shape:
+//     (a) blocks own rows and loop over all 4,096 columns (dx in
+//         registers), dWd^T added per (64-column tile, 128-row block): 64 x
+//         992 x 16 KB = 1.04 GB, and dbd, dw, the interval lane by ~12 M
+//         atomics;
+//     (b) blocks own columns (dWd^T in registers), dx^T added per (64-row
+//         tile, 128-column block): 32 x 1,984 x 16 KB = 1.04 GB; dWd^T 16 KB
+//         a warpgroup and block at the end (35 MB), dbd, dw, the interval
+//         lane by 0.4 M atomics.
+//   This kernel is (b): the same traffic for dx, and the column sums stay
+//   in registers. (a) was not built.
+// * mau_bwd_attn<kPost>: reads probs, dprobs and dseq; dprobs += dseq t^T,
+//   dt, dlogit, dq, dk on the CUDA cores.
+//
+// fp32, and bf16 at dh = 128: mau_bwd_attn<kFull> (the whole attention
+// side, and dx with z recomputed on the CUDA cores, intensity_bwd_scalar)
+// then mau_bwd_weights (dWd, dbd, dw on the CUDA cores, z formed again). At
+// dh = 128 the tensor-core kernel would hold dWd^T and dx^T of 64 x 128
+// (128 fp32) and z^T (32) a thread beside 64 registers of fragments: past
+// the 232 a consumer thread has.
 //
 // Precision contract (mirrors the TPU kernel): in bf16 mode the operands of
 // every product are rounded to bf16 where the TPU kernel rounds them (probs,
 // the modulated probs, g_out, x, Wd, dseq, dlogit), the (rows, E*dh)
 // intermediates dsw = draw[e], dsig, dz and sig are bf16 (each product of
 // two of them rounded), and all sums accumulate in fp32. In fp32 mode
-// nothing is rounded.
+// nothing is rounded and the sigmoid is exact.
 //
 // Limits: 1 <= Tq <= Tk <= 128, dh in {16, 32, 64, 128}, shared memory
 // (mau_attention_bwd_smem_bytes) within 227 KB.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -65,7 +91,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -4294967295.0f;  // -(2^32) + 1, the reference mask
 constexpr size_t kMaxSmem = 232448;
-constexpr int kNC = 64;                 // Wd columns per chunk (mau_bwd_rows)
+constexpr int kNC = 64;                 // Wd columns per chunk (intensity_bwd_scalar)
 constexpr int kStageRows = 32;          // rows staged per pass (mau_bwd_weights)
 
 struct Params {
@@ -83,9 +109,6 @@ struct Params {
   const float* bd;         // (E*dh,)
   const float* w;          // (E*dh,) fp32
   const float* scaling;    // (E,)
-  const void* wd_frag;     // bf16: Wd as mma B fragments (mau_attention_fwd.cu)
-  const __nv_bfloat16* wd_bf16;  // bf16: Wd (dh+1, E*dh) row-major
-  const __nv_bfloat16* wd_t;     // bf16: Wd^T (E*dh, kpad(dh)), zero-padded
   const float* raw;        // (B, H, Tq, E) forward residual
   const float* glam;       // (B, H, Tq, E)
   const long long* seed;   // null: no dropout
@@ -98,49 +121,57 @@ struct Params {
   float* dk_acc;           // ... or fp32 sums (several chunks), else null
   float* dv_acc;
   float* dt_acc;
-  void* x_out;             // fp32 (B*H*Tq, dh+1); bf16 tensor-core path:
-                           // bf16 (B*H*Tq, kpad(dh)), zero past dh+1
-  float* draw_out;         // (B*H*Tq, E)
+  void* x_out;             // fp32 (rows, dh+1); tensor cores: bf16 (rows_pad, 64)
+  void* draw_out;          // fp32 (rows, E); tensor cores: bf16 rnd(draw) (>= E, rows_pad)
+  float* probs_ws;         // tensor cores: (rows, Tk) probs, kPre -> kPost
+  float* dprobs_ws;        // tensor cores: (rows, Tk) dmod iqk
+  float* dseq_ws;          // tensor cores: (64, rows_pad) dseq^T sums, zeroed
   float* dscaling;         // (E,) fp32, summed atomically
-  float* dwd;              // (dh+1, E*dh) fp32, summed atomically
+  float* dwd;              // (dh+1, E*dh) fp32; tensor cores: dWd^T (>= E*dh, 64), zeroed
+  float* dwd_iv;           // tensor cores: (E*dh,) the interval lane of dWd, zeroed
   float* dbd;              // (E*dh,)
   float* dw;               // (E*dh,)
   float scale;
-  int B, Tq, Tk, H, E, causal, diag_reset, qc, rows_per_chunk;
+  int B, Tq, Tk, H, E, causal, diag_reset, qc, rows_per_chunk, tiles_per_chunk, rows_pad;
 };
 
 __host__ __device__ inline int row_stride(int dh) { return dh + 4; }
-// K of the bf16 z product, padded to the mma's depth of 16.
-__host__ __device__ inline int kpad(int dh) { return round_up(dh + 1, 16); }
 __host__ __device__ inline int event_stride(int E) { return round_up(E, 4) + 4; }
 
-// Shared-memory regions of mau_bwd_rows, in floats, each a multiple of 4.
+// The modes of mau_bwd_attn (see the kernel).
+enum Mode { kFull = 0, kPre = 1, kPost = 2 };
+
+// Shared-memory regions of mau_bwd_attn in `mode`, in floats, each a
+// multiple of 4: kFull's phase 3 keeps a Wd chunk and a dz chunk in region
+// v; kPost has no v, g_out, lam or raw rows, and only dseq in region oh.
 struct Layout {
   int k, t, v, q, go, p, lam, oh, dsc, small;
 };
 
-__host__ __device__ inline Layout layout(int qc, int Tk, int dh, int E) {
+__host__ __device__ inline Layout layout(int qc, int Tk, int dh, int E, int mode) {
   const int ldh = row_stride(dh), lde = event_stride(E);
+  const bool post = mode == kPost;
   Layout l;
   l.k = round_up(Tk * ldh, 4);
   l.t = l.k;
   // v rows (phase 2a), then the modulated probs (2b-2c), then in phase 3 a
-  // Wd chunk and a dz chunk (CUDA cores) or 32 bf16 x rows (tensor cores)
-  l.v = round_up(imax(imax(Tk * ldh, qc * Tk),
-                      imax((dh + 1) * (kNC + 1) + qc * (kNC + 1), 32 * (kpad(dh) + 8) / 2)),
-                 4);
+  // Wd chunk and a dz chunk
+  l.v = post ? 0
+             : round_up(imax(imax(Tk * ldh, qc * Tk),
+                             mode == kFull ? (dh + 1) * (kNC + 1) + qc * (kNC + 1) : 0),
+                        4);
   l.q = round_up(qc * ldh, 4);
-  l.go = l.q;                       // g_out rows, then x (phase 3)
+  l.go = post ? 0 : l.q;            // g_out rows, then x (phase 3)
   l.p = round_up(qc * Tk, 4);       // x3: probs, dprobs, dint
-  l.lam = round_up(qc * lde, 4);    // x2: lam, raw -> draw
-  l.oh = round_up(imax(Tk * lde, qc * ldh), 4);  // one-hot, then dseq
+  l.lam = post ? 0 : round_up(qc * lde, 4);  // x2: lam, raw -> draw
+  l.oh = round_up(post ? qc * ldh : imax(Tk * lde, qc * ldh), 4);  // one-hot, then dseq
   l.dsc = round_up(E, 4);
   l.small = round_up(Tk + 2 * qc, 4);
   return l;
 }
 
-__host__ __device__ inline size_t smem_bytes(int qc, int Tk, int dh, int E) {
-  const Layout l = layout(qc, Tk, dh, E);
+__host__ __device__ inline size_t smem_bytes(int qc, int Tk, int dh, int E, int mode) {
+  const Layout l = layout(qc, Tk, dh, E, mode);
   return sizeof(float) *
          (size_t)(l.k + l.t + l.v + l.q + l.go + 3 * l.p + 2 * l.lam + l.oh + l.dsc + l.small);
 }
@@ -170,10 +201,6 @@ __device__ __forceinline__ void put_key_grad(const Params& p, void* out, float* 
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // dz of one z entry: sig = sigmoid(z + bd), dz = dsw w sig (1 - sig), at the
 // bf16 rounding points of the TPU kernel (mau_attention.py:468-479).
 template <typename T>
@@ -182,23 +209,6 @@ __device__ __forceinline__ float dz_of(float z, float bdv, float dsw, float wr, 
   *sig_out = sig;
   const float dsig = rnd<T>(dsw * wr);
   return rnd<T>(rnd<T>(dsig * sig) * rnd<T>(1.f - sig));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// dz of two z entries at once in packed bf16x2 arithmetic: each bf16
-// multiply or subtract rounds the exact result once, which is what rounding
-// the fp32 result of the same bf16 operands gives, so this is dz_of<bf16>
-// with half the instructions. Returns dz; *sig_out gets sig.
-__device__ __forceinline__ __nv_bfloat162 dz2_bf16(float z0, float z1, float bd0, float bd1,
-                                                   __nv_bfloat162 dsw, __nv_bfloat162 wr,
-                                                   __nv_bfloat162* sig_out) {
-  const __nv_bfloat162 sig = __floats2bfloat162_rn(sigmoid(z0 + bd0), sigmoid(z1 + bd1));
-  *sig_out = sig;
-  const __nv_bfloat162 one = __floats2bfloat162_rn(1.f, 1.f);
-  return __hmul2(__hmul2(__hmul2(dsw, wr), sig), __hsub2(one, sig));
 }
 
 // dseq (nq x DH, stride ldh) = (dz Wd^T)[:, :DH] on CUDA cores: z recomputed
@@ -261,129 +271,55 @@ __device__ void intensity_bwd_scalar(const Params& p, const float* xs, int ldh,
   }
 }
 
-// dseq (nq x DH, fp32, zeroed, stride ldh) += (dz Wd^T)[:, :DH] on the
-// tensor cores (bf16, DH <= 64). As in the forward, each warp keeps the 32 x
-// kpad(DH) x rows as mma A fragments and takes events in turn; per chunk of
-// NT*8 columns z = x Wd comes out of mma.sync as C fragments, dz is formed in
-// place, and two adjacent 8-column C tiles are exactly one 16-deep A tile of
-// the next product, dx += dz Wd^T, whose B fragments are pairs of adjacent
-// Wd columns (one 4-byte load from row-major bf16 Wd). Each warp sums its
-// events in registers; the 8 warps meet in shared memory at the end.
-template <int DH>
-__device__ void intensity_bwd_mma(const Params& p, const __nv_bfloat16* xb, int S,
-                                  const float* rd_s, int lde, int nq, float* dseq,
-                                  int ldh) {
-  using bf16 = __nv_bfloat16;
-  constexpr int KS = (DH + 1 + 15) / 16;
-  constexpr int NT = DH >= 32 ? 4 : DH / 8;
-  constexpr int CPE = DH / (NT * 8);
-  constexpr int ND = DH / 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int EDH = p.E * DH;
-  const uint2* wdf = static_cast<const uint2*>(p.wd_frag);
-  uint32_t a[2][KS][4];
+// The attention side, one block per (b, h, chunk of <= 32 query rows), in
+// one of three modes:
+//
+// * kFull (fp32; bf16 at dh = 128): the whole backward of its rows: probs
+//   from q and k, everything of the attention side, dlam, draw and d
+//   scaling, dx on the CUDA cores (intensity_bwd_scalar), and it writes x =
+//   [su | interval] and draw for mau_bwd_weights.
+// * kPre (bf16, dh <= 64), before mau_bwd_int_tc: probs, dv, dlam, draw, d
+//   scaling and x; writes x (bf16 rows 64 lanes wide, zero past dh),
+//   rnd(draw) transposed (E, rows) in bf16, and probs and dprobs = dmod iqk
+//   (fp32 (rows, Tk)) for kPost.
+// * kPost (bf16, dh <= 64), after it: reads probs, dprobs and dseq (the
+//   fp32 (64, rows) sums of mau_bwd_int_tc), and forms dt, dlogit, dq, dk.
+
+// Runs f(r, c, ok) over a loop's `total` outputs (r, c) = (idx / C, idx % C),
+// M of them a thread at a time (idx = base + tid + m kThreads; ok[m] false
+// past the end, where r = c = 0): f sums the M outputs' terms interleaved,
+// so that their dependent chains overlap, each output's terms in the order
+// a loop over that output alone takes them.
+template <int M, typename F>
+__device__ __forceinline__ void for_outputs(int total, int C, F f) {
+  for (int base = 0; base < total; base += M * kThreads) {
+    int r[M], c[M];
+    bool ok[M];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const bf16* x0 = xb + (mt * 16 + g) * S + ks * 16 + 2 * t;
-      a[mt][ks][0] = ld32(x0);
-      a[mt][ks][1] = ld32(x0 + 8 * S);
-      a[mt][ks][2] = ld32(x0 + 8);
-      a[mt][ks][3] = ld32(x0 + 8 * S + 8);
+    for (int m = 0; m < M; ++m) {
+      const int idx = base + threadIdx.x + m * kThreads;
+      ok[m] = idx < total;
+      r[m] = ok[m] ? idx / C : 0;
+      c[m] = ok[m] ? idx - r[m] * C : 0;
     }
-  float dx[2][ND][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dx[mt][nd][i] = 0.f;
-  for (int e = warp; e < p.E; e += kWarps) {
-    __nv_bfloat162 dsw[2][2];  // rows mt*16 + hr*8 + g, the value twice
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = mt * 16 + hr * 8 + g;
-        const float v = r < nq ? rd_s[r * lde + e] : 0.f;
-        dsw[mt][hr] = __floats2bfloat162_rn(v, v);
-      }
-#pragma unroll
-    for (int c = 0; c < CPE; ++c) {
-      const int n0 = e * DH + c * NT * 8;
-      float acc[2][NT][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint2 bf[NT];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          bf[nt] = __ldg(wdf + ((size_t)(n0 / 8 + nt) * KS + ks) * 32 + lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt][ks], bf[nt].x, bf[nt].y);
-      }
-      // dz of the pair (row, columns 2t and 2t+1) is one bf16x2: exactly
-      // the packed A operand of dx += dz Wd^T below
-      uint32_t dzp[2][NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = n0 + nt * 8 + 2 * t;
-        const float2 bdv = __ldg(reinterpret_cast<const float2*>(p.bd + col));
-        const float2 wv = __ldg(reinterpret_cast<const float2*>(p.w + col));
-        const __nv_bfloat162 wr = __floats2bfloat162_rn(wv.x, wv.y);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            __nv_bfloat162 sig;
-            dzp[mt][nt][hr] = bits(dz2_bf16(acc[mt][nt][2 * hr], acc[mt][nt][2 * hr + 1], bdv.x,
-                                            bdv.y, dsw[mt][hr], wr, &sig));
-          }
-      }
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        uint32_t az[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          az[mt][0] = dzp[mt][2 * kk][0];
-          az[mt][1] = dzp[mt][2 * kk][1];
-          az[mt][2] = dzp[mt][2 * kk + 1][0];
-          az[mt][3] = dzp[mt][2 * kk + 1][1];
-        }
-        const bf16* wcol = p.wd_bf16 + n0 + kk * 16 + 2 * t;
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          const bf16* wp = wcol + (size_t)(nd * 8 + g) * EDH;
-          const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
-          const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(dx[mt][nd], az[mt], b0, b1);
-        }
-      }
-    }
+    f(r, c, ok);
   }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = mt * 16 + (i >> 1) * 8 + g, d = nd * 8 + 2 * t + (i & 1);
-        if (r < nq) atomicAdd(dseq + r * ldh + d, dx[mt][nd][i]);
-      }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 1) mau_bwd_rows(const Params p) {
+// acc[m] = init[m] + a_r[m] . b_c[m] over n4 float4s, M dot products
+// interleaved (each in the order of dot4 over its float4s).
+template <int M>
+__device__ __forceinline__ void dots4(float (&acc)[M], const float* a, int lda, const int (&r)[M],
+                                      const float* bm, int ldb, const int (&c)[M], int n4) {
+  for (int d = 0; d < n4; ++d)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      acc[m] = dot4(reinterpret_cast<const float4*>(a + r[m] * lda)[d],
+                    reinterpret_cast<const float4*>(bm + c[m] * ldb)[d], acc[m]);
+}
+
+template <typename T, int DH, int MODE>
+__global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ldh = DH + 4;
   constexpr int D4 = DH / 4;
@@ -391,16 +327,16 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_rows(const Params p) {
   const int bh = blockIdx.x / nchunks, chunk = blockIdx.x - bh * nchunks;
   const int b = bh / p.H, h = bh - b * p.H;
   const int i0 = chunk * p.qc, nq = imin(p.qc, p.Tq - i0);
-  const int Tk = p.Tk, E = p.E, EDH = E * DH;
+  const int Tk = p.Tk, E = p.E;
   const int lde = event_stride(E), E4 = round_up(E, 4) / 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Layout l = layout(p.qc, Tk, DH, E);
+  const Layout l = layout(p.qc, Tk, DH, E, MODE);
 
   float* ks = smem;
   float* ts = ks + l.k;
   float* vs = ts + l.t;       // phase 2a
   float* ms = vs;             // modulated probs, phase 2b-2c
-  float* wdc = vs;            // Wd chunk (DH+1) x (kNC+1), phase 3
+  float* wdc = vs;            // Wd chunk (DH+1) x (kNC+1), phase 3 (kFull)
   float* dzc = vs + (DH + 1) * (kNC + 1);  // dz chunk nq x (kNC+1)
   float* qs = vs + l.v;
   float* gos = qs + l.q;      // g_out rows (phase 2), then x (phase 3-)
@@ -424,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_rows(const Params p) {
   const T* gog = static_cast<const T*>(p.go) + b * p.go_bs + (long long)i0 * p.go_rs + h * DH;
   const size_t row0 = ((size_t)b * p.H + h) * p.Tq + i0;  // first (b, h, i) row
 
-  // ---- phase 1: probs
+  // ---- phase 1: probs (kPost: probs and dprobs from kPre)
   load_rows<T>(qs, ldh, qg, p.q_rs, nq, DH);
   load_rows<T>(ks, ldh, kg, p.k_rs, Tk, DH);
   load_rows<T>(ts, ldh, tg, p.t_rs, Tk, DH);
@@ -433,148 +369,176 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_rows(const Params p) {
     ivs[i] = p.intervals[(size_t)b * p.Tq + i0 + i];
     qps[i] = p.qpos[(size_t)b * p.Tq + i0 + i];
   }
-  for (int e = tid; e < l.dsc; e += kThreads) dsc_s[e] = 0.f;
-  __syncthreads();
-  for (int idx = tid; idx < nq * Tk; idx += kThreads) {
-    const int i = idx / Tk, j = idx - i * Tk;
-    const float4* qa = reinterpret_cast<const float4*>(qs + i * ldh);
-    const float4* ka = reinterpret_cast<const float4*>(ks + j * ldh);
-    float acc = 0.f;
-#pragma unroll
-    for (int d = 0; d < D4; ++d) acc = dot4(qa[d], ka[d], acc);
-    float s = acc * p.scale;
-    if (kms[j] == 0.f) s = kNeg;
-    if (p.causal && j > qps[i]) s = kNeg;
-    ps[idx] = s;
-  }
-  __syncthreads();
-  for (int i = warp; i < nq; i += kWarps) {
-    float* row = ps + i * Tk;
-    float m = -INFINITY;
-    for (int j = lane; j < Tk; j += 32) m = fmaxf(m, row[j]);
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < Tk; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
+  if constexpr (MODE == kPost) {
+    for (int idx = tid; idx < nq * Tk; idx += kThreads) {
+      ps[idx] = p.probs_ws[row0 * Tk + idx];
+      dps[idx] = p.dprobs_ws[row0 * Tk + idx];
     }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < Tk; j += 32) row[j] = row[j] / sum;
-  }
-
-  // ---- phase 2: g_out side. dmod = g_out v^T; lam from raw; one-hot rows
-  load_rows<T>(vs, ldh, vg, p.v_rs, Tk, DH);
-  load_rows<T>(gos, ldh, gog, p.go_rs, nq, DH);
-  const float* rawg = p.raw + row0 * E;
-  for (int idx = tid; idx < nq * E4 * 4; idx += kThreads) {
-    const int i = idx / (E4 * 4), e = idx - i * E4 * 4;
-    float lv = 0.f, rv = 0.f;
-    if (e < E) {
-      const float s = expf(p.scaling[e]);
-      rv = rawg[i * E + e];
-      lv = s * softplus(rv / s);
-    }
-    lam_s[i * lde + e] = lv;
-    rd_s[i * lde + e] = rv;
-  }
-  for (int idx = tid; idx < Tk * E4 * 4; idx += kThreads) {
-    const int j = idx / (E4 * 4), e = idx - j * E4 * 4;
-    oh_s[j * lde + e] = e < E ? p.onehot[((size_t)b * Tk + j) * E + e] : 0.f;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nq * Tk; idx += kThreads) {
-    const int i = idx / Tk, j = idx - i * Tk;
-    const float4* ga = reinterpret_cast<const float4*>(gos + i * ldh);
-    const float4* va = reinterpret_cast<const float4*>(vs + j * ldh);
-    float acc = 0.f;
-#pragma unroll
-    for (int d = 0; d < D4; ++d) acc = dot4(ga[d], va[d], acc);
-    dps[idx] = acc;
-  }
-  __syncthreads();  // v rows are dead from here: ms takes their place
-
-  // elementwise: modulated (for dv), dprobs = dmod*iqk, dint = dmod*probs
-  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  for (int idx = tid; idx < nq * Tk; idx += kThreads) {
-    const int i = idx / Tk, j = idx - i * Tk;
-    const bool diag = p.diag_reset && j == qps[i];
-    float iqk = 1.f;
-    if (!diag) {
-      const float4* la = reinterpret_cast<const float4*>(lam_s + i * lde);
-      const float4* oa = reinterpret_cast<const float4*>(oh_s + j * lde);
-      iqk = 0.f;
-      for (int e = 0; e < E4; ++e) iqk = dot4(la[e], oa[e], iqk);
-    }
-    const float f = drop.on ? drop.factor(b, h, i0 + i, j) : 1.f;
-    const float pr = ps[idx];
-    ms[idx] = rnd<T>(iqk * pr * f);
-    const float dm = dps[idx] * f;
-    dps[idx] = dm * iqk;
-    dis[idx] = diag ? 0.f : dm * pr;
-  }
-  __syncthreads();
-
-  // dv = modulated^T g_out
-  for (int idx = tid; idx < Tk * DH; idx += kThreads) {
-    const int j = idx / DH, d = idx - j * DH;
-    float acc = 0.f;
-    for (int i = 0; i < nq; ++i) acc = fmaf(ms[i * Tk + j], gos[i * ldh + d], acc);
-    put_key_grad<T>(p, p.dv, p.dv_acc, b, h, j, d, acc, DH);
-  }
-  // dlam = dint @ onehot + g_lam; draw = dlam * sigmoid(raw/s); d scaling
-  const float* glg = p.glam + row0 * E;
-  float* drawg = p.draw_out + row0 * E;
-  for (int idx = tid; idx < nq * E; idx += kThreads) {
-    const int i = idx / E, e = idx - i * E;
-    float dl = glg[i * E + e];
-    for (int j = 0; j < Tk; ++j) dl = fmaf(dis[i * Tk + j], oh_s[j * lde + e], dl);
-    const float s = expf(p.scaling[e]);
-    const float r = rd_s[i * lde + e] / s;
-    const float sr = 1.f / (1.f + expf(-r));
-    const float dr = dl * sr;
-    rd_s[i * lde + e] = dr;
-    drawg[i * E + e] = dr;
-    atomicAdd(dsc_s + e, dl * (softplus(r) - sr * r) * s);
-  }
-  __syncthreads();  // g_out rows and the one-hot rows are dead from here
-  for (int e = tid; e < E; e += kThreads) atomicAdd(p.dscaling + e, dsc_s[e]);
-
-  // ---- phase 3: x = [probs @ t | interval] (rounded), then dx = dz Wd^T
-  constexpr bool kMma = sizeof(T) == 2 && DH <= 64;
-  float* xg = static_cast<float*>(p.x_out) + row0 * (DH + 1);
-  for (int idx = tid; idx < nq * (DH + 1); idx += kThreads) {
-    const int i = idx / (DH + 1), d = idx - i * (DH + 1);
-    float acc;
-    if (d < DH) {
-      acc = 0.f;
-      for (int j = 0; j < Tk; ++j) acc = fmaf(rnd<T>(ps[i * Tk + j]), ts[j * ldh + d], acc);
-    } else {
-      acc = ivs[i];
-    }
-    acc = rnd<T>(acc);
-    xs[i * ldh + d] = acc;
-    if constexpr (!kMma) xg[i * (DH + 1) + d] = acc;
-  }
-  if constexpr (kMma) {
-    constexpr int KP = (DH + 1 + 15) / 16 * 16, S = KP + 8;
-    __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(vs);
-    __nv_bfloat16* xgb = static_cast<__nv_bfloat16*>(p.x_out) + row0 * KP;
-    __syncthreads();  // x rows written
-    for (int idx = tid; idx < 32 * KP; idx += kThreads) {
-      const int i = idx / KP, d = idx - i * KP;
-      const __nv_bfloat16 v = __float2bfloat16(i < nq && d <= DH ? xs[i * ldh + d] : 0.f);
-      xb[i * S + d] = v;
-      if (i < nq) xgb[i * KP + d] = v;
-    }
-    for (int idx = tid; idx < nq * ldh; idx += kThreads) dseq[idx] = 0.f;
-    __syncthreads();
-    intensity_bwd_mma<DH>(p, xb, S, rd_s, lde, nq, dseq, ldh);
-    __syncthreads();
   } else {
-    intensity_bwd_scalar<T, DH>(p, xs, ldh, rd_s, lde, nq, wdc, dzc, dseq);
+    for (int e = tid; e < l.dsc; e += kThreads) dsc_s[e] = 0.f;
     __syncthreads();
+    for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      dots4(acc, qs, ldh, i, ks, ldh, j, D4);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float s = acc[m] * p.scale;
+        if (kms[j[m]] == 0.f) s = kNeg;
+        if (p.causal && j[m] > qps[i[m]]) s = kNeg;
+        if (ok[m]) ps[i[m] * Tk + j[m]] = s;
+      }
+    });
+    __syncthreads();
+    for (int i = warp; i < nq; i += kWarps) {
+      float* row = ps + i * Tk;
+      float m = -INFINITY;
+      for (int j = lane; j < Tk; j += 32) m = fmaxf(m, row[j]);
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = 0.f;
+      for (int j = lane; j < Tk; j += 32) {
+        const float e = expf(row[j] - m);
+        row[j] = e;
+        sum += e;
+      }
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      for (int j = lane; j < Tk; j += 32) row[j] = row[j] / sum;
+    }
+
+    // ---- phase 2: g_out side. dmod = g_out v^T; lam from raw; one-hot rows
+    load_rows<T>(vs, ldh, vg, p.v_rs, Tk, DH);
+    load_rows<T>(gos, ldh, gog, p.go_rs, nq, DH);
+    const float* rawg = p.raw + row0 * E;
+    for (int idx = tid; idx < nq * E4 * 4; idx += kThreads) {
+      const int i = idx / (E4 * 4), e = idx - i * E4 * 4;
+      float lv = 0.f, rv = 0.f;
+      if (e < E) {
+        const float s = expf(p.scaling[e]);
+        rv = rawg[i * E + e];
+        lv = s * softplus(rv / s);
+      }
+      lam_s[i * lde + e] = lv;
+      rd_s[i * lde + e] = rv;
+    }
+    for (int idx = tid; idx < Tk * E4 * 4; idx += kThreads) {
+      const int j = idx / (E4 * 4), e = idx - j * E4 * 4;
+      oh_s[j * lde + e] = e < E ? p.onehot[((size_t)b * Tk + j) * E + e] : 0.f;
+    }
+    __syncthreads();
+    for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      dots4(acc, gos, ldh, i, vs, ldh, j, D4);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (ok[m]) dps[i[m] * Tk + j[m]] = acc[m];
+    });
+    __syncthreads();  // v rows are dead from here: ms takes their place
+
+    // elementwise: modulated (for dv), dprobs = dmod*iqk, dint = dmod*probs
+    const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+    for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
+      float iq[4] = {0.f, 0.f, 0.f, 0.f};
+      dots4(iq, lam_s, lde, i, oh_s, lde, j, E4);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int idx = i[m] * Tk + j[m];
+        const bool diag = p.diag_reset && j[m] == qps[i[m]];
+        const float iqk = diag ? 1.f : iq[m];
+        const float f = drop.on ? drop.factor(b, h, i0 + i[m], j[m]) : 1.f;
+        const float pr = ps[idx];
+        const float dm = dps[idx] * f;
+        if (!ok[m]) continue;
+        ms[idx] = rnd<T>(iqk * pr * f);
+        dps[idx] = dm * iqk;
+        dis[idx] = diag ? 0.f : dm * pr;
+        if constexpr (MODE == kPre) {
+          p.probs_ws[row0 * Tk + idx] = pr;
+          p.dprobs_ws[row0 * Tk + idx] = dm * iqk;
+        }
+      }
+    });
+    __syncthreads();
+
+    // dv = modulated^T g_out
+    for_outputs<8>(Tk * DH, DH, [&](const int (&j)[8], const int (&d)[8], const bool (&ok)[8]) {
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int i = 0; i < nq; ++i)
+#pragma unroll
+        for (int m = 0; m < 8; ++m) acc[m] = fmaf(ms[i * Tk + j[m]], gos[i * ldh + d[m]], acc[m]);
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        if (ok[m]) put_key_grad<T>(p, p.dv, p.dv_acc, b, h, j[m], d[m], acc[m], DH);
+    });
+    // dlam = dint @ onehot + g_lam; draw = dlam * sigmoid(raw/s); d scaling
+    const float* glg = p.glam + row0 * E;
+    for_outputs<8>(nq * E, E, [&](const int (&ii)[8], const int (&ee)[8], const bool (&ok)[8]) {
+      float dls[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) dls[m] = glg[ii[m] * E + ee[m]];
+      for (int j = 0; j < Tk; ++j)
+#pragma unroll
+        for (int m = 0; m < 8; ++m) dls[m] = fmaf(dis[ii[m] * Tk + j], oh_s[j * lde + ee[m]], dls[m]);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        if (!ok[m]) continue;
+        const int i = ii[m], e = ee[m];
+        const float dl = dls[m];
+        const float s = expf(p.scaling[e]);
+        const float r = rd_s[i * lde + e] / s;
+        const float sr = 1.f / (1.f + expf(-r));
+        const float dr = dl * sr;
+        rd_s[i * lde + e] = dr;
+        if constexpr (MODE == kPre)  // rnd(draw), transposed for the tensor-core kernel
+          static_cast<__nv_bfloat16*>(p.draw_out)[(size_t)e * p.rows_pad + row0 + i] =
+              __float2bfloat16(dr);
+        else
+          static_cast<float*>(p.draw_out)[(row0 + i) * E + e] = dr;
+        atomicAdd(dsc_s + e, dl * (softplus(r) - sr * r) * s);
+      }
+    });
+    __syncthreads();  // g_out rows and the one-hot rows are dead from here
+    for (int e = tid; e < E; e += kThreads) atomicAdd(p.dscaling + e, dsc_s[e]);
+
+    // ---- phase 3: x = [probs @ t | interval] (rounded)
+    if constexpr (MODE == kPre) {  // the seq_units lanes, 64 wide, zero past DH
+      __nv_bfloat16* xg = static_cast<__nv_bfloat16*>(p.x_out) + row0 * 64;
+      for_outputs<8>(nq * 64, 64, [&](const int (&i)[8], const int (&d)[8], const bool (&ok)[8]) {
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        int dd[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) dd[m] = imin(d[m], DH - 1);
+        for (int j = 0; j < Tk; ++j)
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            acc[m] = fmaf(rnd<T>(ps[i[m] * Tk + j]), ts[j * ldh + dd[m]], acc[m]);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          if (ok[m]) xg[(size_t)i[m] * 64 + d[m]] = __float2bfloat16(d[m] < DH ? acc[m] : 0.f);
+      });
+      return;
+    }
+    for (int idx = tid; idx < nq * (DH + 1); idx += kThreads) {
+      const int i = idx / (DH + 1), d = idx - i * (DH + 1);
+      float acc;
+      if (d < DH) {
+        acc = 0.f;
+        for (int j = 0; j < Tk; ++j) acc = fmaf(rnd<T>(ps[i * Tk + j]), ts[j * ldh + d], acc);
+      } else {
+        acc = ivs[i];
+      }
+      acc = rnd<T>(acc);
+      xs[i * ldh + d] = acc;
+      static_cast<float*>(p.x_out)[(row0 + i) * (DH + 1) + d] = acc;
+    }
+    __syncthreads();
+    intensity_bwd_scalar<T, DH>(p, xs, ldh, rd_s, lde, nq, wdc, dzc, dseq);
   }
+  if constexpr (MODE == kPost) {
+    for (int idx = tid; idx < nq * DH; idx += kThreads) {
+      const int i = idx / DH, d = idx - i * DH;
+      dseq[i * ldh + d] = p.dseq_ws[(size_t)d * p.rows_pad + row0 + i];
+    }
+  }
+  __syncthreads();
   // dseq is rounded once to the compute dtype: both of its uses take it so
   for (int idx = tid; idx < nq * DH; idx += kThreads) {
     const int i = idx / DH, d = idx - i * DH;
@@ -583,21 +547,25 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_rows(const Params p) {
   __syncthreads();
 
   // ---- phase 4: dprobs += dseq t^T; dt = probs^T dseq
-  for (int idx = tid; idx < nq * Tk; idx += kThreads) {
-    const int i = idx / Tk, j = idx - i * Tk;
-    const float4* da = reinterpret_cast<const float4*>(dseq + i * ldh);
-    const float4* ta = reinterpret_cast<const float4*>(ts + j * ldh);
-    float acc = dps[idx];
+  for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
+    float acc[4];
 #pragma unroll
-    for (int d = 0; d < D4; ++d) acc = dot4(da[d], ta[d], acc);
-    dps[idx] = acc;
-  }
-  for (int idx = tid; idx < Tk * DH; idx += kThreads) {
-    const int j = idx / DH, d = idx - j * DH;
-    float acc = 0.f;
-    for (int i = 0; i < nq; ++i) acc = fmaf(rnd<T>(ps[i * Tk + j]), dseq[i * ldh + d], acc);
-    put_key_grad<T>(p, p.dt, p.dt_acc, b, h, j, d, acc, DH);
-  }
+    for (int m = 0; m < 4; ++m) acc[m] = dps[i[m] * Tk + j[m]];
+    dots4(acc, dseq, ldh, i, ts, ldh, j, D4);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (ok[m]) dps[i[m] * Tk + j[m]] = acc[m];
+  });
+  for_outputs<8>(Tk * DH, DH, [&](const int (&j)[8], const int (&d)[8], const bool (&ok)[8]) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < nq; ++i)
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        acc[m] = fmaf(rnd<T>(ps[i * Tk + j[m]]), dseq[i * ldh + d[m]], acc[m]);
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (ok[m]) put_key_grad<T>(p, p.dt, p.dt_acc, b, h, j[m], d[m], acc[m], DH);
+  });
   __syncthreads();
   // softmax backward, one warp per row; masked entries (a fully masked row
   // included) get no gradient
@@ -615,21 +583,27 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_rows(const Params p) {
   __syncthreads();
   const int C = p.H * DH;
   T* dqg = static_cast<T*>(p.dq) + ((size_t)b * p.Tq + i0) * C + h * DH;
-  for (int idx = tid; idx < nq * DH; idx += kThreads) {
-    const int i = idx / DH, d = idx - i * DH;
-    float acc = 0.f;
-    for (int j = 0; j < Tk; ++j) acc = fmaf(dps[i * Tk + j], ks[j * ldh + d], acc);
-    dqg[(size_t)i * C + d] = from_f<T>(acc);
-  }
-  for (int idx = tid; idx < Tk * DH; idx += kThreads) {
-    const int j = idx / DH, d = idx - j * DH;
-    float acc = 0.f;
-    for (int i = 0; i < nq; ++i) acc = fmaf(dps[i * Tk + j], qs[i * ldh + d], acc);
-    put_key_grad<T>(p, p.dk, p.dk_acc, b, h, j, d, acc, DH);
-  }
+  for_outputs<8>(nq * DH, DH, [&](const int (&i)[8], const int (&d)[8], const bool (&ok)[8]) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < Tk; ++j)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) acc[m] = fmaf(dps[i[m] * Tk + j], ks[j * ldh + d[m]], acc[m]);
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (ok[m]) dqg[(size_t)i[m] * C + d[m]] = from_f<T>(acc[m]);
+  });
+  for_outputs<8>(Tk * DH, DH, [&](const int (&j)[8], const int (&d)[8], const bool (&ok)[8]) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < nq; ++i)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) acc[m] = fmaf(dps[i * Tk + j[m]], qs[i * ldh + d[m]], acc[m]);
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (ok[m]) put_key_grad<T>(p, p.dk, p.dk_acc, b, h, j[m], d[m], acc[m], DH);
+  });
 }
 
-// dWd, dbd, dw: thread = one Wd column, block = kThreads columns x one chunk
+// dWd, dbd, dw (kFull's second kernel): thread = one Wd column, block = kThreads columns x one chunk
 // of rows. Wd's column stays in registers for dh <= 64 (in shared memory
 // above, where registers run out).
 template <typename T, int DH>
@@ -670,7 +644,7 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_weights(const Params p) {
     }
     for (int idx = tid; idx < nr * p.E; idx += kThreads) {
       const int r = idx / p.E, ee = idx - r * p.E;
-      dst[r * E4 + ee] = p.draw_out[(r0 + r) * p.E + ee];
+      dst[r * E4 + ee] = static_cast<const float*>(p.draw_out)[(r0 + r) * p.E + ee];
     }
     __syncthreads();
     for (int r = 0; r < nr; ++r) {
@@ -699,177 +673,320 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_weights(const Params p) {
   }
 }
 
-// dWd, dbd, dw on the tensor cores (bf16, dh <= 64). A warp owns 16 Wd
-// columns (inside one event) and keeps their Wd^T rows as mma A fragments;
-// a block of 8 warps takes 128 columns and stages 64 rows of x (bf16 rows
-// from mau_bwd_rows, 16-byte loads; then a transposed copy) and draw at a
-// time. (32 columns a warp reads x half as often but needs ~230 registers,
-// one block per SM, and measured slower.) Per 16 rows: z^T = Wd^T x^T
-// (C: columns x rows), dz^T formed in place, and two 8-row C tiles are one
-// 16-deep A tile of dWd^T += dz^T x, B from the transposed x.
-constexpr int kWColsPerWarp = 16;
-constexpr int kWColsPerBlock = kWColsPerWarp * kWarps;
-constexpr int kWStage = 64;
+// ---------------------------------------------------------------- intensity head, bf16
+// mau_bwd_int_tc (see the header): warpgroups 0 and 1 consume, one
+// 64-column tile of Wd each; the first warp of warpgroup 2 produces.
 
-template <int DH>
-__host__ __device__ inline size_t weights_mma_smem_bytes(int E) {
-  constexpr int KP = (DH + 1 + 15) / 16 * 16;
-  return 2 * ((size_t)kWStage * (KP + 8) + (size_t)KP * (kWStage + 8)) +
-         sizeof(float) * (size_t)kWStage * round_up(E, 4);
+constexpr int kIntStages = 3;
+constexpr int kIntGroups = 2;                         // consumer warpgroups
+constexpr int kIntCols = 64 * kIntGroups;             // Wd columns a block
+constexpr int kIntThreads = 128 * (kIntGroups + 1);   // and a producer warpgroup
+constexpr int kIntEventsMax = kIntCols / 16;          // events a block at dh = 16
+// A consumer thread holds z^T, dWd^T and dx^T (96 fp32), the Wd^T and dz^T
+// fragments (32) and its columns' sums; 40 + 2 x 232 of a warpgroup thread
+// fit the 65,536 of an SM.
+constexpr int kIntProducerRegs = 40, kIntConsumerRegs = 232;
+constexpr int kTile = 64 * 64;                        // bf16 values of a (64 x 64) tile, 8 KB
+
+// Dynamic shared memory of mau_bwd_int_tc, in bytes: the block's two Wd
+// tiles; per stage an x tile, the draw rows of the block's events and the
+// intervals; dz^T of both warpgroups, double-buffered; an fp32 (64 x 64)
+// staging tile a warpgroup for the reductions; the mbarriers; 1 KB slack.
+constexpr size_t kIntSmem = 1024 + sizeof(__nv_bfloat16) * kTile * (kIntGroups + kIntStages + 2 * kIntGroups) +
+                            sizeof(float) * kTile * kIntGroups +
+                            kIntStages * (sizeof(__nv_bfloat16) * kIntEventsMax * 64 + sizeof(float) * 64) +
+                            8 * (1 + 2 * kIntStages);
+
+struct IntMaps {
+  CUtensorMap wd;    // bf16 Wd (dh lanes, E*dh): boxes 64 lanes x 64 columns
+  CUtensorMap x;     // bf16 x (rows, 64 lanes): boxes 64 rows x 64 lanes
+  CUtensorMap draw;  // bf16 rnd(draw) (E, rows): boxes of the block's events x 64 rows
+  CUtensorMap dseq;  // fp32 dseq^T workspace (64 lanes, rows): boxes 64 lanes x 32 rows
+  CUtensorMap dwd;   // fp32 dWd^T workspace (E*dh, 64 lanes): boxes 64 columns x 32 lanes
+};
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// sigmoid(z) = (1 + tanh(z / 2)) / 2 in one special-function op; sig is
+// rounded to bf16 right after, whose ulp (2^-8) is far above the op's error.
+__device__ __forceinline__ float sigmoid_bf16(float z) {
+  return fmaf(0.5f, tanh_approx(0.5f * z), 0.5f);
+}
+
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return bits2(__floats2bfloat162_rn(lo, hi));
+}
+
+// Two (64 x 32) fp32 halves of a warpgroup accumulator (rows r: the
+// thread's 16 warp + g (+8); columns 8 n + 2 t4 (+1)) in the 128-byte swizzle
+// (column 8 m + 2 t4 of a half is 16-byte chunk 2 m + t4 / 2), as the
+// reduce-add boxes read them.
+__device__ __forceinline__ void stage_halves(float* st, const float (&d)[32], int warp, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * warp + g + 8 * hr, chunk = (2 * (n & 3) + (t4 >> 1)) ^ g;
+      *reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(st) + (n >> 2) * 8192 + r * 128 +
+                                 (chunk << 4) + 8 * (t4 & 1)) =
+          make_float2(d[4 * n + 2 * hr], d[4 * n + 2 * hr + 1]);
+    }
+}
+
+// A (64 x 32) fp32 accumulator in the same layout: the first half.
+__device__ __forceinline__ void stage_half(float* st, const float (&d)[16], int warp, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * warp + g + 8 * hr, chunk = (2 * n + (t4 >> 1)) ^ g;
+      *reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(st) + r * 128 + (chunk << 4) +
+                                 8 * (t4 & 1)) = make_float2(d[4 * n + 2 * hr], d[4 * n + 2 * hr + 1]);
+    }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 2) mau_bwd_weights_mma(const Params p) {
+__global__ void __launch_bounds__(kIntThreads, 1)
+    mau_bwd_int_tc(const Params p, const __grid_constant__ IntMaps maps) {
   using bf16 = __nv_bfloat16;
-  constexpr int K = DH + 1, KP = (K + 15) / 16 * 16, KS = KP / 16, NK = KP / 8;
-  constexpr int SX = KP + 8, ST = kWStage + 8;
-  extern __shared__ __align__(16) float smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // kWStage x SX
-  bf16* xt = xs + kWStage * SX;              // KP x ST (x transposed)
-  float* ds = reinterpret_cast<float*>(xt + KP * ST);  // kWStage x E4 (draw)
-  const unsigned short* xsu = reinterpret_cast<const unsigned short*>(xs);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int EDH = p.E * DH, E4 = round_up(p.E, 4);
-  const int c0 = blockIdx.x * kWColsPerBlock + warp * kWColsPerWarp;
-  // m-tile mt covers columns c0 + 16 mt .. +15 (E*dh is a multiple of 16)
-  constexpr int MT = kWColsPerWarp / 16;
-  bool act[MT];
-  int cb[MT], ev[MT];
-  uint32_t a[MT][KS][4];
-  float bdv[MT][2], dbd[MT][2], dw[MT][2];
-  __nv_bfloat162 wr[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    act[mt] = c0 + 16 * mt < EDH;  // uniform per warp
-    cb[mt] = act[mt] ? c0 + 16 * mt : 0;
-    ev[mt] = cb[mt] / DH;
-    const bf16* w0 = p.wd_t + (size_t)(cb[mt] + g) * KP + 2 * t;
-    const bf16* w8 = w0 + 8 * KP;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      a[mt][ks][0] = ld32(w0 + ks * 16);
-      a[mt][ks][1] = ld32(w8 + ks * 16);
-      a[mt][ks][2] = ld32(w0 + ks * 16 + 8);
-      a[mt][ks][3] = ld32(w8 + ks * 16 + 8);
+  constexpr int EPB = kIntCols / DH;  // events a block
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* wds = reinterpret_cast<bf16*>(base);         // [group][64 lanes][64 columns]
+  bf16* xs = wds + kIntGroups * kTile;               // [stage][64 rows][64 lanes]
+  bf16* dzt = xs + kIntStages * kTile;               // [buffer][group][64 rows][64 columns]
+  float* stg = reinterpret_cast<float*>(dzt + 2 * kIntGroups * kTile);  // [group][2][64][32]
+  // [stage][EPB events][64 rows], 128-byte swizzle
+  bf16* drs = reinterpret_cast<bf16*>(stg + kIntGroups * kTile);
+  float* ivs = reinterpret_cast<float*>(drs + kIntStages * kIntEventsMax * 64);  // [stage][64]
+  uint64_t* wd_full = reinterpret_cast<uint64_t*>(ivs + kIntStages * 64);
+  uint64_t* full = wd_full + 1;          // [stage]
+  uint64_t* empty = full + kIntStages;   // [stage]
+
+  const int EDH = p.E * DH, rows = p.B * p.H * p.Tq;
+  const int cb = blockIdx.x, c0 = cb * kIntCols, e0 = c0 / DH;
+  const int tiles = (rows + 63) / 64;
+  const int t_begin = blockIdx.y * p.tiles_per_chunk;
+  const int ntiles = imin(p.tiles_per_chunk, tiles - t_begin);
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  if (ntiles <= 0) return;
+  if (threadIdx.x == 0) {
+    mbar_init(wd_full, 1);
+    for (int s = 0; s < kIntStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * kIntGroups);
     }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bdv[mt][h] = p.bd[cb[mt] + g + 8 * h];
-      const float wv = p.w[cb[mt] + g + 8 * h];
-      wr[mt][h] = __floats2bfloat162_rn(wv, wv);
-      dbd[mt][h] = dw[mt][h] = 0.f;
-    }
+    mbar_fence_init();
   }
-  float acc[MT][NK][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nk = 0; nk < NK; ++nk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nk][i] = 0.f;
-  const bf16* xg = static_cast<const bf16*>(p.x_out);
-  const long long rows = (long long)p.B * p.H * p.Tq;
-  const long long r_begin = (long long)blockIdx.y * p.rows_per_chunk;
-  const long long r_end = r_begin + p.rows_per_chunk < rows ? r_begin + p.rows_per_chunk : rows;
-  for (long long r0 = r_begin; r0 < r_end; r0 += kWStage) {
-    const int nr = (int)(r_end - r0 < kWStage ? r_end - r0 : kWStage);
-    __syncthreads();
-    for (int idx = tid; idx < kWStage * (KP / 8); idx += kThreads) {
-      const int r = idx / (KP / 8), c = (idx - r * (KP / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < nr) v = __ldg(reinterpret_cast<const uint4*>(xg + (r0 + r) * KP + c));
-      *reinterpret_cast<uint4*>(xs + r * SX + c) = v;
+  __syncthreads();
+
+  if (warp >= 4 * kIntGroups) {  // ---- producer: its first warp works
+    regs_dec<kIntProducerRegs>();
+    if (warp > 4 * kIntGroups) return;
+    if (lane == 0) {
+      mbar_arrive_tx(wd_full, kIntGroups * kTile * sizeof(bf16));
+      for (int w = 0; w < kIntGroups; ++w) tma_2d(wds + w * kTile, &maps.wd, wd_full, c0 + 64 * w, 0);
     }
-    for (int idx = tid; idx < kWStage * p.E; idx += kThreads) {
-      const int r = idx / p.E, ee = idx - r * p.E;
-      ds[r * E4 + ee] = r < nr ? p.draw_out[(r0 + r) * p.E + ee] : 0.f;
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % kIntStages, r0 = (t_begin + it) * 64;
+      mbar_wait(empty + s, ((it / kIntStages) & 1) ^ 1);
+      for (int r = lane; r < 64; r += 32) {  // the interval lane of x, rounded
+        const int row = r0 + r;
+        ivs[s * 64 + r] = row < rows ? rnd<bf16>(p.intervals[(size_t)(row / (p.H * p.Tq)) * p.Tq +
+                                                             row % p.Tq])
+                                     : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(full + s, (kTile + EPB * 64) * sizeof(bf16));
+        tma_2d(xs + s * kTile, &maps.x, full + s, 0, r0);
+        tma_2d(drs + s * kIntEventsMax * 64, &maps.draw, full + s, r0, e0);
+      } else {
+        mbar_arrive(full + s);
+      }
     }
-    __syncthreads();
-    for (int idx = tid; idx < KP * (kWStage / 2); idx += kThreads) {
-      const int k = idx / (kWStage / 2), r = (idx - k * (kWStage / 2)) * 2;
-      *reinterpret_cast<uint32_t*>(xt + k * ST + r) =
-          (uint32_t)xsu[r * SX + k] | ((uint32_t)xsu[(r + 1) * SX + k] << 16);
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns columns n0 = c0 + 64 wg ..; thread
+  // (warp, g, t4) holds columns n0 + 16 warp + g (+8) and, of a row tile,
+  // rows 8 n + 2 t4 (+1): entry (column hm, row n, c) at zt[4 n + 2 hm + c]
+  regs_inc<kIntConsumerRegs>();
+  const int wg = warp >> 2, n0 = c0 + 64 * wg;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool issuer = (threadIdx.x & 127) == 0;  // of the warpgroup's reductions
+  float* stw = stg + wg * kTile;
+  // Wd^T of the warp's columns as A fragments: k step kk (lanes 16 kk ..),
+  // entry i at column n0 + 16 warp + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1)
+  // + 2 t4 (+1); rounded to bf16, zero past dh and past E*dh
+  uint32_t wf[16];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = n0 + 16 * warp + g + 8 * (i & 1), ln = 16 * kk + 8 * (i >> 1) + 2 * t4;
+      const bool ok = col < EDH;
+      wf[4 * kk + i] = pack2(ok && ln < DH ? p.wd[(size_t)ln * EDH + col] : 0.f,
+                                 ok && ln + 1 < DH ? p.wd[(size_t)(ln + 1) * EDH + col] : 0.f);
     }
-    __syncthreads();
-    if (!act[0]) continue;
-    for (int rt = 0; rt * 16 < nr; ++rt) {
-      float z[MT][2][4];
+  // the thread's columns: bd, rnd(w), rnd(Wd[dh]) (the interval lane), the
+  // event's row in the stage's draw rows, and the sums over rows
+  float bdv[2], wiv[2], dw[2] = {0.f, 0.f}, dbd[2] = {0.f, 0.f}, giv[2] = {0.f, 0.f};
+  __nv_bfloat162 wr2[2];
+  int el[2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+  for (int hm = 0; hm < 2; ++hm) {
+    const int m = 16 * warp + g + 8 * hm, col = n0 + m;
+    const bool ok = col < EDH;
+    bdv[hm] = ok ? p.bd[col] : 0.f;
+    const float wv = ok ? p.w[col] : 0.f;
+    wr2[hm] = __floats2bfloat162_rn(wv, wv);
+    wiv[hm] = ok ? rnd<bf16>(p.wd[(size_t)DH * EDH + col]) : 0.f;
+    el[hm] = (64 * wg + m) / DH;
+  }
+  const uint64_t wdd = sw128_desc(wds);
+  float gwd[32];  // dWd^T at (column, lane 8 n + 2 t4 + c)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+  for (int i = 0; i < 32; ++i) gwd[i] = 0.f;
+  const __nv_bfloat162 one2 = __floats2bfloat162_rn(1.f, 1.f);
+  mbar_wait(wd_full, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kIntStages, buf = it & 1, r0 = (t_begin + it) * 64;
+    mbar_wait(full + s, (it / kIntStages) & 1);
+    const uint64_t xd = sw128_desc(xs + s * kTile);
+    float zt[32];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) z[mt][nt][i] = 0.f;
+    for (int i = 0; i < 32; ++i) zt[i] = 0.f;
+    wg_fence();
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const bf16* xr = xs + (rt * 16 + nt * 8 + g) * SX + 2 * t;
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T
+    wg_commit();
+    wg_wait();
+    reg_fence(zt);
+
+    // z = x Wd + iv Wd[dh] + bd; sig, dz and the column sums at the bf16
+    // rounding points of the plain version, two rows at a time in bf16x2;
+    // dz^T's pairs are the A fragments of dWd^T += dz^T x (k step n / 2)
+    const bf16* drw = drs + s * kIntEventsMax * 64;
+    const float* ivr = ivs + s * 64;
+    uint32_t dzf[16];
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint32_t b0 = ld32(xr + ks * 16), b1 = ld32(xr + ks * 16 + 8);
+    for (int n = 0; n < 8; ++n) {
+      const float2 iv = *reinterpret_cast<const float2*>(ivr + 8 * n + 2 * t4);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_bf16(z[mt][nt], a[mt][ks], b0, b1);
+      for (int hm = 0; hm < 2; ++hm) {
+        const int x0 = 4 * n + 2 * hm;
+        const __nv_bfloat162 dsw = *reinterpret_cast<const __nv_bfloat162*>(
+            drw + el[hm] * 64 + ((n ^ (el[hm] & 7)) << 3) + 2 * t4);
+        const __nv_bfloat162 sig = __floats2bfloat162_rn(
+            sigmoid_bf16(fmaf(iv.x, wiv[hm], zt[x0] + bdv[hm])),
+            sigmoid_bf16(fmaf(iv.y, wiv[hm], zt[x0 + 1] + bdv[hm])));
+        const __nv_bfloat162 dz =
+            __hmul2(__hmul2(__hmul2(dsw, wr2[hm]), sig), __hsub2(one2, sig));
+        const float2 dzv = __bfloat1622float2(dz);
+        const float2 dwv = __bfloat1622float2(__hmul2(dsw, sig));
+        dw[hm] += dwv.x + dwv.y;
+        dbd[hm] += dzv.x + dzv.y;
+        giv[hm] = fmaf(iv.x, dzv.x, fmaf(iv.y, dzv.y, giv[hm]));
+        dzf[2 * n + hm] = bits2(dz);
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(gwd, dzf + 4 * kk, xd + 128 * kk);  // dWd^T += dz^T x
+    wg_commit();
+    // dz (64 rows x the warpgroup's 64 columns) into the buffer's tile of
+    // this warpgroup, 128-byte swizzle: the K-major B operand of dx^T
+    unsigned char* dzw = reinterpret_cast<unsigned char*>(dzt + (buf * kIntGroups + wg) * kTile);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hm = 0; hm < 2; ++hm)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int rr = 8 * n + 2 * t4 + c;
+          *reinterpret_cast<unsigned short*>(dzw + rr * 128 + (((2 * warp + hm) ^ (rr & 7)) << 4) +
+                                             2 * g) = (unsigned short)(dzf[2 * n + hm] >> (16 * c));
         }
-      }
-      // z[mt][nt][i]: column cb[mt] + g + 8 (i >> 1), row rt*16 + nt*8 +
-      // 2t + (i & 1). A pair (i, i+1) shares its column and is one bf16x2 of
-      // rows 2t, 2t+1: exactly the packed A operand of dWd^T += dz^T x.
-      uint32_t az[MT][4];
+    fence_async_smem();
+    wg_wait();
+    reg_fence(gwd);
+    mbar_arrive(empty + s);  // the stage's x tile, draw rows and intervals are free
+    named_sync(1, 128 * kIntGroups);  // both warpgroups' dz^T of this tile are in shared memory
+
+    // dx^T of the warpgroup's 32 rows of the tile over the block's 128
+    // columns (A: the Wd tiles; B: both warpgroups' dz, rows 32 wg ..),
+    // added to the workspace by TMA
+    float xt[16];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
+    for (int i = 0; i < 16; ++i) xt[i] = 0.f;
+    const uint64_t dzd = sw128_desc(dzt + buf * kIntGroups * kTile) + 256 * wg;
+    wg_fence();
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int r = rt * 16 + nt * 8 + 2 * t;
-          const __nv_bfloat162 dsw =
-              __floats2bfloat162_rn(ds[r * E4 + ev[mt]], ds[(r + 1) * E4 + ev[mt]]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            __nv_bfloat162 sig;
-            const __nv_bfloat162 dz = dz2_bf16(z[mt][nt][2 * h], z[mt][nt][2 * h + 1],
-                                               bdv[mt][h], bdv[mt][h], dsw, wr[mt][h], &sig);
-            const __nv_bfloat162 dws = __hmul2(dsw, sig);
-            dw[mt][h] += __low2float(dws) + __high2float(dws);
-            dbd[mt][h] += __low2float(dz) + __high2float(dz);
-            az[mt][2 * nt + h] = bits(dz);
-          }
-        }
-      }
-#pragma unroll
-      for (int nk = 0; nk < NK; ++nk) {
-        const bf16* xc = xt + (nk * 8 + g) * ST + rt * 16 + 2 * t;
-        const uint32_t b0 = ld32(xc), b1 = ld32(xc + 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nk], az[mt], b0, b1);
-      }
+    for (int kk = 0; kk < 2 * 4; ++kk)
+      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);
+    wg_commit();
+    wg_wait();
+    reg_fence(xt);
+    if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync(2 + wg, 128);  // the last reduction has read the staging tile
+    stage_half(stw, xt, warp, lane);
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+    if (issuer) {
+      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
+
+  // dbd, dw and the interval lane of dWd: the quad's rows, one atomic a
+  // column and block; dWd^T's lanes by TMA reduce-add
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int hm = 0; hm < 2; ++hm) {
+    float a = dw[hm], bb = dbd[hm], v = giv[hm];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        dbd[mt][h] += __shfl_xor_sync(0xffffffffu, dbd[mt][h], o);
-        dw[mt][h] += __shfl_xor_sync(0xffffffffu, dw[mt][h], o);
-      }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    if (!act[mt]) continue;
-    if (t == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        atomicAdd(p.dbd + cb[mt] + g + 8 * h, dbd[mt][h]);
-        atomicAdd(p.dw + cb[mt] + g + 8 * h, dw[mt][h]);
-      }
+    for (int o = 1; o <= 2; o <<= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      bb += __shfl_xor_sync(0xffffffffu, bb, o);
+      v += __shfl_xor_sync(0xffffffffu, v, o);
     }
-#pragma unroll
-    for (int nk = 0; nk < NK; ++nk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = nk * 8 + 2 * t + (i & 1);
-        if (k < K) atomicAdd(p.dwd + (size_t)k * EDH + cb[mt] + g + 8 * (i >> 1), acc[mt][nk][i]);
-      }
+    const int col = n0 + 16 * warp + g + 8 * hm;
+    if (t4 == 0 && col < EDH) {
+      atomicAdd(p.dw + col, a);
+      atomicAdd(p.dbd + col, bb);
+      atomicAdd(p.dwd_iv + col, v);
+    }
   }
+  if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  named_sync(2 + wg, 128);
+  stage_halves(stw, gwd, warp, lane);
+  fence_async_smem();
+  named_sync(2 + wg, 128);
+  if (issuer) {
+    tma_reduce_add_2d(&maps.dwd, stw, 0, n0);
+    tma_reduce_add_2d(&maps.dwd, stw + 2048, 32, n0);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 size_t weights_smem_bytes(int dh, int E) {
@@ -878,46 +995,77 @@ size_t weights_smem_bytes(int dh, int E) {
                           (dh > 64 ? (size_t)K * kThreads : 0));
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <typename T, int DH>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t rows_bytes = smem_bytes(p.qc, p.Tk, DH, p.E);
-  cudaError_t e = set_smem(mau_bwd_rows<T, DH>, rows_bytes);
+template <typename T, int DH, int MODE>
+cudaError_t launch_attn(const Params& p, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(p.qc, p.Tk, DH, p.E, MODE);
+  cudaError_t e = set_smem(mau_bwd_attn<T, DH, MODE>, bytes);
   if (e != cudaSuccess) return e;
   const int nchunks = (p.Tq + p.qc - 1) / p.qc;
-  mau_bwd_rows<T, DH><<<p.B * p.H * nchunks, kThreads, rows_bytes, stream>>>(p);
-  e = cudaGetLastError();
+  mau_bwd_attn<T, DH, MODE><<<p.B * p.H * nchunks, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// kFull then mau_bwd_weights: fp32, and bf16 at dh = 128.
+template <typename T, int DH>
+cudaError_t launch_full(const Params& p, cudaStream_t stream) {
+  cudaError_t e = launch_attn<T, DH, kFull>(p, stream);
   if (e != cudaSuccess) return e;
   const long long rows = (long long)p.B * p.H * p.Tq;
   const unsigned chunks = (unsigned)((rows + p.rows_per_chunk - 1) / p.rows_per_chunk);
-  if constexpr (sizeof(T) == 2 && DH <= 64) {
-    const size_t w_bytes = weights_mma_smem_bytes<DH>(p.E);
-    e = set_smem(mau_bwd_weights_mma<DH>, w_bytes);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((p.E * DH + kWColsPerBlock - 1) / kWColsPerBlock, chunks);
-    mau_bwd_weights_mma<DH><<<grid, kThreads, w_bytes, stream>>>(p);
-  } else {
-    const size_t w_bytes = weights_smem_bytes(DH, p.E);
-    e = set_smem(mau_bwd_weights<T, DH>, w_bytes);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((p.E * DH + kThreads - 1) / kThreads, chunks);
-    mau_bwd_weights<T, DH><<<grid, kThreads, w_bytes, stream>>>(p);
-  }
+  const size_t w_bytes = weights_smem_bytes(DH, p.E);
+  e = set_smem(mau_bwd_weights<T, DH>, w_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.E * DH + kThreads - 1) / kThreads, chunks);
+  mau_bwd_weights<T, DH><<<grid, kThreads, w_bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// A TMA map of a row-major 2-D operand (cols contiguous, rows `ld` elements
+// apart), boxes of box_rows x box_cols, 128-byte swizzle.
+bool map_2d(CUtensorMap* map, CUtensorMapDataType type, size_t item, const void* ptr, long long cols,
+            long long rows, long long ld, int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * item};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_map(map, type, 2, ptr, dims, strides, box);
+}
+
+// kPre, mau_bwd_int_tc, kPost: bf16 at dh <= 64. The workspaces cover
+// rows_pad rows (a multiple of 64) and E*dh rounded up to 128 columns, so
+// every box lies inside them; the wrapper zeroes what kPre does not write.
+template <int DH>
+cudaError_t launch_tc(const Params& p, const void* wd_tiles, int ecols, int edraw,
+                      cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  IntMaps maps;
+  if (!map_2d(&maps.wd, BF, sizeof(bf16), wd_tiles, ecols, 64, ecols, 64, 64) ||
+      !map_2d(&maps.x, BF, sizeof(bf16), p.x_out, 64, p.rows_pad, 64, 64, 64) ||
+      !map_2d(&maps.draw, BF, sizeof(bf16), p.draw_out, p.rows_pad, edraw, p.rows_pad, 64,
+              kIntCols / DH) ||
+      !map_2d(&maps.dseq, F32, sizeof(float), p.dseq_ws, p.rows_pad, 64, p.rows_pad, 32, 64) ||
+      !map_2d(&maps.dwd, F32, sizeof(float), p.dwd, 64, ecols, 64, 32, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t e = launch_attn<bf16, DH, kPre>(p, stream);
+  if (e != cudaSuccess) return e;
+  e = set_smem(mau_bwd_int_tc<DH>, kIntSmem);
+  if (e != cudaSuccess) return e;
+  const int tiles = p.rows_pad / 64;
+  const dim3 grid(ecols / kIntCols, (tiles + p.tiles_per_chunk - 1) / p.tiles_per_chunk);
+  mau_bwd_int_tc<DH><<<grid, kIntThreads, kIntSmem, stream>>>(p, maps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_attn<bf16, DH, kPost>(p, stream);
 }
 
 template <typename T>
 cudaError_t launch_dh(const Params& p, int dh, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<T, 16>(p, s);
-    case 32: return launch<T, 32>(p, s);
-    case 64: return launch<T, 64>(p, s);
-    case 128: return launch<T, 128>(p, s);
+    case 16: return launch_full<T, 16>(p, s);
+    case 32: return launch_full<T, 32>(p, s);
+    case 64: return launch_full<T, 64>(p, s);
+    case 128: return launch_full<T, 128>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -926,21 +1074,31 @@ cudaError_t launch_dh(const Params& p, int dh, cudaStream_t s) {
 
 extern "C" {
 
-// Dynamic shared memory of mau_bwd_rows for `qc` query rows per block.
+// Dynamic shared memory of mau_bwd_attn for `qc` query rows per block, in
+// bytes (the larger of its modes: kFull).
 size_t mau_attention_bwd_smem_bytes(int qc, int Tk, int dh, int E) {
-  return smem_bytes(qc, Tk, dh, E);
+  return smem_bytes(qc, Tk, dh, E, kFull);
 }
 
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 on
-// success). dtype: 0 = float32, 1 = bfloat16 (q, k, v, t, g_out and dq..dt).
-// wd, bd, w, scaling, raw, g_lam are fp32; in bf16 mode with dh <= 64 the
-// tensor-core paths also take Wd as mma B fragments (wd_frag, the forward's
-// packing), as row-major bf16 (wd_bf16) and transposed with K padded to 16
-// (wd_t, (E*dh, kpad(dh))); otherwise these may be null. dscaling, dwd,
-// dbd, dw must be zeroed by the caller. dk_acc/dv_acc/dt_acc (zeroed fp32, (B, Tk, C)) are
-// required when qc < Tq and must be null otherwise. x_out and draw_out are
-// scratch: B*H*Tq rows of dh+1 floats (bf16 at dh <= 64: kpad(dh) bf16)
-// and of E floats.
+// 1 where (dtype, dh) takes the tensor-core path (kPre, mau_bwd_int_tc,
+// kPost), 0 where kFull and mau_bwd_weights.
+int mau_attention_bwd_tensor_cores(int dh, int dtype) { return dtype == 1 && dh <= 64; }
+
+// Launches the backward's kernels on `stream`; returns cudaGetLastError()
+// (0 on success). dtype: 0 = float32, 1 = bfloat16 (q, k, v, t, g_out and
+// dq..dt). wd, bd, w, scaling, raw, g_lam are fp32. dscaling, dbd, dw must
+// be zeroed by the caller. dk_acc/dv_acc/dt_acc (zeroed fp32, (B, Tk, C))
+// are required when qc < Tq and must be null otherwise.
+// kFull path: x_out fp32 (rows, dh+1) and draw_out fp32 (rows, E) are
+// scratch; dwd is (dh+1, E*dh), zeroed; wd_tiles, the workspaces and dwd_iv
+// may be null.
+// Tensor-core path: wd_tiles is bf16 Wd (64 lanes, ecols = E*dh rounded up
+// to 128) zero past dh and E*dh; x_out bf16 (rows_pad, 64) and draw_out
+// bf16 (edraw = E rounded up to 8, rows_pad) with what kPre does not write
+// zeroed (rows >= rows, events >= E); probs_ws, dprobs_ws fp32 (rows, Tk);
+// dseq_ws fp32 (64, rows_pad), dwd fp32 (ecols, 64) and dwd_iv (E*dh,)
+// zeroed; rows_pad = rows rounded up to 64; tiles_per_chunk from
+// mau_bwd_int_plan.
 int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
                       const void* k, long long k_bs, long long k_rs,
                       const void* v, long long v_bs, long long v_rs,
@@ -949,19 +1107,25 @@ int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
                       const void* key_mask, const void* intervals,
                       const void* qpos, const void* onehot, const void* wd,
                       const void* bd, const void* w, const void* scaling,
-                      const void* wd_frag, const void* wd_bf16, const void* wd_t,
-                      const void* raw, const void* glam, const void* seed,
-                      unsigned drop_thresh, float drop_scale,
+                      const void* wd_tiles, const void* raw, const void* glam,
+                      const void* seed, unsigned drop_thresh, float drop_scale,
                       void* dq, void* dk, void* dv, void* dt,
                       void* dk_acc, void* dv_acc, void* dt_acc,
-                      void* x_out, void* draw_out, void* dscaling, void* dwd,
+                      void* x_out, void* draw_out, void* probs_ws, void* dprobs_ws,
+                      void* dseq_ws, void* dscaling, void* dwd, void* dwd_iv,
                       void* dbd, void* dw, int B, int Tq, int Tk, int H, int dh,
                       int E, int causal, int diag_reset, float scale, int qc,
-                      int rows_per_chunk, int dtype, void* stream) {
+                      int rows_per_chunk, int tiles_per_chunk, int rows_pad, int dtype,
+                      void* stream) {
   if (Tq < 1 || Tk < Tq || Tk > 128 || E < 1 || B < 1 || H < 1 || qc < 1 || qc > 32 ||
       rows_per_chunk < 1 || (dtype != 0 && dtype != 1) || ((qc < Tq) != (dk_acc != nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes(qc, Tk, dh, E) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(qc, Tk, dh, E, kFull) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool tc = mau_attention_bwd_tensor_cores(dh, dtype);
+  const long long rows = (long long)B * H * Tq;
+  if (tc && (!wd_tiles || !probs_ws || !dprobs_ws || !dseq_ws || !dwd_iv || tiles_per_chunk < 1 ||
+             rows_pad % 64 != 0 || rows_pad < rows))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.t = t; p.go = go;
   p.q_bs = q_bs; p.q_rs = q_rs; p.k_bs = k_bs; p.k_rs = k_rs;
@@ -975,10 +1139,6 @@ int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
   p.bd = static_cast<const float*>(bd);
   p.w = static_cast<const float*>(w);
   p.scaling = static_cast<const float*>(scaling);
-  p.wd_frag = wd_frag;
-  p.wd_bf16 = static_cast<const __nv_bfloat16*>(wd_bf16);
-  p.wd_t = static_cast<const __nv_bfloat16*>(wd_t);
-  if (dtype == 1 && dh <= 64 && (!wd_frag || !wd_bf16 || !wd_t)) return (int)cudaErrorInvalidValue;
   p.raw = static_cast<const float*>(raw);
   p.glam = static_cast<const float*>(glam);
   p.seed = static_cast<const long long*>(seed);
@@ -989,16 +1149,30 @@ int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
   p.dv_acc = static_cast<float*>(dv_acc);
   p.dt_acc = static_cast<float*>(dt_acc);
   p.x_out = x_out;
-  p.draw_out = static_cast<float*>(draw_out);
+  p.draw_out = draw_out;
+  p.probs_ws = static_cast<float*>(probs_ws);
+  p.dprobs_ws = static_cast<float*>(dprobs_ws);
+  p.dseq_ws = static_cast<float*>(dseq_ws);
   p.dscaling = static_cast<float*>(dscaling);
   p.dwd = static_cast<float*>(dwd);
+  p.dwd_iv = static_cast<float*>(dwd_iv);
   p.dbd = static_cast<float*>(dbd);
   p.dw = static_cast<float*>(dw);
   p.scale = scale;
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.E = E;
   p.causal = causal; p.diag_reset = diag_reset;
   p.qc = qc; p.rows_per_chunk = rows_per_chunk;
+  p.tiles_per_chunk = tiles_per_chunk; p.rows_pad = rows_pad;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    const int ecols = round_up(E * dh, kIntCols), edraw = round_up(E, 8);
+    switch (dh) {
+      case 16: return (int)launch_tc<16>(p, wd_tiles, ecols, edraw, s);
+      case 32: return (int)launch_tc<32>(p, wd_tiles, ecols, edraw, s);
+      case 64: return (int)launch_tc<64>(p, wd_tiles, ecols, edraw, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   return (int)(dtype == 0 ? launch_dh<float>(p, dh, s)
                           : launch_dh<__nv_bfloat16>(p, dh, s));
 }

@@ -7,7 +7,8 @@
 //                   _int_bwd_kernel (pallas_call in _int_streamed_bwd, :274)
 //   mau_glam_kernel _glam_kernel    (pallas_call in _mau_streamed_bwd, :692)
 //   mau_dq_kernel   _dq_kernel      (pallas_call in _mau_streamed_bwd, :739)
-//   mau_dkvt_kernel _dkvt_kernel    (pallas_call in _mau_streamed_bwd, :768)
+//   mau_dkvt_tc_kernel (bf16), mau_dkvt_kernel (fp32)
+//                   _dkvt_kernel    (pallas_call in _mau_streamed_bwd, :768)
 //
 // and computes what the plain pieces of easydgl_tpu_torch/kernels/
 // mau_blocked.py compute (glam_reference, intensity_vjp_reference,
@@ -38,7 +39,7 @@
 // the forward's key_tiles rule (mau_streamed.cuh); the key-major dkvt
 // kernel visits exactly the query tiles whose key_tiles reach its key tile.
 //
-// Design. The attention-side kernels (glam, dq, dkvt) come in two forms:
+// Design. The attention-side kernels glam and dq come in two forms:
 //
 // * bf16 (the main path): the forward's flash schedule on the tensor cores
 //   (mma.sync m16n8k16, fp32 accumulate), four warps of 16 rows, each
@@ -58,8 +59,32 @@
 //
 // * glam, dq: one block per 64 queries of one (b, h), looping over key
 //   tiles; q and dO (dq: also g_su, lam) stay resident.
-// * dkvt: one block per 64 keys of one (b, h), looping over query tiles;
-//   dk, dv and dt accumulate in registers.
+// * dkvt, fp32 (mau_dkvt_kernel): one block per 64 keys of one (b, h),
+//   looping over query tiles; dk, dv and dt accumulate in registers.
+// * dkvt, bf16 (mau_dkvt_tc_kernel), on flash_bwd_tc_kernel's pattern
+//   (flash_attention.cu): key-major, a block owns 128 keys of one (b, h),
+//   two consumer warpgroups of 64 keys and a producer warp (its warpgroup
+//   hands its registers over by setmaxnreg, 24 / 240). The block's K, V, T
+//   and one-hot tiles stay resident; each query tile's Q, dO, g_su and lam
+//   tiles come by TMA (128-byte swizzle) into a two-stage ring under full
+//   and empty mbarriers, its m, l and rho rows by the producer warp's
+//   plain loads, as flash's lse and delta. The block visits only the query
+//   tiles whose key_tiles reach one of its key tiles (the rule of
+//   mau_streamed.cuh, mirrored), and a key tile with no real key only
+//   where a row of the query tile sees no key (such a row is uniform over
+//   every key); a block with nothing to visit writes zeros. Per (query
+//   tile, key tile), on wgmma m64n64k16 with fp32 accumulators: S^T = K Q^T
+//   and G^T = T g_su^T (both operands in shared memory); p and p (g_su . t
+//   - rho) without a branch (a hidden entry's exponent is NEG, so p = 0
+//   unless the row sees no key); dT += rnd(p)^T g_su (A: p from the
+//   accumulators); iqk^T = one-hot lam^T; u = iqk p keep with one Philox
+//   draw an entry under dropout; dV += rnd(u)^T dO; gm^T = V dO^T; g_s =
+//   (u gm + p (g_su . t - rho)) / sqrt(dh) where visible; dK += rnd(g_s)^T Q.
+//   dk, dv and dt stay in registers (96 fp32 a thread, ~208 at the peak).
+//   The wrapper zero-pads heads to 64 channels and lam / one-hot to 64
+//   events. Shared memory at dh = 64, E = 64: 64 KB resident (two
+//   warpgroups' K, V, T, one-hot tiles of 8 KB), 2 x 32 KB of query stages,
+//   1.5 KB of stats, 1 KB of alignment slack: 133,672 bytes.
 // * intensity: the parameter gradients are sums over B*H*Tq rows, the
 //   d(seq_units) a sum over E*dh columns, so two kernels, one warpgroup
 //   each. Every product runs on wgmma m64n64k16 in three bf16 products of
@@ -89,8 +114,11 @@
 //   an SM; 12 bytes spilled), columns 168, no spill.
 //
 // What bounds it, at the EasyDGL-LC train shape (B=8, H=8, T=2048, dh=64,
-// E=64, BiMAU): operations. glam 3 products of 34.36 GFLOP each, dq 5, dkvt
-// 7 (bf16 tensor-core bounds 0.104, 0.174 and 0.243 ms). The intensity
+// E=64, BiMAU): operations. Over every (query, key) pair glam forms 3
+// products of 34.36 GFLOP each, dq 5, dkvt 7 (bf16 tensor-core bounds 0.104,
+// 0.174 and 0.243 ms); chip_smoke.py's bounds, which PERF.md's table
+// gives, count only the pairs the key mask leaves visible (mau_keys; dkvt
+// 0.1072 ms at phase 4d's inputs). The intensity
 // VJP's three products of 131,072 x 65 x 4,096 (~209 GFLOP with the
 // elementwise terms) would take 3.1 ms in fp32 on the CUDA cores (67
 // TFLOP/s); in three bf16 passes each at 989 TFLOP/s they take 0.64 ms,
@@ -99,6 +127,8 @@
 //
 // Limits: dh in {16, 32, 64}; E up to 128 within the shared memory of
 // mau_streamed_bwd_smem_bytes (227 KB).
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "mau_streamed.cuh"
@@ -600,10 +630,6 @@ __host__ __device__ inline size_t glam_mma_smem_bytes(int dh, int ep) {
 __host__ __device__ inline size_t dq_mma_smem_bytes(int dh, int ep) {
   return sizeof(bf16) * (size_t)(9 * 64 * (dh + 8) + 3 * 64 * (ep + 8)) + sizeof(float) * 2 * BK;
 }
-__host__ __device__ inline size_t dkvt_mma_smem_bytes(int dh, int ep) {
-  return sizeof(bf16) * (size_t)(9 * 64 * (dh + 8) + 3 * 64 * (ep + 8)) +
-         sizeof(float) * (BK + 2 * 3 * BQ);
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kThreadsMma) mau_glam_mma_kernel(const BwdParams p) {
@@ -849,172 +875,326 @@ __global__ void __launch_bounds__(kThreadsMma) mau_dq_mma_kernel(const BwdParams
   }
 }
 
-// Key-major: a warp owns 16 keys; the query tiles stream through shared
-// memory and each half's (16 keys x 32 queries) products are the A
-// fragments of dv += md @ dO, dk += g_s @ Q and dt += p @ g_su.
-template <int DH>
-__global__ void __launch_bounds__(kThreadsMma) mau_dkvt_mma_kernel(const BwdParams p) {
-  constexpr int SD = DH + 8;
-  const int EP = p.EP, SE = EP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][SD] the block's keys
-  bf16* vs = ks + BK * SD;                       // [BK][SD]
-  bf16* ts = vs + BK * SD;                       // [BK][SD]
-  bf16* os = ts + BK * SD;                       // [BK][SE] one-hot
-  bf16* qs = os + BK * SE;                       // [2][BQ][SD] q of a query tile
-  bf16* dos = qs + 2 * BQ * SD;                  // [2][BQ][SD] dO
-  bf16* gss = dos + 2 * BQ * SD;                 // [2][BQ][SD] g_su
-  bf16* ls = gss + 2 * BQ * SD;                  // [2][BQ][SE] lam
-  float* kms = reinterpret_cast<float*>(ls + 2 * BQ * SE);  // [BK] key flags
-  float* st = kms + BK;                          // [2][3][BQ] m, l, rho
-  __shared__ int first_real;
+// ---------------------------------------------------------------- dkvt, bf16
+// wgmma and TMA (see the header): warpgroups 0 and 1 consume, one 64-key
+// tile each; the first warp of warpgroup 2 produces.
 
-  const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nkt, kt = blockIdx.x - bh * nkt, k0 = kt * BK;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  const size_t row0 = (size_t)bh * p.Tq;
-  const bf16* qg = head_ptr<bf16>(p.q, b, h, DH);
-  const bf16* dog = head_ptr<bf16>(p.dout, b, h, DH);
-  const bf16* gsg = static_cast<const bf16*>(p.gsu) + row0 * DH;
-  const bf16* lg = reinterpret_cast<const bf16*>(p.lam) + row0 * EP;
-  auto fetch = [&](int qt, int buf) {
-    const int q0 = qt * BQ;
-    async_bf16(qs + buf * BQ * SD, SD, qg, p.q.rs, DH, q0, p.Tq);
-    async_bf16(dos + buf * BQ * SD, SD, dog, p.dout.rs, DH, q0, p.Tq);
-    async_bf16(gss + buf * BQ * SD, SD, gsg, DH, DH, q0, p.Tq);
-    async_bf16(ls + buf * BQ * SE, SE, lg, EP, EP, q0, p.Tq);
-    for (int idx = tid; idx < 3 * BQ; idx += kThreadsMma) {
-      const int which = idx / BQ, r = idx - which * BQ;
-      const bool ok = q0 + r < p.Tq;
-      const float* src = which == 0 ? p.m : which == 1 ? p.l : p.rho;
-      cp_async4(st + (buf * 3 + which) * BQ + r, src + row0 + (ok ? q0 + r : 0), ok);
-    }
-  };
+constexpr int kKvStages = 2;
+constexpr int kKvGroups = 2;                        // consumer warpgroups, 64 keys each
+constexpr int kKvKeys = 64 * kKvGroups;             // keys a block
+constexpr int kKvThreads = 128 * (kKvGroups + 1);   // and a producer warpgroup
+// Registers a thread after setmaxnreg: a consumer thread holds dk, dv and dt
+// (96 fp32) and up to three (64 x 64) tile accumulators and a set of bf16
+// fragments (~208 at the peak); 24 + 2 x 240 of a warpgroup thread fit the
+// 65,536 of an SM.
+constexpr int kKvProducerRegs = 24, kKvConsumerRegs = 240;
+constexpr int kTile = 64 * 64;                      // bf16 values of a (64 x 64) tile, 8 KB
 
-  if (tid == 0) first_real = p.Tk;
-  __syncthreads();
-  for (int j = tid; j < p.Tk; j += kThreadsMma)
-    if (km_row[j] > 0.f) atomicMin(&first_real, j);
-  async_bf16(ks, SD, head_ptr<bf16>(p.k, b, h, DH), p.k.rs, DH, k0, p.Tk);
-  async_bf16(vs, SD, head_ptr<bf16>(p.v, b, h, DH), p.v.rs, DH, k0, p.Tk);
-  async_bf16(ts, SD, head_ptr<bf16>(p.t, b, h, DH), p.t.rs, DH, k0, p.Tk);
-  async_bf16(os, SE, reinterpret_cast<const bf16*>(p.onehot) + (size_t)b * p.Tk * EP, EP, EP,
-             k0, p.Tk);
-  for (int j = tid; j < BK; j += kThreadsMma) kms[j] = key_flag(km_row, k0 + j, p.Tk);
-  __syncthreads();
-  const int first = first_real;
-  // the mirror of key_tiles: the next query tile from qt on that reaches
-  // this key tile
-  auto next_live = [&](int qt) {
-    for (; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      if (!(p.causal && first <= imin(q0, p.Tk - 1) && k0 > imin(q0 + BQ, p.Tq) - 1)) break;
-    }
-    return qt;
-  };
-  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+// Dynamic shared memory of mau_dkvt_tc_kernel with the one-hot and lam
+// `ept` 64-event tiles wide: per consumer warpgroup its K, V, T and one-hot
+// tiles; per stage a Q, dO, g_su and lam tile set and the m, l, rho rows;
+// the mbarriers; 1 KB of slack to align the tiles to 1024 bytes.
+__host__ __device__ inline size_t dkvt_tc_smem_bytes(int ept) {
+  return 1024 + sizeof(bf16) * kTile * (size_t)(kKvGroups + kKvStages) * (3 + ept) +
+         sizeof(float) * kKvStages * 3 * BQ + 8 * (1 + 2 * kKvStages);
+}
 
-  float dk[DH / 8][4], dv[DH / 8][4], dt[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = dt[n][c] = 0.f;
+struct DkvtMaps {
+  CUtensorMap q, dout, gsu, lam;  // (64 or EPP columns, Tq, H, B), boxes of 64 rows x 64
+  CUtensorMap k, v, t, onehot;    // (64 or EPP columns, Tk, H or 1, B)
+};
 
-  int qt = next_live(0), buf = 0;
-  if (qt < nqt) fetch(qt, 0);
-  cp_async_commit();
-  while (qt < nqt) {
-    const int nxt = next_live(qt + 1);
-    if (nxt < nqt) fetch(nxt, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // query tile qt (and the key tiles) are in shared memory
-    const int q0 = qt * BQ;
-    const bf16* qb = qs + buf * BQ * SD;
-    const bf16* db = dos + buf * BQ * SD;
-    const bf16* gb = gss + buf * BQ * SD;
-    const bf16* lb = ls + buf * BQ * SE;
-    const float* mq = st + buf * 3 * BQ;
-    const float* lq = mq + BQ;
-    const float* rq = lq + BQ;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // transposed tiles: entry (key warp*16 + g + 8 hr, query of the half)
-      float s[4][4], gm[4][4], gt[4][4], iq[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = gm[n][c] = gt[n][c] = iq[n][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) {
-        uint32_t a[4];
-        a_frag(a, ks, SD, warp * 16, kd * 16, lane);
-        mma_rows32(s, a, qb + half * KH * SD, SD, kd * 16, lane);
-        a_frag(a, vs, SD, warp * 16, kd * 16, lane);
-        mma_rows32(gm, a, db + half * KH * SD, SD, kd * 16, lane);
-        a_frag(a, ts, SD, warp * 16, kd * 16, lane);
-        mma_rows32(gt, a, gb + half * KH * SD, SD, kd * 16, lane);
-      }
-      for (int ke = 0; ke < EP; ke += 16) {
-        uint32_t a[4];
-        a_frag(a, os, SE, warp * 16, ke, lane);
-        mma_rows32(iq, a, lb + half * KH * SE, SE, ke, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hr = c >> 1, jl = warp * 16 + g + 8 * hr;
-          const int il = half * KH + n * 8 + 2 * t4 + (c & 1);
-          const int j = k0 + jl, i = q0 + il;
-          const float km = kms[jl];
-          float md = 0.f, gv = 0.f, pr = 0.f;
-          if (km >= 0.f && i < p.Tq) {  // padding keys and rows past Tq stay 0
-            pr = expf(logit(s[n][c], km, i, j, p.scale, p.causal, 0.f) - mq[il]) / lq[il];
-            const float iqv = (p.diag_reset && i == j) ? 1.f : iq[n][c];
-            float gmk = gm[n][c];
-            md = iqv * pr;
-            if (drop.on) {
-              const float keep = drop.factor(b, h, i, j);
-              md *= keep;
-              gmk *= keep;
-            }
-            if (km > 0.f && !(p.causal && j > i))  // visible
-              gv = pr * (gmk * iqv + gt[n][c] - rq[il]) * p.scale;
-          }
-          s[n][c] = pr;
-          gm[n][c] = md;
-          gt[n][c] = gv;
-        }
-      mma_pv<DH>(dv, gm, db + half * KH * SD, SD, lane);  // modulated probs @ dO
-      mma_pv<DH>(dk, gt, qb + half * KH * SD, SD, lane);  // g_s @ Q
-      mma_pv<DH>(dt, s, gb + half * KH * SD, SD, lane);   // probs @ g_su
-    }
-    __syncthreads();  // the buffer is free for the tile after next
-    buf ^= 1;
-    qt = nxt;
-  }
-  asm volatile("cp.async.wait_all;\n" ::);  // the key tiles, where no query tile came
-
-  const int C = p.H * DH;
-  const size_t base = (size_t)b * p.Tk * C + h * DH;
+// Rows of a warpgroup accumulator (the thread's rows r0 + g (+8), columns
+// 8 n + 2 t4 (+1) at d[4 n + 2 hr + c]) into bf16 rows r < nrows of dst.
+__device__ __forceinline__ void store_acc_bf16(bf16* dst, long long rs, const float (&d)[32],
+                                               int r0, int nrows, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int j = k0 + warp * 16 + g + 8 * hr;
-    if (j >= p.Tk) continue;
+    const int r = r0 + g + 8 * hr;
+    if (r >= nrows) continue;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const size_t o = (size_t)j * C + n * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + base + o) =
-          __floats2bfloat162_rn(dk[n][2 * hr], dk[n][2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dv) + base + o) =
-          __floats2bfloat162_rn(dv[n][2 * hr], dv[n][2 * hr + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dt) + base + o) =
-          __floats2bfloat162_rn(dt[n][2 * hr], dt[n][2 * hr + 1]);
-    }
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * rs + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(d[4 * n + 2 * hr], d[4 * n + 2 * hr + 1]);
   }
+}
+
+// The accumulator's (64 x 64) entries rounded to bf16 as wgmma A fragments:
+// k step kk (columns 16 kk ..) at f[4 kk ..].
+__device__ __forceinline__ void a_frags(uint32_t (&f)[16], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[4 * kk + e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
+}
+
+__device__ __forceinline__ void zero32(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+__global__ void __launch_bounds__(kKvThreads, 1)
+    mau_dkvt_tc_kernel(const BwdParams p, const __grid_constant__ DkvtMaps maps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int ept = p.EP / 64, set = 3 + ept;  // tiles of a key or query set
+  bf16* res = reinterpret_cast<bf16*>(base);  // [group][K, V, T, one-hot..][64 keys][64]
+  bf16* stg = res + kKvGroups * set * kTile;  // [stage][Q, dO, g_su, lam..][64 queries][64]
+  float* stats = reinterpret_cast<float*>(stg + kKvStages * set * kTile);  // [stage][m, l, rho][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kKvStages * 3 * BQ);
+  uint64_t* full = kv_full + 1;      // [stage]
+  uint64_t* empty = full + kKvStages;  // [stage]
+  __shared__ int first_real, live_tile[kKvGroups];
+
+  // heaviest first: under causal key block 0 sees every query tile
+  const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ, BH = p.B * p.H;
+  const int kb = blockIdx.x / BH, bh = blockIdx.x - kb * BH, k0 = kb * kKvKeys;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;  // within its warpgroup, for the consumers
+  const float* km_row = p.key_mask + (size_t)b * p.Tk;
+  if (threadIdx.x == 0) first_real = p.Tk;
+  if (threadIdx.x < kKvGroups) live_tile[threadIdx.x] = 0;
+  __syncthreads();
+  {
+    int f = p.Tk;  // the thread's first real key
+    for (int j = threadIdx.x; j < p.Tk; j += blockDim.x)
+      if (km_row[j] > 0.f) {
+        f = j;
+        break;
+      }
+    for (int o = 16; o > 0; o >>= 1) f = imin(f, __shfl_xor_sync(0xffffffffu, f, o));
+    if (lane == 0 && f < p.Tk) atomicMin(&first_real, f);
+    const int j = k0 + threadIdx.x;
+    if (threadIdx.x < kKvKeys && j < p.Tk && km_row[j] > 0.f) live_tile[threadIdx.x / 64] = 1;
+  }
+  __syncthreads();
+  const int first = first_real;
+  const bool live0 = live_tile[0] != 0, live1 = live_tile[1] != 0;
+  // Whether query tile qt reaches the key tile of warpgroup w: the mirror of
+  // key_tiles under causal; and a key tile with no real key gets nonzero
+  // probs only from rows that see no key, which are uniform over every key
+  // (the batch row's every row where it has no real key; under causal the
+  // rows before its first real key).
+  auto visits = [&](int qt, int w) {
+    const int kt = kb * kKvGroups + w, q0 = qt * BQ;
+    if (kt >= nkt) return false;
+    if (p.causal && first <= imin(q0, p.Tk - 1) && kt * BK > imin(q0 + BQ, p.Tq) - 1) return false;
+    const bool blind = p.causal ? q0 < first : first >= p.Tk;
+    return (w == 0 ? live0 : live1) || blind;
+  };
+  auto next = [&](int qt) {  // the first query tile from qt on that the block visits
+    while (qt < nqt && !visits(qt, 0) && !visits(qt, 1)) ++qt;
+    return qt;
+  };
+  const int C = p.H * 64;
+  const size_t kbase = (size_t)b * p.Tk * C + (size_t)h * 64;
+  bf16* dkg = static_cast<bf16*>(p.dk) + kbase;
+  bf16* dvg = static_cast<bf16*>(p.dv) + kbase;
+  bf16* dtg = static_cast<bf16*>(p.dt) + kbase;
+  const int qt_first = next(0);
+  if (qt_first >= nqt) {  // no query reaches these keys: dk = dv = dt = 0
+    const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
+    for (int e = threadIdx.x; e < kKvKeys * 32; e += blockDim.x) {
+      const int r = k0 + e / 32, c = 2 * (e % 32);
+      if (r >= p.Tk) break;
+      const size_t o = (size_t)r * C + c;
+      *reinterpret_cast<__nv_bfloat162*>(dkg + o) = z2;
+      *reinterpret_cast<__nv_bfloat162*>(dvg + o) = z2;
+      *reinterpret_cast<__nv_bfloat162*>(dtg + o) = z2;
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kKvStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * kKvGroups);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const size_t row0 = (size_t)bh * p.Tq;
+
+  if (warp >= 4 * kKvGroups) {  // ---- producer: its first warp works
+    regs_dec<kKvProducerRegs>();
+    if (warp > 4 * kKvGroups) return;
+    if (lane == 0) {
+      mbar_arrive_tx(kv_full, kKvGroups * set * kTile * sizeof(bf16));
+      for (int w = 0; w < kKvGroups; ++w) {
+        bf16* r = res + w * set * kTile;
+        const int j0 = k0 + 64 * w;
+        tma_rows(r, &maps.k, kv_full, j0, h, b);
+        tma_rows(r + kTile, &maps.v, kv_full, j0, h, b);
+        tma_rows(r + 2 * kTile, &maps.t, kv_full, j0, h, b);
+        for (int c = 0; c < ept; ++c)
+          tma_rows(r + (3 + c) * kTile, &maps.onehot, kv_full, j0, 0, b, 64 * c);
+      }
+    }
+    int it = 0;
+    for (int qt = qt_first; qt < nqt; qt = next(qt + 1), ++it) {
+      const int s = it % kKvStages, q0 = qt * BQ;
+      mbar_wait(empty + s, ((it / kKvStages) & 1) ^ 1);
+      float* st = stats + s * 3 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool ok = q0 + r < p.Tq;
+        st[r] = ok ? p.m[row0 + q0 + r] : 0.f;
+        st[BQ + r] = ok ? p.l[row0 + q0 + r] : 1.f;
+        st[2 * BQ + r] = ok ? p.rho[row0 + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        bf16* gs = stg + s * set * kTile;
+        mbar_arrive_tx(full + s, set * kTile * sizeof(bf16));
+        tma_rows(gs, &maps.q, full + s, q0, h, b);
+        tma_rows(gs + kTile, &maps.dout, full + s, q0, h, b);
+        tma_rows(gs + 2 * kTile, &maps.gsu, full + s, q0, h, b);
+        for (int c = 0; c < ept; ++c)
+          tma_rows(gs + (3 + c) * kTile, &maps.lam, full + s, q0, h, b, 64 * c);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys kw = k0 + 64 wg ..; thread
+  // (warp, g, t4) holds keys kw + 16 warp + g (+8) and, of a query tile,
+  // queries 8 n + 2 t4 (+1): entry (key hr, query n, c) at d[4 n + 2 hr + c]
+  regs_inc<kKvConsumerRegs>();
+  const int wg = warp >> 2, kw = k0 + 64 * wg;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  float kmr[2];  // 1 real, 0 masked, -1 past Tk
+  int jk[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    jk[hr] = kw + 16 * warp + g + 8 * hr;
+    kmr[hr] = key_flag(km_row, jk[hr], p.Tk);
+  }
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const bf16* rw = res + wg * set * kTile;
+  const uint64_t kd = sw128_desc(rw), vd = sw128_desc(rw + kTile), td = sw128_desc(rw + 2 * kTile),
+                 od = sw128_desc(rw + 3 * kTile);
+  float dk[32], dv[32], dt[32];
+  zero32(dk);
+  zero32(dv);
+  zero32(dt);
+  mbar_wait(kv_full, 0);
+
+  int it = 0;
+  for (int qt = qt_first; qt < nqt; qt = next(qt + 1), ++it) {
+    const int s = it % kKvStages, q0 = qt * BQ;
+    mbar_wait(full + s, (it / kKvStages) & 1);
+    if (!visits(qt, wg)) {  // the other warpgroup's tile
+      mbar_arrive(empty + s);
+      continue;
+    }
+    const bf16* gs = stg + s * set * kTile;
+    const uint64_t qd = sw128_desc(gs), dd = sw128_desc(gs + kTile), gd = sw128_desc(gs + 2 * kTile),
+                   ld = sw128_desc(gs + 3 * kTile);
+    const float* st = stats + s * 3 * BQ;
+    float sa[32], xa[32], ia[32];
+    zero32(sa);
+    zero32(xa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, kd + 2 * kk, qd + 2 * kk, 1);  // K Q^T
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(xa, td + 2 * kk, gd + 2 * kk, 1);  // T g_su^T
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+    reg_fence(xa);
+
+    // p = exp(s - m) / l without a branch (0 for padding keys and rows past
+    // Tq; a masked key's logit is NEG, which a row that sees no key has for
+    // its max as well); xa := p (g_su . t - rho)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int il = 8 * n + 2 * t4 + c, i = q0 + il;
+        const float mi = st[il], rl = 1.f / st[BQ + il], ri = st[2 * BQ + il];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int x = 4 * n + 2 * hr + c;
+          const bool shown = kmr[hr] > 0.f && !(p.causal && jk[hr] > i);
+          const float lg = shown ? sa[x] * p.scale : kNeg;
+          const float pr = (kmr[hr] >= 0.f && i < p.Tq) ? fast_exp2((lg - mi) * kLog2e) * rl : 0.f;
+          xa[x] = shown ? pr * (xa[x] - ri) : 0.f;
+          sa[x] = pr;
+        }
+      }
+    uint32_t f[16];
+    a_frags(f, sa);  // rnd(p)
+    zero32(ia);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dt, f + 4 * kk, gd + 128 * kk);  // dT += P^T g_su
+#pragma unroll
+    for (int c = 0; c < ept; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(ia, od + 512 * c + 2 * kk, ld + 512 * c + 2 * kk, 1);  // one-hot lam^T
+    wg_commit();
+    wg_wait();
+    reg_fence(dt);
+    reg_fence(ia);
+
+    // the modulated probs u = iqk p keep (BiMAU: iqk = 1 on the diagonal);
+    // ia := u where the entry is visible, else 0
+    auto modulate = [&](auto dropped) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = q0 + 8 * n + 2 * t4 + c;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * n + 2 * hr + c;
+            const float iqv = (p.diag_reset && i == jk[hr]) ? 1.f : ia[x];
+            float u = iqv * sa[x];
+            if constexpr (decltype(dropped)::value) u *= drop.factor(b, h, i, jk[hr]);
+            sa[x] = u;
+            const bool shown = kmr[hr] > 0.f && !(p.causal && jk[hr] > i) && i < p.Tq;
+            ia[x] = shown ? u : 0.f;
+          }
+        }
+    };
+    if (drop.on)
+      modulate(std::true_type());
+    else
+      modulate(std::false_type());
+    a_frags(f, sa);  // rnd(u)
+    zero32(sa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, f + 4 * kk, dd + 128 * kk);  // dV += U^T dO
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, vd + 2 * kk, dd + 2 * kk, 1);  // V dO^T
+    wg_commit();
+    wg_wait();
+    reg_fence(dv);
+    reg_fence(sa);
+
+    // g_s = p (g_mod keep iqk + g_su . t - rho) / sqrt(dh) where visible:
+    // u g_mod + xa, both already 0 elsewhere
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sa[x] = fmaf(ia[x], sa[x], xa[x]) * p.scale;
+    a_frags(f, sa);  // rnd(g_s)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, f + 4 * kk, qd + 128 * kk);  // dK += G_s^T Q
+    wg_commit();
+    wg_wait();
+    reg_fence(dk);
+    mbar_arrive(empty + s);  // the stage's tiles and stats are free
+  }
+  const int r0 = kw + 16 * warp;
+  store_acc_bf16(dkg, C, dk, r0, p.Tk, lane);
+  store_acc_bf16(dvg, C, dv, r0, p.Tk, lane);
+  store_acc_bf16(dtg, C, dt, r0, p.Tk, lane);
 }
 
 // ---------------------------------------------------------------- intensity
@@ -1435,7 +1615,8 @@ size_t smem_bytes(int which, int dh, int E, int dtype) {
     case kDq:
       return dtype ? dq_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dq_smem_floats(dh, ep);
     case kDkvt:
-      return dtype ? dkvt_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dkvt_smem_floats(dh, ep);
+      return dtype ? dkvt_tc_smem_bytes(round_up(E, 64) / 64)
+                   : sizeof(float) * (size_t)dkvt_smem_floats(dh, ep);
     case kIntRows: return sizeof(float) * (size_t)int_rows_smem_floats(dh, E);
     default: return sizeof(float) * (size_t)int_cols_smem_floats(dh);
   }
@@ -1450,9 +1631,6 @@ const Kernel kGlamKernels[6] = {mau_glam_kernel<16>,     mau_glam_kernel<32>,
 const Kernel kDqKernels[6] = {mau_dq_kernel<16>,     mau_dq_kernel<32>,
                               mau_dq_kernel<64>,     mau_dq_mma_kernel<16>,
                               mau_dq_mma_kernel<32>, mau_dq_mma_kernel<64>};
-const Kernel kDkvtKernels[6] = {mau_dkvt_kernel<16>,     mau_dkvt_kernel<32>,
-                                mau_dkvt_kernel<64>,     mau_dkvt_mma_kernel<16>,
-                                mau_dkvt_mma_kernel<32>, mau_dkvt_mma_kernel<64>};
 
 cudaError_t launch(const Kernel (&kernels)[6], int which, const BwdParams& p, int dh, int dtype,
                    int blocks, cudaStream_t s) {
@@ -1460,6 +1638,17 @@ cudaError_t launch(const Kernel (&kernels)[6], int which, const BwdParams& p, in
   if (slot < 0) return cudaErrorInvalidValue;
   return go(kernels[slot + 3 * dtype], blocks, dtype ? kThreadsMma : kThreads,
             smem_bytes(which, dh, p.E, dtype), s, p);
+}
+
+// The TMA map of a bf16 (B, H, T, cols) operand with element strides (rs,
+// hs, bs): boxes of 64 rows x 64 columns, 128-byte swizzle, zeros read past
+// row T and column `cols`.
+bool bf16_rows_map(CUtensorMap* map, const void* ptr, long long cols, int T, int H, int B,
+                   long long rs, long long hs, long long bs) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)rs * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box);
 }
 
 bool bad_shape(int B, int Tq, int Tk, int H, int E, int dtype) {
@@ -1534,8 +1723,33 @@ int mau_dkvt_bwd(const void* q, long long q_bs, long long q_rs, const void* k, l
   p.dk = dk;
   p.dv = dv;
   p.dt = dt;
-  const int blocks = B * H * ((Tk + BK - 1) / BK);
-  return (int)launch(kDkvtKernels, kDkvt, p, dh, dtype, blocks, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const int blocks = B * H * ((Tk + BK - 1) / BK);
+    switch (dh) {
+      case 16: return (int)go(mau_dkvt_kernel<16>, blocks, kThreads, smem_bytes(kDkvt, 16, E, 0), s, p);
+      case 32: return (int)go(mau_dkvt_kernel<32>, blocks, kThreads, smem_bytes(kDkvt, 32, E, 0), s, p);
+      case 64: return (int)go(mau_dkvt_kernel<64>, blocks, kThreads, smem_bytes(kDkvt, 64, E, 0), s, p);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  // bf16: heads 64 wide and lam / one-hot 64-event tiles wide (the wrapper
+  // zero-pads narrower ones), rows of every operand on 16-byte boundaries
+  if (dh != 64) return (int)cudaErrorInvalidValue;
+  p.EP = round_up(E, 64);
+  DkvtMaps maps;
+  const long long ep = p.EP;
+  if (!bf16_rows_map(&maps.q, p.q.p, 64, Tq, H, B, p.q.rs, 64, p.q.bs) ||
+      !bf16_rows_map(&maps.dout, p.dout.p, 64, Tq, H, B, p.dout.rs, 64, p.dout.bs) ||
+      !bf16_rows_map(&maps.gsu, gsu, 64, Tq, H, B, 64, (long long)Tq * 64, (long long)H * Tq * 64) ||
+      !bf16_rows_map(&maps.lam, lam, ep, Tq, H, B, ep, Tq * ep, H * Tq * ep) ||
+      !bf16_rows_map(&maps.k, p.k.p, 64, Tk, H, B, p.k.rs, 64, p.k.bs) ||
+      !bf16_rows_map(&maps.v, p.v.p, 64, Tk, H, B, p.v.rs, 64, p.v.bs) ||
+      !bf16_rows_map(&maps.t, p.t.p, 64, Tk, H, B, p.t.rs, 64, p.t.bs) ||
+      !bf16_rows_map(&maps.onehot, onehot, ep, Tk, 1, B, ep, Tk * ep, Tk * ep))
+    return (int)cudaErrorInvalidValue;
+  return (int)go(mau_dkvt_tc_kernel, B * H * ((Tk + kKvKeys - 1) / kKvKeys), kKvThreads,
+                 dkvt_tc_smem_bytes(p.EP / 64), s, p, maps);
 }
 
 // The intensity head's VJP to fp32 accuracy (3xTF32 products on the tensor

@@ -42,6 +42,8 @@ KERNEL_TK_MAX = 128        # longest key sequence the kernels take
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_SMEM_MAX = 232448   # bytes of shared memory one block may use
 BWD_ROWS_PER_CHUNK = 2048  # rows of each dWd block (mau_bwd_weights)
+INT_COLS = 128             # Wd columns of a mau_bwd_int_tc block
+INT_WAVES = 8              # waves of mau_bwd_int_tc blocks (int_plan)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -319,27 +321,25 @@ class _MauAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
                 scaling, qpos, seed, causal, diag_reset, rate, num_heads):
-        packed = _pack_wd(wd) if q.dtype == torch.bfloat16 else ()
         out, lam, raw = _launch_fwd(q, k, v, t, key_mask, intervals, onehot,
                                     wd, bd, w, scaling, causal, diag_reset,
                                     num_heads, qpos, seed, rate,
-                                    want_raw=True, wd_packed=packed)
+                                    want_raw=True)
         ctx.save_for_backward(q, k, v, t, key_mask, intervals, onehot, wd,
-                              bd, w, scaling, raw, *packed)
+                              bd, w, scaling, raw)
         ctx.qpos, ctx.seed = qpos, seed
         ctx.cfg = (causal, diag_reset, rate, num_heads)
         return out, lam
 
     @staticmethod
     def backward(ctx, g_out, g_lam):
-        saved = ctx.saved_tensors
         (q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
-         raw) = saved[:12]
+         raw) = ctx.saved_tensors
         causal, diag_reset, rate, num_heads = ctx.cfg
         dq, dk, dv, dt, dwd, dbd, dw, dsc = _launch_bwd(
             q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling, raw,
             g_out, g_lam, causal, diag_reset, num_heads, ctx.qpos, ctx.seed,
-            rate, wd_packed=saved[12:])
+            rate)
         return (dq, dk, dv, dt, None, None, None, dwd.to(wd.dtype),
                 dbd.to(bd.dtype), dw.to(w.dtype), dsc.to(scaling.dtype),
                 None, None, None, None, None, None)
@@ -358,25 +358,17 @@ def _seed_tensor(seed, rate: float, dev) -> Optional[torch.Tensor]:
 
 
 def _pack_wd(wd: torch.Tensor):
-    """The bf16 layouts of Wd (dh+1, E*dh) that the tensor-core paths read,
-    all from one copy with K zero-padded to kp, a multiple of 16:
-
-    * fragments — for each 8-column tile j and 16-deep step s, 32 lanes x 4
-      values, lane 4g+t holding Wd[16s + 8b + 2t + p, 8j + g] for b, p in
-      {0, 1} (the mma m16n8k16 B fragment), so each lane's load is 8
-      contiguous bytes: the forward's z product and the backward's row
-      kernel;
-    * rows — (kp, E*dh) row-major: the row kernel's dx = dz Wd^T;
-    * cols — Wd^T, (E*dh, kp) row-major: the dWd kernel.
-
-    A training forward packs once and keeps the result for its backward."""
+    """bf16 Wd (dh+1, E*dh), K zero-padded to kp (a multiple of 16), as the
+    forward's z product reads it: for each 8-column tile j and 16-deep step
+    s, 32 lanes x 4 values, lane 4g+t holding Wd[16s + 8b + 2t + p, 8j + g]
+    for b, p in {0, 1} (the mma m16n8k16 B fragment), so each lane's load is
+    8 contiguous bytes."""
     k, n = wd.shape
     kp = -(-k // 16) * 16
     rows = torch.zeros(kp, n, dtype=torch.bfloat16, device=wd.device)
     rows[:k] = wd.detach().to(torch.bfloat16)
-    frags = (rows.reshape(kp // 16, 2, 4, 2, n // 8, 8)
-             .permute(4, 0, 5, 2, 1, 3).contiguous())
-    return frags, rows, rows.t().contiguous()
+    return (rows.reshape(kp // 16, 2, 4, 2, n // 8, 8)
+            .permute(4, 0, 5, 2, 1, 3).contiguous())
 
 
 def _check(cond: bool, msg: str):
@@ -411,10 +403,12 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("mau_attention_bwd")
     _bind(lib, "mau_attention_bwd",
-          [_P, _LL, _LL] * 5 + [_P] * 14 + [_U32, _F32] + [_P] * 13
-          + [_I32] * 8 + [_F32, _I32, _I32, _I32, _P])
+          [_P, _LL, _LL] * 5 + [_P] * 12 + [_U32, _F32] + [_P] * 17
+          + [_I32] * 8 + [_F32] + [_I32] * 5 + [_P])
     lib.mau_attention_bwd_smem_bytes.argtypes = [_I32] * 4
     lib.mau_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.mau_attention_bwd_tensor_cores.argtypes = [_I32, _I32]
+    lib.mau_attention_bwd_tensor_cores.restype = ctypes.c_int
     return lib
 
 
@@ -505,8 +499,7 @@ def _raise_on(rc: int, what: str, error_string) -> None:
 
 def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                 causal, diag_reset, num_heads, qpos, seed, rate, *,
-                want_raw: bool, wd_packed=()):
-    """``wd_packed``: ``_pack_wd(wd)`` where the caller has it (bf16)."""
+                want_raw: bool):
     km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
                                      wd, bd, w, scaling, num_heads, qpos)
     dev, cdt = q.device, q.dtype
@@ -515,7 +508,7 @@ def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
     e, dh = w.shape
     bdf, scf = _f32(bd, dev), _f32(scaling, dev)
     if cdt == torch.bfloat16:
-        wdc = (wd_packed or _pack_wd(wd.to(dev)))[0]
+        wdc = _pack_wd(wd.to(dev))
     else:
         wdc = wd.detach().to(device=dev, dtype=cdt).contiguous()
     wc = w.detach().to(device=dev, dtype=cdt).contiguous()
@@ -559,10 +552,64 @@ def _bwd_query_chunk(lib, tq, tk, dh, e) -> int:
                      " memory")
 
 
+def int_plan(rows: int, edh: int, sms: int, waves: int = INT_WAVES):
+    """(column blocks, row chunks, row tiles a chunk) of the bf16
+    intensity-head kernel (``mau_bwd_int_tc``): its grid is column blocks
+    (128 columns of Wd each) x row chunks, and each block walks its chunk's
+    64-row tiles. The chunks are sized so that the grid is about ``waves``
+    waves of one block an SM whatever the number of column blocks: at the
+    flagship train shape (126,976 rows, E*dh = 4,096) on 132 SMs, 32 x 33
+    blocks of 61 tiles. Every tile lies in exactly one chunk; no chunk is
+    empty."""
+    tiles = -(-rows // 64)
+    col_blocks = -(-edh // INT_COLS)
+    wanted = max(1, waves * sms // col_blocks)
+    per = -(-tiles // min(tiles, wanted))
+    return col_blocks, -(-tiles // per), per
+
+
+def int_workspaces(rows: int, tk: int, e: int, dh: int, dev):
+    """The tensor-core path's scratch, zeroed where the kernels add into it
+    or read what no kernel writes (rows past ``rows``, events past E):
+    x (rows_pad, 64) bf16, rnd(draw)^T (E rounded up to 8, rows_pad) bf16,
+    probs and dprobs (rows, Tk) fp32, dseq^T (64, rows_pad) fp32, dWd^T
+    (E*dh rounded up to 128, 64) fp32 and its interval lane (E*dh,) fp32;
+    rows_pad = rows rounded up to 64."""
+    rows_pad = -(-rows // 64) * 64
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.empty((rows_pad, 64), dtype=torch.bfloat16, device=dev)
+    x[rows:].zero_()
+    draw = torch.empty((-(-e // 8) * 8, rows_pad), dtype=torch.bfloat16,
+                       device=dev)
+    draw[e:].zero_()
+    draw[:, rows:].zero_()
+    return dict(x=x, draw=draw, probs=torch.empty((rows, tk), **f32),
+                dprobs=torch.empty((rows, tk), **f32),
+                dseq=torch.zeros((64, rows_pad), **f32),
+                dwd=torch.zeros((-(-e * dh // 128) * 128, 64), **f32),
+                dwd_iv=torch.zeros((e * dh,), **f32), rows_pad=rows_pad)
+
+
+def int_dwd(ws, e: int, dh: int) -> torch.Tensor:
+    """dWd (dh+1, E*dh) from the tensor-core path's workspaces: the
+    transposed seq_units lanes of ``ws["dwd"]`` and the interval lane."""
+    return torch.cat([ws["dwd"][:e * dh, :dh].t(), ws["dwd_iv"][None]])
+
+
+def _wd_tiles(wd: torch.Tensor, dh: int):
+    """bf16 Wd's seq_units lanes as the tensor-core kernel reads them by
+    TMA: (64, E*dh rounded up to 128), zero past dh lanes and E*dh
+    columns (the interval lane is read in fp32 by the kernel)."""
+    n = wd.shape[1]
+    out = torch.zeros((64, -(-n // 128) * 128), dtype=torch.bfloat16,
+                      device=wd.device)
+    out[:dh, :n] = wd[:dh].detach().to(torch.bfloat16)
+    return out
+
+
 def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                 raw, g_out, g_lam, causal, diag_reset, num_heads, qpos, seed,
-                rate, wd_packed=()):
-    """``wd_packed``: the forward's ``_pack_wd(wd)`` where there is one."""
+                rate):
     km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
                                      wd, bd, w, scaling, num_heads, qpos)
     dev, cdt = q.device, q.dtype
@@ -577,9 +624,6 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
            and raw.dtype == torch.float32 and raw.is_contiguous(),
            "raw residual (B, H, Tq, E) fp32")
     wdf, bdf, wf, scf = (_f32(x, dev) for x in (wd, bd, w, scaling))
-    wd_frag = wd_rows = wd_t = None
-    if cdt == torch.bfloat16 and dh <= 64:   # the tensor-core paths
-        wd_frag, wd_rows, wd_t = wd_packed or _pack_wd(wdf)
     lib = _bwd_lib()
     qc = _bwd_query_chunk(lib, tq, tk, dh, e)
     rows = b * num_heads * tq
@@ -589,14 +633,23 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                   for _ in range(3))
     accs = ([torch.zeros((b, tk, c), **f32) for _ in range(3)]
             if qc < tq else [None] * 3)
-    x_out = (torch.empty((rows, wd_t.shape[1]), dtype=torch.bfloat16,
-                         device=dev)
-             if wd_t is not None else torch.empty((rows, dh + 1), **f32))
-    draw_out = torch.empty((rows, e), **f32)
     dsc = torch.zeros((e,), **f32)
-    dwd = torch.zeros((dh + 1, e * dh), **f32)
     dbd = torch.zeros((e * dh,), **f32)
     dw = torch.zeros((e * dh,), **f32)
+    tc = bool(lib.mau_attention_bwd_tensor_cores(dh, _DTYPE_CODE[cdt]))
+    if tc:
+        ws = int_workspaces(rows, tk, e, dh, dev)
+        wdt = _wd_tiles(wdf, dh)
+        x_out, draw_out, dwd = ws["x"], ws["draw"], ws["dwd"]
+        extra = (ws["probs"], ws["dprobs"], ws["dseq"])
+        tiles_per_chunk = int_plan(
+            rows, e * dh,
+            torch.cuda.get_device_properties(dev).multi_processor_count)[2]
+    else:
+        ws, wdt, extra, tiles_per_chunk = dict(rows_pad=0), None, (None,) * 3, 0
+        x_out = torch.empty((rows, dh + 1), **f32)
+        draw_out = torch.empty((rows, e), **f32)
+        dwd = torch.zeros((dh + 1, e * dh), **f32)
     seed_ptr, thresh, dscale = _drop_args(seed, rate)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
@@ -608,16 +661,18 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             go.data_ptr(), go.stride(0), go.stride(1),
             km.data_ptr(), iv.data_ptr(), qp.data_ptr(), oh.data_ptr(),
             wdf.data_ptr(), bdf.data_ptr(), wf.data_ptr(), scf.data_ptr(),
-            ptr(wd_frag), ptr(wd_rows), ptr(wd_t),
-            raw.data_ptr(), gl.data_ptr(), seed_ptr, thresh, dscale,
+            ptr(wdt), raw.data_ptr(), gl.data_ptr(), seed_ptr, thresh, dscale,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dt.data_ptr(),
             *(ptr(a) for a in accs), x_out.data_ptr(), draw_out.data_ptr(),
-            dsc.data_ptr(), dwd.data_ptr(), dbd.data_ptr(), dw.data_ptr(),
+            *(ptr(a) for a in extra), dsc.data_ptr(), dwd.data_ptr(),
+            ptr(ws.get("dwd_iv")), dbd.data_ptr(), dw.data_ptr(),
             b, tq, tk, num_heads, dh, e, int(causal), int(diag_reset),
-            1.0 / dh ** 0.5, qc, BWD_ROWS_PER_CHUNK, _DTYPE_CODE[cdt],
-            _stream(dev))
+            1.0 / dh ** 0.5, qc, BWD_ROWS_PER_CHUNK, tiles_per_chunk,
+            ws["rows_pad"], _DTYPE_CODE[cdt], _stream(dev))
     _raise_on(rc, "mau_attention_bwd", _fwd_lib().mau_cuda_error_string)
     if accs[0] is not None:
         dk, dv, dt = (a.to(cdt) for a in accs)
+    if tc:
+        dwd = int_dwd(ws, e, dh)
     mau_attention_bwd.launches += 1
     return dq, dk, dv, dt, dwd, dbd, dw.reshape(e, dh), dsc

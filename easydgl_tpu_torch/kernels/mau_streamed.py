@@ -480,7 +480,9 @@ def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
              block_k: int = 512):
     """Backward pass 3 (key-major): (dK, dV, dT), each (B, Tk, C) in q's
     dtype; the arguments of ``mau_dq``. CPU tensors:
-    ``mau_blocked.dkvt_reference``; CUDA tensors: ``mau_dkvt_kernel``."""
+    ``mau_blocked.dkvt_reference``; CUDA tensors: ``mau_dkvt_tc_kernel``
+    (bf16, on ``dkvt_tc_inputs``' padded operands) or ``mau_dkvt_kernel``
+    (fp32)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_dkvt", q, k, v, t, key_mask, onehot, lam, m, l,
@@ -490,24 +492,59 @@ def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
                               dropout_rate=dropout_rate,
                               dropout_seed=dropout_seed, num_heads=num_heads,
                               block_k=block_k)
-    b, tq, tk, dh, e, args, alive = _pass2_args(
+    dh = q.shape[-1] // num_heads
+    if q.dtype == torch.bfloat16:   # the wgmma kernel's 64-wide tiles
+        q, k, v, t, g_out, g_su, lam, onehot = dkvt_tc_inputs(
+            q, k, v, t, g_out, g_su, lam, onehot, num_heads)
+    b, tq, tk, kdh, e, args, alive = _pass2_args(
         "mau_dkvt", q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho,
         num_heads)
     lib = _bwd_lib()
-    _bwd_fits(lib, _DKVT, "mau_dkvt", dh, e, q.dtype)
+    _bwd_fits(lib, _DKVT, "mau_dkvt", kdh, e, q.dtype)
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
-    dk, dv, dt = (torch.empty((b, tk, num_heads * dh), dtype=q.dtype,
+    dk, dv, dt = (torch.empty((b, tk, num_heads * kdh), dtype=q.dtype,
                               device=q.device) for _ in range(3))
     with torch.cuda.device(q.device):
         rc = lib.mau_dkvt_bwd(*args, seed_ptr, thresh, dscale, dk.data_ptr(),
                               dv.data_ptr(), dt.data_ptr(), b, tq, tk,
-                              num_heads, dh, e, int(causal), int(diag_reset),
+                              num_heads, kdh, e, int(causal), int(diag_reset),
                               1.0 / dh ** 0.5, _DTYPE_CODE[q.dtype],
                               _stream(q.device))
     _raise_on(rc, "mau_dkvt", _lib().mau_streamed_error_string)
     mau_dkvt.launches += 1
-    return dk, dv, dt
+    return tuple(_unpad_heads(x, num_heads, dh) for x in (dk, dv, dt))
+
+
+def dkvt_tc_inputs(q, k, v, t, g_out, g_su, lam, onehot, num_heads: int):
+    """The bf16 dkvt kernel's operands: heads zero-padded to 64 channels
+    (q, k, v, t, g_out (B, T, C); g_su (B, H, Tq, dh)) and lam / one-hot
+    zero-padded to a multiple of 64 events, so that every tile is (64 x 64).
+    Zero channels and events add nothing to a product; the padded outputs'
+    extra channels are dropped by ``_unpad_heads``. Where the widths are
+    already 64 (the EasyDGL-LC shape) the tensors come back as they are."""
+    dh = q.shape[-1] // num_heads
+    e = onehot.shape[-1]
+    ep = -(-e // 64) * 64
+    if dh < 64:
+        def pad(x):
+            b, n, _ = x.shape
+            return F.pad(x.reshape(b, n, num_heads, dh), (0, 64 - dh)
+                         ).reshape(b, n, num_heads * 64)
+        q, k, v, t, g_out = (pad(x) for x in (q, k, v, t, g_out))
+        g_su = F.pad(g_su, (0, 64 - dh))
+    if ep != e:
+        lam, onehot = F.pad(lam, (0, ep - e)), F.pad(onehot, (0, ep - e))
+    return q, k, v, t, g_out, g_su, lam, onehot
+
+
+def _unpad_heads(x, num_heads: int, dh: int):
+    """(B, T, H * kdh) -> (B, T, H * dh): each head's first dh channels."""
+    b, n, c = x.shape
+    if c == num_heads * dh:
+        return x
+    return x.reshape(b, n, num_heads, -1)[..., :dh].reshape(b, n,
+                                                              num_heads * dh)
 
 
 mau_dkvt.launches = 0

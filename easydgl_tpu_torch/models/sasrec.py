@@ -15,14 +15,20 @@ kernels run on the card. Training: hidden dropout after the input codes and
 in the FFN, attention dropout in the MHA, all drawn from the step's
 ``torch.Generator``. The training forward returns no logits, as EasyDGL's:
 the loss scores ``aux[SCORING]`` through the streamed catalog NLL, so no
-(B*T, V) product is built. ``SASRECBlock`` (the pipeline stage body) and
-``remat`` come with pipeline parallelism.
+(B*T, V) product is built. ``cfg.remat`` recomputes each block in the
+backward (``nn.remat`` in the JAX model): the block runs under
+``torch.utils.checkpoint`` with the step's generator put back to its state
+at the block's start for the recompute, so the recompute draws the
+forward's dropout masks, and the generator is left where the forward left
+it. ``SASRECBlock`` (the pipeline stage body) comes with pipeline
+parallelism.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.kernels.flash_attention import \
@@ -104,10 +110,10 @@ class SASREC(SequentialModel):
         mask = (ids != 0).to(x.dtype)[:, :, None]
         x = x * mask
         for i in range(cfg.num_blocks):
-            blk = lambda name: getattr(self, f"block{i}_{name}")  # noqa: E731
-            x = blk("attn")(blk("ln0")(x), x, causality=True, generator=gen)
-            x = blk("ffn")(blk("ln1")(x), gen)
-            x = x * mask
+            if cfg.remat and torch.is_grad_enabled():
+                x = remat(self._block, i, x, mask, gen)
+            else:
+                x = self._block(i, x, mask, gen)
         x = self.out_ln(x)
         hidden = prediction_rows(x, is_training)
         bias = self.out_bias()
@@ -116,3 +122,37 @@ class SASREC(SequentialModel):
         if is_training:
             return None, aux
         return tied_logits(hidden, table, bias, self.compute_dtype), aux
+
+    def _block(self, i: int, x, mask, gen):
+        """Block i: ``x = MHA(LN(x), x, causal)``, ``x = FFN(LN(x))``, the
+        padding re-mask."""
+        blk = lambda name: getattr(self, f"block{i}_{name}")  # noqa: E731
+        x = blk("attn")(blk("ln0")(x), x, causality=True, generator=gen)
+        x = blk("ffn")(blk("ln1")(x), gen)
+        return x * mask
+
+
+def remat(fn, i: int, x, mask, gen: Optional[torch.Generator]):
+    """``fn(i, x, mask, gen)`` under ``torch.utils.checkpoint``: its
+    activations are not kept but recomputed in the backward. The dropout
+    masks come from ``gen``, which the checkpoint's own RNG handling does
+    not cover: its state at the block's start is kept, and the recompute
+    runs from it and then puts the generator back where it found it."""
+    if gen is None:
+        return torch.utils.checkpoint.checkpoint(fn, i, x, mask, None,
+                                                 use_reentrant=False)
+    start = gen.get_state()
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1:   # the forward
+            return fn(i, x, mask, gen)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return fn(i, x, mask, gen)
+        finally:
+            gen.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)

@@ -2,12 +2,16 @@
 """Times variants of a hand-written kernel with one part taken out, on one
 GPU, to show where its time goes.
 
-Three kernels: the bf16 flash backward (``flash``: the dQ reduction, the
+Five kernels: the bf16 flash backward (``flash``: the dQ reduction, the
 exp, the per-entry mask test removed, one consumer warpgroup instead of
 two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
-the exponentials, or the products, removed) and the intensity VJP
-(``vjp``: the products removed, or the column kernel at four blocks an
-SM, as the row kernel runs). Each variant edits
+the exponentials, or the products, removed), the intensity VJP (``vjp``:
+the products removed, or the column kernel at four blocks an SM, as the
+row kernel runs), the bf16 fused MAU backward (``mau_bwd``: the sigmoid's
+exact two-op form, its intensity products removed, the dx^T reduce-add
+removed; by kernel) and the bf16 streamed dK/dV/dT kernel (``dkvt``: the
+Philox draw or the products removed, every key tile visited, three
+stages). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -16,7 +20,8 @@ each copy in turn, the unchanged source first and last. Prints one JSON
 line a copy, with the card's name and power limit. Imports neither JAX nor
 the JAX package.
 
-    python3 scripts/torch_ablate.py flash|catalog_fwd|vjp [VARIANT ...]
+    python3 scripts/torch_ablate.py flash|catalog_fwd|vjp|mau_bwd|dkvt
+        [VARIANT ...]
 """
 from __future__ import annotations
 
@@ -78,42 +83,47 @@ KERNELS = {
     "mau_bwd": ("mau_attention_bwd.cu", "mau_attention_bwd",
                 ["scripts/torch_mau_bench.py", "--kernels"], {
                     "control": [],
-                    "rows kernel alone": [(
-                        "    mau_bwd_weights_mma<DH><<<grid, kThreads, w_bytes,"
-                        " stream>>>(p);\n", "")],
-                    "weights kernel alone": [(
-                        "  mau_bwd_rows<T, DH><<<p.B * p.H * nchunks, kThreads,"
-                        " rows_bytes, stream>>>(p);\n", "")],
-                    "rows without intensity products": [(
-                        "    intensity_bwd_mma<DH>(p, xb, S, rd_s, lde, nq, dseq,"
-                        " ldh);\n", "")],
-                    "sigmoid as identity": [(
-                        "__floats2bfloat162_rn(sigmoid(z0 + bd0), sigmoid(z1 +"
-                        " bd1));",
-                        "__floats2bfloat162_rn(z0 + bd0, z1 + bd1);")]}),
+                    "exact sigmoid": [(
+                        "  return fmaf(0.5f, tanh_approx(0.5f * z), 0.5f);",
+                        "  return sigmoid(z);")],
+                    "no intensity products": [
+                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf"
+                         " + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T\n", ""),
+                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(gwd, dzf"
+                         " + 4 * kk, xd + 128 * kk);  // dWd^T += dz^T x\n",
+                         ""),
+                        ("      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk"
+                         " & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);\n",
+                         "      ;\n")],
+                    "no dx^T reduce-add": [(
+                        "      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg,"
+                        " 0);\n", "")]}),
     "dkvt": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
              ["scripts/torch_streamed_bench.py", "--dkvt", "--kernels"], {
                  "control": [],
                  "no Philox draw": [(
-                     "              const float keep = drop.factor(b, h, i,"
-                     " j);\n              md *= keep;",
-                     "              const float keep = 1.f;\n"
-                     "              md *= keep;")],
+                     "            if constexpr (decltype(dropped)::value) u *= "
+                     "drop.factor(b, h, i, jk[hr]);\n", "")],
                  "no products": [
-                     ("        mma_rows32(s, a, qb + half * KH * SD, SD, kd * 16,"
-                      " lane);\n", ""),
-                     ("        mma_rows32(gm, a, db + half * KH * SD, SD, kd *"
-                      " 16, lane);\n", ""),
-                     ("        mma_rows32(gt, a, gb + half * KH * SD, SD, kd *"
-                      " 16, lane);\n", ""),
-                     ("        mma_rows32(iq, a, lb + half * KH * SE, SE, ke,"
-                      " lane);\n", ""),
-                     ("      mma_pv<DH>(dv, gm, db + half * KH * SD, SD,"
-                      " lane);", ""),
-                     ("      mma_pv<DH>(dk, gt, qb + half * KH * SD, SD,"
-                      " lane);", ""),
-                     ("      mma_pv<DH>(dt, s, gb + half * KH * SD, SD,"
-                      " lane);", "")]}),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, kd"
+                      " + 2 * kk, qd + 2 * kk, 1);  // K Q^T\n", ""),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(xa, td"
+                      " + 2 * kk, gd + 2 * kk, 1);  // T g_su^T\n", ""),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dt, f + 4 *"
+                      " kk, gd + 128 * kk);  // dT += P^T g_su\n", ""),
+                     ("        wgmma_ss<0, 0>(ia, od + 512 * c + 2 * kk, ld + 512"
+                      " * c + 2 * kk, 1);  // one-hot lam^T\n", "        ;\n"),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv, f + 4 *"
+                      " kk, dd + 128 * kk);  // dV += U^T dO\n", ""),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, vd"
+                      " + 2 * kk, dd + 2 * kk, 1);  // V dO^T\n", ""),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, f + 4 *"
+                      " kk, qd + 128 * kk);  // dK += G_s^T Q\n", "")],
+                 "every key tile visited": [(
+                     "    return (w == 0 ? live0 : live1) || blind;",
+                     "    return true;")],
+                 "3 stages": [("constexpr int kKvStages = 2;",
+                               "constexpr int kKvStages = 3;")]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 

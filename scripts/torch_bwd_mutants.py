@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Shows that the backward checks of ``chip_smoke.py`` fail a broken fused
+MAU backward or a broken streamed dK/dV/dT kernel, on one GPU.
+
+Three mutants of ``csrc/mau_attention_bwd.cu``'s tensor-core path (bf16,
+dh <= 64): dbd dropped (its one atomic a column and block), dz without its
+(1 - sig) factor, and the second warpgroup's rows of dx^T never added to
+the workspace. Three of ``csrc/mau_streamed_bwd.cu``'s wgmma dkvt kernel:
+the modulated probs without their dropout factor (dV's and dK's), the
+rows that see no key left out of key tiles with no real key (so such a
+tile is skipped), and the causal tile rule off by one tile. For each
+mutant, and for the unchanged sources as a control, the package and
+``chip_smoke.py`` are copied into a temporary directory, the copy's source
+is edited, and the cases of ``chip_smoke.MAU_BWD_CASES`` (through
+``mau_bwd_case``) and the dkvt kernel of ``chip_smoke.STREAMED_BWD_CASES``
+(through ``streamed_bwd_case``) run there (each copy's libraries built
+first, one nvcc each, all together; then one process per copy, three at a
+time). Prints, per copy, the checks that failed with their worst
+|kernel - plain| / tolerance, and exits 0 when the control passes every
+check and every mutant fails at least one. Imports neither JAX nor the JAX
+package.
+
+    python3 scripts/torch_bwd_mutants.py
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = "easydgl_tpu_torch/kernels/csrc/"
+MAU, STREAMED = "mau_attention_bwd", "mau_streamed_bwd"
+# name -> (library, old, new), or None for the control
+MUTANTS = {
+    "control": None,
+    "dbd dropped": (
+        MAU, "      atomicAdd(p.dbd + col, bb);\n", ""),
+    "dz without (1 - sig)": (
+        MAU, "__hmul2(__hmul2(__hmul2(dsw, wr2[hm]), sig), __hsub2(one2, sig));",
+        "__hmul2(__hmul2(dsw, wr2[hm]), sig);"),
+    "dx^T of the second warpgroup's rows not added": (
+        MAU, "      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);",
+        "      if (wg == 0) tma_reduce_add_2d(&maps.dseq, stw, r0, 0);"),
+    "dkvt: no dropout factor in the modulated probs": (
+        STREAMED, "            if constexpr (decltype(dropped)::value) u *= "
+        "drop.factor(b, h, i, jk[hr]);\n", ""),
+    "dkvt: rows that see no key left out of dead key tiles": (
+        STREAMED, "    const bool blind = p.causal ? q0 < first : first >= p.Tk;",
+        "    const bool blind = false;"),
+    "dkvt: causal tile rule off by one tile": (
+        STREAMED, "    if (p.causal && first <= imin(q0, p.Tk - 1) && kt * BK > "
+        "imin(q0 + BQ, p.Tq) - 1) return false;",
+        "    if (p.causal && first <= imin(q0, p.Tk - 1) && kt * BK > "
+        "imin(q0 + BQ, p.Tq) - 1 - BK) return false;"),
+}
+RESULT = "RESULT "
+AT_ONCE = 3   # copies run together
+
+
+def child() -> int:
+    """Runs the checks against the package in the working directory;
+    prints {case: {output: worst/tol}} as JSON."""
+    here = pathlib.Path.cwd().resolve()
+    sys.path.insert(0, str(here))
+    import torch
+
+    import chip_smoke
+    import easydgl_tpu_torch
+    assert pathlib.Path(easydgl_tpu_torch.__file__).resolve().is_relative_to(
+        here), "the package was not imported from the copy"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for i, case in enumerate(chip_smoke.MAU_BWD_CASES):
+        res, _ = chip_smoke.mau_bwd_case(i, *case)
+        out[case[0]] = {label: ratio for label, (_, ratio) in res.items()}
+    for i, case in enumerate(chip_smoke.STREAMED_BWD_CASES):
+        res = chip_smoke.streamed_bwd_case(i, *case, only=("mau_dkvt",))[0]
+        out[case[0]] = {label: ratio
+                        for label, (_, ratio) in res["mau_dkvt"].items()}
+    print(RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def make_copy(dst: pathlib.Path, edit):
+    shutil.copytree(ROOT / "easydgl_tpu_torch", dst / "easydgl_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    if edit is not None:
+        lib, old, new = edit
+        path = dst / CSRC / f"{lib}.cu"
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"mutation target not found once in {lib}.cu:"
+                               f" {old}")
+        path.write_text(text.replace(old, new))
+
+
+def main() -> int:
+    if "--child" in sys.argv:
+        return child()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_bwd_mutants: no CUDA device", file=sys.stderr)
+        return 1
+    ok = True
+    items = list(MUTANTS.items())
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, edit) in enumerate(items):
+            make_copy(pathlib.Path(tmp) / f"copy{i}", edit)
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", "from easydgl_tpu_torch.kernels import"
+             f" build; build.build(['mau_attention_fwd', '{MAU}',"
+             f" 'mau_streamed_fwd', '{STREAMED}'])"],
+            cwd=pathlib.Path(tmp) / f"copy{i}") for i in range(len(items))]
+        if any(b.wait() for b in builds):
+            print("FAILED: a copy did not build")
+            return 1
+        results = []
+        for w in range(0, len(items), AT_ONCE):
+            procs = {name: subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 "--child"], cwd=pathlib.Path(tmp) / f"copy{i}",
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for i, (name, _) in enumerate(items) if w <= i < w + AT_ONCE}
+            results += [(name, proc, proc.communicate(timeout=900)[0])
+                        for name, proc in procs.items()]
+        for name, proc, text in results:
+            lines = [x for x in text.splitlines() if x.startswith(RESULT)]
+            if proc.returncode != 0 or not lines:
+                print(f"{name}: the run failed (rc {proc.returncode}):\n"
+                      + text[-4000:])
+                ok = False
+                continue
+            res = json.loads(lines[-1][len(RESULT):])
+            failed = [(case, label, r) for case, checks in res.items()
+                      for label, r in checks.items() if r > 1.0]
+            worst = max(r for checks in res.values() for r in checks.values())
+            caught = bool(failed)
+            verdict = ("passes every check" if not caught else
+                       f"fails {len(failed)} checks")
+            print(f"{name}: {verdict} (worst/tol {worst:.3f})")
+            for case, label, r in failed:
+                print(f"    {case:28s} {label:16s} worst/tol {r:.3f}")
+            ok = ok and caught == (name != "control")
+    print("mutants caught, control clean" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -95,7 +95,9 @@ CASES = [  # (causal, diag_reset, tq)
     (True, False, 4)]
 SHAPES = {"small": dict(b=3, t=11, h=2, dh=16, e=4),
           "flagship_width": dict(b=8, t=31, h=8, dh=64, e=64),
-          "tk128": dict(b=2, t=128, h=4, dh=32, e=8)}
+          "tk128": dict(b=2, t=128, h=4, dh=32, e=8),
+          # PRESETS["CTSMA"]'s heads: the bf16 backward's CUDA-core path
+          "dh128": dict(b=4, t=31, h=4, dh=128, e=64)}
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
@@ -178,7 +180,7 @@ def _check_by_scale(dtype, got, want, what):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("shape", ["small", "flagship_width", "tk128"])
+@pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("causal,diag,tq", CASES[:3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_matches_plain_version(cuda_device, dtype, causal,

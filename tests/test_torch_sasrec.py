@@ -13,7 +13,11 @@ JAX package, on the CPU.
 * a small SASREC-LC model (L=256, ``attention_impl="flash"``: the plain
   flash version and ``_FlashAttention`` on the CPU): logits and one train
   step;
-* the random param tree against JAX ``init``.
+* the random param tree against JAX ``init``;
+* ``cfg.remat`` (each block recomputed in the backward, the JAX model's
+  ``nn.remat``): at dropout 0.1 the loss, every gradient and the
+  generator's state after the step equal those without it, and the
+  parameter names are unchanged.
 
 The JAX reference of a ``"flash"`` model outside the module test is its
 ``"xla"`` model: the two are one function on every row at dropout 0 (the
@@ -47,7 +51,8 @@ from easydgl_tpu_torch.models.registry import build_model
 from easydgl_tpu_torch.nn.attention import MultiHeadAttention
 from easydgl_tpu_torch.parity import flax_to_torch, random_flax_params
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
-                                           compute_loss, init_state)
+                                           compute_loss, init_state,
+                                           loss_and_grads)
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -298,3 +303,33 @@ def test_training_forward_needs_a_generator_for_dropout(small):
     assert none is None
     hidden = aux["scoring"][0]
     assert hidden.shape == (B * L, 16) and bool(torch.isfinite(hidden).all())
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_remat_recomputes_blocks_with_the_forwards_masks(small, impl):
+    """2 blocks, C=16, L=8, dropout 0.1 on both rates, one generator seed:
+    with ``remat`` the blocks' activations are recomputed in the backward
+    from the generator's state at each block's start, so every mask is the
+    forward's; loss and gradients equal the run without it to 1e-6, and
+    the generator ends where the forward left it."""
+    tf, tlab = small["train"]
+    feats = {k: torch.as_tensor(v) for k, v in tf.items()}
+    runs = {}
+    for remat, seed in ((False, 3), (True, 3), (False, 4)):
+        cfg = preset("SASREC", **dict(small["kw"], attention_impl=impl,
+                                      hidden_dropout_rate=0.1,
+                                      attention_probs_dropout_rate=0.1,
+                                      remat=remat))
+        model = build_model(cfg, device="cpu", params=small["params"])
+        gen = torch.Generator().manual_seed(seed)
+        loss, grads = loss_and_grads(model, feats, torch.as_tensor(tlab),
+                                     gen)
+        runs[remat, seed] = (loss, grads, gen.get_state())
+    (loss0, g0, s0), (loss1, g1, s1) = runs[False, 3], runs[True, 3]
+    assert float(runs[False, 4][0]) != float(loss0)   # the masks matter
+    assert list(g0) == list(g1)
+    np.testing.assert_allclose(float(loss1), float(loss0), rtol=0, atol=1e-6)
+    for name, want in g0.items():
+        np.testing.assert_allclose(g1[name].numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=name)
+    assert torch.equal(s0, s1)
