@@ -22,7 +22,8 @@
 // E=64; 126,976 rows of x = [su | interval]): the intensity head, three
 // products of (rows x 65) by (65 x 4096) (z once, dx and dWd), ~203 GFLOP
 // (0.21 ms at 989 TFLOP/s), and the sigmoids of 520 M entries: at one
-// special-function op each, ~0.14 ms of the SM's 16 such ops a clock.
+// special-function op each, 0.124 ms of the SM's 16 such ops a clock
+// (chip_smoke.py phase 4b); the exact form takes two.
 //
 // bf16, dh <= 64 (the main path): three kernels.
 //
@@ -39,8 +40,7 @@
 //   about eight waves of blocks). Its two Wd tiles stay resident; each row
 //   tile's x, draw rows and intervals stream through a three-stage ring.
 //   Per row tile a warpgroup forms z^T = Wd^T x^T (A: Wd^T in registers),
-//   sig with one special-function op (0.5 + 0.5 tanh.approx(z / 2): sig is
-//   rounded to bf16 at once, whose ulp is far above the op's error) and dz
+//   sig (the exact form, two special-function ops: see sigmoid_bf16) and dz
 //   in packed bf16x2 at the plain version's rounding points, sums dbd, dw
 //   and the interval lane of dWd in registers, adds dWd^T += dz^T x (A: dz^T
 //   from the accumulators; dWd^T stays in registers over the chunk) and
@@ -705,17 +705,15 @@ struct IntMaps {
   CUtensorMap dwd;   // fp32 dWd^T workspace (E*dh, 64 lanes): boxes 64 columns x 32 lanes
 };
 
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// sigmoid(z) = (1 + tanh(z / 2)) / 2 in one special-function op; sig is
-// rounded to bf16 right after, whose ulp (2^-8) is far above the op's error.
-__device__ __forceinline__ float sigmoid_bf16(float z) {
-  return fmaf(0.5f, tanh_approx(0.5f * z), 0.5f);
-}
+// The sigmoid before its bf16 rounding: the exact two-op form (an ex2 and a
+// reciprocal on the special-function unit). The one-op form (1 + tanh.approx
+// (z / 2)) / 2, whose error is ~2^-11 of the result, flips the bf16 rounding
+// of sig often enough that at phase 3b's inputs the worst error against
+// tolerance rose up to 8x (dt of bimau_qpos_tq6_bf16 0.037 -> 0.294, dWd of
+// bimau_bf16_flagship 0.006 -> 0.042), past the 2x this port allows itself
+// for it; the exact form gives PR 8's errors (torch_ablate.py mau_bwd times
+// the one-op form).
+__device__ __forceinline__ float sigmoid_bf16(float z) { return sigmoid(z); }
 
 __device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -860,21 +858,30 @@ __global__ void __launch_bounds__(kIntThreads, 1)
 #pragma unroll
   for (int i = 0; i < 32; ++i) gwd[i] = 0.f;
   const __nv_bfloat162 one2 = __floats2bfloat162_rn(1.f, 1.f);
+  // z^T = Wd^T x^T of stage s's tile into z
+  auto issue_z = [&](float (&z)[32], int s) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) z[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(z, wf + 4 * kk, sw128_desc(xs + s * kTile) + 2 * kk);
+    wg_commit();
+  };
   mbar_wait(wd_full, 0);
+  mbar_wait(full, 0);
+  float zt[32], zn[32];
+  issue_z(zt, 0);
 
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % kIntStages, buf = it & 1, r0 = (t_begin + it) * 64;
-    mbar_wait(full + s, (it / kIntStages) & 1);
     const uint64_t xd = sw128_desc(xs + s * kTile);
-    float zt[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) zt[i] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T
-    wg_commit();
     wg_wait();
     reg_fence(zt);
+    // the next tile's z^T runs under this tile's entries (after the last
+    // tile, a spare product on this tile's stage)
+    const int sn = it + 1 < ntiles ? (it + 1) % kIntStages : s;
+    if (it + 1 < ntiles) mbar_wait(full + sn, ((it + 1) / kIntStages) & 1);
+    issue_z(zn, sn);
 
     // z = x Wd + iv Wd[dh] + bd; sig, dz and the column sums at the bf16
     // rounding points of the plain version, two rows at a time in bf16x2;
@@ -923,6 +930,7 @@ __global__ void __launch_bounds__(kIntThreads, 1)
     fence_async_smem();
     wg_wait();
     reg_fence(gwd);
+    reg_fence(zn);
     mbar_arrive(empty + s);  // the stage's x tile, draw rows and intervals are free
     named_sync(1, 128 * kIntGroups);  // both warpgroups' dz^T of this tile are in shared memory
 
@@ -949,6 +957,8 @@ __global__ void __launch_bounds__(kIntThreads, 1)
       tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) zt[i] = zn[i];
   }
 
   // dbd, dw and the interval lane of dWd: the quad's rows, one atomic a

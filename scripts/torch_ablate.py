@@ -8,8 +8,8 @@ two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
 the exponentials, or the products, removed), the intensity VJP (``vjp``:
 the products removed, or the column kernel at four blocks an SM, as the
 row kernel runs), the bf16 fused MAU backward (``mau_bwd``: the sigmoid's
-exact two-op form, its intensity products removed, the dx^T reduce-add
-removed; by kernel) and the bf16 streamed dK/dV/dT kernel (``dkvt``: the
+one-op form (tanh.approx), its intensity products removed, the dx^T
+reduce-add removed; by kernel) and the bf16 streamed dK/dV/dT kernel (``dkvt``: the
 Philox draw or the products removed, every key tile visited, three
 stages). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
@@ -83,12 +83,16 @@ KERNELS = {
     "mau_bwd": ("mau_attention_bwd.cu", "mau_attention_bwd",
                 ["scripts/torch_mau_bench.py", "--kernels"], {
                     "control": [],
-                    "exact sigmoid": [(
-                        "  return fmaf(0.5f, tanh_approx(0.5f * z), 0.5f);",
-                        "  return sigmoid(z);")],
+                    "one-op sigmoid": [(
+                        "__device__ __forceinline__ float sigmoid_bf16(float z)"
+                        " { return sigmoid(z); }",
+                        "__device__ __forceinline__ float sigmoid_bf16(float z)"
+                        " { float y; asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y)"
+                        " : \"f\"(0.5f * z)); return fmaf(0.5f, y, 0.5f); }")],
                     "no intensity products": [
-                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf"
-                         " + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T\n", ""),
+                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(z, wf +"
+                         " 4 * kk, sw128_desc(xs + s * kTile) + 2 * kk);\n",
+                         ""),
                         ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(gwd, dzf"
                          " + 4 * kk, xd + 128 * kk);  // dWd^T += dz^T x\n",
                          ""),

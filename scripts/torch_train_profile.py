@@ -7,10 +7,12 @@ Runs ``build_train_step`` of easydgl_tpu_torch for a preset (default
 B = 32, every position scored) with bf16 matmuls, the preset's dropout
 (0.1 / 0.1) and loss terms (EasyDGL: TPP and L2, 64 marks looked up on the
 device), TF-Adam, random weights from seed 0, over synthetic batches of the
-model's protocol already on the device
-under ``torch.profiler``, and prints the device time by kernel, the share of
-the window the device was busy, and the host wall time per step. Imports
-neither JAX nor the JAX package.
+model's protocol already on the device, first unprofiled (host clock,
+synchronised) and then under ``torch.profiler``, and prints the host wall
+time per step of both runs, the device time by kernel and the share of the
+profiled window the device was busy. Imports neither JAX nor the JAX
+package; run it from any checkout's root (it imports the package beside
+it) to compare two versions in one call.
 
     python3 scripts/torch_train_profile.py [PRESET] [--steps 8]
 """
@@ -63,6 +65,12 @@ def main() -> int:
     for features, labels in batches[:2]:  # warm-up
         state, _ = step(state, features, labels, gen)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        features, labels = batches[i % len(batches)]
+        state, loss = step(state, features, labels, gen)
+    torch.cuda.synchronize()
+    unprofiled = (time.perf_counter() - t0) * 1e3 / args.steps
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -78,7 +86,8 @@ def main() -> int:
     total_us = sum(e.self_device_time_total for e in events)
     print(f"{torch.cuda.get_device_name(0)}; {args.preset}: {n} train steps"
           f" x {bs} rows:"
-          f" wall {wall * 1e3 / n:.3f} ms/step (profiled), device busy"
+          f" wall {unprofiled:.3f} ms/step unprofiled,"
+          f" {wall * 1e3 / n:.3f} ms/step profiled; device busy"
           f" {total_us / 1e3 / n:.3f} ms/step ="
           f" {100 * total_us / 1e6 / wall:.1f}% of the window;"
           f" loss {float(loss):.5f}")
