@@ -285,39 +285,6 @@ __device__ void intensity_bwd_scalar(const Params& p, const float* xs, int ldh,
 // * kPost (bf16, dh <= 64), after it: reads probs, dprobs and dseq (the
 //   fp32 (64, rows) sums of mau_bwd_int_tc), and forms dt, dlogit, dq, dk.
 
-// Runs f(r, c, ok) over a loop's `total` outputs (r, c) = (idx / C, idx % C),
-// M of them a thread at a time (idx = base + tid + m kThreads; ok[m] false
-// past the end, where r = c = 0): f sums the M outputs' terms interleaved,
-// so that their dependent chains overlap, each output's terms in the order
-// a loop over that output alone takes them.
-template <int M, typename F>
-__device__ __forceinline__ void for_outputs(int total, int C, F f) {
-  for (int base = 0; base < total; base += M * kThreads) {
-    int r[M], c[M];
-    bool ok[M];
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int idx = base + threadIdx.x + m * kThreads;
-      ok[m] = idx < total;
-      r[m] = ok[m] ? idx / C : 0;
-      c[m] = ok[m] ? idx - r[m] * C : 0;
-    }
-    f(r, c, ok);
-  }
-}
-
-// acc[m] = init[m] + a_r[m] . b_c[m] over n4 float4s, M dot products
-// interleaved (each in the order of dot4 over its float4s).
-template <int M>
-__device__ __forceinline__ void dots4(float (&acc)[M], const float* a, int lda, const int (&r)[M],
-                                      const float* bm, int ldb, const int (&c)[M], int n4) {
-  for (int d = 0; d < n4; ++d)
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-      acc[m] = dot4(reinterpret_cast<const float4*>(a + r[m] * lda)[d],
-                    reinterpret_cast<const float4*>(bm + c[m] * ldb)[d], acc[m]);
-}
-
 template <typename T, int DH, int MODE>
 __global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -377,17 +344,18 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
   } else {
     for (int e = tid; e < l.dsc; e += kThreads) dsc_s[e] = 0.f;
     __syncthreads();
-    for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      dots4(acc, qs, ldh, i, ks, ldh, j, D4);
+    for (int idx = tid; idx < nq * Tk; idx += kThreads) {
+      const int i = idx / Tk, j = idx - i * Tk;
+      const float4* qa = reinterpret_cast<const float4*>(qs + i * ldh);
+      const float4* ka = reinterpret_cast<const float4*>(ks + j * ldh);
+      float acc = 0.f;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        float s = acc[m] * p.scale;
-        if (kms[j[m]] == 0.f) s = kNeg;
-        if (p.causal && j[m] > qps[i[m]]) s = kNeg;
-        if (ok[m]) ps[i[m] * Tk + j[m]] = s;
-      }
-    });
+      for (int d = 0; d < D4; ++d) acc = dot4(qa[d], ka[d], acc);
+      float s = acc * p.scale;
+      if (kms[j] == 0.f) s = kNeg;
+      if (p.causal && j > qps[i]) s = kNeg;
+      ps[idx] = s;
+    }
     __syncthreads();
     for (int i = warp; i < nq; i += kWarps) {
       float* row = ps + i * Tk;
@@ -424,96 +392,80 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
       oh_s[j * lde + e] = e < E ? p.onehot[((size_t)b * Tk + j) * E + e] : 0.f;
     }
     __syncthreads();
-    for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      dots4(acc, gos, ldh, i, vs, ldh, j, D4);
+    for (int idx = tid; idx < nq * Tk; idx += kThreads) {
+      const int i = idx / Tk, j = idx - i * Tk;
+      const float4* ga = reinterpret_cast<const float4*>(gos + i * ldh);
+      const float4* va = reinterpret_cast<const float4*>(vs + j * ldh);
+      float acc = 0.f;
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (ok[m]) dps[i[m] * Tk + j[m]] = acc[m];
-    });
+      for (int d = 0; d < D4; ++d) acc = dot4(ga[d], va[d], acc);
+      dps[idx] = acc;
+    }
     __syncthreads();  // v rows are dead from here: ms takes their place
 
     // elementwise: modulated (for dv), dprobs = dmod*iqk, dint = dmod*probs
     const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-    for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
-      float iq[4] = {0.f, 0.f, 0.f, 0.f};
-      dots4(iq, lam_s, lde, i, oh_s, lde, j, E4);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int idx = i[m] * Tk + j[m];
-        const bool diag = p.diag_reset && j[m] == qps[i[m]];
-        const float iqk = diag ? 1.f : iq[m];
-        const float f = drop.on ? drop.factor(b, h, i0 + i[m], j[m]) : 1.f;
-        const float pr = ps[idx];
-        const float dm = dps[idx] * f;
-        if (!ok[m]) continue;
-        ms[idx] = rnd<T>(iqk * pr * f);
-        dps[idx] = dm * iqk;
-        dis[idx] = diag ? 0.f : dm * pr;
-        if constexpr (MODE == kPre) {
-          p.probs_ws[row0 * Tk + idx] = pr;
-          p.dprobs_ws[row0 * Tk + idx] = dm * iqk;
-        }
+    for (int idx = tid; idx < nq * Tk; idx += kThreads) {
+      const int i = idx / Tk, j = idx - i * Tk;
+      const bool diag = p.diag_reset && j == qps[i];
+      float iqk = 1.f;
+      if (!diag) {
+        const float4* la = reinterpret_cast<const float4*>(lam_s + i * lde);
+        const float4* oa = reinterpret_cast<const float4*>(oh_s + j * lde);
+        iqk = 0.f;
+        for (int e = 0; e < E4; ++e) iqk = dot4(la[e], oa[e], iqk);
       }
-    });
+      const float f = drop.on ? drop.factor(b, h, i0 + i, j) : 1.f;
+      const float pr = ps[idx];
+      ms[idx] = rnd<T>(iqk * pr * f);
+      const float dm = dps[idx] * f;
+      dps[idx] = dm * iqk;
+      dis[idx] = diag ? 0.f : dm * pr;
+      if constexpr (MODE == kPre) {
+        p.probs_ws[row0 * Tk + idx] = pr;
+        p.dprobs_ws[row0 * Tk + idx] = dm * iqk;
+      }
+    }
     __syncthreads();
 
     // dv = modulated^T g_out
-    for_outputs<8>(Tk * DH, DH, [&](const int (&j)[8], const int (&d)[8], const bool (&ok)[8]) {
-      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int i = 0; i < nq; ++i)
-#pragma unroll
-        for (int m = 0; m < 8; ++m) acc[m] = fmaf(ms[i * Tk + j[m]], gos[i * ldh + d[m]], acc[m]);
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-        if (ok[m]) put_key_grad<T>(p, p.dv, p.dv_acc, b, h, j[m], d[m], acc[m], DH);
-    });
+    for (int idx = tid; idx < Tk * DH; idx += kThreads) {
+      const int j = idx / DH, d = idx - j * DH;
+      float acc = 0.f;
+      for (int i = 0; i < nq; ++i) acc = fmaf(ms[i * Tk + j], gos[i * ldh + d], acc);
+      put_key_grad<T>(p, p.dv, p.dv_acc, b, h, j, d, acc, DH);
+    }
     // dlam = dint @ onehot + g_lam; draw = dlam * sigmoid(raw/s); d scaling
     const float* glg = p.glam + row0 * E;
-    for_outputs<8>(nq * E, E, [&](const int (&ii)[8], const int (&ee)[8], const bool (&ok)[8]) {
-      float dls[8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) dls[m] = glg[ii[m] * E + ee[m]];
-      for (int j = 0; j < Tk; ++j)
-#pragma unroll
-        for (int m = 0; m < 8; ++m) dls[m] = fmaf(dis[ii[m] * Tk + j], oh_s[j * lde + ee[m]], dls[m]);
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        if (!ok[m]) continue;
-        const int i = ii[m], e = ee[m];
-        const float dl = dls[m];
-        const float s = expf(p.scaling[e]);
-        const float r = rd_s[i * lde + e] / s;
-        const float sr = 1.f / (1.f + expf(-r));
-        const float dr = dl * sr;
-        rd_s[i * lde + e] = dr;
-        if constexpr (MODE == kPre)  // rnd(draw), transposed for the tensor-core kernel
-          static_cast<__nv_bfloat16*>(p.draw_out)[(size_t)e * p.rows_pad + row0 + i] =
-              __float2bfloat16(dr);
-        else
-          static_cast<float*>(p.draw_out)[(row0 + i) * E + e] = dr;
-        atomicAdd(dsc_s + e, dl * (softplus(r) - sr * r) * s);
-      }
-    });
+    for (int idx = tid; idx < nq * E; idx += kThreads) {
+      const int i = idx / E, e = idx - i * E;
+      float dl = glg[i * E + e];
+      for (int j = 0; j < Tk; ++j) dl = fmaf(dis[i * Tk + j], oh_s[j * lde + e], dl);
+      const float s = expf(p.scaling[e]);
+      const float r = rd_s[i * lde + e] / s;
+      const float sr = 1.f / (1.f + expf(-r));
+      const float dr = dl * sr;
+      rd_s[i * lde + e] = dr;
+      if constexpr (MODE == kPre)  // rnd(draw), transposed for the tensor-core kernel
+        static_cast<__nv_bfloat16*>(p.draw_out)[(size_t)e * p.rows_pad + row0 + i] =
+            __float2bfloat16(dr);
+      else
+        static_cast<float*>(p.draw_out)[(row0 + i) * E + e] = dr;
+      atomicAdd(dsc_s + e, dl * (softplus(r) - sr * r) * s);
+    }
     __syncthreads();  // g_out rows and the one-hot rows are dead from here
     for (int e = tid; e < E; e += kThreads) atomicAdd(p.dscaling + e, dsc_s[e]);
 
     // ---- phase 3: x = [probs @ t | interval] (rounded)
     if constexpr (MODE == kPre) {  // the seq_units lanes, 64 wide, zero past DH
       __nv_bfloat16* xg = static_cast<__nv_bfloat16*>(p.x_out) + row0 * 64;
-      for_outputs<8>(nq * 64, 64, [&](const int (&i)[8], const int (&d)[8], const bool (&ok)[8]) {
-        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        int dd[8];
-#pragma unroll
-        for (int m = 0; m < 8; ++m) dd[m] = imin(d[m], DH - 1);
-        for (int j = 0; j < Tk; ++j)
-#pragma unroll
-          for (int m = 0; m < 8; ++m)
-            acc[m] = fmaf(rnd<T>(ps[i[m] * Tk + j]), ts[j * ldh + dd[m]], acc[m]);
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-          if (ok[m]) xg[(size_t)i[m] * 64 + d[m]] = __float2bfloat16(d[m] < DH ? acc[m] : 0.f);
-      });
+      for (int idx = tid; idx < nq * 64; idx += kThreads) {
+        const int i = idx / 64, d = idx - i * 64;
+        float acc = 0.f;
+        if (d < DH)
+          for (int j = 0; j < Tk; ++j) acc = fmaf(rnd<T>(ps[i * Tk + j]), ts[j * ldh + d], acc);
+        xg[(size_t)i * 64 + d] = __float2bfloat16(acc);
+      }
       return;
     }
     for (int idx = tid; idx < nq * (DH + 1); idx += kThreads) {
@@ -547,25 +499,21 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
   __syncthreads();
 
   // ---- phase 4: dprobs += dseq t^T; dt = probs^T dseq
-  for_outputs<4>(nq * Tk, Tk, [&](const int (&i)[4], const int (&j)[4], const bool (&ok)[4]) {
-    float acc[4];
+  for (int idx = tid; idx < nq * Tk; idx += kThreads) {
+    const int i = idx / Tk, j = idx - i * Tk;
+    const float4* da = reinterpret_cast<const float4*>(dseq + i * ldh);
+    const float4* ta = reinterpret_cast<const float4*>(ts + j * ldh);
+    float acc = dps[idx];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) acc[m] = dps[i[m] * Tk + j[m]];
-    dots4(acc, dseq, ldh, i, ts, ldh, j, D4);
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      if (ok[m]) dps[i[m] * Tk + j[m]] = acc[m];
-  });
-  for_outputs<8>(Tk * DH, DH, [&](const int (&j)[8], const int (&d)[8], const bool (&ok)[8]) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < nq; ++i)
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-        acc[m] = fmaf(rnd<T>(ps[i * Tk + j[m]]), dseq[i * ldh + d[m]], acc[m]);
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      if (ok[m]) put_key_grad<T>(p, p.dt, p.dt_acc, b, h, j[m], d[m], acc[m], DH);
-  });
+    for (int d = 0; d < D4; ++d) acc = dot4(da[d], ta[d], acc);
+    dps[idx] = acc;
+  }
+  for (int idx = tid; idx < Tk * DH; idx += kThreads) {
+    const int j = idx / DH, d = idx - j * DH;
+    float acc = 0.f;
+    for (int i = 0; i < nq; ++i) acc = fmaf(rnd<T>(ps[i * Tk + j]), dseq[i * ldh + d], acc);
+    put_key_grad<T>(p, p.dt, p.dt_acc, b, h, j, d, acc, DH);
+  }
   __syncthreads();
   // softmax backward, one warp per row; masked entries (a fully masked row
   // included) get no gradient
@@ -583,24 +531,18 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
   __syncthreads();
   const int C = p.H * DH;
   T* dqg = static_cast<T*>(p.dq) + ((size_t)b * p.Tq + i0) * C + h * DH;
-  for_outputs<8>(nq * DH, DH, [&](const int (&i)[8], const int (&d)[8], const bool (&ok)[8]) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < Tk; ++j)
-#pragma unroll
-      for (int m = 0; m < 8; ++m) acc[m] = fmaf(dps[i[m] * Tk + j], ks[j * ldh + d[m]], acc[m]);
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      if (ok[m]) dqg[(size_t)i[m] * C + d[m]] = from_f<T>(acc[m]);
-  });
-  for_outputs<8>(Tk * DH, DH, [&](const int (&j)[8], const int (&d)[8], const bool (&ok)[8]) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < nq; ++i)
-#pragma unroll
-      for (int m = 0; m < 8; ++m) acc[m] = fmaf(dps[i * Tk + j[m]], qs[i * ldh + d[m]], acc[m]);
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      if (ok[m]) put_key_grad<T>(p, p.dk, p.dk_acc, b, h, j[m], d[m], acc[m], DH);
-  });
+  for (int idx = tid; idx < nq * DH; idx += kThreads) {
+    const int i = idx / DH, d = idx - i * DH;
+    float acc = 0.f;
+    for (int j = 0; j < Tk; ++j) acc = fmaf(dps[i * Tk + j], ks[j * ldh + d], acc);
+    dqg[(size_t)i * C + d] = from_f<T>(acc);
+  }
+  for (int idx = tid; idx < Tk * DH; idx += kThreads) {
+    const int j = idx / DH, d = idx - j * DH;
+    float acc = 0.f;
+    for (int i = 0; i < nq; ++i) acc = fmaf(dps[i * Tk + j], qs[i * ldh + d], acc);
+    put_key_grad<T>(p, p.dk, p.dk_acc, b, h, j, d, acc, DH);
+  }
 }
 
 // dWd, dbd, dw (kFull's second kernel): thread = one Wd column, block = kThreads columns x one chunk
