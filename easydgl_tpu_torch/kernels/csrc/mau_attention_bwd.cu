@@ -143,7 +143,9 @@ enum Mode { kFull = 0, kPre = 1, kPost = 2 };
 
 // Shared-memory regions of mau_bwd_attn in `mode`, in floats, each a
 // multiple of 4: kFull's phase 3 keeps a Wd chunk and a dz chunk in region
-// v; kPost has no v, g_out, lam or raw rows, and only dseq in region oh.
+// v; kPre puts the v rows and the modulated probs in k's rows, dead after
+// the logits, where they fit (region v empty); kPost has no v, g_out, lam
+// or raw rows, and only dseq in region oh.
 struct Layout {
   int k, t, v, q, go, p, lam, oh, dsc, small;
 };
@@ -156,10 +158,11 @@ __host__ __device__ inline Layout layout(int qc, int Tk, int dh, int E, int mode
   l.t = l.k;
   // v rows (phase 2a), then the modulated probs (2b-2c), then in phase 3 a
   // Wd chunk and a dz chunk
-  l.v = post ? 0
-             : round_up(imax(imax(Tk * ldh, qc * Tk),
-                             mode == kFull ? (dh + 1) * (kNC + 1) + qc * (kNC + 1) : 0),
-                        4);
+  l.v = post || (mode == kPre && qc <= ldh)
+            ? 0
+            : round_up(imax(imax(Tk * ldh, qc * Tk),
+                            mode == kFull ? (dh + 1) * (kNC + 1) + qc * (kNC + 1) : 0),
+                       4);
   l.q = round_up(qc * ldh, 4);
   l.go = post ? 0 : l.q;            // g_out rows, then x (phase 3)
   l.p = round_up(qc * Tk, 4);       // x3: probs, dprobs, dint
@@ -286,7 +289,7 @@ __device__ void intensity_bwd_scalar(const Params& p, const float* xs, int ldh,
 //   fp32 (64, rows) sums of mau_bwd_int_tc), and forms dt, dlogit, dq, dk.
 
 template <typename T, int DH, int MODE>
-__global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
+__global__ void __launch_bounds__(kThreads, MODE == kFull ? 1 : 3) mau_bwd_attn(const Params p) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ldh = DH + 4;
   constexpr int D4 = DH / 4;
@@ -301,11 +304,11 @@ __global__ void __launch_bounds__(kThreads, 1) mau_bwd_attn(const Params p) {
 
   float* ks = smem;
   float* ts = ks + l.k;
-  float* vs = ts + l.t;       // phase 2a
+  float* vs = MODE == kPre && l.v == 0 ? ks : ts + l.t;  // phase 2a
   float* ms = vs;             // modulated probs, phase 2b-2c
   float* wdc = vs;            // Wd chunk (DH+1) x (kNC+1), phase 3 (kFull)
   float* dzc = vs + (DH + 1) * (kNC + 1);  // dz chunk nq x (kNC+1)
-  float* qs = vs + l.v;
+  float* qs = ts + l.t + l.v;
   float* gos = qs + l.q;      // g_out rows (phase 2), then x (phase 3-)
   float* xs = gos;
   float* ps = gos + l.go;     // probs
