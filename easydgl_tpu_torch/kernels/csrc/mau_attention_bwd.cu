@@ -803,30 +803,21 @@ __global__ void __launch_bounds__(kIntThreads, 1)
 #pragma unroll
   for (int i = 0; i < 32; ++i) gwd[i] = 0.f;
   const __nv_bfloat162 one2 = __floats2bfloat162_rn(1.f, 1.f);
-  // z^T = Wd^T x^T of stage s's tile into z
-  auto issue_z = [&](float (&z)[32], int s) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) z[i] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(z, wf + 4 * kk, sw128_desc(xs + s * kTile) + 2 * kk);
-    wg_commit();
-  };
   mbar_wait(wd_full, 0);
-  mbar_wait(full, 0);
-  float zt[32], zn[32];
-  issue_z(zt, 0);
 
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % kIntStages, buf = it & 1, r0 = (t_begin + it) * 64;
+    mbar_wait(full + s, (it / kIntStages) & 1);
     const uint64_t xd = sw128_desc(xs + s * kTile);
+    float zt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) zt[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T
+    wg_commit();
     wg_wait();
     reg_fence(zt);
-    // the next tile's z^T runs under this tile's entries (after the last
-    // tile, a spare product on this tile's stage)
-    const int sn = it + 1 < ntiles ? (it + 1) % kIntStages : s;
-    if (it + 1 < ntiles) mbar_wait(full + sn, ((it + 1) / kIntStages) & 1);
-    issue_z(zn, sn);
 
     // z = x Wd + iv Wd[dh] + bd; sig, dz and the column sums at the bf16
     // rounding points of the plain version, two rows at a time in bf16x2;
@@ -875,7 +866,6 @@ __global__ void __launch_bounds__(kIntThreads, 1)
     fence_async_smem();
     wg_wait();
     reg_fence(gwd);
-    reg_fence(zn);
     mbar_arrive(empty + s);  // the stage's x tile, draw rows and intervals are free
     named_sync(1, 128 * kIntGroups);  // both warpgroups' dz^T of this tile are in shared memory
 
@@ -902,8 +892,6 @@ __global__ void __launch_bounds__(kIntThreads, 1)
       tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) zt[i] = zn[i];
   }
 
   // dbd, dw and the interval lane of dWd: the quad's rows, one atomic a

@@ -90,9 +90,8 @@ KERNELS = {
                         " { float y; asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y)"
                         " : \"f\"(0.5f * z)); return fmaf(0.5f, y, 0.5f); }")],
                     "no intensity products": [
-                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(z, wf +"
-                         " 4 * kk, sw128_desc(xs + s * kTile) + 2 * kk);\n",
-                         ""),
+                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf"
+                         " + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T\n", ""),
                         ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(gwd, dzf"
                          " + 4 * kk, xd + 128 * kk);  // dWd^T += dz^T x\n",
                          ""),
