@@ -40,7 +40,7 @@
 //   about eight waves of blocks). Its two Wd tiles stay resident; each row
 //   tile's x, draw rows and intervals stream through a three-stage ring.
 //   Per row tile a warpgroup forms z^T = Wd^T x^T (A: Wd^T in registers),
-//   sig (the exact form, two special-function ops: see sigmoid_bf16) and dz
+//   sig (the exact form, two special-function ops: see the kernel) and dz
 //   in packed bf16x2 at the plain version's rounding points, sums dbd, dw
 //   and the interval lane of dWd in registers, adds dWd^T += dz^T x (A: dz^T
 //   from the accumulators; dWd^T stays in registers over the chunk) and
@@ -650,15 +650,6 @@ struct IntMaps {
   CUtensorMap dwd;   // fp32 dWd^T workspace (E*dh, 64 lanes): boxes 64 columns x 32 lanes
 };
 
-// The sigmoid before its bf16 rounding: the exact two-op form (an ex2 and a
-// reciprocal on the special-function unit). The one-op form (1 + tanh.approx
-// (z / 2)) / 2, whose error is ~2^-11 of the result, flips the bf16 rounding
-// of sig often enough that at phase 3b's inputs the worst error against
-// tolerance rose up to 8x (dt of bimau_qpos_tq6_bf16 0.037 -> 0.294, dWd of
-// bimau_bf16_flagship 0.006 -> 0.042), past the 2x this port allows itself
-// for it; the exact form gives PR 8's errors (torch_ablate.py mau_bwd times
-// the one-op form).
-__device__ __forceinline__ float sigmoid_bf16(float z) { return sigmoid(z); }
 
 __device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -668,24 +659,10 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return bits2(__floats2bfloat162_rn(lo, hi));
 }
 
-// Two (64 x 32) fp32 halves of a warpgroup accumulator (rows r: the
-// thread's 16 warp + g (+8); columns 8 n + 2 t4 (+1)) in the 128-byte swizzle
-// (column 8 m + 2 t4 of a half is 16-byte chunk 2 m + t4 / 2), as the
-// reduce-add boxes read them.
-__device__ __forceinline__ void stage_halves(float* st, const float (&d)[32], int warp, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = 16 * warp + g + 8 * hr, chunk = (2 * (n & 3) + (t4 >> 1)) ^ g;
-      *reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(st) + (n >> 2) * 8192 + r * 128 +
-                                 (chunk << 4) + 8 * (t4 & 1)) =
-          make_float2(d[4 * n + 2 * hr], d[4 * n + 2 * hr + 1]);
-    }
-}
-
-// A (64 x 32) fp32 accumulator in the same layout: the first half.
+// A (64 x 32) fp32 warpgroup accumulator (rows r: the thread's 16 warp + g
+// (+8); columns 8 n + 2 t4 (+1)) into st in the 128-byte swizzle (column
+// 8 m + 2 t4 is 16-byte chunk 2 m + t4 / 2), as the reduce-add boxes read
+// it.
 __device__ __forceinline__ void stage_half(float* st, const float (&d)[16], int warp, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -833,9 +810,16 @@ __global__ void __launch_bounds__(kIntThreads, 1)
         const int x0 = 4 * n + 2 * hm;
         const __nv_bfloat162 dsw = *reinterpret_cast<const __nv_bfloat162*>(
             drw + el[hm] * 64 + ((n ^ (el[hm] & 7)) << 3) + 2 * t4);
-        const __nv_bfloat162 sig = __floats2bfloat162_rn(
-            sigmoid_bf16(fmaf(iv.x, wiv[hm], zt[x0] + bdv[hm])),
-            sigmoid_bf16(fmaf(iv.y, wiv[hm], zt[x0 + 1] + bdv[hm])));
+        // the exact two-op sigmoid (an ex2 and a reciprocal on the
+        // special-function unit): the one-op (1 + tanh.approx(z / 2)) / 2,
+        // whose error is ~2^-11 of the result, flips the bf16 rounding of sig
+        // often enough that at phase 3b's inputs the worst error against
+        // tolerance rose up to 8x (dt of bimau_qpos_tq6_bf16 0.037 -> 0.294,
+        // dWd of bimau_bf16_flagship 0.006 -> 0.042); torch_ablate.py mau_bwd
+        // times it
+        const __nv_bfloat162 sig =
+            __floats2bfloat162_rn(sigmoid(fmaf(iv.x, wiv[hm], zt[x0] + bdv[hm])),
+                                  sigmoid(fmaf(iv.y, wiv[hm], zt[x0 + 1] + bdv[hm])));
         const __nv_bfloat162 dz =
             __hmul2(__hmul2(__hmul2(dsw, wr2[hm]), sig), __hsub2(one2, sig));
         const float2 dzv = __bfloat1622float2(dz);
@@ -914,7 +898,10 @@ __global__ void __launch_bounds__(kIntThreads, 1)
   }
   if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   named_sync(2 + wg, 128);
-  stage_halves(stw, gwd, warp, lane);
+  // the two 32-lane halves of dWd^T: entries 16 .. of the accumulator
+  // are its lanes 32 ..
+  stage_half(stw, reinterpret_cast<const float(&)[16]>(gwd[0]), warp, lane);
+  stage_half(stw + 2048, reinterpret_cast<const float(&)[16]>(gwd[16]), warp, lane);
   fence_async_smem();
   named_sync(2 + wg, 128);
   if (issuer) {

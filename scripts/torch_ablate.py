@@ -84,11 +84,15 @@ KERNELS = {
                 ["scripts/torch_mau_bench.py", "--kernels"], {
                     "control": [],
                     "one-op sigmoid": [(
-                        "__device__ __forceinline__ float sigmoid_bf16(float z)"
-                        " { return sigmoid(z); }",
-                        "__device__ __forceinline__ float sigmoid_bf16(float z)"
-                        " { float y; asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y)"
-                        " : \"f\"(0.5f * z)); return fmaf(0.5f, y, 0.5f); }")],
+                        "__floats2bfloat162_rn(sigmoid(fmaf(",
+                        "__floats2bfloat162_rn(sig1(fmaf("), (
+                        "                                  sigmoid(fmaf(",
+                        "                                  sig1(fmaf("), (
+                        "\nnamespace {\n",
+                        "\nnamespace {\n__device__ __forceinline__ float"
+                        " sig1(float z) { float y; asm(\"tanh.approx.f32 %0,"
+                        " %1;\" : \"=f\"(y) : \"f\"(0.5f * z)); return"
+                        " fmaf(0.5f, y, 0.5f); }\n")],
                     "no intensity products": [
                         ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf"
                          " + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T\n", ""),
