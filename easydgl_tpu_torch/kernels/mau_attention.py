@@ -552,18 +552,18 @@ def _bwd_query_chunk(lib, tq, tk, dh, e) -> int:
                      " memory")
 
 
-def int_plan(rows: int, edh: int, sms: int, waves: int = INT_WAVES):
+def int_plan(rows: int, edh: int, sms: int):
     """(column blocks, row chunks, row tiles a chunk) of the bf16
     intensity-head kernel (``mau_bwd_int_tc``): its grid is column blocks
     (128 columns of Wd each) x row chunks, and each block walks its chunk's
-    64-row tiles. The chunks are sized so that the grid is about ``waves``
-    waves of one block an SM whatever the number of column blocks: at the
-    flagship train shape (126,976 rows, E*dh = 4,096) on 132 SMs, 32 x 33
-    blocks of 61 tiles. Every tile lies in exactly one chunk; no chunk is
-    empty."""
+    64-row tiles. The chunks are sized so that the grid is about
+    ``INT_WAVES`` waves of one block an SM whatever the number of column
+    blocks: at the flagship train shape (126,976 rows, E*dh = 4,096) on 132
+    SMs, 32 x 33 blocks of 61 tiles. Every tile lies in exactly one chunk;
+    no chunk is empty."""
     tiles = -(-rows // 64)
     col_blocks = -(-edh // INT_COLS)
-    wanted = max(1, waves * sms // col_blocks)
+    wanted = max(1, INT_WAVES * sms // col_blocks)
     per = -(-tiles // min(tiles, wanted))
     return col_blocks, -(-tiles // per), per
 
