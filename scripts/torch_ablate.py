@@ -8,8 +8,8 @@ two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
 the exponentials, or the products, removed), the intensity VJP (``vjp``:
 the products removed, or the column kernel at four blocks an SM, as the
 row kernel runs), the bf16 fused MAU backward (``mau_bwd``: the sigmoid's
-one-op form (tanh.approx), its intensity products removed, the dx^T
-reduce-add removed; by kernel) and the bf16 streamed dK/dV/dT kernel (``dkvt``: the
+one-op form (tanh.approx), its intensity products removed, its dx^T
+product or the dx^T reduce-add removed; by kernel) and the bf16 streamed dK/dV/dT kernel (``dkvt``: the
 Philox draw or the products removed, every key tile visited, three
 stages). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
@@ -102,6 +102,10 @@ KERNELS = {
                         ("      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk"
                          " & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);\n",
                          "      ;\n")],
+                    "no dx^T product": [(
+                        "      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk"
+                        " & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);\n",
+                        "      ;\n")],
                     "no dx^T reduce-add": [(
                         "      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg,"
                         " 0);\n", "")]}),
