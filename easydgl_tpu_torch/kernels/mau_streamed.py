@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from easydgl_tpu_torch.kernels import build
+from easydgl_tpu_torch.kernels.flash_attention import TILE, flash_live_tiles
 from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
                                                      KERNEL_HEAD_DIMS,
                                                      KERNEL_SMEM_MAX, _bind,
@@ -98,6 +99,41 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.mau_streamed_bwd_smem_bytes.argtypes = [_I32] * 4
     lib.mau_streamed_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def streamed_key_plan(key_mask: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(Tk / 64) + 1) int32 from the key mask (B, Tk): per batch row
+    the code of each 64-key tile (``flash_live_tiles``: 0 where no key of
+    the tile is real, 2 where all 64 are, 1 otherwise), then the index of
+    its first real key (Tk where it has none). The bf16 kernels read their
+    live-tile rule from it; ``streamed_visited_tiles`` is that rule."""
+    real = key_mask > 0
+    first = torch.where(real.any(1), real.int().argmax(1), real.shape[1])
+    return torch.cat([flash_live_tiles(key_mask), first[:, None].int()],
+                     1).contiguous()
+
+
+def streamed_visited_tiles(key_mask: torch.Tensor, tq: int,
+                           causal: bool) -> torch.Tensor:
+    """(B, ceil(Tq / 64), ceil(Tk / 64)) bool: the (query tile, key tile)
+    pairs that the bf16 output, d-lambda and dk/dv/dt kernels compute. A
+    query tile is blind where a row of it sees no key: every row where the
+    batch row has no real key, and under causal the rows before its first
+    real key. A blind query tile visits every key tile (such a row is
+    uniform over every real key, masked ones included); any other one the
+    key tiles that hold a real key, under causal none after its last query
+    (``key_tiles``' range). Every other pair adds exactly 0."""
+    plan = streamed_key_plan(key_mask)
+    tk, nkt = key_mask.shape[1], plan.shape[1] - 1
+    dev = key_mask.device
+    first = plan[:, -1, None, None]
+    q0 = TILE * torch.arange(-(-tq // TILE), device=dev)[None, :, None]
+    kt = torch.arange(nkt, device=dev)[None, None, :]
+    blind = (first >= tk) | (causal & (q0 < first))
+    vis = (plan[:, None, :nkt] > 0) | blind
+    if causal:
+        vis = vis & (blind | (TILE * kt <= (q0 + TILE).clamp(max=tq) - 1))
+    return vis
 
 
 def _check(cond: bool, msg: str):

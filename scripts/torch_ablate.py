@@ -9,9 +9,13 @@ the exponentials, or the products, removed), the intensity VJP (``vjp``:
 the products removed, or the column kernel at four blocks an SM, as the
 row kernel runs), the bf16 fused MAU backward (``mau_bwd``: the sigmoid's
 one-op form (tanh.approx), its intensity products removed, its dx^T
-product or the dx^T reduce-add removed; by kernel) and the bf16 streamed dK/dV/dT kernel (``dkvt``: the
+product or the dx^T reduce-add removed; by kernel), the bf16 streamed dK/dV/dT kernel (``dkvt``: the
 Philox draw or the products removed, every key tile visited, three
-stages). Each variant edits
+stages), and the bf16 streamed output and d-lambda kernels (``out`` and
+``glam``, at dropout 0 and 0.1: the Philox draw or the products removed,
+each entry's expf and divide replaced by ex2 and a reciprocal a row; the
+output kernel with lam's fragments loaded once, the d-lambda kernel with
+its accumulator sized for E = 64). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -20,7 +24,7 @@ each copy in turn, the unchanged source first and last. Prints one JSON
 line a copy, with the card's name and power limit. Imports neither JAX nor
 the JAX package.
 
-    python3 scripts/torch_ablate.py flash|catalog_fwd|vjp|mau_bwd|dkvt
+    python3 scripts/torch_ablate.py flash|catalog_fwd|vjp|mau_bwd|dkvt|out|glam
         [VARIANT ...]
 """
 from __future__ import annotations
@@ -135,6 +139,93 @@ KERNELS = {
                      "    return true;")],
                  "3 stages": [("constexpr int kKvStages = 2;",
                                "constexpr int kKvStages = 3;")]}),
+    "out": ("mau_streamed_fwd.cu", "mau_streamed_fwd",
+            ["scripts/torch_streamed_bench.py", "--out", "--rounds", "1"], {
+                "control": [],
+                "no Philox draw": [(
+                    "            x = ((p.diag_reset && j == i) ? 1.f : iq[n][c])"
+                    " * pr;\n            if (drop.on) x *= drop.factor(b, h, i,"
+                    " j);\n",
+                    "            x = ((p.diag_reset && j == i) ? 1.f : iq[n][c])"
+                    " * pr;\n")],
+                "no products": [(
+                    "        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd *"
+                    " 16, lane);\n      for (int ke = 0; ke < EP; ke += 16) {\n"
+                    "        uint32_t la[4];\n        a_frag(la, ls, SE, warp *"
+                    " 16, ke, lane);\n        mma_rows32(iq, la, ob + half * KH"
+                    " * SE, SE, ke, lane);\n      }\n", "        ;\n"), (
+                    "      mma_pv<DH>(o, s, vb + half * KH * SD, SD, lane);  //"
+                    " modulated probs rounded\n",
+                    "      for (int n = 0; n < 4; ++n)\n        for (int c = 0;"
+                    " c < 4; ++c) o[0][c] += s[n][c];\n")],
+                "ex2, a reciprocal a row": [(
+                    "\nnamespace {\n\nusing namespace port;\n\nconstexpr int RI",
+                    "\nnamespace {\n\nusing namespace port;\n__device__"
+                    " __forceinline__ float ex2a(float x) { float y; asm(\"ex2."
+                    "approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x)); return"
+                    " y; }\n\nconstexpr int RI"), (
+                    "    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;\n",
+                    "    li[hr] = 1.f / (i < p.Tq ? p.l[row0 + i] : 1.f);\n"), (
+                    "                expf(logit(s[n][c], km, i, j, p.scale,"
+                    " p.causal, 0.f) - mi[hr]) / li[hr];\n",
+                    "                ex2a((logit(s[n][c], km, i, j, p.scale,"
+                    " p.causal, 0.f) - mi[hr]) * 1.4426950408889634f) *"
+                    " li[hr];\n")],
+                "lam fragments hoisted (E = 64)": [(
+                    "  uint32_t qf[DH / 16][4];\n  float o[DH / 8][4];\n",
+                    "  uint32_t qf[DH / 16][4], lf[4][4];\n  float o[DH / 8]"
+                    "[4];\n"), (
+                    "      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs,"
+                    " SD, warp * 16, kd * 16, lane);\n    }\n    const int j0 ="
+                    " kt * BK;\n    const bf16* kb = ks + (kt & 1) * BK * SD;\n"
+                    "    const bf16* vb",
+                    "      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs,"
+                    " SD, warp * 16, kd * 16, lane);\n      for (int e = 0; e <"
+                    " 4; ++e) a_frag(lf[e], ls, SE, warp * 16, 16 * e, lane);\n"
+                    "    }\n    const int j0 = kt * BK;\n    const bf16* kb = ks"
+                    " + (kt & 1) * BK * SD;\n    const bf16* vb"), (
+                    "      for (int ke = 0; ke < EP; ke += 16) {\n        uint32_t"
+                    " la[4];\n        a_frag(la, ls, SE, warp * 16, ke, lane);\n"
+                    "        mma_rows32(iq, la, ob + half * KH * SE, SE, ke,"
+                    " lane);\n      }\n",
+                    "#pragma unroll\n      for (int e = 0; e < 4; ++e)\n"
+                    "        mma_rows32(iq, lf[e], ob + half * KH * SE, SE, 16 *"
+                    " e, lane);\n")]}),
+    "glam": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
+             ["scripts/torch_streamed_bench.py", "--glam", "--rounds", "1"], {
+                 "control": [],
+                 "no Philox draw": [(
+                     "            x = gm[n][c] * pr;\n            if (drop.on) x"
+                     " *= drop.factor(b, h, i, j);\n",
+                     "            x = gm[n][c] * pr;\n")],
+                 "no products": [(
+                     "        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd *"
+                     " 16, lane);\n        mma_rows32(gm, df[kd], vb + half * KH"
+                     " * SD, SD, kd * 16, lane);\n      }\n#pragma unroll\n",
+                     "        ;\n      }\n#pragma unroll\n"), (
+                     "      mma_pv_n<16>(o, s, ob + half * KH * SE, SE, lane, ne);"
+                     "  // g_iqk rounded to bf16\n",
+                     "      for (int n = 0; n < 4; ++n)\n        for (int c = 0;"
+                     " c < 4; ++c) o[n][c] += s[n][c];\n")],
+                 "ex2, a reciprocal a row": [(
+                     "    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;\n  }\n  const"
+                     " int nkt",
+                     "    li[hr] = 1.f / (i < p.Tq ? p.l[row0 + i] : 1.f);\n  }\n"
+                     "  const int nkt"), (
+                     "                expf(logit(s[n][c], km, i, j, p.scale,"
+                     " p.causal, 0.f) - mi[hr]) / li[hr];\n            x ="
+                     " gm[n][c] * pr;",
+                     "                fast_exp2((logit(s[n][c], km, i, j,"
+                     " p.scale, p.causal, 0.f) - mi[hr]) * kLog2e) * li[hr];\n"
+                     "            x = gm[n][c] * pr;")],
+                 "accumulator sized for E = 64": [(
+                     "  float o[16][4];\n#pragma unroll\n  for (int n = 0; n <"
+                     " 16; ++n)\n", "  float o[8][4];\n#pragma unroll\n  for"
+                     " (int n = 0; n < 8; ++n)\n"), (
+                     "mma_pv_n<16>(o, s,", "mma_pv_n<8>(o, s,"), (
+                     "    for (int n = 0; n < 16; ++n) {\n      const int e = n *"
+                     " 8 + 2 * t4;\n", "    for (int n = 0; n < 8; ++n) {\n"
+                     "      const int e = n * 8 + 2 * t4;\n")]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 

@@ -15,12 +15,20 @@ E=64): seq_units from ``mau_stats`` on the bf16 inputs, g_lam ~ N(0,
 launches). ``--dkvt`` times instead the key-major dK/dV/dT kernel
 (``mau_dkvt``) at the EasyDGL-LC train shape (bf16, BiMAU, dropout 0.1),
 its stats from ``mau_stats`` and ``mau_intensity``, g_su ~ N(0, 1e-2),
-rho ~ N(0, 1e-3), in rounds as ``--vjp``. Prints one JSON line with the card's name and power limit.
-Imports neither JAX nor the JAX package; run from the root of a checkout
-(or of an older one, to compare two versions in one call):
+rho ~ N(0, 1e-3), in rounds as ``--vjp``. ``--out`` times instead the
+modulated-output kernel (``mau_modulated_out``) alone on ``chip_smoke.py``
+phase 4c's bf16 inputs (BiMAU, its stats from ``mau_stats`` and
+``mau_intensity``), ``--glam`` the d-lambda kernel (``mau_glam``) alone on
+phase 4d's (the plain forward's stats and phase 4d's g_out), each at
+dropout 0 and 0.1, in rounds as ``--vjp``; both report the share of the
+64-key tiles that hold a real key (``live_key_tile_share``) and the share
+of (query tile, key tile) pairs the live-tile rule visits
+(``visited_tile_share``). Prints one JSON line with the card's name and
+power limit. Imports neither JAX nor the JAX package; run from the root of
+a checkout (or of an older one, to compare two versions in one call):
 
-    python3 scripts/torch_streamed_bench.py [--label NAME] [--vjp | --dkvt]
-        [--rounds N] [--kernels]
+    python3 scripts/torch_streamed_bench.py [--label NAME]
+        [--vjp | --dkvt | --out | --glam] [--rounds N] [--kernels]
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.getcwd())
@@ -41,7 +50,8 @@ from easydgl_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_mark_table, synthetic_split_vectorized)
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator  # noqa: E402
 from easydgl_tpu_torch.kernels.mau_streamed import (  # noqa: E402
-    mau_dkvt, mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats)
+    mau_dkvt, mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats,
+    streamed_visited_tiles)
 from easydgl_tpu_torch.models.registry import build_model  # noqa: E402
 from easydgl_tpu_torch.parity import random_flax_params  # noqa: E402
 from easydgl_tpu_torch.train.steps import build_eval_step  # noqa: E402
@@ -144,6 +154,58 @@ def dkvt_times(rounds, by_kernel):
     return res
 
 
+def tile_shares(km, causal=False):
+    """(share of the 64-key tiles holding a real key, share of the (query
+    tile, key tile) pairs that the live-tile rule visits) of a key mask."""
+    live = (F.pad(km > 0, (0, -km.shape[1] % 64)).view(km.shape[0], -1, 64)
+            .any(-1))
+    vis = streamed_visited_tiles(km, km.shape[1], causal)
+    return float(live.float().mean()), float(vis.float().mean())
+
+
+def out_times(rounds, by_kernel):
+    """mau_modulated_out alone on phase 4c's bf16 inputs, dropout 0 and
+    0.1."""
+    import chip_smoke
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = chip_smoke.mau_inputs(
+        **chip_smoke.LC, dtype=torch.bfloat16, gathered=False, seed=400)
+    kw = dict(causal=False, num_heads=H)
+    m, l, su = mau_stats(q, k, t, km, **kw)
+    lam = mau_intensity(su, iv, wd, bd, w, sc)
+    sd = torch.tensor(4000, dtype=torch.int64, device="cuda")
+    live, visited = tile_shares(km)
+    res = {"live_key_tile_share": live, "visited_tile_share": visited}
+    for rate in (0.0, 0.1):
+        def run():
+            mau_modulated_out(q, k, v, km, oh, lam, m, l, diag_reset=True,
+                              dropout_rate=rate, dropout_seed=sd, **kw)
+        res[f"out_ms_drop{rate:g}"] = [time_ms(run, warmup=2, iters=10)
+                                      for _ in range(rounds)]
+        if by_kernel:
+            res[f"out_by_kernel_drop{rate:g}"] = kernel_ms(run)
+    return res
+
+
+def glam_times(rounds, by_kernel):
+    """mau_glam alone on phase 4d's bf16 inputs, dropout 0 and 0.1."""
+    import chip_smoke
+    args = chip_smoke.mau_inputs(**chip_smoke.LC, dtype=torch.bfloat16,
+                                 gathered=False, seed=700)
+    live, visited = tile_shares(args[4])
+    res = {"live_key_tile_share": live, "visited_tile_share": visited}
+    for rate in (0.0, 0.1):
+        _, _, runs = chip_smoke.streamed_bwd_pieces(
+            args, H, causal=False, diag=True, rate=rate, seed=7000,
+            plain_fwd=None)
+        run = runs["mau_glam"][0]
+        del runs
+        res[f"glam_ms_drop{rate:g}"] = [time_ms(run, warmup=2, iters=10)
+                                       for _ in range(rounds)]
+        if by_kernel:
+            res[f"glam_by_kernel_drop{rate:g}"] = kernel_ms(run)
+    return res
+
+
 def eval_seqs_per_s(batches=8):
     cfg = preset("EasyDGL-LC", num_events=64)
     model = build_model(cfg, device="cuda",
@@ -170,6 +232,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--vjp", action="store_true")
     ap.add_argument("--dkvt", action="store_true")
+    ap.add_argument("--out", action="store_true")
+    ap.add_argument("--glam", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
@@ -181,9 +245,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    if args.vjp or args.dkvt:
-        times = (vjp_times if args.vjp else dkvt_times)(args.rounds,
-                                                        args.kernels)
+    alone = [fn for flag, fn in ((args.vjp, vjp_times), (args.dkvt, dkvt_times),
+                                 (args.out, out_times),
+                                 (args.glam, glam_times)) if flag]
+    if alone:
+        times = alone[0](args.rounds, args.kernels)
         print(json.dumps({"label": args.label, "card": card, **times}),
               flush=True)
         return 0
