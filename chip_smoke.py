@@ -90,7 +90,8 @@ from easydgl_tpu_torch.kernels.mau_blocked import (
     output_reference, row_correction, stats_reference)
 from easydgl_tpu_torch.kernels.mau_streamed import (
     STREAMED_KERNELS, mau_dkvt, mau_dq, mau_glam, mau_intensity,
-    mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed)
+    mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed,
+    streamed_visited_tiles)
 from easydgl_tpu_torch.kernels.scoring import (catalog_live_rows,
                                                catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
@@ -159,8 +160,8 @@ CUDA_KERNELS = {
                         "catalog_bwd_tc_kernel<2>"],
     "mau_stats": ["mau_stats_mma_kernel"],
     "mau_intensity": ["mau_intensity_kernel"],
-    "mau_modulated_out": ["mau_out_mma_kernel"],
-    "mau_glam": ["mau_glam_mma_kernel"],
+    "mau_modulated_out": ["mau_out_tc_kernel"],
+    "mau_glam": ["mau_glam_tc_kernel"],
     "mau_intensity_bwd": ["mau_int_bwd_rows_tc_kernel",
                           "mau_int_bwd_cols_tc_kernel"],
     "mau_dq": ["mau_dq_mma_kernel"],
@@ -181,10 +182,11 @@ def check(cond: bool, msg: str):
 # ---------------------------------------------------------------- kernels
 
 
-def mau_inputs(*, b, tq, tk, h, dh, e, dtype, gathered, seed):
+def mau_inputs(*, b, tq, tk, h, dh, e, dtype, gathered, seed, lengths=None):
     """Inputs at realistic magnitudes: projections ~N(0, 1), intervals
     ~Exp(1) days clipped to [0, 100], 15%-dense multi-hot marks, left-padded
-    key masks with row 0 fully masked."""
+    key masks (``lengths`` real keys a row, else uniform in [1, Tk]) with row
+    0 fully masked."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -194,7 +196,8 @@ def mau_inputs(*, b, tq, tk, h, dh, e, dtype, gathered, seed):
     c = h * dh
     q = normal(b, tq, c).to(dtype)
     k, v, t = (normal(b, tk, c).to(dtype) for _ in range(3))
-    lengths = torch.randint(1, tk + 1, (b,), generator=g, device=dev)
+    lengths = (torch.randint(1, tk + 1, (b,), generator=g, device=dev)
+               if lengths is None else torch.tensor(lengths, device=dev))
     key_mask = (torch.arange(tk, device=dev)[None] >= tk - lengths[:, None])
     key_mask = key_mask.float()
     key_mask[0] = 0.0
@@ -653,6 +656,11 @@ def stats_errs(name, got, want, dtype):
     return max(m_err, su_err)
 
 
+# E = 128 (two 64-event tiles); a batch with a fully masked row, a row whose
+# first real key falls inside a key tile (under causal its rows before it
+# see no key) and a row with 40 real keys
+E128 = dict(LC, b=3, tq=300, tk=300, e=128)
+BLIND = dict(LC, b=4, tq=1000, tk=1000, lengths=(0, 930, 40, 1000))
 # name, shape, dtype, causal, diag_reset, dropout rate
 STREAMED_CASES = (
     ("lc_bimau_bf16", LC, torch.bfloat16, False, True, 0.0),
@@ -664,7 +672,38 @@ STREAMED_CASES = (
     ("t300_bimau_fp32_drop", dict(LC, b=3, tq=300, tk=300), torch.float32,
      False, True, 0.1),
     ("t77_dh16_e4_bf16_drop", dict(b=3, tq=77, tk=77, h=2, dh=16, e=4),
-     torch.bfloat16, True, False, 0.1))
+     torch.bfloat16, True, False, 0.1),
+    ("t300_e128_bimau_bf16_drop", E128, torch.bfloat16, False, True, 0.1),
+    ("t1000_blind_causal_bf16_drop", BLIND, torch.bfloat16, True, False,
+     0.1),
+    ("t1000_blind_bimau_bf16", BLIND, torch.bfloat16, False, True, 0.0))
+
+
+def streamed_case(i, name, shape, dtype, causal, diag, rate):
+    """Case i of ``STREAMED_CASES``: (its inputs, the dropout seed, the
+    blocked plain forward)."""
+    args = mau_inputs(**shape, dtype=dtype, gathered=False, seed=300 + i)
+    sd = torch.tensor(5000 + i, dtype=torch.int64, device="cuda")
+    want = mau_blocked_forward(*args[:11], causal=causal, diag_reset=diag,
+                               dropout_rate=rate, dropout_seed=sd,
+                               num_heads=shape["h"])
+    return args, sd, want
+
+
+def streamed_out_check(i, name, shape, dtype, causal, diag, rate,
+                       case=None):
+    """The output kernel on case i's plain forward (its lam, m and l)
+    against the plain version's out: (max abs err, worst/tol)."""
+    args, sd, want = case or streamed_case(i, name, shape, dtype, causal,
+                                           diag, rate)
+    q, k, v, t, km, iv, oh, *_ = args
+    out = mau_modulated_out(q, k, v, km, oh, want.lam, want.m, want.l,
+                            causal=causal, diag_reset=diag,
+                            dropout_rate=rate, dropout_seed=sd,
+                            num_heads=shape["h"])
+    torch.cuda.synchronize()
+    check(out.dtype == dtype, f"{name}: out dtype")
+    return scale_err(name, "out", out, want.out, dtype)
 
 
 def phase_streamed_checks():
@@ -674,26 +713,22 @@ def phase_streamed_checks():
     errs = {}
     for i, (name, shape, dtype, causal, diag, rate) in \
             enumerate(STREAMED_CASES):
-        args = mau_inputs(**shape, dtype=dtype, gathered=False, seed=300 + i)
+        args, sd, want = streamed_case(i, name, shape, dtype, causal, diag,
+                                       rate)
         q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
         h = shape["h"]
-        sd = torch.tensor(5000 + i, dtype=torch.int64, device="cuda")
         kw = dict(causal=causal, num_heads=h)
-        want = mau_blocked_forward(*args[:11], diag_reset=diag,
-                                   dropout_rate=rate, dropout_seed=sd, **kw)
         stats = mau_stats(q, k, t, km, **kw)
         lam = mau_intensity(want.su, iv, wd, bd, w, sc)
-        out = mau_modulated_out(q, k, v, km, oh, want.lam, want.m, want.l,
-                                diag_reset=diag, dropout_rate=rate,
-                                dropout_seed=sd, **kw)
         torch.cuda.synchronize()
-        check(out.dtype == dtype and lam.dtype == torch.float32,
-              f"{name}: dtypes")
+        check(lam.dtype == torch.float32, f"{name}: lam dtype")
+        out_err, out_ratio = streamed_out_check(
+            i, name, shape, dtype, causal, diag, rate, (args, sd, want))
+        check(out_ratio <= 1.0, f"{name}: out outside tolerance")
         case = {"mau_stats": stats_errs(name, stats, want, dtype),
                 "mau_intensity": compare_by_scale(name, ("lam",), (lam,),
                                                   (want.lam,), torch.float32),
-                "mau_modulated_out": compare_by_scale(name, ("out",), (out,),
-                                                      (want.out,), dtype)}
+                "mau_modulated_out": out_err}
         check(bool((stats[1][0] == shape["tk"]).all()),
               f"{name}: the fully masked row is not uniform over its keys")
         # the interval term must count, or a kernel that drops it would
@@ -711,7 +746,7 @@ def phase_streamed_checks():
             compare_by_scale(name + "_chain", ("out", "lam"), chain,
                              (want.out, want.lam), dtype)
         errs[name] = case
-        del want, stats, lam, out
+        del want, stats, lam
     log("  streamed vs fused kernels, T=31, fp32, dropout 0.1, one seed:")
     args = mau_inputs(**FLAGSHIP, dtype=torch.float32, gathered=False,
                       seed=399)
@@ -725,7 +760,10 @@ def phase_streamed_checks():
     log("  modulation probe, v_j = e_j (out_ij is the dropped, modulated prob"
         " of entry (i, j)), T=100, dh=128, dropout 0.1, held entry by entry:")
     for i, (name, dtype, causal, diag) in enumerate(PROBE_CASES):
-        modulation_probe(name, dtype, causal, diag, seed=460 + i)
+        rel, dropped = modulation_probe(name, dtype, causal, diag,
+                                        seed=460 + i)
+        check(rel <= 1.0, f"{name}: an entry outside tolerance")
+        check(0.07 < dropped < 0.13, f"{name}: dropped share {dropped:.4f}")
     return errs
 
 
@@ -743,7 +781,9 @@ def modulation_probe(name, dtype, causal, diag, seed):
     scale averages them over the keys: entries the plain version drops or
     hides are 0 on both sides, the others within SCALE_TOL of themselves (a
     rounding may flip by an ulp). T=100 spans a full and a partial key tile;
-    about a tenth of the nonzero entries must be dropped."""
+    about a tenth of the nonzero entries must be dropped. Returns (the worst
+    |kernel - plain| / |plain| over SCALE_TOL, inf where an entry that
+    should be 0 is not; the dropped share)."""
     shape = dict(b=3, tq=100, tk=100, h=2, dh=128, e=4)
     b, tk, h, dh = shape["b"], shape["tk"], shape["h"], shape["dh"]
     args = list(mau_inputs(**shape, dtype=dtype, gathered=False, seed=seed))
@@ -760,15 +800,13 @@ def modulation_probe(name, dtype, causal, diag, seed):
                             dropout_rate=0.1, dropout_seed=sd, **kw).float()
     ref = want.out.float()
     zero = ref == 0
-    check(torch.equal(got[zero], ref[zero]),
-          f"{name}: an entry the plain version drops or hides is not 0")
+    zeros_ok = torch.equal(got[zero], ref[zero])
     rel = float(((got - ref).abs()[~zero] / ref.abs()[~zero]).max())
     dropped = float((zero & (kept != 0)).sum() / (kept != 0).sum())
     log(f"  {name:24s} nonzero entries: max |kernel - plain| / |plain| ="
         f" {rel:.3e} (tol {SCALE_TOL[dtype]:g}); dropped share {dropped:.4f}"
-        f" of {int((kept != 0).sum())}")
-    check(rel <= SCALE_TOL[dtype], f"{name}: an entry outside tolerance")
-    check(0.07 < dropped < 0.13, f"{name}: dropped share {dropped:.4f}")
+        f" of {int((kept != 0).sum())}; zeros kept: {zeros_ok}")
+    return (rel / SCALE_TOL[dtype] if zeros_ok else math.inf), dropped
 
 
 # name, shape, dtype, causal, diag_reset, dropout rate
@@ -784,7 +822,11 @@ STREAMED_BWD_CASES = (
     ("t77_dh16_e4_bf16_drop", dict(b=3, tq=77, tk=77, h=2, dh=16, e=4),
      torch.bfloat16, True, False, 0.1),
     ("t65_dh32_e12_fp32_drop", dict(b=2, tq=65, tk=65, h=4, dh=32, e=12),
-     torch.float32, False, True, 0.1))
+     torch.float32, False, True, 0.1),
+    ("t300_e128_bimau_bf16_drop", E128, torch.bfloat16, False, True, 0.1),
+    ("t1000_blind_causal_bf16_drop", BLIND, torch.bfloat16, True, False,
+     0.1),
+    ("t1000_blind_bimau_bf16", BLIND, torch.bfloat16, False, True, 0.0))
 INTENSITY_GRADS = ("g_su", "dWd", "dbd", "dw", "dscaling")
 
 
@@ -1250,22 +1292,48 @@ def phase_streamed_timing():
         heads = [x.view(LC["b"], LC["tk"], LC["h"], LC["dh"]).transpose(1, 2)
                  for x in (q, k, v)]
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(*heads))
+        live, visited = tile_shares(km)
+        log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
+            f" the bf16 output kernel's live-tile rule visits {visited:.4f} of"
+            " the (query tile, key tile) pairs, the others every pair")
+        sd = torch.tensor(4000, dtype=torch.int64, device="cuda")
+        drop_ms = time_ms(lambda: mau_modulated_out(
+            q, k, v, km, oh, lam, m, l, diag_reset=True, dropout_rate=0.1,
+            dropout_seed=sd, **kw), warmup=2, iters=10)
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=2, iters=10)
             plain_ms = time_ms(plain, warmup=1, iters=3)
             nbytes, flops, op_dtype = streamed_work(name, **LC, dtype=dtype,
                                                     keys=mau_keys(km))
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
+            share = (visited if name == "mau_modulated_out"
+                     and dtype == torch.bfloat16 else 1.0)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
                 f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
-                f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x")
+                f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x;"
+                f" tile pairs visited {share:.4f}")
             rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=None, sdpa_ms=sdpa_ms)
+                                       library_ms=None, sdpa_ms=sdpa_ms,
+                                       live_key_tile_share=live,
+                                       visited_tile_share=share)
+            if name == "mau_modulated_out":
+                rows[(name, dtype)]["ms_dropout_0_1"] = drop_ms
+                log(f"  {name:17s} {str(dtype):15s} kernel {drop_ms:.4f} ms"
+                    " at dropout 0.1 (the train launches' rate)")
         log(f"  for scale, F.scaled_dot_product_attention on the same q/k/v"
             f" ({str(dtype)[6:]}): {sdpa_ms:.4f} ms")
     return rows
+
+
+def tile_shares(km, causal=False):
+    """(share of the 64-key tiles that hold a real key, share of the (query
+    tile, key tile) pairs that ``streamed_visited_tiles`` visits)."""
+    live = flash_live_tiles(km) > 0
+    return (float(live.float().mean()),
+            float(streamed_visited_tiles(km, km.shape[1], causal).float()
+                  .mean()))
 
 
 def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
@@ -1316,6 +1384,10 @@ def phase_streamed_bwd_timing():
         _, _, runs = streamed_bwd_pieces(args, LC["h"], causal=False,
                                          diag=True, rate=0.1, seed=7000,
                                          plain_fwd=None)
+        live, visited = tile_shares(args[4])
+        log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
+            f" the live-tile rule (bf16 glam, dkvt) visits {visited:.4f} of the"
+            " (query tile, key tile) pairs, the others every pair")
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=1, iters=5)
             plain_ms = time_ms(plain, warmup=1, iters=2)
@@ -1341,16 +1413,21 @@ def phase_streamed_bwd_timing():
                        if name == "mau_intensity_bwd"
                        else lc_rows * mau_keys(args[4]))
             floor_ms = special_floor_ms(special)
+            share = (visited if name in ("mau_glam", "mau_dkvt")
+                     and dtype == torch.bfloat16 else 1.0)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
                 f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
                 f" {str(op_dtype)[6:]})  kernel/bound {ms / bound_ms:.1f}x;"
                 f" special-function floor {floor_ms:.4f} ms"
-                f" ({special / 1e6:.1f} M ops)")
+                f" ({special / 1e6:.1f} M ops); tile pairs visited"
+                f" {share:.4f}")
             rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        library_ms=None,
-                                       special_floor_ms=floor_ms, **extra)
+                                       special_floor_ms=floor_ms,
+                                       live_key_tile_share=live,
+                                       visited_tile_share=share, **extra)
         del runs
     return rows
 
@@ -2165,8 +2242,8 @@ def kernel_names(log_text: str):
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
                   r"catalog_fwd_tc_kernel|catalog_bwd_tc_kernel|"
                   r"flash_fwd_tc_kernel|"
-                  r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_mma_kernel|"
-                  r"mau_out_kernel|mau_intensity_kernel|mau_glam_mma_kernel|"
+                  r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_tc_kernel|"
+                  r"mau_out_kernel|mau_intensity_kernel|mau_glam_tc_kernel|"
                   r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
                   r"mau_dkvt_tc_kernel|mau_dkvt_kernel|"
                   r"mau_int_bwd_rows_tc_kernel|mau_int_bwd_cols_tc_kernel|"
@@ -2312,7 +2389,9 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
             **{key: row[key] for key in ("bound_fp32_ms", "bound_split_bf16_ms",
-                                         "special_floor_ms") if key in row})
+                                         "special_floor_ms", "ms_dropout_0_1",
+                                         "live_key_tile_share",
+                                         "visited_tile_share") if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)

@@ -5,7 +5,8 @@
 //
 //   mau_int_bwd_rows_tc_kernel, mau_int_bwd_cols_tc_kernel
 //                   _int_bwd_kernel (pallas_call in _int_streamed_bwd, :274)
-//   mau_glam_kernel _glam_kernel    (pallas_call in _mau_streamed_bwd, :692)
+//   mau_glam_tc_kernel (bf16), mau_glam_kernel (fp32)
+//                   _glam_kernel    (pallas_call in _mau_streamed_bwd, :692)
 //   mau_dq_kernel   _dq_kernel      (pallas_call in _mau_streamed_bwd, :739)
 //   mau_dkvt_tc_kernel (bf16), mau_dkvt_kernel (fp32)
 //                   _dkvt_kernel    (pallas_call in _mau_streamed_bwd, :768)
@@ -36,17 +37,34 @@
 // intensity head in fp32. Dropout draws the forward's mask: entry (b, h, i, j)
 // by the Philox draw of counter (j, i, h, b), j the global key index, in
 // the query-major and the key-major kernels alike. Causal key tiles follow
-// the forward's key_tiles rule (mau_streamed.cuh); the key-major dkvt
-// kernel visits exactly the query tiles whose key_tiles reach its key tile.
+// the forward's key_tiles rule (mau_streamed.cuh); the bf16 glam and dkvt
+// kernels visit, within it, only the pairs of the live-tile rule there (a
+// key tile with no real key only where a row of the query tile sees no
+// key), the query-major glam from the query tile's side, the key-major
+// dkvt from the key tile's.
 //
-// Design. The attention-side kernels glam and dq come in two forms:
+// Design. The attention-side kernels come in two forms:
 //
-// * bf16 (the main path): the forward's flash schedule on the tensor cores
-//   (mma.sync m16n8k16, fp32 accumulate), four warps of 16 rows, each
-//   64-wide tile in two 32-wide halves; a half's products come out as C
-//   fragments, are formed in place and, rounded to bf16, are the A
-//   fragments of the next product. Tiles are bf16 rows in shared memory,
+// * dq, bf16 (the main path): the forward stats kernel's flash schedule on
+//   the tensor cores (mma.sync m16n8k16, fp32 accumulate), four warps of 16
+//   rows, each 64-wide tile in two 32-wide halves; a half's products come
+//   out as C fragments, are formed in place and, rounded to bf16, are the
+//   A fragments of the next product. Tiles are bf16 rows in shared memory,
 //   fetched with cp.async one tile ahead and read with ldmatrix.
+// * glam, bf16 (the main path; mau_glam_tc_kernel): the output kernel's
+//   query-major wgmma/TMA schedule (mau_streamed_fwd.cu, the machinery of
+//   mau_streamed.cuh): a block owns 192 queries of one (b, h) at E <= 64,
+//   three consumer warpgroups and a producer warp (setmaxnreg 24 / 160),
+//   128 at E <= 128 (two warpgroups, 24 / 240). Each warpgroup's Q and dO
+//   tiles stay resident; the visited key tiles' K, V and one-hot come by
+//   TMA into a ring of four stages. Per key tile, on wgmma m64n64k16: S =
+//   Q K^T and GM = dO V^T (both operands in shared memory), then g = gm p keep
+//   without a branch (0 on BiMAU's diagonal), rounded to bf16 in the
+//   accumulators and fed back as the A operand of G_lam += G one-hot (one-
+//   hot MN-major). Registers a consumer thread: S, GM and g_lam 32 fp32
+//   each at E = 64, g_lam 64 at E = 128 (hence two warpgroups there), the
+//   16 bf16 fragments of G; ptxas: no spill. Shared memory at T = 2048:
+//   149,708 bytes at E = 64, 166,092 at E = 128.
 // * fp32: 256 threads on the CUDA cores, tiles of 64 x 64 held as fp32 in
 //   shared memory, rows padded to a stride of 4 mod 32 floats so that
 //   16-byte loads are free of bank conflicts. A thread owns the entries
@@ -57,8 +75,8 @@
 // The TPU's sequential grid axis becomes the loop inside the block, its VMEM
 // accumulators the registers.
 //
-// * glam, dq: one block per 64 queries of one (b, h), looping over key
-//   tiles; q and dO (dq: also g_su, lam) stay resident.
+// * glam (fp32), dq: one block per 64 queries of one (b, h), looping over
+//   key tiles; q and dO (dq: also g_su, lam) stay resident.
 // * dkvt, fp32 (mau_dkvt_kernel): one block per 64 keys of one (b, h),
 //   looping over query tiles; dk, dv and dt accumulate in registers.
 // * dkvt, bf16 (mau_dkvt_tc_kernel), on flash_bwd_tc_kernel's pattern
@@ -69,10 +87,8 @@
 //   tiles come by TMA (128-byte swizzle) into a two-stage ring under full
 //   and empty mbarriers, its m, l and rho rows by the producer warp's
 //   plain loads, as flash's lse and delta. The block visits only the query
-//   tiles whose key_tiles reach one of its key tiles (the rule of
-//   mau_streamed.cuh, mirrored), and a key tile with no real key only
-//   where a row of the query tile sees no key (such a row is uniform over
-//   every key); a block with nothing to visit writes zeros. Per (query
+//   tiles whose pairs with its key tiles the live-tile rule of
+//   mau_streamed.cuh keeps; a block with nothing to visit writes zeros. Per (query
 //   tile, key tile), on wgmma m64n64k16 with fp32 accumulators: S^T = K Q^T
 //   and G^T = T g_su^T (both operands in shared memory); p and p (g_su . t
 //   - rho) without a branch (a hidden entry's exponent is NEG, so p = 0
@@ -84,7 +100,8 @@
 //   The wrapper zero-pads heads to 64 channels and lam / one-hot to 64
 //   events. Shared memory at dh = 64, E = 64: 64 KB resident (two
 //   warpgroups' K, V, T, one-hot tiles of 8 KB), 2 x 32 KB of query stages,
-//   1.5 KB of stats, 1 KB of alignment slack: 133,672 bytes.
+//   1.5 KB of stats, the plan, 1 KB of alignment slack: 133,804 bytes at
+//   T = 2048.
 // * intensity: the parameter gradients are sums over B*H*Tq rows, the
 //   d(seq_units) a sum over E*dh columns, so two kernels, one warpgroup
 //   each. Every product runs on wgmma m64n64k16 in three bf16 products of
@@ -158,6 +175,7 @@ struct BwdParams {
   void* dt;
   float scale;
   int B, Tq, Tk, H, E, EP, causal, diag_reset;
+  int stages;             // ring stages of mau_glam_tc_kernel
 };
 
 struct IntBwdParams {
@@ -592,8 +610,8 @@ __global__ void __launch_bounds__(kThreads) mau_dkvt_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------- bf16 on
-// the tensor cores: the same three functions for a bf16 compute dtype, in
-// the forward's flash schedule (mau_streamed_fwd.cu): four warps of 16 rows
+// the tensor cores: dq for a bf16 compute dtype, in the flash schedule of
+// mau_stats_mma_kernel (mau_streamed_fwd.cu): four warps of 16 rows
 // each, mma.sync m16n8k16 with fp32 accumulation, each 64-wide tile taken in
 // two 32-wide halves whose products come out as C fragments, are formed in
 // place and, rounded to bf16, are re-used as the A fragments of the next
@@ -601,149 +619,8 @@ __global__ void __launch_bounds__(kThreads) mau_dkvt_kernel(const BwdParams p) {
 // one tile ahead (double-buffered) and read with ldmatrix. lam and the
 // one-hot arrive from the wrapper rounded to bf16 and zero-padded to EP.
 
-// o (16 x 8 ne) += P (16 x 32) @ X (32 x 8 ne): mma_pv for the first ne
-// (even) of NMAX 8-column n-tiles.
-template <int NMAX>
-__device__ __forceinline__ void mma_pv_n(float (&o)[NMAX][4], const float (&pr)[4][4],
-                                         const bf16* xs, int ld, int lane, int ne) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const uint32_t a[4] = {pack_bf16(pr[2 * j][0], pr[2 * j][1]),
-                           pack_bf16(pr[2 * j][2], pr[2 * j][3]),
-                           pack_bf16(pr[2 * j + 1][0], pr[2 * j + 1][1]),
-                           pack_bf16(pr[2 * j + 1][2], pr[2 * j + 1][3])};
-#pragma unroll
-    for (int n2 = 0; n2 < NMAX / 2; ++n2) {
-      if (2 * n2 >= ne) break;
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, xs + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + 16 * n2 +
-                               (lane >> 4) * 8);
-      mma_bf16(o[2 * n2], a, b[0], b[1]);
-      mma_bf16(o[2 * n2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-__host__ __device__ inline size_t glam_mma_smem_bytes(int dh, int ep) {
-  return sizeof(bf16) * (size_t)(6 * 64 * (dh + 8) + 2 * 64 * (ep + 8)) + sizeof(float) * 2 * BK;
-}
 __host__ __device__ inline size_t dq_mma_smem_bytes(int dh, int ep) {
   return sizeof(bf16) * (size_t)(9 * 64 * (dh + 8) + 3 * 64 * (ep + 8)) + sizeof(float) * 2 * BK;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreadsMma) mau_glam_mma_kernel(const BwdParams p) {
-  constexpr int SD = DH + 8;
-  const int EP = p.EP, SE = EP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD] q
-  bf16* dos = qs + 64 * SD;                      // [64][SD] dO
-  bf16* ks = dos + 64 * SD;                      // [2][BK][SD]
-  bf16* vs = ks + 2 * BK * SD;                   // [2][BK][SD]
-  bf16* os = vs + 2 * BK * SD;                   // [2][BK][SE] one-hot
-  float* kms = reinterpret_cast<float*>(os + 2 * BK * SE);  // [2][BK] key mask
-
-  const int nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  const bf16* kg = head_ptr<bf16>(p.k, b, h, DH);
-  const bf16* vg = head_ptr<bf16>(p.v, b, h, DH);
-  const bf16* ohg = reinterpret_cast<const bf16*>(p.onehot) + (size_t)b * p.Tk * EP;
-  const size_t row0 = (size_t)bh * p.Tq;
-  auto fetch = [&](int kt) {
-    const int buf = kt & 1;
-    async_bf16(ks + buf * BK * SD, SD, kg, p.k.rs, DH, kt * BK, p.Tk);
-    async_bf16(vs + buf * BK * SD, SD, vg, p.v.rs, DH, kt * BK, p.Tk);
-    async_bf16(os + buf * BK * SE, SE, ohg, EP, EP, kt * BK, p.Tk);
-    async_mask(kms + buf * BK, km_row, kt * BK, p.Tk);
-  };
-
-  async_bf16(qs, SD, head_ptr<bf16>(p.q, b, h, DH), p.q.rs, DH, q0, p.Tq);
-  async_bf16(dos, SD, head_ptr<bf16>(p.dout, b, h, DH), p.dout.rs, DH, q0, p.Tq);
-  float mi[2], li[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    mi[hr] = i < p.Tq ? p.m[row0 + i] : 0.f;
-    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;
-  }
-  const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
-  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  const int ne = EP / 8;
-  fetch(0);
-  cp_async_commit();
-
-  uint32_t qf[DH / 16][4], df[DH / 16][4];
-  float o[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) fetch(kt + 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, at kt = 0, q and dO) is in shared memory
-    if (kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) {
-        a_frag(qf[kd], qs, SD, warp * 16, kd * 16, lane);
-        a_frag(df[kd], dos, SD, warp * 16, kd * 16, lane);
-      }
-    }
-    const int j0 = kt * BK;
-    const bf16* kb = ks + (kt & 1) * BK * SD;
-    const bf16* vb = vs + (kt & 1) * BK * SD;
-    const bf16* ob = os + (kt & 1) * BK * SE;
-    const float* kmb = kms + (kt & 1) * BK;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4], gm[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = gm[n][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) {
-        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd * 16, lane);
-        mma_rows32(gm, df[kd], vb + half * KH * SD, SD, kd * 16, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hr = c >> 1, jj = half * KH + n * 8 + 2 * t4 + (c & 1);
-          const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
-          const float km = flag_of(kmb[jj], j, p.Tk);
-          float x = 0.f;
-          if (km >= 0.f && !(p.diag_reset && i == j)) {
-            const float pr =
-                expf(logit(s[n][c], km, i, j, p.scale, p.causal, 0.f) - mi[hr]) / li[hr];
-            x = gm[n][c] * pr;
-            if (drop.on) x *= drop.factor(b, h, i, j);
-          }
-          s[n][c] = x;
-        }
-      mma_pv_n<16>(o, s, ob + half * KH * SE, SE, lane, ne);  // g_iqk rounded to bf16
-    }
-    __syncthreads();  // the buffer is free for tile kt + 2
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    if (i >= p.Tq) continue;
-    float* gl = p.glam + (row0 + i) * p.E;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const int e = n * 8 + 2 * t4;
-      if (n < ne && e < p.E) gl[e] = o[n][2 * hr];
-      if (n < ne && e + 1 < p.E) gl[e + 1] = o[n][2 * hr + 1];
-    }
-  }
 }
 
 template <int DH>
@@ -894,45 +771,15 @@ constexpr int kTile = 64 * 64;                      // bf16 values of a (64 x 64
 // `ept` 64-event tiles wide: per consumer warpgroup its K, V, T and one-hot
 // tiles; per stage a Q, dO, g_su and lam tile set and the m, l, rho rows;
 // the mbarriers; 1 KB of slack to align the tiles to 1024 bytes.
-__host__ __device__ inline size_t dkvt_tc_smem_bytes(int ept) {
+__host__ __device__ inline size_t dkvt_tc_smem_bytes(int ept, int Tk) {
   return 1024 + sizeof(bf16) * kTile * (size_t)(kKvGroups + kKvStages) * (3 + ept) +
-         sizeof(float) * kKvStages * 3 * BQ + 8 * (1 + 2 * kKvStages);
+         sizeof(float) * kKvStages * 3 * BQ + 8 * (1 + 2 * kKvStages) + plan_bytes(Tk);
 }
 
 struct DkvtMaps {
   CUtensorMap q, dout, gsu, lam;  // (64 or EPP columns, Tq, H, B), boxes of 64 rows x 64
   CUtensorMap k, v, t, onehot;    // (64 or EPP columns, Tk, H or 1, B)
 };
-
-// Rows of a warpgroup accumulator (the thread's rows r0 + g (+8), columns
-// 8 n + 2 t4 (+1) at d[4 n + 2 hr + c]) into bf16 rows r < nrows of dst.
-__device__ __forceinline__ void store_acc_bf16(bf16* dst, long long rs, const float (&d)[32],
-                                               int r0, int nrows, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = r0 + g + 8 * hr;
-    if (r >= nrows) continue;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * rs + 8 * n + 2 * t4) =
-          __floats2bfloat162_rn(d[4 * n + 2 * hr], d[4 * n + 2 * hr + 1]);
-  }
-}
-
-// The accumulator's (64 x 64) entries rounded to bf16 as wgmma A fragments:
-// k step kk (columns 16 kk ..) at f[4 kk ..].
-__device__ __forceinline__ void a_frags(uint32_t (&f)[16], const float (&d)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) f[4 * kk + e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
-}
-
-__device__ __forceinline__ void zero32(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
 
 __global__ void __launch_bounds__(kKvThreads, 1)
     mau_dkvt_tc_kernel(const BwdParams p, const __grid_constant__ DkvtMaps maps) {
@@ -945,44 +792,24 @@ __global__ void __launch_bounds__(kKvThreads, 1)
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kKvStages * 3 * BQ);
   uint64_t* full = kv_full + 1;      // [stage]
   uint64_t* empty = full + kKvStages;  // [stage]
-  __shared__ int first_real, live_tile[kKvGroups];
-
+  int* plan = reinterpret_cast<int*>(empty + kKvStages);  // key_plan of the batch row
   // heaviest first: under causal key block 0 sees every query tile
-  const int nkt = (p.Tk + BK - 1) / BK, nqt = (p.Tq + BQ - 1) / BQ, BH = p.B * p.H;
+  const int nqt = (p.Tq + BQ - 1) / BQ, BH = p.B * p.H;
   const int kb = blockIdx.x / BH, bh = blockIdx.x - kb * BH, k0 = kb * kKvKeys;
   const int b = bh / p.H, h = bh - b * p.H;
   const int lane = threadIdx.x & 31;
   int warp = threadIdx.x >> 5;  // within its warpgroup, for the consumers
   const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  if (threadIdx.x == 0) first_real = p.Tk;
-  if (threadIdx.x < kKvGroups) live_tile[threadIdx.x] = 0;
-  __syncthreads();
-  {
-    int f = p.Tk;  // the thread's first real key
-    for (int j = threadIdx.x; j < p.Tk; j += blockDim.x)
-      if (km_row[j] > 0.f) {
-        f = j;
-        break;
-      }
-    for (int o = 16; o > 0; o >>= 1) f = imin(f, __shfl_xor_sync(0xffffffffu, f, o));
-    if (lane == 0 && f < p.Tk) atomicMin(&first_real, f);
-    const int j = k0 + threadIdx.x;
-    if (threadIdx.x < kKvKeys && j < p.Tk && km_row[j] > 0.f) live_tile[threadIdx.x / 64] = 1;
-  }
-  __syncthreads();
-  const int first = first_real;
-  const bool live0 = live_tile[0] != 0, live1 = live_tile[1] != 0;
-  // Whether query tile qt reaches the key tile of warpgroup w: the mirror of
-  // key_tiles under causal; and a key tile with no real key gets nonzero
-  // probs only from rows that see no key, which are uniform over every key
-  // (the batch row's every row where it has no real key; under causal the
-  // rows before its first real key).
+  key_plan(km_row, p.Tk, plan);  // ends with a barrier
+  const TileRule rule = tile_rule(plan, p.Tk);
+  // the codes of the block's two key tiles, -1 past the last
+  const int kt0 = kb * kKvGroups, nkt = key_tile_count(p.Tk);
+  const int code0 = kt0 < nkt ? plan[kt0] : -1, code1 = kt0 + 1 < nkt ? plan[kt0 + 1] : -1;
+  // Whether query tile qt visits the key tile of warpgroup w (the rule of
+  // mau_streamed.cuh, from the key tile's side)
   auto visits = [&](int qt, int w) {
-    const int kt = kb * kKvGroups + w, q0 = qt * BQ;
-    if (kt >= nkt) return false;
-    if (p.causal && first <= imin(q0, p.Tk - 1) && kt * BK > imin(q0 + BQ, p.Tq) - 1) return false;
-    const bool blind = p.causal ? q0 < first : first >= p.Tk;
-    return (w == 0 ? live0 : live1) || blind;
+    const int code = w ? code1 : code0;
+    return code >= 0 && rule.visits_code(p, kt0 + w, code, qt * BQ);
   };
   auto next = [&](int qt) {  // the first query tile from qt on that the block visits
     while (qt < nqt && !visits(qt, 0) && !visits(qt, 1)) ++qt;
@@ -1195,6 +1022,166 @@ __global__ void __launch_bounds__(kKvThreads, 1)
   store_acc_bf16(dkg, C, dk, r0, p.Tk, lane);
   store_acc_bf16(dvg, C, dv, r0, p.Tk, lane);
   store_acc_bf16(dtg, C, dt, r0, p.Tk, lane);
+}
+
+// ---------------------------------------------------------------- d-lambda,
+// bf16 on wgmma and TMA (see the header): G consumer warpgroups of 64
+// queries; q, k, v and dout 64 channels a head (the wrapper zero-pads
+// narrower ones), the one-hot EPT 64-event tiles wide, bf16.
+
+// The d-lambda kernel's warpgroups: three at one event tile (its g_lam
+// accumulator, S, GM and the bf16 fragments of G: ~112 fp32 a thread in
+// 160 registers), two at two (g_lam 64 fp32: 240).
+__host__ __device__ constexpr int glam_groups(int ept) { return ept == 1 ? 3 : 2; }
+
+__host__ __device__ inline size_t glam_tc_smem_bytes(int ept, int Tk) {
+  return qm_smem_bytes(glam_groups(ept), 2, kQmStages, 2 + ept, Tk);
+}
+
+template <int EPT>
+__global__ void __launch_bounds__(128 * (glam_groups(EPT) + 1), 1)
+    mau_glam_tc_kernel(const BwdParams p, const __grid_constant__ QmMaps maps) {
+  constexpr int G = glam_groups(EPT), kQueries = 64 * G, RT = 2, STN = 2 + EPT;
+  const int S = p.stages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* res = reinterpret_cast<bf16*>(base);  // [group][Q, dO][64 queries][64]
+  bf16* ring = res + G * RT * kQmTile;         // [stage][K, V, one-hot EPT][64 keys][64]
+  float* kms = reinterpret_cast<float*>(ring + S * STN * kQmTile);  // [stage][64] key mask
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(kms + S * BK);
+  uint64_t* full = res_full + 1;  // [stage]
+  uint64_t* empty = full + S;     // [stage]
+  int* plan = reinterpret_cast<int*>(empty + S);  // key_plan of the batch row
+
+  // heaviest first: under causal the last query block visits the most tiles
+  const int BH = p.B * p.H, nqb = (p.Tq + kQueries - 1) / kQueries;
+  const int qb = nqb - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH, q0 = qb * kQueries;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * G);
+    }
+    mbar_fence_init();
+  }
+  key_plan(p.key_mask + (size_t)b * p.Tk, p.Tk, plan);  // ends with a barrier
+  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0};
+  const int nkt = key_tile_count(p.Tk);
+
+  if (warp >= 4 * G) {  // ---- producer: its first warp works
+    regs_dec<kQmProducerRegs>();
+    if (warp == 4 * G)
+      qm_produce(p, blk, maps, 1, 1, EPT, S, res, ring, kms, res_full, full, empty, lane);
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns queries qw = q0 + 64 wg ..; thread
+  // (warp, g, t4) holds queries i0 = qw + 16 warp + g (+8) and, of a key
+  // tile, keys 8 n + 2 t4 (+1): entry (query hr, key n, c) at x[4 n + 2 hr + c]
+  regs_inc<qm_consumer_regs(G)>();
+  const int wg = warp >> 2, qw = q0 + 64 * wg;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3, i0 = qw + 16 * warp + g;
+  const size_t row0 = (size_t)bh * p.Tq;
+  const RowStats rs = row_stats(p.m, p.l, row0, i0, p.Tq);
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const float sl2 = p.scale * kLog2e;
+  const bf16* rw = res + wg * RT * kQmTile;
+  const uint64_t qd = sw128_desc(rw), dd = sw128_desc(rw + kQmTile);
+  float gl[EPT][32];
+#pragma unroll
+  for (int c = 0; c < EPT; ++c) zero32(gl[c]);
+  mbar_wait(res_full, 0);
+
+  int it = 0;
+  for (int kt = blk.next(p, 0); kt < nkt; kt = blk.next(p, kt + 1), ++it) {
+    const int s = it % S;
+    mbar_wait(full + s, (it / S) & 1);
+    if (!blk.wg_visits(p, kt, wg)) {  // another warpgroup's tile
+      mbar_arrive(empty + s);
+      continue;
+    }
+    const bf16* st = ring + s * STN * kQmTile;
+    const uint64_t kd = sw128_desc(st), vd = sw128_desc(st + kQmTile),
+                   od = sw128_desc(st + 2 * kQmTile);
+    float sa[32], ga[32];
+    zero32(sa);
+    zero32(ga);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, qd + 2 * kk, kd + 2 * kk, 1);  // S = Q K^T
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(ga, dd + 2 * kk, vd + 2 * kk, 1);  // GM = dO V^T
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+    reg_fence(ga);
+
+    // g = gm p keep, 0 on BiMAU's diagonal (iqk is the constant 1 there),
+    // p without a branch; `tested` as in mau_out_tc_kernel
+    const int j0 = kt * BK;
+    const bool diag = p.diag_reset && j0 == qw, slow = diag || blk.rule.test(p, kt, qw);
+    const float* kmb = kms + s * BK;
+    auto form = [&](auto tested_flag, auto dropped) {
+      const bool tested = flag(tested_flag);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jl = 8 * n + 2 * t4 + c, j = j0 + jl;
+          const float km = kmb[jl];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * n + 2 * hr + c, i = i0 + 8 * hr;
+            const float pr =
+                fast_exp2(entry_exp2(sa[x], tested, km, i, j, sl2, rs, hr, p.Tk, p.causal)) *
+                rs.rl[hr];
+            float u = (tested && diag && i == j) ? 0.f : ga[x] * pr;
+            if constexpr (decltype(dropped)::value) u *= drop.factor(b, h, i, j);
+            sa[x] = u;
+          }
+        }
+    };
+    if (drop.on)  // the Philox draw costs more than the tests
+      form(slow, std::true_type());
+    else if (slow)
+      form(std::true_type(), std::false_type());
+    else
+      form(std::false_type(), std::false_type());
+    uint32_t f[16];
+    a_frags(f, sa);  // rnd(g)
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < EPT; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(gl[c], f + 4 * kk, od + 512 * c + 128 * kk);  // G_lam += G one-hot
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < EPT; ++c) reg_fence(gl[c]);
+    mbar_arrive(empty + s);  // the stage's K, V, one-hot and mask are free
+  }
+
+  // g_lam (B, H, Tq, E) fp32: the thread's rows, events 64 c + 8 n + 2 t4 (+1)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = i0 + 8 * hr;
+    if (i >= p.Tq) continue;
+    float* dst = p.glam + (row0 + i) * p.E;
+#pragma unroll
+    for (int c = 0; c < EPT; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int e = 64 * c + 8 * n + 2 * t4 + cc;
+          if (e < p.E) dst[e] = gl[c][4 * n + 2 * hr + cc];
+        }
+  }
 }
 
 // ---------------------------------------------------------------- intensity
@@ -1607,15 +1594,16 @@ BwdParams make_params(const Seq& q, const Seq& k, const Seq& v, const Seq& t, co
 
 enum Which { kGlam = 0, kDq = 1, kDkvt = 2, kIntRows = 3, kIntCols = 4 };
 
-size_t smem_bytes(int which, int dh, int E, int dtype) {
+size_t smem_bytes(int which, int dh, int E, int Tk, int dtype) {
   const int ep = round_up(E, 16);
   switch (which) {
     case kGlam:
-      return dtype ? glam_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)glam_smem_floats(dh, ep);
+      return dtype ? glam_tc_smem_bytes(round_up(E, 64) / 64, Tk)
+                   : sizeof(float) * (size_t)glam_smem_floats(dh, ep);
     case kDq:
       return dtype ? dq_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dq_smem_floats(dh, ep);
     case kDkvt:
-      return dtype ? dkvt_tc_smem_bytes(round_up(E, 64) / 64)
+      return dtype ? dkvt_tc_smem_bytes(round_up(E, 64) / 64, Tk)
                    : sizeof(float) * (size_t)dkvt_smem_floats(dh, ep);
     case kIntRows: return sizeof(float) * (size_t)int_rows_smem_floats(dh, E);
     default: return sizeof(float) * (size_t)int_cols_smem_floats(dh);
@@ -1623,32 +1611,46 @@ size_t smem_bytes(int which, int dh, int E, int dtype) {
 }
 
 // The attention-side kernels by dtype and dh: fp32 on the CUDA cores
-// (256 threads), bf16 on the tensor cores (128 threads).
+// (256 threads), bf16 on the tensor cores (128 threads; glam in bf16 is
+// glam_tc_launch's).
 using Kernel = void (*)(const BwdParams);
-const Kernel kGlamKernels[6] = {mau_glam_kernel<16>,     mau_glam_kernel<32>,
-                                mau_glam_kernel<64>,     mau_glam_mma_kernel<16>,
-                                mau_glam_mma_kernel<32>, mau_glam_mma_kernel<64>};
+const Kernel kGlamKernels[3] = {mau_glam_kernel<16>, mau_glam_kernel<32>, mau_glam_kernel<64>};
 const Kernel kDqKernels[6] = {mau_dq_kernel<16>,     mau_dq_kernel<32>,
                               mau_dq_kernel<64>,     mau_dq_mma_kernel<16>,
                               mau_dq_mma_kernel<32>, mau_dq_mma_kernel<64>};
 
-cudaError_t launch(const Kernel (&kernels)[6], int which, const BwdParams& p, int dh, int dtype,
+cudaError_t launch(const Kernel* kernels, int which, const BwdParams& p, int dh, int dtype,
                    int blocks, cudaStream_t s) {
   const int slot = dh == 16 ? 0 : dh == 32 ? 1 : dh == 64 ? 2 : -1;
   if (slot < 0) return cudaErrorInvalidValue;
   return go(kernels[slot + 3 * dtype], blocks, dtype ? kThreadsMma : kThreads,
-            smem_bytes(which, dh, p.E, dtype), s, p);
+            smem_bytes(which, dh, p.E, p.Tk, dtype), s, p);
 }
 
-// The TMA map of a bf16 (B, H, T, cols) operand with element strides (rs,
-// hs, bs): boxes of 64 rows x 64 columns, 128-byte swizzle, zeros read past
-// row T and column `cols`.
-bool bf16_rows_map(CUtensorMap* map, const void* ptr, long long cols, int T, int H, int B,
-                   long long rs, long long hs, long long bs) {
-  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)rs * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box);
+// bf16 glam: heads 64 channels wide and the one-hot EP = E rounded up to 64
+// events wide (the wrapper zero-pads), rows of q, k, v, dout on 16-byte
+// boundaries.
+cudaError_t glam_tc_launch(BwdParams p, const void* onehot, int dh, cudaStream_t s) {
+  if (dh != 64) return cudaErrorInvalidValue;
+  p.EP = round_up(p.E, 64);
+  p.stages = kQmStages;
+  const int ept = p.EP / 64;
+  const long long ep = p.EP;
+  QmMaps maps;
+  if (!bf16_rows_map(&maps.q, p.q.p, 64, p.Tq, p.H, p.B, p.q.rs, 64, p.q.bs) ||
+      !bf16_rows_map(&maps.x, p.dout.p, 64, p.Tq, p.H, p.B, p.dout.rs, 64, p.dout.bs) ||
+      !bf16_rows_map(&maps.k, p.k.p, 64, p.Tk, p.H, p.B, p.k.rs, 64, p.k.bs) ||
+      !bf16_rows_map(&maps.v, p.v.p, 64, p.Tk, p.H, p.B, p.v.rs, 64, p.v.bs) ||
+      !bf16_rows_map(&maps.onehot, onehot, ep, p.Tk, 1, p.B, ep, p.Tk * ep, p.Tk * ep))
+    return cudaErrorInvalidValue;
+  const int groups = glam_groups(ept);
+  const int blocks = p.B * p.H * ((p.Tq + 64 * groups - 1) / (64 * groups));
+  const size_t bytes = glam_tc_smem_bytes(ept, p.Tk);
+  switch (ept) {
+    case 1: return go(mau_glam_tc_kernel<1>, blocks, 128 * (groups + 1), bytes, s, p, maps);
+    case 2: return go(mau_glam_tc_kernel<2>, blocks, 128 * (groups + 1), bytes, s, p, maps);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool bad_shape(int B, int Tq, int Tk, int H, int E, int dtype) {
@@ -1662,8 +1664,8 @@ extern "C" {
 // Dynamic shared memory of one block of kernel `which` (0 glam, 1 dq,
 // 2 dkvt, 3 intensity rows, 4 intensity columns) for a compute dtype, in
 // bytes; above 232448 it cannot run.
-size_t mau_streamed_bwd_smem_bytes(int which, int dh, int E, int dtype) {
-  return smem_bytes(which, dh, E, dtype);
+size_t mau_streamed_bwd_smem_bytes(int which, int dh, int E, int Tk, int dtype) {
+  return smem_bytes(which, dh, E, Tk, dtype);
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -1671,8 +1673,9 @@ size_t mau_streamed_bwd_smem_bytes(int which, int dh, int E, int dtype) {
 // outputs dq, dk, dv, dt. Strides are in elements; channels are contiguous;
 // g_su is (B, H, Tq, dh) contiguous; everything else is fp32 and contiguous,
 // except that in bf16 lam (B, H, Tq, EP) and onehot (B, Tk, EP) are bf16,
-// rounded and zero-padded to EP = E rounded up to 16, and the rows of q, k,
-// v, t and dout start on 16-byte boundaries.
+// rounded and zero-padded to EP = E rounded up to 16 (dq) or 64 (glam,
+// dkvt, whose heads are 64 channels wide: the wrapper zero-pads narrower
+// ones), and the rows of q, k, v, t and dout start on 16-byte boundaries.
 // `seed` (an int64 on the device, or null for no dropout) keys the dropout
 // mask; keep where the Philox word is below drop_thresh, scaled by
 // drop_scale.
@@ -1688,8 +1691,9 @@ int mau_glam_bwd(const void* q, long long q_bs, long long q_rs, const void* k, l
                             nullptr, seed, drop_thresh, drop_scale, B, Tq, Tk, H, E, causal,
                             diag_reset, scale);
   p.glam = static_cast<float*>(glam);
-  const int blocks = B * H * ((Tq + BQ - 1) / BQ);
-  return (int)launch(kGlamKernels, kGlam, p, dh, dtype, blocks, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype) return (int)glam_tc_launch(p, onehot, dh, s);
+  return (int)launch(kGlamKernels, kGlam, p, dh, dtype, B * H * ((Tq + BQ - 1) / BQ), s);
 }
 
 int mau_dq_bwd(const void* q, long long q_bs, long long q_rs, const void* k, long long k_bs,
@@ -1727,9 +1731,9 @@ int mau_dkvt_bwd(const void* q, long long q_bs, long long q_rs, const void* k, l
   if (dtype == 0) {
     const int blocks = B * H * ((Tk + BK - 1) / BK);
     switch (dh) {
-      case 16: return (int)go(mau_dkvt_kernel<16>, blocks, kThreads, smem_bytes(kDkvt, 16, E, 0), s, p);
-      case 32: return (int)go(mau_dkvt_kernel<32>, blocks, kThreads, smem_bytes(kDkvt, 32, E, 0), s, p);
-      case 64: return (int)go(mau_dkvt_kernel<64>, blocks, kThreads, smem_bytes(kDkvt, 64, E, 0), s, p);
+      case 16: return (int)go(mau_dkvt_kernel<16>, blocks, kThreads, smem_bytes(kDkvt, 16, E, Tk, 0), s, p);
+      case 32: return (int)go(mau_dkvt_kernel<32>, blocks, kThreads, smem_bytes(kDkvt, 32, E, Tk, 0), s, p);
+      case 64: return (int)go(mau_dkvt_kernel<64>, blocks, kThreads, smem_bytes(kDkvt, 64, E, Tk, 0), s, p);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1749,7 +1753,7 @@ int mau_dkvt_bwd(const void* q, long long q_bs, long long q_rs, const void* k, l
       !bf16_rows_map(&maps.onehot, onehot, ep, Tk, 1, B, ep, Tk * ep, Tk * ep))
     return (int)cudaErrorInvalidValue;
   return (int)go(mau_dkvt_tc_kernel, B * H * ((Tk + kKvKeys - 1) / kKvKeys), kKvThreads,
-                 dkvt_tc_smem_bytes(p.EP / 64), s, p, maps);
+                 dkvt_tc_smem_bytes(p.EP / 64, Tk), s, p, maps);
 }
 
 // The intensity head's VJP to fp32 accuracy (3xTF32 products on the tensor
@@ -1779,7 +1783,7 @@ int mau_intensity_bwd(const void* su, const void* intervals, const void* wd, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 rows_grid((p.rows + 63) / 64);
   const dim3 cols_grid((E * dh + 63) / 64, (p.rows + kRowChunk - 1) / kRowChunk);
-  const size_t rb = smem_bytes(kIntRows, dh, E, 0), cb = smem_bytes(kIntCols, dh, E, 0);
+  const size_t rb = smem_bytes(kIntRows, dh, E, 0, 0), cb = smem_bytes(kIntCols, dh, E, 0, 0);
   auto both = [&](auto rows_kernel, auto cols_kernel) {
     const cudaError_t e = go(rows_kernel, rows_grid, kIntThreads, rb, s, p);
     return (int)(e != cudaSuccess ? e : go(cols_kernel, cols_grid, kIntThreads, cb, s, p));

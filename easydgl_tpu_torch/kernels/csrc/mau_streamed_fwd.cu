@@ -5,7 +5,8 @@
 //
 //   mau_stats_kernel      _stats_kernel   (pallas_call in _fwd_impl, :607)
 //   mau_intensity_kernel  _int_fwd_kernel (pallas_call in _int_fwd, :239)
-//   mau_out_kernel        _out_kernel     (pallas_call in _fwd_impl, :634)
+//   mau_out_tc_kernel (bf16), mau_out_kernel (fp32)
+//                         _out_kernel     (pallas_call in _fwd_impl, :634)
 //
 // and computes what easydgl_tpu_torch/kernels/mau_blocked.py computes, with
 // its rounding points. q/k/v/t are read on the natural (B, T, C) layout, head
@@ -31,20 +32,48 @@
 // interval entering as Wd's last row for every dh (the TPU kernel drops it
 // when dh % 128 == 0, ROADMAP C2).
 //
-// Design. The stats and out kernels give one block to 64 queries of one
-// (b, h) and loop over 64-key tiles: the TPU's sequential grid axis becomes
-// the loop, its VMEM scratch the block's registers. Per tile the (64 x 64)
-// logits, probs and modulation never leave the SM; the online (m, l) and the
-// output accumulators stay in registers. Under causal, key tiles wholly
-// after a query tile's last query are skipped, unless no real key lies at
-// or before its first query: then a row of the tile may see no key at all,
-// and such a row must be uniform over every real key, as in the plain
-// version (the TPU kernel skips there too and so differs from its own
-// blocked path on such rows).
+// Design. The stats kernel and the fp32 out kernel give one block to 64
+// queries of one (b, h) and loop over 64-key tiles: the TPU's sequential
+// grid axis becomes the loop, its VMEM scratch the block's registers. Per
+// tile the (64 x 64) logits, probs and modulation never leave the SM; the
+// online (m, l) and the output accumulators stay in registers. Under
+// causal, key tiles wholly after a query tile's last query are skipped,
+// unless no real key lies at or before its first query: then a row of the
+// tile may see no key at all, and such a row must be uniform over every
+// real key, as in the plain version (the TPU kernel skips there too and so
+// differs from its own blocked path on such rows).
 //
-// * bf16 (the main path): four warps of 16 queries each, the flash-attention
-//   schedule on the tensor cores (mma.sync m16n8k16, fp32 accumulate), each
-//   key tile in two 32-key halves (see the section below).
+// * stats, bf16 (the main path): four warps of 16 queries each, the
+//   flash-attention schedule on the tensor cores (mma.sync m16n8k16, fp32
+//   accumulate), each key tile in two 32-key halves.
+// * out, bf16 (the main path; mau_out_tc_kernel, on flash_fwd_tc_kernel's
+//   pattern, the machinery of mau_streamed.cuh): a block owns 192 queries
+//   of one (b, h), three consumer warpgroups of 64 and a producer warp
+//   whose warpgroup hands its registers to them by setmaxnreg (24 / 160).
+//   Each warpgroup's Q and lam tiles stay resident; the producer streams
+//   the visited key tiles' K, V and one-hot by TMA (128-byte swizzle) into
+//   a ring of four stages under full and empty mbarriers, with their key
+//   mask by plain loads. Per key tile, on wgmma m64n64k16 with fp32
+//   accumulators: S = Q K^T and IQK = lam one-hot^T (both operands in
+//   shared memory, the events as IQK's reduction), then u = rnd(iqk p
+//   keep) formed in the accumulators (BiMAU: iqk = 1 on the diagonal) and
+//   fed back as the A operand of O += U V (V MN-major). Only the live key
+//   tiles are visited (the rule of mau_streamed.cuh, from the plan each
+//   block makes of its batch row's key mask: a tile with no real key only
+//   where a row of the query tile sees no key); p = exp2(s scale log2 e -
+//   m log2 e) / l with 1 / l once a row and no branch (a hidden key's
+//   exponent is (NEG - m) log2 e, 0 in a row that sees no key), and only
+//   partial tiles and the diagonals test entries one by one (at dropout 0
+//   the other tiles run a form without the tests). dh = 128 takes two
+//   64-column sub-tiles a head and two consumer warpgroups (a (64 x 128)
+//   output accumulator needs 240 registers); narrower heads come
+//   zero-padded to 64, lam and the one-hot to 64-event tiles. The events
+//   of a tile set
+//   the shared memory (mau_out_smem_bytes): three warpgroups and four
+//   stages up to E = 128 at dh = 64 (two stages up to 256), else one
+//   warpgroup, with fewer stages where four do not fit (E up to 768 at dh
+//   = 64, 704 at dh = 128). At E = 64, T = 2048: 149,708 bytes of shared
+//   memory; ptxas gives a consumer thread 160 registers (24 bytes spilled).
 // * fp32: 256 threads on the CUDA cores; a thread owns a 4 x 4 tile of each
 //   (64 x 64) product and 4 rows x dh/16 columns of the outputs; operands
 //   sit in shared memory as fp32 (q, k, lam and the one-hot transposed, so
@@ -57,14 +86,20 @@
 // Its (rows, E*dh) activation never leaves registers.
 //
 // What bounds it, at the EasyDGL-LC eval shape (B=8, H=8, T=2048, dh=64,
-// E=64): operations. stats 68.7 GFLOP, out 103.1 GFLOP (bf16 tensor-core
-// bounds 0.069 and 0.104 ms), intensity 70.9 GFLOP of fp32 FMA (bound
-// 1.06 ms at 67 TFLOP/s) plus 537 M sigmoids. The first two also evaluate
-// one exp per (query, key) entry (268 M each). In bf16 the next key tile is
-// fetched with cp.async while this one is computed; in fp32 the loads wait.
+// E=64): operations. stats 68.7 GFLOP, out 103.1 GFLOP over every pair
+// (bf16 tensor-core bounds 0.069 and 0.104 ms; chip_smoke.py's bounds count
+// only the visible pairs), intensity 70.9 GFLOP of fp32 FMA (bound 1.06 ms
+// at 67 TFLOP/s) plus 537 M sigmoids. The first two also evaluate one exp
+// per (query, key) entry they visit, and under dropout the output kernel a
+// ten-round Philox draw, on the CUDA cores: these, not the products, set
+// its time. In bf16 the next key tile is fetched (cp.async, TMA) while this
+// one is computed; in fp32 the loads wait.
 //
 // Limits: dh in {16, 32, 64, 128}; the out kernel's shared memory
-// (mau_out_smem_bytes) within 227 KB, i.e. E up to ~180 at dh = 64.
+// (mau_out_smem_bytes) within 227 KB: in fp32 E up to ~180 at dh = 64.
+
+#include <initializer_list>
+#include <type_traits>
 
 #include "mau_streamed.cuh"
 
@@ -97,6 +132,7 @@ struct OutParams {
   void* out;              // (B, Tq, H*dh), the compute dtype
   float scale;
   int B, Tq, Tk, H, E, causal, diag_reset;
+  int EP, stages;         // bf16: lam / one-hot width (a multiple of 64), ring stages
 };
 
 struct IntParams {
@@ -449,23 +485,18 @@ __global__ void __launch_bounds__(kThreads) mau_intensity_kernel(const IntParams
 }
 
 // ---------------------------------------------------------------- bf16 on
-// the tensor cores: the stats and output kernels for a bf16 compute dtype.
-// Four warps, each 16 of the block's 64 queries (the flash-attention
-// schedule): q's A fragments stay in registers for the whole key loop. Each
-// 64-key tile is taken in two 32-key halves, so that only a half's logits
-// (and intensities) are live: they come out of mma.sync m16n8k16 (fp32
-// accumulate) as C fragments, the probs are formed in place, rounded to bf16
-// and re-used as the A fragments of the @T / @V product, whose accumulators
-// stay in registers. Tiles sit in shared memory as bf16 rows, fetched with
-// cp.async one tile ahead (double-buffered) and read with ldmatrix; lam and
-// the one-hot arrive from the wrapper already rounded to bf16 and
-// zero-padded to a multiple of 16 events.
+// the tensor cores: the stats kernel for a bf16 compute dtype. Four warps,
+// each 16 of the block's 64 queries (the flash-attention schedule): q's A
+// fragments stay in registers for the whole key loop. Each 64-key tile is
+// taken in two 32-key halves, so that only a half's logits are live: they
+// come out of mma.sync m16n8k16 (fp32 accumulate) as C fragments, the probs
+// are formed in place, rounded to bf16 and re-used as the A fragments of
+// the @T product, whose accumulators stay in registers. Tiles sit in shared
+// memory as bf16 rows, fetched with cp.async one tile ahead
+// (double-buffered) and read with ldmatrix.
 
 __host__ __device__ inline size_t stats_mma_smem_bytes(int dh) {
   return sizeof(bf16) * (size_t)(5 * 64 * (dh + 8)) + sizeof(float) * 2 * BK;
-}
-__host__ __device__ inline size_t out_mma_smem_bytes(int dh, int ep) {
-  return sizeof(bf16) * (size_t)(5 * 64 * (dh + 8) + 3 * 64 * (ep + 8)) + sizeof(float) * 2 * BK;
 }
 
 template <int DH>
@@ -587,122 +618,172 @@ __global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsP
   }
 }
 
-// OutParams.lam / .onehot here: bf16, (B, H, Tq, EP) / (B, Tk, EP), rounded
-// and zero-padded to EP = a multiple of 16 events by the wrapper.
-template <int DH>
-__global__ void __launch_bounds__(kThreadsMma) mau_out_mma_kernel(const OutParams p, int EP) {
-  constexpr int SD = DH + 8;
-  const int SE = EP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD]
-  bf16* ks = qs + 64 * SD;                       // [2][BK][SD]
-  bf16* vs = ks + 2 * BK * SD;                   // [2][BK][SD]
-  bf16* ls = vs + 2 * BK * SD;                   // [64][SE] lam of the block's rows
-  bf16* os = ls + 64 * SE;                       // [2][BK][SE] one-hot
-  float* kms = reinterpret_cast<float*>(os + 2 * BK * SE);  // [2][BK] key mask
+// ---------------------------------------------------------------- output,
+// bf16 on wgmma and TMA (see the header): NS 64-column sub-tiles a head
+// (dh = 64 or 128; narrower heads come zero-padded to 64), G consumer
+// warpgroups of 64 queries; OutParams.lam / .onehot here are bf16, (B, H,
+// Tq, EP) / (B, Tk, EP), rounded and zero-padded to EP = a multiple of 64
+// events by the wrapper.
 
-  const int nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
+// Warpgroups and ring stages of a block for NS sub-tiles and ept event
+// tiles: the first whose shared memory fits of three consumer warpgroups
+// at dh = 64 and two at dh = 128 (a consumer's (64 x 128) output
+// accumulator needs 240 registers), else one; kQmStages stages, else two,
+// else one.
+struct QmConfig {
+  int groups, stages;
+};
+
+__host__ inline QmConfig out_tc_config(int ns, int ept, int Tk) {
+  const int rt = ns + ept, st = 2 * ns + ept;
+  for (const int groups : {ns == 1 ? 3 : 2, 1})
+    for (const int stages : {kQmStages, 2, 1})
+      if (qm_smem_bytes(groups, rt, stages, st, Tk) <= kMaxSmem) return {groups, stages};
+  return {1, 1};  // does not fit: the launch refuses it
+}
+
+__host__ inline size_t out_tc_smem_bytes(int ns, int ept, int Tk) {
+  const QmConfig c = out_tc_config(ns, ept, Tk);
+  return qm_smem_bytes(c.groups, ns + ept, c.stages, 2 * ns + ept, Tk);
+}
+
+template <int NS, int G>
+__global__ void __launch_bounds__(128 * (G + 1), 1)
+    mau_out_tc_kernel(const OutParams p, const __grid_constant__ QmMaps maps) {
+  constexpr int kQueries = 64 * G;
+  const int ept = p.EP / 64, S = p.stages, rt = NS + ept, stn = 2 * NS + ept;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* res = reinterpret_cast<bf16*>(base);  // [group][Q NS, lam ept][64 queries][64]
+  bf16* ring = res + G * rt * kQmTile;         // [stage][K NS, V NS, one-hot ept][64 keys][64]
+  float* kms = reinterpret_cast<float*>(ring + S * stn * kQmTile);  // [stage][64] key mask
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(kms + S * BK);
+  uint64_t* full = res_full + 1;  // [stage]
+  uint64_t* empty = full + S;     // [stage]
+  int* plan = reinterpret_cast<int*>(empty + S);  // key_plan of the batch row
+
+  // heaviest first: under causal the last query block visits the most tiles
+  const int BH = p.B * p.H, nqb = (p.Tq + kQueries - 1) / kQueries;
+  const int qb = nqb - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH, q0 = qb * kQueries;
   const int b = bh / p.H, h = bh - b * p.H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  const bf16* kg = static_cast<const bf16*>(p.k.p) + b * p.k.bs + h * DH;
-  const bf16* vg = static_cast<const bf16*>(p.v.p) + b * p.v.bs + h * DH;
-  const bf16* ohg = static_cast<const bf16*>(static_cast<const void*>(p.onehot)) +
-                    (size_t)b * p.Tk * EP;
-  const size_t row0 = (size_t)bh * p.Tq;
-  auto fetch = [&](int kt) {
-    const int buf = kt & 1;
-    async_bf16(ks + buf * BK * SD, SD, kg, p.k.rs, DH, kt * BK, p.Tk);
-    async_bf16(vs + buf * BK * SD, SD, vg, p.v.rs, DH, kt * BK, p.Tk);
-    async_bf16(os + buf * BK * SE, SE, ohg, EP, EP, kt * BK, p.Tk);
-    async_mask(kms + buf * BK, km_row, kt * BK, p.Tk);
-  };
-
-  async_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
-             p.Tq);
-  async_bf16(ls, SE, static_cast<const bf16*>(static_cast<const void*>(p.lam)) + row0 * EP, EP,
-             EP, q0, p.Tq);
-  float mi[2], li[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    mi[hr] = i < p.Tq ? p.m[row0 + i] : 0.f;
-    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * G);
+    }
+    mbar_fence_init();
   }
-  const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
+  key_plan(p.key_mask + (size_t)b * p.Tk, p.Tk, plan);  // ends with a barrier
+  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0};
+  const int nkt = key_tile_count(p.Tk);
+
+  if (warp >= 4 * G) {  // ---- producer: its first warp works
+    if constexpr (G > 1) regs_dec<kQmProducerRegs>();
+    if (warp == 4 * G)
+      qm_produce(p, blk, maps, NS, ept, ept, S, res, ring, kms, res_full, full, empty, lane);
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns queries qw = q0 + 64 wg ..; thread
+  // (warp, g, t4) holds queries i0 = qw + 16 warp + g (+8) and, of a key
+  // tile, keys 8 n + 2 t4 (+1): entry (query hr, key n, c) at x[4 n + 2 hr + c]
+  if constexpr (G > 1) regs_inc<qm_consumer_regs(G)>();
+  const int wg = warp >> 2, qw = q0 + 64 * wg;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3, i0 = qw + 16 * warp + g;
+  const RowStats rs = row_stats(p.m, p.l, (size_t)bh * p.Tq, i0, p.Tq);
   const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  fetch(0);
-  cp_async_commit();
+  const float sl2 = p.scale * kLog2e;
+  const bf16* rw = res + wg * rt * kQmTile;
+  const uint64_t qd = sw128_desc(rw), ld = sw128_desc(rw + NS * kQmTile);
+  float o[NS][32];
+#pragma unroll
+  for (int c = 0; c < NS; ++c) zero32(o[c]);
+  mbar_wait(res_full, 0);
 
-  uint32_t qf[DH / 16][4];
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) fetch(kt + 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, at kt = 0, q and lam) is in shared memory
-    if (kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs, SD, warp * 16, kd * 16, lane);
+  int it = 0;
+  for (int kt = blk.next(p, 0); kt < nkt; kt = blk.next(p, kt + 1), ++it) {
+    const int s = it % S;
+    mbar_wait(full + s, (it / S) & 1);
+    if (!blk.wg_visits(p, kt, wg)) {  // another warpgroup's tile
+      mbar_arrive(empty + s);
+      continue;
     }
+    // a sub-tile is 8 KB, 512 in the descriptors' units
+    const bf16* st = ring + s * stn * kQmTile;
+    const uint64_t kd = sw128_desc(st), vd = sw128_desc(st + NS * kQmTile),
+                   od = sw128_desc(st + 2 * NS * kQmTile);
+    float sa[32], ia[32];
+    zero32(sa);
+    zero32(ia);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NS; ++kk) {  // S = Q K^T
+      const int step = 512 * (kk >> 2) + 2 * (kk & 3);
+      wgmma_ss<0, 0>(sa, qd + step, kd + step, 1);
+    }
+    for (int c = 0; c < ept; ++c)  // IQK = lam one-hot^T, events the reduction
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(ia, ld + 512 * c + 2 * kk, od + 512 * c + 2 * kk, 1);
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+    reg_fence(ia);
+
+    // u = iqk p keep (BiMAU: iqk = 1 on the diagonal), p without a branch;
+    // `tested` (a constant where it can be) false only where no entry needs
+    // a test: every key visible and no diagonal entry
     const int j0 = kt * BK;
-    const bf16* kb = ks + (kt & 1) * BK * SD;
-    const bf16* vb = vs + (kt & 1) * BK * SD;
-    const bf16* ob = os + (kt & 1) * BK * SE;
-    const float* kmb = kms + (kt & 1) * BK;
+    const bool diag = p.diag_reset && j0 == qw, slow = diag || blk.rule.test(p, kt, qw);
+    const float* kmb = kms + s * BK;
+    auto form = [&](auto tested_flag, auto dropped) {
+      const bool tested = flag(tested_flag);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4], iq[4][4];
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+        for (int c = 0; c < 2; ++c) {
+          const int jl = 8 * n + 2 * t4 + c, j = j0 + jl;
+          const float km = kmb[jl];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = iq[n][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd)
-        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd * 16, lane);
-      for (int ke = 0; ke < EP; ke += 16) {
-        uint32_t la[4];
-        a_frag(la, ls, SE, warp * 16, ke, lane);
-        mma_rows32(iq, la, ob + half * KH * SE, SE, ke, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hr = c >> 1, jj = half * KH + n * 8 + 2 * t4 + (c & 1);
-          const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
-          const float km = flag_of(kmb[jj], j, p.Tk);
-          float x = 0.f;
-          if (km >= 0.f) {  // padding keys stay 0
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * n + 2 * hr + c, i = i0 + 8 * hr;
             const float pr =
-                expf(logit(s[n][c], km, i, j, p.scale, p.causal, 0.f) - mi[hr]) / li[hr];
-            x = ((p.diag_reset && j == i) ? 1.f : iq[n][c]) * pr;
-            if (drop.on) x *= drop.factor(b, h, i, j);
+                fast_exp2(entry_exp2(sa[x], tested, km, i, j, sl2, rs, hr, p.Tk, p.causal)) *
+                rs.rl[hr];
+            float u = ((tested && diag && i == j) ? 1.f : ia[x]) * pr;
+            if constexpr (decltype(dropped)::value) u *= drop.factor(b, h, i, j);
+            sa[x] = u;
           }
-          s[n][c] = x;
         }
-      mma_pv<DH>(o, s, vb + half * KH * SD, SD, lane);  // modulated probs rounded
-    }
-    __syncthreads();  // the buffer is free for tile kt + 2
+    };
+    if (drop.on)  // the Philox draw costs more than the tests
+      form(slow, std::true_type());
+    else if (slow)
+      form(std::true_type(), std::false_type());
+    else
+      form(std::false_type(), std::false_type());
+    uint32_t pf[16];
+    a_frags(pf, sa);  // rnd(u)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NS; ++c) wgmma_rs(o[c], pf + 4 * kk, vd + 512 * c + 128 * kk);  // O += U V
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < NS; ++c) reg_fence(o[c]);
+    mbar_arrive(empty + s);  // the stage's K, V, one-hot and mask are free
   }
 
-  const int C = p.H * DH;
-  bf16* out = static_cast<bf16*>(p.out) + (size_t)b * p.Tq * C + h * DH;
+  const int C = p.H * 64 * NS;
+  bf16* out = static_cast<bf16*>(p.out) + (size_t)b * p.Tq * C + (size_t)h * 64 * NS;
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    if (i >= p.Tq) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)i * C + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[n][2 * hr], o[n][2 * hr + 1]);
-  }
+  for (int c = 0; c < NS; ++c) store_acc_bf16(out + 64 * c, C, o[c], qw + 16 * warp, p.Tq, lane);
 }
 
 // fp32 on the CUDA cores, bf16 on the tensor cores.
@@ -722,20 +803,41 @@ cudaError_t stats_launch(const StatsParams& p, int dh, int dtype, int blocks, cu
   }
 }
 
-cudaError_t out_launch(const OutParams& p, int dh, int dtype, int blocks, cudaStream_t s) {
-  const int ep = round_up(p.E, 16);
+cudaError_t out_launch(const OutParams& p, int dh, int blocks, cudaStream_t s) {
   const size_t fb = sizeof(float) * (size_t)out_smem_floats(dh, p.E);
-  const size_t mb = out_mma_smem_bytes(dh, ep);
-  const int ft = kThreads, mt = kThreadsMma;
-  switch (dh * 2 + dtype) {
-    case 32: return go(mau_out_kernel<float, 16>, blocks, ft, fb, s, p);
-    case 64: return go(mau_out_kernel<float, 32>, blocks, ft, fb, s, p);
-    case 128: return go(mau_out_kernel<float, 64>, blocks, ft, fb, s, p);
-    case 256: return go(mau_out_kernel<float, 128>, blocks, ft, fb, s, p);
-    case 33: return go(mau_out_mma_kernel<16>, blocks, mt, mb, s, p, ep);
-    case 65: return go(mau_out_mma_kernel<32>, blocks, mt, mb, s, p, ep);
-    case 129: return go(mau_out_mma_kernel<64>, blocks, mt, mb, s, p, ep);
-    case 257: return go(mau_out_mma_kernel<128>, blocks, mt, mb, s, p, ep);
+  switch (dh) {
+    case 16: return go(mau_out_kernel<float, 16>, blocks, kThreads, fb, s, p);
+    case 32: return go(mau_out_kernel<float, 32>, blocks, kThreads, fb, s, p);
+    case 64: return go(mau_out_kernel<float, 64>, blocks, kThreads, fb, s, p);
+    case 128: return go(mau_out_kernel<float, 128>, blocks, kThreads, fb, s, p);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// bf16: heads of 64 or 128 channels, lam / one-hot EP = a multiple of 64
+// events wide (the wrapper zero-pads), rows of q, k, v on 16-byte boundaries.
+cudaError_t out_tc_launch(OutParams p, const void* onehot, const void* lam, int dh,
+                          cudaStream_t s) {
+  if ((dh != 64 && dh != 128) || p.EP % 64) return cudaErrorInvalidValue;
+  const int ns = dh / 64, ept = p.EP / 64;
+  const QmConfig cfg = out_tc_config(ns, ept, p.Tk);
+  p.stages = cfg.stages;
+  QmMaps maps;
+  const long long ep = p.EP;
+  if (!bf16_rows_map(&maps.q, p.q.p, dh, p.Tq, p.H, p.B, p.q.rs, dh, p.q.bs) ||
+      !bf16_rows_map(&maps.x, lam, ep, p.Tq, p.H, p.B, ep, p.Tq * ep, p.H * p.Tq * ep) ||
+      !bf16_rows_map(&maps.k, p.k.p, dh, p.Tk, p.H, p.B, p.k.rs, dh, p.k.bs) ||
+      !bf16_rows_map(&maps.v, p.v.p, dh, p.Tk, p.H, p.B, p.v.rs, dh, p.v.bs) ||
+      !bf16_rows_map(&maps.onehot, onehot, ep, p.Tk, 1, p.B, ep, p.Tk * ep, p.Tk * ep))
+    return cudaErrorInvalidValue;
+  const size_t bytes = qm_smem_bytes(cfg.groups, ns + ept, cfg.stages, 2 * ns + ept, p.Tk);
+  const int blocks = p.B * p.H * ((p.Tq + 64 * cfg.groups - 1) / (64 * cfg.groups));
+  const int threads = 128 * (cfg.groups + 1);
+  switch (ns * 4 + cfg.groups) {
+    case 7: return go(mau_out_tc_kernel<1, 3>, blocks, threads, bytes, s, p, maps);
+    case 5: return go(mau_out_tc_kernel<1, 1>, blocks, threads, bytes, s, p, maps);
+    case 10: return go(mau_out_tc_kernel<2, 2>, blocks, threads, bytes, s, p, maps);
+    case 9: return go(mau_out_tc_kernel<2, 1>, blocks, threads, bytes, s, p, maps);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -749,8 +851,8 @@ extern "C" {
 size_t mau_stats_smem_bytes(int dh, int dtype) {
   return dtype ? stats_mma_smem_bytes(dh) : sizeof(float) * (size_t)stats_smem_floats(dh);
 }
-size_t mau_out_smem_bytes(int dh, int E, int dtype) {
-  return dtype ? out_mma_smem_bytes(dh, round_up(E, 16))
+size_t mau_out_smem_bytes(int dh, int E, int Tk, int dtype) {
+  return dtype ? out_tc_smem_bytes(dh == 128 ? 2 : 1, round_up(E, 64) / 64, Tk)
                : sizeof(float) * (size_t)out_smem_floats(dh, E);
 }
 size_t mau_intensity_smem_bytes(int dh, int E) {
@@ -812,7 +914,9 @@ int mau_intensity_fwd(const void* su, const void* intervals, const void* wd, con
 
 // `seed` (an int64 on the device, or null for no dropout) keys the dropout
 // mask; keep where the Philox word is below drop_thresh, scaled by
-// drop_scale.
+// drop_scale. In bf16 the heads are 64 or 128 channels wide (the wrapper
+// zero-pads narrower ones) and lam and the one-hot EP = E rounded up to 64
+// wide.
 int mau_out_fwd(const void* q, long long q_bs, long long q_rs, const void* k, long long k_bs,
                 long long k_rs, const void* v, long long v_bs, long long v_rs,
                 const void* key_mask, const void* onehot, const void* lam, const void* m,
@@ -837,9 +941,11 @@ int mau_out_fwd(const void* q, long long q_bs, long long q_rs, const void* k, lo
   p.scale = scale;
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.E = E;
   p.causal = causal; p.diag_reset = diag_reset;
-  const int blocks = B * H * ((Tq + BQ - 1) / BQ);
+  p.EP = round_up(E, 64);
+  p.stages = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)out_launch(p, dh, dtype, blocks, s);
+  if (dtype) return (int)out_tc_launch(p, onehot, lam, dh, s);
+  return (int)out_launch(p, dh, B * H * ((Tq + BQ - 1) / BQ), s);
 }
 
 const char* mau_streamed_error_string(int code) {

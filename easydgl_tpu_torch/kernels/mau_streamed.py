@@ -32,13 +32,17 @@ to the plain version on the card.
 
 lam comes back in fp32 (the JAX streamed path rounds it to q's dtype; its
 blocked path, like this one, does not). ``block_k`` is the plain version's
-key block; the kernels tile by 64 queries and 64 keys. In bf16 the forward
-stats and output kernels run their products on the tensor cores, and the
-output kernel takes lam and the one-hot rounded to bf16 (as the plain
-version rounds them) and zero-padded to a multiple of 16 events. The
-backward kernels take dh in (16, 32, 64) and E up to 128; in bf16 they run
-their products on the tensor cores with the same layouts, in fp32 on the
-CUDA cores.
+key block; the kernels tile by 64 queries and 64 keys. In bf16 every kernel
+runs its products on the tensor cores and takes lam and the one-hot rounded
+to bf16 (as the plain version rounds them) and zero-padded: to a multiple
+of 16 events for dq's ``mma.sync``, to 64-event tiles for the ``wgmma``
+kernels (output, d-lambda, dk/dv/dt), whose heads are zero-padded to 64
+channels too. Those three visit only the (query tile, key tile) pairs of
+``streamed_visited_tiles``: each block makes ``streamed_key_plan``'s row of
+its batch row from the key mask (``key_plan`` in ``csrc/mau_streamed.cuh``)
+and applies the rule to it. The backward
+kernels take dh in (16, 32, 64) and E up to 128; in fp32 every kernel runs
+on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -77,7 +81,7 @@ def _lib() -> ctypes.CDLL:
           [_P, _LL, _LL] * 3 + [_P] * 6 + [_U32, _F32, _P] + [_I32] * 8
           + [_F32, _I32, _P])
     lib.mau_stats_smem_bytes.argtypes = [_I32, _I32]
-    lib.mau_out_smem_bytes.argtypes = [_I32, _I32, _I32]
+    lib.mau_out_smem_bytes.argtypes = [_I32] * 4
     lib.mau_intensity_smem_bytes.argtypes = [_I32, _I32]
     for name in ("mau_stats_smem_bytes", "mau_out_smem_bytes",
                  "mau_intensity_smem_bytes"):
@@ -96,7 +100,7 @@ def _bwd_lib() -> ctypes.CDLL:
     _bind(lib, "mau_dkvt_bwd", [_P, _LL, _LL] * 5 + [_P] * 8 + [_U32, _F32]
           + [_P] * 3 + [_I32] * 8 + [_F32, _I32, _P])
     _bind(lib, "mau_intensity_bwd", [_P] * 13 + [_I32] * 5 + [_P])
-    lib.mau_streamed_bwd_smem_bytes.argtypes = [_I32] * 4
+    lib.mau_streamed_bwd_smem_bytes.argtypes = [_I32] * 5
     lib.mau_streamed_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -105,8 +109,10 @@ def streamed_key_plan(key_mask: torch.Tensor) -> torch.Tensor:
     """(B, ceil(Tk / 64) + 1) int32 from the key mask (B, Tk): per batch row
     the code of each 64-key tile (``flash_live_tiles``: 0 where no key of
     the tile is real, 2 where all 64 are, 1 otherwise), then the index of
-    its first real key (Tk where it has none). The bf16 kernels read their
-    live-tile rule from it; ``streamed_visited_tiles`` is that rule."""
+    its first real key (Tk where it has none): what each block of the bf16
+    output, d-lambda and dk/dv/dt kernels makes of its batch row
+    (``key_plan`` in ``csrc/mau_streamed.cuh``) and reads its live-tile rule
+    from; ``streamed_visited_tiles`` is that rule."""
     real = key_mask > 0
     first = torch.where(real.any(1), real.int().argmax(1), real.shape[1])
     return torch.cat([flash_live_tiles(key_mask), first[:, None].int()],
@@ -158,12 +164,24 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _bf16_events(x: torch.Tensor) -> torch.Tensor:
+def _bf16_events(x: torch.Tensor, tile: int = 16) -> torch.Tensor:
     """(..., E) -> bf16 (..., EP), rounded and zero-padded to EP = E rounded
-    up to 16: the bf16 output kernel's lam and one-hot operands."""
+    up to ``tile``: the lam and one-hot operands of the bf16 kernels (16 for
+    dq's mma.sync, 64 for the wgmma kernels' tiles)."""
     e = x.shape[-1]
-    return F.pad(x.detach().to(torch.bfloat16), (0, -(-e // 16) * 16 - e)
+    return F.pad(x.detach().to(torch.bfloat16), (0, -(-e // tile) * tile - e)
                  ).contiguous()
+
+
+def _pad_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, T, H * dh) -> (B, T, H * 64), each head zero-padded to 64
+    channels where dh < 64 (the wgmma kernels' 64-wide tiles), else x."""
+    b, n, c = x.shape
+    dh = c // num_heads
+    if dh >= 64:
+        return x
+    return F.pad(x.reshape(b, n, num_heads, dh), (0, 64 - dh)).reshape(
+        b, n, num_heads * 64)
 
 
 def _checked_seqs(q, others, num_heads):
@@ -260,7 +278,9 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
                       num_heads: int, block_k: int = 512):
     """Sweep 2: out (B, Tq, C) in q's dtype from lam (B, H, Tq, E) and the
     stats m, l (B, H, Tq). CPU tensors: ``mau_blocked.output_reference``;
-    CUDA tensors: ``mau_out_kernel``."""
+    CUDA tensors: ``mau_out_tc_kernel`` (bf16: heads zero-padded to 64
+    channels, lam and the one-hot to 64-event tiles, the key tiles of
+    ``streamed_visited_tiles`` only) or ``mau_out_kernel`` (fp32)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_modulated_out", q, k, v, key_mask, onehot, lam, m,
@@ -279,28 +299,30 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
     _check(tuple(m.shape) == (b, h, tq) and tuple(l.shape) == (b, h, tq),
            "m / l shape")
     km, mf, lf = (_f32(x) for x in (key_mask, m, l))
+    kdh = dh
     if q.dtype == torch.bfloat16:
-        q, k, v = (_rows16(x) for x in (q, k, v))
-        oh, lamf = _bf16_events(onehot), _bf16_events(lam)
+        q, k, v = (_rows16(_pad_heads(x, h)) for x in (q, k, v))
+        kdh = q.shape[-1] // h
+        oh, lamf = _bf16_events(onehot, 64), _bf16_events(lam, 64)
     else:
         oh, lamf = _f32(onehot), _f32(lam)
     lib = _lib()
-    _check(lib.mau_out_smem_bytes(dh, e, _DTYPE_CODE[q.dtype])
+    _check(lib.mau_out_smem_bytes(kdh, e, tk, _DTYPE_CODE[q.dtype])
            <= KERNEL_SMEM_MAX,
            f"dh={dh}, E={e} need more shared memory than the limit")
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
-    out = torch.empty((b, tq, h * dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, tq, h * kdh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.mau_out_fwd(*_seq(q), *_seq(k), *_seq(v), km.data_ptr(),
                              oh.data_ptr(), lamf.data_ptr(), mf.data_ptr(),
                              lf.data_ptr(), seed_ptr, thresh, dscale,
-                             out.data_ptr(), b, tq, tk, h, dh, e, int(causal),
+                             out.data_ptr(), b, tq, tk, h, kdh, e, int(causal),
                              int(diag_reset), 1.0 / dh ** 0.5,
                              _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_on(rc, "mau_modulated_out", _lib().mau_streamed_error_string)
     mau_modulated_out.launches += 1
-    return out
+    return _unpad_heads(out, h, dh)
 
 
 mau_modulated_out.launches = 0
@@ -325,12 +347,14 @@ def _streamed_forward(q, k, v, t, key_mask, intervals, onehot, wd, bd, w,
 # ---------------------------------------------------------------- backward
 
 
-def _bwd_fits(lib, which: int, name: str, dh: int, e: int, dtype):
+def _bwd_fits(lib, which: int, name: str, dh: int, e: int, dtype,
+              tk: int = 0):
     _check(dh in KERNEL_BWD_HEAD_DIMS,
            f"{name}: head dim {dh} not in {KERNEL_BWD_HEAD_DIMS}")
     _check(e <= KERNEL_BWD_EVENTS_MAX,
            f"{name}: E={e} above {KERNEL_BWD_EVENTS_MAX}")
-    _check(lib.mau_streamed_bwd_smem_bytes(which, dh, e, _DTYPE_CODE[dtype])
+    _check(lib.mau_streamed_bwd_smem_bytes(which, dh, e, tk,
+                                           _DTYPE_CODE[dtype])
            <= KERNEL_SMEM_MAX,
            f"{name}: dh={dh}, E={e} need more shared memory than the limit")
 
@@ -371,7 +395,9 @@ def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
              dropout_seed=None, num_heads: int, block_k: int = 512):
     """Backward pass 1: d(lambda) of the modulation, (B, H, Tq, E) fp32,
     from g_out (B, Tq, C). CPU tensors: ``mau_blocked.glam_reference``;
-    CUDA tensors: ``mau_glam_kernel``."""
+    CUDA tensors: ``mau_glam_tc_kernel`` (bf16: heads zero-padded to 64
+    channels, the one-hot to 64-event tiles, the key tiles of
+    ``streamed_visited_tiles`` only) or ``mau_glam_kernel`` (fp32)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_glam", q, k, v, key_mask, onehot, m, l, g_out,
@@ -381,11 +407,17 @@ def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
                               dropout_rate=dropout_rate,
                               dropout_seed=dropout_seed, num_heads=num_heads,
                               block_k=block_k)
-    b, tq, tk, dh, e, seqs, km, oh, (mf, lf) = _attention_bwd_args(
+    dh, e = q.shape[-1] // num_heads, onehot.shape[-1]
+    _check(dh in KERNEL_BWD_HEAD_DIMS,
+           f"mau_glam: head dim {dh} not in {KERNEL_BWD_HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:   # the wgmma kernel's 64-wide tiles
+        q, k, v, g_out = (_pad_heads(x, num_heads) for x in (q, k, v, g_out))
+        onehot = _bf16_events(onehot, 64)
+    b, tq, tk, kdh, _, seqs, km, oh, (mf, lf) = _attention_bwd_args(
         "mau_glam", q, (("k", k), ("v", v)), key_mask, onehot,
         (("m", m), ("l", l)), g_out, num_heads)
     lib = _bwd_lib()
-    _bwd_fits(lib, _GLAM, "mau_glam", dh, e, q.dtype)
+    _bwd_fits(lib, _GLAM, "mau_glam", kdh, e, q.dtype, tk)
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
     glam = torch.empty((b, num_heads, tq, e), dtype=torch.float32,
@@ -394,7 +426,7 @@ def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
         rc = lib.mau_glam_bwd(*(a for x in seqs for a in _seq(x)),
                               km.data_ptr(), oh.data_ptr(), mf.data_ptr(),
                               lf.data_ptr(), seed_ptr, thresh, dscale,
-                              glam.data_ptr(), b, tq, tk, num_heads, dh, e,
+                              glam.data_ptr(), b, tq, tk, num_heads, kdh, e,
                               int(causal), int(diag_reset), 1.0 / dh ** 0.5,
                               _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_on(rc, "mau_glam", _lib().mau_streamed_error_string)
@@ -493,7 +525,7 @@ def mau_dq(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
         "mau_dq", q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho,
         num_heads)
     lib = _bwd_lib()
-    _bwd_fits(lib, _DQ, "mau_dq", dh, e, q.dtype)
+    _bwd_fits(lib, _DQ, "mau_dq", dh, e, q.dtype, tk)
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
     dq = torch.empty((b, tq, num_heads * dh), dtype=q.dtype, device=q.device)
@@ -536,7 +568,7 @@ def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
         "mau_dkvt", q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho,
         num_heads)
     lib = _bwd_lib()
-    _bwd_fits(lib, _DKVT, "mau_dkvt", kdh, e, q.dtype)
+    _bwd_fits(lib, _DKVT, "mau_dkvt", kdh, e, q.dtype, tk)
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
     dk, dv, dt = (torch.empty((b, tk, num_heads * kdh), dtype=q.dtype,
@@ -563,11 +595,8 @@ def dkvt_tc_inputs(q, k, v, t, g_out, g_su, lam, onehot, num_heads: int):
     e = onehot.shape[-1]
     ep = -(-e // 64) * 64
     if dh < 64:
-        def pad(x):
-            b, n, _ = x.shape
-            return F.pad(x.reshape(b, n, num_heads, dh), (0, 64 - dh)
-                         ).reshape(b, n, num_heads * 64)
-        q, k, v, t, g_out = (pad(x) for x in (q, k, v, t, g_out))
+        q, k, v, t, g_out = (_pad_heads(x, num_heads)
+                             for x in (q, k, v, t, g_out))
         g_su = F.pad(g_su, (0, 64 - dh))
     if ep != e:
         lam, onehot = F.pad(lam, (0, ep - e)), F.pad(onehot, (0, ep - e))

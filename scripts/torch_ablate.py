@@ -13,9 +13,9 @@ product or the dx^T reduce-add removed; by kernel), the bf16 streamed dK/dV/dT k
 Philox draw or the products removed, every key tile visited, three
 stages), and the bf16 streamed output and d-lambda kernels (``out`` and
 ``glam``, at dropout 0 and 0.1: the Philox draw or the products removed,
-each entry's expf and divide replaced by ex2 and a reciprocal a row; the
-output kernel with lam's fragments loaded once, the d-lambda kernel with
-its accumulator sized for E = 64). Each variant edits
+every key tile of the range visited, four ring stages instead of two,
+every tile's entries formed with their tests, two consumer warpgroups a
+block instead of three). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -37,6 +37,23 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = "easydgl_tpu_torch/kernels/csrc/"
+# the live-tile rule of mau_streamed.cuh off: every key tile of the range
+# visited (an edit of another file than the kernel's source names it first)
+RULE_OFF = ("mau_streamed.cuh", "    return bl || code != 0;",
+            "    return true;")
+# four ring stages instead of kQmStages
+FOUR_STAGES = ("mau_streamed.cuh", "constexpr int kQmStages = 2;",
+               "constexpr int kQmStages = 4;")
+# every tile's entries formed with their tests, as the partial tiles' are
+TESTED = ("    else if (slow)\n      form(std::true_type(), std::false_type());\n"
+          "    else\n      form(std::false_type(), std::false_type());",
+          "    else\n      form(slow, std::false_type());")
+# the output and d-lambda kernels' entries without their dropout factor
+NO_DRAW = ("            if constexpr (decltype(dropped)::value) u *= "
+           "drop.factor(b, h, i, j);\n")
+# keeps the bf16 fragments of a removed product alive
+SINK = ("__uint_as_float({0}[4 * kk]) + __uint_as_float({0}[4 * kk + 1]) + "
+        "__uint_as_float({0}[4 * kk + 2]) + __uint_as_float({0}[4 * kk + 3])")
 # kernel -> (source, library, bench command, {variant: [(old, new), ...]})
 KERNELS = {
     "flash": ("flash_attention.cu", "flash_attention",
@@ -134,98 +151,49 @@ KERNELS = {
                       " + 2 * kk, dd + 2 * kk, 1);  // V dO^T\n", ""),
                      ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk, f + 4 *"
                       " kk, qd + 128 * kk);  // dK += G_s^T Q\n", "")],
-                 "every key tile visited": [(
-                     "    return (w == 0 ? live0 : live1) || blind;",
-                     "    return true;")],
+                 "every key tile visited": [RULE_OFF],
                  "3 stages": [("constexpr int kKvStages = 2;",
                                "constexpr int kKvStages = 3;")]}),
     "out": ("mau_streamed_fwd.cu", "mau_streamed_fwd",
             ["scripts/torch_streamed_bench.py", "--out", "--rounds", "1"], {
                 "control": [],
-                "no Philox draw": [(
-                    "            x = ((p.diag_reset && j == i) ? 1.f : iq[n][c])"
-                    " * pr;\n            if (drop.on) x *= drop.factor(b, h, i,"
-                    " j);\n",
-                    "            x = ((p.diag_reset && j == i) ? 1.f : iq[n][c])"
-                    " * pr;\n")],
-                "no products": [(
-                    "        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd *"
-                    " 16, lane);\n      for (int ke = 0; ke < EP; ke += 16) {\n"
-                    "        uint32_t la[4];\n        a_frag(la, ls, SE, warp *"
-                    " 16, ke, lane);\n        mma_rows32(iq, la, ob + half * KH"
-                    " * SE, SE, ke, lane);\n      }\n", "        ;\n"), (
-                    "      mma_pv<DH>(o, s, vb + half * KH * SD, SD, lane);  //"
-                    " modulated probs rounded\n",
-                    "      for (int n = 0; n < 4; ++n)\n        for (int c = 0;"
-                    " c < 4; ++c) o[0][c] += s[n][c];\n")],
-                "ex2, a reciprocal a row": [(
-                    "\nnamespace {\n\nusing namespace port;\n\nconstexpr int RI",
-                    "\nnamespace {\n\nusing namespace port;\n__device__"
-                    " __forceinline__ float ex2a(float x) { float y; asm(\"ex2."
-                    "approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x)); return"
-                    " y; }\n\nconstexpr int RI"), (
-                    "    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;\n",
-                    "    li[hr] = 1.f / (i < p.Tq ? p.l[row0 + i] : 1.f);\n"), (
-                    "                expf(logit(s[n][c], km, i, j, p.scale,"
-                    " p.causal, 0.f) - mi[hr]) / li[hr];\n",
-                    "                ex2a((logit(s[n][c], km, i, j, p.scale,"
-                    " p.causal, 0.f) - mi[hr]) * 1.4426950408889634f) *"
-                    " li[hr];\n")],
-                "lam fragments hoisted (E = 64)": [(
-                    "  uint32_t qf[DH / 16][4];\n  float o[DH / 8][4];\n",
-                    "  uint32_t qf[DH / 16][4], lf[4][4];\n  float o[DH / 8]"
-                    "[4];\n"), (
-                    "      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs,"
-                    " SD, warp * 16, kd * 16, lane);\n    }\n    const int j0 ="
-                    " kt * BK;\n    const bf16* kb = ks + (kt & 1) * BK * SD;\n"
-                    "    const bf16* vb",
-                    "      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs,"
-                    " SD, warp * 16, kd * 16, lane);\n      for (int e = 0; e <"
-                    " 4; ++e) a_frag(lf[e], ls, SE, warp * 16, 16 * e, lane);\n"
-                    "    }\n    const int j0 = kt * BK;\n    const bf16* kb = ks"
-                    " + (kt & 1) * BK * SD;\n    const bf16* vb"), (
-                    "      for (int ke = 0; ke < EP; ke += 16) {\n        uint32_t"
-                    " la[4];\n        a_frag(la, ls, SE, warp * 16, ke, lane);\n"
-                    "        mma_rows32(iq, la, ob + half * KH * SE, SE, ke,"
-                    " lane);\n      }\n",
-                    "#pragma unroll\n      for (int e = 0; e < 4; ++e)\n"
-                    "        mma_rows32(iq, lf[e], ob + half * KH * SE, SE, 16 *"
-                    " e, lane);\n")]}),
+                "no Philox draw": [(NO_DRAW, "")],
+                "no products": [
+                    ("      wgmma_ss<0, 0>(sa, qd + step, kd + step, 1);\n",
+                     "      ;\n"),
+                    ("        wgmma_ss<0, 0>(ia, ld + 512 * c + 2 * kk, od + 512"
+                     " * c + 2 * kk, 1);\n", "        ;\n"),
+                    ("      for (int c = 0; c < NS; ++c) wgmma_rs(o[c], pf + 4 *"
+                     " kk, vd + 512 * c + 128 * kk);  // O += U V\n",
+                     "      for (int c = 0; c < NS; ++c) o[c][kk] += "
+                     + SINK.format("pf") + ";\n")],
+                "every key tile visited": [RULE_OFF],
+                "four stages": [FOUR_STAGES],
+                "every tile's entries tested": [TESTED],
+                "two warpgroups a block": [
+                    ("{ns == 1 ? 3 : 2, 1}", "{2, 1}"),
+                    ("    case 7: return go(mau_out_tc_kernel<1, 3>,",
+                     "    case 6: return go(mau_out_tc_kernel<1, 2>,")]}),
     "glam": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
              ["scripts/torch_streamed_bench.py", "--glam", "--rounds", "1"], {
                  "control": [],
-                 "no Philox draw": [(
-                     "            x = gm[n][c] * pr;\n            if (drop.on) x"
-                     " *= drop.factor(b, h, i, j);\n",
-                     "            x = gm[n][c] * pr;\n")],
-                 "no products": [(
-                     "        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd *"
-                     " 16, lane);\n        mma_rows32(gm, df[kd], vb + half * KH"
-                     " * SD, SD, kd * 16, lane);\n      }\n#pragma unroll\n",
-                     "        ;\n      }\n#pragma unroll\n"), (
-                     "      mma_pv_n<16>(o, s, ob + half * KH * SE, SE, lane, ne);"
-                     "  // g_iqk rounded to bf16\n",
-                     "      for (int n = 0; n < 4; ++n)\n        for (int c = 0;"
-                     " c < 4; ++c) o[n][c] += s[n][c];\n")],
-                 "ex2, a reciprocal a row": [(
-                     "    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;\n  }\n  const"
-                     " int nkt",
-                     "    li[hr] = 1.f / (i < p.Tq ? p.l[row0 + i] : 1.f);\n  }\n"
-                     "  const int nkt"), (
-                     "                expf(logit(s[n][c], km, i, j, p.scale,"
-                     " p.causal, 0.f) - mi[hr]) / li[hr];\n            x ="
-                     " gm[n][c] * pr;",
-                     "                fast_exp2((logit(s[n][c], km, i, j,"
-                     " p.scale, p.causal, 0.f) - mi[hr]) * kLog2e) * li[hr];\n"
-                     "            x = gm[n][c] * pr;")],
-                 "accumulator sized for E = 64": [(
-                     "  float o[16][4];\n#pragma unroll\n  for (int n = 0; n <"
-                     " 16; ++n)\n", "  float o[8][4];\n#pragma unroll\n  for"
-                     " (int n = 0; n < 8; ++n)\n"), (
-                     "mma_pv_n<16>(o, s,", "mma_pv_n<8>(o, s,"), (
-                     "    for (int n = 0; n < 16; ++n) {\n      const int e = n *"
-                     " 8 + 2 * t4;\n", "    for (int n = 0; n < 8; ++n) {\n"
-                     "      const int e = n * 8 + 2 * t4;\n")]}),
+                 "no Philox draw": [(NO_DRAW, "")],
+                 "no products": [
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, qd +"
+                      " 2 * kk, kd + 2 * kk, 1);  // S = Q K^T\n", ""),
+                     ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(ga, dd +"
+                      " 2 * kk, vd + 2 * kk, 1);  // GM = dO V^T\n", ""),
+                     ("        wgmma_rs(gl[c], f + 4 * kk, od + 512 * c + 128 *"
+                      " kk);  // G_lam += G one-hot\n",
+                      "        gl[c][kk] += " + SINK.format("f") + ";\n")],
+                 "every key tile visited": [RULE_OFF],
+                 "four stages": [FOUR_STAGES],
+                 "every tile's entries tested": [TESTED],
+                "every tile's entries tested": [TESTED],
+                 "two warpgroups a block": [(
+                     "constexpr int glam_groups(int ept) { return ept == 1 ? 3 :"
+                     " 2; }", "constexpr int glam_groups(int ept) { return 2;"
+                     " }")]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 
@@ -236,7 +204,6 @@ def main(args) -> int:
                          " [VARIANT ...]")
     source, library, bench, variants = KERNELS[args[0]]
     names = args[1:] or list(variants)
-    text = (ROOT / CSRC / source).read_text()
     with tempfile.TemporaryDirectory() as tmp:
         dirs = {}
         for i, name in enumerate(names):
@@ -249,12 +216,13 @@ def main(args) -> int:
                         "__pycache__"))
                 else:
                     shutil.copy(src, dst)
-            edited = text
-            for old, new in variants[name]:
-                if edited.count(old) != 1:
+            for edit in variants[name]:
+                path = d / CSRC / (edit[0] if len(edit) == 3 else source)
+                old, new = edit[-2:]
+                text = path.read_text()
+                if text.count(old) != 1:
                     raise SystemExit(f"{name}: the edit does not apply")
-                edited = edited.replace(old, new)
-            (d / CSRC / source).write_text(edited)
+                path.write_text(text.replace(old, new))
             dirs[name] = d
         build = ("from easydgl_tpu_torch.kernels import build;"
                  f" build.build(['{library}'])")

@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
-"""Shows that the backward checks of ``chip_smoke.py`` fail a broken fused
-MAU backward or a broken streamed dK/dV/dT kernel, on one GPU.
+"""Shows that the checks of ``chip_smoke.py`` fail a broken fused MAU
+backward or a broken streamed output, d-lambda or dK/dV/dT kernel, on one
+GPU.
 
 Three mutants of ``csrc/mau_attention_bwd.cu``'s tensor-core path (bf16,
 dh <= 64): dbd dropped (its one atomic a column and block), dz without its
 (1 - sig) factor, and the second warpgroup's rows of dx^T never added to
-the workspace. Three of ``csrc/mau_streamed_bwd.cu``'s wgmma dkvt kernel:
-the modulated probs without their dropout factor (dV's and dK's), the
-rows that see no key left out of key tiles with no real key (so such a
-tile is skipped), and the causal tile rule off by one tile. For each
-mutant, and for the unchanged sources as a control, the package and
-``chip_smoke.py`` are copied into a temporary directory, the copy's source
-is edited, and the cases of ``chip_smoke.MAU_BWD_CASES`` (through
-``mau_bwd_case``) and the dkvt kernel of ``chip_smoke.STREAMED_BWD_CASES``
-(through ``streamed_bwd_case``) run there (each copy's libraries built
-first, one nvcc each, all together; then one process per copy, three at a
-time). Prints, per copy, the checks that failed with their worst
-|kernel - plain| / tolerance, and exits 0 when the control passes every
-check and every mutant fails at least one. Imports neither JAX nor the JAX
-package.
+the workspace. Two of the live-tile rule that the wgmma output, d-lambda
+and dkvt kernels share (``csrc/mau_streamed.cuh``): the rows that see no
+key left out (so a key tile with no real key is skipped), and the causal
+range off by one tile. One of ``csrc/mau_streamed_fwd.cu``'s output
+kernel: BiMAU's diagonal iqk left as lam . one-hot instead of 1. Three of
+``csrc/mau_streamed_bwd.cu``: the d-lambda entries on BiMAU's diagonal not
+zeroed, the d-lambda entries without their dropout factor, and dkvt's
+modulated probs without theirs (dV's and dK's). For each mutant, and for
+the unchanged sources as a control, the package and ``chip_smoke.py`` are
+copied into a temporary directory, the copy's source is edited, and the
+cases of ``chip_smoke.MAU_BWD_CASES`` (through ``mau_bwd_case``), the
+output kernel on the cases of ``chip_smoke.STREAMED_CASES`` (through
+``streamed_out_check``) with the entry-by-entry probes (``PROBE_CASES``),
+and the d-lambda and dkvt kernels on the cases of
+``chip_smoke.STREAMED_BWD_CASES`` (through ``streamed_bwd_case``) run there
+(each copy's libraries built first, one nvcc each, all together; then one
+process per copy, three at a time). Prints, per copy, the checks that
+failed with their worst |kernel - plain| / tolerance, and exits 0 when the
+control passes every check and every mutant fails at least one. Imports
+neither JAX nor the JAX package.
 
     python3 scripts/torch_bwd_mutants.py
 """
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -33,8 +41,10 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = "easydgl_tpu_torch/kernels/csrc/"
-MAU, STREAMED = "mau_attention_bwd", "mau_streamed_bwd"
-# name -> (library, old, new), or None for the control
+MAU, FWD, STREAMED = ("mau_attention_bwd.cu", "mau_streamed_fwd.cu",
+                      "mau_streamed_bwd.cu")
+RULE = "mau_streamed.cuh"
+# name -> (source in csrc/, old, new), or None for the control
 MUTANTS = {
     "control": None,
     "dbd dropped": (
@@ -45,17 +55,25 @@ MUTANTS = {
     "dx^T of the second warpgroup's rows not added": (
         MAU, "      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);",
         "      if (wg == 0) tma_reduce_add_2d(&maps.dseq, stw, r0, 0);"),
+    "live-tile rule: rows that see no key left out": (
+        RULE, "    return bl || code != 0;", "    return code != 0;"),
+    "live-tile rule: causal range off by one tile": (
+        RULE, "    if (p.causal && !bl && kt * BK > imin(q0 + BQ, p.Tq) - 1) "
+        "return false;",
+        "    if (p.causal && !bl && kt * BK > imin(q0 + BQ, p.Tq) - 1 - BK) "
+        "return false;"),
+    "out: BiMAU's diagonal iqk left as lam": (
+        FWD, "            float u = ((tested && diag && i == j) ? 1.f : ia[x]) * pr;",
+        "            float u = ia[x] * pr;"),
+    "glam: BiMAU's diagonal not zeroed": (
+        STREAMED, "            float u = (tested && diag && i == j) ? 0.f : ga[x] * pr;",
+        "            float u = ga[x] * pr;"),
+    "glam: no dropout factor": (
+        STREAMED, "            if constexpr (decltype(dropped)::value) u *= "
+        "drop.factor(b, h, i, j);\n", ""),
     "dkvt: no dropout factor in the modulated probs": (
         STREAMED, "            if constexpr (decltype(dropped)::value) u *= "
         "drop.factor(b, h, i, jk[hr]);\n", ""),
-    "dkvt: rows that see no key left out of dead key tiles": (
-        STREAMED, "    const bool blind = p.causal ? q0 < first : first >= p.Tk;",
-        "    const bool blind = false;"),
-    "dkvt: causal tile rule off by one tile": (
-        STREAMED, "    if (p.causal && first <= imin(q0, p.Tk - 1) && kt * BK > "
-        "imin(q0 + BQ, p.Tq) - 1) return false;",
-        "    if (p.causal && first <= imin(q0, p.Tk - 1) && kt * BK > "
-        "imin(q0 + BQ, p.Tq) - 1 - BK) return false;"),
 }
 RESULT = "RESULT "
 AT_ONCE = 3   # copies run together
@@ -77,10 +95,24 @@ def child() -> int:
     for i, case in enumerate(chip_smoke.MAU_BWD_CASES):
         res, _ = chip_smoke.mau_bwd_case(i, *case)
         out[case[0]] = {label: ratio for label, (_, ratio) in res.items()}
+    for i, case in enumerate(chip_smoke.STREAMED_CASES):
+        try:   # a non-finite out fails the check by raising
+            ratio = chip_smoke.streamed_out_check(i, *case)[1]
+        except AssertionError:
+            ratio = math.inf
+        out["fwd " + case[0]] = {"out": ratio}
+    for i, (name, dtype, causal, diag) in enumerate(chip_smoke.PROBE_CASES):
+        rel, dropped = chip_smoke.modulation_probe(name, dtype, causal, diag,
+                                                   seed=460 + i)
+        # the dropped share must lie in (0.07, 0.13): outside it counts as
+        # failed, as the smoke's check does
+        out[name] = {"entries": rel,
+                     "dropped share": 0.0 if 0.07 < dropped < 0.13 else 2.0}
     for i, case in enumerate(chip_smoke.STREAMED_BWD_CASES):
-        res = chip_smoke.streamed_bwd_case(i, *case, only=("mau_dkvt",))[0]
-        out[case[0]] = {label: ratio
-                        for label, (_, ratio) in res["mau_dkvt"].items()}
+        res = chip_smoke.streamed_bwd_case(
+            i, *case, only=("mau_glam", "mau_dkvt"))[0]
+        out["bwd " + case[0]] = {label: ratio for kernel in res.values()
+                                 for label, (_, ratio) in kernel.items()}
     print(RESULT + json.dumps(out), flush=True)
     return 0
 
@@ -90,11 +122,11 @@ def make_copy(dst: pathlib.Path, edit):
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
     if edit is not None:
-        lib, old, new = edit
-        path = dst / CSRC / f"{lib}.cu"
+        source, old, new = edit
+        path = dst / CSRC / source
         text = path.read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"mutation target not found once in {lib}.cu:"
+            raise RuntimeError(f"mutation target not found once in {source}:"
                                f" {old}")
         path.write_text(text.replace(old, new))
 
@@ -113,8 +145,8 @@ def main() -> int:
             make_copy(pathlib.Path(tmp) / f"copy{i}", edit)
         builds = [subprocess.Popen(
             [sys.executable, "-c", "from easydgl_tpu_torch.kernels import"
-             f" build; build.build(['mau_attention_fwd', '{MAU}',"
-             f" 'mau_streamed_fwd', '{STREAMED}'])"],
+             " build; build.build(['mau_attention_fwd', 'mau_attention_bwd',"
+             " 'mau_streamed_fwd', 'mau_streamed_bwd'])"],
             cwd=pathlib.Path(tmp) / f"copy{i}") for i in range(len(items))]
         if any(b.wait() for b in builds):
             print("FAILED: a copy did not build")

@@ -50,8 +50,7 @@ from easydgl_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_mark_table, synthetic_split_vectorized)
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator  # noqa: E402
 from easydgl_tpu_torch.kernels.mau_streamed import (  # noqa: E402
-    mau_dkvt, mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats,
-    streamed_visited_tiles)
+    mau_dkvt, mau_intensity, mau_intensity_bwd, mau_modulated_out, mau_stats)
 from easydgl_tpu_torch.models.registry import build_model  # noqa: E402
 from easydgl_tpu_torch.parity import random_flax_params  # noqa: E402
 from easydgl_tpu_torch.train.steps import build_eval_step  # noqa: E402
@@ -156,11 +155,15 @@ def dkvt_times(rounds, by_kernel):
 
 def tile_shares(km, causal=False):
     """(share of the 64-key tiles holding a real key, share of the (query
-    tile, key tile) pairs that the live-tile rule visits) of a key mask."""
+    tile, key tile) pairs that the live-tile rule visits, None in a
+    checkout that has no such rule) of a key mask."""
+    from easydgl_tpu_torch.kernels import mau_streamed
     live = (F.pad(km > 0, (0, -km.shape[1] % 64)).view(km.shape[0], -1, 64)
             .any(-1))
-    vis = streamed_visited_tiles(km, km.shape[1], causal)
-    return float(live.float().mean()), float(vis.float().mean())
+    rule = getattr(mau_streamed, "streamed_visited_tiles", None)
+    vis = None if rule is None else float(
+        rule(km, km.shape[1], causal).float().mean())
+    return float(live.float().mean()), vis
 
 
 def out_times(rounds, by_kernel):

@@ -401,7 +401,8 @@ def _check_stats(dtype, got, want):
 STREAMED_SHAPES = {"small": dict(b=3, t=77, h=2, dh=16, e=4),
                    "unaligned": dict(b=2, t=300, h=8, dh=64, e=64),
                    "dh128": dict(b=2, t=130, h=2, dh=128, e=8),
-                   "dh32": dict(b=2, t=65, h=4, dh=32, e=12)}
+                   "dh32": dict(b=2, t=65, h=4, dh=32, e=12),
+                   "e128": dict(b=2, t=130, h=2, dh=64, e=128)}
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -542,7 +543,8 @@ def test_lc_model_on_card_matches_cpu(cuda_device):
 
 STREAMED_BWD_SHAPES = {"small": dict(b=3, t=77, h=2, dh=16, e=4),
                        "unaligned": dict(b=2, t=300, h=8, dh=64, e=64),
-                       "dh32": dict(b=2, t=65, h=4, dh=32, e=12)}
+                       "dh32": dict(b=2, t=65, h=4, dh=32, e=12),
+                       "e128": dict(b=2, t=130, h=2, dh=64, e=128)}
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

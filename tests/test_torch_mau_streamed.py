@@ -13,7 +13,13 @@
 * the port's fused plain version at T <= 128 in fp32, values and autograd
   gradients, and at rate 0.1 the same dropout mask for one seed;
 * the ``MAU`` module's streamed engine against the JAX XLA MAU;
-* the CPU dispatch of ``mau_streamed`` and its three phase wrappers.
+* the CPU dispatch of ``mau_streamed`` and its three phase wrappers;
+* the live-tile rule of the card's bf16 output, d-lambda and dk/dv/dt
+  kernels (``streamed_key_plan``, ``streamed_visited_tiles``) against a
+  direct count from the key mask, and its exactness on the plain versions:
+  ``output_reference`` and ``glam_reference`` give each query tile the same
+  rows when the K, V and one-hot rows of every key tile it skips are
+  replaced by random values.
 
 The CUDA kernels are held against these plain versions in
 ``test_torch_cuda.py`` (card only) and ``chip_smoke.py``.
@@ -28,14 +34,17 @@ from easydgl_tpu.kernels import mau_blocked as jblocked
 from easydgl_tpu.kernels.mau_streamed import mau_streamed as jstreamed
 from easydgl_tpu.nn import temporal as jtemporal
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention_reference
-from easydgl_tpu_torch.kernels.mau_blocked import (intensity_reference,
+from easydgl_tpu_torch.kernels.mau_blocked import (glam_reference,
+                                                   intensity_reference,
                                                    mau_blocked,
                                                    mau_blocked_forward,
                                                    output_reference,
                                                    stats_reference)
 from easydgl_tpu_torch.kernels.mau_streamed import (mau_intensity,
                                                     mau_modulated_out,
-                                                    mau_stats, mau_streamed)
+                                                    mau_stats, mau_streamed,
+                                                    streamed_key_plan,
+                                                    streamed_visited_tiles)
 from easydgl_tpu_torch.nn.temporal import MAU, BiMAU
 from easydgl_tpu_torch.parity import flax_to_torch
 
@@ -213,3 +222,93 @@ def test_cpu_dispatch_takes_the_plain_versions():
     assert [f.launches for f in counters] == before
     with pytest.raises(ValueError, match="seed"):
         mau_streamed(*args, False, True, 0.1, num_heads=H)
+
+
+def _tile_masks():
+    """(B, Tk) key masks that exercise the live-tile rule: a fully masked
+    row, a left-padded row whose first real key falls inside a tile, every
+    key real, and holes (a tile with no real key between live ones)."""
+    km = np.zeros((4, 200), np.float32)
+    km[1, 70:] = 1.0
+    km[2] = 1.0
+    km[3, 5:40] = km[3, 150:] = 1.0
+    return torch.tensor(km)
+
+
+@pytest.mark.parametrize("tq,tk", [(150, 150), (128, 200), (200, 130)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_live_tile_rule_matches_a_direct_count(causal, tq, tk):
+    """The plan's tile codes and first real keys, counted directly; the
+    visited (query tile, key tile) pairs hold every pair with a nonzero
+    prob (a visible entry, or a row that sees no key and a real key: such a
+    row is uniform over the real keys), and no other where Tq is a multiple
+    of 64 (under causal a ragged last query tile takes its whole range)."""
+    km = _tile_masks()[:, :tk]
+    plan = streamed_key_plan(km)
+    nkt, nqt = -(-tk // 64), -(-tq // 64)
+    real = np.asarray(km) > 0
+    assert plan.dtype == torch.int32 and tuple(plan.shape) == (4, nkt + 1)
+    for b in range(4):
+        firsts = np.flatnonzero(real[b])
+        assert int(plan[b, -1]) == (firsts[0] if len(firsts) else tk)
+        for kt in range(nkt):
+            tile = real[b, 64 * kt:64 * kt + 64]
+            want = 2 if tile.size == 64 and tile.all() else int(tile.any())
+            assert int(plan[b, kt]) == want, (b, kt)
+    i = np.arange(tq)[:, None]
+    j = np.arange(tk)[None, :]
+    vis = real[:, None, :] & ((j <= i) | (not causal))[None]   # (B, Tq, Tk)
+    blind = ~vis.any(-1, keepdims=True)
+    nonzero = vis | blind                                    # j < Tk always
+    need = np.zeros((4, nqt, nkt), bool)
+    for qt in range(nqt):
+        for kt in range(nkt):
+            need[:, qt, kt] = nonzero[:, 64 * qt:64 * qt + 64,
+                                      64 * kt:64 * kt + 64].any((1, 2))
+    got = streamed_visited_tiles(km, tq, causal).numpy()
+    assert got.shape == need.shape
+    assert not (need & ~got).any(), "a pair with a nonzero prob is skipped"
+    if tq % 64 == 0:
+        assert (got == need).all()
+
+
+@pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
+@pytest.mark.parametrize("piece", ["out", "glam"])
+def test_live_tile_rule_is_exact_on_the_plain_versions(piece, causal, diag):
+    """Each query tile's rows of ``output_reference`` / ``glam_reference``
+    are unchanged (1e-6) when the K, V and one-hot rows of every key tile it
+    skips are random values: what the kernels leave out adds exactly 0."""
+    rng = np.random.default_rng(11)
+    km = _tile_masks()
+    b, t, h, dh, e = 4, 200, 2, 8, 4
+    q, k, v = (torch.tensor(rng.normal(size=(b, t, h * dh)), dtype=torch.float32)
+               for _ in range(3))
+    oh = torch.tensor((rng.random((b, t, e)) < 0.3).astype(np.float32))
+    lam = torch.tensor(rng.random((b, h, t, e)).astype(np.float32))
+    g_out = torch.tensor(rng.normal(size=(b, t, h * dh)), dtype=torch.float32)
+    m, l, _ = stats_reference(q, k, k, km, causal=causal, num_heads=h)
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=0.1,
+              dropout_seed=5, num_heads=h, block_k=64)
+
+    def run(k, v, oh):
+        if piece == "out":
+            return output_reference(q, k, v, km, oh, lam, m, l, **kw)
+        return glam_reference(q, k, v, km, oh, m, l, g_out, **kw)
+
+    want = run(k, v, oh)
+    vis = streamed_visited_tiles(km, t, causal)
+    assert not bool(vis.all())
+    for qt in range(vis.shape[1]):
+        k2, v2, oh2 = k.clone(), v.clone(), oh.clone()
+        for bb, kt in (~vis[:, qt]).nonzero().tolist():
+            rows = slice(64 * kt, 64 * kt + 64)
+            for x in (k2, v2, oh2):
+                x[bb, rows] = torch.tensor(
+                    rng.normal(size=x[bb, rows].shape), dtype=torch.float32)
+        got = run(k2, v2, oh2)
+        rows = slice(64 * qt, 64 * qt + 64)
+        if piece == "out":
+            err = (got[:, rows] - want[:, rows]).abs().max()
+        else:
+            err = (got[:, :, rows] - want[:, :, rows]).abs().max()
+        assert float(err) <= 1e-6, (qt, float(err))
