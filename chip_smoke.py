@@ -1386,8 +1386,8 @@ def phase_streamed_bwd_timing():
                                          plain_fwd=None)
         live, visited = tile_shares(args[4])
         log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
-            f" the live-tile rule (bf16 glam, dkvt) visits {visited:.4f} of the"
-            " (query tile, key tile) pairs, the others every pair")
+            f" the live-tile rule (bf16 glam, dkvt) visits {visited:.4f} of"
+            " the (query tile, key tile) pairs, the others every pair")
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=1, iters=5)
             plain_ms = time_ms(plain, warmup=1, iters=2)
@@ -2388,10 +2388,10 @@ def main() -> int:
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            **{key: row[key] for key in ("bound_fp32_ms", "bound_split_bf16_ms",
-                                         "special_floor_ms", "ms_dropout_0_1",
-                                         "live_key_tile_share",
-                                         "visited_tile_share") if key in row})
+            **{key: row[key] for key in (
+                "bound_fp32_ms", "bound_split_bf16_ms", "special_floor_ms",
+                "ms_dropout_0_1", "live_key_tile_share", "visited_tile_share")
+               if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)

@@ -57,14 +57,14 @@
 //   three consumer warpgroups and a producer warp (setmaxnreg 24 / 160),
 //   128 at E <= 128 (two warpgroups, 24 / 240). Each warpgroup's Q and dO
 //   tiles stay resident; the visited key tiles' K, V and one-hot come by
-//   TMA into a ring of four stages. Per key tile, on wgmma m64n64k16: S =
+//   TMA into a ring of two stages. Per key tile, on wgmma m64n64k16: S =
 //   Q K^T and GM = dO V^T (both operands in shared memory), then g = gm p keep
 //   without a branch (0 on BiMAU's diagonal), rounded to bf16 in the
 //   accumulators and fed back as the A operand of G_lam += G one-hot (one-
 //   hot MN-major). Registers a consumer thread: S, GM and g_lam 32 fp32
 //   each at E = 64, g_lam 64 at E = 128 (hence two warpgroups there), the
-//   16 bf16 fragments of G; ptxas: no spill. Shared memory at T = 2048:
-//   149,708 bytes at E = 64, 166,092 at E = 128.
+//   16 bf16 fragments of G; ptxas: 44 bytes spilled at E = 64, none at
+//   128. Shared memory at T = 2048: 100,012 bytes at E = 64 and 128.
 // * fp32: 256 threads on the CUDA cores, tiles of 64 x 64 held as fp32 in
 //   shared memory, rows padded to a stride of 4 mod 32 floats so that
 //   16-byte loads are free of bank conflicts. A thread owns the entries

@@ -52,7 +52,7 @@
 //   whose warpgroup hands its registers to them by setmaxnreg (24 / 160).
 //   Each warpgroup's Q and lam tiles stay resident; the producer streams
 //   the visited key tiles' K, V and one-hot by TMA (128-byte swizzle) into
-//   a ring of four stages under full and empty mbarriers, with their key
+//   a ring of two stages under full and empty mbarriers, with their key
 //   mask by plain loads. Per key tile, on wgmma m64n64k16 with fp32
 //   accumulators: S = Q K^T and IQK = lam one-hot^T (both operands in
 //   shared memory, the events as IQK's reduction), then u = rnd(iqk p
@@ -68,12 +68,11 @@
 //   64-column sub-tiles a head and two consumer warpgroups (a (64 x 128)
 //   output accumulator needs 240 registers); narrower heads come
 //   zero-padded to 64, lam and the one-hot to 64-event tiles. The events
-//   of a tile set
-//   the shared memory (mau_out_smem_bytes): three warpgroups and four
-//   stages up to E = 128 at dh = 64 (two stages up to 256), else one
-//   warpgroup, with fewer stages where four do not fit (E up to 768 at dh
-//   = 64, 704 at dh = 128). At E = 64, T = 2048: 149,708 bytes of shared
-//   memory; ptxas gives a consumer thread 160 registers (24 bytes spilled).
+//   of a tile set the shared memory (mau_out_smem_bytes): three
+//   warpgroups (two at dh = 128) up to E = 256, else one warpgroup, with
+//   one stage where two do not fit (E up to 768 at dh = 64, 704 at dh =
+//   128). At E = 64, T = 2048: 100,012 bytes of shared memory; ptxas gives
+//   a consumer thread 160 registers (84 bytes spilled).
 // * fp32: 256 threads on the CUDA cores; a thread owns a 4 x 4 tile of each
 //   (64 x 64) product and 4 rows x dh/16 columns of the outputs; operands
 //   sit in shared memory as fp32 (q, k, lam and the one-hot transposed, so
@@ -628,8 +627,7 @@ __global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsP
 // Warpgroups and ring stages of a block for NS sub-tiles and ept event
 // tiles: the first whose shared memory fits of three consumer warpgroups
 // at dh = 64 and two at dh = 128 (a consumer's (64 x 128) output
-// accumulator needs 240 registers), else one; kQmStages stages, else two,
-// else one.
+// accumulator needs 240 registers), else one; kQmStages stages, else one.
 struct QmConfig {
   int groups, stages;
 };
@@ -637,7 +635,7 @@ struct QmConfig {
 __host__ inline QmConfig out_tc_config(int ns, int ept, int Tk) {
   const int rt = ns + ept, st = 2 * ns + ept;
   for (const int groups : {ns == 1 ? 3 : 2, 1})
-    for (const int stages : {kQmStages, 2, 1})
+    for (const int stages : {kQmStages, 1})
       if (qm_smem_bytes(groups, rt, stages, st, Tk) <= kMaxSmem) return {groups, stages};
   return {1, 1};  // does not fit: the launch refuses it
 }

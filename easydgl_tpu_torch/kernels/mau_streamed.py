@@ -40,9 +40,8 @@ kernels (output, d-lambda, dk/dv/dt), whose heads are zero-padded to 64
 channels too. Those three visit only the (query tile, key tile) pairs of
 ``streamed_visited_tiles``: each block makes ``streamed_key_plan``'s row of
 its batch row from the key mask (``key_plan`` in ``csrc/mau_streamed.cuh``)
-and applies the rule to it. The backward
-kernels take dh in (16, 32, 64) and E up to 128; in fp32 every kernel runs
-on the CUDA cores.
+and applies the rule to it. The backward kernels take dh in (16, 32, 64)
+and E up to 128; in fp32 every kernel runs on the CUDA cores.
 """
 from __future__ import annotations
 

@@ -63,10 +63,12 @@ MUTANTS = {
         "    if (p.causal && !bl && kt * BK > imin(q0 + BQ, p.Tq) - 1 - BK) "
         "return false;"),
     "out: BiMAU's diagonal iqk left as lam": (
-        FWD, "            float u = ((tested && diag && i == j) ? 1.f : ia[x]) * pr;",
+        FWD, "            float u = ((tested && diag && i == j) ? 1.f : ia[x])"
+        " * pr;",
         "            float u = ia[x] * pr;"),
     "glam: BiMAU's diagonal not zeroed": (
-        STREAMED, "            float u = (tested && diag && i == j) ? 0.f : ga[x] * pr;",
+        STREAMED, "            float u = (tested && diag && i == j) ? 0.f : "
+        "ga[x] * pr;",
         "            float u = ga[x] * pr;"),
     "glam: no dropout factor": (
         STREAMED, "            if constexpr (decltype(dropped)::value) u *= "

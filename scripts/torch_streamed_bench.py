@@ -248,7 +248,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    alone = [fn for flag, fn in ((args.vjp, vjp_times), (args.dkvt, dkvt_times),
+    alone = [fn for flag, fn in ((args.vjp, vjp_times),
+                                 (args.dkvt, dkvt_times),
                                  (args.out, out_times),
                                  (args.glam, glam_times)) if flag]
     if alone:

@@ -281,8 +281,8 @@ def test_live_tile_rule_is_exact_on_the_plain_versions(piece, causal, diag):
     rng = np.random.default_rng(11)
     km = _tile_masks()
     b, t, h, dh, e = 4, 200, 2, 8, 4
-    q, k, v = (torch.tensor(rng.normal(size=(b, t, h * dh)), dtype=torch.float32)
-               for _ in range(3))
+    q, k, v = (torch.tensor(rng.normal(size=(b, t, h * dh)),
+                            dtype=torch.float32) for _ in range(3))
     oh = torch.tensor((rng.random((b, t, e)) < 0.3).astype(np.float32))
     lam = torch.tensor(rng.random((b, h, t, e)).astype(np.float32))
     g_out = torch.tensor(rng.normal(size=(b, t, h * dh)), dtype=torch.float32)
