@@ -159,12 +159,12 @@ CUDA_KERNELS = {
     "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>",
                         "catalog_bwd_tc_kernel<2>"],
     "mau_stats": ["mau_stats_mma_kernel"],
-    "mau_intensity": ["mau_intensity_kernel"],
+    "mau_intensity": ["mau_int_split_kernel", "mau_int_fwd_tc_kernel"],
     "mau_modulated_out": ["mau_out_tc_kernel"],
     "mau_glam": ["mau_glam_tc_kernel"],
     "mau_intensity_bwd": ["mau_int_bwd_rows_tc_kernel",
                           "mau_int_bwd_cols_tc_kernel"],
-    "mau_dq": ["mau_dq_mma_kernel"],
+    "mau_dq": ["mau_dq_tc_kernel"],
     "mau_dkvt": ["mau_dkvt_tc_kernel"],
     "flash_attention_fwd": ["flash_fwd_tc_kernel"],
     "flash_attention_bwd": ["flash_bwd_tc_kernel"]}
@@ -292,12 +292,16 @@ def phase_kernel_checks():
     return errs
 
 
-def mau_keys(km) -> float:
+def mau_keys(km, visible_only=False) -> float:
     """The keys a query row of the bidirectional MAU needs, averaged over
     the batch rows: the visible ones, or every key where the row's key mask
     is all 0 (its probs are uniform over the masked keys). A masked key of
-    any other row gets a prob of exactly 0 and costs the function nothing."""
+    any other row gets a prob of exactly 0 and costs the function nothing.
+    ``visible_only``: the visible ones alone, for dq, whose every term is 0
+    where an entry is not visible."""
     vis = (km > 0).sum(-1).double()
+    if visible_only:
+        return float(vis.mean())
     return float(torch.where(vis > 0, vis, float(km.shape[-1])).mean())
 
 
@@ -706,10 +710,46 @@ def streamed_out_check(i, name, shape, dtype, causal, diag, rate,
     return scale_err(name, "out", out, want.out, dtype)
 
 
+# dh, E, B, T of the intensity head alone, H = 2: every head width the
+# kernel takes, E = 64 and 128 and a wide one, row counts B * H * T that are
+# no multiple of the 64-row tile, dh = 16 with a ragged last column tile
+INTENSITY_CASES = ((16, 64, 2, 1000), (16, 3, 2, 77), (32, 128, 1, 999),
+                   (64, 64, 3, 701), (64, 400, 1, 333), (128, 64, 2, 130),
+                   (128, 128, 1, 333), (128, 700, 1, 77))
+
+
+def intensity_check(i, dh, e, b, t):
+    """The intensity head alone on seq_units ~ N(0, 0.5) at (dh, E, B, T)
+    against ``intensity_reference``: (max abs err, worst/tol) at the fp32
+    tolerance."""
+    g = torch.Generator(device="cuda").manual_seed(900 + i)
+    h, dev = 2, "cuda"
+
+    def normal(*shape, std):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    su = normal(b, h, t, dh, std=0.5)
+    iv = (-torch.log(torch.rand(b, t, generator=g, device=dev))).clamp(0.0,
+                                                                      100.0)
+    wd, bd = normal(dh + 1, e * dh, std=0.2), normal(e * dh, std=0.1)
+    w, sc = normal(e, dh, std=0.2), normal(e, std=0.3)
+    before = mau_intensity.launches
+    lam = mau_intensity(su, iv, wd, bd, w, sc)
+    torch.cuda.synchronize()
+    check(mau_intensity.launches == before + 1, "mau_intensity: no launch")
+    return scale_err(f"int_dh{dh}_e{e}_b{b}_t{t}", "lam", lam,
+                     intensity_reference(su, iv, wd, bd, w, sc),
+                     torch.float32)
+
+
 def phase_streamed_checks():
     log("phase 3d: streamed MAU kernels (stats, intensity head, modulated "
         "output) vs the blocked plain version on the card, each kernel on "
         "the plain version's inputs")
+    log("  the intensity head alone at every head width (fp32 tolerance):")
+    for i, case in enumerate(INTENSITY_CASES):
+        check(intensity_check(i, *case)[1] <= 1.0,
+              f"intensity {case}: lam outside tolerance")
     errs = {}
     for i, (name, shape, dtype, causal, diag, rate) in \
             enumerate(STREAMED_CASES):
@@ -1306,6 +1346,10 @@ def phase_streamed_timing():
             nbytes, flops, op_dtype = streamed_work(name, **LC, dtype=dtype,
                                                     keys=mau_keys(km))
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
+            extra = {}
+            if name == "mau_intensity":
+                bound_ms, extra = intensity_bound(name, dtype)
+                bound_by = extra.pop("bound_by")
             share = (visited if name == "mau_modulated_out"
                      and dtype == torch.bfloat16 else 1.0)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
@@ -1317,7 +1361,7 @@ def phase_streamed_timing():
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        library_ms=None, sdpa_ms=sdpa_ms,
                                        live_key_tile_share=live,
-                                       visited_tile_share=share)
+                                       visited_tile_share=share, **extra)
             if name == "mau_modulated_out":
                 rows[(name, dtype)]["ms_dropout_0_1"] = drop_ms
                 log(f"  {name:17s} {str(dtype):15s} kernel {drop_ms:.4f} ms"
@@ -1360,19 +1404,43 @@ def streamed_bwd_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
             + 4 * rows * (e + 3), 2 * rows * keys * (nprod * dh + e), dtype)
 
 
-def intensity_vjp_bounds(*, b, tq, h, dh, e, **_):
-    """(fp32 CUDA-core bound, split-bf16 tensor-core bound) of the
-    intensity VJP in ms: its ``streamed_bwd_work`` on the CUDA cores at 67
-    TFLOP/s; and its three products of rows x (dh+1) x E*dh, three bf16
-    passes each (the hi/lo split the kernels run), at the tensor cores' 989
-    TFLOP/s (each the larger of that and its bytes)."""
-    nbytes, flops, _ = streamed_bwd_work("mau_intensity_bwd", b=b, tq=tq,
-                                         tk=tq, h=h, dh=dh, e=e,
-                                         dtype=torch.float32, keys=0)
+def intensity_bounds(name, *, b, tq, h, dh, e, **_):
+    """(fp32 CUDA-core bound, split-bf16 tensor-core bound) in ms of the
+    intensity head (``mau_intensity``: one product of rows x (dh+1) x E*dh)
+    or its VJP (``mau_intensity_bwd``: three): its work on the CUDA cores at
+    67 TFLOP/s; and its products, three bf16 passes each (the hi/lo split
+    the kernels run), at the tensor cores' 989 TFLOP/s (each the larger of
+    that and its bytes)."""
+    fwd = name == "mau_intensity"
+    nbytes, flops, _ = (streamed_work if fwd else streamed_bwd_work)(
+        name, b=b, tq=tq, tk=tq, h=h, dh=dh, e=e, dtype=torch.float32, keys=0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    products = 3 * 2 * b * h * tq * (dh + 1) * e * dh
+    products = (1 if fwd else 3) * 2 * b * h * tq * (dh + 1) * e * dh
     return (bound(nbytes, flops, torch.float32)[0],
             max(t_bytes, 3 * products / PEAK_FLOPS[torch.bfloat16] * 1e3))
+
+
+def intensity_bound(name, dtype):
+    """The intensity head's or its VJP's bound at the LC shape, the lower
+    of its split-bf16 and fp32 bounds (its products run on the tensor cores
+    in three bf16 passes), and the row entries that say so, with its sigmoid
+    floor at one and at two special-function ops a sigmoid (the kernels
+    keep the exact form, ex2 and a reciprocal: two); logged."""
+    fp32_ms, tc_ms = intensity_bounds(name, **LC)
+    sigmoids = LC["b"] * LC["h"] * LC["tq"] * LC["e"] * LC["dh"]
+    one, two = special_floor_ms(sigmoids), special_floor_ms(2 * sigmoids)
+    log(f"  {name:17s} {str(dtype):15s} bound in split bf16 on the tensor"
+        f" cores {tc_ms:.4f} ms ({1 if name == 'mau_intensity' else 3}"
+        f" product(s) x 3 passes at 989 TFLOP/s); in fp32 on the CUDA cores"
+        f" (67 TFLOP/s) the same work takes at least {fp32_ms:.4f} ms; the"
+        f" bound is the lower, {min(fp32_ms, tc_ms):.4f} ms. Sigmoid floor"
+        f" ({sigmoids / 1e6:.1f} M): {one:.4f} ms at one special-function op"
+        f" a sigmoid, {two:.4f} ms at two (ex2 and a reciprocal, the exact"
+        " form the kernel runs)")
+    return min(fp32_ms, tc_ms), dict(
+        bound_by="operations", bound_fp32_ms=fp32_ms,
+        bound_split_bf16_ms=tc_ms, special_floor_ms=two,
+        special_floor_one_op_ms=one)
 
 
 def phase_streamed_bwd_timing():
@@ -1385,36 +1453,34 @@ def phase_streamed_bwd_timing():
                                          diag=True, rate=0.1, seed=7000,
                                          plain_fwd=None)
         live, visited = tile_shares(args[4])
+        dq_visited = float(streamed_visited_tiles(
+            args[4], LC["tq"], False, visible_only=True).float().mean())
         log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
             f" the live-tile rule (bf16 glam, dkvt) visits {visited:.4f} of"
-            " the (query tile, key tile) pairs, the others every pair")
+            f" the (query tile, key tile) pairs, its visible-only form (bf16"
+            f" dq) {dq_visited:.4f}, the others every pair")
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=1, iters=5)
             plain_ms = time_ms(plain, warmup=1, iters=2)
+            # dq's terms are 0 where an entry is not visible: it needs the
+            # visible keys alone, even in a row that sees none
+            keys = mau_keys(args[4], visible_only=name == "mau_dq")
             nbytes, flops, op_dtype = streamed_bwd_work(
-                name, **LC, dtype=dtype, keys=mau_keys(args[4]))
+                name, **LC, dtype=dtype, keys=keys)
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
             extra = {}
             if name == "mau_intensity_bwd":
-                # the products run on the tensor cores in three bf16 passes:
-                # the bound is the lower of the two ways to compute them
-                fp32_ms, tc_ms = intensity_vjp_bounds(**LC)
-                bound_ms, bound_by = min(fp32_ms, tc_ms), "operations"
-                extra = dict(bound_fp32_ms=fp32_ms, bound_split_bf16_ms=tc_ms)
-                log(f"  {name:17s} {str(dtype):15s} bound in split bf16 on the"
-                    f" tensor cores {tc_ms:.4f} ms (3 products x 3 passes at"
-                    f" 989 TFLOP/s); in fp32 on the CUDA cores (67 TFLOP/s)"
-                    f" the same work takes at least {fp32_ms:.4f} ms; the"
-                    f" bound is the lower, {min(fp32_ms, tc_ms):.4f} ms")
-            # one special-function op a sigmoid (the intensity head) or an
-            # exp (each visible pair of the attention side)
+                bound_ms, extra = intensity_bound(name, dtype)
+                bound_by = extra.pop("bound_by")
+            # one special-function op an exp (each pair of the attention side
+            # it needs); the intensity VJP's sigmoids at one op each
             lc_rows = LC["b"] * LC["h"] * LC["tq"]
             special = (lc_rows * LC["e"] * LC["dh"]
-                       if name == "mau_intensity_bwd"
-                       else lc_rows * mau_keys(args[4]))
+                       if name == "mau_intensity_bwd" else lc_rows * keys)
             floor_ms = special_floor_ms(special)
-            share = (visited if name in ("mau_glam", "mau_dkvt")
-                     and dtype == torch.bfloat16 else 1.0)
+            share = ({"mau_glam": visited, "mau_dkvt": visited,
+                      "mau_dq": dq_visited}.get(name, 1.0)
+                     if dtype == torch.bfloat16 else 1.0)
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
                 f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
@@ -1422,12 +1488,13 @@ def phase_streamed_bwd_timing():
                 f" special-function floor {floor_ms:.4f} ms"
                 f" ({special / 1e6:.1f} M ops); tile pairs visited"
                 f" {share:.4f}")
-            rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=None,
-                                       special_floor_ms=floor_ms,
-                                       live_key_tile_share=live,
-                                       visited_tile_share=share, **extra)
+            rows[(name, dtype)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                special_floor_ms=floor_ms, live_key_tile_share=live,
+                visited_tile_share=share,
+                **{k: v for k, v in extra.items()
+                   if k != "special_floor_ms"})
         del runs
     return rows
 
@@ -2390,6 +2457,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=None,
             **{key: row[key] for key in (
                 "bound_fp32_ms", "bound_split_bf16_ms", "special_floor_ms",
+                "special_floor_one_op_ms",
                 "ms_dropout_0_1", "live_key_tile_share", "visited_tile_share")
                if key in row})
         if forward:

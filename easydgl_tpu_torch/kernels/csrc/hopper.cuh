@@ -231,6 +231,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// d += A B in three bf16 products of a hi/lo split (split_bf16x2): lo hi +
+// hi lo + hi hi, summed in fp32 (about 2^-16 of |a||b| a term; one TF32
+// pass keeps 2^-11). A's hi/lo fragments from registers, B's hi/lo tiles by
+// descriptor; TB as wgmma_rs.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_x3(float (&d)[32], const uint32_t* a_hi,
+                                            const uint32_t* a_lo, uint64_t b_hi,
+                                            uint64_t b_lo) {
+  wgmma_rs<TB>(d, a_lo, b_hi);
+  wgmma_rs<TB>(d, a_hi, b_lo);
+  wgmma_rs<TB>(d, a_hi, b_hi);
+}
+
 // ---------------------------------------------------------------- host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

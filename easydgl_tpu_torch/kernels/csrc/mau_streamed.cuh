@@ -219,8 +219,11 @@ __device__ __forceinline__ void key_plan(const float* km_row, int Tk, int* plan)
 // visits every key tile; any other one visits the tiles that hold a real
 // key, under causal none after its last query (key_tiles' range). Every
 // pair left out adds exactly 0: in a row that sees a key, a key that is not
-// visible has a prob of 0. P: the kernel's parameters (Tq, Tk, causal),
-// read where they are used.
+// visible has a prob of 0. The visible-only form (dq's) treats no query
+// tile as blind: a term that is zero wherever its entry is not visible gets
+// nothing from a row that sees no key, so only the tiles that hold a real
+// key, within the causal range, are visited. P: the kernel's parameters
+// (Tq, Tk, causal), read where they are used.
 struct TileRule {
   const int* plan;  // the batch row's plan, in shared memory
   int first;
@@ -231,15 +234,17 @@ struct TileRule {
   }
   // Whether query tile q0 visits key tile kt (< key_tile_count) of code `code`.
   template <typename P>
-  __device__ __forceinline__ bool visits_code(const P& p, int kt, int code, int q0) const {
+  __device__ __forceinline__ bool visits_code(const P& p, int kt, int code, int q0,
+                                              bool visible_only = false) const {
     if (q0 >= p.Tq) return false;
-    const bool bl = blind(p, q0);
+    const bool bl = !visible_only && blind(p, q0);
     if (p.causal && !bl && kt * BK > imin(q0 + BQ, p.Tq) - 1) return false;
     return bl || code != 0;
   }
   template <typename P>
-  __device__ __forceinline__ bool visits(const P& p, int kt, int q0) const {
-    return kt < key_tile_count(p.Tk) && visits_code(p, kt, plan[kt], q0);
+  __device__ __forceinline__ bool visits(const P& p, int kt, int q0,
+                                         bool visible_only = false) const {
+    return kt < key_tile_count(p.Tk) && visits_code(p, kt, plan[kt], q0, visible_only);
   }
   // Whether the entries of (query tile q0, key tile kt) are tested one by
   // one: a tile with a key that is not real (masked or past Tk), and under
@@ -256,15 +261,15 @@ __device__ __forceinline__ TileRule tile_rule(const int* plan, int Tk) {
 }
 
 // ---------------------------------------------------------------- bf16 on
-// wgmma: what the query-major output (mau_out_tc_kernel) and d-lambda
-// (mau_glam_tc_kernel) kernels share, on flash_fwd_tc_kernel's pattern: a
-// block owns G warpgroups of 64 queries of one (b, h) and a producer warp
-// (its warpgroup hands its registers over by setmaxnreg). The producer
-// copies each warpgroup's resident tiles once, then streams the visited
-// key tiles' K, V and one-hot by TMA (128-byte swizzle) into a ring of
-// stages under full and empty mbarriers, with their key mask by plain
-// loads; every warpgroup consumes every stage and skips the tiles its own
-// queries do not visit.
+// wgmma: what the query-major output (mau_out_tc_kernel), d-lambda
+// (mau_glam_tc_kernel) and dq (mau_dq_tc_kernel) kernels share, on
+// flash_fwd_tc_kernel's pattern: a block owns G warpgroups of 64 queries of
+// one (b, h) and a producer warp (its warpgroup hands its registers over by
+// setmaxnreg). The producer copies each warpgroup's resident tiles once,
+// then streams the visited key tiles' K, V (T) and one-hot by TMA (128-byte
+// swizzle) into a ring of stages under full and empty mbarriers, with their
+// key mask by plain loads; every warpgroup consumes every stage and skips
+// the tiles its own queries do not visit.
 
 constexpr int kQmTile = 64 * 64;   // bf16 values of a (64 x 64) tile, 8 KB
 constexpr int kQmStages = 2;       // ring stages where they fit (four measured no faster)
@@ -273,10 +278,19 @@ constexpr int kQmProducerRegs = 24;
 // 240 of a warpgroup thread fit the 65,536 of an SM.
 __host__ __device__ constexpr int qm_consumer_regs(int groups) { return groups == 3 ? 160 : 240; }
 
+// The maps the producer copies from, each (64 columns x 64 rows) boxes of a
+// (B, H, T, cols) operand: per warpgroup nres[m] column tiles of res[m] once
+// (Q first: the output's Q and lam, the d-lambda's Q and dO, dq's Q, dO,
+// g_su and lam); per visited key tile nring[m] column tiles of ring[m] into
+// a stage, in the order K, V, T (dq only), one-hot (one head for all, so
+// read at head 0).
+constexpr int kQmMaps = 4, kQmOnehot = 3;
 struct QmMaps {
-  CUtensorMap q, x;          // resident a warpgroup: Q, and lam (output) or dO (d-lambda)
-  CUtensorMap k, v, onehot;  // a ring stage: K, V and the one-hot of a key tile
+  CUtensorMap res[kQmMaps], ring[kQmMaps];
+  int nres[kQmMaps], nring[kQmMaps];
 };
+
+__host__ __device__ inline int qm_tiles(const int (&n)[kQmMaps]) { return n[0] + n[1] + n[2] + n[3]; }
 
 // Dynamic shared memory of a block: `groups` x `res` resident tiles,
 // `stages` x `ring` tiles and 64 key-mask floats, the mbarriers, the plan
@@ -291,10 +305,11 @@ template <int G>
 struct QmBlock {
   TileRule rule;
   int b, h, q0;
+  bool visible_only;  // the rule's visible-only form (dq)
 
   template <typename P>
   __device__ __forceinline__ bool wg_visits(const P& p, int kt, int wg) const {
-    return rule.visits(p, kt, q0 + 64 * wg);
+    return rule.visits(p, kt, q0 + 64 * wg, visible_only);
   }
   // The first key tile from kt on that a warpgroup of the block visits
   // (the number of key tiles if none).
@@ -308,24 +323,22 @@ struct QmBlock {
   }
 };
 
-// The producer warp: each warpgroup's nq sub-tiles of Q and nx tiles of
-// maps.x once, then each visited key tile's K and V (nq sub-tiles each) and
-// one-hot (ept tiles) into stage it % stages, and its key mask (0 past Tk).
+// The producer warp: each warpgroup's resident tiles once (maps.res), then
+// each visited key tile's ring tiles (maps.ring) into stage it % stages, and
+// its key mask (0 past Tk).
 template <int G, typename P>
 __device__ __forceinline__ void qm_produce(const P& p, const QmBlock<G>& blk, const QmMaps& maps,
-                                           int nq, int nx, int ept, int stages, bf16* res,
-                                           bf16* ring, float* kms, uint64_t* res_full,
-                                           uint64_t* full, uint64_t* empty, int lane) {
-  const int rt = nq + nx, st = 2 * nq + ept;
+                                           int stages, bf16* res, bf16* ring, float* kms,
+                                           uint64_t* res_full, uint64_t* full, uint64_t* empty,
+                                           int lane) {
+  const int rt = qm_tiles(maps.nres), st = qm_tiles(maps.nring);
   if (lane == 0) {
     mbar_arrive_tx(res_full, (uint32_t)(G * rt * kQmTile * sizeof(bf16)));
     for (int w = 0; w < G; ++w) {
       bf16* r = res + w * rt * kQmTile;
-      const int t0 = blk.q0 + 64 * w;
-      for (int c = 0; c < nq; ++c)
-        tma_rows(r + c * kQmTile, &maps.q, res_full, t0, blk.h, blk.b, 64 * c);
-      for (int c = 0; c < nx; ++c)
-        tma_rows(r + (nq + c) * kQmTile, &maps.x, res_full, t0, blk.h, blk.b, 64 * c);
+      for (int m = 0; m < kQmMaps; ++m)
+        for (int c = 0; c < maps.nres[m]; ++c, r += kQmTile)
+          tma_rows(r, &maps.res[m], res_full, blk.q0 + 64 * w, blk.h, blk.b, 64 * c);
     }
   }
   const int Tk = p.Tk, nkt = key_tile_count(Tk);
@@ -338,12 +351,9 @@ __device__ __forceinline__ void qm_produce(const P& p, const QmBlock<G>& blk, co
     if (lane == 0) {
       bf16* d = ring + s * st * kQmTile;
       mbar_arrive_tx(full + s, (uint32_t)(st * kQmTile * sizeof(bf16)));
-      for (int c = 0; c < nq; ++c) {
-        tma_rows(d + c * kQmTile, &maps.k, full + s, j0, blk.h, blk.b, 64 * c);
-        tma_rows(d + (nq + c) * kQmTile, &maps.v, full + s, j0, blk.h, blk.b, 64 * c);
-      }
-      for (int c = 0; c < ept; ++c)
-        tma_rows(d + (2 * nq + c) * kQmTile, &maps.onehot, full + s, j0, 0, blk.b, 64 * c);
+      for (int m = 0; m < kQmMaps; ++m)
+        for (int c = 0; c < maps.nring[m]; ++c, d += kQmTile)
+          tma_rows(d, &maps.ring[m], full + s, j0, m == kQmOnehot ? 0 : blk.h, blk.b, 64 * c);
     } else {
       mbar_arrive(full + s);
     }
@@ -372,14 +382,21 @@ __device__ __forceinline__ RowStats row_stats(const float* m, const float* l, si
   return r;
 }
 
+// Whether entry (i, j) is visible: outside tested tiles every entry is; in
+// them the key must be real (not masked, not past Tk, whose mask entry
+// reads 0) and, under causal, not after the query.
+__device__ __forceinline__ bool entry_visible(bool test, float km, int i, int j, int causal) {
+  return !test || (km > 0.f && !(causal && j > i));
+}
+
 // The base-2 exponent of p for entry (i, j) of row hr from its raw dot
 // product, without a branch: visible -> dot scale log2 e - m log2 e; a real
 // key that is masked or causally hidden -> hid2; padding (j >= Tk) -> -inf,
-// so p = 0. Outside tested tiles every entry is visible.
+// so p = 0.
 __device__ __forceinline__ float entry_exp2(float dot, bool test, float km, int i, int j, float sl2,
                                           const RowStats& r, int hr, int Tk, int causal) {
-  const bool vis = !test || (km > 0.f && !(causal && j > i));
-  return vis ? fmaf(dot, sl2, -r.m2[hr]) : (j < Tk ? r.hid2[hr] : -INFINITY);
+  return entry_visible(test, km, i, j, causal) ? fmaf(dot, sl2, -r.m2[hr])
+                                               : (j < Tk ? r.hid2[hr] : -INFINITY);
 }
 
 // A flag that is a constant where the caller passes one
@@ -429,6 +446,21 @@ inline bool bf16_rows_map(CUtensorMap* map, const void* ptr, long long cols, int
   const cuuint64_t strides[3] = {(cuuint64_t)rs * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
   const cuuint32_t box[4] = {64, 64, 1, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box);
+}
+
+// A bf16 (B, T, H * dh) sequence's map: a head's dh channels by its rows.
+inline bool heads_seq_map(CUtensorMap* map, const Seq& s, int T, int H, int B, int dh = 64) {
+  return bf16_rows_map(map, s.p, dh, T, H, B, s.rs, dh, s.bs);
+}
+
+// A bf16 (B, H, T, cols) contiguous tensor's map (lam, g_su).
+inline bool heads_map(CUtensorMap* map, const void* ptr, long long cols, int T, int H, int B) {
+  return bf16_rows_map(map, ptr, cols, T, H, B, cols, T * cols, H * T * cols);
+}
+
+// The bf16 one-hot (B, Tk, EP)'s map, one head.
+inline bool onehot_map(CUtensorMap* map, const void* ptr, long long ep, int Tk, int B) {
+  return bf16_rows_map(map, ptr, ep, Tk, 1, B, ep, Tk * ep, Tk * ep);
 }
 
 template <typename K, typename... Args>

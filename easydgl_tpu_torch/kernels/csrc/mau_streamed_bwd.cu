@@ -7,7 +7,8 @@
 //                   _int_bwd_kernel (pallas_call in _int_streamed_bwd, :274)
 //   mau_glam_tc_kernel (bf16), mau_glam_kernel (fp32)
 //                   _glam_kernel    (pallas_call in _mau_streamed_bwd, :692)
-//   mau_dq_kernel   _dq_kernel      (pallas_call in _mau_streamed_bwd, :739)
+//   mau_dq_tc_kernel (bf16), mau_dq_kernel (fp32)
+//                   _dq_kernel      (pallas_call in _mau_streamed_bwd, :739)
 //   mau_dkvt_tc_kernel (bf16), mau_dkvt_kernel (fp32)
 //                   _dkvt_kernel    (pallas_call in _mau_streamed_bwd, :768)
 //
@@ -41,16 +42,28 @@
 // kernels visit, within it, only the pairs of the live-tile rule there (a
 // key tile with no real key only where a row of the query tile sees no
 // key), the query-major glam from the query tile's side, the key-major
-// dkvt from the key tile's.
+// dkvt from the key tile's. The bf16 dq visits only the key tiles that hold
+// a real key, blind query tile or not (the rule's visible-only form): its
+// g_s is 0 wherever an entry is not visible, so a row that sees no key
+// adds exactly 0 to dq.
 //
 // Design. The attention-side kernels come in two forms:
 //
-// * dq, bf16 (the main path): the forward stats kernel's flash schedule on
-//   the tensor cores (mma.sync m16n8k16, fp32 accumulate), four warps of 16
-//   rows, each 64-wide tile in two 32-wide halves; a half's products come
-//   out as C fragments, are formed in place and, rounded to bf16, are the
-//   A fragments of the next product. Tiles are bf16 rows in shared memory,
-//   fetched with cp.async one tile ahead and read with ldmatrix.
+// * dq, bf16 (the main path; mau_dq_tc_kernel): glam's query-major
+//   wgmma/TMA schedule, two consumer warpgroups of 64 queries and a
+//   producer warp (setmaxnreg 24 / 240). Each warpgroup's Q, dO, g_su and
+//   lam tiles stay resident; the visited key tiles' K, V, T and one-hot
+//   come by TMA into a ring of two stages. Per key tile, on wgmma m64n64k16
+//   with fp32 accumulators, the products in sequence to bound the live
+//   accumulators: S = Q K^T, GT = g_su T^T and IQK = lam one-hot^T; then p
+//   where the entry is visible (else 0, without a branch), xa = p (gt -
+//   rho) and u = p keep iqk (BiMAU: iqk = 1 on the diagonal), after which S
+//   is dead; then GM = dO V^T into S's registers; g_s = (u gm + xa) /
+//   sqrt(dh), rounded to bf16 in the accumulators and fed back as the A
+//   operand of dQ += G_s K (K MN-major). Live a thread: dq and three tile
+//   accumulators (128 fp32) and g_s's 16 bf16 fragments. A block whose
+//   queries see no key writes zeros. Shared memory at E = 64, T = 2048:
+//   132,780 bytes.
 // * glam, bf16 (the main path; mau_glam_tc_kernel): the output kernel's
 //   query-major wgmma/TMA schedule (mau_streamed_fwd.cu, the machinery of
 //   mau_streamed.cuh): a block owns 192 queries of one (b, h) at E <= 64,
@@ -75,7 +88,7 @@
 // The TPU's sequential grid axis becomes the loop inside the block, its VMEM
 // accumulators the registers.
 //
-// * glam (fp32), dq: one block per 64 queries of one (b, h), looping over
+// * glam, dq (fp32): one block per 64 queries of one (b, h), looping over
 //   key tiles; q and dO (dq: also g_su, lam) stay resident.
 // * dkvt, fp32 (mau_dkvt_kernel): one block per 64 keys of one (b, h),
 //   looping over query tiles; dk, dv and dt accumulate in registers.
@@ -609,149 +622,6 @@ __global__ void __launch_bounds__(kThreads) mau_dkvt_kernel(const BwdParams p) {
   }
 }
 
-// ---------------------------------------------------------------- bf16 on
-// the tensor cores: dq for a bf16 compute dtype, in the flash schedule of
-// mau_stats_mma_kernel (mau_streamed_fwd.cu): four warps of 16 rows
-// each, mma.sync m16n8k16 with fp32 accumulation, each 64-wide tile taken in
-// two 32-wide halves whose products come out as C fragments, are formed in
-// place and, rounded to bf16, are re-used as the A fragments of the next
-// product. Tiles sit in shared memory as bf16 rows fetched with cp.async
-// one tile ahead (double-buffered) and read with ldmatrix. lam and the
-// one-hot arrive from the wrapper rounded to bf16 and zero-padded to EP.
-
-__host__ __device__ inline size_t dq_mma_smem_bytes(int dh, int ep) {
-  return sizeof(bf16) * (size_t)(9 * 64 * (dh + 8) + 3 * 64 * (ep + 8)) + sizeof(float) * 2 * BK;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreadsMma) mau_dq_mma_kernel(const BwdParams p) {
-  constexpr int SD = DH + 8;
-  const int EP = p.EP, SE = EP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD] q
-  bf16* dos = qs + 64 * SD;                      // [64][SD] dO
-  bf16* gss = dos + 64 * SD;                     // [64][SD] g_su
-  bf16* ls = gss + 64 * SD;                      // [64][SE] lam
-  bf16* ks = ls + 64 * SE;                       // [2][BK][SD]
-  bf16* vs = ks + 2 * BK * SD;                   // [2][BK][SD]
-  bf16* ts = vs + 2 * BK * SD;                   // [2][BK][SD]
-  bf16* os = ts + 2 * BK * SD;                   // [2][BK][SE] one-hot
-  float* kms = reinterpret_cast<float*>(os + 2 * BK * SE);  // [2][BK] key mask
-
-  const int nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  const bf16* kg = head_ptr<bf16>(p.k, b, h, DH);
-  const bf16* vg = head_ptr<bf16>(p.v, b, h, DH);
-  const bf16* tg = head_ptr<bf16>(p.t, b, h, DH);
-  const bf16* ohg = reinterpret_cast<const bf16*>(p.onehot) + (size_t)b * p.Tk * EP;
-  const size_t row0 = (size_t)bh * p.Tq;
-  auto fetch = [&](int kt) {
-    const int buf = kt & 1;
-    async_bf16(ks + buf * BK * SD, SD, kg, p.k.rs, DH, kt * BK, p.Tk);
-    async_bf16(vs + buf * BK * SD, SD, vg, p.v.rs, DH, kt * BK, p.Tk);
-    async_bf16(ts + buf * BK * SD, SD, tg, p.t.rs, DH, kt * BK, p.Tk);
-    async_bf16(os + buf * BK * SE, SE, ohg, EP, EP, kt * BK, p.Tk);
-    async_mask(kms + buf * BK, km_row, kt * BK, p.Tk);
-  };
-
-  async_bf16(qs, SD, head_ptr<bf16>(p.q, b, h, DH), p.q.rs, DH, q0, p.Tq);
-  async_bf16(dos, SD, head_ptr<bf16>(p.dout, b, h, DH), p.dout.rs, DH, q0, p.Tq);
-  async_bf16(gss, SD, static_cast<const bf16*>(p.gsu) + row0 * DH, DH, DH, q0, p.Tq);
-  async_bf16(ls, SE, reinterpret_cast<const bf16*>(p.lam) + row0 * EP, EP, EP, q0, p.Tq);
-  float mi[2], li[2], ri[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    mi[hr] = i < p.Tq ? p.m[row0 + i] : 0.f;
-    li[hr] = i < p.Tq ? p.l[row0 + i] : 1.f;
-    ri[hr] = i < p.Tq ? p.rho[row0 + i] : 0.f;
-  }
-  const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
-  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
-  fetch(0);
-  cp_async_commit();
-
-  uint32_t qf[DH / 16][4], df[DH / 16][4], gf[DH / 16][4];
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) fetch(kt + 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, at kt = 0, q, dO, g_su and lam) is in shared memory
-    if (kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) {
-        a_frag(qf[kd], qs, SD, warp * 16, kd * 16, lane);
-        a_frag(df[kd], dos, SD, warp * 16, kd * 16, lane);
-        a_frag(gf[kd], gss, SD, warp * 16, kd * 16, lane);
-      }
-    }
-    const int j0 = kt * BK;
-    const bf16* kb = ks + (kt & 1) * BK * SD;
-    const bf16* vb = vs + (kt & 1) * BK * SD;
-    const bf16* tb = ts + (kt & 1) * BK * SD;
-    const bf16* ob = os + (kt & 1) * BK * SE;
-    const float* kmb = kms + (kt & 1) * BK;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4], gm[4][4], gt[4][4], iq[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = gm[n][c] = gt[n][c] = iq[n][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) {
-        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd * 16, lane);
-        mma_rows32(gm, df[kd], vb + half * KH * SD, SD, kd * 16, lane);
-        mma_rows32(gt, gf[kd], tb + half * KH * SD, SD, kd * 16, lane);
-      }
-      for (int ke = 0; ke < EP; ke += 16) {
-        uint32_t la[4];
-        a_frag(la, ls, SE, warp * 16, ke, lane);
-        mma_rows32(iq, la, ob + half * KH * SE, SE, ke, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int hr = c >> 1, jj = half * KH + n * 8 + 2 * t4 + (c & 1);
-          const int i = q0 + warp * 16 + g + 8 * hr, j = j0 + jj;
-          float x = 0.f;
-          if (j < p.Tk && kmb[jj] > 0.f && !(p.causal && j > i)) {  // visible
-            const float pr = expf(s[n][c] * p.scale - mi[hr]) / li[hr];
-            const float iqv = (p.diag_reset && i == j) ? 1.f : iq[n][c];
-            float gv = gm[n][c];
-            if (drop.on) gv *= drop.factor(b, h, i, j);
-            x = pr * (gv * iqv + gt[n][c] - ri[hr]) * p.scale;
-          }
-          s[n][c] = x;
-        }
-      mma_pv<DH>(o, s, kb + half * KH * SD, SD, lane);  // g_s rounded to bf16, @ K
-    }
-    __syncthreads();  // the buffer is free for tile kt + 2
-  }
-
-  const int C = p.H * DH;
-  bf16* dq = static_cast<bf16*>(p.dq) + (size_t)b * p.Tq * C + h * DH;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    if (i >= p.Tq) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)i * C + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[n][2 * hr], o[n][2 * hr + 1]);
-  }
-}
-
 // ---------------------------------------------------------------- dkvt, bf16
 // wgmma and TMA (see the header): warpgroups 0 and 1 consume, one 64-key
 // tile each; the first warp of warpgroup 2 produces.
@@ -1068,13 +938,13 @@ __global__ void __launch_bounds__(128 * (glam_groups(EPT) + 1), 1)
     mbar_fence_init();
   }
   key_plan(p.key_mask + (size_t)b * p.Tk, p.Tk, plan);  // ends with a barrier
-  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0};
+  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0, false};
   const int nkt = key_tile_count(p.Tk);
 
   if (warp >= 4 * G) {  // ---- producer: its first warp works
     regs_dec<kQmProducerRegs>();
     if (warp == 4 * G)
-      qm_produce(p, blk, maps, 1, 1, EPT, S, res, ring, kms, res_full, full, empty, lane);
+      qm_produce(p, blk, maps, S, res, ring, kms, res_full, full, empty, lane);
     return;
   }
 
@@ -1184,6 +1054,179 @@ __global__ void __launch_bounds__(128 * (glam_groups(EPT) + 1), 1)
   }
 }
 
+// ---------------------------------------------------------------- dq, bf16
+// on wgmma and TMA (see the header): two consumer warpgroups of 64
+// queries; q, k, v, t, dout and g_su 64 channels a head (the wrapper
+// zero-pads narrower ones), lam and the one-hot EPT 64-event tiles wide,
+// bf16.
+
+// dq's warpgroups: two (dq and three tile accumulators live, 128 fp32 a
+// thread, and the bf16 fragments of g_s: 240 registers).
+constexpr int kDqGroups = 2;
+
+__host__ __device__ inline size_t dq_tc_smem_bytes(int ept, int Tk) {
+  return qm_smem_bytes(kDqGroups, 3 + ept, kQmStages, 3 + ept, Tk);
+}
+
+template <int EPT>
+__global__ void __launch_bounds__(128 * (kDqGroups + 1), 1)
+    mau_dq_tc_kernel(const BwdParams p, const __grid_constant__ QmMaps maps) {
+  constexpr int G = kDqGroups, kQueries = 64 * G, RT = 3 + EPT, STN = 3 + EPT, S = kQmStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* res = reinterpret_cast<bf16*>(base);  // [group][Q, dO, g_su, lam EPT][64 queries][64]
+  bf16* ring = res + G * RT * kQmTile;         // [stage][K, V, T, one-hot EPT][64 keys][64]
+  float* kms = reinterpret_cast<float*>(ring + S * STN * kQmTile);  // [stage][64] key mask
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(kms + S * BK);
+  uint64_t* full = res_full + 1;  // [stage]
+  uint64_t* empty = full + S;     // [stage]
+  int* plan = reinterpret_cast<int*>(empty + S);  // key_plan of the batch row
+
+  // heaviest first: under causal the last query block visits the most tiles
+  const int BH = p.B * p.H, nqb = (p.Tq + kQueries - 1) / kQueries;
+  const int qb = nqb - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH, q0 = qb * kQueries;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * G);
+    }
+    mbar_fence_init();
+  }
+  key_plan(p.key_mask + (size_t)b * p.Tk, p.Tk, plan);  // ends with a barrier
+  // the visible-only rule: g_s is 0 wherever an entry is not visible
+  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0, true};
+  const int nkt = key_tile_count(p.Tk), C = p.H * 64;
+  bf16* dqg = static_cast<bf16*>(p.dq) + (size_t)b * p.Tq * C + (size_t)h * 64;
+  if (blk.next(p, 0) >= nkt) {  // no query of the block sees a key: dq = 0
+    const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
+    for (int e = threadIdx.x; e < kQueries * 32; e += blockDim.x) {
+      const int r = q0 + e / 32;
+      if (r >= p.Tq) break;
+      *reinterpret_cast<__nv_bfloat162*>(dqg + (size_t)r * C + 2 * (e % 32)) = z2;
+    }
+    return;
+  }
+
+  if (warp >= 4 * G) {  // ---- producer: its first warp works
+    regs_dec<kQmProducerRegs>();
+    if (warp == 4 * G) qm_produce(p, blk, maps, S, res, ring, kms, res_full, full, empty, lane);
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns queries qw = q0 + 64 wg ..; thread
+  // (warp, g, t4) holds queries i0 = qw + 16 warp + g (+8) and, of a key
+  // tile, keys 8 n + 2 t4 (+1): entry (query hr, key n, c) at x[4 n + 2 hr + c]
+  regs_inc<qm_consumer_regs(G)>();
+  const int wg = warp >> 2, qw = q0 + 64 * wg;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3, i0 = qw + 16 * warp + g;
+  const size_t row0 = (size_t)bh * p.Tq;
+  const RowStats rs = row_stats(p.m, p.l, row0, i0, p.Tq);
+  float rho[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) rho[hr] = i0 + 8 * hr < p.Tq ? p.rho[row0 + i0 + 8 * hr] : 0.f;
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const float sl2 = p.scale * kLog2e;
+  const bf16* rw = res + wg * RT * kQmTile;
+  const uint64_t qd = sw128_desc(rw), dd = sw128_desc(rw + kQmTile),
+                 gd = sw128_desc(rw + 2 * kQmTile), ld = sw128_desc(rw + 3 * kQmTile);
+  float dq[32];
+  zero32(dq);
+  mbar_wait(res_full, 0);
+
+  int it = 0;
+  for (int kt = blk.next(p, 0); kt < nkt; kt = blk.next(p, kt + 1), ++it) {
+    const int s = it % S;
+    mbar_wait(full + s, (it / S) & 1);
+    if (!blk.wg_visits(p, kt, wg)) {  // another warpgroup's tile
+      mbar_arrive(empty + s);
+      continue;
+    }
+    const bf16* st = ring + s * STN * kQmTile;
+    const uint64_t kd = sw128_desc(st), vd = sw128_desc(st + kQmTile),
+                   td = sw128_desc(st + 2 * kQmTile), od = sw128_desc(st + 3 * kQmTile);
+    float sa[32], xa[32], ia[32];
+    zero32(sa);
+    zero32(xa);
+    zero32(ia);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, qd + 2 * kk, kd + 2 * kk, 1);  // S, for p
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(xa, gd + 2 * kk, td + 2 * kk, 1);  // GT = g_su T^T
+    for (int c = 0; c < EPT; ++c)  // IQK = lam one-hot^T, events the reduction
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(ia, ld + 512 * c + 2 * kk, od + 512 * c + 2 * kk, 1);
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+    reg_fence(xa);
+    reg_fence(ia);
+
+    // p where the entry is visible, else 0 (so a row that sees no key adds
+    // nothing); xa := p (gt - rho); ia := u = p keep iqk (BiMAU: iqk = 1 on
+    // the diagonal); `tested` as in mau_out_tc_kernel
+    const int j0 = kt * BK;
+    const bool diag = p.diag_reset && j0 == qw, slow = diag || blk.rule.test(p, kt, qw);
+    const float* kmb = kms + s * BK;
+    auto form = [&](auto tested_flag, auto dropped) {
+      const bool tested = flag(tested_flag);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jl = 8 * n + 2 * t4 + c, j = j0 + jl;
+          const float km = kmb[jl];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * n + 2 * hr + c, i = i0 + 8 * hr;
+            const float pr = entry_visible(tested, km, i, j, p.causal)
+                                 ? fast_exp2(fmaf(sa[x], sl2, -rs.m2[hr])) * rs.rl[hr]
+                                 : 0.f;
+            xa[x] = pr * (xa[x] - rho[hr]);
+            const float iq = (tested && diag && i == j) ? 1.f : ia[x];
+            float u = iq * pr;
+            if constexpr (decltype(dropped)::value) u *= drop.factor(b, h, i, j);  // gm's keep
+            ia[x] = u;
+          }
+        }
+    };
+    if (drop.on)  // the Philox draw costs more than the tests
+      form(slow, std::true_type());
+    else if (!slow)
+      form(std::false_type(), std::false_type());
+    else
+      form(std::true_type(), std::false_type());
+    zero32(sa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, dd + 2 * kk, vd + 2 * kk, 1);  // GM = dO V^T
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+
+    // g_s = p (gm keep iqk + gt - rho) / sqrt(dh) = (u gm + xa) / sqrt(dh),
+    // rounded to bf16 as the A operand of dQ += G_s K (K MN-major)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sa[x] = fmaf(ia[x], sa[x], xa[x]) * p.scale;
+    uint32_t f[16];
+    a_frags(f, sa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, f + 4 * kk, kd + 128 * kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(dq);
+    mbar_arrive(empty + s);  // the stage's K, V, T, one-hot and mask are free
+  }
+  store_acc_bf16(dqg, C, dq, qw + 16 * warp, p.Tq, lane);
+}
+
 // ---------------------------------------------------------------- intensity
 // Both kernels: one warpgroup a block; every product on wgmma m64n64k16
 // (A from registers, B from shared memory in the 128-byte swizzle) in
@@ -1214,17 +1257,6 @@ __device__ __forceinline__ void store_split4(bf16* hi, bf16* lo, int r, int col,
 // The index in intervals (B, Tq) of row (b, h, i) of the (B*H*Tq) rows.
 __device__ __forceinline__ size_t interval_index(const IntBwdParams& p, int row) {
   return (size_t)(row / (p.Tq * p.H)) * p.Tq + row % p.Tq;
-}
-
-// d += A B in three bf16 products, A's hi/lo fragments from registers, B's
-// hi/lo tiles by descriptor; TB as wgmma_rs.
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_x3(float (&d)[32], const uint32_t* a_hi,
-                                            const uint32_t* a_lo, uint64_t b_hi,
-                                            uint64_t b_lo) {
-  wgmma_rs<TB>(d, a_lo, b_hi);
-  wgmma_rs<TB>(d, a_hi, b_lo);
-  wgmma_rs<TB>(d, a_hi, b_hi);
 }
 
 // The row kernel: 64 rows a block (16 a warp), looping over 64-column tiles
@@ -1601,7 +1633,8 @@ size_t smem_bytes(int which, int dh, int E, int Tk, int dtype) {
       return dtype ? glam_tc_smem_bytes(round_up(E, 64) / 64, Tk)
                    : sizeof(float) * (size_t)glam_smem_floats(dh, ep);
     case kDq:
-      return dtype ? dq_mma_smem_bytes(dh, ep) : sizeof(float) * (size_t)dq_smem_floats(dh, ep);
+      return dtype ? dq_tc_smem_bytes(round_up(E, 64) / 64, Tk)
+                   : sizeof(float) * (size_t)dq_smem_floats(dh, ep);
     case kDkvt:
       return dtype ? dkvt_tc_smem_bytes(round_up(E, 64) / 64, Tk)
                    : sizeof(float) * (size_t)dkvt_smem_floats(dh, ep);
@@ -1610,21 +1643,17 @@ size_t smem_bytes(int which, int dh, int E, int Tk, int dtype) {
   }
 }
 
-// The attention-side kernels by dtype and dh: fp32 on the CUDA cores
-// (256 threads), bf16 on the tensor cores (128 threads; glam in bf16 is
-// glam_tc_launch's).
+// The attention-side kernels in fp32, by dh: on the CUDA cores, 256 threads
+// (bf16 glam and dq are glam_tc_launch's and dq_tc_launch's).
 using Kernel = void (*)(const BwdParams);
 const Kernel kGlamKernels[3] = {mau_glam_kernel<16>, mau_glam_kernel<32>, mau_glam_kernel<64>};
-const Kernel kDqKernels[6] = {mau_dq_kernel<16>,     mau_dq_kernel<32>,
-                              mau_dq_kernel<64>,     mau_dq_mma_kernel<16>,
-                              mau_dq_mma_kernel<32>, mau_dq_mma_kernel<64>};
+const Kernel kDqKernels[3] = {mau_dq_kernel<16>, mau_dq_kernel<32>, mau_dq_kernel<64>};
 
-cudaError_t launch(const Kernel* kernels, int which, const BwdParams& p, int dh, int dtype,
-                   int blocks, cudaStream_t s) {
+cudaError_t launch(const Kernel* kernels, int which, const BwdParams& p, int dh, int blocks,
+                   cudaStream_t s) {
   const int slot = dh == 16 ? 0 : dh == 32 ? 1 : dh == 64 ? 2 : -1;
   if (slot < 0) return cudaErrorInvalidValue;
-  return go(kernels[slot + 3 * dtype], blocks, dtype ? kThreadsMma : kThreads,
-            smem_bytes(which, dh, p.E, p.Tk, dtype), s, p);
+  return go(kernels[slot], blocks, kThreads, smem_bytes(which, dh, p.E, p.Tk, 0), s, p);
 }
 
 // bf16 glam: heads 64 channels wide and the one-hot EP = E rounded up to 64
@@ -1635,20 +1664,50 @@ cudaError_t glam_tc_launch(BwdParams p, const void* onehot, int dh, cudaStream_t
   p.EP = round_up(p.E, 64);
   p.stages = kQmStages;
   const int ept = p.EP / 64;
-  const long long ep = p.EP;
-  QmMaps maps;
-  if (!bf16_rows_map(&maps.q, p.q.p, 64, p.Tq, p.H, p.B, p.q.rs, 64, p.q.bs) ||
-      !bf16_rows_map(&maps.x, p.dout.p, 64, p.Tq, p.H, p.B, p.dout.rs, 64, p.dout.bs) ||
-      !bf16_rows_map(&maps.k, p.k.p, 64, p.Tk, p.H, p.B, p.k.rs, 64, p.k.bs) ||
-      !bf16_rows_map(&maps.v, p.v.p, 64, p.Tk, p.H, p.B, p.v.rs, 64, p.v.bs) ||
-      !bf16_rows_map(&maps.onehot, onehot, ep, p.Tk, 1, p.B, ep, p.Tk * ep, p.Tk * ep))
+  QmMaps maps{};
+  if (!heads_seq_map(&maps.res[0], p.q, p.Tq, p.H, p.B) ||
+      !heads_seq_map(&maps.res[1], p.dout, p.Tq, p.H, p.B) ||
+      !heads_seq_map(&maps.ring[0], p.k, p.Tk, p.H, p.B) ||
+      !heads_seq_map(&maps.ring[1], p.v, p.Tk, p.H, p.B) ||
+      !onehot_map(&maps.ring[kQmOnehot], onehot, p.EP, p.Tk, p.B))
     return cudaErrorInvalidValue;
+  maps.nres[0] = maps.nres[1] = maps.nring[0] = maps.nring[1] = 1;
+  maps.nring[kQmOnehot] = ept;
   const int groups = glam_groups(ept);
   const int blocks = p.B * p.H * ((p.Tq + 64 * groups - 1) / (64 * groups));
   const size_t bytes = glam_tc_smem_bytes(ept, p.Tk);
   switch (ept) {
     case 1: return go(mau_glam_tc_kernel<1>, blocks, 128 * (groups + 1), bytes, s, p, maps);
     case 2: return go(mau_glam_tc_kernel<2>, blocks, 128 * (groups + 1), bytes, s, p, maps);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// bf16 dq: heads 64 channels wide and lam / one-hot EP = E rounded up to 64
+// events wide (the wrapper zero-pads), g_su (B, H, Tq, 64) and lam (B, H,
+// Tq, EP) contiguous, rows of q, k, v, t, dout on 16-byte boundaries.
+cudaError_t dq_tc_launch(BwdParams p, const void* onehot, const void* lam, int dh,
+                         cudaStream_t s) {
+  if (dh != 64) return cudaErrorInvalidValue;
+  p.EP = round_up(p.E, 64);
+  const int ept = p.EP / 64;
+  QmMaps maps{};
+  if (!heads_seq_map(&maps.res[0], p.q, p.Tq, p.H, p.B) ||
+      !heads_seq_map(&maps.res[1], p.dout, p.Tq, p.H, p.B) ||
+      !heads_map(&maps.res[2], p.gsu, 64, p.Tq, p.H, p.B) ||
+      !heads_map(&maps.res[3], lam, p.EP, p.Tq, p.H, p.B) ||
+      !heads_seq_map(&maps.ring[0], p.k, p.Tk, p.H, p.B) ||
+      !heads_seq_map(&maps.ring[1], p.v, p.Tk, p.H, p.B) ||
+      !heads_seq_map(&maps.ring[2], p.t, p.Tk, p.H, p.B) ||
+      !onehot_map(&maps.ring[kQmOnehot], onehot, p.EP, p.Tk, p.B))
+    return cudaErrorInvalidValue;
+  for (int m = 0; m < 3; ++m) maps.nres[m] = maps.nring[m] = 1;
+  maps.nres[3] = maps.nring[kQmOnehot] = ept;
+  const int blocks = p.B * p.H * ((p.Tq + 64 * kDqGroups - 1) / (64 * kDqGroups));
+  const size_t bytes = dq_tc_smem_bytes(ept, p.Tk);
+  switch (ept) {
+    case 1: return go(mau_dq_tc_kernel<1>, blocks, 128 * (kDqGroups + 1), bytes, s, p, maps);
+    case 2: return go(mau_dq_tc_kernel<2>, blocks, 128 * (kDqGroups + 1), bytes, s, p, maps);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1673,9 +1732,9 @@ size_t mau_streamed_bwd_smem_bytes(int which, int dh, int E, int Tk, int dtype) 
 // outputs dq, dk, dv, dt. Strides are in elements; channels are contiguous;
 // g_su is (B, H, Tq, dh) contiguous; everything else is fp32 and contiguous,
 // except that in bf16 lam (B, H, Tq, EP) and onehot (B, Tk, EP) are bf16,
-// rounded and zero-padded to EP = E rounded up to 16 (dq) or 64 (glam,
-// dkvt, whose heads are 64 channels wide: the wrapper zero-pads narrower
-// ones), and the rows of q, k, v, t and dout start on 16-byte boundaries.
+// rounded and zero-padded to EP = E rounded up to 64, and in bf16 the heads
+// are 64 channels wide (the wrapper zero-pads narrower ones, g_su too), and
+// the rows of q, k, v, t and dout start on 16-byte boundaries.
 // `seed` (an int64 on the device, or null for no dropout) keys the dropout
 // mask; keep where the Philox word is below drop_thresh, scaled by
 // drop_scale.
@@ -1693,7 +1752,7 @@ int mau_glam_bwd(const void* q, long long q_bs, long long q_rs, const void* k, l
   p.glam = static_cast<float*>(glam);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype) return (int)glam_tc_launch(p, onehot, dh, s);
-  return (int)launch(kGlamKernels, kGlam, p, dh, dtype, B * H * ((Tq + BQ - 1) / BQ), s);
+  return (int)launch(kGlamKernels, kGlam, p, dh, B * H * ((Tq + BQ - 1) / BQ), s);
 }
 
 int mau_dq_bwd(const void* q, long long q_bs, long long q_rs, const void* k, long long k_bs,
@@ -1708,8 +1767,9 @@ int mau_dq_bwd(const void* q, long long q_bs, long long q_rs, const void* k, lon
                             {dout, do_bs, do_rs}, gsu, key_mask, onehot, lam, m, l, rho, seed,
                             drop_thresh, drop_scale, B, Tq, Tk, H, E, causal, diag_reset, scale);
   p.dq = dq;
-  const int blocks = B * H * ((Tq + BQ - 1) / BQ);
-  return (int)launch(kDqKernels, kDq, p, dh, dtype, blocks, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype) return (int)dq_tc_launch(p, onehot, lam, dh, s);
+  return (int)launch(kDqKernels, kDq, p, dh, B * H * ((Tq + BQ - 1) / BQ), s);
 }
 
 int mau_dkvt_bwd(const void* q, long long q_bs, long long q_rs, const void* k, long long k_bs,

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of easydgl_tpu/kernels/mau_streamed.py:
 //
 //   mau_stats_kernel      _stats_kernel   (pallas_call in _fwd_impl, :607)
-//   mau_intensity_kernel  _int_fwd_kernel (pallas_call in _int_fwd, :239)
+//   mau_int_split_kernel, mau_int_fwd_tc_kernel
+//                         _int_fwd_kernel (pallas_call in _int_fwd, :239)
 //   mau_out_tc_kernel (bf16), mau_out_kernel (fp32)
 //                         _out_kernel     (pallas_call in _fwd_impl, :634)
 //
@@ -28,9 +29,10 @@
 // the fused kernel and the plain versions draw it.
 //
 // The intensity head is fp32 in both compute dtypes (the TPU kernel's x is
-// fp32, _int_prep :194): its product runs as fp32 FMA on the CUDA cores, the
-// interval entering as Wd's last row for every dh (the TPU kernel drops it
-// when dh % 128 == 0, ROADMAP C2).
+// fp32, _int_prep :194): its product runs on the tensor cores in three bf16
+// products of a hi/lo split of each fp32 operand (about 2^-16 of |a||b| a
+// term), the interval entering as an fp32 rank-1 term for every dh (the TPU
+// kernel drops it when dh % 128 == 0, ROADMAP C2).
 //
 // Design. The stats kernel and the fp32 out kernel give one block to 64
 // queries of one (b, h) and loop over 64-key tiles: the TPU's sequential
@@ -78,24 +80,38 @@
 //   sit in shared memory as fp32 (q, k, lam and the one-hot transposed, so
 //   each step is two 16-byte loads and 16 FMA).
 //
-// The intensity kernel gives one block to 64 rows of x = [su | iv], kept
-// transposed in shared memory, and streams Wd from L2 in 256-column passes;
-// each thread holds a 16 x 4 tile of z, puts it through the sigmoid, weights
-// it by w and sums an event's dh columns with a register sum and shuffles.
-// Its (rows, E*dh) activation never leaves registers.
+// The intensity head (mau_int_fwd_tc_kernel, on the output kernel's
+// pattern): mau_int_split_kernel first splits Wd's seq_units lanes into bf16
+// hi and lo (dh, E*dh) once a launch. A block owns 192 rows (128 at dh =
+// 128), three consumer warpgroups of 64 (two) and a producer warp
+// (setmaxnreg 24 / 160, 24 / 240). Each consumer keeps its rows' seq_units
+// as hi/lo A fragments in registers; the producer streams Wd's 64-column
+// tiles, hi and lo, by TMA (128-byte swizzle, B MN-major) into a ring of
+// four stages, with the tile's interval lane, bd and w by plain loads. Per
+// tile, on wgmma m64n64k16 with fp32 accumulators: z = su Wd_tile as lo hi +
+// hi lo + hi hi, then the interval's rank-1 term and bd in fp32, the exact
+// sigmoid (ex2 and a reciprocal), the weight w, and each event's dh columns
+// summed in the accumulator layout (in-thread sums, then the quad); an
+// event's sum goes through the scaled softplus and out as lam as soon as its
+// last tile is done (dh = 128: two tiles). Two accumulators: the next
+// tile's products run while this tile's sigmoids are formed. The (rows,
+// E*dh) activation and raw never leave the SM, and any E fits.
 //
 // What bounds it, at the EasyDGL-LC eval shape (B=8, H=8, T=2048, dh=64,
 // E=64): operations. stats 68.7 GFLOP, out 103.1 GFLOP over every pair
 // (bf16 tensor-core bounds 0.069 and 0.104 ms; chip_smoke.py's bounds count
-// only the visible pairs), intensity 70.9 GFLOP of fp32 FMA (bound 1.06 ms
-// at 67 TFLOP/s) plus 537 M sigmoids. The first two also evaluate one exp
-// per (query, key) entry they visit, and under dropout the output kernel a
-// ten-round Philox draw, on the CUDA cores: these, not the products, set
-// its time. In bf16 the next key tile is fetched (cp.async, TMA) while this
+// only the visible pairs), intensity one product of 131,072 x 65 x 4,096
+// (70 GFLOP: 1.05 ms in fp32 at 67 TFLOP/s, 0.21 ms as three bf16 passes at
+// 989) plus 537 M sigmoids, two special-function ops each (ex2 and a
+// reciprocal: at least 0.26 ms at 16 a clock an SM). The first two also
+// evaluate one exp per (query, key) entry they visit, and under dropout the
+// output kernel a ten-round Philox draw, on the CUDA cores: these, not the
+// products, set its time. In bf16 the next key tile is fetched (cp.async, TMA) while this
 // one is computed; in fp32 the loads wait.
 //
 // Limits: dh in {16, 32, 64, 128}; the out kernel's shared memory
-// (mau_out_smem_bytes) within 227 KB: in fp32 E up to ~180 at dh = 64.
+// (mau_out_smem_bytes) within 227 KB: in fp32 E up to ~180 at dh = 64. The
+// intensity head takes any E.
 
 #include <initializer_list>
 #include <type_traits>
@@ -105,8 +121,6 @@
 namespace {
 
 using namespace port;
-
-constexpr int RI = 64;  // rows of x a block (intensity)
 
 struct StatsParams {
   Seq q, k, t;
@@ -141,6 +155,8 @@ struct IntParams {
   const float* bd;         // (E*dh,)
   const float* w;          // (E*dh,)
   const float* scaling;    // (E,)
+  bf16* wd_hi;             // (dh, E*dh) scratch: Wd's seq_units lanes split, hi
+  bf16* wd_lo;             // lo
   float* lam;              // (rows, E)
   int rows, H, Tq, E;
 };
@@ -151,9 +167,6 @@ __host__ __device__ inline int stats_smem_floats(int dh) {
 }
 __host__ __device__ inline int out_smem_floats(int dh, int E) {
   return 2 * dh * LD + BK * (dh + 4) + 2 * E * LD + BQ * LD + BK + 2 * BQ;
-}
-__host__ __device__ inline int int_smem_floats(int dh, int E) {
-  return (dh + 1) * (RI + 4) + RI * (E + 1);
 }
 
 // rows [r0, r0 + 64) x n columns of a row-major source (row stride rs) into
@@ -403,86 +416,6 @@ __global__ void __launch_bounds__(kThreads) mau_out_kernel(const OutParams p) {
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) mau_intensity_kernel(const IntParams p) {
-  constexpr int LX = RI + 4;
-  constexpr int kLanesPerEvent = DH / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                  // [DH + 1][LX]  x = [su | iv] transposed
-  float* raw = xs + (DH + 1) * LX;   // [RI][E + 1]
-  const int E = p.E, edh = E * DH;
-  const int r0 = blockIdx.x * RI;
-  const int tid = threadIdx.x, cg = tid & 63, rg = tid >> 6;
-
-  load_t<float>(xs, p.su, DH, DH, r0, p.rows);
-  for (int r = tid; r < RI; r += kThreads) {
-    const int row = r0 + r;
-    float iv = 0.f;
-    if (row < p.rows) {
-      const int i = row % p.Tq, b = row / (p.Tq * p.H);
-      iv = p.intervals[(size_t)b * p.Tq + i];
-    }
-    xs[DH * LX + r] = iv;
-  }
-  __syncthreads();
-
-  for (int col0 = 0; col0 < edh; col0 += 4 * 64) {
-    const int c0 = col0 + cg * 4;
-    const bool valid = c0 < edh;
-    float part[16];
-    if (valid) {
-      float acc[16][4];
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      const float* xp = xs + rg * 16;
-#pragma unroll 4
-      for (int c = 0; c <= DH; ++c) {
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(p.wd + (size_t)c * edh + c0));
-        const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-        float xv[16];
-        lds<16>(xp + c * LX, xv);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wa[j], acc[i][j]);
-      }
-      const float4 bv = __ldg(reinterpret_cast<const float4*>(p.bd + c0));
-      const float4 ww = __ldg(reinterpret_cast<const float4*>(p.w + c0));
-      const float ba[4] = {bv.x, bv.y, bv.z, bv.w}, wa[4] = {ww.x, ww.y, ww.z, ww.w};
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sum = fmaf(sigmoid(acc[i][j] + ba[j]), wa[j], sum);
-        part[i] = sum;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) part[i] = 0.f;
-    }
-#pragma unroll
-    for (int o = kLanesPerEvent / 2; o > 0; o >>= 1)
-#pragma unroll
-      for (int i = 0; i < 16; ++i) part[i] += __shfl_xor_sync(0xffffffffu, part[i], o);
-    if (valid && cg % kLanesPerEvent == 0) {
-      const int e = c0 / DH;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) raw[(rg * 16 + i) * (E + 1) + e] = part[i];
-    }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < RI * E; idx += kThreads) {
-    const int r = idx / E, e = idx - r * E;
-    const int row = r0 + r;
-    if (row >= p.rows) continue;
-    const float s = expf(p.scaling[e]);
-    p.lam[(size_t)row * E + e] = s * softplus(raw[r * (E + 1) + e] / s);
-  }
-}
-
 // ---------------------------------------------------------------- bf16 on
 // the tensor cores: the stats kernel for a bf16 compute dtype. Four warps,
 // each 16 of the block's 64 queries (the flash-attention schedule): q's A
@@ -675,13 +608,13 @@ __global__ void __launch_bounds__(128 * (G + 1), 1)
     mbar_fence_init();
   }
   key_plan(p.key_mask + (size_t)b * p.Tk, p.Tk, plan);  // ends with a barrier
-  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0};
+  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0, false};
   const int nkt = key_tile_count(p.Tk);
 
   if (warp >= 4 * G) {  // ---- producer: its first warp works
     if constexpr (G > 1) regs_dec<kQmProducerRegs>();
     if (warp == 4 * G)
-      qm_produce(p, blk, maps, NS, ept, ept, S, res, ring, kms, res_full, full, empty, lane);
+      qm_produce(p, blk, maps, S, res, ring, kms, res_full, full, empty, lane);
     return;
   }
 
@@ -784,6 +717,213 @@ __global__ void __launch_bounds__(128 * (G + 1), 1)
   for (int c = 0; c < NS; ++c) store_acc_bf16(out + 64 * c, C, o[c], qw + 16 * warp, p.Tq, lane);
 }
 
+// ---------------------------------------------------------------- the
+// intensity head on wgmma in split bf16 (see the header): G consumer
+// warpgroups of 64 rows and a producer warp; Wd's seq_units lanes split once
+// a launch (mau_int_split_kernel) into bf16 hi and lo (dh, E*dh).
+
+constexpr int kIntStages = 4;  // ring stages of (64-column) hi / lo tiles
+
+// Consumer warpgroups a block: three at dh <= 64, two at dh = 128 (whose
+// rows' hi/lo A fragments alone take 64 registers).
+__host__ __device__ constexpr int int_groups(int dh) { return dh == 128 ? 2 : 3; }
+
+// Dynamic shared memory: per stage the hi and lo tiles (dh rows of 64
+// columns, 128 bytes a row) and the tile's interval lane, bd and w (3 x 64
+// fp32); the mbarriers; 1 KB of slack to align the tiles to 1024 bytes.
+__host__ __device__ inline size_t int_tc_smem_bytes(int dh) {
+  return 1024 + (size_t)kIntStages * (2 * dh * 64 * sizeof(bf16) + 3 * 64 * sizeof(float)) +
+         8 * 2 * kIntStages;
+}
+
+struct IntMaps {
+  CUtensorMap hi, lo;  // (E*dh columns, dh rows), boxes of 64 columns x dh rows
+};
+
+// Wd's seq_units lanes (its first dh rows: n2 pairs of values) into bf16
+// hi and lo (split_bf16x2), a pair a thread and step.
+__global__ void mau_int_split_kernel(const float2* wd, uint32_t* hi, uint32_t* lo, int n2) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n2; i += gridDim.x * blockDim.x)
+    split_bf16x2(wd[i].x, wd[i].y, hi[i], lo[i]);
+}
+
+// z = su Wd_tile for column tile t once its stage has landed (the ring's
+// hi tile, then its lo tile), three bf16 passes each of KK k steps (B
+// MN-major: 16 lanes a k step), committed as one group.
+template <int KK>
+__device__ __forceinline__ void int_products(float (&z)[32], const uint32_t (&xh)[KK][4],
+                                             const uint32_t (&xl)[KK][4], const bf16* ring,
+                                             uint64_t* full, int t) {
+  constexpr int kTile = KK * 16 * 64;
+  const int s = t % kIntStages;
+  mbar_wait(full + s, (t / kIntStages) & 1);
+  const uint64_t dhi = sw128_desc(ring + s * 2 * kTile), dlo = sw128_desc(ring + s * 2 * kTile + kTile);
+  zero32(z);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) wgmma_rs_x3<1>(z, xh[kk], xl[kk], dhi + 128 * kk, dlo + 128 * kk);
+  wg_commit();
+}
+
+// Thread (warp, g, t4) of warpgroup wg holds rows r0 + g (+8), r0 = the
+// block's first row + 64 wg + 16 warp, and, of a column tile, columns 8 n +
+// 2 t4 (+1) at z[4 n + 2 hr + c]. An event's dh columns lie in one tile
+// (dh <= 64: 64 / dh events a tile) or two (dh = 128: the first tile's sum
+// is carried). The products of the next tile run while the sigmoids of
+// this one are formed: two accumulators in turn, four tiles an iteration
+// (no group in flight across the loop, which would have ptxas serialize
+// the products), the count rounded up to four with tiles past E*dh (zeros,
+// their events not stored).
+template <int DH>
+__global__ void __launch_bounds__(128 * (int_groups(DH) + 1), 1)
+    mau_int_fwd_tc_kernel(const IntParams p, const __grid_constant__ IntMaps maps) {
+  constexpr int G = int_groups(DH), KK = DH / 16;
+  constexpr int EL = DH >= 64 ? 1 : 64 / DH;  // events a tile holds
+  constexpr int kTile = DH * 64;              // bf16 values of a hi or lo tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(base);  // [stage][hi, lo][DH lanes][64 columns]
+  float* side = reinterpret_cast<float*>(ring + kIntStages * 2 * kTile);  // [stage][iv lane, bd, w][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(side + kIntStages * 3 * 64);  // [stage]
+  uint64_t* empty = full + kIntStages;                                        // [stage]
+  const int edh = p.E * DH, nt = (edh + 255) / 256 * 4;  // column tiles, rounded up to 4
+  const int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kIntStages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 128 * G);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * G) {  // ---- producer: its first warp streams the column tiles
+    regs_dec<kQmProducerRegs>();
+    if (warp > 4 * G) return;
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % kIntStages, c0 = 64 * t;
+      mbar_wait(empty + s, ((t / kIntStages) & 1) ^ 1);
+      float* sd = side + s * 3 * 64;
+      for (int c = lane; c < 64; c += 32) {
+        const bool ok = c0 + c < edh;
+        sd[c] = ok ? p.wd[(size_t)DH * edh + c0 + c] : 0.f;
+        sd[64 + c] = ok ? p.bd[c0 + c] : 0.f;
+        sd[128 + c] = ok ? p.w[c0 + c] : 0.f;
+      }
+      if (lane == 0) {
+        bf16* d = ring + s * 2 * kTile;
+        mbar_arrive_tx(full + s, (uint32_t)(2 * kTile * sizeof(bf16)));
+        tma_2d(d, &maps.hi, full + s, c0, 0);
+        tma_2d(d + kTile, &maps.lo, full + s, c0, 0);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  regs_inc<qm_consumer_regs(G)>();
+  const int wg = warp >> 2;
+  warp &= 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = (blockIdx.x * G + wg) * 64 + 16 * warp;  // the warp's first row
+  // the rows' seq_units as hi/lo A fragments: k step kk, entry i at row
+  // r0 + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1) + 2 t4 (+1)
+  uint32_t xh[KK][4], xl[KK][4];
+  float iv[2], carry[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    iv[hr] = row < p.rows ? p.intervals[(size_t)(row / (p.Tq * p.H)) * p.Tq + row % p.Tq] : 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t4;
+      const float2 v = row < p.rows ? *reinterpret_cast<const float2*>(p.su + (size_t)row * DH + c)
+                                    : make_float2(0.f, 0.f);
+      split_bf16x2(v.x, v.y, xh[kk][i], xl[kk][i]);
+    }
+
+  // tile t's products in z, on the ring: sigmoid(z + iv Wd[dh] + bd) w
+  // summed over the thread's columns of each event, the quad's columns,
+  // then lam = s softplus(raw / s) by one lane an event
+  auto finish = [&](int t, const float (&z)[32]) {
+    const int s = t % kIntStages;
+    const float* sd = side + s * 3 * 64;
+    float raw[2][EL];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int el = 0; el < EL; ++el) raw[hr][el] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int el = DH >= 64 ? 0 : 8 * n / DH;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * t4 + c;
+        const float wiv = sd[col], bdc = sd[64 + col], wc = sd[128 + col];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          raw[hr][el] = fmaf(sigmoid(fmaf(iv[hr], wiv, z[4 * n + 2 * hr + c] + bdc)), wc, raw[hr][el]);
+      }
+    }
+    mbar_arrive(empty + s);  // the stage's tiles and side lanes are read
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int el = 0; el < EL; ++el) {
+        float x = raw[hr][el];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        raw[hr][el] = x;
+      }
+    if constexpr (DH == 128) {
+      if (!(t & 1)) {  // the event's first half
+        carry[0] = raw[0][0];
+        carry[1] = raw[1][0];
+        return;
+      }
+      raw[0][0] += carry[0];
+      raw[1][0] += carry[1];
+    }
+#pragma unroll
+    for (int el = 0; el < EL; ++el) {
+      const int e = DH == 128 ? t / 2 : 64 * t / DH + el;
+      if (t4 != el || e >= p.E) continue;
+      const float sc = expf(p.scaling[e]);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + g + 8 * hr;
+        if (row < p.rows) p.lam[(size_t)row * p.E + e] = sc * softplus(raw[hr][el] / sc);
+      }
+    }
+  };
+
+  float z0[32], z1[32];
+  for (int t = 0; t < nt; t += 4) {
+    int_products(z0, xh, xl, ring, full, t);
+    int_products(z1, xh, xl, ring, full, t + 1);
+    wg_wait_n<1>();
+    reg_fence(z0);
+    finish(t, z0);
+    int_products(z0, xh, xl, ring, full, t + 2);
+    wg_wait_n<1>();
+    reg_fence(z1);
+    finish(t + 1, z1);
+    int_products(z1, xh, xl, ring, full, t + 3);
+    wg_wait_n<1>();
+    reg_fence(z0);
+    finish(t + 2, z0);
+    wg_wait();
+    reg_fence(z1);
+    finish(t + 3, z1);
+  }
+}
+
 // fp32 on the CUDA cores, bf16 on the tensor cores.
 cudaError_t stats_launch(const StatsParams& p, int dh, int dtype, int blocks, cudaStream_t s) {
   const size_t fb = sizeof(float) * (size_t)stats_smem_floats(dh), mb = stats_mma_smem_bytes(dh);
@@ -820,14 +960,17 @@ cudaError_t out_tc_launch(OutParams p, const void* onehot, const void* lam, int 
   const int ns = dh / 64, ept = p.EP / 64;
   const QmConfig cfg = out_tc_config(ns, ept, p.Tk);
   p.stages = cfg.stages;
-  QmMaps maps;
-  const long long ep = p.EP;
-  if (!bf16_rows_map(&maps.q, p.q.p, dh, p.Tq, p.H, p.B, p.q.rs, dh, p.q.bs) ||
-      !bf16_rows_map(&maps.x, lam, ep, p.Tq, p.H, p.B, ep, p.Tq * ep, p.H * p.Tq * ep) ||
-      !bf16_rows_map(&maps.k, p.k.p, dh, p.Tk, p.H, p.B, p.k.rs, dh, p.k.bs) ||
-      !bf16_rows_map(&maps.v, p.v.p, dh, p.Tk, p.H, p.B, p.v.rs, dh, p.v.bs) ||
-      !bf16_rows_map(&maps.onehot, onehot, ep, p.Tk, 1, p.B, ep, p.Tk * ep, p.Tk * ep))
+  QmMaps maps{};
+  if (!heads_seq_map(&maps.res[0], p.q, p.Tq, p.H, p.B, dh) ||
+      !heads_map(&maps.res[1], lam, p.EP, p.Tq, p.H, p.B) ||
+      !heads_seq_map(&maps.ring[0], p.k, p.Tk, p.H, p.B, dh) ||
+      !heads_seq_map(&maps.ring[1], p.v, p.Tk, p.H, p.B, dh) ||
+      !onehot_map(&maps.ring[kQmOnehot], onehot, p.EP, p.Tk, p.B))
     return cudaErrorInvalidValue;
+  maps.nres[0] = ns;
+  maps.nres[1] = ept;
+  maps.nring[0] = maps.nring[1] = ns;
+  maps.nring[kQmOnehot] = ept;
   const size_t bytes = qm_smem_bytes(cfg.groups, ns + ept, cfg.stages, 2 * ns + ept, p.Tk);
   const int blocks = p.B * p.H * ((p.Tq + 64 * cfg.groups - 1) / (64 * cfg.groups));
   const int threads = 128 * (cfg.groups + 1);
@@ -836,6 +979,33 @@ cudaError_t out_tc_launch(OutParams p, const void* onehot, const void* lam, int 
     case 5: return go(mau_out_tc_kernel<1, 1>, blocks, threads, bytes, s, p, maps);
     case 10: return go(mau_out_tc_kernel<2, 2>, blocks, threads, bytes, s, p, maps);
     case 9: return go(mau_out_tc_kernel<2, 1>, blocks, threads, bytes, s, p, maps);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Splits Wd's seq_units lanes, then runs the head; any (dh, E) with dh in
+// {16, 32, 64, 128}.
+cudaError_t int_tc_launch(const IntParams& p, int dh, cudaStream_t s) {
+  const int edh = p.E * dh, n2 = dh * edh / 2;
+  cudaError_t e = go(mau_int_split_kernel, imin((n2 + 255) / 256, 1024), 256, 0, s,
+                     reinterpret_cast<const float2*>(p.wd), reinterpret_cast<uint32_t*>(p.wd_hi),
+                     reinterpret_cast<uint32_t*>(p.wd_lo), n2);
+  if (e != cudaSuccess) return e;
+  IntMaps maps;
+  const cuuint64_t dims[2] = {(cuuint64_t)edh, (cuuint64_t)dh};
+  const cuuint64_t strides[1] = {(cuuint64_t)edh * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)dh};
+  if (!encode_map(&maps.hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.wd_hi, dims, strides, box) ||
+      !encode_map(&maps.lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.wd_lo, dims, strides, box))
+    return cudaErrorInvalidValue;
+  const int groups = int_groups(dh), rows_a_block = 64 * groups;
+  const int blocks = (p.rows + rows_a_block - 1) / rows_a_block, threads = 128 * (groups + 1);
+  const size_t bytes = int_tc_smem_bytes(dh);
+  switch (dh) {
+    case 16: return go(mau_int_fwd_tc_kernel<16>, blocks, threads, bytes, s, p, maps);
+    case 32: return go(mau_int_fwd_tc_kernel<32>, blocks, threads, bytes, s, p, maps);
+    case 64: return go(mau_int_fwd_tc_kernel<64>, blocks, threads, bytes, s, p, maps);
+    case 128: return go(mau_int_fwd_tc_kernel<128>, blocks, threads, bytes, s, p, maps);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -853,9 +1023,7 @@ size_t mau_out_smem_bytes(int dh, int E, int Tk, int dtype) {
   return dtype ? out_tc_smem_bytes(dh == 128 ? 2 : 1, round_up(E, 64) / 64, Tk)
                : sizeof(float) * (size_t)out_smem_floats(dh, E);
 }
-size_t mau_intensity_smem_bytes(int dh, int E) {
-  return sizeof(float) * (size_t)int_smem_floats(dh, E);
-}
+size_t mau_intensity_smem_bytes(int dh) { return int_tc_smem_bytes(dh); }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, t and out). Strides are in
@@ -885,9 +1053,11 @@ int mau_stats_fwd(const void* q, long long q_bs, long long q_rs, const void* k,
   return (int)stats_launch(p, dh, dtype, blocks, s);
 }
 
+// wd_split: scratch of 2 x dh x E*dh bf16 (Wd's seq_units lanes split, hi
+// then lo), 16-byte aligned, as are su, wd, bd and w.
 int mau_intensity_fwd(const void* su, const void* intervals, const void* wd, const void* bd,
-                      const void* w, const void* scaling, void* lam, int B, int H, int Tq,
-                      int dh, int E, void* stream) {
+                      const void* w, const void* scaling, void* wd_split, void* lam, int B, int H,
+                      int Tq, int dh, int E, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || E < 1) return (int)cudaErrorInvalidValue;
   IntParams p;
   p.su = static_cast<const float*>(su);
@@ -896,18 +1066,11 @@ int mau_intensity_fwd(const void* su, const void* intervals, const void* wd, con
   p.bd = static_cast<const float*>(bd);
   p.w = static_cast<const float*>(w);
   p.scaling = static_cast<const float*>(scaling);
+  p.wd_hi = static_cast<bf16*>(wd_split);
+  p.wd_lo = p.wd_hi + (size_t)dh * E * dh;
   p.lam = static_cast<float*>(lam);
   p.rows = B * H * Tq; p.H = H; p.Tq = Tq; p.E = E;
-  const int blocks = (p.rows + RI - 1) / RI;
-  const size_t bytes = sizeof(float) * (size_t)int_smem_floats(dh, E);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return (int)go(mau_intensity_kernel<16>, blocks, kThreads, bytes, s, p);
-    case 32: return (int)go(mau_intensity_kernel<32>, blocks, kThreads, bytes, s, p);
-    case 64: return (int)go(mau_intensity_kernel<64>, blocks, kThreads, bytes, s, p);
-    case 128: return (int)go(mau_intensity_kernel<128>, blocks, kThreads, bytes, s, p);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)int_tc_launch(p, dh, static_cast<cudaStream_t>(stream));
 }
 
 // `seed` (an int64 on the device, or null for no dropout) keys the dropout

@@ -6,7 +6,9 @@ two-pass backward as hand-written CUDA kernels on the natural (B, T, C)
 layout. Forward (``csrc/mau_streamed_fwd.cu``):
 
 * ``mau_stats`` (TPU ``_stats_kernel``): m, l and seq_units;
-* ``mau_intensity`` (TPU ``_int_fwd_kernel``): lam from seq_units, fp32;
+* ``mau_intensity`` (TPU ``_int_fwd_kernel``): lam from seq_units, fp32
+  (its product on the tensor cores in three bf16 products of a hi/lo split
+  of each fp32 operand);
 * ``mau_modulated_out`` (TPU ``_out_kernel``): the modulated output.
 
 Backward (``csrc/mau_streamed_bwd.cu``), run by ``_MauStreamed`` in JAX's
@@ -34,14 +36,14 @@ lam comes back in fp32 (the JAX streamed path rounds it to q's dtype; its
 blocked path, like this one, does not). ``block_k`` is the plain version's
 key block; the kernels tile by 64 queries and 64 keys. In bf16 every kernel
 runs its products on the tensor cores and takes lam and the one-hot rounded
-to bf16 (as the plain version rounds them) and zero-padded: to a multiple
-of 16 events for dq's ``mma.sync``, to 64-event tiles for the ``wgmma``
-kernels (output, d-lambda, dk/dv/dt), whose heads are zero-padded to 64
-channels too. Those three visit only the (query tile, key tile) pairs of
-``streamed_visited_tiles``: each block makes ``streamed_key_plan``'s row of
-its batch row from the key mask (``key_plan`` in ``csrc/mau_streamed.cuh``)
-and applies the rule to it. The backward kernels take dh in (16, 32, 64)
-and E up to 128; in fp32 every kernel runs on the CUDA cores.
+to bf16 (as the plain version rounds them) and zero-padded to 64-event
+tiles for the ``wgmma`` kernels (output, d-lambda, dq, dk/dv/dt), whose
+heads are zero-padded to 64 channels too. Those four visit only the (query
+tile, key tile) pairs of ``streamed_visited_tiles`` (dq its visible-only
+form): each block makes ``streamed_key_plan``'s row of its batch row from
+the key mask (``key_plan`` in ``csrc/mau_streamed.cuh``) and applies the
+rule to it. The backward kernels take dh in (16, 32, 64) and E up to 128;
+in fp32 the attention-side kernels run on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -75,13 +77,13 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("mau_streamed_fwd")
     _bind(lib, "mau_stats_fwd",
           [_P, _LL, _LL] * 3 + [_P] * 4 + [_I32] * 6 + [_F32, _I32, _P])
-    _bind(lib, "mau_intensity_fwd", [_P] * 7 + [_I32] * 5 + [_P])
+    _bind(lib, "mau_intensity_fwd", [_P] * 8 + [_I32] * 5 + [_P])
     _bind(lib, "mau_out_fwd",
           [_P, _LL, _LL] * 3 + [_P] * 6 + [_U32, _F32, _P] + [_I32] * 8
           + [_F32, _I32, _P])
     lib.mau_stats_smem_bytes.argtypes = [_I32, _I32]
     lib.mau_out_smem_bytes.argtypes = [_I32] * 4
-    lib.mau_intensity_smem_bytes.argtypes = [_I32, _I32]
+    lib.mau_intensity_smem_bytes.argtypes = [_I32]
     for name in ("mau_stats_smem_bytes", "mau_out_smem_bytes",
                  "mau_intensity_smem_bytes"):
         getattr(lib, name).restype = ctypes.c_size_t
@@ -118,8 +120,8 @@ def streamed_key_plan(key_mask: torch.Tensor) -> torch.Tensor:
                      1).contiguous()
 
 
-def streamed_visited_tiles(key_mask: torch.Tensor, tq: int,
-                           causal: bool) -> torch.Tensor:
+def streamed_visited_tiles(key_mask: torch.Tensor, tq: int, causal: bool,
+                           visible_only: bool = False) -> torch.Tensor:
     """(B, ceil(Tq / 64), ceil(Tk / 64)) bool: the (query tile, key tile)
     pairs that the bf16 output, d-lambda and dk/dv/dt kernels compute. A
     query tile is blind where a row of it sees no key: every row where the
@@ -127,14 +129,18 @@ def streamed_visited_tiles(key_mask: torch.Tensor, tq: int,
     real key. A blind query tile visits every key tile (such a row is
     uniform over every real key, masked ones included); any other one the
     key tiles that hold a real key, under causal none after its last query
-    (``key_tiles``' range). Every other pair adds exactly 0."""
+    (``key_tiles``' range). Every other pair adds exactly 0. The
+    ``visible_only`` form (the bf16 dq kernel's) takes no query tile as
+    blind: dq's g_s is 0 wherever an entry is not visible, so a row that
+    sees no key adds nothing to dq (``TileRule`` in
+    ``csrc/mau_streamed.cuh`` with its ``visible_only`` flag)."""
     plan = streamed_key_plan(key_mask)
     tk, nkt = key_mask.shape[1], plan.shape[1] - 1
     dev = key_mask.device
     first = plan[:, -1, None, None]
     q0 = TILE * torch.arange(-(-tq // TILE), device=dev)[None, :, None]
     kt = torch.arange(nkt, device=dev)[None, None, :]
-    blind = (first >= tk) | (causal & (q0 < first))
+    blind = ((first >= tk) | (causal & (q0 < first))) & (not visible_only)
     vis = (plan[:, None, :nkt] > 0) | blind
     if causal:
         vis = vis & (blind | (TILE * kt <= (q0 + TILE).clamp(max=tq) - 1))
@@ -163,12 +169,12 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _bf16_events(x: torch.Tensor, tile: int = 16) -> torch.Tensor:
+def _bf16_events(x: torch.Tensor) -> torch.Tensor:
     """(..., E) -> bf16 (..., EP), rounded and zero-padded to EP = E rounded
-    up to ``tile``: the lam and one-hot operands of the bf16 kernels (16 for
-    dq's mma.sync, 64 for the wgmma kernels' tiles)."""
+    up to 64: the lam and one-hot operands of the bf16 kernels (the wgmma
+    kernels' 64-event tiles)."""
     e = x.shape[-1]
-    return F.pad(x.detach().to(torch.bfloat16), (0, -(-e // tile) * tile - e)
+    return F.pad(x.detach().to(torch.bfloat16), (0, -(-e // 64) * 64 - e)
                  ).contiguous()
 
 
@@ -236,8 +242,12 @@ mau_stats.launches = 0
 def mau_intensity(su, intervals, wd, bd, w, scaling):
     """The intensity head: lam (B, H, Tq, E) fp32 from seq_units
     (B, H, Tq, dh) and intervals (B, Tq). CPU tensors:
-    ``mau_blocked.intensity_reference``; CUDA tensors:
-    ``mau_intensity_kernel`` (fp32 throughout)."""
+    ``mau_blocked.intensity_reference``; CUDA tensors, any dh in
+    (16, 32, 64, 128) and any E: ``mau_int_split_kernel`` (Wd's seq_units
+    lanes into bf16 hi and lo, in a scratch of this call) then
+    ``mau_int_fwd_tc_kernel`` (one launch of the wrapper), fp32 in and out,
+    its product on the tensor cores in three bf16 products of the hi/lo
+    split (about 2^-16 of |a||b| a term)."""
     if not _on_card("mau_intensity", su, intervals, wd, bd, w, scaling,
                     entry="mau_streamed"):
         return intensity_reference(su, intervals, wd, bd, w, scaling)
@@ -249,20 +259,22 @@ def mau_intensity(su, intervals, wd, bd, w, scaling):
     _check(tuple(bd.shape) == (e * dh,), "bd shape")
     _check(tuple(w.shape) == (e, dh), "w shape")
     _check(tuple(scaling.shape) == (e,), "scaling shape")
-    suf, iv, wdf, bdf, wf, scf = (_f32(x) for x in
-                                  (su, intervals, wd, bd, w, scaling))
-    for name, x in (("wd", wdf), ("bd", bdf), ("w", wf)):
-        _check(x.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
+    # contiguous fp32, at 16-byte boundaries for the kernels' vector loads
+    suf, iv, wdf, bdf, wf, scf = (
+        x if x.data_ptr() % 16 == 0 else x.clone() for x in (
+            _f32(y) for y in (su, intervals, wd, bd, w, scaling)))
     lib = _lib()
-    _check(lib.mau_intensity_smem_bytes(dh, e) <= KERNEL_SMEM_MAX,
-           f"E={e} needs more shared memory than the limit")
+    _check(lib.mau_intensity_smem_bytes(dh) <= KERNEL_SMEM_MAX,
+           f"dh={dh} needs more shared memory than the limit")
+    split = torch.empty((2, dh, e * dh), dtype=torch.bfloat16,
+                        device=su.device)
     lam = torch.empty((b, h, tq, e), dtype=torch.float32, device=su.device)
     with torch.cuda.device(su.device):
         rc = lib.mau_intensity_fwd(suf.data_ptr(), iv.data_ptr(),
                                    wdf.data_ptr(), bdf.data_ptr(),
                                    wf.data_ptr(), scf.data_ptr(),
-                                   lam.data_ptr(), b, h, tq, dh, e,
-                                   _stream(su.device))
+                                   split.data_ptr(), lam.data_ptr(), b, h,
+                                   tq, dh, e, _stream(su.device))
     _raise_on(rc, "mau_intensity", _lib().mau_streamed_error_string)
     mau_intensity.launches += 1
     return lam
@@ -302,7 +314,7 @@ def mau_modulated_out(q, k, v, key_mask, onehot, lam, m, l, *,
     if q.dtype == torch.bfloat16:
         q, k, v = (_rows16(_pad_heads(x, h)) for x in (q, k, v))
         kdh = q.shape[-1] // h
-        oh, lamf = _bf16_events(onehot, 64), _bf16_events(lam, 64)
+        oh, lamf = _bf16_events(onehot), _bf16_events(lam)
     else:
         oh, lamf = _f32(onehot), _f32(lam)
     lib = _lib()
@@ -364,7 +376,7 @@ def _attention_bwd_args(name, q, kv, key_mask, onehot, stats, g_out,
     tk, dh, e, the sequences (q, k, v[, t], g_out in q's dtype; in bf16
     with rows on 16-byte boundaries), the key mask in fp32, the one-hot,
     the stats). In bf16 the one-hot and lam (the first of ``stats``, where
-    given) are bf16 rounded and zero-padded to a multiple of 16 events, as
+    given) are bf16 rounded and zero-padded to a multiple of 64 events, as
     the tensor-core kernels read them; else everything is fp32."""
     b, tq, tk, dh = _checked_seqs(q, kv, num_heads)
     h, e = num_heads, onehot.shape[-1]
@@ -411,7 +423,7 @@ def mau_glam(q, k, v, key_mask, onehot, m, l, g_out, *, causal: bool = False,
            f"mau_glam: head dim {dh} not in {KERNEL_BWD_HEAD_DIMS}")
     if q.dtype == torch.bfloat16:   # the wgmma kernel's 64-wide tiles
         q, k, v, g_out = (_pad_heads(x, num_heads) for x in (q, k, v, g_out))
-        onehot = _bf16_events(onehot, 64)
+        onehot = _bf16_events(onehot)
     b, tq, tk, kdh, _, seqs, km, oh, (mf, lf) = _attention_bwd_args(
         "mau_glam", q, (("k", k), ("v", v)), key_mask, onehot,
         (("m", m), ("l", l)), g_out, num_heads)
@@ -510,7 +522,10 @@ def mau_dq(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
     """Backward pass 2 (query-major): dQ (B, Tq, C) in q's dtype, from
     g_out (B, Tq, C), g_su (B, H, Tq, dh) fp32 (rounded to q's dtype for
     the products) and rho (B, H, Tq) fp32. CPU tensors:
-    ``mau_blocked.dq_reference``; CUDA tensors: ``mau_dq_kernel``."""
+    ``mau_blocked.dq_reference``; CUDA tensors: ``mau_dq_tc_kernel`` (bf16,
+    on ``dkvt_tc_inputs``' padded operands, the key tiles of
+    ``streamed_visited_tiles(..., visible_only=True)`` only) or
+    ``mau_dq_kernel`` (fp32)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("mau_streamed: dropout_rate > 0 needs dropout_seed")
     if not _on_card("mau_dq", q, k, v, t, key_mask, onehot, lam, m, l, g_out,
@@ -520,22 +535,26 @@ def mau_dq(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
                             dropout_rate=dropout_rate,
                             dropout_seed=dropout_seed, num_heads=num_heads,
                             block_k=block_k)
-    b, tq, tk, dh, e, args, alive = _pass2_args(
+    dh = q.shape[-1] // num_heads
+    if q.dtype == torch.bfloat16:   # the wgmma kernel's 64-wide tiles
+        q, k, v, t, g_out, g_su, lam, onehot = dkvt_tc_inputs(
+            q, k, v, t, g_out, g_su, lam, onehot, num_heads)
+    b, tq, tk, kdh, e, args, alive = _pass2_args(
         "mau_dq", q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho,
         num_heads)
     lib = _bwd_lib()
-    _bwd_fits(lib, _DQ, "mau_dq", dh, e, q.dtype, tk)
+    _bwd_fits(lib, _DQ, "mau_dq", kdh, e, q.dtype, tk)
     seed = _seed_tensor(dropout_seed, dropout_rate, q.device)
     seed_ptr, thresh, dscale = _drop_args(seed, dropout_rate)
-    dq = torch.empty((b, tq, num_heads * dh), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, tq, num_heads * kdh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.mau_dq_bwd(*args, seed_ptr, thresh, dscale, dq.data_ptr(), b,
-                            tq, tk, num_heads, dh, e, int(causal),
+                            tq, tk, num_heads, kdh, e, int(causal),
                             int(diag_reset), 1.0 / dh ** 0.5,
                             _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_on(rc, "mau_dq", _lib().mau_streamed_error_string)
     mau_dq.launches += 1
-    return dq
+    return _unpad_heads(dq, num_heads, dh)
 
 
 mau_dq.launches = 0
@@ -584,7 +603,7 @@ def mau_dkvt(q, k, v, t, key_mask, onehot, lam, m, l, g_out, g_su, rho, *,
 
 
 def dkvt_tc_inputs(q, k, v, t, g_out, g_su, lam, onehot, num_heads: int):
-    """The bf16 dkvt kernel's operands: heads zero-padded to 64 channels
+    """The bf16 dq and dkvt kernels' operands: heads zero-padded to 64 channels
     (q, k, v, t, g_out (B, T, C); g_su (B, H, Tq, dh)) and lam / one-hot
     zero-padded to a multiple of 64 events, so that every tile is (64 x 64).
     Zero channels and events add nothing to a product; the padded outputs'

@@ -11,11 +11,15 @@ row kernel runs), the bf16 fused MAU backward (``mau_bwd``: the sigmoid's
 one-op form (tanh.approx), its intensity products removed, its dx^T
 product or the dx^T reduce-add removed; by kernel), the bf16 streamed dK/dV/dT kernel (``dkvt``: the
 Philox draw or the products removed, every key tile visited, three
-stages), and the bf16 streamed output and d-lambda kernels (``out`` and
+stages), the bf16 streamed output and d-lambda kernels (``out`` and
 ``glam``, at dropout 0 and 0.1: the Philox draw or the products removed,
 every key tile of the range visited, four ring stages instead of two,
 every tile's entries formed with their tests, two consumer warpgroups a
-block instead of three). Each variant edits
+block instead of three), the streamed intensity head (``int``: its
+products removed, the sigmoid's one-op form (tanh.approx), two consumer
+warpgroups a block instead of three) and the bf16
+streamed dq kernel (``dq``, at dropout 0 and 0.1: the Philox draw or the
+products removed, every key tile of the range visited). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -24,8 +28,8 @@ each copy in turn, the unchanged source first and last. Prints one JSON
 line a copy, with the card's name and power limit. Imports neither JAX nor
 the JAX package.
 
-    python3 scripts/torch_ablate.py flash|catalog_fwd|vjp|mau_bwd|dkvt|out|glam
-        [VARIANT ...]
+    python3 scripts/torch_ablate.py
+        flash|catalog_fwd|vjp|mau_bwd|dkvt|out|glam|int|dq [VARIANT ...]
 """
 from __future__ import annotations
 
@@ -54,6 +58,11 @@ NO_DRAW = ("            if constexpr (decltype(dropped)::value) u *= "
 # keeps the bf16 fragments of a removed product alive
 SINK = ("__uint_as_float({0}[4 * kk]) + __uint_as_float({0}[4 * kk + 1]) + "
         "__uint_as_float({0}[4 * kk + 2]) + __uint_as_float({0}[4 * kk + 3])")
+# the sigmoid's one-op form, defined at the top of a source's namespace
+SIG1 = ("\nnamespace {\n",
+        "\nnamespace {\n__device__ __forceinline__ float sig1(float z) { float y;"
+        " asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y) : \"f\"(0.5f * z));"
+        " return fmaf(0.5f, y, 0.5f); }\n")
 # kernel -> (source, library, bench command, {variant: [(old, new), ...]})
 KERNELS = {
     "flash": ("flash_attention.cu", "flash_attention",
@@ -93,6 +102,7 @@ KERNELS = {
             ["scripts/torch_streamed_bench.py", "--vjp", "--kernels"], {
                 "control": [],
                 "no products": [(
+                    "hopper.cuh",
                     "  wgmma_rs<TB>(d, a_lo, b_hi);\n"
                     "  wgmma_rs<TB>(d, a_hi, b_lo);\n"
                     "  wgmma_rs<TB>(d, a_hi, b_hi);\n", "")],
@@ -108,12 +118,7 @@ KERNELS = {
                         "__floats2bfloat162_rn(sigmoid(fmaf(",
                         "__floats2bfloat162_rn(sig1(fmaf("), (
                         "                                  sigmoid(fmaf(",
-                        "                                  sig1(fmaf("), (
-                        "\nnamespace {\n",
-                        "\nnamespace {\n__device__ __forceinline__ float"
-                        " sig1(float z) { float y; asm(\"tanh.approx.f32 %0,"
-                        " %1;\" : \"=f\"(y) : \"f\"(0.5f * z)); return"
-                        " fmaf(0.5f, y, 0.5f); }\n")],
+                        "                                  sig1(fmaf("), SIG1],
                     "no intensity products": [
                         ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf"
                          " + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T\n", ""),
@@ -194,6 +199,40 @@ KERNELS = {
                      "constexpr int glam_groups(int ept) { return ept == 1 ? 3 :"
                      " 2; }", "constexpr int glam_groups(int ept) { return 2;"
                      " }")]}),
+    "int": ("mau_streamed_fwd.cu", "mau_streamed_fwd",
+            ["scripts/torch_streamed_bench.py", "--int", "--rounds", "1"], {
+                "control": [],
+                "no products": [(
+                    "  for (int kk = 0; kk < KK; ++kk) wgmma_rs_x3<1>(z, xh[kk],"
+                    " xl[kk], dhi + 128 * kk, dlo + 128 * kk);\n",
+                    "  for (int kk = 0; kk < KK; ++kk) z[kk] += __uint_as_float("
+                    "xh[kk][0] ^ xl[kk][1]);\n")],
+                "one-op sigmoid": [(
+                    "raw[hr][el] = fmaf(sigmoid(fmaf(",
+                    "raw[hr][el] = fmaf(sig1(fmaf("), SIG1],
+                "two warpgroups a block": [(
+                    "constexpr int int_groups(int dh) { return dh == 128 ? 2 :"
+                    " 3; }", "constexpr int int_groups(int dh) { return 2; }")]}),
+    "dq": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
+           ["scripts/torch_streamed_bench.py", "--dq", "--rounds", "1"], {
+               "control": [],
+               "no Philox draw": [(
+                   "            if constexpr (decltype(dropped)::value) u *= "
+                   "drop.factor(b, h, i, j);  // gm's keep\n", "")],
+               "no products": [
+                   ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, qd + 2 *"
+                    " kk, kd + 2 * kk, 1);  // S, for p\n", ""),
+                   ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(xa, gd + 2 *"
+                    " kk, td + 2 * kk, 1);  // GT = g_su T^T\n", ""),
+                   ("        wgmma_ss<0, 0>(ia, ld + 512 * c + 2 * kk, od + 512 *"
+                    " c + 2 * kk, 1);\n", "        ;\n"),
+                   ("    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0, 0>(sa, dd + 2 *"
+                    " kk, vd + 2 * kk, 1);  // GM = dO V^T\n", ""),
+                   ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq, f + 4 * kk, kd"
+                    " + 128 * kk);\n",
+                    "    for (int kk = 0; kk < 4; ++kk) dq[kk] += "
+                    + SINK.format("f") + ";\n")],
+               "every key tile visited": [RULE_OFF]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Shows that the checks of ``chip_smoke.py`` fail a broken fused MAU
-backward or a broken streamed output, d-lambda or dK/dV/dT kernel, on one
-GPU.
+backward or a broken streamed intensity head, output, d-lambda, dq or
+dK/dV/dT kernel, on one GPU.
 
 Three mutants of ``csrc/mau_attention_bwd.cu``'s tensor-core path (bf16,
 dh <= 64): dbd dropped (its one atomic a column and block), dz without its
@@ -10,19 +10,26 @@ the workspace. Two of the live-tile rule that the wgmma output, d-lambda
 and dkvt kernels share (``csrc/mau_streamed.cuh``): the rows that see no
 key left out (so a key tile with no real key is skipped), and the causal
 range off by one tile. One of ``csrc/mau_streamed_fwd.cu``'s output
-kernel: BiMAU's diagonal iqk left as lam . one-hot instead of 1. Three of
-``csrc/mau_streamed_bwd.cu``: the d-lambda entries on BiMAU's diagonal not
-zeroed, the d-lambda entries without their dropout factor, and dkvt's
-modulated probs without theirs (dV's and dK's). For each mutant, and for
-the unchanged sources as a control, the package and ``chip_smoke.py`` are
-copied into a temporary directory, the copy's source is edited, and the
-cases of ``chip_smoke.MAU_BWD_CASES`` (through ``mau_bwd_case``), the
-output kernel on the cases of ``chip_smoke.STREAMED_CASES`` (through
+kernel: BiMAU's diagonal iqk left as lam . one-hot instead of 1; two of
+its intensity head: the lo . hi pass of the split-bf16 product dropped,
+and the interval lane dropped. Three of ``csrc/mau_streamed_bwd.cu``: the
+d-lambda entries on BiMAU's diagonal not zeroed, the d-lambda entries
+without their dropout factor, and dkvt's modulated probs without theirs
+(dV's and dK's); four of its dq: GM without its dropout factor, rho left
+out, BiMAU's diagonal iqk left as lam . one-hot, and the visible-only
+rule's causal range cut short by one tile (a rule that visits extra tiles
+would still give the right dq, so only one that skips too much is a
+mutant). For each mutant, and for the unchanged sources as a control, the
+package and ``chip_smoke.py`` are copied into a temporary directory, the
+copy's source is edited, and the cases of ``chip_smoke.MAU_BWD_CASES``
+(through ``mau_bwd_case``), the intensity head on
+``chip_smoke.INTENSITY_CASES`` (through ``intensity_check``), the output
+kernel on the cases of ``chip_smoke.STREAMED_CASES`` (through
 ``streamed_out_check``) with the entry-by-entry probes (``PROBE_CASES``),
-and the d-lambda and dkvt kernels on the cases of
+and the d-lambda, dq and dkvt kernels on the cases of
 ``chip_smoke.STREAMED_BWD_CASES`` (through ``streamed_bwd_case``) run there
 (each copy's libraries built first, one nvcc each, all together; then one
-process per copy, three at a time). Prints, per copy, the checks that
+process per copy, four at a time). Prints, per copy, the checks that
 failed with their worst |kernel - plain| / tolerance, and exits 0 when the
 control passes every check and every mutant fails at least one. Imports
 neither JAX nor the JAX package.
@@ -76,9 +83,30 @@ MUTANTS = {
     "dkvt: no dropout factor in the modulated probs": (
         STREAMED, "            if constexpr (decltype(dropped)::value) u *= "
         "drop.factor(b, h, i, jk[hr]);\n", ""),
+    "dq: no dropout factor in GM": (
+        STREAMED, "            if constexpr (decltype(dropped)::value) u *= "
+        "drop.factor(b, h, i, j);  // gm's keep\n", ""),
+    "dq: rho left out": (
+        STREAMED, "            xa[x] = pr * (xa[x] - rho[hr]);",
+        "            xa[x] = pr * xa[x];"),
+    "dq: BiMAU's diagonal iqk left as lam": (
+        STREAMED, "            const float iq = (tested && diag && i == j) ? "
+        "1.f : ia[x];", "            const float iq = ia[x];"),
+    "dq: visible-only rule's causal range cut short by one tile": (
+        RULE, "    const bool bl = !visible_only && blind(p, q0);\n",
+        "    const bool bl = !visible_only && blind(p, q0);\n"
+        "    if (visible_only && p.causal && kt * BK > imin(q0 + BQ, p.Tq) - 1 -"
+        " BK) return false;\n"),
+    "intensity: the lo . hi pass dropped": (
+        FWD, "wgmma_rs_x3<1>(z, xh[kk], xl[kk], dhi + 128 * kk, dlo + 128 * kk);",
+        "wgmma_rs<1>(z, xh[kk], dlo + 128 * kk), wgmma_rs<1>(z, xh[kk], dhi +"
+        " 128 * kk);"),
+    "intensity: the interval lane dropped": (
+        FWD, "fmaf(sigmoid(fmaf(iv[hr], wiv, z[4 * n + 2 * hr + c] + bdc)), wc,",
+        "fmaf(sigmoid(z[4 * n + 2 * hr + c] + bdc + 0.f * wiv), wc,"),
 }
 RESULT = "RESULT "
-AT_ONCE = 3   # copies run together
+AT_ONCE = 4   # copies run together
 
 
 def child() -> int:
@@ -97,6 +125,8 @@ def child() -> int:
     for i, case in enumerate(chip_smoke.MAU_BWD_CASES):
         res, _ = chip_smoke.mau_bwd_case(i, *case)
         out[case[0]] = {label: ratio for label, (_, ratio) in res.items()}
+    for i, case in enumerate(chip_smoke.INTENSITY_CASES):
+        out[f"int {case}"] = {"lam": chip_smoke.intensity_check(i, *case)[1]}
     for i, case in enumerate(chip_smoke.STREAMED_CASES):
         try:   # a non-finite out fails the check by raising
             ratio = chip_smoke.streamed_out_check(i, *case)[1]
@@ -112,7 +142,7 @@ def child() -> int:
                      "dropped share": 0.0 if 0.07 < dropped < 0.13 else 2.0}
     for i, case in enumerate(chip_smoke.STREAMED_BWD_CASES):
         res = chip_smoke.streamed_bwd_case(
-            i, *case, only=("mau_glam", "mau_dkvt"))[0]
+            i, *case, only=("mau_glam", "mau_dq", "mau_dkvt"))[0]
         out["bwd " + case[0]] = {label: ratio for kernel in res.values()
                                  for label, (_, ratio) in kernel.items()}
     print(RESULT + json.dumps(out), flush=True)

@@ -23,16 +23,24 @@ phase 4d's (the plain forward's stats and phase 4d's g_out), each at
 dropout 0 and 0.1, in rounds as ``--vjp``; both report the share of the
 64-key tiles that hold a real key (``live_key_tile_share``) and the share
 of (query tile, key tile) pairs the live-tile rule visits
-(``visited_tile_share``). Prints one JSON line with the card's name and
-power limit. Imports neither JAX nor the JAX package; run from the root of
-a checkout (or of an older one, to compare two versions in one call):
+(``visited_tile_share``). ``--int`` times the intensity head
+(``mau_intensity``) alone on phase 4c's bf16 inputs (seq_units from
+``mau_stats``), ``--dq`` the dq kernel (``mau_dq``) alone on phase 4d's
+(the plain pieces' residuals, g_su and rho), at dropout 0 and 0.1 with its
+visible-only rule's share of the pairs (``dq_visited_tile_share``, None in
+a checkout whose rule has no such form), each in rounds as ``--vjp``.
+Prints one JSON line with the card's name and power limit. Imports neither
+JAX nor the JAX package; run from the root of a checkout (or of an older
+one, to compare two versions in one call):
 
     python3 scripts/torch_streamed_bench.py [--label NAME]
-        [--vjp | --dkvt | --out | --glam] [--rounds N] [--kernels]
+        [--vjp | --dkvt | --out | --glam | --int | --dq] [--rounds N]
+        [--kernels]
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -209,6 +217,51 @@ def glam_times(rounds, by_kernel):
     return res
 
 
+def int_times(rounds, by_kernel):
+    """mau_intensity alone on phase 4c's bf16 inputs."""
+    import chip_smoke
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = chip_smoke.mau_inputs(
+        **chip_smoke.LC, dtype=torch.bfloat16, gathered=False, seed=400)
+    _, _, su = mau_stats(q, k, t, km, causal=False, num_heads=H)
+
+    def run():
+        mau_intensity(su, iv, wd, bd, w, sc)
+
+    res = {"int_ms": [time_ms(run, warmup=2, iters=10)
+                      for _ in range(rounds)]}
+    if by_kernel:
+        res["int_by_kernel"] = kernel_ms(run)
+    return res
+
+
+def dq_times(rounds, by_kernel):
+    """mau_dq alone on phase 4d's bf16 inputs, dropout 0 and 0.1."""
+    import chip_smoke
+    from easydgl_tpu_torch.kernels import mau_streamed
+    args = chip_smoke.mau_inputs(**chip_smoke.LC, dtype=torch.bfloat16,
+                                 gathered=False, seed=700)
+    km = args[4]
+    live, visited = tile_shares(km)
+    rule = getattr(mau_streamed, "streamed_visited_tiles", None)
+    dq_vis = None
+    if rule is not None and "visible_only" in inspect.signature(
+            rule).parameters:
+        dq_vis = float(rule(km, T, False, visible_only=True).float().mean())
+    res = {"live_key_tile_share": live, "visited_tile_share": visited,
+           "dq_visited_tile_share": dq_vis}
+    for rate in (0.0, 0.1):
+        _, _, runs = chip_smoke.streamed_bwd_pieces(
+            args, H, causal=False, diag=True, rate=rate, seed=7000,
+            plain_fwd=None)
+        run = runs["mau_dq"][0]
+        del runs
+        res[f"dq_ms_drop{rate:g}"] = [time_ms(run, warmup=2, iters=10)
+                                     for _ in range(rounds)]
+        if by_kernel:
+            res[f"dq_by_kernel_drop{rate:g}"] = kernel_ms(run)
+    return res
+
+
 def eval_seqs_per_s(batches=8):
     cfg = preset("EasyDGL-LC", num_events=64)
     model = build_model(cfg, device="cuda",
@@ -237,6 +290,8 @@ def main() -> int:
     ap.add_argument("--dkvt", action="store_true")
     ap.add_argument("--out", action="store_true")
     ap.add_argument("--glam", action="store_true")
+    ap.add_argument("--int", action="store_true")
+    ap.add_argument("--dq", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
@@ -251,7 +306,9 @@ def main() -> int:
     alone = [fn for flag, fn in ((args.vjp, vjp_times),
                                  (args.dkvt, dkvt_times),
                                  (args.out, out_times),
-                                 (args.glam, glam_times)) if flag]
+                                 (args.glam, glam_times),
+                                 (args.int, int_times),
+                                 (args.dq, dq_times)) if flag]
     if alone:
         times = alone[0](args.rounds, args.kernels)
         print(json.dumps({"label": args.label, "card": card, **times}),

@@ -28,8 +28,9 @@ from easydgl_tpu_torch.kernels.mau_attention import (
     mau_attention, mau_attention_bwd, mau_attention_bwd_reference,
     mau_attention_reference)
 from easydgl_tpu_torch.kernels.mau_blocked import (
-    dkvt_reference, dq_reference, glam_reference, intensity_vjp_reference,
-    mau_blocked, mau_blocked_forward, output_reference, row_correction)
+    dkvt_reference, dq_reference, glam_reference, intensity_reference,
+    intensity_vjp_reference, mau_blocked, mau_blocked_forward,
+    output_reference, row_correction, stats_reference)
 from easydgl_tpu_torch.kernels.mau_streamed import (
     STREAMED_KERNELS, mau_dkvt, mau_dq, mau_glam, mau_intensity,
     mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed)
@@ -609,7 +610,7 @@ def test_streamed_backward_kernels_match_plain_version(cuda_device, dtype,
                                       (32, 128, 2, 77), (64, 128, 1, 1023)])
 def test_intensity_vjp_kernel_matches_plain_version(cuda_device, dh, e, b,
                                                     t):
-    """The intensity VJP (3xTF32 products on the tensor cores) against
+    """The intensity VJP (split bf16 products on wgmma) against
     ``intensity_vjp_reference``: dh 16, 32, 64, E 64 and 128, H = 2 and row
     counts B * H * T that are no multiple of the 64-row tile or the
     2048-row chunk; every output held to the fp32 tolerance."""
@@ -628,6 +629,85 @@ def test_intensity_vjp_kernel_matches_plain_version(cuda_device, dh, e, b,
     assert mau_intensity_bwd.launches == before + 1
     want = intensity_vjp_reference(su, iv, wd, bd, w, sc, g_lam)
     _check_by_scale(torch.float32, got, want, f"intensity vjp dh={dh} E={e}")
+
+
+# dh, E, B, T: every head width, E 64 and 128 and the largest E the
+# wrapper took before its split-bf16 kernel (its fp32 kernel's shared
+# memory), H = 2, row counts B * H * T no multiple of the 64-row tile
+@pytest.mark.parametrize("dh,e,b,t", [
+    (16, 64, 2, 1000), (16, 128, 1, 333), (16, 888, 1, 77),
+    (32, 64, 1, 999), (32, 128, 2, 77), (32, 871, 1, 65),
+    (64, 64, 3, 701), (64, 128, 1, 1023), (64, 837, 1, 33),
+    (128, 64, 2, 130), (128, 128, 1, 333), (128, 769, 1, 77)])
+def test_intensity_kernel_matches_plain_version(cuda_device, dh, e, b, t):
+    """The intensity head (split bf16 products on wgmma) against
+    ``intensity_reference`` at the fp32 tolerance, one launch a call."""
+    rng = np.random.default_rng(dh * 1000 + e + t + 7)
+    h = 2
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    su = torch.tensor(rng.normal(0, 0.5, (b, h, t, dh)), **f32)
+    iv = torch.tensor(rng.exponential(1.0, (b, t)), **f32)
+    wd = torch.tensor(rng.normal(0, 0.2, (dh + 1, e * dh)), **f32)
+    bd = torch.tensor(rng.normal(0, 0.1, e * dh), **f32)
+    w = torch.tensor(rng.normal(0, 0.2, (e, dh)), **f32)
+    sc = torch.tensor(rng.normal(0, 0.3, e), **f32)
+    before = mau_intensity.launches
+    got = mau_intensity(su, iv, wd, bd, w, sc)
+    assert mau_intensity.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, t, e)
+    want = intensity_reference(su, iv, wd, bd, w, sc)
+    _check_by_scale(torch.float32, (got,), (want,), f"intensity dh={dh} E={e}")
+
+
+def _dq_key_mask(b, tk):
+    """Key masks for dq: row 0 has no real key; row 1 a blind prefix under
+    causal (its first real key at 100, inside a tile); row 2 key tiles
+    with no real key between live ones; row 3 every key real."""
+    km = np.zeros((b, tk), np.float32)
+    km[1, 100:] = 1.0
+    km[2, 5:40] = 1.0
+    km[2, 180:] = 1.0
+    km[3] = 1.0
+    return km
+
+
+@pytest.mark.parametrize("tq,tk", [(300, 300), (200, 300), (300, 200)])
+@pytest.mark.parametrize("dh,e", [(32, 12), (64, 64)])
+@pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_kernel_on_blind_rows_and_empty_key_tiles(cuda_device, dtype,
+                                                     causal, diag, dh, e, tq,
+                                                     tk):
+    """``mau_dq`` against ``dq_reference`` (dropout 0.1) on a batch row with
+    no real key, a causal blind prefix, key tiles with no real key and
+    Tq != Tk: held by scale, and exactly 0 on the rows that see no key."""
+    rng = np.random.default_rng(tq + 7 * tk + dh + int(causal))
+    b, h = 4, 2
+    c = h * dh
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    q = torch.tensor(rng.normal(size=(b, tq, c)), **f32).to(dtype)
+    k, v, t = (torch.tensor(rng.normal(size=(b, tk, c)), **f32).to(dtype)
+               for _ in range(3))
+    km = torch.tensor(_dq_key_mask(b, tk), **f32)
+    oh = torch.tensor((rng.random((b, tk, e)) < 0.2).astype(np.float32),
+                      **f32)
+    lam = torch.tensor(rng.random((b, h, tq, e)), **f32)
+    go = (torch.tensor(rng.normal(0, 1e-2, (b, tq, c)), **f32)).to(dtype)
+    g_su = torch.tensor(rng.normal(0, 1e-2, (b, h, tq, dh)), **f32)
+    rho = torch.tensor(rng.normal(0, 1e-3, (b, h, tq)), **f32)
+    m, l, _ = stats_reference(q, k, t, km, causal=causal, num_heads=h)
+    seed = torch.tensor(2024, device=cuda_device)
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=0.1,
+              dropout_seed=seed, num_heads=h)
+    args = (q, k, v, t, km, oh, lam, m, l, go, g_su, rho)
+    before = mau_dq.launches
+    dq = mau_dq(*args, **kw)
+    assert mau_dq.launches == before + 1
+    assert dq.dtype == dtype and dq.shape == q.shape
+    _check_by_scale(dtype, (dq,), (dq_reference(*args, **kw),), "dq")
+    assert float(dq[0].float().abs().max()) == 0.0
+    if causal:
+        assert float(dq[1, :100].float().abs().max()) == 0.0
 
 
 def test_lc_train_step_on_card_matches_cpu(cuda_device):

@@ -19,7 +19,9 @@
   direct count from the key mask, and its exactness on the plain versions:
   ``output_reference`` and ``glam_reference`` give each query tile the same
   rows when the K, V and one-hot rows of every key tile it skips are
-  replaced by random values.
+  replaced by random values; the same for the rule's visible-only form,
+  which the bf16 dq kernel visits, on ``dq_reference`` (K, V, T and one-hot
+  rows replaced).
 
 The CUDA kernels are held against these plain versions in
 ``test_torch_cuda.py`` (card only) and ``chip_smoke.py``.
@@ -34,7 +36,8 @@ from easydgl_tpu.kernels import mau_blocked as jblocked
 from easydgl_tpu.kernels.mau_streamed import mau_streamed as jstreamed
 from easydgl_tpu.nn import temporal as jtemporal
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention_reference
-from easydgl_tpu_torch.kernels.mau_blocked import (glam_reference,
+from easydgl_tpu_torch.kernels.mau_blocked import (dq_reference,
+                                                   glam_reference,
                                                    intensity_reference,
                                                    mau_blocked,
                                                    mau_blocked_forward,
@@ -312,3 +315,73 @@ def test_live_tile_rule_is_exact_on_the_plain_versions(piece, causal, diag):
         else:
             err = (got[:, :, rows] - want[:, :, rows]).abs().max()
         assert float(err) <= 1e-6, (qt, float(err))
+
+
+@pytest.mark.parametrize("tq,tk", [(150, 150), (128, 200), (200, 130)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_visible_only_rule_matches_a_direct_count(causal, tq, tk):
+    """The rule's visible-only form (the bf16 dq kernel's) holds every
+    (query tile, key tile) pair with a visible entry, and no other where Tq
+    is a multiple of 64: a row that sees no key visits nothing, and a tile
+    with no real key is never visited."""
+    km = _tile_masks()[:, :tk]
+    nkt, nqt = -(-tk // 64), -(-tq // 64)
+    real = np.asarray(km) > 0
+    i = np.arange(tq)[:, None]
+    j = np.arange(tk)[None, :]
+    vis = real[:, None, :] & ((j <= i) | (not causal))[None]   # (B, Tq, Tk)
+    need = np.zeros((4, nqt, nkt), bool)
+    for qt in range(nqt):
+        for kt in range(nkt):
+            need[:, qt, kt] = vis[:, 64 * qt:64 * qt + 64,
+                                  64 * kt:64 * kt + 64].any((1, 2))
+    got = streamed_visited_tiles(km, tq, causal, visible_only=True).numpy()
+    assert got.shape == need.shape
+    assert not (need & ~got).any(), "a pair with a visible entry is skipped"
+    assert not got[0].any(), "a batch row with no real key visits a tile"
+    assert not (got & ~streamed_visited_tiles(km, tq, causal).numpy()).any()
+    if tq % 64 == 0:
+        assert (got == need).all()
+
+
+@pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
+def test_visible_only_rule_is_exact_on_dq_reference(causal, diag):
+    """Each query tile's rows of ``dq_reference`` are unchanged (1e-6) when
+    the K, V, T and one-hot rows of every key tile the visible-only rule
+    skips for it are random values: what the bf16 dq kernel leaves out,
+    blind rows' tiles included, adds exactly 0."""
+    rng = np.random.default_rng(12)
+    km = _tile_masks()
+    b, t, h, dh, e = 4, 200, 2, 8, 4
+
+    def normal(*shape, std=1.0):
+        return torch.tensor(rng.normal(0, std, shape), dtype=torch.float32)
+
+    q, k, v, tt = (normal(b, t, h * dh) for _ in range(4))
+    oh = torch.tensor((rng.random((b, t, e)) < 0.3).astype(np.float32))
+    lam = torch.tensor(rng.random((b, h, t, e)).astype(np.float32))
+    g_out, g_su = normal(b, t, h * dh), normal(b, h, t, dh, std=0.1)
+    rho = normal(b, h, t, std=0.1)
+    m, l, _ = stats_reference(q, k, tt, km, causal=causal, num_heads=h)
+    kw = dict(causal=causal, diag_reset=diag, dropout_rate=0.1,
+              dropout_seed=5, num_heads=h, block_k=64)
+
+    def run(k, v, tt, oh):
+        return dq_reference(q, k, v, tt, km, oh, lam, m, l, g_out, g_su, rho,
+                            **kw)
+
+    want = run(k, v, tt, oh)
+    vis = streamed_visited_tiles(km, t, causal, visible_only=True)
+    assert not bool(vis.all())
+    for qt in range(vis.shape[1]):
+        xs = [x.clone() for x in (k, v, tt, oh)]
+        for bb, kt in (~vis[:, qt]).nonzero().tolist():
+            rows = slice(64 * kt, 64 * kt + 64)
+            for x in xs:
+                x[bb, rows] = torch.tensor(
+                    rng.normal(size=x[bb, rows].shape), dtype=torch.float32)
+        got = run(*xs)
+        rows = slice(64 * qt, 64 * qt + 64)
+        err = float((got[:, rows] - want[:, rows]).abs().max())
+        assert err <= 1e-6, (qt, err)
+    assert float(want[0].abs().max()) == 0.0   # no real key: no gradient
