@@ -82,7 +82,7 @@ from easydgl_tpu_torch.kernels.flash_attention import (
     flash_visited_tiles)
 from easydgl_tpu_torch.kernels.mau_attention import dropout_factor
 from easydgl_tpu_torch.kernels.mau_attention import (
-    _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
+    _chain, _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
     mau_attention_bwd_reference, mau_attention_reference)
 from easydgl_tpu_torch.kernels.mau_blocked import (
     dkvt_reference, dq_reference, glam_reference, intensity_reference,
@@ -152,13 +152,15 @@ STREAMED_REPLACES = {
 MAU_GRADS = ("dq", "dk", "dv", "dt", "dWd", "dbd", "dw", "dscaling")
 # The CUDA kernels each wrapper launches on the bf16 main paths.
 CUDA_KERNELS = {
-    "mau_attention_fwd": ["mau_fwd_kernel"],
+    "mau_attention_fwd": ["mau_fwd_pre_kernel<64>", "mau_int_round_kernel",
+                          "mau_int_fwd_tc_kernel<64, 1>",
+                          "mau_fwd_post_kernel<64>"],
     "mau_attention_bwd": ["mau_bwd_attn<bf16, 64, 1>", "mau_bwd_int_tc<64>",
                           "mau_bwd_attn<bf16, 64, 2>"],
     "catalog_nll_fwd": ["catalog_fwd_tc_kernel", "catalog_merge"],
     "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>",
                         "catalog_bwd_tc_kernel<2>"],
-    "mau_stats": ["mau_stats_mma_kernel"],
+    "mau_stats": ["mau_stats_tc_kernel"],
     "mau_intensity": ["mau_int_split_kernel", "mau_int_fwd_tc_kernel"],
     "mau_modulated_out": ["mau_out_tc_kernel"],
     "mau_glam": ["mau_glam_tc_kernel"],
@@ -224,71 +226,146 @@ def run_pair(fn, args, *, causal, diag, h):
               diag_reset=diag, num_heads=h, qpos=qpos)
 
 
-def compare(name, got, want, dtype, out_scale, labels=("out", "lam"),
-            second_tol=None):
-    """Holds (out, second) elementwise: out to TOL[dtype] of out_scale,
-    the second output to ``second_tol`` (default TOL[dtype]) of itself."""
-    worst, max_abs = 0.0, 0.0
+def compare_ratios(name, got, want, dtype, out_scale, labels=("out", "lam"),
+                   second_tol=None):
+    """{label: (max abs err, worst/tol)} of (out, second), logged: out held
+    elementwise to TOL[dtype] of out_scale, the second output to
+    ``second_tol`` (default TOL[dtype]) of itself; a non-finite output gets
+    an infinite ratio."""
+    res = {}
     for label, a, b, scale, (atol, rtol) in zip(
             labels, got, want, (out_scale, want[1]),
             (TOL[dtype], second_tol or TOL[dtype])):
         a, b = a.float(), b.float()
-        check(bool(torch.isfinite(a).all()), f"{name}: {label} not finite")
         err = (a - b).abs()
         ratio = float((err / (atol + rtol * scale.float().abs())).max())
+        if not bool(torch.isfinite(a).all()):
+            ratio = math.inf
         mabs = float(err.max())
         mrel = float((err / b.abs().clamp_min(1e-6)).max())
         log(f"  {name:22s} {label}: max_abs={mabs:.3e} max_rel={mrel:.3e}"
             f" max|plain|={float(b.abs().max()):.3e}"
             f" tol(atol={atol:g}, rtol={rtol:g}) worst/tol={ratio:.3f}")
+        res[label] = (mabs, ratio)
+    return res
+
+
+def compare(name, got, want, dtype, out_scale, labels=("out", "lam"),
+            second_tol=None):
+    """``compare_ratios``, each output within its tolerance; returns the
+    largest absolute error."""
+    res = compare_ratios(name, got, want, dtype, out_scale, labels,
+                         second_tol)
+    for label, (_, ratio) in res.items():
         check(ratio <= 1.0, f"{name}: {label} outside tolerance")
-        worst, max_abs = max(worst, ratio), max(max_abs, mabs)
-    return max_abs
+    return max(err for err, _ in res.values())
+
+
+# name, shape, dtype, causal, diag_reset, gathered queries
+MAU_FWD_CASES = (
+    ("bimau_fp32_flagship", FLAGSHIP, torch.float32, False, True, False),
+    ("bimau_bf16_flagship", FLAGSHIP, torch.bfloat16, False, True, False),
+    ("mau_causal_fp32", FLAGSHIP, torch.float32, True, False, False),
+    ("mau_causal_bf16", FLAGSHIP, torch.bfloat16, True, False, False),
+    ("bimau_qpos_tq6_fp32", dict(FLAGSHIP, tq=6), torch.float32, False, True,
+     True),
+    ("bimau_qpos_tq6_bf16", dict(FLAGSHIP, tq=6), torch.bfloat16, False, True,
+     True),
+    ("bimau_qpos_tq1_bf16", dict(FLAGSHIP, tq=1), torch.bfloat16, False, True,
+     True),
+    ("causal_qpos_tq6_fp32", dict(FLAGSHIP, tq=6), torch.float32, True, False,
+     True),
+    ("small_dh16_e4_fp32", dict(b=4, tq=11, tk=11, h=2, dh=16, e=4),
+     torch.float32, True, True, False),
+    ("tk128_fp32", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
+     torch.float32, False, True, False),
+    ("tk128_dh32_bf16", dict(b=16, tq=128, tk=128, h=16, dh=32, e=64),
+     torch.bfloat16, True, False, False),
+    ("dh128_bimau_bf16", DH128, torch.bfloat16, False, True, False),
+    ("dh128_causal_fp32", DH128, torch.float32, True, False, False),
+    # the bf16 head over rows of many heads at narrow heads, few and many
+    # events: a ragged last column tile, two event tiles, gathered queries
+    ("small_dh16_e3_bf16", dict(b=5, tq=11, tk=11, h=2, dh=16, e=3),
+     torch.bfloat16, True, True, False),
+    ("e128_qpos_tq9_bf16", dict(b=16, tq=9, tk=31, h=8, dh=64, e=128),
+     torch.bfloat16, False, True, True))
+
+
+def mau_fwd_case(i, name, shape, dtype, causal, diag, gathered):
+    """Case i of ``MAU_FWD_CASES``: the forward against the plain version;
+    {output: (max abs err, worst/tol)}."""
+    args = mau_inputs(**shape, dtype=dtype, gathered=gathered, seed=i)
+    got = run_pair(mau_attention, args, causal=causal, diag=diag, h=shape["h"])
+    torch.cuda.synchronize()
+    want = run_pair(mau_attention_reference, args, causal=causal, diag=diag,
+                    h=shape["h"])
+    check(tuple(got[0].shape) == tuple(want[0].shape)
+          and got[0].dtype == dtype, f"{name}: out shape/dtype")
+    check(tuple(got[1].shape) == tuple(want[1].shape)
+          and got[1].dtype == torch.float32, f"{name}: lam shape/dtype")
+    out_scale = want[0]
+    if dtype == torch.bfloat16:
+        abs_v = args[:2] + (args[2].abs(),) + args[3:]
+        out_scale = run_pair(mau_attention_reference, abs_v, causal=causal,
+                             diag=diag, h=shape["h"])[0]
+    return compare_ratios(name, got, want, dtype, out_scale)
+
+
+def rounding_probe(seed=90):
+    """The bf16 forward on inputs where the fused contract's rounding points
+    decide lam, so that lam (and the training residual raw) are held to the
+    fp32 tolerance: t = 0 makes seq_units, and x's seq_units lanes, exactly
+    0, so z = rnd(iv) Wd[dh] + bd is formed with one rounding on both
+    sides; every interval (37.3..37.31) rounds to the bf16 37.25, and Wd's
+    interval lane is 2, so an unrounded interval moves z by 0.1; bd puts
+    each sigmoid 0.45 of a bf16 ulp above a bf16 value v in (0.55, 0.9), so
+    that it rounds down to v by a margin of 0.05 ulp, far above the fp32
+    error of either side's sigmoid, and an unrounded sigmoid moves raw (64
+    columns an event, w = 0.5) by ~0.06 of ~22. {output: (max abs err,
+    worst/tol)}: out at the bf16 scale tolerance, lam and raw at fp32's."""
+    shape = dict(b=16, tq=31, tk=31, h=8, dh=64, e=64)
+    args = list(mau_inputs(**shape, dtype=torch.bfloat16, gathered=False,
+                           seed=seed))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, tq, e, dh = shape["b"], shape["tq"], shape["e"], shape["dh"]
+    args[3] = torch.zeros_like(args[3])                               # t
+    args[5] = 37.3 + 0.01 * torch.rand(b, tq, generator=g, device="cuda")
+    ulp = 2.0 ** -8
+    v = torch.round((0.55 + 0.35 * torch.rand(
+        e * dh, generator=g, device="cuda", dtype=torch.float64)) / ulp) * ulp
+    target = v + 0.45 * ulp
+    zc = torch.log(target / (1 - target))
+    args[7][dh] = 2.0                                    # Wd's interval lane
+    args[8] = (zc - 2.0 * 37.25).float()                              # bd
+    args[9] = torch.full((e, dh), 0.5, device="cuda")                 # w
+    args[10] = torch.zeros(e, device="cuda")                          # scaling
+    q, k, vv, t, km, iv, oh, wd, bd, w, sc, qpos = args
+    kw = dict(causal=False, diag=True, h=shape["h"])
+    out, lam, raw = _launch_fwd(q, k, vv, t, km, iv, oh, wd, bd, w, sc, False,
+                                True, shape["h"], qpos, None, 0.0,
+                                want_raw=True)
+    torch.cuda.synchronize()
+    want = run_pair(mau_attention_reference, args, **kw)
+    chain = _chain(q, k, vv, t, km, iv, oh, wd, bd, w, sc, causal=False,
+                   diag_reset=True, dropout_rate=0.0, dropout_seed=None,
+                   num_heads=shape["h"], qpos=qpos)
+    name = "rounding_probe_bf16"
+    return {"out": scale_err(name, "out", out, want[0], torch.bfloat16),
+            "lam": scale_err(name, "lam", lam, want[1], torch.float32),
+            "raw": scale_err(name, "raw", raw, chain["raw"], torch.float32)}
 
 
 def phase_kernel_checks():
     log("phase 3: mau_attention kernel vs plain PyTorch on the card")
-    fl = FLAGSHIP
-    cases = [
-        ("bimau_fp32_flagship", fl, torch.float32, False, True, False),
-        ("bimau_bf16_flagship", fl, torch.bfloat16, False, True, False),
-        ("mau_causal_fp32", fl, torch.float32, True, False, False),
-        ("mau_causal_bf16", fl, torch.bfloat16, True, False, False),
-        ("bimau_qpos_tq6_fp32", dict(fl, tq=6), torch.float32, False, True,
-         True),
-        ("bimau_qpos_tq6_bf16", dict(fl, tq=6), torch.bfloat16, False, True,
-         True),
-        ("bimau_qpos_tq1_bf16", dict(fl, tq=1), torch.bfloat16, False, True,
-         True),
-        ("causal_qpos_tq6_fp32", dict(fl, tq=6), torch.float32, True, False,
-         True),
-        ("small_dh16_e4_fp32", dict(b=4, tq=11, tk=11, h=2, dh=16, e=4),
-         torch.float32, True, True, False),
-        ("tk128_fp32", dict(b=16, tq=128, tk=128, h=8, dh=64, e=64),
-         torch.float32, False, True, False),
-        ("tk128_dh32_bf16", dict(b=16, tq=128, tk=128, h=16, dh=32, e=64),
-         torch.bfloat16, True, False, False),
-        ("dh128_bimau_bf16", DH128, torch.bfloat16, False, True, False),
-        ("dh128_causal_fp32", DH128, torch.float32, True, False, False),
-    ]
     errs = {}
-    for i, (name, shape, dtype, causal, diag, gathered) in enumerate(cases):
-        args = mau_inputs(**shape, dtype=dtype, gathered=gathered, seed=i)
-        got = run_pair(mau_attention, args, causal=causal, diag=diag,
-                       h=shape["h"])
-        torch.cuda.synchronize()
-        want = run_pair(mau_attention_reference, args, causal=causal,
-                        diag=diag, h=shape["h"])
-        check(tuple(got[0].shape) == tuple(want[0].shape)
-              and got[0].dtype == dtype, f"{name}: out shape/dtype")
-        check(tuple(got[1].shape) == tuple(want[1].shape)
-              and got[1].dtype == torch.float32, f"{name}: lam shape/dtype")
-        out_scale = want[0]
-        if dtype == torch.bfloat16:
-            abs_v = args[:2] + (args[2].abs(),) + args[3:]
-            out_scale = run_pair(mau_attention_reference, abs_v,
-                                 causal=causal, diag=diag, h=shape["h"])[0]
-        errs[name] = compare(name, got, want, dtype, out_scale)
+    for i, case in enumerate(MAU_FWD_CASES):
+        res = mau_fwd_case(i, *case)
+        for label, (_, ratio) in res.items():
+            check(ratio <= 1.0, f"{case[0]}: {label} outside tolerance")
+        errs[case[0]] = max(err for err, _ in res.values())
+    log("  the bf16 rounding points, held at the fp32 tolerance:")
+    for label, (_, ratio) in rounding_probe().items():
+        check(ratio <= 1.0, f"rounding probe: {label} outside tolerance")
     return errs
 
 
@@ -338,10 +415,27 @@ def time_ms(fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def wd_l2_bytes(*, b, tq, h, dh, e, dtype, **_) -> int:
+    """Bytes of Wd (and, in bf16, the interval lane, bd and w beside each
+    tile) that the forward reads from L2 in one launch, from its schedule:
+    bf16, for each of the intensity head's row blocks (64 rows a consumer
+    warpgroup, ``int_groups``: three at dh <= 64, two at 128) the bf16 (dh,
+    E*dh) tiles once and 3 x E*dh fp32 side lanes; fp32, each of the B*H
+    blocks the fp32 (dh+1, E*dh) Wd once for every 32 query rows."""
+    edh = e * dh
+    if dtype == torch.bfloat16:
+        blocks = -(-b * h * tq // (64 * (2 if dh == 128 else 3)))
+        return blocks * (2 * dh * edh + 4 * 3 * edh)
+    return b * h * -(-tq // 32) * 4 * (dh + 1) * edh
+
+
 def phase_kernel_timing():
     log("phase 4: mau_attention timing at the flagship eval shape "
         "(B=512, T=31, C=512, H=8, E=64)")
     rows = {}
+    fl = FLAGSHIP
+    sigmoids = fl["b"] * fl["h"] * fl["tq"] * fl["e"] * fl["dh"]
+    one, two = special_floor_ms(sigmoids), special_floor_ms(2 * sigmoids)
     for dtype in (torch.bfloat16, torch.float32):
         args = mau_inputs(**FLAGSHIP, dtype=dtype, gathered=False, seed=100)
 
@@ -357,11 +451,25 @@ def phase_kernel_timing():
         nbytes, flops = mau_work(**FLAGSHIP, dtype=dtype,
                                  keys=mau_keys(args[4]))
         bound_ms, bound_by = bound(nbytes, flops, dtype)
+        l2 = wd_l2_bytes(**FLAGSHIP, dtype=dtype)
         log(f"  {str(dtype):15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
             f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
-            f" {flops / 1e9:.1f} GFLOP)  kernel/bound {ms / bound_ms:.1f}x")
+            f" {flops / 1e9:.1f} GFLOP)  kernel/bound {ms / bound_ms:.1f}x;"
+            f" sigmoid floor ({sigmoids / 1e6:.1f} M) {one:.4f} ms at one"
+            f" special-function op a sigmoid, {two:.4f} ms at two (ex2 and a"
+            f" reciprocal: the exact form the kernel runs"
+            f"{', rounded to bf16' if dtype == torch.bfloat16 else ''});"
+            f" Wd read from L2: {l2 / 1e9:.3f} GB a launch")
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, special_floor_ms=two,
+                           special_floor_one_op_ms=one,
+                           sigmoid_form="exact (ex2 and a reciprocal)",
+                           wd_l2_bytes=l2)
+        if dtype == torch.bfloat16:
+            split = kernel_split(kern)
+            log("    by kernel: " + ", ".join(f"{n} {t:.4f} ms"
+                                              for n, t in split.items()))
+            rows[dtype]["by_kernel"] = split
     return rows
 
 
@@ -637,27 +745,51 @@ def phase_catalog_checks():
     return errs
 
 
-def stats_errs(name, got, want, dtype):
-    """The stats kernel's (m, l, seq_units) against the plain version's. A
-    row that sees no key has m = -(2^32)+1 exactly and would set the scale
-    of m and l: m there must be equal, elsewhere within SCALE_TOL of the
-    largest |m| of the rows that see a key; l (>= 1) within SCALE_TOL of
-    itself, elementwise; seq_units by scale. Returns the largest absolute
-    error of m (rows that see a key) and seq_units."""
+def stats_ratios(name, got, want, dtype):
+    """{output: (max abs err, worst/tol)} of the stats kernel's (m, l,
+    seq_units) against the plain version's, logged. A row that sees no key
+    has m = -(2^32)+1 exactly and would set the scale of m and l: m there
+    must be equal (else an infinite ratio), elsewhere within SCALE_TOL of
+    the largest |m| of the rows that see a key; l (>= 1) within SCALE_TOL
+    of itself, elementwise; seq_units by scale; an output that is not
+    finite gets an infinite ratio."""
     m, l, su = got
     tol = SCALE_TOL[dtype]
     dead = want.m < -1e9
-    check(torch.equal(m[dead], want.m[dead]), f"{name}: m of a dead row")
-    m_err, m_ratio = scale_err(name, "m (live rows)", m[~dead],
-                               want.m[~dead], dtype)
-    l_ratio = float(((l - want.l).abs() / (tol * want.l)).max())
-    log(f"  {name:24s} {'l':16s}: max_abs={float((l - want.l).abs().max()):.3e}"
+    res = {"m (dead rows)": (float((m[dead] - want.m[dead]).abs().max())
+                             if bool(dead.any()) else 0.0,
+                             0.0 if torch.equal(m[dead], want.m[dead])
+                             else math.inf)}
+    for label, a, b in (("m (live rows)", m[~dead], want.m[~dead]),
+                        ("seq_units", su, want.su)):
+        res[label] = (scale_err(name, label, a, b, dtype)
+                      if bool(torch.isfinite(a).all()) else (math.inf, math.inf))
+    l_err = (l - want.l).abs()
+    l_ratio = float((l_err / (tol * want.l)).max())
+    if not bool(torch.isfinite(l).all()):
+        l_ratio = math.inf
+    log(f"  {name:24s} {'l':16s}: max_abs={float(l_err.max()):.3e}"
         f" tol={tol:g}*|plain| elementwise worst/tol={l_ratio:.3f}")
-    su_err, su_ratio = scale_err(name, "seq_units", su, want.su, dtype)
-    for label, ratio in (("m", m_ratio), ("l", l_ratio),
-                         ("seq_units", su_ratio)):
-        check(ratio <= 1.0, f"{name}: {label} outside tolerance")
-    return max(m_err, su_err)
+    res["l"] = (float(l_err.max()), l_ratio)
+    return res
+
+
+def stats_check(i, name, shape, dtype, causal, diag, rate, case=None):
+    """The stats kernel on case i of ``STREAMED_CASES`` against the plain
+    forward's m, l and seq_units, and l on the fully masked row 0 (uniform
+    over its Tk keys: l = Tk exactly): {output: (max abs err, worst/tol)}."""
+    args, _, want = case or streamed_case(i, name, shape, dtype, causal,
+                                          diag, rate)
+    q, k, _, t, km, *_ = args
+    before = mau_stats.launches
+    got = mau_stats(q, k, t, km, causal=causal, num_heads=shape["h"])
+    torch.cuda.synchronize()
+    check(mau_stats.launches == before + 1, f"{name}: mau_stats no launch")
+    res = stats_ratios(name, got, want, dtype)
+    res["l of the fully masked row"] = (
+        float((got[1][0] - shape["tk"]).abs().max()),
+        0.0 if bool((got[1][0] == shape["tk"]).all()) else math.inf)
+    return res
 
 
 # E = 128 (two 64-event tiles); a batch with a fully masked row, a row whose
@@ -757,20 +889,21 @@ def phase_streamed_checks():
                                        rate)
         q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
         h = shape["h"]
-        kw = dict(causal=causal, num_heads=h)
-        stats = mau_stats(q, k, t, km, **kw)
+        stats = stats_check(i, name, shape, dtype, causal, diag, rate,
+                            (args, sd, want))
+        for label, (_, ratio) in stats.items():
+            check(ratio <= 1.0, f"{name}: stats {label} outside tolerance")
         lam = mau_intensity(want.su, iv, wd, bd, w, sc)
         torch.cuda.synchronize()
         check(lam.dtype == torch.float32, f"{name}: lam dtype")
         out_err, out_ratio = streamed_out_check(
             i, name, shape, dtype, causal, diag, rate, (args, sd, want))
         check(out_ratio <= 1.0, f"{name}: out outside tolerance")
-        case = {"mau_stats": stats_errs(name, stats, want, dtype),
+        case = {"mau_stats": max(stats[label][0] for label in (
+                    "m (live rows)", "seq_units")),
                 "mau_intensity": compare_by_scale(name, ("lam",), (lam,),
                                                   (want.lam,), torch.float32),
                 "mau_modulated_out": out_err}
-        check(bool((stats[1][0] == shape["tk"]).all()),
-              f"{name}: the fully masked row is not uniform over its keys")
         # the interval term must count, or a kernel that drops it would
         # pass (the TPU kernel drops it at dh % 128 == 0)
         lam0 = intensity_reference(want.su, torch.zeros_like(iv), wd, bd, w,
@@ -1334,8 +1467,9 @@ def phase_streamed_timing():
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(*heads))
         live, visited = tile_shares(km)
         log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
-            f" the bf16 output kernel's live-tile rule visits {visited:.4f} of"
-            " the (query tile, key tile) pairs, the others every pair")
+            f" the live-tile rule of the bf16 stats and output kernels visits"
+            f" {visited:.4f} of the (query tile, key tile) pairs, the others"
+            " every pair")
         sd = torch.tensor(4000, dtype=torch.int64, device="cuda")
         drop_ms = time_ms(lambda: mau_modulated_out(
             q, k, v, km, oh, lam, m, l, diag_reset=True, dropout_rate=0.1,
@@ -1350,8 +1484,18 @@ def phase_streamed_timing():
             if name == "mau_intensity":
                 bound_ms, extra = intensity_bound(name, dtype)
                 bound_by = extra.pop("bound_by")
-            share = (visited if name == "mau_modulated_out"
+            share = (visited if name in ("mau_stats", "mau_modulated_out")
                      and dtype == torch.bfloat16 else 1.0)
+            if name == "mau_stats":
+                # one exp an entry of every (query tile, key tile) pair it
+                # visits
+                exps = share * LC["b"] * LC["h"] * 4096 * (
+                    -(-LC["tq"] // 64)) * (-(-LC["tk"] // 64))
+                extra = dict(special_floor_ms=special_floor_ms(exps))
+                log(f"  {name:17s} {str(dtype):15s} exp floor"
+                    f" {extra['special_floor_ms']:.4f} ms ({exps / 1e6:.1f} M"
+                    f" exps, one special-function op each, over the"
+                    f" {share:.4f} of the tile pairs it visits)")
             log(f"  {name:17s} {str(dtype):15s} kernel {ms:.4f} ms  plain"
                 f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
                 f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
@@ -2305,13 +2449,15 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
 def kernel_names(log_text: str):
     """kernel<dtype, template ints...> of an entry function in a ptxas
     report line."""
-    m = re.search(r"(mau_fwd_kernel|mau_bwd_attn|mau_bwd_int_tc|"
+    m = re.search(r"(mau_fwd_kernel|mau_fwd_pre_kernel|mau_fwd_post_kernel|"
+                  r"mau_bwd_attn|mau_bwd_int_tc|"
                   r"mau_bwd_weights|catalog_kernel|catalog_merge|"
                   r"catalog_fwd_tc_kernel|catalog_bwd_tc_kernel|"
-                  r"flash_fwd_tc_kernel|"
-                  r"mau_stats_mma_kernel|mau_stats_kernel|mau_out_tc_kernel|"
-                  r"mau_out_kernel|mau_intensity_kernel|mau_glam_tc_kernel|"
-                  r"mau_glam_kernel|mau_dq_mma_kernel|mau_dq_kernel|"
+                  r"flash_fwd_tc_kernel|mau_int_fwd_tc_kernel|"
+                  r"mau_int_split_kernel|mau_int_round_kernel|"
+                  r"mau_stats_tc_kernel|mau_stats_kernel|mau_out_tc_kernel|"
+                  r"mau_out_kernel|mau_glam_tc_kernel|"
+                  r"mau_glam_kernel|mau_dq_tc_kernel|mau_dq_kernel|"
                   r"mau_dkvt_tc_kernel|mau_dkvt_kernel|"
                   r"mau_int_bwd_rows_tc_kernel|mau_int_bwd_cols_tc_kernel|"
                   r"flash_fwd_kernel|flash_bwd_tc_kernel|flash_bwd_kernel)"
@@ -2404,7 +2550,10 @@ def main() -> int:
                            "training": train_launches["mau_attention"]},
         max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"], library_ms=None)]
+        bound_by=main_row["bound_by"], library_ms=None,
+        **{key: main_row[key] for key in (
+            "special_floor_ms", "special_floor_one_op_ms", "sigmoid_form",
+            "wd_l2_bytes", "by_kernel")})]
     # rows 4-6 (the catalog backward's three TPU kernels) are one wrapper
     for name, source, replaces, err in (
             ("mau_attention_bwd", "mau_attention_bwd.cu",

@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels: dtype conversion and rounding,
-// the sigmoid, mma.sync, the bf16 hi/lo split of fp32 values, and the
+// the sigmoid, mma.sync and ldmatrix, the bf16 hi/lo splits of fp32 values, and the
 // counter-based Philox4x32-10 generator that dropout draws its bits from.
 #pragma once
 
@@ -36,6 +36,15 @@ __device__ __forceinline__ float sigmoid(float z) {
   return __fdividef(1.f, 1.f + __expf(-z));
 }
 
+// a and b rounded to bf16 (round to nearest even), kept fp32: one
+// conversion of the pair, and each half back by a shift or a mask.
+__device__ __forceinline__ void round_bf16x2(float& a, float& b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&v);
+  a = __uint_as_float(u << 16);
+  b = __uint_as_float(u & 0xffff0000u);
+}
+
 // softplus(x) = max(x, 0) + log1p(exp(-|x|))
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -59,6 +68,23 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   const float2 hf = __bfloat1622float2(h);
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// (x0, x1) as three bf16 pairs, hi + mid + lo = x exactly: hi = x rounded
+// to bf16, mid = (x - hi) rounded, lo = x - hi - mid (each difference exact
+// in fp32, the last within bf16's 8 bits). A product of such an x with a
+// bf16 value in three bf16 products is the fp32 product.
+__device__ __forceinline__ void split3_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                              uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 

@@ -24,19 +24,36 @@
 // What bounds it: the intensity head. z is a (Tq x (dh+1)) @ ((dh+1) x E*dh)
 // product per (b, h) — 67.6 GFLOP at the flagship eval shape against ~2 GFLOP
 // for everything else — followed by E*dh sigmoids per query row (520 M at the
-// flagship shape, two special-function-unit operations each). The TPU kernel
-// packs heads into 128-row MXU tiles and reduces events with a 0/1 selector
-// matmul; here one block serves one (b, h), the (rows, E*dh) sigmoid
-// activation never leaves registers, and the per-event reduction over an
-// event's dh columns is a register sum plus a shuffle across lanes.
+// flagship shape, two special-function-unit operations each). Wd is shared
+// by every head and batch row, so the head is best run over the rows of many
+// (b, h) at once, Wd read from L2 once for many rows.
 //
-// * bf16: the z product runs on the tensor cores (mma.sync m16n8k16, fp32
-//   accumulate). Each warp keeps the block's 32 x (dh+1) A operand in
-//   registers and streams its events' Wd columns from L2, pre-packed by the
-//   wrapper in B-fragment order (one coalesced 8-byte load per lane per
-//   8x16 tile). What bounds it then is the sigmoids on the SFU.
-// * fp32: the z product runs on CUDA cores, an 8x4 register tile per thread,
-//   Wd row-major streamed from L2 with 16-byte loads.
+// * bf16 (the main path): three kernels and a small one, as the backward
+//   (mau_attention_bwd.cu) is split.
+//   1. mau_fwd_pre_kernel: one block a (b, h): the logits, the softmax and
+//      su = rnd(probs) @ t, the two products on mma.sync from bf16 tiles in
+//      shared memory; writes probs (fp32, 16 MB at the flagship shape) and
+//      x = rnd(su) (bf16 rows of dh lanes, (B*H*Tq, dh), 16 MB).
+//   2. mau_int_round_kernel rounds Wd, its interval lane and w to bf16 once
+//      a launch, and mau_int_fwd_tc_kernel<dh, fused> (intensity_head.cuh)
+//      runs the head over the B*H*Tq rows, 192 a block (about six (b, h)):
+//      z = x Wd on wgmma in one bf16 pass, the interval rounded to bf16 and
+//      added as an fp32 rank-1 term, the exact sigmoid rounded to bf16,
+//      times the bf16 w, summed in fp32; lam and, in training, raw. At the
+//      flagship shape its 662 blocks read 0.35 GB of Wd from L2, where one
+//      block a (b, h) read 2.68 GB (80 x 4,096 bf16 each).
+//   3. mau_fwd_post_kernel: one block a (b, h): iqk = lam one-hot^T on
+//      mma.sync, lam in fp32 as three bf16 parts by the exact 0/1 one-hot;
+//      the diagonal reset, dropout, rounding, and @v on mma.sync.
+//   The round trip of probs and x through device memory (~66 MB) costs
+//   ~0.02 ms at 3.35 TB/s. The attention kernels' products are tiny (31 x
+//   31 x 64 at the flagship shape): on the CUDA cores, one dot product an
+//   entry, they were bound by shared-memory reads (~0.8 MB a block).
+// * fp32: mau_fwd_kernel, one block a (b, h): the z product on CUDA
+//   cores, an 8x4 register tile per thread, Wd row-major streamed from L2
+//   with 16-byte loads; the (rows, E*dh) sigmoid activation never leaves
+//   registers, and the per-event reduction over an event's dh columns is a
+//   register sum plus a shuffle across lanes.
 //
 // Precision contract (mirrors the TPU kernel): in bf16 mode the operands of
 // every product are rounded to bf16 (probs before @t, [su | interval] before
@@ -44,19 +61,17 @@
 // evaluated in fp32 and rounded to bf16 once; all sums accumulate in fp32.
 // In fp32 mode nothing is rounded.
 //
-// Limits: 1 <= Tq <= Tk <= 128, dh in {16, 32, 64, 128}, and the block's
+// Limits: 1 <= Tq <= Tk <= 128, dh in {16, 32, 64, 128}, and the blocks'
 // shared memory (mau_attention_fwd_smem_bytes) within 227 KB.
 
-#include "common.cuh"
+#include "intensity_head.cuh"
 
 namespace {
 
 using namespace port;
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kNeg = -4294967295.0f;  // -(2^32) + 1, the reference mask
-constexpr size_t kMaxSmem = 232448;     // 227 KB, opt-in per block
+
 
 struct Params {
   const void* q;
@@ -68,22 +83,21 @@ struct Params {
   const float* intervals;  // (B, Tq)
   const int* qpos;         // (B, Tq)
   const float* onehot;     // (B, Tk, E)
-  const void* wd;          // fp32: (dh+1, E*dh); bf16: B fragments (see below)
+  const float* wd;         // (dh+1, E*dh)
   const float* bd;         // (E*dh,)
-  const void* w;           // (E, dh), input dtype
+  const float* w;          // (E, dh)
   const float* scaling;    // (E,)
   void* out;               // (B, Tq, H*dh), input dtype
   float* lam;              // (B, H, Tq, E)
   float* raw;              // (B, H, Tq, E) or null (eval)
+  float* probs;            // bf16: (B*H, Tq*Tk rounded up to 4), pre -> post
+  bf16* x;                 // bf16: (B*H*Tq, dh) rnd(su), pre -> the head
   const long long* seed;   // dropout seed (device scalar) or null (no dropout)
   unsigned drop_thresh;
   float drop_scale;
   float scale;
   int B, Tq, Tk, H, E, causal, diag_reset;
 };
-
-// K of the bf16 z product, padded to the mma's depth of 16.
-__host__ __device__ inline int kpad(int dh) { return round_up(dh + 1, 16); }
 
 // Row strides of the q/k/t/v rows and of the lam/one-hot rows in shared
 // memory: multiples of 4 floats for 16-byte loads, 4 (mod 32) words apart so
@@ -99,9 +113,9 @@ struct Layout {
 __host__ __device__ inline Layout layout(int Tq, int Tk, int dh, int E) {
   const int ldh = row_stride(dh), lde = event_stride(E), tqp = round_up(Tq, 32);
   Layout l;
-  // the z product's A operand — fp32: xT[(dh+1)][tqp]; bf16: rows of
-  // kpad(dh)+8 bf16 — aliasing the q rows of the logits phase
-  l.x = round_up(imax(imax((dh + 1) * tqp, Tq * ldh), tqp * (kpad(dh) + 8) / 2), 4);
+  // the z product's A operand xT[(dh+1)][tqp] (fp32), aliasing the q rows
+  // of the logits phase
+  l.x = round_up(imax((dh + 1) * tqp, Tq * ldh), 4);
   // k and t rows; after seq_units: raw/lam rows and the one-hot rows
   l.a = round_up(imax(2 * Tk * ldh, Tq * lde + Tk * lde), 4);
   l.v = round_up(Tk * ldh, 4);
@@ -138,91 +152,6 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
   y.z = fmaf(a, x.z, y.z); y.w = fmaf(a, x.w, y.w);
 }
 
-// raw[r][e] for r < Tq into lam_s (row stride lde): bf16 on the tensor cores.
-// xb: the A operand, tqp rows of kpad(DH) bf16 at row stride S (rows >= Tq
-// and columns > DH are zero). wdf: Wd packed as B fragments —
-// wdf[(n8 * KS + ks) * 32 + lane] holds, for lane = 4*g + t, the bf16 pairs
-// Wd[ks*16 + 2t + {0,1}][n8*8 + g] and Wd[ks*16 + 8 + 2t + {0,1}][n8*8 + g].
-// Warps take events in turn; per event, chunks of NT n-tiles (8 columns
-// each) are multiplied, put through the sigmoid, weighted by w and summed
-// into per-row partials, then summed over the 4 lanes that share a row.
-template <int DH>
-__device__ void intensity_head_mma(const Params& p, const __nv_bfloat16* xb,
-                                   int S, float* lam_s, int lde) {
-  constexpr int KS = (DH + 1 + 15) / 16;
-  constexpr int NT = DH >= 32 ? 4 : DH / 8;
-  constexpr int CPE = DH / (NT * 8);  // chunks per event
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const uint2* wdf = static_cast<const uint2*>(p.wd);
-  const __nv_bfloat16* wf = static_cast<const __nv_bfloat16*>(p.w);
-  for (int r0 = 0; r0 < p.Tq; r0 += 32) {
-    uint32_t a[2][KS][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* x0 = xb + (r0 + mt * 16 + g) * S + ks * 16 + 2 * t;
-        a[mt][ks][0] = *reinterpret_cast<const uint32_t*>(x0);
-        a[mt][ks][1] = *reinterpret_cast<const uint32_t*>(x0 + 8 * S);
-        a[mt][ks][2] = *reinterpret_cast<const uint32_t*>(x0 + 8);
-        a[mt][ks][3] = *reinterpret_cast<const uint32_t*>(x0 + 8 * S + 8);
-      }
-    for (int e = warp; e < p.E; e += kWarps) {
-      float part[4] = {0.f, 0.f, 0.f, 0.f};  // rows g, g+8, g+16, g+24
-#pragma unroll
-      for (int c = 0; c < CPE; ++c) {
-        const int n0 = e * DH + c * NT * 8;  // first column of the chunk
-        float acc[2][NT][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint2 bf[NT];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            bf[nt] = __ldg(wdf + ((size_t)(n0 / 8 + nt) * KS + ks) * 32 + lane);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt][ks], bf[nt].x, bf[nt].y);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = n0 + nt * 8 + 2 * t + j;
-            const float bdv = __ldg(p.bd + col);
-            const float wv = to_f(wf[col]);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int hr = 0; hr < 2; ++hr) {
-                const float sg = rnd<__nv_bfloat16>(sigmoid(acc[mt][nt][2 * hr + j] + bdv));
-                part[2 * mt + hr] = fmaf(sg, wv, part[2 * mt + hr]);
-              }
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
-        part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
-      }
-      if (t == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + (i >> 1) * 16 + (i & 1) * 8 + g;
-          if (r < p.Tq) lam_s[r * lde + e] = part[i];
-        }
-      }
-    }
-  }
-}
-
 // raw[r][e] for r < Tq into lam_s: fp32 on CUDA cores. Each pass covers 32
 // query rows x 256 columns of z: thread (rg, cg) owns rows rg*8..+7 and
 // columns cg*4..+3. One event's DH columns sit on DH/4 adjacent lanes of one
@@ -233,8 +162,8 @@ __device__ void intensity_head_fp32(const Params& p, const float* xs, int tqp,
   const int edh = p.E * DH;
   const int cg = threadIdx.x & 63, rg = threadIdx.x >> 6;
   constexpr int kLanesPerEvent = DH / 4;
-  const float* wd = static_cast<const float*>(p.wd);
-  const float* wf = static_cast<const float*>(p.w);
+  const float* wd = p.wd;
+  const float* wf = p.w;
   for (int r0 = 0; r0 < p.Tq; r0 += 32) {
     for (int col0 = 0; col0 < edh; col0 += 4 * 64) {
       const int c0 = col0 + cg * 4;
@@ -290,11 +219,9 @@ __device__ void intensity_head_fp32(const Params& p, const float* xs, int tqp,
 }
 
 // Three blocks per SM (<= 85 registers a thread) hide more of each block's
-// global-load and barrier latency; the bf16 dh=128 tile needs more registers.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 3)
-    mau_fwd_kernel(const Params p) {
-  constexpr bool kBf16 = sizeof(T) == 2;
+// global-load and barrier latency.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 3) mau_fwd_kernel(const Params p) {
   constexpr int ldh = DH + 4;  // row_stride(DH)
   constexpr int D4 = DH / 4;
   extern __shared__ __align__(16) float smem[];
@@ -318,10 +245,10 @@ __global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 
   int* qps = reinterpret_cast<int*>(ivs + Tq);
 
   // ---- phase 1: attention probabilities and seq_units
-  load_rows<T, DH>(qs, static_cast<const T*>(p.q) + b * p.q_bs + h * DH, p.q_rs, Tq);
-  load_rows<T, DH>(ks, static_cast<const T*>(p.k) + b * p.k_bs + h * DH, p.k_rs, Tk);
-  load_rows<T, DH>(ts, static_cast<const T*>(p.t) + b * p.t_bs + h * DH, p.t_rs, Tk);
-  load_rows<T, DH>(vs, static_cast<const T*>(p.v) + b * p.v_bs + h * DH, p.v_rs, Tk);
+  load_rows<float, DH>(qs, static_cast<const float*>(p.q) + b * p.q_bs + h * DH, p.q_rs, Tq);
+  load_rows<float, DH>(ks, static_cast<const float*>(p.k) + b * p.k_bs + h * DH, p.k_rs, Tk);
+  load_rows<float, DH>(ts, static_cast<const float*>(p.t) + b * p.t_bs + h * DH, p.t_rs, Tk);
+  load_rows<float, DH>(vs, static_cast<const float*>(p.v) + b * p.v_bs + h * DH, p.v_rs, Tk);
   for (int j = tid; j < Tk; j += kThreads) kms[j] = p.key_mask[(size_t)b * Tk + j];
   for (int i = tid; i < Tq; i += kThreads) {
     ivs[i] = p.intervals[(size_t)b * Tq + i];
@@ -361,45 +288,25 @@ __global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 
   }
   __syncthreads();
 
-  // A operand of z = [su | interval], rounded to the compute dtype; rows past
-  // Tq (and, in bf16, columns past DH) are zero so the z tile may run over
-  // them. The q rows it overwrites are dead here. su = probs @ t, each thread
-  // a row i and 4 adjacent channels.
-  constexpr int KP = (DH + 1 + 15) / 16 * 16, S = KP + 8;
-  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(xs);
-  if constexpr (kBf16) {
-    for (int idx = tid; idx < tqp * KP; idx += kThreads) {
-      const int i = idx / KP, d = idx - i * KP;
-      if (i >= Tq || d >= DH) xb[i * S + d] = __float2bfloat16(i < Tq && d == DH ? ivs[i] : 0.f);
-    }
-  } else {
-    for (int idx = tid; idx < (DH + 1) * tqp; idx += kThreads) {
-      const int d = idx / tqp, i = idx - d * tqp;
-      if (i >= Tq || d == DH) xs[idx] = i < Tq ? ivs[i] : 0.f;
-    }
+  // A operand of z = [su | interval]; rows past Tq are zero so the z tile
+  // may run over them. The q rows it overwrites are dead here. su = probs @
+  // t, each thread a row i and 4 adjacent channels.
+  for (int idx = tid; idx < (DH + 1) * tqp; idx += kThreads) {
+    const int d = idx / tqp, i = idx - d * tqp;
+    if (i >= Tq || d == DH) xs[idx] = i < Tq ? ivs[i] : 0.f;
   }
   for (int idx = tid; idx < Tq * D4; idx += kThreads) {
     const int i = idx / D4, d0 = (idx - i * D4) * 4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = 0; j < Tk; ++j)
-      axpy4(rnd<T>(ps[i * Tk + j]), *reinterpret_cast<const float4*>(ts + j * ldh + d0), acc);
-    if constexpr (kBf16) {
-      __nv_bfloat16* xr = xb + i * S + d0;
-      xr[0] = __float2bfloat16(acc.x); xr[1] = __float2bfloat16(acc.y);
-      xr[2] = __float2bfloat16(acc.z); xr[3] = __float2bfloat16(acc.w);
-    } else {
-      xs[(d0 + 0) * tqp + i] = acc.x; xs[(d0 + 1) * tqp + i] = acc.y;
-      xs[(d0 + 2) * tqp + i] = acc.z; xs[(d0 + 3) * tqp + i] = acc.w;
-    }
+      axpy4(ps[i * Tk + j], *reinterpret_cast<const float4*>(ts + j * ldh + d0), acc);
+    xs[(d0 + 0) * tqp + i] = acc.x; xs[(d0 + 1) * tqp + i] = acc.y;
+    xs[(d0 + 2) * tqp + i] = acc.z; xs[(d0 + 3) * tqp + i] = acc.w;
   }
   __syncthreads();
 
   // ---- phase 2: intensity head -> raw (Tq, E) in lam_s
-  if constexpr (kBf16) {
-    intensity_head_mma<DH>(p, xb, S, lam_s, lde);
-  } else {
-    intensity_head_fp32<DH>(p, xs, tqp, lam_s, lde);
-  }
+  intensity_head_fp32<DH>(p, xs, tqp, lam_s, lde);
   __syncthreads();
 
   // lam = s * softplus(raw / s); the padding columns of the lam and one-hot
@@ -437,59 +344,330 @@ __global__ void __launch_bounds__(kThreads, (sizeof(T) == 2 && DH == 128) ? 2 : 
     }
     float m = iqk * ps[idx];
     if (drop.on) m *= drop.factor(b, h, i, j);
-    ps[idx] = rnd<T>(m);
+    ps[idx] = m;
   }
   __syncthreads();
 
   const int C = p.H * DH;
-  T* out = static_cast<T*>(p.out) + (size_t)b * Tq * C + h * DH;
+  float* out = static_cast<float*>(p.out) + (size_t)b * Tq * C + h * DH;
   for (int idx = tid; idx < Tq * D4; idx += kThreads) {
     const int i = idx / D4, d0 = (idx - i * D4) * 4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = 0; j < Tk; ++j)
       axpy4(ps[i * Tk + j], *reinterpret_cast<const float4*>(vs + j * ldh + d0), acc);
-    T* o = out + (size_t)i * C + d0;
-    o[0] = from_f<T>(acc.x); o[1] = from_f<T>(acc.y);
-    o[2] = from_f<T>(acc.z); o[3] = from_f<T>(acc.w);
+    float* o = out + (size_t)i * C + d0;
+    o[0] = acc.x; o[1] = acc.y; o[2] = acc.z; o[3] = acc.w;
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const Params& p, size_t bytes, cudaStream_t stream) {
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mau_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-  }
-  mau_fwd_kernel<T, DH><<<p.B * p.H, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
+// ---------------------------------------------------------------- bf16: the
+// attention side, before the intensity head (mau_fwd_pre_kernel) and after
+// it (mau_fwd_post_kernel), one block a (b, h). Their four small products
+// run on the tensor cores (mma.sync m16n8k16, fp32 accumulate) from bf16
+// tiles in shared memory (ldmatrix); a warp takes (16 rows x 16 columns)
+// output units in turn. Rows are padded to Tqp / Tkp (multiples of 16) with
+// zeros, bf16 rows by 16 bytes (ldmatrix without bank conflicts). Blocks of
+// four warps, eight an SM: the work of a block is small and mostly waits
+// on its loads and barriers, which other blocks fill.
+
+constexpr int kTcThreads = 128, kTcWarps = kTcThreads / 32;
+
+__host__ __device__ inline int pad16(int n) { return round_up(n, 16); }
+
+// The bf16 kernels' shared memory, in bytes from the block's base: the
+// regions of each kernel (16-byte aligned).
+struct TcLayout {
+  int rows, oh, ps, pb, small, bytes;
+};
+
+// pre: q, k and t rows (bf16, dh + 8 a row); post: v rows and the one-hot
+// rows (bf16, E padded to 16 and 8 more a row). Both: the logits, then the
+// probs (fp32, Tk padded to 16 and 4 more a row), rnd(probs) or the
+// modulated probs (bf16, 8 more a row), the key mask and qpos.
+__host__ __device__ inline TcLayout tc_layout(int Tq, int Tk, int dh, int E, bool post) {
+  const int tqp = pad16(Tq), tkp = pad16(Tk), sd = (dh + 8) * 2;
+  TcLayout l;
+  l.rows = 0;
+  l.oh = round_up((post ? tkp : tqp + 2 * tkp) * sd, 16);
+  l.ps = l.oh + (post ? round_up(tkp * (pad16(E) + 8) * 2, 16) : 0);
+  l.pb = l.ps + round_up(tqp * (tkp + 4) * 4, 16);
+  l.small = l.pb + round_up(tqp * (tkp + 8) * 2, 16);
+  l.bytes = l.small + round_up((tkp + tqp) * 4, 16);
+  return l;
 }
 
-template <typename T>
-cudaError_t launch_dh(const Params& p, int dh, size_t bytes, cudaStream_t s) {
-  switch (dh) {
-    case 16: return launch<T, 16>(p, bytes, s);
-    case 32: return launch<T, 32>(p, bytes, s);
-    case 64: return launch<T, 64>(p, bytes, s);
-    case 128: return launch<T, 128>(p, bytes, s);
-    default: return cudaErrorInvalidValue;
+// rows [0, n) of a bf16 (n x cols) source (row stride rs, 16-byte aligned
+// rows) into dst (row stride ld bf16), 16 bytes a thread and step; rows
+// [n, np) zero.
+__device__ __forceinline__ void copy_rows_bf16(bf16* dst, int ld, const bf16* src, long long rs,
+                                               int n, int np, int cols) {
+  const int c8 = cols / 8;
+  for (int i = threadIdx.x; i < np * c8; i += kTcThreads) {
+    const int r = i / c8, c = (i - r * c8) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        r < n ? __ldg(reinterpret_cast<const uint4*>(src + r * rs + c)) : make_uint4(0, 0, 0, 0);
   }
+}
+
+// acc (two n8 tiles: columns n0 .. n0 + 15) = A (16 rows at m0, row-major
+// bf16, stride lda) B over K columns, B given as its rows [n][k] (stride
+// ldb, `trans_b` false) or [k][n] (`trans_b` true).
+template <bool kTransB>
+__device__ __forceinline__ void mma_unit(float (&acc)[2][4], const bf16* A, int lda, int m0,
+                                         const bf16* Bm, int ldb, int n0, int K, int lane) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[s][c] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4], bq[4];
+    ldmatrix_x4(a, A + (m0 + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+    if constexpr (kTransB)
+      ldmatrix_x4_trans(bq, Bm + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldb + n0 +
+                                (lane >> 4) * 8);
+    else
+      ldmatrix_x4(bq, Bm + (n0 + (lane >> 4) * 8 + (lane & 7)) * ldb + k0 + ((lane >> 3) & 1) * 8);
+    mma_bf16(acc[0], a, bq[0], bq[1]);
+    mma_bf16(acc[1], a, bq[2], bq[3]);
+  }
+}
+
+// probs (fp32, to the scratch) and x = rnd(rnd(probs) @ t) (bf16 rows, to
+// the scratch) of one (b, h).
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 8) mau_fwd_pre_kernel(const Params p) {
+  constexpr int SD = DH + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
+  const int Tq = p.Tq, Tk = p.Tk, tqp = pad16(Tq), tkp = pad16(Tk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int LP = tkp + 4, SP = tkp + 8;
+  const TcLayout l = tc_layout(Tq, Tk, DH, p.E, false);
+  bf16* qb = reinterpret_cast<bf16*>(tc_smem + l.rows);
+  bf16* kb = qb + tqp * SD;
+  bf16* tb = kb + tkp * SD;
+  float* ps = reinterpret_cast<float*>(tc_smem + l.ps);
+  bf16* pb = reinterpret_cast<bf16*>(tc_smem + l.pb);
+  float* kms = reinterpret_cast<float*>(tc_smem + l.small);
+  int* qps = reinterpret_cast<int*>(kms + tkp);
+  const size_t row0 = ((size_t)b * p.H + h) * Tq;
+  float* probs = p.probs + ((size_t)b * p.H + h) * round_up(Tq * Tk, 4);
+
+  copy_rows_bf16(qb, SD, static_cast<const bf16*>(p.q) + b * p.q_bs + h * DH, p.q_rs, Tq, tqp, DH);
+  copy_rows_bf16(kb, SD, static_cast<const bf16*>(p.k) + b * p.k_bs + h * DH, p.k_rs, Tk, tkp, DH);
+  copy_rows_bf16(tb, SD, static_cast<const bf16*>(p.t) + b * p.t_bs + h * DH, p.t_rs, Tk, tkp, DH);
+  for (int j = tid; j < Tk; j += kTcThreads) kms[j] = p.key_mask[(size_t)b * Tk + j];
+  for (int i = tid; i < Tq; i += kTcThreads) qps[i] = p.qpos[(size_t)b * Tq + i];
+  __syncthreads();
+
+  // logits, masked: a hidden key NEG
+  const int nu = tkp / 16;
+  for (int u = warp; u < (tqp / 16) * nu; u += kTcWarps) {
+    const int m0 = (u / nu) * 16, n0 = (u % nu) * 16;
+    float acc[2][4];
+    mma_unit<false>(acc, qb, SD, m0, kb, SD, n0, DH, lane);
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = m0 + g + 8 * (c >> 1), j = n0 + 8 * s + 2 * t4 + (c & 1);
+        if (i < Tq && j < Tk)
+          ps[i * LP + j] = (kms[j] == 0.f || (p.causal && j > qps[i])) ? kNeg : acc[s][c] * p.scale;
+      }
+  }
+  __syncthreads();
+
+  // softmax, one warp a row (a fully masked row is uniform over the Tk real
+  // keys); probs out, rounded to bf16 for @t here (zero past Tk)
+  for (int i = warp; i < tqp; i += kTcWarps) {
+    const float* row = ps + i * LP;
+    bf16* prow = pb + i * SP;
+    if (i >= Tq) {
+      for (int j = lane; j < tkp; j += 32) prow[j] = __float2bfloat16(0.f);
+      continue;
+    }
+    float m = -INFINITY;
+    for (int j = lane; j < Tk; j += 32) m = fmaxf(m, row[j]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+    for (int j = lane; j < Tk; j += 32) sum += expf(row[j] - m);
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int j = lane; j < tkp; j += 32) {
+      float pr = 0.f;
+      if (j < Tk) {
+        pr = expf(row[j] - m) / sum;
+        probs[i * Tk + j] = pr;
+      }
+      prow[j] = __float2bfloat16(pr);
+    }
+  }
+  __syncthreads();
+
+  // x = rnd(rnd(probs) @ t)
+  constexpr int NU = DH / 16;
+  for (int u = warp; u < (tqp / 16) * NU; u += kTcWarps) {
+    const int m0 = (u / NU) * 16, n0 = (u % NU) * 16;
+    float acc[2][4];
+    mma_unit<true>(acc, pb, SP, m0, tb, SD, n0, tkp, lane);
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = m0 + g + 8 * hr, d = n0 + 8 * s + 2 * t4;
+        if (i < Tq)
+          *reinterpret_cast<__nv_bfloat162*>(p.x + (row0 + i) * DH + d) =
+              __floats2bfloat162_rn(acc[s][2 * hr], acc[s][2 * hr + 1]);
+      }
+  }
+}
+
+// out = rnd(drop(iqk probs)) @ v of one (b, h), iqk = lam one-hot^T (BiMAU:
+// 1 at qpos) with lam in fp32: three bf16 parts of it (split3_bf16x2) by
+// the exact 0/1 one-hot.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 8) mau_fwd_post_kernel(const Params p) {
+  constexpr int SD = DH + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int b = blockIdx.x / p.H, h = blockIdx.x - b * p.H;
+  const int Tq = p.Tq, Tk = p.Tk, E = p.E, tqp = pad16(Tq), tkp = pad16(Tk), ep = pad16(E);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int LP = tkp + 4, SP = tkp + 8, SE = ep + 8;
+  const TcLayout l = tc_layout(Tq, Tk, DH, E, true);
+  bf16* vb = reinterpret_cast<bf16*>(tc_smem + l.rows);
+  bf16* ohb = reinterpret_cast<bf16*>(tc_smem + l.oh);
+  float* ps = reinterpret_cast<float*>(tc_smem + l.ps);
+  bf16* ub = reinterpret_cast<bf16*>(tc_smem + l.pb);
+  int* qps = reinterpret_cast<int*>(tc_smem + l.small);
+  const size_t row0 = ((size_t)b * p.H + h) * Tq;
+  const float* probs = p.probs + ((size_t)b * p.H + h) * round_up(Tq * Tk, 4);
+
+  copy_rows_bf16(vb, SD, static_cast<const bf16*>(p.v) + b * p.v_bs + h * DH, p.v_rs, Tk, tkp, DH);
+  for (int idx = tid; idx < tkp * ep; idx += kTcThreads) {
+    const int j = idx / ep, e = idx - j * ep;
+    ohb[j * SE + e] =
+        __float2bfloat16(j < Tk && e < E ? p.onehot[((size_t)b * Tk + j) * E + e] : 0.f);
+  }
+  for (int idx = tid; idx < Tq * Tk; idx += kTcThreads) {
+    const int i = idx / Tk, j = idx - i * Tk;
+    ps[i * LP + j] = probs[idx];
+  }
+  for (int i = tid; i < Tq; i += kTcThreads) qps[i] = p.qpos[(size_t)b * Tq + i];
+  __syncthreads();
+
+  // the modulated probs u = rnd(drop(iqk probs)), zero past Tq and Tk
+  const Dropout drop = make_dropout(p.seed, p.drop_thresh, p.drop_scale);
+  const int nu = tkp / 16;
+  for (int u = warp; u < (tqp / 16) * nu; u += kTcWarps) {
+    const int m0 = (u / nu) * 16, n0 = (u % nu) * 16;
+    float acc[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[s][c] = 0.f;
+    for (int k0 = 0; k0 < ep; k0 += 16) {
+      uint32_t a[3][4], bq[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {  // lam's A fragment, as three bf16 parts
+        const int i = m0 + g + 8 * (f & 1), e = k0 + 8 * (f >> 1) + 2 * t4;
+        const float* lr = p.lam + (row0 + i) * E;
+        const bool ok = i < Tq;
+        split3_bf16x2(ok && e < E ? __ldg(lr + e) : 0.f, ok && e + 1 < E ? __ldg(lr + e + 1) : 0.f,
+                      a[0][f], a[1][f], a[2][f]);
+      }
+      ldmatrix_x4(bq, ohb + (n0 + (lane >> 4) * 8 + (lane & 7)) * SE + k0 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int part = 2; part >= 0; --part) {  // lo, mid, hi
+        mma_bf16(acc[0], a[part], bq[0], bq[1]);
+        mma_bf16(acc[1], a[part], bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = m0 + g + 8 * (c >> 1), j = n0 + 8 * s + 2 * t4 + (c & 1);
+        float x = 0.f;
+        if (i < Tq && j < Tk) {
+          const float iqk = (p.diag_reset && j == qps[i]) ? 1.f : acc[s][c];
+          x = iqk * ps[i * LP + j];
+          if (drop.on) x *= drop.factor(b, h, i, j);
+        }
+        ub[i * SP + j] = __float2bfloat16(x);
+      }
+  }
+  __syncthreads();
+
+  // out = u @ v
+  constexpr int NU = DH / 16;
+  const int C = p.H * DH;
+  bf16* out = static_cast<bf16*>(p.out) + (size_t)b * Tq * C + h * DH;
+  for (int u = warp; u < (tqp / 16) * NU; u += kTcWarps) {
+    const int m0 = (u / NU) * 16, n0 = (u % NU) * 16;
+    float acc[2][4];
+    mma_unit<true>(acc, ub, SP, m0, vb, SD, n0, tkp, lane);
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = m0 + g + 8 * hr, d = n0 + 8 * s + 2 * t4;
+        if (i < Tq)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)i * C + d) =
+              __floats2bfloat162_rn(acc[s][2 * hr], acc[s][2 * hr + 1]);
+      }
+  }
+}
+
+// fp32: the whole chain in one kernel. bf16: the attention side
+// (mau_fwd_pre_kernel), the intensity head over every row (intensity_head.cuh,
+// with its rounding kernel) and the modulation (mau_fwd_post_kernel); wd_b
+// and side: the head's scratch (dh x E*dh bf16, 2 x E*dh fp32).
+template <int DH>
+cudaError_t launch(const Params& p, bf16* wd_b, float* side, cudaStream_t s) {
+  const int blocks = p.B * p.H;
+  if (!p.x)
+    return go(mau_fwd_kernel<DH>, blocks, kThreads, smem_bytes(p.Tq, p.Tk, DH, p.E), s, p);
+  cudaError_t e = go(mau_fwd_pre_kernel<DH>, blocks, kTcThreads,
+                     (size_t)tc_layout(p.Tq, p.Tk, DH, p.E, false).bytes, s, p);
+  if (e != cudaSuccess) return e;
+  IntParams ip{};
+  ip.x = p.x;
+  ip.intervals = p.intervals;
+  ip.bd = p.bd;
+  ip.w = p.w;
+  ip.scaling = p.scaling;
+  ip.lam = p.lam;
+  ip.raw = p.raw;
+  ip.rows = p.B * p.H * p.Tq; ip.H = p.H; ip.Tq = p.Tq; ip.E = p.E;
+  e = int_launch<true>(ip, p.wd, wd_b, side, DH, s);
+  if (e != cudaSuccess) return e;
+  return go(mau_fwd_post_kernel<DH>, blocks, kTcThreads,
+            (size_t)tc_layout(p.Tq, p.Tk, DH, p.E, true).bytes, s, p);
+}
+
+// Dynamic shared memory of the largest kernel of a dtype's forward.
+size_t fwd_smem_bytes(int Tq, int Tk, int dh, int E, int dtype) {
+  if (!dtype) return smem_bytes(Tq, Tk, dh, E);
+  return (size_t)imax(tc_layout(Tq, Tk, dh, E, false).bytes, tc_layout(Tq, Tk, dh, E, true).bytes);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs; above 232448 the kernel cannot run.
-size_t mau_attention_fwd_smem_bytes(int Tq, int Tk, int dh, int E) {
-  return smem_bytes(Tq, Tk, dh, E);
+// Dynamic shared memory the forward's largest block needs in `dtype` (0 =
+// float32, 1 = bfloat16); above 232448 the kernels cannot run.
+size_t mau_attention_fwd_smem_bytes(int Tq, int Tk, int dh, int E, int dtype) {
+  return fwd_smem_bytes(Tq, Tk, dh, E, dtype);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, t, wd, w and out). In bf16 mode
-// `wd` is Wd packed as mma B fragments (intensity_head_mma). `raw` (may be
-// null) receives the training residual; `seed` (an int64 on the device, or
-// null for no dropout) keys the dropout mask.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, t and out); wd, bd, w and the
+// other inputs are fp32. `raw` (may be null) receives the training residual;
+// `seed` (an int64 on the device, or null for no dropout) keys the dropout
+// mask. In bf16 the rows of q, k, v and t start on 16-byte boundaries, and
+// the scratch: probs (B*H x Tq*Tk rounded up to 4, fp32), x (B*H*Tq*dh
+// bf16), wd_b (dh*E*dh bf16) and side (2*E*dh fp32), 16-byte aligned; null
+// in fp32.
 int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
                       const void* k, long long k_bs, long long k_rs,
                       const void* v, long long v_bs, long long v_rs,
@@ -498,14 +676,14 @@ int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
                       const void* qpos, const void* onehot, const void* wd,
                       const void* bd, const void* w, const void* scaling,
                       void* out, void* lam, void* raw, const void* seed,
-                      unsigned drop_thresh, float drop_scale, int B, int Tq,
+                      unsigned drop_thresh, float drop_scale, void* probs_ws,
+                      void* x_ws, void* wd_ws, void* side_ws, int B, int Tq,
                       int Tk, int H, int dh, int E, int causal, int diag_reset,
                       float scale, int dtype, void* stream) {
   if (Tq < 1 || Tk < Tq || Tk > 128 || E < 1 || B < 1 || H < 1 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (dtype == 1) != (x_ws != nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(Tq, Tk, dh, E);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (fwd_smem_bytes(Tq, Tk, dh, E, dtype) > kMaxSmem) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.t = t;
   p.q_bs = q_bs; p.q_rs = q_rs; p.k_bs = k_bs; p.k_rs = k_rs;
@@ -514,13 +692,15 @@ int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
   p.intervals = static_cast<const float*>(intervals);
   p.qpos = static_cast<const int*>(qpos);
   p.onehot = static_cast<const float*>(onehot);
-  p.wd = wd;
+  p.wd = static_cast<const float*>(wd);
   p.bd = static_cast<const float*>(bd);
-  p.w = w;
+  p.w = static_cast<const float*>(w);
   p.scaling = static_cast<const float*>(scaling);
   p.out = out;
   p.lam = static_cast<float*>(lam);
   p.raw = static_cast<float*>(raw);
+  p.probs = static_cast<float*>(probs_ws);
+  p.x = static_cast<bf16*>(x_ws);
   p.seed = static_cast<const long long*>(seed);
   p.drop_thresh = drop_thresh;
   p.drop_scale = drop_scale;
@@ -528,8 +708,15 @@ int mau_attention_fwd(const void* q, long long q_bs, long long q_rs,
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.E = E;
   p.causal = causal; p.diag_reset = diag_reset;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch_dh<float>(p, dh, bytes, s)
-                          : launch_dh<__nv_bfloat16>(p, dh, bytes, s));
+  bf16* wd_b = static_cast<bf16*>(wd_ws);
+  float* side = static_cast<float*>(side_ws);
+  switch (dh) {
+    case 16: return (int)launch<16>(p, wd_b, side, s);
+    case 32: return (int)launch<32>(p, wd_b, side, s);
+    case 64: return (int)launch<64>(p, wd_b, side, s);
+    case 128: return (int)launch<128>(p, wd_b, side, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mau_cuda_error_string(int code) {

@@ -1,8 +1,8 @@
 // What the streamed MAU/BiMAU kernels share, forward (mau_streamed_fwd.cu)
 // and backward (mau_streamed_bwd.cu): the tile sizes, the key flags and
 // masked logits of the blocked plain version, the causal tile rule, the
-// live-tile rule, the mma.sync helpers, the producer and entries of the
-// query-major wgmma kernels, and the launcher.
+// live-tile rule, cp.async, the producer and entries of the query-major
+// wgmma kernels, and the launcher.
 #pragma once
 
 #include <type_traits>
@@ -81,10 +81,8 @@ __device__ __forceinline__ float logit(float dot, float km, int i, int j, float 
   return dot * scale;
 }
 
-// ---------------------------------------------------------------- bf16 on
-// the tensor cores: four warps, mma.sync m16n8k16 with fp32 accumulation,
-// tiles in shared memory as bf16 rows fetched with cp.async and read with
-// ldmatrix.
+// ---------------------------------------------------------------- the
+// tiles of four warps (flash_attention.cu's fp32 kernels) and cp.async
 
 constexpr int kThreadsMma = 128;
 constexpr int KH = 32;  // keys a half tile
@@ -111,73 +109,9 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// rows [r0, r0 + 64) x n bf16 columns (n % 8 == 0; 16-byte aligned rows)
-// into dst (row stride ld) with cp.async; rows >= nrows are zero-filled.
-__device__ __forceinline__ void async_bf16(bf16* dst, int ld, const bf16* src, long long rs,
-                                           int n, int r0, int nrows) {
-  const int n8 = n / 8;
-  for (int idx = threadIdx.x; idx < 64 * n8; idx += blockDim.x) {
-    const int r = idx / n8, c = (idx - r * n8) * 8;
-    const bool ok = r0 + r < nrows;
-    cp_async16(dst + r * ld + c, src + (long long)(ok ? r0 + r : 0) * rs + c, ok);
-  }
-}
-
-// the key mask of keys [j0, j0 + 64) with cp.async (zero past Tk; the key
-// index tells padding apart, see flag_of)
-__device__ __forceinline__ void async_mask(float* dst, const float* km_row, int j0, int Tk) {
-  for (int j = threadIdx.x; j < BK; j += blockDim.x) {
-    const bool ok = j0 + j < Tk;
-    cp_async4(dst + j, km_row + (ok ? j0 + j : 0), ok);
-  }
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// acc[n] += A (16 x 16) @ B^T for the 4 n-tiles (32 rows) of B stored [n][k]
-// (row stride ld) from row 0 of bt: B fragments by ldmatrix (non-trans).
-__device__ __forceinline__ void mma_rows32(float (&acc)[4][4], const uint32_t (&a)[4],
-                                           const bf16* bt, int ld, int k0, int lane) {
-#pragma unroll
-  for (int np = 0; np < 2; ++np) {
-    uint32_t b[4];
-    ldmatrix_x4(b, bt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
-    mma_bf16(acc[2 * np], a, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// o (16 x DH) += P (16 x 32) @ X (32 x DH), P given as the C fragments of
-// the half's 4 key n-tiles (rounded to bf16 here), X row-major [key][d]
-// from row 0 of xs (row stride ld): B fragments by ldmatrix.trans.
-template <int DH>
-__device__ __forceinline__ void mma_pv(float (&o)[DH / 8][4], const float (&pr)[4][4],
-                                       const bf16* xs, int ld, int lane) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const uint32_t a[4] = {pack_bf16(pr[2 * j][0], pr[2 * j][1]),
-                           pack_bf16(pr[2 * j][2], pr[2 * j][3]),
-                           pack_bf16(pr[2 * j + 1][0], pr[2 * j + 1][1]),
-                           pack_bf16(pr[2 * j + 1][2], pr[2 * j + 1][3])};
-#pragma unroll
-    for (int n2 = 0; n2 < DH / 16; ++n2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, xs + (16 * j + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + 16 * n2 +
-                               (lane >> 4) * 8);
-      mma_bf16(o[2 * n2], a, b[0], b[1]);
-      mma_bf16(o[2 * n2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// A fragments of a (16 x 16) block at row r0, column k0 of a row-major
-// bf16 tile (row stride ld).
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* x, int ld, int r0, int k0,
-                                       int lane) {
-  ldmatrix_x4(a, x + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
 }
 
 // ---------------------------------------------------------------- the
@@ -261,8 +195,9 @@ __device__ __forceinline__ TileRule tile_rule(const int* plan, int Tk) {
 }
 
 // ---------------------------------------------------------------- bf16 on
-// wgmma: what the query-major output (mau_out_tc_kernel), d-lambda
-// (mau_glam_tc_kernel) and dq (mau_dq_tc_kernel) kernels share, on
+// wgmma: what the query-major stats (mau_stats_tc_kernel), output
+// (mau_out_tc_kernel), d-lambda (mau_glam_tc_kernel) and dq
+// (mau_dq_tc_kernel) kernels share, on
 // flash_fwd_tc_kernel's pattern: a block owns G warpgroups of 64 queries of
 // one (b, h) and a producer warp (its warpgroup hands its registers over by
 // setmaxnreg). The producer copies each warpgroup's resident tiles once,
@@ -280,10 +215,10 @@ __host__ __device__ constexpr int qm_consumer_regs(int groups) { return groups =
 
 // The maps the producer copies from, each (64 columns x 64 rows) boxes of a
 // (B, H, T, cols) operand: per warpgroup nres[m] column tiles of res[m] once
-// (Q first: the output's Q and lam, the d-lambda's Q and dO, dq's Q, dO,
-// g_su and lam); per visited key tile nring[m] column tiles of ring[m] into
-// a stage, in the order K, V, T (dq only), one-hot (one head for all, so
-// read at head 0).
+// (Q first: the stats' Q, the output's Q and lam, the d-lambda's Q and dO,
+// dq's Q, dO, g_su and lam); per visited key tile nring[m] column tiles of
+// ring[m] into a stage, in the order K, V (not the stats'), T (the stats'
+// and dq's), one-hot (one head for all, so read at head 0).
 constexpr int kQmMaps = 4, kQmOnehot = 3;
 struct QmMaps {
   CUtensorMap res[kQmMaps], ring[kQmMaps];

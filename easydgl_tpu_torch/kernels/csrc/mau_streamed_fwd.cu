@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernels of easydgl_tpu/kernels/mau_streamed.py:
 //
-//   mau_stats_kernel      _stats_kernel   (pallas_call in _fwd_impl, :607)
-//   mau_int_split_kernel, mau_int_fwd_tc_kernel
+//   mau_stats_tc_kernel (bf16), mau_stats_kernel (fp32)
+//                         _stats_kernel   (pallas_call in _fwd_impl, :607)
+//   mau_int_split_kernel, mau_int_fwd_tc_kernel (intensity_head.cuh)
 //                         _int_fwd_kernel (pallas_call in _int_fwd, :239)
 //   mau_out_tc_kernel (bf16), mau_out_kernel (fp32)
 //                         _out_kernel     (pallas_call in _fwd_impl, :634)
@@ -34,7 +35,7 @@
 // term), the interval entering as an fp32 rank-1 term for every dh (the TPU
 // kernel drops it when dh % 128 == 0, ROADMAP C2).
 //
-// Design. The stats kernel and the fp32 out kernel give one block to 64
+// Design. The fp32 stats and out kernels give one block to 64
 // queries of one (b, h) and loop over 64-key tiles: the TPU's sequential
 // grid axis becomes the loop, its VMEM scratch the block's registers. Per
 // tile the (64 x 64) logits, probs and modulation never leave the SM; the
@@ -45,9 +46,19 @@
 // real key, as in the plain version (the TPU kernel skips there too and so
 // differs from its own blocked path on such rows).
 //
-// * stats, bf16 (the main path): four warps of 16 queries each, the
-//   flash-attention schedule on the tensor cores (mma.sync m16n8k16, fp32
-//   accumulate), each key tile in two 32-key halves.
+// * stats, bf16 (the main path; mau_stats_tc_kernel, on the output
+//   kernel's template below): a block owns 192 queries of one (b, h), Q
+//   resident, the visited key tiles' K and T streamed by TMA with their
+//   key mask. Per key tile, on wgmma m64n64k16: S = Q K^T; the tile's row
+//   max in the accumulator layout (a tile without tests takes max(dot)
+//   scale); the online rescale of l and su by exp2 of the change in m log2
+//   e (exactly 1 where the max holds); p formed as the output kernel forms
+//   it (entry_exp2: scale log2 e folded into one FMA, a hidden real key's
+//   exponent (NEG - m) log2 e, exactly 0 in a row that sees no key), so
+//   that l sums the p's the later kernels form; p rounded to bf16 in the
+//   registers and fed back as the A operand of su += P T (T MN-major). l
+//   is kept a thread's 16 keys of a tile at a time and summed over the quad
+//   once at the end. The same live tiles as the output kernel.
 // * out, bf16 (the main path; mau_out_tc_kernel, on flash_fwd_tc_kernel's
 //   pattern, the machinery of mau_streamed.cuh): a block owns 192 queries
 //   of one (b, h), three consumer warpgroups of 64 and a producer warp
@@ -80,22 +91,11 @@
 //   sit in shared memory as fp32 (q, k, lam and the one-hot transposed, so
 //   each step is two 16-byte loads and 16 FMA).
 //
-// The intensity head (mau_int_fwd_tc_kernel, on the output kernel's
-// pattern): mau_int_split_kernel first splits Wd's seq_units lanes into bf16
-// hi and lo (dh, E*dh) once a launch. A block owns 192 rows (128 at dh =
-// 128), three consumer warpgroups of 64 (two) and a producer warp
-// (setmaxnreg 24 / 160, 24 / 240). Each consumer keeps its rows' seq_units
-// as hi/lo A fragments in registers; the producer streams Wd's 64-column
-// tiles, hi and lo, by TMA (128-byte swizzle, B MN-major) into a ring of
-// four stages, with the tile's interval lane, bd and w by plain loads. Per
-// tile, on wgmma m64n64k16 with fp32 accumulators: z = su Wd_tile as lo hi +
-// hi lo + hi hi, then the interval's rank-1 term and bd in fp32, the exact
-// sigmoid (ex2 and a reciprocal), the weight w, and each event's dh columns
-// summed in the accumulator layout (in-thread sums, then the quad); an
-// event's sum goes through the scaled softplus and out as lam as soon as its
-// last tile is done (dh = 128: two tiles). Two accumulators: the next
-// tile's products run while this tile's sigmoids are formed. The (rows,
-// E*dh) activation and raw never leave the SM, and any E fits.
+// The intensity head (mau_int_fwd_tc_kernel in its split form,
+// intensity_head.cuh, which the fused forward shares): mau_int_split_kernel
+// splits Wd's seq_units lanes into bf16 hi and lo once a launch; z = su
+// Wd_tile as lo hi + hi lo + hi hi on wgmma, the interval's rank-1 term in
+// fp32, the exact sigmoid, each event's sum through the scaled softplus.
 //
 // What bounds it, at the EasyDGL-LC eval shape (B=8, H=8, T=2048, dh=64,
 // E=64): operations. stats 68.7 GFLOP, out 103.1 GFLOP over every pair
@@ -106,8 +106,8 @@
 // reciprocal: at least 0.26 ms at 16 a clock an SM). The first two also
 // evaluate one exp per (query, key) entry they visit, and under dropout the
 // output kernel a ten-round Philox draw, on the CUDA cores: these, not the
-// products, set its time. In bf16 the next key tile is fetched (cp.async, TMA) while this
-// one is computed; in fp32 the loads wait.
+// products, set its time. In bf16 the next key tile is fetched (TMA) while
+// this one is computed; in fp32 the loads wait.
 //
 // Limits: dh in {16, 32, 64, 128}; the out kernel's shared memory
 // (mau_out_smem_bytes) within 227 KB: in fp32 E up to ~180 at dh = 64. The
@@ -116,7 +116,7 @@
 #include <initializer_list>
 #include <type_traits>
 
-#include "mau_streamed.cuh"
+#include "intensity_head.cuh"
 
 namespace {
 
@@ -148,18 +148,6 @@ struct OutParams {
   int EP, stages;         // bf16: lam / one-hot width (a multiple of 64), ring stages
 };
 
-struct IntParams {
-  const float* su;         // (rows, dh), rows = B*H*Tq
-  const float* intervals;  // (B, Tq)
-  const float* wd;         // (dh+1, E*dh)
-  const float* bd;         // (E*dh,)
-  const float* w;          // (E*dh,)
-  const float* scaling;    // (E,)
-  bf16* wd_hi;             // (dh, E*dh) scratch: Wd's seq_units lanes split, hi
-  bf16* wd_lo;             // lo
-  float* lam;              // (rows, E)
-  int rows, H, Tq, E;
-};
 
 // Shared memory, in floats.
 __host__ __device__ inline int stats_smem_floats(int dh) {
@@ -416,140 +404,6 @@ __global__ void __launch_bounds__(kThreads) mau_out_kernel(const OutParams p) {
   }
 }
 
-// ---------------------------------------------------------------- bf16 on
-// the tensor cores: the stats kernel for a bf16 compute dtype. Four warps,
-// each 16 of the block's 64 queries (the flash-attention schedule): q's A
-// fragments stay in registers for the whole key loop. Each 64-key tile is
-// taken in two 32-key halves, so that only a half's logits are live: they
-// come out of mma.sync m16n8k16 (fp32 accumulate) as C fragments, the probs
-// are formed in place, rounded to bf16 and re-used as the A fragments of
-// the @T product, whose accumulators stay in registers. Tiles sit in shared
-// memory as bf16 rows, fetched with cp.async one tile ahead
-// (double-buffered) and read with ldmatrix.
-
-__host__ __device__ inline size_t stats_mma_smem_bytes(int dh) {
-  return sizeof(bf16) * (size_t)(5 * 64 * (dh + 8)) + sizeof(float) * 2 * BK;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreadsMma) mau_stats_mma_kernel(const StatsParams p) {
-  constexpr int SD = DH + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][SD]
-  bf16* ks = qs + 64 * SD;                       // [2][BK][SD]
-  bf16* ts = ks + 2 * BK * SD;                   // [2][BK][SD]
-  float* kms = reinterpret_cast<float*>(ts + 2 * BK * SD);  // [2][BK] key mask
-
-  const int nqt = (p.Tq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const float* km_row = p.key_mask + (size_t)b * p.Tk;
-  const bf16* kg = static_cast<const bf16*>(p.k.p) + b * p.k.bs + h * DH;
-  const bf16* tg = static_cast<const bf16*>(p.t.p) + b * p.t.bs + h * DH;
-  auto fetch = [&](int kt) {
-    const int buf = kt & 1;
-    async_bf16(ks + buf * BK * SD, SD, kg, p.k.rs, DH, kt * BK, p.Tk);
-    async_bf16(ts + buf * BK * SD, SD, tg, p.t.rs, DH, kt * BK, p.Tk);
-    async_mask(kms + buf * BK, km_row, kt * BK, p.Tk);
-  };
-
-  async_bf16(qs, SD, static_cast<const bf16*>(p.q.p) + b * p.q.bs + h * DH, p.q.rs, DH, q0,
-             p.Tq);
-  const int nkt = key_tiles(km_row, p.Tq, p.Tk, q0, p.causal);
-  fetch(0);
-  cp_async_commit();
-
-  uint32_t qf[DH / 16][4];
-  float m[2] = {kPadNeg, kPadNeg}, l[2] = {0.f, 0.f};
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) fetch(kt + 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();  // tile kt (and, at kt = 0, q) is in shared memory
-    if (kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd) a_frag(qf[kd], qs, SD, warp * 16, kd * 16, lane);
-    }
-    const int j0 = kt * BK;
-    const bf16* kb = ks + (kt & 1) * BK * SD;
-    const bf16* tb = ts + (kt & 1) * BK * SD;
-    const float* kmb = kms + (kt & 1) * BK;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < DH / 16; ++kd)
-        mma_rows32(s, qf[kd], kb + half * KH * SD, SD, kd * 16, lane);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int i = q0 + warp * 16 + g + 8 * hr;
-        float mx = kPadNeg;
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int jj = half * KH + n * 8 + 2 * t4 + c;
-            float& x = s[n][2 * hr + c];
-            x = logit(x, flag_of(kmb[jj], j0 + jj, p.Tk), i, j0 + jj, p.scale, p.causal,
-                      kPadNeg);
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hr], mx);
-        const float corr = expf(m[hr] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            float& x = s[n][2 * hr + c];
-            x = expf(x - m_new);
-            sum += x;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        l[hr] = l[hr] * corr + sum;
-        m[hr] = m_new;
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          o[n][2 * hr] *= corr;
-          o[n][2 * hr + 1] *= corr;
-        }
-      }
-      mma_pv<DH>(o, s, tb + half * KH * SD, SD, lane);  // probs rounded to bf16
-    }
-    __syncthreads();  // the buffer is free for tile kt + 2
-  }
-
-  const size_t row0 = (size_t)bh * p.Tq;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + warp * 16 + g + 8 * hr;
-    if (i >= p.Tq) continue;
-    if (t4 == 0) {
-      p.m[row0 + i] = m[hr];
-      p.l[row0 + i] = l[hr];
-    }
-    float* su = p.su + (row0 + i) * DH;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<float2*>(su + n * 8 + 2 * t4) =
-          make_float2(o[n][2 * hr] / l[hr], o[n][2 * hr + 1] / l[hr]);
-  }
-}
-
 // ---------------------------------------------------------------- output,
 // bf16 on wgmma and TMA (see the header): NS 64-column sub-tiles a head
 // (dh = 64 or 128; narrower heads come zero-padded to 64), G consumer
@@ -717,228 +571,218 @@ __global__ void __launch_bounds__(128 * (G + 1), 1)
   for (int c = 0; c < NS; ++c) store_acc_bf16(out + 64 * c, C, o[c], qw + 16 * warp, p.Tq, lane);
 }
 
-// ---------------------------------------------------------------- the
-// intensity head on wgmma in split bf16 (see the header): G consumer
-// warpgroups of 64 rows and a producer warp; Wd's seq_units lanes split once
-// a launch (mau_int_split_kernel) into bf16 hi and lo (dh, E*dh).
+// ---------------------------------------------------------------- stats,
+// bf16 on wgmma and TMA (see the header): NS 64-column sub-tiles a head
+// (dh = 64 or 128; narrower heads come zero-padded to 64), G consumer
+// warpgroups of 64 queries; seq_units comes out (B, H, Tq, 64 NS).
 
-constexpr int kIntStages = 4;  // ring stages of (64-column) hi / lo tiles
+// Consumer warpgroups a block: three at dh = 64, two at dh = 128 (a (64 x
+// 128) seq_units accumulator and the logits take 96 of a thread's
+// registers).
+__host__ __device__ constexpr int stats_groups(int ns) { return ns == 1 ? 3 : 2; }
 
-// Consumer warpgroups a block: three at dh <= 64, two at dh = 128 (whose
-// rows' hi/lo A fragments alone take 64 registers).
-__host__ __device__ constexpr int int_groups(int dh) { return dh == 128 ? 2 : 3; }
-
-// Dynamic shared memory: per stage the hi and lo tiles (dh rows of 64
-// columns, 128 bytes a row) and the tile's interval lane, bd and w (3 x 64
-// fp32); the mbarriers; 1 KB of slack to align the tiles to 1024 bytes.
-__host__ __device__ inline size_t int_tc_smem_bytes(int dh) {
-  return 1024 + (size_t)kIntStages * (2 * dh * 64 * sizeof(bf16) + 3 * 64 * sizeof(float)) +
-         8 * 2 * kIntStages;
+__host__ __device__ inline size_t stats_tc_smem_bytes(int ns, int Tk) {
+  return qm_smem_bytes(stats_groups(ns), ns, kQmStages, 2 * ns, Tk);
 }
 
-struct IntMaps {
-  CUtensorMap hi, lo;  // (E*dh columns, dh rows), boxes of 64 columns x dh rows
-};
-
-// Wd's seq_units lanes (its first dh rows: n2 pairs of values) into bf16
-// hi and lo (split_bf16x2), a pair a thread and step.
-__global__ void mau_int_split_kernel(const float2* wd, uint32_t* hi, uint32_t* lo, int n2) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n2; i += gridDim.x * blockDim.x)
-    split_bf16x2(wd[i].x, wd[i].y, hi[i], lo[i]);
-}
-
-// z = su Wd_tile for column tile t once its stage has landed (the ring's
-// hi tile, then its lo tile), three bf16 passes each of KK k steps (B
-// MN-major: 16 lanes a k step), committed as one group.
-template <int KK>
-__device__ __forceinline__ void int_products(float (&z)[32], const uint32_t (&xh)[KK][4],
-                                             const uint32_t (&xl)[KK][4], const bf16* ring,
-                                             uint64_t* full, int t) {
-  constexpr int kTile = KK * 16 * 64;
-  const int s = t % kIntStages;
-  mbar_wait(full + s, (t / kIntStages) & 1);
-  const uint64_t dhi = sw128_desc(ring + s * 2 * kTile), dlo = sw128_desc(ring + s * 2 * kTile + kTile);
-  zero32(z);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) wgmma_rs_x3<1>(z, xh[kk], xl[kk], dhi + 128 * kk, dlo + 128 * kk);
-  wg_commit();
-}
-
-// Thread (warp, g, t4) of warpgroup wg holds rows r0 + g (+8), r0 = the
-// block's first row + 64 wg + 16 warp, and, of a column tile, columns 8 n +
-// 2 t4 (+1) at z[4 n + 2 hr + c]. An event's dh columns lie in one tile
-// (dh <= 64: 64 / dh events a tile) or two (dh = 128: the first tile's sum
-// is carried). The products of the next tile run while the sigmoids of
-// this one are formed: two accumulators in turn, four tiles an iteration
-// (no group in flight across the loop, which would have ptxas serialize
-// the products), the count rounded up to four with tiles past E*dh (zeros,
-// their events not stored).
-template <int DH>
-__global__ void __launch_bounds__(128 * (int_groups(DH) + 1), 1)
-    mau_int_fwd_tc_kernel(const IntParams p, const __grid_constant__ IntMaps maps) {
-  constexpr int G = int_groups(DH), KK = DH / 16;
-  constexpr int EL = DH >= 64 ? 1 : 64 / DH;  // events a tile holds
-  constexpr int kTile = DH * 64;              // bf16 values of a hi or lo tile
+template <int NS, int G>
+__global__ void __launch_bounds__(128 * (G + 1), 1)
+    mau_stats_tc_kernel(const StatsParams p, const __grid_constant__ QmMaps maps) {
+  constexpr int kQueries = 64 * G, S = kQmStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* ring = reinterpret_cast<bf16*>(base);  // [stage][hi, lo][DH lanes][64 columns]
-  float* side = reinterpret_cast<float*>(ring + kIntStages * 2 * kTile);  // [stage][iv lane, bd, w][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(side + kIntStages * 3 * 64);  // [stage]
-  uint64_t* empty = full + kIntStages;                                        // [stage]
-  const int edh = p.E * DH, nt = (edh + 255) / 256 * 4;  // column tiles, rounded up to 4
+  bf16* res = reinterpret_cast<bf16*>(base);  // [group][Q NS][64 queries][64]
+  bf16* ring = res + G * NS * kQmTile;         // [stage][K NS, T NS][64 keys][64]
+  float* kms = reinterpret_cast<float*>(ring + S * 2 * NS * kQmTile);  // [stage][64] key mask
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(kms + S * BK);
+  uint64_t* full = res_full + 1;  // [stage]
+  uint64_t* empty = full + S;     // [stage]
+  int* plan = reinterpret_cast<int*>(empty + S);  // key_plan of the batch row
+
+  // heaviest first: under causal the last query block visits the most tiles
+  const int BH = p.B * p.H, nqb = (p.Tq + kQueries - 1) / kQueries;
+  const int qb = nqb - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH, q0 = qb * kQueries;
+  const int b = bh / p.H, h = bh - b * p.H;
   const int lane = threadIdx.x & 31;
   int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kIntStages; ++s) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < S; ++s) {
       mbar_init(full + s, 32);
       mbar_init(empty + s, 128 * G);
     }
     mbar_fence_init();
   }
-  __syncthreads();
+  key_plan(p.key_mask + (size_t)b * p.Tk, p.Tk, plan);  // ends with a barrier
+  const QmBlock<G> blk{tile_rule(plan, p.Tk), b, h, q0, false};  // the output kernel's rule
+  const int nkt = key_tile_count(p.Tk);
 
-  if (warp >= 4 * G) {  // ---- producer: its first warp streams the column tiles
+  if (warp >= 4 * G) {  // ---- producer: its first warp works
     regs_dec<kQmProducerRegs>();
-    if (warp > 4 * G) return;
-    for (int t = 0; t < nt; ++t) {
-      const int s = t % kIntStages, c0 = 64 * t;
-      mbar_wait(empty + s, ((t / kIntStages) & 1) ^ 1);
-      float* sd = side + s * 3 * 64;
-      for (int c = lane; c < 64; c += 32) {
-        const bool ok = c0 + c < edh;
-        sd[c] = ok ? p.wd[(size_t)DH * edh + c0 + c] : 0.f;
-        sd[64 + c] = ok ? p.bd[c0 + c] : 0.f;
-        sd[128 + c] = ok ? p.w[c0 + c] : 0.f;
-      }
-      if (lane == 0) {
-        bf16* d = ring + s * 2 * kTile;
-        mbar_arrive_tx(full + s, (uint32_t)(2 * kTile * sizeof(bf16)));
-        tma_2d(d, &maps.hi, full + s, c0, 0);
-        tma_2d(d + kTile, &maps.lo, full + s, c0, 0);
-      } else {
-        mbar_arrive(full + s);
-      }
-    }
+    if (warp == 4 * G) qm_produce(p, blk, maps, S, res, ring, kms, res_full, full, empty, lane);
     return;
   }
 
-  // ---- consumers
+  // ---- consumers: warpgroup wg owns queries qw = q0 + 64 wg ..; thread
+  // (warp, g, t4) holds queries i0 = qw + 16 warp + g (+8) and, of a key
+  // tile, keys 8 n + 2 t4 (+1): entry (query hr, key n, c) at x[4 n + 2 hr + c]
   regs_inc<qm_consumer_regs(G)>();
-  const int wg = warp >> 2;
+  const int wg = warp >> 2, qw = q0 + 64 * wg;
   warp &= 3;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = (blockIdx.x * G + wg) * 64 + 16 * warp;  // the warp's first row
-  // the rows' seq_units as hi/lo A fragments: k step kk, entry i at row
-  // r0 + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1) + 2 t4 (+1)
-  uint32_t xh[KK][4], xl[KK][4];
-  float iv[2], carry[2] = {0.f, 0.f};
+  const int g = lane >> 2, t4 = lane & 3, i0 = qw + 16 * warp + g;
+  const float sl2 = p.scale * kLog2e;
+  const uint64_t qd = sw128_desc(res + wg * NS * kQmTile);
+  // m: the running row max of the logits; l: the thread's own part of the
+  // row's sum (its 16 keys of each tile), summed over the quad at the end
+  float o[NS][32], m[2] = {kPadNeg, kPadNeg}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + g + 8 * hr;
-    iv[hr] = row < p.rows ? p.intervals[(size_t)(row / (p.Tq * p.H)) * p.Tq + row % p.Tq] : 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t4;
-      const float2 v = row < p.rows ? *reinterpret_cast<const float2*>(p.su + (size_t)row * DH + c)
-                                    : make_float2(0.f, 0.f);
-      split_bf16x2(v.x, v.y, xh[kk][i], xl[kk][i]);
-    }
+  for (int c = 0; c < NS; ++c) zero32(o[c]);
+  mbar_wait(res_full, 0);
 
-  // tile t's products in z, on the ring: sigmoid(z + iv Wd[dh] + bd) w
-  // summed over the thread's columns of each event, the quad's columns,
-  // then lam = s softplus(raw / s) by one lane an event
-  auto finish = [&](int t, const float (&z)[32]) {
-    const int s = t % kIntStages;
-    const float* sd = side + s * 3 * 64;
-    float raw[2][EL];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int el = 0; el < EL; ++el) raw[hr][el] = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int el = DH >= 64 ? 0 : 8 * n / DH;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 8 * n + 2 * t4 + c;
-        const float wiv = sd[col], bdc = sd[64 + col], wc = sd[128 + col];
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-          raw[hr][el] = fmaf(sigmoid(fmaf(iv[hr], wiv, z[4 * n + 2 * hr + c] + bdc)), wc, raw[hr][el]);
-      }
+  int it = 0;
+  for (int kt = blk.next(p, 0); kt < nkt; kt = blk.next(p, kt + 1), ++it) {
+    const int s = it % S;
+    mbar_wait(full + s, (it / S) & 1);
+    if (!blk.wg_visits(p, kt, wg)) {  // a tile of another warpgroup's queries
+      mbar_arrive(empty + s);
+      continue;
     }
-    mbar_arrive(empty + s);  // the stage's tiles and side lanes are read
+    const bf16* st = ring + s * 2 * NS * kQmTile;
+    const uint64_t kd = sw128_desc(st), td = sw128_desc(st + NS * kQmTile);
+    float sa[32];
+    zero32(sa);
+    wg_fence();
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int el = 0; el < EL; ++el) {
-        float x = raw[hr][el];
-        x += __shfl_xor_sync(0xffffffffu, x, 1);
-        x += __shfl_xor_sync(0xffffffffu, x, 2);
-        raw[hr][el] = x;
-      }
-    if constexpr (DH == 128) {
-      if (!(t & 1)) {  // the event's first half
-        carry[0] = raw[0][0];
-        carry[1] = raw[1][0];
-        return;
-      }
-      raw[0][0] += carry[0];
-      raw[1][0] += carry[1];
-    }
-#pragma unroll
-    for (int el = 0; el < EL; ++el) {
-      const int e = DH == 128 ? t / 2 : 64 * t / DH + el;
-      if (t4 != el || e >= p.E) continue;
-      const float sc = expf(p.scaling[e]);
+    for (int kk = 0; kk < 4 * NS; ++kk)  // S = Q K^T, 512 a 64-column sub-tile
+      wgmma_ss<0, 0>(sa, qd + 512 * (kk >> 2) + 2 * (kk & 3), kd + 512 * (kk >> 2) + 2 * (kk & 3), 1);
+    wg_commit();
+    wg_wait();
+    reg_fence(sa);
+
+    // the tile's row max, then p without a branch, its exponent formed as
+    // the output, d-lambda and dq kernels form it (entry_exp2) from the new
+    // row max: the l written is the sum of the p's they form
+    const int j0 = kt * BK;
+    const float* kmb = kms + s * BK;
+    auto form = [&](auto tested_flag) {
+      const bool tested = flag(tested_flag);
+      RowStats rs;
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int row = r0 + g + 8 * hr;
-        if (row < p.rows) p.lam[(size_t)row * p.E + e] = sc * softplus(raw[hr][el] / sc);
+        // the logits' max: a visible key's dot scale, a real key that is
+        // masked or causally hidden NEG, padding -inf; in a tile without
+        // tests every key is visible, and max(dot) scale = max(dot scale)
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int jl = 8 * n + 2 * t4 + c, j = j0 + jl, x = 4 * n + 2 * hr + c;
+            mx = fmaxf(mx, !tested ? sa[x]
+                           : entry_visible(true, kmb[jl], i0 + 8 * hr, j, p.causal)
+                               ? sa[x] * p.scale
+                               : (j < p.Tk ? kNeg : -INFINITY));
+          }
+        if (!tested) mx *= p.scale;
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        rs.m2[hr] = __fmul_rn(m_new, kLog2e);
+        rs.hid2[hr] = (kNeg - m_new) * kLog2e;
+        // the online rescale, exactly 1 where the max holds (no fma: m log2
+        // e is rounded once, as in m2)
+        const float corr = fast_exp2(__fmul_rn(m[hr], kLog2e) - rs.m2[hr]);
+        m[hr] = m_new;
+        l[hr] *= corr;
+#pragma unroll
+        for (int c = 0; c < NS; ++c)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            o[c][4 * n + 2 * hr] *= corr;
+            o[c][4 * n + 2 * hr + 1] *= corr;
+          }
       }
-    }
-  };
-
-  float z0[32], z1[32];
-  for (int t = 0; t < nt; t += 4) {
-    int_products(z0, xh, xl, ring, full, t);
-    int_products(z1, xh, xl, ring, full, t + 1);
-    wg_wait_n<1>();
-    reg_fence(z0);
-    finish(t, z0);
-    int_products(z0, xh, xl, ring, full, t + 2);
-    wg_wait_n<1>();
-    reg_fence(z1);
-    finish(t + 1, z1);
-    int_products(z1, xh, xl, ring, full, t + 3);
-    wg_wait_n<1>();
-    reg_fence(z0);
-    finish(t + 2, z0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jl = 8 * n + 2 * t4 + c, j = j0 + jl;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int x = 4 * n + 2 * hr + c;
+            sa[x] = fast_exp2(entry_exp2(sa[x], tested, kmb[jl], i0 + 8 * hr, j, sl2, rs, hr,
+                                         p.Tk, p.causal));
+            l[hr] += sa[x];
+          }
+        }
+    };
+    if (blk.rule.test(p, kt, qw))
+      form(std::true_type());
+    else
+      form(std::false_type());
+    uint32_t pf[16];
+    a_frags(pf, sa);  // rnd(p)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NS; ++c) wgmma_rs(o[c], pf + 4 * kk, td + 512 * c + 128 * kk);  // su += P T
+    wg_commit();
     wg_wait();
-    reg_fence(z1);
-    finish(t + 3, z1);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) reg_fence(o[c]);
+    mbar_arrive(empty + s);  // the stage's K, T and mask are free
+  }
+
+  const size_t row0 = (size_t)bh * p.Tq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const int i = i0 + 8 * hr;
+    if (i >= p.Tq) continue;
+    if (t4 == 0) {
+      p.m[row0 + i] = m[hr];
+      p.l[row0 + i] = l[hr];
+    }
+    float* su = p.su + (row0 + i) * 64 * NS + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float2*>(su + 64 * c + 8 * n) =
+            make_float2(o[c][4 * n + 2 * hr] / l[hr], o[c][4 * n + 2 * hr + 1] / l[hr]);
   }
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores.
-cudaError_t stats_launch(const StatsParams& p, int dh, int dtype, int blocks, cudaStream_t s) {
-  const size_t fb = sizeof(float) * (size_t)stats_smem_floats(dh), mb = stats_mma_smem_bytes(dh);
-  const int ft = kThreads, mt = kThreadsMma;
-  switch (dh * 2 + dtype) {
-    case 32: return go(mau_stats_kernel<float, 16>, blocks, ft, fb, s, p);
-    case 64: return go(mau_stats_kernel<float, 32>, blocks, ft, fb, s, p);
-    case 128: return go(mau_stats_kernel<float, 64>, blocks, ft, fb, s, p);
-    case 256: return go(mau_stats_kernel<float, 128>, blocks, ft, fb, s, p);
-    case 33: return go(mau_stats_mma_kernel<16>, blocks, mt, mb, s, p);
-    case 65: return go(mau_stats_mma_kernel<32>, blocks, mt, mb, s, p);
-    case 129: return go(mau_stats_mma_kernel<64>, blocks, mt, mb, s, p);
-    case 257: return go(mau_stats_mma_kernel<128>, blocks, mt, mb, s, p);
+// fp32 on the CUDA cores.
+cudaError_t stats_launch(const StatsParams& p, int dh, int blocks, cudaStream_t s) {
+  const size_t fb = sizeof(float) * (size_t)stats_smem_floats(dh);
+  switch (dh) {
+    case 16: return go(mau_stats_kernel<float, 16>, blocks, kThreads, fb, s, p);
+    case 32: return go(mau_stats_kernel<float, 32>, blocks, kThreads, fb, s, p);
+    case 64: return go(mau_stats_kernel<float, 64>, blocks, kThreads, fb, s, p);
+    case 128: return go(mau_stats_kernel<float, 128>, blocks, kThreads, fb, s, p);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// bf16: heads of 64 or 128 channels (the wrapper zero-pads), rows of q, k, t
+// on 16-byte boundaries.
+cudaError_t stats_tc_launch(const StatsParams& p, int dh, cudaStream_t s) {
+  if (dh != 64 && dh != 128) return cudaErrorInvalidValue;
+  const int ns = dh / 64, groups = stats_groups(ns);
+  QmMaps maps{};
+  if (!heads_seq_map(&maps.res[0], p.q, p.Tq, p.H, p.B, dh) ||
+      !heads_seq_map(&maps.ring[0], p.k, p.Tk, p.H, p.B, dh) ||
+      !heads_seq_map(&maps.ring[2], p.t, p.Tk, p.H, p.B, dh))
+    return cudaErrorInvalidValue;
+  maps.nres[0] = maps.nring[0] = maps.nring[2] = ns;
+  const size_t bytes = stats_tc_smem_bytes(ns, p.Tk);
+  const int blocks = p.B * p.H * ((p.Tq + 64 * groups - 1) / (64 * groups));
+  const int threads = 128 * (groups + 1);
+  return ns == 1 ? go(mau_stats_tc_kernel<1, 3>, blocks, threads, bytes, s, p, maps)
+                 : go(mau_stats_tc_kernel<2, 2>, blocks, threads, bytes, s, p, maps);
 }
 
 cudaError_t out_launch(const OutParams& p, int dh, int blocks, cudaStream_t s) {
@@ -983,47 +827,21 @@ cudaError_t out_tc_launch(OutParams p, const void* onehot, const void* lam, int 
   }
 }
 
-// Splits Wd's seq_units lanes, then runs the head; any (dh, E) with dh in
-// {16, 32, 64, 128}.
-cudaError_t int_tc_launch(const IntParams& p, int dh, cudaStream_t s) {
-  const int edh = p.E * dh, n2 = dh * edh / 2;
-  cudaError_t e = go(mau_int_split_kernel, imin((n2 + 255) / 256, 1024), 256, 0, s,
-                     reinterpret_cast<const float2*>(p.wd), reinterpret_cast<uint32_t*>(p.wd_hi),
-                     reinterpret_cast<uint32_t*>(p.wd_lo), n2);
-  if (e != cudaSuccess) return e;
-  IntMaps maps;
-  const cuuint64_t dims[2] = {(cuuint64_t)edh, (cuuint64_t)dh};
-  const cuuint64_t strides[1] = {(cuuint64_t)edh * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)dh};
-  if (!encode_map(&maps.hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.wd_hi, dims, strides, box) ||
-      !encode_map(&maps.lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.wd_lo, dims, strides, box))
-    return cudaErrorInvalidValue;
-  const int groups = int_groups(dh), rows_a_block = 64 * groups;
-  const int blocks = (p.rows + rows_a_block - 1) / rows_a_block, threads = 128 * (groups + 1);
-  const size_t bytes = int_tc_smem_bytes(dh);
-  switch (dh) {
-    case 16: return go(mau_int_fwd_tc_kernel<16>, blocks, threads, bytes, s, p, maps);
-    case 32: return go(mau_int_fwd_tc_kernel<32>, blocks, threads, bytes, s, p, maps);
-    case 64: return go(mau_int_fwd_tc_kernel<64>, blocks, threads, bytes, s, p, maps);
-    case 128: return go(mau_int_fwd_tc_kernel<128>, blocks, threads, bytes, s, p, maps);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory of one block, in bytes; above 232448 a kernel
 // cannot run.
-size_t mau_stats_smem_bytes(int dh, int dtype) {
-  return dtype ? stats_mma_smem_bytes(dh) : sizeof(float) * (size_t)stats_smem_floats(dh);
+size_t mau_stats_smem_bytes(int dh, int Tk, int dtype) {
+  return dtype ? stats_tc_smem_bytes(dh == 128 ? 2 : 1, Tk)
+               : sizeof(float) * (size_t)stats_smem_floats(dh);
 }
 size_t mau_out_smem_bytes(int dh, int E, int Tk, int dtype) {
   return dtype ? out_tc_smem_bytes(dh == 128 ? 2 : 1, round_up(E, 64) / 64, Tk)
                : sizeof(float) * (size_t)out_smem_floats(dh, E);
 }
-size_t mau_intensity_smem_bytes(int dh) { return int_tc_smem_bytes(dh); }
+size_t mau_intensity_smem_bytes(int dh) { return int_tc_smem_bytes(dh, false); }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, t and out). Strides are in
@@ -1048,9 +866,9 @@ int mau_stats_fwd(const void* q, long long q_bs, long long q_rs, const void* k,
   p.su = static_cast<float*>(su);
   p.scale = scale;
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.causal = causal;
-  const int blocks = B * H * ((Tq + BQ - 1) / BQ);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)stats_launch(p, dh, dtype, blocks, s);
+  if (dtype) return (int)stats_tc_launch(p, dh, s);
+  return (int)stats_launch(p, dh, B * H * ((Tq + BQ - 1) / BQ), s);
 }
 
 // wd_split: scratch of 2 x dh x E*dh bf16 (Wd's seq_units lanes split, hi
@@ -1059,18 +877,16 @@ int mau_intensity_fwd(const void* su, const void* intervals, const void* wd, con
                       const void* w, const void* scaling, void* wd_split, void* lam, int B, int H,
                       int Tq, int dh, int E, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || E < 1) return (int)cudaErrorInvalidValue;
-  IntParams p;
+  IntParams p{};
   p.su = static_cast<const float*>(su);
   p.intervals = static_cast<const float*>(intervals);
-  p.wd = static_cast<const float*>(wd);
   p.bd = static_cast<const float*>(bd);
   p.w = static_cast<const float*>(w);
   p.scaling = static_cast<const float*>(scaling);
-  p.wd_hi = static_cast<bf16*>(wd_split);
-  p.wd_lo = p.wd_hi + (size_t)dh * E * dh;
   p.lam = static_cast<float*>(lam);
   p.rows = B * H * Tq; p.H = H; p.Tq = Tq; p.E = E;
-  return (int)int_tc_launch(p, dh, static_cast<cudaStream_t>(stream));
+  return (int)int_launch<false>(p, static_cast<const float*>(wd), static_cast<bf16*>(wd_split),
+                                nullptr, dh, static_cast<cudaStream_t>(stream));
 }
 
 // `seed` (an int64 on the device, or null for no dropout) keys the dropout

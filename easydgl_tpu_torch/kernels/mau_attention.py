@@ -15,8 +15,11 @@ layout (head h in channels [h*dh, (h+1)*dh), reference sequential.py:39-41):
 ``mau_attention`` dispatches on where its tensors lie. CPU tensors take
 ``mau_attention_reference``, the plain PyTorch version, and autograd
 differentiates it. CUDA tensors launch the hand-written kernels (or raise):
-``csrc/mau_attention_fwd.cu`` forward and, under autograd,
-``csrc/mau_attention_bwd.cu`` backward, through ``_MauAttention``.
+``csrc/mau_attention_fwd.cu`` forward (in bf16 the attention side, the
+intensity head over the rows of every head at once, ``csrc/intensity_head.cuh``,
+and the modulation, with ``fused_fwd_workspaces`` between them; in fp32 one
+kernel) and, under autograd, ``csrc/mau_attention_bwd.cu`` backward, through
+``_MauAttention``.
 ``mau_attention_bwd`` is the backward's wrapper and
 ``mau_attention_bwd_reference`` its plain version. Each kernel launch adds
 one to ``mau_attention.launches`` (forward) or ``mau_attention_bwd.launches``.
@@ -357,23 +360,35 @@ def _seed_tensor(seed, rate: float, dev) -> Optional[torch.Tensor]:
     return torch.as_tensor(seed, dtype=torch.int64).to(dev).reshape(())
 
 
-def _pack_wd(wd: torch.Tensor):
-    """bf16 Wd (dh+1, E*dh), K zero-padded to kp (a multiple of 16), as the
-    forward's z product reads it: for each 8-column tile j and 16-deep step
-    s, 32 lanes x 4 values, lane 4g+t holding Wd[16s + 8b + 2t + p, 8j + g]
-    for b, p in {0, 1} (the mma m16n8k16 B fragment), so each lane's load is
-    8 contiguous bytes."""
-    k, n = wd.shape
-    kp = -(-k // 16) * 16
-    rows = torch.zeros(kp, n, dtype=torch.bfloat16, device=wd.device)
-    rows[:k] = wd.detach().to(torch.bfloat16)
-    return (rows.reshape(kp // 16, 2, 4, 2, n // 8, 8)
-            .permute(4, 0, 5, 2, 1, 3).contiguous())
+def fused_fwd_workspaces(b: int, h: int, tq: int, tk: int, dh: int, e: int,
+                         dev):
+    """The bf16 forward's scratch, each written before it is read: probs
+    (B*H, Tq*Tk rounded up to 4) fp32 from the attention side for the
+    modulation, each (b, h)'s (Tq, Tk) on a 16-byte boundary; x
+    (B*H*Tq, dh) bf16, the rounded seq_units rows of every head, for the
+    intensity head; Wd's seq_units lanes as bf16 tiles (dh, E*dh); and the
+    rounded interval lane and w of Wd (2, E*dh) fp32."""
+    edh = e * dh
+    return dict(
+        probs=torch.empty((b * h, -(-tq * tk // 4) * 4), dtype=torch.float32,
+                          device=dev),
+        x=torch.empty((b * h * tq, dh), dtype=torch.bfloat16, device=dev),
+        wd=torch.empty((dh, edh), dtype=torch.bfloat16, device=dev),
+        side=torch.empty((2, edh), dtype=torch.float32, device=dev))
 
 
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"mau_attention kernel: {msg}")
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """x where its rows start on 16-byte boundaries, as the bf16 kernels'
+    vector loads need, else a contiguous copy (C is a multiple of 8)."""
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8
+                                      or x.stride(1) % 8):
+        return x.contiguous()
+    return x
 
 
 def _bind(lib, name, argtypes):
@@ -391,9 +406,9 @@ _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("mau_attention_fwd")
     _bind(lib, "mau_attention_fwd",
-          [_P, _LL, _LL] * 4 + [_P] * 12 + [_U32, _F32] + [_I32] * 8
-          + [_F32, _I32, _P])
-    lib.mau_attention_fwd_smem_bytes.argtypes = [_I32] * 4
+          [_P, _LL, _LL] * 4 + [_P] * 12 + [_U32, _F32] + [_P] * 4
+          + [_I32] * 8 + [_F32, _I32, _P])
+    lib.mau_attention_fwd_smem_bytes.argtypes = [_I32] * 5
     lib.mau_attention_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.mau_cuda_error_string.argtypes = [_I32]
     lib.mau_cuda_error_string.restype = ctypes.c_char_p
@@ -500,22 +515,23 @@ def _raise_on(rc: int, what: str, error_string) -> None:
 def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
                 causal, diag_reset, num_heads, qpos, seed, rate, *,
                 want_raw: bool):
+    """The forward kernels, by dtype: bf16 runs the attention side, the
+    intensity head over every (b, h, i) row and the modulation (three
+    kernels and the head's rounding kernel, on ``fused_fwd_workspaces``);
+    fp32 runs the one fused kernel. Both take every shape the checks admit.
+    Returns (out, lam, raw or None)."""
     km, iv, oh, qp = _checked_inputs(q, k, v, t, key_mask, intervals, onehot,
                                      wd, bd, w, scaling, num_heads, qpos)
     dev, cdt = q.device, q.dtype
     b, tq, c = q.shape
     tk = k.shape[1]
     e, dh = w.shape
-    bdf, scf = _f32(bd, dev), _f32(scaling, dev)
-    if cdt == torch.bfloat16:
-        wdc = _pack_wd(wd.to(dev))
-    else:
-        wdc = wd.detach().to(device=dev, dtype=cdt).contiguous()
-    wc = w.detach().to(device=dev, dtype=cdt).contiguous()
-    for name, x in (("wd", wdc), ("w", wc), ("bd", bdf)):
+    q, k, v, t = (_rows16(x) for x in (q, k, v, t))
+    wdf, bdf, wf, scf = (_f32(x, dev) for x in (wd, bd, w, scaling))
+    for name, x in (("wd", wdf), ("w", wf), ("bd", bdf)):
         _check(x.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
     lib = _fwd_lib()
-    smem = lib.mau_attention_fwd_smem_bytes(tq, tk, dh, e)
+    smem = lib.mau_attention_fwd_smem_bytes(tq, tk, dh, e, _DTYPE_CODE[cdt])
     _check(smem <= KERNEL_SMEM_MAX,
            f"needs {smem} bytes of shared memory (Tq={tq}, Tk={tk}, dh={dh},"
            f" E={e}); the limit is {KERNEL_SMEM_MAX}")
@@ -523,6 +539,8 @@ def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
     lam = torch.empty((b, num_heads, tq, e), dtype=torch.float32, device=dev)
     raw = (torch.empty((b, num_heads, tq, e), dtype=torch.float32, device=dev)
            if want_raw else None)
+    ws = (fused_fwd_workspaces(b, num_heads, tq, tk, dh, e, dev)
+          if cdt == torch.bfloat16 else {})
     seed_ptr, thresh, dscale = _drop_args(seed, rate)
     with torch.cuda.device(dev):
         rc = lib.mau_attention_fwd(
@@ -531,10 +549,12 @@ def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
             v.data_ptr(), v.stride(0), v.stride(1),
             t.data_ptr(), t.stride(0), t.stride(1),
             km.data_ptr(), iv.data_ptr(), qp.data_ptr(), oh.data_ptr(),
-            wdc.data_ptr(), bdf.data_ptr(), wc.data_ptr(), scf.data_ptr(),
+            wdf.data_ptr(), bdf.data_ptr(), wf.data_ptr(), scf.data_ptr(),
             out.data_ptr(), lam.data_ptr(),
             None if raw is None else raw.data_ptr(), seed_ptr, thresh,
-            dscale, b, tq, tk, num_heads, dh, e, int(causal),
+            dscale, *(ws[n].data_ptr() if ws else None
+                      for n in ("probs", "x", "wd", "side")),
+            b, tq, tk, num_heads, dh, e, int(causal),
             int(diag_reset), 1.0 / dh ** 0.5, _DTYPE_CODE[cdt], _stream(dev))
     _raise_on(rc, "mau_attention", lib.mau_cuda_error_string)
     mau_attention.launches += 1

@@ -38,8 +38,9 @@ key block; the kernels tile by 64 queries and 64 keys. In bf16 every kernel
 runs its products on the tensor cores and takes lam and the one-hot rounded
 to bf16 (as the plain version rounds them) and zero-padded to 64-event
 tiles for the ``wgmma`` kernels (output, d-lambda, dq, dk/dv/dt), whose
-heads are zero-padded to 64 channels too. Those four visit only the (query
-tile, key tile) pairs of ``streamed_visited_tiles`` (dq its visible-only
+heads, and the stats kernel's, are zero-padded to 64 channels too. Those
+five visit only the (query tile, key tile) pairs of
+``streamed_visited_tiles`` (dq its visible-only
 form): each block makes ``streamed_key_plan``'s row of its batch row from
 the key mask (``key_plan`` in ``csrc/mau_streamed.cuh``) and applies the
 rule to it. The backward kernels take dh in (16, 32, 64) and E up to 128;
@@ -57,9 +58,10 @@ from easydgl_tpu_torch.kernels.flash_attention import TILE, flash_live_tiles
 from easydgl_tpu_torch.kernels.mau_attention import (_DTYPE_CODE,
                                                      KERNEL_HEAD_DIMS,
                                                      KERNEL_SMEM_MAX, _bind,
-                                                     _drop_args, _seed_tensor,
-                                                     _on_card, _raise_on,
-                                                     _stream, differentiable)
+                                                     _drop_args, _rows16,
+                                                     _seed_tensor, _on_card,
+                                                     _raise_on, _stream,
+                                                     differentiable)
 from easydgl_tpu_torch.kernels.mau_blocked import (
     BackwardOps, BlockedForward, autograd_function,
     dkvt_reference, dq_reference, glam_reference, intensity_reference,
@@ -81,7 +83,7 @@ def _lib() -> ctypes.CDLL:
     _bind(lib, "mau_out_fwd",
           [_P, _LL, _LL] * 3 + [_P] * 6 + [_U32, _F32, _P] + [_I32] * 8
           + [_F32, _I32, _P])
-    lib.mau_stats_smem_bytes.argtypes = [_I32, _I32]
+    lib.mau_stats_smem_bytes.argtypes = [_I32] * 3
     lib.mau_out_smem_bytes.argtypes = [_I32] * 4
     lib.mau_intensity_smem_bytes.argtypes = [_I32]
     for name in ("mau_stats_smem_bytes", "mau_out_smem_bytes",
@@ -160,15 +162,6 @@ def _seq(x: torch.Tensor):
     return x.data_ptr(), x.stride(0), x.stride(1)
 
 
-def _rows16(x: torch.Tensor) -> torch.Tensor:
-    """x where its rows start on 16-byte boundaries, as the bf16 kernels'
-    vector loads need, else a contiguous copy (C is a multiple of 8)."""
-    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8
-                                      or x.stride(1) % 8):
-        return x.contiguous()
-    return x
-
-
 def _bf16_events(x: torch.Tensor) -> torch.Tensor:
     """(..., E) -> bf16 (..., EP), rounded and zero-padded to EP = E rounded
     up to 64: the lam and one-hot operands of the bf16 kernels (the wgmma
@@ -210,7 +203,9 @@ def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
               block_k: int = 512):
     """Sweep 1: (m (B, H, Tq), l (B, H, Tq), seq_units (B, H, Tq, dh)),
     fp32. CPU tensors: ``mau_blocked.stats_reference``; CUDA tensors:
-    ``mau_stats_kernel``."""
+    ``mau_stats_tc_kernel`` (bf16: heads zero-padded to 64 channels, the key
+    tiles of ``streamed_visited_tiles`` only) or ``mau_stats_kernel``
+    (fp32)."""
     if not _on_card("mau_stats", q, k, t, key_mask,
                     entry="mau_streamed"):
         return stats_reference(q, k, t, key_mask, causal=causal,
@@ -218,22 +213,26 @@ def mau_stats(q, k, t, key_mask, *, causal: bool = False, num_heads: int,
     b, tq, tk, dh = _checked_seqs(q, (("k", k), ("t", t)), num_heads)
     _check(tuple(key_mask.shape) == (b, tk), "key_mask shape")
     km = _f32(key_mask)
+    h = num_heads
+    kdh = dh
+    if q.dtype == torch.bfloat16:
+        q, k, t = (_pad_heads(x, h) for x in (q, k, t))
+        kdh = q.shape[-1] // h
     q, k, t = (_rows16(x) for x in (q, k, t))
     lib = _lib()
-    _check(lib.mau_stats_smem_bytes(dh, _DTYPE_CODE[q.dtype])
+    _check(lib.mau_stats_smem_bytes(kdh, tk, _DTYPE_CODE[q.dtype])
            <= KERNEL_SMEM_MAX, "shared memory over the limit")
     f32 = dict(dtype=torch.float32, device=q.device)
-    h = num_heads
     m, l = torch.empty((b, h, tq), **f32), torch.empty((b, h, tq), **f32)
-    su = torch.empty((b, h, tq, dh), **f32)
+    su = torch.empty((b, h, tq, kdh), **f32)
     with torch.cuda.device(q.device):
         rc = lib.mau_stats_fwd(*_seq(q), *_seq(k), *_seq(t), km.data_ptr(),
                                m.data_ptr(), l.data_ptr(), su.data_ptr(), b,
-                               tq, tk, h, dh, int(causal), 1.0 / dh ** 0.5,
+                               tq, tk, h, kdh, int(causal), 1.0 / dh ** 0.5,
                                _DTYPE_CODE[q.dtype], _stream(q.device))
     _raise_on(rc, "mau_stats", _lib().mau_streamed_error_string)
     mau_stats.launches += 1
-    return m, l, su
+    return m, l, su[..., :dh]
 
 
 mau_stats.launches = 0

@@ -2,7 +2,7 @@
 """Times variants of a hand-written kernel with one part taken out, on one
 GPU, to show where its time goes.
 
-Five kernels: the bf16 flash backward (``flash``: the dQ reduction, the
+Eleven kernels: the bf16 flash backward (``flash``: the dQ reduction, the
 exp, the per-entry mask test removed, one consumer warpgroup instead of
 two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
 the exponentials, or the products, removed), the intensity VJP (``vjp``:
@@ -17,9 +17,16 @@ every key tile of the range visited, four ring stages instead of two,
 every tile's entries formed with their tests, two consumer warpgroups a
 block instead of three), the streamed intensity head (``int``: its
 products removed, the sigmoid's one-op form (tanh.approx), two consumer
-warpgroups a block instead of three) and the bf16
+warpgroups a block instead of three), the bf16
 streamed dq kernel (``dq``, at dropout 0 and 0.1: the Philox draw or the
-products removed, every key tile of the range visited). Each variant edits
+products removed, every key tile of the range visited), the bf16 fused
+MAU forward (``mau_fwd``, eval and train, by kernel: the intensity head's
+product removed; the head alone, the attention kernels not launched; one
+consumer warpgroup a block, so that Wd is read from L2 for every 64 rows
+(1.14 GB a launch, 0.38 GB at three); the sigmoid's reciprocal by three
+Newton steps on the FMA pipe instead of the special-function unit's) and
+the bf16 streamed stats kernel (``stats``: the live-tile rule off, every
+key tile visited; expf in place of ex2). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -29,7 +36,8 @@ line a copy, with the card's name and power limit. Imports neither JAX nor
 the JAX package.
 
     python3 scripts/torch_ablate.py
-        flash|catalog_fwd|vjp|mau_bwd|dkvt|out|glam|int|dq [VARIANT ...]
+        flash|catalog_fwd|vjp|mau_bwd|dkvt|out|glam|int|dq|mau_fwd|stats
+        [VARIANT ...]
 """
 from __future__ import annotations
 
@@ -58,6 +66,8 @@ NO_DRAW = ("            if constexpr (decltype(dropped)::value) u *= "
 # keeps the bf16 fragments of a removed product alive
 SINK = ("__uint_as_float({0}[4 * kk]) + __uint_as_float({0}[4 * kk + 1]) + "
         "__uint_as_float({0}[4 * kk + 2]) + __uint_as_float({0}[4 * kk + 3])")
+# the intensity head both forwards share
+HEAD = "intensity_head.cuh"
 # the sigmoid's one-op form, defined at the top of a source's namespace
 SIG1 = ("\nnamespace {\n",
         "\nnamespace {\n__device__ __forceinline__ float sig1(float z) { float y;"
@@ -203,16 +213,20 @@ KERNELS = {
             ["scripts/torch_streamed_bench.py", "--int", "--rounds", "1"], {
                 "control": [],
                 "no products": [(
-                    "  for (int kk = 0; kk < KK; ++kk) wgmma_rs_x3<1>(z, xh[kk],"
-                    " xl[kk], dhi + 128 * kk, dlo + 128 * kk);\n",
-                    "  for (int kk = 0; kk < KK; ++kk) z[kk] += __uint_as_float("
+                    HEAD, "    for (int kk = 0; kk < KK; ++kk) wgmma_rs_x3<1>(z,"
+                    " xh[kk], xl[kk], dhi + 128 * kk, dlo + 128 * kk);\n",
+                    "    for (int kk = 0; kk < KK; ++kk) z[kk] += __uint_as_float("
                     "xh[kk][0] ^ xl[kk][1]);\n")],
-                "one-op sigmoid": [(
-                    "raw[hr][el] = fmaf(sigmoid(fmaf(",
-                    "raw[hr][el] = fmaf(sig1(fmaf("), SIG1],
+                "one-op sigmoid": [
+                    (HEAD, "        float s0 = sigmoid(fmaf(",
+                     "        float s0 = sig1(fmaf("),
+                    (HEAD, "        float s1 = sigmoid(fmaf(",
+                     "        float s1 = sig1(fmaf("),
+                    (HEAD,) + SIG1],
                 "two warpgroups a block": [(
-                    "constexpr int int_groups(int dh) { return dh == 128 ? 2 :"
-                    " 3; }", "constexpr int int_groups(int dh) { return 2; }")]}),
+                    HEAD, "constexpr int int_groups(int dh) { return dh == 128 ?"
+                    " 2 : 3; }",
+                    "constexpr int int_groups(int dh) { return 2; }")]}),
     "dq": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
            ["scripts/torch_streamed_bench.py", "--dq", "--rounds", "1"], {
                "control": [],
@@ -233,6 +247,43 @@ KERNELS = {
                     "    for (int kk = 0; kk < 4; ++kk) dq[kk] += "
                     + SINK.format("f") + ";\n")],
                "every key tile visited": [RULE_OFF]}),
+    "mau_fwd": ("mau_attention_fwd.cu", "mau_attention_fwd",
+                ["scripts/torch_mau_bench.py", "--fwd", "--kernels",
+                 "--rounds", "1"], {
+                    "control": [],
+                    "no head products": [(
+                        HEAD, "    for (int kk = 0; kk < KK; ++kk) wgmma_rs<1>(z,"
+                        " xh[kk], dhi + 128 * kk);\n",
+                        "    for (int kk = 0; kk < KK; ++kk) z[kk] +="
+                        " __uint_as_float(xh[kk][0] ^ xh[kk][1]);\n")],
+                    "the head alone": [
+                        ("  cudaError_t e = go(mau_fwd_pre_kernel<DH>, blocks,"
+                         " kTcThreads,\n                     (size_t)tc_layout("
+                         "p.Tq, p.Tk, DH, p.E, false).bytes, s, p);",
+                         "  cudaError_t e = cudaSuccess;"),
+                        ("  return go(mau_fwd_post_kernel<DH>, blocks,"
+                         " kTcThreads,"
+                         "\n            (size_t)tc_layout(p.Tq, p.Tk, DH, p.E,"
+                         " true).bytes, s, p);", "  return cudaSuccess;")],
+                    "one warpgroup a block": [(
+                        HEAD, "constexpr int int_groups(int dh) { return dh == 128 ?"
+                        " 2 : 3; }",
+                        "constexpr int int_groups(int dh) { return 1; }")],
+                    "Newton reciprocal": [(
+                        "common.cuh",
+                        "  return __fdividef(1.f, 1.f + __expf(-z));",
+                        "  const float d = 1.f + __expf(-z);\n"
+                        "  float r = __int_as_float(0x7EF311C3 - __float_as_int(d));\n"
+                        "  r = r * (2.f - d * r);\n  r = r * (2.f - d * r);\n"
+                        "  return r * (2.f - d * r);")]}),
+    "stats": ("mau_streamed_fwd.cu", "mau_streamed_fwd",
+              ["scripts/torch_streamed_bench.py", "--stats", "--kernels",
+               "--rounds", "1"], {
+                  "control": [],
+                  "every key tile visited": [RULE_OFF],
+                  "expf in place of ex2": [(
+                      "            sa[x] = fast_exp2(entry_exp2(",
+                      "            sa[x] = expf(kLn2 * entry_exp2(")]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 

@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
 """Shows that the checks of ``chip_smoke.py`` fail a broken fused MAU
-backward or a broken streamed intensity head, output, d-lambda, dq or
-dK/dV/dT kernel, on one GPU.
+forward or backward or a broken streamed stats, intensity head, output,
+d-lambda, dq or dK/dV/dT kernel, on one GPU.
+
+Four mutants of the bf16 fused forward (``csrc/mau_attention_fwd.cu`` and
+the intensity head it shares, ``csrc/intensity_head.cuh``): the sigmoid not
+rounded to bf16, the interval not rounded to bf16, BiMAU's diagonal left
+as lam . one-hot instead of 1, and the second warpgroup of each head block
+reading the rows Tq further on (a neighbouring (b, h)'s). Three of the
+bf16 stats kernel (``csrc/mau_streamed_fwd.cu``): blind query tiles
+visiting only the tiles with a real key (the rule's visible-only form), the
+causal range short by one tile, and the online correction left off l.
 
 Three mutants of ``csrc/mau_attention_bwd.cu``'s tensor-core path (bf16,
 dh <= 64): dbd dropped (its one atomic a column and block), dz without its
@@ -21,11 +30,14 @@ rule's causal range cut short by one tile (a rule that visits extra tiles
 would still give the right dq, so only one that skips too much is a
 mutant). For each mutant, and for the unchanged sources as a control, the
 package and ``chip_smoke.py`` are copied into a temporary directory, the
-copy's source is edited, and the cases of ``chip_smoke.MAU_BWD_CASES``
+copy's source is edited, and the cases of ``chip_smoke.MAU_FWD_CASES``
+(through ``mau_fwd_case``) with the rounding probe (``rounding_probe``),
+those of ``chip_smoke.MAU_BWD_CASES``
 (through ``mau_bwd_case``), the intensity head on
 ``chip_smoke.INTENSITY_CASES`` (through ``intensity_check``), the output
 kernel on the cases of ``chip_smoke.STREAMED_CASES`` (through
-``streamed_out_check``) with the entry-by-entry probes (``PROBE_CASES``),
+``streamed_out_check``) and the stats kernel on them (``stats_check``)
+with the entry-by-entry probes (``PROBE_CASES``),
 and the d-lambda, dq and dkvt kernels on the cases of
 ``chip_smoke.STREAMED_BWD_CASES`` (through ``streamed_bwd_case``) run there
 (each copy's libraries built first, one nvcc each, all together; then one
@@ -50,7 +62,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = "easydgl_tpu_torch/kernels/csrc/"
 MAU, FWD, STREAMED = ("mau_attention_bwd.cu", "mau_streamed_fwd.cu",
                       "mau_streamed_bwd.cu")
-RULE = "mau_streamed.cuh"
+FUSED, HEAD, RULE = ("mau_attention_fwd.cu", "intensity_head.cuh",
+                     "mau_streamed.cuh")
 # name -> (source in csrc/, old, new), or None for the control
 MUTANTS = {
     "control": None,
@@ -98,15 +111,36 @@ MUTANTS = {
         "    if (visible_only && p.causal && kt * BK > imin(q0 + BQ, p.Tq) - 1 -"
         " BK) return false;\n"),
     "intensity: the lo . hi pass dropped": (
-        FWD, "wgmma_rs_x3<1>(z, xh[kk], xl[kk], dhi + 128 * kk, dlo + 128 * kk);",
+        HEAD, "wgmma_rs_x3<1>(z, xh[kk], xl[kk], dhi + 128 * kk, dlo + 128 * kk);",
         "wgmma_rs<1>(z, xh[kk], dlo + 128 * kk), wgmma_rs<1>(z, xh[kk], dhi +"
         " 128 * kk);"),
     "intensity: the interval lane dropped": (
-        FWD, "fmaf(sigmoid(fmaf(iv[hr], wiv, z[4 * n + 2 * hr + c] + bdc)), wc,",
-        "fmaf(sigmoid(z[4 * n + 2 * hr + c] + bdc + 0.f * wiv), wc,"),
+        HEAD, "iv[hr] = kFused ? rnd<bf16>(v) : v;",
+        "iv[hr] = kFused ? rnd<bf16>(v) : 0.f * v;"),
+    "fused forward: the sigmoid not rounded to bf16": (
+        HEAD, "        if constexpr (kFused) round_bf16x2(s0, s1);", ""),
+    "fused forward: the interval not rounded to bf16": (
+        HEAD, "iv[hr] = kFused ? rnd<bf16>(v) : v;", "iv[hr] = v;"),
+    "fused forward: BiMAU's diagonal left as lam": (
+        FUSED, "const float iqk = (p.diag_reset && j == qps[i]) ? 1.f : acc[s][c];",
+        "const float iqk = acc[s][c];"),
+    "fused forward: a head warpgroup reads its neighbour's rows": (
+        HEAD, "*reinterpret_cast<const uint32_t*>(p.x + (size_t)row * DH + c)",
+        "*reinterpret_cast<const uint32_t*>(p.x + (size_t)imin(row + (wg == 1"
+        " ? p.Tq : 0), p.rows - 1) * DH + c)"),
+    "stats: blind query tiles visit only tiles with a real key": (
+        FWD, "b, h, q0, false};  // the output kernel's rule",
+        "b, h, q0, true};  // the output kernel's rule"),
+    "stats: the causal range short by one tile": (
+        FWD, "    if (!blk.wg_visits(p, kt, wg)) {  // a tile of another "
+        "warpgroup's queries",
+        "    if (!blk.wg_visits(p, kt, wg) || (p.causal && kt * BK > imin(qw +"
+        " 64, p.Tq) - 1 - BK)) {"),
+    "stats: the online correction left off l": (
+        FWD, "        l[hr] *= corr;\n", ""),
 }
 RESULT = "RESULT "
-AT_ONCE = 4   # copies run together
+AT_ONCE = 4   # copies run together (each holds ~13 GB of the card)
 
 
 def child() -> int:
@@ -122,17 +156,26 @@ def child() -> int:
         here), "the package was not imported from the copy"
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    for i, case in enumerate(chip_smoke.MAU_FWD_CASES):
+        out["fused fwd " + case[0]] = {
+            label: ratio for label, (_, ratio) in
+            chip_smoke.mau_fwd_case(i, *case).items()}
+    out["rounding probe"] = {label: ratio for label, (_, ratio) in
+                             chip_smoke.rounding_probe().items()}
     for i, case in enumerate(chip_smoke.MAU_BWD_CASES):
         res, _ = chip_smoke.mau_bwd_case(i, *case)
         out[case[0]] = {label: ratio for label, (_, ratio) in res.items()}
     for i, case in enumerate(chip_smoke.INTENSITY_CASES):
         out[f"int {case}"] = {"lam": chip_smoke.intensity_check(i, *case)[1]}
     for i, case in enumerate(chip_smoke.STREAMED_CASES):
+        data = chip_smoke.streamed_case(i, *case)
         try:   # a non-finite out fails the check by raising
-            ratio = chip_smoke.streamed_out_check(i, *case)[1]
+            ratio = chip_smoke.streamed_out_check(i, *case, data)[1]
         except AssertionError:
             ratio = math.inf
-        out["fwd " + case[0]] = {"out": ratio}
+        out["fwd " + case[0]] = {"out": ratio, **{
+            "stats " + label: r for label, (_, r) in
+            chip_smoke.stats_check(i, *case, data).items()}}
     for i, (name, dtype, causal, diag) in enumerate(chip_smoke.PROBE_CASES):
         rel, dropped = chip_smoke.modulation_probe(name, dtype, causal, diag,
                                                    seed=460 + i)

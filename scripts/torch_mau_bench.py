@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Times the fused MAU/BiMAU backward on one GPU, whole and by kernel.
+"""Times the fused MAU/BiMAU backward, or its forward, on one GPU, whole
+and by kernel.
 
 At the flagship train shape (B=512, T=31, H=8, dh=64, E=64, BiMAU, dropout
 0.1, bf16), with inputs drawn from a seed as ``chip_smoke.py`` phase 4b
 draws them: ``mau_attention_bwd`` over 10 launches (CUDA events, after
 warm-up) in each of ``--rounds`` rounds; with ``--kernels`` also its device
-time by CUDA kernel (``torch.profiler``, 10 launches). Prints one JSON line
-with the card's name and power limit. Imports neither JAX nor the JAX
-package; run from the root of a checkout (or of an older one, to compare
-two versions in one call):
+time by CUDA kernel (``torch.profiler``, 10 launches). ``--fwd`` times the
+forward instead, on phase 4's bf16 inputs (BiMAU): the eval launch
+(dropout 0, no residual) and the train launch (the raw residual, dropout
+0.1), in rounds as the backward. Prints one JSON line with the card's name
+and power limit. Imports neither JAX nor the JAX package; run from the root
+of a checkout (or of an older one, to compare two versions in one call):
 
-    python3 scripts/torch_mau_bench.py [--label NAME] [--rounds N] [--kernels]
+    python3 scripts/torch_mau_bench.py [--label NAME] [--fwd] [--rounds N]
+        [--kernels]
 """
 from __future__ import annotations
 
@@ -44,9 +48,25 @@ def bwd_run():
         qpos=qpos)
 
 
+def fwd_runs():
+    """{"eval": ..., "train": ...}: the forward's launches at phase 4's bf16
+    inputs, ready to call."""
+    args = chip_smoke.mau_inputs(**chip_smoke.FLAGSHIP, dtype=torch.bfloat16,
+                                 gathered=False, seed=100)
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos = args
+    sd = _seed_tensor(5, 0.1, torch.device("cuda"))
+    return {"eval": lambda: _launch_fwd(q, k, v, t, km, iv, oh, wd, bd, w, sc,
+                                        False, True, 8, qpos, None, 0.0,
+                                        want_raw=False),
+            "train": lambda: _launch_fwd(q, k, v, t, km, iv, oh, wd, bd, w,
+                                         sc, False, True, 8, qpos, sd, 0.1,
+                                         want_raw=True)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
+    ap.add_argument("--fwd", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
@@ -57,12 +77,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    run = bwd_run()
-    res = {"label": args.label, "card": card,
-           "bwd_ms": [time_ms(run, warmup=2, iters=10)
-                      for _ in range(args.rounds)]}
-    if args.kernels:
-        res["bwd_by_kernel"] = kernel_ms(run)
+    res = {"label": args.label, "card": card}
+    runs = fwd_runs() if args.fwd else {"": bwd_run()}
+    for name, run in runs.items():
+        key = f"fwd_{name}" if args.fwd else "bwd"
+        res[f"{key}_ms"] = [time_ms(run, warmup=2, iters=10)
+                            for _ in range(args.rounds)]
+        if args.kernels:
+            res[f"{key}_by_kernel"] = kernel_ms(run)
     print(json.dumps(res), flush=True)
     return 0
 

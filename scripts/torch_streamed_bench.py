@@ -29,12 +29,15 @@ of (query tile, key tile) pairs the live-tile rule visits
 (the plain pieces' residuals, g_su and rho), at dropout 0 and 0.1 with its
 visible-only rule's share of the pairs (``dq_visited_tile_share``, None in
 a checkout whose rule has no such form), each in rounds as ``--vjp``.
+``--stats`` times the stats kernel (``mau_stats``) alone on phase 4c's bf16
+inputs, with the shares of the live-tile rule, in rounds as ``--vjp``.
 Prints one JSON line with the card's name and power limit. Imports neither
 JAX nor the JAX package; run from the root of a checkout (or of an older
 one, to compare two versions in one call):
 
     python3 scripts/torch_streamed_bench.py [--label NAME]
-        [--vjp | --dkvt | --out | --glam | --int | --dq] [--rounds N]
+        [--vjp | --dkvt | --out | --glam | --int | --dq | --stats]
+        [--rounds N]
         [--kernels]
 """
 from __future__ import annotations
@@ -234,6 +237,24 @@ def int_times(rounds, by_kernel):
     return res
 
 
+def stats_times(rounds, by_kernel):
+    """mau_stats alone on phase 4c's bf16 inputs."""
+    import chip_smoke
+    q, k, v, t, km, *_ = chip_smoke.mau_inputs(
+        **chip_smoke.LC, dtype=torch.bfloat16, gathered=False, seed=400)
+    live, visited = tile_shares(km)
+
+    def run():
+        mau_stats(q, k, t, km, causal=False, num_heads=H)
+
+    res = {"live_key_tile_share": live, "visited_tile_share": visited,
+           "stats_ms": [time_ms(run, warmup=2, iters=10)
+                        for _ in range(rounds)]}
+    if by_kernel:
+        res["stats_by_kernel"] = kernel_ms(run)
+    return res
+
+
 def dq_times(rounds, by_kernel):
     """mau_dq alone on phase 4d's bf16 inputs, dropout 0 and 0.1."""
     import chip_smoke
@@ -292,6 +313,7 @@ def main() -> int:
     ap.add_argument("--glam", action="store_true")
     ap.add_argument("--int", action="store_true")
     ap.add_argument("--dq", action="store_true")
+    ap.add_argument("--stats", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
@@ -308,7 +330,8 @@ def main() -> int:
                                  (args.out, out_times),
                                  (args.glam, glam_times),
                                  (args.int, int_times),
-                                 (args.dq, dq_times)) if flag]
+                                 (args.dq, dq_times),
+                                 (args.stats, stats_times)) if flag]
     if alone:
         times = alone[0](args.rounds, args.kernels)
         print(json.dumps({"label": args.label, "card": card, **times}),

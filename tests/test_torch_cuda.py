@@ -20,6 +20,8 @@ or the probs by one ulp). An output that is exactly zero by construction
 is compared for equality. The streamed intensity head is fp32 in both
 compute dtypes and is held to 1e-4.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -98,7 +100,11 @@ SHAPES = {"small": dict(b=3, t=11, h=2, dh=16, e=4),
           "flagship_width": dict(b=8, t=31, h=8, dh=64, e=64),
           "tk128": dict(b=2, t=128, h=4, dh=32, e=8),
           # PRESETS["CTSMA"]'s heads: the bf16 backward's CUDA-core path
-          "dh128": dict(b=4, t=31, h=4, dh=128, e=64)}
+          "dh128": dict(b=4, t=31, h=4, dh=128, e=64),
+          # the bf16 forward's intensity head over rows of many heads: three
+          # events (a ragged column tile) and two 64-event tiles
+          "e3": dict(b=5, t=20, h=2, dh=32, e=3),
+          "e128": dict(b=4, t=31, h=4, dh=64, e=128)}
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
@@ -669,6 +675,37 @@ def _dq_key_mask(b, tk):
     km[2, 180:] = 1.0
     km[3] = 1.0
     return km
+
+
+@pytest.mark.parametrize("tq,tk", [(300, 300), (200, 300), (300, 200)])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_kernel_on_blind_rows_and_empty_key_tiles(cuda_device, dtype,
+                                                        causal, dh, tq, tk):
+    """``mau_stats`` against ``stats_reference`` on a batch row with no real
+    key, a causal blind prefix, key tiles with no real key and Tq != Tk: m,
+    l and seq_units held as the streamed cases hold them, one launch, and a
+    row that sees no key uniform over every key (l = Tk exactly)."""
+    rng = np.random.default_rng(tq + 3 * tk + dh + int(causal))
+    b, h = 4, 2
+    c = h * dh
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    q = torch.tensor(rng.normal(size=(b, tq, c)), **f32).to(dtype)
+    k, t = (torch.tensor(rng.normal(size=(b, tk, c)), **f32).to(dtype)
+            for _ in range(2))
+    km = torch.tensor(_dq_key_mask(b, tk), **f32)
+    before = mau_stats.launches
+    got = mau_stats(q, k, t, km, causal=causal, num_heads=h)
+    assert mau_stats.launches == before + 1
+    assert all(x.dtype == torch.float32 for x in got)
+    assert got[2].shape == (b, h, tq, dh)
+    want = stats_reference(q, k, t, km, causal=causal, num_heads=h)
+    _check_stats(dtype, got, SimpleNamespace(m=want[0], l=want[1],
+                                             su=want[2]))
+    assert bool((got[1][0] == tk).all())
+    if causal:
+        assert bool((got[1][1, :, :100] == tk).all())
 
 
 @pytest.mark.parametrize("tq,tk", [(300, 300), (200, 300), (300, 200)])

@@ -27,7 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from easydgl_tpu.kernels import mau_attention as jmau
 from easydgl_tpu.nn import temporal as jtemporal
 from easydgl_tpu_torch.kernels.mau_attention import (
-    dropout_factor, mau_attention, mau_attention_bwd,
+    dropout_factor, fused_fwd_workspaces, mau_attention, mau_attention_bwd,
     mau_attention_bwd_reference, mau_attention_reference, philox4x32_10)
 from easydgl_tpu_torch.nn.temporal import MAU, BiMAU
 from easydgl_tpu_torch.parity import flax_to_torch
@@ -301,3 +301,25 @@ def test_attention_dropout_statistics():
     assert not torch.equal(f, dropout_factor(123 + (1 << 32), shape, p,
                                              "cpu"))
     assert bool((dropout_factor(7, shape, 0.0, "cpu") == 1.0).all())
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,e", [(512, 8, 31, 31, 64, 64),
+                                            (3, 2, 11, 20, 16, 3),
+                                            (2, 4, 9, 128, 128, 128)])
+def test_fused_forward_workspaces_hold_every_row(b, h, tq, tk, dh, e):
+    """The bf16 forward's scratch: probs one row a (b, h), a multiple of 4
+    fp32 long (its 16-byte loads) with room for its (Tq, Tk) and less than
+    4 to spare; x one bf16 row of dh lanes a (b, h, i), rows of whole 4-byte
+    pairs; Wd's tiles (dh, E*dh) bf16 in rows of whole 16-byte units (the
+    tensor map's stride); the interval lane and w (2, E*dh) fp32."""
+    ws = fused_fwd_workspaces(b, h, tq, tk, dh, e, "cpu")
+    probs = ws["probs"]
+    assert probs.dtype == torch.float32 and probs.is_contiguous()
+    assert probs.shape[0] == b * h and probs.shape[1] % 4 == 0
+    assert tq * tk <= probs.shape[1] < tq * tk + 4
+    assert ws["x"].dtype == torch.bfloat16 and ws["x"].is_contiguous()
+    assert tuple(ws["x"].shape) == (b * h * tq, dh) and dh % 2 == 0
+    assert ws["wd"].dtype == torch.bfloat16
+    assert tuple(ws["wd"].shape) == (dh, e * dh) and e * dh * 2 % 16 == 0
+    assert ws["side"].dtype == torch.float32
+    assert tuple(ws["side"].shape) == (2, e * dh)

@@ -276,11 +276,12 @@ def test_live_tile_rule_matches_a_direct_count(causal, tq, tk):
 
 
 @pytest.mark.parametrize("causal,diag", [(False, True), (True, False)])
-@pytest.mark.parametrize("piece", ["out", "glam"])
+@pytest.mark.parametrize("piece", ["out", "glam", "stats"])
 def test_live_tile_rule_is_exact_on_the_plain_versions(piece, causal, diag):
     """Each query tile's rows of ``output_reference`` / ``glam_reference``
-    are unchanged (1e-6) when the K, V and one-hot rows of every key tile it
-    skips are random values: what the kernels leave out adds exactly 0."""
+    / ``stats_reference`` (m, l and seq_units) are unchanged (1e-6) when
+    the K, V (T) and one-hot rows of every key tile it skips are random
+    values: what the kernels leave out adds exactly 0."""
     rng = np.random.default_rng(11)
     km = _tile_masks()
     b, t, h, dh, e = 4, 200, 2, 8, 4
@@ -296,6 +297,9 @@ def test_live_tile_rule_is_exact_on_the_plain_versions(piece, causal, diag):
     def run(k, v, oh):
         if piece == "out":
             return output_reference(q, k, v, km, oh, lam, m, l, **kw)
+        if piece == "stats":   # v stands for t
+            return stats_reference(q, k, v, km, causal=causal, num_heads=h,
+                                   block_k=64)
         return glam_reference(q, k, v, km, oh, m, l, g_out, **kw)
 
     want = run(k, v, oh)
@@ -312,6 +316,9 @@ def test_live_tile_rule_is_exact_on_the_plain_versions(piece, causal, diag):
         rows = slice(64 * qt, 64 * qt + 64)
         if piece == "out":
             err = (got[:, rows] - want[:, rows]).abs().max()
+        elif piece == "stats":
+            err = max(float((a[:, :, rows] - b[:, :, rows]).abs().max())
+                      for a, b in zip(got, want))
         else:
             err = (got[:, :, rows] - want[:, :, rows]).abs().max()
         assert float(err) <= 1e-6, (qt, float(err))
