@@ -401,6 +401,14 @@ def mau_work(*, b, tq, tk, h, dh, e, dtype, keys):
     return nbytes, flops
 
 
+def measured(row: dict) -> dict:
+    """The entries of a timing row that the kernels line may carry: times
+    this run measured and the bound. Floors, L2 bytes and tile shares are
+    reckoned, not measured, and stay on their phase's log line."""
+    return {k: v for k, v in row.items()
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "gemm_ms")}
+
+
 def time_ms(fn, warmup=3, iters=20):
     for _ in range(warmup):
         fn()
@@ -417,7 +425,8 @@ def time_ms(fn, warmup=3, iters=20):
 
 def wd_l2_bytes(*, b, tq, h, dh, e, dtype, **_) -> int:
     """Bytes of Wd (and, in bf16, the interval lane, bd and w beside each
-    tile) that the forward reads from L2 in one launch, from its schedule:
+    tile) that the forward reads from L2 in one launch, reckoned from its
+    grid and schedule, not read from a counter:
     bf16, for each of the intensity head's row blocks (64 rows a consumer
     warpgroup, ``int_groups``: three at dh <= 64, two at 128) the bf16 (dh,
     E*dh) tiles once and 3 x E*dh fp32 side lanes; fp32, each of the B*H
@@ -459,12 +468,11 @@ def phase_kernel_timing():
             f" special-function op a sigmoid, {two:.4f} ms at two (ex2 and a"
             f" reciprocal: the exact form the kernel runs"
             f"{', rounded to bf16' if dtype == torch.bfloat16 else ''});"
-            f" Wd read from L2: {l2 / 1e9:.3f} GB a launch")
+            f" Wd bytes from L2 reckoned from the grid (no counter read):"
+            f" {l2 / 1e9:.3f} GB a launch")
         rows[dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, special_floor_ms=two,
-                           special_floor_one_op_ms=one,
-                           sigmoid_form="exact (ex2 and a reciprocal)",
-                           wd_l2_bytes=l2)
+                           bound_by=bound_by,
+                           sigmoid_form="exact (ex2 and a reciprocal)")
         if dtype == torch.bfloat16:
             split = kernel_split(kern)
             log("    by kernel: " + ", ".join(f"{n} {t:.4f} ms"
@@ -2551,9 +2559,8 @@ def main() -> int:
         max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=None,
-        **{key: main_row[key] for key in (
-            "special_floor_ms", "special_floor_one_op_ms", "sigmoid_form",
-            "wd_l2_bytes", "by_kernel")})]
+        sigmoid_form=main_row["sigmoid_form"],
+        by_kernel=main_row["by_kernel"])]
     # rows 4-6 (the catalog backward's three TPU kernels) are one wrapper
     for name, source, replaces, err in (
             ("mau_attention_bwd", "mau_attention_bwd.cu",
@@ -2576,16 +2583,14 @@ def main() -> int:
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=None,
-                     **{key: row[key] for key in ("by_kernel",
-                                                  "special_floor_ms")
-                        if key in row})
+                     **{key: row[key] for key in ("by_kernel",) if key in row})
         if name == "catalog_nll_bwd":
             entry["sasrec_lc_shape"] = {
-                k: catalog_lc_timing[k] for k in ("all_live",
-                                                  "sasrec_lc_padded")}
+                k: measured(catalog_lc_timing[k]) for k in (
+                    "all_live", "sasrec_lc_padded")}
         if name == "catalog_nll_fwd":
             entry["gemm_ms_for_scale"] = row["gemm_ms"]
-            entry["sasrec_lc_shape"] = catalog_lc_timing["forward"]
+            entry["sasrec_lc_shape"] = measured(catalog_lc_timing["forward"])
         kernels.append(entry)
     for fn in STREAMED_KERNELS:
         name = fn.__name__
@@ -2604,11 +2609,7 @@ def main() -> int:
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            **{key: row[key] for key in (
-                "bound_fp32_ms", "bound_split_bf16_ms", "special_floor_ms",
-                "special_floor_one_op_ms",
-                "ms_dropout_0_1", "live_key_tile_share", "visited_tile_share")
-               if key in row})
+            **{key: row[key] for key in ("ms_dropout_0_1",) if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
         kernels.append(entry)

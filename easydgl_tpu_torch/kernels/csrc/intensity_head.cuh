@@ -45,7 +45,7 @@
 // 4,096, 0.068 ms at 989 TFLOP/s; three passes in the split form).
 #pragma once
 
-#include "mau_streamed.cuh"
+#include "launch.cuh"
 
 namespace {
 

@@ -70,7 +70,9 @@ namespace {
 
 using namespace port;
 
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr float kNeg = -4294967295.0f;  // -(2^32) + 1, the reference mask
 
 
 struct Params {

@@ -1,14 +1,13 @@
 // What the streamed MAU/BiMAU kernels share, forward (mau_streamed_fwd.cu)
 // and backward (mau_streamed_bwd.cu): the tile sizes, the key flags and
 // masked logits of the blocked plain version, the causal tile rule, the
-// live-tile rule, cp.async, the producer and entries of the query-major
-// wgmma kernels, and the launcher.
+// live-tile rule, cp.async, and the producer and entries of the query-major
+// wgmma kernels (the launcher and the setmaxnreg split: launch.cuh).
 #pragma once
 
 #include <type_traits>
 
-#include "common.cuh"
-#include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -20,7 +19,6 @@ constexpr int BK = 64;                  // keys a tile
 constexpr int LD = 68;                  // row stride of the 64-wide tiles
 constexpr float kNeg = -4294967295.0f;  // -(2^32) + 1, the reference mask
 constexpr float kPadNeg = -1.0e38f;     // the running max before any key
-constexpr size_t kMaxSmem = 232448;     // 227 KB, opt-in per block
 
 struct Seq {
   const void* p;
@@ -86,8 +84,6 @@ __device__ __forceinline__ float logit(float dot, float km, int i, int j, float 
 
 constexpr int kThreadsMma = 128;
 constexpr int KH = 32;  // keys a half tile
-
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -208,10 +204,6 @@ __device__ __forceinline__ TileRule tile_rule(const int* plan, int Tk) {
 
 constexpr int kQmTile = 64 * 64;   // bf16 values of a (64 x 64) tile, 8 KB
 constexpr int kQmStages = 2;       // ring stages where they fit (four measured no faster)
-constexpr int kQmProducerRegs = 24;
-// Registers a consumer thread after setmaxnreg: 24 + 3 x 160 or 24 + 2 x
-// 240 of a warpgroup thread fit the 65,536 of an SM.
-__host__ __device__ constexpr int qm_consumer_regs(int groups) { return groups == 3 ? 160 : 240; }
 
 // The maps the producer copies from, each (64 columns x 64 rows) boxes of a
 // (B, H, T, cols) operand: per warpgroup nres[m] column tiles of res[m] once
@@ -351,11 +343,6 @@ __device__ __forceinline__ void a_frags(uint32_t (&f)[16], const float (&d)[32])
     for (int e = 0; e < 4; ++e) f[4 * kk + e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
 }
 
-__device__ __forceinline__ void zero32(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
-
 // Rows of a warpgroup accumulator (the thread's rows r0 + g (+8), columns
 // 8 n + 2 t4 (+1) at d[4 n + 2 hr + c]) into bf16 rows r < nrows of dst.
 __device__ __forceinline__ void store_acc_bf16(bf16* dst, long long rs, const float (&d)[32],
@@ -396,19 +383,6 @@ inline bool heads_map(CUtensorMap* map, const void* ptr, long long cols, int T, 
 // The bf16 one-hot (B, Tk, EP)'s map, one head.
 inline bool onehot_map(CUtensorMap* map, const void* ptr, long long ep, int Tk, int B) {
   return bf16_rows_map(map, ptr, ep, Tk, 1, B, ep, Tk * ep, Tk * ep);
-}
-
-template <typename K, typename... Args>
-cudaError_t go(K kernel, dim3 blocks, int threads, size_t bytes, cudaStream_t stream,
-               const Args&... args) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<blocks, threads, bytes, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -117,6 +117,7 @@
 #include <type_traits>
 
 #include "intensity_head.cuh"
+#include "mau_streamed.cuh"
 
 namespace {
 
