@@ -43,12 +43,24 @@ after:
   forward kernel;
 * training on SASREC-LC: 10 faithful train steps (dropout 0.1 / 0.1, the
   softmax-eps loss over every position, TF-Adam) through the two flash
-  kernels and the catalog kernels, then 5 on one repeated batch.
+  kernels and the catalog kernels, then 5 on one repeated batch;
+* serving on BERT4REC-LC (``PRESETS["BERT4REC-LC"]``, L+1 = 2048, B = 32,
+  2 blocks, bf16, the masked protocol): eval batches and ``recommend``
+  requests through the flash forward kernel, not causal;
+* training on BERT4REC-LC: 10 faithful train steps (dropout 0.1 / 0.1,
+  the sparse_ce loss over the 256 masked positions, L2, TF-Adam) through
+  the two flash kernels and the catalog kernels at V = 17,773, then 5 on
+  one repeated batch;
+* serving and training on BERT4REC (``PRESETS["BERT4REC"]``, B = 512,
+  L+1 = 31, 3 blocks, bf16, the xla attention core): eval batches and
+  ``recommend`` requests (no kernel), 20 faithful train steps through the
+  catalog kernels, then 10 on one repeated batch.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
-gradient, the updated parameters), and for EasyDGL-LC and SASREC-LC the
-logits of two rows and one train step on two rows.
+gradient, the updated parameters), for EasyDGL-LC, SASREC-LC and
+BERT4REC-LC the logits of two rows and one train step on two rows, and
+for BERT4REC one train step on eight rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -138,9 +150,13 @@ FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 DH128 = dict(b=32, tq=31, tk=31, h=4, dh=128, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
 SASREC_LC_CATALOG = dict(n=65536, v=17771, c=512)   # B*L rows
+# B*masklen rows against num_items + 2 ids (the MASK id and one more)
+BERT4REC_LC_CATALOG = dict(n=8192, v=17773, c=512)
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
 LC_TRAIN_STEPS, LC_REPEAT_STEPS = 10, 5
-SASREC_TRAIN_STEPS, SASREC_REPEAT_STEPS = 10, 5
+# SASREC-LC and BERT4REC-LC
+FLASH_TRAIN_STEPS, FLASH_REPEAT_STEPS = 10, 5
+BERT4REC_TRAIN_STEPS, BERT4REC_REPEAT_STEPS = 20, 10
 LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)   # EasyDGL-LC eval shape
 STREAMED = (mau_stats, mau_intensity, mau_modulated_out)
 STREAMED_BWD = (mau_glam, mau_intensity_bwd, mau_dq, mau_dkvt)
@@ -608,20 +624,34 @@ def phase_bwd_checks():
     return errs
 
 
-def sasrec_lc_padded_rows(n=SASREC_LC_CATALOG["n"]) -> torch.Tensor:
-    """(B * L,) bool: the padded positions of one SASREC-LC train batch
-    (label 0 in the flattened labels the train step scores), left-padded
-    histories of the lengths synthetic data draws."""
-    cfg = preset("SASREC-LC")
-    check(n == cfg.batch_size * cfg.seqslen,
-          f"{n} rows: not a SASREC-LC batch")
+def label_zero_rows(name, n, seed) -> torch.Tensor:
+    """(n,) bool: the rows of one train batch of preset ``name`` whose label
+    is id 0 (the flattened labels the train step scores), from left-padded
+    histories of the lengths synthetic data draws: SASREC-LC's padded
+    positions (n = B * L), BERT4REC-LC's masked positions that fall on
+    padding (n = B * masklen)."""
+    cfg = preset(name)
     split = synthetic_split_vectorized(num_rows=cfg.batch_size,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=16)
+                                       seqslen=cfg.seqslen, seed=seed)
     loader = BatchLoader(split, data_mode=model_class(cfg).data_mode,
-                         batch_size=cfg.batch_size, is_training=True)
+                         batch_size=cfg.batch_size, masklen=cfg.masklen,
+                         is_training=True)
     _, labels, _ = next(iter(loader.epoch(0)))
+    check(labels.size == n, f"{n} rows: not a {name} batch")
     return torch.as_tensor(labels.reshape(-1) == 0, device="cuda")
+
+
+def sasrec_lc_padded_rows(n=SASREC_LC_CATALOG["n"]) -> torch.Tensor:
+    """(B * L,) bool: the padded positions of one SASREC-LC train batch."""
+    return label_zero_rows("SASREC-LC", n, 16)
+
+
+def bert4rec_lc_masked_rows(n=BERT4REC_LC_CATALOG["n"]) -> torch.Tensor:
+    """(B * masklen,) bool: the masked positions of one BERT4REC-LC train
+    batch that fall on padding (the masked protocol's ignore_head = 0 lets
+    a position fall anywhere)."""
+    return label_zero_rows("BERT4REC-LC", n, 19)
 
 
 def alternating_rows(n) -> torch.Tensor:
@@ -637,6 +667,7 @@ def alternating_rows(n) -> torch.Tensor:
 
 # rows whose gradient the case makes exactly zero (label 0, dlse = dll = 0)
 CATALOG_DEAD = {"sasrec_lc_bf16_padded": sasrec_lc_padded_rows,
+                "bert4rec_lc_bf16_masked": bert4rec_lc_masked_rows,
                 "alternating_bf16": alternating_rows,
                 "alternating_bf16_c64": alternating_rows,
                 "alternating_fp32": alternating_rows}
@@ -678,6 +709,11 @@ CATALOG_CASES = (
     ("sasrec_lc_bf16", SASREC_LC_CATALOG, torch.bfloat16, True, 76),
     # the same with a SASREC-LC batch's padded rows (CATALOG_DEAD)
     ("sasrec_lc_bf16_padded", SASREC_LC_CATALOG, torch.bfloat16, True, 77),
+    # BERT4REC-LC's training rows: B*masklen = 8,192 against its 17,773
+    # ids (a vocab tail of 109 in a 128-id chunk), the rows whose masked
+    # position fell on padding dead (CATALOG_DEAD)
+    ("bert4rec_lc_bf16_masked", BERT4REC_LC_CATALOG, torch.bfloat16, True,
+     81),
     # dead and live rows mixed within and across 64-row tiles, on the
     # wgmma kernel (bf16, C = 512) and the CUDA cores (bf16 at C = 64, fp32)
     ("alternating_bf16", dict(n=333, v=1001, c=512), torch.bfloat16, True,
@@ -1139,12 +1175,17 @@ FLASH_CASES = (
     ("t333_midtile_causal_bf16_drop", 2, 4, 333, 333, 64, torch.bfloat16,
      True, 0.1),
     ("t333_midtile_full_fp32", 2, 4, 333, 333, 64, torch.float32, False,
-     0.0))
+     0.0),
+    # BERT4REC-LC's attention: non-causal, bf16, dropout 0.1; a row of
+    # padding beside one whose padding ends mid-tile (700 keys)
+    ("bert4rec_lc_full_bf16_drop", 2, 8, 2048, 2048, 64, torch.bfloat16,
+     False, 0.1))
 # left padding a batch row for the cases that set it (Tk or more: a row of
 # padding), in place of random lengths
 FLASH_PAD = {"t1000_dead_rows_causal_bf16_drop": (1000, 300, 1000, 0),
              "t333_midtile_causal_bf16_drop": (0, 100),
-             "t333_midtile_full_fp32": (0, 100)}
+             "t333_midtile_full_fp32": (0, 100),
+             "bert4rec_lc_full_bf16_drop": (2048, 700)}
 # the forward also takes dh = 128 (the backward kernels do not)
 FLASH_FWD_ONLY_CASES = (
     ("t300_causal_bf16_dh128", 2, 2, 300, 300, 128, torch.bfloat16, True,
@@ -1347,12 +1388,13 @@ def visited_tile_share(km, t, causal=True) -> float:
                                         else n * n))
 
 
-def sdpa_times(q, k, v, dout, mask):
+def sdpa_times(q, k, v, dout, mask, dropout_p=0.0):
     """(forward ms, backward ms) of F.scaled_dot_product_attention on the
     same inputs; the backward as forward + backward minus the forward,
     both with inputs that need a gradient."""
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
     kw = dict(attn_mask=mask) if mask is not None else dict(is_causal=True)
+    kw["dropout_p"] = dropout_p
 
     def fwd():
         return F.scaled_dot_product_attention(qg, kg, vg, **kw)
@@ -1426,6 +1468,76 @@ def phase_flash_timing():
             f" function on padded rows): forward {causal_f:.4f} ms, backward"
             f" {causal_b:.4f} ms")
         del q, k, v, dout, bwd, runs, out, lse
+    return rows
+
+
+def bert4rec_lc_train_key_mask() -> torch.Tensor:
+    """(B, L+1) key mask (ids != 0) of one BERT4REC-LC train batch: the
+    masked protocol puts the MASK id, a real key, at positions that fall on
+    padding too, so every 64-key tile holds live keys."""
+    cfg = preset("BERT4REC-LC")
+    split = synthetic_split_vectorized(num_rows=cfg.batch_size,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=19)
+    features, _, _ = next(iter(BatchLoader(
+        split, data_mode="masked", batch_size=cfg.batch_size,
+        masklen=cfg.masklen, is_training=True).epoch(0)))
+    return torch.as_tensor(features["seqs_i"] != 0, device="cuda").float()
+
+
+def phase_flash_noncausal_timing():
+    log("phase 4e, non-causal: flash kernels at the BERT4REC-LC shape (B=32,"
+        " H=8, T=2048, dh=64, bf16, not causal) on the causal bf16 timing's"
+        " left-padded key mask, and on a BERT4REC-LC train batch's key mask")
+    sh, dtype = SASREC_LC_ATTN, torch.bfloat16
+    t = sh["t"]
+    q, k, v, km, dout = flash_inputs(sh["b"], sh["h"], t, t, sh["dh"], dtype,
+                                     950)
+    sd = torch.tensor(9501, dtype=torch.int64, device="cuda")
+    kw0 = dict(causal=False)
+    kwd = dict(causal=False, dropout_rate=0.1, seed=sd)
+    rows = {}
+    for mask_name, km in (("left_padded", km),
+                          ("train_batch_mask", bert4rec_lc_train_key_mask())):
+        out, lse = flash_attention_fwd(q, k, v, km, **kw0)
+        bwd = (q, k, v, km, dout, lse, flash_delta(dout, out))
+        runs = {
+            "flash_attention_fwd": (
+                lambda kw: flash_attention_fwd(q, k, v, km, **kw),
+                lambda: flash_fwd_reference(q, k, v, km, **kw0)),
+            "flash_attention_bwd": (
+                lambda kw: flash_attention_bwd(*bwd, **kw),
+                lambda: flash_bwd_reference(*bwd, **kw0))}
+        mask = (km > 0)[:, None, None, :]
+        sdpa_f, sdpa_b = sdpa_times(q, k, v, dout, mask)
+        sdpa_fd, sdpa_bd = sdpa_times(q, k, v, dout, mask, dropout_p=0.1)
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(lambda: kern(kw0), warmup=2, iters=10)
+            ms_drop = time_ms(lambda: kern(kwd), warmup=1, iters=10)
+            plain_ms = time_ms(plain, warmup=1, iters=2)
+            nbytes, flops = flash_work(name, km, h=sh["h"], t=t, dh=sh["dh"],
+                                       dtype=dtype, causal=False)
+            bound_ms, bound_by = bound(nbytes, flops, dtype)
+            fwd = name == "flash_attention_fwd"
+            lib_ms, lib_drop = (sdpa_f, sdpa_fd) if fwd else (sdpa_b, sdpa_bd)
+            log(f"  {mask_name:16s} {name:19s} kernel {ms:.4f} ms (dropout"
+                f" 0.1: {ms_drop:.4f})  plain {plain_ms:.4f} ms  SDPA"
+                f" {lib_ms:.4f} ms (dropout 0.1: {lib_drop:.4f})  bound"
+                f" {bound_ms:.4f} ms ({bound_by}:"
+                f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)"
+                f"  kernel/bound {ms / bound_ms:.1f}x")
+            rows.setdefault(name, {})[mask_name] = dict(
+                ms=ms, ms_dropout_0_1=ms_drop, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library_ms_dropout_0_1=lib_drop)
+        pairs = visible_pairs(km, t, causal=False)
+        share = visited_tile_share(km, t, causal=False)
+        log(f"  {mask_name}: visible (query, key) pairs {pairs:.0f} of"
+            f" {sh['b'] * t * t} ({pairs / (sh['b'] * t * t):.4f}); key tiles"
+            f" the kernels visit: {share:.4f} of the tile pairs; SDPA with"
+            f" the key mask (B, 1, 1, T): forward {sdpa_f:.4f} ms, backward"
+            f" (dq, dk, dv together) {sdpa_b:.4f} ms")
+        del out, lse, bwd, runs, mask
     return rows
 
 
@@ -1800,7 +1912,8 @@ def phase_catalog_lc_timing():
     log("phase 4f: catalog_nll forward and backward at the SASREC-LC train"
         " shape (N=B*L=65,536, V=17,771, C=512, bf16): the forward on every"
         " row; the backward with every row live, and with the padded rows of"
-        " a SASREC-LC batch (dlse = dll = 0) skipped")
+        " a SASREC-LC batch (dlse = dll = 0) skipped; then both at the"
+        " BERT4REC-LC train shape (N=8,192, V=17,773)")
     rows = {}
     h, tb, b, lab, _, _ = catalog_inputs(**SASREC_LC_CATALOG,
                                          dtype=torch.bfloat16, seed=310)
@@ -1846,6 +1959,39 @@ def phase_catalog_lc_timing():
                            bound_by=bound_by, live_share=live_rows / n,
                            live_tile_share=tile_rows / n)
         del h, tb, b, lab, dlse, dll, lse
+    rows.update(catalog_bert4rec_lc_timing())
+    return rows
+
+
+def catalog_bert4rec_lc_timing():
+    """The catalog forward and backward at the BERT4REC-LC train shape
+    (N = B * masklen = 8,192, V = 17,773, C = 512, bf16), the backward with
+    the rows whose masked position fell on padding dead."""
+    sh, bf16 = BERT4REC_LC_CATALOG, torch.bfloat16
+    h, tb, b, lab, dlse, dll = catalog_inputs(
+        **sh, dtype=bf16, seed=311, dead=bert4rec_lc_masked_rows())
+    live_rows = int(((dlse != 0) | (dll != 0)).sum())
+    lse, _ = catalog_nll_fwd(h, tb, b, lab)
+    rows = {}
+    for label, kern, plain, work in (
+            ("bert4rec_lc_forward", lambda: catalog_nll_fwd(h, tb, b, lab),
+             lambda: catalog_nll_reference(h, tb, b, lab),
+             dict(backward=False)),
+            ("bert4rec_lc_masked",
+             lambda: catalog_nll_bwd(h, tb, b, lab, lse, dlse, dll),
+             lambda: catalog_nll_bwd_reference(h, tb, b, lab, lse, dlse,
+                                               dll),
+             dict(backward=True, live=live_rows))):
+        ms = time_ms(kern, warmup=2, iters=10)
+        plain_ms = time_ms(plain, warmup=1, iters=2)
+        nbytes, flops = catalog_work(**sh, dtype=bf16, **work)
+        bound_ms, bound_by = bound(nbytes, flops, bf16)
+        log(f"  BERT4REC-LC {label:20s} kernel {ms:.4f} ms  plain"
+            f" {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}:"
+            f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; {live_rows}"
+            f" live rows of {sh['n']})  kernel/bound {ms / bound_ms:.1f}x")
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
     return rows
 
 
@@ -2176,21 +2322,26 @@ def phase_lc_train():
     return launches, ms_step, ex_s
 
 
-def phase_sasrec_slice():
-    log("phase 5c: SASREC-LC eval + serving at full width on the card "
-        "(B=32, L=2048, C=512, H=8, 2 blocks, bf16, flash kernels)")
-    cfg = preset("SASREC-LC")
+def phase_model_slice(name, seed, **overrides):
+    """Eval batches and ``recommend`` requests of preset ``name`` (with
+    ``overrides``) at full width (random weights from seed 0) over
+    synthetic data from
+    ``seed`` and ``seed + 1``; the flash forward kernel launched once a
+    block a forward where the preset's attention is ``"flash"``, no other
+    kernel. Returns (launches, the first eval batch, seqs/s, latencies)."""
+    cfg = preset(name, **overrides)
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=14)
+                                       seqslen=cfg.seqslen, seed=seed)
     batches = list(BatchLoader(split, data_mode=model.data_mode,
-                               batch_size=bs, is_training=False).epoch(0))
+                               batch_size=bs, masklen=cfg.masklen,
+                               is_training=False).epoch(0))
     requests = synthetic_split_vectorized(num_rows=3 * bs,
                                           num_items=cfg.num_items,
-                                          seqslen=cfg.seqslen, seed=15)
+                                          seqslen=cfg.seqslen, seed=seed + 1)
     req_batches = [{k: v[i * bs:(i + 1) * bs]
                     for k, v in requests.arrays.items()} for i in range(3)]
     step = build_eval_step(model)
@@ -2216,9 +2367,10 @@ def phase_sasrec_slice():
         answers.append((arrays, ids, scores))
     launches = {fn.__name__: fn.launches for fn in counters}
     forwards = (len(batches) + len(req_batches)) * cfg.num_blocks
-    for name, n in launches.items():
-        want = forwards if name == "flash_attention_fwd" else 0
-        check(n == want, f"SASREC-LC serving: {name} launched {n} times,"
+    for kernel, n in launches.items():
+        want = (forwards if kernel == "flash_attention_fwd"
+                and cfg.attention_impl == "flash" else 0)
+        check(n == want, f"{name} serving: {kernel} launched {n} times,"
               f" expected {want} ({forwards} attention forwards)")
     metrics = acc.result()
     log(f"  eval over {int(acc.count)} rows: " + json.dumps(metrics))
@@ -2226,31 +2378,31 @@ def phase_sasrec_slice():
         check(math.isfinite(val) and 0.0 <= val <= 1.0, f"metric {key}={val}")
     for arrays, ids, scores in answers:
         check(ids.shape == (bs, 50) and scores.shape == (bs, 50),
-              "SASREC-LC recommend shapes")
+              f"{name} recommend shapes")
         check(bool(np.isfinite(scores).all()),
-              "SASREC-LC recommend: not finite")
+              f"{name} recommend: not finite")
         check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
-              "SASREC-LC recommend: scores not sorted descending")
-        check(bool((ids != 0).all()), "SASREC-LC recommend: padding id 0")
+              f"{name} recommend: scores not sorted descending")
+        check(bool((ids != 0).all()), f"{name} recommend: padding id 0")
         seen = rec.protocol(arrays, False, None)[0]["seqs_i"]
         check(not any(set(ids[r].tolist()) & set(seen[r].tolist())
                       for r in range(bs)),
-              "SASREC-LC recommend: a seen id returned")
+              f"{name} recommend: a seen id returned")
     seqs_per_s = len(batches) * bs / eval_s
     log(f"  eval: {len(batches)} batches x {bs} rows in {eval_s:.4f} s ="
         f" {seqs_per_s:.1f} seqs/s (synchronised)")
     log(f"  recommend k=50, B={bs}: latency per batch "
         + ", ".join(f"{x * 1e3:.3f} ms" for x in latencies))
-    log(f"  launches on the SASREC-LC served path ({len(batches)} eval +"
+    log(f"  launches on the {name} served path ({len(batches)} eval +"
         f" {len(req_batches)} recommend forwards, {cfg.num_blocks} blocks): "
         + json.dumps(launches))
     return launches, batches[0], seqs_per_s, latencies
 
 
-def phase_sasrec_cpu_vs_card(batch):
-    log("phase 6c: full-width fp32 SASREC-LC, card (flash kernels) vs CPU "
-        "(plain flash version), 2 rows")
-    cfg = preset("SASREC-LC", compute_dtype="float32")
+def phase_model_cpu_vs_card(name, batch):
+    """fp32 logits of preset ``name`` on two rows of ``batch``, the card
+    (kernels) against the CPU (plain versions)."""
+    cfg = preset(name, compute_dtype="float32")
     params = random_flax_params(cfg, seed=0)
     features = {k: v[:2] for k, v in batch[0].items()}
     logits = {}
@@ -2266,23 +2418,26 @@ def phase_sasrec_cpu_vs_card(batch):
     log(f"  logits (2, {logits['cpu'].shape[1]}):"
         f" max_abs={float(err.max()):.3e}"
         f" tol(atol={atol:g}, rtol={rtol:g}) worst/tol={ratio:.3f}")
-    check(ratio <= 1.0, "SASREC-LC card vs CPU logits outside tolerance")
+    check(ratio <= 1.0, f"{name} card vs CPU logits outside tolerance")
 
 
-def phase_sasrec_train():
-    log("phase 7c: SASREC-LC faithful train steps at full width on the card "
-        "(B=32, L=2048, C=512, H=8, 2 blocks, bf16, dropout 0.1 / 0.1, "
-        "softmax-eps over every position, TF-Adam, flash and catalog "
-        "kernels)")
-    cfg = preset("SASREC-LC")
+def phase_model_train(name, seed, steps, repeat, **overrides):
+    """``steps`` faithful train steps of preset ``name`` (with
+    ``overrides``) at full width (the preset's dropout, loss and TF-Adam)
+    after 2 warm-up steps,
+    then ``repeat`` on one repeated batch, whose loss must fall; the flash
+    kernels launched once a block a step where the preset's attention is
+    ``"flash"``, the catalog kernels once a step, no other kernel. Returns
+    (launches, ms/step, ex/s)."""
+    cfg = preset(name, **overrides)
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=16)
+                                       seqslen=cfg.seqslen, seed=seed)
     loader = BatchLoader(split, data_mode=model.data_mode, batch_size=bs,
-                         is_training=True)
+                         masklen=cfg.masklen, is_training=True)
     batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
                for f, lab, _ in loader.epoch(0)]
     step = build_train_step(model)
@@ -2298,7 +2453,7 @@ def phase_sasrec_train():
         fn.launches = 0
     losses = []
     t0 = time.perf_counter()
-    for i in range(SASREC_TRAIN_STEPS):
+    for i in range(steps):
         features, labels = batches[i % len(batches)]
         state, loss = step(state, features, labels, gen)
         losses.append(loss)
@@ -2306,33 +2461,33 @@ def phase_sasrec_train():
     elapsed = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     repeated = []
-    for _ in range(SASREC_REPEAT_STEPS):
+    for _ in range(repeat):
         state, loss = step(state, *batches[0], gen)
         repeated.append(loss)
     losses = [float(x) for x in losses]
     repeated = [float(x) for x in repeated]
     check(all(math.isfinite(x) for x in losses + repeated),
-          "SASREC-LC train: a loss is not finite")
+          f"{name} train: a loss is not finite")
     check(repeated[-1] < repeated[0],
-          f"SASREC-LC train: loss on a repeated batch did not fall "
+          f"{name} train: loss on a repeated batch did not fall "
           f"({repeated})")
     per_step = {fn.__name__: 0 for fn in counters}
-    per_step.update({fn.__name__: cfg.num_blocks for fn in FLASH_KERNELS})
+    if cfg.attention_impl == "flash":
+        per_step.update({fn.__name__: cfg.num_blocks for fn in FLASH_KERNELS})
     per_step.update(catalog_nll_fwd=1, catalog_nll_bwd=1)
-    for name, n in per_step.items():
-        check(launches[name] == n * SASREC_TRAIN_STEPS,
-              f"SASREC-LC train: {name} launched {launches[name]} times in"
-              f" {SASREC_TRAIN_STEPS} steps, expected {n} per step")
-    ms_step = elapsed / SASREC_TRAIN_STEPS * 1e3
-    ex_s = SASREC_TRAIN_STEPS * bs / elapsed
+    for kernel, n in per_step.items():
+        check(launches[kernel] == n * steps,
+              f"{name} train: {kernel} launched {launches[kernel]} times in"
+              f" {steps} steps, expected {n} per step")
+    ms_step = elapsed / steps * 1e3
+    ex_s = steps * bs / elapsed
     log(f"  losses: first {losses[0]:.5f}, last {losses[-1]:.5f}; "
         f"repeated batch {repeated[0]:.5f} -> {repeated[-1]:.5f}")
-    log(f"  SASREC-LC train: {SASREC_TRAIN_STEPS} steps x {bs} rows in"
+    log(f"  {name} train: {steps} steps x {bs} rows in"
         f" {elapsed:.4f} s = {ms_step:.4f} ms/step, {ex_s:.1f} train ex/s"
         f" (host clock, synchronised, batches on the device, after 2"
         f" warm-up steps)")
-    log(f"  launches in the {SASREC_TRAIN_STEPS} steps: "
-        + json.dumps(launches))
+    log(f"  launches in the {steps} steps: " + json.dumps(launches))
     return launches, ms_step, ex_s
 
 
@@ -2522,6 +2677,7 @@ def main() -> int:
     streamed_timing = phase_streamed_timing()
     streamed_timing.update(phase_streamed_bwd_timing())
     flash_timing = phase_flash_timing()
+    flash_nc_timing = phase_flash_noncausal_timing()
     catalog_lc_timing = phase_catalog_lc_timing()
     serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
@@ -2537,14 +2693,57 @@ def main() -> int:
         "dropout 0")
     phase_train_cpu_vs_card("EasyDGL-LC", rows=2, device_floor=True,
                             compute_dtype="float32")
-    sas_launches, sas_batch, sas_seqs_s, sas_lat = phase_sasrec_slice()
-    phase_sasrec_cpu_vs_card(sas_batch)
-    sas_train_launches, sas_ms_step, sas_ex_s = phase_sasrec_train()
+    log("phase 5c: SASREC-LC eval + serving at full width on the card "
+        "(B=32, L=2048, C=512, H=8, 2 blocks, bf16, flash kernels)")
+    sas_launches, sas_batch, sas_seqs_s, sas_lat = phase_model_slice(
+        "SASREC-LC", 14)
+    log("phase 6c: full-width fp32 SASREC-LC, card (flash kernels) vs CPU "
+        "(plain flash version), 2 rows")
+    phase_model_cpu_vs_card("SASREC-LC", sas_batch)
+    log("phase 7c: SASREC-LC faithful train steps at full width on the card "
+        "(B=32, L=2048, C=512, H=8, 2 blocks, bf16, dropout 0.1 / 0.1, "
+        "softmax-eps over every position, TF-Adam, flash and catalog "
+        "kernels)")
+    sas_train_launches, sas_ms_step, sas_ex_s = phase_model_train(
+        "SASREC-LC", 16, FLASH_TRAIN_STEPS, FLASH_REPEAT_STEPS)
     log("phase 8c: full-width fp32 SASREC-LC train step, card (flash "
         "kernels) vs CPU (plain flash version, _FlashAttention), 2 rows, "
         "dropout 0")
     phase_train_cpu_vs_card("SASREC-LC", rows=2, device_floor=True,
                             compute_dtype="float32")
+    log("phase 5d: BERT4REC-LC eval + serving at full width on the card "
+        "(B=32, L+1=2048, C=512, H=8, 2 blocks, bf16, the masked protocol's"
+        " MASK in the last position, non-causal flash kernels)")
+    b4lc_launches, b4lc_batch, b4lc_seqs_s, b4lc_lat = phase_model_slice(
+        "BERT4REC-LC", 17)
+    log("phase 6d: full-width fp32 BERT4REC-LC, card (flash kernels) vs CPU "
+        "(plain flash version), 2 rows")
+    phase_model_cpu_vs_card("BERT4REC-LC", b4lc_batch)
+    log("phase 7d: BERT4REC-LC faithful train steps at full width on the "
+        "card (B=32, L+1=2048, masklen 256, bf16, dropout 0.1 / 0.1, "
+        "sparse_ce over the masked positions, L2, TF-Adam, non-causal flash "
+        "and catalog kernels at N=8,192, V=17,773)")
+    b4lc_train_launches, b4lc_ms_step, b4lc_ex_s = phase_model_train(
+        "BERT4REC-LC", 19, FLASH_TRAIN_STEPS, FLASH_REPEAT_STEPS)
+    log("phase 8d: full-width fp32 BERT4REC-LC train step, card (flash "
+        "kernels) vs CPU (plain flash version, _FlashAttention), 2 rows, "
+        "dropout 0")
+    phase_train_cpu_vs_card("BERT4REC-LC", rows=2, device_floor=True,
+                            compute_dtype="float32")
+    log("phase 5e: BERT4REC eval + serving at full width on the card "
+        "(PRESETS[\"BERT4REC\"]: B=512, L+1=31, C=512, H=8, 3 blocks, bf16,"
+        " the xla attention core: no kernel on the served path)")
+    _, _, b4_seqs_s, b4_lat = phase_model_slice(
+        "BERT4REC", 20, compute_dtype="bfloat16")
+    log("phase 7e: BERT4REC faithful train steps at full width on the card "
+        "(B=512, masklen 6, bf16, dropout 0.2 / 0.2, sparse_ce, L2, "
+        "TF-Adam, catalog kernels at N=3,072, V=17,773)")
+    b4_train_launches, b4_ms_step, b4_ex_s = phase_model_train(
+        "BERT4REC", 22, BERT4REC_TRAIN_STEPS, BERT4REC_REPEAT_STEPS,
+        compute_dtype="bfloat16")
+    log("phase 8e: full-width fp32 BERT4REC train step, card (catalog "
+        "kernels) vs CPU (plain), 8 rows, dropout 0")
+    phase_train_cpu_vs_card("BERT4REC", rows=8)
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
@@ -2577,6 +2776,8 @@ def main() -> int:
         if name != "mau_attention_bwd":
             per_path["training_lc"] = lc_train_launches[name]
             per_path["training_sasrec_lc"] = sas_train_launches[name]
+            per_path["training_bert4rec"] = b4_train_launches[name]
+            per_path["training_bert4rec_lc"] = b4lc_train_launches[name]
         entry = dict(name=name, route="cuda", source=csrc + source,
                      replaces=replaces, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=err,
@@ -2588,9 +2789,13 @@ def main() -> int:
             entry["sasrec_lc_shape"] = {
                 k: measured(catalog_lc_timing[k]) for k in (
                     "all_live", "sasrec_lc_padded")}
+            entry["bert4rec_lc_shape"] = measured(
+                catalog_lc_timing["bert4rec_lc_masked"])
         if name == "catalog_nll_fwd":
             entry["gemm_ms_for_scale"] = row["gemm_ms"]
             entry["sasrec_lc_shape"] = measured(catalog_lc_timing["forward"])
+            entry["bert4rec_lc_shape"] = measured(
+                catalog_lc_timing["bert4rec_lc_forward"])
         kernels.append(entry)
     for fn in STREAMED_KERNELS:
         name = fn.__name__
@@ -2615,9 +2820,11 @@ def main() -> int:
         kernels.append(entry)
     for name, replaces in FLASH_REPLACES:
         row = flash_timing[(name, bf16)]
-        per_path = {"training_sasrec_lc": sas_train_launches[name]}
+        per_path = {"training_sasrec_lc": sas_train_launches[name],
+                    "training_bert4rec_lc": b4lc_train_launches[name]}
         if name == "flash_attention_fwd":
             per_path["serving_sasrec_lc"] = sas_launches[name]
+            per_path["serving_bert4rec_lc"] = b4lc_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "flash_attention.cu",
             replaces=replaces, launches=sum(per_path.values()),
@@ -2626,6 +2833,7 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             ms_dropout_0_1=row["ms_dropout"],
+            non_causal_bert4rec_lc=flash_nc_timing[name],
             **{key: row[key] for key in ("library_covers",) if key in row}))
     log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
         + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
@@ -2638,6 +2846,16 @@ def main() -> int:
         + f" ms per B=32 batch on {card}")
     log(f"SASREC-LC train: {sas_ms_step:.4f} ms/step, {sas_ex_s:.1f} ex/s at"
         f" B=32, L=2048 on {card}")
+    log(f"BERT4REC-LC serving: {b4lc_seqs_s:.1f} eval seqs/s, recommend "
+        + ", ".join(f"{x * 1e3:.3f}" for x in b4lc_lat)
+        + f" ms per B=32 batch on {card}")
+    log(f"BERT4REC-LC train: {b4lc_ms_step:.4f} ms/step, {b4lc_ex_s:.1f}"
+        f" ex/s at B=32, L+1=2048 on {card}")
+    log(f"BERT4REC serving: {b4_seqs_s:.1f} eval seqs/s, recommend "
+        + ", ".join(f"{x * 1e3:.3f}" for x in b4_lat)
+        + f" ms per B=512 batch on {card}")
+    log(f"BERT4REC train: {b4_ms_step:.4f} ms/step, {b4_ex_s:.1f} ex/s at"
+        f" B=512 on {card}")
     for entry in kernels:
         entry["cuda_kernels"] = CUDA_KERNELS[entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")

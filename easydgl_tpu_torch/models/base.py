@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from easydgl_tpu_torch.config import Config
@@ -96,3 +97,31 @@ class SequentialModel(nn.Module):
     def model_seqslen(self) -> int:
         """Sequence length the model consumes (masked models use L+1)."""
         return self.cfg.seqslen
+
+
+def remat(fn, i: int, x, mask, gen: Optional[torch.Generator]):
+    """``fn(i, x, mask, gen)`` (block i; ``mask``: whatever else the block
+    takes, not differentiated) under ``torch.utils.checkpoint``: its
+    activations are not kept but recomputed in the backward (``nn.remat``
+    in the JAX models). The dropout masks come from ``gen``, which the
+    checkpoint's own RNG handling does not cover: its state at the block's
+    start is kept, and the recompute runs from it and then puts the
+    generator back where it found it."""
+    if gen is None:
+        return torch.utils.checkpoint.checkpoint(fn, i, x, mask, None,
+                                                 use_reentrant=False)
+    start = gen.get_state()
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1:   # the forward
+            return fn(i, x, mask, gen)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return fn(i, x, mask, gen)
+        finally:
+            gen.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)

@@ -1,7 +1,7 @@
 """Model factory (port of ``easydgl_tpu.models.registry``).
 
-EasyDGL and SASREC are ported so far; the other nine models of the JAX zoo
-raise the JAX factory's ``NotImplementedError``.
+EasyDGL, SASREC and BERT4REC are ported so far; the other eight models of
+the JAX zoo raise the JAX factory's ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -10,10 +10,11 @@ from typing import Optional
 from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.device import resolve_device
 from easydgl_tpu_torch.models.base import SequentialModel
+from easydgl_tpu_torch.models.bert4rec import BERT4REC
 from easydgl_tpu_torch.models.easydgl import EasyDGL
 from easydgl_tpu_torch.models.sasrec import SASREC
 
-MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC}
+MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC, "BERT4REC": BERT4REC}
 
 
 def model_class(cfg: Config) -> type:

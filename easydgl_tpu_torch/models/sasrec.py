@@ -16,26 +16,21 @@ in the FFN, attention dropout in the MHA, all drawn from the step's
 ``torch.Generator``. The training forward returns no logits, as EasyDGL's:
 the loss scores ``aux[SCORING]`` through the streamed catalog NLL, so no
 (B*T, V) product is built. ``cfg.remat`` recomputes each block in the
-backward (``nn.remat`` in the JAX model): the block runs under
-``torch.utils.checkpoint`` with the step's generator put back to its state
-at the block's start for the recompute, so the recompute draws the
-forward's dropout masks, and the generator is left where the forward left
-it. ``SASRECBlock`` (the pipeline stage body) comes with pipeline
-parallelism.
+backward (``nn.remat`` in the JAX model; ``models.base.remat``).
+``SASRECBlock`` (the pipeline stage body) comes with pipeline parallelism.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.utils.checkpoint
 
 from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.kernels.flash_attention import \
     flash_attention_reference
 from easydgl_tpu_torch.models.base import (SCORING, OutputBias,
                                            SequentialModel, prediction_rows,
-                                           tied_logits)
+                                           remat, tied_logits)
 from easydgl_tpu_torch.nn import attention
 from easydgl_tpu_torch.nn.attention import MultiHeadAttention
 from easydgl_tpu_torch.nn.coding import Embedding, PositionCoding
@@ -131,28 +126,3 @@ class SASREC(SequentialModel):
         x = blk("ffn")(blk("ln1")(x), gen)
         return x * mask
 
-
-def remat(fn, i: int, x, mask, gen: Optional[torch.Generator]):
-    """``fn(i, x, mask, gen)`` under ``torch.utils.checkpoint``: its
-    activations are not kept but recomputed in the backward. The dropout
-    masks come from ``gen``, which the checkpoint's own RNG handling does
-    not cover: its state at the block's start is kept, and the recompute
-    runs from it and then puts the generator back where it found it."""
-    if gen is None:
-        return torch.utils.checkpoint.checkpoint(fn, i, x, mask, None,
-                                                 use_reentrant=False)
-    start = gen.get_state()
-    calls = [0]
-
-    def run(x):
-        calls[0] += 1
-        if calls[0] == 1:   # the forward
-            return fn(i, x, mask, gen)
-        now = gen.get_state()
-        gen.set_state(start)
-        try:
-            return fn(i, x, mask, gen)
-        finally:
-            gen.set_state(now)
-
-    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)

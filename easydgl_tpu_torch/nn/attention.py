@@ -16,8 +16,14 @@ were concatenated upstream). ``impl`` picks the attention core:
   over all keys, so the module equals ``"xla"`` on every row at dropout 0.
   One dropout seed per call, drawn from the step's generator.
 
-The context-parallel and SPMD branches of the JAX module come with the
-distributed layers; ``BERTAttention`` with BERT4REC.
+``BERTAttention`` (BERT4REC): the same cores without the residual; the
+``"xla"`` core takes the caller's (B, Tq, Tk) attention mask, the
+``"flash"`` core the caller's key mask, never causal. Both modules' flash
+cores share ``flash_context`` (the seed draw and the patch of rows that see
+no key).
+
+The context-parallel and SPMD branches of the JAX modules come with the
+distributed layers.
 """
 from __future__ import annotations
 
@@ -60,6 +66,27 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor, *,
     return torch.softmax(logits, dim=-1)
 
 
+def flash_context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_mask: torch.Tensor, *, causal: bool, rate: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The ``"flash"`` core: (B, H, Tq, D) context of ``flash_attention``,
+    with one dropout seed drawn from ``generator`` when ``rate`` > 0, and
+    every row that sees no key (under ``causal``: no key at or before it;
+    else: a batch entry with no key at all) set to the xla path's uniform
+    value, the mean of V over all keys."""
+    seed = None
+    if rate > 0.0:
+        seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                             device=generator.device)
+    ctx = flash_attention(q, k, v, key_mask, causal=causal,
+                          dropout_rate=rate, seed=seed)
+    if causal:
+        vis = (torch.cumsum(key_mask, dim=1) > 0)[:, None, :, None]
+    else:
+        vis = (key_mask > 0).any(dim=1)[:, None, None, None]
+    return torch.where(vis, ctx, v.mean(dim=2, keepdim=True))
+
+
 class MultiHeadAttention(nn.Module):
     """Vanilla multi-head attention with the residual (reference
     sequential.py:16-83). Parameters ``q``, ``k``, ``v`` (Dense, C
@@ -96,20 +123,8 @@ class MultiHeadAttention(nn.Module):
         rate = self.dropout_rate if generator is not None else 0.0
 
         if self.impl == "flash":
-            seed = None
-            if rate > 0.0:
-                seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
-                                     device=generator.device)
-            ctx = flash_attention(q, k, v, key_mask, causal=causality,
-                                  dropout_rate=rate, seed=seed)
-            # rows that see no key: the xla path's uniform value
-            if causality:
-                vis = torch.cumsum(key_mask, dim=1) > 0
-            else:
-                vis = (key_mask > 0).any(dim=1, keepdim=True).expand_as(
-                    key_mask)
-            mean_v = v.mean(dim=2, keepdim=True)
-            ctx = torch.where(vis[:, None, :, None], ctx, mean_v)
+            ctx = flash_context(q, k, v, key_mask, causal=causality,
+                                rate=rate, generator=generator)
             return merge_heads(ctx) + residual
 
         probs = attention_probs(q, k, key_mask=key_mask, causal=causality,
@@ -117,3 +132,52 @@ class MultiHeadAttention(nn.Module):
         probs = dropout(probs, rate, generator)
         ctx = mm_fp32acc(probs, v, self.compute_dtype)
         return merge_heads(ctx) + residual
+
+
+class BERTAttention(nn.Module):
+    """BERT-style attention, no residual (reference sequential.py:86-137).
+    Parameters ``q``, ``k``, ``v`` (Dense, C outputs; truncated-normal(0.02)
+    kernels in the JAX model's ``init``)."""
+
+    def __init__(self, num_units: int, num_heads: int,
+                 dropout_rate: float = 0.0, *, impl: str = "xla",
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        if impl not in ("xla", "flash"):
+            raise ValueError(f"BERTAttention: unknown impl {impl}")
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.impl = impl
+        self.compute_dtype = compute_dtype
+        kw = dict(compute_dtype=compute_dtype, device=device)
+        self.q = Dense(num_units, num_units, **kw)
+        self.k = Dense(num_units, num_units, **kw)
+        self.v = Dense(num_units, num_units, **kw)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                attention_mask: Optional[torch.Tensor], *,
+                key_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """queries (B, Tq, C), keys (B, Tk, C) -> (B, Tq, C).
+        ``attention_mask`` (B, Tq, Tk) or (B, 1, Tq, Tk), nonzero: attend
+        (the ``"xla"`` core); ``key_mask`` (B, Tk): the ``"flash"`` core's,
+        which without it takes the ``"xla"`` core. ``generator``: the
+        training step's (dropout); None at eval."""
+        h = self.num_heads
+        q = split_heads(self.q(queries), h)
+        k = split_heads(self.k(keys), h)
+        v = split_heads(self.v(keys), h)
+        rate = self.dropout_rate if generator is not None else 0.0
+
+        if self.impl == "flash" and key_mask is not None:
+            return merge_heads(flash_context(
+                q, k, v, key_mask.float(), causal=False, rate=rate,
+                generator=generator))
+
+        logits = mm_fp32acc(q, k.transpose(-1, -2), self.compute_dtype) / (
+            q.shape[-1] ** 0.5)
+        mask = (attention_mask if attention_mask.dim() == 4
+                else attention_mask[:, None])
+        logits = torch.where(mask != 0, logits, NEG_INF_LOGIT)
+        probs = dropout(torch.softmax(logits, dim=-1), rate, generator)
+        return merge_heads(mm_fp32acc(probs, v, self.compute_dtype))

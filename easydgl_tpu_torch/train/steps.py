@@ -1,22 +1,24 @@
 """Step builders (port of ``easydgl_tpu.train.steps``).
 
 ``build_train_step`` is the faithful train step: the training forward with
-dropout, the ``softmax_eps`` loss (``compute_loss``) and one optimizer
-update. ``build_eval_step`` mirrors Sequential.eval (reference
-Base.py:150-207): last-position logits, optional mask_seen, top-100 HR/NDCG
-sums. PyTorch runs eagerly, so each step is a plain callable.
+dropout, the loss (``compute_loss``) and one optimizer update.
+``build_eval_step`` mirrors Sequential.eval (reference Base.py:150-207):
+last-position logits, optional mask_seen, top-100 HR/NDCG sums. PyTorch
+runs eagerly, so each step is a plain callable.
 
-Loss (softmax_eps, the mode of EasyDGL and SASREC; Base.py:119-131): the
-full-catalog ``-log(softmax(logits) + 1e-5)`` at the label, computed exactly
-as ``-log(exp(-ce) + 1e-5)`` from ``ce = lse - logit_label``, over every
-label of the batch (the masked positions of EasyDGL's protocol, every
-position of the regressive one, labels (B, T) flattened); the label-weight
-mask on padding id 0; ``l2_reg * 0.5 * sum(w^2)`` over every
-``lookup_table``; the TPP regularizer (EasyDGL). The catalog scoring goes through
+Loss, per label from ``ce = lse - logit_label`` over the full catalog:
+``softmax_eps`` (EasyDGL and SASREC; Base.py:119-131) takes
+``-log(softmax(logits) + 1e-5)`` at the label, computed exactly as
+``-log(exp(-ce) + 1e-5)``; ``sparse_ce`` (BERT4REC; BERT4REC.py:131-149)
+takes ``ce`` itself. Over every label of the batch (the masked positions of
+the masked protocols, every position of the regressive one, labels (B, T)
+flattened), the label-weight mean with the mask on padding id 0;
+``l2_reg * 0.5 * sum(w^2)`` over every ``lookup_table``; the TPP
+regularizer (EasyDGL). The catalog scoring goes through
 ``kernels.scoring.catalog_nll`` with hidden and table in the compute dtype,
-so no (N, V) logits are built on the card. The other loss modes
-(``sparse_ce``, ``grec``), ``build_multi_step`` and ``stack_batches`` come
-with the models and the training loop that use them.
+so no (N, V) logits are built on the card. The ``grec`` loss mode,
+``build_multi_step`` and ``stack_batches`` come with the model and the
+training loop that use them.
 """
 from __future__ import annotations
 
@@ -58,10 +60,11 @@ def _label_nll(logits: torch.Tensor, labels: torch.Tensor
 def compute_loss(model: SequentialModel, features: Dict[str, torch.Tensor],
                  labels: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The training loss of one batch (softmax_eps). ``features`` carry
-    ``masked_positions`` and, for the TPP term, ``next_marks``."""
+    """The training loss of one batch (``softmax_eps`` or ``sparse_ce``).
+    ``features`` carry ``masked_positions`` and, for the TPP term,
+    ``next_marks``."""
     cfg = model.cfg
-    if model.loss_mode != "softmax_eps":
+    if model.loss_mode not in ("softmax_eps", "sparse_ce"):
         raise NotImplementedError(f"loss mode {model.loss_mode}")
     _, aux = model(features, is_training=True, generator=generator)
     hidden, table, bias = aux[SCORING]
@@ -71,7 +74,8 @@ def compute_loss(model: SequentialModel, features: Dict[str, torch.Tensor],
     flat = labels.reshape(-1)
     lse, ll = catalog_nll(hidden, table, bias, flat)
     ce = lse - ll
-    per_example = -torch.log(torch.exp(-ce) + 1e-5)
+    per_example = (-torch.log(torch.exp(-ce) + 1e-5)
+                   if model.loss_mode == "softmax_eps" else ce)
     w = (flat != 0).float()
     loss = (w * per_example).sum() / (w.sum() + 1e-5)
     if cfg.l2_reg:

@@ -4,15 +4,17 @@
 Runs ``build_train_step`` of easydgl_tpu_torch for a preset (default
 ``EasyDGL``, batch 512; ``EasyDGL-LC`` is the long-context flagship, L+1 =
 2048, B = 8, masklen 256; ``SASREC-LC`` the long-context SASRec, L = 2048,
-B = 32, every position scored) with bf16 matmuls, the preset's dropout
-(0.1 / 0.1) and loss terms (EasyDGL: TPP and L2, 64 marks looked up on the
-device), TF-Adam, random weights from seed 0, over synthetic batches of the
+B = 32, every position scored; ``BERT4REC-LC`` the long-context BERT4Rec,
+L+1 = 2048, B = 32, masklen 256, non-causal flash attention; ``BERT4REC``
+at B = 512) with bf16 matmuls, the preset's dropout and loss terms
+(EasyDGL: TPP and L2, 64 marks looked up on the device; BERT4REC: sparse_ce
+and L2), TF-Adam, random weights from seed 0, over synthetic batches of the
 model's protocol already on the device, first unprofiled (host clock,
 synchronised) and then under ``torch.profiler``, and prints the host wall
 time per step of both runs, the device time by kernel and the share of the
 profiled window the device was busy. Imports neither JAX nor the JAX
-package; run it from any checkout's root (it imports the package beside
-it) to compare two versions in one call.
+package; run it from any checkout's root (it imports the package beside it)
+to compare two versions in one call.
 
     python3 scripts/torch_train_profile.py [PRESET] [--steps 8]
 """

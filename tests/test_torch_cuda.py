@@ -837,14 +837,27 @@ def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, seed=0, pad=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain_version(cuda_device, dtype, causal, shape,
                                            rate):
+    _check_flash_kernels(cuda_device, dtype, causal, FLASH_SHAPES[shape],
+                         rate)
+
+
+def test_flash_kernels_at_the_bert4rec_lc_shape(cuda_device):
+    """BERT4REC-LC's attention (B=2 of its 32, H=8, T=2048, dh=64): bf16,
+    not causal, dropout 0.1; a row of padding beside one whose padding
+    ends mid-tile."""
+    _check_flash_kernels(cuda_device, torch.bfloat16, False,
+                         dict(b=2, h=8, tq=2048, tk=2048, dh=64,
+                              pad=(2048, 700)), 0.1)
+
+
+def _check_flash_kernels(cuda_device, dtype, causal, shape, rate):
     """Forward (out, lse) and the backward (dq, dk, dv), each on the plain
     version's inputs; then ``flash_attention``'s chained backward against
     the chained plain pieces. out as ``_check_close``; lse fp32 to 1e-4;
     the gradients as ``_check_by_scale``; every batch row with no visible
     key exactly 0."""
     from easydgl_tpu_torch.kernels import flash_attention as fl
-    q, k, v, km, dout = _flash_inputs(cuda_device, dtype,
-                                      **FLASH_SHAPES[shape])
+    q, k, v, km, dout = _flash_inputs(cuda_device, dtype, **shape)
     kw = dict(causal=causal, dropout_rate=rate,
               seed=torch.tensor(77, device=cuda_device))
     before = [fn.launches for fn in fl.FLASH_KERNELS]
@@ -1014,3 +1027,63 @@ def test_sasrec_lc_model_on_card_matches_cpu(cuda_device):
             else want
         err = float((gc[name] - want).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bert4rec_lc_model_kernels_match_plain_engine(cuda_device, rate):
+    """A small fp32 BERT4REC-LC (L+1=256, C=64, H=2) on the card with the
+    flash kernels against the same model with its long-context engine's
+    plain version (``long_context_engine``), on the same generator seed:
+    the plain flash version draws the kernels' dropout mask, so the two
+    agree at dropout 0.1 too. Eval logits on a batch with a row of no key
+    at all (every attention row the mean of V, not the kernel's zeros) to
+    1e-4; the training forward's loss to 1e-5 relative and every gradient
+    leaf to 1e-4 of its scale (the key bias, zero in exact arithmetic, to
+    1e-4 of the key weight's); the flash kernels launched once a block."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import synthetic_split
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import loss_and_grads, to_device
+    cfg = preset("BERT4REC-LC", num_items=60, seqslen=255, masklen=32,
+                 num_units=64, num_heads=2, batch_size=3,
+                 compute_dtype="float32", hidden_dropout_rate=rate,
+                 attention_probs_dropout_rate=rate)
+    params = random_flax_params(cfg, 0)
+    ds = synthetic_split(num_rows=3, num_items=60, seqslen=255, seed=2)
+    feats = {}
+    for train in (False, True):
+        f, lab, _ = next(BatchLoader(ds, data_mode="masked", batch_size=3,
+                                     masklen=32, is_training=train).epoch(0))
+        feats[train] = (to_device(f, cuda_device),
+                        torch.as_tensor(lab, device=cuda_device))
+    feats[False][0]["seqs_i"][0] = 0     # a row that sees no key
+    module, name, plain = type(build_model(
+        cfg, device=cuda_device, params=params)).long_context_engine
+    saved, res = getattr(module, name), {}
+    for engine in ("kernels", "plain"):
+        model = build_model(cfg, device=cuda_device, params=params)
+        before = [fn.launches for fn in fl.FLASH_KERNELS]
+        if engine == "plain":
+            setattr(module, name, plain)
+        try:
+            with torch.no_grad():
+                logits = model(feats[False][0])[0]
+            gen = torch.Generator(device=cuda_device).manual_seed(7)
+            loss, grads = loss_and_grads(model, *feats[True], gen)
+        finally:
+            setattr(module, name, saved)
+        after = [fn.launches - b for fn, b in zip(fl.FLASH_KERNELS, before)]
+        assert after == ([4, 2] if engine == "kernels" else [0, 0])
+        res[engine] = (logits, float(loss), grads)
+    (lk, loss_k, gk), (lp, loss_p, gp) = res["kernels"], res["plain"]
+    assert bool(torch.isfinite(lk).all())
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for pname, want in gp.items():
+        ref = gp[pname[:-4] + "weight"] if pname.endswith("_attn.k.bias") \
+            else want
+        err = float((gk[pname] - want).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (pname, err)
