@@ -54,13 +54,25 @@ after:
 * serving and training on BERT4REC (``PRESETS["BERT4REC"]``, B = 512,
   L+1 = 31, 3 blocks, bf16, the xla attention core): eval batches and
   ``recommend`` requests (no kernel), 20 faithful train steps through the
-  catalog kernels, then 10 on one repeated batch.
+  catalog kernels, then 10 on one repeated batch;
+* serving and training on CTSMA (``PRESETS["CTSMA"]``, 64 marks, bf16:
+  B = 512, L = 30, 2 causal MAU blocks at dh = 128): eval batches and
+  ``recommend`` requests through the fused MAU forward, 20 faithful train
+  steps (dropout 0.1 / 0.2, TPP + L2, TF-Adam) through the fused MAU
+  kernels and the catalog kernels at N = 15,360, then 10 on one repeated
+  batch;
+* serving and training on CTSMA-LC (``PRESETS["CTSMA-LC"]``: B = 8,
+  L = 2048, 1 causal block): eval batches and ``recommend`` requests
+  through the streamed forward kernels, 10 faithful train steps through
+  the seven streamed kernels and the catalog kernels at N = 16,384, then 5
+  on one repeated batch.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
-gradient, the updated parameters), for EasyDGL-LC, SASREC-LC and
-BERT4REC-LC the logits of two rows and one train step on two rows, and
-for BERT4REC one train step on eight rows.
+gradient, the updated parameters), for EasyDGL-LC, SASREC-LC,
+BERT4REC-LC and CTSMA-LC the logits of two rows and one train step on two
+rows, and for BERT4REC and CTSMA one train step on eight rows (CTSMA's
+logits on eight rows too).
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -140,15 +152,24 @@ SCALE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # whole-model logits, fp32 on the card vs fp32 on the CPU
 SLICE_TOL = (1e-4, 1e-4)
 # Gradient leaves that are zero in exact arithmetic: a key projection's bias
-# b adds q_i . b to every logit of row i, which the softmax cancels, so its
+# (SASREC's attention, CTSMA's MAU) b adds q_i . b to every logit of row i,
+# which the softmax cancels, so its
 # computed gradient is rounding noise on either device (~1e-9 where the key
 # weight's is ~1e-3). The train-step checks hold it to 1e-4 of the key
 # weight's gradient scale instead of its own.
-ZERO_GRAD_LEAF = re.compile(r"_attn\.k\.bias$")
+ZERO_GRAD_LEAF = re.compile(r"_(attn|mau)\.k\.bias$")
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 # PRESETS["CTSMA"]'s heads (C=512, H=4: dh=128) at the flagship's T and E
 DH128 = dict(b=32, tq=31, tk=31, h=4, dh=128, e=64)
+# PRESETS["CTSMA"]'s train shape on one of its batches (regressive_entire:
+# L = 30), and the same at 32 rows for the checks
+CTSMA_TRAIN = dict(b=512, tq=30, tk=30, h=4, dh=128, e=64)
+CTSMA_CHECK = dict(CTSMA_TRAIN, b=32, batch="CTSMA")
+# PRESETS["CTSMA-LC"]'s shape (B = 8, L = 2048), timed on one of its
+# batches (``batch="CTSMA-LC"``)
+CTSMA_LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
+CTSMA_CATALOG = dict(n=15360, v=17771, c=512)   # B*L rows, CTSMA
 SASREC_LC_CATALOG = dict(n=65536, v=17771, c=512)   # B*L rows
 # B*masklen rows against num_items + 2 ids (the MASK id and one more)
 BERT4REC_LC_CATALOG = dict(n=8192, v=17773, c=512)
@@ -200,11 +221,34 @@ def check(cond: bool, msg: str):
 # ---------------------------------------------------------------- kernels
 
 
-def mau_inputs(*, b, tq, tk, h, dh, e, dtype, gathered, seed, lengths=None):
+def preset_batch(name, rows, seed):
+    """(key mask (rows, T), intervals (rows, T), marks (rows, T, E)) of a
+    train batch of preset ``name`` (64 marks) on the card: left-padded
+    synthetic histories (start time 1e9 s), spans as CTSMA forms them
+    (unclipped differences of the scaled timestamps: the last padding row's
+    is the first real item's whole timestamp, ~11,574 days), marks from a
+    seeded table."""
+    cfg = preset(name, num_events=64)
+    split = synthetic_split_vectorized(num_rows=rows, num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=seed)
+    table = synthetic_mark_table(cfg.num_items, 64, seed=seed)
+    feats, _, _ = next(iter(BatchLoader(
+        split, data_mode=model_class(cfg).data_mode, batch_size=rows,
+        is_training=True, mark_table=table, needs_marks=True).epoch(0)))
+    ids = torch.as_tensor(feats["seqs_i"], device="cuda")
+    ts = torch.as_tensor(feats["seqs_t"], device="cuda") / cfg.time_scale
+    return ((ids != 0).float(), ts[:, 1:] - ts[:, :-1],
+            torch.as_tensor(feats["seqs_marks"], device="cuda"))
+
+
+def mau_inputs(*, b, tq, tk, h, dh, e, dtype, gathered, seed, lengths=None,
+               batch=None):
     """Inputs at realistic magnitudes: projections ~N(0, 1), intervals
     ~Exp(1) days clipped to [0, 100], 15%-dense multi-hot marks, left-padded
     key masks (``lengths`` real keys a row, else uniform in [1, Tk]) with row
-    0 fully masked."""
+    0 fully masked. ``batch``: a preset whose train batch (``preset_batch``,
+    B rows) gives the key mask, the intervals and the marks instead; row 0
+    is still fully masked (a batch's zero tail rows)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -222,6 +266,11 @@ def mau_inputs(*, b, tq, tk, h, dh, e, dtype, gathered, seed, lengths=None):
     intervals = (-torch.log(torch.rand(b, tq, generator=g, device=dev))
                  ).clamp(0.0, 100.0)
     onehot = (torch.rand(b, tk, e, generator=g, device=dev) < 0.15).float()
+    if batch is not None:
+        key_mask, intervals, onehot = preset_batch(batch, b, seed)
+        check(key_mask.shape == (b, tk) and intervals.shape == (b, tq)
+              and onehot.shape == (b, tk, e), f"{batch} batch shape")
+        key_mask[0] = 0.0
     wd = normal(dh + 1, e * dh, std=0.2)
     bd, w, scaling = normal(e * dh, std=0.1), normal(e, dh, std=0.2), \
         normal(e, std=0.3)
@@ -304,7 +353,11 @@ MAU_FWD_CASES = (
     ("small_dh16_e3_bf16", dict(b=5, tq=11, tk=11, h=2, dh=16, e=3),
      torch.bfloat16, True, True, False),
     ("e128_qpos_tq9_bf16", dict(b=16, tq=9, tk=31, h=8, dh=64, e=128),
-     torch.bfloat16, False, True, True))
+     torch.bfloat16, False, True, True),
+    # as PRESETS["CTSMA"] drives it: causal without the reset at dh = 128,
+    # on a CTSMA batch's key mask (rows that see no key) and spans
+    ("ctsma_causal_dh128_bf16", CTSMA_CHECK, torch.bfloat16, True, False,
+     False))
 
 
 def mau_fwd_case(i, name, shape, dtype, causal, diag, gathered):
@@ -385,17 +438,28 @@ def phase_kernel_checks():
     return errs
 
 
-def mau_keys(km, visible_only=False) -> float:
-    """The keys a query row of the bidirectional MAU needs, averaged over
-    the batch rows: the visible ones, or every key where the row's key mask
-    is all 0 (its probs are uniform over the masked keys). A masked key of
-    any other row gets a prob of exactly 0 and costs the function nothing.
-    ``visible_only``: the visible ones alone, for dq, whose every term is 0
-    where an entry is not visible."""
-    vis = (km > 0).sum(-1).double()
+def mau_keys(km, causal=False, visible_only=False, shared_blind=False
+             ) -> float:
+    """The keys a query row of the MAU needs (Tq = Tk), averaged over the
+    (batch row, query) pairs: the visible ones (``causal``: real and at or
+    before the query). A masked key of a row that sees a real one gets a
+    prob of exactly 0 and costs nothing. A row that sees no key has probs
+    exactly uniform over all Tk keys, so it needs every key; with
+    ``shared_blind`` only once per batch row (and head), since its m and l
+    are constants and its seq_units, and at dropout 0 its output, come from
+    one sum over the keys that every blind row of that batch row shares:
+    the forward at dropout 0. A per-pair dropout mask (the backward's glam
+    and dkvt) needs every key of every blind row. ``visible_only``: the
+    visible ones alone, for dq, whose every term is 0 where an entry is not
+    visible."""
+    seen = (km > 0).double()
+    vis = seen.cumsum(-1) if causal else seen.sum(-1, keepdim=True)
     if visible_only:
         return float(vis.mean())
-    return float(torch.where(vis > 0, vis, float(km.shape[-1])).mean())
+    blind = vis == 0
+    if shared_blind:   # Tk keys once over a batch row's Tk query rows
+        return float((vis.mean(-1) + blind.any(-1)).mean())
+    return float(torch.where(blind, float(km.shape[-1]), vis).mean())
 
 
 def mau_work(*, b, tq, tk, h, dh, e, dtype, keys):
@@ -422,7 +486,8 @@ def measured(row: dict) -> dict:
     this run measured and the bound. Floors, L2 bytes and tile shares are
     reckoned, not measured, and stay on their phase's log line."""
     return {k: v for k, v in row.items()
-            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "gemm_ms")}
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "gemm_ms",
+                     "ms_dropout_0_1")}
 
 
 def time_ms(fn, warmup=3, iters=20):
@@ -474,7 +539,7 @@ def phase_kernel_timing():
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         nbytes, flops = mau_work(**FLAGSHIP, dtype=dtype,
-                                 keys=mau_keys(args[4]))
+                                 keys=mau_keys(args[4], shared_blind=True))
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         l2 = wd_l2_bytes(**FLAGSHIP, dtype=dtype)
         log(f"  {str(dtype):15s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
@@ -578,6 +643,8 @@ MAU_BWD_CASES = (
      0.1),
     ("dh128_causal_fp32", DH128, torch.float32, True, False, False, 0.0),
     ("dh128_bimau_fp32_drop", DH128, torch.float32, False, True, False, 0.1),
+    ("ctsma_causal_dh128_bf16_drop", CTSMA_CHECK, torch.bfloat16, True,
+     False, False, 0.2),
 )
 
 
@@ -654,6 +721,11 @@ def bert4rec_lc_masked_rows(n=BERT4REC_LC_CATALOG["n"]) -> torch.Tensor:
     return label_zero_rows("BERT4REC-LC", n, 19)
 
 
+def ctsma_padded_rows(n=CTSMA_CATALOG["n"]) -> torch.Tensor:
+    """(B * L,) bool: the padded positions of one CTSMA train batch."""
+    return label_zero_rows("CTSMA", n, 23)
+
+
 def alternating_rows(n) -> torch.Tensor:
     """(n,) bool, dead rows mixed within and across 64-row tiles: runs of
     three dead and three live rows, a whole dead tile (rows 64-127) and a
@@ -668,6 +740,7 @@ def alternating_rows(n) -> torch.Tensor:
 # rows whose gradient the case makes exactly zero (label 0, dlse = dll = 0)
 CATALOG_DEAD = {"sasrec_lc_bf16_padded": sasrec_lc_padded_rows,
                 "bert4rec_lc_bf16_masked": bert4rec_lc_masked_rows,
+                "ctsma_bf16_padded": ctsma_padded_rows,
                 "alternating_bf16": alternating_rows,
                 "alternating_bf16_c64": alternating_rows,
                 "alternating_fp32": alternating_rows}
@@ -714,6 +787,9 @@ CATALOG_CASES = (
     # position fell on padding dead (CATALOG_DEAD)
     ("bert4rec_lc_bf16_masked", BERT4REC_LC_CATALOG, torch.bfloat16, True,
      81),
+    # CTSMA's training rows: B*L = 15,360 against its 17,771 items, the
+    # rows at the padding dead (CATALOG_DEAD)
+    ("ctsma_bf16_padded", CTSMA_CATALOG, torch.bfloat16, True, 82),
     # dead and live rows mixed within and across 64-row tiles, on the
     # wgmma kernel (bf16, C = 512) and the CUDA cores (bf16 at C = 64, fp32)
     ("alternating_bf16", dict(n=333, v=1001, c=512), torch.bfloat16, True,
@@ -856,7 +932,10 @@ STREAMED_CASES = (
     ("t300_e128_bimau_bf16_drop", E128, torch.bfloat16, False, True, 0.1),
     ("t1000_blind_causal_bf16_drop", BLIND, torch.bfloat16, True, False,
      0.1),
-    ("t1000_blind_bimau_bf16", BLIND, torch.bfloat16, False, True, 0.0))
+    ("t1000_blind_bimau_bf16", BLIND, torch.bfloat16, False, True, 0.0),
+    # as CTSMA-LC drives them: causal, on its batch's key mask and spans
+    ("ctsma_lc_causal_bf16_drop", dict(CTSMA_LC, b=2, batch="CTSMA-LC"),
+     torch.bfloat16, True, False, 0.1))
 
 
 def streamed_case(i, name, shape, dtype, causal, diag, rate):
@@ -1043,7 +1122,9 @@ STREAMED_BWD_CASES = (
     ("t300_e128_bimau_bf16_drop", E128, torch.bfloat16, False, True, 0.1),
     ("t1000_blind_causal_bf16_drop", BLIND, torch.bfloat16, True, False,
      0.1),
-    ("t1000_blind_bimau_bf16", BLIND, torch.bfloat16, False, True, 0.0))
+    ("t1000_blind_bimau_bf16", BLIND, torch.bfloat16, False, True, 0.0),
+    ("ctsma_lc_causal_bf16_drop", dict(CTSMA_LC, b=2, batch="CTSMA-LC"),
+     torch.bfloat16, True, False, 0.1))
 INTENSITY_GRADS = ("g_su", "dWd", "dbd", "dw", "dscaling")
 
 
@@ -1561,14 +1642,21 @@ def streamed_work(name, *, b, tq, tk, h, dh, e, dtype, keys):
             2 * rows * keys * (2 * dh + e), dtype)
 
 
-def phase_streamed_timing():
-    log("phase 4c: streamed MAU kernels at the EasyDGL-LC eval shape "
-        "(B=8, T=2048, H=8, dh=64, E=64, BiMAU)")
+def phase_streamed_timing(title, sh, *, causal, seed, batch=None,
+                          dtypes=(torch.bfloat16, torch.float32)):
+    """Phase 4c: the three streamed forward kernels at shape ``sh`` (BiMAU
+    with the diagonal reset, or ``causal`` MAU without), each dtype of
+    ``dtypes``, on inputs from ``seed`` (``batch``: a preset's train batch
+    gives the key mask, spans and marks); their bounds over ``mau_keys``
+    at dropout 0."""
+    log(title)
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        args = mau_inputs(**LC, dtype=dtype, gathered=False, seed=400)
+    diag = not causal
+    for dtype in dtypes:
+        args = mau_inputs(**sh, dtype=dtype, gathered=False, seed=seed,
+                          batch=batch)
         q, k, v, t, km, iv, oh, wd, bd, w, sc, _ = args
-        kw = dict(causal=False, num_heads=LC["h"])
+        kw = dict(causal=causal, num_heads=sh["h"])
         m, l, su = mau_stats(q, k, t, km, **kw)
         lam = mau_intensity(su, iv, wd, bd, w, sc)
         runs = {
@@ -1579,38 +1667,41 @@ def phase_streamed_timing():
                 lambda: intensity_reference(su, iv, wd, bd, w, sc)),
             "mau_modulated_out": (
                 lambda: mau_modulated_out(q, k, v, km, oh, lam, m, l,
-                                          diag_reset=True, **kw),
+                                          diag_reset=diag, **kw),
                 lambda: output_reference(q, k, v, km, oh, lam, m, l,
-                                         diag_reset=True, **kw))}
-        heads = [x.view(LC["b"], LC["tk"], LC["h"], LC["dh"]).transpose(1, 2)
+                                         diag_reset=diag, **kw))}
+        heads = [x.view(sh["b"], sh["tk"], sh["h"], sh["dh"]).transpose(1, 2)
                  for x in (q, k, v)]
-        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(*heads))
-        live, visited = tile_shares(km)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            *heads, is_causal=causal))
+        live, visited = tile_shares(km, causal)
+        keys = mau_keys(km, causal, shared_blind=True)
         log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
             f" the live-tile rule of the bf16 stats and output kernels visits"
             f" {visited:.4f} of the (query tile, key tile) pairs, the others"
-            " every pair")
-        sd = torch.tensor(4000, dtype=torch.int64, device="cuda")
+            f" every pair; keys a query row needs {keys:.2f} of {sh['tk']}"
+            " (a row that sees none: every key, once per batch row)")
+        sd = torch.tensor(seed * 10, dtype=torch.int64, device="cuda")
         drop_ms = time_ms(lambda: mau_modulated_out(
-            q, k, v, km, oh, lam, m, l, diag_reset=True, dropout_rate=0.1,
+            q, k, v, km, oh, lam, m, l, diag_reset=diag, dropout_rate=0.1,
             dropout_seed=sd, **kw), warmup=2, iters=10)
         for name, (kern, plain) in runs.items():
             ms = time_ms(kern, warmup=2, iters=10)
             plain_ms = time_ms(plain, warmup=1, iters=3)
-            nbytes, flops, op_dtype = streamed_work(name, **LC, dtype=dtype,
-                                                    keys=mau_keys(km))
+            nbytes, flops, op_dtype = streamed_work(name, **sh, dtype=dtype,
+                                                    keys=keys)
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
             extra = {}
             if name == "mau_intensity":
-                bound_ms, extra = intensity_bound(name, dtype)
+                bound_ms, extra = intensity_bound(name, dtype, sh)
                 bound_by = extra.pop("bound_by")
             share = (visited if name in ("mau_stats", "mau_modulated_out")
                      and dtype == torch.bfloat16 else 1.0)
             if name == "mau_stats":
                 # one exp an entry of every (query tile, key tile) pair it
                 # visits
-                exps = share * LC["b"] * LC["h"] * 4096 * (
-                    -(-LC["tq"] // 64)) * (-(-LC["tk"] // 64))
+                exps = share * sh["b"] * sh["h"] * 4096 * (
+                    -(-sh["tq"] // 64)) * (-(-sh["tk"] // 64))
                 extra = dict(special_floor_ms=special_floor_ms(exps))
                 log(f"  {name:17s} {str(dtype):15s} exp floor"
                     f" {extra['special_floor_ms']:.4f} ms ({exps / 1e6:.1f} M"
@@ -1631,7 +1722,8 @@ def phase_streamed_timing():
                 log(f"  {name:17s} {str(dtype):15s} kernel {drop_ms:.4f} ms"
                     " at dropout 0.1 (the train launches' rate)")
         log(f"  for scale, F.scaled_dot_product_attention on the same q/k/v"
-            f" ({str(dtype)[6:]}): {sdpa_ms:.4f} ms")
+            f" ({str(dtype)[6:]}{', causal' if causal else ''}):"
+            f" {sdpa_ms:.4f} ms")
     return rows
 
 
@@ -1684,14 +1776,14 @@ def intensity_bounds(name, *, b, tq, h, dh, e, **_):
             max(t_bytes, 3 * products / PEAK_FLOPS[torch.bfloat16] * 1e3))
 
 
-def intensity_bound(name, dtype):
-    """The intensity head's or its VJP's bound at the LC shape, the lower
+def intensity_bound(name, dtype, sh):
+    """The intensity head's or its VJP's bound at shape ``sh``, the lower
     of its split-bf16 and fp32 bounds (its products run on the tensor cores
     in three bf16 passes), and the row entries that say so, with its sigmoid
     floor at one and at two special-function ops a sigmoid (the kernels
     keep the exact form, ex2 and a reciprocal: two); logged."""
-    fp32_ms, tc_ms = intensity_bounds(name, **LC)
-    sigmoids = LC["b"] * LC["h"] * LC["tq"] * LC["e"] * LC["dh"]
+    fp32_ms, tc_ms = intensity_bounds(name, **sh)
+    sigmoids = sh["b"] * sh["h"] * sh["tq"] * sh["e"] * sh["dh"]
     one, two = special_floor_ms(sigmoids), special_floor_ms(2 * sigmoids)
     log(f"  {name:17s} {str(dtype):15s} bound in split bf16 on the tensor"
         f" cores {tc_ms:.4f} ms ({1 if name == 'mau_intensity' else 3}"
@@ -1707,18 +1799,23 @@ def intensity_bound(name, dtype):
         special_floor_one_op_ms=one)
 
 
-def phase_streamed_bwd_timing():
-    log("phase 4d: streamed MAU backward kernels at the EasyDGL-LC train "
-        "shape (B=8, T=2048, H=8, dh=64, E=64, BiMAU, dropout 0.1)")
+def phase_streamed_bwd_timing(title, sh, *, causal, seed, batch=None,
+                              dtypes=(torch.bfloat16, torch.float32)):
+    """Phase 4d: the four streamed backward kernels at shape ``sh`` and
+    dropout 0.1, as ``phase_streamed_timing`` takes its arguments; glam's
+    and dkvt's bounds over every key of a row that sees none (the per-pair
+    dropout mask), dq's over the visible keys alone."""
+    log(title)
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        args = mau_inputs(**LC, dtype=dtype, gathered=False, seed=700)
-        _, _, runs = streamed_bwd_pieces(args, LC["h"], causal=False,
-                                         diag=True, rate=0.1, seed=7000,
-                                         plain_fwd=None)
-        live, visited = tile_shares(args[4])
+    for dtype in dtypes:
+        args = mau_inputs(**sh, dtype=dtype, gathered=False, seed=seed,
+                          batch=batch)
+        _, _, runs = streamed_bwd_pieces(args, sh["h"], causal=causal,
+                                         diag=not causal, rate=0.1,
+                                         seed=seed * 10, plain_fwd=None)
+        live, visited = tile_shares(args[4], causal)
         dq_visited = float(streamed_visited_tiles(
-            args[4], LC["tq"], False, visible_only=True).float().mean())
+            args[4], sh["tq"], causal, visible_only=True).float().mean())
         log(f"  key mask: {live:.4f} of the 64-key tiles hold a real key;"
             f" the live-tile rule (bf16 glam, dkvt) visits {visited:.4f} of"
             f" the (query tile, key tile) pairs, its visible-only form (bf16"
@@ -1728,19 +1825,19 @@ def phase_streamed_bwd_timing():
             plain_ms = time_ms(plain, warmup=1, iters=2)
             # dq's terms are 0 where an entry is not visible: it needs the
             # visible keys alone, even in a row that sees none
-            keys = mau_keys(args[4], visible_only=name == "mau_dq")
+            keys = mau_keys(args[4], causal, visible_only=name == "mau_dq")
             nbytes, flops, op_dtype = streamed_bwd_work(
-                name, **LC, dtype=dtype, keys=keys)
+                name, **sh, dtype=dtype, keys=keys)
             bound_ms, bound_by = bound(nbytes, flops, op_dtype)
             extra = {}
             if name == "mau_intensity_bwd":
-                bound_ms, extra = intensity_bound(name, dtype)
+                bound_ms, extra = intensity_bound(name, dtype, sh)
                 bound_by = extra.pop("bound_by")
             # one special-function op an exp (each pair of the attention side
             # it needs); the intensity VJP's sigmoids at one op each
-            lc_rows = LC["b"] * LC["h"] * LC["tq"]
-            special = (lc_rows * LC["e"] * LC["dh"]
-                       if name == "mau_intensity_bwd" else lc_rows * keys)
+            sh_rows = sh["b"] * sh["h"] * sh["tq"]
+            special = (sh_rows * sh["e"] * sh["dh"]
+                       if name == "mau_intensity_bwd" else sh_rows * keys)
             floor_ms = special_floor_ms(special)
             share = ({"mau_glam": visited, "mau_dkvt": visited,
                       "mau_dq": dq_visited}.get(name, 1.0)
@@ -1992,6 +2089,79 @@ def catalog_bert4rec_lc_timing():
             f" live rows of {sh['n']})  kernel/bound {ms / bound_ms:.1f}x")
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
+    return rows
+
+
+def phase_ctsma_kernel_timing():
+    log("phase 4 / 4b (CTSMA): mau_attention forward and backward at the"
+        " CTSMA train shape (B=512, T=30, H=4, dh=128, E=64, causal, no"
+        " diagonal reset, bf16; a CTSMA batch's key mask and spans; dropout"
+        " 0.2 in training)")
+    sh, bf16 = CTSMA_TRAIN, torch.bfloat16
+    args = mau_inputs(**sh, dtype=bf16, gathered=False, seed=210,
+                      batch="CTSMA")
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos = args
+    h = sh["h"]
+    keys = mau_keys(km, causal=True, shared_blind=True)
+    sd = _seed_tensor(9, 0.2, torch.device("cuda"))
+    rows = {}
+
+    def fwd():
+        mau_attention(q, k, v, t, km, iv, oh, wd, bd, w, sc, True, False,
+                      num_heads=h)
+
+    def fwd_train():
+        return _launch_fwd(q, k, v, t, km, iv, oh, wd, bd, w, sc, True,
+                           False, h, qpos, sd, 0.2, want_raw=True)
+
+    ms, train_ms = time_ms(fwd), time_ms(fwd_train)
+    plain_ms = time_ms(lambda: mau_attention_reference(
+        q, k, v, t, km, iv, oh, wd, bd, w, sc, causal=True, diag_reset=False,
+        num_heads=h), warmup=1, iters=3)
+    nbytes, flops = mau_work(**sh, dtype=bf16, keys=keys)
+    bound_ms, bound_by = bound(nbytes, flops, bf16)
+    sigmoids = sh["b"] * h * sh["tq"] * sh["e"] * sh["dh"]
+    floor_ms = special_floor_ms(2 * sigmoids)
+    split = kernel_split(fwd)
+    log(f"  mau_attention_fwd kernel {ms:.4f} ms (training forward, dropout"
+        f" 0.2 + residual: {train_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+        f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
+        f" {flops / 1e9:.1f} GFLOP over {keys:.2f} keys a query row)"
+        f"  kernel/bound {ms / bound_ms:.1f}x; sigmoid floor at two ops"
+        f" {floor_ms:.4f} ms ({sigmoids / 1e6:.1f} M)")
+    log("    by kernel: " + ", ".join(f"{n} {x:.4f} ms"
+                                      for n, x in split.items()))
+    rows["mau_attention_fwd"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms_dropout_0_2=train_ms, by_kernel=split)
+    _, _, raw = fwd_train()
+    go, gl = mau_bwd_args(args, bf16, 7)
+
+    def bwd():
+        mau_attention_bwd(q, k, v, t, km, iv, oh, wd, bd, w, sc, raw, go, gl,
+                          causal=True, diag_reset=False, dropout_rate=0.2,
+                          dropout_seed=sd, num_heads=h)
+
+    ms = time_ms(bwd, iters=5)
+    plain_ms = time_ms(lambda: run_mau_bwd(
+        args, causal=True, diag=False, h=h, rate=0.2, seed=9, plain=True),
+        warmup=1, iters=1)
+    # the per-pair dropout mask: every key of a row that sees none
+    keys = mau_keys(km, causal=True)
+    nbytes, flops = mau_bwd_work(**sh, dtype=bf16, keys=keys)
+    bound_ms, bound_by = bound(nbytes, flops, bf16)
+    split = kernel_split(bwd)
+    log(f"  mau_attention_bwd kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
+        f" {flops / 1e9:.1f} GFLOP)  kernel/bound {ms / bound_ms:.1f}x;"
+        f" special-function floor {special_floor_ms(sigmoids):.4f} ms"
+        f" ({sigmoids / 1e6:.1f} M sigmoids, one op each); at dh = 128 the"
+        f" bf16 backward runs on the CUDA cores (kFull + weights)")
+    log("    by kernel: " + ", ".join(f"{n} {x:.4f} ms"
+                                      for n, x in split.items()))
+    rows["mau_attention_bwd"] = dict(ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     by_kernel=split)
     return rows
 
 
@@ -2322,17 +2492,38 @@ def phase_lc_train():
     return launches, ms_step, ex_s
 
 
+def path_kernels(cfg, training: bool):
+    """The attention kernels a forward (and in training its backward) of
+    ``cfg``'s model launches once a block: a self-modulating model's MAU
+    (the fused kernels, or the streamed ones under ``"flash"``), another
+    model's flash kernels under ``"flash"``, else none."""
+    if MODELS[cfg.model].uses_tpp:
+        if cfg.attention_impl == "flash":
+            return STREAMED + (STREAMED_BWD if training else ())
+        return (mau_attention,) + ((mau_attention_bwd,) if training else ())
+    if cfg.attention_impl == "flash":
+        return FLASH_KERNELS if training else (flash_attention_fwd,)
+    return ()
+
+
+def mark_table_of(cfg):
+    """A seeded mark table where the model reads marks, else None."""
+    return (synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+            if MODELS[cfg.model].uses_tpp else None)
+
+
 def phase_model_slice(name, seed, **overrides):
     """Eval batches and ``recommend`` requests of preset ``name`` (with
     ``overrides``) at full width (random weights from seed 0) over
-    synthetic data from
-    ``seed`` and ``seed + 1``; the flash forward kernel launched once a
-    block a forward where the preset's attention is ``"flash"``, no other
-    kernel. Returns (launches, the first eval batch, seqs/s, latencies)."""
+    synthetic data from ``seed`` and ``seed + 1``, marks looked up on the
+    device where the model reads them; each kernel of ``path_kernels``
+    launched once a block a forward, no other kernel. Returns (launches,
+    the first eval batch, seqs/s, latencies)."""
     cfg = preset(name, **overrides)
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
                         params=random_flax_params(cfg, seed=0))
+    table = mark_table_of(cfg)
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=seed)
@@ -2344,8 +2535,8 @@ def phase_model_slice(name, seed, **overrides):
                                           seqslen=cfg.seqslen, seed=seed + 1)
     req_batches = [{k: v[i * bs:(i + 1) * bs]
                     for k, v in requests.arrays.items()} for i in range(3)]
-    step = build_eval_step(model)
-    rec = Recommender(cfg, model)
+    step = build_eval_step(model, mark_table=table)
+    rec = Recommender(cfg, model, table)
     MetricAccumulator().update(step(model, *batches[0]))  # warm-up
     rec.recommend(req_batches[0], k=50)
     torch.cuda.synchronize()
@@ -2367,9 +2558,9 @@ def phase_model_slice(name, seed, **overrides):
         answers.append((arrays, ids, scores))
     launches = {fn.__name__: fn.launches for fn in counters}
     forwards = (len(batches) + len(req_batches)) * cfg.num_blocks
+    on_path = {fn.__name__ for fn in path_kernels(cfg, False)}
     for kernel, n in launches.items():
-        want = (forwards if kernel == "flash_attention_fwd"
-                and cfg.attention_impl == "flash" else 0)
+        want = forwards if kernel in on_path else 0
         check(n == want, f"{name} serving: {kernel} launched {n} times,"
               f" expected {want} ({forwards} attention forwards)")
     metrics = acc.result()
@@ -2399,12 +2590,18 @@ def phase_model_slice(name, seed, **overrides):
     return launches, batches[0], seqs_per_s, latencies
 
 
-def phase_model_cpu_vs_card(name, batch):
-    """fp32 logits of preset ``name`` on two rows of ``batch``, the card
-    (kernels) against the CPU (plain versions)."""
-    cfg = preset(name, compute_dtype="float32")
+def phase_model_cpu_vs_card(name, batch, rows=2, **overrides):
+    """fp32 logits of preset ``name`` (with ``overrides``) on ``rows`` rows
+    of ``batch``, the card (kernels) against the CPU (plain versions); the
+    marks from ``mark_table_of`` where the model reads them."""
+    cfg = preset(name, compute_dtype="float32", **overrides)
     params = random_flax_params(cfg, seed=0)
-    features = {k: v[:2] for k, v in batch[0].items()}
+    features = {k: v[:rows] for k, v in batch[0].items()}
+    table = mark_table_of(cfg)
+    if table is not None:
+        ids = features["seqs_i"]
+        features["seqs_marks"] = table[np.where(ids >= table.shape[0], 0,
+                                                ids)].astype(np.float32)
     logits = {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, device=dev, params=params)
@@ -2415,7 +2612,7 @@ def phase_model_cpu_vs_card(name, batch):
     err = (logits["cuda"] - logits["cpu"]).abs()
     atol, rtol = SLICE_TOL
     ratio = float((err / (atol + rtol * logits["cpu"].abs())).max())
-    log(f"  logits (2, {logits['cpu'].shape[1]}):"
+    log(f"  logits {tuple(logits['cpu'].shape)}:"
         f" max_abs={float(err.max()):.3e}"
         f" tol(atol={atol:g}, rtol={rtol:g}) worst/tol={ratio:.3f}")
     check(ratio <= 1.0, f"{name} card vs CPU logits outside tolerance")
@@ -2423,12 +2620,12 @@ def phase_model_cpu_vs_card(name, batch):
 
 def phase_model_train(name, seed, steps, repeat, **overrides):
     """``steps`` faithful train steps of preset ``name`` (with
-    ``overrides``) at full width (the preset's dropout, loss and TF-Adam)
-    after 2 warm-up steps,
-    then ``repeat`` on one repeated batch, whose loss must fall; the flash
-    kernels launched once a block a step where the preset's attention is
-    ``"flash"``, the catalog kernels once a step, no other kernel. Returns
-    (launches, ms/step, ex/s)."""
+    ``overrides``) at full width (the preset's dropout, loss, TPP and L2
+    terms and TF-Adam; marks looked up on the device where the model reads
+    them) after 2 warm-up steps, then ``repeat`` on one repeated batch,
+    whose loss must fall; each kernel of ``path_kernels`` launched once a
+    block a step, the catalog kernels once a step, no other kernel.
+    Returns (launches, ms/step, ex/s)."""
     cfg = preset(name, **overrides)
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
@@ -2440,7 +2637,7 @@ def phase_model_train(name, seed, steps, repeat, **overrides):
                          masklen=cfg.masklen, is_training=True)
     batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
                for f, lab, _ in loader.epoch(0)]
-    step = build_train_step(model)
+    step = build_train_step(model, mark_table=mark_table_of(cfg))
     state = init_state(model)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for features, labels in batches[:2]:  # warm-up, not counted
@@ -2472,8 +2669,8 @@ def phase_model_train(name, seed, steps, repeat, **overrides):
           f"{name} train: loss on a repeated batch did not fall "
           f"({repeated})")
     per_step = {fn.__name__: 0 for fn in counters}
-    if cfg.attention_impl == "flash":
-        per_step.update({fn.__name__: cfg.num_blocks for fn in FLASH_KERNELS})
+    per_step.update({fn.__name__: cfg.num_blocks
+                     for fn in path_kernels(cfg, True)})
     per_step.update(catalog_nll_fwd=1, catalog_nll_bwd=1)
     for kernel, n in per_step.items():
         check(launches[kernel] == n * steps,
@@ -2526,8 +2723,7 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
                  **overrides)
     params = random_flax_params(cfg, seed=0)
     model_cls = MODELS[cfg.model]
-    table = (synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
-             if model_cls.uses_tpp else None)
+    table = mark_table_of(cfg)
     split = synthetic_split_vectorized(num_rows=rows,
                                        num_items=cfg.num_items,
                                        seqslen=cfg.seqslen, seed=3)
@@ -2674,11 +2870,27 @@ def main() -> int:
     flash_errs = phase_flash_checks()
     timing = phase_kernel_timing()
     train_timing = phase_train_kernel_timing()
-    streamed_timing = phase_streamed_timing()
-    streamed_timing.update(phase_streamed_bwd_timing())
+    streamed_timing = phase_streamed_timing(
+        "phase 4c: streamed MAU kernels at the EasyDGL-LC eval shape "
+        "(B=8, T=2048, H=8, dh=64, E=64, BiMAU)", LC, causal=False,
+        seed=400)
+    streamed_timing.update(phase_streamed_bwd_timing(
+        "phase 4d: streamed MAU backward kernels at the EasyDGL-LC train "
+        "shape (B=8, T=2048, H=8, dh=64, E=64, BiMAU, dropout 0.1)", LC,
+        causal=False, seed=700))
     flash_timing = phase_flash_timing()
     flash_nc_timing = phase_flash_noncausal_timing()
     catalog_lc_timing = phase_catalog_lc_timing()
+    ctsma_timing = phase_ctsma_kernel_timing()
+    ctsma_lc_timing = phase_streamed_timing(
+        "phase 4c (CTSMA-LC): the streamed MAU forward kernels causal at "
+        "the CTSMA-LC shape (B=8, T=2048, H=8, dh=64, E=64, bf16; a CTSMA-LC"
+        " batch's left-padded key mask and spans)", CTSMA_LC, causal=True,
+        seed=410, batch="CTSMA-LC", dtypes=(torch.bfloat16,))
+    ctsma_lc_timing.update(phase_streamed_bwd_timing(
+        "phase 4d (CTSMA-LC): the streamed MAU backward kernels causal at "
+        "the CTSMA-LC shape, dropout 0.1", CTSMA_LC, causal=True, seed=410,
+        batch="CTSMA-LC", dtypes=(torch.bfloat16,)))
     serve_launches, batch, table = phase_slice()
     phase_slice_cpu_vs_card(batch, table)
     lc_launches, lc_batch, lc_table, lc_seqs_s, lc_lat = phase_lc_slice()
@@ -2744,6 +2956,43 @@ def main() -> int:
     log("phase 8e: full-width fp32 BERT4REC train step, card (catalog "
         "kernels) vs CPU (plain), 8 rows, dropout 0")
     phase_train_cpu_vs_card("BERT4REC", rows=8)
+    log("phase 5f: CTSMA eval + serving at full width on the card "
+        "(PRESETS[\"CTSMA\"]: B=512, L=30, C=512, H=4 (dh=128), 2 causal "
+        "MAU blocks, E=64, bf16, the fused kernels, marks on the device)")
+    ctsma_launches, ctsma_batch, ctsma_seqs_s, ctsma_lat = phase_model_slice(
+        "CTSMA", 24, num_events=64, compute_dtype="bfloat16")
+    log("phase 6f: full-width fp32 CTSMA, card (fused kernels) vs CPU "
+        "(plain version), 8 rows")
+    phase_model_cpu_vs_card("CTSMA", ctsma_batch, rows=8, num_events=64)
+    log("phase 7f: CTSMA faithful train steps at full width on the card "
+        "(B=512, L=30, bf16, dropout 0.1 / 0.2, softmax-eps over every "
+        "position, TPP + L2, TF-Adam, the fused MAU kernels causal at dh=128"
+        " and the catalog kernels at N=15,360)")
+    ctsma_train_launches, ctsma_ms_step, ctsma_ex_s = phase_model_train(
+        "CTSMA", 26, TRAIN_STEPS, REPEAT_STEPS, num_events=64,
+        compute_dtype="bfloat16")
+    log("phase 8f: full-width fp32 CTSMA train step, card (fused kernels) vs"
+        " CPU (plain), 8 rows, dropout 0")
+    phase_train_cpu_vs_card("CTSMA", rows=8)
+    log("phase 5g: CTSMA-LC eval + serving at full width on the card "
+        "(B=8, L=2048, C=512, H=8, 1 causal MAU block, E=64, bf16, the "
+        "streamed kernels)")
+    ctlc_launches, ctlc_batch, ctlc_seqs_s, ctlc_lat = phase_model_slice(
+        "CTSMA-LC", 27, num_events=64)
+    log("phase 6g: full-width fp32 CTSMA-LC, card (streamed kernels) vs CPU "
+        "(blocked plain version), 2 rows")
+    phase_model_cpu_vs_card("CTSMA-LC", ctlc_batch, rows=2, num_events=64)
+    log("phase 7g: CTSMA-LC faithful train steps at full width on the card "
+        "(B=8, L=2048, bf16, dropout 0.1 / 0.1, softmax-eps over every "
+        "position, TPP + L2, TF-Adam, the seven streamed kernels causal and "
+        "the catalog kernels at N=16,384)")
+    ctlc_train_launches, ctlc_ms_step, ctlc_ex_s = phase_model_train(
+        "CTSMA-LC", 29, LC_TRAIN_STEPS, LC_REPEAT_STEPS, num_events=64)
+    log("phase 8g: full-width fp32 CTSMA-LC train step, card (streamed "
+        "kernels) vs CPU (blocked plain version, _MauBlocked), 2 rows, "
+        "dropout 0")
+    phase_train_cpu_vs_card("CTSMA-LC", rows=2, device_floor=True,
+                            compute_dtype="float32")
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
@@ -2752,14 +3001,20 @@ def main() -> int:
         name="mau_attention_fwd", route="cuda",
         source=csrc + "mau_attention_fwd.cu",
         replaces="easydgl_tpu/kernels/mau_attention.py:690",
-        launches=serve_launches + train_launches["mau_attention"],
-        launches_per_path={"serving": serve_launches,
-                           "training": train_launches["mau_attention"]},
+        launches=(serve_launches + train_launches["mau_attention"]
+                  + ctsma_launches["mau_attention"]
+                  + ctsma_train_launches["mau_attention"]),
+        launches_per_path={
+            "serving": serve_launches,
+            "training": train_launches["mau_attention"],
+            "serving_ctsma": ctsma_launches["mau_attention"],
+            "training_ctsma": ctsma_train_launches["mau_attention"]},
         max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=None,
         sigmoid_form=main_row["sigmoid_form"],
-        by_kernel=main_row["by_kernel"])]
+        by_kernel=main_row["by_kernel"],
+        ctsma_shape=ctsma_timing["mau_attention_fwd"])]
     # rows 4-6 (the catalog backward's three TPU kernels) are one wrapper
     for name, source, replaces, err in (
             ("mau_attention_bwd", "mau_attention_bwd.cu",
@@ -2772,12 +3027,14 @@ def main() -> int:
              f"easydgl_tpu/kernels/scoring.py:{line}",
              cat_errs["flagship_bf16"][1]) for line in (292, 323, 343)):
         row = train_timing[(name, bf16)]
-        per_path = {"training": train_launches[name]}
+        per_path = {"training": train_launches[name],
+                    "training_ctsma": ctsma_train_launches[name]}
         if name != "mau_attention_bwd":
             per_path["training_lc"] = lc_train_launches[name]
             per_path["training_sasrec_lc"] = sas_train_launches[name]
             per_path["training_bert4rec"] = b4_train_launches[name]
             per_path["training_bert4rec_lc"] = b4lc_train_launches[name]
+            per_path["training_ctsma_lc"] = ctlc_train_launches[name]
         entry = dict(name=name, route="cuda", source=csrc + source,
                      replaces=replaces, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=err,
@@ -2791,6 +3048,8 @@ def main() -> int:
                     "all_live", "sasrec_lc_padded")}
             entry["bert4rec_lc_shape"] = measured(
                 catalog_lc_timing["bert4rec_lc_masked"])
+        if name == "mau_attention_bwd":
+            entry["ctsma_shape"] = ctsma_timing[name]
         if name == "catalog_nll_fwd":
             entry["gemm_ms_for_scale"] = row["gemm_ms"]
             entry["sasrec_lc_shape"] = measured(catalog_lc_timing["forward"])
@@ -2801,9 +3060,11 @@ def main() -> int:
         name = fn.__name__
         row = streamed_timing[(name, bf16)]
         forward = fn in STREAMED
-        per_path = {"training_lc": lc_train_launches[name]}
+        per_path = {"training_lc": lc_train_launches[name],
+                    "training_ctsma_lc": ctlc_train_launches[name]}
         if forward:
             per_path["serving_lc"] = lc_launches[name]
+            per_path["serving_ctsma_lc"] = ctlc_launches[name]
         entry = dict(
             name=name, route="cuda",
             source=csrc + ("mau_streamed_fwd.cu" if forward
@@ -2814,6 +3075,7 @@ def main() -> int:
                          else streamed_bwd_errs["lc_bimau_bf16_drop"][name]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
+            ctsma_lc_causal_shape=measured(ctsma_lc_timing[(name, bf16)]),
             **{key: row[key] for key in ("ms_dropout_0_1",) if key in row})
         if forward:
             entry["sdpa_ms_for_scale"] = row["sdpa_ms"]
@@ -2856,6 +3118,16 @@ def main() -> int:
         + f" ms per B=512 batch on {card}")
     log(f"BERT4REC train: {b4_ms_step:.4f} ms/step, {b4_ex_s:.1f} ex/s at"
         f" B=512 on {card}")
+    log(f"CTSMA serving: {ctsma_seqs_s:.1f} eval seqs/s, recommend "
+        + ", ".join(f"{x * 1e3:.3f}" for x in ctsma_lat)
+        + f" ms per B=512 batch on {card}")
+    log(f"CTSMA train: {ctsma_ms_step:.4f} ms/step, {ctsma_ex_s:.1f} ex/s at"
+        f" B=512 on {card}")
+    log(f"CTSMA-LC serving: {ctlc_seqs_s:.1f} eval seqs/s, recommend "
+        + ", ".join(f"{x * 1e3:.3f}" for x in ctlc_lat)
+        + f" ms per B=8 batch on {card}")
+    log(f"CTSMA-LC train: {ctlc_ms_step:.4f} ms/step, {ctlc_ex_s:.1f} ex/s at"
+        f" B=8, L=2048 on {card}")
     for entry in kernels:
         entry["cuda_kernels"] = CUDA_KERNELS[entry["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")

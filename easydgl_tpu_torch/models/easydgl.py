@@ -176,7 +176,7 @@ class EasyDGL(SequentialModel):
         for i in range(cfg.num_blocks):
             blk = lambda name: getattr(self, f"block{i}_{name}")  # noqa: E731
             qpos = qpos_last if i == cfg.num_blocks - 1 else None
-            a, intny = blk("bimau")(x, key_mask, spans, marks,
+            a, intny = blk("bimau")(x, x, key_mask, spans, marks,
                                     query_positions=qpos, generator=gen)
             if qpos is not None:
                 x_res = torch.take_along_dim(x, qpos[:, :, None], dim=1)

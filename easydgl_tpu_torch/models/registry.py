@@ -1,7 +1,7 @@
 """Model factory (port of ``easydgl_tpu.models.registry``).
 
-EasyDGL, SASREC and BERT4REC are ported so far; the other eight models of
-the JAX zoo raise the JAX factory's ``NotImplementedError``.
+EasyDGL, SASREC, BERT4REC and CTSMA are ported so far; the other seven
+models of the JAX zoo raise the JAX factory's ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -11,10 +11,12 @@ from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.device import resolve_device
 from easydgl_tpu_torch.models.base import SequentialModel
 from easydgl_tpu_torch.models.bert4rec import BERT4REC
+from easydgl_tpu_torch.models.ctsma import CTSMA
 from easydgl_tpu_torch.models.easydgl import EasyDGL
 from easydgl_tpu_torch.models.sasrec import SASREC
 
-MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC, "BERT4REC": BERT4REC}
+MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC, "BERT4REC": BERT4REC,
+          "CTSMA": CTSMA}
 
 
 def model_class(cfg: Config) -> type:

@@ -1,9 +1,12 @@
-"""Self-modulating attention: ``MAU`` and ``BiMAU`` (port of the MAU family in
-``easydgl_tpu.nn.temporal``, reference src/module/temporal.py:267-452).
+"""Self-modulating attention: ``MAU``, ``BiMAU`` and ``MGAU`` (port of the MAU
+family in ``easydgl_tpu.nn.temporal``, reference src/module/temporal.py:267-508).
 
 A fourth projection T feeds a Hawkes-style intensity head; the attention
 probabilities are modulated elementwise by the per-(q, k) mark intensity.
-``BiMAU`` is bidirectional with the intensity diagonal reset to 1.
+``MAU`` (CTSMA's) projects its queries with ``q`` and its keys with ``k``,
+``v`` and ``t``, causal by default; ``BiMAU`` (EasyDGL's) is bidirectional
+with one fused Q|K|V|T projection and the intensity diagonal reset to 1;
+``MGAU`` is the fused projection without the reset (no model uses it).
 
 Two engines, chosen by ``intensity_impl`` (the models pick it with
 ``models.base.mau_impl``):
@@ -40,8 +43,10 @@ from easydgl_tpu_torch.nn.layers import Dense
 class MAU(nn.Module):
     """Returns (outputs, mark_intensity (B, H, Tq, E)).
 
-    Parameters (names match the flax module's leaves): ``qkvt`` — the fused
-    Q|K|V|T projection (``fused_qkvt``, as BiMAU uses); the intensity head's
+    Parameters (names match the flax module's leaves): with ``fused_qkvt``
+    the one Q|K|V|T projection ``qkvt`` (BiMAU, MGAU), else ``q`` (from the
+    queries) and ``k``, ``v``, ``t`` (from the keys), queries and keys both
+    ``in_units`` wide; the intensity head's
     ``intensity_dense_kernel`` (dh+1, E*dh), ``intensity_dense_bias``,
     ``intensity_weight`` (E, dh) and ``intensity_scaling`` (E,).
     ``intensity_impl``: ``"fused"`` or ``"streamed"`` (module docstring);
@@ -50,7 +55,7 @@ class MAU(nn.Module):
 
     def __init__(self, in_units: int, num_units: int, num_heads: int,
                  num_events: int, dropout_rate: float = 0.0, *,
-                 causal_default: bool = True,
+                 fused_qkvt: bool = False, causal_default: bool = True,
                  diag_reset: bool = False, intensity_impl: str = "fused",
                  block_k: int = 512,
                  compute_dtype: Optional[torch.dtype] = None, device=None):
@@ -63,11 +68,18 @@ class MAU(nn.Module):
         self.num_heads = num_heads
         self.num_events = num_events
         self.dropout_rate = dropout_rate
+        self.fused_qkvt = fused_qkvt
         self.causal_default = causal_default
         self.diag_reset = diag_reset
         dh = num_units // num_heads
-        self.qkvt = Dense(in_units, 4 * num_units,
-                          compute_dtype=compute_dtype, device=device)
+        kw = dict(compute_dtype=compute_dtype, device=device)
+        if fused_qkvt:
+            self.qkvt = Dense(in_units, 4 * num_units, **kw)
+        else:
+            self.q = Dense(in_units, num_units, **kw)
+            self.k = Dense(in_units, num_units, **kw)
+            self.v = Dense(in_units, num_units, **kw)
+            self.t = Dense(in_units, num_units, **kw)
 
         def empty(*shape):
             return nn.Parameter(torch.empty(*shape, device=device))
@@ -114,28 +126,45 @@ class MAU(nn.Module):
         num_events = next_mark_onehot.sum()
         return -(event_ll - non_event_ll) / num_events
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
-                intervals: torch.Tensor, mark_onehot: torch.Tensor, *,
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                key_mask: torch.Tensor, intervals: torch.Tensor,
+                mark_onehot: torch.Tensor, *,
                 query_positions: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Self-attention over x (B, T, Cin); key_mask (B, T) nonzero where
-        the key is real; intervals (B, T); mark_onehot (B, T, E).
+        """Attention of queries (B, Tq, Cin) over keys (B, Tk, Cin); key_mask
+        (B, Tk) nonzero where the key is real; intervals (B, Tq);
+        mark_onehot (B, Tk, E). The residual is ``queries[..., :C]``.
+        Self-attention passes one tensor twice (EasyDGL); the fused
+        projection then projects it once, and the split ones take Q from
+        the queries and K, V, T from the keys (CTSMA: LN(x) and x).
 
         query_positions: optional (B, M) positions — attention for ONLY
         those query rows (rows are independent, so the result equals the
-        full computation's rows there). generator: the training step's
-        generator; None is the deterministic case (no dropout)."""
-        qq, kk, vv, tt = self.qkvt(x).chunk(4, dim=-1)
+        full computation's rows there); with the fused projection only in
+        self-attention (``queries is keys``), as in JAX. generator: the
+        training step's generator; None is the deterministic case (no
+        dropout)."""
+        if self.fused_qkvt:
+            if query_positions is not None and queries is not keys:
+                raise ValueError(
+                    "query_positions with fused_qkvt requires self-attention"
+                    " (queries is keys); got distinct query/key arrays")
+            qq, kk, vv, tt = self.qkvt(
+                keys if query_positions is not None else queries
+            ).chunk(4, dim=-1)
+        else:
+            qq, kk = self.q(queries), self.k(keys)
+            vv, tt = self.v(keys), self.t(keys)
         if query_positions is not None:
             qpos = query_positions.long()
             qq = torch.take_along_dim(qq, qpos[:, :, None], dim=1)
-            q_res = torch.take_along_dim(x, qpos[:, :, None],
+            q_res = torch.take_along_dim(queries, qpos[:, :, None],
                                          dim=1)[:, :, :self.num_units]
             intervals = torch.take_along_dim(intervals, qpos, dim=1)
         else:
             qpos = None
-            q_res = x[:, :, :self.num_units]
+            q_res = queries[:, :, :self.num_units]
         rate = self.dropout_rate if generator is not None else 0.0
         seed = None
         if rate > 0.0:
@@ -164,6 +193,18 @@ def BiMAU(in_units: int, num_units: int, num_heads: int, num_events: int,
     """Bidirectional MAU (reference temporal.py:396-452): fused QKVT
     projection, no causal mask, intensity diagonal reset to 1."""
     return MAU(in_units, num_units, num_heads, num_events, dropout_rate,
-               causal_default=False, diag_reset=True,
+               fused_qkvt=True, causal_default=False, diag_reset=True,
+               intensity_impl=intensity_impl, block_k=block_k,
+               compute_dtype=compute_dtype, device=device)
+
+
+def MGAU(in_units: int, num_units: int, num_heads: int, num_events: int,
+         dropout_rate: float = 0.0, *, intensity_impl: str = "fused",
+         block_k: int = 512,
+         compute_dtype: Optional[torch.dtype] = None, device=None) -> MAU:
+    """Gated variant (reference temporal.py:455-508): fused QKVT
+    projection, no causal mask, no diagonal reset. No model uses it."""
+    return MAU(in_units, num_units, num_heads, num_events, dropout_rate,
+               fused_qkvt=True, causal_default=False, diag_reset=False,
                intensity_impl=intensity_impl, block_k=block_k,
                compute_dtype=compute_dtype, device=device)

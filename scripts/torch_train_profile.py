@@ -6,9 +6,11 @@ Runs ``build_train_step`` of easydgl_tpu_torch for a preset (default
 2048, B = 8, masklen 256; ``SASREC-LC`` the long-context SASRec, L = 2048,
 B = 32, every position scored; ``BERT4REC-LC`` the long-context BERT4Rec,
 L+1 = 2048, B = 32, masklen 256, non-causal flash attention; ``BERT4REC``
-at B = 512) with bf16 matmuls, the preset's dropout and loss terms
-(EasyDGL: TPP and L2, 64 marks looked up on the device; BERT4REC: sparse_ce
-and L2), TF-Adam, random weights from seed 0, over synthetic batches of the
+at B = 512; ``CTSMA`` at B = 512, L = 30, the fused MAU kernels causal at
+dh = 128; ``CTSMA-LC``, L = 2048, B = 8, the streamed kernels causal) with
+bf16 matmuls, the preset's dropout and loss terms (EasyDGL and CTSMA: TPP
+and L2, 64 marks looked up on the device; BERT4REC: sparse_ce and L2),
+TF-Adam, random weights from seed 0, over synthetic batches of the
 model's protocol already on the device, first unprofiled (host clock,
 synchronised) and then under ``torch.profiler``, and prints the host wall
 time per step of both runs, the device time by kernel and the share of the

@@ -1087,3 +1087,127 @@ def test_bert4rec_lc_model_kernels_match_plain_engine(cuda_device, rate):
             else want
         err = float((gk[pname] - want).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()), (pname, err)
+
+
+def _ctsma_batch(cfg, rows, seed, train, dev):
+    """A regressive_entire batch of ``cfg`` (left-padded synthetic
+    histories, start time 1e9 s, marks from a seeded table) on ``dev``."""
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+                                                  synthetic_split)
+    from easydgl_tpu_torch.train.steps import to_device
+    ds = synthetic_split(num_rows=rows, num_items=cfg.num_items,
+                         seqslen=cfg.seqslen, seed=seed)
+    f, lab, _ = next(BatchLoader(
+        ds, data_mode="regressive_entire", batch_size=rows,
+        is_training=train, needs_marks=True,
+        mark_table=synthetic_mark_table(cfg.num_items, cfg.num_events,
+                                        seed=seed)).epoch(0))
+    return to_device(f, dev), torch.as_tensor(lab, device=dev)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ctsma_lc_model_kernels_match_plain_engine(cuda_device, rate):
+    """A small fp32 CTSMA-LC (L=256, C=64, H=2, E=4, causal) on the card
+    with the seven streamed kernels against the same model with its
+    long-context engine's plain version (``long_context_engine``:
+    ``mau_blocked`` and ``_MauBlocked``), on the same generator seed (both
+    draw one dropout mask from it). Left-padded histories, so rows that see
+    no key under the causal mask, and an eval row with no key at all. Eval
+    logits and intensities to 1e-4; the training loss (its TPP term set by
+    those rows' raw spans) to 1e-5 relative and every gradient leaf to 1e-4
+    of its scale (a key bias, zero in exact arithmetic, to 1e-4 of its key
+    weight's); the streamed kernels launched once a block a pass."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import loss_and_grads
+    cfg = preset("CTSMA-LC", num_items=60, seqslen=256, num_units=64,
+                 num_heads=2, num_events=4, batch_size=3, ct_reg=1e-3,
+                 compute_dtype="float32", hidden_dropout_rate=rate,
+                 attention_probs_dropout_rate=rate)
+    params = random_flax_params(cfg, 0)
+    evalb = _ctsma_batch(cfg, 3, 2, False, cuda_device)
+    evalb[0]["seqs_i"][0] = 0            # a row that sees no key at all
+    trainb = _ctsma_batch(cfg, 3, 3, True, cuda_device)
+    ids = trainb[0]["seqs_i"]
+    assert bool((ids[:, 0] == 0).any()) and bool((ids[:, -1] != 0).all())
+    model_cls = type(build_model(cfg, device=cuda_device, params=params))
+    module, name, plain = model_cls.long_context_engine
+    saved, res = getattr(module, name), {}
+    for engine in ("kernels", "plain"):
+        model = build_model(cfg, device=cuda_device, params=params)
+        before = [fn.launches for fn in STREAMED_KERNELS]
+        if engine == "plain":
+            setattr(module, name, plain)
+        try:
+            with torch.no_grad():
+                logits, aux = model(evalb[0])
+            gen = torch.Generator(device=cuda_device).manual_seed(7)
+            loss, grads = loss_and_grads(model, *trainb, gen)
+        finally:
+            setattr(module, name, saved)
+        after = [fn.launches - b for fn, b in zip(STREAMED_KERNELS, before)]
+        assert after == ([2, 2, 2, 1, 1, 1, 1] if engine == "kernels"
+                         else [0] * 7)
+        res[engine] = (logits, aux["intensities"][0], float(loss), grads)
+    (lk, ik, loss_k, gk), (lp, ip, loss_p, gp) = res["kernels"], res["plain"]
+    assert bool(torch.isfinite(lk).all())
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ik, ip, atol=1e-4, rtol=1e-4)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for pname, want in gp.items():
+        ref = gp[pname[:-4] + "weight"] if pname.endswith("_mau.k.bias") \
+            else want
+        err = float((gk[pname] - want).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (pname, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ctsma_fused_case_matches_plain_version(cuda_device, dtype):
+    """The fused kernels as PRESETS["CTSMA"] drives them: dh = 128 (H = 4),
+    causal without the diagonal reset, dropout 0.2, distinct Q and K
+    tensors, on a CTSMA batch's key mask (left padding: rows that see no
+    key) and spans (unclipped: the last padding row's is the first real
+    item's whole timestamp, ~11,574 days), T = 30. The forward and the
+    backward against the plain versions, the same seed on both sides."""
+    from easydgl_tpu_torch.config import preset
+    cfg = preset("CTSMA", num_items=300, num_events=64)
+    feats, _ = _ctsma_batch(cfg, 6, 4, True, cuda_device)
+    ids = feats["seqs_i"]
+    b, t = ids.shape
+    ts = feats["seqs_t"] / cfg.time_scale
+    km = (ids != 0).float()
+    iv = ts[:, 1:] - ts[:, :-1]
+    assert t == 30 and float(iv.max()) > 1e4 and bool((km[:, 0] == 0).any())
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    h, dh, e = 4, 128, 64
+    q, k, v, tt = (torch.randn(b, t, h * dh, generator=g, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    oh = feats["seqs_marks"]
+    wd = torch.randn(dh + 1, e * dh, generator=g, device=cuda_device) * 0.2
+    bd = torch.randn(e * dh, generator=g, device=cuda_device) * 0.1
+    w = torch.randn(e, dh, generator=g, device=cuda_device) * 0.2
+    sc = torch.randn(e, generator=g, device=cuda_device) * 0.3
+    ts_ = [q, k, v, tt, km, iv, oh, wd, bd, w, sc]
+    diff = [x.clone().requires_grad_(i < 4 or i > 6)
+            for i, x in enumerate(ts_)]
+    seed = torch.tensor(1234, device=cuda_device)
+    before = (mau_attention.launches, mau_attention_bwd.launches)
+    out, lam = mau_attention(*diff, True, False, 0.2, num_heads=h,
+                             dropout_seed=seed)
+    want_o, want_l = mau_attention_reference(
+        *ts_, causal=True, diag_reset=False, dropout_rate=0.2,
+        dropout_seed=seed, num_heads=h)
+    go = torch.randn(out.shape, generator=g, device=cuda_device).to(dtype)
+    gl = torch.randn(lam.shape, generator=g, device=cuda_device)
+    grads = torch.autograd.grad((out.float() * go.float()).sum()
+                                + (lam * gl).sum(),
+                                [diff[i] for i in (0, 1, 2, 3, 7, 8, 9, 10)])
+    assert (mau_attention.launches, mau_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _check_by_scale(dtype, (out, lam), (want_o, want_l), "forward")
+    want = mau_attention_bwd_reference(
+        *ts_, go, gl, causal=True, diag_reset=False, dropout_rate=0.2,
+        dropout_seed=seed, num_heads=h)
+    _check_by_scale(dtype, grads, want, "backward")

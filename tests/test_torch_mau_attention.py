@@ -153,10 +153,12 @@ def test_mau_module_matches_jax_xla_engine(bidirectional, gathered):
     if bidirectional:
         tm = BiMAU(3 * c, c, H, E)
     else:
-        tm = MAU(3 * c, c, H, E, causal_default=True, diag_reset=False)
+        tm = MAU(3 * c, c, H, E, fused_qkvt=True, causal_default=True,
+                 diag_reset=False)
     tm.load_state_dict(flax_to_torch({"params": p}))
     with torch.no_grad():
-        to, tl = tm(torch.tensor(x), torch.tensor(km), torch.tensor(iv),
+        tx = torch.tensor(x)
+        to, tl = tm(tx, tx, torch.tensor(km), torch.tensor(iv),
                     torch.tensor(oh), query_positions=None if qpos is None
                     else torch.tensor(qpos))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)

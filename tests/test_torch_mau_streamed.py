@@ -185,13 +185,13 @@ def test_mau_module_streamed_engine_matches_jax_xla_mau(dh):
     tm = BiMAU(3 * c, c, H, E, intensity_impl="streamed", block_k=BK)
     tm.load_state_dict(flax_to_torch({"params": p}))
     with torch.no_grad():
-        to, tl = tm(*(torch.tensor(a) for a in (x, km, iv, oh)))
+        to, tl = tm(*(torch.tensor(a) for a in (x, x, km, iv, oh)))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     # the interval term counts at dh = 128 (the JAX streamed kernel's C2)
     with torch.no_grad():
         _, tl0 = tm(*(torch.tensor(a) for a in
-                      (x, km, np.zeros_like(iv), oh)))
+                      (x, x, km, np.zeros_like(iv), oh)))
     assert float((tl - tl0).abs().max()) > 1e-2
     with pytest.raises(ValueError, match="intensity_impl"):
         MAU(3 * c, c, H, E, intensity_impl="blocked")
