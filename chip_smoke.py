@@ -193,7 +193,9 @@ CUDA_KERNELS = {
                           "mau_int_fwd_tc_kernel<64, 1>",
                           "mau_fwd_post_kernel<64>"],
     "mau_attention_bwd": ["mau_bwd_attn<bf16, 64, 1>", "mau_bwd_int_tc<64>",
-                          "mau_bwd_attn<bf16, 64, 2>"],
+                          "mau_bwd_attn<bf16, 64, 2>",
+                          "mau_bwd_attn<bf16, 128, 1>", "mau_bwd_int_tc<128>",
+                          "mau_bwd_attn<bf16, 128, 2>"],
     "catalog_nll_fwd": ["catalog_fwd_tc_kernel", "catalog_merge"],
     "catalog_nll_bwd": ["catalog_bwd_tc_kernel<1>",
                         "catalog_bwd_tc_kernel<2>"],
@@ -645,6 +647,14 @@ MAU_BWD_CASES = (
     ("dh128_bimau_fp32_drop", DH128, torch.float32, False, True, False, 0.1),
     ("ctsma_causal_dh128_bf16_drop", CTSMA_CHECK, torch.bfloat16, True,
      False, False, 0.2),
+    # the tensor-core path at dh = 128: gathered queries (Tq < Tk), and
+    # Tk = 128, where 16 query rows a block (qc < Tq) sum the key gradients
+    # in fp32 across blocks
+    ("dh128_bimau_qpos_tq6_bf16", dict(DH128, tq=6), torch.bfloat16, False,
+     True, True, 0.1),
+    ("tk128_dh128_causal_bf16", dict(b=16, tq=128, tk=128, h=4, dh=128,
+                                     e=64), torch.bfloat16, True, False,
+     False, 0.1),
 )
 
 
@@ -2155,10 +2165,16 @@ def phase_ctsma_kernel_timing():
         f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
         f" {flops / 1e9:.1f} GFLOP)  kernel/bound {ms / bound_ms:.1f}x;"
         f" special-function floor {special_floor_ms(sigmoids):.4f} ms"
-        f" ({sigmoids / 1e6:.1f} M sigmoids, one op each); at dh = 128 the"
-        f" bf16 backward runs on the CUDA cores (kFull + weights)")
+        f" ({sigmoids / 1e6:.1f} M sigmoids, one op each)")
     log("    by kernel: " + ", ".join(f"{n} {x:.4f} ms"
                                       for n, x in split.items()))
+    # the tensor-core path: kPre, the wgmma intensity head, kPost; neither
+    # kFull (mode 0) nor mau_bwd_weights
+    check(any(n.startswith("mau_bwd_int_tc<128") for n in split)
+          and {m for n in split for m in re.findall(
+              r"^mau_bwd_attn<.*, (\d)>$", n)} == {"1", "2"}
+          and not any("mau_bwd_weights" in n for n in split),
+          f"CTSMA backward: not the tensor-core path ({', '.join(split)})")
     rows["mau_attention_bwd"] = dict(ms=ms, plain_ms=plain_ms,
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      by_kernel=split)

@@ -23,31 +23,38 @@
 // products of (rows x 65) by (65 x 4096) (z once, dx and dWd), ~203 GFLOP
 // (0.21 ms at 989 TFLOP/s), and the sigmoids of 520 M entries: at one
 // special-function op each, 0.124 ms of the SM's 16 such ops a clock
-// (chip_smoke.py phase 4b); the exact form takes two.
+// (chip_smoke.py phase 4b); the exact form takes two. At the CTSMA train
+// shape (B=512, H=4, Tq=Tk=30, dh=128: 61,440 rows by 129 lanes by E*dh =
+// 8,192 columns) the same three products are ~390 GFLOP (0.39 ms) over 503
+// M sigmoids.
 //
-// bf16, dh <= 64 (the main path): three kernels.
+// bf16 (the main path, every dh): three kernels.
 //
 // * mau_bwd_attn<kPre>: one block per (b, h, chunk of <= 32 query rows) on
 //   the CUDA cores: probs from q and k, dmod, dv, dint, dlam, draw, d
-//   scaling and x. It writes x (bf16, 64 lanes), rnd(draw) transposed
-//   (bf16 (E, rows)), and probs and dprobs = dmod iqk (fp32 (rows, Tk), 31
-//   MB at the flagship shape) for kPost, which reads them rather than
-//   recomputing the attention side.
+//   scaling and x. It writes x (bf16, 64 lanes at dh <= 64, zero past dh;
+//   128 at dh = 128), rnd(draw) transposed (bf16 (E, rows)), and probs and
+//   dprobs = dmod iqk (fp32 (rows, Tk), 31 MB at the flagship shape) for
+//   kPost, which reads them rather than recomputing the attention side.
 // * mau_bwd_int_tc: the intensity head's three products on wgmma m64n64k16
 //   with TMA-fed operands, z and dz formed once per (64-row tile, 64-column
 //   tile). A block owns 128 columns of Wd (two consumer warpgroups, 64
 //   each, and a producer warp) and a chunk of row tiles (mau_bwd_int_plan:
-//   about eight waves of blocks). Its two Wd tiles stay resident; each row
-//   tile's x, draw rows and intervals stream through a three-stage ring.
-//   Per row tile a warpgroup forms z^T = Wd^T x^T (A: Wd^T in registers),
-//   sig (the exact form, two special-function ops: see the kernel) and dz
-//   in packed bf16x2 at the plain version's rounding points, sums dbd, dw
-//   and the interval lane of dWd in registers, adds dWd^T += dz^T x (A: dz^T
-//   from the accumulators; dWd^T stays in registers over the chunk) and
-//   stores dz in shared memory; then each warpgroup forms dx^T of 32 of the
-//   tile's rows over the block's 128 columns (A: the Wd tiles, B: both
-//   warpgroups' dz) and adds it to an fp32 (64, rows) workspace by TMA
-//   reduce-add (cp.reduce.async.bulk). (Alternating whole tiles between the
+//   about eight waves of blocks). Its Wd tiles stay resident (two, or four
+//   at dh = 128: each column tile's two 64-lane halves); each row tile's x
+//   (one or two 64-lane halves), draw rows and intervals stream through a
+//   three-stage ring. Per row tile a warpgroup forms z^T = Wd^T x^T (A:
+//   Wd^T in registers at dh <= 64; at dh = 128 from the resident tiles,
+//   MN-major, K = 128 in eight steps), sig (the exact form, two
+//   special-function ops: see the kernel) and dz in packed bf16x2 at the
+//   plain version's rounding points, sums dbd, dw and the interval lane of
+//   dWd in registers, adds dWd^T += dz^T x (A: dz^T from the accumulators;
+//   dWd^T, 64 columns by 64 lanes a half, stays in registers over the
+//   chunk) and stores dz in shared memory; then each warpgroup forms dx^T
+//   of 32 of the tile's rows over the block's 128 columns (A: the Wd tiles,
+//   B: both warpgroups' dz), one 64-lane half at a time, and adds each half
+//   to an fp32 (64 or 128 lanes, rows) workspace by TMA reduce-add
+//   (cp.reduce.async.bulk). (Alternating whole tiles between the
 //   warpgroups put that product in a branch, on which ptxas of CUDA 12.9
 //   crashed.) Only one of the two sums can stay in registers.
 //   Reduce traffic at the flagship shape:
@@ -60,16 +67,18 @@
 //         a warpgroup and block at the end (35 MB), dbd, dw, the interval
 //         lane by 0.4 M atomics.
 //   This kernel is (b): the same traffic for dx, and the column sums stay
-//   in registers. (a) was not built.
+//   in registers. (a) was not built. At dh = 128 (CTSMA: 61,440 rows, E*dh
+//   = 8,192) dx^T is twice as wide: 64 x 960 x 32 KB = 2.01 GB.
+//   Registers at dh = 128: dWd^T (64 a thread), z^T (32), a dx^T half (16)
+//   and the dz^T fragments (16) fit the 232 a consumer thread has; taking
+//   z^T's A from shared memory spares the 32 of Wd^T's fragments, and one
+//   dx^T half at a time the 16 of the other.
 // * mau_bwd_attn<kPost>: reads probs, dprobs and dseq; dprobs += dseq t^T,
 //   dt, dlogit, dq, dk on the CUDA cores.
 //
-// fp32, and bf16 at dh = 128: mau_bwd_attn<kFull> (the whole attention
-// side, and dx with z recomputed on the CUDA cores, intensity_bwd_scalar)
-// then mau_bwd_weights (dWd, dbd, dw on the CUDA cores, z formed again). At
-// dh = 128 the tensor-core kernel would hold dWd^T and dx^T of 64 x 128
-// (128 fp32) and z^T (32) a thread beside 64 registers of fragments: past
-// the 232 a consumer thread has.
+// fp32 (the checks): mau_bwd_attn<kFull> (the whole attention side, and dx
+// with z recomputed on the CUDA cores, intensity_bwd_scalar) then
+// mau_bwd_weights (dWd, dbd, dw on the CUDA cores, z formed again).
 //
 // Precision contract (mirrors the TPU kernel): in bf16 mode the operands of
 // every product are rounded to bf16 where the TPU kernel rounds them (probs,
@@ -79,7 +88,8 @@
 // nothing is rounded and the sigmoid is exact.
 //
 // Limits: 1 <= Tq <= Tk <= 128, dh in {16, 32, 64, 128}, shared memory
-// (mau_attention_bwd_smem_bytes) within 227 KB.
+// (mau_attention_bwd_smem_bytes: kPre's in bf16, kFull's in fp32) within
+// 227 KB.
 
 #include "hopper.cuh"
 
@@ -121,13 +131,13 @@ struct Params {
   float* dk_acc;           // ... or fp32 sums (several chunks), else null
   float* dv_acc;
   float* dt_acc;
-  void* x_out;             // fp32 (rows, dh+1); tensor cores: bf16 (rows_pad, 64)
+  void* x_out;             // fp32 (rows, dh+1); tensor cores: bf16 (rows_pad, x_lanes(dh))
   void* draw_out;          // fp32 (rows, E); tensor cores: bf16 rnd(draw) (>= E, rows_pad)
   float* probs_ws;         // tensor cores: (rows, Tk) probs, kPre -> kPost
   float* dprobs_ws;        // tensor cores: (rows, Tk) dmod iqk
-  float* dseq_ws;          // tensor cores: (64, rows_pad) dseq^T sums, zeroed
+  float* dseq_ws;          // tensor cores: (x_lanes(dh), rows_pad) dseq^T sums, zeroed
   float* dscaling;         // (E,) fp32, summed atomically
-  float* dwd;              // (dh+1, E*dh) fp32; tensor cores: dWd^T (>= E*dh, 64), zeroed
+  float* dwd;              // (dh+1, E*dh) fp32; tensor cores: dWd^T (>= E*dh, x_lanes(dh)), zeroed
   float* dwd_iv;           // tensor cores: (E*dh,) the interval lane of dWd, zeroed
   float* dbd;              // (E*dh,)
   float* dw;               // (E*dh,)
@@ -136,6 +146,10 @@ struct Params {
 };
 
 __host__ __device__ inline int row_stride(int dh) { return dh + 4; }
+// Lanes of the tensor-core path's x rows, dseq^T and dWd^T: 64 (zero past
+// dh) at dh <= 64, 128 at dh = 128; two 64-lane halves there.
+__host__ __device__ constexpr int x_lanes(int dh) { return dh > 64 ? 128 : 64; }
+__host__ __device__ constexpr int int_halves(int dh) { return x_lanes(dh) / 64; }
 __host__ __device__ inline int event_stride(int E) { return round_up(E, 4) + 4; }
 
 // The modes of mau_bwd_attn (see the kernel).
@@ -177,6 +191,14 @@ __host__ __device__ inline size_t smem_bytes(int qc, int Tk, int dh, int E, int 
   const Layout l = layout(qc, Tk, dh, E, mode);
   return sizeof(float) *
          (size_t)(l.k + l.t + l.v + l.q + l.go + 3 * l.p + 2 * l.lam + l.oh + l.dsc + l.small);
+}
+
+// The most of it that a launch needs: kPre's and kPost's on the tensor-core
+// path (kPre's is the larger), kFull's on the other.
+inline size_t attn_smem_bytes(int qc, int Tk, int dh, int E, bool tc) {
+  if (!tc) return smem_bytes(qc, Tk, dh, E, kFull);
+  const size_t pre = smem_bytes(qc, Tk, dh, E, kPre), post = smem_bytes(qc, Tk, dh, E, kPost);
+  return pre > post ? pre : post;
 }
 
 template <typename T>
@@ -277,16 +299,17 @@ __device__ void intensity_bwd_scalar(const Params& p, const float* xs, int ldh,
 // The attention side, one block per (b, h, chunk of <= 32 query rows), in
 // one of three modes:
 //
-// * kFull (fp32; bf16 at dh = 128): the whole backward of its rows: probs
+// * kFull (fp32): the whole backward of its rows: probs
 //   from q and k, everything of the attention side, dlam, draw and d
 //   scaling, dx on the CUDA cores (intensity_bwd_scalar), and it writes x =
 //   [su | interval] and draw for mau_bwd_weights.
-// * kPre (bf16, dh <= 64), before mau_bwd_int_tc: probs, dv, dlam, draw, d
-//   scaling and x; writes x (bf16 rows 64 lanes wide, zero past dh),
-//   rnd(draw) transposed (E, rows) in bf16, and probs and dprobs = dmod iqk
-//   (fp32 (rows, Tk)) for kPost.
-// * kPost (bf16, dh <= 64), after it: reads probs, dprobs and dseq (the
-//   fp32 (64, rows) sums of mau_bwd_int_tc), and forms dt, dlogit, dq, dk.
+// * kPre (bf16), before mau_bwd_int_tc: probs, dv, dlam, draw, d scaling
+//   and x; writes x (bf16 rows x_lanes(DH) wide, zero past dh), rnd(draw)
+//   transposed (E, rows) in bf16, and probs and dprobs = dmod iqk (fp32
+//   (rows, Tk)) for kPost.
+// * kPost (bf16), after it: reads probs, dprobs and dseq (the fp32
+//   (x_lanes(DH), rows) sums of mau_bwd_int_tc), and forms dt, dlogit, dq,
+//   dk.
 
 template <typename T, int DH, int MODE>
 __global__ void __launch_bounds__(kThreads, MODE == kFull ? 1 : 3) mau_bwd_attn(const Params p) {
@@ -460,14 +483,15 @@ __global__ void __launch_bounds__(kThreads, MODE == kFull ? 1 : 3) mau_bwd_attn(
     for (int e = tid; e < E; e += kThreads) atomicAdd(p.dscaling + e, dsc_s[e]);
 
     // ---- phase 3: x = [probs @ t | interval] (rounded)
-    if constexpr (MODE == kPre) {  // the seq_units lanes, 64 wide, zero past DH
-      __nv_bfloat16* xg = static_cast<__nv_bfloat16*>(p.x_out) + row0 * 64;
-      for (int idx = tid; idx < nq * 64; idx += kThreads) {
-        const int i = idx / 64, d = idx - i * 64;
+    if constexpr (MODE == kPre) {  // the seq_units lanes, x_lanes(DH) wide, zero past DH
+      constexpr int XL = x_lanes(DH);
+      __nv_bfloat16* xg = static_cast<__nv_bfloat16*>(p.x_out) + row0 * XL;
+      for (int idx = tid; idx < nq * XL; idx += kThreads) {
+        const int i = idx / XL, d = idx - i * XL;
         float acc = 0.f;
         if (d < DH)
           for (int j = 0; j < Tk; ++j) acc = fmaf(rnd<T>(ps[i * Tk + j]), ts[j * ldh + d], acc);
-        xg[(size_t)i * 64 + d] = __float2bfloat16(acc);
+        xg[(size_t)i * XL + d] = __float2bfloat16(acc);
       }
       return;
     }
@@ -627,27 +651,33 @@ constexpr int kIntGroups = 2;                         // consumer warpgroups
 constexpr int kIntCols = 64 * kIntGroups;             // Wd columns a block
 constexpr int kIntThreads = 128 * (kIntGroups + 1);   // and a producer warpgroup
 constexpr int kIntEventsMax = kIntCols / 16;          // events a block at dh = 16
-// A consumer thread holds z^T, dWd^T and dx^T (96 fp32), the Wd^T and dz^T
-// fragments (32) and its columns' sums; 40 + 2 x 232 of a warpgroup thread
-// fit the 65,536 of an SM.
+// A consumer thread holds z^T (32 fp32), dWd^T (32 a 64-lane half), a dx^T
+// half (16), the dz^T fragments (16), at dh <= 64 the Wd^T fragments (16),
+// and its columns' sums; 40 + 2 x 232 of a warpgroup thread fit the 65,536
+// of an SM.
 constexpr int kIntProducerRegs = 40, kIntConsumerRegs = 232;
 constexpr int kTile = 64 * 64;                        // bf16 values of a (64 x 64) tile, 8 KB
 
-// Dynamic shared memory of mau_bwd_int_tc, in bytes: the block's two Wd
-// tiles; per stage an x tile, the draw rows of the block's events and the
-// intervals; dz^T of both warpgroups, double-buffered; an fp32 (64 x 64)
-// staging tile a warpgroup for the reductions; the mbarriers; 1 KB slack.
-constexpr size_t kIntSmem = 1024 + sizeof(__nv_bfloat16) * kTile * (kIntGroups + kIntStages + 2 * kIntGroups) +
-                            sizeof(float) * kTile * kIntGroups +
-                            kIntStages * (sizeof(__nv_bfloat16) * kIntEventsMax * 64 + sizeof(float) * 64) +
-                            8 * (1 + 2 * kIntStages);
+// Dynamic shared memory of mau_bwd_int_tc<dh>, in bytes: the block's Wd
+// tiles (two column tiles by int_halves(dh) lane halves); per stage x's
+// lane halves, the draw rows of the block's events and the intervals; dz^T
+// of both warpgroups, double-buffered; an fp32 (64 x 64) staging tile a
+// warpgroup for the reductions; the mbarriers; 1 KB slack. 109 KB at dh <=
+// 64, 149 KB at dh = 128.
+__host__ __device__ constexpr size_t int_smem_bytes(int dh) {
+  return 1024 +
+         sizeof(__nv_bfloat16) * kTile * (int_halves(dh) * (kIntGroups + kIntStages) + 2 * kIntGroups) +
+         sizeof(float) * kTile * kIntGroups +
+         kIntStages * (sizeof(__nv_bfloat16) * kIntEventsMax * 64 + sizeof(float) * 64) +
+         8 * (1 + 2 * kIntStages);
+}
 
 struct IntMaps {
-  CUtensorMap wd;    // bf16 Wd (dh lanes, E*dh): boxes 64 lanes x 64 columns
-  CUtensorMap x;     // bf16 x (rows, 64 lanes): boxes 64 rows x 64 lanes
+  CUtensorMap wd;    // bf16 Wd (x_lanes, E*dh): boxes 64 lanes x 64 columns
+  CUtensorMap x;     // bf16 x (rows, x_lanes): boxes 64 rows x 64 lanes
   CUtensorMap draw;  // bf16 rnd(draw) (E, rows): boxes of the block's events x 64 rows
-  CUtensorMap dseq;  // fp32 dseq^T workspace (64 lanes, rows): boxes 64 lanes x 32 rows
-  CUtensorMap dwd;   // fp32 dWd^T workspace (E*dh, 64 lanes): boxes 64 columns x 32 lanes
+  CUtensorMap dseq;  // fp32 dseq^T workspace (x_lanes, rows): boxes 64 lanes x 32 rows
+  CUtensorMap dwd;   // fp32 dWd^T workspace (E*dh, x_lanes): boxes 64 columns x 32 lanes
 };
 
 
@@ -679,12 +709,13 @@ template <int DH>
 __global__ void __launch_bounds__(kIntThreads, 1)
     mau_bwd_int_tc(const Params p, const __grid_constant__ IntMaps maps) {
   using bf16 = __nv_bfloat16;
+  constexpr int KH = int_halves(DH);  // 64-lane halves of x and of each Wd column tile
   constexpr int EPB = kIntCols / DH;  // events a block
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* wds = reinterpret_cast<bf16*>(base);         // [group][64 lanes][64 columns]
-  bf16* xs = wds + kIntGroups * kTile;               // [stage][64 rows][64 lanes]
-  bf16* dzt = xs + kIntStages * kTile;               // [buffer][group][64 rows][64 columns]
+  bf16* wds = reinterpret_cast<bf16*>(base);         // [group][half][64 lanes][64 columns]
+  bf16* xs = wds + kIntGroups * KH * kTile;          // [stage][half][64 rows][64 lanes]
+  bf16* dzt = xs + kIntStages * KH * kTile;          // [buffer][group][64 rows][64 columns]
   float* stg = reinterpret_cast<float*>(dzt + 2 * kIntGroups * kTile);  // [group][2][64][32]
   // [stage][EPB events][64 rows], 128-byte swizzle
   bf16* drs = reinterpret_cast<bf16*>(stg + kIntGroups * kTile);
@@ -715,8 +746,10 @@ __global__ void __launch_bounds__(kIntThreads, 1)
     regs_dec<kIntProducerRegs>();
     if (warp > 4 * kIntGroups) return;
     if (lane == 0) {
-      mbar_arrive_tx(wd_full, kIntGroups * kTile * sizeof(bf16));
-      for (int w = 0; w < kIntGroups; ++w) tma_2d(wds + w * kTile, &maps.wd, wd_full, c0 + 64 * w, 0);
+      mbar_arrive_tx(wd_full, kIntGroups * KH * kTile * sizeof(bf16));
+      for (int w = 0; w < kIntGroups; ++w)
+        for (int lh = 0; lh < KH; ++lh)
+          tma_2d(wds + (w * KH + lh) * kTile, &maps.wd, wd_full, c0 + 64 * w, 64 * lh);
     }
     for (int it = 0; it < ntiles; ++it) {
       const int s = it % kIntStages, r0 = (t_begin + it) * 64;
@@ -728,8 +761,8 @@ __global__ void __launch_bounds__(kIntThreads, 1)
                                      : 0.f;
       }
       if (lane == 0) {
-        mbar_arrive_tx(full + s, (kTile + EPB * 64) * sizeof(bf16));
-        tma_2d(xs + s * kTile, &maps.x, full + s, 0, r0);
+        mbar_arrive_tx(full + s, (KH * kTile + EPB * 64) * sizeof(bf16));
+        for (int lh = 0; lh < KH; ++lh) tma_2d(xs + (s * KH + lh) * kTile, &maps.x, full + s, 64 * lh, r0);
         tma_2d(drs + s * kIntEventsMax * 64, &maps.draw, full + s, r0, e0);
       } else {
         mbar_arrive(full + s);
@@ -747,19 +780,22 @@ __global__ void __launch_bounds__(kIntThreads, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const bool issuer = (threadIdx.x & 127) == 0;  // of the warpgroup's reductions
   float* stw = stg + wg * kTile;
-  // Wd^T of the warp's columns as A fragments: k step kk (lanes 16 kk ..),
-  // entry i at column n0 + 16 warp + g + 8 (i & 1), lanes 16 kk + 8 (i >> 1)
-  // + 2 t4 (+1); rounded to bf16, zero past dh and past E*dh
-  uint32_t wf[16];
+  // dh <= 64: Wd^T of the warp's columns as A fragments: k step kk (lanes
+  // 16 kk ..), entry i at column n0 + 16 warp + g + 8 (i & 1), lanes 16 kk +
+  // 8 (i >> 1) + 2 t4 (+1); rounded to bf16, zero past dh and past E*dh.
+  // dh = 128: z^T's A is read from the resident Wd tiles instead.
+  uint32_t wf[KH == 1 ? 16 : 1];
+  if constexpr (KH == 1) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = n0 + 16 * warp + g + 8 * (i & 1), ln = 16 * kk + 8 * (i >> 1) + 2 * t4;
-      const bool ok = col < EDH;
-      wf[4 * kk + i] = pack2(ok && ln < DH ? p.wd[(size_t)ln * EDH + col] : 0.f,
-                                 ok && ln + 1 < DH ? p.wd[(size_t)(ln + 1) * EDH + col] : 0.f);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const int col = n0 + 16 * warp + g + 8 * (i & 1), ln = 16 * kk + 8 * (i >> 1) + 2 * t4;
+        const bool ok = col < EDH;
+        wf[4 * kk + i] = pack2(ok && ln < DH ? p.wd[(size_t)ln * EDH + col] : 0.f,
+                               ok && ln + 1 < DH ? p.wd[(size_t)(ln + 1) * EDH + col] : 0.f);
+      }
+  }
   // the thread's columns: bd, rnd(w), rnd(Wd[dh]) (the interval lane), the
   // event's row in the stage's draw rows, and the sums over rows
   float bdv[2], wiv[2], dw[2] = {0.f, 0.f}, dbd[2] = {0.f, 0.f}, giv[2] = {0.f, 0.f};
@@ -776,22 +812,31 @@ __global__ void __launch_bounds__(kIntThreads, 1)
     el[hm] = (64 * wg + m) / DH;
   }
   const uint64_t wdd = sw128_desc(wds);
-  float gwd[32];  // dWd^T at (column, lane 8 n + 2 t4 + c)
+  const uint64_t wda = wdd + 512 * KH * wg;  // the warpgroup's column tile, its lane halves
+  float gwd[KH][32];  // dWd^T of lane half lh at (column, lane 64 lh + 8 n + 2 t4 + c)
 #pragma unroll
-  for (int i = 0; i < 32; ++i) gwd[i] = 0.f;
+  for (int lh = 0; lh < KH; ++lh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gwd[lh][i] = 0.f;
   const __nv_bfloat162 one2 = __floats2bfloat162_rn(1.f, 1.f);
   mbar_wait(wd_full, 0);
 
   for (int it = 0; it < ntiles; ++it) {
     const int s = it % kIntStages, buf = it & 1, r0 = (t_begin + it) * 64;
     mbar_wait(full + s, (it / kIntStages) & 1);
-    const uint64_t xd = sw128_desc(xs + s * kTile);
+    const uint64_t xd = sw128_desc(xs + s * KH * kTile);
     float zt[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) zt[i] = 0.f;
     wg_fence();
+    if constexpr (KH == 1) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T
+    } else {  // z^T = Wd^T x^T over both lane halves, A MN-major from the Wd tiles
+#pragma unroll
+      for (int kk = 0; kk < 4 * KH; ++kk)
+        wgmma_ss<1, 0>(zt, wda + 512 * (kk >> 2) + 128 * (kk & 3), xd + 512 * (kk >> 2) + 2 * (kk & 3), 1);
+    }
     wg_commit();
     wg_wait();
     reg_fence(zt);
@@ -832,7 +877,10 @@ __global__ void __launch_bounds__(kIntThreads, 1)
     }
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(gwd, dzf + 4 * kk, xd + 128 * kk);  // dWd^T += dz^T x
+    for (int lh = 0; lh < KH; ++lh)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(gwd[lh], dzf + 4 * kk, xd + 512 * lh + 128 * kk);  // dWd^T += dz^T x
     wg_commit();
     // dz (64 rows x the warpgroup's 64 columns) into the buffer's tile of
     // this warpgroup, 128-byte swizzle: the K-major B operand of dx^T
@@ -849,32 +897,41 @@ __global__ void __launch_bounds__(kIntThreads, 1)
         }
     fence_async_smem();
     wg_wait();
-    reg_fence(gwd);
-    mbar_arrive(empty + s);  // the stage's x tile, draw rows and intervals are free
+#pragma unroll
+    for (int lh = 0; lh < KH; ++lh) reg_fence(gwd[lh]);
+    mbar_arrive(empty + s);  // the stage's x tiles, draw rows and intervals are free
     named_sync(1, 128 * kIntGroups);  // both warpgroups' dz^T of this tile are in shared memory
 
     // dx^T of the warpgroup's 32 rows of the tile over the block's 128
-    // columns (A: the Wd tiles; B: both warpgroups' dz, rows 32 wg ..),
-    // added to the workspace by TMA
-    float xt[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) xt[i] = 0.f;
+    // columns (A: the Wd tiles of lane half lh; B: both warpgroups' dz, rows
+    // 32 wg ..), one lane half at a time, each added to the workspace by TMA
+    // from its own half of the staging tile
     const uint64_t dzd = sw128_desc(dzt + buf * kIntGroups * kTile) + 256 * wg;
-    wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 2 * 4; ++kk)
-      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);
-    wg_commit();
-    wg_wait();
-    reg_fence(xt);
-    if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    named_sync(2 + wg, 128);  // the last reduction has read the staging tile
-    stage_half(stw, xt, warp, lane);
-    fence_async_smem();
-    named_sync(2 + wg, 128);
-    if (issuer) {
-      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    for (int lh = 0; lh < KH; ++lh) {
+      float xt[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) xt[i] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2 * 4; ++kk)
+        wgmma_ss_n32(xt, wdd + 512 * ((kk >> 2) * KH + lh) + 2 * (kk & 3),
+                     dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);
+      wg_commit();
+      wg_wait();
+      reg_fence(xt);
+      if (lh == 0) {
+        if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        named_sync(2 + wg, 128);  // the last tile's reductions have read the staging tile
+      }
+      float* sth = stw + 2048 * lh;
+      stage_half(sth, xt, warp, lane);
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+      if (issuer) {
+        tma_reduce_add_2d(&maps.dseq, sth, r0 + 32 * wg, 64 * lh);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
   }
 
@@ -896,20 +953,23 @@ __global__ void __launch_bounds__(kIntThreads, 1)
       atomicAdd(p.dwd_iv + col, v);
     }
   }
-  if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  named_sync(2 + wg, 128);
-  // the two 32-lane halves of dWd^T: entries 16 .. of the accumulator
-  // are its lanes 32 ..
-  stage_half(stw, reinterpret_cast<const float(&)[16]>(gwd[0]), warp, lane);
-  stage_half(stw + 2048, reinterpret_cast<const float(&)[16]>(gwd[16]), warp, lane);
-  fence_async_smem();
-  named_sync(2 + wg, 128);
-  if (issuer) {
-    tma_reduce_add_2d(&maps.dwd, stw, 0, n0);
-    tma_reduce_add_2d(&maps.dwd, stw + 2048, 32, n0);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  // each lane half of dWd^T as two 32-lane boxes: entries 16 .. of the
+  // half's accumulator are its lanes 32 ..
+#pragma unroll
+  for (int lh = 0; lh < KH; ++lh) {
+    if (issuer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync(2 + wg, 128);
+    stage_half(stw, reinterpret_cast<const float(&)[16]>(gwd[lh][0]), warp, lane);
+    stage_half(stw + 2048, reinterpret_cast<const float(&)[16]>(gwd[lh][16]), warp, lane);
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+    if (issuer) {
+      tma_reduce_add_2d(&maps.dwd, stw, 64 * lh, n0);
+      tma_reduce_add_2d(&maps.dwd, stw + 2048, 64 * lh + 32, n0);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
   }
+  if (issuer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <typename K>
@@ -935,9 +995,10 @@ cudaError_t launch_attn(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// kFull then mau_bwd_weights: fp32, and bf16 at dh = 128.
-template <typename T, int DH>
+// kFull then mau_bwd_weights: fp32.
+template <int DH>
 cudaError_t launch_full(const Params& p, cudaStream_t stream) {
+  using T = float;
   cudaError_t e = launch_attn<T, DH, kFull>(p, stream);
   if (e != cudaSuccess) return e;
   const long long rows = (long long)p.B * p.H * p.Tq;
@@ -960,8 +1021,8 @@ bool map_2d(CUtensorMap* map, CUtensorMapDataType type, size_t item, const void*
   return encode_map(map, type, 2, ptr, dims, strides, box);
 }
 
-// kPre, mau_bwd_int_tc, kPost: bf16 at dh <= 64. The workspaces cover
-// rows_pad rows (a multiple of 64) and E*dh rounded up to 128 columns, so
+// kPre, mau_bwd_int_tc, kPost: bf16. The workspaces cover rows_pad rows (a
+// multiple of 64), x_lanes(DH) lanes and E*dh rounded up to 128 columns, so
 // every box lies inside them; the wrapper zeroes what kPre does not write.
 template <int DH>
 cudaError_t launch_tc(const Params& p, const void* wd_tiles, int ecols, int edraw,
@@ -969,33 +1030,34 @@ cudaError_t launch_tc(const Params& p, const void* wd_tiles, int ecols, int edra
   using bf16 = __nv_bfloat16;
   const auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr int XL = x_lanes(DH);
+  constexpr size_t kSmem = int_smem_bytes(DH);
   IntMaps maps;
-  if (!map_2d(&maps.wd, BF, sizeof(bf16), wd_tiles, ecols, 64, ecols, 64, 64) ||
-      !map_2d(&maps.x, BF, sizeof(bf16), p.x_out, 64, p.rows_pad, 64, 64, 64) ||
+  if (!map_2d(&maps.wd, BF, sizeof(bf16), wd_tiles, ecols, XL, ecols, 64, 64) ||
+      !map_2d(&maps.x, BF, sizeof(bf16), p.x_out, XL, p.rows_pad, XL, 64, 64) ||
       !map_2d(&maps.draw, BF, sizeof(bf16), p.draw_out, p.rows_pad, edraw, p.rows_pad, 64,
               kIntCols / DH) ||
-      !map_2d(&maps.dseq, F32, sizeof(float), p.dseq_ws, p.rows_pad, 64, p.rows_pad, 32, 64) ||
-      !map_2d(&maps.dwd, F32, sizeof(float), p.dwd, 64, ecols, 64, 32, 64))
+      !map_2d(&maps.dseq, F32, sizeof(float), p.dseq_ws, p.rows_pad, XL, p.rows_pad, 32, 64) ||
+      !map_2d(&maps.dwd, F32, sizeof(float), p.dwd, XL, ecols, XL, 32, 64))
     return cudaErrorInvalidValue;
   cudaError_t e = launch_attn<bf16, DH, kPre>(p, stream);
   if (e != cudaSuccess) return e;
-  e = set_smem(mau_bwd_int_tc<DH>, kIntSmem);
+  e = set_smem(mau_bwd_int_tc<DH>, kSmem);
   if (e != cudaSuccess) return e;
   const int tiles = p.rows_pad / 64;
   const dim3 grid(ecols / kIntCols, (tiles + p.tiles_per_chunk - 1) / p.tiles_per_chunk);
-  mau_bwd_int_tc<DH><<<grid, kIntThreads, kIntSmem, stream>>>(p, maps);
+  mau_bwd_int_tc<DH><<<grid, kIntThreads, kSmem, stream>>>(p, maps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_attn<bf16, DH, kPost>(p, stream);
 }
 
-template <typename T>
-cudaError_t launch_dh(const Params& p, int dh, cudaStream_t s) {
+cudaError_t launch_full_dh(const Params& p, int dh, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch_full<T, 16>(p, s);
-    case 32: return launch_full<T, 32>(p, s);
-    case 64: return launch_full<T, 64>(p, s);
-    case 128: return launch_full<T, 128>(p, s);
+    case 16: return launch_full<16>(p, s);
+    case 32: return launch_full<32>(p, s);
+    case 64: return launch_full<64>(p, s);
+    case 128: return launch_full<128>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1004,15 +1066,19 @@ cudaError_t launch_dh(const Params& p, int dh, cudaStream_t s) {
 
 extern "C" {
 
-// Dynamic shared memory of mau_bwd_attn for `qc` query rows per block, in
-// bytes (the larger of its modes: kFull).
-size_t mau_attention_bwd_smem_bytes(int qc, int Tk, int dh, int E) {
-  return smem_bytes(qc, Tk, dh, E, kFull);
+// 1 where (dtype, dh) takes the tensor-core path (kPre, mau_bwd_int_tc,
+// kPost): bf16 at every dh the kernels take; 0 where kFull and
+// mau_bwd_weights (fp32).
+int mau_attention_bwd_tensor_cores(int dh, int dtype) {
+  return dtype == 1 && (dh == 16 || dh == 32 || dh == 64 || dh == 128);
 }
 
-// 1 where (dtype, dh) takes the tensor-core path (kPre, mau_bwd_int_tc,
-// kPost), 0 where kFull and mau_bwd_weights.
-int mau_attention_bwd_tensor_cores(int dh, int dtype) { return dtype == 1 && dh <= 64; }
+// Dynamic shared memory of mau_bwd_attn for `qc` query rows per block, in
+// bytes: the most that the modes run for (dh, dtype) need (kPre's in
+// bf16, kFull's in fp32).
+size_t mau_attention_bwd_smem_bytes(int qc, int Tk, int dh, int E, int dtype) {
+  return attn_smem_bytes(qc, Tk, dh, E, mau_attention_bwd_tensor_cores(dh, dtype));
+}
 
 // Launches the backward's kernels on `stream`; returns cudaGetLastError()
 // (0 on success). dtype: 0 = float32, 1 = bfloat16 (q, k, v, t, g_out and
@@ -1022,13 +1088,13 @@ int mau_attention_bwd_tensor_cores(int dh, int dtype) { return dtype == 1 && dh 
 // kFull path: x_out fp32 (rows, dh+1) and draw_out fp32 (rows, E) are
 // scratch; dwd is (dh+1, E*dh), zeroed; wd_tiles, the workspaces and dwd_iv
 // may be null.
-// Tensor-core path: wd_tiles is bf16 Wd (64 lanes, ecols = E*dh rounded up
-// to 128) zero past dh and E*dh; x_out bf16 (rows_pad, 64) and draw_out
-// bf16 (edraw = E rounded up to 8, rows_pad) with what kPre does not write
-// zeroed (rows >= rows, events >= E); probs_ws, dprobs_ws fp32 (rows, Tk);
-// dseq_ws fp32 (64, rows_pad), dwd fp32 (ecols, 64) and dwd_iv (E*dh,)
-// zeroed; rows_pad = rows rounded up to 64; tiles_per_chunk from
-// mau_bwd_int_plan.
+// Tensor-core path, XL = x_lanes(dh) (64, or 128 at dh = 128): wd_tiles is
+// bf16 Wd (XL lanes, ecols = E*dh rounded up to 128) zero past dh and
+// E*dh; x_out bf16 (rows_pad, XL) and draw_out bf16 (edraw = E rounded up
+// to 8, rows_pad) with what kPre does not write zeroed (rows >= rows,
+// events >= E); probs_ws, dprobs_ws fp32 (rows, Tk); dseq_ws fp32 (XL,
+// rows_pad), dwd fp32 (ecols, XL) and dwd_iv (E*dh,) zeroed; rows_pad =
+// rows rounded up to 64; tiles_per_chunk from mau_bwd_int_plan.
 int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
                       const void* k, long long k_bs, long long k_rs,
                       const void* v, long long v_bs, long long v_rs,
@@ -1050,8 +1116,8 @@ int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
   if (Tq < 1 || Tk < Tq || Tk > 128 || E < 1 || B < 1 || H < 1 || qc < 1 || qc > 32 ||
       rows_per_chunk < 1 || (dtype != 0 && dtype != 1) || ((qc < Tq) != (dk_acc != nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes(qc, Tk, dh, E, kFull) > kMaxSmem) return (int)cudaErrorInvalidValue;
   const bool tc = mau_attention_bwd_tensor_cores(dh, dtype);
+  if (attn_smem_bytes(qc, Tk, dh, E, tc) > kMaxSmem) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * H * Tq;
   if (tc && (!wd_tiles || !probs_ws || !dprobs_ws || !dseq_ws || !dwd_iv || tiles_per_chunk < 1 ||
              rows_pad % 64 != 0 || rows_pad < rows))
@@ -1100,11 +1166,11 @@ int mau_attention_bwd(const void* q, long long q_bs, long long q_rs,
       case 16: return (int)launch_tc<16>(p, wd_tiles, ecols, edraw, s);
       case 32: return (int)launch_tc<32>(p, wd_tiles, ecols, edraw, s);
       case 64: return (int)launch_tc<64>(p, wd_tiles, ecols, edraw, s);
+      case 128: return (int)launch_tc<128>(p, wd_tiles, ecols, edraw, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  return (int)(dtype == 0 ? launch_dh<float>(p, dh, s)
-                          : launch_dh<__nv_bfloat16>(p, dh, s));
+  return (int)launch_full_dh(p, dh, s);
 }
 
 }  // extern "C"

@@ -44,7 +44,7 @@ NEG = -(2.0 ** 32) + 1.0   # the reference's mask value
 KERNEL_TK_MAX = 128        # longest key sequence the kernels take
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_SMEM_MAX = 232448   # bytes of shared memory one block may use
-BWD_ROWS_PER_CHUNK = 2048  # rows of each dWd block (mau_bwd_weights)
+BWD_ROWS_PER_CHUNK = 2048  # rows of each dWd block (mau_bwd_weights, fp32)
 INT_COLS = 128             # Wd columns of a mau_bwd_int_tc block
 INT_WAVES = 8              # waves of mau_bwd_int_tc blocks (int_plan)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -420,7 +420,7 @@ def _bwd_lib() -> ctypes.CDLL:
     _bind(lib, "mau_attention_bwd",
           [_P, _LL, _LL] * 5 + [_P] * 12 + [_U32, _F32] + [_P] * 17
           + [_I32] * 8 + [_F32] + [_I32] * 5 + [_P])
-    lib.mau_attention_bwd_smem_bytes.argtypes = [_I32] * 4
+    lib.mau_attention_bwd_smem_bytes.argtypes = [_I32] * 5
     lib.mau_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.mau_attention_bwd_tensor_cores.argtypes = [_I32, _I32]
     lib.mau_attention_bwd_tensor_cores.restype = ctypes.c_int
@@ -561,11 +561,43 @@ def _launch_fwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
     return out, lam, raw
 
 
-def _bwd_query_chunk(lib, tq, tk, dh, e) -> int:
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def bwd_smem_bytes(qc: int, tk: int, dh: int, e: int,
+                   tensor_cores: bool) -> int:
+    """Dynamic shared memory of the backward's attention kernel
+    (``mau_bwd_attn``) for ``qc`` query rows a block, in bytes: on the
+    tensor-core path (bf16) the larger of kPre's and kPost's (kPre's), else
+    kFull's. Mirrors ``layout`` in ``csrc/mau_attention_bwd.cu`` (the
+    library's ``mau_attention_bwd_smem_bytes``, which the card tests hold
+    equal to it)."""
+    ldh, lde = dh + 4, _round4(e) + 4
+
+    def mode_bytes(mode):
+        post = mode == "post"
+        k = _round4(tk * ldh)
+        v = 0 if post or (mode == "pre" and qc <= ldh) else _round4(max(
+            tk * ldh, qc * tk, (dh + 1) * 65 + qc * 65 if mode == "full"
+            else 0))
+        q = _round4(qc * ldh)
+        lam = 0 if post else _round4(qc * lde)
+        oh = _round4(qc * ldh if post else max(tk * lde, qc * ldh))
+        return 4 * (2 * k + v + q + (0 if post else q) + 3 * _round4(qc * tk)
+                    + 2 * lam + oh + _round4(e) + _round4(tk + 2 * qc))
+
+    if tensor_cores:
+        return max(mode_bytes("pre"), mode_bytes("post"))
+    return mode_bytes("full")
+
+
+def _bwd_query_chunk(tq, tk, dh, e, tensor_cores: bool) -> int:
     """Query rows per block of the backward's row kernel: all of them when
-    Tq <= 32, else the largest of 32/16/8 that fits shared memory."""
+    Tq <= 32, else the largest of 32/16/8 whose modes (``bwd_smem_bytes``)
+    fit shared memory: 16 at Tk = 128, dh = 128 in bf16."""
     for qc in ((tq,) if tq <= 32 else (32, 16, 8)):
-        if lib.mau_attention_bwd_smem_bytes(qc, tk, dh, e) <= KERNEL_SMEM_MAX:
+        if bwd_smem_bytes(qc, tk, dh, e, tensor_cores) <= KERNEL_SMEM_MAX:
             return qc
     raise ValueError(f"mau_attention_bwd kernel: Tq={tq}, Tk={tk}, dh={dh},"
                      f" E={e} does not fit {KERNEL_SMEM_MAX} bytes of shared"
@@ -588,16 +620,23 @@ def int_plan(rows: int, edh: int, sms: int):
     return col_blocks, -(-tiles // per), per
 
 
+def int_lanes(dh: int) -> int:
+    """Lanes of the tensor-core path's x rows, Wd tiles, dseq^T and dWd^T:
+    64 (zero past dh) at dh <= 64, two 64-lane halves at dh = 128."""
+    return 64 if dh <= 64 else 128
+
+
 def int_workspaces(rows: int, tk: int, e: int, dh: int, dev):
     """The tensor-core path's scratch, zeroed where the kernels add into it
-    or read what no kernel writes (rows past ``rows``, events past E):
-    x (rows_pad, 64) bf16, rnd(draw)^T (E rounded up to 8, rows_pad) bf16,
-    probs and dprobs (rows, Tk) fp32, dseq^T (64, rows_pad) fp32, dWd^T
-    (E*dh rounded up to 128, 64) fp32 and its interval lane (E*dh,) fp32;
-    rows_pad = rows rounded up to 64."""
+    or read what no kernel writes (rows past ``rows``, events past E), with
+    XL = ``int_lanes(dh)``: x (rows_pad, XL) bf16, rnd(draw)^T (E rounded
+    up to 8, rows_pad) bf16, probs and dprobs (rows, Tk) fp32, dseq^T (XL,
+    rows_pad) fp32, dWd^T (E*dh rounded up to 128, XL) fp32 and its
+    interval lane (E*dh,) fp32; rows_pad = rows rounded up to 64."""
     rows_pad = -(-rows // 64) * 64
+    xl = int_lanes(dh)
     f32 = dict(dtype=torch.float32, device=dev)
-    x = torch.empty((rows_pad, 64), dtype=torch.bfloat16, device=dev)
+    x = torch.empty((rows_pad, xl), dtype=torch.bfloat16, device=dev)
     x[rows:].zero_()
     draw = torch.empty((-(-e // 8) * 8, rows_pad), dtype=torch.bfloat16,
                        device=dev)
@@ -605,8 +644,8 @@ def int_workspaces(rows: int, tk: int, e: int, dh: int, dev):
     draw[:, rows:].zero_()
     return dict(x=x, draw=draw, probs=torch.empty((rows, tk), **f32),
                 dprobs=torch.empty((rows, tk), **f32),
-                dseq=torch.zeros((64, rows_pad), **f32),
-                dwd=torch.zeros((-(-e * dh // 128) * 128, 64), **f32),
+                dseq=torch.zeros((xl, rows_pad), **f32),
+                dwd=torch.zeros((-(-e * dh // 128) * 128, xl), **f32),
                 dwd_iv=torch.zeros((e * dh,), **f32), rows_pad=rows_pad)
 
 
@@ -618,11 +657,11 @@ def int_dwd(ws, e: int, dh: int) -> torch.Tensor:
 
 def _wd_tiles(wd: torch.Tensor, dh: int):
     """bf16 Wd's seq_units lanes as the tensor-core kernel reads them by
-    TMA: (64, E*dh rounded up to 128), zero past dh lanes and E*dh
-    columns (the interval lane is read in fp32 by the kernel)."""
+    TMA: (``int_lanes(dh)``, E*dh rounded up to 128), zero past dh lanes
+    and E*dh columns (the interval lane is read in fp32 by the kernel)."""
     n = wd.shape[1]
-    out = torch.zeros((64, -(-n // 128) * 128), dtype=torch.bfloat16,
-                      device=wd.device)
+    out = torch.zeros((int_lanes(dh), -(-n // 128) * 128),
+                      dtype=torch.bfloat16, device=wd.device)
     out[:dh, :n] = wd[:dh].detach().to(torch.bfloat16)
     return out
 
@@ -645,7 +684,8 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
            "raw residual (B, H, Tq, E) fp32")
     wdf, bdf, wf, scf = (_f32(x, dev) for x in (wd, bd, w, scaling))
     lib = _bwd_lib()
-    qc = _bwd_query_chunk(lib, tq, tk, dh, e)
+    tc = bool(lib.mau_attention_bwd_tensor_cores(dh, _DTYPE_CODE[cdt]))
+    qc = _bwd_query_chunk(tq, tk, dh, e, tc)
     rows = b * num_heads * tq
     f32 = dict(dtype=torch.float32, device=dev)
     dq = torch.empty((b, tq, c), dtype=cdt, device=dev)
@@ -656,7 +696,6 @@ def _launch_bwd(q, k, v, t, key_mask, intervals, onehot, wd, bd, w, scaling,
     dsc = torch.zeros((e,), **f32)
     dbd = torch.zeros((e * dh,), **f32)
     dw = torch.zeros((e * dh,), **f32)
-    tc = bool(lib.mau_attention_bwd_tensor_cores(dh, _DTYPE_CODE[cdt]))
     if tc:
         ws = int_workspaces(rows, tk, e, dh, dev)
         wdt = _wd_tiles(wdf, dh)

@@ -8,8 +8,9 @@ two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
 the exponentials, or the products, removed), the intensity VJP (``vjp``:
 the products removed, or the column kernel at four blocks an SM, as the
 row kernel runs), the bf16 fused MAU backward (``mau_bwd``: the sigmoid's
-one-op form (tanh.approx), its intensity products removed, its dx^T
-product or the dx^T reduce-add removed; by kernel), the bf16 streamed dK/dV/dT kernel (``dkvt``: the
+one-op form (tanh.approx), its intensity products or its dx^T product cut
+to their first k step, the dx^T reduce-add removed; by kernel;
+``mau_bwd_ctsma`` the same at the CTSMA train shape, dh = 128), the bf16 streamed dK/dV/dT kernel (``dkvt``: the
 Philox draw or the products removed, every key tile visited, three
 stages), the bf16 streamed output and d-lambda kernels (``out`` and
 ``glam``, at dropout 0 and 0.1: the Philox draw or the products removed,
@@ -36,8 +37,8 @@ line a copy, with the card's name and power limit. Imports neither JAX nor
 the JAX package.
 
     python3 scripts/torch_ablate.py
-        flash|catalog_fwd|vjp|mau_bwd|dkvt|out|glam|int|dq|mau_fwd|stats
-        [VARIANT ...]
+        flash|catalog_fwd|vjp|mau_bwd|mau_bwd_ctsma|dkvt|out|glam|int|dq|
+        mau_fwd|stats [VARIANT ...]
 """
 from __future__ import annotations
 
@@ -53,6 +54,17 @@ CSRC = "easydgl_tpu_torch/kernels/csrc/"
 # visited (an edit of another file than the kernel's source names it first)
 RULE_OFF = ("mau_streamed.cuh", "    return bl || code != 0;",
             "    return true;")
+# the fused MAU backward's three products (mau_bwd_int_tc) cut to their
+# first k step (of four or eight): taken out whole, with or without their
+# wgmma fence, commit and wait, they made nvcc crash (a segmentation fault)
+Z_STEP = ("kk < 4 * KH; ++kk)\n        wgmma_ss<1, 0>(zt,",
+          "kk < 1; ++kk)\n        wgmma_ss<1, 0>(zt,")
+Z_STEP_RS = ("for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt,",
+             "for (int kk = 0; kk < 1; ++kk) wgmma_rs<0>(zt,")
+DWD_STEP = ("kk < 4; ++kk)\n        wgmma_rs<1>(gwd[lh],",
+            "kk < 1; ++kk)\n        wgmma_rs<1>(gwd[lh],")
+DX_STEP = ("kk < 2 * 4; ++kk)\n        wgmma_ss_n32(xt,",
+           "kk < 1; ++kk)\n        wgmma_ss_n32(xt,")
 # four ring stages instead of kQmStages
 FOUR_STAGES = ("mau_streamed.cuh", "constexpr int kQmStages = 2;",
                "constexpr int kQmStages = 4;")
@@ -74,6 +86,19 @@ SIG1 = ("\nnamespace {\n",
         " asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y) : \"f\"(0.5f * z));"
         " return fmaf(0.5f, y, 0.5f); }\n")
 # kernel -> (source, library, bench command, {variant: [(old, new), ...]})
+# the bf16 fused MAU backward's variants (mau_bwd, mau_bwd_ctsma)
+MAU_BWD = {
+    "control": [],
+    "one-op sigmoid": [(
+        "__floats2bfloat162_rn(sigmoid(fmaf(",
+        "__floats2bfloat162_rn(sig1(fmaf("), (
+        "                                  sigmoid(fmaf(",
+        "                                  sig1(fmaf("), SIG1],
+    "products at one k step": [Z_STEP, Z_STEP_RS, DWD_STEP, DX_STEP],
+    "dx^T product at one k step": [DX_STEP],
+    "no dx^T reduce-add": [(
+        "        tma_reduce_add_2d(&maps.dseq, sth, r0 + 32 *"
+        " wg, 64 * lh);\n", "")]}
 KERNELS = {
     "flash": ("flash_attention.cu", "flash_attention",
               ["scripts/torch_flash_bench.py"], {
@@ -122,29 +147,11 @@ KERNELS = {
                     "__global__ void __launch_bounds__(kIntThreads, 4) "
                     "mau_int_bwd_cols_tc_kernel")]}),
     "mau_bwd": ("mau_attention_bwd.cu", "mau_attention_bwd",
-                ["scripts/torch_mau_bench.py", "--kernels"], {
-                    "control": [],
-                    "one-op sigmoid": [(
-                        "__floats2bfloat162_rn(sigmoid(fmaf(",
-                        "__floats2bfloat162_rn(sig1(fmaf("), (
-                        "                                  sigmoid(fmaf(",
-                        "                                  sig1(fmaf("), SIG1],
-                    "no intensity products": [
-                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(zt, wf"
-                         " + 4 * kk, xd + 2 * kk);  // z^T = Wd^T x^T\n", ""),
-                        ("    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(gwd, dzf"
-                         " + 4 * kk, xd + 128 * kk);  // dWd^T += dz^T x\n",
-                         ""),
-                        ("      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk"
-                         " & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);\n",
-                         "      ;\n")],
-                    "no dx^T product": [(
-                        "      wgmma_ss_n32(xt, wdd + 512 * (kk >> 2) + 2 * (kk"
-                        " & 3), dzd + 512 * (kk >> 2) + 2 * (kk & 3), 1);\n",
-                        "      ;\n")],
-                    "no dx^T reduce-add": [(
-                        "      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg,"
-                        " 0);\n", "")]}),
+                ["scripts/torch_mau_bench.py", "--kernels"], MAU_BWD),
+    # the same at the CTSMA train shape (dh = 128, causal, dropout 0.2)
+    "mau_bwd_ctsma": ("mau_attention_bwd.cu", "mau_attention_bwd",
+                      ["scripts/torch_mau_bench.py", "--ctsma", "--kernels"],
+                      MAU_BWD),
     "dkvt": ("mau_streamed_bwd.cu", "mau_streamed_bwd",
              ["scripts/torch_streamed_bench.py", "--dkvt", "--kernels"], {
                  "control": [],

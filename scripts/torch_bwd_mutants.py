@@ -12,10 +12,12 @@ bf16 stats kernel (``csrc/mau_streamed_fwd.cu``): blind query tiles
 visiting only the tiles with a real key (the rule's visible-only form), the
 causal range short by one tile, and the online correction left off l.
 
-Three mutants of ``csrc/mau_attention_bwd.cu``'s tensor-core path (bf16,
-dh <= 64): dbd dropped (its one atomic a column and block), dz without its
-(1 - sig) factor, and the second warpgroup's rows of dx^T never added to
-the workspace. Two of the live-tile rule that the wgmma output, d-lambda
+Six mutants of ``csrc/mau_attention_bwd.cu``'s tensor-core path (bf16):
+dbd dropped (its one atomic a column and block), dz without its (1 - sig)
+factor, and the second warpgroup's rows of dx^T never added to the
+workspace; and three of its dh = 128 form: the second 64-lane half of K
+left out of z, dWd^T's lanes 64-127 not written, and dseq's upper half
+(dx^T's lanes 64-127) not added. Two of the live-tile rule that the wgmma output, d-lambda
 and dkvt kernels share (``csrc/mau_streamed.cuh``): the rows that see no
 key left out (so a key tile with no real key is skipped), and the causal
 range off by one tile. One of ``csrc/mau_streamed_fwd.cu``'s output
@@ -44,9 +46,10 @@ and the d-lambda, dq and dkvt kernels on the cases of
 process per copy, four at a time). Prints, per copy, the checks that
 failed with their worst |kernel - plain| / tolerance, and exits 0 when the
 control passes every check and every mutant fails at least one. Imports
-neither JAX nor the JAX package.
+neither JAX nor the JAX package. Arguments, if any, pick the mutants whose
+names contain one of them (the control always runs).
 
-    python3 scripts/torch_bwd_mutants.py
+    python3 scripts/torch_bwd_mutants.py [NAME_PART ...]
 """
 from __future__ import annotations
 
@@ -73,8 +76,18 @@ MUTANTS = {
         MAU, "__hmul2(__hmul2(__hmul2(dsw, wr2[hm]), sig), __hsub2(one2, sig));",
         "__hmul2(__hmul2(dsw, wr2[hm]), sig);"),
     "dx^T of the second warpgroup's rows not added": (
-        MAU, "      tma_reduce_add_2d(&maps.dseq, stw, r0 + 32 * wg, 0);",
-        "      if (wg == 0) tma_reduce_add_2d(&maps.dseq, stw, r0, 0);"),
+        MAU, "        tma_reduce_add_2d(&maps.dseq, sth, r0 + 32 * wg, 64 * lh);",
+        "        if (wg == 0) tma_reduce_add_2d(&maps.dseq, sth, r0, 64 * lh);"),
+    "dh = 128: the second 64-lane half of K left out of z": (
+        MAU, "kk < 4 * KH; ++kk)\n        wgmma_ss<1, 0>(zt,",
+        "kk < 4; ++kk)\n        wgmma_ss<1, 0>(zt,"),
+    "dh = 128: dWd^T's lanes 64-127 not written": (
+        MAU, "  for (int lh = 0; lh < KH; ++lh) {\n    if (issuer)",
+        "  for (int lh = 0; lh < 1; ++lh) {\n    if (issuer)"),
+    "dh = 128: dseq's upper half not added": (
+        MAU, "        tma_reduce_add_2d(&maps.dseq, sth, r0 + 32 * wg, 64 * lh);",
+        "        if (lh == 0) tma_reduce_add_2d(&maps.dseq, sth, r0 + 32 * wg,"
+        " 0);"),
     "live-tile rule: rows that see no key left out": (
         RULE, "    return bl || code != 0;", "    return code != 0;"),
     "live-tile rule: causal range off by one tile": (
@@ -214,7 +227,9 @@ def main() -> int:
         print("torch_bwd_mutants: no CUDA device", file=sys.stderr)
         return 1
     ok = True
-    items = list(MUTANTS.items())
+    picks = [a for a in sys.argv[1:] if not a.startswith("-")]
+    items = [(name, edit) for name, edit in MUTANTS.items()
+             if edit is None or not picks or any(x in name for x in picks)]
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, edit) in enumerate(items):
             make_copy(pathlib.Path(tmp) / f"copy{i}", edit)

@@ -99,7 +99,8 @@ CASES = [  # (causal, diag_reset, tq)
 SHAPES = {"small": dict(b=3, t=11, h=2, dh=16, e=4),
           "flagship_width": dict(b=8, t=31, h=8, dh=64, e=64),
           "tk128": dict(b=2, t=128, h=4, dh=32, e=8),
-          # PRESETS["CTSMA"]'s heads: the bf16 backward's CUDA-core path
+          # PRESETS["CTSMA"]'s heads: the bf16 backward's tensor-core path
+          # in two 64-lane halves
           "dh128": dict(b=4, t=31, h=4, dh=128, e=64),
           # the bf16 forward's intensity head over rows of many heads: three
           # events (a ragged column tile) and two 64-event tiles
@@ -194,8 +195,52 @@ def test_backward_kernel_matches_plain_version(cuda_device, dtype, causal,
                                                diag, tq, shape, rate):
     """The forward (with dropout and the raw residual) and the backward
     kernel, the same seed on both sides, against the plain versions."""
-    ts, qpos = _inputs(cuda_device, dtype, tq=tq, **SHAPES[shape])
-    h = SHAPES[shape]["h"]
+    _backward_vs_plain(cuda_device, dtype, causal, diag, tq, SHAPES[shape],
+                       rate)
+
+
+@pytest.mark.parametrize("shape,causal,diag,tq,rate", [
+    ("dh128", True, False, None, 0.2), ("dh128", False, True, None, 0.0),
+    ("dh128", False, True, 4, 0.2),
+    # Tk = 128: 16 query rows a block, the key gradients summed in fp32
+    ("tk128_dh128", True, False, None, 0.1),
+    ("tk128_dh128", False, True, None, 0.0)])
+def test_dh128_bf16_backward_takes_the_tensor_cores(cuda_device, shape,
+                                                    causal, diag, tq, rate):
+    """bf16 at dh = 128 runs kPre, mau_bwd_int_tc<128> and kPost (the
+    library says so, and no CUDA-core kernel is left for it), and matches
+    the plain version, also where a block takes fewer query rows than Tq."""
+    from easydgl_tpu_torch.kernels import mau_attention as ma
+    dims = {"dh128": SHAPES["dh128"],
+            "tk128_dh128": dict(b=2, t=128, h=2, dh=128, e=8)}[shape]
+    assert ma._bwd_lib().mau_attention_bwd_tensor_cores(128, 1) == 1
+    assert ma._bwd_lib().mau_attention_bwd_tensor_cores(128, 0) == 0
+    t = dims["t"]
+    rows = t if tq is None else tq
+    qc = ma._bwd_query_chunk(rows, t, 128, dims["e"], True)
+    assert (qc < rows) == (shape == "tk128_dh128")
+    _backward_vs_plain(cuda_device, torch.bfloat16, causal, diag, tq, dims,
+                       rate)
+
+
+def test_bwd_smem_bytes_mirror_the_library(cuda_device):
+    """``bwd_smem_bytes``, by which the wrapper picks the query rows a
+    block, equals the library's own count for every dh and both dtypes."""
+    from easydgl_tpu_torch.kernels import mau_attention as ma
+    lib = ma._bwd_lib()
+    for dh in ma.KERNEL_HEAD_DIMS:
+        for code in (0, 1):
+            tc = bool(lib.mau_attention_bwd_tensor_cores(dh, code))
+            assert tc == (code == 1)
+            for qc, tk, e in ((32, 128, 64), (16, 128, 64), (30, 30, 64),
+                              (6, 31, 3), (8, 128, 128), (31, 31, 12)):
+                assert lib.mau_attention_bwd_smem_bytes(qc, tk, dh, e, code) \
+                    == ma.bwd_smem_bytes(qc, tk, dh, e, tc), (qc, tk, dh, e)
+
+
+def _backward_vs_plain(cuda_device, dtype, causal, diag, tq, dims, rate):
+    ts, qpos = _inputs(cuda_device, dtype, tq=tq, **dims)
+    h = dims["h"]
     diff = [x.clone().requires_grad_(i < 4 or i > 6)
             for i, x in enumerate(ts)]
     seed = torch.tensor(20240611, device=cuda_device)

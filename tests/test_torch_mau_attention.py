@@ -2,7 +2,8 @@
 
 * the plain ``mau_attention_reference`` vs the JAX ``mau_attention``
   (Pallas, interpret mode) and the JAX reference, values and all eight
-  gradients (cotangents on both ``out`` and ``lam``);
+  gradients (cotangents on both ``out`` and ``lam``), the gradients also at
+  CTSMA's head width dh = 128;
 * the explicit plain backward ``mau_attention_bwd_reference`` vs autograd
   of the plain forward;
 * the port's ``MAU``/``BiMAU`` module vs the JAX ``MAU`` (``xla`` engine),
@@ -35,34 +36,39 @@ from easydgl_tpu_torch.parity import flax_to_torch
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, T, H, DH, E = 3, 11, 2, 16, 4
+# PRESETS["CTSMA"]'s head width (C = 512, H = 4) at a few rows
+DH128 = dict(B=2, T=6, H=2, DH=128, E=3)
 
 
-def _inputs(seed, tq=T, gathered=False):
+def _inputs(seed, tq=T, gathered=False, dims=None):
     """(B, T, C) q/k/v/t, left-padded key mask with row 0 fully masked,
     Exp(1) intervals, multi-hot marks, intensity params; qpos sorted and
-    distinct when gathered."""
+    distinct when gathered. ``dims``: B, T, H, DH, E other than the
+    module's."""
+    d = {**dict(B=B, T=T, H=H, DH=DH, E=E), **(dims or {})}
+    B_, T_, H_, DH_, E_ = (d[k] for k in ("B", "T", "H", "DH", "E"))
     rng = np.random.default_rng(seed)
-    c = H * DH
+    c = H_ * DH_
     f32 = np.float32
-    q = rng.normal(size=(B, tq, c)).astype(f32)
-    k, v, t = (rng.normal(size=(B, T, c)).astype(f32) for _ in range(3))
-    lengths = rng.integers(1, T + 1, B)
-    key_mask = (np.arange(T)[None] >= T - lengths[:, None]).astype(f32)
+    q = rng.normal(size=(B_, tq, c)).astype(f32)
+    k, v, t = (rng.normal(size=(B_, T_, c)).astype(f32) for _ in range(3))
+    lengths = rng.integers(1, T_ + 1, B_)
+    key_mask = (np.arange(T_)[None] >= T_ - lengths[:, None]).astype(f32)
     key_mask[0] = 0.0
-    intervals = rng.exponential(1.0, (B, tq)).astype(f32)
-    onehot = (rng.random((B, T, E)) < 0.3).astype(f32)
-    wd = rng.normal(0, 0.2, (DH + 1, E * DH)).astype(f32)
-    bd = rng.normal(0, 0.1, E * DH).astype(f32)
-    w = rng.normal(0, 0.2, (E, DH)).astype(f32)
-    sc = rng.normal(0, 0.3, E).astype(f32)
-    qpos = (np.sort(rng.permuted(np.tile(np.arange(T), (B, 1)), axis=1)
+    intervals = rng.exponential(1.0, (B_, tq)).astype(f32)
+    onehot = (rng.random((B_, T_, E_)) < 0.3).astype(f32)
+    wd = rng.normal(0, 0.2, (DH_ + 1, E_ * DH_)).astype(f32)
+    bd = rng.normal(0, 0.1, E_ * DH_).astype(f32)
+    w = rng.normal(0, 0.2, (E_, DH_)).astype(f32)
+    sc = rng.normal(0, 0.3, E_).astype(f32)
+    qpos = (np.sort(rng.permuted(np.tile(np.arange(T_), (B_, 1)), axis=1)
                     [:, :tq], axis=1).astype(np.int32) if gathered else None)
     return q, k, v, t, key_mask, intervals, onehot, wd, bd, w, sc, qpos
 
 
-def _heads(x):
+def _heads(x, h=H):
     b, t, c = x.shape
-    return x.reshape(b, t, H, c // H).transpose(0, 2, 1, 3)
+    return x.reshape(b, t, h, c // h).transpose(0, 2, 1, 3)
 
 
 CASES = [  # (causal, diag_reset, Tq, gathered)
@@ -182,11 +188,13 @@ def test_mau_module_matches_jax_xla_engine(bidirectional, gathered):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def _grad_inputs(seed, tq, gathered):
-    q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos = _inputs(seed, tq, gathered)
+def _grad_inputs(seed, tq, gathered, dims=None):
+    q, k, v, t, km, iv, oh, wd, bd, w, sc, qpos = _inputs(seed, tq, gathered,
+                                                          dims)
     rng = np.random.default_rng(seed + 100)
     go = rng.normal(size=q.shape).astype(np.float32)
-    gl = rng.normal(size=(B, H, tq, E)).astype(np.float32)
+    h = (dims or {}).get("H", H)
+    gl = rng.normal(size=(q.shape[0], h, tq, w.shape[0])).astype(np.float32)
     return (q, k, v, t, wd, bd, w, sc), (km, iv, oh), qpos, go, gl
 
 
@@ -206,18 +214,32 @@ def test_plain_grads_match_jax_kernel_and_reference(causal, diag, tq,
     forward and its explicit backward, against jax.grad of the JAX Pallas
     kernel (its custom_vjp backward, interpret mode) and of the JAX
     reference."""
-    diff, (km, iv, oh), qpos, go, gl = _grad_inputs(9, tq, gathered)
+    _check_grads_against_jax(causal, diag, tq, gathered)
+
+
+@pytest.mark.parametrize("causal,diag", [(True, False), (False, True)])
+def test_plain_grads_match_jax_at_dh128(causal, diag):
+    """As above at CTSMA's head width dh = 128 (the width of the bf16
+    backward's two-half tensor-core path on the card), causal MAU and BiMAU
+    with the diagonal reset: the plain backward that the card's kernels are
+    held to, against JAX's."""
+    _check_grads_against_jax(causal, diag, DH128["T"], False, DH128)
+
+
+def _check_grads_against_jax(causal, diag, tq, gathered, dims=None):
+    h = (dims or {}).get("H", H)
+    diff, (km, iv, oh), qpos, go, gl = _grad_inputs(9, tq, gathered, dims)
     jq = None if qpos is None else jnp.asarray(qpos)
 
     def jloss_kernel(a):
         o, lam = jmau.mau_attention(*a[:4], km, iv, oh, *a[4:], 0, causal,
-                                    diag, 0.0, num_heads=H, qpos=jq)
+                                    diag, 0.0, num_heads=h, qpos=jq)
         return jnp.sum(o * go) + jnp.sum(lam * gl)
 
     def jloss_ref(a):
         o, lam = jmau.mau_attention_reference(
-            *(_heads(x) for x in a[:4]), km, iv, oh, *a[4:], causal=causal,
-            diag_reset=diag, qpos=jq)
+            *(_heads(x, h) for x in a[:4]), km, iv, oh, *a[4:],
+            causal=causal, diag_reset=diag, qpos=jq)
         o = o.transpose(0, 2, 1, 3).reshape(go.shape)
         return jnp.sum(o * go) + jnp.sum(lam * gl)
 
@@ -230,13 +252,13 @@ def test_plain_grads_match_jax_kernel_and_reference(causal, diag, tq,
     tsmall = [torch.tensor(x) for x in (km, iv, oh)]
     tq_ = None if qpos is None else torch.tensor(qpos)
     out, lam = mau_attention(*tdiff[:4], *tsmall, *tdiff[4:], causal, diag,
-                             num_heads=H, qpos=tq_)
+                             num_heads=h, qpos=tq_)
     loss = (out * torch.tensor(go)).sum() + (lam * torch.tensor(gl)).sum()
     got_auto = [g.numpy() for g in torch.autograd.grad(loss, tdiff)]
     got_expl = mau_attention_bwd_reference(
         *(torch.tensor(x) for x in diff[:4]), *tsmall,
         *(torch.tensor(x) for x in diff[4:]), torch.tensor(go),
-        torch.tensor(gl), causal=causal, diag_reset=diag, num_heads=H,
+        torch.tensor(gl), causal=causal, diag_reset=diag, num_heads=h,
         qpos=tq_)
     got_expl = [g.numpy() for g in got_expl]
     for got, name in ((got_auto, "autograd"), (got_expl, "explicit")):
