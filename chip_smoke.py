@@ -65,7 +65,15 @@ after:
   L = 2048, 1 causal block): eval batches and ``recommend`` requests
   through the streamed forward kernels, 10 faithful train steps through
   the seven streamed kernels and the catalog kernels at N = 16,384, then 5
-  on one repeated batch.
+  on one repeated batch;
+* the harness on the flagship, in a temporary directory: ``cli.train
+  --synthetic`` (4,096 train rows, 8 steps an epoch, bf16) for 2 epochs
+  and 1 more with ``--resume`` (the step count must continue), the resumed
+  run under ``torch.profiler``, whose kernel names must show rows 1-4;
+  ``cli.analytics`` on the checkpoint (its test H100 must equal the
+  summary's to 1e-6 relative) and ``Recommender.from_checkpoint``
+  (its top-k must equal that of the weights the checkpoint saved); the
+  loop's train ex/s with the loader included, beside the step-only figure.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
@@ -82,10 +90,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,7 +105,7 @@ import torch
 import torch.nn.functional as F
 
 from easydgl_tpu_torch.config import preset
-from easydgl_tpu_torch.data.loader import BatchLoader
+from easydgl_tpu_torch.data.loader import BatchLoader, PackedDataset
 from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
                                               synthetic_split_vectorized)
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
@@ -2821,6 +2833,247 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
     check(worst_p <= 1.0, "updated parameters card vs CPU outside tolerance")
 
 
+HARNESS_ROWS = 4096   # cli.train's synthetic rule: 8 steps an epoch at B=512
+# rows 1-4's wrappers by their kernels-line names
+HARNESS_KERNELS = {"mau_attention_fwd": mau_attention,
+                   "mau_attention_bwd": mau_attention_bwd,
+                   "catalog_nll_fwd": catalog_nll_fwd,
+                   "catalog_nll_bwd": catalog_nll_bwd}
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name = value`` for the span."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+class LoopRecords(logging.Handler):
+    """The train loop's epoch lines (epoch, loss, seconds, train ex/s) and
+    the step it resumed from, as logged."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.epochs, self.resumed = [], []
+
+    def emit(self, record):
+        if not isinstance(record.msg, str):
+            return
+        if record.msg.startswith("%03d: Loss"):
+            self.epochs.append(record.args)
+        elif record.msg.startswith("resumed from step"):
+            self.resumed.append(record.args[0])
+
+
+def template_ints(key: str, base: str):
+    """The integer (and bool, as 0 / 1) template arguments of kernel
+    ``base`` in a profiler key, which is demangled (``void
+    base<__nv_bfloat16, 64, 1>(...)``, ``base<64, true>``, ``base(...)``);
+    None where ``base`` is not the key's kernel."""
+    m = re.search(rf"(?<!\w){re.escape(base)}(<[^()]*>)?(\(|$)", key)
+    if not m:
+        return None
+    return [int(x) if x.isdigit() else int(x == "true")
+            for x in re.findall(r"\b(\d+|true|false)\b", m.group(1) or "")]
+
+
+def profiler_launches(prof, names):
+    """Launches of each CUDA kernel of ``names`` (``base<ints>`` as in
+    ``CUDA_KERNELS``, the type arguments left out) in a profile of the
+    card."""
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            base, _, args = name.partition("<")
+            want = [int(x) for x in re.findall(r"\b\d+\b", args)]
+            if template_ints(e.key, base) == want:
+                counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
+def run_harness(cfg, flags, device, rows):
+    """``cli.train`` for two epochs and one more with ``--resume``,
+    ``cli.analytics`` on the checkpoint, ``Recommender.from_checkpoint``,
+    in the current directory. Returns the numbers the checks and the
+    report read; the kernels' launch counts are the caller's."""
+    from easydgl_tpu_torch.cli import analytics as analytics_cli
+    from easydgl_tpu_torch.cli import train as train_cli
+    from easydgl_tpu_torch.data.synthetic import synthetic_split
+    from easydgl_tpu_torch.train import loop
+    from easydgl_tpu_torch.train.checkpoint import Checkpointer
+
+    saves, finals = [], []
+
+    class RecordingCheckpointer(Checkpointer):
+        """Times each save, and keeps the weights it saved."""
+
+        def save(self, state, step=None):
+            t0 = time.perf_counter()
+            super().save(state, step)
+            step = int(state.step) if step is None else step
+            saves.append(dict(step=step,
+                              seconds=time.perf_counter() - t0,
+                              bytes=os.path.getsize(self.path(step)),
+                              params={k: v.detach().clone()
+                                      for k, v in state.params.items()}))
+
+    def recording_train_model(*args, **kwargs):
+        state, summary = loop.train_model(*args, **kwargs)
+        finals.append(state.step)
+        return state, summary
+
+    records = LoopRecords()
+    loop_log = logging.getLogger(loop.__name__)
+    old_level = loop_log.level
+    loop_log.addHandler(records)
+    loop_log.setLevel(logging.INFO)
+    argv = ["--model", cfg.model, "--synthetic", "--synthetic_rows",
+            str(rows), "--ckpt_dir", "ckpt", "--device", device, *flags]
+    try:
+        with patched(loop, "Checkpointer", RecordingCheckpointer), \
+                patched(train_cli, "train_model", recording_train_model):
+            summary2 = train_cli.main(argv + ["--num_epochs", "2"])
+            first_saves = len(saves)
+            steps_per_epoch = -(-rows // cfg.batch_size)
+            prof_acts = ([torch.profiler.ProfilerActivity.CUDA]
+                         if device == "cuda" else
+                         [torch.profiler.ProfilerActivity.CPU])
+            with torch.profiler.profile(activities=prof_acts) as prof:
+                summary3 = train_cli.main(argv + ["--num_epochs", "3",
+                                                  "--resume"])
+                if device == "cuda":
+                    torch.cuda.synchronize()
+    finally:
+        loop_log.removeHandler(records)
+        loop_log.setLevel(old_level)
+    synthetic_split(num_rows=rows // 8, seed=3, num_items=cfg.num_items,
+                    seqslen=cfg.seqslen, with_datetime=True).save("test.npz")
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=4)
+    np.save("mark.npy", table)
+    res = analytics_cli.main([
+        "--ckpt", "ckpt", "--model", cfg.model, "--data_dir", ".",
+        "--mark", "mark.npy", "--out", "res", "--device", device,
+        *flags])
+    head = {k: v[:cfg.batch_size]
+            for k, v in PackedDataset.load("test.npz").arrays.items()}
+    ids, scores = Recommender.from_checkpoint(
+        cfg, "ckpt", head, table, device=device).recommend(head, k=50)
+    return dict(summary2=summary2, summary3=summary3, res=res,
+                finals=finals, saves=saves, first_saves=first_saves,
+                epochs=records.epochs, resumed=records.resumed,
+                steps_per_epoch=steps_per_epoch, prof=prof, head=head,
+                table=table, ids=ids, scores=scores,
+                latest=Checkpointer("ckpt").latest_step(),
+                pickled=os.path.getsize("res"))
+
+
+def check_harness(cfg, out, device):
+    """The harness run's checks: the step count continues across the
+    resume, analytics reproduces the summary's H100, and the checkpoint
+    serves what the weights it saved serve."""
+    spe = out["steps_per_epoch"]
+    resumed_from = out["saves"][out["first_saves"] - 1]["step"]
+    check(out["finals"] == [2 * spe, 3 * spe],
+          f"harness: final steps {out['finals']}, expected "
+          f"{[2 * spe, 3 * spe]}")
+    check(out["resumed"] == [resumed_from],
+          f"harness: resumed from {out['resumed']}, the checkpoint held "
+          f"step {resumed_from}")
+    epochs = [a[0] for a in out["epochs"]]
+    check(epochs == [0, 1] + list(range(resumed_from // spe, 3)),
+          f"harness: epochs run {epochs}")
+    check(all(math.isfinite(a[1]) for a in out["epochs"]),
+          "harness: an epoch's loss is not finite")
+    check(out["latest"] == out["saves"][-1]["step"],
+          "harness: the latest checkpoint is not the last saved")
+    got, want = out["res"]["H100"], out["summary3"]["H100"]
+    check(abs(got - want) <= 1e-6 * abs(want),
+          f"harness: analytics H100 {got} != the summary's {want}")
+    for key, val in out["res"].items():
+        check(math.isfinite(val) and 0.0 <= val <= 1.0,
+              f"harness: analytics {key}={val}")
+    model = build_model(cfg, device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(out["saves"][-1]["params"][name])
+    ids, scores = Recommender(cfg, model, out["table"]).recommend(
+        out["head"], k=50)
+    check(np.array_equal(ids, out["ids"]),
+          "harness: from_checkpoint recommends other ids than the weights"
+          " the checkpoint saved")
+    check(np.array_equal(scores, out["scores"]),
+          "harness: from_checkpoint scores differ from the saved weights'")
+    check(bool((out["ids"] != 0).all())
+          and bool((out["scores"][:, :-1] >= out["scores"][:, 1:]).all()),
+          "harness: recommend ids or order")
+
+
+def phase_harness(card, step_ex_s):
+    log("phase 9: the training harness at full width on the card: "
+        "cli.train --synthetic (PRESETS[\"EasyDGL\"], 64 marks, bf16; "
+        f"{HARNESS_ROWS:,} train rows, 8 steps an epoch; 512 validation and"
+        " 512 test rows) for 2 epochs, then 1 more with --resume under "
+        "torch.profiler; cli.analytics and Recommender.from_checkpoint on "
+        "its checkpoint")
+    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    flags = ["--num_events", "64", "--compute_dtype", "bfloat16"]
+    cwd, root_handlers = os.getcwd(), list(logging.getLogger().handlers)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    t0 = time.perf_counter()
+    try:
+        os.chdir(tmp)
+        for fn in HARNESS_KERNELS.values():
+            fn.launches = 0
+        out = run_harness(cfg, flags, "cuda", HARNESS_ROWS)
+        launches = {name: fn.launches
+                    for name, fn in HARNESS_KERNELS.items()}
+        check_harness(cfg, out, "cuda")
+    finally:
+        os.chdir(cwd)
+        for h in logging.getLogger().handlers:
+            if h not in root_handlers:
+                logging.getLogger().removeHandler(h)
+                h.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    prof = profiler_launches(out["prof"], [
+        k for name in HARNESS_KERNELS for k in CUDA_KERNELS[name]])
+    for name in HARNESS_KERNELS:
+        check(launches[name] > 0, f"harness: {name} was not launched")
+        check(sum(prof.get(k, 0) for k in CUDA_KERNELS[name]) > 0,
+              f"harness: the profile shows no kernel of {name}")
+    ex_s = out["epochs"][1][3]
+    save = out["saves"][-1]
+    log(f"  epochs (epoch, loss, s, train ex/s with the loader): "
+        + "; ".join(f"{a[0]}: {a[1]:.5f}, {a[2]:.4f} s, {a[3]:.1f}"
+                    for a in out["epochs"])
+        + " (epoch 2 of the resumed run under the profiler)")
+    log(f"  resumed from step {out['resumed'][0]}, final steps "
+        f"{out['finals']}; summary after resume: "
+        + json.dumps(out["summary3"]))
+    log(f"  analytics on the checkpoint: " + json.dumps(out["res"])
+        + f"; logits pickle {out['pickled']:,} bytes")
+    log(f"  checkpoint saves: "
+        + ", ".join(f"step {x['step']} {x['seconds']:.4f} s"
+                    for x in out["saves"])
+        + f"; size {save['bytes']:,} bytes")
+    log(f"  launches on the harness path: " + json.dumps(launches)
+        + "; in the profile of the resumed run: " + json.dumps(prof))
+    log(f"  harness: {ex_s:.1f} train ex/s through cli.train, loader "
+        f"included (epoch 1, StepTimer), beside phase 7's {step_ex_s:.1f}"
+        f" (batches on the device); {out['epochs'][1][2]:.4f} s an epoch; "
+        f"phase {seconds:.1f} s on {card}")
+    return dict(launches=launches, profiler=prof, ex_s=ex_s,
+                epoch_s=out["epochs"][1][2], save_s=save["seconds"],
+                save_bytes=save["bytes"])
+
+
 def kernel_names(log_text: str):
     """kernel<dtype, template ints...> of an entry function in a ptxas
     report line."""
@@ -3009,6 +3262,7 @@ def main() -> int:
         "dropout 0")
     phase_train_cpu_vs_card("CTSMA-LC", rows=2, device_floor=True,
                             compute_dtype="float32")
+    harness = phase_harness(card, ex_s)
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
@@ -3019,12 +3273,14 @@ def main() -> int:
         replaces="easydgl_tpu/kernels/mau_attention.py:690",
         launches=(serve_launches + train_launches["mau_attention"]
                   + ctsma_launches["mau_attention"]
-                  + ctsma_train_launches["mau_attention"]),
+                  + ctsma_train_launches["mau_attention"]
+                  + harness["launches"]["mau_attention_fwd"]),
         launches_per_path={
             "serving": serve_launches,
             "training": train_launches["mau_attention"],
             "serving_ctsma": ctsma_launches["mau_attention"],
-            "training_ctsma": ctsma_train_launches["mau_attention"]},
+            "training_ctsma": ctsma_train_launches["mau_attention"],
+            "harness": harness["launches"]["mau_attention_fwd"]},
         max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=None,
@@ -3044,7 +3300,8 @@ def main() -> int:
              cat_errs["flagship_bf16"][1]) for line in (292, 323, 343)):
         row = train_timing[(name, bf16)]
         per_path = {"training": train_launches[name],
-                    "training_ctsma": ctsma_train_launches[name]}
+                    "training_ctsma": ctsma_train_launches[name],
+                    "harness": harness["launches"][name]}
         if name != "mau_attention_bwd":
             per_path["training_lc"] = lc_train_launches[name]
             per_path["training_sasrec_lc"] = sas_train_launches[name]
@@ -3144,8 +3401,17 @@ def main() -> int:
         + f" ms per B=8 batch on {card}")
     log(f"CTSMA-LC train: {ctlc_ms_step:.4f} ms/step, {ctlc_ex_s:.1f} ex/s at"
         f" B=8, L=2048 on {card}")
+    log(f"harness: {harness['ex_s']:.1f} train ex/s through cli.train, loader"
+        f" included ({harness['epoch_s']:.4f} s an epoch of 8 steps at B=512),"
+        f" beside phase 7's {ex_s:.1f} with batches on the device; checkpoint"
+        f" save {harness['save_s']:.4f} s, {harness['save_bytes']:,} bytes on"
+        f" {card}")
     for entry in kernels:
         entry["cuda_kernels"] = CUDA_KERNELS[entry["name"]]
+        if entry["name"] in HARNESS_KERNELS:
+            entry["harness_profiler_launches"] = {
+                k: harness["profiler"].get(k, 0)
+                for k in CUDA_KERNELS[entry["name"]]}
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@
 Maps a batch of raw user histories to top-k item ids and scores with the
 eval-time semantics the metrics use: the model's eval masking protocol,
 mask_seen, the -1000 bias on id 0. Ties rank by ascending id, as
-``lax.top_k`` ranks them.
+``lax.top_k`` ranks them. ``Recommender.from_checkpoint`` serves the
+weights a training run saved (train/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.data.masking import make_protocol
 from easydgl_tpu_torch.eval.metrics import mask_seen_logits
 from easydgl_tpu_torch.models.registry import build_model
-from easydgl_tpu_torch.train.steps import to_device
+from easydgl_tpu_torch.train.steps import TrainState, init_state, to_device
 
 
 class Recommender:
@@ -59,3 +60,27 @@ class Recommender:
         # a stable sort keeps equal scores in ascending-id order
         scores, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
         return idx[:, :k].cpu().numpy(), scores[:, :k].cpu().numpy()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, ckpt_dir: str,
+                        sample_arrays: Dict[str, np.ndarray],
+                        mark_table: Optional[np.ndarray] = None, *,
+                        device=None) -> "Recommender":
+        """The latest checkpoint of ``ckpt_dir``, restored into a model
+        built on ``device`` (default ``cuda``). The template matches the
+        TRAINING state layout (checkpoints store params + opt state).
+        ``sample_arrays`` (a packed-layout batch) keeps the JAX signature:
+        the port's model knows its shapes from ``cfg``, so no sample batch
+        is traced."""
+        from easydgl_tpu_torch.train.checkpoint import Checkpointer
+        del sample_arrays
+        model = build_model(cfg, device=device)
+        Checkpointer(ckpt_dir).restore(init_state_for_restore(model))
+        return cls(cfg, model, mark_table)
+
+
+def init_state_for_restore(model: nn.Module) -> TrainState:
+    """A restore template of the TRAINING state layout: the model's own
+    parameters, which the restore overwrites in place, and a fresh state of
+    its optimizer."""
+    return init_state(model)

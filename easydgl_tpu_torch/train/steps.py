@@ -16,9 +16,14 @@ flattened), the label-weight mean with the mask on padding id 0;
 ``l2_reg * 0.5 * sum(w^2)`` over every ``lookup_table``; the TPP
 regularizer (EasyDGL). The catalog scoring goes through
 ``kernels.scoring.catalog_nll`` with hidden and table in the compute dtype,
-so no (N, V) logits are built on the card. The ``grec`` loss mode,
-``build_multi_step`` and ``stack_batches`` come with the model and the
-training loop that use them.
+so no (N, V) logits are built on the card. The ``grec`` loss mode comes
+with the model that uses it.
+
+Dropout: each step draws every mask from a ``torch.Generator`` on the
+device. ``dropout_generator(seed, step)`` seeds it from the run's seed and
+the step number, as the JAX step folds the step into its key
+(``fold_in(rng, step)``), so a resumed run draws the masks an uninterrupted
+one draws.
 """
 from __future__ import annotations
 
@@ -156,8 +161,55 @@ def build_train_step(model: SequentialModel, mark_table=None):
     return step
 
 
-def build_eval_step(model: SequentialModel, mark_table=None):
-    """Returns ``step(params_or_model, features, labels, valid) -> sums``.
+def build_multi_step(model: SequentialModel, mark_table=None):
+    """Returns ``multi(state, stacked_features, stacked_labels, seed) ->
+    (state, (K,) losses)``: K train steps over a stacked batch ((K, B, ...)
+    features and labels, ``stack_batches``). Step k draws its dropout from
+    ``dropout_generator(seed, state.step)``, as the loop's steps do.
+    PyTorch runs eagerly, so this is a loop of K single steps inside one
+    call, not one compiled program as JAX's ``lax.scan``."""
+    step = build_train_step(model, mark_table=mark_table)
+    dev = next(model.parameters()).device
+
+    def multi(state: TrainState, features, labels, seed: int):
+        losses = []
+        for k in range(len(labels)):
+            state, loss = step(state, {n: v[k] for n, v in features.items()},
+                               labels[k],
+                               dropout_generator(seed, state.step, dev))
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return multi
+
+
+def _stack(xs):
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs)
+    return np.stack(xs)
+
+
+def stack_batches(batches):
+    """[(features, labels), ...] -> (features, labels) with a leading K
+    dim; numpy arrays or tensors."""
+    feats = {k: _stack([b[0][k] for b in batches]) for k in batches[0][0]}
+    return feats, _stack([b[1] for b in batches])
+
+
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s dropout: seeded from ``(seed,
+    step)`` alone, so a step draws the same masks whether or not the run
+    was resumed before it."""
+    lo, hi = np.random.SeedSequence([seed, step]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        int(lo) | int(hi) << 32)
+
+
+def build_analytics_step(model: SequentialModel, mark_table=None):
+    """Returns ``step(params_or_model, features, labels, valid) -> (logits,
+    sums)``: the eval step that also returns the raw (B, V) logits — the
+    reference's "ANALYTICS" collection (Base.py:154, analytics.py:90-100).
+    mask_seen applies to the ranking only, as in the JAX package.
 
     ``params_or_model`` is the port's model, or a flax-layout param tree
     that is first loaded into ``model``. features/labels/valid may be numpy
@@ -180,8 +232,22 @@ def build_eval_step(model: SequentialModel, mark_table=None):
         valid = torch.as_tensor(valid, device=dev)
         feats = device_marks(feats, labels, mt, is_training=False)
         logits, _ = m(feats, is_training=False)
-        if mask_seen:
-            logits = mask_seen_logits(logits, feats["seqs_i"])
-        return metric_sums(logits, labels[:, -1], valid)
+        ranked = (mask_seen_logits(logits, feats["seqs_i"]) if mask_seen
+                  else logits)
+        return logits, metric_sums(ranked, labels[:, -1], valid)
+
+    return step
+
+
+def build_eval_step(model: SequentialModel, mark_table=None):
+    """Returns ``step(params_or_model, features, labels, valid) -> sums``.
+
+    Mirrors Sequential.eval (Base.py:150-207): last-position logits,
+    optional mask_seen, top-100 HR/NDCG sums. The arguments are those of
+    ``build_analytics_step``, whose sums this returns."""
+    analytics = build_analytics_step(model, mark_table)
+
+    def step(params_or_model, features, labels, valid):
+        return analytics(params_or_model, features, labels, valid)[1]
 
     return step

@@ -1256,3 +1256,65 @@ def test_ctsma_fused_case_matches_plain_version(cuda_device, dtype):
         *ts_, go, gl, causal=True, diag_reset=False, dropout_rate=0.2,
         dropout_seed=seed, num_heads=h)
     _check_by_scale(dtype, grads, want, "backward")
+
+
+def _tiny_harness(num_rows):
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+                                                  synthetic_split)
+    cfg = preset("EasyDGL", num_items=60, seqslen=10, num_units=32,
+                 num_heads=2, num_events=4, batch_size=8, masklen=3)
+    splits = [synthetic_split(num_rows=n, num_items=60, seqslen=10, seed=s)
+              for n, s in ((num_rows, 1), (8, 2), (8, 3))]
+    return cfg, splits, synthetic_mark_table(60, 4, seed=4)
+
+
+def test_train_loop_on_card_launches_the_kernels(cuda_device, tmp_path):
+    """``train_model`` on the card at a tiny size: each step and eval batch
+    launches the MAU kernels and each step the catalog kernels (the
+    wrappers' counts and the profiler's kernel names); the checkpoint it
+    writes restores to the same weights."""
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.train.checkpoint import Checkpointer
+    from easydgl_tpu_torch.train.loop import train_model
+    from easydgl_tpu_torch.train.steps import init_state
+    cfg, (tr, vl, te), table = _tiny_harness(24)
+    counters = (mau_attention, mau_attention_bwd, catalog_nll_fwd,
+                catalog_nll_bwd)
+    for fn in counters:
+        fn.launches = 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, summary = train_model(cfg, tr, vl, te, mark_table=table,
+                                     ckpt_dir=str(tmp_path), num_epochs=1)
+        torch.cuda.synchronize()
+    assert state.step == 3 and np.isfinite(summary["N10"])
+    assert [fn.launches for fn in counters] == [3 + 2, 3, 3, 3]
+    names = " ".join(e.key for e in prof.key_averages())
+    for kernel in ("mau_fwd", "mau_bwd", "catalog"):
+        assert kernel in names, kernel
+    assert next(iter(state.params.values())).is_cuda
+    fresh = build_model(cfg.replace(seed=cfg.seed + 1), device="cuda")
+    restored = Checkpointer(str(tmp_path)).restore(init_state(fresh))
+    for name, want in state.params.items():
+        assert torch.equal(restored.params[name], want), name
+
+
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_device_prefetch_gives_back_the_loader_batches(cuda_device, size):
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.train.loop import device_prefetch
+    cfg, (tr, _, _), table = _tiny_harness(60)
+    loader = BatchLoader(tr, data_mode="mau", batch_size=8, masklen=3,
+                         is_training=True, mark_table=table,
+                         needs_marks=True)
+    want = list(loader.epoch(1))
+    got = list(device_prefetch(loader.epoch(1), size=size))
+    assert len(got) == len(want) == 8
+    for (gf, gl, gv), (wf, wl, wv) in zip(got, want):
+        assert set(gf) == set(wf)
+        for key, arr in wf.items():
+            assert gf[key].is_cuda
+            np.testing.assert_array_equal(gf[key].cpu().numpy(), arr)
+        np.testing.assert_array_equal(gl.cpu().numpy(), wl)
+        np.testing.assert_array_equal(gv.cpu().numpy(), wv)

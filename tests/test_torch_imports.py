@@ -1,6 +1,6 @@
-"""PyTorch port: import hygiene. The package, ``chip_smoke.py`` and
-``scripts/torch_*.py`` import torch and never JAX, flax, optax, triton or
-the JAX package."""
+"""PyTorch port: import hygiene. The package (its ``train/`` and ``cli/``
+modules included), ``chip_smoke.py`` and ``scripts/torch_*.py`` import
+torch and never JAX, flax, optax, orbax, triton or the JAX package."""
 import ast
 import pathlib
 import shutil
@@ -12,7 +12,7 @@ import torch
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "easydgl_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "triton")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton")
 
 
 def _modules():
@@ -35,12 +35,19 @@ def test_every_module_imports_with_jax_flax_optax_triton_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert len(mods) >= 22
+    assert len(mods) >= 30
     for new in ("easydgl_tpu_torch.kernels.mau_blocked",
                 "easydgl_tpu_torch.kernels.mau_streamed",
                 "easydgl_tpu_torch.kernels.flash_attention",
                 "easydgl_tpu_torch.nn.attention",
-                "easydgl_tpu_torch.models.sasrec"):
+                "easydgl_tpu_torch.models.sasrec",
+                "easydgl_tpu_torch.train.early_stopping",
+                "easydgl_tpu_torch.train.checkpoint",
+                "easydgl_tpu_torch.train.profiler",
+                "easydgl_tpu_torch.train.loop",
+                "easydgl_tpu_torch.cli",
+                "easydgl_tpu_torch.cli.train",
+                "easydgl_tpu_torch.cli.analytics"):
         assert new in mods
 
 
