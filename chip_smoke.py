@@ -66,6 +66,16 @@ after:
   through the streamed forward kernels, 10 faithful train steps through
   the seven streamed kernels and the catalog kernels at N = 16,384, then 5
   on one repeated batch;
+* serving and training on GRU4REC, S2PNM and TiSASREC (their presets,
+  bf16: B = 512, L = 30, C = 512; the cuDNN-variant GRU, S2PNM's GRU,
+  attention and dictionary combine, TiSASREC's dense interval attention):
+  eval batches and ``recommend`` requests (no kernel), 20 faithful train
+  steps through the catalog kernels at N = 15,360, then 10 on one repeated
+  batch; TiSASREC's interval buckets of whole-day stamps at its preset's
+  shape, on the card and the CPU equal to the fp32 division-first order,
+  and 8 such rows' fp32 logits card vs CPU in both interval forms; its
+  factored interval attention against the dense one on the card at its
+  preset (fp32), one forward;
 * the harness on the flagship, in a temporary directory: ``cli.train
   --synthetic`` (4,096 train rows, 8 steps an epoch, bf16) for 2 epochs
   and 1 more with ``--resume`` (the step count must continue), the resumed
@@ -79,8 +89,9 @@ Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
 gradient, the updated parameters), for EasyDGL-LC, SASREC-LC,
 BERT4REC-LC and CTSMA-LC the logits of two rows and one train step on two
-rows, and for BERT4REC and CTSMA one train step on eight rows (CTSMA's
-logits on eight rows too).
+rows, for BERT4REC and CTSMA one train step on eight rows (CTSMA's logits
+on eight rows too), and for GRU4REC, S2PNM and TiSASREC the logits of eight
+rows and one train step on eight rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -106,7 +117,8 @@ import torch.nn.functional as F
 
 from easydgl_tpu_torch.config import preset
 from easydgl_tpu_torch.data.loader import BatchLoader, PackedDataset
-from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+from easydgl_tpu_torch.data.synthetic import (day_boundary_stamps,
+                                              synthetic_mark_table,
                                               synthetic_split_vectorized)
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
 from easydgl_tpu_torch.eval.recommender import Recommender
@@ -135,6 +147,8 @@ from easydgl_tpu_torch.kernels.scoring import (catalog_live_rows,
                                                catalog_nll_reference)
 from easydgl_tpu_torch.models.registry import (MODELS, build_model,
                                                model_class)
+from easydgl_tpu_torch.models.tisasrec import (interval_buckets,
+                                               interval_buckets_numpy)
 from easydgl_tpu_torch.parity import random_flax_params
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
                                            device_marks, init_state,
@@ -164,12 +178,12 @@ SCALE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # whole-model logits, fp32 on the card vs fp32 on the CPU
 SLICE_TOL = (1e-4, 1e-4)
 # Gradient leaves that are zero in exact arithmetic: a key projection's bias
-# (SASREC's attention, CTSMA's MAU) b adds q_i . b to every logit of row i,
-# which the softmax cancels, so its
-# computed gradient is rounding noise on either device (~1e-9 where the key
+# (SASREC's, S2PNM's and TiSASREC's attention, CTSMA's MAU) b adds q_i . b
+# to every logit of row i, which the softmax cancels, so its computed
+# gradient is rounding noise on either device (~1e-9 where the key
 # weight's is ~1e-3). The train-step checks hold it to 1e-4 of the key
 # weight's gradient scale instead of its own.
-ZERO_GRAD_LEAF = re.compile(r"_(attn|mau)\.k\.bias$")
+ZERO_GRAD_LEAF = re.compile(r"(^|_)(attn|mau)\.k\.bias$")
 FLAGSHIP = dict(b=512, tq=31, tk=31, h=8, dh=64, e=64)
 # PRESETS["CTSMA"]'s heads (C=512, H=4: dh=128) at the flagship's T and E
 DH128 = dict(b=32, tq=31, tk=31, h=4, dh=128, e=64)
@@ -190,6 +204,14 @@ LC_TRAIN_STEPS, LC_REPEAT_STEPS = 10, 5
 # SASREC-LC and BERT4REC-LC
 FLASH_TRAIN_STEPS, FLASH_REPEAT_STEPS = 10, 5
 BERT4REC_TRAIN_STEPS, BERT4REC_REPEAT_STEPS = 20, 10
+# the models whose paths run no attention kernel, only the catalog kernels
+# in training: name -> (phase letter, data seed, the preset's shape)
+RECURRENT_AND_INTERVAL = {
+    "GRU4REC": ("h", 31, "B=512, L=30, C=512, 1 cuDNN-variant GRU layer"),
+    "S2PNM": ("i", 34, "B=512, L=30, C=512, 1 GRU layer, 1 causal head of "
+                       "512 over the 2C-wide codes"),
+    "TiSASREC": ("j", 37, "B=512, L=30, C=512, H=8, 2 blocks, the dense "
+                          "(B, L, L, C) interval codes, timelen 256")}
 LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)   # EasyDGL-LC eval shape
 STREAMED = (mau_stats, mau_intensity, mau_modulated_out)
 STREAMED_BWD = (mau_glam, mau_intensity_bwd, mau_dq, mau_dkvt)
@@ -2618,10 +2640,13 @@ def phase_model_slice(name, seed, **overrides):
     return launches, batches[0], seqs_per_s, latencies
 
 
-def phase_model_cpu_vs_card(name, batch, rows=2, **overrides):
+def phase_model_cpu_vs_card(name, batch, rows=2, sides=None, **overrides):
     """fp32 logits of preset ``name`` (with ``overrides``) on ``rows`` rows
-    of ``batch``, the card (kernels) against the CPU (plain versions); the
-    marks from ``mark_table_of`` where the model reads them."""
+    of ``batch``, one eval forward a side at dropout 0; the marks from
+    ``mark_table_of`` where the model reads them. ``sides``: two (device,
+    config overrides) pairs, the second the reference; by default the card
+    (kernels) against the CPU (plain versions)."""
+    sides = sides or (("cuda", {}), ("cpu", {}))
     cfg = preset(name, compute_dtype="float32", **overrides)
     params = random_flax_params(cfg, seed=0)
     features = {k: v[:rows] for k, v in batch[0].items()}
@@ -2630,20 +2655,23 @@ def phase_model_cpu_vs_card(name, batch, rows=2, **overrides):
         ids = features["seqs_i"]
         features["seqs_marks"] = table[np.where(ids >= table.shape[0], 0,
                                                 ids)].astype(np.float32)
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg, device=dev, params=params)
+    logits = []
+    for dev, kw in sides:
+        model = build_model(cfg.replace(**kw), device=dev, params=params)
         with torch.no_grad():
             out, _ = model(to_device(features, dev), is_training=False)
-        logits[dev] = out.cpu()
+        logits.append(out.cpu())
         del model
-    err = (logits["cuda"] - logits["cpu"]).abs()
+    got, want = logits
+    err = (got - want).abs()
     atol, rtol = SLICE_TOL
-    ratio = float((err / (atol + rtol * logits["cpu"].abs())).max())
-    log(f"  logits {tuple(logits['cpu'].shape)}:"
+    ratio = float((err / (atol + rtol * want.abs())).max())
+    what = " vs ".join(" ".join([dev] + [f"{k}={v}" for k, v in kw.items()])
+                       for dev, kw in sides)
+    log(f"  logits {tuple(want.shape)}, {what}:"
         f" max_abs={float(err.max()):.3e}"
         f" tol(atol={atol:g}, rtol={rtol:g}) worst/tol={ratio:.3f}")
-    check(ratio <= 1.0, f"{name} card vs CPU logits outside tolerance")
+    check(ratio <= 1.0, f"{name} logits {what} outside tolerance")
 
 
 def phase_model_train(name, seed, steps, repeat, **overrides):
@@ -2831,6 +2859,40 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
               "train gradients kernels vs plain on the card outside tolerance")
     check(worst_g <= 1.0, "train gradients card vs CPU outside tolerance")
     check(worst_p <= 1.0, "updated parameters card vs CPU outside tolerance")
+
+
+def phase_day_boundary_buckets(rows=8):
+    """TiSASREC's interval buckets at its preset's shape (B = 512, L = 30,
+    timelen 256) of whole-day stamps up to 300 days apart
+    (``day_boundary_stamps``, where a span's bucket depends on the order of
+    the fp32 operations), on the card equal to the CPU's and to numpy's
+    fp32 ones, the JAX source's order; the count of pairs that dividing by
+    a Python float (on the card a product with the fp32 reciprocal) would
+    move. Returns ``rows`` rows of the stamps with ids, as a batch."""
+    cfg = preset("TiSASREC")
+    bs, length = cfg.batch_size, cfg.seqslen + 1
+    rng = np.random.default_rng(39)
+    stamps = day_boundary_stamps(rng, bs, length, max_days=300,
+                                 day=cfg.time_scale)
+    ids = rng.integers(1, cfg.num_items, (bs, cfg.seqslen)).astype(np.int32)
+    ids[0, :2] = 0
+    want = interval_buckets_numpy(stamps, cfg.time_scale, cfg.timelen)
+    on_card = torch.as_tensor(stamps, device="cuda")
+    got = {dev: interval_buckets(t, cfg.time_scale, cfg.timelen).cpu()
+           .numpy() for dev, t in (("card", on_card),
+                                   ("CPU", torch.as_tensor(stamps)))}
+    ts = on_card / cfg.time_scale
+    by_reciprocal = (ts[:, 1:, None] - ts[:, None, :-1]).clamp(
+        0.0, float(cfg.timelen)).to(torch.int32).cpu().numpy()
+    moved = {dev: int((b != want).sum()) for dev, b in got.items()}
+    log(f"  {want.size} pairs ({int((want == cfg.timelen).sum())} in the "
+        f"edge bucket): differing from numpy's fp32 buckets on the card "
+        f"{moved['card']}, on the CPU {moved['CPU']}; divided by a Python "
+        f"float on the card {int((by_reciprocal != want).sum())}")
+    check(moved["card"] == 0 and moved["CPU"] == 0,
+          "TiSASREC interval buckets of whole-day stamps differ from the "
+          "fp32 division-first order")
+    return ({"seqs_i": ids[:rows], "seqs_t": stamps[:rows]},)
 
 
 HARNESS_ROWS = 4096   # cli.train's synthetic rule: 8 steps an epoch at B=512
@@ -3262,6 +3324,41 @@ def main() -> int:
         "dropout 0")
     phase_train_cpu_vs_card("CTSMA-LC", rows=2, device_floor=True,
                             compute_dtype="float32")
+    new_paths = {}
+    for name, (tag, seed, what) in RECURRENT_AND_INTERVAL.items():
+        log(f"phase 5{tag}: {name} eval + serving at full width on the card "
+            f"(PRESETS[\"{name}\"]: {what}, bf16; no kernel on the served "
+            f"path)")
+        _, first, seqs_s, lat = phase_model_slice(
+            name, seed, compute_dtype="bfloat16")
+        log(f"phase 6{tag}: full-width fp32 {name}, card vs CPU, 8 rows")
+        phase_model_cpu_vs_card(name, first, rows=8)
+        if name == "TiSASREC":
+            log("phase 6j': TiSASREC's interval buckets of whole-day stamps "
+                "at the preset's shape on the card and the CPU; fp32 logits "
+                "of 8 such rows, card vs CPU, both interval forms; the "
+                "factored form against the dense one on the card (B=512, "
+                "L=30, timelen 256), one forward at dropout 0")
+            days = phase_day_boundary_buckets()
+            for impl in ("xla", "factored"):
+                phase_model_cpu_vs_card(name, days, rows=8,
+                                        attention_impl=impl)
+            phase_model_cpu_vs_card(
+                name, first, rows=first[0]["seqs_i"].shape[0],
+                sides=(("cuda", dict(attention_impl="factored")),
+                       ("cuda", dict(attention_impl="xla"))))
+        log(f"phase 7{tag}: {name} faithful train steps at full width on the"
+            f" card (B=512, L=30, bf16, the preset's dropout, softmax-eps "
+            f"over every position, L2, TF-Adam, the catalog kernels at "
+            f"N=15,360)")
+        model_launches, model_ms, model_ex_s = phase_model_train(
+            name, seed + 2, TRAIN_STEPS, REPEAT_STEPS,
+            compute_dtype="bfloat16")
+        log(f"phase 8{tag}: full-width fp32 {name} train step, card (catalog"
+            f" kernels) vs CPU (plain), 8 rows, dropout 0")
+        phase_train_cpu_vs_card(name, rows=8)
+        new_paths[name] = dict(launches=model_launches, seqs_s=seqs_s,
+                               lat=lat, ms_step=model_ms, ex_s=model_ex_s)
     harness = phase_harness(card, ex_s)
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
@@ -3308,6 +3405,9 @@ def main() -> int:
             per_path["training_bert4rec"] = b4_train_launches[name]
             per_path["training_bert4rec_lc"] = b4lc_train_launches[name]
             per_path["training_ctsma_lc"] = ctlc_train_launches[name]
+            for model_name, res in new_paths.items():
+                per_path[f"training_{model_name.lower()}"] = \
+                    res["launches"][name]
         entry = dict(name=name, route="cuda", source=csrc + source,
                      replaces=replaces, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=err,
@@ -3401,6 +3501,12 @@ def main() -> int:
         + f" ms per B=8 batch on {card}")
     log(f"CTSMA-LC train: {ctlc_ms_step:.4f} ms/step, {ctlc_ex_s:.1f} ex/s at"
         f" B=8, L=2048 on {card}")
+    for model_name, res in new_paths.items():
+        log(f"{model_name} serving: {res['seqs_s']:.1f} eval seqs/s,"
+            f" recommend " + ", ".join(f"{x * 1e3:.3f}" for x in res["lat"])
+            + f" ms per B=512 batch on {card}")
+        log(f"{model_name} train: {res['ms_step']:.4f} ms/step,"
+            f" {res['ex_s']:.1f} ex/s at B=512 on {card}")
     log(f"harness: {harness['ex_s']:.1f} train ex/s through cli.train, loader"
         f" included ({harness['epoch_s']:.4f} s an epoch of 8 steps at B=512),"
         f" beside phase 7's {ex_s:.1f} with batches on the device; checkpoint"

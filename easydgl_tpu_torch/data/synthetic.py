@@ -71,6 +71,26 @@ def synthetic_mark_table(num_items: int, num_events: int,
     return table
 
 
+def day_boundary_stamps(rng: np.random.Generator, num_rows: int,
+                        length: int, *, max_days: int,
+                        day: float = 86400.0, start_day: int = 18500,
+                        padded: int = 3) -> np.ndarray:
+    """(num_rows, length) fp32 timestamps in seconds, sorted draws of whole
+    days from [start_day, start_day + max_days), each off midnight by 256 s
+    or 384 s in turn, as dated stamps sit: many of their differences in
+    days lie within an fp32 rounding of a whole number, where a bucket of
+    truncated spans depends on the order of the fp32 operations. The first
+    ``padded`` stamps of row 0 are 0 (a left-padded row). Not in the JAX
+    package's module; the stamps of the interval-bucket checks."""
+    days = np.sort(rng.integers(0, max_days, (num_rows, length)), axis=1)
+    off = np.where(np.arange(length) % 2 == 0, 256.0, 384.0)
+    exact = (start_day + days) * day + off
+    stamps = exact.astype(np.float32)
+    assert (stamps.astype(np.float64) == exact).all(), "not exact in fp32"
+    stamps[0, :padded] = 0.0
+    return stamps
+
+
 def synthetic_split_vectorized(*, num_rows: int, num_items: int,
                                seqslen: int, seed: int = 0,
                                min_len: int = 5,

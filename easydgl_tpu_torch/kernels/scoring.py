@@ -13,7 +13,8 @@ with TMA-fed tiles, ``catalog_fwd_tc_kernel`` and
 
 CPU tensors take ``catalog_nll_reference``, the plain version, which
 materialises the logits; autograd differentiates it.
-``catalog_nll_bwd_reference`` is the plain version of the backward. CUDA
+``catalog_nll_bwd_reference`` is the plain version of the backward, and
+``catalog_nll_written_out`` the plain forward differentiated by it. CUDA
 tensors launch the kernels or raise; ``catalog_nll_fwd.launches`` and
 ``catalog_nll_bwd.launches`` count the launches.
 
@@ -68,6 +69,31 @@ def catalog_nll_bwd_reference(hidden, table, bias, labels, lse, dlse, dll):
     dh = gr @ table.float()
     dt = gr.t() @ hidden.float()
     return dh.to(hidden.dtype), dt.to(cdt), g.sum(0)
+
+
+class _CatalogNLLWrittenOut(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, hidden, table, bias, labels):
+        lse, ll = catalog_nll_reference(hidden, table, bias, labels)
+        ctx.save_for_backward(hidden, table, bias, labels, lse)
+        return lse, ll
+
+    @staticmethod
+    def backward(ctx, dlse, dll):
+        hidden, table, bias, labels, lse = ctx.saved_tensors
+        dh, dt, db = catalog_nll_bwd_reference(hidden, table, bias, labels,
+                                               lse, dlse, dll)
+        return dh, dt, db.to(bias.dtype), None
+
+
+def catalog_nll_written_out(hidden, table, bias, labels):
+    """``catalog_nll`` in plain ops on any device, differentiated by the
+    written-out ``catalog_nll_bwd_reference`` (g rounded to the compute
+    dtype before both products, as the kernels round it) rather than by
+    autograd of ``catalog_nll_reference`` (g kept in fp32): the plain
+    version a bf16 train step through the kernels is held to."""
+    return _CatalogNLLWrittenOut.apply(hidden, table, bias, labels)
 
 
 def catalog_live_rows(dlse: torch.Tensor, dll: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Model factory (port of ``easydgl_tpu.models.registry``).
 
-EasyDGL, SASREC, BERT4REC and CTSMA are ported so far; the other seven
-models of the JAX zoo raise the JAX factory's ``NotImplementedError``.
+EasyDGL, SASREC, BERT4REC, CTSMA, GRU4REC, S2PNM and TiSASREC are ported
+so far; the other four models of the JAX zoo (GREC, TGAT, TGREC and
+TimelyREC) raise the JAX factory's ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,10 +14,14 @@ from easydgl_tpu_torch.models.base import SequentialModel
 from easydgl_tpu_torch.models.bert4rec import BERT4REC
 from easydgl_tpu_torch.models.ctsma import CTSMA
 from easydgl_tpu_torch.models.easydgl import EasyDGL
+from easydgl_tpu_torch.models.gru4rec import GRU4REC
+from easydgl_tpu_torch.models.s2pnm import S2PNM
 from easydgl_tpu_torch.models.sasrec import SASREC
+from easydgl_tpu_torch.models.tisasrec import TiSASREC
 
 MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC, "BERT4REC": BERT4REC,
-          "CTSMA": CTSMA}
+          "CTSMA": CTSMA, "GRU4REC": GRU4REC, "S2PNM": S2PNM,
+          "TiSASREC": TiSASREC}
 
 
 def model_class(cfg: Config) -> type:

@@ -55,6 +55,15 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor, *,
         logits = logits + bias
     logits = logits * (scale if scale is not None else
                        1.0 / q.shape[-1] ** 0.5)
+    return masked_softmax(logits, key_mask, causal)
+
+
+def masked_softmax(logits: torch.Tensor,
+                   key_mask: Optional[torch.Tensor] = None,
+                   causal: bool = False) -> torch.Tensor:
+    """Softmax over the last axis of (B, H, Tq, Tk) logits with the
+    reference's mask value where ``key_mask`` (B, Tk) is 0 and, under
+    ``causal``, above the diagonal."""
     if key_mask is not None:
         km = (key_mask != 0)[:, None, None, :]
         logits = torch.where(km, logits, NEG_INF_LOGIT)

@@ -8,6 +8,14 @@
 * ``PositionCoding.code``: learned absolute positions, ``iota(T)`` rows;
   calling the module concatenates them to its input (SASREC's 2C-wide
   first block, reference coding.py:67-79).
+* ``TimeIntervalCoding``: an embedding over integer interval buckets
+  (TiSASREC). The model clips buckets to [0, timelen] INCLUSIVE while the
+  table has ``timelen`` rows, so the edge bucket is out of range; ``code``
+  gives it a zero row (the TF GPU gather the reference's numbers come
+  from), and ``table_extended`` appends that zero row for the factored
+  interval attention. The index is clamped before the gather, as in
+  ``Embedding``: on the card an out-of-range ``index_select`` is a
+  device-side assert.
 * ``TimeSinusoidCoding.code``: fixed interleaved sin/cos with
   ``10000^(2i/d)`` scaling. Its arguments reach ~1e4 rad at real
   timestamps, so it stays plain fp32 ``torch.sin``/``torch.cos`` (a
@@ -67,6 +75,29 @@ class PositionCoding(nn.Module):
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         """[inputs | codes] on the last axis."""
         return torch.cat([inputs, self.code(inputs)], dim=-1)
+
+
+class TimeIntervalCoding(nn.Module):
+    """Embedding over integer interval buckets (reference coding.py:82-94);
+    parameter ``pembs.lookup_table`` (vocab_size, C)."""
+
+    def __init__(self, vocab_size: int, num_units: int, *, device=None):
+        super().__init__()
+        self.pembs = Embedding(vocab_size, num_units, zero_pad=False,
+                               scale=False, device=device)
+
+    def code(self, buckets: torch.Tensor) -> torch.Tensor:
+        """buckets (...) int -> (..., C); a bucket outside [0, vocab_size)
+        gives a zero row."""
+        ok = (buckets >= 0) & (buckets < self.pembs.vocab_size)
+        out = self.pembs(buckets)
+        return out * ok[..., None].to(out.dtype)
+
+    def table_extended(self) -> torch.Tensor:
+        """(vocab_size + 1, C): the table with a zero LAST row, which the
+        edge bucket ``vocab_size`` indexes."""
+        t = self.pembs.table()
+        return torch.cat([t, t.new_zeros((1, t.shape[1]))])
 
 
 class TimeSinusoidCoding(nn.Module):

@@ -18,8 +18,8 @@ Mixed precision follows the JAX package: parameters stay fp32; with a
 compute dtype (``Config.matmul_dtype``, ``torch.bfloat16``) a Dense casts
 its input, weight AND bias to that dtype and returns it (flax
 ``nn.Dense(dtype=bf16)``); ``mm_fp32acc`` contractions take compute-dtype
-operands and return fp32 (``mxu_einsum``); LayerNorm moments, softmax and
-metrics are fp32.
+operands and return fp32 (``mxu_einsum``; ``einsum_fp32acc`` for other
+contractions); LayerNorm moments, softmax and metrics are fp32.
 """
 from __future__ import annotations
 
@@ -35,6 +35,12 @@ def to_compute(x: torch.Tensor, cdt: Optional[torch.dtype]) -> torch.Tensor:
     return x.to(cdt) if cdt is not None else x
 
 
+def _rounded(ops, cdt: Optional[torch.dtype]):
+    """Each operand rounded to ``cdt`` and widened back to fp32 (as given
+    where ``cdt`` is None)."""
+    return ops if cdt is None else tuple(o.to(cdt).float() for o in ops)
+
+
 def mm_fp32acc(a: torch.Tensor, b: torch.Tensor,
                cdt: Optional[torch.dtype]) -> torch.Tensor:
     """``a @ b`` with operands rounded to ``cdt`` and an fp32 result.
@@ -43,10 +49,15 @@ def mm_fp32acc(a: torch.Tensor, b: torch.Tensor,
     product of two bf16 values is exact in fp32, so this is a bf16-operand,
     fp32-accumulate contraction whose result is never rounded to bf16 —
     what ``preferred_element_type=float32`` gives in JAX."""
-    if cdt is not None:
-        a = a.to(cdt).float()
-        b = b.to(cdt).float()
+    a, b = _rounded((a, b), cdt)
     return a @ b
+
+
+def einsum_fp32acc(eq: str, *ops: torch.Tensor,
+                   cdt: Optional[torch.dtype]) -> torch.Tensor:
+    """``torch.einsum`` with ``mm_fp32acc``'s rounding: operands rounded to
+    ``cdt``, an fp32 result (JAX ``mxu_einsum``)."""
+    return torch.einsum(eq, *_rounded(ops, cdt))
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -1,8 +1,26 @@
-"""Self-modulating attention: ``MAU``, ``BiMAU`` and ``MGAU`` (port of the MAU
-family in ``easydgl_tpu.nn.temporal``, reference src/module/temporal.py:267-508).
+"""Continuous-time attention (port of ``easydgl_tpu.nn.temporal``):
+``TiMultiHeadAttention`` (TiSASREC, reference src/module/temporal.py:15-105)
+and the self-modulating ``MAU``, ``BiMAU`` and ``MGAU`` (reference
+temporal.py:267-508).
 
-A fourth projection T feeds a Hawkes-style intensity head; the attention
-probabilities are modulated elementwise by the per-(q, k) mark intensity.
+``TiMultiHeadAttention``: the logits get two additive relative terms,
+``q . k_pos`` and ``q . k_int`` (the interval codes), before the
+1/sqrt(dh) scale; the values get the matching ``v_pos`` and ``v_int``
+terms. The key mask is ``sign(sum_c |keys|)`` (temporal.py:65), not
+MultiHeadAttention's ``sign(|sum_c keys|)``; after the softmax a query
+mask ``sign(sum_c |queries|)`` zeroes the padded query rows
+(temporal.py:84-88), before the dropout. Two exact forms of the interval
+terms: DENSE, the reference layout, takes the (B, Tq, Tk, C) codes;
+FACTORED takes the (B, Tq, Tk) buckets and the extended (S+1, C) tables:
+``q . T[bucket]`` is a gather from the per-query bucket projections
+``q @ T^T`` (B, H, Tq, S+1), and ``sum_k p_k T_v[bucket_k]`` a bucket
+segment-sum of the probabilities (``scatter_add``) times the table, so no
+(Tq, Tk, C) tensor exists (the long-context form). Plain PyTorch: the JAX
+module has no Pallas kernel.
+
+The MAU family: a fourth projection T feeds a Hawkes-style intensity
+head; the attention probabilities are modulated elementwise by the
+per-(q, k) mark intensity.
 ``MAU`` (CTSMA's) projects its queries with ``q`` and its keys with ``k``,
 ``v`` and ``t``, causal by default; ``BiMAU`` (EasyDGL's) is bidirectional
 with one fused Q|K|V|T projection and the intensity diagonal reset to 1;
@@ -37,7 +55,91 @@ from torch import nn
 
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention
 from easydgl_tpu_torch.kernels.mau_streamed import mau_streamed
-from easydgl_tpu_torch.nn.layers import Dense
+from easydgl_tpu_torch.nn.attention import masked_softmax
+from easydgl_tpu_torch.nn.layers import (Dense, dropout, einsum_fp32acc,
+                                         merge_heads, mm_fp32acc,
+                                         split_heads)
+
+
+def _split_heads_4d(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, Tq, Tk, C) -> (B, H, Tq, Tk, C/H), channel-block head split."""
+    b, tq, tk, c = x.shape
+    return x.reshape(b, tq, tk, num_heads, c // num_heads).permute(
+        0, 3, 1, 2, 4)
+
+
+class TiMultiHeadAttention(nn.Module):
+    """Time-interval-aware attention with the residual (reference
+    temporal.py:15-105); parameters ``q``, ``k``, ``v`` (Dense, C to C)."""
+
+    def __init__(self, num_units: int, num_heads: int,
+                 dropout_rate: float = 0.0, *,
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.compute_dtype = compute_dtype
+        kw = dict(compute_dtype=compute_dtype, device=device)
+        self.q = Dense(num_units, num_units, **kw)
+        self.k = Dense(num_units, num_units, **kw)
+        self.v = Dense(num_units, num_units, **kw)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                k_pos: torch.Tensor, v_pos: torch.Tensor,
+                k_int: Optional[torch.Tensor],
+                v_int: Optional[torch.Tensor], *, causality: bool,
+                generator: Optional[torch.Generator] = None,
+                interval_buckets: Optional[torch.Tensor] = None,
+                interval_tables: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """queries, keys (B, T, C); k_pos, v_pos (B, T, C) position codes;
+        k_int, v_int (B, Tq, Tk, C) interval codes (the dense form), or
+        None with ``interval_buckets`` (B, Tq, Tk) in [0, S] and
+        ``interval_tables`` (the extended (S+1, C) k and v tables; the
+        factored form). ``generator``: the training step's (dropout); None
+        at eval."""
+        cdt = self.compute_dtype
+        h = self.num_heads
+        q = split_heads(self.q(queries), h)
+        k = split_heads(self.k(keys), h)
+        v = split_heads(self.v(keys), h)
+        kp, vp = split_heads(k_pos, h), split_heads(v_pos, h)
+        d = q.shape[-1]
+        factored = interval_buckets is not None
+
+        logits = (mm_fp32acc(q, k.transpose(-1, -2), cdt)
+                  + mm_fp32acc(q, kp.transpose(-1, -2), cdt))
+        if factored:
+            tab_k, tab_v = interval_tables
+            s_ext = tab_k.shape[0]
+            q_tab = einsum_fp32acc("bhqd,shd->bhqs", q,
+                                   tab_k.reshape(s_ext, h, d), cdt=cdt)
+            idx = interval_buckets.long()[:, None].expand(
+                *q_tab.shape[:3], interval_buckets.shape[-1])
+            logits = logits + torch.gather(q_tab, -1, idx)
+        else:
+            logits = logits + einsum_fp32acc(
+                "bhqkd,bhqd->bhqk", _split_heads_4d(k_int, h), q, cdt=cdt)
+        logits = logits / d ** 0.5
+        key_mask = torch.sign(keys.detach().abs().sum(-1))
+        probs = masked_softmax(logits, key_mask, causality)
+        query_mask = torch.sign(queries.detach().abs().sum(-1))
+        probs = probs * query_mask[:, None, :, None]
+        rate = self.dropout_rate if generator is not None else 0.0
+        probs = dropout(probs, rate, generator)
+
+        out = mm_fp32acc(probs, v, cdt) + mm_fp32acc(probs, vp, cdt)
+        if factored:
+            probsum = probs.new_zeros(*probs.shape[:3], s_ext).scatter_add(
+                -1, idx, probs)
+            out = out + einsum_fp32acc("bhqs,shd->bhqd", probsum,
+                                       tab_v.reshape(s_ext, h, d), cdt=cdt)
+        else:
+            out = out + einsum_fp32acc(
+                "bhqk,bhqkd->bhqd", probs, _split_heads_4d(v_int, h),
+                cdt=cdt)
+        return merge_heads(out) + queries
 
 
 class MAU(nn.Module):

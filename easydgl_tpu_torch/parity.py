@@ -88,7 +88,8 @@ class FlaxInit:
     """flax's initializers, drawn in call order from one numpy generator:
     glorot-uniform Dense kernels and embedding tables, truncated normals,
     zero biases, unit LayerNorm gammas. A model's ``flax_layout`` builds
-    its tree with it."""
+    its tree with it; the recurrent models' kernels are per-gate
+    orthogonal."""
 
     def __init__(self, seed: int):
         self.rng = np.random.default_rng(seed)
@@ -110,6 +111,25 @@ class FlaxInit:
             draw = self.rng.standard_normal(n - out.size)
             out = np.concatenate([out, draw[np.abs(draw) < 2.0]])
         return (std * out.reshape(shape)).astype(np.float32)
+
+    def orthogonal(self, n_rows: int, n_cols: int) -> np.ndarray:
+        """``flax.linen.initializers.orthogonal()``: the Q of a normal
+        draw's QR, its columns' signs set by R's diagonal; orthonormal
+        rows or columns, whichever are fewer."""
+        a = self.rng.standard_normal((max(n_rows, n_cols),
+                                      min(n_rows, n_cols)))
+        q, r = np.linalg.qr(a)
+        q = q * np.sign(np.diag(r))
+        return (q if n_rows >= n_cols else q.T).astype(np.float32)
+
+    def per_gate_orthogonal(self, in_c: int, c: int, gates: int
+                            ) -> np.ndarray:
+        """The JAX ``nn.rnn.per_gate_orthogonal`` kernel (in_c, gates * c):
+        each gate's block an independent orthogonal (c, in_c) matrix,
+        transposed (the reference's per-gate ``tf.orthogonal_initializer``
+        of shape (num_units, input_size))."""
+        return np.concatenate([self.orthogonal(c, in_c).T
+                               for _ in range(gates)], axis=1)
 
     @staticmethod
     def zeros(*shape) -> np.ndarray:

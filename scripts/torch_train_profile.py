@@ -7,16 +7,18 @@ Runs ``build_train_step`` of easydgl_tpu_torch for a preset (default
 B = 32, every position scored; ``BERT4REC-LC`` the long-context BERT4Rec,
 L+1 = 2048, B = 32, masklen 256, non-causal flash attention; ``BERT4REC``
 at B = 512; ``CTSMA`` at B = 512, L = 30, the fused MAU kernels causal at
-dh = 128; ``CTSMA-LC``, L = 2048, B = 8, the streamed kernels causal) with
-bf16 matmuls, the preset's dropout and loss terms (EasyDGL and CTSMA: TPP
-and L2, 64 marks looked up on the device; BERT4REC: sparse_ce and L2),
+dh = 128; ``CTSMA-LC``, L = 2048, B = 8, the streamed kernels causal;
+``GRU4REC``, ``S2PNM`` and ``TiSASREC`` at B = 512, L = 30: the GRU
+recurrence and the interval attention in plain ops, the catalog kernels)
+with bf16 matmuls, the preset's dropout and loss terms (EasyDGL and CTSMA:
+TPP and L2, 64 marks looked up on the device; BERT4REC: sparse_ce and L2),
 TF-Adam, random weights from seed 0, over synthetic batches of the
 model's protocol already on the device, first unprofiled (host clock,
 synchronised) and then under ``torch.profiler``, and prints the host wall
-time per step of both runs, the device time by kernel and the share of the
-profiled window the device was busy. Imports neither JAX nor the JAX
-package; run it from any checkout's root (it imports the package beside it)
-to compare two versions in one call.
+time per step of both runs, the device time by kernel, the device kernels
+launched a step and the share of the profiled window the device was busy.
+Imports neither JAX nor the JAX package; run it from any checkout's root
+(it imports the package beside it) to compare two versions in one call.
 
     python3 scripts/torch_train_profile.py [PRESET] [--steps 8]
 """
@@ -88,12 +90,14 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events) / n
     print(f"{torch.cuda.get_device_name(0)}; {args.preset}: {n} train steps"
           f" x {bs} rows:"
           f" wall {unprofiled:.3f} ms/step unprofiled,"
           f" {wall * 1e3 / n:.3f} ms/step profiled; device busy"
           f" {total_us / 1e3 / n:.3f} ms/step ="
           f" {100 * total_us / 1e6 / wall:.1f}% of the window;"
+          f" {launches:.0f} device kernels a step;"
           f" loss {float(loss):.5f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
         per_step = e.self_device_time_total / 1e3 / n

@@ -12,8 +12,10 @@
   restored model reproduces the summary's test H100 to 1e-6 relative,
   serves what the checkpoint's weights loaded by hand serve, and ranked,
   mask_seen top-k lists;
-* the multi-device flags and an unported model raise; so does ``cli.train``
-  without ``--device`` on a machine without a card.
+* the same train and analytics round trip for GRU4REC, S2PNM and
+  TiSASREC (one epoch);
+* the multi-device flags and an unported model (TGAT) raise; so does
+  ``cli.train`` without ``--device`` on a machine without a card.
 
 Tiny config: EasyDGL, L = 10, C = 16, H = 2, 1 block, E = 4, B = 16, 64
 train rows; V = 201, as in ``tests/test_cli.py``, so that HR@100 is not 1
@@ -73,6 +75,26 @@ def test_train_then_analytics_roundtrip(tmp_path, monkeypatch):
                for b in batches)
 
 
+@pytest.mark.parametrize("model", ["GRU4REC", "S2PNM", "TiSASREC"])
+def test_train_then_analytics_roundtrip_of_more_models(tmp_path, monkeypatch,
+                                                       model):
+    """The same round trip for the models that read no marks: the CLI
+    hands them the synthetic mark table all the same, and they ignore
+    it."""
+    monkeypatch.chdir(tmp_path)
+    summary = train_cli.main([
+        "--model", model, "--synthetic", "--synthetic_rows", "64",
+        "--num_epochs", "1", "--ckpt_dir", "ckpt", "--device", "cpu",
+        *TINY])
+    assert 0 < summary["H100"] < 1
+    synthetic_split(num_rows=64 // 8, seed=3, num_items=V, seqslen=L,
+                    with_datetime=True).save(str(tmp_path / "test.npz"))
+    res = analytics_cli.main([
+        "--ckpt", "ckpt", "--model", model, "--data_dir", ".", "--out",
+        "res", "--device", "cpu", *TINY])
+    assert res["H100"] == pytest.approx(summary["H100"], rel=1e-6)
+
+
 def test_recommend_from_trained_checkpoint(tmp_path):
     cfg = preset("EasyDGL", num_items=V, seqslen=L, num_units=16,
                  num_heads=2, num_blocks=1, num_events=E, batch_size=B,
@@ -126,8 +148,8 @@ def test_multi_device_flags_raise(tmp_path, monkeypatch, flags):
 
 def test_unported_model_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="GRU4REC"):
-        train_cli.main(["--model", "GRU4REC", "--synthetic",
+    with pytest.raises(NotImplementedError, match="TGAT"):
+        train_cli.main(["--model", "TGAT", "--synthetic",
                         "--synthetic_rows", "16", "--num_epochs", "1",
                         "--device", "cpu", *TINY])
 

@@ -39,7 +39,8 @@ from easydgl_tpu_torch.kernels.mau_streamed import (
 from easydgl_tpu_torch.kernels.scoring import (catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
-                                               catalog_nll_reference)
+                                               catalog_nll_reference,
+                                               catalog_nll_written_out)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -1318,3 +1319,153 @@ def test_device_prefetch_gives_back_the_loader_batches(cuda_device, size):
             np.testing.assert_array_equal(gf[key].cpu().numpy(), arr)
         np.testing.assert_array_equal(gl.cpu().numpy(), wl)
         np.testing.assert_array_equal(gv.cpu().numpy(), wv)
+
+
+# GRU4REC, S2PNM and TiSASREC (both interval forms): no kernel on their
+# forward, the catalog kernels in their train step.
+RECURRENT_AND_INTERVAL = {"GRU4REC": {}, "S2PNM": {}, "TiSASREC": {},
+                          "TiSASREC-factored": dict(attention_impl="factored")}
+
+
+def _small_cfg(name, compute_dtype):
+    from easydgl_tpu_torch.config import preset
+    kw = dict(RECURRENT_AND_INTERVAL[name])
+    return preset(name.split("-")[0], num_items=60, seqslen=10, num_units=64,
+                  num_heads=1 if name == "S2PNM" else 2, batch_size=4,
+                  timelen=12, compute_dtype=compute_dtype,
+                  hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0,
+                  **kw)
+
+
+def _small_batch(cfg, train):
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import synthetic_split
+    ds = synthetic_split(num_rows=4, num_items=60, seqslen=10, seed=2)
+    f, lab, _ = next(BatchLoader(ds, data_mode="regressive", batch_size=4,
+                                 is_training=train).epoch(0))
+    return f, lab
+
+
+@pytest.mark.parametrize("name", list(RECURRENT_AND_INTERVAL))
+def test_recurrent_and_interval_models_on_card_match_cpu(cuda_device, name):
+    """Eval logits (C = 64, L = 10), the card against the CPU: fp32 to
+    1e-4; bf16 (the same ops, sums in another order, where one flipped
+    bf16 rounding of the GRU's carry or of an activation moves a logit by
+    about 2^-8 of its scale) to 2e-2 of the largest logit, the padding
+    item's -1000 column left out."""
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import to_device
+    for dtype in ("float32", "bfloat16"):
+        cfg = _small_cfg(name, dtype)
+        params = random_flax_params(cfg, 0)
+        feats = _small_batch(cfg, False)[0]
+        logits = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            model = build_model(cfg, device=dev, params=params)
+            with torch.no_grad():
+                logits[dev.type] = model(to_device(feats, dev))[0].cpu()
+        got, want = logits["cuda"][:, 1:], logits["cpu"][:, 1:]
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            err = float((got - want).abs().max())
+            assert err <= 2e-2 * float(want.abs().max()), (dtype, err)
+
+
+@pytest.mark.parametrize("name", list(RECURRENT_AND_INTERVAL))
+def test_recurrent_and_interval_train_step_runs_catalog_kernels(cuda_device,
+                                                                name):
+    """A train step (C = 64) in bf16 and in fp32 launches the catalog
+    forward and backward once each, and so does each ``build_train_step``
+    step. Its loss equals the loss through the catalog's plain version on
+    the card (``catalog_nll_written_out``, whose backward rounds g to the
+    compute dtype before both products as the kernels do) to 1e-5
+    relative, and each gradient leaf that one's to 1e-4 (fp32) or 1e-2
+    (bf16) of its scale; a key bias, 0 in exact arithmetic, to its key
+    weight's."""
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train import steps
+    counts = lambda: (catalog_nll_fwd.launches,  # noqa: E731
+                      catalog_nll_bwd.launches)
+    for dtype, tol in (("bfloat16", 1e-2), ("float32", 1e-4)):
+        cfg = _small_cfg(name, dtype)
+        model = build_model(cfg, device=cuda_device,
+                            params=random_flax_params(cfg, 0))
+        f, lab = _small_batch(cfg, True)
+        feats = steps.to_device(f, cuda_device)
+        labels = torch.as_tensor(lab, device=cuda_device)
+        for fn in (catalog_nll_fwd, catalog_nll_bwd):
+            fn.launches = 0
+        loss, grads = steps.loss_and_grads(model, feats, labels)
+        assert counts() == (1, 1) and np.isfinite(float(loss))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(steps, "catalog_nll", catalog_nll_written_out)
+            loss_p, grads_p = steps.loss_and_grads(model, feats, labels)
+        assert counts() == (1, 1)
+        state, loss1 = steps.build_train_step(model)(
+            steps.init_state(model), f, lab, torch.Generator(device="cuda"))
+        assert counts() == (2, 2)
+        assert np.isfinite(float(loss1)) and state.step == 1
+        assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+        for n, want in grads_p.items():
+            ref = grads_p[n[:-4] + "weight"] if n.endswith("attn.k.bias") \
+                else want
+            err = float((grads[n] - want).abs().max())
+            assert err <= tol * float(ref.abs().max()), (
+                dtype, n, err, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("rows,length,max_days,timelen",
+                         [(4, 9, 12, 8), (512, 31, 300, 256)])
+def test_interval_buckets_on_card_equal_cpu_on_day_boundaries(
+        cuda_device, rows, length, max_days, timelen):
+    """TiSASREC's buckets of whole-day stamps (``day_boundary_stamps``), at
+    the CPU tests' shape and at the preset's (B = 512, L = 30, timelen
+    256): on the card equal to the CPU's and to numpy's fp32 ones, which
+    the CPU tests hold equal to the JAX model's run op by op. Dividing by
+    a Python float (a CPU scalar, which CUDA's division turns into a
+    product with the fp32 reciprocal) moves some of these spans: the
+    stamps reach the order the buckets depend on."""
+    from easydgl_tpu_torch.data.synthetic import day_boundary_stamps
+    from easydgl_tpu_torch.models.tisasrec import (interval_buckets,
+                                                   interval_buckets_numpy)
+    day = 86400.0
+    stamps = torch.as_tensor(day_boundary_stamps(
+        np.random.default_rng(0), rows, length, max_days=max_days, day=day))
+    want = interval_buckets_numpy(stamps.numpy(), day, timelen)
+    got = interval_buckets(stamps.to(cuda_device), day, timelen)
+    assert got.is_cuda and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(
+        interval_buckets(stamps, day, timelen).numpy(), want)
+    ts = stamps.to(cuda_device) / day
+    by_reciprocal = (ts[:, 1:, None] - ts[:, None, :-1]).clamp(
+        0.0, float(timelen)).to(torch.int32).cpu().numpy()
+    assert (by_reciprocal != want).sum() > 0
+
+
+@pytest.mark.parametrize("name", ["TiSASREC", "TiSASREC-factored"])
+def test_tisasrec_on_card_matches_cpu_on_day_boundaries(cuda_device, name):
+    """fp32 eval logits (C = 64, L = 10, timelen 12) of a batch of
+    whole-day stamps up to 16 days apart, the card against the CPU, to
+    1e-4."""
+    from easydgl_tpu_torch.data.synthetic import day_boundary_stamps
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    cfg = _small_cfg(name, "float32")
+    rng = np.random.default_rng(1)
+    stamps = day_boundary_stamps(rng, 4, 11, max_days=16)
+    ids = rng.integers(1, 60, (4, 10))
+    ids[0, :2] = 0
+    params = random_flax_params(cfg, 0)
+    logits = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params=params)
+        with torch.no_grad():
+            logits[dev.type] = model({
+                "seqs_i": torch.as_tensor(ids, device=dev),
+                "seqs_t": torch.as_tensor(stamps, device=dev)})[0].cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)

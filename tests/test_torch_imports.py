@@ -47,7 +47,13 @@ def test_every_module_imports_with_jax_flax_optax_triton_blocked():
                 "easydgl_tpu_torch.train.loop",
                 "easydgl_tpu_torch.cli",
                 "easydgl_tpu_torch.cli.train",
-                "easydgl_tpu_torch.cli.analytics"):
+                "easydgl_tpu_torch.cli.analytics",
+                "easydgl_tpu_torch.nn.rnn",
+                "easydgl_tpu_torch.nn.coding",
+                "easydgl_tpu_torch.nn.temporal",
+                "easydgl_tpu_torch.models.gru4rec",
+                "easydgl_tpu_torch.models.s2pnm",
+                "easydgl_tpu_torch.models.tisasrec"):
         assert new in mods
 
 

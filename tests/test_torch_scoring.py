@@ -28,7 +28,8 @@ from easydgl_tpu_torch.kernels.scoring import (ROW_TILE, catalog_live_rows,
                                                catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
-                                               catalog_nll_reference)
+                                               catalog_nll_reference,
+                                               catalog_nll_written_out)
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -114,6 +115,34 @@ def test_grads_match_jax_kernel_and_reference(n, v, two_pass, monkeypatch):
     for got, name in ((got_auto, "autograd"), (got_expl, "explicit")):
         _assert_grads(got, want_k, f"{name} vs JAX kernel")
         _assert_grads(got, want_r, f"{name} vs JAX reference")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_written_out_is_the_plain_forward_and_backward(dtype):
+    """``catalog_nll_written_out``: the plain forward's (lse, ll), and
+    autograd through it gives ``catalog_nll_bwd_reference``'s gradients
+    exactly; in fp32 (where rounding g is the identity) also autograd's of
+    ``catalog_nll_reference`` to 1e-5 of each output's scale."""
+    h, t, b, lab, dlse, dll = _data(4, n=11, c=16, v=50)
+    th, tt = (torch.tensor(x).to(dtype).requires_grad_() for x in (h, t))
+    tb, tlab = torch.tensor(b, requires_grad=True), torch.tensor(lab)
+    dl, dm = torch.tensor(dlse), torch.tensor(dll)
+    lse, ll = catalog_nll_written_out(th, tt, tb, tlab)
+    want = catalog_nll_reference(th, tt, tb, tlab)
+    for got_x, want_x in zip((lse, ll), want):
+        assert torch.equal(got_x.detach(), want_x.detach())
+    got = torch.autograd.grad((lse * dl).sum() + (ll * dm).sum(),
+                              (th, tt, tb))
+    written = catalog_nll_bwd_reference(th.detach(), tt.detach(),
+                                        tb.detach(), tlab, lse.detach(),
+                                        dl, dm)
+    for g, w in zip(got, written):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if dtype == torch.float32:
+        auto = torch.autograd.grad((want[0] * dl).sum()
+                                   + (want[1] * dm).sum(), (th, tt, tb))
+        _assert_grads([g.numpy() for g in got], [a.numpy() for a in auto],
+                      "written out vs autograd")
 
 
 def test_bf16_backward_rounds_g_and_returns_the_compute_dtype():

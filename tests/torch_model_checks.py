@@ -1,0 +1,212 @@
+"""Parity checks of a whole regressive-protocol model of the PyTorch port
+against the JAX package on the CPU, shared by ``test_torch_gru4rec.py`` and
+``test_torch_tisasrec.py``: a JAX-initialised world (``make_world``), the
+eval logits, the eval step and ``recommend``, one train step with the
+presets' clipped TF-Adam, and the random param tree.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import torch
+
+from easydgl_tpu.config import preset as jpreset
+from easydgl_tpu.data.loader import BatchLoader as JBatchLoader
+from easydgl_tpu.data.synthetic import synthetic_split
+from easydgl_tpu.eval import metrics as jmetrics
+from easydgl_tpu.eval.recommender import Recommender as JRecommender
+from easydgl_tpu.models.registry import build_model as jbuild
+from easydgl_tpu.train import optim as joptim
+from easydgl_tpu.train import steps as jsteps
+from easydgl_tpu.train.steps import build_eval_step as jbuild_eval_step
+from easydgl_tpu_torch.config import preset
+from easydgl_tpu_torch.eval import metrics
+from easydgl_tpu_torch.eval.recommender import Recommender
+from easydgl_tpu_torch.models.registry import build_model
+from easydgl_tpu_torch.parity import flax_to_torch, random_flax_params
+from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
+                                           compute_loss, init_state)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def jfeats(features):
+    return {k: jnp.asarray(v) for k, v in features.items()}
+
+
+def tfeats(features):
+    return {k: torch.as_tensor(v) for k, v in features.items()}
+
+
+def _nonzero(params, rng):
+    """Every bias and the output bias drawn non-zero, so each parameter
+    moves the result."""
+    def draw(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                draw(val)
+            elif key in ("bias", "output_bias") or key.startswith("b"):
+                tree[key] = rng.normal(0, 0.3, val.shape).astype(np.float32)
+    draw(params["params"])
+    return params
+
+
+def make_world(name, kw, seed, clip_norm=None):
+    """Eval and train batches of the regressive protocol, JAX-initialised
+    weights (``_nonzero``), in one jitted program the JAX loss, its
+    gradients and the parameters after JAX's TF-Adam update, and the loss
+    of JAX ``build_train_step``. ``clip_norm``: another global-norm clip
+    than the preset's, on both sides."""
+    b, v = kw["batch_size"], kw["num_items"]
+    ds = synthetic_split(num_rows=2 * b, num_items=v, seqslen=kw["seqslen"],
+                         seed=seed)
+    batch = lambda train: next(JBatchLoader(  # noqa: E731
+        ds, data_mode="regressive", batch_size=b, is_training=train,
+        use_native=False).epoch(0))
+    jcfg = jpreset(name).replace(use_pallas=False, **kw)
+    if clip_norm is not None:
+        jcfg = jcfg.replace(optim=dataclasses.replace(jcfg.optim,
+                                                      clip_norm=clip_norm))
+    jm = jbuild(jcfg)
+    (ef, elab, ev), (tf, tlab, _) = batch(False), batch(True)
+    params = jax.tree.map(np.asarray, jax.jit(lambda f: jm.init(
+        {"params": jax.random.key(0)}, f, is_training=False))(jfeats(ef)))
+    params = _nonzero(params, np.random.default_rng(5))
+    tx = joptim.build_optimizer(jcfg.optim)
+
+    def update(p):
+        loss, grads = jax.value_and_grad(lambda q: jsteps.compute_loss(
+            jm, q, jfeats(tf), jnp.asarray(tlab)))(p)
+        upd, _ = tx.update(grads, tx.init(p), p)
+        return loss, grads, optax.apply_updates(p, upd)
+
+    loss, grads, params1 = jax.jit(update)(params)
+    state0 = jsteps.TrainState(jax.tree.map(jnp.asarray, params),
+                               tx.init(params), jnp.zeros((), jnp.int32))
+    _, loss1 = jsteps.build_train_step(jm, donate=False)(
+        state0, jfeats(tf), jnp.asarray(tlab), jax.random.key(0))
+    return dict(ds=ds, jm=jm, jcfg=jcfg, kw=kw, name=name, params=params,
+                clip_norm=clip_norm,
+                eval=(ef, elab, ev), train=(tf, tlab), loss=float(loss),
+                loss1=float(loss1),
+                grads=flax_to_torch(jax.tree.map(np.asarray, grads)),
+                params1=flax_to_torch(jax.tree.map(np.asarray, params1)))
+
+
+def port(world, **overrides):
+    cfg = preset(world["name"], **dict(world["kw"], **overrides))
+    if world["clip_norm"] is not None:
+        cfg = cfg.replace(optim=dataclasses.replace(
+            cfg.optim, clip_norm=world["clip_norm"]))
+    return build_model(cfg, device="cpu", params=world["params"])
+
+
+def check_eval_logits(world):
+    """Against the JAX model op by op (its jitted CPU program moves the
+    logits by up to ~1e-4 against its own op-by-op run)."""
+    ef = world["eval"][0]
+    with jax.disable_jit():
+        want, _ = world["jm"].apply(world["params"], jfeats(ef),
+                                    is_training=False)
+    with torch.no_grad():
+        got, _ = port(world)(tfeats(ef))
+    assert got.shape == (world["kw"]["batch_size"],
+                         world["kw"]["num_items"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def check_eval_step_and_recommend(world):
+    model = port(world)
+    b = world["kw"]["batch_size"]
+    jstep = jbuild_eval_step(world["jm"])
+    step = build_eval_step(model)
+    jacc, acc = jmetrics.MetricAccumulator(), metrics.MetricAccumulator()
+    for f, lab, valid in JBatchLoader(world["ds"], data_mode="regressive",
+                                      batch_size=3, is_training=False,
+                                      use_native=False).epoch(0):
+        jacc.update(jstep(world["params"], jfeats(f), jnp.asarray(lab),
+                          jnp.asarray(valid)))
+        acc.update(step(model, f, lab, valid))
+    assert jacc.count == acc.count == 2 * b
+    want, got = jacc.result(), acc.result()
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
+
+    arrays = {k: v[:b] for k, v in world["ds"].arrays.items()}
+    with jax.disable_jit():
+        want_ids, want_scores = JRecommender(
+            world["jcfg"], world["params"]).recommend(arrays, k=7)
+    rec = Recommender(model.cfg, world["params"], device="cpu")
+    ids, scores = rec.recommend(arrays, k=7)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_allclose(scores, want_scores, **TOL)
+    seen = rec.protocol(arrays, False, None)[0]["seqs_i"]
+    for r in range(b):
+        assert not set(ids[r]) & set(seen[r].tolist())
+
+
+def check_step(world, model):
+    """One ``build_train_step`` step: loss 1e-5 relative; every gradient
+    leaf within 1e-6 + 1e-4 of its largest entry (an attention key bias,
+    whose gradient is 0 in exact arithmetic, of its key weight's largest
+    entry); parameters after the
+    update. The step clips the gradients to global norm ``clip`` where the
+    optimizer has one (scale s = min(1, clip / |g|), else 1); TF-Adam's first step is then
+    u(g') = -lr g' / (|g'| + e'), e' = eps / sqrt(1 - b2), so a clipped
+    gradient known to within d' = s (d + 1e-4 |g|) (the norm's error
+    included) moves it by up to lr e' d' / (|g'| - d')^2 where |g'| > 2d' —
+    held to that plus 1e-7 + 1e-5 |p| — and by up to 2 lr where
+    |g'| <= 2d'. That update hardly moves with s, so the clip is held on
+    the first moment the step leaves, (1 - b1) g', to (1 - b1) d'."""
+    tf, tlab = world["train"]
+    names, leaves = zip(*model.named_parameters())
+    loss = compute_loss(model, tfeats(tf), torch.as_tensor(tlab))
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    np.testing.assert_allclose(float(loss.detach()), world["loss"],
+                               rtol=1e-5)
+    jg = world["grads"]
+    assert set(jg) == set(grads)
+    scale = {name: float((jg[name[:-4] + "weight"]
+                          if name.endswith("_attn.k.bias") else g
+                          ).abs().max()) for name, g in jg.items()}
+    for name, want in jg.items():
+        np.testing.assert_allclose(
+            grads[name].numpy(), want.numpy(), rtol=0, err_msg=name,
+            atol=1e-6 + 1e-4 * scale[name])
+    state, loss1 = build_train_step(model)(init_state(model), tf, tlab,
+                                           torch.Generator())
+    np.testing.assert_allclose(float(loss1), world["loss1"], rtol=1e-5)
+    opt = world["jcfg"].optim
+    mine = model.cfg.optim
+    assert (mine.learning_rate, mine.beta2, mine.eps, mine.clip_norm) == (
+        opt.learning_rate, opt.beta2, opt.eps, opt.clip_norm)
+    lr, eps_t1 = opt.learning_rate, opt.eps / np.sqrt(1 - opt.beta2)
+    norm = float(torch.sqrt(sum(g.square().sum() for g in jg.values())))
+    s = min(1.0, opt.clip_norm / norm) if opt.clip_norm > 0 else 1.0
+    for name, want in world["params1"].items():
+        g = jg[name].abs()
+        d = s * (1e-6 + 1e-4 * scale[name] + 1e-4 * g)
+        g = s * g
+        bound = torch.where(
+            g > 2 * d,
+            1e-7 + 1e-5 * want.abs()
+            + lr * eps_t1 * d / (g - d).clamp_min(d) ** 2,
+            torch.tensor(2 * lr))
+        err = (state.params[name].detach() - want).abs()
+        assert bool((err <= bound).all()), name
+        mu_err = (state.opt_state.mu[name] - (1 - opt.beta1) * s
+                  * jg[name]).abs()
+        assert bool((mu_err <= (1 - opt.beta1) * d).all()), name
+    return s
+
+
+def check_random_tree(world):
+    cfg = preset(world["name"], **world["kw"])
+    rand = random_flax_params(cfg, 0)
+    assert (jax.tree_util.tree_structure(rand)
+            == jax.tree_util.tree_structure(world["params"]))
+    for a, b in zip(jax.tree.leaves(rand), jax.tree.leaves(world["params"])):
+        assert a.shape == b.shape and a.dtype == b.dtype
