@@ -19,9 +19,12 @@ the intensity head's VJP, dq, dk/dv/dt), each on the blocked plain
 version's inputs, and the chained streamed backward against the blocked
 one, the two flash attention kernels (the forward, and the backward that
 forms dq, dk and dv in one key-major pass over the live key tiles) and
-their chained backward — and times each against its bound (the flash
-kernels also against ``F.scaled_dot_product_attention`` on the same
-inputs). Then
+their chained backward, and the same two wrappers' wide kernels
+(``flash_wide.cu``, heads of any width: TGAT's augmented 2,048 with v at
+512, TGREC's 150, and the backward at dh = 128), the catalog kernels also
+at TGREC's C = 50 — and times each against its bound (the flash kernels
+also against ``F.scaled_dot_product_attention`` on the same inputs, with
+the backend it picks at the wide heads). Then
 it drives the port's main
 paths, each with the launch counters set to 0 just before it and read just
 after:
@@ -76,6 +79,17 @@ after:
   and 8 such rows' fp32 logits card vs CPU in both interval forms; its
   factored interval attention against the dense one on the card at its
   preset (fp32), one forward;
+* serving and training on TGAT and TGREC (their presets, bf16: TGAT
+  B = 512, C = 512, H = 1, 3 blocks; TGREC B = 128, C = 50, H = 1, 3
+  blocks; the dense Bochner time attention): eval batches and
+  ``recommend`` requests (no kernel), 20 faithful train steps through the
+  catalog kernels, then 10 on one repeated batch; their flash and
+  factored forms against the dense form on the card at the preset (fp32
+  logits of a whole batch, one fp32 train step on 8 rows with the padding
+  made real); then each with ``attention_impl="flash"`` at L = 2048,
+  B = 8: eval batches and ``recommend`` requests through the wide flash
+  forward, 10 faithful train steps through the wide flash kernels and the
+  catalog kernels, then 5 on one repeated batch;
 * the harness on the flagship, in a temporary directory: ``cli.train
   --synthetic`` (4,096 train rows, 8 steps an epoch, bf16) for 2 epochs
   and 1 more with ``--resume`` (the step count must continue), the resumed
@@ -90,8 +104,8 @@ is compared: the flagship's eval logits and one train step (loss, every
 gradient, the updated parameters), for EasyDGL-LC, SASREC-LC,
 BERT4REC-LC and CTSMA-LC the logits of two rows and one train step on two
 rows, for BERT4REC and CTSMA one train step on eight rows (CTSMA's logits
-on eight rows too), and for GRU4REC, S2PNM and TiSASREC the logits of eight
-rows and one train step on eight rows.
+on eight rows too), and for GRU4REC, S2PNM, TiSASREC, TGAT and TGREC the
+logits of eight rows and one train step on eight rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -124,10 +138,10 @@ from easydgl_tpu_torch.eval.metrics import MetricAccumulator
 from easydgl_tpu_torch.eval.recommender import Recommender
 from easydgl_tpu_torch.kernels import build
 from easydgl_tpu_torch.kernels.flash_attention import (
-    FLASH_KERNELS, KERNEL_BWD_HEAD_DIMS, flash_attention,
-    flash_attention_bwd, flash_attention_fwd, flash_attention_reference,
-    flash_bwd_reference, flash_delta, flash_fwd_reference, flash_live_tiles,
-    flash_visited_tiles)
+    _BWD, _FWD, FLASH_KERNELS, flash_attention, flash_attention_bwd,
+    flash_attention_fwd, flash_attention_reference, flash_bwd_reference,
+    flash_delta, flash_fwd_reference, flash_live_tiles, flash_visited_tiles,
+    narrow_kernels)
 from easydgl_tpu_torch.kernels.mau_attention import dropout_factor
 from easydgl_tpu_torch.kernels.mau_attention import (
     _chain, _launch_fwd, _seed_tensor, mau_attention, mau_attention_bwd,
@@ -196,6 +210,9 @@ CTSMA_CHECK = dict(CTSMA_TRAIN, b=32, batch="CTSMA")
 CTSMA_LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)
 CATALOG = dict(n=3072, v=17772, c=512)   # B*masklen rows, the tied table
 CTSMA_CATALOG = dict(n=15360, v=17771, c=512)   # B*L rows, CTSMA
+# PRESETS["TGREC"]'s training rows: B*L = 3,840 at C = 50 (the wrapper pads
+# C to 52, whole 4-column vectors)
+TGREC_CATALOG = dict(n=3840, v=17771, c=50)
 SASREC_LC_CATALOG = dict(n=65536, v=17771, c=512)   # B*L rows
 # B*masklen rows against num_items + 2 ids (the MASK id and one more)
 BERT4REC_LC_CATALOG = dict(n=8192, v=17773, c=512)
@@ -212,6 +229,14 @@ RECURRENT_AND_INTERVAL = {
                        "512 over the 2C-wide codes"),
     "TiSASREC": ("j", 37, "B=512, L=30, C=512, H=8, 2 blocks, the dense "
                           "(B, L, L, C) interval codes, timelen 256")}
+# the Bochner time models: name -> (phase letter, data seed, the preset's
+# shape); each also runs its flash form at L = 2048, B = 8 (BOCHNER_LC)
+BOCHNER = {
+    "TGAT": ("k", 41, "B=512, L=30, C=512, H=1, 3 blocks, the dense "
+                      "(B, L, L, C) time codes"),
+    "TGREC": ("l", 45, "B=128, L=30, C=50, H=1, 3 blocks, the dense "
+                       "(B, L, L, 2C) time-concatenated keys and values")}
+BOCHNER_LC = dict(attention_impl="flash", seqslen=2048, batch_size=8)
 LC = dict(b=8, tq=2048, tk=2048, h=8, dh=64, e=64)   # EasyDGL-LC eval shape
 STREAMED = (mau_stats, mau_intensity, mau_modulated_out)
 STREAMED_BWD = (mau_glam, mau_intensity_bwd, mau_dq, mau_dkvt)
@@ -241,8 +266,12 @@ CUDA_KERNELS = {
                           "mau_int_bwd_cols_tc_kernel"],
     "mau_dq": ["mau_dq_tc_kernel"],
     "mau_dkvt": ["mau_dkvt_tc_kernel"],
-    "flash_attention_fwd": ["flash_fwd_tc_kernel"],
-    "flash_attention_bwd": ["flash_bwd_tc_kernel"]}
+    "flash_attention_fwd": ["flash_fwd_tc_kernel",
+                            "flash_wide_fwd_tc_kernel",
+                            "flash_wide_fwd_kernel"],
+    "flash_attention_bwd": ["flash_bwd_tc_kernel",
+                            "flash_wide_bwd_tc_kernel",
+                            "flash_wide_bwd_kernel"]}
 
 
 def log(msg: str):
@@ -840,7 +869,10 @@ CATALOG_CASES = (
      78),
     ("alternating_bf16_c64", dict(n=333, v=1001, c=64), torch.bfloat16,
      True, 79),
-    ("alternating_fp32", dict(n=333, v=1001, c=64), torch.float32, True, 80))
+    ("alternating_fp32", dict(n=333, v=1001, c=64), torch.float32, True, 80),
+    # TGREC's training rows at C = 50, which the wrapper pads to 52
+    ("tgrec_c50_bf16", TGREC_CATALOG, torch.bfloat16, True, 83),
+    ("tgrec_c50_fp32", TGREC_CATALOG, torch.float32, True, 84))
 CATALOG_FWD, CATALOG_BWD = ("lse", "ll"), ("d_hidden", "d_table", "d_bias")
 CATALOG_FWD_CHECKS = CATALOG_FWD + ("ll label != 0",)
 
@@ -1308,31 +1340,88 @@ FLASH_CASES = (
 # left padding a batch row for the cases that set it (Tk or more: a row of
 # padding), in place of random lengths
 FLASH_PAD = {"t1000_dead_rows_causal_bf16_drop": (1000, 300, 1000, 0),
+             "tgat_w2048_causal_bf16": (300, 70),
+             "tgat_w2048_causal_bf16_drop": (300, 70),
+             "tgat_w2048_causal_fp32_drop": (300, 70),
+             "tgat_w2048_v2048_causal_fp32": (130, 100),
+             "tgrec_w150_causal_fp32": (333, 100, 0),
+             "tgrec_w150_causal_fp32_drop": (333, 100, 0),
+             "tgat_w2048_t2048_causal_bf16": (2048, 100, 1037),
+             "tgat_w2048_t2048_causal_bf16_drop": (2048, 100, 1037),
+             "tgrec_w150_t2048_causal_fp32": (2048, 37, 700),
              "t333_midtile_causal_bf16_drop": (0, 100),
              "t333_midtile_full_fp32": (0, 100),
              "bert4rec_lc_full_bf16_drop": (2048, 700)}
-# the forward also takes dh = 128 (the backward kernels do not)
-FLASH_FWD_ONLY_CASES = (
+# dh = 128: the narrow forward kernels, the wide backward kernel
+FLASH_DH128_CASES = (
     ("t300_causal_bf16_dh128", 2, 2, 300, 300, 128, torch.bfloat16, True,
      0.1),
     ("t300_full_fp32_dh128", 2, 2, 300, 300, 128, torch.float32, False,
      0.0))
+# the wide kernels (flash_wide.cu) at the Bochner models' augmented heads,
+# H = 1, causal, left-padded: TGAT's q and k 2,048 wide with v at dh = 512
+# (as the port passes it) in bf16 and fp32, and v 2,048 wide in fp32;
+# TGREC's 150 in fp32 (FLASH_WIDE gives v's width and q's and k's spread)
+FLASH_WIDE_CASES = (
+    ("tgat_w2048_causal_bf16", 2, 1, 300, 300, 2048, torch.bfloat16, True,
+     0.0),
+    ("tgat_w2048_causal_bf16_drop", 2, 1, 300, 300, 2048, torch.bfloat16,
+     True, 0.1),
+    ("tgat_w2048_causal_fp32_drop", 2, 1, 300, 300, 2048, torch.float32,
+     True, 0.1),
+    ("tgat_w2048_v2048_causal_fp32", 2, 1, 130, 130, 2048, torch.float32,
+     True, 0.0),
+    ("tgrec_w150_causal_fp32", 3, 1, 333, 333, 150, torch.float32, True,
+     0.0),
+    ("tgrec_w150_causal_fp32_drop", 3, 1, 333, 333, 150, torch.float32,
+     True, 0.1),
+    # at the models' flash shape, T = 2048 (TGAT's dropout 0.1, TGREC's
+    # 0), where a key tile's 32 query tiles split over 8 blocks; scale
+    # 1/sqrt(dh) of the un-augmented head, as the models pass it
+    ("tgat_w2048_t2048_causal_bf16", 3, 1, 2048, 2048, 2048, torch.bfloat16,
+     True, 0.0),
+    ("tgat_w2048_t2048_causal_bf16_drop", 3, 1, 2048, 2048, 2048,
+     torch.bfloat16, True, 0.1),
+    ("tgrec_w150_t2048_causal_fp32", 3, 1, 2048, 2048, 150, torch.float32,
+     True, 0.0))
+FLASH_WIDE = {name: dict(dv=512, qk_std=0.3) for name in (
+    "tgat_w2048_causal_bf16", "tgat_w2048_causal_bf16_drop",
+    "tgat_w2048_causal_fp32_drop", "tgat_w2048_t2048_causal_bf16",
+    "tgat_w2048_t2048_causal_bf16_drop")}
+FLASH_WIDE.update({name: dict(qk_std=0.3) for name in (
+    "tgat_w2048_v2048_causal_fp32", "tgrec_w150_causal_fp32",
+    "tgrec_w150_causal_fp32_drop", "tgrec_w150_t2048_causal_fp32")})
+FLASH_SCALE = {"tgat_w2048_t2048_causal_bf16": 512 ** -0.5,
+               "tgat_w2048_t2048_causal_bf16_drop": 512 ** -0.5,
+               "tgrec_w150_t2048_causal_fp32": 50 ** -0.5}
+# the cases whose (max abs err, worst/tol) the kernels line reports
+FLASH_WIDE_REPORTED = ("tgat_w2048_causal_bf16_drop",
+                       "tgrec_w150_causal_fp32_drop",
+                       "tgat_w2048_t2048_causal_bf16",
+                       "tgat_w2048_t2048_causal_bf16_drop",
+                       "tgrec_w150_t2048_causal_fp32")
 FLASH_GRADS = ("dq", "dk", "dv")
 
 
-def flash_inputs(b, h, tq, tk, dh, dtype, seed, pad=None):
-    """q, k, v, dO ~ N(0, 1) in (B, H, T, dh) views of the (B, T, C)
-    layout the model gives them; a key mask with 10% holes, left-padded where
-    Tq == Tk (``pad`` keys a row, else a random length a row), with row 0
-    fully masked."""
+def flash_inputs(b, h, tq, tk, dh, dtype, seed, pad=None, dv=None,
+                 qk_std=1.0):
+    """q, k ~ N(0, qk_std^2) (B, H, T, dh), v, dO ~ N(0, 1) (B, H, T, dv,
+    default dh), views of the (B, T, C) layout the model gives them; a key
+    mask with 10% holes, left-padded where Tq == Tk (``pad`` keys a row,
+    else a random length a row), with row 0 fully masked. At the wide
+    heads qk_std < 1 keeps the logits, sums of 2,048 products, of order
+    1."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
-    def heads(t):
-        x = torch.randn(b, t, h * dh, generator=g, device=dev).to(dtype)
-        return x.view(b, t, h, dh).transpose(1, 2)
+    def heads(t, w, std=1.0):
+        x = (std * torch.randn(b, t, h * w, generator=g, device=dev)).to(
+            dtype)
+        return x.view(b, t, h, w).transpose(1, 2)
 
-    q, k, v, dout = heads(tq), heads(tk), heads(tk), heads(tq)
+    dv = dh if dv is None else dv
+    q, k = heads(tq, dh, qk_std), heads(tk, dh, qk_std)
+    v, dout = heads(tk, dv), heads(tq, dv)
     km = (torch.rand(b, tk, generator=g, device=dev) > 0.1).float()
     if tq == tk:
         lengths = (torch.randint(1, tk + 1, (b,), generator=g, device=dev)
@@ -1369,14 +1458,14 @@ def check_zero_row(name, tensors, rows=(0,)):
                   f" row {r}")
 
 
-def flash_dropout_probe(dtype):
+def flash_dropout_probe(dtype, t=64):
     """q = 0 and k = v = I (uniform probs 1/t over the t keys): out, dq (at
     dO = 1) and dv (at dO = I) of the kernels show the keep factor of every
     (i, j) as they drew it; each is held to ``dropout_factor``. out * t is
     keep rounded to the compute dtype (p = exp(0) = 1 exactly); dv and dq
     carry p = exp(-log t), within an ulp of 1/t, rounded to bf16 once (dv)
     or twice (dq: ds, then dq) in bf16."""
-    b, h, t, rate = 2, 2, 64, 0.25
+    b, h, rate = 2, 2, 0.25
     eye = torch.eye(t, device="cuda").expand(b, h, t, t).to(dtype)
     eye = eye.contiguous()
     q = torch.zeros(b, h, t, t, device="cuda", dtype=dtype)
@@ -1397,22 +1486,28 @@ def flash_dropout_probe(dtype):
                                atol=0, rtol=1e-2 if bf16 else 1e-5)
     torch.testing.assert_close(dq.float() * t + delta[..., None], keep,
                                atol=2e-2 if bf16 else 1e-5, rtol=0)
-    log(f"  dropout probe ({str(dtype)[6:]}): out, dq and dv of the kernels"
-        f" draw dropout_factor's mask (keep {float((keep > 0).float().mean()):.4f})")
+    kernels = "narrow" if t in (16, 32, 64) else "wide"
+    log(f"  dropout probe ({str(dtype)[6:]}, width {t}, the {kernels}"
+        f" kernels): out, dq and dv draw dropout_factor's mask (keep"
+        f" {float((keep > 0).float().mean()):.4f})")
 
 
 def phase_flash_checks():
     log("phase 3f: flash attention kernels (forward; dq, dk, dv in one"
         " backward) vs the plain versions on the card, each kernel on the"
         " plain version's inputs, the backward launched twice; then the"
-        " chained _FlashAttention backward and the dropout probe")
+        " chained _FlashAttention backward and the dropout probe; the wide"
+        " kernels (flash_wide.cu) at dh = 128's backward and at TGAT's and"
+        " TGREC's augmented heads")
     errs = {}
     for i, (name, b, h, tq, tk, dh, dtype, causal, rate) in enumerate(
-            FLASH_CASES + FLASH_FWD_ONLY_CASES):
+            FLASH_CASES + FLASH_DH128_CASES + FLASH_WIDE_CASES):
         q, k, v, km, dout = flash_inputs(b, h, tq, tk, dh, dtype, 900 + i,
-                                         FLASH_PAD.get(name))
+                                         FLASH_PAD.get(name),
+                                         **FLASH_WIDE.get(name, {}))
         sd = torch.tensor(9000 + i, dtype=torch.int64, device="cuda")
-        kw = dict(causal=causal, dropout_rate=rate, seed=sd)
+        kw = dict(causal=causal, dropout_rate=rate, seed=sd,
+                  scale=FLASH_SCALE.get(name))
         got = flash_attention_fwd(q, k, v, km, **kw)
         torch.cuda.synchronize()
         want = flash_fwd_reference(q, k, v, km, **kw)
@@ -1426,32 +1521,41 @@ def phase_flash_checks():
         # lse is fp32 in both dtypes (1e-4 relative).
         scale = (flash_fwd_reference(q, k, v.abs(), km, **kw)[0]
                  if dtype == torch.bfloat16 else want[0])
-        case = {"flash_attention_fwd": compare(
+        res = {"flash_attention_fwd": compare_ratios(
             name, got, want, dtype, scale, labels=("out", "lse"),
             second_tol=TOL[torch.float32])}
         check_zero_row(name, [("out", got[0])])
-        if dh not in KERNEL_BWD_HEAD_DIMS:
-            errs[name] = case
-            continue
         out_p, lse_p, delta_p, dq_p, dk_p, dv_p = flash_plain_chain(
             q, k, v, km, dout, kw)
         bwd = (q, k, v, km, dout, lse_p, delta_p)
         grads = flash_attention_bwd(*bwd, **kw)
         torch.cuda.synchronize()
-        case["flash_attention_bwd"] = compare_by_scale(
-            name, FLASH_GRADS, grads, (dq_p, dk_p, dv_p), dtype)
+        res["flash_attention_bwd"] = {
+            label: scale_err(name, label, a, b, dtype)
+            for label, a, b in zip(FLASH_GRADS, grads, (dq_p, dk_p, dv_p))}
+        # {kernel: (max abs err, worst/tol)}, each output within tolerance
+        case = {}
+        for kname, outs in res.items():
+            for label, (_, ratio) in outs.items():
+                check(ratio <= 1.0, f"{name}: {label} outside tolerance")
+            case[kname] = (max(err for err, _ in outs.values()),
+                           max(ratio for _, ratio in outs.values()))
         dead = [r for r in range(b) if not bool((km[r] > 0).any())]
         check_zero_row(name, zip(FLASH_GRADS, grads), dead)
-        # run to run: dk and dv are each one block's sums, so two launches
-        # agree exactly; dq sums a row's key tiles by atomics in the order
-        # the blocks run, so it is held to the kernel-vs-plain tolerance
+        # run to run: the narrow kernel's dk and dv are each one block's
+        # sums, so two launches agree exactly; dq (and the wide kernel's dk
+        # and dv, a key tile's query tiles split over blocks) sums its parts
+        # by atomics in the order the blocks run, so it is held to the
+        # kernel-vs-plain tolerance
         again = flash_attention_bwd(*bwd, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(again[1], grads[1]) and torch.equal(again[2],
-                                                              grads[2]),
+        exact = narrow_kernels(_BWD, q, v)
+        check(not exact or (torch.equal(again[1], grads[1])
+                            and torch.equal(again[2], grads[2])),
               f"{name}: dk / dv differ between two launches")
-        compare_by_scale(name + "_rerun", ("dq",), again[:1], grads[:1],
-                         dtype)
+        n_rerun = 1 if exact else 3
+        compare_by_scale(name + "_rerun", FLASH_GRADS[:n_rerun],
+                         again[:n_rerun], grads[:n_rerun], dtype)
         # the chained backward: fp32 against autograd of the plain forward,
         # bf16 against the chained plain pieces (the same rounding points)
         chain = flash_chain(flash_attention, q, k, v, km, dout, kw)
@@ -1463,7 +1567,8 @@ def phase_flash_checks():
         errs[name] = case
         del got, want, scale, out_p, dq_p, dk_p, dv_p, chain, ref, grads
     for dtype in (torch.bfloat16, torch.float32):
-        flash_dropout_probe(dtype)
+        for t in (64, 256):
+            flash_dropout_probe(dtype, t)
     return errs
 
 
@@ -1486,7 +1591,7 @@ def visible_pairs(km, t, causal=True) -> float:
     return float(((km > 0).double() * seen_by).sum())
 
 
-def flash_work(name, km, *, h, t, dh, dtype, causal=True):
+def flash_work(name, km, *, h, t, dh, dtype, causal=True, dv=None):
     """(bytes, flops) of one flash kernel on these inputs: q, k, v (dO) read
     once, out (dq, dk, dv) written once, the key mask and the fp32 row
     stats; the products over the visible pairs (``visible_pairs``), which
@@ -1494,13 +1599,16 @@ def flash_work(name, km, *, h, t, dh, dtype, causal=True):
     (QK^T, dO V^T, P^T dO, dS^T Q, dS K). The kernels do more: they compute
     whole 64 x 64 tiles, those on the diagonal and those with masked keys."""
     b = km.shape[0]
+    dv = dh if dv is None else dv
     it = torch.tensor([], dtype=dtype).element_size()
-    seq, rows = it * b * h * t * dh, b * h * t
-    product = 2 * h * visible_pairs(km, t, causal) * dh
+    seq, seq_v, rows = it * b * h * t * dh, it * b * h * t * dv, b * h * t
+    pairs = 2 * h * visible_pairs(km, t, causal)   # 2 flops a product term
     if name == "flash_attention_fwd":   # q, k, v in; out, lse out
-        return 4 * seq + 4 * b * t + 4 * rows, 2 * product
+        return 2 * seq + 2 * seq_v + 4 * b * t + 4 * rows, \
+            pairs * (dh + dv)
     # q, k, v, dO, lse, delta in; dq, dk, dv out
-    return 7 * seq + 4 * b * t + 8 * rows, 5 * product
+    return 4 * seq + 3 * seq_v + 4 * b * t + 8 * rows, \
+        pairs * (3 * dh + 2 * dv)
 
 
 def visited_tile_share(km, t, causal=True) -> float:
@@ -2046,6 +2154,86 @@ def phase_train_kernel_timing():
             rows[(name, dtype)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        library_ms=None, gemm_ms=gemm_ms)
+    return rows
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    inputs: the first, in PyTorch's priority order, that takes them alone
+    (each backend refuses what it cannot run)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    known = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    order = known
+    if hasattr(torch._C, "_get_sdp_priority_order"):
+        by_value = {int(b.value): b for b in known}
+        order = [by_value[int(i)] for i in torch._C._get_sdp_priority_order()
+                 if int(i) in by_value]
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+# the Bochner models' flash calls at L = 2048 (B = 8, H = 1): (tag, q and
+# k width, v width, dtype, the un-augmented head the scale is 1/sqrt of)
+WIDE_TIMING = (("tgat", 2048, 512, torch.bfloat16, 512),
+               ("tgrec", 150, 150, torch.float32, 50))
+
+
+def phase_wide_flash_timing():
+    log("phase 4g: the wide flash kernels at the Bochner models' heads "
+        "(B=8, T=2048, H=1, causal, left-padded key mask): TGAT's q and k "
+        "2,048 wide with v 512 (bf16), TGREC's 150 (fp32)")
+    rows = {}
+    for tag, d, dv, dtype, dh in WIDE_TIMING:
+        t = 2048
+        q, k, v, km, dout = flash_inputs(8, 1, t, t, d, dtype, 960, dv=dv,
+                                         qk_std=0.3)
+        check(not narrow_kernels(_FWD, q, v), f"{tag}: not the wide kernels")
+        sd = torch.tensor(9600, dtype=torch.int64, device="cuda")
+        kw0 = dict(causal=True, scale=dh ** -0.5)
+        kwd = dict(kw0, dropout_rate=0.1, seed=sd)
+        out, lse = flash_attention_fwd(q, k, v, km, **kw0)
+        bwd = (q, k, v, km, dout, lse, flash_delta(dout, out))
+        runs = {
+            "flash_attention_fwd": (
+                lambda kw: flash_attention_fwd(q, k, v, km, **kw),
+                lambda: flash_fwd_reference(q, k, v, km, **kw0)),
+            "flash_attention_bwd": (
+                lambda kw: flash_attention_bwd(*bwd, **kw),
+                lambda: flash_bwd_reference(*bwd, **kw0))}
+        tril = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+        mask = (km > 0)[:, None, None, :] & tril
+        # SDPA scales by 1/sqrt(d): q carries the ratio to 1/sqrt(dh)
+        qs = (q.float() * (d / dh) ** 0.5).to(dtype)
+        backend = sdpa_backend(qs, k, v, mask)
+        sdpa_f, sdpa_b = sdpa_times(qs, k, v, dout, mask)
+        del mask
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(lambda: kern(kw0), warmup=1, iters=5)
+            ms_drop = time_ms(lambda: kern(kwd), warmup=1, iters=3)
+            plain_ms = time_ms(plain, warmup=1, iters=2)
+            nbytes, flops = flash_work(name, km, h=1, t=t, dh=d, dv=dv,
+                                       dtype=dtype)
+            bound_ms, bound_by = bound(nbytes, flops, dtype)
+            lib_ms = sdpa_f if name == "flash_attention_fwd" else sdpa_b
+            log(f"  {tag} {name:19s} {str(dtype):15s} kernel {ms:.4f} ms"
+                f" (dropout 0.1: {ms_drop:.4f})  plain {plain_ms:.4f} ms"
+                f"  SDPA ({backend}) {lib_ms:.4f} ms  bound"
+                f" {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB,"
+                f" {flops / 1e9:.1f} GFLOP)  kernel/bound"
+                f" {ms / bound_ms:.1f}x")
+            rows[(tag, name)] = dict(
+                ms=ms, ms_dropout_0_1=ms_drop, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library_backend=backend, width=d, v_width=dv,
+                dtype=str(dtype)[6:])
+        del q, k, v, dout, bwd, runs, out, lse, qs
     return rows
 
 
@@ -2760,11 +2948,28 @@ def plain_engine(model_cls):
         setattr(module, name, saved)
 
 
+def pad_free(features):
+    """A regressive batch with every padded position made real: id 1, and
+    the stamp of the row's first real event (every row then sees a key at
+    every position, and no span reaches back to a stamp of 0)."""
+    out = dict(features)
+    ids, ts = features["seqs_i"].copy(), features["seqs_t"].copy()
+    ids[ids == 0] = 1
+    for r in range(ts.shape[0]):
+        real = ts[r][ts[r] > 0]
+        ts[r][ts[r] == 0] = real[0] if len(real) else 1.0
+    out["seqs_i"], out["seqs_t"] = ids, ts
+    return out
+
+
 def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
-                            **overrides):
+                            sides=(("cuda", {}), ("cpu", {})),
+                            no_padding=False, **overrides):
     """One full-width fp32 train step of a preset at dropout 0, card
     (kernels) vs CPU (plain versions): loss, every gradient and the
-    parameters after the TF-Adam update.
+    parameters after the TF-Adam update. ``sides``: two (device, config
+    overrides) pairs, the second the reference; ``no_padding``: the batch
+    made ``pad_free``.
 
     With ``device_floor`` the step's gradients are also taken on the card
     with the long-context engine's plain version (``plain_engine``). Every
@@ -2786,9 +2991,12 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
     features, labels, _ = next(BatchLoader(
         split, data_mode=model_cls.data_mode, batch_size=rows,
         masklen=cfg.masklen, is_training=True).epoch(0))
+    if no_padding:
+        features = pad_free(features)
 
-    def grads_on(dev):
-        model = build_model(cfg, device=dev, params=params)
+    def grads_on(dev, kw=None):
+        model = build_model(cfg.replace(**(kw or {})), device=dev,
+                            params=params)
         lab = torch.as_tensor(labels, device=dev)
         feats = to_device(features, dev)
         if table is not None:
@@ -2797,22 +3005,23 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
         grads = loss_and_grads(model, feats, lab)[1]
         return model, {k: g.cpu() for k, g in grads.items()}
 
-    res = {}
-    for dev in ("cuda", "cpu"):
-        model, grads = grads_on(dev)
+    res = []
+    for dev, kw in sides:
+        model, grads = grads_on(dev, kw)
         state, loss = build_train_step(model, mark_table=table)(
             init_state(model), features, labels, torch.Generator(device=dev))
-        res[dev] = (float(loss), grads,
-                    {k: p.detach().cpu() for k, p in state.params.items()})
+        res.append((float(loss), grads,
+                    {k: p.detach().cpu() for k, p in state.params.items()}))
         del model, state, grads
     grads_plain = None
     if device_floor:
         with plain_engine(model_cls):
             grads_plain = grads_on("cuda")[1]
-    (loss_c, grads_c, params_c), (loss_p, grads_p, params_p) = \
-        res["cuda"], res["cpu"]
-    log(f"  loss card {loss_c:.7f} CPU {loss_p:.7f}")
-    check(abs(loss_c - loss_p) <= 1e-5 * abs(loss_p), "train loss card vs CPU")
+    (loss_c, grads_c, params_c), (loss_p, grads_p, params_p) = res
+    what = " vs ".join(" ".join([dev] + [f"{k}={v}" for k, v in kw.items()])
+                       for dev, kw in sides)
+    log(f"  loss {what}: {loss_c:.7f}, {loss_p:.7f}")
+    check(abs(loss_c - loss_p) <= 1e-5 * abs(loss_p), f"train loss {what}")
     # gradients: 1e-4 of each leaf's largest entry (fp32 sums reassociated,
     # atomics on the card); a key bias (ZERO_GRAD_LEAF) to 1e-4 of its key
     # weight's. Parameters: TF-Adam's first step is
@@ -2844,8 +3053,9 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
                           torch.tensor(2 * lr))
         perr = (params_c[name] - params_p[name]).abs()
         worst_p = max(worst_p, float((perr / bnd).max()))
-    log(f"  {len(grads_p)} gradient leaves: worst |card - CPU| / (1e-4 *"
-        f" max|CPU|) = {max(ratios.values()):.3f}; parameters after the"
+    log(f"  {len(grads_p)} gradient leaves ({what}): worst |first - second|"
+        f" / (1e-4 * max|second|) = {max(ratios.values()):.3f}; parameters"
+        f" after the"
         f" update: worst error / bound = {worst_p:.3f}")
     log("  largest gradient ratios: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(ratios.items(),
@@ -2857,8 +3067,8 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
             " the CPU is above 1e-4): " + (", ".join(floored) or "none"))
         check(worst_k <= 1.0,
               "train gradients kernels vs plain on the card outside tolerance")
-    check(worst_g <= 1.0, "train gradients card vs CPU outside tolerance")
-    check(worst_p <= 1.0, "updated parameters card vs CPU outside tolerance")
+    check(worst_g <= 1.0, f"train gradients {what} outside tolerance")
+    check(worst_p <= 1.0, f"updated parameters {what} outside tolerance")
 
 
 def phase_day_boundary_buckets(rows=8):
@@ -2893,6 +3103,57 @@ def phase_day_boundary_buckets(rows=8):
           "TiSASREC interval buckets of whole-day stamps differ from the "
           "fp32 division-first order")
     return ({"seqs_i": ids[:rows], "seqs_t": stamps[:rows]},)
+
+
+def phase_bochner(name, tag, seed, what):
+    """Phases 5-8 of a Bochner time model (TGAT, TGREC) at its preset,
+    its flash and factored forms against its dense form (6'), and its flash
+    form at L = 2048, B = 8 (5?2, 7?2). Returns the launches and rates of
+    its paths."""
+    log(f"phase 5{tag}: {name} eval + serving at full width on the card "
+        f"(PRESETS[\"{name}\"]: {what}, bf16; no kernel on the served "
+        f"path)")
+    _, first, seqs_s, lat = phase_model_slice(
+        name, seed, compute_dtype="bfloat16")
+    log(f"phase 6{tag}: full-width fp32 {name}, card vs CPU, 8 rows")
+    phase_model_cpu_vs_card(name, first, rows=8)
+    log(f"phase 6{tag}': {name}'s flash and factored forms against its "
+        f"dense form on the card at the preset (fp32, dropout 0): the "
+        f"eval logits of a whole batch, and one train step on 8 rows "
+        f"with the padding made real (pad_free: every row live)")
+    for impl in ("flash", "factored"):
+        phase_model_cpu_vs_card(
+            name, first, rows=first[0]["seqs_i"].shape[0],
+            sides=(("cuda", dict(attention_impl=impl)),
+                   ("cuda", dict(attention_impl="xla"))))
+        phase_train_cpu_vs_card(
+            name, rows=8, no_padding=True,
+            sides=(("cuda", dict(attention_impl=impl)), ("cuda", {})))
+    log(f"phase 7{tag}: {name} faithful train steps at full width on the"
+        f" card ({what.split(', 3 blocks')[0]}, bf16, the preset's "
+        f"dropout, softmax-eps over every position, TF-Adam, the catalog"
+        f" kernels)")
+    model_launches, model_ms, model_ex_s = phase_model_train(
+        name, seed + 2, TRAIN_STEPS, REPEAT_STEPS,
+        compute_dtype="bfloat16")
+    log(f"phase 8{tag}: full-width fp32 {name} train step, card (catalog"
+        f" kernels) vs CPU (plain), 8 rows, dropout 0")
+    phase_train_cpu_vs_card(name, rows=8)
+    log(f"phase 5{tag}2: {name} with attention_impl=\"flash\" at L=2048,"
+        f" B=8 (the preset's widths, bf16): eval + recommend through the"
+        f" wide flash forward")
+    lc_launches_b, _, lc_seqs_b, lc_lat_b = phase_model_slice(
+        name, seed + 4, compute_dtype="bfloat16", **BOCHNER_LC)
+    log(f"phase 7{tag}2: {name} flash at L=2048, B=8: faithful train "
+        f"steps through the wide flash kernels and the catalog kernels "
+        f"at N=16,384")
+    lc_train_b, lc_ms_b, lc_ex_b = phase_model_train(
+        name, seed + 6, FLASH_TRAIN_STEPS, FLASH_REPEAT_STEPS,
+        compute_dtype="bfloat16", **BOCHNER_LC)
+    return dict(launches=model_launches, seqs_s=seqs_s, lat=lat,
+                ms_step=model_ms, ex_s=model_ex_s, lc_launches=lc_launches_b,
+                lc_train_launches=lc_train_b, lc_seqs_s=lc_seqs_b,
+                lc_lat=lc_lat_b, lc_ms_step=lc_ms_b, lc_ex_s=lc_ex_b)
 
 
 HARNESS_ROWS = 4096   # cli.train's synthetic rule: 8 steps an epoch at B=512
@@ -3150,7 +3411,9 @@ def kernel_names(log_text: str):
                   r"mau_glam_kernel|mau_dq_tc_kernel|mau_dq_kernel|"
                   r"mau_dkvt_tc_kernel|mau_dkvt_kernel|"
                   r"mau_int_bwd_rows_tc_kernel|mau_int_bwd_cols_tc_kernel|"
-                  r"flash_fwd_kernel|flash_bwd_tc_kernel|flash_bwd_kernel)"
+                  r"flash_fwd_kernel|flash_bwd_tc_kernel|flash_bwd_kernel|"
+                  r"flash_wide_fwd_tc_kernel|flash_wide_bwd_tc_kernel|"
+                  r"flash_wide_fwd_kernel|flash_wide_bwd_kernel)"
                   r"(I?\w*)",
                   log_text)
     if not m:
@@ -3182,7 +3445,8 @@ def main() -> int:
 
     log("phase 2: build")
     sources = ["mau_attention_fwd", "mau_attention_bwd", "catalog_nll",
-               "mau_streamed_fwd", "mau_streamed_bwd", "flash_attention"]
+               "mau_streamed_fwd", "mau_streamed_bwd", "flash_attention",
+               "flash_wide"]
     seconds = build.build(sources)
     for name, s in seconds.items():
         log(f"  {name}: nvcc {s:.1f} s")
@@ -3211,6 +3475,7 @@ def main() -> int:
         causal=False, seed=700))
     flash_timing = phase_flash_timing()
     flash_nc_timing = phase_flash_noncausal_timing()
+    wide_timing = phase_wide_flash_timing()
     catalog_lc_timing = phase_catalog_lc_timing()
     ctsma_timing = phase_ctsma_kernel_timing()
     ctsma_lc_timing = phase_streamed_timing(
@@ -3359,6 +3624,8 @@ def main() -> int:
         phase_train_cpu_vs_card(name, rows=8)
         new_paths[name] = dict(launches=model_launches, seqs_s=seqs_s,
                                lat=lat, ms_step=model_ms, ex_s=model_ex_s)
+    bochner = {name: phase_bochner(name, *spec)
+               for name, spec in BOCHNER.items()}
     harness = phase_harness(card, ex_s)
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
@@ -3408,6 +3675,11 @@ def main() -> int:
             for model_name, res in new_paths.items():
                 per_path[f"training_{model_name.lower()}"] = \
                     res["launches"][name]
+            for model_name, res in bochner.items():
+                per_path[f"training_{model_name.lower()}"] = \
+                    res["launches"][name]
+                per_path[f"training_{model_name.lower()}_flash_l2048"] = \
+                    res["lc_train_launches"][name]
         entry = dict(name=name, route="cuda", source=csrc + source,
                      replaces=replaces, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=err,
@@ -3423,6 +3695,9 @@ def main() -> int:
                 catalog_lc_timing["bert4rec_lc_masked"])
         if name == "mau_attention_bwd":
             entry["ctsma_shape"] = ctsma_timing[name]
+        if name != "mau_attention_bwd":
+            entry["tgrec_c50_max_abs_err"] = cat_errs["tgrec_c50_bf16"][
+                0 if name == "catalog_nll_fwd" else 1]
         if name == "catalog_nll_fwd":
             entry["gemm_ms_for_scale"] = row["gemm_ms"]
             entry["sasrec_lc_shape"] = measured(catalog_lc_timing["forward"])
@@ -3460,15 +3735,26 @@ def main() -> int:
         if name == "flash_attention_fwd":
             per_path["serving_sasrec_lc"] = sas_launches[name]
             per_path["serving_bert4rec_lc"] = b4lc_launches[name]
+        for model_name, res in bochner.items():
+            key = f"{model_name.lower()}_flash_l2048"
+            per_path[f"training_{key}"] = res["lc_train_launches"][name]
+            if name == "flash_attention_fwd":
+                per_path[f"serving_{key}"] = res["lc_launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "flash_attention.cu",
+            wide_source=csrc + "flash_wide.cu",
             replaces=replaces, launches=sum(per_path.values()),
             launches_per_path=per_path,
-            max_abs_err=flash_errs["lc_causal_bf16_drop"][name],
+            max_abs_err=flash_errs["lc_causal_bf16_drop"][name][0],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             ms_dropout_0_1=row["ms_dropout"],
             non_causal_bert4rec_lc=flash_nc_timing[name],
+            tgat_wide_shape=wide_timing[("tgat", name)],
+            tgrec_wide_shape=wide_timing[("tgrec", name)],
+            wide_errs={case: dict(zip(("max_abs_err", "worst_over_tol"),
+                                      flash_errs[case][name]))
+                       for case in FLASH_WIDE_REPORTED},
             **{key: row[key] for key in ("library_covers",) if key in row}))
     log(f"EasyDGL-LC serving: {lc_seqs_s:.1f} eval seqs/s, recommend "
         + ", ".join(f"{x * 1e3:.3f}" for x in lc_lat)
@@ -3507,6 +3793,18 @@ def main() -> int:
             + f" ms per B=512 batch on {card}")
         log(f"{model_name} train: {res['ms_step']:.4f} ms/step,"
             f" {res['ex_s']:.1f} ex/s at B=512 on {card}")
+    for model_name, res in bochner.items():
+        bs = preset(model_name).batch_size
+        log(f"{model_name} serving: {res['seqs_s']:.1f} eval seqs/s,"
+            f" recommend " + ", ".join(f"{x * 1e3:.3f}" for x in res["lat"])
+            + f" ms per B={bs} batch on {card}")
+        log(f"{model_name} train: {res['ms_step']:.4f} ms/step,"
+            f" {res['ex_s']:.1f} ex/s at B={bs} on {card}")
+        log(f"{model_name} flash L=2048 serving: {res['lc_seqs_s']:.1f} eval"
+            f" seqs/s, recommend " + ", ".join(
+                f"{x * 1e3:.3f}" for x in res["lc_lat"])
+            + f" ms per B=8 batch; train {res['lc_ms_step']:.4f} ms/step,"
+            f" {res['lc_ex_s']:.1f} ex/s on {card}")
     log(f"harness: {harness['ex_s']:.1f} train ex/s through cli.train, loader"
         f" included ({harness['epoch_s']:.4f} s an epoch of 8 steps at B=512),"
         f" beside phase 7's {ex_s:.1f} with batches on the device; checkpoint"

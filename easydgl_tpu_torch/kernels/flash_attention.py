@@ -18,7 +18,16 @@ Two kernels on the card (``csrc/flash_attention.cu``):
 
 Both visit only the key tiles the key mask leaves live
 (``flash_live_tiles``), the same (query tile, key tile) pairs
-(``flash_visited_tiles``).
+(``flash_visited_tiles``). They take q, k and v of one head width dh in
+``KERNEL_FWD_HEAD_DIMS`` / ``KERNEL_BWD_HEAD_DIMS``
+(``narrow_kernels``); any other heads — q and k of any width D, v of any
+width DV, as TGAT's and TGREC's augmented heads (D = 2,048 and 150) — take
+the kernels of ``csrc/flash_wide.cu`` (a forward and a backward, bf16 on
+the tensor cores, fp32 on the CUDA cores), which walk the width in chunks,
+on widths
+zero-padded to multiples of 64 (zero columns add nothing to q . k or
+dO . v; the outputs' extra columns are dropped). The same wrappers launch
+them and count them.
 
 Each wrapper dispatches on where its tensors lie: CPU tensors take the plain
 version (``flash_fwd_reference``, ``flash_bwd_reference``, which is
@@ -66,6 +75,19 @@ _FWD, _BWD = range(2)   # as flash_smem_bytes numbers the kernels
 TILE = 64                # the kernels' query and key tiles
 _P, _LL, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_uint, ctypes.c_float)
+
+
+def _wide_lib() -> ctypes.CDLL:
+    lib = build.load("flash_wide")
+    seq = [_P, _LL, _LL, _LL]
+    tail = [_I32] * 7 + [_F32, _I32, _P]
+    _bind(lib, "flash_wide_fwd",
+          seq * 3 + [_P, _P, _P, _U32, _F32, _P, _P] + tail)
+    _bind(lib, "flash_wide_bwd",
+          seq * 4 + [_P] * 5 + [_U32, _F32] + [_P] * 3 + tail)
+    lib.flash_wide_error_string.argtypes = [_I32]
+    lib.flash_wide_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
@@ -297,6 +319,97 @@ def _inputs(name, which, q, k, v, key_mask, dout=None):
              + ((dout,) if dout is not None else ())], km, lib)
 
 
+def narrow_kernels(which: int, q: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``flash_attention.cu``'s kernel ``which`` (``_FWD``,
+    ``_BWD``) takes these heads: q, k and v of one width in its head dims.
+    Any other heads take the wide kernels (``flash_wide.cu``)."""
+    dims = KERNEL_FWD_HEAD_DIMS if which == _FWD else KERNEL_BWD_HEAD_DIMS
+    return q.shape[-1] == v.shape[-1] and q.shape[-1] in dims
+
+
+def _wide_inputs(name, q, k, v, key_mask, dout=None):
+    """Checks the wide kernels' operands; returns (b, h, tq, tk, dh, dv,
+    q, k, v[, dout] zero-padded to widths of whole 64-column chunks as the
+    kernels read them, the key mask in fp32)."""
+    cdt = q.dtype
+    _check(cdt in _DTYPE_CODE, f"{name}: q dtype {cdt} not float32/bfloat16")
+    _check(q.dim() == 4 and v.dim() == 4, f"{name}: q, v must be 4-D")
+    b, h, tq, dh = q.shape
+    tk, dv = k.shape[2], v.shape[3]
+    seqs = [("k", k, (b, h, tk, dh)), ("v", v, (b, h, tk, dv))]
+    if dout is not None:
+        seqs.append(("dout", dout, (b, h, tq, dv)))
+    for label, x, want in seqs:
+        _check(x.dtype == cdt, f"{name}: {label} dtype {x.dtype} != {cdt}")
+        _check(tuple(x.shape) == want,
+               f"{name}: {label} shape {tuple(x.shape)} != {want}")
+    if key_mask is None:
+        km = torch.ones((b, tk), dtype=torch.float32, device=q.device)
+    else:
+        _check(tuple(key_mask.shape) == (b, tk),
+               f"{name}: key_mask shape {tuple(key_mask.shape)}")
+        km = key_mask.detach().to(torch.float32).contiguous()
+    dp, dvp = (-(-w // TILE) * TILE for w in (dh, dv))
+    padded = [_aligned(x.detach() if w == x.shape[3] else
+                       torch.nn.functional.pad(x.detach(),
+                                               (0, w - x.shape[3])))
+              for x, w in ((q, dp), (k, dp), (v, dvp))
+              + (((dout, dvp),) if dout is not None else ())]
+    return b, h, tq, tk, dh, dv, padded, km
+
+
+def _wide_fwd(q, k, v, key_mask, causal, scale, rate, seed):
+    """``flash_wide_fwd_tc_kernel`` (bf16) or ``flash_wide_fwd_kernel``
+    (fp32): (out (B, H, Tq, dv), lse)."""
+    b, h, tq, tk, dh, dv, (qa, ka, va), km = _wide_inputs(
+        "flash_attention_fwd", q, k, v, key_mask)
+    seed_ptr, thresh, dscale = _drop_args(
+        _seed_tensor(seed, rate, q.device), rate)
+    live = flash_live_tiles(km)
+    out = torch.empty((b, h, tq, va.shape[3]), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lib = _wide_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_wide_fwd(*_seq4(qa), *_seq4(ka), *_seq4(va),
+                                km.data_ptr(), live.data_ptr(), seed_ptr,
+                                thresh, dscale, out.data_ptr(),
+                                lse.data_ptr(), b, h, tq, tk, qa.shape[3],
+                                va.shape[3], int(causal), _scale(q, scale),
+                                _DTYPE_CODE[q.dtype], _stream(q.device))
+    _raise_on(rc, "flash_attention_fwd", lib.flash_wide_error_string)
+    return out[..., :dv], lse
+
+
+def _wide_bwd(q, k, v, key_mask, dout, lse, delta, causal, scale, rate,
+              seed):
+    """``flash_wide_bwd_tc_kernel`` (bf16) or ``flash_wide_bwd_kernel``
+    (fp32): (dQ, dK, dV) added by atomics into zeroed fp32 workspaces, cast
+    on the way out."""
+    b, h, tq, tk, dh, dv, (qa, ka, va, da), km = _wide_inputs(
+        "flash_attention_bwd", q, k, v, key_mask, dout=dout)
+    lse, delta = _bwd_stats(lse, delta, b, h, tq)
+    seed_ptr, thresh, dscale = _drop_args(
+        _seed_tensor(seed, rate, q.device), rate)
+    live = flash_live_tiles(km)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dp, dvp = qa.shape[3], va.shape[3]
+    dq = torch.zeros((b, h, tq, dp), **f32)
+    dk = torch.zeros((b, h, tk, dp), **f32)
+    dvw = torch.zeros((b, h, tk, dvp), **f32)
+    lib = _wide_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_wide_bwd(*_seq4(qa), *_seq4(ka), *_seq4(va),
+                                *_seq4(da), km.data_ptr(), live.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), seed_ptr,
+                                thresh, dscale, dq.data_ptr(), dk.data_ptr(),
+                                dvw.data_ptr(), b, h, tq, tk, dp, dvp,
+                                int(causal), _scale(q, scale),
+                                _DTYPE_CODE[q.dtype], _stream(q.device))
+    _raise_on(rc, "flash_attention_bwd", lib.flash_wide_error_string)
+    return tuple(x[..., :w].to(q.dtype)
+                 for x, w in ((dq, dh), (dk, dh), (dvw, dv)))
+
+
 def _pad_heads(dh, *xs):
     """(dh the kernel takes, xs): the bf16 kernels' tiles are 64 wide, so
     narrower bf16 heads are zero-padded to 64; zero columns add nothing to
@@ -310,11 +423,12 @@ def _pad_heads(dh, *xs):
 
 def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
                         scale=None, dropout_rate: float = 0.0, seed=None):
-    """(out (B, H, Tq, dh) in q's dtype, lse (B, H, Tq) fp32). CPU tensors:
+    """(out (B, H, Tq, dv) in q's dtype, lse (B, H, Tq) fp32). CPU tensors:
     ``flash_fwd_reference``; CUDA tensors: ``flash_fwd_tc_kernel`` (bf16,
     heads narrower than 64 zero-padded) or ``flash_fwd_kernel`` (fp32),
     which visit only the key tiles the key mask leaves live
-    (``flash_live_tiles``) within a query tile's causal range."""
+    (``flash_live_tiles``) within a query tile's causal range; heads those
+    do not take (``narrow_kernels``) ``flash_wide_fwd_kernel``."""
     _need_seed(dropout_rate, seed)
     tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
     if not _on_card("flash_attention_fwd", *tensors,
@@ -322,6 +436,10 @@ def flash_attention_fwd(q, k, v, key_mask=None, *, causal: bool = False,
         return flash_fwd_reference(q, k, v, key_mask, causal=causal,
                                    scale=scale, dropout_rate=dropout_rate,
                                    seed=seed)
+    if not narrow_kernels(_FWD, q, v):
+        res = _wide_fwd(q, k, v, key_mask, causal, scale, dropout_rate, seed)
+        flash_attention_fwd.launches += 1
+        return res
     b, h, tq, tk, dh, (qa, ka, va), km, lib = _inputs(
         "flash_attention_fwd", _FWD, q, k, v, key_mask)
     live = flash_live_tiles(km)
@@ -354,8 +472,10 @@ def _bwd_stats(lse, delta, b, h, tq):
 def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
                         causal: bool = False, scale=None,
                         dropout_rate: float = 0.0, seed=None):
-    """(dQ (B, H, Tq, dh), dK, dV (B, H, Tk, dh)) in q's dtype from dO
-    (B, H, Tq, dh), lse and delta (B, H, Tq). CPU tensors:
+    """(dQ (B, H, Tq, dh), dK (B, H, Tk, dh), dV (B, H, Tk, dv)) in q's
+    dtype from dO (B, H, Tq, dv), lse and delta (B, H, Tq). Heads the
+    kernels below do not take (``narrow_kernels``) take
+    ``flash_wide_bwd_kernel``. CPU tensors:
     ``flash_bwd_reference``; CUDA tensors: ``flash_bwd_tc_kernel`` (bf16)
     or ``flash_bwd_kernel`` (fp32), one key-major pass over the live key
     tiles (``flash_live_tiles``) that adds dQ into a zeroed fp32 workspace
@@ -368,6 +488,11 @@ def flash_attention_bwd(q, k, v, key_mask, dout, lse, delta, *,
         return flash_bwd_reference(q, k, v, key_mask, dout, lse, delta,
                                    causal=causal, scale=scale,
                                    dropout_rate=dropout_rate, seed=seed)
+    if not narrow_kernels(_BWD, q, v):
+        res = _wide_bwd(q, k, v, key_mask, dout.to(q.dtype), lse, delta,
+                        causal, scale, dropout_rate, seed)
+        flash_attention_bwd.launches += 1
+        return res
     b, h, tq, tk, dh, (qa, ka, va, da), km, lib = _inputs(
         "flash_attention_bwd", _BWD, q, k, v, key_mask,
         dout=dout.to(q.dtype))
@@ -425,10 +550,50 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _FlashWrittenOut(torch.autograd.Function):
+    """``flash_fwd_reference``, differentiated by the written-out
+    ``flash_bwd_reference`` (ds rounded to the compute dtype before both
+    products, as the kernels round it) rather than by autograd (which keeps
+    ds in fp32): on any device, the plain version a bf16 train step
+    through the kernels is held to."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, seed, cfg):
+        causal, scale, rate = cfg
+        out, lse = flash_fwd_reference(q, k, v, key_mask, causal=causal,
+                                       scale=scale, dropout_rate=rate,
+                                       seed=seed)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.seed, ctx.cfg = seed, cfg
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        causal, scale, rate = ctx.cfg
+        g = g.to(q.dtype)
+        dq, dk, dv = flash_bwd_reference(
+            q, k, v, key_mask, g, lse, flash_delta(g, out), causal=causal,
+            scale=scale, dropout_rate=rate, seed=ctx.seed)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_written_out(q, k, v, key_mask=None, *,
+                                causal: bool = False, scale=None,
+                                dropout_rate: float = 0.0, seed=None):
+    """``flash_attention`` in plain ops on any device, its backward the
+    written-out plain pieces (``_FlashWrittenOut``)."""
+    _need_seed(dropout_rate, seed)
+    cfg = (bool(causal), _scale(q, scale), float(dropout_rate))
+    return _FlashWrittenOut.apply(q, k, v, key_mask, seed, cfg)
+
+
 def flash_attention(q, k, v, key_mask=None, *, causal: bool = False,
                     scale=None, dropout_rate: float = 0.0, seed=None):
-    """Blockwise attention: out (B, H, Tq, dh) in q's dtype. q (B, H, Tq,
-    dh); k, v (B, H, Tk, dh); key_mask (B, Tk) or None; ``seed`` (an int or
+    """Blockwise attention: out (B, H, Tq, dv) in q's dtype. q (B, H, Tq,
+    dh); k (B, H, Tk, dh); v (B, H, Tk, dv); key_mask (B, Tk) or None;
+    ``scale`` (default 1/sqrt(dh)) multiplies q . k; ``seed`` (an int or
     an int64 scalar tensor) keys the dropout mask and is required when
     ``dropout_rate`` > 0. CPU tensors take the plain version, CUDA tensors
     the kernels; under autograd ``_FlashAttention``."""

@@ -29,7 +29,11 @@ products take bf16 operands and accumulate in fp32, g is rounded to bf16
 before both backward products, and d_hidden and d_table are returned in
 bf16 (as the TPU kernel returns them in its inputs' dtype); lse, the label
 logit and d_bias are fp32. Vocab columns and rows outside (N, V) take no
-part: the kernels mask their ragged edge rather than pad.
+part: the kernels mask their ragged edge rather than pad. The kernels take C
+in whole 4-column vectors; any other C up to 512 (TGREC's is 50) is
+zero-padded to the next multiple of 4 in the wrapper, exactly (a zero column
+adds nothing to h . t), and the pad columns of d_hidden and d_table are
+dropped.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from easydgl_tpu_torch.kernels.mau_attention import _on_card, _raise_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_MAX_C = 512
+C_VECTOR = 4               # the kernels read C in vectors of 4 columns
 ROW_TILE = 64              # the rows a code of catalog_live_rows covers
 
 
@@ -193,19 +198,21 @@ def _prep(hidden, table, bias, labels):
     n, c = hidden.shape
     v = table.shape[0]
     _check(table.shape[1] == c, f"hidden C={c} != table C={table.shape[1]}")
-    _check(c % 4 == 0 and 4 <= c <= KERNEL_MAX_C,
-           f"C={c} must be a multiple of 4 in [4, {KERNEL_MAX_C}]")
+    _check(1 <= c <= KERNEL_MAX_C, f"C={c} not in [1, {KERNEL_MAX_C}]")
     _check(tuple(bias.shape) == (v,) and tuple(labels.shape) == (n,),
            "bias (V,) / labels (N,) shape")
     for name, x in (("hidden", hidden), ("bias", bias), ("labels", labels)):
         _check(x.device == dev, f"{name} on {x.device}, table on {dev}")
-    # contiguous, and at 16-byte boundaries for the tensor maps
+    # zero-padded to whole vectors, contiguous, and at 16-byte boundaries
+    # for the tensor maps
+    pad = -c % C_VECTOR
     h, t = (x if x.data_ptr() % 16 == 0 else x.clone()
-            for x in (hidden.detach().contiguous(),
-                      table.detach().contiguous()))
+            for x in ((y.detach() if pad == 0 else
+                       torch.nn.functional.pad(y.detach(), (0, pad)))
+                      .contiguous() for y in (hidden, table)))
     b = bias.detach().float().contiguous()
     lab = labels.to(torch.int32).contiguous()
-    return h, t, b, lab, n, v, c
+    return h, t, b, lab, n, v, c + pad
 
 
 def _launch_fwd(hidden, table, bias, labels, splits=0):
@@ -256,4 +263,5 @@ def _launch_bwd(hidden, table, bias, labels, lse, dlse, dll, splits=(0, 0)):
             _DTYPE_CODE[cdt], torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "catalog_nll", lib.catalog_cuda_error_string)
     catalog_nll_bwd.launches += 1
-    return dh_acc.to(hidden.dtype), dt_acc.to(cdt), db
+    c0 = hidden.shape[1]
+    return dh_acc[:, :c0].to(hidden.dtype), dt_acc[:, :c0].to(cdt), db

@@ -44,6 +44,16 @@ class OutputBias(nn.Module):
                                      device=b.device), b])
 
 
+def scaled_times(seqs_t: torch.Tensor, time_scale: float) -> torch.Tensor:
+    """``seqs_t / time_scale`` in fp32 (the time models' ``ts``), divided by
+    a tensor on the stamps' device: a Python float is a CPU scalar, which
+    CUDA's division turns into a product with its fp32 reciprocal, and at
+    stamps of ~1e9 s that moves ts by an ulp (~1e-3 days) against the
+    JAX source's division run op by op."""
+    return seqs_t.float() / torch.tensor(time_scale, dtype=torch.float32,
+                                         device=seqs_t.device)
+
+
 def prediction_rows(x: torch.Tensor, is_training: bool,
                     masked_positions: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:

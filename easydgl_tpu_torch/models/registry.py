@@ -1,7 +1,7 @@
 """Model factory (port of ``easydgl_tpu.models.registry``).
 
-EasyDGL, SASREC, BERT4REC, CTSMA, GRU4REC, S2PNM and TiSASREC are ported
-so far; the other four models of the JAX zoo (GREC, TGAT, TGREC and
+EasyDGL, SASREC, BERT4REC, CTSMA, GRU4REC, S2PNM, TiSASREC, TGAT and TGREC
+are ported so far; the other two models of the JAX zoo (GREC and
 TimelyREC) raise the JAX factory's ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -17,11 +17,13 @@ from easydgl_tpu_torch.models.easydgl import EasyDGL
 from easydgl_tpu_torch.models.gru4rec import GRU4REC
 from easydgl_tpu_torch.models.s2pnm import S2PNM
 from easydgl_tpu_torch.models.sasrec import SASREC
+from easydgl_tpu_torch.models.tgat import TGAT
+from easydgl_tpu_torch.models.tgrec import TGREC
 from easydgl_tpu_torch.models.tisasrec import TiSASREC
 
 MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC, "BERT4REC": BERT4REC,
           "CTSMA": CTSMA, "GRU4REC": GRU4REC, "S2PNM": S2PNM,
-          "TiSASREC": TiSASREC}
+          "TiSASREC": TiSASREC, "TGAT": TGAT, "TGREC": TGREC}
 
 
 def model_class(cfg: Config) -> type:

@@ -32,7 +32,7 @@ import torch
 from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.models.base import (SCORING, OutputBias,
                                            SequentialModel, prediction_rows,
-                                           tied_logits)
+                                           scaled_times, tied_logits)
 from easydgl_tpu_torch.nn.coding import (Embedding, PositionCoding,
                                          TimeIntervalCoding)
 from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, FeedForward,
@@ -50,9 +50,9 @@ def interval_buckets(seqs_t: torch.Tensor, time_scale: float,
     order: subtracting first, or working in fp64, moves some spans across
     it. The divisor is a tensor on the stamps' device: a Python float is a
     CPU scalar, which CUDA's division turns into a product with its fp32
-    reciprocal, and that moves such spans too."""
-    ts = seqs_t.float() / torch.tensor(time_scale, dtype=torch.float32,
-                                       device=seqs_t.device)
+    reciprocal, and that moves such spans too (``models.base.scaled_times``).
+    """
+    ts = scaled_times(seqs_t, time_scale)
     spans = ts[:, 1:, None] - ts[:, None, :-1]
     return spans.clamp(0.0, float(timelen)).to(torch.int32)
 

@@ -77,23 +77,32 @@ def masked_softmax(logits: torch.Tensor,
 
 def flash_context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_mask: torch.Tensor, *, causal: bool, rate: float,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """The ``"flash"`` core: (B, H, Tq, D) context of ``flash_attention``,
+                  generator: Optional[torch.Generator],
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """The ``"flash"`` core: (B, H, Tq, Dv) context of ``flash_attention``,
     with one dropout seed drawn from ``generator`` when ``rate`` > 0, and
     every row that sees no key (under ``causal``: no key at or before it;
     else: a batch entry with no key at all) set to the xla path's uniform
-    value, the mean of V over all keys."""
+    value, the mean of V over all keys. ``scale`` multiplies q . k (default
+    1/sqrt of q's width; the Bochner attentions pass 1/sqrt(dh) of their
+    un-augmented heads)."""
     seed = None
     if rate > 0.0:
         seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                              device=generator.device)
-    ctx = flash_attention(q, k, v, key_mask, causal=causal,
+    ctx = flash_attention(q, k, v, key_mask, causal=causal, scale=scale,
                           dropout_rate=rate, seed=seed)
+    return torch.where(rows_that_see(key_mask, causal), ctx,
+                       v.mean(dim=2, keepdim=True))
+
+
+def rows_that_see(key_mask: torch.Tensor, causal: bool) -> torch.Tensor:
+    """(B, 1, Tq or 1, 1) bool: the query rows that see a key, from the
+    key mask (B, Tk) — under ``causal`` a key at or before the row, else
+    any key of the batch entry."""
     if causal:
-        vis = (torch.cumsum(key_mask, dim=1) > 0)[:, None, :, None]
-    else:
-        vis = (key_mask > 0).any(dim=1)[:, None, None, None]
-    return torch.where(vis, ctx, v.mean(dim=2, keepdim=True))
+        return (torch.cumsum(key_mask, dim=1) > 0)[:, None, :, None]
+    return (key_mask > 0).any(dim=1)[:, None, None, None]
 
 
 class MultiHeadAttention(nn.Module):

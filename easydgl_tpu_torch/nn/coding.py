@@ -16,6 +16,11 @@
   interval attention. The index is clamped before the gather, as in
   ``Embedding``: on the card an out-of-range ``index_select`` is a
   device-side assert.
+* ``TimeFunctionCoding``: learnable Bochner features ``cos(t w + phi)``
+  (TGAT, TGREC), ``basis_freq`` w and ``phase`` phi; ``code`` of (B, T) or
+  (B, Tq, Tk) times, ``factors`` the per-position cos/sin factors of the
+  pairwise features (angle addition), times centred on the row's latest
+  query time before the trig, as in JAX.
 * ``TimeSinusoidCoding.code``: fixed interleaved sin/cos with
   ``10000^(2i/d)`` scaling. Its arguments reach ~1e4 rad at real
   timestamps, so it stays plain fp32 ``torch.sin``/``torch.cos`` (a
@@ -98,6 +103,39 @@ class TimeIntervalCoding(nn.Module):
         edge bucket ``vocab_size`` indexes."""
         t = self.pembs.table()
         return torch.cat([t, t.new_zeros((1, t.shape[1]))])
+
+
+class TimeFunctionCoding(nn.Module):
+    """Learnable Bochner time features ``cos(t w + phi)`` (reference
+    coding.py:97-122; JAX ``nn/coding.py:124-172``). Parameters
+    ``basis_freq`` (C,) and ``phase`` (C,); flax initialises them to
+    ``linspace(0, 9, C)`` and 0 (``parity.FlaxInit.time_function``)."""
+
+    def __init__(self, num_units: int, *, device=None):
+        super().__init__()
+        self.basis_freq = nn.Parameter(torch.empty(num_units, device=device))
+        self.phase = nn.Parameter(torch.empty(num_units, device=device))
+
+    def code(self, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs (B, T) or (B, Tq, Tk) -> (..., C) fp32; (B, T) is
+        coded as (B, T, 1, C), the reference's reshape to (B, T, -1)."""
+        x = inputs.float()
+        if x.dim() == 2:
+            x = x[:, :, None]
+        return torch.cos(x[..., None] * self.basis_freq + self.phase)
+
+    def factors(self, q_times: torch.Tensor, k_times: torch.Tensor):
+        """(cq, sq, ck, sk), each (B, T, C): ``cos(w (tq - tk) + phi) =
+        cq ck + sq sk`` with the phase on the query side. q_times, k_times
+        (B, T) scaled stamps, centred on the row's latest query time t0
+        first: the identity involves only tq - tk, and the centring keeps
+        the cos arguments at w * span rather than w * t (~1e4 rad), where
+        fp32 argument reduction loses ~1e-2."""
+        qf, kf = q_times.float(), k_times.float()
+        t0 = qf.amax(dim=-1, keepdim=True)
+        aq = (qf - t0)[..., None] * self.basis_freq + self.phase
+        ak = (kf - t0)[..., None] * self.basis_freq
+        return torch.cos(aq), torch.sin(aq), torch.cos(ak), torch.sin(ak)
 
 
 class TimeSinusoidCoding(nn.Module):

@@ -3,6 +3,8 @@
 * ``ContribLayerNorm``: TF-contrib LayerNorm — moments over ALL non-batch
   axes (T, C jointly), gamma/beta on the last axis, eps 1e-12. Not
   ``torch.nn.LayerNorm``, which normalises the last axis only.
+* ``LastAxisLayerNorm``: the reference's simple LN (normalize.py:9-19) —
+  last-axis moments, eps 1e-8, in the input's dtype (TGREC's attention).
 * ``Dense``: ``tf.layers.dense`` with the weight stored ``(out, in)`` as
   ``nn.Linear`` does; the bridge (parity.py) transposes flax's ``(in, out)``
   kernels. Parameters are allocated empty: weights come from the bridge.
@@ -138,6 +140,24 @@ class ContribLayerNorm(nn.Module):
         inv = torch.rsqrt(var + self.epsilon)
         out = (xf - mean) * inv * self.gamma + self.beta
         return to_compute(out, self.compute_dtype)
+
+
+class LastAxisLayerNorm(nn.Module):
+    """Last-axis LN (reference normalize.py:9-19, JAX
+    ``nn/layers.py::LastAxisLayerNorm``): ``(x - mean) / sqrt(var + eps)``
+    over the last axis, then ``gamma * x + beta``; no compute-dtype cast."""
+
+    def __init__(self, dim: int, *, epsilon: float = 1e-8, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.gamma = nn.Parameter(torch.empty(dim, device=device))
+        self.beta = nn.Parameter(torch.empty(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        return self.gamma * ((x - mean) / torch.sqrt(var + self.epsilon)) \
+            + self.beta
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Continuous-time attention (port of ``easydgl_tpu.nn.temporal``):
-``TiMultiHeadAttention`` (TiSASREC, reference src/module/temporal.py:15-105)
-and the self-modulating ``MAU``, ``BiMAU`` and ``MGAU`` (reference
-temporal.py:267-508).
+``TiMultiHeadAttention`` (TiSASREC, reference src/module/temporal.py:15-105),
+the Bochner time attentions ``TfMultiHeadAttention`` (TGAT, :108-184) and
+``TgMultiHeadAttention`` (TGREC, :187-264), and the self-modulating
+``MAU``, ``BiMAU`` and ``MGAU`` (reference temporal.py:267-508).
 
 ``TiMultiHeadAttention``: the logits get two additive relative terms,
 ``q . k_pos`` and ``q . k_int`` (the interval codes), before the
@@ -40,6 +41,34 @@ Two engines, chosen by ``intensity_impl`` (the models pick it with
   Gathered-query calls (``query_positions``) keep the fused engine, as in
   JAX.
 
+The Bochner time attentions (JAX ``nn/temporal.py:144-435``) take the
+learnable features ``cos(w (tq - tk) + phi)`` of the pairwise spans
+(``nn.coding.TimeFunctionCoding``) in three forms, by ``impl`` and by what
+the model passes:
+
+* DENSE (``impl="xla"``, the reference layout): the (B, Tq, Tk, C) codes.
+  TGAT adds ``q . code`` to the logits (beside ``q . k`` and ``q . k_pos``);
+  TGREC projects the time-concatenated keys and values ``[keys, code]``
+  (B, Tq, Tk, 2C) per query;
+* FACTORED (``time_factors`` from ``TimeFunctionCoding.factors``): by angle
+  addition each pairwise feature is ``cq ck + sq sk``. TGAT's logits become
+  the augmented product ``[q, q, q cq, q sq] . [k, kp, ck, sk]``; TGREC's
+  Dense over the concatenated key splits by linearity into the items part
+  ``A = Dense([keys, 0])`` and the coding half ``W[C:]``, taken by basis
+  application (``Dense(eye2) - Dense(0)``, so bf16 rounds as JAX's does),
+  with the band ``k <= q + 1`` where the (tq - tk)+ clamp is inactive and
+  ``coding(0)`` beyond it. No (Tq, Tk, C) tensor exists;
+* FLASH (``impl="flash"`` with ``time_factors``): the augmented product
+  through ``flash_context``, O(T) memory, scale 1/sqrt(dh) of the
+  un-augmented head. TGAT passes v at its own width dh (the kernel takes a
+  v narrower than q and k; JAX pads it to 4 dh, and the extra columns of
+  the context are dropped); TGREC passes ``q~ = [q, u cq, u sq]``,
+  ``k~ = v~ = [A, ck, sk]`` in fp32 (dh + 2C wide) and recombines the
+  context per query. Rows that see no key take the dense form's uniform
+  value: the mean of v (TGAT), the mean of ``v~`` and for TGREC's time part
+  the clamped features' mean from prefix sums of ck and sk plus
+  ``(Tk - q - 2)+`` copies of coding(0) (``tm_dead``).
+
 Attention dropout (training) takes one seed per call, drawn from the step's
 ``torch.Generator`` (JAX: one int32 from the ``dropout`` rng,
 temporal.py:652-685); both engines draw their mask from it with the same
@@ -55,10 +84,11 @@ from torch import nn
 
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention
 from easydgl_tpu_torch.kernels.mau_streamed import mau_streamed
-from easydgl_tpu_torch.nn.attention import masked_softmax
-from easydgl_tpu_torch.nn.layers import (Dense, dropout, einsum_fp32acc,
-                                         merge_heads, mm_fp32acc,
-                                         split_heads)
+from easydgl_tpu_torch.nn.attention import (flash_context, masked_softmax,
+                                            rows_that_see)
+from easydgl_tpu_torch.nn.layers import (Dense, LastAxisLayerNorm, dropout,
+                                         einsum_fp32acc, merge_heads,
+                                         mm_fp32acc, split_heads)
 
 
 def _split_heads_4d(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -140,6 +170,203 @@ class TiMultiHeadAttention(nn.Module):
                 "bhqk,bhqkd->bhqd", probs, _split_heads_4d(v_int, h),
                 cdt=cdt)
         return merge_heads(out) + queries
+
+
+def _impl_of(name: str, impl: str) -> str:
+    if impl not in ("xla", "factored", "flash"):
+        raise ValueError(f"{name}: unknown impl {impl}")
+    return impl
+
+
+class TfMultiHeadAttention(nn.Module):
+    """Functional-time-encoding attention with the residual (TGAT,
+    reference temporal.py:108-184); parameters ``q``, ``k``, ``v`` (Dense,
+    C to C). ``impl``: ``"flash"`` runs the factored form through the flash
+    kernels; any other the materialised probs."""
+
+    def __init__(self, num_units: int, num_heads: int,
+                 dropout_rate: float = 0.0, *, impl: str = "xla",
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.impl = _impl_of("TfMultiHeadAttention", impl)
+        self.compute_dtype = compute_dtype
+        kw = dict(compute_dtype=compute_dtype, device=device)
+        self.q = Dense(num_units, num_units, **kw)
+        self.k = Dense(num_units, num_units, **kw)
+        self.v = Dense(num_units, num_units, **kw)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                k_pos: torch.Tensor, k_int: Optional[torch.Tensor], *,
+                causality: bool, generator: Optional[torch.Generator] = None,
+                time_factors=None) -> torch.Tensor:
+        """queries, keys (B, T, C); k_pos (B, T, C) position codes; k_int
+        (B, Tq, Tk, C) time codes (the dense form), or None with
+        ``time_factors`` (cq, sq, ck, sk), each (B, T, C). ``generator``:
+        the training step's (dropout); None at eval."""
+        cdt = self.compute_dtype
+        h = self.num_heads
+        q = split_heads(self.q(queries), h)
+        k = split_heads(self.k(keys), h)
+        v = split_heads(self.v(keys), h)
+        kp = split_heads(k_pos, h)
+        d = q.shape[-1]
+        key_mask = torch.sign(keys.detach().abs().sum(-1))
+        rate = self.dropout_rate if generator is not None else 0.0
+
+        if time_factors is not None:
+            cq, sq, ck, sk = (split_heads(f, h) for f in time_factors)
+            qa = torch.cat([q, q, q * cq.to(q.dtype), q * sq.to(q.dtype)], -1)
+            ka = torch.cat([k, kp, ck.to(k.dtype), sk.to(k.dtype)], -1)
+            if self.impl == "flash":
+                # one dtype for the kernels: the dense form rounds kp to
+                # the compute dtype in its product too
+                ctx = flash_context(qa, ka.to(qa.dtype), v, key_mask,
+                                    causal=causality, rate=rate,
+                                    generator=generator, scale=d ** -0.5)
+                return merge_heads(ctx) + queries
+            logits = mm_fp32acc(qa, ka.transpose(-1, -2), cdt)
+        else:
+            logits = (mm_fp32acc(q, k.transpose(-1, -2), cdt)
+                      + mm_fp32acc(q, kp.transpose(-1, -2), cdt)
+                      + einsum_fp32acc("bhqkd,bhqd->bhqk",
+                                       _split_heads_4d(k_int, h), q, cdt=cdt))
+        probs = masked_softmax(logits / d ** 0.5, key_mask, causality)
+        probs = dropout(probs, rate, generator)
+        return merge_heads(mm_fp32acc(probs, v, cdt)) + queries
+
+
+class TgMultiHeadAttention(nn.Module):
+    """Temporal-graph collaborative attention (TGREC, reference
+    temporal.py:187-264): queries ``[x, coding(0)]``, per-(q, k) keys and
+    values ``Dense([keys, coding(tq - tk)])``; output 2C wide, Dense
+    ``merge`` (C to 2C) plus the 2C-wide query, then ``ln``
+    (``LastAxisLayerNorm``). Parameters ``q``, ``k``, ``v`` (Dense, 2C to
+    C), ``merge``, ``ln``."""
+
+    def __init__(self, num_units: int, num_heads: int,
+                 dropout_rate: float = 0.0, *, impl: str = "xla",
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.num_units = num_units
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.impl = _impl_of("TgMultiHeadAttention", impl)
+        self.compute_dtype = compute_dtype
+        c = num_units
+        kw = dict(compute_dtype=compute_dtype, device=device)
+        self.q = Dense(2 * c, c, **kw)
+        self.k = Dense(2 * c, c, **kw)
+        self.v = Dense(2 * c, c, **kw)
+        self.merge = Dense(c, 2 * c, **kw)
+        self.ln = LastAxisLayerNorm(2 * c, device=device)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                key_mask: torch.Tensor, q_time: torch.Tensor,
+                k_time: Optional[torch.Tensor], *, causality: bool,
+                generator: Optional[torch.Generator] = None,
+                time_factors=None) -> torch.Tensor:
+        """queries, keys (B, T, C); key_mask (B, Tk), nonzero where the key
+        is real; q_time (B, Tq, 1, C) the coding at span 0; k_time (B, Tq,
+        Tk, C) the codes of the clamped spans (the dense form), or None with
+        ``time_factors`` (cq, sq, ck, sk), each (B, T, C). Returns
+        (B, Tq, 2C)."""
+        cdt = self.compute_dtype
+        h = self.num_heads
+        b, tq, c = queries.shape
+        tk = keys.shape[1]
+        rate = self.dropout_rate if generator is not None else 0.0
+        q4 = torch.cat([queries[:, :, None, :], q_time], dim=-1)
+        if time_factors is not None:
+            out = self._factored(queries, keys, key_mask, q_time, q4,
+                                 time_factors, causality, rate, generator)
+        else:
+            k4 = torch.cat([keys[:, None].expand(b, tq, tk, c), k_time], -1)
+            q = _split_heads_4d(self.q(q4), h)         # (B, H, Tq, 1, d)
+            k = _split_heads_4d(self.k(k4), h)         # (B, H, Tq, Tk, d)
+            v = _split_heads_4d(self.v(k4), h)
+            logits = einsum_fp32acc("bhqod,bhqkd->bhqk", q, k, cdt=cdt)
+            probs = masked_softmax(logits / q.shape[-1] ** 0.5, key_mask,
+                                   causality)
+            probs = dropout(probs, rate, generator)
+            out = merge_heads(einsum_fp32acc("bhqk,bhqkd->bhqd", probs, v,
+                                             cdt=cdt))
+        return self.ln(self.merge(out) + q4[:, :, 0, :])
+
+    def _factored(self, queries, keys, key_mask, q_time, q4, factors,
+                  causality, rate, generator):
+        """The factored and flash forms (JAX temporal.py:300-411): the
+        merged heads (B, Tq, C) before ``merge``."""
+        cdt = self.compute_dtype
+        h = self.num_heads
+        b, tq, c = queries.shape
+        tk = keys.shape[1]
+        dh = c // h
+        cq, sq, ck, sk = (f.float() for f in factors)
+        q = _split_heads_4d(self.q(q4), h)[:, :, :, 0, :]   # (B, H, Tq, dh)
+        zk = torch.cat([keys, torch.zeros_like(keys)], -1)
+        ka, va = self.k(zk), self.v(zk)                     # (B, Tk, C)
+        # the coding half W[C:] of the k and v kernels, by basis application
+        eye2 = torch.cat([torch.zeros(c, c, device=keys.device),
+                          torch.eye(c, device=keys.device)], -1).to(keys.dtype)
+        zrow = keys.new_zeros(1, 2 * c)
+        wk2 = (self.k(eye2) - self.k(zrow)).reshape(c, h, dh)
+        wv2 = (self.v(eye2) - self.v(zrow)).reshape(c, h, dh)
+        u = einsum_fp32acc("bhqd,chd->bhqc", q, wk2, cdt=cdt)  # (B, H, Tq, C)
+        qt0 = q_time[:, :, 0, :].float()                     # coding(0)
+
+        if self.impl == "flash":
+            ckh = ck[:, None].expand(b, h, tk, c)
+            skh = sk[:, None].expand(b, h, tk, c)
+            qa = torch.cat([q.float(), u * cq[:, None], u * sq[:, None]], -1)
+            kf = torch.cat([split_heads(ka, h).float(), ckh, skh], -1)
+            vf = torch.cat([split_heads(va, h).float(), ckh, skh], -1)
+            ctx = flash_context(qa, kf, vf, key_mask.float(),
+                                causal=causality, rate=rate,
+                                generator=generator, scale=dh ** -0.5)
+            out = ctx[..., :dh]
+            tm = (cq[:, None] * ctx[..., dh:dh + c]
+                  + sq[:, None] * ctx[..., dh + c:])
+            # rows that see no key: the dense form's uniform mean of the
+            # CLAMPED features, from prefix sums (k <= q + 1) plus
+            # (Tk - q - 2)+ copies of coding(0)
+            pos = torch.arange(tq, device=keys.device)
+            upto = torch.clamp(pos + 1, max=tk - 1)
+            pre_c = torch.cumsum(ck, dim=1)[:, upto]
+            pre_s = torch.cumsum(sk, dim=1)[:, upto]
+            nfut = torch.clamp(tk - 2 - pos, min=0).float()
+            tm_dead = (cq * pre_c + sq * pre_s
+                       + nfut[None, :, None] * qt0) / tk
+            tm = torch.where(rows_that_see(key_mask.float(), causality), tm,
+                             tm_dead[:, None])
+            out = out + einsum_fp32acc("bhqc,chd->bhqd", tm, wv2, cdt=cdt)
+            return merge_heads(out.to(queries.dtype))
+
+        # the clamp (tq - tk)+ is inactive on the band k <= q + 1 (event
+        # times are nondecreasing) and makes the feature coding(0) beyond
+        band = (torch.arange(tk, device=keys.device)[None, :]
+                <= torch.arange(tq, device=keys.device)[:, None] + 1)
+        t_fact = (einsum_fp32acc("bhqc,bkc->bhqk", u * cq[:, None], ck,
+                                 cdt=cdt)
+                  + einsum_fp32acc("bhqc,bkc->bhqk", u * sq[:, None], sk,
+                                   cdt=cdt))
+        t_fut = einsum_fp32acc("bhqc,bqc->bhq", u, qt0, cdt=cdt)[..., None]
+        logits = (einsum_fp32acc("bhqd,bhkd->bhqk", q, split_heads(ka, h),
+                                 cdt=cdt)
+                  + torch.where(band, t_fact, t_fut))
+        probs = masked_softmax(logits / dh ** 0.5, key_mask, causality)
+        probs = dropout(probs, rate, generator)
+        out = einsum_fp32acc("bhqk,bhkd->bhqd", probs, split_heads(va, h),
+                             cdt=cdt)
+        pb = probs * band
+        pc = einsum_fp32acc("bhqk,bkc->bhqc", pb, ck, cdt=cdt)
+        ps = einsum_fp32acc("bhqk,bkc->bhqc", pb, sk, cdt=cdt)
+        rest = (probs - pb).sum(-1)                 # the beyond-band mass
+        tm = (cq[:, None] * pc + sq[:, None] * ps
+              + rest[..., None] * qt0[:, None])
+        out = out + einsum_fp32acc("bhqc,chd->bhqd", tm, wv2, cdt=cdt)
+        return merge_heads(out)
 
 
 class MAU(nn.Module):

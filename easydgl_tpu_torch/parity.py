@@ -139,6 +139,13 @@ class FlaxInit:
         return {"kernel": self.glorot(n_in, n_out), "bias": self.zeros(n_out)}
 
     @staticmethod
+    def time_function(width: int) -> Dict:
+        """``TimeFunctionCoding``'s leaves: ``basis_freq = linspace(0, 9,
+        C)``, ``phase = 0`` (no draw)."""
+        return {"basis_freq": np.linspace(0, 9, width).astype(np.float32),
+                "phase": np.zeros((width,), np.float32)}
+
+    @staticmethod
     def ln(width: int) -> Dict:
         return {"gamma": np.ones((width,), np.float32),
                 "beta": np.zeros((width,), np.float32)}

@@ -2,7 +2,7 @@
 """Times variants of a hand-written kernel with one part taken out, on one
 GPU, to show where its time goes.
 
-Eleven kernels: the bf16 flash backward (``flash``: the dQ reduction, the
+Twelve kernels: the bf16 flash backward (``flash``: the dQ reduction, the
 exp, the per-entry mask test removed, one consumer warpgroup instead of
 two, three stages), the bf16 catalog forward at C = 512 (``catalog_fwd``:
 the exponentials, or the products, removed), the intensity VJP (``vjp``:
@@ -27,7 +27,11 @@ consumer warpgroup a block, so that Wd is read from L2 for every 64 rows
 (1.14 GB a launch, 0.38 GB at three); the sigmoid's reciprocal by three
 Newton steps on the FMA pipe instead of the special-function unit's) and
 the bf16 streamed stats kernel (``stats``: the live-tile rule off, every
-key tile visited; expf in place of ex2). Each variant edits
+key tile visited; expf in place of ex2), and the wide flash kernels
+(``wide``, ``flash_wide.cu`` at TGAT's and TGREC's heads, bf16 on
+``mma.sync`` and fp32: the backward's atomic additions of dq, dk and dv
+made plain stores, the products removed (the ldmatrix loads stay), two
+forward ring slots instead of three). Each variant edits
 the kernel's source in a copy of the package (with ``chip_smoke.py`` and the
 kernel's bench) in a temporary directory. The variants with a part removed
 compute wrong results; only their times mean something. All copies are
@@ -38,7 +42,7 @@ the JAX package.
 
     python3 scripts/torch_ablate.py
         flash|catalog_fwd|vjp|mau_bwd|mau_bwd_ctsma|dkvt|out|glam|int|dq|
-        mau_fwd|stats [VARIANT ...]
+        mau_fwd|stats|wide [VARIANT ...]
 """
 from __future__ import annotations
 
@@ -291,6 +295,34 @@ KERNELS = {
                   "expf in place of ex2": [(
                       "            sa[x] = fast_exp2(entry_exp2(",
                       "            sa[x] = expf(kLn2 * entry_exp2(")]}),
+    "wide": ("flash_wide.cu", "flash_wide",
+             ["scripts/torch_wide_flash_bench.py", "--iters", "5"], {
+                 "control": [],
+                 "plain stores for the atomics": [
+                     ("__device__ __forceinline__ void add_rows(",
+                      "__device__ __forceinline__ void store2_(float2* d, "
+                      "float2 v) { *d = v; }\n\n"
+                      "__device__ __forceinline__ void add_rows("),
+                     ("    atomicAdd(reinterpret_cast<float2*>(d), make_float2("
+                      "acc[i][0] * scale, acc[i][1] * scale));\n"
+                      "    atomicAdd(reinterpret_cast<float2*>(d + 2), "
+                      "make_float2(acc[i][2] * scale, acc[i][3] * scale));",
+                      "    store2_(reinterpret_cast<float2*>(d), make_float2("
+                      "acc[i][0] * scale, acc[i][1] * scale));\n"
+                      "    store2_(reinterpret_cast<float2*>(d + 2), "
+                      "make_float2(acc[i][2] * scale, acc[i][3] * scale));"),
+                     ("            atomicAdd(reinterpret_cast<float2*>(dst + "
+                      "(size_t)r * width + step * kOC + n0 +",
+                      "            store2_(reinterpret_cast<float2*>(dst + "
+                      "(size_t)r * width + step * kOC + n0 +")],
+                 "no products": [(
+                     "      mma_bf16(acc[2 * h], a, bq[0], bq[1]);\n"
+                     "      mma_bf16(acc[2 * h + 1], a, bq[2], bq[3]);\n",
+                     "      acc[2 * h][0] += __uint_as_float(a[0] ^ bq[0] ^ "
+                     "bq[3]);\n")],
+                 "2 forward ring slots": [(
+                     "constexpr int kStagesFwd = 3;",
+                     "constexpr int kStagesFwd = 2;")]}),
 }
 COPY = ("easydgl_tpu_torch", "chip_smoke.py", "scripts")
 

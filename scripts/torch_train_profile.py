@@ -9,7 +9,9 @@ L+1 = 2048, B = 32, masklen 256, non-causal flash attention; ``BERT4REC``
 at B = 512; ``CTSMA`` at B = 512, L = 30, the fused MAU kernels causal at
 dh = 128; ``CTSMA-LC``, L = 2048, B = 8, the streamed kernels causal;
 ``GRU4REC``, ``S2PNM`` and ``TiSASREC`` at B = 512, L = 30: the GRU
-recurrence and the interval attention in plain ops, the catalog kernels)
+recurrence and the interval attention in plain ops, the catalog kernels;
+``TGAT`` (B = 512) and ``TGREC`` (B = 128, C = 50) at L = 30: the dense
+Bochner time attention in plain ops, the catalog kernels)
 with bf16 matmuls, the preset's dropout and loss terms (EasyDGL and CTSMA:
 TPP and L2, 64 marks looked up on the device; BERT4REC: sparse_ce and L2),
 TF-Adam, random weights from seed 0, over synthetic batches of the

@@ -148,8 +148,8 @@ def test_multi_device_flags_raise(tmp_path, monkeypatch, flags):
 
 def test_unported_model_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="TGAT"):
-        train_cli.main(["--model", "TGAT", "--synthetic",
+    with pytest.raises(NotImplementedError, match="GREC"):
+        train_cli.main(["--model", "GREC", "--synthetic",
                         "--synthetic_rows", "16", "--num_epochs", "1",
                         "--device", "cpu", *TINY])
 

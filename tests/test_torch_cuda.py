@@ -269,7 +269,8 @@ def _backward_vs_plain(cuda_device, dtype, causal, diag, tq, dims, rate):
 
 
 @pytest.mark.parametrize("n,v,c", [(77, 1001, 64), (300, 2000, 512),
-                                   (15, 33, 4)])
+                                   (15, 33, 4), (3840, 17771, 50),
+                                   (9, 40, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_catalog_kernels_match_plain_version(cuda_device, dtype, n, v, c):
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -859,14 +860,18 @@ FLASH_SHAPES = {"t77_dh16": dict(b=3, h=2, tq=77, tk=77, dh=16),
                                           pad=(0, 100))}
 
 
-def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, seed=0, pad=None):
-    """numpy-drawn q, k, v, dO (B, H, T, dh); a key mask with holes,
-    left-padded where Tq == Tk (``pad`` keys a row, else random lengths),
-    with row 0 fully masked."""
+def _flash_inputs(dev, dtype, *, b, h, tq, tk, dh, dv=None, seed=0,
+                  pad=None, qk_std=1.0):
+    """numpy-drawn q, k (B, H, T, dh) ~ N(0, qk_std^2), v, dO (B, H, T, dv,
+    default dh); a key mask with holes, left-padded where Tq == Tk (``pad``
+    keys a row, else random lengths), with row 0 fully masked."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
-    q, dout = (rng.normal(size=(b, h, tq, dh)).astype(f32) for _ in range(2))
-    k, v = (rng.normal(size=(b, h, tk, dh)).astype(f32) for _ in range(2))
+    dv = dh if dv is None else dv
+    q = (qk_std * rng.normal(size=(b, h, tq, dh))).astype(f32)
+    dout = rng.normal(size=(b, h, tq, dv)).astype(f32)
+    k = (qk_std * rng.normal(size=(b, h, tk, dh))).astype(f32)
+    v = rng.normal(size=(b, h, tk, dv)).astype(f32)
     km = (rng.random((b, tk)) > 0.1).astype(f32)
     if tq == tk:
         lengths = (rng.integers(1, tk + 1, b) if pad is None
@@ -1015,16 +1020,20 @@ def test_flash_kernels_draw_one_dropout_mask(cuda_device, dtype):
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Any head width runs (widths the narrow kernels do not take, dh = 24
+    and the backward at 128, take the wide kernels); k of another width
+    than q, a dtype other than fp32 / bf16, dropout without a seed and a
+    gradient of one kernel are refused."""
     from easydgl_tpu_torch.kernels import flash_attention as fl
     q, k, v, km, dout = _flash_inputs(cuda_device, torch.float32, b=1, h=1,
                                       tq=8, tk=8, dh=24)
-    with pytest.raises(ValueError, match="head dim"):
-        fl.flash_attention_fwd(q, k, v, km)
+    out, lse = fl.flash_attention_fwd(q, k, v, km)
+    with pytest.raises(ValueError, match="shape"):
+        fl.flash_attention_fwd(q, k[..., :16], v, km)
     q, k, v, km, dout = _flash_inputs(cuda_device, torch.float32, b=1, h=1,
                                       tq=8, tk=8, dh=128)
-    out, lse = fl.flash_attention_fwd(q, k, v, km)   # the forward takes 128
-    with pytest.raises(ValueError, match="head dim"):
-        fl.flash_attention_bwd(q, k, v, km, dout, lse, lse)
+    out, lse = fl.flash_attention_fwd(q, k, v, km)
+    fl.flash_attention_bwd(q, k, v, km, dout, lse, lse)
     with pytest.raises(ValueError, match="dtype"):
         fl.flash_attention_fwd(q.half(), k.half(), v.half(), km)
     with pytest.raises(ValueError, match="seed"):
@@ -1469,3 +1478,166 @@ def test_tisasrec_on_card_matches_cpu_on_day_boundaries(cuda_device, name):
                 "seqs_t": torch.as_tensor(stamps, device=dev)})[0].cpu()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------- wide heads
+# The flash kernels at head widths the narrow ones do not take
+# (``flash_wide.cu``; their dk and dv, like dq, sum by atomics): TGAT's augmented heads (q, k 2,048 wide, v 512 as the
+# port passes it, or 2,048) and TGREC's (150, fp32), an odd narrow width
+# and the backward at dh = 128. q and k ~ N(0, 0.3^2) at the wide widths,
+# so that the logits (sums over 2,048 products) stay of order 1.
+WIDE_SHAPES = {
+    "tgat_dv512": dict(b=2, h=1, tq=300, tk=300, dh=2048, dv=512,
+                       pad=(300, 70), qk_std=0.3),
+    "tgat_dv2048": dict(b=2, h=1, tq=130, tk=130, dh=2048, dv=2048,
+                        pad=(130, 100), qk_std=0.3),
+    "tgrec_150": dict(b=3, h=1, tq=333, tk=333, dh=150, pad=(333, 100, 0),
+                      qk_std=0.3),
+    "dh24_h2": dict(b=2, h=2, tq=77, tk=77, dh=24),
+    "dh128": dict(b=2, h=2, tq=200, tk=200, dh=128, pad=(200, 70),
+                  qk_std=0.5),
+    "tq100_tk300_dh96": dict(b=2, h=2, tq=100, tk=300, dh=96, dv=40)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_flash_kernels_match_plain_version(cuda_device, dtype, causal,
+                                                shape, rate):
+    """The wide kernels forward and backward, each on the plain version's
+    inputs, and the chained backward, as ``_check_flash_kernels``; every
+    batch row with no visible key exactly 0."""
+    _check_flash_kernels(cuda_device, dtype, causal, WIDE_SHAPES[shape],
+                         rate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_flash_kernels_draw_one_dropout_mask(cuda_device, dtype):
+    """q = 0 and k = v = I at a width the narrow kernels do not take (t =
+    256, a power of two, so that out * t is exact): out, dq (dO = 1) and dv
+    (dO = I) show the keep factor of every (i, j) as the wide kernels drew
+    it; each equals ``dropout_factor``. The
+    kept share is 1 - rate within 4 standard deviations and every kept
+    entry is scaled by 1 / (1 - rate)."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    from easydgl_tpu_torch.kernels.mau_attention import dropout_factor
+    b, h, t, rate = 2, 2, 256, 0.25
+    dev = cuda_device
+    eye = torch.eye(t, device=dev).expand(b, h, t, t).to(dtype).contiguous()
+    q = torch.zeros(b, h, t, t, device=dev, dtype=dtype)
+    ones = torch.ones(b, h, t, t, device=dev, dtype=dtype)
+    km = torch.ones(b, t, device=dev)
+    kw = dict(causal=False, dropout_rate=rate, scale=1.0,
+              seed=torch.tensor(321, device=dev))
+    before = fl.flash_attention_fwd.launches
+    out, lse = fl.flash_attention_fwd(q, eye, eye, km, **kw)
+    assert fl.flash_attention_fwd.launches == before + 1
+    delta = fl.flash_delta(ones, out)
+    dq = fl.flash_attention_bwd(q, eye, eye, km, ones, lse, delta, **kw)[0]
+    dv = fl.flash_attention_bwd(q, eye, eye, km, eye, lse,
+                                fl.flash_delta(eye, out), **kw)[2]
+    keep = dropout_factor(321, (b, h, t, t), rate, dev)
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(out.float() * t, keep.to(dtype).float(),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(dv.transpose(-1, -2).float() * t, keep,
+                               atol=0, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(dq.float() * t + delta[..., None], keep,
+                               atol=2e-2 if bf16 else 1e-5, rtol=0)
+    kept = keep > 0
+    share, n = float(kept.float().mean()), kept.numel()
+    assert abs(share - (1 - rate)) <= 4 * (rate * (1 - rate) / n) ** 0.5
+    torch.testing.assert_close(keep[kept], torch.full_like(
+        keep[kept], 1 / (1 - rate)), atol=0, rtol=0)
+
+
+def test_flash_context_scale_on_card(cuda_device):
+    """``flash_context(scale=s)`` on the card (the wide kernels: q and k 64
+    wide, v 16) multiplies q . k by s, not by 1/sqrt(64): against the
+    materialised softmax at s, fp32, no dead row."""
+    from easydgl_tpu_torch.nn.attention import attention_probs, flash_context
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k = (torch.randn(2, 1, 90, 64, generator=g, device=cuda_device)
+            for _ in range(2))
+    v = torch.randn(2, 1, 90, 16, generator=g, device=cuda_device)
+    km = torch.ones(2, 90, device=cuda_device)
+    s = 16 ** -0.5
+    got = flash_context(q, k, v, km, causal=True, rate=0.0, generator=None,
+                        scale=s)
+    want = attention_probs(q, k, key_mask=km, causal=True, scale=s) @ v
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+# TGAT and TGREC: the catalog kernels in every train step (TGREC at its
+# preset's C = 50), the flash kernels once a block under "flash".
+BOCHNER = {"TGAT": {}, "TGAT-flash": dict(attention_impl="flash"),
+           "TGREC": {}, "TGREC-flash": dict(attention_impl="flash")}
+
+
+def _bochner_cfg(name, compute_dtype):
+    from easydgl_tpu_torch.config import preset
+    base = name.split("-")[0]
+    return preset(base, num_items=60, seqslen=10,
+                  num_units=50 if base == "TGREC" else 64,
+                  num_heads=1 if base == "TGREC" else 2, num_blocks=2,
+                  batch_size=4, compute_dtype=compute_dtype,
+                  hidden_dropout_rate=0.0, attention_probs_dropout_rate=0.0,
+                  **BOCHNER[name])
+
+
+@pytest.mark.parametrize("name", list(BOCHNER))
+def test_bochner_train_step_launches_rows_3_to_9(cuda_device, name):
+    """A train step (C = 64, TGREC's 50) in bf16 and in fp32 launches the
+    catalog forward and backward once each and, under "flash", the flash
+    forward and backward once a block; its loss and gradients equal those
+    of the same model on the card with the written-out plain versions
+    (``catalog_nll_written_out``, ``flash_attention_written_out``: g and
+    ds rounded to the compute dtype where the kernels round them): loss to
+    1e-5 relative, each leaf to 1e-4 (fp32) or 1e-2 (bf16) of its scale, a
+    key bias of its key weight's. fp32 eval logits equal the CPU's to
+    1e-4."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    from easydgl_tpu_torch.models.registry import MODELS, build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train import steps
+    counters = (catalog_nll_fwd, catalog_nll_bwd) + fl.FLASH_KERNELS
+    flash = "flash" in name
+    for dtype, tol in (("bfloat16", 1e-2), ("float32", 1e-4)):
+        cfg = _bochner_cfg(name, dtype)
+        params = random_flax_params(cfg, 0)
+        model = build_model(cfg, device=cuda_device, params=params)
+        f, lab = _small_batch(cfg, True)
+        feats = steps.to_device(f, cuda_device)
+        labels = torch.as_tensor(lab, device=cuda_device)
+        for fn in counters:
+            fn.launches = 0
+        loss, grads = steps.loss_and_grads(model, feats, labels)
+        nb = cfg.num_blocks if flash else 0
+        assert [fn.launches for fn in counters] == [1, 1, nb, nb]
+        module, attr, _ = MODELS[cfg.model].long_context_engine
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(steps, "catalog_nll", catalog_nll_written_out)
+            mp.setattr(module, attr, fl.flash_attention_written_out)
+            loss_p, grads_p = steps.loss_and_grads(model, feats, labels)
+        assert [fn.launches for fn in counters] == [1, 1, nb, nb]
+        assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+        for n, want in grads_p.items():
+            ref = grads_p[n[:-4] + "weight"] if n.endswith("attn.k.bias") \
+                else want
+            err = float((grads[n] - want).abs().max())
+            assert err <= tol * float(ref.abs().max()), (
+                dtype, n, err, float(ref.abs().max()))
+        state, loss1 = steps.build_train_step(model)(
+            steps.init_state(model), f, lab, torch.Generator(device="cuda"))
+        assert [fn.launches for fn in counters] == [2, 2, 2 * nb, 2 * nb]
+        assert np.isfinite(float(loss1)) and state.step == 1
+        if dtype == "float32":
+            ef = _small_batch(cfg, False)[0]
+            logits = {}
+            for dev in (cuda_device, torch.device("cpu")):
+                m = build_model(cfg, device=dev, params=params)
+                with torch.no_grad():
+                    logits[dev.type] = m(steps.to_device(ef, dev))[0].cpu()
+            torch.testing.assert_close(logits["cuda"], logits["cpu"],
+                                       atol=1e-4, rtol=1e-4)

@@ -224,9 +224,8 @@ def test_bridge_round_trip_and_random_tree(world):
 def test_other_models_raise_not_implemented():
     from easydgl_tpu.models.registry import MODELS as JMODELS
     assert set(MODELS) == {"EasyDGL", "SASREC", "BERT4REC", "CTSMA",
-                           "GRU4REC", "S2PNM", "TiSASREC"}
-    assert set(JMODELS) - set(MODELS) == {"GREC", "TGAT", "TGREC",
-                                          "TimelyREC"}
+                           "GRU4REC", "S2PNM", "TiSASREC", "TGAT", "TGREC"}
+    assert set(JMODELS) - set(MODELS) == {"GREC", "TimelyREC"}
     for name in set(JMODELS) - set(MODELS):
         with pytest.raises(NotImplementedError, match=name):
             build_model(preset(name), device="cpu")

@@ -1,9 +1,14 @@
 """Parity checks of a whole regressive-protocol model of the PyTorch port
-against the JAX package on the CPU, shared by ``test_torch_gru4rec.py`` and
-``test_torch_tisasrec.py``: a JAX-initialised world (``make_world``), the
-eval logits, the eval step and ``recommend``, one train step with the
-presets' clipped TF-Adam, and the random param tree.
+against the JAX package on the CPU, shared by ``test_torch_gru4rec.py``,
+``test_torch_tisasrec.py`` and ``test_torch_bochner.py``: a JAX-initialised
+world (``make_world``), the eval logits, the eval step and ``recommend``,
+one train step with the presets' clipped TF-Adam, and the random param
+tree. ``make_world(..., op_by_op=True)`` runs every JAX computation op by
+op (``jax.disable_jit``) rather than jitted: the jitted CPU program divides
+the stamps by ``time_scale`` as a product with its fp32 reciprocal, which
+moves a ~1e9 s stamp by an ulp, and the time models' cos features with it.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -53,12 +58,58 @@ def _nonzero(params, rng):
     return params
 
 
-def make_world(name, kw, seed, clip_norm=None):
+@contextlib.contextmanager
+def jax_flash_reference():
+    """JAX's flash kernel replaced by its plain reference
+    (``flash_attention_reference``, the kernel's semantics in jnp) while a
+    whole JAX model runs, as the JAX tests allow on the CPU: its Pallas
+    kernel in interpret mode, op by op, takes minutes."""
+    import easydgl_tpu.kernels.flash_attention as jfa
+    saved = jfa.flash_attention
+
+    def plain(q, k, v, key_mask=None, *, causal=False, scale=None,
+              dropout_rate=0.0, seed=None):
+        del seed
+        return jfa.flash_attention_reference(q, k, v, key_mask,
+                                             causal=causal, scale=scale,
+                                             dropout_rate=dropout_rate)
+
+    jfa.flash_attention = plain
+    try:
+        yield
+    finally:
+        jfa.flash_attention = saved
+
+
+def model_context(form):
+    """The context a whole JAX model of ``attention_impl`` ``form`` runs
+    in (``jax_flash_reference`` for ``"flash"``)."""
+    return jax_flash_reference() if form == "flash" else \
+        contextlib.nullcontext()
+
+
+def _context(world):
+    """The world's context for its JAX computations (``make_world``)."""
+    return world.get("context", contextlib.nullcontext)()
+
+
+def _jax_mode(world):
+    """The context the world's JAX computations run in: op by op, or as
+    written (jitted)."""
+    return jax.disable_jit() if world.get("op_by_op") else \
+        contextlib.nullcontext()
+
+
+def make_world(name, kw, seed, clip_norm=None, op_by_op=False,
+               context=contextlib.nullcontext):
     """Eval and train batches of the regressive protocol, JAX-initialised
-    weights (``_nonzero``), in one jitted program the JAX loss, its
-    gradients and the parameters after JAX's TF-Adam update, and the loss
-    of JAX ``build_train_step``. ``clip_norm``: another global-norm clip
-    than the preset's, on both sides."""
+    weights (``_nonzero``), in one jitted program (op by op with
+    ``op_by_op``) the JAX loss, its gradients and the parameters after
+    JAX's TF-Adam update, and the loss of JAX ``build_train_step`` (op by
+    op, where the models have no dropout, the loss of the same forward).
+    ``clip_norm``: another global-norm clip than the preset's, on both
+    sides. ``context``: a context manager factory every JAX computation
+    runs under (e.g. Pallas interpret mode)."""
     b, v = kw["batch_size"], kw["num_items"]
     ds = synthetic_split(num_rows=2 * b, num_items=v, seqslen=kw["seqslen"],
                          seed=seed)
@@ -76,19 +127,34 @@ def make_world(name, kw, seed, clip_norm=None):
     params = _nonzero(params, np.random.default_rng(5))
     tx = joptim.build_optimizer(jcfg.optim)
 
-    def update(p):
-        loss, grads = jax.value_and_grad(lambda q: jsteps.compute_loss(
+    def loss_grads(p):
+        return jax.value_and_grad(lambda q: jsteps.compute_loss(
             jm, q, jfeats(tf), jnp.asarray(tlab)))(p)
-        upd, _ = tx.update(grads, tx.init(p), p)
-        return loss, grads, optax.apply_updates(p, upd)
 
-    loss, grads, params1 = jax.jit(update)(params)
-    state0 = jsteps.TrainState(jax.tree.map(jnp.asarray, params),
-                               tx.init(params), jnp.zeros((), jnp.int32))
-    _, loss1 = jsteps.build_train_step(jm, donate=False)(
-        state0, jfeats(tf), jnp.asarray(tlab), jax.random.key(0))
+    def apply(p, grads):
+        upd, _ = tx.update(grads, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+
+    def update(p):
+        loss, grads = loss_grads(p)
+        return loss, grads, apply(p, grads)
+
+    if op_by_op:
+        # the model op by op; the TF-Adam update of its gradients (no
+        # stamp in it) jitted; the train step's loss is its forward's,
+        # compute_loss at these params (no dropout), not run twice
+        with jax.disable_jit(), context():
+            loss, grads = loss_grads(params)
+        params1 = jax.jit(apply)(params, grads)
+        loss1 = loss
+    else:
+        loss, grads, params1 = jax.jit(update)(params)
+        state0 = jsteps.TrainState(jax.tree.map(jnp.asarray, params),
+                                   tx.init(params), jnp.zeros((), jnp.int32))
+        _, loss1 = jsteps.build_train_step(jm, donate=False)(
+            state0, jfeats(tf), jnp.asarray(tlab), jax.random.key(0))
     return dict(ds=ds, jm=jm, jcfg=jcfg, kw=kw, name=name, params=params,
-                clip_norm=clip_norm,
+                clip_norm=clip_norm, op_by_op=op_by_op, context=context,
                 eval=(ef, elab, ev), train=(tf, tlab), loss=float(loss),
                 loss1=float(loss1),
                 grads=flax_to_torch(jax.tree.map(np.asarray, grads)),
@@ -107,7 +173,7 @@ def check_eval_logits(world):
     """Against the JAX model op by op (its jitted CPU program moves the
     logits by up to ~1e-4 against its own op-by-op run)."""
     ef = world["eval"][0]
-    with jax.disable_jit():
+    with jax.disable_jit(), _context(world):
         want, _ = world["jm"].apply(world["params"], jfeats(ef),
                                     is_training=False)
     with torch.no_grad():
@@ -118,16 +184,22 @@ def check_eval_logits(world):
 
 
 def check_eval_step_and_recommend(world):
+    """The eval step's metric sums over the split, in batches of 3 (a
+    ragged last batch), or op by op of the world's batch size (the shapes
+    the JAX side has compiled already); ``recommend`` on one batch."""
     model = port(world)
     b = world["kw"]["batch_size"]
+    eval_batch = b if world.get("op_by_op") else 3
     jstep = jbuild_eval_step(world["jm"])
     step = build_eval_step(model)
     jacc, acc = jmetrics.MetricAccumulator(), metrics.MetricAccumulator()
     for f, lab, valid in JBatchLoader(world["ds"], data_mode="regressive",
-                                      batch_size=3, is_training=False,
+                                      batch_size=eval_batch,
+                                      is_training=False,
                                       use_native=False).epoch(0):
-        jacc.update(jstep(world["params"], jfeats(f), jnp.asarray(lab),
-                          jnp.asarray(valid)))
+        with _jax_mode(world), _context(world):
+            jacc.update(jstep(world["params"], jfeats(f), jnp.asarray(lab),
+                              jnp.asarray(valid)))
         acc.update(step(model, f, lab, valid))
     assert jacc.count == acc.count == 2 * b
     want, got = jacc.result(), acc.result()
@@ -136,7 +208,7 @@ def check_eval_step_and_recommend(world):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
 
     arrays = {k: v[:b] for k, v in world["ds"].arrays.items()}
-    with jax.disable_jit():
+    with jax.disable_jit(), _context(world):
         want_ids, want_scores = JRecommender(
             world["jcfg"], world["params"]).recommend(arrays, k=7)
     rec = Recommender(model.cfg, world["params"], device="cpu")
