@@ -22,9 +22,12 @@ forms dq, dk and dv in one key-major pass over the live key tiles) and
 their chained backward, and the same two wrappers' wide kernels
 (``flash_wide.cu``, heads of any width: TGAT's augmented 2,048 with v at
 512, TGREC's 150, and the backward at dh = 128), the catalog kernels also
-at TGREC's C = 50 — and times each against its bound (the flash kernels
-also against ``F.scaled_dot_product_attention`` on the same inputs, with
-the backend it picks at the wide heads). Then
+at TGREC's C = 50 and at GREC's untied head (its learned bias on every
+id, the table a transposed view of its (C, V) kernel, V = 17,773), and
+at TimelyREC's padded rows, the flash kernels at its heads (B = 512,
+T = 30, H = 4, dh = 128) — and times each against its bound (the flash
+kernels also against ``F.scaled_dot_product_attention`` on the same
+inputs, with the backend it picks at the wide heads). Then
 it drives the port's main
 paths, each with the launch counters set to 0 just before it and read just
 after:
@@ -90,6 +93,25 @@ after:
   B = 8: eval batches and ``recommend`` requests through the wide flash
   forward, 10 faithful train steps through the wide flash kernels and the
   catalog kernels, then 5 on one repeated batch;
+* serving and training on GREC and TimelyREC (their presets, bf16,
+  B = 512, C = 512: GREC's eight dilated-CNN blocks and untied head of
+  num_items + 2 = 17,773 rows, the grec loss; TimelyREC's causal user
+  tower, four time-slot encoders and history encoder): eval batches and
+  ``recommend`` requests (no kernel; GREC never returns id 0 or its last
+  id), 20 faithful train steps through the catalog kernels (GREC at
+  N = 3,072 rows against its transposed head and learned bias), then 10
+  on one repeated batch; TimelyREC's ``"flash"`` form against its
+  ``"xla"`` form on the card (fp32 logits of a whole batch, one fp32
+  train step on 8 rows), then in bf16 eval batches and ``recommend``
+  requests through the flash forward at dh = 128 and 10 faithful train
+  steps through the flash kernels (the dh = 128 backward on
+  ``flash_wide.cu``) and the catalog kernels, then 5 on one repeated
+  batch;
+* EasyDGL-LC with ``gather_queries=True`` (its preset, B = 8, L+1 = 2048,
+  masklen 256): its one block's MAU takes the gathered rows alone, which
+  the port routes as JAX does, to the materialised chain (no kernel):
+  eval batches and ``recommend`` requests, 10 faithful train steps
+  through the catalog kernels, then 5 on one repeated batch;
 * the harness on the flagship, in a temporary directory: ``cli.train
   --synthetic`` (4,096 train rows, 8 steps an epoch, bf16) for 2 epochs
   and 1 more with ``--resume`` (the step count must continue), the resumed
@@ -104,8 +126,9 @@ is compared: the flagship's eval logits and one train step (loss, every
 gradient, the updated parameters), for EasyDGL-LC, SASREC-LC,
 BERT4REC-LC and CTSMA-LC the logits of two rows and one train step on two
 rows, for BERT4REC and CTSMA one train step on eight rows (CTSMA's logits
-on eight rows too), and for GRU4REC, S2PNM, TiSASREC, TGAT and TGREC the
-logits of eight rows and one train step on eight rows.
+on eight rows too), for GRU4REC, S2PNM, TiSASREC, TGAT, TGREC, GREC and
+TimelyREC the logits of eight rows and one train step on eight rows, and
+for the gathered EasyDGL-LC one train step on two rows.
 
 Every phase prints its own lines; any failure exits non-zero before the
 result. The line before the last lists the kernels as JSON, and the last
@@ -214,6 +237,9 @@ CTSMA_CATALOG = dict(n=15360, v=17771, c=512)   # B*L rows, CTSMA
 # C to 52, whole 4-column vectors)
 TGREC_CATALOG = dict(n=3840, v=17771, c=50)
 SASREC_LC_CATALOG = dict(n=65536, v=17771, c=512)   # B*L rows
+# GREC's training rows, B*masklen = 3,072, against its untied head of
+# num_items + 2 rows
+GREC_CATALOG = dict(n=3072, v=17773, c=512)
 # B*masklen rows against num_items + 2 ids (the MASK id and one more)
 BERT4REC_LC_CATALOG = dict(n=8192, v=17773, c=512)
 TRAIN_STEPS, REPEAT_STEPS = 20, 10
@@ -228,7 +254,18 @@ RECURRENT_AND_INTERVAL = {
     "S2PNM": ("i", 34, "B=512, L=30, C=512, 1 GRU layer, 1 causal head of "
                        "512 over the 2C-wide codes"),
     "TiSASREC": ("j", 37, "B=512, L=30, C=512, H=8, 2 blocks, the dense "
-                          "(B, L, L, C) interval codes, timelen 256")}
+                          "(B, L, L, C) interval codes, timelen 256"),
+    "GREC": ("m", 47, "B=512, L+1=31, C=512, 8 dilated-CNN blocks "
+                      "(dilations 1, 4, 1, 4; width 3), the untied head of "
+                      "17,773 rows"),
+    "TimelyREC": ("n", 49, "B=512, L=30, C=512, H=4, the causal user "
+                           "tower, four time-slot encoders, the history "
+                           "encoder")}
+# phase 7's loss and catalog shape, where it is not softmax-eps over every
+# position, N = 15,360
+TRAIN_WHAT = {"GREC": "the grec loss (row-masked mean CE + 0.001 x the "
+                      "mean l2 of the 72 parameter tensors), the catalog "
+                      "kernels at N=3,072, V=17,773 (untied)"}
 # the Bochner time models: name -> (phase letter, data seed, the preset's
 # shape); each also runs its flash form at L = 2048, B = 8 (BOCHNER_LC)
 BOCHNER = {
@@ -773,7 +810,8 @@ def label_zero_rows(name, n, seed) -> torch.Tensor:
     cfg = preset(name)
     split = synthetic_split_vectorized(num_rows=cfg.batch_size,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=seed)
+                                       seqslen=cfg.seqslen, seed=seed,
+                                       with_datetime=True)
     loader = BatchLoader(split, data_mode=model_class(cfg).data_mode,
                          batch_size=cfg.batch_size, masklen=cfg.masklen,
                          is_training=True)
@@ -799,6 +837,11 @@ def ctsma_padded_rows(n=CTSMA_CATALOG["n"]) -> torch.Tensor:
     return label_zero_rows("CTSMA", n, 23)
 
 
+def timelyrec_padded_rows(n=CTSMA_CATALOG["n"]) -> torch.Tensor:
+    """(B * L,) bool: the padded positions of one TimelyREC train batch."""
+    return label_zero_rows("TimelyREC", n, 51)
+
+
 def alternating_rows(n) -> torch.Tensor:
     """(n,) bool, dead rows mixed within and across 64-row tiles: runs of
     three dead and three live rows, a whole dead tile (rows 64-127) and a
@@ -814,22 +857,30 @@ def alternating_rows(n) -> torch.Tensor:
 CATALOG_DEAD = {"sasrec_lc_bf16_padded": sasrec_lc_padded_rows,
                 "bert4rec_lc_bf16_masked": bert4rec_lc_masked_rows,
                 "ctsma_bf16_padded": ctsma_padded_rows,
+                "timelyrec_bf16_padded": timelyrec_padded_rows,
                 "alternating_bf16": alternating_rows,
                 "alternating_bf16_c64": alternating_rows,
                 "alternating_fp32": alternating_rows}
 
 
-def catalog_inputs(*, n, v, c, dtype, seed, label_term=True, dead=None):
+def catalog_inputs(*, n, v, c, dtype, seed, label_term=True, dead=None,
+                   untied=False):
     """The loss's cotangents: dlse and dll ~ N(0, 1) / N, or dll = 0 when
     ``label_term`` is off, so that g is the softmax term alone. ``dead``
     (n,) bool marks rows as the train step's padded positions: label 0
-    and dlse = dll = 0."""
+    and dlse = dll = 0. ``untied``: GREC's head, a learned bias on every
+    id (no -1000 on id 0) and the table the transposed view of a (C, V)
+    kernel, cast to the compute dtype as the train step casts it (the
+    wrapper makes it contiguous)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     h = torch.randn(n, c, generator=g, device="cuda").to(dtype)
     table = (torch.rand(v, c, generator=g, device="cuda") - 0.5) * (
         2 * math.sqrt(6.0 / (v + c)))               # glorot, as the model
     b = torch.randn(v, generator=g, device="cuda") * 0.1
-    b[0] = -1000.0
+    if untied:
+        table = table.t().contiguous().t()
+    else:
+        b[0] = -1000.0
     lab = torch.randint(0, v, (n,), generator=g, device="cuda")
     lab[0], lab[-1] = 0, v - 1
     dlse = torch.randn(n, generator=g, device="cuda") / n
@@ -872,7 +923,13 @@ CATALOG_CASES = (
     ("alternating_fp32", dict(n=333, v=1001, c=64), torch.float32, True, 80),
     # TGREC's training rows at C = 50, which the wrapper pads to 52
     ("tgrec_c50_bf16", TGREC_CATALOG, torch.bfloat16, True, 83),
-    ("tgrec_c50_fp32", TGREC_CATALOG, torch.float32, True, 84))
+    ("tgrec_c50_fp32", TGREC_CATALOG, torch.float32, True, 84),
+    # GREC's masked rows against its untied head (CATALOG_UNTIED)
+    ("grec_bf16_untied", GREC_CATALOG, torch.bfloat16, True, 85),
+    ("grec_fp32_untied", GREC_CATALOG, torch.float32, True, 86),
+    # TimelyREC's training rows, the padding dead (CATALOG_DEAD)
+    ("timelyrec_bf16_padded", CTSMA_CATALOG, torch.bfloat16, True, 87))
+CATALOG_UNTIED = ("grec_bf16_untied", "grec_fp32_untied")
 CATALOG_FWD, CATALOG_BWD = ("lse", "ll"), ("d_hidden", "d_table", "d_bias")
 CATALOG_FWD_CHECKS = CATALOG_FWD + ("ll label != 0",)
 
@@ -896,7 +953,10 @@ def catalog_case(name, shape, dtype, label_term, seed):
     dead = CATALOG_DEAD[name](shape["n"]) if name in CATALOG_DEAD else None
     h, t, b, lab, dlse, dll = catalog_inputs(**shape, dtype=dtype, seed=seed,
                                              label_term=label_term,
-                                             dead=dead)
+                                             dead=dead,
+                                             untied=name in CATALOG_UNTIED)
+    check(t.is_contiguous() != (name in CATALOG_UNTIED),
+          f"{name}: the table's layout")
     got = catalog_nll_fwd(h, t, b, lab)
     torch.cuda.synchronize()
     want = catalog_nll_reference(h, t, b, lab)
@@ -1352,11 +1412,17 @@ FLASH_PAD = {"t1000_dead_rows_causal_bf16_drop": (1000, 300, 1000, 0),
              "t333_midtile_causal_bf16_drop": (0, 100),
              "t333_midtile_full_fp32": (0, 100),
              "bert4rec_lc_full_bf16_drop": (2048, 700)}
-# dh = 128: the narrow forward kernels, the wide backward kernel
+# dh = 128: the narrow forward kernels, the wide backward kernel; then
+# TimelyREC's user tower at its preset (B = 512, H = 4, T = 30, causal,
+# left-padded rows, attention dropout 0.1), and in fp32 on 64 rows
 FLASH_DH128_CASES = (
     ("t300_causal_bf16_dh128", 2, 2, 300, 300, 128, torch.bfloat16, True,
      0.1),
     ("t300_full_fp32_dh128", 2, 2, 300, 300, 128, torch.float32, False,
+     0.0),
+    ("timelyrec_causal_bf16_drop", 512, 4, 30, 30, 128, torch.bfloat16,
+     True, 0.1),
+    ("timelyrec_causal_fp32", 64, 4, 30, 30, 128, torch.float32, True,
      0.0))
 # the wide kernels (flash_wide.cu) at the Bochner models' augmented heads,
 # H = 1, causal, left-padded: TGAT's q and k 2,048 wide with v at dh = 512
@@ -1395,7 +1461,8 @@ FLASH_SCALE = {"tgat_w2048_t2048_causal_bf16": 512 ** -0.5,
                "tgat_w2048_t2048_causal_bf16_drop": 512 ** -0.5,
                "tgrec_w150_t2048_causal_fp32": 50 ** -0.5}
 # the cases whose (max abs err, worst/tol) the kernels line reports
-FLASH_WIDE_REPORTED = ("tgat_w2048_causal_bf16_drop",
+FLASH_WIDE_REPORTED = ("timelyrec_causal_bf16_drop",
+                       "tgat_w2048_causal_bf16_drop",
                        "tgrec_w150_causal_fp32_drop",
                        "tgat_w2048_t2048_causal_bf16",
                        "tgat_w2048_t2048_causal_bf16_drop",
@@ -2744,6 +2811,21 @@ def path_kernels(cfg, training: bool):
     return ()
 
 
+def kernel_layers(cfg) -> int:
+    """The layers of ``cfg``'s model that launch ``path_kernels``' kernels
+    in a forward: TimelyREC's one user-tower attention whatever
+    ``num_blocks`` says; a self-modulating model's blocks under
+    ``"flash"``, less the last under ``gather_queries``, whose gathered
+    rows take the materialised chain (``nn.temporal.mau_dense``, no
+    kernel), as in JAX; else one a block."""
+    if cfg.model == "TimelyREC":
+        return 1
+    if (MODELS[cfg.model].uses_tpp and cfg.gather_queries
+            and cfg.attention_impl == "flash"):
+        return cfg.num_blocks - 1
+    return cfg.num_blocks
+
+
 def mark_table_of(cfg):
     """A seeded mark table where the model reads marks, else None."""
     return (synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
@@ -2755,8 +2837,8 @@ def phase_model_slice(name, seed, **overrides):
     ``overrides``) at full width (random weights from seed 0) over
     synthetic data from ``seed`` and ``seed + 1``, marks looked up on the
     device where the model reads them; each kernel of ``path_kernels``
-    launched once a block a forward, no other kernel. Returns (launches,
-    the first eval batch, seqs/s, latencies)."""
+    launched once a layer (``kernel_layers``) a forward, no other kernel.
+    Returns (launches, the first eval batch, seqs/s, latencies)."""
     cfg = preset(name, **overrides)
     bs = cfg.batch_size
     model = build_model(cfg, device="cuda",
@@ -2764,13 +2846,15 @@ def phase_model_slice(name, seed, **overrides):
     table = mark_table_of(cfg)
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=seed)
+                                       seqslen=cfg.seqslen, seed=seed,
+                                       with_datetime=True)
     batches = list(BatchLoader(split, data_mode=model.data_mode,
                                batch_size=bs, masklen=cfg.masklen,
                                is_training=False).epoch(0))
     requests = synthetic_split_vectorized(num_rows=3 * bs,
                                           num_items=cfg.num_items,
-                                          seqslen=cfg.seqslen, seed=seed + 1)
+                                          seqslen=cfg.seqslen, seed=seed + 1,
+                                          with_datetime=True)
     req_batches = [{k: v[i * bs:(i + 1) * bs]
                     for k, v in requests.arrays.items()} for i in range(3)]
     step = build_eval_step(model, mark_table=table)
@@ -2795,7 +2879,7 @@ def phase_model_slice(name, seed, **overrides):
         latencies.append(time.perf_counter() - t0)
         answers.append((arrays, ids, scores))
     launches = {fn.__name__: fn.launches for fn in counters}
-    forwards = (len(batches) + len(req_batches)) * cfg.num_blocks
+    forwards = (len(batches) + len(req_batches)) * kernel_layers(cfg)
     on_path = {fn.__name__ for fn in path_kernels(cfg, False)}
     for kernel, n in launches.items():
         want = forwards if kernel in on_path else 0
@@ -2813,6 +2897,8 @@ def phase_model_slice(name, seed, **overrides):
         check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
               f"{name} recommend: scores not sorted descending")
         check(bool((ids != 0).all()), f"{name} recommend: padding id 0")
+        check(name != "GREC" or bool((ids != cfg.num_items + 1).all()),
+              f"{name} recommend: the last id (a -1000 column)")
         seen = rec.protocol(arrays, False, None)[0]["seqs_i"]
         check(not any(set(ids[r].tolist()) & set(seen[r].tolist())
                       for r in range(bs)),
@@ -2823,8 +2909,8 @@ def phase_model_slice(name, seed, **overrides):
     log(f"  recommend k=50, B={bs}: latency per batch "
         + ", ".join(f"{x * 1e3:.3f} ms" for x in latencies))
     log(f"  launches on the {name} served path ({len(batches)} eval +"
-        f" {len(req_batches)} recommend forwards, {cfg.num_blocks} blocks): "
-        + json.dumps(launches))
+        f" {len(req_batches)} recommend forwards, {kernel_layers(cfg)}"
+        f" layers with kernels): " + json.dumps(launches))
     return launches, batches[0], seqs_per_s, latencies
 
 
@@ -2868,7 +2954,8 @@ def phase_model_train(name, seed, steps, repeat, **overrides):
     terms and TF-Adam; marks looked up on the device where the model reads
     them) after 2 warm-up steps, then ``repeat`` on one repeated batch,
     whose loss must fall; each kernel of ``path_kernels`` launched once a
-    block a step, the catalog kernels once a step, no other kernel.
+    layer (``kernel_layers``) a step, the catalog kernels once a step, no
+    other kernel.
     Returns (launches, ms/step, ex/s)."""
     cfg = preset(name, **overrides)
     bs = cfg.batch_size
@@ -2876,7 +2963,8 @@ def phase_model_train(name, seed, steps, repeat, **overrides):
                         params=random_flax_params(cfg, seed=0))
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=seed)
+                                       seqslen=cfg.seqslen, seed=seed,
+                                       with_datetime=True)
     loader = BatchLoader(split, data_mode=model.data_mode, batch_size=bs,
                          masklen=cfg.masklen, is_training=True)
     batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
@@ -2913,7 +3001,7 @@ def phase_model_train(name, seed, steps, repeat, **overrides):
           f"{name} train: loss on a repeated batch did not fall "
           f"({repeated})")
     per_step = {fn.__name__: 0 for fn in counters}
-    per_step.update({fn.__name__: cfg.num_blocks
+    per_step.update({fn.__name__: kernel_layers(cfg)
                      for fn in path_kernels(cfg, True)})
     per_step.update(catalog_nll_fwd=1, catalog_nll_bwd=1)
     for kernel, n in per_step.items():
@@ -2987,7 +3075,8 @@ def phase_train_cpu_vs_card(name="EasyDGL", rows=8, device_floor=False,
     table = mark_table_of(cfg)
     split = synthetic_split_vectorized(num_rows=rows,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=3)
+                                       seqslen=cfg.seqslen, seed=3,
+                                       with_datetime=True)
     features, labels, _ = next(BatchLoader(
         split, data_mode=model_cls.data_mode, batch_size=rows,
         masklen=cfg.masklen, is_training=True).epoch(0))
@@ -3103,6 +3192,36 @@ def phase_day_boundary_buckets(rows=8):
           "TiSASREC interval buckets of whole-day stamps differ from the "
           "fp32 division-first order")
     return ({"seqs_i": ids[:rows], "seqs_t": stamps[:rows]},)
+
+
+def phase_timelyrec_flash(first):
+    """TimelyREC's ``"flash"`` form at its preset: against its ``"xla"``
+    form on the card (fp32, dropout 0: the logits of ``first``, a whole
+    eval batch, and one train step on 8 rows), then in bf16 eval batches
+    and ``recommend`` requests through the flash forward (dh = 128) and
+    faithful train steps through the flash kernels and the catalog
+    kernels. Returns the launches and rates of its paths."""
+    log("phase 6n': TimelyREC's flash form against its xla form on the "
+        "card at the preset (fp32, dropout 0): the eval logits of a whole "
+        "batch, and one train step on 8 rows")
+    flash = dict(attention_impl="flash")
+    phase_model_cpu_vs_card("TimelyREC", first,
+                            rows=first[0]["seqs_i"].shape[0],
+                            sides=(("cuda", flash), ("cuda", {})))
+    phase_train_cpu_vs_card("TimelyREC", rows=8,
+                            sides=(("cuda", flash), ("cuda", {})))
+    log("phase 5n2: TimelyREC flash at the preset (B=512, L=30, H=4, "
+        "dh=128, bf16): eval + recommend through the flash forward")
+    serve, _, seqs_s, lat = phase_model_slice(
+        "TimelyREC", 55, compute_dtype="bfloat16", **flash)
+    log("phase 7n2: TimelyREC flash faithful train steps (dropout 0.1 / "
+        "0.1) through the flash kernels (the dh = 128 backward on "
+        "flash_wide.cu) and the catalog kernels at N=15,360")
+    train, ms, ex_s = phase_model_train(
+        "TimelyREC", 57, FLASH_TRAIN_STEPS, FLASH_REPEAT_STEPS,
+        compute_dtype="bfloat16", **flash)
+    return dict(serve_launches=serve, launches=train, seqs_s=seqs_s,
+                lat=lat, ms_step=ms, ex_s=ex_s, bs=512)
 
 
 def phase_bochner(name, tag, seed, what):
@@ -3613,9 +3732,9 @@ def main() -> int:
                 sides=(("cuda", dict(attention_impl="factored")),
                        ("cuda", dict(attention_impl="xla"))))
         log(f"phase 7{tag}: {name} faithful train steps at full width on the"
-            f" card (B=512, L=30, bf16, the preset's dropout, softmax-eps "
-            f"over every position, L2, TF-Adam, the catalog kernels at "
-            f"N=15,360)")
+            f" card (B=512, bf16, the preset's dropout, " + TRAIN_WHAT.get(
+                name, "softmax-eps over every position, L2, TF-Adam, the "
+                "catalog kernels at N=15,360") + ")")
         model_launches, model_ms, model_ex_s = phase_model_train(
             name, seed + 2, TRAIN_STEPS, REPEAT_STEPS,
             compute_dtype="bfloat16")
@@ -3623,7 +3742,30 @@ def main() -> int:
             f" kernels) vs CPU (plain), 8 rows, dropout 0")
         phase_train_cpu_vs_card(name, rows=8)
         new_paths[name] = dict(launches=model_launches, seqs_s=seqs_s,
-                               lat=lat, ms_step=model_ms, ex_s=model_ex_s)
+                               lat=lat, ms_step=model_ms, ex_s=model_ex_s,
+                               bs=512)
+        if name == "TimelyREC":
+            new_paths["TimelyREC_flash"] = phase_timelyrec_flash(first)
+    log("phase 5o: EasyDGL-LC with gather_queries=True at full width on the"
+        " card (B=8, L+1=2048, C=512, H=8, 1 BiMAU block, E=64, bf16): the"
+        " block's MAU for the gathered rows alone, through the materialised"
+        " chain as in JAX (no kernel): eval + recommend")
+    gq = dict(gather_queries=True)
+    gq_serve, _, gq_seqs_s, gq_lat = phase_model_slice(
+        "EasyDGL-LC", 52, num_events=64, **gq)
+    log("phase 7o: EasyDGL-LC gather_queries faithful train steps (masklen "
+        "256, dropout 0.1 / 0.1, TPP + L2, TF-Adam, the catalog kernels at "
+        "N=2,048)")
+    gq_launches, gq_ms, gq_ex_s = phase_model_train(
+        "EasyDGL-LC", 54, LC_TRAIN_STEPS, LC_REPEAT_STEPS, num_events=64,
+        **gq)
+    log("phase 8o: full-width fp32 EasyDGL-LC gather_queries train step, "
+        "card vs CPU, 2 rows, dropout 0")
+    phase_train_cpu_vs_card("EasyDGL-LC", rows=2, compute_dtype="float32",
+                            **gq)
+    new_paths["EasyDGL_LC_gathered"] = dict(
+        serve_launches=gq_serve, launches=gq_launches, seqs_s=gq_seqs_s,
+        lat=gq_lat, ms_step=gq_ms, ex_s=gq_ex_s, bs=8)
     bochner = {name: phase_bochner(name, *spec)
                for name, spec in BOCHNER.items()}
     harness = phase_harness(card, ex_s)
@@ -3631,20 +3773,24 @@ def main() -> int:
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
     main_row = timing[bf16]
+    gathered = new_paths["EasyDGL_LC_gathered"]
+    fused_per_path = {
+        "serving": serve_launches,
+        "training": train_launches["mau_attention"],
+        "serving_ctsma": ctsma_launches["mau_attention"],
+        "training_ctsma": ctsma_train_launches["mau_attention"],
+        "harness": harness["launches"]["mau_attention_fwd"],
+        # the gathered long-context rows take the materialised chain
+        "serving_easydgl_lc_gathered":
+            gathered["serve_launches"]["mau_attention"],
+        "training_easydgl_lc_gathered":
+            gathered["launches"]["mau_attention"]}
     kernels = [dict(
         name="mau_attention_fwd", route="cuda",
         source=csrc + "mau_attention_fwd.cu",
         replaces="easydgl_tpu/kernels/mau_attention.py:690",
-        launches=(serve_launches + train_launches["mau_attention"]
-                  + ctsma_launches["mau_attention"]
-                  + ctsma_train_launches["mau_attention"]
-                  + harness["launches"]["mau_attention_fwd"]),
-        launches_per_path={
-            "serving": serve_launches,
-            "training": train_launches["mau_attention"],
-            "serving_ctsma": ctsma_launches["mau_attention"],
-            "training_ctsma": ctsma_train_launches["mau_attention"],
-            "harness": harness["launches"]["mau_attention_fwd"]},
+        launches=sum(fused_per_path.values()),
+        launches_per_path=fused_per_path,
         max_abs_err=errs["bimau_bf16_flagship"], ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=None,
@@ -3666,6 +3812,9 @@ def main() -> int:
         per_path = {"training": train_launches[name],
                     "training_ctsma": ctsma_train_launches[name],
                     "harness": harness["launches"][name]}
+        if name == "mau_attention_bwd":
+            per_path["training_easydgl_lc_gathered"] = \
+                gathered["launches"][name]
         if name != "mau_attention_bwd":
             per_path["training_lc"] = lc_train_launches[name]
             per_path["training_sasrec_lc"] = sas_train_launches[name]
@@ -3698,6 +3847,8 @@ def main() -> int:
         if name != "mau_attention_bwd":
             entry["tgrec_c50_max_abs_err"] = cat_errs["tgrec_c50_bf16"][
                 0 if name == "catalog_nll_fwd" else 1]
+            entry["grec_untied_max_abs_err"] = cat_errs["grec_bf16_untied"][
+                0 if name == "catalog_nll_fwd" else 1]
         if name == "catalog_nll_fwd":
             entry["gemm_ms_for_scale"] = row["gemm_ms"]
             entry["sasrec_lc_shape"] = measured(catalog_lc_timing["forward"])
@@ -3708,11 +3859,16 @@ def main() -> int:
         name = fn.__name__
         row = streamed_timing[(name, bf16)]
         forward = fn in STREAMED
+        gathered = new_paths["EasyDGL_LC_gathered"]
         per_path = {"training_lc": lc_train_launches[name],
-                    "training_ctsma_lc": ctlc_train_launches[name]}
+                    "training_ctsma_lc": ctlc_train_launches[name],
+                    "training_easydgl_lc_gathered":
+                        gathered["launches"][name]}
         if forward:
             per_path["serving_lc"] = lc_launches[name]
             per_path["serving_ctsma_lc"] = ctlc_launches[name]
+            per_path["serving_easydgl_lc_gathered"] = \
+                gathered["serve_launches"][name]
         entry = dict(
             name=name, route="cuda",
             source=csrc + ("mau_streamed_fwd.cu" if forward
@@ -3740,6 +3896,11 @@ def main() -> int:
             per_path[f"training_{key}"] = res["lc_train_launches"][name]
             if name == "flash_attention_fwd":
                 per_path[f"serving_{key}"] = res["lc_launches"][name]
+        timely = new_paths["TimelyREC_flash"]
+        per_path["training_timelyrec_flash"] = timely["launches"][name]
+        if name == "flash_attention_fwd":
+            per_path["serving_timelyrec_flash"] = \
+                timely["serve_launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + "flash_attention.cu",
             wide_source=csrc + "flash_wide.cu",
@@ -3790,9 +3951,9 @@ def main() -> int:
     for model_name, res in new_paths.items():
         log(f"{model_name} serving: {res['seqs_s']:.1f} eval seqs/s,"
             f" recommend " + ", ".join(f"{x * 1e3:.3f}" for x in res["lat"])
-            + f" ms per B=512 batch on {card}")
+            + f" ms per B={res['bs']} batch on {card}")
         log(f"{model_name} train: {res['ms_step']:.4f} ms/step,"
-            f" {res['ex_s']:.1f} ex/s at B=512 on {card}")
+            f" {res['ex_s']:.1f} ex/s at B={res['bs']} on {card}")
     for model_name, res in bochner.items():
         bs = preset(model_name).batch_size
         log(f"{model_name} serving: {res['seqs_s']:.1f} eval seqs/s,"

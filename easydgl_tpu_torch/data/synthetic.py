@@ -1,6 +1,7 @@
 """Synthetic benchmark data: Netflix-shaped sequences for tests and perf runs.
 
-A copy of ``easydgl_tpu.data.synthetic`` (same generators, same streams).
+A copy of ``easydgl_tpu.data.synthetic`` (same generators, same streams);
+``synthetic_split_vectorized`` also takes ``with_datetime``.
 
 Generates right-aligned, left-padded (item, timestamp) sequences with a
 Zipfian item popularity plus a structured next-item dependency so models can
@@ -45,18 +46,26 @@ def synthetic_split(*, num_rows: int, num_items: int, seqslen: int,
         seqs_t[r, total - n:] = times
     arrays = {"seqs_i": seqs_i, "seqs_t": seqs_t}
     if with_datetime:
-        secs = seqs_t.astype(np.int64)
-        days = secs // 86400
-        arrays["seqs_month"] = ((days // 30) % 12 + 1).astype(np.int32)
-        arrays["seqs_day"] = ((days % 31) + 1).astype(np.int32)
-        arrays["seqs_weekday"] = (days % 7).astype(np.int32)
-        arrays["seqs_hour"] = ((secs // 3600) % 24).astype(np.int32)
-        pad = seqs_i == 0
-        for k in ("seqs_month", "seqs_day"):
-            arrays[k] = np.where(pad, 1, arrays[k])
-        for k in ("seqs_weekday", "seqs_hour"):
-            arrays[k] = np.where(pad, 0, arrays[k])
+        arrays.update(datetime_fields(seqs_i, seqs_t))
     return PackedDataset(arrays, num_items)
+
+
+def datetime_fields(seqs_i: np.ndarray, seqs_t: np.ndarray) -> dict:
+    """TimelyREC's seqs_month (1-12), seqs_day (1-31), seqs_weekday and
+    seqs_hour of the stamps, by whole days of 86,400 s; padded positions
+    take month and day 1, weekday and hour 0."""
+    secs = seqs_t.astype(np.int64)
+    days = secs // 86400
+    fields = {"seqs_month": ((days // 30) % 12 + 1).astype(np.int32),
+              "seqs_day": ((days % 31) + 1).astype(np.int32),
+              "seqs_weekday": (days % 7).astype(np.int32),
+              "seqs_hour": ((secs // 3600) % 24).astype(np.int32)}
+    pad = seqs_i == 0
+    for k in ("seqs_month", "seqs_day"):
+        fields[k] = np.where(pad, 1, fields[k])
+    for k in ("seqs_weekday", "seqs_hour"):
+        fields[k] = np.where(pad, 0, fields[k])
+    return fields
 
 
 def synthetic_mark_table(num_items: int, num_events: int,
@@ -94,12 +103,15 @@ def day_boundary_stamps(rng: np.random.Generator, num_rows: int,
 def synthetic_split_vectorized(*, num_rows: int, num_items: int,
                                seqslen: int, seed: int = 0,
                                min_len: int = 5,
-                               start_time: float = 1.0e9) -> PackedDataset:
+                               start_time: float = 1.0e9,
+                               with_datetime: bool = False) -> PackedDataset:
     """Vectorized twin of ``synthetic_split`` for production-scale runs
     (hundreds of thousands of rows in seconds instead of minutes). Same
     distributional structure — Zipf popularity + 0.6-probability markov
     next-item dependency + exponential gaps — but a DIFFERENT RNG stream,
     kept separate so the per-row generator's golden fixtures stay stable.
+    ``with_datetime`` adds ``synthetic_split``'s datetime fields
+    (``datetime_fields``; no draw, so the stream is unchanged).
     """
     rng = np.random.default_rng(seed)
     total = seqslen + 1
@@ -124,4 +136,7 @@ def synthetic_split_vectorized(*, num_rows: int, num_items: int,
     pad = col < (total - lengths[:, None])     # left-pad to right-align
     seqs_i = np.where(pad, 0, items).astype(np.int32)
     seqs_t = np.where(pad, 0.0, times).astype(np.float32)
-    return PackedDataset({"seqs_i": seqs_i, "seqs_t": seqs_t}, num_items)
+    arrays = {"seqs_i": seqs_i, "seqs_t": seqs_t}
+    if with_datetime:
+        arrays.update(datetime_fields(seqs_i, seqs_t))
+    return PackedDataset(arrays, num_items)

@@ -33,7 +33,9 @@ part: the kernels mask their ragged edge rather than pad. The kernels take C
 in whole 4-column vectors; any other C up to 512 (TGREC's is 50) is
 zero-padded to the next multiple of 4 in the wrapper, exactly (a zero column
 adds nothing to h . t), and the pad columns of d_hidden and d_table are
-dropped.
+dropped. A table given as a strided view (GREC's untied head, the
+transpose of its (C, V) kernel) is copied to a contiguous (V, C) table
+once a call; the bias may be any learned (V,) vector.
 """
 from __future__ import annotations
 

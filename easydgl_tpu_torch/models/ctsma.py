@@ -37,7 +37,8 @@ from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.kernels.mau_blocked import mau_blocked
 from easydgl_tpu_torch.models.base import (INTENSITIES, SCORING, OutputBias,
                                            SequentialModel, mau_impl,
-                                           prediction_rows, tied_logits)
+                                           prediction_rows, scaled_times,
+                                           tied_logits)
 from easydgl_tpu_torch.nn import temporal
 from easydgl_tpu_torch.nn.coding import Embedding, PositionCoding
 from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, FeedForward,
@@ -115,7 +116,7 @@ class CTSMA(SequentialModel):
                              "a torch.Generator")
         gen = generator if is_training else None
         ids = features["seqs_i"].long()
-        ts = features["seqs_t"] / cfg.time_scale                # (B, L+1)
+        ts = scaled_times(features["seqs_t"], cfg.time_scale)  # (B, L+1)
         spans = ts[:, 1:] - ts[:, :-1]                          # (B, L)
         marks = features["seqs_marks"]                          # (B, L, E)
         x = self.pcoding(self.item_embs(ids))                   # (B, L, 2C)

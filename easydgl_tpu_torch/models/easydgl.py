@@ -33,7 +33,8 @@ from easydgl_tpu_torch.config import Config
 from easydgl_tpu_torch.kernels.mau_blocked import mau_blocked
 from easydgl_tpu_torch.models.base import (INTENSITIES, SCORING, OutputBias,
                                            SequentialModel, mau_impl,
-                                           prediction_rows, tied_logits)
+                                           prediction_rows, scaled_times,
+                                           tied_logits)
 from easydgl_tpu_torch.nn.coding import (Embedding, PositionCoding,
                                          TimeSinusoidCoding)
 from easydgl_tpu_torch.nn.layers import (ContribLayerNorm, Dense, dropout,
@@ -148,7 +149,7 @@ class EasyDGL(SequentialModel):
         gen = generator if is_training else None
         c = cfg.num_units
         ids = features["seqs_i"].long()
-        ts = features["seqs_t"] / cfg.time_scale
+        ts = scaled_times(features["seqs_t"], cfg.time_scale)
         spans = _clip_spans(ts)
         marks = features["seqs_marks"]
 

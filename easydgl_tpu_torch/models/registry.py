@@ -1,8 +1,8 @@
 """Model factory (port of ``easydgl_tpu.models.registry``).
 
-EasyDGL, SASREC, BERT4REC, CTSMA, GRU4REC, S2PNM, TiSASREC, TGAT and TGREC
-are ported so far; the other two models of the JAX zoo (GREC and
-TimelyREC) raise the JAX factory's ``NotImplementedError``.
+All eleven models of the JAX zoo are ported: EasyDGL, SASREC, BERT4REC,
+CTSMA, GRU4REC, S2PNM, GREC, TiSASREC, TimelyREC, TGAT and TGREC. A name
+outside ``MODELS`` raises the JAX factory's ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,21 +14,24 @@ from easydgl_tpu_torch.models.base import SequentialModel
 from easydgl_tpu_torch.models.bert4rec import BERT4REC
 from easydgl_tpu_torch.models.ctsma import CTSMA
 from easydgl_tpu_torch.models.easydgl import EasyDGL
+from easydgl_tpu_torch.models.grec import GREC
 from easydgl_tpu_torch.models.gru4rec import GRU4REC
 from easydgl_tpu_torch.models.s2pnm import S2PNM
 from easydgl_tpu_torch.models.sasrec import SASREC
 from easydgl_tpu_torch.models.tgat import TGAT
 from easydgl_tpu_torch.models.tgrec import TGREC
+from easydgl_tpu_torch.models.timelyrec import TimelyREC
 from easydgl_tpu_torch.models.tisasrec import TiSASREC
 
 MODELS = {"EasyDGL": EasyDGL, "SASREC": SASREC, "BERT4REC": BERT4REC,
-          "CTSMA": CTSMA, "GRU4REC": GRU4REC, "S2PNM": S2PNM,
-          "TiSASREC": TiSASREC, "TGAT": TGAT, "TGREC": TGREC}
+          "CTSMA": CTSMA, "GRU4REC": GRU4REC, "S2PNM": S2PNM, "GREC": GREC,
+          "TiSASREC": TiSASREC, "TimelyREC": TimelyREC, "TGAT": TGAT,
+          "TGREC": TGREC}
 
 
 def model_class(cfg: Config) -> type:
     """The port's class of ``cfg.model``; the JAX factory's
-    ``NotImplementedError`` for a model not ported yet."""
+    ``NotImplementedError`` for a name outside ``MODELS``."""
     if cfg.model not in MODELS:
         raise NotImplementedError(
             f"The ranking model: {cfg.model} not implemented")

@@ -79,23 +79,33 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximate GELU (reference: src/model/GREC.py:14-26; JAX
+    ``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
 class Dense(nn.Module):
-    """``tf.layers.dense``: y = x @ W^T + b, W stored (out, in)."""
+    """``tf.layers.dense``: y = x @ W^T + b, W stored (out, in); no ``bias``
+    parameter with ``use_bias=False``."""
 
     def __init__(self, in_features: int, out_features: int, *,
+                 use_bias: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
         if cdt is None:
             return F.linear(x, self.weight, self.bias)
-        return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
+        return F.linear(x.to(cdt), self.weight.to(cdt),
+                        None if self.bias is None else self.bias.to(cdt))
 
 
 class FeedForward(nn.Module):

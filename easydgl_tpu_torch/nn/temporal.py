@@ -38,8 +38,15 @@ Two engines, chosen by ``intensity_impl`` (the models pick it with
   temporal.py:601-650): three forward and four backward kernels on the
   card, the blocked plain version with its custom backward
   (``kernels.mau_blocked``, blocks of ``block_k`` keys) on the CPU.
-  Gathered-query calls (``query_positions``) keep the fused engine, as in
-  JAX.
+
+Gathered-query calls (``query_positions``, EasyDGL's ``gather_queries``)
+are routed as JAX routes them: under ``"fused"`` to the fused kernel
+(JAX temporal.py:652-685); under ``"streamed"`` to ``mau_dense``, a port
+of JAX's materialised XLA chain (temporal.py:687-711), where JAX's
+streamed and blocked engines let them fall through. That chain is no
+Pallas kernel, so it is plain PyTorch here too; its (B, H, M, Tk) probs
+are small, as M (the gathered rows) is, and it takes any number of keys,
+where the fused kernels take at most 128.
 
 The Bochner time attentions (JAX ``nn/temporal.py:144-435``) take the
 learnable features ``cos(w (tq - tk) + phi)`` of the pairwise spans
@@ -72,7 +79,9 @@ the model passes:
 Attention dropout (training) takes one seed per call, drawn from the step's
 ``torch.Generator`` (JAX: one int32 from the ``dropout`` rng,
 temporal.py:652-685); both engines draw their mask from it with the same
-Philox rule, and the backward redraws it from the same seed. The
+Philox rule, and the backward redraws it from the same seed.
+``mau_dense`` draws its mask from the generator itself (``nn.layers.
+dropout``), as JAX's chain takes flax's ``nn.Dropout``. The
 context-parallel engine of the JAX module is not ported yet.
 """
 from __future__ import annotations
@@ -84,8 +93,8 @@ from torch import nn
 
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention
 from easydgl_tpu_torch.kernels.mau_streamed import mau_streamed
-from easydgl_tpu_torch.nn.attention import (flash_context, masked_softmax,
-                                            rows_that_see)
+from easydgl_tpu_torch.nn.attention import (NEG_INF_LOGIT, flash_context,
+                                            masked_softmax, rows_that_see)
 from easydgl_tpu_torch.nn.layers import (Dense, LastAxisLayerNorm, dropout,
                                          einsum_fp32acc, merge_heads,
                                          mm_fp32acc, split_heads)
@@ -400,6 +409,7 @@ class MAU(nn.Module):
         self.fused_qkvt = fused_qkvt
         self.causal_default = causal_default
         self.diag_reset = diag_reset
+        self.compute_dtype = compute_dtype
         dh = num_units // num_heads
         kw = dict(compute_dtype=compute_dtype, device=device)
         if fused_qkvt:
@@ -420,21 +430,25 @@ class MAU(nn.Module):
 
     def intensity(self, h_units: torch.Tensor, intervals: torch.Tensor,
                   mark_onehot: torch.Tensor):
-        """fp32 intensity head (JAX ``MAU.intensity``, temporal.py:491-510).
+        """The intensity head (JAX ``MAU.intensity``, temporal.py:491-510),
+        its three products compute-dtype contractions with fp32 results.
 
         h_units: (B, H, Tq, dh); intervals: (B, Tq); mark_onehot: (B, Tk, E).
         Returns (intensity_qk (B, H, Tq, Tk), mark_intensity (B, H, Tq, E))."""
+        cdt = self.compute_dtype
         b, h, tq, dh = h_units.shape
         e = self.num_events
         iv = intervals[:, None, :, None].expand(b, h, tq, 1).to(h_units.dtype)
         x = torch.cat([h_units, iv], dim=-1)
-        sig = torch.sigmoid(x @ self.intensity_dense_kernel
-                            + self.intensity_dense_bias)
-        raw = (sig.reshape(b, h, tq, e, dh) * self.intensity_weight).sum(-1)
+        z = einsum_fp32acc("bhqc,cd->bhqd", x, self.intensity_dense_kernel,
+                           cdt=cdt)
+        sig = torch.sigmoid(z + self.intensity_dense_bias)
+        raw = einsum_fp32acc("bhqed,ed->bhqe", sig.reshape(b, h, tq, e, dh),
+                             self.intensity_weight, cdt=cdt)
         s = torch.exp(self.intensity_scaling)
         mark_intensity = s * torch.logaddexp(raw / s, torch.zeros_like(raw))
-        onehot_t = mark_onehot.float().transpose(1, 2)[:, None]
-        intensity_qk = mark_intensity @ onehot_t
+        intensity_qk = einsum_fp32acc("bhqe,bke->bhqk", mark_intensity,
+                                      mark_onehot.float(), cdt=cdt)
         return intensity_qk, mark_intensity
 
     @staticmethod
@@ -495,13 +509,18 @@ class MAU(nn.Module):
             qpos = None
             q_res = queries[:, :, :self.num_units]
         rate = self.dropout_rate if generator is not None else 0.0
+        if self.intensity_impl == "streamed" and qpos is not None:
+            out, mark_intensity = mau_dense(
+                self, qq, kk, vv, tt, key_mask, intervals, mark_onehot, qpos,
+                rate, generator)
+            return out + q_res, mark_intensity
         seed = None
         if rate > 0.0:
             seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                                  device=generator.device)
         params = (self.intensity_dense_kernel, self.intensity_dense_bias,
                   self.intensity_weight, self.intensity_scaling)
-        if self.intensity_impl == "streamed" and qpos is None:
+        if self.intensity_impl == "streamed":
             out, mark_intensity = mau_streamed(
                 qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),
                 *params, self.causal_default, self.diag_reset, rate,
@@ -513,6 +532,36 @@ class MAU(nn.Module):
                 *params, self.causal_default, self.diag_reset, rate,
                 num_heads=self.num_heads, qpos=qpos, dropout_seed=seed)
         return out + q_res, mark_intensity
+
+
+def mau_dense(mau: MAU, qq, kk, vv, tt, key_mask, intervals, mark_onehot,
+              qpos, rate: float, generator: Optional[torch.Generator]):
+    """JAX's materialised MAU chain (``MAU.__call__``, temporal.py:687-711)
+    for gathered query rows: qq (B, M, C) at positions ``qpos`` (B, M);
+    kk, vv, tt (B, Tk, C); intervals (B, M). The logits masked by the key
+    mask and, causal, by the horizon ``k <= qpos`` (``_mask_logits``,
+    :43-57); softmax; the intensity head on probs @ T; the diagonal reset
+    at ``k == qpos`` (:701-706); dropout of the modulated probs from the
+    step's generator; @ V. Returns ((B, M, C) fp32, mark_intensity)."""
+    h, cdt = mau.num_heads, mau.compute_dtype
+    q, k, v, t = (split_heads(x, h) for x in (qq, kk, vv, tt))
+    logits = einsum_fp32acc("bhqd,bhkd->bhqk", q, k, cdt=cdt) / (
+        q.shape[-1] ** 0.5)
+    logits = torch.where((key_mask != 0)[:, None, None, :], logits,
+                         NEG_INF_LOGIT)
+    cols = torch.arange(k.shape[2], device=k.device)[None, None, None, :]
+    at = qpos[:, None, :, None]
+    if mau.causal_default:
+        logits = torch.where(cols <= at, logits, NEG_INF_LOGIT)
+    probs = torch.softmax(logits, dim=-1)
+    seq_units = einsum_fp32acc("bhqk,bhkd->bhqd", probs, t, cdt=cdt)
+    intensity_qk, mark_intensity = mau.intensity(seq_units, intervals,
+                                                 mark_onehot)
+    if mau.diag_reset:
+        intensity_qk = torch.where(cols == at, 1.0, intensity_qk)
+    modulated = dropout(intensity_qk * probs, rate, generator)
+    out = einsum_fp32acc("bhqk,bhkd->bhqd", modulated, v, cdt=cdt)
+    return merge_heads(out), mark_intensity
 
 
 def BiMAU(in_units: int, num_units: int, num_heads: int, num_events: int,

@@ -6,7 +6,9 @@ The port's modules carry the flax names, so the mapping is one rule:
 * ``a/b/kernel`` (flax Dense, stored (in, out)) <-> ``a.b.weight`` (stored
   (out, in), as ``nn.Linear``), transposed;
 * every other leaf ``a/b/c`` <-> ``a.b.c`` unchanged (``lookup_table``,
-  ``intensity_*``, ``gamma``/``beta``, ``output_bias``, ``bias``).
+  ``intensity_*``, ``gamma``/``beta``, ``output_bias``, ``bias``, GREC's
+  3-D convolution ``weight`` (W, I, O) and ``head_kernel``, TimelyREC's
+  0-d ``te_weight``).
 
 ``load_state_dict`` (strict) then checks that the tree holds exactly the
 model's parameters. ``tf_adam_state_to_torch`` / ``tf_adam_state_to_flax``
@@ -56,13 +58,14 @@ def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     for name, tensor in state_dict.items():
         path = name.split(".")
         arr = tensor.detach().cpu().float().numpy()
-        if path[-1] == "weight":
+        if path[-1] == "weight" and arr.ndim == 2:
             path[-1] = "kernel"
             arr = arr.T
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        # np.array, not np.ascontiguousarray, which makes a 0-d leaf 1-d
+        node[path[-1]] = np.array(arr, order="C")
     return {"params": tree}
 
 
@@ -134,6 +137,10 @@ class FlaxInit:
     @staticmethod
     def zeros(*shape) -> np.ndarray:
         return np.zeros(shape, np.float32)
+
+    @staticmethod
+    def ones(*shape) -> np.ndarray:
+        return np.ones(shape, np.float32)
 
     def dense(self, n_in: int, n_out: int) -> Dict:
         return {"kernel": self.glorot(n_in, n_out), "bias": self.zeros(n_out)}

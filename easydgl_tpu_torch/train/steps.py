@@ -14,10 +14,14 @@ takes ``ce`` itself. Over every label of the batch (the masked positions of
 the masked protocols, every position of the regressive one, labels (B, T)
 flattened), the label-weight mean with the mask on padding id 0;
 ``l2_reg * 0.5 * sum(w^2)`` over every ``lookup_table``; the TPP
-regularizer (EasyDGL). The catalog scoring goes through
-``kernels.scoring.catalog_nll`` with hidden and table in the compute dtype,
-so no (N, V) logits are built on the card. The ``grec`` loss mode comes
-with the model that uses it.
+regularizer (EasyDGL). ``grec`` (GREC.py:110-116) takes the plain mean of
+``ce`` over the rows of the batch that hold a token (``|seqs_i|`` summed
+over the row > 0; the reference's mean has no label weight, and an all-pad
+tail row must not shift it) plus ``0.001 * l2_mean_all``: the mean over
+the parameter TENSORS of ``0.5 * sum(w^2)`` (``cfg.l2_reg`` is not used).
+The catalog scoring goes through ``kernels.scoring.catalog_nll`` with
+hidden and table in the compute dtype, so no (N, V) logits are built on
+the card.
 
 Dropout: each step draws every mask from a ``torch.Generator`` on the
 device. ``dropout_generator(seed, step)`` seeds it from the run's seed and
@@ -53,6 +57,14 @@ def l2_lookup_tables(params: Dict[str, torch.Tensor]) -> torch.Tensor:
                if name.split(".")[-1] == "lookup_table")
 
 
+def l2_mean_all(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The mean over parameter tensors of ``0.5 * sum(w^2)`` (GREC.py:115);
+    the divisor is the number of leaves of the JAX model's param tree,
+    which the port's modules hold one for one."""
+    leaves = list(params.values())
+    return sum(0.5 * p.square().sum() for p in leaves) / len(leaves)
+
+
 def _label_nll(logits: torch.Tensor, labels: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse - logit_at_label, logit_at_label) from materialised logits."""
@@ -65,11 +77,11 @@ def _label_nll(logits: torch.Tensor, labels: torch.Tensor
 def compute_loss(model: SequentialModel, features: Dict[str, torch.Tensor],
                  labels: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The training loss of one batch (``softmax_eps`` or ``sparse_ce``).
-    ``features`` carry ``masked_positions`` and, for the TPP term,
-    ``next_marks``."""
+    """The training loss of one batch (``softmax_eps``, ``sparse_ce`` or
+    ``grec``). ``features`` carry ``masked_positions`` and, for the TPP
+    term, ``next_marks``."""
     cfg = model.cfg
-    if model.loss_mode not in ("softmax_eps", "sparse_ce"):
+    if model.loss_mode not in ("softmax_eps", "sparse_ce", "grec"):
         raise NotImplementedError(f"loss mode {model.loss_mode}")
     _, aux = model(features, is_training=True, generator=generator)
     hidden, table, bias = aux[SCORING]
@@ -79,6 +91,11 @@ def compute_loss(model: SequentialModel, features: Dict[str, torch.Tensor],
     flat = labels.reshape(-1)
     lse, ll = catalog_nll(hidden, table, bias, flat)
     ce = lse - ll
+    if model.loss_mode == "grec":
+        rows = features["seqs_i"].abs().sum(dim=1) > 0
+        v = rows[:, None].expand(labels.shape).reshape(-1).float()
+        return ((ce * v).sum() / v.sum().clamp_min(1.0)
+                + 0.001 * l2_mean_all(dict(model.named_parameters())))
     per_example = (-torch.log(torch.exp(-ce) + 1e-5)
                    if model.loss_mode == "softmax_eps" else ce)
     w = (flat != 0).float()

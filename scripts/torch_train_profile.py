@@ -11,7 +11,11 @@ dh = 128; ``CTSMA-LC``, L = 2048, B = 8, the streamed kernels causal;
 ``GRU4REC``, ``S2PNM`` and ``TiSASREC`` at B = 512, L = 30: the GRU
 recurrence and the interval attention in plain ops, the catalog kernels;
 ``TGAT`` (B = 512) and ``TGREC`` (B = 128, C = 50) at L = 30: the dense
-Bochner time attention in plain ops, the catalog kernels)
+Bochner time attention in plain ops, the catalog kernels; ``GREC`` at
+B = 512, L+1 = 31: the dilated convolutions in fp32 GEMMs, the catalog
+kernels at its untied head (N = 3,072, V = 17,773); ``TimelyREC`` at
+B = 512, L = 30, the datetime fields: the user tower, the four MAT
+encoders and TAHE in plain ops, the catalog kernels)
 with bf16 matmuls, the preset's dropout and loss terms (EasyDGL and CTSMA:
 TPP and L2, 64 marks looked up on the device; BERT4REC: sparse_ce and L2),
 TF-Adam, random weights from seed 0, over synthetic batches of the
@@ -62,7 +66,8 @@ def main() -> int:
              if model.uses_tpp else None)
     split = synthetic_split_vectorized(num_rows=4 * bs,
                                        num_items=cfg.num_items,
-                                       seqslen=cfg.seqslen, seed=0)
+                                       seqslen=cfg.seqslen, seed=0,
+                                       with_datetime=True)
     batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
                for f, lab, _ in BatchLoader(
                    split, data_mode=model.data_mode, batch_size=bs,

@@ -14,7 +14,8 @@
   mask_seen top-k lists;
 * the same train and analytics round trip for GRU4REC, S2PNM and
   TiSASREC (one epoch);
-* the multi-device flags and an unported model (TGAT) raise; so does
+* the multi-device flags and a model missing from the registry raise; so
+  does
   ``cli.train`` without ``--device`` on a machine without a card.
 
 Tiny config: EasyDGL, L = 10, C = 16, H = 2, 1 block, E = 4, B = 16, 64
@@ -147,6 +148,10 @@ def test_multi_device_flags_raise(tmp_path, monkeypatch, flags):
 
 
 def test_unported_model_raises(tmp_path, monkeypatch):
+    """Every preset's model is ported, so the registry is made to lack
+    one: the CLI then refuses it by name."""
+    from easydgl_tpu_torch.models import registry
+    monkeypatch.delitem(registry.MODELS, "GREC")
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="GREC"):
         train_cli.main(["--model", "GREC", "--synthetic",

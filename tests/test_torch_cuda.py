@@ -1641,3 +1641,243 @@ def test_bochner_train_step_launches_rows_3_to_9(cuda_device, name):
                     logits[dev.type] = m(steps.to_device(ef, dev))[0].cpu()
             torch.testing.assert_close(logits["cuda"], logits["cpu"],
                                        atol=1e-4, rtol=1e-4)
+
+
+# GREC and TimelyREC (both user-tower forms): the catalog kernels in every
+# train step (GREC's at its untied head of num_items + 2 rows), the flash
+# kernels once a step under TimelyREC's "flash" (one attention layer).
+ZOO_TAIL = {"GREC": {}, "TimelyREC": {},
+            "TimelyREC-flash": dict(attention_impl="flash")}
+
+
+def _tail_cfg(name, compute_dtype, **kw):
+    from easydgl_tpu_torch.config import preset
+    return preset(name.split("-")[0], num_items=60, seqslen=10,
+                  num_units=64, num_heads=2, batch_size=4, dilations=(1, 2),
+                  compute_dtype=compute_dtype, hidden_dropout_rate=0.0,
+                  attention_probs_dropout_rate=0.0,
+                  **dict(ZOO_TAIL[name], **kw))
+
+
+def _tail_batch(cfg, train):
+    """A batch of the model's protocol, datetime fields included."""
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import synthetic_split
+    from easydgl_tpu_torch.models.registry import model_class
+    ds = synthetic_split(num_rows=4, num_items=60, seqslen=10, seed=2,
+                         with_datetime=True)
+    f, lab, _ = next(BatchLoader(ds, data_mode=model_class(cfg).data_mode,
+                                 batch_size=4, masklen=cfg.masklen,
+                                 is_training=train).epoch(0))
+    return f, lab
+
+
+def _grads_card_and_cpu(cfg, f, lab, dev):
+    """(loss, gradients) of one batch on the card and on the CPU."""
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train import steps
+    params = random_flax_params(cfg, 0)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg, device=d, params=params)
+        loss, grads = steps.loss_and_grads(model, steps.to_device(f, d),
+                                           torch.as_tensor(lab, device=d))
+        out[d.type] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    return out["cuda"], out["cpu"]
+
+
+@pytest.mark.parametrize("name", list(ZOO_TAIL))
+def test_grec_and_timelyrec_on_card_match_cpu(cuda_device, name):
+    """fp32 (C = 64, L = 10): eval logits, the card against the CPU, to
+    1e-4; one train step's loss to 1e-5 relative and each gradient leaf to
+    1e-4 of its scale (a key bias of its key weight's), the card's
+    catalog (and flash) kernels against the CPU's plain versions."""
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train.steps import to_device
+    cfg = _tail_cfg(name, "float32")
+    params = random_flax_params(cfg, 0)
+    feats = _tail_batch(cfg, False)[0]
+    logits = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = build_model(cfg, device=dev, params=params)
+        with torch.no_grad():
+            logits[dev.type] = model(to_device(feats, dev))[0].cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
+    (loss, grads), (loss_p, grads_p) = _grads_card_and_cpu(
+        cfg, *_tail_batch(cfg, True), cuda_device)
+    assert abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+    for n, want in grads_p.items():
+        ref = grads_p[n[:-4] + "weight"] if n.endswith("attn.k.bias") \
+            else want
+        err = float((grads[n] - want).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (n, err)
+
+
+@pytest.mark.parametrize("name", list(ZOO_TAIL))
+def test_grec_and_timelyrec_train_step_launches_rows_3_to_9(cuda_device,
+                                                            name):
+    """A train step in bf16 and in fp32 launches the catalog forward and
+    backward once each and, under "flash", the flash forward and backward
+    once (TimelyREC's one user-tower attention); its loss and gradients
+    equal those of the same model on the card with the written-out plain
+    versions (g and ds rounded where the kernels round them): loss to 1e-5
+    relative, each leaf to 1e-4 (fp32) or 1e-2 (bf16) of its scale, a key
+    bias of its key weight's."""
+    from easydgl_tpu_torch.kernels import flash_attention as fl
+    from easydgl_tpu_torch.models.registry import MODELS, build_model
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train import steps
+    counters = (catalog_nll_fwd, catalog_nll_bwd) + fl.FLASH_KERNELS
+    nb = 1 if "flash" in name else 0
+    for dtype, tol in (("bfloat16", 1e-2), ("float32", 1e-4)):
+        cfg = _tail_cfg(name, dtype)
+        model = build_model(cfg, device=cuda_device,
+                            params=random_flax_params(cfg, 0))
+        f, lab = _tail_batch(cfg, True)
+        feats = steps.to_device(f, cuda_device)
+        labels = torch.as_tensor(lab, device=cuda_device)
+        for fn in counters:
+            fn.launches = 0
+        loss, grads = steps.loss_and_grads(model, feats, labels)
+        assert [fn.launches for fn in counters] == [1, 1, nb, nb]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(steps, "catalog_nll", catalog_nll_written_out)
+            if MODELS[cfg.model].long_context_engine is not None:
+                module, attr, _ = MODELS[cfg.model].long_context_engine
+                mp.setattr(module, attr, fl.flash_attention_written_out)
+            loss_p, grads_p = steps.loss_and_grads(model, feats, labels)
+        assert [fn.launches for fn in counters] == [1, 1, nb, nb]
+        assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+        for n, want in grads_p.items():
+            ref = grads_p[n[:-4] + "weight"] if n.endswith("attn.k.bias") \
+                else want
+            err = float((grads[n] - want).abs().max())
+            assert err <= tol * float(ref.abs().max()), (
+                dtype, n, err, float(ref.abs().max()))
+        state, loss1 = steps.build_train_step(model)(
+            steps.init_state(model), f, lab, torch.Generator(device="cuda"))
+        assert [fn.launches for fn in counters] == [2, 2, 2 * nb, 2 * nb]
+        assert np.isfinite(float(loss1)) and state.step == 1
+
+
+@pytest.mark.parametrize("shape", ["grec", "timelyrec"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_catalog_kernels_at_grec_and_timelyrec_shapes(cuda_device, dtype,
+                                                      shape):
+    """The catalog forward and backward against their plain versions at
+    GREC's training shape (N = 3,072 masked rows, its untied head: V =
+    17,773, a learned bias on every id, the table the transposed view of
+    the (C, V) kernel, cast as the train step casts it) and TimelyREC's
+    (N = 15,360, V = 17,771, the tied table, -1000 on id 0): lse and ll to
+    1e-4 of their scale in both dtypes; d_hidden, d_table and d_bias to
+    1e-4 (fp32) or 1e-2 (bf16) of theirs."""
+    n, v = (3072, 17773) if shape == "grec" else (15360, 17771)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn(n, 512, generator=g, device="cuda").to(dtype)
+    lim = (6.0 / (v + 512)) ** 0.5
+    kernel = (torch.rand(512, v, generator=g, device="cuda") * 2 - 1) * lim
+    table = kernel.t() if shape == "grec" else kernel.t().contiguous()
+    table = table.to(dtype)
+    assert table.is_contiguous() == (shape != "grec")
+    bias = torch.randn(v, generator=g, device="cuda") * 0.1
+    if shape != "grec":
+        bias[0] = -1000.0
+    lab = torch.randint(0, v, (n,), generator=g, device="cuda")
+    dlse = torch.randn(n, generator=g, device="cuda") / n
+    dll = torch.randn(n, generator=g, device="cuda") / n
+    got = catalog_nll_fwd(h, table, bias, lab)
+    want = catalog_nll_reference(h, table, bias, lab)
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    got = catalog_nll_bwd(h, table, bias, lab, want[0], dlse, dll)
+    ref = catalog_nll_bwd_reference(h, table, bias, lab, want[0], dlse, dll)
+    tol = TOL[dtype] if dtype == torch.float32 else 1e-2
+    for a, w in zip(got, ref):
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+
+
+def test_grec_conv_fp32_on_card_matches_cpu(cuda_device):
+    """GREC's dilated convolution at its preset's width (C = 512, W = 3,
+    dilation 4 and 8, both padding forms) in fp32 on the card within 1e-5
+    of its largest entry of the CPU's: a TF32 product (cuDNN's default
+    for convolutions) misses by ~1e-3."""
+    from easydgl_tpu_torch.nn.cnn import DilatedConv1D
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 31, 512, generator=g)
+    for dilation in (4, 8):
+        for causal in (True, False):
+            conv = DilatedConv1D(3, 512, 512, dilation, causal)
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(3, 512, 512, generator=g)
+                                  * 0.02)
+                conv.bias.copy_(torch.randn(512, generator=g) * 0.1)
+                want = conv(x)
+                got = conv.to(cuda_device)(x.to(cuda_device)).cpu()
+            assert got.dtype == torch.float32
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), (dilation, causal,
+                                                            err)
+
+
+def test_easydgl_lc_gathered_queries_on_card(cuda_device):
+    """EasyDGL-LC with ``gather_queries=True`` at L+1 = 160 (more keys than
+    the fused kernels take; C = 64, H = 2, E = 4, fp32), with the fused
+    entry point made to raise: eval logits on the card equal the CPU's to
+    1e-4, and a train step's loss (1e-5 relative) and gradients (1e-4 of
+    each leaf's scale), the catalog kernels launched once each, no MAU
+    kernel."""
+    from easydgl_tpu_torch.config import preset
+    from easydgl_tpu_torch.data.loader import BatchLoader
+    from easydgl_tpu_torch.data.synthetic import (synthetic_mark_table,
+                                                  synthetic_split)
+    from easydgl_tpu_torch.models.registry import build_model
+    from easydgl_tpu_torch.nn import temporal
+    from easydgl_tpu_torch.parity import random_flax_params
+    from easydgl_tpu_torch.train import steps
+
+    def refuse(*args, **kw):
+        raise AssertionError("the fused MAU kernel was called")
+
+    cfg = preset("EasyDGL-LC", num_items=60, seqslen=159, masklen=16,
+                 num_units=64, num_heads=2, num_events=4, batch_size=2,
+                 compute_dtype="float32", hidden_dropout_rate=0.0,
+                 attention_probs_dropout_rate=0.0, gather_queries=True)
+    table = synthetic_mark_table(60, 4, seed=2)
+    ds = synthetic_split(num_rows=2, num_items=60, seqslen=159, seed=3)
+    params = random_flax_params(cfg, 1)
+    counters = (catalog_nll_fwd, catalog_nll_bwd) + STREAMED_KERNELS
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(temporal, "mau_attention", refuse)
+        for train in (False, True):
+            f, lab, _ = next(BatchLoader(
+                ds, data_mode="mau", batch_size=2, masklen=16,
+                is_training=train, mark_table=table,
+                needs_marks=True).epoch(0))
+            out = {}
+            for fn in counters:
+                fn.launches = 0
+            for dev in (cuda_device, torch.device("cpu")):
+                model = build_model(cfg, device=dev, params=params)
+                feats = steps.to_device(f, dev)
+                labels = torch.as_tensor(lab, device=dev)
+                if train:
+                    loss, grads = steps.loss_and_grads(model, feats, labels)
+                    out[dev.type] = (float(loss), grads)
+                else:
+                    with torch.no_grad():
+                        out[dev.type] = model(feats)[0].cpu()
+            assert [fn.launches for fn in counters] == (
+                [1, 1] if train else [0, 0]) + [0] * len(STREAMED_KERNELS)
+            if not train:
+                torch.testing.assert_close(out["cuda"], out["cpu"],
+                                           atol=1e-4, rtol=1e-4)
+                continue
+            (loss, grads), (loss_p, grads_p) = out["cuda"], out["cpu"]
+            assert abs(loss - loss_p) <= 1e-5 * abs(loss_p)
+            for n, want in grads_p.items():
+                err = float((grads[n].cpu() - want).abs().max())
+                assert err <= 1e-4 * float(want.abs().max()), (n, err)

@@ -1,9 +1,12 @@
-"""Parity checks of a whole regressive-protocol model of the PyTorch port
-against the JAX package on the CPU, shared by ``test_torch_gru4rec.py``,
-``test_torch_tisasrec.py`` and ``test_torch_bochner.py``: a JAX-initialised
-world (``make_world``), the eval logits, the eval step and ``recommend``,
-one train step with the presets' clipped TF-Adam, and the random param
-tree. ``make_world(..., op_by_op=True)`` runs every JAX computation op by
+"""Parity checks of a whole model of the PyTorch port (its own data
+protocol: regressive, GREC's masked encoder-decoder, TimelyREC's datetime
+fields) against the JAX package on the CPU, shared by
+``test_torch_gru4rec.py``, ``test_torch_tisasrec.py``, the Bochner models'
+files, ``test_torch_grec.py`` and ``test_torch_timelyrec.py``: a
+JAX-initialised world (``make_world``), the eval logits, the eval step
+and ``recommend``, one train step with the presets' clipped TF-Adam, the
+random param tree, the bridges' round trip and
+``Recommender.from_checkpoint``. ``make_world(..., op_by_op=True)`` runs every JAX computation op by
 op (``jax.disable_jit``) rather than jitted: the jitted CPU program divides
 the stamps by ``time_scale`` as a product with its fp32 reciprocal, which
 moves a ~1e9 s stamp by an ulp, and the time models' cos features with it.
@@ -30,7 +33,9 @@ from easydgl_tpu_torch.config import preset
 from easydgl_tpu_torch.eval import metrics
 from easydgl_tpu_torch.eval.recommender import Recommender
 from easydgl_tpu_torch.models.registry import build_model
-from easydgl_tpu_torch.parity import flax_to_torch, random_flax_params
+from easydgl_tpu_torch.parity import (flax_to_torch, random_flax_params,
+                                      tf_adam_state_to_flax,
+                                      tf_adam_state_to_torch, torch_to_flax)
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
                                            compute_loss, init_state)
 
@@ -101,26 +106,30 @@ def _jax_mode(world):
 
 
 def make_world(name, kw, seed, clip_norm=None, op_by_op=False,
-               context=contextlib.nullcontext):
-    """Eval and train batches of the regressive protocol, JAX-initialised
+               context=contextlib.nullcontext, data=None):
+    """Eval and train batches of the model's protocol, JAX-initialised
     weights (``_nonzero``), in one jitted program (op by op with
     ``op_by_op``) the JAX loss, its gradients and the parameters after
     JAX's TF-Adam update, and the loss of JAX ``build_train_step`` (op by
     op, where the models have no dropout, the loss of the same forward).
     ``clip_norm``: another global-norm clip than the preset's, on both
     sides. ``context``: a context manager factory every JAX computation
-    runs under (e.g. Pallas interpret mode)."""
+    runs under (e.g. Pallas interpret mode). ``data``: a function that
+    edits the split's arrays in place (the split has the datetime
+    fields)."""
     b, v = kw["batch_size"], kw["num_items"]
     ds = synthetic_split(num_rows=2 * b, num_items=v, seqslen=kw["seqslen"],
-                         seed=seed)
-    batch = lambda train: next(JBatchLoader(  # noqa: E731
-        ds, data_mode="regressive", batch_size=b, is_training=train,
-        use_native=False).epoch(0))
+                         seed=seed, with_datetime=True)
+    if data is not None:
+        data(ds.arrays)
     jcfg = jpreset(name).replace(use_pallas=False, **kw)
     if clip_norm is not None:
         jcfg = jcfg.replace(optim=dataclasses.replace(jcfg.optim,
                                                       clip_norm=clip_norm))
     jm = jbuild(jcfg)
+    batch = lambda train: next(JBatchLoader(  # noqa: E731
+        ds, data_mode=jm.data_mode, batch_size=b, masklen=jcfg.masklen,
+        is_training=train, use_native=False).epoch(0))
     (ef, elab, ev), (tf, tlab, _) = batch(False), batch(True)
     params = jax.tree.map(np.asarray, jax.jit(lambda f: jm.init(
         {"params": jax.random.key(0)}, f, is_training=False))(jfeats(ef)))
@@ -161,6 +170,15 @@ def make_world(name, kw, seed, clip_norm=None, op_by_op=False,
                 params1=flax_to_torch(jax.tree.map(np.asarray, params1)))
 
 
+def etl_pads(arrays):
+    """A ``make_world`` data edit: month and day 0 at every padded
+    position, as the ETL leaves them (the synthetic split writes 1)."""
+    pad = arrays["seqs_i"] == 0
+    assert pad.any()
+    for key in ("seqs_month", "seqs_day"):
+        arrays[key] = np.where(pad, 0, arrays[key]).astype(np.int32)
+
+
 def port(world, **overrides):
     cfg = preset(world["name"], **dict(world["kw"], **overrides))
     if world["clip_norm"] is not None:
@@ -179,7 +197,7 @@ def check_eval_logits(world):
     with torch.no_grad():
         got, _ = port(world)(tfeats(ef))
     assert got.shape == (world["kw"]["batch_size"],
-                         world["kw"]["num_items"])
+                         world["jm"].vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -193,7 +211,8 @@ def check_eval_step_and_recommend(world):
     jstep = jbuild_eval_step(world["jm"])
     step = build_eval_step(model)
     jacc, acc = jmetrics.MetricAccumulator(), metrics.MetricAccumulator()
-    for f, lab, valid in JBatchLoader(world["ds"], data_mode="regressive",
+    for f, lab, valid in JBatchLoader(world["ds"],
+                                      data_mode=world["jm"].data_mode,
                                       batch_size=eval_batch,
                                       is_training=False,
                                       use_native=False).epoch(0):
@@ -273,6 +292,55 @@ def check_step(world, model):
                   * jg[name]).abs()
         assert bool((mu_err <= (1 - opt.beta1) * d).all()), name
     return s
+
+
+def check_bridges(world):
+    """The weight bridge's round trip, flax -> port -> flax, is exact and
+    keeps every leaf's shape (GREC's 3-D convolution weights, TimelyREC's
+    0-d ``te_weight``); so is the TF-Adam state's after one port step,
+    whose moments come back in the flax tree's layout."""
+    params = world["params"]
+    back = torch_to_flax(flax_to_torch(params))
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(params))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    model = port(world)
+    tf, tlab = world["train"]
+    state, _ = build_train_step(model)(init_state(model), tf, tlab,
+                                       torch.Generator())
+    count, mu, nu = tf_adam_state_to_flax(state.opt_state)
+    assert count == 1
+    for tree in (mu, nu):
+        assert (jax.tree_util.tree_structure(tree)
+                == jax.tree_util.tree_structure(params))
+    again = tf_adam_state_to_torch(count, mu, nu)
+    for name, moment in state.opt_state.mu.items():
+        assert again.mu[name].shape == moment.shape
+        assert torch.equal(again.mu[name], moment)
+        assert torch.equal(again.nu[name], state.opt_state.nu[name])
+
+
+def check_from_checkpoint(cfg, ckpt_dir):
+    """``Recommender.from_checkpoint`` of a training run's checkpoint (the
+    CLI's synthetic test split) serves what the checkpoint's weights,
+    loaded by hand, serve: ranked top-k, never id 0."""
+    from easydgl_tpu_torch.data.synthetic import synthetic_split as split
+    from easydgl_tpu_torch.train.checkpoint import Checkpointer
+    head = {k: v[:4] for k, v in split(
+        num_rows=8, num_items=cfg.num_items, seqslen=cfg.seqslen, seed=3,
+        with_datetime=True).arrays.items()}
+    rec = Recommender.from_checkpoint(cfg, ckpt_dir, head, device="cpu")
+    ckpt = Checkpointer(ckpt_dir)
+    by_hand = build_model(cfg, device="cpu")
+    by_hand.load_state_dict(torch.load(ckpt.path(ckpt.latest_step()),
+                                       weights_only=True)["params"])
+    ids, scores = rec.recommend(head, k=10)
+    want_ids, want_scores = Recommender(cfg, by_hand).recommend(head, k=10)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(scores, want_scores)
+    assert (ids > 0).all() and (scores[:, :-1] >= scores[:, 1:]).all()
 
 
 def check_random_tree(world):
