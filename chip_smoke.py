@@ -119,7 +119,21 @@ after:
   ``cli.analytics`` on the checkpoint (its test H100 must equal the
   summary's to 1e-6 relative) and ``Recommender.from_checkpoint``
   (its top-k must equal that of the weights the checkpoint saved); the
-  loop's train ex/s with the loader included, beside the step-only figure.
+  loop's train ex/s with the loader included, beside the step-only figure;
+* the distributed layer (phase 10): each SPMD wrapper's shard-local step
+  for every shard at mp = 2 and 4 on this one card (the catalog's vocab
+  slices of the flagship's 17,772 ids, bf16 and fp32, labels outside a
+  slice at -1; the MAU's head groups at the flagship shape, dropout 0 and
+  0.1 with each shard's keep rate; flash's head groups at SASREC-LC's
+  shape), merged by the wrapper's own merge, forward and backward, against
+  the unsharded kernels, and each shard's kernels timed beside their
+  bound; then a real NCCL process group of one rank on a (1, 1) mesh: one
+  fp32 flagship step through ``build_sharded_train_step`` against
+  ``build_train_step`` (the loss and every gradient to 1e-6 of the leaf's
+  scale), ``build_distributed_eval_step`` against ``build_eval_step``, 20
+  faithful bf16 sharded steps (and the single-device step in turns with
+  them), and ``cli.train --dp 1 --mp 1`` for one epoch with
+  ``Recommender.from_checkpoint`` on its checkpoint.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
@@ -152,11 +166,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from easydgl_tpu_torch.config import preset
+from easydgl_tpu_torch.config import MeshConfig, preset
+from easydgl_tpu_torch.core.mesh import make_mesh, use_spmd_mesh
+from easydgl_tpu_torch.core.runtime import init_distributed
 from easydgl_tpu_torch.data.loader import BatchLoader, PackedDataset
 from easydgl_tpu_torch.data.synthetic import (day_boundary_stamps,
                                               synthetic_mark_table,
                                               synthetic_split_vectorized)
+from easydgl_tpu_torch.eval.evaluator import build_distributed_eval_step
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
 from easydgl_tpu_torch.eval.recommender import Recommender
 from easydgl_tpu_torch.kernels import build
@@ -178,18 +195,27 @@ from easydgl_tpu_torch.kernels.mau_streamed import (
     mau_intensity_bwd, mau_modulated_out, mau_stats, mau_streamed,
     streamed_visited_tiles)
 from easydgl_tpu_torch.kernels.scoring import (catalog_live_rows,
+                                               catalog_nll,
                                                catalog_nll_bwd,
                                                catalog_nll_bwd_reference,
                                                catalog_nll_fwd,
                                                catalog_nll_reference)
+from easydgl_tpu_torch.kernels.spmd import (catalog_merge,
+                                            catalog_nll_local,
+                                            flash_attention_local,
+                                            head_block, mau_attention_local,
+                                            shard_labels, shard_seed)
 from easydgl_tpu_torch.models.registry import (MODELS, build_model,
                                                model_class)
 from easydgl_tpu_torch.models.tisasrec import (interval_buckets,
                                                interval_buckets_numpy)
 from easydgl_tpu_torch.parity import random_flax_params
+from easydgl_tpu_torch.train.sharded import (build_sharded_train_step,
+                                             shard_state)
 from easydgl_tpu_torch.train.steps import (build_eval_step, build_train_step,
-                                           device_marks, init_state,
-                                           loss_and_grads, to_device)
+                                           device_marks, dropout_generator,
+                                           init_state, loss_and_grads,
+                                           to_device)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate,
 # and the operation rate for each input type.
@@ -3516,6 +3542,529 @@ def phase_harness(card, step_ex_s):
                 save_bytes=save["bytes"])
 
 
+# ---------------------------------------------------------------- phase 10
+# The distributed layer (kernels/spmd.py, train/sharded.py): every shard's
+# step of each SPMD wrapper on this one card against the unsharded kernel,
+# then the sharded train step, the distributed eval and cli.train under a
+# real NCCL process group of one rank on a (1, 1) mesh.
+
+SHARD_MPS = (2, 4)
+SHARD_KERNELS = (mau_attention, mau_attention_bwd, catalog_nll_fwd,
+                 catalog_nll_bwd, flash_attention_fwd, flash_attention_bwd)
+SHARD_ROWS = 2048     # cli.train --synthetic rows: 4 steps an epoch at B=512
+
+
+def stacked(reduce):
+    """A reduction over a stacked leading (shard) dim, broadcast back to
+    every shard: the one-card stand-in for the merge's collective over the
+    model axis."""
+    return lambda x: reduce(x).expand_as(x)
+
+
+def shard_tag(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+def check_errs(name, errs):
+    for label, (_, ratio) in errs.items():
+        check(ratio <= 1.0, f"{name}: {label} outside tolerance")
+    return max(err for err, _ in errs.values())
+
+
+def sharded_catalog_case(mp, dtype, seed):
+    """catalog_nll_spmd's shard-local step on each of mp vocab slices of
+    the flagship's catalog (N = 3,072, V = 17,772: 8,886 or 4,443 ids a
+    slice, labels outside a slice at -1) and its merge, forward and (by
+    autograd through the kernels' backward) backward, against the
+    unsharded kernels at the same cotangents. Returns (max abs err, the
+    slice's inputs for timing)."""
+    h, t, b, lab, dlse, dll = catalog_inputs(**CATALOG, dtype=dtype,
+                                             seed=seed)
+    vl = CATALOG["v"] // mp
+    mine = [x.detach().clone().requires_grad_() for x in (h, t, b)]
+    parts = [catalog_nll_local(mine[0], mine[1][m * vl:(m + 1) * vl],
+                               mine[2][m * vl:(m + 1) * vl], lab, m * vl)
+             for m in range(mp)]
+    lse, ll = catalog_merge(
+        torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+        stacked(lambda x: x.amax(0, keepdim=True)),
+        stacked(lambda x: x.sum(0, keepdim=True)))
+    torch.autograd.backward((lse[0], ll[0]), (dlse, dll))
+    ref = [x.detach().clone().requires_grad_() for x in (h, t, b)]
+    rlse, rll = catalog_nll(*ref, lab)
+    torch.autograd.backward((rlse, rll), (dlse, dll))
+    torch.cuda.synchronize()
+    name = f"catalog_mp{mp}_{shard_tag(dtype)}"
+    inside = [int(((lab >= m * vl) & (lab < (m + 1) * vl)).sum())
+              for m in range(mp)]
+    check(all(0 < n < CATALOG["n"] for n in inside),
+          f"{name}: a slice holds every label or none ({inside})")
+    errs = {label: scale_err(name, label, a.detach(), w.detach(),
+                             torch.float32)
+            for label, a, w in (("lse", lse[0], rlse), ("ll", ll[0], rll))}
+    for label, a, w in zip(CATALOG_BWD, mine, ref):
+        errs[label] = scale_err(name, label, a.grad, w.grad, dtype)
+    lab0 = shard_labels(lab, 0, vl)
+    return check_errs(name, errs), (h, t[:vl], b[:vl], lab0, dlse, dll)
+
+
+def mau_shard_run(leaves, args, go, gl, mp, rate, sd, fn):
+    """Every shard's step (``fn``: mau_attention_local, or its plain
+    version) on its heads' channel blocks of the leaves, the outputs
+    concatenated, and the gradients of (out, lam) at (go, gl)."""
+    km, iv, oh = args[4:7]
+    h = FLAGSHIP["h"]
+    outs, lams = [], []
+    for m in range(mp):
+        blk = [head_block(x, m, mp, -1) for x in leaves[:4]]
+        o, lam = fn(*blk, km, iv, oh, *leaves[4:], sd, False, True, rate, h,
+                    None, mi=m, mp=mp)
+        outs.append(o)
+        lams.append(lam)
+    out, lam = torch.cat(outs, -1), torch.cat(lams, 1)
+    grads = torch.autograd.grad((out, lam), leaves, (go, gl))
+    return out.detach(), lam.detach(), grads
+
+
+def sharded_mau_case(mp, rate, seed):
+    """mau_attention_spmd's shard-local step on each of mp head groups at
+    the flagship shape (B = 512, T = 31, H = 8: 4 or 2 heads a shard,
+    BiMAU, bf16), the outputs gathered, forward and backward. At dropout 0
+    against the unsharded kernels; at 0.1 (each shard its own seed)
+    against the plain version of every shard's step, with each shard's
+    keep rate within 0.002 of 0.9 and no two shards' masks alike."""
+    dtype = torch.bfloat16
+    args = mau_inputs(**FLAGSHIP, dtype=dtype, gathered=False, seed=seed)
+    go, gl = mau_bwd_args(args, dtype, seed)
+    sd = (torch.tensor(seed, dtype=torch.int64, device="cuda") if rate
+          else None)
+    pick = lambda: [x.detach().clone().requires_grad_()  # noqa: E731
+                    for x in args[:4] + args[7:11]]
+    out, lam, grads = mau_shard_run(pick(), args, go, gl, mp, rate, sd,
+                                    mau_attention_local)
+    name = f"mau_mp{mp}_bf16" + ("_drop" if rate else "")
+    if rate == 0.0:
+        ref = pick()
+        rout, rlam = mau_attention(*ref[:4], *args[4:7], *ref[4:], False,
+                                   True, 0.0, num_heads=FLAGSHIP["h"])
+        rgrads = torch.autograd.grad((rout, rlam), ref, (go, gl))
+        rout, rlam = rout.detach(), rlam.detach()
+    else:   # each shard's plain forward and written-out backward
+        parts = []
+        for m in range(mp):
+            blk = [head_block(x, m, mp, -1) for x in args[:4]]
+            kw = dict(causal=False, diag_reset=True, dropout_rate=rate,
+                      dropout_seed=shard_seed(sd, mi=m, mp=mp),
+                      num_heads=FLAGSHIP["h"] // mp)
+            parts.append(mau_attention_reference(
+                *blk, *args[4:11], **kw) + mau_attention_bwd_reference(
+                *blk, *args[4:11], head_block(go, m, mp, -1),
+                head_block(gl, m, mp, 1), **kw))
+        rout = torch.cat([p[0] for p in parts], -1)
+        rlam = torch.cat([p[1] for p in parts], 1)
+        rgrads = ([torch.cat([p[2 + i] for p in parts], -1)
+                   for i in range(4)]
+                  + [sum(p[6 + i] for p in parts) for i in range(4)])
+    torch.cuda.synchronize()
+    errs = {label: scale_err(name, label, a, w, dtype)
+            for label, a, w in (("out", out, rout), ("lam", lam, rlam))}
+    for label, a, w in zip(MAU_GRADS, grads, rgrads):
+        errs[label] = scale_err(name, label, a, w, dtype)
+    keep = {}
+    if rate:
+        b, t, hl = FLAGSHIP["b"], FLAGSHIP["tq"], FLAGSHIP["h"] // mp
+        masks = [dropout_factor(shard_seed(sd, mi=m, mp=mp),
+                                (b, hl, t, t), rate, "cuda") > 0
+                 for m in range(mp)]
+        keep = {m: float(x.float().mean()) for m, x in enumerate(masks)}
+        alike = max(float((masks[i] == masks[j]).float().mean())
+                    for i in range(mp) for j in range(i + 1, mp))
+        log(f"  {name}: keep rate by shard "
+            + ", ".join(f"{m}: {r:.5f}" for m, r in keep.items())
+            + f"; two shards' masks agree on at most {alike:.4f} of the "
+            f"entries (independent masks: {0.9 ** 2 + 0.1 ** 2:.2f})")
+        check(all(abs(r - (1 - rate)) < 0.002 for r in keep.values()),
+              f"{name}: a shard's keep rate is off 0.9")
+        check(alike < 0.9, f"{name}: two shards draw alike masks")
+    return check_errs(name, errs)
+
+
+def sharded_flash_case(mp, seed):
+    """flash_attention_spmd's shard-local step on each of mp head groups
+    at SASREC-LC's shape (B = 32, T = 2048, H = 8: 4 or 2 heads a shard,
+    causal, bf16), the outputs gathered, forward and backward, against the
+    unsharded kernels."""
+    sh = SASREC_LC_ATTN
+    q, k, v, km, dout = flash_inputs(sh["b"], sh["h"], sh["t"], sh["t"],
+                                     sh["dh"], torch.bfloat16, seed)
+    pick = lambda: [x.detach().clone().requires_grad_()  # noqa: E731
+                    for x in (q, k, v)]
+    mine = pick()
+    out = torch.cat([flash_attention_local(
+        *(head_block(x, m, mp, 1) for x in mine), km, None, causal=True,
+        mi=m, mp=mp) for m in range(mp)], 1)
+    grads = torch.autograd.grad(out, mine, dout)
+    ref = pick()
+    rout = flash_attention(*ref, km, causal=True)
+    rgrads = torch.autograd.grad(rout, ref, dout)
+    torch.cuda.synchronize()
+    name = f"flash_mp{mp}_causal_bf16"
+    errs = {"out": scale_err(name, "out", out.detach(), rout.detach(),
+                             torch.bfloat16)}
+    for label, a, w in zip(FLASH_GRADS, grads, rgrads):
+        errs[label] = scale_err(name, label, a, w, torch.bfloat16)
+    same = bool(torch.equal(out, rout)) and all(
+        torch.equal(a, w) for a, w in zip(grads, rgrads))
+    log(f"  {name}: sharded equals unsharded bit for bit: {same}")
+    return check_errs(name, errs), (q, k, v, km, dout)
+
+
+def shard_timing(mp, cat_in, flash_in):
+    """One shard's kernels at its shape, beside the bound of that shape:
+    the catalog forward and backward on a slice of V / mp ids (bf16), the
+    MAU forward and backward on H / mp heads (bf16, dropout 0.1 in the
+    backward), flash forward and backward on H / mp heads (bf16)."""
+    bf16 = torch.bfloat16
+    rows = {}
+    h, t, b, lab, dlse, dll = cat_in
+    vl = t.shape[0]
+    lse, _ = catalog_nll_fwd(h, t, b, lab)
+    for name, fn in (
+            ("catalog_nll_fwd", lambda: catalog_nll_fwd(h, t, b, lab)),
+            ("catalog_nll_bwd", lambda: catalog_nll_bwd(
+                h, t, b, lab, lse, dlse, dll))):
+        nbytes, flops = catalog_work(n=CATALOG["n"], v=vl, c=CATALOG["c"],
+                                     dtype=bf16,
+                                     backward=name.endswith("bwd"))
+        rows[name] = (time_ms(fn), *bound(nbytes, flops, bf16))
+    sh = dict(FLAGSHIP, h=FLAGSHIP["h"] // mp)
+    args = mau_inputs(**sh, dtype=bf16, gathered=False, seed=900 + mp)
+    (q, k, v, tt, km, iv, oh, wd, bd, w, sc, _) = args
+    go, gl = mau_bwd_args(args, bf16, 7)
+    sd = torch.tensor(11, dtype=torch.int64, device="cuda")
+    _, _, raw = _launch_fwd(q, k, v, tt, km, iv, oh, wd, bd, w, sc, False,
+                            True, sh["h"], None, sd, 0.1, want_raw=True)
+    for name, fn, work in (
+            ("mau_attention_fwd", lambda: run_pair(
+                mau_attention, args, causal=False, diag=True, h=sh["h"]),
+             mau_work(**sh, dtype=bf16,
+                      keys=mau_keys(km, shared_blind=True))),
+            ("mau_attention_bwd", lambda: mau_attention_bwd(
+                q, k, v, tt, km, iv, oh, wd, bd, w, sc, raw, go, gl,
+                causal=False, diag_reset=True, dropout_rate=0.1,
+                dropout_seed=sd, num_heads=sh["h"]),
+             mau_bwd_work(**sh, dtype=bf16, keys=mau_keys(km)))):
+        rows[name] = (time_ms(fn), *bound(*work, bf16))
+    q, k, v, km, dout = (head_block(x, 0, mp, 1).contiguous()
+                         if x.dim() == 4 else x for x in flash_in)
+    fa = SASREC_LC_ATTN
+    out, lse = flash_attention_fwd(q, k, v, km, causal=True)
+    delta = flash_delta(dout, out)
+    for name, fn in (
+            ("flash_attention_fwd", lambda: flash_attention_fwd(
+                q, k, v, km, causal=True)),
+            ("flash_attention_bwd", lambda: flash_attention_bwd(
+                q, k, v, km, dout, lse, delta, causal=True))):
+        nbytes, flops = flash_work(name, km, h=fa["h"] // mp, t=fa["t"],
+                                   dh=fa["dh"], dtype=bf16)
+        rows[name] = (time_ms(fn), *bound(nbytes, flops, bf16))
+    for name, (ms, bound_ms, by) in rows.items():
+        log(f"  mp={mp} shard {name:20s} {ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({by})  kernel/bound {ms / bound_ms:.1f}x")
+    return {name: dict(ms=ms, bound_ms=bound_ms, bound_by=by)
+            for name, (ms, bound_ms, by) in rows.items()}
+
+
+def phase_shard_checks():
+    log("phase 10a: the SPMD wrappers' shard-local steps on this card, every"
+        " shard at mp = 2 and 4, merged by the wrappers' merges, against "
+        "the unsharded kernels (catalog N=3,072 x V=17,772 bf16 and fp32; "
+        "MAU at the flagship shape, BiMAU, dropout 0 and 0.1; flash at the "
+        "SASREC-LC shape, causal), forward and backward; each shard's "
+        "kernels timed at its shape beside its bound")
+    errs, timing = {}, {}
+    for mp in SHARD_MPS:
+        cat_in = None
+        for dtype, seed in ((torch.bfloat16, 1100 + mp),
+                            (torch.float32, 1110 + mp)):
+            err, slice_in = sharded_catalog_case(mp, dtype, seed)
+            errs[f"catalog_mp{mp}_{shard_tag(dtype)}"] = err
+            cat_in = slice_in if dtype == torch.bfloat16 else cat_in
+        for rate in (0.0, 0.1):
+            errs[f"mau_mp{mp}_bf16{'_drop' if rate else ''}"] = \
+                sharded_mau_case(mp, rate, 1120 + mp)
+        err, flash_in = sharded_flash_case(mp, 1130 + mp)
+        errs[f"flash_mp{mp}_causal_bf16"] = err
+        timing[mp] = shard_timing(mp, cat_in, flash_in)
+    return errs, timing
+
+
+def adam_bound_check(name, cfg, grads_ref, got, want, known):
+    """Parameters after one TF-Adam step from gradients known to within
+    ``known[leaf]`` (phase 8's bound): u(g) = -lr g / (|g| + e'),
+    e' = eps / sqrt(1 - b2), so within lr e' d / (|g| - d)^2 + 1e-7 +
+    1e-5 |p| where |g| > 2d, and 2 lr elsewhere."""
+    lr = cfg.optim.learning_rate
+    eps_t1 = cfg.optim.eps / math.sqrt(1 - cfg.optim.beta2)
+    for leaf, w in want.items():
+        g = grads_ref[leaf].abs()
+        d = known[leaf] + 1e-12
+        limit = torch.where(g > 2 * d, 1e-7 + 1e-5 * w.abs()
+                            + lr * eps_t1 * d / (g - d).clamp_min(d) ** 2,
+                            torch.full_like(g, 2 * lr))
+        check(bool(((got[leaf] - w).abs() <= limit).all()),
+              f"{name}: parameter {leaf} after the step")
+
+
+def flagship_batches(cfg, rows, seed, training):
+    model_cls = MODELS[cfg.model]
+    split = synthetic_split_vectorized(num_rows=rows,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=seed)
+    return list(BatchLoader(split, data_mode=model_cls.data_mode,
+                            batch_size=cfg.batch_size, masklen=cfg.masklen,
+                            is_training=training).epoch(0))
+
+
+def sharded_fp32_step_check(mesh):
+    """One fp32 flagship step (the preset's dropout, the same generator
+    seed on both sides) through build_sharded_train_step on the (1, 1)
+    mesh against build_train_step: the loss and every gradient to 1e-6 of
+    its scale, the parameters after the step within the TF-Adam bound of
+    gradients known to that. The kernels' atomics (the catalog backward's
+    d_table, the lookups' index_add) make two single-device runs differ
+    too: where a leaf's gap between them (its floor) exceeds half that
+    tolerance, the leaf is held to twice its floor instead, and the
+    floor is logged."""
+    cfg = preset("EasyDGL", num_events=64)
+    params = random_flax_params(cfg, seed=0)
+    table = torch.as_tensor(synthetic_mark_table(cfg.num_items, 64, seed=0),
+                            device="cuda")
+    features, labels, _ = flagship_batches(cfg, cfg.batch_size, 12, True)[0]
+    feats = to_device(features, "cuda")
+    lab = torch.as_tensor(labels, device="cuda")
+    # marks looked up once here: the steps below find them in the batch
+    feats = device_marks(feats, lab, table, is_training=True)
+    gen = lambda: dropout_generator(cfg.seed, 0, "cuda")  # noqa: E731
+    single = build_model(cfg, device="cuda", params=params)
+    loss_s, grads_s = loss_and_grads(single, feats, lab, gen())
+    _, grads_again = loss_and_grads(single, feats, lab, gen())
+    state, _ = build_train_step(single)(init_state(single), feats, lab,
+                                        gen())
+    sharded = build_model(cfg, device="cuda", params=params)
+    st = shard_state(init_state(sharded), sharded, mesh)
+    with use_spmd_mesh(mesh):
+        loss_m, grads_m = loss_and_grads(sharded, feats, lab, gen())
+    st, loss_step = build_sharded_train_step(sharded, mesh)(
+        st, feats, lab, gen())
+    loss_s, loss_m = float(loss_s), float(loss_m)
+    log(f"  fp32 loss single {loss_s:.8f}, sharded (1, 1) {loss_m:.8f}, "
+        f"its step's {float(loss_step):.8f}")
+    check(abs(loss_m - loss_s) <= 1e-6 * abs(loss_s)
+          and abs(float(loss_step) - loss_s) <= 1e-6 * abs(loss_s),
+          "sharded (1, 1) fp32 loss")
+    worst, known, floored = (0.0, ""), {}, []
+    for leaf, want in grads_s.items():
+        scale = float(want.abs().max()) + 1e-30
+        err = float((grads_m[leaf] - want).abs().max())
+        floor = float((grads_again[leaf] - want).abs().max())
+        known[leaf] = max(1e-6 * scale, 2 * floor)
+        if 2 * floor > 1e-6 * scale:
+            floored.append(f"{leaf} {floor / scale:.3e}")
+        worst = max(worst, (err / scale, leaf))
+        check(err <= known[leaf], f"sharded (1, 1) fp32 gradient {leaf}: "
+              f"{err / scale:.3e} of its scale, floor {floor / scale:.3e}")
+    adam_bound_check("sharded (1, 1) fp32 step", cfg, grads_s,
+                     {k: p.detach() for k, p in st.params.items()},
+                     {k: p.detach() for k, p in state.params.items()}, known)
+    same = all(torch.equal(st.params[k], state.params[k])
+               for k in state.params)
+    log(f"  fp32 gradients: worst |sharded - single| / leaf scale "
+        f"{worst[0]:.3e} ({worst[1]}) over {len(grads_s)} leaves (tol "
+        f"1e-6; two single-device runs' floor above half of it: "
+        f"{', '.join(floored) or 'none'}); parameters after the step equal "
+        f"bit for bit: {same}")
+    return worst[0]
+
+
+def sharded_eval_check(mesh):
+    """build_distributed_eval_step at (1, 1) (the whole catalog one
+    rank's slice, the distributed top-k over one rank) against
+    build_eval_step, fp32, two B=512 batches: the hit sums equal, the NDCG
+    sums to 1e-6 relative. Returns the launches of the distributed
+    eval's forwards."""
+    cfg = preset("EasyDGL", num_events=64, mask_seen=True)
+    params = random_flax_params(cfg, seed=0)
+    table = synthetic_mark_table(cfg.num_items, 64, seed=0)
+    batches = flagship_batches(cfg, 2 * cfg.batch_size, 13, False)
+    single = build_model(cfg, device="cuda", params=params)
+    want = MetricAccumulator()
+    step = build_eval_step(single, mark_table=table)
+    for b in batches:
+        want.update(step(single, *b))
+    sharded = build_model(cfg, device="cuda", params=params)
+    shard_state(init_state(sharded), sharded, mesh)
+    dstep = build_distributed_eval_step(sharded, mesh, mark_table=table)
+    mau_attention.launches = 0
+    got = MetricAccumulator()
+    for b in batches:
+        got.update(dstep(sharded, *b))
+    launches = mau_attention.launches
+    check(launches == len(batches) * cfg.num_blocks,
+          f"distributed eval: {launches} MAU launches")
+    for key, w in want.sums.items():
+        g = got.sums[key]
+        exact = key.startswith("H")
+        check(g == w if exact else abs(g - w) <= 1e-6 * abs(w),
+              f"distributed eval {key}: {g} against {w}")
+    check(got.count == want.count, "distributed eval row count")
+    log("  distributed eval (1, 1) fp32 sums " + json.dumps(got.sums)
+        + " against build_eval_step's " + json.dumps(want.sums))
+    return launches
+
+
+def timed_steps(step, state, batches, gen, n):
+    """(state, losses, ms/step) of n steps, host clock, synchronised."""
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, loss = step(state, *batches[i % len(batches)], gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return state, losses, (time.perf_counter() - t0) / n * 1e3
+
+
+def sharded_train_timing(mesh, step_ms):
+    """20 faithful bf16 flagship steps through build_sharded_train_step at
+    (1, 1), batches on the device and 2 warm-up steps as phase 7; besides,
+    the single-device step on a copy of the model in turns with it
+    (single, sharded, sharded, single; 10 steps each), since the host
+    clock spreads more between phases than within one. Returns the
+    launches of the 20 steps, their ms/step and the turns' ms/step."""
+    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    params = random_flax_params(cfg, seed=0)
+    model = build_model(cfg, device="cuda", params=params)
+    plain = build_model(cfg, device="cuda", params=params)
+    table = synthetic_mark_table(cfg.num_items, cfg.num_events, seed=0)
+    batches = [(to_device(f, "cuda"), torch.as_tensor(lab, device="cuda"))
+               for f, lab, _ in flagship_batches(cfg, 4 * cfg.batch_size,
+                                                 2, True)]
+    state = shard_state(init_state(model), model, mesh)
+    step = build_sharded_train_step(model, mesh, mark_table=table)
+    plain_state = init_state(plain)
+    plain_step = build_train_step(plain, mark_table=table)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for features, labels in batches[:2]:
+        state, _ = step(state, features, labels, gen)
+        plain_state, _ = plain_step(plain_state, features, labels, gen)
+    for fn in SHARD_KERNELS:
+        fn.launches = 0
+    state, losses, ms = timed_steps(step, state, batches, gen, TRAIN_STEPS)
+    launches = {fn.__name__: fn.launches for fn in SHARD_KERNELS}
+    turns = {"single": [], "sharded": []}
+    for name in ("single", "sharded", "sharded", "single"):
+        if name == "single":
+            plain_state, _, t = timed_steps(plain_step, plain_state, batches,
+                                            gen, TRAIN_STEPS // 2)
+        else:
+            state, _, t = timed_steps(step, state, batches, gen,
+                                      TRAIN_STEPS // 2)
+        turns[name].append(t)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          "sharded train: a loss is not finite")
+    for name in ("mau_attention", "mau_attention_bwd", "catalog_nll_fwd",
+                 "catalog_nll_bwd"):
+        check(launches[name] == TRAIN_STEPS,
+              f"sharded train: {name} launched {launches[name]} times")
+    log(f"  sharded (1, 1) bf16 train: {TRAIN_STEPS} steps x "
+        f"{cfg.batch_size} rows = {ms:.4f} ms/step, "
+        f"{cfg.batch_size / ms * 1e3:.1f} ex/s, beside phase 7's "
+        f"{step_ms:.4f} ms/step single-device in this run; in turns "
+        f"(10 steps each) single {turns['single'][0]:.4f}, sharded "
+        f"{turns['sharded'][0]:.4f}, {turns['sharded'][1]:.4f}, single "
+        f"{turns['single'][1]:.4f} ms/step; losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; launches " + json.dumps(launches))
+    return launches, ms, turns
+
+
+def sharded_cli_run():
+    """cli.train --synthetic --dp 1 --mp 1 (the flagship, bf16, 64 marks,
+    2,048 rows: 4 steps) for one epoch under the process group, in a
+    temporary directory; Recommender.from_checkpoint on its checkpoint.
+    Returns the launches of rows 1-4 in the run."""
+    from easydgl_tpu_torch.cli import train as train_cli
+    cfg = preset("EasyDGL", num_events=64, compute_dtype="bfloat16")
+    cwd, root_handlers = os.getcwd(), list(logging.getLogger().handlers)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_cli_")
+    try:
+        os.chdir(tmp)
+        for fn in HARNESS_KERNELS.values():
+            fn.launches = 0
+        summary = train_cli.main([
+            "--model", "EasyDGL", "--synthetic", "--synthetic_rows",
+            str(SHARD_ROWS), "--ckpt_dir", "ckpt", "--device", "cuda",
+            "--num_events", "64", "--compute_dtype", "bfloat16",
+            "--num_epochs", "1", "--dp", "1", "--mp", "1"])
+        launches = {name: fn.launches
+                    for name, fn in HARNESS_KERNELS.items()}
+        from easydgl_tpu_torch.data.synthetic import synthetic_split
+        head = synthetic_split(num_rows=16, seed=3, num_items=cfg.num_items,
+                               seqslen=cfg.seqslen,
+                               with_datetime=True).arrays
+        table = synthetic_mark_table(cfg.num_items, 64, seed=4)
+        ids, scores = Recommender.from_checkpoint(
+            cfg, "ckpt", head, table, device="cuda").recommend(head, k=50)
+    finally:
+        os.chdir(cwd)
+        for h in logging.getLogger().handlers:
+            if h not in root_handlers:
+                logging.getLogger().removeHandler(h)
+                h.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0
+              for v in summary.values()), "sharded cli.train: summary")
+    check(bool((ids != 0).all())
+          and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          "sharded cli.train checkpoint: recommend ids or order")
+    for name, n in launches.items():
+        check(n > 0, f"sharded cli.train: {name} was not launched")
+    log("  cli.train --dp 1 --mp 1, one epoch: summary "
+        + json.dumps(summary) + "; launches " + json.dumps(launches)
+        + "; Recommender.from_checkpoint served its checkpoint")
+    return launches
+
+
+def phase_sharded(card, step_ms):
+    log("phase 10b: a real NCCL process group of one rank (127.0.0.1, a "
+        "free port) and a (1, 1) mesh: the flagship through "
+        "build_sharded_train_step (one fp32 step against build_train_step;"
+        " 20 faithful bf16 steps) and build_distributed_eval_step (fp32, "
+        "against build_eval_step)")
+    import torch.distributed as dist
+    info = init_distributed(None, 1, 0, "cuda")
+    try:
+        mesh = make_mesh(MeshConfig(dp=1, mp=1), "cuda")
+        check(dist.get_backend() == "nccl", "the process group is not NCCL")
+        log(f"  rank {info.host_id} of {info.num_hosts} on {info.device}, "
+            f"backend {dist.get_backend()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+        grad_worst = sharded_fp32_step_check(mesh)
+        eval_launches = sharded_eval_check(mesh)
+        train_launches, ms, turns = sharded_train_timing(mesh, step_ms)
+        log("phase 10c: cli.train --synthetic --dp 1 --mp 1 under the "
+            "process group, one epoch; Recommender.from_checkpoint")
+        cli_launches = sharded_cli_run()
+    finally:
+        dist.destroy_process_group()
+    log(f"sharded (1, 1) train: {ms:.4f} ms/step beside phase 7's "
+        f"{step_ms:.4f} single-device on {card}")
+    return dict(train_launches=train_launches, eval_launches=eval_launches,
+                cli_launches=cli_launches, ms_step=ms, turns=turns,
+                grad_worst=grad_worst)
+
+
 def kernel_names(log_text: str):
     """kernel<dtype, template ints...> of an entry function in a ptxas
     report line."""
@@ -3769,12 +4318,18 @@ def main() -> int:
     bochner = {name: phase_bochner(name, *spec)
                for name, spec in BOCHNER.items()}
     harness = phase_harness(card, ex_s)
+    shard_errs, shard_timing_rows = phase_shard_checks()
+    sharded = phase_sharded(card, ms_step)
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
     main_row = timing[bf16]
     gathered = new_paths["EasyDGL_LC_gathered"]
     fused_per_path = {
+        "serving_sharded_1x1": sharded["eval_launches"],
+        "training_sharded_1x1": sharded["train_launches"]["mau_attention"],
+        "harness_sharded_1x1":
+            sharded["cli_launches"]["mau_attention_fwd"],
         "serving": serve_launches,
         "training": train_launches["mau_attention"],
         "serving_ctsma": ctsma_launches["mau_attention"],
@@ -3811,7 +4366,10 @@ def main() -> int:
         row = train_timing[(name, bf16)]
         per_path = {"training": train_launches[name],
                     "training_ctsma": ctsma_train_launches[name],
-                    "harness": harness["launches"][name]}
+                    "harness": harness["launches"][name],
+                    "training_sharded_1x1":
+                        sharded["train_launches"][name],
+                    "harness_sharded_1x1": sharded["cli_launches"][name]}
         if name == "mau_attention_bwd":
             per_path["training_easydgl_lc_gathered"] = \
                 gathered["launches"][name]
@@ -3971,12 +4529,30 @@ def main() -> int:
         f" beside phase 7's {ex_s:.1f} with batches on the device; checkpoint"
         f" save {harness['save_s']:.4f} s, {harness['save_bytes']:,} bytes on"
         f" {card}")
+    shard_check_of = {"mau_attention_fwd": "mau", "mau_attention_bwd": "mau",
+                      "catalog_nll_fwd": "catalog",
+                      "catalog_nll_bwd": "catalog",
+                      "flash_attention_fwd": "flash",
+                      "flash_attention_bwd": "flash"}
     for entry in kernels:
         entry["cuda_kernels"] = CUDA_KERNELS[entry["name"]]
+        part = shard_check_of.get(entry["name"])
+        if part is not None:   # phase 10a: one shard's kernel at mp = 2, 4
+            entry["shard_shapes"] = {
+                f"mp{mp}": shard_timing_rows[mp][entry["name"]]
+                for mp in SHARD_MPS}
+            entry["shard_max_abs_err"] = {
+                k: v for k, v in shard_errs.items() if k.startswith(part)}
         if entry["name"] in HARNESS_KERNELS:
             entry["harness_profiler_launches"] = {
                 k: harness["profiler"].get(k, 0)
                 for k in CUDA_KERNELS[entry["name"]]}
+    log(f"sharded (1, 1) train through NCCL: {sharded['ms_step']:.4f} "
+        f"ms/step beside phase 7's {ms_step:.4f} single-device (in turns: "
+        f"single {sharded['turns']['single']}, sharded "
+        f"{sharded['turns']['sharded']}); fp32 "
+        f"gradients within {sharded['grad_worst']:.3e} of each leaf's scale"
+        f" on {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,20 @@ splits the JAX package's ``cli.prep`` writes), or ``--synthetic`` for a
 smoke run. Hyperparameter defaults come from the per-model presets
 (runme.sh parity); any field of Config can be overridden from the command
 line. Runs on ``--device`` (default ``cuda``; raises where there is none,
-``--device cpu`` runs the kernels' plain versions). The multi-device flags
-are parsed as the JAX CLI parses them and raise beyond one device: the
-distributed layers are not ported yet (ROADMAP A.3).
+``--device cpu`` runs the kernels' plain versions).
+
+``--dp`` / ``--mp`` run the sharded path over a (data, model) mesh, one
+process per rank (``core/runtime.py``: NCCL on ``cuda``, gloo on the CPU),
+started by torchrun or by the explicit flags on each process::
+
+    torchrun --nproc_per_node 4 -m easydgl_tpu_torch.cli.train \
+        --model EasyDGL --synthetic --dp 2 --mp 2 --device cpu ...
+    python -m easydgl_tpu_torch.cli.train ... --dp 2 --mp 2 \
+        --coordinator_address 127.0.0.1:29500 --num_processes 4 \
+        --process_id R
+
+``--cp``, ``--pp``, ``--pp_microbatches`` and ``--cp_impl`` (context and
+pipeline parallelism) are not ported and raise (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -102,20 +113,24 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_multi_device(args) -> None:
-    """Raise for any flag that asks for more than one device."""
+def refuse_unported(args) -> None:
+    """Raise for the context- and pipeline-parallel flags."""
     asked = [name for name, on in (
-        ("--dp", args.dp > 1), ("--mp", args.mp > 1), ("--cp", args.cp > 1),
-        ("--pp", args.pp > 1),
+        ("--cp", args.cp > 1), ("--pp", args.pp > 1),
         ("--pp_microbatches", args.pp_microbatches is not None),
-        ("--cp_impl", args.cp_impl is not None),
-        ("--coordinator_address", args.coordinator_address is not None),
-        ("--num_processes", (args.num_processes or 1) > 1),
-        ("--process_id", args.process_id is not None)) if on]
+        ("--cp_impl", args.cp_impl is not None)) if on]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: the port runs on one device; the "
-            "distributed layers are ROADMAP A.3")
+            f"{', '.join(asked)}: context and pipeline parallelism are not "
+            "ported yet (ROADMAP A.3)")
+
+
+def wants_mesh(args) -> bool:
+    """The sharded path: --dp or --mp given, or a world of several
+    processes (explicit flags or torchrun's environment)."""
+    world = (args.num_processes if args.num_processes is not None
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    return bool(args.dp) or args.mp > 1 or world > 1
 
 
 def build_config(args):
@@ -173,15 +188,27 @@ def main(argv=None):
         handlers=[logging.StreamHandler(),
                   logging.FileHandler("model.log")])
     args = parse_args(argv)
-    refuse_multi_device(args)
+    refuse_unported(args)
     device = resolve_device(args.device)
+    mesh = None
+    if wants_mesh(args):
+        from easydgl_tpu_torch.config import MeshConfig
+        from easydgl_tpu_torch.core.mesh import make_mesh
+        from easydgl_tpu_torch.core.runtime import init_distributed
+        device = init_distributed(args.coordinator_address,
+                                  args.num_processes, args.process_id,
+                                  device).device
+        mesh = make_mesh(MeshConfig(dp=args.dp or -1, mp=args.mp),
+                         device.type)
+        logging.info("mesh: %s", dict(zip(mesh.mesh_dim_names,
+                                           mesh.mesh.shape)))
     cfg = build_config(args)
     (train, valid, test), mark, cfg = load_data(args, cfg)
     logging.info("config: %s", cfg)
     logging.info("device: %s", device)
     _, summary = train_model(cfg, train, valid, test, mark_table=mark,
                              ckpt_dir=args.ckpt_dir, resume=args.resume,
-                             device=device)
+                             device=device, mesh=mesh)
     return summary
 
 

@@ -55,23 +55,28 @@ ROW_TILE = 64              # the rows a code of catalog_live_rows covers
 
 def catalog_nll_reference(hidden, table, bias, labels
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: materialises the (N, V) fp32 logits."""
+    """Plain version: materialises the (N, V) fp32 logits. A label of -1
+    (a row whose label lies in another rank's vocab slice,
+    ``kernels/spmd.py``) has label logit 0, as in the kernels."""
     logits = hidden.float() @ table.float().t() + bias.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels.long()[:, None], dim=1)[:, 0]
-    return lse, ll
+    lab = labels.long()
+    ll = torch.take_along_dim(logits, lab.clamp_min(0)[:, None], dim=1)[:, 0]
+    return lse, torch.where(lab >= 0, ll, 0.0)
 
 
 @torch.no_grad()
 def catalog_nll_bwd_reference(hidden, table, bias, labels, lse, dlse, dll):
     """Plain version of the backward, written out: g = dlse * exp(s - lse)
     + dll * onehot(label), rounded to the compute dtype before both
-    products. Returns (d_hidden in hidden's dtype, d_table in table's
-    dtype, d_bias fp32)."""
+    products; a row with label -1 takes no one-hot term. Returns
+    (d_hidden in hidden's dtype, d_table in table's dtype, d_bias fp32)."""
     cdt = table.dtype
     logits = hidden.float() @ table.float().t() + bias.float()
     g = dlse.float()[:, None] * torch.exp(logits - lse.float()[:, None])
-    g[torch.arange(g.shape[0], device=g.device), labels.long()] += dll.float()
+    lab = labels.long()
+    rows = torch.nonzero(lab >= 0)[:, 0]
+    g[rows, lab[rows]] += dll.float()[rows]
     gr = g.to(cdt).float()
     dh = gr @ table.float()
     dt = gr.t() @ hidden.float()
@@ -124,7 +129,10 @@ def _live_order(live: torch.Tensor) -> torch.Tensor:
 
 def catalog_nll(hidden, table, bias, labels):
     """(lse, label_logit) per row, fp32. hidden (N, C) and table (V, C) in
-    the compute dtype; bias (V,) fp32; labels (N,) integer ids in [0, V).
+    the compute dtype; bias (V,) fp32; labels (N,) integer ids in [0, V),
+    or -1: no column, so label logit 0 and no one-hot term in the
+    backward (a label outside a rank's vocab slice, ``kernels/spmd.py``;
+    ``easydgl_tpu/kernels/scoring.py:66-71`` matches no column either).
     Differentiable in hidden, table and bias."""
     if not _on_card("catalog_nll", hidden, table):
         return catalog_nll_reference(hidden, table, bias, labels)

@@ -73,7 +73,17 @@ def tied_logits(hidden: torch.Tensor, table: torch.Tensor,
                 bias: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Full-catalog scoring through the tied embedding table:
-    (N, C) @ (V, C)^T + bias, compute-dtype operands, fp32 result."""
+    (N, C) @ (V, C)^T + bias, compute-dtype operands, fp32 result.
+
+    Under a mesh whose model axis splits the catalog (mp > 1 divides V),
+    this rank's (N, V/mp) columns (``dist/embedding.py::
+    sharded_tied_logits``; the distributed eval ranks them); ``table`` is
+    then this rank's rows or the whole table."""
+    from easydgl_tpu_torch.core.mesh import spmd_mesh, table_rows
+    mesh = spmd_mesh()
+    if mesh is not None and table_rows(mesh, bias.shape[0]) is not None:
+        from easydgl_tpu_torch.dist.embedding import sharded_tied_logits
+        return sharded_tied_logits(hidden, table, bias, mesh, compute_dtype)
     return mm_fp32acc(hidden, table.t(), compute_dtype) + bias
 
 

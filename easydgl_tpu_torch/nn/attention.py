@@ -22,8 +22,9 @@ were concatenated upstream). ``impl`` picks the attention core:
 cores share ``flash_context`` (the seed draw and the patch of rows that see
 no key).
 
-The context-parallel and SPMD branches of the JAX modules come with the
-distributed layers.
+Under a (data, model) mesh the flash core splits whole heads over the
+model axis (``kernels/spmd.py::flash_attention_spmd``), as JAX's SPMD
+branch does; the context-parallel branches are not ported (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from easydgl_tpu_torch.core.mesh import spmd_mesh
 from easydgl_tpu_torch.kernels.flash_attention import flash_attention
 from easydgl_tpu_torch.nn.layers import (Dense, dropout, merge_heads,
                                          mm_fp32acc, split_heads)
@@ -78,20 +80,30 @@ def masked_softmax(logits: torch.Tensor,
 def flash_context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_mask: torch.Tensor, *, causal: bool, rate: float,
                   generator: Optional[torch.Generator],
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None,
+                  spmd: bool = True) -> torch.Tensor:
     """The ``"flash"`` core: (B, H, Tq, Dv) context of ``flash_attention``,
     with one dropout seed drawn from ``generator`` when ``rate`` > 0, and
     every row that sees no key (under ``causal``: no key at or before it;
     else: a batch entry with no key at all) set to the xla path's uniform
     value, the mean of V over all keys. ``scale`` multiplies q . k (default
     1/sqrt of q's width; the Bochner attentions pass 1/sqrt(dh) of their
-    un-augmented heads)."""
+    un-augmented heads). ``spmd`` False keeps the single-device kernel
+    call under a mesh (TGREC's, which has no SPMD branch in JAX)."""
     seed = None
     if rate > 0.0:
         seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                              device=generator.device)
-    ctx = flash_attention(q, k, v, key_mask, causal=causal, scale=scale,
-                          dropout_rate=rate, seed=seed)
+    mesh = spmd_mesh() if spmd else None
+    if mesh is not None:
+        # under a mesh: heads split over the model axis (kernels/spmd.py),
+        # as JAX's flash branches (attention.py:113-125, :195-205)
+        from easydgl_tpu_torch.kernels.spmd import flash_attention_spmd
+        ctx = flash_attention_spmd(q, k, v, key_mask, mesh, causal=causal,
+                                   scale=scale, dropout_rate=rate, seed=seed)
+    else:
+        ctx = flash_attention(q, k, v, key_mask, causal=causal, scale=scale,
+                              dropout_rate=rate, seed=seed)
     return torch.where(rows_that_see(key_mask, causal), ctx,
                        v.mean(dim=2, keepdim=True))
 

@@ -4,7 +4,9 @@
   zeroed on every use (the parameter keeps its value, reference
   coding.py:56-57), and the same zeroed table feeds the tied logits;
   optional sqrt(d) scale; out-of-range ids clamp to the edge rows (JAX's
-  ``take(mode="clip")``).
+  ``take(mode="clip")``). A table whose rows are split over the model
+  axis (the parameter then carries ``vocab_rows``) is read through
+  ``dist/embedding.py::sharded_lookup``.
 * ``PositionCoding.code``: learned absolute positions, ``iota(T)`` rows;
   calling the module concatenates them to its input (SASREC's 2C-wide
   first block, reference coding.py:67-79).
@@ -45,19 +47,37 @@ class Embedding(nn.Module):
             torch.empty(vocab_size, num_units, device=device))
 
     def table(self) -> torch.Tensor:
+        """The table with row 0 zeroed (``zero_pad``); of a table whose rows
+        are split over the model axis, this rank's rows."""
         t = self.lookup_table
         if self.zero_pad:
-            row_mask = (torch.arange(self.vocab_size, device=t.device) != 0)
+            start = self.rows()[0]
+            row_mask = (torch.arange(start, start + t.shape[0],
+                                     device=t.device) != 0)
             t = t * row_mask.to(t.dtype)[:, None]
         return t
 
+    def rows(self):
+        """[start, stop) of the rows this module holds: the whole table, or
+        the slice ``train/sharded.py::shard_state`` left it."""
+        return getattr(self.lookup_table, "vocab_rows",
+                       (0, self.vocab_size))
+
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        # index_select, not advanced indexing: its backward is an index_add
-        # (3.7 ms less per flagship train step on an H100 than the sorting
-        # backward of indexing; scripts/torch_train_profile.py)
         safe = ids.long().clamp(0, self.vocab_size - 1)
-        out = torch.index_select(self.table(), 0, safe.reshape(-1)).reshape(
-            *ids.shape, self.num_units)
+        if hasattr(self.lookup_table, "vocab_rows"):
+            from easydgl_tpu_torch.core.mesh import spmd_mesh
+            from easydgl_tpu_torch.dist.embedding import sharded_lookup
+            out = sharded_lookup(self.table(), safe, self.rows()[0],
+                                 spmd_mesh())
+        else:
+            # index_select, not advanced indexing: its backward is an
+            # index_add (3.7 ms less per flagship train step on an H100
+            # than the sorting backward of indexing;
+            # scripts/torch_train_profile.py)
+            out = torch.index_select(self.table(), 0,
+                                     safe.reshape(-1)).reshape(
+                *ids.shape, self.num_units)
         if self.scale:
             out = out * (self.num_units ** 0.5)
         return out

@@ -91,6 +91,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from easydgl_tpu_torch.core.mesh import spmd_mesh
+from easydgl_tpu_torch.dist.comm import data_total
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention
 from easydgl_tpu_torch.kernels.mau_streamed import mau_streamed
 from easydgl_tpu_torch.nn.attention import (NEG_INF_LOGIT, flash_context,
@@ -333,7 +335,8 @@ class TgMultiHeadAttention(nn.Module):
             vf = torch.cat([split_heads(va, h).float(), ckh, skh], -1)
             ctx = flash_context(qa, kf, vf, key_mask.float(),
                                 causal=causality, rate=rate,
-                                generator=generator, scale=dh ** -0.5)
+                                generator=generator, scale=dh ** -0.5,
+                                spmd=False)
             out = ctx[..., :dh]
             tm = (cq[:, None] * ctx[..., dh:dh + c]
                   + sq[:, None] * ctx[..., dh + c:])
@@ -458,7 +461,10 @@ class MAU(nn.Module):
         """Biased TPP log-likelihood (reference temporal.py:317-333).
 
         mark_intensity: (..., Tq, E); next_mark_onehot: same shape;
-        intervals: (..., Tq)."""
+        intervals: (..., Tq). Under a mesh the event count is the global
+        batch's (``dist/comm.py::data_total``): the rank's term is its
+        share, and the shares sum over the data axis to the global
+        value."""
         has_event = torch.sign(next_mark_onehot.sum(-1, keepdim=True))
         mark_intensity = mark_intensity * has_event
         event_intensity = (mark_intensity * next_mark_onehot).sum(-1)
@@ -466,7 +472,7 @@ class MAU(nn.Module):
                                          event_intensity)).sum()
         entire_intensity = mark_intensity.sum(-1)
         non_event_ll = (entire_intensity * intervals * 0.5).sum()
-        num_events = next_mark_onehot.sum()
+        num_events = data_total(next_mark_onehot.sum())
         return -(event_ll - non_event_ll) / num_events
 
     def forward(self, queries: torch.Tensor, keys: torch.Tensor,
@@ -526,6 +532,14 @@ class MAU(nn.Module):
                 *params, self.causal_default, self.diag_reset, rate,
                 num_heads=self.num_heads, dropout_seed=seed,
                 block_k=self.block_k)
+        elif spmd_mesh() is not None:
+            # under a mesh: heads split over the model axis
+            # (kernels/spmd.py), as JAX's fused branch (temporal.py:666-677)
+            from easydgl_tpu_torch.kernels.spmd import mau_attention_spmd
+            out, mark_intensity = mau_attention_spmd(
+                qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),
+                *params, seed, spmd_mesh(), self.causal_default,
+                self.diag_reset, rate, self.num_heads, qpos=qpos)
         else:
             out, mark_intensity = mau_attention(
                 qq, kk, vv, tt, key_mask, intervals, mark_onehot.float(),

@@ -5,9 +5,17 @@ Per epoch: run the train step over the shuffled train loader, then stream
 validation and test metrics, feed EarlyStopping on validation H100,
 checkpoint on improvement, stop on patience/NaN. The per-step losses stay
 on the device until the epoch's mean; ``device_prefetch`` keeps the next
-batches' host-to-device copies in flight while the card runs a step. The
-multi-device layers of the JAX loop (``mesh``, several hosts) are not
-ported.
+batches' host-to-device copies in flight while the card runs a step.
+
+With a ``mesh`` (``core/mesh.py::make_mesh``; one process per rank) the
+loop runs the sharded path, as the JAX loop's (loop.py:99-200): each rank
+loads batch_size / dp rows of its data shard (the model-axis ranks of one
+data group the same rows), the item table is row-sharded
+(``train/sharded.py``), the eval is the distributed one where mp > 1
+divides the vocab and the sharded one otherwise, and rank 0 saves the
+whole state, the table's slices gathered, in the single-device format; a
+resume restores it whole and shards it again. Context and pipeline
+parallelism (the JAX loop's ``pipe`` axis) are not ported (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 
 from easydgl_tpu_torch.config import Config
+from easydgl_tpu_torch.core.runtime import host_shard_info
 from easydgl_tpu_torch.data.loader import BatchLoader, PackedDataset
 from easydgl_tpu_torch.device import resolve_device
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
@@ -39,11 +48,20 @@ def make_loaders(cfg: Config, model: SequentialModel,
                  train: PackedDataset, valid: PackedDataset,
                  test: PackedDataset,
                  mark_table: Optional[np.ndarray] = None,
-                 marks_on_device: bool = False):
-    """The train, validation and test loaders of one host."""
-    kw = dict(data_mode=model.data_mode, batch_size=cfg.batch_size,
+                 marks_on_device: bool = False,
+                 host_id: int = 0, num_hosts: int = 1):
+    """The train, validation and test loaders of one data shard.
+    cfg.batch_size is the GLOBAL batch; shard ``host_id`` of ``num_hosts``
+    (the data axis) loads batch_size / num_hosts rows of its disjoint
+    rows."""
+    if cfg.batch_size % num_hosts:
+        raise ValueError(f"global batch {cfg.batch_size} not divisible by "
+                         f"{num_hosts} data shards")
+    kw = dict(data_mode=model.data_mode,
+              batch_size=cfg.batch_size // num_hosts,
               masklen=cfg.masklen, seed=cfg.seed, mark_table=mark_table,
-              needs_marks=model.uses_tpp, marks_on_device=marks_on_device)
+              needs_marks=model.uses_tpp, marks_on_device=marks_on_device,
+              host_id=host_id, num_hosts=num_hosts)
     return (BatchLoader(train, is_training=True, **kw),
             BatchLoader(valid, is_training=False, **kw),
             BatchLoader(test, is_training=False, **kw))
@@ -120,24 +138,25 @@ def train_model(cfg: Config, train_ds: PackedDataset, valid_ds: PackedDataset,
                 mark_table: Optional[np.ndarray] = None,
                 ckpt_dir: Optional[str] = None,
                 num_epochs: Optional[int] = None,
-                resume: bool = False, *, device=None
+                resume: bool = False, *, device=None, mesh=None
                 ) -> Tuple[TrainState, Dict[str, float]]:
     """Train with early stopping on ``device`` (default ``cuda``; raises if
     there is none). Weights start from ``cfg.seed`` (``build_model``);
     with ``resume`` and a checkpoint in ``ckpt_dir`` the run continues from
-    the latest one, at epoch ``step // steps_per_epoch``. Returns the final
-    state and the EarlyStopping summary (test metrics of the best epoch)."""
+    the latest one, at epoch ``step // steps_per_epoch``. ``mesh``: the
+    (data, model) mesh of the sharded path (this rank's ``device``).
+    Returns the final state (this rank's under a mesh) and the
+    EarlyStopping summary (test metrics of the best epoch)."""
     dev = resolve_device(device)
     model = build_model(cfg, device=dev)
+    host_id, num_hosts = host_shard_info(mesh)
     # marks are looked up on the device from a resident table
     # (train/steps.py::device_marks): the loader ships only ids
     dev_marks = mark_table is not None and model.uses_tpp
     mt = np.asarray(mark_table, np.float32) if dev_marks else None
     tr_loader, vl_loader, te_loader = make_loaders(
         cfg, model, train_ds, valid_ds, test_ds, mark_table,
-        marks_on_device=dev_marks)
-    train_step = build_train_step(model, mark_table=mt)
-    eval_step = build_eval_step(model, mark_table=mt)
+        marks_on_device=dev_marks, host_id=host_id, num_hosts=num_hosts)
     state = init_state(model)
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -148,10 +167,38 @@ def train_model(cfg: Config, train_ds: PackedDataset, valid_ds: PackedDataset,
         start_epoch = state.step // steps_per_epoch
         log.info("resumed from step %d (epoch %d)", state.step,
                  start_epoch)
+    gen_shard = None
+    if mesh is None:
+        train_step = build_train_step(model, mark_table=mt)
+        eval_step = build_eval_step(model, mark_table=mt)
+        save = lambda state: ckpt.save(state)  # noqa: E731
+    else:
+        import torch.distributed as dist
+
+        from easydgl_tpu_torch.core.mesh import model_size
+        from easydgl_tpu_torch.eval.evaluator import \
+            build_distributed_eval_step
+        from easydgl_tpu_torch.train.sharded import (
+            build_sharded_eval_step, build_sharded_train_step, gather_state,
+            rank_generator_shard, shard_state)
+        state = shard_state(state, model, mesh)
+        train_step = build_sharded_train_step(model, mesh, mark_table=mt)
+        mp = model_size(mesh)
+        if mp > 1 and model.vocab_size % mp == 0:
+            eval_step = build_distributed_eval_step(model, mesh,
+                                                    mark_table=mt)
+        else:
+            eval_step = build_sharded_eval_step(model, mesh, mark_table=mt)
+        gen_shard = rank_generator_shard(mesh)
+
+        def save(state):
+            whole = gather_state(state, mesh)
+            if dist.get_rank() == 0:
+                ckpt.save(whole)
     state_ref = [state]
     stopper = EarlyStopping(
         cfg.model, cfg.patience,
-        save_fn=(lambda: ckpt.save(state_ref[0])) if ckpt else None)
+        save_fn=(lambda: save(state_ref[0])) if ckpt else None)
 
     timer = StepTimer(cfg.batch_size)
     epochs = num_epochs if num_epochs is not None else cfg.num_epochs
@@ -163,7 +210,7 @@ def train_model(cfg: Config, train_ds: PackedDataset, valid_ds: PackedDataset,
                                                    device=dev):
             state, loss = train_step(
                 state, features, labels,
-                dropout_generator(cfg.seed, state.step, dev))
+                dropout_generator(cfg.seed, state.step, dev, gen_shard))
             losses.append(loss)
             timer.tick()
         state_ref[0] = state

@@ -54,13 +54,34 @@ def _zeros(params: Tensors) -> Tensors:
     return {k: torch.zeros_like(v) for k, v in params.items()}
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
-    """optax.clip_by_global_norm: unchanged while the global norm is below
-    ``max_norm``, else each tensor is t / norm * max_norm."""
+def global_norm(grads: Tensors, params=None) -> torch.Tensor:
+    """The global L2 norm of the gradients. Where ``params`` marks a table
+    whose rows are split over the model axis (``vocab_rows``), its slices'
+    squares are summed over model once, the replicated leaves' squares
+    counted once."""
+    names = list(grads)
+    split = [k for k in names if params is not None
+             and hasattr(params[k], "vocab_rows")]
+    if not split:
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm([grads[k] for k in names])))
+    from easydgl_tpu_torch.core.mesh import model_group, spmd_mesh
+    from easydgl_tpu_torch.dist.comm import total
+    sq = lambda ks: torch.linalg.vector_norm(  # noqa: E731
+        torch.stack(torch._foreach_norm([grads[k] for k in ks]))).square()
+    rest = [k for k in names if k not in split]
+    part = total(sq(split), model_group(spmd_mesh()))
+    return torch.sqrt(part + sq(rest) if rest else part)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        params=None) -> Tensors:
+    """optax.clip_by_global_norm: unchanged while the global norm
+    (``global_norm``) is below ``max_norm``, else each tensor is t / norm *
+    max_norm."""
     names = list(grads)
     gs = [grads[k] for k in names]
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(gs)))
+    norm = global_norm(grads, params)
     trigger = norm < max_norm
     return {k: torch.where(trigger, g, g / norm * max_norm)
             for k, g in zip(names, gs)}
@@ -87,9 +108,8 @@ def tf_adam(learning_rate: float, b1: float, b2: float, eps: float,
 
     @torch.no_grad()
     def update(grads: Tensors, state: TFAdamState, params=None):
-        del params
         if clip_norm > 0:
-            grads = clip_by_global_norm(grads, clip_norm)
+            grads = clip_by_global_norm(grads, clip_norm, params)
         names = list(grads)
         mu = {k: state.mu[k] for k in names}
         nu = {k: state.nu[k] for k in names}
@@ -143,7 +163,7 @@ def adamw_warmup(cfg: OptimConfig) -> Optimizer:
 
     @torch.no_grad()
     def update(grads: Tensors, state: AdamWState, params: Tensors):
-        grads = clip_by_global_norm(grads, 5.0)
+        grads = clip_by_global_norm(grads, 5.0, params)
         names = list(grads)
         mu = {k: state.mu[k] for k in names}
         nu = {k: state.nu[k] for k in names}

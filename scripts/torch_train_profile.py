@@ -25,8 +25,11 @@ time per step of both runs, the device time by kernel, the device kernels
 launched a step and the share of the profiled window the device was busy.
 Imports neither JAX nor the JAX package; run it from any checkout's root
 (it imports the package beside it) to compare two versions in one call.
+It also prints the host's time by operator. With ``--sharded`` the step
+is ``build_sharded_train_step`` on a (1, 1) mesh under an NCCL process
+group of one rank (``core/runtime.py``).
 
-    python3 scripts/torch_train_profile.py [PRESET] [--steps 8]
+    python3 scripts/torch_train_profile.py [PRESET] [--steps 8] [--sharded]
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("preset", nargs="?", default="EasyDGL")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -74,6 +78,16 @@ def main() -> int:
                    masklen=cfg.masklen, is_training=True).epoch(0)]
     step = build_train_step(model, mark_table=table)
     state = init_state(model)
+    if args.sharded:
+        from easydgl_tpu_torch.config import MeshConfig
+        from easydgl_tpu_torch.core.mesh import make_mesh
+        from easydgl_tpu_torch.core.runtime import init_distributed
+        from easydgl_tpu_torch.train.sharded import (
+            build_sharded_train_step, shard_state)
+        init_distributed(None, 1, 0, "cuda")
+        mesh = make_mesh(MeshConfig(dp=1, mp=1), "cuda")
+        state = shard_state(state, model, mesh)
+        step = build_sharded_train_step(model, mesh, mark_table=table)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for features, labels in batches[:2]:  # warm-up
         state, _ = step(state, features, labels, gen)
@@ -98,7 +112,8 @@ def main() -> int:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events) / n
-    print(f"{torch.cuda.get_device_name(0)}; {args.preset}: {n} train steps"
+    print(f"{torch.cuda.get_device_name(0)}; {args.preset}"
+          f"{' sharded (1, 1)' if args.sharded else ''}: {n} train steps"
           f" x {bs} rows:"
           f" wall {unprofiled:.3f} ms/step unprofiled,"
           f" {wall * 1e3 / n:.3f} ms/step profiled; device busy"
@@ -111,6 +126,14 @@ def main() -> int:
         print(f"  {per_step:8.3f} ms/step"
               f" {100 * e.self_device_time_total / max(total_us, 1):5.1f}%"
               f"  x{e.count // n:<3d} {e.key[:90]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print("  host time by operator (self, profiled):")
+    for e in host[:20]:
+        print(f"  {e.self_cpu_time_total / 1e3 / n:8.3f} ms/step"
+              f"  x{e.count // n:<4d} {e.key[:90]}")
+    if args.sharded:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

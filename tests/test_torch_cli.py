@@ -14,9 +14,10 @@
   mask_seen top-k lists;
 * the same train and analytics round trip for GRU4REC, S2PNM and
   TiSASREC (one epoch);
-* the multi-device flags and a model missing from the registry raise; so
-  does
-  ``cli.train`` without ``--device`` on a machine without a card.
+* the context- and pipeline-parallel flags and a model missing from the
+  registry raise (``--dp``, ``--mp`` and the multi-process flags run:
+  ``tests/test_torch_dist_cli.py``); so does ``cli.train`` without
+  ``--device`` on a machine without a card.
 
 Tiny config: EasyDGL, L = 10, C = 16, H = 2, 1 block, E = 4, B = 16, 64
 train rows; V = 201, as in ``tests/test_cli.py``, so that HR@100 is not 1
@@ -135,10 +136,8 @@ def test_recommend_from_trained_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dp", "2"], ["--mp", "2"], ["--cp", "2"], ["--pp", "2"],
-    ["--pp_microbatches", "4"], ["--cp_impl", "ulysses"],
-    ["--num_processes", "2", "--coordinator_address", "localhost:1234",
-     "--process_id", "0"]])
+    ["--cp", "2"], ["--pp", "2"], ["--pp_microbatches", "4"],
+    ["--cp_impl", "ulysses"]])
 def test_multi_device_flags_raise(tmp_path, monkeypatch, flags):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP A.3"):

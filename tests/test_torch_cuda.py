@@ -290,6 +290,33 @@ def test_catalog_kernels_match_plain_version(cuda_device, dtype, n, v, c):
     _check_by_scale(dtype, got, want, "backward")
 
 
+@pytest.mark.parametrize("n,v,c", [(77, 1001, 64), (3072, 8886, 512),
+                                   (3072, 4443, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_catalog_kernels_take_label_minus_one_as_plain_version(
+        cuda_device, dtype, n, v, c):
+    """A vocab slice's rows (``kernels/spmd.py``): a label outside the
+    slice is -1, label logit 0 and no one-hot term in the backward, in the
+    kernels as in the plain version; at the flagship's slices of 17,772
+    ids over mp = 2 and 4, and at a small C on the CUDA cores."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    h = torch.randn(n, c, generator=g, device=cuda_device).to(dtype)
+    t = (torch.randn(v, c, generator=g, device=cuda_device) / 8).to(dtype)
+    b = torch.randn(v, generator=g, device=cuda_device)
+    lab = torch.randint(0, v, (n,), generator=g, device=cuda_device)
+    lab[::3] = -1
+    dlse, dll = (torch.randn(n, generator=g, device=cuda_device) / n
+                 for _ in range(2))
+    lse, ll = catalog_nll_fwd(h, t, b, lab)
+    want = catalog_nll_reference(h, t, b, lab)
+    assert float(ll[lab < 0].abs().max()) == 0.0
+    assert float(want[1][lab < 0].abs().max()) == 0.0
+    _check_by_scale(torch.float32, (lse, ll), want, "forward")
+    got = catalog_nll_bwd(h, t, b, lab, want[0], dlse, dll)
+    want = catalog_nll_bwd_reference(h, t, b, lab, want[0], dlse, dll)
+    _check_by_scale(dtype, got, want, "backward")
+
+
 @pytest.mark.parametrize("splits", ["library", 1, 3, "one_per_tile"])
 @pytest.mark.parametrize("n,v", [(77, 1001), (4097, 17771), (65536, 17771)])
 def test_catalog_forward_kernel_matches_plain_version(cuda_device, n, v,

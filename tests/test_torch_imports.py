@@ -53,7 +53,15 @@ def test_every_module_imports_with_jax_flax_optax_triton_blocked():
                 "easydgl_tpu_torch.nn.temporal",
                 "easydgl_tpu_torch.models.gru4rec",
                 "easydgl_tpu_torch.models.s2pnm",
-                "easydgl_tpu_torch.models.tisasrec"):
+                "easydgl_tpu_torch.models.tisasrec",
+                "easydgl_tpu_torch.core.mesh",
+                "easydgl_tpu_torch.core.runtime",
+                "easydgl_tpu_torch.kernels.spmd",
+                "easydgl_tpu_torch.dist.comm",
+                "easydgl_tpu_torch.dist.embedding",
+                "easydgl_tpu_torch.dist.topk",
+                "easydgl_tpu_torch.eval.evaluator",
+                "easydgl_tpu_torch.train.sharded"):
         assert new in mods
 
 
