@@ -133,7 +133,23 @@ after:
   scale), ``build_distributed_eval_step`` against ``build_eval_step``, 20
   faithful bf16 sharded steps (and the single-device step in turns with
   them), and ``cli.train --dp 1 --mp 1`` for one epoch with
-  ``Recommender.from_checkpoint`` on its checkpoint.
+  ``Recommender.from_checkpoint`` on its checkpoint;
+* context parallelism (phase 10d) on this one card: the seq axis's cp = 2
+  and 4 ranks' blocks held in one process (``dist/context.py::
+  LocalExchange``, the bodies the process-group exchange runs) at full
+  width (C = 512, H = 8, T = 2048; batches cut to 2 rows): SASREC-LC's
+  causal ring and Ulysses, BERT4REC-LC's non-causal ring and EasyDGL-LC's
+  two-sweep ring MAU, each model's logits, loss and every gradient against
+  the single-device path (the flash and streamed kernels) at dropout 0 in
+  fp32 and bf16 (``CP_TOL``), a dropout probe that reads the keep mask
+  back, and faithful bf16 train steps single-device and at cp = 2, 4 in
+  turns (under cp no attention kernel runs, the catalog kernels do);
+* the data-prep path (phase 11): 2.3M raw triplets from a seed (20,000
+  users, a 17,770-item catalog, 30-200 events each) through ``cli.prep
+  --raw --mark_csv`` (timed), the native batcher built with g++, then the
+  flagship through ``cli.train --native on`` and ``--native off`` for one
+  epoch each on the packed splits, in turns: train ex/s, host ms a batch
+  of batch assembly, the loaders' ``native`` flag, rows 1-4 launched.
 
 Besides, each full-width model runs in fp32 on the card and on the CPU and
 is compared: the flagship's eval logits and one train step (loss, every
@@ -173,6 +189,9 @@ from easydgl_tpu_torch.data.loader import BatchLoader, PackedDataset
 from easydgl_tpu_torch.data.synthetic import (day_boundary_stamps,
                                               synthetic_mark_table,
                                               synthetic_split_vectorized)
+from easydgl_tpu_torch.dist.context import (LocalExchange, ring_attention,
+                                            ulysses_attention,
+                                            use_seq_exchange)
 from easydgl_tpu_torch.eval.evaluator import build_distributed_eval_step
 from easydgl_tpu_torch.eval.metrics import MetricAccumulator
 from easydgl_tpu_torch.eval.recommender import Recommender
@@ -337,8 +356,23 @@ CUDA_KERNELS = {
                             "flash_wide_bwd_kernel"]}
 
 
+PHASE_STARTS = []     # (phase name, perf_counter) as each phase is logged
+
+
 def log(msg: str):
+    if msg.startswith("phase "):
+        PHASE_STARTS.append((msg.split(":")[0][6:],
+                             time.perf_counter()))
     print(msg, flush=True)
+
+
+def phase_seconds(end: float) -> dict:
+    """Seconds from each logged phase to the next (the last to ``end``)."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [end]
+    out = {}
+    for (name, t), e in zip(PHASE_STARTS, ends):
+        out[name] = out.get(name, 0.0) + e - t
+    return {name: round(v, 1) for name, v in out.items()}
 
 
 def check(cond: bool, msg: str):
@@ -4065,6 +4099,413 @@ def phase_sharded(card, step_ms):
                 grad_worst=grad_worst)
 
 
+# ---------------------------------------------------------------- phase 10d
+
+# (preset, cp_impl, what): each case's model at full width (C = 512, H = 8,
+# T = 2048) with its attention's sequence split over cp ranks held in this
+# one process (dist/context.py::LocalExchange)
+CP_CASES = (("SASREC-LC", "ring", "causal ring"),
+            ("SASREC-LC", "ulysses", "causal Ulysses"),
+            ("BERT4REC-LC", "ring", "non-causal ring"),
+            ("EasyDGL-LC", "ring", "the two-sweep ring MAU (BiMAU)"))
+CP_DEGREES = (2, 4)
+# rows a batch, cut from the presets' 32 (SASREC-LC, BERT4REC-LC) and 8
+# (EasyDGL-LC) to fit the time limit: the checks and the timed steps
+CP_ROWS = 2
+# The ring path against the single-device path (the flash or streamed
+# kernels) at dropout 0, |cp - single| <= tol * scale: the logits' scale is
+# their largest |single| entry, a gradient's that of its leaf (at least 1e-3
+# of the model's largest; a key projection's bias, zero in exact
+# arithmetic, at the key weight's scale as ZERO_GRAD_LEAF says), the loss
+# relative. fp32: fp32 products in both, summed in other orders and, in the
+# kernels' backward, by atomics. bf16: the kernels round the probabilities
+# (and in the MAU the modulated ones) to bf16 before @V, the ring keeps
+# them fp32 (as JAX's ring does), a 2^-8 relative difference on each
+# attention output that the bf16 backward carries to the gradients (a
+# rehearsal on the H100 measured at most 4.1e-2 of a leaf's scale there,
+# 8.1e-6 on the logits, 9.5e-6 on the loss; fp32 5.6e-6 on a gradient).
+CP_TOL = {torch.float32: dict(logits=1e-4, loss=1e-5, grads=1e-4),
+          torch.bfloat16: dict(logits=1e-3, loss=1e-4, grads=1e-1)}
+CP_TIMING_ROUNDS, CP_TIMING_STEPS = 2, 3
+
+
+def cp_batch(cfg, model, seed, training):
+    """A batch of CP_ROWS rows of preset ``cfg`` on the card, its marks
+    looked up there where the model reads them."""
+    split = synthetic_split_vectorized(num_rows=CP_ROWS,
+                                       num_items=cfg.num_items,
+                                       seqslen=cfg.seqslen, seed=seed,
+                                       with_datetime=True)
+    features, labels, _ = next(iter(BatchLoader(
+        split, data_mode=model.data_mode, batch_size=CP_ROWS,
+        masklen=cfg.masklen, is_training=training).epoch(0)))
+    features = to_device(features, "cuda")
+    labels = torch.as_tensor(labels, device="cuda")
+    table = mark_table_of(cfg)
+    if table is not None:
+        features = device_marks(features, labels, torch.as_tensor(
+            np.asarray(table, np.float32), device="cuda"),
+            is_training=training)
+    return features, labels
+
+
+def cp_forward_and_grads(model, eval_batch, train_batch):
+    """(logits of the eval batch, loss and gradients of the train batch)
+    at dropout 0, under whatever exchange is active."""
+    with torch.no_grad():
+        logits, _ = model(eval_batch[0], is_training=False)
+    loss, grads = loss_and_grads(model, *train_batch)
+    return logits.float(), float(loss), {n: g.float()
+                                         for n, g in grads.items()}
+
+
+def cp_grad_errs(got, want):
+    """Each leaf's |got - want| over its scale (``CP_TOL``'s rule)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {}
+    for n, w in want.items():
+        ref = n.replace("k.bias", "k.weight") if ZERO_GRAD_LEAF.search(
+            n) else n
+        scale = max(float(want[ref].abs().max()), 1e-3 * top)
+        errs[n] = float((got[n] - w).abs().max()) / scale
+    return errs
+
+
+def cp_case(name, impl, what, seed):
+    """Phase 10d's checks of one case in fp32 and bf16 at cp = 2 and 4,
+    against the single-device path on the card. Returns the worst errors."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "float32" if dtype == torch.float32 else "bfloat16"
+        cfg = preset(name, cp_impl=impl, hidden_dropout_rate=0.0,
+                     attention_probs_dropout_rate=0.0, compute_dtype=dname,
+                     num_events=64)
+        model = build_model(cfg, device="cuda",
+                            params=random_flax_params(cfg, seed=0))
+        eval_b = cp_batch(cfg, model, seed, False)
+        train_b = cp_batch(cfg, model, seed + 1, True)
+        ref_logits, ref_loss, ref_grads = cp_forward_and_grads(
+            model, eval_b, train_b)
+        tol = CP_TOL[dtype]
+        for cp in CP_DEGREES:
+            with use_seq_exchange(LocalExchange(cp)):
+                logits, loss, grads = cp_forward_and_grads(
+                    model, eval_b, train_b)
+            errs = cp_grad_errs(grads, ref_grads)
+            leaf = max(errs, key=errs.get)
+            row = dict(
+                logits=float((logits - ref_logits).abs().max())
+                / float(ref_logits.abs().max()),
+                loss=abs(loss - ref_loss) / abs(ref_loss), grads=errs[leaf])
+            key = f"{name}_{impl}_cp{cp}_{dname}"
+            worst[key] = row
+            log(f"  {key}: logits {row['logits']:.3e}, loss "
+                f"{row['loss']:.3e} (cp {loss:.6f}, single {ref_loss:.6f}),"
+                f" worst gradient {row['grads']:.3e} ({leaf}) of scale")
+            for k in ("logits", "loss", "grads"):
+                check(math.isfinite(row[k]) and row[k] <= tol[k],
+                      f"phase 10d {key}: {k} {row[k]:.3e} > {tol[k]}")
+        del model
+        torch.cuda.empty_cache()
+    return worst
+
+
+def cp_step_times(name, impl, seed):
+    """Faithful bf16 train steps (the preset's dropout) at CP_ROWS rows:
+    the single-device step and the cp = 2 and 4 steps in turns. Returns
+    (median ms/step by variant, the cp steps' kernel launches)."""
+    cfg = preset(name, cp_impl=impl, num_events=64)
+    model = build_model(cfg, device="cuda",
+                        params=random_flax_params(cfg, seed=0))
+    batch = cp_batch(cfg, model, seed, True)
+    step = build_train_step(model)
+    state = init_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    variants = {"single": None, **{f"cp{cp}": LocalExchange(cp)
+                                   for cp in CP_DEGREES}}
+    counters = FLASH_KERNELS + (catalog_nll_fwd, catalog_nll_bwd) \
+        + STREAMED_KERNELS + (mau_attention, mau_attention_bwd)
+    times = {v: [] for v in variants}
+    launches = {}
+    for rnd in range(CP_TIMING_ROUNDS + 1):      # round 0 warms up
+        for v, ex in variants.items():
+            for fn in counters:
+                fn.launches = 0
+            with (use_seq_exchange(ex) if ex else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(CP_TIMING_STEPS):
+                    state, loss = step(state, *batch, gen)
+                torch.cuda.synchronize()
+            if rnd:
+                times[v].append((time.perf_counter() - t0)
+                                / CP_TIMING_STEPS * 1e3)
+            check(math.isfinite(float(loss)), f"{name} {v}: loss")
+            if ex is not None:
+                launches[v] = {fn.__name__: fn.launches for fn in counters
+                               if fn.launches}
+                attn = sum(fn.launches for fn in counters
+                           if fn not in (catalog_nll_fwd, catalog_nll_bwd))
+                check(attn == 0, f"{name} {v}: an attention kernel launched "
+                                 f"under context parallelism")
+                check(catalog_nll_fwd.launches == CP_TIMING_STEPS,
+                      f"{name} {v}: the catalog kernels were not launched")
+    del model, state
+    torch.cuda.empty_cache()
+    return {v: float(np.median(t)) for v, t in times.items()}, launches
+
+
+def cp_dropout_probe(kind, rate=0.1, t=256, cp=4, seed=5):
+    """Uniform probabilities (q = k = 0, every key real) and one-hot values
+    (D = T) read the keep mask back on the card: its keep fraction, the
+    1 / (1 - rate) rescale and the backward's mask (dv_j = sum_i out_ij
+    with a unit cotangent). Returns the keep fraction."""
+    b, h = 1, 8
+    z = torch.zeros(b, h, t, t, device="cuda")
+    v = torch.eye(t, device="cuda").expand(b, h, t, t).clone()
+    v.requires_grad_()
+    km = torch.ones(b, t, device="cuda")
+    fn = ring_attention if kind == "ring" else ulysses_attention
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+    out = fn(z, z, v, km, LocalExchange(cp), causal=False, dropout_rate=rate,
+             generator=gen())
+    out.sum().backward()
+    keep = out.detach() * t * (1.0 - rate)
+    kept = (keep - 1.0).abs() < 1e-4
+    check(bool((kept | (keep.abs() < 1e-4)).all()),
+          f"dropout probe {kind}: an entry neither 0 nor rescaled")
+    frac = float(kept.float().mean())
+    check(abs(frac - (1.0 - rate)) < 0.01,
+          f"dropout probe {kind}: keep fraction {frac}")
+    dv_want = out.detach().sum(-2)[..., None].expand_as(v)
+    check(bool(torch.allclose(v.grad, dv_want, rtol=1e-5, atol=1e-6)),
+          f"dropout probe {kind}: the backward's mask is not the forward's")
+    again = fn(z, z, v.detach(), km, LocalExchange(cp), causal=False,
+               dropout_rate=rate, generator=gen())
+    check(bool(torch.equal(again, out.detach())),
+          f"dropout probe {kind}: a seed's replay differs")
+    return frac
+
+
+def phase_context(card):
+    log("phase 10d: context parallelism on one card: the seq axis's cp = 2 "
+        "and 4 ranks' blocks in this process (LocalExchange; the ring and "
+        "Ulysses bodies the process-group exchange runs), full width "
+        f"(C=512, H=8, T=2048), batches cut to B={CP_ROWS}: logits, loss "
+        "and every gradient against the single-device path (the flash / "
+        "streamed kernels) at dropout 0, fp32 and bf16; a dropout probe; "
+        "faithful bf16 train steps, single-device and cp = 2, 4 in turns, "
+        f"on {card}")
+    worst, times, launches = {}, {}, {}
+    for i, (name, impl, what) in enumerate(CP_CASES):
+        log(f"  {name}, {what}:")
+        worst.update(cp_case(name, impl, what, seed=600 + 10 * i))
+        t, n = cp_step_times(name, impl, seed=605 + 10 * i)
+        times[f"{name}_{impl}"] = t
+        launches[f"{name}_{impl}"] = n
+        log(f"    train step ms (B={CP_ROWS}, bf16, median of "
+            f"{CP_TIMING_ROUNDS} turns of {CP_TIMING_STEPS}): "
+            + ", ".join(f"{v} {ms:.4f}" for v, ms in t.items())
+            + f" on {card}; cp launches " + json.dumps(n))
+    fracs = {kind: cp_dropout_probe(kind) for kind in ("ring", "ulysses")}
+    log("  dropout probe (rate 0.1, T=256, cp=4): keep fraction "
+        + json.dumps(fracs) + ", 0 or 1/(1-rate) everywhere, the backward's"
+        " mask the forward's, a seed's replay equal")
+    return dict(worst=worst, times=times, launches=launches)
+
+
+# ---------------------------------------------------------------- phase 11
+
+# raw uid,sid,time triplets: users, catalog, events a user (uniform)
+PREP_USERS, PREP_ITEMS, PREP_EVENTS = 20000, 17770, (30, 200)
+PREP_HELDOUT = 2000      # validation and test users each
+# items kept: those with >= PREP_MIN_SC users (the reference's 100 is for
+# Netflix's 100M ratings; these 2.3M keep most of the catalog at 20)
+PREP_MIN_SC = 20
+PREP_TURNS = 1
+
+
+def prep_triplets(path, seed):
+    """Raw triplets written as a CSV: PREP_USERS users with 30-200 events
+    an hour to a day apart (whole seconds) from a start in 2001-2005,
+    items drawn with popularity (r + 10)^-0.8 over PREP_ITEMS ids, the
+    head spread over the ids. Returns the row count."""
+    import pandas as pd
+    rng = np.random.default_rng(seed)
+    n = rng.integers(PREP_EVENTS[0], PREP_EVENTS[1] + 1, PREP_USERS)
+    uid = np.repeat(np.arange(PREP_USERS), n)
+    pop = (np.arange(PREP_ITEMS) + 10.0) ** -0.8
+    sid = rng.choice(PREP_ITEMS, uid.size, p=pop / pop.sum())
+    sid = (sid * 7919 + 13) % PREP_ITEMS
+    gaps = rng.integers(3600, 86400, uid.size)
+    start = np.repeat(rng.integers(980_000_000, 1_130_000_000, PREP_USERS), n)
+    first = np.repeat(np.cumsum(n) - n, n)
+    t = start + np.cumsum(gaps) - np.cumsum(gaps)[first]
+    write_int_csv(path, ("uid", "sid", "time"), (uid, sid, t))
+    return uid.size
+
+
+def write_int_csv(path, header, columns):
+    """Non-negative integer columns as a CSV, each field zero-padded to its
+    column's widest value (read back as the same integers): one vectorised
+    pass, where pandas' writer takes seconds for millions of rows."""
+    parts = []
+    for j, col in enumerate(columns):
+        col = np.asarray(col, np.int64)
+        width = len(str(int(col.max())))
+        parts.append((col[:, None] // 10 ** np.arange(width - 1, -1, -1)
+                      % 10 + ord("0")).astype(np.uint8))
+        parts.append(np.full((col.size, 1), ord(
+            "," if j + 1 < len(columns) else "\n"), np.uint8))
+    with open(path, "wb") as f:
+        f.write((",".join(header) + "\n").encode())
+        f.write(np.concatenate(parts, axis=1).tobytes())
+
+
+def prep_marks(path, num_items, seed):
+    rng = np.random.default_rng(seed)
+    sid = np.repeat(np.arange(1, num_items), 2)
+    import pandas as pd
+    pd.DataFrame({"sid": sid, "event": rng.integers(0, 64, sid.size)}
+                 ).to_csv(path, index=False)
+
+
+def loader_ms(ds, cfg, model, use_native):
+    """Host ms a train batch of batch assembly over one epoch."""
+    ld = BatchLoader(ds, data_mode=model.data_mode,
+                     batch_size=cfg.batch_size, masklen=cfg.masklen,
+                     is_training=True, use_native=use_native)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in ld.epoch(0))
+    return (time.perf_counter() - t0) / n * 1e3, ld.native
+
+
+def phase_prep(card):
+    log("phase 11: the data-prep path: raw triplets from a seed ("
+        f"{PREP_USERS:,} users, a {PREP_ITEMS:,}-item catalog, "
+        f"{PREP_EVENTS[0]}-{PREP_EVENTS[1]} events each), cli.prep --raw "
+        "and the mark table, then the flagship (EasyDGL, bf16) through "
+        "cli.train for one epoch on the packed splits, with the native C++ "
+        f"batcher (use_native=True) and the NumPy loader, {PREP_TURNS} "
+        f"turn(s) after a warm-up run, on {card}")
+    from easydgl_tpu_torch.cli import prep as prep_cli
+    from easydgl_tpu_torch.cli import train as train_cli
+    from easydgl_tpu_torch.data import native
+    from easydgl_tpu_torch.data.etl import mark_table_from_csv
+    from easydgl_tpu_torch.train import loop
+    cwd, root_handlers = os.getcwd(), list(logging.getLogger().handlers)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    made = []
+
+    class RecordingLoader(BatchLoader):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    out = dict(runs=[])
+    try:
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        rows = prep_triplets("raw.csv", seed=11)
+        out["gen_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_items = prep_cli.main([
+            "--raw", "--fin", "raw.csv", "--fout", "data", "--seqslen", "30",
+            "--n_heldout_users", str(PREP_HELDOUT), "--min_sc",
+            str(PREP_MIN_SC)])
+        out["prep_s"] = time.perf_counter() - t0
+        # the marks name the packed ids, known once cli.prep has run; the
+        # table as cli.prep --mark_csv writes it
+        prep_marks("marks.csv", n_items, seed=12)
+        np.save("data/mark.npy", mark_table_from_csv("marks.csv", n_items))
+        splits = {s: PackedDataset.load(f"data/{s}.npz")
+                  for s in ("train", "validation", "test")}
+        log(f"  {rows:,} triplets written in {out['gen_s']:.2f} s; cli.prep "
+            f"--raw {out['prep_s']:.2f} s -> num_items {n_items:,}, rows "
+            + ", ".join(f"{s} {d.num_rows:,}" for s, d in splits.items()))
+        check(splits["train"].num_rows > 10000 and n_items > 10000,
+              "cli.prep: too few rows or items survived")
+        t0 = time.perf_counter()
+        native.load_library(build=True)
+        out["build_s"] = time.perf_counter() - t0
+        log(f"  native batcher built (g++) into {native.library_path()} in "
+            f"{out['build_s']:.2f} s")
+        cfg = preset("EasyDGL", num_items=n_items, num_events=64,
+                     compute_dtype="bfloat16")
+        model = build_model(cfg, device="cuda")
+        assembly = {}
+        for mode in ("native", "numpy", "native", "numpy"):
+            ms, is_native = loader_ms(splits["train"], cfg, model,
+                                      mode == "native")
+            check(is_native == (mode == "native"), f"loader {mode}: native")
+            assembly.setdefault(mode, []).append(ms)
+        del model
+        argv = ["--model", "EasyDGL", "--data_dir", "data", "--mark",
+                "data/mark.npy", "--num_items", str(n_items),
+                "--compute_dtype", "bfloat16", "--num_epochs", "1",
+                "--device", "cuda"]
+        records = LoopRecords()
+        loop_log = logging.getLogger(loop.__name__)
+        old_level = loop_log.level
+        loop_log.addHandler(records)
+        loop_log.setLevel(logging.INFO)
+        try:
+            train_cli.main(argv + ["--native", "off"])   # warm-up
+            for turn in range(PREP_TURNS):
+                for mode in ("on", "off"):
+                    made.clear()
+                    for fn in HARNESS_KERNELS.values():
+                        fn.launches = 0
+                    t0 = time.perf_counter()
+                    with patched(loop, "BatchLoader", RecordingLoader):
+                        summary = train_cli.main(argv + ["--native", mode])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    check(len(made) == 3 and all(
+                        ld.native == (mode == "on") for ld in made),
+                        f"cli.train --native {mode}: loader.native "
+                        f"{[ld.native for ld in made]}")
+                    check(all(math.isfinite(v) and 0.0 <= v <= 1.0
+                              for v in summary.values()),
+                          f"cli.train --native {mode}: summary {summary}")
+                    launches = {k: fn.launches
+                                for k, fn in HARNESS_KERNELS.items()}
+                    for k, v in launches.items():
+                        check(v > 0, f"cli.train --native {mode}: {k} was "
+                                     f"not launched")
+                    _, _, secs, ex_s = records.epochs[-1]
+                    out["runs"].append(dict(native=mode, turn=turn,
+                                            ex_s=ex_s, epoch_s=secs,
+                                            wall_s=wall, launches=launches))
+                    log(f"  turn {turn}, --native {mode}: {ex_s:.1f} train "
+                        f"ex/s ({secs:.3f} s for the epoch of "
+                        f"{splits['train'].num_rows:,} rows, loader "
+                        f"included), run {wall:.2f} s with eval; launches "
+                        + json.dumps(launches))
+        finally:
+            loop_log.removeHandler(records)
+            loop_log.setLevel(old_level)
+        out["assembly_ms"] = {k: float(np.median(v))
+                              for k, v in assembly.items()}
+        log("  host batch assembly, ms a B=512 train batch (median of 2): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in out["assembly_ms"].items())
+            + f"; cli.train ex/s: native " + ", ".join(
+                f"{r['ex_s']:.1f}" for r in out["runs"] if r["native"] == "on")
+            + ", numpy " + ", ".join(
+                f"{r['ex_s']:.1f}" for r in out["runs"]
+                if r["native"] == "off") + f" on {card}")
+    finally:
+        os.chdir(cwd)
+        for h in logging.getLogger().handlers:
+            if h not in root_handlers:
+                logging.getLogger().removeHandler(h)
+                h.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_names(log_text: str):
     """kernel<dtype, template ints...> of an entry function in a ptxas
     report line."""
@@ -4320,6 +4761,8 @@ def main() -> int:
     harness = phase_harness(card, ex_s)
     shard_errs, shard_timing_rows = phase_shard_checks()
     sharded = phase_sharded(card, ms_step)
+    context = phase_context(card)
+    prep = phase_prep(card)
 
     csrc = "easydgl_tpu_torch/kernels/csrc/"
     bf16 = torch.bfloat16
@@ -4340,6 +4783,10 @@ def main() -> int:
             gathered["serve_launches"]["mau_attention"],
         "training_easydgl_lc_gathered":
             gathered["launches"]["mau_attention"]}
+    for run in prep["runs"]:   # phase 11: cli.train on cli.prep's splits
+        key = f"harness_prep_native_{run['native']}"
+        fused_per_path[key] = (fused_per_path.get(key, 0)
+                               + run["launches"]["mau_attention_fwd"])
     kernels = [dict(
         name="mau_attention_fwd", route="cuda",
         source=csrc + "mau_attention_fwd.cu",
@@ -4373,6 +4820,13 @@ def main() -> int:
         if name == "mau_attention_bwd":
             per_path["training_easydgl_lc_gathered"] = \
                 gathered["launches"][name]
+        for run in prep["runs"]:
+            key = f"harness_prep_native_{run['native']}"
+            per_path[key] = per_path.get(key, 0) + run["launches"][name]
+        if name != "mau_attention_bwd":   # phase 10d's cp train steps
+            for case, by_cp in context["launches"].items():
+                per_path[f"training_cp_{case.lower()}"] = sum(
+                    n.get(name, 0) for n in by_cp.values())
         if name != "mau_attention_bwd":
             per_path["training_lc"] = lc_train_launches[name]
             per_path["training_sasrec_lc"] = sas_train_launches[name]
@@ -4553,7 +5007,21 @@ def main() -> int:
         f"{sharded['turns']['sharded']}); fp32 "
         f"gradients within {sharded['grad_worst']:.3e} of each leaf's scale"
         f" on {card}")
-    log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
+    for case, t in context["times"].items():
+        log(f"{case} train step (B={CP_ROWS}, bf16): " + ", ".join(
+            f"{v} {ms:.4f} ms" for v, ms in t.items()) + f" on {card}")
+    log("context parallelism vs the single-device path, worst of logits / "
+        "loss / gradients: " + json.dumps(
+            {k: max(v.values()) for k, v in context["worst"].items()}))
+    log(f"prep: cli.prep --raw {prep['prep_s']:.2f} s; batch assembly "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                    prep["assembly_ms"].items())
+        + "; cli.train ex/s " + ", ".join(
+            f"native {r['native']} {r['ex_s']:.1f}" for r in prep["runs"])
+        + f" on {card}")
+    t_end = time.perf_counter()
+    log("seconds by phase: " + json.dumps(phase_seconds(t_end)))
+    log(f"total {t_end - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

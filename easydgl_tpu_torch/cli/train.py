@@ -22,8 +22,20 @@ started by torchrun or by the explicit flags on each process::
         --coordinator_address 127.0.0.1:29500 --num_processes 4 \
         --process_id R
 
-``--cp``, ``--pp``, ``--pp_microbatches`` and ``--cp_impl`` (context and
-pipeline parallelism) are not ported and raise (ROADMAP A.3).
+``--cp N`` adds a seq axis of N ranks to the mesh (context parallelism,
+``dist/context.py``: each data coordinate's rows on N ranks, the
+attention's sequence split over them; the model length must divide by
+N), ``--cp_impl`` picks its ring or Ulysses core::
+
+    torchrun --nproc_per_node 4 -m easydgl_tpu_torch.cli.train \
+        --model SASREC --synthetic --dp 2 --cp 2 --cp_impl ring \
+        --device cpu ...
+
+``--pp`` and ``--pp_microbatches`` (pipeline parallelism) are not ported
+and raise (ROADMAP A.3b). ``--native on|off|auto`` picks the loader's C++
+batcher (``data/native.py``; ``on`` builds it if needed and raises where
+it cannot, ``auto`` uses it where JAX's rule finds it: the library
+``make -C native`` writes).
 """
 from __future__ import annotations
 
@@ -65,6 +77,10 @@ def parse_args(argv=None):
                         "streamed MAU for EasyDGL/CTSMA)")
     p.add_argument("--cp_impl", default=None, choices=["ring", "ulysses"],
                    help="context-parallel attention algorithm under --cp")
+    p.add_argument("--native", default="auto", choices=["auto", "on", "off"],
+                   help="the loader's C++ batcher: on (build it if needed, "
+                        "raise where it cannot), off (NumPy), auto (where "
+                        "`make -C native` built it, as the JAX package)")
     p.add_argument("--remat", action="store_true", default=None,
                    help="recompute encoder blocks in the backward "
                         "(torch.utils.checkpoint) — the long-context memory "
@@ -114,23 +130,22 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Raise for the context- and pipeline-parallel flags."""
+    """Raise for the pipeline-parallel flags."""
     asked = [name for name, on in (
-        ("--cp", args.cp > 1), ("--pp", args.pp > 1),
-        ("--pp_microbatches", args.pp_microbatches is not None),
-        ("--cp_impl", args.cp_impl is not None)) if on]
+        ("--pp", args.pp > 1),
+        ("--pp_microbatches", args.pp_microbatches is not None)) if on]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: context and pipeline parallelism are not "
-            "ported yet (ROADMAP A.3)")
+            f"{', '.join(asked)}: pipeline parallelism is not ported yet "
+            "(ROADMAP A.3b)")
 
 
 def wants_mesh(args) -> bool:
-    """The sharded path: --dp or --mp given, or a world of several
+    """The sharded path: --dp, --mp or --cp given, or a world of several
     processes (explicit flags or torchrun's environment)."""
     world = (args.num_processes if args.num_processes is not None
              else int(os.environ.get("WORLD_SIZE", "1")))
-    return bool(args.dp) or args.mp > 1 or world > 1
+    return bool(args.dp) or args.mp > 1 or args.cp > 1 or world > 1
 
 
 def build_config(args):
@@ -141,7 +156,7 @@ def build_config(args):
               "time_scale", "l2_reg", "ct_reg", "hidden_dropout_rate",
               "attention_probs_dropout_rate", "mask_seen", "seed",
               "gather_queries", "attention_impl", "remat", "filter_width",
-              "window_ratio", "compute_dtype"):
+              "window_ratio", "compute_dtype", "cp_impl"):
         v = getattr(args, k)
         if v is not None:
             overrides[k] = v
@@ -191,6 +206,7 @@ def main(argv=None):
     refuse_unported(args)
     device = resolve_device(args.device)
     mesh = None
+    cfg = build_config(args)
     if wants_mesh(args):
         from easydgl_tpu_torch.config import MeshConfig
         from easydgl_tpu_torch.core.mesh import make_mesh
@@ -198,17 +214,19 @@ def main(argv=None):
         device = init_distributed(args.coordinator_address,
                                   args.num_processes, args.process_id,
                                   device).device
-        mesh = make_mesh(MeshConfig(dp=args.dp or -1, mp=args.mp),
-                         device.type)
+        cfg = cfg.replace(mesh=MeshConfig(dp=args.dp or -1, mp=args.mp,
+                                          cp=args.cp))
+        mesh = make_mesh(cfg.mesh, device.type)
         logging.info("mesh: %s", dict(zip(mesh.mesh_dim_names,
                                            mesh.mesh.shape)))
-    cfg = build_config(args)
     (train, valid, test), mark, cfg = load_data(args, cfg)
     logging.info("config: %s", cfg)
     logging.info("device: %s", device)
     _, summary = train_model(cfg, train, valid, test, mark_table=mark,
                              ckpt_dir=args.ckpt_dir, resume=args.resume,
-                             device=device, mesh=mesh)
+                             device=device, mesh=mesh,
+                             use_native={"auto": None, "on": True,
+                                         "off": False}[args.native])
     return summary
 
 

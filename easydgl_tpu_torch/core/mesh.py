@@ -28,39 +28,51 @@ import torch.distributed as dist
 
 from easydgl_tpu_torch.config import MeshConfig
 
-DATA, MODEL = 0, 1
+DATA, MODEL, SEQ = "data", "model", "seq"
 
 
-def resolve_shape(cfg: MeshConfig, world: int) -> Tuple[int, int]:
-    """(dp, mp) with -1 resolved as JAX resolves it: both -1 puts every
-    rank on the data axis; one -1 takes what the other leaves."""
-    if cfg.cp > 1 or cfg.pp > 1:
+def resolve_shape(cfg: MeshConfig, world: int) -> Tuple[int, ...]:
+    """The mesh's shape, (dp, mp) or (dp, mp, cp), resolved as JAX's
+    ``make_mesh`` resolves it (core/mesh.py:32-49): cp must divide the
+    world; dp and mp take ``world // cp``, both -1 putting every rank on
+    the data axis and one -1 taking what the other leaves; the seq axis
+    is appended only when cp > 1."""
+    if cfg.pp > 1:
         raise NotImplementedError(
-            f"cp={cfg.cp}, pp={cfg.pp}: context and pipeline parallelism "
-            "are not ported yet (ROADMAP A.3)")
+            f"pp={cfg.pp}: pipeline parallelism is not ported yet "
+            "(ROADMAP A.3b)")
+    cp = cfg.cp
+    if cp < 1 or world % cp:
+        raise ValueError(f"{world} ranks not divisible by cp={cp}")
+    n = world // cp
     dp, mp = cfg.dp, cfg.mp
     if dp == -1 and mp == -1:
-        dp, mp = world, 1
+        dp, mp = n, 1
     elif dp == -1:
-        if world % mp:
-            raise ValueError(f"{world} ranks not divisible by mp={mp}")
-        dp = world // mp
+        if n % mp:
+            raise ValueError(f"{n} ranks not divisible by mp={mp}")
+        dp = n // mp
     elif mp == -1:
-        if world % dp:
-            raise ValueError(f"{world} ranks not divisible by dp={dp}")
-        mp = world // dp
-    if dp * mp != world:
-        raise ValueError(f"dp*mp={dp * mp} != {world} ranks")
-    return dp, mp
+        if n % dp:
+            raise ValueError(f"{n} ranks not divisible by dp={dp}")
+        mp = n // dp
+    if dp * mp * cp != world:
+        raise ValueError(f"dp*mp*cp={dp * mp * cp} != {world} ranks")
+    return (dp, mp, cp) if cp > 1 else (dp, mp)
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda"):
-    """The (data, model) ``DeviceMesh`` over every rank of the initialised
-    process group (``core/runtime.py::init_distributed``)."""
+    """The (data, model[, seq]) ``DeviceMesh`` over every rank of the
+    initialised process group (``core/runtime.py::init_distributed``)."""
     from torch.distributed.device_mesh import init_device_mesh
-    dp, mp = resolve_shape(cfg, dist.get_world_size())
-    return init_device_mesh(device_type, (dp, mp),
-                            mesh_dim_names=("data", "model"))
+    shape = resolve_shape(cfg, dist.get_world_size())
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=(DATA, MODEL, SEQ)[:len(shape)])
+
+
+def _dim(mesh, name: str) -> Optional[int]:
+    names = mesh.mesh_dim_names or ()
+    return names.index(name) if name in names else None
 
 
 def data_index(mesh) -> int:
@@ -68,7 +80,7 @@ def data_index(mesh) -> int:
 
 
 def data_size(mesh) -> int:
-    return mesh.size(DATA)
+    return mesh.size(_dim(mesh, DATA))
 
 
 def model_index(mesh) -> int:
@@ -76,7 +88,7 @@ def model_index(mesh) -> int:
 
 
 def model_size(mesh) -> int:
-    return mesh.size(MODEL)
+    return mesh.size(_dim(mesh, MODEL))
 
 
 def data_group(mesh):
@@ -85,6 +97,30 @@ def data_group(mesh):
 
 def model_group(mesh):
     return mesh.get_group(MODEL)
+
+
+def seq_size(mesh) -> int:
+    """Size of the mesh's context-parallel (sequence) axis: 1 without a
+    mesh or without a seq axis (JAX ``core/mesh.py:65``,
+    ``seq_axis_info``)."""
+    if mesh is None:
+        return 1
+    d = _dim(mesh, SEQ)
+    return 1 if d is None else mesh.size(d)
+
+
+def seq_index(mesh) -> int:
+    """This rank's coordinate on the seq axis (0 without one)."""
+    return mesh.get_local_rank(SEQ) if seq_size(mesh) > 1 else 0
+
+
+def seq_group(mesh):
+    return mesh.get_group(SEQ)
+
+
+def replicas(mesh) -> int:
+    """How many ranks of one data group hold each replicated leaf: mp cp."""
+    return model_size(mesh) * seq_size(mesh)
 
 
 def table_rows(mesh, rows: int) -> Optional[Tuple[int, int]]:

@@ -1,14 +1,18 @@
-"""Packed-sequence loader: a copy of ``easydgl_tpu.data.loader``, NumPy path.
+"""Packed-sequence loader: a copy of ``easydgl_tpu.data.loader``.
 
 Splits are fixed-shape int32/float32 arrays resident in host RAM, per-epoch
 order comes from a seeded permutation, masking is a vectorized batch
 transform (data/masking.py), and each host reads a disjoint row shard
-(``host_id``/``num_hosts``).
+(``host_id``/``num_hosts``: the data coordinate; a mesh's model and seq
+ranks of one data coordinate read the same rows).
 
 Eval batches are padded to the fixed batch size with a ``valid`` row mask so
-metric accumulation stays exact. The JAX package's optional C++ batcher
-(``data/native.py``) is not part of the port yet; the NumPy protocol gives the
-same batches for the eval path.
+metric accumulation stays exact. The C++ batcher (``data/native.py``, over
+the repo's ``native/batcher.cpp``, the JAX package's source too) gathers the
+rows and the marks and, in training, draws the masked-family protocols'
+positions (JAX loader.py:68-125); its positions come from its own streams,
+so a native train batch equals JAX's native one, not the NumPy one. The
+eval path gives the NumPy protocol's batches either way.
 """
 from __future__ import annotations
 
@@ -63,7 +67,15 @@ class BatchLoader:
                  seed: int = 9876, host_id: int = 0, num_hosts: int = 1,
                  mark_table: Optional[np.ndarray] = None,
                  needs_marks: bool = False,
-                 marks_on_device: bool = False):
+                 marks_on_device: bool = False,
+                 use_native: Optional[bool] = None):
+        """``use_native``: None uses the C++ batcher where JAX's rule
+        finds it (``native.available``: the library ``make -C native``
+        writes), so both packages take the same branch; True builds the
+        port's copy where it is not built and raises where it cannot be
+        built or loaded (never a quiet NumPy fallback); False the NumPy
+        path."""
+        from easydgl_tpu_torch.data import native as _native
         self.data = dataset
         self.data_mode = data_mode
         self.batch_size = batch_size
@@ -76,6 +88,11 @@ class BatchLoader:
         self.mask_id = dataset.num_items if mask_id is None else mask_id
         self.protocol = make_protocol(data_mode, masklen=masklen,
                                       mask_id=self.mask_id)
+        if use_native:
+            _native.load_library(build=True)
+        self.native = (_native.available() if use_native is None
+                       else use_native)
+        self._native_mod = _native if self.native else None
         self.num_hosts = num_hosts
         self.rows = np.arange(host_id, dataset.num_rows, num_hosts)
 
@@ -87,8 +104,26 @@ class BatchLoader:
         return -(-max_host_rows // self.batch_size)
 
     def _marks_of(self, ids: np.ndarray) -> np.ndarray:
+        if self.native:
+            return self._native_mod.mark_gather(self.mark_table, ids)
         safe = np.where(ids >= self.mark_table.shape[0], 0, ids)
         return self.mark_table[safe].astype(np.float32)
+
+    def _native_protocol(self, arrays, epoch: int, batch_idx: int):
+        """The C++ masked-family train protocols (native/batcher.cpp), the
+        contract of data/masking.py."""
+        tokens = arrays["seqs_i"]
+        ignore_head = 1 if self.data_mode in ("mau", "grec") else 0
+        masked, positions, labels = self._native_mod.masked_batch(
+            tokens, self.masklen, self.mask_id, ignore_head,
+            self.seed, epoch, batch_idx)
+        if self.data_mode == "grec":
+            features = {"seqs_i": tokens, "seqs_m": masked,
+                        "masked_positions": positions - 1}
+        else:
+            features = {"seqs_i": masked, "masked_positions": positions,
+                        "seqs_t": arrays["seqs_t"]}
+        return features, labels
 
     def epoch(self, epoch: int = 0
               ) -> Iterator[Tuple[Dict[str, np.ndarray], np.ndarray,
@@ -112,13 +147,25 @@ class BatchLoader:
                 pad_row = order[0] if len(order) else 0
                 rows = np.concatenate(
                     [rows, np.full(bs - n_real, pad_row)])
-            arrays = {k: v[rows] for k, v in self.data.arrays.items()}
+            if self.native:
+                arrays = {k: self._native_mod.gather_rows(v, rows)
+                          for k, v in self.data.arrays.items()}
+            else:
+                arrays = {k: v[rows] for k, v in self.data.arrays.items()}
             if self.is_training and n_real < bs:
                 # train tail: zero rows carry zero label weight
                 arrays = {k: v.copy() for k, v in arrays.items()}
                 for v in arrays.values():
                     v[n_real:] = 0
-            features, labels = self.protocol(arrays, self.is_training, rng)
+            if (self.native and self.is_training and
+                    self.data_mode in ("masked", "mau", "grec") and
+                    # the native sampler's partial Fisher-Yates buffer has
+                    # 512 slots; longer rows take the NumPy protocol
+                    self.data.arrays["seqs_i"].shape[1] <= 512):
+                features, labels = self._native_protocol(arrays, epoch, i)
+            else:
+                features, labels = self.protocol(arrays, self.is_training,
+                                                 rng)
             if (self.needs_marks and self.mark_table is not None
                     and not self.marks_on_device):
                 features["seqs_marks"] = self._marks_of(features["seqs_i"])

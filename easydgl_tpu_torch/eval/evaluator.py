@@ -9,7 +9,9 @@ top-k, an all-gather of the (values, GLOBAL ids) candidates, a final
 top-k), and HR/NDCG come from the merged ids. No rank builds a (B, V) row.
 The sums are then added over the data axis, so every rank returns the
 global batch's sums (Base.py:150-207 semantics, the single-device step's
-tie-break).
+tie-break). The seq ranks of a (data, model) coordinate (cp > 1) run the
+same forward on the same rows, the attention's sequence split over them
+(``dist/context.py``), and return the same sums.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Dict
 
 import torch
 
-from easydgl_tpu_torch.core.mesh import table_rows
+from easydgl_tpu_torch.core.mesh import model_size, table_rows
 from easydgl_tpu_torch.dist.topk import (distributed_mask_seen,
                                          distributed_top_k)
 from easydgl_tpu_torch.eval.metrics import MAX_K, TOPK
@@ -50,9 +52,9 @@ def build_distributed_eval_step(model: SequentialModel, mesh,
     the vocab."""
     mask_seen = model.cfg.mask_seen
     vocab = model.vocab_size
-    if table_rows(mesh, vocab) is None and mesh.size(1) > 1:
+    if table_rows(mesh, vocab) is None and model_size(mesh) > 1:
         raise ValueError(f"vocab {vocab} does not split over "
-                         f"mp={mesh.size(1)}")
+                         f"mp={model_size(mesh)}")
     start, stop = table_rows(mesh, vocab) or (0, vocab)
 
     def merged(logits, seqs_i, true_items, valid):

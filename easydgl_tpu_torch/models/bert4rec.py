@@ -89,7 +89,7 @@ class BERT4REC(SequentialModel):
         for i in range(cfg.num_blocks):
             self.add_module(f"block{i}_attn", BERTAttention(
                 c, cfg.num_heads, cfg.attention_probs_dropout_rate,
-                impl=cfg.attention_impl, **kw))
+                impl=cfg.attention_impl, cp_impl=cfg.cp_impl, **kw))
             self.add_module(f"block{i}_attn_out", Dense(c, c, **kw))
             self.add_module(f"block{i}_ln0", ContribLayerNorm(c, **kw))
             self.add_module(f"block{i}_inter", Dense(c, 2 * c, **kw))

@@ -69,7 +69,7 @@ class S2PNM(SequentialModel):
         self.attn_ln = ContribLayerNorm(2 * c, **kw)
         self.attn = MultiHeadAttention(
             2 * c, 2 * c, c, cfg.num_heads, cfg.attention_probs_dropout_rate,
-            impl=cfg.attention_impl, **kw)
+            impl=cfg.attention_impl, cp_impl=cfg.cp_impl, **kw)
         self.ffn_ln = ContribLayerNorm(c, **kw)
         self.ffn = FeedForward(c, (c, c), cfg.hidden_dropout_rate, **kw)
         self.dict_ln = ContribLayerNorm(4 * c, **kw)

@@ -78,7 +78,7 @@ class SASREC(SequentialModel):
             self.add_module(f"block{i}_attn", MultiHeadAttention(
                 c_in, c_in, c, cfg.num_heads,
                 cfg.attention_probs_dropout_rate, impl=cfg.attention_impl,
-                compute_dtype=cdt, device=device))
+                cp_impl=cfg.cp_impl, compute_dtype=cdt, device=device))
             self.add_module(f"block{i}_ln1", ContribLayerNorm(
                 c, compute_dtype=cdt, device=device))
             self.add_module(f"block{i}_ffn", FeedForward(

@@ -77,7 +77,7 @@ class TGAT(SequentialModel):
             self.add_module(f"block{i}_ln0", ContribLayerNorm(c, **kw))
             self.add_module(f"block{i}_attn", TfMultiHeadAttention(
                 c, cfg.num_heads, cfg.attention_probs_dropout_rate,
-                impl=cfg.attention_impl, **kw))
+                impl=cfg.attention_impl, cp_impl=cfg.cp_impl, **kw))
             self.add_module(f"block{i}_ln1", ContribLayerNorm(c, **kw))
             self.add_module(f"block{i}_ffn", FeedForward(
                 c, (c, c), cfg.hidden_dropout_rate, **kw))

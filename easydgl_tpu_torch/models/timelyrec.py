@@ -100,7 +100,7 @@ class TimelyREC(SequentialModel):
         self.user_attn_ln = ContribLayerNorm(2 * c, **kw)
         self.user_attn = MultiHeadAttention(
             2 * c, 2 * c, c, cfg.num_heads, cfg.attention_probs_dropout_rate,
-            impl=cfg.attention_impl, **kw)
+            impl=cfg.attention_impl, cp_impl=cfg.cp_impl, **kw)
         self.user_ffn_ln = ContribLayerNorm(c, **kw)
         self.user_ffn = FeedForward(c, (c, c), cfg.hidden_dropout_rate, **kw)
         self.user_out_ln = ContribLayerNorm(c, **kw)

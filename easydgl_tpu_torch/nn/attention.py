@@ -24,7 +24,11 @@ no key).
 
 Under a (data, model) mesh the flash core splits whole heads over the
 model axis (``kernels/spmd.py::flash_attention_spmd``), as JAX's SPMD
-branch does; the context-parallel branches are not ported (ROADMAP A.3).
+branch does. Under a seq axis of cp > 1 (or a ``LocalExchange``,
+``dist/context.py::seq_exchange``) both modules take the context-parallel
+branch whatever their ``impl`` (JAX attention.py:92-110, :165-194):
+``cp_impl`` ``"ring"`` or ``"ulysses"`` (``dist/context.py``); BERTAttention
+takes it with a key mask only, as JAX's.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from torch import nn
 
 from easydgl_tpu_torch.core.mesh import spmd_mesh
 from easydgl_tpu_torch.kernels.flash_attention import flash_attention
-from easydgl_tpu_torch.nn.layers import (Dense, dropout, merge_heads,
-                                         mm_fp32acc, split_heads)
+from easydgl_tpu_torch.nn.layers import (Dense, dropout, dropout_seed,
+                                         merge_heads, mm_fp32acc, split_heads)
 
 NEG_INF_LOGIT = -(2.0 ** 32) + 1.0   # the reference's mask value
 
@@ -90,10 +94,7 @@ def flash_context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     1/sqrt of q's width; the Bochner attentions pass 1/sqrt(dh) of their
     un-augmented heads). ``spmd`` False keeps the single-device kernel
     call under a mesh (TGREC's, which has no SPMD branch in JAX)."""
-    seed = None
-    if rate > 0.0:
-        seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
-                             device=generator.device)
+    seed = dropout_seed(generator) if rate > 0.0 else None
     mesh = spmd_mesh() if spmd else None
     if mesh is not None:
         # under a mesh: heads split over the model axis (kernels/spmd.py),
@@ -124,7 +125,7 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, in_queries: int, in_keys: int, num_units: int,
                  num_heads: int, dropout_rate: float = 0.0, *,
-                 impl: str = "xla",
+                 impl: str = "xla", cp_impl: str = "ring",
                  compute_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         if impl not in ("xla", "flash"):
@@ -133,6 +134,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.impl = impl
+        self.cp_impl = cp_impl
         self.compute_dtype = compute_dtype
         kw = dict(compute_dtype=compute_dtype, device=device)
         self.q = Dense(in_queries, num_units, **kw)
@@ -151,6 +153,15 @@ class MultiHeadAttention(nn.Module):
         key_mask = torch.sign(torch.abs(keys.detach().sum(-1)))
         residual = queries[:, :, :self.num_units]
         rate = self.dropout_rate if generator is not None else 0.0
+
+        from easydgl_tpu_torch.dist.context import cp_attention, seq_exchange
+        ex = seq_exchange()
+        if ex is not None:
+            ctx = cp_attention(self.cp_impl, q, k, v, key_mask, ex,
+                               causal=causality, dropout_rate=rate,
+                               generator=generator,
+                               compute_dtype=self.compute_dtype)
+            return merge_heads(ctx) + residual
 
         if self.impl == "flash":
             ctx = flash_context(q, k, v, key_mask, causal=causality,
@@ -171,6 +182,7 @@ class BERTAttention(nn.Module):
 
     def __init__(self, num_units: int, num_heads: int,
                  dropout_rate: float = 0.0, *, impl: str = "xla",
+                 cp_impl: str = "ring",
                  compute_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         if impl not in ("xla", "flash"):
@@ -178,6 +190,7 @@ class BERTAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.impl = impl
+        self.cp_impl = cp_impl
         self.compute_dtype = compute_dtype
         kw = dict(compute_dtype=compute_dtype, device=device)
         self.q = Dense(num_units, num_units, **kw)
@@ -198,6 +211,14 @@ class BERTAttention(nn.Module):
         k = split_heads(self.k(keys), h)
         v = split_heads(self.v(keys), h)
         rate = self.dropout_rate if generator is not None else 0.0
+
+        from easydgl_tpu_torch.dist.context import cp_attention, seq_exchange
+        ex = seq_exchange() if key_mask is not None else None
+        if ex is not None:
+            return merge_heads(cp_attention(
+                self.cp_impl, q, k, v, key_mask.float(), ex, causal=False,
+                dropout_rate=rate, generator=generator,
+                compute_dtype=self.compute_dtype))
 
         if self.impl == "flash" and key_mask is not None:
             return merge_heads(flash_context(

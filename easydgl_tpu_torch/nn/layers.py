@@ -74,6 +74,14 @@ def dropout(x: torch.Tensor, rate: float,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def dropout_seed(generator: torch.Generator) -> torch.Tensor:
+    """One int64 seed, on the generator's device, for the counter-based
+    (Philox) dropout of the attention kernels and the context-parallel
+    bodies; drawing it does not wait for the device."""
+    return torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                         device=generator.device)
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Erf-based GELU (reference: src/model/BERT4REC.py:12-24)."""
     return F.gelu(x, approximate="none")

@@ -81,8 +81,15 @@ Attention dropout (training) takes one seed per call, drawn from the step's
 temporal.py:652-685); both engines draw their mask from it with the same
 Philox rule, and the backward redraws it from the same seed.
 ``mau_dense`` draws its mask from the generator itself (``nn.layers.
-dropout``), as JAX's chain takes flax's ``nn.Dropout``. The
-context-parallel engine of the JAX module is not ported yet.
+dropout``), as JAX's chain takes flax's ``nn.Dropout``.
+
+Context parallelism (``dist/context.py``; a seq axis of cp > 1 or a
+``LocalExchange``): ``MAU`` takes the two-sweep ring MAU before either
+engine (JAX temporal.py:575-596), except for gathered-query calls, whose
+rows are not sequence blocks; ``TfMultiHeadAttention`` in its factored
+and flash forms runs the augmented product through ``cp_attention``
+(ring or Ulysses by ``cp_impl``, JAX :194-212), the ring carrying the
+augmented width 4 dh for q and k and dh for v.
 """
 from __future__ import annotations
 
@@ -93,13 +100,15 @@ from torch import nn
 
 from easydgl_tpu_torch.core.mesh import spmd_mesh
 from easydgl_tpu_torch.dist.comm import data_total
+from easydgl_tpu_torch.dist.context import (cp_attention, mau_ring_attention,
+                                            seq_exchange)
 from easydgl_tpu_torch.kernels.mau_attention import mau_attention
 from easydgl_tpu_torch.kernels.mau_streamed import mau_streamed
 from easydgl_tpu_torch.nn.attention import (NEG_INF_LOGIT, flash_context,
                                             masked_softmax, rows_that_see)
 from easydgl_tpu_torch.nn.layers import (Dense, LastAxisLayerNorm, dropout,
-                                         einsum_fp32acc, merge_heads,
-                                         mm_fp32acc, split_heads)
+                                         dropout_seed, einsum_fp32acc,
+                                         merge_heads, mm_fp32acc, split_heads)
 
 
 def _split_heads_4d(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -197,11 +206,13 @@ class TfMultiHeadAttention(nn.Module):
 
     def __init__(self, num_units: int, num_heads: int,
                  dropout_rate: float = 0.0, *, impl: str = "xla",
+                 cp_impl: str = "ring",
                  compute_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.impl = _impl_of("TfMultiHeadAttention", impl)
+        self.cp_impl = cp_impl
         self.compute_dtype = compute_dtype
         kw = dict(compute_dtype=compute_dtype, device=device)
         self.q = Dense(num_units, num_units, **kw)
@@ -230,6 +241,13 @@ class TfMultiHeadAttention(nn.Module):
             cq, sq, ck, sk = (split_heads(f, h) for f in time_factors)
             qa = torch.cat([q, q, q * cq.to(q.dtype), q * sq.to(q.dtype)], -1)
             ka = torch.cat([k, kp, ck.to(k.dtype), sk.to(k.dtype)], -1)
+            ex = seq_exchange()
+            if ex is not None:
+                ctx = cp_attention(self.cp_impl, qa, ka.to(qa.dtype), v,
+                                   key_mask, ex, causal=causality,
+                                   scale=d ** -0.5, dropout_rate=rate,
+                                   generator=generator, compute_dtype=cdt)
+                return merge_heads(ctx) + queries
             if self.impl == "flash":
                 # one dtype for the kernels: the dense form rounds kp to
                 # the compute dtype in its product too
@@ -515,15 +533,16 @@ class MAU(nn.Module):
             qpos = None
             q_res = queries[:, :, :self.num_units]
         rate = self.dropout_rate if generator is not None else 0.0
+        ex = seq_exchange() if qpos is None else None
+        if ex is not None:
+            return self._ring(qq, kk, vv, tt, key_mask, intervals,
+                              mark_onehot, rate, generator, ex, q_res)
         if self.intensity_impl == "streamed" and qpos is not None:
             out, mark_intensity = mau_dense(
                 self, qq, kk, vv, tt, key_mask, intervals, mark_onehot, qpos,
                 rate, generator)
             return out + q_res, mark_intensity
-        seed = None
-        if rate > 0.0:
-            seed = torch.randint(0, 2 ** 31 - 1, (), generator=generator,
-                                 device=generator.device)
+        seed = dropout_seed(generator) if rate > 0.0 else None
         params = (self.intensity_dense_kernel, self.intensity_dense_bias,
                   self.intensity_weight, self.intensity_scaling)
         if self.intensity_impl == "streamed":
@@ -546,6 +565,21 @@ class MAU(nn.Module):
                 *params, self.causal_default, self.diag_reset, rate,
                 num_heads=self.num_heads, qpos=qpos, dropout_seed=seed)
         return out + q_res, mark_intensity
+
+
+    def _ring(self, qq, kk, vv, tt, key_mask, intervals, mark_onehot, rate,
+              generator, ex, q_res):
+        """The ring MAU over ``ex`` (``dist/context.py``), its dropout
+        drawn from the step's generator."""
+        h = self.num_heads
+        out, mark_intensity = mau_ring_attention(
+            *(split_heads(x, h) for x in (qq, kk, vv, tt)), key_mask,
+            intervals, mark_onehot, self.intensity_dense_kernel,
+            self.intensity_dense_bias, self.intensity_weight,
+            self.intensity_scaling, ex, causal=self.causal_default,
+            diag_reset=self.diag_reset, dropout_rate=rate,
+            generator=generator)
+        return merge_heads(out) + q_res, mark_intensity
 
 
 def mau_dense(mau: MAU, qq, kk, vv, tt, key_mask, intervals, mark_onehot,

@@ -49,11 +49,12 @@ def make_loaders(cfg: Config, model: SequentialModel,
                  test: PackedDataset,
                  mark_table: Optional[np.ndarray] = None,
                  marks_on_device: bool = False,
-                 host_id: int = 0, num_hosts: int = 1):
+                 host_id: int = 0, num_hosts: int = 1,
+                 use_native: Optional[bool] = None):
     """The train, validation and test loaders of one data shard.
     cfg.batch_size is the GLOBAL batch; shard ``host_id`` of ``num_hosts``
     (the data axis) loads batch_size / num_hosts rows of its disjoint
-    rows."""
+    rows. ``use_native``: ``BatchLoader``'s."""
     if cfg.batch_size % num_hosts:
         raise ValueError(f"global batch {cfg.batch_size} not divisible by "
                          f"{num_hosts} data shards")
@@ -61,7 +62,7 @@ def make_loaders(cfg: Config, model: SequentialModel,
               batch_size=cfg.batch_size // num_hosts,
               masklen=cfg.masklen, seed=cfg.seed, mark_table=mark_table,
               needs_marks=model.uses_tpp, marks_on_device=marks_on_device,
-              host_id=host_id, num_hosts=num_hosts)
+              host_id=host_id, num_hosts=num_hosts, use_native=use_native)
     return (BatchLoader(train, is_training=True, **kw),
             BatchLoader(valid, is_training=False, **kw),
             BatchLoader(test, is_training=False, **kw))
@@ -138,15 +139,18 @@ def train_model(cfg: Config, train_ds: PackedDataset, valid_ds: PackedDataset,
                 mark_table: Optional[np.ndarray] = None,
                 ckpt_dir: Optional[str] = None,
                 num_epochs: Optional[int] = None,
-                resume: bool = False, *, device=None, mesh=None
+                resume: bool = False, *, device=None, mesh=None,
+                use_native: Optional[bool] = None
                 ) -> Tuple[TrainState, Dict[str, float]]:
     """Train with early stopping on ``device`` (default ``cuda``; raises if
     there is none). Weights start from ``cfg.seed`` (``build_model``);
     with ``resume`` and a checkpoint in ``ckpt_dir`` the run continues from
     the latest one, at epoch ``step // steps_per_epoch``. ``mesh``: the
-    (data, model) mesh of the sharded path (this rank's ``device``).
-    Returns the final state (this rank's under a mesh) and the
-    EarlyStopping summary (test metrics of the best epoch)."""
+    (data, model[, seq]) mesh of the sharded path (this rank's
+    ``device``); a data coordinate's seq ranks load the same rows.
+    ``use_native``: the loaders' C++ batcher (``BatchLoader``). Returns
+    the final state (this rank's under a mesh) and the EarlyStopping
+    summary (test metrics of the best epoch)."""
     dev = resolve_device(device)
     model = build_model(cfg, device=dev)
     host_id, num_hosts = host_shard_info(mesh)
@@ -156,7 +160,8 @@ def train_model(cfg: Config, train_ds: PackedDataset, valid_ds: PackedDataset,
     mt = np.asarray(mark_table, np.float32) if dev_marks else None
     tr_loader, vl_loader, te_loader = make_loaders(
         cfg, model, train_ds, valid_ds, test_ds, mark_table,
-        marks_on_device=dev_marks, host_id=host_id, num_hosts=num_hosts)
+        marks_on_device=dev_marks, host_id=host_id, num_hosts=num_hosts,
+        use_native=use_native)
     state = init_state(model)
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None

@@ -1,4 +1,4 @@
-"""Training and eval over a (data, model) mesh (port of
+"""Training and eval over a (data, model[, seq]) mesh (port of
 ``easydgl_tpu.train.sharded``).
 
 One process per rank. The dense tower is data-parallel: each rank runs it
@@ -12,6 +12,15 @@ rank and each table slice's its own. After the backward, the table slices'
 gradients are summed over the data axis and the replicated leaves' over
 the whole world, divided by mp (``dist/comm.py::reduce_gradients``), so
 that every rank's replicas stay bit-identical.
+
+Under a seq axis (cp > 1, ``dist/context.py``) the cp ranks of a (data,
+model) coordinate read the same rows and run the same dense graph too;
+only the attention splits the sequence over them. Its split's backward
+all-gathers the blocks' gradients and its gather's backward takes the
+rank's block, so each replicated leaf's dense part arrives whole and
+equal on every seq rank (counted once, not cp times), and the world's
+sum is divided by mp cp; a table slice's gradient is summed over data and
+averaged over seq.
 
 The steps are ``train/steps.py``'s, given the mesh. The loss of a rank is
 its share of the global batch's (``compute_loss``), so the sum over the

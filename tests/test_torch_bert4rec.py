@@ -183,7 +183,8 @@ def test_loader_matches_jax(small):
     ds = PackedDataset(dict(small["ds"].arrays), small["ds"].num_items)
     for train in (False, True):
         mine = BatchLoader(ds, data_mode="masked", batch_size=3,
-                           masklen=SMALL["masklen"], is_training=train)
+                           masklen=SMALL["masklen"], is_training=train,
+                           use_native=False)
         theirs = _jloader(small, 3, train)
         for (f, lab, valid), (jf, jlab, jvalid) in zip(mine.epoch(0),
                                                        theirs.epoch(0)):

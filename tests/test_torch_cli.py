@@ -14,10 +14,12 @@
   mask_seen top-k lists;
 * the same train and analytics round trip for GRU4REC, S2PNM and
   TiSASREC (one epoch);
-* the context- and pipeline-parallel flags and a model missing from the
-  registry raise (``--dp``, ``--mp`` and the multi-process flags run:
-  ``tests/test_torch_dist_cli.py``); so does ``cli.train`` without
-  ``--device`` on a machine without a card.
+* the pipeline-parallel flags and a model missing from the registry
+  raise, the context-parallel ones are accepted (``--dp``, ``--mp``,
+  ``--cp`` and the multi-process flags run:
+  ``tests/test_torch_dist_cli.py``, ``tests/test_torch_context.py``); so
+  does ``cli.train`` without ``--device`` raise on a machine without a
+  card.
 
 Tiny config: EasyDGL, L = 10, C = 16, H = 2, 1 block, E = 4, B = 16, 64
 train rows; V = 201, as in ``tests/test_cli.py``, so that HR@100 is not 1
@@ -139,11 +141,27 @@ def test_recommend_from_trained_checkpoint(tmp_path):
     ["--cp", "2"], ["--pp", "2"], ["--pp_microbatches", "4"],
     ["--cp_impl", "ulysses"]])
 def test_multi_device_flags_raise(tmp_path, monkeypatch, flags):
+    """The pipeline-parallel flags raise (ROADMAP A.3b). The
+    context-parallel ones are accepted: ``--cp 2`` asks for a seq axis of
+    two ranks and so stops at the mesh of this one-process world (its
+    training runs in ``tests/test_torch_context.py`` over four ranks);
+    ``--cp_impl ulysses`` without it trains on one device."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        train_cli.main(["--model", "EasyDGL", "--synthetic",
-                        "--synthetic_rows", "16", "--device", "cpu", *TINY,
-                        *flags])
+    argv = ["--model", "EasyDGL", "--synthetic", "--synthetic_rows", "16",
+            "--num_epochs", "1", "--device", "cpu", *TINY, *flags]
+    if flags[0].startswith("--pp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.3b"):
+            train_cli.main(argv)
+    elif flags[0] == "--cp":
+        try:
+            with pytest.raises(ValueError, match="not divisible by cp=2"):
+                train_cli.main(argv)
+        finally:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    else:
+        assert np.isfinite(train_cli.main(argv)["H100"])
 
 
 def test_unported_model_raises(tmp_path, monkeypatch):

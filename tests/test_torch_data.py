@@ -56,7 +56,8 @@ def test_batch_loader_identical_with_marks_and_host_shards(is_training):
         kw = dict(data_mode="mau", batch_size=4, masklen=3,
                   is_training=is_training, seed=5, host_id=host, num_hosts=2,
                   mark_table=table, needs_marks=True)
-        mine = loader.BatchLoader(loader.PackedDataset(ds.arrays, 30), **kw)
+        mine = loader.BatchLoader(loader.PackedDataset(ds.arrays, 30),
+                                  use_native=False, **kw)
         theirs = jloader.BatchLoader(ds, use_native=False, **kw)
         assert mine.num_batches() == theirs.num_batches()
         for epoch in (0, 1):

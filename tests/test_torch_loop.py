@@ -124,7 +124,7 @@ def test_train_model_matches_jax_from_one_step0_state(splits, tmp_path,
         ckpt_dir=str(tmp_path / "jax"), num_epochs=2, resume=True)
     state, summary = loop.train_model(
         cfg, tr, vl, te, mark_table=table, ckpt_dir=str(tmp_path / "port"),
-        num_epochs=2, resume=True, device="cpu")
+        num_epochs=2, resume=True, device="cpu", use_native=False)
 
     assert state.step == int(jstate.step) == 8
     want = flax_to_torch(jax.tree.map(np.asarray, jstate.params))

@@ -30,8 +30,9 @@ the catalog or of the heads.
   before the reduction: the replicated parameters stay bit-identical on
   every rank; more than one process without --process_id or
   --coordinator_address raises;
-* the loaders' data shards, the mesh shape rules, and the gathered
-  checkpoint state against the single-device layout.
+* the loaders' data shards, the mesh shape rules (a seq axis resolved
+  as JAX's ``make_mesh`` resolves it, the pipeline axis refused), and the
+  gathered checkpoint state against the single-device layout.
 
 Dropout is 0 where the two sides are compared (their PRNG streams differ
 by design).
@@ -555,7 +556,28 @@ def test_mesh_shape_resolves_as_jax(world, cfg, want):
 
 
 @pytest.mark.parametrize("cfg", [MeshConfig(dp=2, mp=2, cp=2),
-                                 MeshConfig(dp=1, mp=1, pp=2)])
+                                 MeshConfig(dp=1, mp=1, pp=2),
+                                 MeshConfig(dp=-1, mp=1, cp=4),
+                                 MeshConfig(dp=-1, mp=2, cp=2),
+                                 MeshConfig(dp=1, mp=-1, cp=2),
+                                 MeshConfig(dp=-1, mp=-1, cp=8)])
 def test_context_and_pipeline_axes_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        resolve_shape(cfg, 8)
+    """The pipeline axis still raises (ROADMAP A.3b); a seq axis resolves
+    to JAX ``make_mesh``'s shape on eight devices, appended only where
+    cp > 1."""
+    if cfg.pp > 1:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
+            resolve_shape(cfg, 8)
+        return
+    want = jmake_mesh(JMeshConfig(dp=cfg.dp, mp=cfg.mp, cp=cfg.cp),
+                      devices=jax.devices()[:8])
+    assert resolve_shape(cfg, 8) == tuple(want.devices.shape)
+    assert want.axis_names == ("data", "model", "seq")[:len(
+        want.devices.shape)]
+
+
+def test_indivisible_context_axis_raises_as_jax():
+    with pytest.raises(ValueError, match="not divisible by cp=3"):
+        resolve_shape(MeshConfig(dp=-1, cp=3), 8)
+    with pytest.raises(AssertionError):
+        jmake_mesh(JMeshConfig(dp=-1, cp=3), devices=jax.devices()[:8])

@@ -2,12 +2,14 @@
 ``test_torch_dist_eval``, ``test_torch_dist_cli``).
 
 ``run_world`` spawns one process per rank with ``torch.multiprocessing``,
-starts a gloo process group and a (dp, mp) mesh through the port's own
-``core/runtime.py`` and ``core/mesh.py``, runs one of the ``w_*`` functions
-below on every rank and returns each rank's result. This module imports
-torch and the port, never JAX: the JAX side of each test runs in the
-pytest process. A rank's rows of a global batch are its data coordinate's
-block of B / dp rows, as ``train/loop.py::make_loaders`` hands them out.
+starts a gloo process group and a (dp, mp[, cp]) mesh through the port's
+own ``core/runtime.py`` and ``core/mesh.py``, runs one of the ``w_*``
+functions below on every rank and returns each rank's result. This module
+imports torch and the port, never JAX: the JAX side of each test runs in
+the pytest process. A rank's rows of a global batch are its data
+coordinate's block of B / dp rows, as ``train/loop.py::make_loaders``
+hands them out; the seq ranks of a data coordinate hold the same rows
+(``test_torch_context``).
 """
 from __future__ import annotations
 
@@ -19,32 +21,34 @@ import torch
 import torch.distributed as dist
 
 
-def run_world(fn_name: str, payload, dp: int, mp: int, out_dir):
+def run_world(fn_name: str, payload, dp: int, mp: int, out_dir,
+              cp: int = 1):
     """Every rank's result of ``fn_name(mesh, payload)`` on a gloo world of
-    dp * mp ranks."""
+    dp * mp * cp ranks."""
     import torch.multiprocessing as tmp
 
     from easydgl_tpu_torch.core.runtime import free_port
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    world = dp * mp
-    tmp.spawn(_entry, args=(world, free_port(), dp, mp, fn_name, payload,
-                            str(out_dir)), nprocs=world, join=True)
+    world = dp * mp * cp
+    tmp.spawn(_entry, args=(world, free_port(), (dp, mp, cp), fn_name,
+                            payload, str(out_dir)), nprocs=world, join=True)
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
 
 
-def _entry(rank, world, port, dp, mp, fn_name, payload, out_dir):
+def _entry(rank, world, port, shape, fn_name, payload, out_dir):
     torch.set_num_threads(1)
     from easydgl_tpu_torch.config import MeshConfig
     from easydgl_tpu_torch.core.mesh import make_mesh
     from easydgl_tpu_torch.core.runtime import init_distributed
     init_distributed(f"127.0.0.1:{port}", world, rank, "cpu")
+    dp, mp, cp = shape
     try:
         if fn_name == "w_cli":
             res = w_cli(rank, world, port, payload)
         else:
-            mesh = make_mesh(MeshConfig(dp=dp, mp=mp), "cpu")
+            mesh = make_mesh(MeshConfig(dp=dp, mp=mp, cp=cp), "cpu")
             res = globals()[fn_name](mesh, payload)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -269,3 +273,87 @@ def w_cli(rank, world, port, p):
     return train_cli.main(p["argv"] + [
         "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
         str(world), "--process_id", str(rank)])
+
+
+# ---------------------------------------------------------------- context
+
+
+def context_case(ex, case):
+    """One ``dist/context.py`` call over the exchange ``ex`` on the case's
+    whole inputs: the output (and, for the ring MAU, the intensity) and
+    the gradients of sum(out * co) [+ sum(cos(lam))] with respect to
+    every input. ``test_torch_context`` runs it in a world (the mesh's
+    seq axis) and in one process (a ``LocalExchange``)."""
+    from easydgl_tpu_torch.dist.context import (mau_ring_attention,
+                                                ring_attention,
+                                                ulysses_attention)
+    kind, rate = case["kind"], case.get("rate", 0.0)
+    kw = dict(dropout_rate=rate, generator=torch.Generator().manual_seed(
+        case.get("seed", 0)))
+    if kind == "mau":
+        names = ("q", "k", "v", "t", "wd", "bd", "w", "sc")
+        x = {n: _t(case[n]).clone().requires_grad_() for n in names}
+        out, lam = mau_ring_attention(
+            x["q"], x["k"], x["v"], x["t"], _t(case["km"]), _t(case["iv"]),
+            _t(case["oh"]), x["wd"], x["bd"], x["w"], x["sc"], ex,
+            causal=case["causal"], diag_reset=case["diag"], **kw)
+        loss = (out * _t(case["co"])).sum() + torch.cos(lam).sum()
+        res = dict(out=out.detach(), lam=lam.detach())
+    else:
+        names = ("q", "k", "v")
+        x = {n: _t(case[n]).clone().requires_grad_() for n in names}
+        fn = ring_attention if kind == "ring" else ulysses_attention
+        out = fn(x["q"], x["k"], x["v"], _t(case["km"]), ex,
+                 causal=case["causal"], **kw)
+        loss = (out * _t(case["co"])).sum()
+        res = dict(out=out.detach())
+    loss.backward()
+    res["grads"] = {n: x[n].grad for n in names}
+    return res
+
+
+def w_context(mesh, cases):
+    """``context_case`` of every case over the mesh's seq axis."""
+    from easydgl_tpu_torch.core.mesh import use_spmd_mesh
+    from easydgl_tpu_torch.dist.context import seq_exchange
+    with use_spmd_mesh(mesh):
+        ex = seq_exchange()
+        return {name: context_case(ex, c) for name, c in cases.items()}
+
+
+def w_logits(mesh, p):
+    """The eval forward's logits of this rank's rows under the mesh."""
+    from easydgl_tpu_torch.core.mesh import use_spmd_mesh
+    _, model = _model(p)
+    features = {k: _rows(_t(v), mesh) for k, v in p["features"].items()}
+    with use_spmd_mesh(mesh), torch.no_grad():
+        logits, _ = model(features, is_training=False)
+    return logits
+
+
+def w_grads(mesh, p):
+    """(loss, reduced gradients) of ``train/steps.py::loss_and_grads``
+    under the mesh on this rank's rows of the payload's first batch."""
+    from easydgl_tpu_torch.core.mesh import use_spmd_mesh
+    from easydgl_tpu_torch.train.sharded import shard_state
+    from easydgl_tpu_torch.train.steps import (device_marks, init_state,
+                                               loss_and_grads)
+    _, model = _model(p)
+    shard_state(init_state(model), model, mesh)
+    features, labels = p["batches"][0]
+    feats = {k: _rows(_t(v), mesh) for k, v in features.items()}
+    labels = _rows(_t(labels), mesh)
+    mt = p.get("mark")
+    feats = device_marks(feats, labels, None if mt is None else _t(mt)
+                         .float(), is_training=True)
+    with use_spmd_mesh(mesh):
+        loss, grads = loss_and_grads(model, feats, labels)
+    return dict(loss=float(loss), grads=grads)
+
+
+def w_cli_in_world(mesh, p):
+    """``cli.train`` on this rank inside the running world (its process
+    group reused, as under torchrun), in the payload's directory."""
+    from easydgl_tpu_torch.cli import train as train_cli
+    os.chdir(p["cwd"])
+    return train_cli.main(p["argv"])
